@@ -1,0 +1,57 @@
+"""prost_tpu_torch — the PyTorch / CUDA port of prost_tpu, a framework for
+large-scale convex-concave saddle-point problems with proximal structure:
+
+    min_x max_y  g(x) + <Kx, y> - f*(y)
+
+The package mirrors ``prost_tpu``'s modules and names.  It imports torch
+and never jax (nor ``prost_tpu``).  Slice 1 covers ROF-type denoising by
+PDHG: the modeling API, the prox and linop parts it uses, the
+preconditioned Problem, the generic PDHG backend with all four step-size
+rules, the solver loop, and the fused ROF route whose two chunk kernels
+are hand-written CUDA for Hopper (``csrc/fused_rof.cu``), built by nvcc on
+first use.
+"""
+
+from .config import (ProstError, device, dtype, list_devices, set_device,
+                     set_dtype)
+from .problem import Problem, SCALING_ALPHA, SCALING_CUSTOM, SCALING_IDENTITY
+from .solver import ConvergenceResult, Solver, SolverOptions, SolverResult
+from .modeling import (
+    MinMaxProblem,
+    MinProblem,
+    SubVariable,
+    Variable,
+    backend_pdhg,
+    options,
+    solve,
+)
+from .modeling import block, function
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ProstError",
+    "dtype",
+    "set_dtype",
+    "device",
+    "list_devices",
+    "set_device",
+    "Problem",
+    "SCALING_ALPHA",
+    "SCALING_CUSTOM",
+    "SCALING_IDENTITY",
+    "ConvergenceResult",
+    "Solver",
+    "SolverOptions",
+    "SolverResult",
+    "Variable",
+    "SubVariable",
+    "MinMaxProblem",
+    "MinProblem",
+    "solve",
+    "options",
+    "backend_pdhg",
+    "function",
+    "block",
+    "__version__",
+]

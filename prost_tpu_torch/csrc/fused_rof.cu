@@ -1,0 +1,426 @@
+// Fused ROF-by-PDHG chunk kernels for NVIDIA Hopper (sm_90a).
+//
+// Replaces the two Pallas kernels on the ROF main path of the JAX package:
+//   prost_tpu/ops/fused_rof.py  rof_fused_chunk      -> _rof_chunk_kernel
+//   prost_tpu/ops/fused_rof.py  rof_fused_multichunk -> _rof_multichunk_kernel
+// whose math is _chunk_core, _rof_update, _shift_ops, _project_dead_dual,
+// _hoist_dataterm and adapt_scalars in the same file.  The plain PyTorch
+// versions of both live beside their wrappers in
+// prost_tpu_torch/ops/fused_rof.py.
+//
+// Layout (the JAX package's): x, f, w are (nx, ny) row-major f32 planes;
+// q, g are two such planes back to back, [gx; gy].
+//
+// What bounds it on this card.  The TPU kernels hold the whole state in
+// VMEM for a chunk.  A 512x512 f32 plane is 1 MiB and one iteration
+// touches about 14 planes (primal: x, 2 q, f in, x out; dual: x, 2 q, 2 g
+// in, 2 q, 2 g out), far above the 227 KB of shared memory a block can
+// use, so the state stays in device memory (and mostly in the 50 MB L2 at
+// 512x512) and every kernel is bound by memory traffic and, at this plane
+// size, by launch latency: one chunk of ri iterations is 2*ri + 3 launches.
+//
+// Design.  One thread per pixel, 32x8 blocks with threadIdx.x along the
+// contiguous y axis, so warps read and write coalesced rows.  The stencil
+// neighbours come straight from global memory through L1/L2, no shared
+// tiles (tiling with a halo is later work).  The gradient of x is carried
+// from one iteration to the next in g (saves 2 of 6 stencils), and every
+// kernel updates its planes in place: a pixel reads only its own x in the
+// primal step and only its own q and g in the dual step; neighbour reads
+// go to the plane the kernel does not write.  The scalars (tau, sigma,
+// theta, lmb, radius, adaptation state, converged flag, norms) live in a
+// small device buffer `sc`, read by every kernel: the step sizes never
+// cross to the host, and a kernel returns at once when sc[CONV] is set, so
+// the host can queue a whole multichunk launch sequence without a sync.
+// Norms are reduced in two deterministic passes (per-block tree, then one
+// block over the partials), with no atomics, so reruns are bit-stable.
+//
+// Rounding.  The build passes -fmad=false: no multiply-add is contracted
+// into an FMA, so each expression rounds in the same places as the plain
+// PyTorch version (one op per kernel there).  rsqrtf is approximate (up
+// to 2 ulp) and maps 0 to +inf; radius * inf is NaN when radius == 0, so
+// the projection guards a zero vector (its projection is itself for every
+// radius).  The remaining differences to the plain version are rsqrtf and
+// the order of the norm sums.
+//
+// Interface: plain C, loaded with ctypes; pointers and the stream arrive
+// as void*, and every entry point returns the cudaError_t of its launches.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+// scalar buffer slots, mirrored by prost_tpu_torch/ops/fused_rof.py
+enum {
+  S_TAU = 0, S_SIGMA = 1, S_THETA = 2, S_LMB = 3, S_RADIUS = 4,
+  S_ARG_ALPHA = 5, S_ARB_L = 6, S_ARB_U = 7, S_IT = 8,
+  S_TOL_RP = 9, S_TOL_RD = 10, S_TOL_AP = 11, S_TOL_AD = 12,
+  S_CONV = 13, S_DONE = 14, S_NORM = 15,  // S_NORM .. S_NORM + 3
+};
+
+enum { DT_SQUARE = 0, DT_WSQUARE = 1, DT_ABS = 2 };
+enum { STEP_NONE = 0, STEP_GOLDSTEIN = 1, STEP_BOYD = 2 };
+
+constexpr int BX = 32;
+constexpr int BY = 8;
+constexpr int NT = BX * BY;
+constexpr int FIN = 512;  // threads of the final reduction
+
+constexpr float SQRT_S = 0.7071067811865476f;  // sqrt(Sigma) = sqrt(1/2)
+constexpr float SQRT_T = 0.5f;                 // sqrt(Tau)   = sqrt(1/4)
+
+struct Planes {
+  float* x;    // (nx, ny) iterate, updated in place
+  float* q;    // (2, nx, ny) dual, updated in place
+  float* xp;   // x before the chunk's last (aligned) iteration
+  float* qp;   // q before the aligned iteration
+  float* g;    // grad x carried between iterations
+  float* gp;   // grad x_prev
+  const float* f;
+  const float* w;
+  float* sc;
+  float* partial;  // 4 per block
+  int nx, ny;
+};
+
+__device__ __forceinline__ bool pixel(int nx, int ny, int& i, int& j) {
+  j = blockIdx.x * BX + threadIdx.x;
+  i = blockIdx.y * BY + threadIdx.y;
+  return i < nx && j < ny;
+}
+
+// Adjoint stencil K^T q at (i, j).  Bounds-checked neighbours equal the
+// JAX package's maskless roll adjoint because the dead coordinates (q_x's
+// last row, q_y's last column) are zero: rof_seed zeroes them and the dual
+// step keeps them zero.
+__device__ __forceinline__ float kty_at(const float* q, int i, int j,
+                                        int ny, size_t n) {
+  size_t p = (size_t)i * ny + j;
+  float qx = q[p], qy = q[n + p];
+  float lx = i > 0 ? q[p - ny] : 0.f;
+  float ly = j > 0 ? q[n + p - 1] : 0.f;
+  return (lx - qx) + (ly - qy);
+}
+
+// Seed of a launch: g = grad x, and the dead dual coordinates zeroed
+// (_project_dead_dual at chunk entry; the dual step keeps them zero).
+// Replaces the seed stencils of _chunk_core / _rof_multichunk_kernel.
+// Bound: memory, 1 plane read, 2 written.  Runs once per launch.
+__global__ void rof_seed(const float* __restrict__ x, float* __restrict__ q,
+                         float* __restrict__ g, const float* __restrict__ sc,
+                         int nx, int ny) {
+  if (sc[S_CONV] != 0.f) return;
+  int i, j;
+  if (!pixel(nx, ny, i, j)) return;
+  size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+  float xv = x[p];
+  g[p] = i < nx - 1 ? x[p + ny] - xv : 0.f;
+  g[n + p] = j < ny - 1 ? x[p + 1] - xv : 0.f;
+  if (i == nx - 1) q[p] = 0.f;
+  if (j == ny - 1) q[n + p] = 0.f;
+}
+
+// Primal step (_rof_update, first half): x <- prox_g(x - tau/4 K^T q),
+// with the data term hoisted as in _hoist_dataterm.
+// Bound: memory, 4 planes read (x, q_x, q_y, f; +w for wsquare), 1
+// written (2 on the aligned iteration, which also saves x_prev).  The
+// q neighbours one row up are reread by the next warp row, so they come
+// from L1/L2, not device memory.
+__global__ void rof_primal(float* __restrict__ x, const float* __restrict__ q,
+                           const float* __restrict__ f,
+                           const float* __restrict__ w,
+                           float* __restrict__ xp,
+                           const float* __restrict__ sc, int nx, int ny,
+                           int dataterm, int save_prev) {
+  if (sc[S_CONV] != 0.f) return;
+  int i, j;
+  if (!pixel(nx, ny, i, j)) return;
+  size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+  float tau = sc[S_TAU] * 0.25f;  // tau * Tau
+  float lmb = sc[S_LMB];
+  float kty = kty_at(q, i, j, ny, n);
+  float xv = x[p];
+  float arg = xv - tau * kty;
+  float xn;
+  if (dataterm == DT_SQUARE) {
+    float dt0 = (tau * lmb) * f[p];
+    float dt1 = 1.f / (1.f + tau * lmb);
+    xn = (arg + dt0) * dt1;
+  } else if (dataterm == DT_WSQUARE) {
+    float tw = (tau * lmb) * w[p];
+    float dt0 = tw * f[p];
+    float dt1 = 1.f / (1.f + tw);
+    xn = (arg + dt0) * dt1;
+  } else {  // abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
+    float t = tau * lmb;
+    float d = arg - f[p];
+    xn = arg - fminf(fmaxf(d, -t), t);
+  }
+  if (save_prev) xp[p] = xv;
+  x[p] = xn;
+}
+
+// Dual step (_rof_update, second half): q <- proj_{|.|<=r}(q + sig_p grad
+// x_new - sig_t grad x), grad x_new carried into g.
+// Bound: memory, 5 planes read (x, q, g), 4 written (8 on the aligned
+// iteration, which saves q_prev and grad x_prev).  Carrying g saves the
+// two stencils of grad x_old that the extrapolation would need.
+__global__ void rof_dual(const float* __restrict__ x, float* __restrict__ q,
+                         float* __restrict__ g, float* __restrict__ qp,
+                         float* __restrict__ gp, const float* __restrict__ sc,
+                         int nx, int ny, int save_prev) {
+  if (sc[S_CONV] != 0.f) return;
+  int i, j;
+  if (!pixel(nx, ny, i, j)) return;
+  size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+  float sigma_p = sc[S_SIGMA] * 0.5f;  // sigma * Sigma
+  float theta = sc[S_THETA];
+  float sig_p = sigma_p * (1.f + theta);
+  float sig_t = sigma_p * theta;
+  float xv = x[p];
+  float gxn = i < nx - 1 ? x[p + ny] - xv : 0.f;
+  float gyn = j < ny - 1 ? x[p + 1] - xv : 0.f;
+  float qx = q[p], qy = q[n + p], gx = g[p], gy = g[n + p];
+  float ax = (qx + sig_p * gxn) - sig_t * gx;
+  float ay = (qy + sig_p * gyn) - sig_t * gy;
+  float nn = ax * ax + ay * ay;
+  float scale = nn > 0.f ? fminf(1.f, sc[S_RADIUS] * rsqrtf(nn)) : 1.f;
+  if (save_prev) {
+    qp[p] = qx;
+    qp[n + p] = qy;
+    gp[p] = gx;
+    gp[n + p] = gy;
+  }
+  q[p] = ax * scale;
+  q[n + p] = ay * scale;
+  g[p] = gxn;
+  g[n + p] = gyn;
+}
+
+// First pass of the four preconditioned residual norms (_chunk_core after
+// the aligned iteration): per-block tree sums of |pd|^2, |z_hat|^2,
+// |dd|^2, |w_hat|^2 into partial[4 * block].
+// Bound: memory, 10 planes read once per chunk; the tree sum in shared
+// memory replaces the TPU kernel's whole-plane jnp.sum into SMEM.
+__global__ void rof_norm_partial(Planes b) {
+  if (b.sc[S_CONV] != 0.f) return;
+  __shared__ float red[4][NT];
+  int t = threadIdx.y * BX + threadIdx.x;
+  int i, j;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (pixel(b.nx, b.ny, i, j)) {
+    int ny = b.ny;
+    size_t n = (size_t)b.nx * ny, p = (size_t)i * ny + j;
+    float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
+    float theta = b.sc[S_THETA];
+    float inv_s = 1.f / (sigma_raw * SQRT_S);
+    float inv_t = 1.f / (tau_raw * SQRT_T);
+    float kty2 = kty_at(b.q, i, j, ny, n);
+    float ktyp = kty_at(b.qp, i, j, ny, n);
+    float zx = (b.qp[p] - b.q[p]) * inv_s
+               + SQRT_S * ((1.f + theta) * b.g[p] - theta * b.gp[p]);
+    float zy = (b.qp[n + p] - b.q[n + p]) * inv_s
+               + SQRT_S * ((1.f + theta) * b.g[n + p] - theta * b.gp[n + p]);
+    float pdx = zx - SQRT_S * b.g[p];
+    float pdy = zy - SQRT_S * b.g[n + p];
+    float wh = (b.xp[p] - b.x[p]) * inv_t - SQRT_T * ktyp;
+    float dd = wh + SQRT_T * kty2;
+    v[0] = pdx * pdx + pdy * pdy;
+    v[1] = zx * zx + zy * zy;
+    v[2] = dd * dd;
+    v[3] = wh * wh;
+  }
+  for (int k = 0; k < 4; ++k) red[k][t] = v[k];
+  __syncthreads();
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    if (t < s)
+      for (int k = 0; k < 4; ++k) red[k][t] += red[k][t + s];
+    __syncthreads();
+  }
+  if (t == 0) {
+    int blk = blockIdx.y * gridDim.x + blockIdx.x;
+    for (int k = 0; k < 4; ++k) b.partial[4 * blk + k] = red[k][0];
+  }
+}
+
+struct AdaptConsts {
+  float sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta, arb_tau;
+};
+
+// Second pass, one block: the four squared norms in a fixed order.  With
+// `adapt` set (multichunk) thread 0 then runs adapt_scalars: the same f32
+// operations in the same order as the JAX package's, with the iteration
+// counter as f32 (exact below 2^24), and advances the chunk counters.
+// Bound: launch latency (a few KB of partials); it is what lets the
+// multichunk keep its step sizes and stopping test on the device, where
+// the TPU kernel ran them on SMEM scalars between chunks.
+__global__ void rof_finish(float* __restrict__ sc,
+                           const float* __restrict__ partial, int nblocks,
+                           int count, int adapt, int stepsize,
+                           AdaptConsts c) {
+  if (sc[S_CONV] != 0.f) return;
+  __shared__ float red[4][FIN];
+  int t = threadIdx.x;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int blk = t; blk < nblocks; blk += FIN)
+    for (int k = 0; k < 4; ++k) acc[k] += partial[4 * blk + k];
+  for (int k = 0; k < 4; ++k) red[k][t] = acc[k];
+  __syncthreads();
+  for (int s = FIN / 2; s > 0; s >>= 1) {
+    if (t < s)
+      for (int k = 0; k < 4; ++k) red[k][t] += red[k][t + s];
+    __syncthreads();
+  }
+  if (t != 0) return;
+  if (!adapt) {  // rof_chunk: squared norms out, adaptation on the host side
+    for (int k = 0; k < 4; ++k) sc[S_NORM + k] = red[k][0];
+    return;
+  }
+  float pr = sqrtf(red[0][0]), pn = sqrtf(red[1][0]);
+  float dr = sqrtf(red[2][0]), dn = sqrtf(red[3][0]);
+  float it = sc[S_IT] + (float)(count - 1);  // pre-increment counter
+  float eps_pri = c.sqrt_nrows * sc[S_TOL_AP] + sc[S_TOL_RP] * pn;
+  float eps_dua = c.sqrt_ncols * sc[S_TOL_AD] + sc[S_TOL_RD] * dn;
+  bool conv = (pr < eps_pri) && (dr < eps_dua);
+  float tau = sc[S_TAU], sigma = sc[S_SIGMA], aa = sc[S_ARG_ALPHA];
+  float al = sc[S_ARB_L], au = sc[S_ARB_U];
+  if (stepsize == STEP_GOLDSTEIN) {
+    float scale = eps_dua / eps_pri;
+    bool up = dr > scale * pr * c.arg_delta;
+    bool dn_ = dr < scale * pr / c.arg_delta;
+    float fac = 1.f - aa;
+    tau = up ? tau / fac : (dn_ ? tau * fac : tau);
+    sigma = up ? sigma * fac : (dn_ ? sigma / fac : sigma);
+    aa = (up || dn_) ? aa * c.arg_nu : aa;
+  } else if (stepsize == STEP_BOYD) {
+    bool c1 = (dr < eps_dua) && (c.arb_tau * it > al);
+    bool c2 = (pr < eps_pri) && (c.arb_tau * it > au) && !c1;
+    tau = c1 ? tau / c.arb_delta : (c2 ? tau * c.arb_delta : tau);
+    sigma = c1 ? sigma * c.arb_delta : (c2 ? sigma / c.arb_delta : sigma);
+    au = c1 ? it : au;
+    al = c2 ? it : al;
+  }
+  sc[S_TAU] = tau;
+  sc[S_SIGMA] = sigma;
+  sc[S_ARG_ALPHA] = aa;
+  sc[S_ARB_L] = al;
+  sc[S_ARB_U] = au;
+  sc[S_NORM + 0] = pr;
+  sc[S_NORM + 1] = pn;
+  sc[S_NORM + 2] = dr;
+  sc[S_NORM + 3] = dn;
+  sc[S_DONE] += 1.f;
+  sc[S_IT] += (float)count;
+  sc[S_CONV] = conv ? 1.f : 0.f;  // last: the other threads have read it
+}
+
+#define LAUNCH_CHECK()                                  \
+  do {                                                  \
+    cudaError_t e_ = cudaGetLastError();                \
+    if (e_ != cudaSuccess) return (int)e_;              \
+  } while (0)
+
+dim3 grid_of(int nx, int ny) {
+  return dim3((ny + BX - 1) / BX, (nx + BY - 1) / BY);
+}
+
+// One chunk of `count` iterations without the seed: count-1 plain
+// iterations, the aligned iteration saving x_prev / q_prev / grad x_prev,
+// and the per-block norm partials.
+int chunk_body(const Planes& b, int count, int dataterm, cudaStream_t s) {
+  dim3 grid = grid_of(b.nx, b.ny), block(BX, BY);
+  for (int k = 0; k < count; ++k) {
+    int last = k == count - 1;
+    rof_primal<<<grid, block, 0, s>>>(b.x, b.q, b.f, b.w, b.xp, b.sc, b.nx,
+                                      b.ny, dataterm, last);
+    LAUNCH_CHECK();
+    rof_dual<<<grid, block, 0, s>>>(b.x, b.q, b.g, b.qp, b.gp, b.sc, b.nx,
+                                    b.ny, last);
+    LAUNCH_CHECK();
+  }
+  rof_norm_partial<<<grid, block, 0, s>>>(b);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+Planes planes_of(void* x, void* q, void* xp, void* qp, void* g, void* gp,
+                 const void* f, const void* w, void* sc, void* partial,
+                 int nx, int ny) {
+  Planes b;
+  b.x = (float*)x;
+  b.q = (float*)q;
+  b.xp = (float*)xp;
+  b.qp = (float*)qp;
+  b.g = (float*)g;
+  b.gp = (float*)gp;
+  b.f = (const float*)f;
+  b.w = (const float*)w;
+  b.sc = (float*)sc;
+  b.partial = (float*)partial;
+  b.nx = nx;
+  b.ny = ny;
+  return b;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of per-block norm partials (4 floats each) for an (nx, ny) plane.
+int prost_rof_num_blocks(int nx, int ny) {
+  dim3 g = grid_of(nx, ny);
+  return (int)(g.x * g.y);
+}
+
+const char* prost_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// rof_fused_chunk: `count` iterations on (x, q) in place, x_prev / q_prev
+// of the aligned iteration into (xp, qp), the 4 SQUARED norms into
+// sc[S_NORM..].  No-op when sc[S_CONV] is set.
+int prost_rof_chunk(void* x, void* q, void* xp, void* qp, void* g, void* gp,
+                    const void* f, const void* w, void* sc, void* partial,
+                    int nx, int ny, int count, int dataterm, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  Planes b = planes_of(x, q, xp, qp, g, gp, f, w, sc, partial, nx, ny);
+  dim3 grid = grid_of(nx, ny), block(BX, BY);
+  rof_seed<<<grid, block, 0, s>>>(b.x, b.q, b.g, b.sc, nx, ny);
+  LAUNCH_CHECK();
+  int rc = chunk_body(b, count, dataterm, s);
+  if (rc) return rc;
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  rof_finish<<<1, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
+                               count, 0, STEP_NONE, none);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// rof_fused_multichunk: up to k_chunks chunks, the gradient carried across
+// chunks, adaptation + stopping test on the device after each chunk, and
+// every kernel after convergence returning at once (the lax.cond skip).
+// sc[S_NORM..] ends with the last executed chunk's sqrt'd norms.
+int prost_rof_multichunk(void* x, void* q, void* xp, void* qp, void* g,
+                         void* gp, const void* f, const void* w, void* sc,
+                         void* partial, int nx, int ny, int count,
+                         int k_chunks, int dataterm, int stepsize,
+                         float sqrt_nrows, float sqrt_ncols, float arg_delta,
+                         float arg_nu, float arb_delta, float arb_tau,
+                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  Planes b = planes_of(x, q, xp, qp, g, gp, f, w, sc, partial, nx, ny);
+  dim3 grid = grid_of(nx, ny), block(BX, BY);
+  AdaptConsts c = {sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta,
+                   arb_tau};
+  rof_seed<<<grid, block, 0, s>>>(b.x, b.q, b.g, b.sc, nx, ny);
+  LAUNCH_CHECK();
+  for (int k = 0; k < k_chunks; ++k) {
+    int rc = chunk_body(b, count, dataterm, s);
+    if (rc) return rc;
+    rof_finish<<<1, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
+                                 count, 1, stepsize, c);
+    LAUNCH_CHECK();
+  }
+  return 0;
+}
+
+}  // extern "C"

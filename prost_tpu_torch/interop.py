@@ -1,0 +1,81 @@
+"""Hand-over between the JAX package and the port, through numpy only.
+
+* ``pdhg_state_from_numpy`` builds the port's ``PDHGState`` from the fields
+  of a JAX ``PDHGState`` given as numpy arrays, so both packages can go on
+  from the same point;
+* ``pdhg_state_to_numpy`` is its inverse;
+* ``problem_arrays`` lists a finalized problem's preconditioners and prox
+  coefficients as numpy, so a test can check that both packages finalize
+  the same problem.  It reads attributes only, so it takes a JAX
+  ``Problem`` as well as the port's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .backend.pdhg import PDHGState
+from .common import to_numpy
+from .config import dtype as config_dtype
+
+_VECTORS = ("x", "y", "kx", "kty", "x_prev", "y_prev", "kx_prev", "kty_prev")
+
+
+def pdhg_state_from_numpy(fields: dict, device) -> PDHGState:
+    """The port's state on ``device`` from numpy fields: vectors and
+    scalars in the configured dtype, ``iteration`` int32, ``converged``
+    bool.  Every field of ``PDHGState`` must be present."""
+    dt = config_dtype()
+    out = {}
+    for f in dataclasses.fields(PDHGState):
+        v = np.asarray(fields[f.name])
+        if f.name == "iteration":
+            t = torch.as_tensor(v.astype(np.int32))
+        elif f.name == "converged":
+            t = torch.as_tensor(v.astype(bool))
+        else:
+            t = torch.as_tensor(v.astype(np.float64)).to(dt)
+        out[f.name] = t.reshape(-1) if f.name in _VECTORS else t.reshape(())
+        out[f.name] = out[f.name].to(device)
+    return PDHGState(**out)
+
+
+def pdhg_state_to_numpy(state) -> dict:
+    """Every field of a ``PDHGState`` as a numpy array."""
+    return {f.name: to_numpy(getattr(state, f.name))
+            for f in dataclasses.fields(state)}
+
+
+def _coeff(v):
+    if isinstance(v, (int, float)):
+        return float(v)
+    return to_numpy(v)
+
+
+def _prox_arrays(p) -> dict:
+    out = {"type": type(p).__name__, "index": int(p.index),
+           "size": int(p.size)}
+    for name in ("fun", "count", "dim", "interleaved"):
+        if hasattr(p, name):
+            out[name] = getattr(p, name)
+    if getattr(p, "coeffs", None):
+        out["coeffs"] = tuple(_coeff(c) for c in p.coeffs)
+    if getattr(p, "child", None) is not None:
+        out["child"] = _prox_arrays(p.child)
+    return out
+
+
+def problem_arrays(problem) -> dict:
+    """Preconditioners and prox structure/coefficients of a finalized
+    problem, as numpy arrays and Python values."""
+    out = {"nrows": int(problem.nrows), "ncols": int(problem.ncols),
+           "scaling_left": to_numpy(problem.scaling_left),
+           "scaling_right": to_numpy(problem.scaling_right)}
+    for side in ("prox_g", "prox_f", "prox_gstar", "prox_fstar"):
+        out[side] = [_prox_arrays(p)
+                     for p in sorted(getattr(problem, side),
+                                     key=lambda q: q.index)]
+    return out

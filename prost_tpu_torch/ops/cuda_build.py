@@ -1,0 +1,94 @@
+"""Build and load the package's CUDA kernels.
+
+Each ``csrc/*.cu`` file has a plain C interface.  On first use it is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``prost_tpu_torch/_build/`` (ignored by git), named by the hash of its
+source so a stale build is never loaded, and loaded with ``ctypes``.
+Nothing here runs when the package is imported, and nothing falls back:
+a missing ``nvcc`` or a failed compile raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+from ..config import ProstError
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no multiply-add contraction: each expression rounds where the plain
+    # PyTorch version of the kernel rounds
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+class CudaLibrary:
+    """A built kernel library: the ctypes handle, the build's wall time in
+    seconds (0.0 when an earlier process had built it) and the compiler's
+    report (registers, shared memory, spills per kernel)."""
+
+    def __init__(self, lib, seconds: float, log: str, path: str):
+        self.lib = lib
+        self.seconds = seconds
+        self.log = log
+        self.path = path
+
+
+_lock = threading.Lock()
+_loaded: dict[str, CudaLibrary] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for cand in (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None,
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise ProstError("nvcc not found: the CUDA kernels cannot be built.")
+
+
+def load(name: str) -> CudaLibrary:
+    """Build (once per source version) and load ``csrc/<name>.cu``."""
+    with _lock:
+        if name in _loaded:
+            return _loaded[name]
+        src = os.path.join(CSRC, f"{name}.cu")
+        with open(src, "rb") as fh:
+            digest = hashlib.sha256(
+                fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        path = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+        log_path = path[:-3] + ".log"
+        seconds = 0.0
+        if not os.path.exists(path):
+            # build to a private name, then rename: concurrent processes
+            # (test workers) never load a half-written library
+            tmp = f"{path}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                  capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise ProstError(f"nvcc failed on {src}:\n{proc.stderr}")
+            with open(log_path, "w") as fh:
+                fh.write(proc.stderr)
+            os.replace(tmp, path)
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path) as fh:
+                log = fh.read()
+        built = CudaLibrary(ctypes.CDLL(path), seconds, log, path)
+        _loaded[name] = built
+        return built

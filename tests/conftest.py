@@ -38,3 +38,8 @@ def _clear_jax_caches_per_module():
     import jax
 
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skipped without one")

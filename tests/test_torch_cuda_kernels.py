@@ -1,0 +1,159 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a CUDA card (the
+kernels have no CPU mode).  The file imports torch and the port only, so
+it also runs where JAX is not installed; on such a machine run it without
+the suite's conftest (which configures JAX):
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+
+Tolerances (f32 on the card, kernels built with -fmad=false): planes 2e-5
+absolute, the kernels' rsqrtf may round the ball projection differently
+from torch.rsqrt; norms 1e-4 relative, block-tree sums against torch.sum.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import prost_tpu_torch as ptt
+from prost_tpu_torch.backend import PDHGOptions
+from prost_tpu_torch.ops import FusedROFPDHG
+from prost_tpu_torch.ops import fused_rof as fr
+
+pytestmark = pytest.mark.cuda
+
+PLANE_ATOL, NORM_RTOL = 2e-5, 1e-4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _inputs(seed, nx, ny, dev):
+    rng = np.random.RandomState(seed)
+    x = rng.rand(nx, ny).astype(np.float32)
+    q = (0.3 * rng.randn(2, nx, ny)).astype(np.float32)
+    f = rng.rand(nx, ny).astype(np.float32)
+    w = (rng.rand(nx, ny) > 0.3).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (x, q, f, w)]
+
+
+def _consts(nx, ny):
+    return (float(np.sqrt(2 * nx * ny)), float(np.sqrt(nx * ny)), 1.5, 0.95,
+            1.05, 0.8)
+
+
+def _close(out, ref, n_planes=4):
+    for a, b in zip(out[:n_planes], ref[:n_planes]):
+        torch.testing.assert_close(a, b, atol=PLANE_ATOL, rtol=0)
+    for a, b in zip(out[n_planes:], ref[n_planes:]):
+        torch.testing.assert_close(a, b, rtol=NORM_RTOL, atol=1e-7)
+
+
+@pytest.mark.parametrize("dataterm", ["square", "wsquare", "abs"])
+@pytest.mark.parametrize("ri", [1, 10])
+def test_rof_chunk_matches_plain(dev, dataterm, ri):
+    x, q, f, w = _inputs(5, 300, 200, dev)  # nx != ny, ragged blocks
+    scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0], device=dev)
+    before = fr.launch_counts["rof_chunk"]
+    out = fr.rof_chunk(x, q, f, w, scal, ri, dataterm)
+    ref = fr.rof_chunk_plain(x, q, f, w, scal, ri, dataterm)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["rof_chunk"] == before + 1
+    assert all(t.is_cuda for t in out)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("stepsize,tol", [
+    ("alg1", 0.0), ("goldstein", 2e-3), ("boyd", 2e-3), ("boyd", 0.0)])
+def test_rof_multichunk_matches_plain(dev, stepsize, tol):
+    x, _, f, w = _inputs(6, 300, 200, dev)
+    q = torch.zeros(2, 300, 200, device=dev)
+    scal = torch.tensor([1.0, 1.0, 1.0, 16.0, 1.0, 0.5, 0.0, 0.0, 1.0,
+                         tol, tol, tol, tol], device=dev)
+    before = fr.launch_counts["rof_multichunk"]
+    out = fr.rof_multichunk(x, q, f, w, scal, 10, 8, "square", stepsize,
+                            _consts(300, 200))
+    ref = fr.rof_multichunk_plain(x, q, f, w, scal, 10, 8, "square",
+                                  stepsize, _consts(300, 200))
+    torch.cuda.synchronize()
+    assert fr.launch_counts["rof_multichunk"] == before + 1
+    _close(out, ref)
+    # converged flag and executed-chunk count exactly
+    assert out[5][5:].tolist() == ref[5][5:].tolist()
+
+
+def test_converged_at_entry_returns_the_inputs(dev):
+    x, q, f, w = _inputs(3, 64, 48, dev)
+    c = fr.rof_chunk(x, q, f, w, torch.tensor(
+        [0.9, 1.1, 1.0, 8.0, 1.0, 1.0], device=dev), 5)
+    for a, b in zip(c[:4], (x, q, x, q)):
+        assert torch.equal(a, b)
+    assert c[4].abs().sum().item() == 0.0
+    scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0, 0.5, 2.0, 3.0, 11.0,
+                         1e-3, 1e-3, 1e-3, 1e-3, 1.0], device=dev)
+    m = fr.rof_multichunk(x, q, f, w, scal, 5, 8, "square", "boyd",
+                          _consts(64, 48))
+    for a, b in zip(m[:4], (x, q, x, q)):
+        assert torch.equal(a, b)
+    ref = fr.rof_multichunk_plain(x, q, f, w, scal, 5, 8, "square", "boyd",
+                                  _consts(64, 48))
+    assert m[5].tolist() == ref[5].tolist()
+
+
+def test_kernels_refuse_what_they_do_not_take(dev):
+    x, q, f, w = _inputs(1, 32, 32, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0], device=dev)
+    with pytest.raises(ptt.ProstError, match="float32"):
+        fr.rof_chunk(x.double(), q, f, w, scal, 3)
+    with pytest.raises(ptt.ProstError, match="one device"):
+        fr.rof_chunk(x, q.cpu(), f, w, scal, 3)
+
+
+def _tv_problem(nx, ny, device):
+    n = nx * ny
+    f = np.random.RandomState(2).rand(n)
+    u, q = ptt.Variable(n), ptt.Variable(2 * n)
+    prob = ptt.MinMaxProblem([u], [q])
+    prob.add_function(u, ptt.function.sum_1d("square", 1, f, 16.0))
+    prob.add_function(q, ptt.function.conjugate(
+        ptt.function.sum_norm2(2, False, "abs")))
+    prob.add_dual_pair(u, q, ptt.block.gradient2d(nx, ny, 1))
+    return prob.finalize().to(device)
+
+
+@pytest.mark.parametrize("stepsize", ["alg1", "boyd"])
+def test_fused_backend_on_card_matches_cpu(dev, stepsize):
+    """The whole fused route on the card (both kernels, the phase plan,
+    convergence inside a multichunk launch) against the same route on the
+    CPU with the plain versions."""
+    t = 2e-4
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=t,
+                              tol_rel_dual=t, tol_abs_primal=t,
+                              tol_abs_dual=t)
+    opts = PDHGOptions(stepsize=stepsize, residual_iter=5,
+                       scale_steps_operator=False)
+    fr.reset_launch_counts()
+    states = []
+    for device in (dev, torch.device("cpu")):
+        b = FusedROFPDHG(_tv_problem(48, 40, device), opts, sopts)
+        s = b.run(b.initial_state(), 57, 0)
+        s = b.run(s, 1200, int(s.iteration))
+        states.append(s)
+    assert fr.launch_counts["rof_chunk"] > 0
+    assert fr.launch_counts["rof_multichunk"] > 0
+    gpu, cpu = states
+    assert bool(gpu.converged) and bool(cpu.converged)
+    assert int(gpu.iteration) == int(cpu.iteration) < 1200
+    for f in dataclasses.fields(gpu):
+        a, b = getattr(gpu, f.name), getattr(cpu, f.name)
+        assert a.is_cuda, f.name
+        if a.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3,
+                                       msg=f.name)
