@@ -5,24 +5,39 @@
 
 Phases (any failure ends the run with a traceback and a non-zero exit):
 
-1. build the fused ROF kernels from prost_tpu_torch/csrc with nvcc (sm_90a);
-2. check each kernel against its plain PyTorch version on the card, on the
-   same inputs: ``rof_chunk`` at 512x512 and 2048x1536 for the square,
+1. build both kernel libraries from prost_tpu_torch/csrc with nvcc
+   (sm_90a), one nvcc process each, all started together;
+2. check each ROF kernel against its plain PyTorch version on the card, on
+   the same inputs: ``rof_chunk`` at 512x512 and 2048x1536 for the square,
    wsquare and abs data terms (ri = 10), ``rof_multichunk`` with alg1 and
-   boyd (k = 8, ri = 10), and time both versions at 512x512;
-3. solve ROF denoising at 512x512 through the modeling API with the fused
-   route (boyd, residual_iter = 10), count the kernels' launches in that
-   run, and hold its energy against the generic PDHG path on the same card
-   and against its own primal-dual gap.
+   boyd (k = 8, ri = 10) at 512x512 and with alg1 at 2048x2048, and time
+   both versions at 512x512;
+3. the same for the ADMM kernels: ``admm_chunk`` with the Chebyshev and
+   the CGLS projection at 512x512 and 2048x2048 for the three data terms
+   (ri = 10), ``admm_multichunk`` at 512x512 (k = 8, ri = 10) without a
+   stop and with tolerances under which rho adapts, and time both versions
+   at 512x512;
+4. solve ROF denoising at 512x512 through the modeling API with the fused
+   PDHG route (boyd, residual_iter = 10), count the kernels' launches in
+   that run, and hold its energy against the generic PDHG path on the same
+   card and against its own primal-dual gap;
+5. solve the same model with ``backend_admm(residual_iter=10)`` (the fused
+   ADMM route, Chebyshev projection), count its launches, and hold its
+   energy against the generic ADMM backend with the same projection and
+   against the PDHG solve's energy; time the generic CGLS ADMM backend
+   beside it;
+6. run a few hundred iterations of both fused routes at 2048x2048, where
+   the JAX package bands its kernels: both launch, stay on the card and
+   stay finite.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it lists each kernel with its launches, error and times.
+line before it is the card's name and power limit, and the line before
+that lists each kernel with its launches, error, times and bound.
 Without a CUDA card the script exits non-zero before printing a result.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import subprocess
 import sys
@@ -42,6 +57,47 @@ NORM_RTOL = 1e-4    # sums of ~3e6 squares in f32
 # stopping rule, f32 rounding differs; energies relative.
 ENERGY_RTOL = 1e-4
 GAP_PER_PX = 1e-4   # primal-dual gap per pixel at the stopping tolerance
+# ADMM kernels with the CGLS projection: every CG step's alpha and beta
+# come from whole-plane sums taken in another order (block trees vs
+# torch.sum), and ten CG steps per iteration carry that into the iterates.
+CGLS_PLANE_ATOL = 5e-5
+# admm_multichunk's residual norms after 80 iterations are norms of
+# differences of nearby iterates, which lose digits to cancellation.
+MC_NORM_RTOL = 1e-3
+# ADMM vs PDHG on the same model: neither reaches the 1e-5 stopping
+# tolerance in 2000 iterations, so what bounds their distance is how far
+# each still is from the optimum.  The PDHG solve's primal-dual gap
+# certifies its own distance: 3.832e-05 per pixel on an H100 (PERF.md),
+# 10.0 of the ~5804 of this energy, 1.7e-3 relative.  The ADMM energy is
+# held to that band about the PDHG energy (2e-3 relative, inside the 5e-3
+# the JAX package's tests allow between the two backends), and above the
+# PDHG solve's dual energy, which no primal energy can undercut.
+ADMM_VS_PDHG_RTOL = 2e-3
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
+# FP32 outside the tensor cores.  A kernel's bound is the larger of its
+# bytes over the first and its operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Floating-point operations per pixel, counted from the algorithm that the
+# kernels (csrc/*.cu) run, square data term: each +, -, *, /, sqrt, rsqrt,
+# min and max on a plane value counts one; scalar set-up, index arithmetic
+# and values a kernel recomputes at a neighbour (t1, x_proj, and the
+# neighbours' differences inside M) do not.
+#   PDHG iteration: K^T q 3, primal step 5, grad x 2, extrapolation 8,
+#   ball projection 8.  Residual norms of a chunk: 42.
+#   ADMM iteration at Chebyshev degree d: t1 5, grad t1 2, t2 4, d 4;
+#   Chebyshev head (c_K grad^T d 4, M(u0) 7, r and v 2) 13; each of its
+#   d - 1 steps 12 (M(v) 7: two differences, their divergence 3, scale,
+#   add; x, r, v 5); update 26 (u 1, x_proj 2, z_proj 2, x_dual 2, z_dual
+#   4, prox_g 4, shrink 11).  Residual norms 35, the dual rescale of a
+#   multichunk's chunk 3.
+ROF_ITER_OPS, ROF_NORM_OPS = 26, 42
+ADMM_NORM_OPS, ADMM_RESCALE_OPS = 35, 3
+
+
+def admm_iter_ops(degree):
+    return 54 + 12 * (degree - 1)
 
 
 def check(cond, msg):
@@ -108,17 +164,30 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` and do ``ops`` FP32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from prost_tpu_torch.ops import cuda_build
 
+    names = ("fused_rof", "fused_admm")
     t0 = time.perf_counter()
-    built = cuda_build.load("fused_rof")
-    wall = time.perf_counter() - t0
-    print(f"build: fused_rof.cu nvcc {built.seconds:.2f} s, load {wall:.2f} s"
-          f" ({built.path}; compiler report beside it)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
+        built = dict(zip(names, pool.map(cuda_build.load, names)))
+    print(f"build: both libraries in {time.perf_counter() - t0:.2f} s wall")
+    for name, lib in built.items():
+        print(f"build: {name}.cu nvcc {lib.seconds:.2f} s ({lib.path}; "
+              "compiler report beside it)")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
 
 
 def phase_kernels(dev):
@@ -188,9 +257,151 @@ def phase_kernels(dev):
                 lambda: fr.rof_multichunk_plain(x, q, x, w, scal, 10, 8,
                                                 "square", stepsize, consts),
                 3)
+            rows["rof_multichunk"]["bound"] = bound(
+                10 * 512 * 512 * 4,
+                8 * 512 * 512 * (10 * ROF_ITER_OPS + ROF_NORM_OPS))
+
+    # row 5 of the kernel table: the plane the JAX package bands
+    nx = ny = 2048
+    x = torch.from_numpy(test_image(nx, ny)).to(dev)
+    q = torch.zeros((2, nx, ny), device=dev)
+    w = torch.ones_like(x)
+    consts = (np.sqrt(2 * nx * ny), np.sqrt(nx * ny), 1.5, 0.95, 1.05, 0.8)
+    scal = torch.tensor([1.0, 1.0, 1.0, 16.0, 1.0, 0.5, 0.0, 0.0, 1.0,
+                         0.0, 0.0, 0.0, 0.0], device=dev)
+    out = fr.rof_multichunk(x, q, x, w, scal, 10, 8, "square", "alg1",
+                            consts)
+    ref = fr.rof_multichunk_plain(x, q, x, w, scal, 10, 8, "square", "alg1",
+                                  consts)
+    torch.cuda.synchronize()
+    plane, rel = max_errs(out, ref)
+    print(f"rof_multichunk {nx}x{ny} alg1: max abs err planes {plane:.3e} "
+          f"(tol {PLANE_ATOL:g}), max rel err norms+scalars {rel:.3e} "
+          f"(tol {NORM_RTOL:g})")
+    check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
+          "rof_multichunk 2048x2048 disagrees with its plain version")
+    rows["rof_multichunk"]["err"] = max(rows["rof_multichunk"]["err"], plane)
+
+    # rof_chunk's timed call: square, 512x512, ri 10; x, q, f in and x, q,
+    # x_prev, q_prev out
+    rows["rof_chunk"]["bound"] = bound(
+        10 * 512 * 512 * 4, 512 * 512 * (10 * ROF_ITER_OPS + ROF_NORM_OPS))
     for name, r in rows.items():
         print(f"{name} 512x512: kernel {r['ms']:.4f} ms/call, plain "
-              f"{r['plain_ms']:.4f} ms/call")
+              f"{r['plain_ms']:.4f} ms/call, bound {r['bound'][0]:.5f} ms "
+              f"({r['bound'][1]})")
+    return rows
+
+
+def admm_kernel_inputs(nx, ny, seed, dev):
+    """The seven ADMM state arrays (mass on the dead z coordinates, which
+    both versions zero at entry), f and w."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    arrs = [rng.rand(nx, ny) for _ in range(3)]
+    arrs += [0.3 * rng.randn(2, nx, ny) for _ in range(3)]
+    arrs += [0.1 * rng.randn(nx, ny), rng.rand(nx, ny),
+             rng.rand(nx, ny) > 0.3]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+def phase_admm_kernels(dev):
+    import torch
+
+    from prost_tpu_torch.ops import fused_admm as fa
+
+    rows = {"admm_chunk": {"err": 0.0}, "admm_multichunk": {"err": 0.0}}
+    ri, alpha, degree = 10, 1.7, 10
+    seed = 100
+    for nx in (512, 2048):
+        for dataterm in ("square", "wsquare", "abs"):
+            for deg in (degree, None):
+                *planes, f, w = admm_kernel_inputs(nx, nx, seed, dev)
+                seed += 1
+                scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+                tols = 1e-3 / torch.arange(1, ri + 1, device=dev,
+                                           dtype=torch.float32) ** 1.3
+                out = fa.admm_chunk(*planes, f, w, scal, tols, ri, 10, alpha,
+                                    dataterm, deg)
+                ref = fa.admm_chunk_plain(*planes, f, w, scal, tols, ri, 10,
+                                          alpha, dataterm, deg)
+                torch.cuda.synchronize()
+                plane, rel = max_errs(out, ref, n_planes=7)
+                tol = PLANE_ATOL if deg else CGLS_PLANE_ATOL
+                mode = f"cheby{deg}" if deg else "cgls"
+                print(f"admm_chunk {nx}x{nx} {dataterm} {mode}: max abs err "
+                      f"planes {plane:.3e} (tol {tol:g}), max rel err norms "
+                      f"{rel:.3e} (tol {NORM_RTOL:g})")
+                check(plane <= tol and rel <= NORM_RTOL,
+                      f"admm_chunk {nx}x{nx} {dataterm} {mode} disagrees "
+                      "with its plain version")
+                check(all(bool(torch.isfinite(t).all()) for t in out),
+                      "admm_chunk produced non-finite values")
+                rows["admm_chunk"]["err"] = max(rows["admm_chunk"]["err"],
+                                                plane)
+                if nx == 512 and dataterm == "square" and deg:
+                    rows["admm_chunk"]["ms"] = time_ms(
+                        lambda: fa.admm_chunk(*planes, f, w, scal, None, ri,
+                                              10, alpha, dataterm, deg), 50)
+                    rows["admm_chunk"]["plain_ms"] = time_ms(
+                        lambda: fa.admm_chunk_plain(*planes, f, w, scal,
+                                                    None, ri, 10, alpha,
+                                                    dataterm, deg), 5)
+
+    # a solve's start (x_half = f = the test image, the rest zero); with
+    # tolerance 2e-3 rho adapts and the launch converges in chunk 7
+    nx = ny = 512
+    n = nx * ny
+    f = torch.from_numpy(test_image(nx, ny)).to(dev)
+    zero = torch.zeros_like(f)
+    z = torch.zeros((2, nx, ny), device=dev)
+    planes = [f, zero, zero, z, z, z, zero]
+    consts = (np.sqrt(2 * n), np.sqrt(n), 0.8, 1.01)
+    for tol in (0.0, 2e-3):
+        scal = torch.tensor([1.0, 16.0, 1.0, 1.05, 0.0, 0.0, 0.0,
+                             tol, tol, tol, tol], device=dev)
+        out = fa.admm_multichunk(*planes, f, f, scal, ri, 8, alpha, degree,
+                                 consts)
+        ref = fa.admm_multichunk_plain(*planes, f, f, scal, ri, 8, alpha,
+                                       degree, consts)
+        torch.cuda.synchronize()
+        plane, nrel = max_errs(out[:8], ref[:8], n_planes=7)
+        _, srel = max_errs(out[7:], ref[7:], n_planes=1)
+        print(f"admm_multichunk {nx}x{ny} tol {tol:g}: max abs err planes "
+              f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms "
+              f"{nrel:.3e} (tol {MC_NORM_RTOL:g}), scalars {srel:.3e} (tol "
+              f"{NORM_RTOL:g}); sout kernel {out[8].tolist()} plain "
+              f"{ref[8].tolist()}")
+        check(plane <= PLANE_ATOL and nrel <= MC_NORM_RTOL
+              and srel <= NORM_RTOL,
+              f"admm_multichunk tol {tol:g} disagrees with its plain version")
+        check(out[8][4:].tolist() == ref[8][4:].tolist(),
+              "admm_multichunk's converged flag or chunk count disagrees")
+        if tol > 0:
+            check(float(out[8][0]) != 1.0, "rho did not adapt")
+        rows["admm_multichunk"]["err"] = max(rows["admm_multichunk"]["err"],
+                                             plane)
+        if tol == 0.0:  # all 8 chunks run
+            rows["admm_multichunk"]["ms"] = time_ms(
+                lambda: fa.admm_multichunk(*planes, f, f, scal, ri, 8, alpha,
+                                           degree, consts), 20)
+            rows["admm_multichunk"]["plain_ms"] = time_ms(
+                lambda: fa.admm_multichunk_plain(*planes, f, f, scal, ri, 8,
+                                                 alpha, degree, consts), 3)
+            chunks = int(out[8][5])
+            # xh, xp, xd, zh, zd, warm, f in (z_proj is only written) and
+            # the seven state arrays out: 19 planes
+            rows["admm_multichunk"]["bound"] = bound(
+                19 * n * 4, chunks * n * (ri * admm_iter_ops(degree)
+                                          + ADMM_NORM_OPS
+                                          + ADMM_RESCALE_OPS))
+    rows["admm_chunk"]["bound"] = bound(
+        19 * n * 4, n * (ri * admm_iter_ops(degree) + ADMM_NORM_OPS))
+    for name, r in rows.items():
+        print(f"{name} 512x512: kernel {r['ms']:.4f} ms/call, plain "
+              f"{r['plain_ms']:.4f} ms/call, bound {r['bound'][0]:.5f} ms "
+              f"({r['bound'][1]})")
     return rows
 
 
@@ -220,48 +431,34 @@ def rof_dual_energy(y, f, lmb, nx, ny):
                  - np.sum(ktp ** 2) / (2.0 * lmb))
 
 
-def phase_solve(card):
+def rof_model(nx, ny, f, lmb):
+    """ROF denoising in the saddle-point form of bench.py's config 1."""
+    import prost_tpu_torch as ptt
+
+    n = nx * ny
+    u = ptt.Variable(n)
+    q = ptt.Variable(2 * n)
+    prob = ptt.MinMaxProblem([u], [q])
+    prob.add_function(u, ptt.function.sum_1d("square", 1, f, lmb))
+    prob.add_function(q, ptt.function.conjugate(
+        ptt.function.sum_norm2(2, False, "abs")))
+    prob.add_dual_pair(u, q, ptt.block.gradient2d(nx, ny, 1))
+    return prob
+
+
+def recording(kind, opts, generic=None):
+    """``Backend(kind, opts)`` as a user gets it from ``backend_pdhg`` /
+    ``backend_admm`` (or, with ``generic``, that generic backend class),
+    recording after every callback epoch the devices of the solver state's
+    tensors and the time spent iterating."""
     import torch
 
-    import prost_tpu_torch as ptt
-    from prost_tpu_torch.backend import BackendPDHG, PDHGOptions
     from prost_tpu_torch.modeling import Backend
-    from prost_tpu_torch.ops import fused_rof as fr
 
-    nx = ny = 512
-    n = nx * ny
-    lmb = 16.0
-    f = test_image(nx, ny).reshape(-1)
-
-    def model():
-        u = ptt.Variable(n)
-        q = ptt.Variable(2 * n)
-        prob = ptt.MinMaxProblem([u], [q])
-        prob.add_function(u, ptt.function.sum_1d("square", 1, f, lmb))
-        prob.add_function(q, ptt.function.conjugate(
-            ptt.function.sum_norm2(2, False, "abs")))
-        prob.add_dual_pair(u, q, ptt.block.gradient2d(nx, ny, 1))
-        return prob
-
-    tol = 1e-5
-
-    def opts(max_iters):
-        return ptt.options(max_iters=max_iters, num_cback_calls=10,
-                           verbose=False, tol_rel_primal=tol,
-                           tol_rel_dual=tol, tol_abs_primal=tol,
-                           tol_abs_dual=tol)
-
-    @dataclasses.dataclass
     class Recorded(Backend):
-        """``backend_pdhg`` as a user gets it (or, with ``generic``, the
-        plain BackendPDHG), recording after every callback epoch the
-        devices of the solver state and the time spent iterating."""
-
-        generic: bool = False
-
         def create(self, problem, solver_opts):
-            if self.generic:
-                b = BackendPDHG(problem, self.opts, solver_opts)
+            if generic is not None:
+                b = generic(problem, self.opts, solver_opts)
             else:
                 b = super().create(problem, solver_opts)
             self.made, self.devices, self.loop_s = b, set(), 0.0
@@ -272,25 +469,61 @@ def phase_solve(card):
                 state = run(state, until, start)
                 torch.cuda.synchronize()
                 self.loop_s += time.perf_counter() - t0
-                self.devices |= {getattr(state, k).device.type
-                                 for k in ("x", "y", "x_prev", "y_prev")}
+                self.devices |= {v.device.type for v in vars(state).values()
+                                 if isinstance(v, torch.Tensor)}
                 return state
 
             b.run = run_and_record
             return b
 
+    return Recorded(kind, opts)
+
+
+def timed_solve(backend, nx, ny, f, lmb, max_iters, num_cback_calls=10,
+                tol=1e-5):
+    """Solve the ROF model through ``backend`` (made by ``recording``):
+    (result, backend, solve() wall seconds).  Fails if any tensor of the
+    solver state left the card or the result is not finite."""
+    import torch
+
+    import prost_tpu_torch as ptt
+
+    prob = rof_model(nx, ny, f, lmb)
+    opts = ptt.options(max_iters=max_iters, num_cback_calls=num_cback_calls,
+                       verbose=False, tol_rel_primal=tol, tol_rel_dual=tol,
+                       tol_abs_primal=tol, tol_abs_dual=tol)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ptt.solve(prob, backend, opts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(backend.devices == {"cuda"},
+          f"the solver state left the card: {backend.devices}")
+    check(res.x.shape == (nx * ny,) and np.all(np.isfinite(res.x))
+          and np.all(np.isfinite(res.y)), "non-finite or misshapen result")
+    return res, backend, dt
+
+
+def rates(res, backend, dt):
+    return (f"{res.result.value} after {res.iterations} iterations; solve() "
+            f"{dt:.4f} s with set-up, iterating {backend.loop_s:.4f} s = "
+            f"{res.iterations / backend.loop_s:.1f} it/s")
+
+
+def phase_solve(card):
+    from prost_tpu_torch.backend import BackendPDHG, PDHGOptions
+    from prost_tpu_torch.ops import fused_rof as fr
+
+    nx = ny = 512
+    n = nx * ny
+    lmb = 16.0
+    f = test_image(nx, ny).reshape(-1)
+
     def run(generic, max_iters):
-        backend = Recorded("pdhg", PDHGOptions(stepsize="boyd",
-                                                residual_iter=10), generic)
-        prob = model()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = ptt.solve(prob, backend, opts(max_iters))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        check(backend.devices == {"cuda"},
-              f"the solver state left the card: {backend.devices}")
-        return res, backend, dt
+        backend = recording("pdhg", PDHGOptions(stepsize="boyd",
+                                                residual_iter=10),
+                            BackendPDHG if generic else None)
+        return timed_solve(backend, nx, ny, f, lmb, max_iters)
 
     run(False, 200)  # warm-up of both routes
     run(True, 20)
@@ -301,30 +534,104 @@ def phase_solve(card):
     check(backend.made.rof is not None, "the fused route was not taken")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path was not launched: {launches}")
-    check(res.x.shape == (n,) and np.all(np.isfinite(res.x))
-          and np.all(np.isfinite(res.y)), "non-finite or misshapen result")
     e_fused = rof_energy(res.x, f, lmb, nx, ny)
-    gap = (e_fused - rof_dual_energy(res.y, f, lmb, nx, ny)) / n
-    loop = backend.loop_s
-    print(f"fused solve 512x512: {res.result.value} after {res.iterations} "
-          f"iterations; solve() {dt:.4f} s with set-up, iterating "
-          f"{loop:.4f} s = {res.iterations / loop:.1f} it/s; energy "
+    d_fused = rof_dual_energy(res.y, f, lmb, nx, ny)
+    gap = (e_fused - d_fused) / n
+    print(f"fused solve 512x512: {rates(res, backend, dt)}; energy "
           f"{e_fused:.8f}, gap/px {gap:.3e} (tol {GAP_PER_PX:g}), launches "
           f"{launches} [{card}]")
 
     gres, gbackend, gdt = run(True, 2000)
     e_gen = rof_energy(gres.x, f, lmb, nx, ny)
     rel = abs(e_fused - e_gen) / abs(e_gen)
-    gloop = gbackend.loop_s
-    print(f"generic solve 512x512: {gres.result.value} after "
-          f"{gres.iterations} iterations; solve() {gdt:.4f} s with set-up, "
-          f"iterating {gloop:.4f} s = {gres.iterations / gloop:.1f} it/s; "
-          f"energy {e_gen:.8f} [{card}]")
+    print(f"generic solve 512x512: {rates(gres, gbackend, gdt)}; energy "
+          f"{e_gen:.8f} [{card}]")
     print(f"energy fused vs generic: rel diff {rel:.3e} "
           f"(tol {ENERGY_RTOL:g})")
     check(rel <= ENERGY_RTOL, "fused and generic energies disagree")
     check(0.0 <= gap <= GAP_PER_PX, "primal-dual gap too large")
+    return launches, e_fused, d_fused
+
+
+def phase_admm_solve(card, e_pdhg, d_pdhg):
+    from prost_tpu_torch.backend import ADMMOptions, BackendADMM
+    from prost_tpu_torch.ops import fused_admm as fa
+
+    nx = ny = 512
+    n = nx * ny
+    lmb = 16.0
+    f = test_image(nx, ny).reshape(-1)
+
+    def run(projection, max_iters):
+        """The fused route (``backend_admm``'s) for projection None, else
+        the generic BackendADMM with that projection."""
+        if projection is None:
+            backend = recording("admm", ADMMOptions(residual_iter=10))
+        else:
+            backend = recording("admm", ADMMOptions(
+                residual_iter=10, projection=projection), BackendADMM)
+        return timed_solve(backend, nx, ny, f, lmb, max_iters)
+
+    run(None, 200)  # warm-up of the three routes
+    run("cheby", 20)
+    run("cgls", 20)
+
+    fa.reset_launch_counts()
+    res, backend, dt = run(None, 2000)
+    launches = dict(fa.launch_counts)
+    check(backend.made.mode == "cheby",
+          f"the fused Chebyshev route was not taken: {backend.made.mode}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the path was not launched: {launches}")
+    e_fused = rof_energy(res.x, f, lmb, nx, ny)
+    gap = (e_fused - rof_dual_energy(res.y, f, lmb, nx, ny)) / n
+    print(f"fused ADMM solve 512x512: {rates(res, backend, dt)}; energy "
+          f"{e_fused:.8f}, gap/px {gap:.3e}, launches {launches} [{card}]")
+
+    for projection in ("cheby", "cgls"):
+        gres, gbackend, gdt = run(projection, 2000)
+        e_gen = rof_energy(gres.x, f, lmb, nx, ny)
+        rel = abs(e_fused - e_gen) / abs(e_gen)
+        print(f"generic ADMM ({projection}) solve 512x512: "
+              f"{rates(gres, gbackend, gdt)}; energy {e_gen:.8f}, rel diff "
+              f"to fused {rel:.3e} [{card}]")
+        if projection == "cheby":
+            print(f"energy fused vs generic ADMM (cheby): rel diff "
+                  f"{rel:.3e} (tol {ENERGY_RTOL:g})")
+            check(rel <= ENERGY_RTOL,
+                  "fused and generic ADMM energies disagree")
+    rel = abs(e_fused - e_pdhg) / abs(e_pdhg)
+    print(f"energy ADMM vs PDHG: {e_fused:.8f} vs {e_pdhg:.8f}, rel diff "
+          f"{rel:.3e} (tol {ADMM_VS_PDHG_RTOL:g}); PDHG dual energy "
+          f"{d_pdhg:.8f}")
+    check(rel <= ADMM_VS_PDHG_RTOL, "ADMM and PDHG energies disagree")
+    check(e_fused >= d_pdhg, "ADMM energy below the PDHG dual energy")
     return launches
+
+
+def phase_large(card):
+    """Both fused routes at 2048x2048 (the JAX package's banded size): 300
+    iterations in two callback epochs, so the second epoch reaches the
+    multichunk phase."""
+    from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
+    from prost_tpu_torch.ops import fused_admm as fa
+    from prost_tpu_torch.ops import fused_rof as fr
+
+    nx = ny = 2048
+    lmb = 16.0
+    f = test_image(nx, ny).reshape(-1)
+    for kind, opts, mod in (
+            ("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10), fr),
+            ("admm", ADMMOptions(residual_iter=10), fa)):
+        mod.reset_launch_counts()
+        res, backend, dt = timed_solve(recording(kind, opts), nx, ny, f,
+                                       lmb, 300, num_cback_calls=2)
+        launches = dict(mod.launch_counts)
+        check(all(v > 0 for v in launches.values()),
+              f"a {kind} kernel was not launched at 2048x2048: {launches}")
+        e = rof_energy(res.x, f, lmb, nx, ny)
+        print(f"fused {kind} solve 2048x2048: {rates(res, backend, dt)}; "
+              f"energy {e:.6f}, launches {launches} [{card}]")
 
 
 def main() -> int:
@@ -343,21 +650,31 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels(dev)
+    rows.update(phase_admm_kernels(dev))
     torch.cuda.synchronize()
-    launches = phase_solve(card)
+    launches, e_pdhg, d_pdhg = phase_solve(card)
+    launches.update(phase_admm_solve(card, e_pdhg, d_pdhg))
+    phase_large(card)
     check("jax" not in sys.modules, "jax was imported")
+    print(f"all phases: {time.perf_counter() - t0:.1f} s")
 
-    replaces = {"rof_chunk": "prost_tpu/ops/fused_rof.py:459",
-                "rof_multichunk": "prost_tpu/ops/fused_rof.py:338"}
+    kernels = {
+        "rof_chunk": ("fused_rof", "prost_tpu/ops/fused_rof.py:459"),
+        "rof_multichunk": ("fused_rof", "prost_tpu/ops/fused_rof.py:338"),
+        "admm_chunk": ("fused_admm", "prost_tpu/ops/fused_admm.py:257"),
+        "admm_multichunk": ("fused_admm", "prost_tpu/ops/fused_admm.py:390"),
+    }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": "prost_tpu_torch/csrc/fused_rof.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": rows[name]["err"], "ms": rows[name]["ms"],
-         "plain_ms": rows[name]["plain_ms"]}
-        for name in ("rof_chunk", "rof_multichunk")]}))
+         "source": f"prost_tpu_torch/csrc/{src}.cu", "replaces": replaces,
+         "launches": launches[name], "max_abs_err": rows[name]["err"],
+         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+         "bound_ms": rows[name]["bound"][0],
+         "bound_by": rows[name]["bound"][1], "library_ms": None}
+        for name, (src, replaces) in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

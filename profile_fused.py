@@ -1,0 +1,193 @@
+#!/usr/bin/env python3
+"""Where the time of a fused ROF solve goes, phase by phase, on one card.
+
+    python3 profile_fused.py
+
+Solves chip_smoke.py's ROF model at 512x512 (its procedural image, lmb 16,
+residual_iter 10, 2000 iterations in 10 callback epochs, tolerance 1e-5)
+through the fused routes of ``backend_admm`` (Chebyshev projection) and
+``backend_pdhg`` (boyd), after a warm-up solve, three times each:
+
+1. as a user runs it: the iterating time (host time inside the backend's
+   ``run`` calls, each ending with a device sync) and, for each phase of
+   ``ops/phases.py`` (generic steps of A and C, canonicalization, B0
+   multichunks, B chunks with their adaptation, epilogue), the calls and
+   the host time spent issuing them;
+2. with a device sync after every phase call, so that each phase's time
+   includes its device work;
+3. under torch.profiler: device time by kernel (the ``csrc`` kernels and
+   torch's own), and the device busy share, device time over the wall of
+   the traced solve (the tracer adds host time to every launch, so this
+   share is a lower bound).
+
+The last line of standard output is one JSON object with these numbers
+per route; the line before it is the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import sys
+import time
+
+from chip_smoke import card_line, check, recording, test_image, timed_solve
+
+PHASES = ("generic", "canonicalize", "multichunk", "chunk", "epilogue")
+LMB = 16.0
+SIZE, ITERS = 512, 2000
+
+
+def csrc_kernel_names():
+    """The names of the package's hand-written CUDA kernels."""
+    from prost_tpu_torch.ops import cuda_build
+
+    names = set()
+    for fname in os.listdir(cuda_build.CSRC):
+        if fname.endswith(".cu"):
+            with open(os.path.join(cuda_build.CSRC, fname)) as fh:
+                names |= set(re.findall(r"__global__\s+void\s+(\w+)",
+                                        fh.read()))
+    return names
+
+
+def instrumented(mod, stats, sync):
+    """Replace ``mod.run_phases`` by one that times each phase callable
+    into ``stats`` ({phase: [calls, seconds]}); returns the original."""
+    import torch
+
+    orig = mod.run_phases
+
+    def timed(name, fn):
+        if fn is None:
+            return None
+
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if sync:
+                torch.cuda.synchronize()
+            s = stats.setdefault(name, [0, 0.0])
+            s[0] += 1
+            s[1] += time.perf_counter() - t0
+            return out
+        return call
+
+    def run_phases(state, start, until, ri, align, generic, canonicalize,
+                   chunk, multichunk=None, epilogue=None):
+        return orig(state, start, until, ri, align, timed("generic", generic),
+                    timed("canonicalize", canonicalize),
+                    timed("chunk", chunk), timed("multichunk", multichunk),
+                    timed("epilogue", epilogue))
+
+    mod.run_phases = run_phases
+    return orig
+
+
+def solve(route, size, iters):
+    from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
+
+    if route == "admm":
+        backend = recording("admm", ADMMOptions(residual_iter=10))
+    else:
+        backend = recording("pdhg", PDHGOptions(stepsize="boyd",
+                                                residual_iter=10))
+    f = test_image(size, size).reshape(-1)
+    res, backend, wall = timed_solve(backend, size, size, f, LMB, iters)
+    check(backend.made.rof is not None, f"the fused {route} route was "
+          "not taken")
+    return res, backend, wall
+
+
+def phase_table(mod, route, size, iters, sync):
+    stats = {}
+    orig = instrumented(mod, stats, sync)
+    try:
+        res, backend, wall = solve(route, size, iters)
+    finally:
+        mod.run_phases = orig
+    return res, backend, wall, {
+        name: {"calls": stats[name][0], "ms": stats[name][1] * 1e3,
+               "ms_per_call": stats[name][1] * 1e3 / stats[name][0]}
+        for name in PHASES if name in stats}
+
+
+def traced(route, size, iters, ours):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve(route, size, iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            # "void (anonymous namespace)::admm_rhs(State, ...)" -> admm_rhs
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].strip().split(" ")[-1]
+            by_kernel[name] = (by_kernel.get(name, 0.0)
+                               + e.time_range.elapsed_us() * 1e-3)
+    device_ms = sum(by_kernel.values())
+    csrc_ms = sum(v for k, v in by_kernel.items() if k in ours)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "csrc_kernels_ms": csrc_ms,
+            "torch_kernels_ms": device_ms - csrc_ms,
+            "device_busy_share": device_ms / (wall * 1e3) if device_ms
+            else None,
+            "top_kernels_ms": dict(top)}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_fused: no CUDA device", file=sys.stderr)
+        return 2
+    import prost_tpu_torch as ptt
+    from prost_tpu_torch.ops import fused_admm, fused_rof
+
+    ptt.set_device("cuda:0")
+    card = card_line()
+    ours = csrc_kernel_names()
+    out = {}
+    for route in ("admm", "pdhg"):
+        mod = fused_admm if route == "admm" else fused_rof
+        solve(route, SIZE, 200)  # warm-up: build, first launches
+        res, backend, wall, enqueue = phase_table(mod, route, SIZE,
+                                                  ITERS, sync=False)
+        _, sbackend, _, synced = phase_table(mod, route, SIZE,
+                                             ITERS, sync=True)
+        trace = traced(route, SIZE, ITERS, ours)
+        out[route] = {
+            "size": SIZE, "iterations": res.iterations,
+            "solve_s": wall, "iterating_s": backend.loop_s,
+            "it_per_s": res.iterations / backend.loop_s,
+            "phases_enqueue": enqueue, "phases_synced": synced,
+            "iterating_synced_s": sbackend.loop_s, "trace": trace}
+        print(f"{route} {SIZE}x{SIZE}: {res.iterations} "
+              f"iterations, iterating {backend.loop_s * 1e3:.4f} ms "
+              f"({res.iterations / backend.loop_s:.1f} it/s), solve() "
+              f"{wall * 1e3:.4f} ms [{card}]")
+        for label, table in (("host enqueue", enqueue),
+                             ("synced after each call", synced)):
+            for name, r in table.items():
+                print(f"  {label:24s} {name:12s} {r['calls']:5d} calls "
+                      f"{r['ms']:10.4f} ms ({r['ms_per_call']:.4f} ms/call)")
+        print(f"  traced: wall {trace['wall_ms']:.4f} ms, device "
+              f"{trace['device_ms']:.4f} ms (csrc kernels "
+              f"{trace['csrc_kernels_ms']:.4f}, torch "
+              f"{trace['torch_kernels_ms']:.4f}), busy share "
+              f"{trace['device_busy_share']}")
+    print(card)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

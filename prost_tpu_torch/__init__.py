@@ -4,12 +4,14 @@ large-scale convex-concave saddle-point problems with proximal structure:
     min_x max_y  g(x) + <Kx, y> - f*(y)
 
 The package mirrors ``prost_tpu``'s modules and names.  It imports torch
-and never jax (nor ``prost_tpu``).  Slice 1 covers ROF-type denoising by
-PDHG: the modeling API, the prox and linop parts it uses, the
-preconditioned Problem, the generic PDHG backend with all four step-size
-rules, the solver loop, and the fused ROF route whose two chunk kernels
-are hand-written CUDA for Hopper (``csrc/fused_rof.cu``), built by nvcc on
-first use.
+and never jax (nor ``prost_tpu``).  Slices 1-2 cover ROF-type denoising
+by PDHG and by graph-projection ADMM: the modeling API, the prox and linop
+parts it uses, the preconditioned Problem, the generic PDHG backend with
+all four step-size rules, the generic ADMM backend with CGLS, Chebyshev
+and DCT projections, the solver loop, and the fused ROF routes of both
+backends, whose chunk kernels are hand-written CUDA for Hopper
+(``csrc/fused_rof.cu``, ``csrc/fused_admm.cu``), built by nvcc on first
+use.
 """
 
 from .config import (ProstError, device, dtype, list_devices, set_device,
@@ -21,6 +23,7 @@ from .modeling import (
     MinProblem,
     SubVariable,
     Variable,
+    backend_admm,
     backend_pdhg,
     options,
     solve,
@@ -51,6 +54,7 @@ __all__ = [
     "solve",
     "options",
     "backend_pdhg",
+    "backend_admm",
     "function",
     "block",
     "__version__",

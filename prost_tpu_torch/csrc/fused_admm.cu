@@ -1,0 +1,719 @@
+// Fused ROF-by-ADMM chunk kernels for NVIDIA Hopper (sm_90a).
+//
+// Replaces the Pallas kernels of the JAX package's ADMM ROF route:
+//   prost_tpu/ops/fused_admm.py  admm_fused_chunk      -> _admm_chunk_kernel
+//   prost_tpu/ops/fused_admm.py  admm_fused_multichunk -> _admm_multichunk_kernel
+// whose math is _admm_iter, _cgls_masked, _cheby_project, _admm_norms and
+// admm_adapt_scalars in the same file.  The planes live in device memory at
+// any size, so the same kernels also take the place of the banded route for
+// planes beyond a TPU core's VMEM (admm_banded_chunk ->
+// _admm_banded_chunk_kernel).  The plain PyTorch versions live beside the
+// wrappers in prost_tpu_torch/ops/fused_admm.py.
+//
+// Layout (the JAX package's): x-like planes (nx, ny) row-major f32; z-like
+// arrays are two such planes back to back, [zx; zy].
+//
+// One ADMM outer iteration (Sigma = 1/2, Tau = 1/4, K~ = c_K grad):
+//   t1 = (alpha xh + (1 - alpha) xp + xd) / sqrt(Tau),  t2 = sqrt(Sigma) (zh + zd)
+//   d  = t2 - c_K grad t1
+//   u  = argmin |c_K grad u - d|^2 + |u|^2, warm-started (Chebyshev or CGLS)
+//   xp = sqrt(Tau) (u + t1),  zp = grad xp,  xd = sqrt(Tau) t1 - xp,
+//   zd = t2 / sqrt(Sigma) - zp,  xh = prox_g(xp - xd),  zh = shrink(zp - zd)
+//
+// What bounds it on this card.  The TPU kernels hold the ten state planes
+// in VMEM for a whole chunk.  A 512x512 f32 plane is 1 MiB, far above the
+// 227 KB of shared memory a block can use, so the planes stay in device
+// memory (in the 50 MB L2 at 512x512) and each step of the iteration is one
+// launch over the plane: about degree + 2 launches per outer iteration with
+// the Chebyshev projection.  Each launch moves a few planes and does a few
+// dozen flops per pixel; at 512x512 the launches are short enough that
+// launch latency, not bytes or flops, bounds a chunk.
+//
+// Design.  One thread per pixel, 32x8 blocks with threadIdx.x along the
+// contiguous y axis.  Stencil neighbours come straight from global memory.
+// A kernel writes only its own pixel of a plane, and reads neighbours only
+// from planes it does not write: t1 is kept in a scratch plane so the
+// projection and update steps can recompute the neighbours' x_proj; the
+// Chebyshev direction ping-pongs between two planes.  The scalars (rho,
+// lmb, radius, the Boyd state, tolerances, the converged flag, the norms,
+// the CG scalars) live in a small device buffer `sc` read by every kernel,
+// and every kernel returns at once when sc[S_CONV] is set, so the host
+// queues a whole launch sequence without a sync.  Sums reduce in two
+// deterministic passes (per-block tree, then one block), with no atomics.
+//
+// CGLS.  The JAX kernel's masked CG loop (a fixed trip of maxit steps with
+// every update predicated on a `done` flag) becomes a fixed host loop of
+// launches whose kernels return at once once the device flag is set.  A
+// step reads the flag of its parity slot and its last finish writes the
+// next step's slot, so every block of a step sees the pre-step flag, as
+// the JAX predicate does.  Three reductions per step: |q|^2 + |p|^2 (alpha),
+// |x|^2 and |s|^2 (beta and the stopping test).
+//
+// Rounding.  The build passes -fmad=false, so each expression rounds where
+// the plain PyTorch version (one op per kernel there) rounds; sqrtf and
+// division are IEEE.  With the Chebyshev projection an iteration has no
+// reduction, so only the order of the residual-norm sums differs; CGLS's
+// alpha and beta carry that order difference into the iterates.
+//
+// Interface: plain C, loaded with ctypes; pointers and the stream arrive as
+// void*, and every entry point returns the cudaError_t of its launches.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+// scalar buffer slots, mirrored by prost_tpu_torch/ops/fused_admm.py
+enum {
+  S_RHO = 0, S_LMB = 1, S_RADIUS = 2, S_DELTA = 3, S_ARB_L = 4, S_ARB_U = 5,
+  S_IT = 6, S_TOL_RP = 7, S_TOL_RD = 8, S_TOL_AP = 9, S_TOL_AD = 10,
+  S_CONV = 11, S_DONE = 12, S_NORM = 13,  // S_NORM .. S_NORM + 3
+  S_FAC = 17,  // dual rescale of the chunk just run; -1 when it did not run
+  S_CG_GAMMA = 18, S_CG_NORMS0 = 19, S_CG_ALPHA = 20, S_CG_BETA = 21,
+  S_CG_DONE = 22,  // two slots, by the parity of the CG step
+  S_LEN = 24,
+};
+
+enum { DT_SQUARE = 0, DT_WSQUARE = 1, DT_ABS = 2 };
+enum { OP_NORMS = 0, OP_ADAPT = 1, OP_CG_INIT = 2, OP_CG_ALPHA = 3,
+       OP_CG_BETA = 4 };
+
+constexpr int BX = 32;
+constexpr int BY = 8;
+constexpr int NT = BX * BY;
+constexpr int FIN = 512;  // threads of the final reduction
+constexpr int PS = 4;     // partial sums per block
+
+// the constants as the plain version forms them: in double, rounded once
+constexpr double SQRT_S_D = 0.7071067811865476;  // sqrt(Sigma) = sqrt(1/2)
+constexpr double SQRT_T_D = 0.5;                 // sqrt(Tau)   = sqrt(1/4)
+constexpr double C_K_D = SQRT_S_D * SQRT_T_D;    // K~ = c_K grad
+constexpr float SQRT_S = (float)SQRT_S_D;
+constexpr float SQRT_T = (float)SQRT_T_D;
+constexpr float INV_SQRT_S = (float)(1.0 / SQRT_S_D);
+constexpr float INV_SQRT_T = (float)(1.0 / SQRT_T_D);
+constexpr float C_K = (float)C_K_D;
+constexpr float C2 = (float)(C_K_D * C_K_D);
+constexpr float INV_THETA = (float)(1.0 / 1.5);  // Chebyshev, spectrum [1, 2)
+constexpr float EPS = 1.1920928955078125e-07f;   // float32 machine epsilon
+
+struct State {
+  float *xh, *xp, *xd, *zh, *zp, *zd, *warm;  // updated in place
+  const float *f, *w;
+  float* t1;       // relaxed primal argument (scaled)
+  float* dd;       // Chebyshev: d = t2 - c_K grad t1; CGLS: its residual r
+  float* x;        // the projection's iterate
+  float *r, *v0, *v1;  // Chebyshev: residual, direction ping-pong
+  float *p, *q, *s;    // CGLS: direction, c_K grad p (2 planes), A^T r - x
+  float* sc;
+  float* partial;  // PS per block
+  int nx, ny;
+};
+
+__device__ __forceinline__ bool pixel(int nx, int ny, int& i, int& j) {
+  j = blockIdx.x * BX + threadIdx.x;
+  i = blockIdx.y * BY + threadIdx.y;
+  return i < nx && j < ny;
+}
+
+__device__ __forceinline__ bool conv_set(const float* sc) {
+  return sc[S_CONV] != 0.f;
+}
+
+__device__ __forceinline__ bool cg_skip(const float* sc, int par) {
+  return sc[S_CONV] != 0.f || sc[S_CG_DONE + par] != 0.f;
+}
+
+// Per-block tree sums of K values into partial[PS * block + slot + k].
+template <int K>
+__device__ __forceinline__ void block_partial(const float (&v)[K],
+                                              float* partial, int slot) {
+  __shared__ float red[K][NT];
+  int t = threadIdx.y * BX + threadIdx.x;
+  for (int k = 0; k < K; ++k) red[k][t] = v[k];
+  __syncthreads();
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    if (t < s)
+      for (int k = 0; k < K; ++k) red[k][t] += red[k][t + s];
+    __syncthreads();
+  }
+  if (t == 0) {
+    int blk = blockIdx.y * gridDim.x + blockIdx.x;
+    for (int k = 0; k < K; ++k) partial[PS * blk + slot + k] = red[k][0];
+  }
+}
+
+__device__ __forceinline__ float t1_at(const State& b, size_t p, float alpha,
+                                       float oma) {
+  return ((alpha * b.xh[p] + oma * b.xp[p]) + b.xd[p]) * INV_SQRT_T;
+}
+
+// M(v) = v + c_K^2 grad^T grad v at (i, j), the operator of the projection,
+// grad^T as the maskless roll adjoint of the plain version.
+__device__ __forceinline__ float m_at(const float* v, int i, int j, int nx,
+                                      int ny, size_t p) {
+  float c = v[p];
+  float gxm = i > 0 ? c - v[p - ny] : 0.f;
+  float gx = i < nx - 1 ? v[p + ny] - c : 0.f;
+  float gym = j > 0 ? c - v[p - 1] : 0.f;
+  float gy = j < ny - 1 ? v[p + 1] - c : 0.f;
+  return c + C2 * ((gxm - gx) + (gym - gy));
+}
+
+// c_K grad^T of the two planes of v at (i, j); bounds-checked neighbours
+// equal the roll adjoint because v's dead coordinates are zero.
+__device__ __forceinline__ float ckt_at(const float* v, int i, int j, int ny,
+                                        size_t n, size_t p) {
+  float vxm = i > 0 ? v[p - ny] : 0.f;
+  float vym = j > 0 ? v[n + p - 1] : 0.f;
+  return C_K * ((vxm - v[p]) + (vym - v[n + p]));
+}
+
+// Launch seed: the dead z coordinates (zx's last row, zy's last column)
+// zeroed, as _admm_chunk_kernel does at entry; every later step keeps them
+// zero, which makes the maskless adjoints exact.
+// Bound: memory, a row and a column of three arrays.
+__global__ void admm_seed(State b) {
+  if (conv_set(b.sc)) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  if (i == b.nx - 1) b.zh[p] = b.zp[p] = b.zd[p] = 0.f;
+  if (j == b.ny - 1) b.zh[n + p] = b.zp[n + p] = b.zd[n + p] = 0.f;
+}
+
+// First step of _admm_iter: t1, and d = t2 - c_K grad t1 (t1 recomputed at
+// the neighbour).  For CGLS also the warm start's residual r = d - c_K grad
+// u0 and x = u0 (the head of _cgls_masked).
+// Bound: memory, 7 planes read (xh, xp, xd, zh, zd; + warm), 3 written
+// (+1 for CGLS).
+__global__ void admm_rhs(State b, float alpha, float oma, int cgls) {
+  if (conv_set(b.sc)) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  int nx = b.nx, ny = b.ny;
+  size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+  float t1 = t1_at(b, p, alpha, oma);
+  float gx = i < nx - 1 ? t1_at(b, p + ny, alpha, oma) - t1 : 0.f;
+  float gy = j < ny - 1 ? t1_at(b, p + 1, alpha, oma) - t1 : 0.f;
+  float t2x = SQRT_S * (b.zh[p] + b.zd[p]);
+  float t2y = SQRT_S * (b.zh[n + p] + b.zd[n + p]);
+  float dx = t2x - C_K * gx;
+  float dy = t2y - C_K * gy;
+  b.t1[p] = t1;
+  if (cgls) {
+    float u = b.warm[p];
+    float ux = i < nx - 1 ? b.warm[p + ny] - u : 0.f;
+    float uy = j < ny - 1 ? b.warm[p + 1] - u : 0.f;
+    b.dd[p] = dx - C_K * ux;
+    b.dd[n + p] = dy - C_K * uy;
+    b.x[p] = u;
+  } else {
+    b.dd[p] = dx;
+    b.dd[n + p] = dy;
+  }
+}
+
+// _cheby_project's head: b = c_K grad^T d, r = b - M(u0), x = u0,
+// v = r / theta.
+// Bound: memory, 3 planes read (d, u0), 3 written.
+__global__ void cheby_init(State b) {
+  if (conv_set(b.sc)) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  float rhs = ckt_at(b.dd, i, j, b.ny, n, p);
+  float r = rhs - m_at(b.warm, i, j, b.nx, b.ny, p);
+  b.x[p] = b.warm[p];
+  b.r[p] = r;
+  b.v0[p] = r * INV_THETA;
+}
+
+// One Chebyshev step: x += v, r -= M(v), v' = c_prev v + c_r r, with v' in
+// the other ping-pong plane (M reads v's neighbours).  The coefficients are
+// host constants, as in the JAX kernel.
+// Bound: memory, 3 planes read, 3 written; degree - 1 launches per outer
+// iteration.
+__global__ void cheby_step(State b, const float* __restrict__ v,
+                           float* __restrict__ vn, float c_prev, float c_r) {
+  if (conv_set(b.sc)) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  size_t p = (size_t)i * b.ny + j;
+  float vv = v[p];
+  b.x[p] = b.x[p] + vv;
+  float r = b.r[p] - m_at(v, i, j, b.nx, b.ny, p);
+  b.r[p] = r;
+  vn[p] = c_prev * vv + c_r * r;
+}
+
+// The head of _cgls_masked after admm_rhs: s = c_K grad^T r - x, p = s, and
+// the partial sums of |s|^2 (gamma0).
+// Bound: memory, 3 planes read, 1 written, one block tree.
+__global__ void cg_init(State b) {
+  if (conv_set(b.sc)) return;
+  int i, j;
+  float v[1] = {0.f};
+  if (pixel(b.nx, b.ny, i, j)) {
+    size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+    float s = ckt_at(b.dd, i, j, b.ny, n, p) - b.x[p];
+    b.p[p] = s;
+    v[0] = s * s;
+  }
+  block_partial<1>(v, b.partial, 0);
+}
+
+// CG step, part 1: q = c_K grad p; partial sums of |q|^2 + |p|^2 (delta).
+__global__ void cg_q(State b, int par) {
+  if (cg_skip(b.sc, par)) return;
+  int i, j;
+  float v[1] = {0.f};
+  if (pixel(b.nx, b.ny, i, j)) {
+    int nx = b.nx, ny = b.ny;
+    size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+    float pv = b.p[p];
+    float qx = C_K * (i < nx - 1 ? b.p[p + ny] - pv : 0.f);
+    float qy = C_K * (j < ny - 1 ? b.p[p + 1] - pv : 0.f);
+    b.q[p] = qx;
+    b.q[n + p] = qy;
+    v[0] = (qx * qx + qy * qy) + pv * pv;
+  }
+  block_partial<1>(v, b.partial, 0);
+}
+
+// CG step, part 2: x += alpha p, r -= alpha q; partial sums of |x|^2.
+__global__ void cg_xr(State b, int par) {
+  if (cg_skip(b.sc, par)) return;
+  int i, j;
+  float v[1] = {0.f};
+  if (pixel(b.nx, b.ny, i, j)) {
+    size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+    float alpha = b.sc[S_CG_ALPHA];
+    float x = b.x[p] + alpha * b.p[p];
+    b.x[p] = x;
+    b.dd[p] = b.dd[p] - alpha * b.q[p];
+    b.dd[n + p] = b.dd[n + p] - alpha * b.q[n + p];
+    v[0] = x * x;
+  }
+  block_partial<1>(v, b.partial, 1);
+}
+
+// CG step, part 3: s = c_K grad^T r - x; partial sums of |s|^2 (gamma).
+__global__ void cg_s(State b, int par) {
+  if (cg_skip(b.sc, par)) return;
+  int i, j;
+  float v[1] = {0.f};
+  if (pixel(b.nx, b.ny, i, j)) {
+    size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+    float s = ckt_at(b.dd, i, j, b.ny, n, p) - b.x[p];
+    b.s[p] = s;
+    v[0] = s * s;
+  }
+  block_partial<1>(v, b.partial, 2);
+}
+
+// CG step, part 4: p = s + beta p.
+__global__ void cg_p(State b, int par) {
+  if (cg_skip(b.sc, par)) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  size_t p = (size_t)i * b.ny + j;
+  b.p[p] = b.s[p] + b.sc[S_CG_BETA] * b.p[p];
+}
+
+// The rest of _admm_iter: u = x (+ v, the Chebyshev tail), x_proj, z_proj
+// = grad x_proj (the neighbour's x_proj recomputed from x, v and t1), the
+// duals, prox_g of the data term and the 2-vector shrink of prox_f; the
+// warm start keeps u.
+// Bound: memory, 9 planes read (x, v, t1, zh, zd, f; +w), 10 written.
+__global__ void admm_update(State b, const float* __restrict__ v,
+                            int dataterm) {
+  if (conv_set(b.sc)) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  int nx = b.nx, ny = b.ny;
+  size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+  float u = v ? b.x[p] + v[p] : b.x[p];
+  float t1 = b.t1[p];
+  float xpn = SQRT_T * (u + t1);
+  float zpx = 0.f, zpy = 0.f;
+  if (i < nx - 1) {
+    size_t o = p + ny;
+    float uo = v ? b.x[o] + v[o] : b.x[o];
+    zpx = SQRT_T * (uo + b.t1[o]) - xpn;
+  }
+  if (j < ny - 1) {
+    size_t o = p + 1;
+    float uo = v ? b.x[o] + v[o] : b.x[o];
+    zpy = SQRT_T * (uo + b.t1[o]) - xpn;
+  }
+  float xdn = SQRT_T * t1 - xpn;
+  float t2x = SQRT_S * (b.zh[p] + b.zd[p]);
+  float t2y = SQRT_S * (b.zh[n + p] + b.zd[n + p]);
+  float zdx = t2x * INV_SQRT_S - zpx;
+  float zdy = t2y * INV_SQRT_S - zpy;
+
+  // prox_g with effective step Tau / rho = 1 / (4 rho)
+  float rho = b.sc[S_RHO];
+  float tl = (0.25f / rho) * b.sc[S_LMB];
+  float arg = xpn - xdn;
+  float xhn;
+  if (dataterm == DT_SQUARE) {
+    xhn = (arg + tl * b.f[p]) * (1.f / (1.f + tl));
+  } else if (dataterm == DT_WSQUARE) {
+    float tw = tl * b.w[p];
+    xhn = (arg + tw * b.f[p]) / (1.f + tw);
+  } else {  // abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
+    float dv = arg - b.f[p];
+    xhn = arg - fminf(fmaxf(dv, -tl), tl);
+  }
+
+  // prox_f: shrink the 2-vector by radius * 2 / rho (inverted step)
+  float zax = zpx - zdx, zay = zpy - zdy;
+  float shrink = b.sc[S_RADIUS] * (2.f / rho);
+  float nrm = sqrtf(zax * zax + zay * zay);
+  float scale = fmaxf(nrm - shrink, 0.f) / (nrm > 0.f ? nrm : 1.f);
+
+  b.xh[p] = xhn;
+  b.xp[p] = xpn;
+  b.xd[p] = xdn;
+  b.zh[p] = zax * scale;
+  b.zh[n + p] = zay * scale;
+  b.zp[p] = zpx;
+  b.zp[n + p] = zpy;
+  b.zd[p] = zdx;
+  b.zd[n + p] = zdy;
+  b.warm[p] = u;
+}
+
+// First pass of _admm_norms after a chunk: per-block sums of the squared
+// primal residual, primal variable, dual residual and dual variable norms
+// (y and w recomputed at the neighbour for K^T y).
+// Bound: memory, 10 planes read once per chunk.
+__global__ void admm_norm_partial(State b) {
+  if (conv_set(b.sc)) return;
+  int i, j;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (pixel(b.nx, b.ny, i, j)) {
+    int nx = b.nx, ny = b.ny;
+    size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+    float rho = b.sc[S_RHO];
+    float cw = -rho * 4.f;  // -rho / Tau
+    float cy = -rho * 0.5f;  // -rho * Sigma
+    float xh = b.xh[p];
+    float kxx = i < nx - 1 ? b.xh[p + ny] - xh : 0.f;
+    float kxy = j < ny - 1 ? b.xh[p + 1] - xh : 0.f;
+    float prx = SQRT_S * (kxx - b.zh[p]);
+    float pry = SQRT_S * (kxy - b.zh[n + p]);
+    float pnx = SQRT_S * b.zh[p];
+    float pny = SQRT_S * b.zh[n + p];
+    float wv = cw * ((xh - b.xp[p]) + b.xd[p]);
+    float yx = cy * ((b.zh[p] - b.zp[p]) + b.zd[p]);
+    float yy = cy * ((b.zh[n + p] - b.zp[n + p]) + b.zd[n + p]);
+    float yxm = 0.f, yym = 0.f;
+    if (i > 0) {
+      size_t o = p - ny;
+      yxm = cy * ((b.zh[o] - b.zp[o]) + b.zd[o]);
+    }
+    if (j > 0) {
+      size_t o = n + p - 1;
+      yym = cy * ((b.zh[o] - b.zp[o]) + b.zd[o]);
+    }
+    float kty = (yxm - yx) + (yym - yy);
+    float dn = SQRT_T * wv;
+    float dr = SQRT_T * (wv + kty);
+    v[0] = prx * prx + pry * pry;
+    v[1] = pnx * pnx + pny * pny;
+    v[2] = dr * dr;
+    v[3] = dn * dn;
+  }
+  block_partial<4>(v, b.partial, 0);
+}
+
+// After admm_adapt (multichunk): the Boyd dual rescale of the chunk just
+// run, x_dual and z_dual times rho / rho_new, in place.
+// Bound: memory, 3 planes read and written.
+__global__ void admm_rescale(State b) {
+  float fac = b.sc[S_FAC];
+  if (fac < 0.f) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  b.xd[p] = b.xd[p] * fac;
+  b.zd[p] = b.zd[p] * fac;
+  b.zd[n + p] = b.zd[n + p] * fac;
+}
+
+struct AdaptConsts {
+  float sqrt_nrows, sqrt_ncols, arb_tau, arb_gamma;
+};
+
+// Second pass, one block: the sums of the partials in a fixed order, then
+// thread 0 finishes `op`:
+//   OP_NORMS     the 4 squared norms into sc[S_NORM..] (admm_chunk);
+//   OP_ADAPT     admm_adapt_scalars, the same f32 operations in the same
+//                order, with it = it0 + `aux` (the chunk's post-increment
+//                counter offset); sqrt'd norms, S_FAC, S_DONE, S_CONV;
+//   OP_CG_INIT   gamma0, norms0 and the first step's done flag;
+//   OP_CG_ALPHA  alpha = gamma / delta;
+//   OP_CG_BETA   beta, gamma and the next step's done flag, with the
+//                iteration's CG tolerance tols[tix].
+// Bound: launch latency (a few KB of partials).
+__global__ void admm_finish(float* __restrict__ sc,
+                            const float* __restrict__ partial, int nblocks,
+                            int op, int par, float aux,
+                            const float* __restrict__ tols, int tix,
+                            AdaptConsts c) {
+  int t = threadIdx.x;
+  if (sc[S_CONV] != 0.f) {
+    if (t == 0 && op == OP_ADAPT) sc[S_FAC] = -1.f;
+    return;
+  }
+  if (op == OP_CG_ALPHA || op == OP_CG_BETA) {
+    if (sc[S_CG_DONE + par] != 0.f) {
+      if (t == 0 && op == OP_CG_BETA) sc[S_CG_DONE + (par ^ 1)] = 1.f;
+      return;
+    }
+  }
+  int slot0 = op == OP_CG_BETA ? 1 : 0;
+  int nsum = op == OP_CG_BETA ? 2 : (op <= OP_ADAPT ? 4 : 1);
+  __shared__ float red[4][FIN];
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int blk = t; blk < nblocks; blk += FIN)
+    for (int k = 0; k < nsum; ++k) acc[k] += partial[PS * blk + slot0 + k];
+  for (int k = 0; k < 4; ++k) red[k][t] = acc[k];
+  __syncthreads();
+  for (int s = FIN / 2; s > 0; s >>= 1) {
+    if (t < s)
+      for (int k = 0; k < nsum; ++k) red[k][t] += red[k][t + s];
+    __syncthreads();
+  }
+  if (t != 0) return;
+
+  if (op == OP_NORMS) {
+    for (int k = 0; k < 4; ++k) sc[S_NORM + k] = red[k][0];
+  } else if (op == OP_ADAPT) {
+    float pr = sqrtf(red[0][0]), pn = sqrtf(red[1][0]);
+    float dr = sqrtf(red[2][0]), dn = sqrtf(red[3][0]);
+    float it = sc[S_IT] + aux;
+    float eps_pri = c.sqrt_nrows * sc[S_TOL_AP] + sc[S_TOL_RP] * pn;
+    float eps_dua = c.sqrt_ncols * sc[S_TOL_AD] + sc[S_TOL_RD] * dn;
+    float rho = sc[S_RHO], delta = sc[S_DELTA];
+    float al = sc[S_ARB_L], au = sc[S_ARB_U];
+    bool c1 = (dr < eps_dua) && (c.arb_tau * it > al);
+    bool c2 = (pr < eps_pri) && (c.arb_tau * it > au) && !c1;
+    float rho_new = c1 ? rho * delta : (c2 ? rho / delta : rho);
+    sc[S_DELTA] = (c1 || c2) ? delta * c.arb_gamma : delta;
+    sc[S_ARB_U] = c1 ? it : au;
+    sc[S_ARB_L] = c2 ? it : al;
+    sc[S_FAC] = rho / rho_new;
+    sc[S_RHO] = rho_new;
+    sc[S_NORM + 0] = pr;
+    sc[S_NORM + 1] = pn;
+    sc[S_NORM + 2] = dr;
+    sc[S_NORM + 3] = dn;
+    sc[S_DONE] += 1.f;
+    bool conv = (pr < eps_pri) && (dr < eps_dua);
+    sc[S_CONV] = conv ? 1.f : 0.f;  // last: the other threads have read it
+  } else if (op == OP_CG_INIT) {
+    float gamma = red[0][0];
+    float norms0 = sqrtf(gamma);
+    sc[S_CG_GAMMA] = gamma;
+    sc[S_CG_NORMS0] = norms0;
+    sc[S_CG_DONE + 0] = norms0 < EPS ? 1.f : 0.f;
+  } else if (op == OP_CG_ALPHA) {
+    float delta = red[0][0];
+    if (delta <= 0.f) delta = EPS;
+    sc[S_CG_ALPHA] = sc[S_CG_GAMMA] / delta;
+  } else {  // OP_CG_BETA
+    float xx = red[0][0], gamma_n = red[1][0];
+    float gamma = sc[S_CG_GAMMA];
+    float tol = tols[tix];
+    float normx = sqrtf(xx);
+    bool conv = (sqrtf(gamma_n) <= sc[S_CG_NORMS0] * tol) ||
+                (normx * tol >= 1.f);
+    sc[S_CG_BETA] = gamma_n / (gamma > 0.f ? gamma : 1.f);
+    sc[S_CG_GAMMA] = gamma_n;
+    sc[S_CG_DONE + (par ^ 1)] = conv ? 1.f : 0.f;
+  }
+}
+
+#define LAUNCH_CHECK()                                  \
+  do {                                                  \
+    cudaError_t e_ = cudaGetLastError();                \
+    if (e_ != cudaSuccess) return (int)e_;              \
+  } while (0)
+
+dim3 grid_of(int nx, int ny) {
+  return dim3((ny + BX - 1) / BX, (nx + BY - 1) / BY);
+}
+
+int num_blocks(int nx, int ny) {
+  dim3 g = grid_of(nx, ny);
+  return (int)(g.x * g.y);
+}
+
+State state_of(void* xh, void* xp, void* xd, void* zh, void* zp, void* zd,
+               void* warm, const void* f, const void* w, void* scratch,
+               void* sc, void* partial, int nx, int ny) {
+  State b;
+  size_t n = (size_t)nx * ny;
+  float* s = (float*)scratch;  // 8 planes
+  b.xh = (float*)xh;
+  b.xp = (float*)xp;
+  b.xd = (float*)xd;
+  b.zh = (float*)zh;
+  b.zp = (float*)zp;
+  b.zd = (float*)zd;
+  b.warm = (float*)warm;
+  b.f = (const float*)f;
+  b.w = (const float*)w;
+  b.t1 = s;
+  b.dd = s + n;        // planes 1-2
+  b.x = s + 3 * n;
+  b.r = s + 4 * n;     // Chebyshev
+  b.v0 = s + 5 * n;
+  b.v1 = s + 6 * n;
+  b.p = s + 4 * n;     // CGLS
+  b.q = s + 5 * n;     // planes 5-6
+  b.s = s + 7 * n;
+  b.sc = (float*)sc;
+  b.partial = (float*)partial;
+  b.nx = nx;
+  b.ny = ny;
+  return b;
+}
+
+// One outer iteration: degree > 0 selects the Chebyshev projection with
+// the (c_prev, c_r) host coefficients of its degree - 1 steps, degree == 0
+// the masked CGLS of maxit steps at tolerance tols[tix].
+int iteration(const State& b, int dataterm, int degree, const float* coeffs,
+              int maxit, const float* tols, int tix, float alpha, float oma,
+              cudaStream_t st) {
+  dim3 grid = grid_of(b.nx, b.ny), block(BX, BY);
+  int nblocks = num_blocks(b.nx, b.ny);
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f};
+  int cgls = degree == 0;
+  admm_rhs<<<grid, block, 0, st>>>(b, alpha, oma, cgls);
+  LAUNCH_CHECK();
+  const float* v = nullptr;
+  if (!cgls) {
+    cheby_init<<<grid, block, 0, st>>>(b);
+    LAUNCH_CHECK();
+    float* cur = b.v0;
+    float* nxt = b.v1;
+    for (int k = 0; k < degree - 1; ++k) {
+      cheby_step<<<grid, block, 0, st>>>(b, cur, nxt, coeffs[2 * k],
+                                         coeffs[2 * k + 1]);
+      LAUNCH_CHECK();
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+    v = cur;
+  } else {
+    cg_init<<<grid, block, 0, st>>>(b);
+    LAUNCH_CHECK();
+    admm_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, nblocks, OP_CG_INIT, 0,
+                                   0.f, tols, tix, none);
+    LAUNCH_CHECK();
+    for (int k = 0; k < maxit; ++k) {
+      int par = k & 1;
+      cg_q<<<grid, block, 0, st>>>(b, par);
+      LAUNCH_CHECK();
+      admm_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, nblocks, OP_CG_ALPHA,
+                                     par, 0.f, tols, tix, none);
+      LAUNCH_CHECK();
+      cg_xr<<<grid, block, 0, st>>>(b, par);
+      LAUNCH_CHECK();
+      cg_s<<<grid, block, 0, st>>>(b, par);
+      LAUNCH_CHECK();
+      admm_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, nblocks, OP_CG_BETA,
+                                     par, 0.f, tols, tix, none);
+      LAUNCH_CHECK();
+      cg_p<<<grid, block, 0, st>>>(b, par);
+      LAUNCH_CHECK();
+    }
+  }
+  admm_update<<<grid, block, 0, st>>>(b, v, dataterm);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of per-block partials (PS floats each) for an (nx, ny) plane.
+int prost_admm_num_blocks(int nx, int ny) { return num_blocks(nx, ny); }
+
+const char* prost_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// admm_fused_chunk: `count` outer iterations on the 7 state arrays in
+// place, the 4 SQUARED residual norms of the last one into sc[S_NORM..].
+// `cg_tols` (device, count floats) is read by the CGLS projection only.
+// No-op when sc[S_CONV] is set.
+int prost_admm_chunk(void* xh, void* xp, void* xd, void* zh, void* zp,
+                     void* zd, void* warm, const void* f, const void* w,
+                     void* scratch, void* sc, void* partial, int nx, int ny,
+                     const void* cg_tols, int count, int dataterm,
+                     int degree, const float* coeffs, int maxit, float alpha,
+                     float oma, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  State b = state_of(xh, xp, xd, zh, zp, zd, warm, f, w, scratch, sc,
+                     partial, nx, ny);
+  dim3 grid = grid_of(nx, ny), block(BX, BY);
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f};
+  admm_seed<<<grid, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  for (int k = 0; k < count; ++k) {
+    int rc = iteration(b, dataterm, degree, coeffs, maxit,
+                       (const float*)cg_tols, k, alpha, oma, st);
+    if (rc) return rc;
+  }
+  admm_norm_partial<<<grid, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  admm_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, num_blocks(nx, ny),
+                                 OP_NORMS, 0, 0.f, nullptr, 0, none);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// admm_fused_multichunk: up to k_chunks Chebyshev chunks, each followed by
+// the Boyd adaptation and stopping test on the device and the dual
+// rescale; every kernel after convergence returns at once (the lax.cond
+// skip).  sc[S_NORM..] ends with the last executed chunk's sqrt'd norms.
+int prost_admm_multichunk(void* xh, void* xp, void* xd, void* zh, void* zp,
+                          void* zd, void* warm, const void* f, const void* w,
+                          void* scratch, void* sc, void* partial, int nx,
+                          int ny, int count, int k_chunks, int dataterm,
+                          int degree, const float* coeffs, float alpha,
+                          float oma, float sqrt_nrows, float sqrt_ncols,
+                          float arb_tau, float arb_gamma, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  State b = state_of(xh, xp, xd, zh, zp, zd, warm, f, w, scratch, sc,
+                     partial, nx, ny);
+  dim3 grid = grid_of(nx, ny), block(BX, BY);
+  AdaptConsts c = {sqrt_nrows, sqrt_ncols, arb_tau, arb_gamma};
+  admm_seed<<<grid, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  for (int ch = 0; ch < k_chunks; ++ch) {
+    for (int k = 0; k < count; ++k) {
+      int rc = iteration(b, dataterm, degree, coeffs, 0, nullptr, 0, alpha,
+                         oma, st);
+      if (rc) return rc;
+    }
+    admm_norm_partial<<<grid, block, 0, st>>>(b);
+    LAUNCH_CHECK();
+    admm_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, num_blocks(nx, ny),
+                                   OP_ADAPT, 0, (float)((ch + 1) * count),
+                                   nullptr, 0, c);
+    LAUNCH_CHECK();
+    admm_rescale<<<grid, block, 0, st>>>(b);
+    LAUNCH_CHECK();
+  }
+  return 0;
+}
+
+}  // extern "C"

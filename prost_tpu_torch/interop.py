@@ -1,9 +1,9 @@
 """Hand-over between the JAX package and the port, through numpy only.
 
-* ``pdhg_state_from_numpy`` builds the port's ``PDHGState`` from the fields
-  of a JAX ``PDHGState`` given as numpy arrays, so both packages can go on
-  from the same point;
-* ``pdhg_state_to_numpy`` is its inverse;
+* ``pdhg_state_from_numpy`` / ``admm_state_from_numpy`` build the port's
+  ``PDHGState`` / ``ADMMState`` from the fields of the JAX state given as
+  numpy arrays, so both packages can go on from the same point;
+* ``pdhg_state_to_numpy`` / ``admm_state_to_numpy`` are their inverses;
 * ``problem_arrays`` lists a finalized problem's preconditioners and prox
   coefficients as numpy, so a test can check that both packages finalize
   the same problem.  It reads attributes only, so it takes a JAX
@@ -17,20 +17,24 @@ import dataclasses
 import numpy as np
 import torch
 
+from .backend.admm import ADMMState
 from .backend.pdhg import PDHGState
 from .common import to_numpy
 from .config import dtype as config_dtype
 
-_VECTORS = ("x", "y", "kx", "kty", "x_prev", "y_prev", "kx_prev", "kty_prev")
+_PDHG_VECTORS = ("x", "y", "kx", "kty", "x_prev", "y_prev", "kx_prev",
+                 "kty_prev")
+_ADMM_VECTORS = ("x_half", "x_proj", "x_dual", "z_half", "z_proj", "z_dual",
+                 "cg_warm")
 
 
-def pdhg_state_from_numpy(fields: dict, device) -> PDHGState:
-    """The port's state on ``device`` from numpy fields: vectors and
-    scalars in the configured dtype, ``iteration`` int32, ``converged``
-    bool.  Every field of ``PDHGState`` must be present."""
+def _state_from_numpy(cls, vectors, fields: dict, device):
+    """A ``cls`` state on ``device`` from numpy fields: vectors and scalars
+    in the configured dtype, ``iteration`` int32, ``converged`` bool.
+    Every field of ``cls`` must be present."""
     dt = config_dtype()
     out = {}
-    for f in dataclasses.fields(PDHGState):
+    for f in dataclasses.fields(cls):
         v = np.asarray(fields[f.name])
         if f.name == "iteration":
             t = torch.as_tensor(v.astype(np.int32))
@@ -38,15 +42,36 @@ def pdhg_state_from_numpy(fields: dict, device) -> PDHGState:
             t = torch.as_tensor(v.astype(bool))
         else:
             t = torch.as_tensor(v.astype(np.float64)).to(dt)
-        out[f.name] = t.reshape(-1) if f.name in _VECTORS else t.reshape(())
-        out[f.name] = out[f.name].to(device)
-    return PDHGState(**out)
+        t = t.reshape(-1) if f.name in vectors else t.reshape(())
+        out[f.name] = t.to(device)
+    return cls(**out)
+
+
+def _state_to_numpy(state) -> dict:
+    return {f.name: to_numpy(getattr(state, f.name))
+            for f in dataclasses.fields(state)}
+
+
+def pdhg_state_from_numpy(fields: dict, device) -> PDHGState:
+    """The port's ``PDHGState`` on ``device`` from a JAX ``PDHGState``'s
+    fields as numpy arrays."""
+    return _state_from_numpy(PDHGState, _PDHG_VECTORS, fields, device)
 
 
 def pdhg_state_to_numpy(state) -> dict:
     """Every field of a ``PDHGState`` as a numpy array."""
-    return {f.name: to_numpy(getattr(state, f.name))
-            for f in dataclasses.fields(state)}
+    return _state_to_numpy(state)
+
+
+def admm_state_from_numpy(fields: dict, device) -> ADMMState:
+    """The port's ``ADMMState`` on ``device`` from a JAX ``ADMMState``'s
+    fields as numpy arrays."""
+    return _state_from_numpy(ADMMState, _ADMM_VECTORS, fields, device)
+
+
+def admm_state_to_numpy(state) -> dict:
+    """Every field of an ``ADMMState`` as a numpy array."""
+    return _state_to_numpy(state)
 
 
 def _coeff(v):

@@ -1,9 +1,9 @@
 """Modeling layer: variables, problems, function/block factories, solve
-(counterpart of ``prost_tpu/modeling``, the part slice 1 needs)."""
+(counterpart of ``prost_tpu/modeling``, the part slices 1-2 need)."""
 
 from . import block, function
 from .problems import MinMaxProblem, MinProblem
-from .solve import Backend, backend_pdhg, options, solve
+from .solve import Backend, backend_admm, backend_pdhg, options, solve
 from .variable import SubVariable, Variable
 
 __all__ = [
@@ -17,4 +17,5 @@ __all__ = [
     "options",
     "Backend",
     "backend_pdhg",
+    "backend_admm",
 ]

@@ -1,13 +1,13 @@
-"""solve / options / backend factory (counterpart of
-``prost_tpu/modeling/solve.py``; the ADMM backend and the debug eval entry
-points come with later slices)."""
+"""solve / options / backend factories (counterpart of
+``prost_tpu/modeling/solve.py``; the debug eval entry points come with a
+later slice)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from ..backend import PDHGOptions
+from ..backend import ADMMOptions, PDHGOptions
 from ..solver import Solver, SolverOptions
 from .problems import _GraphProblem
 
@@ -18,17 +18,26 @@ class Backend:
     opts: object
 
     def create(self, problem, solver_opts):
-        # FusedROFPDHG takes the fused route (CUDA kernels on the card,
-        # their plain versions on the CPU) when the problem structure
-        # matches; otherwise it behaves exactly like BackendPDHG
-        from ..ops import FusedROFPDHG
+        # FusedROFPDHG / FusedROFADMM take the fused route (CUDA kernels on
+        # the card, their plain versions on the CPU) when the problem
+        # structure matches; otherwise they behave exactly like
+        # BackendPDHG / BackendADMM
+        from ..ops import FusedROFADMM, FusedROFPDHG
 
-        return FusedROFPDHG(problem, self.opts, solver_opts)
+        if self.kind == "pdhg":
+            return FusedROFPDHG(problem, self.opts, solver_opts)
+        return FusedROFADMM(problem, self.opts, solver_opts)
 
 
 def backend_pdhg(**kw) -> Backend:
     """PDHG backend with MATLAB defaults (+backend/pdhg.m)."""
     return Backend("pdhg", PDHGOptions(**kw))
+
+
+def backend_admm(**kw) -> Backend:
+    """Graph-projection ADMM backend with MATLAB defaults
+    (+backend/admm.m)."""
+    return Backend("admm", ADMMOptions(**kw))
 
 
 def options(**kw) -> SolverOptions:

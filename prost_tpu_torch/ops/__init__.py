@@ -1,13 +1,20 @@
 """Fused iterations with hand-written CUDA kernels (counterpart of
-``prost_tpu/ops``): the ROF route of slice 1."""
+``prost_tpu/ops``): the ROF route by PDHG and by ADMM."""
 
+from .fused_admm import (FusedROFADMM, admm_chunk, admm_chunk_plain,
+                         admm_multichunk, admm_multichunk_plain)
 from .fused_rof import (FusedROFPDHG, launch_counts, match_rof_structure,
                         reset_launch_counts, rof_chunk, rof_chunk_plain,
                         rof_multichunk, rof_multichunk_plain)
 
 __all__ = [
+    "FusedROFADMM",
     "FusedROFPDHG",
     "match_rof_structure",
+    "admm_chunk",
+    "admm_chunk_plain",
+    "admm_multichunk",
+    "admm_multichunk_plain",
     "rof_chunk",
     "rof_chunk_plain",
     "rof_multichunk",

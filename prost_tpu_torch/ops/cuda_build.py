@@ -3,7 +3,10 @@
 Each ``csrc/*.cu`` file has a plain C interface.  On first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``prost_tpu_torch/_build/`` (ignored by git), named by the hash of its
-source so a stale build is never loaded, and loaded with ``ctypes``.
+source so a stale build is never loaded, and loaded with ``ctypes``.  The
+sources include no header of their own, so the hash of the source covers
+all of it.  ``load`` holds no lock while ``nvcc`` runs, so threads can
+build several libraries at once.
 Nothing here runs when the package is imported, and nothing falls back:
 a missing ``nvcc`` or a failed compile raises.
 """
@@ -64,31 +67,31 @@ def load(name: str) -> CudaLibrary:
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as fh:
-            digest = hashlib.sha256(
-                fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        path = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
-        log_path = path[:-3] + ".log"
-        seconds = 0.0
-        if not os.path.exists(path):
-            # build to a private name, then rename: concurrent processes
-            # (test workers) never load a half-written library
-            tmp = f"{path}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise ProstError(f"nvcc failed on {src}:\n{proc.stderr}")
-            with open(log_path, "w") as fh:
-                fh.write(proc.stderr)
-            os.replace(tmp, path)
-        log = ""
-        if os.path.exists(log_path):
-            with open(log_path) as fh:
-                log = fh.read()
-        built = CudaLibrary(ctypes.CDLL(path), seconds, log, path)
-        _loaded[name] = built
-        return built
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(
+            fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    log_path = path[:-3] + ".log"
+    seconds = 0.0
+    if not os.path.exists(path):
+        # build to a private name, then rename: concurrent builds
+        # (threads, test workers) never load a half-written library
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise ProstError(f"nvcc failed on {src}:\n{proc.stderr}")
+        with open(log_path, "w") as fh:
+            fh.write(proc.stderr)
+        os.replace(tmp, path)
+    log = ""
+    if os.path.exists(log_path):
+        with open(log_path) as fh:
+            log = fh.read()
+    built = CudaLibrary(ctypes.CDLL(path), seconds, log, path)
+    with _lock:
+        return _loaded.setdefault(name, built)

@@ -1,0 +1,662 @@
+"""Fused graph-projection ADMM for ROF-structured problems (counterpart of
+``prost_tpu/ops/fused_admm.py``).
+
+Same workload family as ``ops/fused_rof.py`` (a lone gradient2d operator,
+square / wsquare / abs data term, norm2 dual coupling, recognized by the
+same ``match_rof_structure``), solved with the ADMM backend.  With the
+constant alpha preconditioners (Sigma = 1/2, Tau = 1/4) the scaled
+operator is a multiple of the gradient, K~ = c_K grad with
+c_K = 1/(2 sqrt 2), so a whole outer iteration, inner projection
+included, is stencils, pointwise work and a few scalar reductions.
+
+Two kernels carry the route, each a hand-written CUDA kernel set in
+``csrc/fused_admm.cu`` with a plain PyTorch version beside its wrapper here:
+
+* ``admm_chunk`` (JAX ``admm_fused_chunk``): ``count`` ADMM iterations, the
+  inner projection by masked CGLS or by a degree-d Chebyshev iteration,
+  and the four squared residual norms of the last one;
+* ``admm_multichunk`` (JAX ``admm_fused_multichunk``): up to ``k_chunks``
+  Chebyshev chunks with the Boyd rho adaptation, the dual rescale and the
+  stopping test on the device between chunks.
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel, or raises.  There is no other route and no fallback,
+and the route is taken on any device.  Nor is there a size gate: the
+kernels keep their planes in device memory, so the JAX package's banded
+route for planes beyond a TPU core's VMEM (``admm_banded_chunk``) has no
+counterpart; the same kernels serve every size.
+
+The inner projection solves (I + c_K^2 grad^T grad) u = c_K grad^T d.  The
+Neumann-Laplacian spectrum [0, 8) puts that operator's spectrum in
+[1, 2), so a fixed-coefficient Chebyshev iteration converges at the same
+per-step rate as CGLS with no dot products.  ``projection="auto"`` (the
+default) resolves to it; ``"cgls"`` keeps the reference's inner algebra.
+
+Layout contract (the JAX package's): x-like planes (nx, ny), z-like
+arrays (2, nx, ny).  The z arrays' dead coordinates (x component's last
+row, y component's last column) are zeroed at run entry and at every
+launch, which makes the maskless adjoint stencils exact.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import torch
+
+from ..backend.admm import (ADMMState, BackendADMM, admm_residual_adapt,
+                            cg_tolerance, dct_projection_plan)
+from ..backend.pdhg import hold_if
+from ..config import ProstError
+from .fused_rof import (DATATERMS, _SQRT_S, _SQRT_T, _dead_dual_flat, _dx,
+                        _dxt, _dy, _dyt, _entry_converged, _project_dead_dual,
+                        _ptr, _raise_on, match_rof_structure)
+from .phases import K_CHUNKS, run_phases
+
+_C_K = _SQRT_S * _SQRT_T  # K~ = c_K * grad
+_INV_SQRT_S = 1.0 / _SQRT_S
+_INV_SQRT_T = 1.0 / _SQRT_T
+
+# Chebyshev iteration on (I + c_K^2 grad^T grad), spectrum in [1, 2)
+_CHEB_THETA = 1.5   # interval midpoint
+_CHEB_DELTA = 0.5   # interval half-width
+_CHEB_SIGMA1 = _CHEB_THETA / _CHEB_DELTA
+
+# slots of the kernels' device scalar buffer (csrc/fused_admm.cu, enum S_*)
+_S_CONV, _S_DONE, _S_NORM, _S_LEN = 11, 12, 13, 24
+_SOUT = (0, 3, 4, 5, _S_CONV, _S_DONE)  # rho delta arb_l arb_u conv done
+
+# launches of each kernel wrapper on the card (CPU calls do not count)
+launch_counts = {"admm_chunk": 0, "admm_multichunk": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions of the chunk math
+# ---------------------------------------------------------------------------
+
+def _cgls_masked(d_x, d_y, u0, tol, maxit: int):
+    """``backend.cgls.cgls_solve`` on A = c_K grad, shift = 1, as a fixed
+    trip of ``maxit`` steps with every update predicated on the pre-step
+    ``done`` flag.  ``tol`` arrives clamped to 10 eps by the caller."""
+    eps = torch.finfo(d_x.dtype).eps
+
+    def A(u):
+        return _C_K * _dx(u), _C_K * _dy(u)
+
+    def At(vx, vy):
+        return _C_K * (_dxt(vx) + _dyt(vy))
+
+    ax, ay = A(u0)
+    rx, ry = d_x - ax, d_y - ay
+    s = At(rx, ry) - u0
+    p = s
+    gamma = torch.sum(s * s)
+    norms0 = torch.sqrt(gamma)
+    done = norms0 < eps
+    x = u0
+    for _ in range(int(maxit)):
+        qx, qy = A(p)
+        delta = torch.sum(qx * qx) + torch.sum(qy * qy) + torch.sum(p * p)
+        delta = torch.where(delta <= 0, torch.full_like(delta, eps), delta)
+        alpha = gamma / delta
+        x_n = x + alpha * p
+        rx_n = rx - alpha * qx
+        ry_n = ry - alpha * qy
+        s = At(rx_n, ry_n) - x_n
+        gamma_n = torch.sum(s * s)
+        beta = gamma_n / torch.where(gamma > 0, gamma, torch.ones_like(gamma))
+        p_n = s + beta * p
+        normx = torch.sqrt(torch.sum(x_n * x_n))
+        conv = (torch.sqrt(gamma_n) <= norms0 * tol) | (normx * tol >= 1.0)
+        x = torch.where(done, x, x_n)
+        rx = torch.where(done, rx, rx_n)
+        ry = torch.where(done, ry, ry_n)
+        p = torch.where(done, p, p_n)
+        gamma = torch.where(done, gamma, gamma_n)
+        done = done | conv
+    return x
+
+
+def cheby_coeffs(degree: int) -> list:
+    """The (c_prev, c_r) pairs of the ``degree - 1`` Chebyshev steps,
+    d <- c_prev d + c_r r, as Python floats (the kernels take them as f32
+    launch arguments, rounded as torch rounds a Python scalar)."""
+    out = []
+    rho_prev = 1.0 / _CHEB_SIGMA1
+    for _ in range(int(degree) - 1):
+        rho_k = 1.0 / (2.0 * _CHEB_SIGMA1 - rho_prev)
+        out.append((rho_k * rho_prev, 2.0 * rho_k / _CHEB_DELTA))
+        rho_prev = rho_k
+    return out
+
+
+def _cheby_project(d_x, d_y, u0, degree: int):
+    """Solve min ||A u - d||^2 + ||u||^2 (A = c_K grad) by ``degree`` steps
+    of the classical Chebyshev iteration on (I + A^T A) u = A^T d,
+    warm-started from u0; no reductions.  Degree 10 reaches about 4e-8
+    relative to the warm-start residual, the f32 floor."""
+    c2 = _C_K * _C_K
+
+    def M(u):
+        return u + c2 * (_dxt(_dx(u)) + _dyt(_dy(u)))
+
+    b = _C_K * (_dxt(d_x) + _dyt(d_y))
+    r = b - M(u0)
+    x = u0
+    d = r * (1.0 / _CHEB_THETA)
+    for c_prev, c_r in cheby_coeffs(degree):
+        x = x + d
+        r = r - M(d)
+        d = c_prev * d + c_r * r
+    return x + d
+
+
+def _admm_iter(xh, xp, xd, zh, zp, zd, warm, f, w, project, rho, lmb,
+               radius, alpha: float, dataterm: str):
+    """One graph-projection ADMM iteration (``backend.admm.admm_step``
+    specialized to Sigma = 1/2, Tau = 1/4).  ``project(d_x, d_y, warm)``
+    is the inner least-squares solver.  z-like values travel as (zx, zy)
+    plane pairs."""
+    # relaxed arguments (scaled space)
+    t1 = (alpha * xh + (1.0 - alpha) * xp + xd) * _INV_SQRT_T
+    t2_x = _SQRT_S * (zh[0] + zd[0])
+    t2_y = _SQRT_S * (zh[1] + zd[1])
+
+    # graph projection: min ||K~ u - d||^2 + ||u||^2, warm-started
+    d_x = t2_x - _C_K * _dx(t1)
+    d_y = t2_y - _C_K * _dy(t1)
+    u = project(d_x, d_y, warm)
+
+    xp_n = _SQRT_T * (u + t1)
+    zp_nx = _dx(xp_n)
+    zp_ny = _dy(xp_n)
+    xd_n = _SQRT_T * t1 - xp_n
+    zd_nx = t2_x * _INV_SQRT_S - zp_nx
+    zd_ny = t2_y * _INV_SQRT_S - zp_ny
+
+    # prox_g with effective step Tau/rho = 1/(4 rho)
+    te = 0.25 / rho
+    tl = te * lmb
+    arg = xp_n - xd_n
+    if dataterm == "square":
+        xh_n = (arg + tl * f) * (1.0 / (1.0 + tl))
+    elif dataterm == "wsquare":
+        tw = tl * w
+        xh_n = (arg + tw * f) / (1.0 + tw)
+    else:  # abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
+        dv = arg - f
+        xh_n = arg - torch.minimum(torch.maximum(dv, -tl), tl)
+
+    # prox_f: shrinkage of the per-pixel 2-vector magnitude by radius *
+    # step, inverted step 1/(rho Sigma) = 2/rho
+    za_x = zp_nx - zd_nx
+    za_y = zp_ny - zd_ny
+    shrink = radius * (2.0 / rho)
+    nrm = torch.sqrt(za_x * za_x + za_y * za_y)
+    scale = (torch.clamp(nrm - shrink, min=0.0)
+             / torch.where(nrm > 0, nrm, torch.ones_like(nrm)))
+    return (xh_n, xp_n, xd_n, (za_x * scale, za_y * scale), (zp_nx, zp_ny),
+            (zd_nx, zd_ny), u)
+
+
+def _admm_norms(xh, xp, xd, zh, zp, zd, rho):
+    """The four SQUARED preconditioned residual norms of an ADMM iterate
+    with Sigma = 1/2, Tau = 1/4: |pr|^2, |pn|^2, |dr|^2, |dn|^2."""
+    pr_x = _SQRT_S * (_dx(xh) - zh[0])
+    pr_y = _SQRT_S * (_dy(xh) - zh[1])
+    pn_x = _SQRT_S * zh[0]
+    pn_y = _SQRT_S * zh[1]
+    wv = (-rho * 4.0) * (xh - xp + xd)             # -rho / Tau
+    y_x = (-rho * 0.5) * (zh[0] - zp[0] + zd[0])   # -rho * Sigma
+    y_y = (-rho * 0.5) * (zh[1] - zp[1] + zd[1])
+    kty = _dxt(y_x) + _dyt(y_y)
+    dn = _SQRT_T * wv
+    dr = _SQRT_T * (wv + kty)
+    return (torch.sum(pr_x * pr_x) + torch.sum(pr_y * pr_y),
+            torch.sum(pn_x * pn_x) + torch.sum(pn_y * pn_y),
+            torch.sum(dr * dr), torch.sum(dn * dn))
+
+
+def admm_adapt_scalars(consts, tols4, it, rho, delta, arb_l, arb_u,
+                       pr, pn, dr, dn):
+    """The scalar math of ``backend.admm.admm_residual_adapt`` as the
+    multichunk kernel runs it between chunks: same f32 operations in the
+    same order on 0-d tensors.  ``consts`` = (sqrt_nrows, sqrt_ncols,
+    arb_tau, arb_gamma) are Python floats; ``it`` is the post-increment
+    counter of the chunk's last iteration as f32.
+
+    Returns (rho, delta, arb_l, arb_u, dual_rescale_fac, converged)."""
+    trp, trd, tap, tad = tols4
+    sqrt_nrows, sqrt_ncols, arb_tau, arb_gamma = consts
+    eps_pri = sqrt_nrows * tap + trp * pn
+    eps_dua = sqrt_ncols * tad + trd * dn
+    c1 = (dr < eps_dua) & (arb_tau * it > arb_l)
+    c2 = (pr < eps_pri) & (arb_tau * it > arb_u) & ~c1
+    rho_new = torch.where(c1, rho * delta, torch.where(c2, rho / delta, rho))
+    delta_new = torch.where(c1 | c2, delta * arb_gamma, delta)
+    arb_u = torch.where(c1, it, arb_u)
+    arb_l = torch.where(c2, it, arb_l)
+    fac = rho / rho_new
+    conv = (pr < eps_pri) & (dr < eps_dua)
+    return rho_new, delta_new, arb_l, arb_u, fac, conv
+
+
+def admm_adapt_consts(problem, opts) -> tuple:
+    """The constant tuple for ``admm_adapt_scalars``."""
+    return (math.sqrt(float(problem.nrows)), math.sqrt(float(problem.ncols)),
+            float(opts.arb_tau), float(opts.arb_gamma))
+
+
+def _chunk_planes(planes, f, w, rho, lmb, radius, count, alpha, dataterm,
+                  project):
+    """``count`` iterations on the 7 state planes; ``project(k)`` gives
+    the inner solver of the chunk's k-th iteration."""
+    xh, xp, xd, zh, zp, zd, warm = planes
+    for k in range(int(count)):
+        xh, xp, xd, zh, zp, zd, warm = _admm_iter(
+            xh, xp, xd, zh, zp, zd, warm, f, w, project(k), rho, lmb,
+            radius, alpha, dataterm)
+    return xh, xp, xd, zh, zp, zd, warm
+
+
+def _entry_planes(xh, xp, xd, zh, zp, zd, warm):
+    """The state as the kernels start from it: z dead coordinates zeroed,
+    z-like arrays split into plane pairs."""
+    zs = tuple(_project_dead_dual(z[0], z[1]) for z in (zh, zp, zd))
+    return (xh, xp, xd) + zs + (warm,)
+
+
+def _stack_z(planes):
+    xh, xp, xd, zh, zp, zd, warm = planes
+    return (xh, xp, xd, torch.stack(zh), torch.stack(zp), torch.stack(zd),
+            warm)
+
+
+def admm_chunk_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
+                     count: int, maxit: int, alpha: float,
+                     dataterm: str = "square", cheby_degree=None):
+    """Plain PyTorch version of ``admm_chunk`` (any device)."""
+    rho, lmb, radius = scal[0], scal[1], scal[2]
+    if cheby_degree is not None:
+        def project(k):
+            return lambda dx_, dy_, u0: _cheby_project(dx_, dy_, u0,
+                                                       int(cheby_degree))
+    else:
+        def project(k):
+            return lambda dx_, dy_, u0: _cgls_masked(dx_, dy_, u0,
+                                                     cg_tols[k], maxit)
+    planes = _chunk_planes(_entry_planes(xh, xp, xd, zh, zp, zd, warm), f, w,
+                           rho, lmb, radius, count, alpha, dataterm, project)
+    norms2 = torch.stack(_admm_norms(*planes[:6], rho))
+    conv = _entry_converged(scal, 3)
+    ins = (xh, xp, xd, zh, zp, zd, warm)
+    outs = tuple(torch.where(conv, a, b) for a, b in zip(ins,
+                                                         _stack_z(planes)))
+    return outs + (torch.where(conv, torch.zeros_like(norms2), norms2),)
+
+
+def admm_multichunk_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal,
+                          count: int, k_chunks: int, alpha: float,
+                          cheby_degree: int, consts,
+                          dataterm: str = "square"):
+    """Plain PyTorch version of ``admm_multichunk`` (any device): every
+    chunk is computed and kept only while not converged, where the JAX
+    kernel branches around it with ``lax.cond``."""
+    lmb, radius, it0 = scal[1], scal[2], scal[6]
+    tols4 = (scal[7], scal[8], scal[9], scal[10])
+    zero = torch.zeros((), dtype=xh.dtype, device=xh.device)
+
+    def project(k):
+        return lambda dx_, dy_, u0: _cheby_project(dx_, dy_, u0,
+                                                   int(cheby_degree))
+
+    ins = (xh, xp, xd, zh, zp, zd, warm)
+    conv0 = _entry_converged(scal, 11)
+    planes = _entry_planes(*ins)
+    sc = (scal[0], scal[3], scal[4], scal[5], conv0, zero)
+    norms = (zero, zero, zero, zero)
+    for c in range(int(k_chunks)):
+        rho, delta, arb_l, arb_u, conv, done = sc
+        p2 = _chunk_planes(planes, f, w, rho, lmb, radius, count, alpha,
+                           dataterm, project)
+        nrm = _admm_norms(*p2[:6], rho)
+        pr, pn = torch.sqrt(nrm[0]), torch.sqrt(nrm[1])
+        dr, dn = torch.sqrt(nrm[2]), torch.sqrt(nrm[3])
+        it = it0 + float((c + 1) * int(count))
+        rho2, delta2, al2, au2, fac, cv = admm_adapt_scalars(
+            consts, tols4, it, rho, delta, arb_l, arb_u, pr, pn, dr, dn)
+        xh2, xp2, xd2, zh2, zp2, zd2, warm2 = p2
+        p2 = (xh2, xp2, xd2 * fac, zh2, zp2, (zd2[0] * fac, zd2[1] * fac),
+              warm2)
+        planes = tuple(
+            (torch.where(conv, a[0], b[0]), torch.where(conv, a[1], b[1]))
+            if isinstance(a, tuple) else torch.where(conv, a, b)
+            for a, b in zip(planes, p2))
+        new_sc = (rho2, delta2, al2, au2, cv, done + 1.0)
+        sc = tuple(torch.where(conv, a, b) for a, b in zip(sc, new_sc))
+        norms = tuple(torch.where(conv, a, b)
+                      for a, b in zip(norms, (pr, pn, dr, dn)))
+    rho, delta, arb_l, arb_u, conv, done = sc
+    sout = torch.stack([rho, delta, arb_l, arb_u, conv.to(xh.dtype), done])
+    # converged at entry: nothing ran, the inputs come back as they were
+    outs = tuple(torch.where(conv0, a, b)
+                 for a, b in zip(ins, _stack_z(planes)))
+    return outs + (torch.stack(norms), sout)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(planes, f, w, scal, n_scal: int, count: int, dataterm: str):
+    if dataterm not in DATATERMS:
+        raise ProstError(f"Unknown ROF data term '{dataterm}'.")
+    if int(count) < 1:
+        raise ProstError("A chunk needs count >= 1.")
+    xh = planes[0]
+    if xh.dim() != 2 or min(xh.shape) < 2:
+        raise ProstError(
+            f"x_half must be an (nx, ny) plane, got {tuple(xh.shape)}.")
+    nx, ny = xh.shape
+    names = ("x_half", "x_proj", "x_dual", "z_half", "z_proj", "z_dual",
+             "warm", "f", "w")
+    for name, t in zip(names, tuple(planes) + (f, w)):
+        shape = (2, nx, ny) if name.startswith("z") else (nx, ny)
+        if tuple(t.shape) != shape:
+            raise ProstError(f"{name} must be {shape}, got {tuple(t.shape)}.")
+    if scal.numel() not in (n_scal, n_scal + 1):
+        raise ProstError(f"scal must hold {n_scal} scalars "
+                         f"(+1 converged flag), got {scal.numel()}.")
+    dev = xh.device
+    for t in tuple(planes) + (f, w, scal):
+        if t.device != dev:
+            raise ProstError("All tensors must be on one device.")
+        if dev.type == "cuda" and t.dtype != torch.float32:
+            raise ProstError("The CUDA ADMM kernels take float32 only.")
+    if dev.type not in ("cpu", "cuda"):
+        raise ProstError(f"No ADMM kernel for device {dev}.")
+
+
+class _Work:
+    """The buffers one kernel call works on in place: copies of the 7
+    state planes (so a call that returns at once hands its inputs back),
+    8 scratch planes, the scalar buffer and the reduction partials."""
+
+    def __init__(self, lib, planes, scal, n_scal: int):
+        self.planes = [t.contiguous().clone() for t in planes]
+        nx, ny = self.planes[0].shape
+        dev = self.planes[0].device
+        self.scratch = torch.empty(8 * nx * ny, dtype=torch.float32,
+                                   device=dev)
+        self.sc = torch.zeros(_S_LEN, dtype=torch.float32, device=dev)
+        self.sc[:n_scal] = scal[:n_scal]
+        if scal.numel() > n_scal:
+            self.sc[_S_CONV] = scal[n_scal]
+        nblocks = lib.prost_admm_num_blocks(nx, ny)
+        self.partial = torch.empty(4 * nblocks, dtype=torch.float32,
+                                   device=dev)
+
+    def args(self, f, w):
+        nx, ny = self.planes[0].shape
+        ptrs = tuple(self.planes) + (f.contiguous(), w.contiguous(),
+                                     self.scratch, self.sc, self.partial)
+        self._keep = ptrs  # alive until the launches are queued
+        return [_ptr(t) for t in ptrs] + [nx, ny]
+
+    def outputs(self):
+        return tuple(self.planes)
+
+
+def _lib():
+    """The fused ADMM kernel library, built from csrc/fused_admm.cu on
+    first use."""
+    from .cuda_build import load
+
+    lib = load("fused_admm").lib
+    if not getattr(lib, "_prost_typed", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.prost_admm_num_blocks.argtypes = [ci, ci]
+        lib.prost_admm_num_blocks.restype = ci
+        lib.prost_error_string.argtypes = [ci]
+        lib.prost_error_string.restype = ctypes.c_char_p
+        # 12 buffers, nx, ny, cg_tols, count, dataterm, degree, coeffs,
+        # maxit, alpha, 1 - alpha, stream
+        lib.prost_admm_chunk.argtypes = ([vp] * 12 + [ci, ci, vp, ci, ci, ci,
+                                                      vp, ci, cf, cf, vp])
+        lib.prost_admm_chunk.restype = ci
+        # 12 buffers, nx, ny, count, k_chunks, dataterm, degree, coeffs,
+        # alpha, 1 - alpha, 4 adaptation constants, stream
+        lib.prost_admm_multichunk.argtypes = ([vp] * 12 + [ci] * 6 + [vp]
+                                              + [cf] * 6 + [vp])
+        lib.prost_admm_multichunk.restype = ci
+        lib._prost_typed = True
+    return lib
+
+
+def _coeff_array(degree):
+    """The Chebyshev step coefficients as a host float array (c_prev, c_r
+    per step), or None for the CGLS projection."""
+    if degree is None:
+        return None
+    flat = [c for pair in cheby_coeffs(int(degree)) for c in pair]
+    return (ctypes.c_float * max(len(flat), 1))(*flat)
+
+
+def admm_chunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
+               count: int, maxit: int, alpha: float,
+               dataterm: str = "square", cheby_degree=None):
+    """``count`` fused ADMM iterations ending on a residual iteration.
+
+    x-like planes (nx, ny), z-like (2, nx, ny); scal: [rho, lmb, radius]
+    (+ an optional converged flag: when set, nothing runs and the inputs
+    come back); cg_tols: the (count,) CG tolerance schedule, clamped to 10
+    eps (ignored, and may be None, when ``cheby_degree`` selects the
+    Chebyshev projection).  Returns the 7 updated state arrays and the 4
+    SQUARED residual norms, on the inputs' device.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel."""
+    planes = (xh, xp, xd, zh, zp, zd, warm)
+    _check(planes, f, w, scal, 3, count, dataterm)
+    if cheby_degree is None:
+        if cg_tols is None or cg_tols.numel() < int(count):
+            raise ProstError("The CGLS projection needs count CG "
+                             "tolerances.")
+        if cg_tols.device != xh.device:
+            raise ProstError("All tensors must be on one device.")
+    elif int(cheby_degree) < 1:
+        raise ProstError("The Chebyshev projection needs a degree >= 1.")
+    if xh.device.type == "cpu":
+        return admm_chunk_plain(*planes, f, w, scal, cg_tols, count, maxit,
+                                alpha, dataterm, cheby_degree)
+    lib = _lib()
+    with torch.cuda.device(xh.device):
+        wk = _Work(lib, planes, scal, 3)
+        tols = (None if cheby_degree is not None
+                else cg_tols.to(torch.float32).contiguous())
+        stream = torch.cuda.current_stream(xh.device).cuda_stream
+        rc = lib.prost_admm_chunk(
+            *wk.args(f, w), None if tols is None else _ptr(tols),
+            int(count), DATATERMS[dataterm],
+            0 if cheby_degree is None else int(cheby_degree),
+            _coeff_array(cheby_degree), int(maxit), float(alpha),
+            1.0 - float(alpha), stream)
+        _raise_on(lib, rc, "admm_chunk")
+        launch_counts["admm_chunk"] += 1
+    return wk.outputs() + (wk.sc[_S_NORM:_S_NORM + 4],)
+
+
+def admm_multichunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
+                    k_chunks: int, alpha: float, cheby_degree: int, consts,
+                    dataterm: str = "square"):
+    """Up to ``k_chunks * count`` fused Chebyshev-ADMM iterations with the
+    rho adaptation, the dual rescale and the stopping test on the device
+    between chunks.
+
+    ``scal`` holds 11 scalars: [rho, lmb, radius, delta, arb_l, arb_u, it0,
+    tol_rel_p, tol_rel_d, tol_abs_p, tol_abs_d] (+ an optional
+    converged-at-entry flag).  Returns the 7 state arrays, norms (the last
+    executed chunk's sqrt'd residual norms) and sout = [rho, delta, arb_l,
+    arb_u, converged, chunks_done].  CPU tensors run the plain version;
+    CUDA tensors launch the kernel."""
+    planes = (xh, xp, xd, zh, zp, zd, warm)
+    _check(planes, f, w, scal, 11, count, dataterm)
+    if int(cheby_degree) < 1:
+        raise ProstError("The multichunk needs a Chebyshev degree >= 1.")
+    if xh.device.type == "cpu":
+        return admm_multichunk_plain(*planes, f, w, scal, count, k_chunks,
+                                     alpha, cheby_degree, consts, dataterm)
+    lib = _lib()
+    with torch.cuda.device(xh.device):
+        wk = _Work(lib, planes, scal, 11)
+        stream = torch.cuda.current_stream(xh.device).cuda_stream
+        rc = lib.prost_admm_multichunk(
+            *wk.args(f, w), int(count), int(k_chunks), DATATERMS[dataterm],
+            int(cheby_degree), _coeff_array(cheby_degree), float(alpha),
+            1.0 - float(alpha), *[float(c) for c in consts], stream)
+        _raise_on(lib, rc, "admm_multichunk")
+        launch_counts["admm_multichunk"] += 1
+    sout = torch.stack([wk.sc[i] for i in _SOUT])
+    return wk.outputs() + (wk.sc[_S_NORM:_S_NORM + 4], sout)
+
+
+# ---------------------------------------------------------------------------
+# the backend
+# ---------------------------------------------------------------------------
+
+class FusedROFADMM(BackendADMM):
+    """BackendADMM that runs ROF-structured problems through the fused
+    chunk kernels and behaves exactly like BackendADMM otherwise.  Inner
+    projection by ``opts.projection``:
+
+    * "auto" (default) and "cheby": the Chebyshev projection, in the
+      kernels and in the generic phases around them (one inner solver for
+      the whole run), with multichunk launches (phase B0);
+    * "cgls": the reference's inner algebra, chunk launches only;
+    * "dct": the exact projection, generic path only.
+    """
+
+    def __init__(self, problem, opts, solver_opts):
+        super().__init__(problem, opts, solver_opts)
+        usable = opts.projection in ("auto", "cgls", "cheby")
+        self.rof = match_rof_structure(problem) if usable else None
+        self.mode = None
+        if self.rof is not None:
+            self.mode = "cgls" if opts.projection == "cgls" else "cheby"
+            like = problem.scaling_left
+            r = self.rof
+            r["lmb_t"] = like.new_full((), r["lmb"])
+            r["radius_t"] = like.new_full((), r["radius"])
+            r["tols_t"] = tuple(like.new_full((), float(t))
+                                for t in self.tols)
+            r["consts"] = admm_adapt_consts(problem, opts)
+            r["steps"] = torch.arange(max(int(opts.residual_iter), 1),
+                                      dtype=torch.int32, device=like.device)
+            if self.mode == "cheby":
+                # the generic phases run the same Chebyshev projection
+                self.run_opts = dataclasses.replace(opts,
+                                                    projection="cheby")
+                self.proj_plan = dct_projection_plan(problem)
+            if solver_opts.verbose:
+                where = ("CUDA kernels" if like.device.type == "cuda"
+                         else "plain PyTorch versions on the CPU")
+                print(f"FusedROFADMM: fused ROF route, {self.mode} "
+                      f"projection ({where}).")
+
+    def run(self, state: ADMMState, until_iter: int,
+            start_iter: int) -> ADMMState:
+        if self.rof is not None:
+            return _fused_admm_run(self, state, until_iter, start_iter)
+        return super().run(state, until_iter, start_iter)
+
+
+def _planes_of(s: ADMMState, nx, ny):
+    return (s.x_half.reshape(nx, ny), s.x_proj.reshape(nx, ny),
+            s.x_dual.reshape(nx, ny), s.z_half.reshape(2, nx, ny),
+            s.z_proj.reshape(2, nx, ny), s.z_dual.reshape(2, nx, ny),
+            s.cg_warm.reshape(nx, ny))
+
+
+def _with_planes(s: ADMMState, outs, **kw) -> ADMMState:
+    xh, xp, xd, zh, zp, zd, warm = outs[:7]
+    return dataclasses.replace(
+        s, x_half=xh.reshape(-1), x_proj=xp.reshape(-1),
+        x_dual=xd.reshape(-1), z_half=zh.reshape(-1), z_proj=zp.reshape(-1),
+        z_dual=zd.reshape(-1), cg_warm=warm.reshape(-1), **kw)
+
+
+def _fused_chunk(b: FusedROFADMM, s: ADMMState) -> ADMMState:
+    r, opts = b.rof, b.run_opts
+    ri, dt = max(int(opts.residual_iter), 1), s.x_half.dtype
+    cheby = b.mode == "cheby"
+    cg_tols = None
+    if not cheby:
+        # the chunk's CG tolerance schedule with cgls_solve's 10 eps clamp
+        it_f = (s.iteration + 1 + r["steps"]).to(dt)
+        cg_tols = torch.clamp(cg_tolerance(it_f, opts),
+                              min=10.0 * torch.finfo(dt).eps)
+    scal = torch.stack([s.rho, r["lmb_t"], r["radius_t"],
+                        s.converged.to(dt)])
+    outs = admm_chunk(*_planes_of(s, r["nx"], r["ny"]), r["f"], r["w"], scal,
+                      cg_tols, ri, opts.cg_max_iter, opts.alpha,
+                      r["dataterm"], opts.cheby_degree if cheby else None)
+    norms = torch.sqrt(outs[7])
+    new = _with_planes(s, outs, iteration=s.iteration + ri)
+    # adaptation sees the post-increment counter of the chunk's last
+    # iteration, which is new.iteration
+    new = admm_residual_adapt(b.problem, opts, b.tols, new, norms[0],
+                              norms[1], norms[2], norms[3])
+    return hold_if(s.converged, s, new)
+
+
+def _multi_chunk(b: FusedROFADMM, s: ADMMState) -> ADMMState:
+    r, opts = b.rof, b.run_opts
+    ri, dt = max(int(opts.residual_iter), 1), s.x_half.dtype
+    scal = torch.stack([
+        s.rho, r["lmb_t"], r["radius_t"], s.delta, s.arb_l, s.arb_u,
+        s.iteration.to(dt), *r["tols_t"], s.converged.to(dt)])
+    outs = admm_multichunk(*_planes_of(s, r["nx"], r["ny"]), r["f"],
+                           r["w"], scal, ri, K_CHUNKS, opts.alpha,
+                           opts.cheby_degree, r["consts"], r["dataterm"])
+    norms, sc = outs[7], outs[8]
+    done = sc[5].to(torch.int32)
+    new = _with_planes(
+        s, outs, rho=sc[0], delta=sc[1], arb_l=sc[2], arb_u=sc[3],
+        converged=sc[4] > 0.5,
+        primal_residual=norms[0], primal_var_norm=norms[1],
+        dual_residual=norms[2], dual_var_norm=norms[3],
+        iteration=s.iteration + done * ri)
+    return hold_if(s.converged, s, new)
+
+
+def _fused_admm_run(b: FusedROFADMM, state: ADMMState, until: int,
+                    start: int) -> ADMMState:
+    """The phases of ``ops.phases.run_phases`` around the fused chunks.
+    The generic step computes residuals where the post-increment counter
+    is a multiple of ri, so a chunk starts where iteration % ri == 0; the
+    canonicalization zeroes the dead coordinates of the three z arrays;
+    there is no epilogue (the chunks carry the whole state).  Multichunk
+    launches (phase B0) run in Chebyshev mode only: the CG tolerance
+    schedule is per iteration."""
+    nx, ny = b.rof["nx"], b.rof["ny"]
+    ri = max(int(b.run_opts.residual_iter), 1)
+
+    def canonicalize(s):
+        return dataclasses.replace(
+            s, z_half=_dead_dual_flat(s.z_half, nx, ny),
+            z_proj=_dead_dual_flat(s.z_proj, nx, ny),
+            z_dual=_dead_dual_flat(s.z_dual, nx, ny))
+
+    multichunk = None
+    if b.mode == "cheby":
+        def multichunk(s):
+            return _multi_chunk(b, s)
+
+    return run_phases(state, start, until, ri, 0, b.generic_step,
+                      canonicalize, lambda s: _fused_chunk(b, s),
+                      multichunk=multichunk)

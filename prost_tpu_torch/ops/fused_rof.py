@@ -45,12 +45,10 @@ from ..linop.base import LinearOperator
 from ..linop.gradient import BlockGradient2D
 from ..prox.combinators import ProxMoreau
 from ..prox.elemop import ProxElem1D, ProxElemNorm2
+from .phases import K_CHUNKS, run_phases
 
 _SQRT_S = 0.7071067811865476  # sqrt(Sigma) = sqrt(1/2)
 _SQRT_T = 0.5                 # sqrt(Tau)   = sqrt(1/4)
-
-# chunks per multichunk launch (adaptation between chunks on the device)
-K_CHUNKS = 8
 
 DATATERMS = {"square": 0, "wsquare": 1, "abs": 2}
 # alg2 never reaches the fused route; alg1 runs the stopping test only
@@ -617,53 +615,26 @@ def _fused_chunk(b: FusedROFPDHG, s: PDHGState) -> PDHGState:
 
 def _fused_rof_run(b: FusedROFPDHG, state: PDHGState, until: int,
                    start: int) -> PDHGState:
-    """The phases around the fused chunks, planned on the host from
-    ``start`` (the caller's copy of ``state.iteration``):
-
-      A.  generic steps until iteration % ri == 1, so each chunk ends on a
-          residual iteration (a no-op for ri == 1)
-      --  the dead dual coordinates zeroed once per run
-      B0. multichunk launches of ``K_CHUNKS * ri`` iterations
-      B.  chunks of ri iterations, adaptation by ``residual_and_adapt``
-      --  an epilogue refreshing kx, kty, kx_prev, kty_prev (the chunks do
-          not carry them)
-      C.  generic steps for the tail until ``until``
-
-    Once the device sets ``converged`` every later launch returns at once
-    and every later step is held (``hold_if``): the schedule is the JAX
-    package's while-loops, without a host read."""
-    problem, opts = b.problem, b.opts
-    r = b.rof
+    """The phases of ``ops.phases.run_phases`` around the fused chunks.
+    A chunk starts where iteration % ri == 1 (pre-increment counter), so
+    it ends on a residual iteration; the canonicalization zeroes the dead
+    dual coordinates of y and y_prev; the epilogue refreshes kx, kty,
+    kx_prev and kty_prev, which the chunks do not carry."""
+    r, lin = b.rof, b.problem.linop
     nx, ny = r["nx"], r["ny"]
-    ri = max(int(opts.residual_iter), 1)
-    it = start
+    ri = max(int(b.opts.residual_iter), 1)
 
-    align = 1 % ri
-    while it % ri != align and it < until:
-        state = b.generic_step(state, it)
-        it += 1
+    def canonicalize(s):
+        return dataclasses.replace(s, y=_dead_dual_flat(s.y, nx, ny),
+                                   y_prev=_dead_dual_flat(s.y_prev, nx, ny))
 
-    state = dataclasses.replace(state,
-                                y=_dead_dual_flat(state.y, nx, ny),
-                                y_prev=_dead_dual_flat(state.y_prev, nx, ny))
+    def epilogue(s):
+        return dataclasses.replace(
+            s, kx=lin.apply(s.x), kty=lin.apply_adjoint(s.y),
+            kx_prev=lin.apply(s.x_prev),
+            kty_prev=lin.apply_adjoint(s.y_prev))
 
-    while it + K_CHUNKS * ri <= until:
-        state = _multi_chunk(b, state)
-        it += K_CHUNKS * ri
-
-    while it + ri <= until:
-        state = _fused_chunk(b, state)
-        it += ri
-
-    lin = problem.linop
-    state = dataclasses.replace(
-        state,
-        kx=lin.apply(state.x), kty=lin.apply_adjoint(state.y),
-        kx_prev=lin.apply(state.x_prev),
-        kty_prev=lin.apply_adjoint(state.y_prev),
-    )
-
-    while it < until:
-        state = b.generic_step(state, it)
-        it += 1
-    return state
+    return run_phases(state, start, until, ri, 1 % ri, b.generic_step,
+                      canonicalize, lambda s: _fused_chunk(b, s),
+                      multichunk=lambda s: _multi_chunk(b, s),
+                      epilogue=epilogue)

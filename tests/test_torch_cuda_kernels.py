@@ -10,6 +10,10 @@ the suite's conftest (which configures JAX):
 Tolerances (f32 on the card, kernels built with -fmad=false): planes 2e-5
 absolute, the kernels' rsqrtf may round the ball projection differently
 from torch.rsqrt; norms 1e-4 relative, block-tree sums against torch.sum.
+The ADMM kernels with the CGLS projection: planes 5e-5 absolute, since
+every CG step's alpha and beta come from whole-plane sums taken in another
+order; residual norms after a multichunk launch of 80 iterations 1e-3
+relative, being norms of differences of nearby iterates.
 """
 
 import dataclasses
@@ -19,8 +23,9 @@ import pytest
 import torch
 
 import prost_tpu_torch as ptt
-from prost_tpu_torch.backend import PDHGOptions
-from prost_tpu_torch.ops import FusedROFPDHG
+from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
+from prost_tpu_torch.ops import FusedROFADMM, FusedROFPDHG
+from prost_tpu_torch.ops import fused_admm as fa
 from prost_tpu_torch.ops import fused_rof as fr
 
 pytestmark = pytest.mark.cuda
@@ -114,6 +119,14 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         fr.rof_chunk(x.double(), q, f, w, scal, 3)
     with pytest.raises(ptt.ProstError, match="one device"):
         fr.rof_chunk(x, q.cpu(), f, w, scal, 3)
+    *planes, f, w = _admm_inputs(1, 32, 32, dev)
+    scal = torch.tensor([1.0, 8.0, 1.0], device=dev)
+    with pytest.raises(ptt.ProstError, match="one device"):
+        fa.admm_chunk(*planes, f, w, scal, torch.full((3,), 1e-3), 3, 10,
+                      1.7, "square", None)
+    with pytest.raises(ptt.ProstError, match="float32"):
+        fa.admm_chunk(*planes, f.double(), w, scal, None, 3, 10, 1.7,
+                      "square", 10)
 
 
 def _tv_problem(nx, ny, device):
@@ -151,6 +164,117 @@ def test_fused_backend_on_card_matches_cpu(dev, stepsize):
     gpu, cpu = states
     assert bool(gpu.converged) and bool(cpu.converged)
     assert int(gpu.iteration) == int(cpu.iteration) < 1200
+    for f in dataclasses.fields(gpu):
+        a, b = getattr(gpu, f.name), getattr(cpu, f.name)
+        assert a.is_cuda, f.name
+        if a.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3,
+                                       msg=f.name)
+
+
+# ---------------------------------------------------------------------------
+# the ADMM kernels
+# ---------------------------------------------------------------------------
+
+ADMM_PLANE_ATOL = {10: PLANE_ATOL, None: 5e-5}  # by cheby_degree
+
+
+def _admm_inputs(seed, nx, ny, dev):
+    """The seven state arrays (with mass on the dead z coordinates, which
+    both versions zero at entry), f and w."""
+    rng = np.random.RandomState(seed)
+    arrs = [rng.rand(nx, ny) for _ in range(3)]
+    arrs += [0.3 * rng.randn(2, nx, ny) for _ in range(3)]
+    arrs += [0.1 * rng.randn(nx, ny), rng.rand(nx, ny),
+             (rng.rand(nx, ny) > 0.3)]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+def _admm_close(out, ref, plane_atol, norm_rtol):
+    for a, b in zip(out[:7], ref[:7]):
+        torch.testing.assert_close(a, b, atol=plane_atol, rtol=0)
+    for a, b in zip(out[7:], ref[7:]):
+        torch.testing.assert_close(a, b, rtol=norm_rtol, atol=1e-7)
+
+
+@pytest.mark.parametrize("degree", [10, None])
+@pytest.mark.parametrize("dataterm", ["square", "wsquare", "abs"])
+@pytest.mark.parametrize("ri", [1, 10])
+def test_admm_chunk_matches_plain(dev, degree, dataterm, ri):
+    *planes, f, w = _admm_inputs(7, 300, 200, dev)
+    scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+    tols = 1e-3 / torch.arange(1, ri + 1, device=dev,
+                               dtype=torch.float32) ** 1.3
+    before = fa.launch_counts["admm_chunk"]
+    out = fa.admm_chunk(*planes, f, w, scal, tols, ri, 10, 1.7, dataterm,
+                        degree)
+    ref = fa.admm_chunk_plain(*planes, f, w, scal, tols, ri, 10, 1.7,
+                              dataterm, degree)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["admm_chunk"] == before + 1
+    assert all(t.is_cuda for t in out)
+    _admm_close(out, ref, ADMM_PLANE_ATOL[degree], NORM_RTOL)
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-3])
+def test_admm_multichunk_matches_plain(dev, tol):
+    *planes, f, w = _admm_inputs(8, 300, 200, dev)
+    scal = torch.tensor([1.0, 16.0, 1.0, 1.05, 0.0, 0.0, 0.0,
+                         tol, tol, tol, tol], device=dev)
+    consts = (float(np.sqrt(2 * 300 * 200)), float(np.sqrt(300 * 200)),
+              0.8, 1.01)
+    before = fa.launch_counts["admm_multichunk"]
+    out = fa.admm_multichunk(*planes, f, w, scal, 10, 8, 1.7, 10, consts)
+    ref = fa.admm_multichunk_plain(*planes, f, w, scal, 10, 8, 1.7, 10,
+                                   consts)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["admm_multichunk"] == before + 1
+    _admm_close(out[:8], ref[:8], PLANE_ATOL, 1e-3)
+    torch.testing.assert_close(out[8], ref[8], rtol=1e-6, atol=0)
+
+
+def test_admm_converged_at_entry_returns_the_inputs(dev):
+    *planes, f, w = _admm_inputs(9, 64, 48, dev)
+    c = fa.admm_chunk(*planes, f, w, torch.tensor([1.0, 8.0, 1.0, 1.0],
+                                                  device=dev),
+                      None, 5, 10, 1.7, "square", 10)
+    for a, b in zip(c[:7], planes):
+        assert torch.equal(a, b)
+    assert c[7].abs().sum().item() == 0.0
+    scal = torch.tensor([0.9, 8.0, 1.0, 1.05, 2.0, 3.0, 11.0,
+                         1e-3, 1e-3, 1e-3, 1e-3, 1.0], device=dev)
+    consts = (float(np.sqrt(2 * 64 * 48)), float(np.sqrt(64 * 48)), 0.8, 1.01)
+    m = fa.admm_multichunk(*planes, f, w, scal, 5, 8, 1.7, 10, consts)
+    for a, b in zip(m[:7], planes):
+        assert torch.equal(a, b)
+    ref = fa.admm_multichunk_plain(*planes, f, w, scal, 5, 8, 1.7, 10,
+                                   consts)
+    assert m[8].tolist() == ref[8].tolist()
+
+
+@pytest.mark.parametrize("projection", ["auto", "cgls"])
+def test_fused_admm_backend_on_card_matches_cpu(dev, projection):
+    """The whole fused ADMM route on the card (chunk launches, and in
+    Chebyshev mode multichunk launches with convergence inside one) against
+    the same route on the CPU with the plain versions."""
+    t = 2e-4
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=t,
+                              tol_rel_dual=t, tol_abs_primal=t,
+                              tol_abs_dual=t)
+    opts = ADMMOptions(residual_iter=5, projection=projection)
+    fa.reset_launch_counts()
+    states = []
+    for device in (dev, torch.device("cpu")):
+        b = FusedROFADMM(_tv_problem(48, 40, device), opts, sopts)
+        s = b.run(b.initial_state(), 57, 0)
+        s = b.run(s, 1500, int(s.iteration))
+        states.append(s)
+    assert fa.launch_counts["admm_chunk"] > 0
+    if projection == "auto":
+        assert fa.launch_counts["admm_multichunk"] > 0
+    gpu, cpu = states
+    assert bool(gpu.converged) and bool(cpu.converged)
+    assert int(gpu.iteration) == int(cpu.iteration) < 1500
     for f in dataclasses.fields(gpu):
         a, b = getattr(gpu, f.name), getattr(cpu, f.name)
         assert a.is_cuda, f.name
