@@ -5,7 +5,7 @@
 
 Phases (any failure ends the run with a traceback and a non-zero exit):
 
-1. build both kernel libraries from prost_tpu_torch/csrc with nvcc
+1. build the three kernel libraries from prost_tpu_torch/csrc with nvcc
    (sm_90a), one nvcc process each, all started together;
 2. check each ROF kernel against its plain PyTorch version on the card, on
    the same inputs: ``rof_chunk`` at 512x512 and 2048x1536 for the square,
@@ -26,9 +26,20 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    energy against the generic ADMM backend with the same projection and
    against the PDHG solve's energy; time the generic CGLS ADMM backend
    beside it;
-6. run a few hundred iterations of both fused routes at 2048x2048, where
-   the JAX package bands its kernels: both launch, stay on the card and
-   stay finite.
+6. the same for the multilabel kernels: ``ml_chunk`` (ri = 10) at
+   256x256x8, at a ragged 250x190x5 and at 512x512x8, and
+   ``ml_multichunk`` (k = 8, ri = 10) under boyd and goldstein at the
+   three shapes, with a boyd case that converges partway through the
+   launch, and time both versions at 256x256x8;
+7. solve BASELINE config 3, the fast multilabel relaxation with 8 labels
+   on data/cow.png at 256x256 (lmb 0.5, boyd, residual_iter 10, 2000
+   iterations at tolerance 1e-5), through the modeling API with the fused
+   route, count the multilabel kernels' launches, and hold its energy
+   against the generic PDHG path on the same card;
+8. run a few hundred iterations of the fused ROF routes at 2048x2048 and
+   of the fused multilabel route at 512x512x8, where the JAX package bands
+   its kernels: every kernel launches, the state stays on the card and
+   finite.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before
@@ -38,6 +49,7 @@ Without a CUDA card the script exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -64,6 +76,14 @@ CGLS_PLANE_ATOL = 5e-5
 # admm_multichunk's residual norms after 80 iterations are norms of
 # differences of nearby iterates, which lose digits to cancellation.
 MC_NORM_RTOL = 1e-3
+# The multilabel kernels against their plain versions: the same operations
+# in the same order except rsqrtf, the order of the sums over the labels
+# (left to right in a thread; torch.sum over the label axis may pair them
+# otherwise, 1 ulp of a sum of up to 16 terms) and of the norm sums; planes
+# O(1), so PLANE_ATOL holds them as it holds the ROF planes.  After a
+# multichunk launch of 80 iterations the residual norms are norms of
+# differences of nearby iterates and lose digits to cancellation, as for
+# ADMM: MC_NORM_RTOL.
 # ADMM vs PDHG on the same model: neither reaches the 1e-5 stopping
 # tolerance in 2000 iterations, so what bounds their distance is how far
 # each still is from the optimum.  The PDHG solve's primal-dual gap
@@ -94,10 +114,28 @@ FP32_OPS_PER_S = 67e12
 #   multichunk's chunk 3.
 ROF_ITER_OPS, ROF_NORM_OPS = 26, 42
 ADMM_NORM_OPS, ADMM_RESCALE_OPS = 35, 3
+#   Multilabel, per label of a pixel: primal step 8 (K^T y 4, step 4:
+#   u - tau K^T y - tau f, max), dual step 19 (gradient 2, label sum 1, two
+#   extrapolations 10, squared norm 4, scaling 2); per pixel: ball scale 3,
+#   multiplier step 7.  Once per chunk and label: tau f 1.  Seed of a
+#   launch 3 per label.  Residual norms 44 per label and 13 per pixel.
+ML_ITER_OPS, ML_PIXEL_OPS, ML_SEED_OPS, ML_CHUNK_OPS = 27, 10, 3, 1
+ML_NORM_OPS, ML_NORM_PIXEL_OPS = 44, 13
+# Config 3 (bench.py build_multilabel, examples/example_multilabel_fast.py)
+ML_SIZE, ML_LABELS, ML_LMB = 256, 8, 0.5
+ML_LARGE = 512  # the size at which the JAX package bands the ml kernels
 
 
 def admm_iter_ops(degree):
     return 54 + 12 * (degree - 1)
+
+
+def ml_chunk_ops(n, L, ri, chunks=1):
+    """FP32 operations of a multilabel launch of ``chunks`` chunks of
+    ``ri`` iterations on an (L, n)-pixel stack."""
+    return n * (L * ML_SEED_OPS + chunks * (
+        ri * (L * ML_ITER_OPS + ML_PIXEL_OPS)
+        + L * (ML_CHUNK_OPS + ML_NORM_OPS) + ML_NORM_PIXEL_OPS))
 
 
 def check(cond, msg):
@@ -122,6 +160,121 @@ def test_image(nx, ny, seed=42):
     xx, yy = np.meshgrid(x, np.linspace(0, 1, ny), indexing="ij")
     im = 0.4 * ((xx - 0.5) ** 2 + (yy - 0.5) ** 2 < 0.09) + 0.3 * (xx > 0.7)
     return (im + 0.05 * rng.randn(nx, ny)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def read_png_rgb(path):
+    """An 8-bit RGB, non-interlaced PNG as an (h, w, 3) uint8 array,
+    decoded once with zlib and numpy: the card's machine has no image
+    library.  Undoes the five PNG row filters (none, sub, up, average,
+    Paeth).  The array is shared between calls: read it, do not write."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as fh:
+        data = fh.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    w, h, depth, color, _, _, interlace = hdr
+    check((depth, color, interlace) == (8, 2, 0),
+          f"{path}: only 8-bit RGB non-interlaced PNGs are read")
+    bpp, stride = 3, 3 * w
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prev = [0] * stride
+    for r in range(h):
+        kind, line = int(raw[r, 0]), raw[r, 1:].tolist()
+        cur = [0] * stride
+        for i in range(stride):
+            a = cur[i - bpp] if i >= bpp else 0
+            b = prev[i]
+            if kind == 0:
+                pred = 0
+            elif kind == 1:
+                pred = a
+            elif kind == 2:
+                pred = b
+            elif kind == 3:
+                pred = (a + b) >> 1
+            else:
+                c = prev[i - bpp] if i >= bpp else 0
+                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            cur[i] = (line[i] + pred) & 255
+        out[r] = cur
+        prev = cur
+    return out.reshape(h, w, 3)
+
+
+def cow_gray(ny, nx):
+    """data/cow.png as gray levels in [0, 1], the mean of its channels,
+    resized to (ny, nx) by bilinear interpolation with antialiasing.
+    Not bit-equal to bench.py's PIL conversion and resize; the same image
+    to a few gray levels."""
+    import os
+
+    import torch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "cow.png")
+    gray = read_png_rgb(path).astype(np.float64).mean(axis=-1) / 255.0
+    t = torch.from_numpy(gray)[None, None]
+    t = torch.nn.functional.interpolate(t, size=(ny, nx),
+                                        mode="bilinear", antialias=True,
+                                        align_corners=False)
+    return t[0, 0].numpy()
+
+
+def ml_unaries(gray, L):
+    """Quadratic unaries against L evenly spaced gray levels, label
+    outermost, as examples/example_multilabel_fast.py builds them from a
+    (ny, nx) image: (L, ny, nx) transposed to (L, nx, ny), flattened."""
+    means = np.linspace(0, 1, L)
+    f = np.stack([(gray - m) ** 2 for m in means], axis=0)
+    return f.transpose(0, 2, 1).reshape(-1).astype(np.float32)
+
+
+def ml_model(nx, ny, L, f, lmb):
+    """The fast multilabel relaxation of example_multilabel_fast.py:
+    u >= 0 with unaries f, the per-pixel 2L-ball of radius lmb on grad u,
+    and the sum-to-one multiplier s."""
+    import prost_tpu_torch as ptt
+
+    n = nx * ny
+    u = ptt.Variable(n * L)
+    q = ptt.Variable(2 * n * L)
+    s = ptt.Variable(n)
+    prob = ptt.MinMaxProblem([u], [q, s])
+    prob.add_function(u, ptt.function.sum_1d("ind_geq0", 1, 0, 1, f, 0))
+    prob.add_function(q, ptt.function.sum_norm2(2 * L, False, "ind_leq0",
+                                                1 / lmb, 1, 1))
+    prob.add_function(s, ptt.function.sum_1d("zero", 1, 0, 1, 1, 0))
+    prob.add_dual_pair(u, q, ptt.block.gradient2d(nx, ny, L))
+    prob.add_dual_pair(u, s, ptt.block.sparse_kron_id(np.ones((1, L)), n))
+    return prob
+
+
+def ml_energy(u, f, lmb, L, nx, ny):
+    """<u, f> + lmb sum_px ||(grad u)_px||_2 over all 2L gradient
+    components, in float64 (tests/oracles.py multilabel_energy)."""
+    u = u.reshape(L, nx, ny).astype(np.float64)
+    gx = np.zeros_like(u)
+    gy = np.zeros_like(u)
+    gx[:, :-1] = u[:, 1:] - u[:, :-1]
+    gy[:, :, :-1] = u[:, :, 1:] - u[:, :, :-1]
+    tv = np.sum(np.sqrt(np.sum(gx ** 2 + gy ** 2, axis=0)))
+    return float(u.reshape(-1) @ f.astype(np.float64) + lmb * tv)
 
 
 def kernel_inputs(nx, ny, seed, dev):
@@ -177,11 +330,12 @@ def phase_build():
 
     from prost_tpu_torch.ops import cuda_build
 
-    names = ("fused_rof", "fused_admm")
+    names = ("fused_rof", "fused_admm", "fused_multilabel")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(cuda_build.load, names)))
-    print(f"build: both libraries in {time.perf_counter() - t0:.2f} s wall")
+    print(f"build: {len(names)} libraries in {time.perf_counter() - t0:.2f} "
+          "s wall")
     for name, lib in built.items():
         print(f"build: {name}.cu nvcc {lib.seconds:.2f} s ({lib.path}; "
               "compiler report beside it)")
@@ -405,6 +559,106 @@ def phase_admm_kernels(dev):
     return rows
 
 
+def ml_kernel_inputs(L, nx, ny, seed, dev):
+    """u, q, s, f of a multilabel chunk (mass on the dead q coordinates,
+    which both versions zero at entry)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(L, nx, ny), 0.3 * rng.randn(2 * L, nx, ny),
+            0.1 * rng.randn(nx, ny), rng.rand(L, nx, ny))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+def phase_ml_kernels(dev):
+    import torch
+
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    rows = {"ml_chunk": {"err": 0.0}, "ml_multichunk": {"err": 0.0}}
+    ri = 10
+    for seed, (L, nx, ny) in enumerate(((ML_LABELS, ML_SIZE, ML_SIZE),
+                                        (5, 250, 190),
+                                        (ML_LABELS, ML_LARGE, ML_LARGE))):
+        n = nx * ny
+        shape = f"{nx}x{ny}x{L}"
+        u, q, s, f = ml_kernel_inputs(L, nx, ny, 200 + seed, dev)
+        scal = torch.tensor([0.9, 1.1, 1.0, ML_LMB, 1.0], device=dev)
+        out = fm.ml_chunk(u, q, s, f, scal, ri)
+        ref = fm.ml_chunk_plain(u, q, s, f, scal, ri)
+        torch.cuda.synchronize()
+        plane, rel = max_errs(out, ref, n_planes=6)
+        print(f"ml_chunk {shape}: max abs err planes {plane:.3e} (tol "
+              f"{PLANE_ATOL:g}), max rel err norms {rel:.3e} (tol "
+              f"{NORM_RTOL:g})")
+        check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
+              f"ml_chunk {shape} disagrees with its plain version")
+        check(all(bool(torch.isfinite(t).all()) for t in out),
+              "ml_chunk produced non-finite values")
+        rows["ml_chunk"]["err"] = max(rows["ml_chunk"]["err"], plane)
+        if nx == ML_SIZE:
+            rows["ml_chunk"]["ms"] = time_ms(
+                lambda: fm.ml_chunk(u, q, s, f, scal, ri), 50)
+            rows["ml_chunk"]["plain_ms"] = time_ms(
+                lambda: fm.ml_chunk_plain(u, q, s, f, scal, ri), 10)
+            # u, q, s, f in (4L + 1 planes); new and previous u, q, s out
+            # (6L + 2)
+            rows["ml_chunk"]["bound"] = bound(
+                (10 * L + 3) * n * 4, ml_chunk_ops(n, L, ri))
+
+        # a solve's start on the cow's unaries: u = q = s = 0; at
+        # tolerance 5e-3 both rules adapt, and at 256x256x8 boyd converges
+        # in chunk 5 of 8 (plain version on a CPU)
+        f = torch.from_numpy(ml_unaries(cow_gray(ny, nx), L)).to(dev)
+        f = f.reshape(L, nx, ny)
+        u = torch.zeros_like(f)
+        q = torch.zeros((2 * L, nx, ny), device=dev)
+        s = torch.zeros((nx, ny), device=dev)
+        consts = (np.sqrt(2 * n * L + n), np.sqrt(n * L), 1.5, 0.95, 1.05,
+                  0.8)
+        for stepsize, tol in (("boyd", 0.0), ("boyd", 5e-3),
+                              ("goldstein", 5e-3)):
+            scal = torch.tensor([1.0, 1.0, 1.0, ML_LMB, 1.0, 0.5, 0.0, 0.0,
+                                 1.0, tol, tol, tol, tol], device=dev)
+            out = fm.ml_multichunk(u, q, s, f, scal, ri, 8, stepsize, consts)
+            ref = fm.ml_multichunk_plain(u, q, s, f, scal, ri, 8, stepsize,
+                                         consts)
+            torch.cuda.synchronize()
+            plane, nrel = max_errs(out[:7], ref[:7], n_planes=6)
+            _, srel = max_errs(out[6:], ref[6:], n_planes=1)
+            print(f"ml_multichunk {shape} {stepsize} tol {tol:g}: max abs "
+                  f"err planes {plane:.3e} (tol {PLANE_ATOL:g}), max rel err "
+                  f"norms {nrel:.3e} (tol {MC_NORM_RTOL:g}), scalars "
+                  f"{srel:.3e} (tol {NORM_RTOL:g}); sout kernel "
+                  f"{out[7].tolist()} plain {ref[7].tolist()}")
+            check(plane <= PLANE_ATOL and nrel <= MC_NORM_RTOL
+                  and srel <= NORM_RTOL,
+                  f"ml_multichunk {shape} {stepsize} tol {tol:g} disagrees "
+                  "with its plain version")
+            check(out[7][5:].tolist() == ref[7][5:].tolist(),
+                  "ml_multichunk's converged flag or chunk count disagrees")
+            rows["ml_multichunk"]["err"] = max(rows["ml_multichunk"]["err"],
+                                               plane)
+            if nx == ML_SIZE and stepsize == "boyd" and tol > 0:
+                check(out[7][5] == 1.0 and out[7][6] < 8,
+                      "ml_multichunk did not converge partway")
+            if nx == ML_SIZE and tol == 0.0:  # all 8 chunks run
+                rows["ml_multichunk"]["ms"] = time_ms(
+                    lambda: fm.ml_multichunk(u, q, s, f, scal, ri, 8,
+                                             stepsize, consts), 20)
+                rows["ml_multichunk"]["plain_ms"] = time_ms(
+                    lambda: fm.ml_multichunk_plain(u, q, s, f, scal, ri, 8,
+                                                   stepsize, consts), 3)
+                rows["ml_multichunk"]["bound"] = bound(
+                    (10 * L + 3) * n * 4,
+                    ml_chunk_ops(n, L, ri, int(out[7][6])))
+    for name, r in rows.items():
+        print(f"{name} {ML_SIZE}x{ML_SIZE}x{ML_LABELS}: kernel {r['ms']:.4f} "
+              f"ms/call, plain {r['plain_ms']:.4f} ms/call, bound "
+              f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    return rows
+
+
 def rof_energy(u, f, lmb, nx, ny):
     """Primal ROF energy lmb/2 ||u - f||^2 + TV(u) in float64."""
     u = u.reshape(nx, ny).astype(np.float64)
@@ -481,14 +735,21 @@ def recording(kind, opts, generic=None):
 
 def timed_solve(backend, nx, ny, f, lmb, max_iters, num_cback_calls=10,
                 tol=1e-5):
-    """Solve the ROF model through ``backend`` (made by ``recording``):
-    (result, backend, solve() wall seconds).  Fails if any tensor of the
-    solver state left the card or the result is not finite."""
+    """Solve the ROF model through ``backend`` (made by ``recording``)."""
+    return run_model(backend, rof_model(nx, ny, f, lmb), nx * ny, max_iters,
+                     num_cback_calls, tol)
+
+
+def run_model(backend, prob, ncols, max_iters, num_cback_calls=10,
+              tol=1e-5):
+    """Solve the modeling-layer problem ``prob`` with ``ncols`` primal
+    entries through ``backend`` (made by ``recording``): (result, backend,
+    solve() wall seconds).  Fails if any tensor of the solver state left
+    the card or the result is not finite."""
     import torch
 
     import prost_tpu_torch as ptt
 
-    prob = rof_model(nx, ny, f, lmb)
     opts = ptt.options(max_iters=max_iters, num_cback_calls=num_cback_calls,
                        verbose=False, tol_rel_primal=tol, tol_rel_dual=tol,
                        tol_abs_primal=tol, tol_abs_dual=tol)
@@ -499,7 +760,7 @@ def timed_solve(backend, nx, ny, f, lmb, max_iters, num_cback_calls=10,
     dt = time.perf_counter() - t0
     check(backend.devices == {"cuda"},
           f"the solver state left the card: {backend.devices}")
-    check(res.x.shape == (nx * ny,) and np.all(np.isfinite(res.x))
+    check(res.x.shape == (ncols,) and np.all(np.isfinite(res.x))
           and np.all(np.isfinite(res.y)), "non-finite or misshapen result")
     return res, backend, dt
 
@@ -609,12 +870,59 @@ def phase_admm_solve(card, e_pdhg, d_pdhg):
     return launches
 
 
+def phase_ml_solve(card):
+    """BASELINE config 3 at 256x256x8 on the cow, fused and generic."""
+    from prost_tpu_torch.backend import BackendPDHG, PDHGOptions
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    nx = ny = ML_SIZE
+    L, n = ML_LABELS, ML_SIZE * ML_SIZE
+    f = ml_unaries(cow_gray(ny, nx), L)
+
+    def run(generic, max_iters):
+        backend = recording("pdhg", PDHGOptions(stepsize="boyd",
+                                                residual_iter=10),
+                            BackendPDHG if generic else None)
+        return run_model(backend, ml_model(nx, ny, L, f, ML_LMB), n * L,
+                         max_iters)
+
+    run(False, 200)  # warm-up of both routes
+    run(True, 20)
+
+    fm.reset_launch_counts()
+    res, backend, dt = run(False, 2000)
+    launches = dict(fm.launch_counts)
+    check(backend.made.ml is not None, "the fused multilabel route was not "
+          "taken")
+    check(all(v > 0 for v in launches.values()),
+          f"a multilabel kernel of the path was not launched: {launches}")
+    e_fused = ml_energy(res.x, f, ML_LMB, L, nx, ny)
+    unity = float(np.max(np.abs(res.x.reshape(L, n).sum(axis=0) - 1.0)))
+    print(f"fused multilabel solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; "
+          f"energy {e_fused:.8f}, max |sum_l u_l - 1| {unity:.3e}, "
+          f"launches {launches} [{card}]")
+
+    gres, gbackend, gdt = run(True, 2000)
+    e_gen = ml_energy(gres.x, f, ML_LMB, L, nx, ny)
+    g_unity = float(np.max(np.abs(gres.x.reshape(L, n).sum(axis=0) - 1.0)))
+    rel = abs(e_fused - e_gen) / abs(e_gen)
+    print(f"generic multilabel solve {nx}x{ny}x{L}: "
+          f"{rates(gres, gbackend, gdt)}; energy {e_gen:.8f}, max "
+          f"|sum_l u_l - 1| {g_unity:.3e} [{card}]")
+    print(f"energy fused vs generic multilabel: rel diff {rel:.3e} "
+          f"(tol {ENERGY_RTOL:g})")
+    check(rel <= ENERGY_RTOL, "fused and generic multilabel energies "
+          "disagree")
+    return launches
+
+
 def phase_large(card):
-    """Both fused routes at 2048x2048 (the JAX package's banded size): 300
-    iterations in two callback epochs, so the second epoch reaches the
-    multichunk phase."""
+    """Both fused ROF routes at 2048x2048 and the fused multilabel route
+    at 512x512x8 (the JAX package's banded sizes): 300 iterations in two
+    callback epochs, so the second epoch reaches the multichunk phase."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
     from prost_tpu_torch.ops import fused_admm as fa
+    from prost_tpu_torch.ops import fused_multilabel as fm
     from prost_tpu_torch.ops import fused_rof as fr
 
     nx = ny = 2048
@@ -632,6 +940,22 @@ def phase_large(card):
         e = rof_energy(res.x, f, lmb, nx, ny)
         print(f"fused {kind} solve 2048x2048: {rates(res, backend, dt)}; "
               f"energy {e:.6f}, launches {launches} [{card}]")
+
+    nx = ny = ML_LARGE
+    L = ML_LABELS
+    f = ml_unaries(cow_gray(ny, nx), L)
+    fm.reset_launch_counts()
+    res, backend, dt = run_model(
+        recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
+        ml_model(nx, ny, L, f, ML_LMB), nx * ny * L, 300, num_cback_calls=2)
+    launches = dict(fm.launch_counts)
+    check(backend.made.ml is not None and all(v > 0
+                                               for v in launches.values()),
+          f"a multilabel kernel was not launched at {nx}x{ny}x{L}: "
+          f"{launches}")
+    e = ml_energy(res.x, f, ML_LMB, L, nx, ny)
+    print(f"fused multilabel solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; "
+          f"energy {e:.6f}, launches {launches} [{card}]")
 
 
 def main() -> int:
@@ -654,9 +978,11 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(dev)
     rows.update(phase_admm_kernels(dev))
+    rows.update(phase_ml_kernels(dev))
     torch.cuda.synchronize()
     launches, e_pdhg, d_pdhg = phase_solve(card)
     launches.update(phase_admm_solve(card, e_pdhg, d_pdhg))
+    launches.update(phase_ml_solve(card))
     phase_large(card)
     check("jax" not in sys.modules, "jax was imported")
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
@@ -666,6 +992,10 @@ def main() -> int:
         "rof_multichunk": ("fused_rof", "prost_tpu/ops/fused_rof.py:338"),
         "admm_chunk": ("fused_admm", "prost_tpu/ops/fused_admm.py:257"),
         "admm_multichunk": ("fused_admm", "prost_tpu/ops/fused_admm.py:390"),
+        "ml_chunk": ("fused_multilabel",
+                     "prost_tpu/ops/fused_multilabel.py:236"),
+        "ml_multichunk": ("fused_multilabel",
+                          "prost_tpu/ops/fused_multilabel.py:322"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of a fused ROF solve goes, phase by phase, on one card.
+"""Where the time of a fused solve goes, phase by phase, on one card.
 
     python3 profile_fused.py
 
-Solves chip_smoke.py's ROF model at 512x512 (its procedural image, lmb 16,
-residual_iter 10, 2000 iterations in 10 callback epochs, tolerance 1e-5)
+Solves chip_smoke.py's ROF model at 512x512 (its procedural image, lmb 16)
 through the fused routes of ``backend_admm`` (Chebyshev projection) and
-``backend_pdhg`` (boyd), after a warm-up solve, three times each:
+``backend_pdhg`` (boyd), and its fast multilabel model (BASELINE config 3:
+8 labels on data/cow.png at 256x256, lmb 0.5) through the fused multilabel
+route of ``backend_pdhg`` (boyd); each with residual_iter 10, 2000
+iterations in 10 callback epochs at tolerance 1e-5, after a warm-up solve,
+three times:
 
 1. as a user runs it: the iterating time (host time inside the backend's
    ``run`` calls, each ending with a device sync) and, for each phase of
@@ -32,20 +35,24 @@ import re
 import sys
 import time
 
-from chip_smoke import card_line, check, recording, test_image, timed_solve
+from chip_smoke import (ML_LABELS, ML_LMB, ML_SIZE, card_line, check,
+                        cow_gray, ml_model, ml_unaries, recording, run_model,
+                        test_image, timed_solve)
 
 PHASES = ("generic", "canonicalize", "multichunk", "chunk", "epilogue")
 LMB = 16.0
 SIZE, ITERS = 512, 2000
+ROUTES = ("admm", "pdhg", "ml")
 
 
 def csrc_kernel_names():
-    """The names of the package's hand-written CUDA kernels."""
+    """The names of the package's hand-written CUDA kernels, in the sources
+    and in the headers they share."""
     from prost_tpu_torch.ops import cuda_build
 
     names = set()
     for fname in os.listdir(cuda_build.CSRC):
-        if fname.endswith(".cu"):
+        if fname.endswith((".cu", ".cuh")):
             with open(os.path.join(cuda_build.CSRC, fname)) as fh:
                 names |= set(re.findall(r"__global__\s+void\s+(\w+)",
                                         fh.read()))
@@ -85,26 +92,37 @@ def instrumented(mod, stats, sync):
     return orig
 
 
-def solve(route, size, iters):
+def route_size(route):
+    return ML_SIZE if route == "ml" else SIZE
+
+
+def solve(route, iters, f):
+    """One solve of ``route``'s model on the data ``f``."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
 
+    size = route_size(route)
     if route == "admm":
         backend = recording("admm", ADMMOptions(residual_iter=10))
     else:
         backend = recording("pdhg", PDHGOptions(stepsize="boyd",
                                                 residual_iter=10))
-    f = test_image(size, size).reshape(-1)
-    res, backend, wall = timed_solve(backend, size, size, f, LMB, iters)
-    check(backend.made.rof is not None, f"the fused {route} route was "
-          "not taken")
+    if route == "ml":
+        res, backend, wall = run_model(
+            backend, ml_model(size, size, ML_LABELS, f, ML_LMB),
+            size * size * ML_LABELS, iters)
+        taken = backend.made.ml
+    else:
+        res, backend, wall = timed_solve(backend, size, size, f, LMB, iters)
+        taken = backend.made.rof
+    check(taken is not None, f"the fused {route} route was not taken")
     return res, backend, wall
 
 
-def phase_table(mod, route, size, iters, sync):
+def phase_table(mod, route, f, sync):
     stats = {}
     orig = instrumented(mod, stats, sync)
     try:
-        res, backend, wall = solve(route, size, iters)
+        res, backend, wall = solve(route, ITERS, f)
     finally:
         mod.run_phases = orig
     return res, backend, wall, {
@@ -113,7 +131,7 @@ def phase_table(mod, route, size, iters, sync):
         for name in PHASES if name in stats}
 
 
-def traced(route, size, iters, ours):
+def traced(route, f, ours):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -121,7 +139,7 @@ def traced(route, size, iters, ours):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve(route, size, iters)
+        solve(route, ITERS, f)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kernel = {}
@@ -150,27 +168,31 @@ def main() -> int:
         print("profile_fused: no CUDA device", file=sys.stderr)
         return 2
     import prost_tpu_torch as ptt
-    from prost_tpu_torch.ops import fused_admm, fused_rof
+    from prost_tpu_torch.ops import fused_admm, fused_multilabel, fused_rof
 
     ptt.set_device("cuda:0")
     card = card_line()
     ours = csrc_kernel_names()
+    mods = {"admm": fused_admm, "pdhg": fused_rof, "ml": fused_multilabel}
     out = {}
-    for route in ("admm", "pdhg"):
-        mod = fused_admm if route == "admm" else fused_rof
-        solve(route, SIZE, 200)  # warm-up: build, first launches
-        res, backend, wall, enqueue = phase_table(mod, route, SIZE,
-                                                  ITERS, sync=False)
-        _, sbackend, _, synced = phase_table(mod, route, SIZE,
-                                             ITERS, sync=True)
-        trace = traced(route, SIZE, ITERS, ours)
+    for route in ROUTES:
+        size = route_size(route)
+        f = (ml_unaries(cow_gray(size, size), ML_LABELS) if route == "ml"
+             else test_image(size, size).reshape(-1))
+        solve(route, 200, f)  # warm-up: build, first launches
+        res, backend, wall, enqueue = phase_table(mods[route], route, f,
+                                                  sync=False)
+        _, sbackend, _, synced = phase_table(mods[route], route, f,
+                                             sync=True)
+        trace = traced(route, f, ours)
+        label = f"{size}x{size}" + (f"x{ML_LABELS}" if route == "ml" else "")
         out[route] = {
-            "size": SIZE, "iterations": res.iterations,
+            "size": label, "iterations": res.iterations,
             "solve_s": wall, "iterating_s": backend.loop_s,
             "it_per_s": res.iterations / backend.loop_s,
             "phases_enqueue": enqueue, "phases_synced": synced,
             "iterating_synced_s": sbackend.loop_s, "trace": trace}
-        print(f"{route} {SIZE}x{SIZE}: {res.iterations} "
+        print(f"{route} {label}: {res.iterations} "
               f"iterations, iterating {backend.loop_s * 1e3:.4f} ms "
               f"({res.iterations / backend.loop_s:.1f} it/s), solve() "
               f"{wall * 1e3:.4f} ms [{card}]")

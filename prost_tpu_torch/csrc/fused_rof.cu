@@ -42,28 +42,21 @@
 // radius).  The remaining differences to the plain version are rsqrtf and
 // the order of the norm sums.
 //
+// The scalar slots, the pixel grid, the second norm pass with the
+// adaptation (pdhg_finish) and the launch check are shared with the
+// multilabel kernels in pdhg_chunk.cuh.
+//
 // Interface: plain C, loaded with ctypes; pointers and the stream arrive
 // as void*, and every entry point returns the cudaError_t of its launches.
 
-#include <cuda_runtime.h>
+#include "pdhg_chunk.cuh"
 
 namespace {
 
-// scalar buffer slots, mirrored by prost_tpu_torch/ops/fused_rof.py
-enum {
-  S_TAU = 0, S_SIGMA = 1, S_THETA = 2, S_LMB = 3, S_RADIUS = 4,
-  S_ARG_ALPHA = 5, S_ARB_L = 6, S_ARB_U = 7, S_IT = 8,
-  S_TOL_RP = 9, S_TOL_RD = 10, S_TOL_AP = 11, S_TOL_AD = 12,
-  S_CONV = 13, S_DONE = 14, S_NORM = 15,  // S_NORM .. S_NORM + 3
-};
+// the family's two scalars in the buffer's slots 3 and 4
+enum { S_LMB = S_ARG3, S_RADIUS = S_ARG4 };
 
 enum { DT_SQUARE = 0, DT_WSQUARE = 1, DT_ABS = 2 };
-enum { STEP_NONE = 0, STEP_GOLDSTEIN = 1, STEP_BOYD = 2 };
-
-constexpr int BX = 32;
-constexpr int BY = 8;
-constexpr int NT = BX * BY;
-constexpr int FIN = 512;  // threads of the final reduction
 
 constexpr float SQRT_S = 0.7071067811865476f;  // sqrt(Sigma) = sqrt(1/2)
 constexpr float SQRT_T = 0.5f;                 // sqrt(Tau)   = sqrt(1/4)
@@ -81,12 +74,6 @@ struct Planes {
   float* partial;  // 4 per block
   int nx, ny;
 };
-
-__device__ __forceinline__ bool pixel(int nx, int ny, int& i, int& j) {
-  j = blockIdx.x * BX + threadIdx.x;
-  i = blockIdx.y * BY + threadIdx.y;
-  return i < nx && j < ny;
-}
 
 // Adjoint stencil K^T q at (i, j).  Bounds-checked neighbours equal the
 // JAX package's maskless roll adjoint because the dead coordinates (q_x's
@@ -203,8 +190,6 @@ __global__ void rof_dual(const float* __restrict__ x, float* __restrict__ q,
 // memory replaces the TPU kernel's whole-plane jnp.sum into SMEM.
 __global__ void rof_norm_partial(Planes b) {
   if (b.sc[S_CONV] != 0.f) return;
-  __shared__ float red[4][NT];
-  int t = threadIdx.y * BX + threadIdx.x;
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
   if (pixel(b.nx, b.ny, i, j)) {
@@ -229,98 +214,7 @@ __global__ void rof_norm_partial(Planes b) {
     v[2] = dd * dd;
     v[3] = wh * wh;
   }
-  for (int k = 0; k < 4; ++k) red[k][t] = v[k];
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (t < s)
-      for (int k = 0; k < 4; ++k) red[k][t] += red[k][t + s];
-    __syncthreads();
-  }
-  if (t == 0) {
-    int blk = blockIdx.y * gridDim.x + blockIdx.x;
-    for (int k = 0; k < 4; ++k) b.partial[4 * blk + k] = red[k][0];
-  }
-}
-
-struct AdaptConsts {
-  float sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta, arb_tau;
-};
-
-// Second pass, one block: the four squared norms in a fixed order.  With
-// `adapt` set (multichunk) thread 0 then runs adapt_scalars: the same f32
-// operations in the same order as the JAX package's, with the iteration
-// counter as f32 (exact below 2^24), and advances the chunk counters.
-// Bound: launch latency (a few KB of partials); it is what lets the
-// multichunk keep its step sizes and stopping test on the device, where
-// the TPU kernel ran them on SMEM scalars between chunks.
-__global__ void rof_finish(float* __restrict__ sc,
-                           const float* __restrict__ partial, int nblocks,
-                           int count, int adapt, int stepsize,
-                           AdaptConsts c) {
-  if (sc[S_CONV] != 0.f) return;
-  __shared__ float red[4][FIN];
-  int t = threadIdx.x;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int blk = t; blk < nblocks; blk += FIN)
-    for (int k = 0; k < 4; ++k) acc[k] += partial[4 * blk + k];
-  for (int k = 0; k < 4; ++k) red[k][t] = acc[k];
-  __syncthreads();
-  for (int s = FIN / 2; s > 0; s >>= 1) {
-    if (t < s)
-      for (int k = 0; k < 4; ++k) red[k][t] += red[k][t + s];
-    __syncthreads();
-  }
-  if (t != 0) return;
-  if (!adapt) {  // rof_chunk: squared norms out, adaptation on the host side
-    for (int k = 0; k < 4; ++k) sc[S_NORM + k] = red[k][0];
-    return;
-  }
-  float pr = sqrtf(red[0][0]), pn = sqrtf(red[1][0]);
-  float dr = sqrtf(red[2][0]), dn = sqrtf(red[3][0]);
-  float it = sc[S_IT] + (float)(count - 1);  // pre-increment counter
-  float eps_pri = c.sqrt_nrows * sc[S_TOL_AP] + sc[S_TOL_RP] * pn;
-  float eps_dua = c.sqrt_ncols * sc[S_TOL_AD] + sc[S_TOL_RD] * dn;
-  bool conv = (pr < eps_pri) && (dr < eps_dua);
-  float tau = sc[S_TAU], sigma = sc[S_SIGMA], aa = sc[S_ARG_ALPHA];
-  float al = sc[S_ARB_L], au = sc[S_ARB_U];
-  if (stepsize == STEP_GOLDSTEIN) {
-    float scale = eps_dua / eps_pri;
-    bool up = dr > scale * pr * c.arg_delta;
-    bool dn_ = dr < scale * pr / c.arg_delta;
-    float fac = 1.f - aa;
-    tau = up ? tau / fac : (dn_ ? tau * fac : tau);
-    sigma = up ? sigma * fac : (dn_ ? sigma / fac : sigma);
-    aa = (up || dn_) ? aa * c.arg_nu : aa;
-  } else if (stepsize == STEP_BOYD) {
-    bool c1 = (dr < eps_dua) && (c.arb_tau * it > al);
-    bool c2 = (pr < eps_pri) && (c.arb_tau * it > au) && !c1;
-    tau = c1 ? tau / c.arb_delta : (c2 ? tau * c.arb_delta : tau);
-    sigma = c1 ? sigma * c.arb_delta : (c2 ? sigma / c.arb_delta : sigma);
-    au = c1 ? it : au;
-    al = c2 ? it : al;
-  }
-  sc[S_TAU] = tau;
-  sc[S_SIGMA] = sigma;
-  sc[S_ARG_ALPHA] = aa;
-  sc[S_ARB_L] = al;
-  sc[S_ARB_U] = au;
-  sc[S_NORM + 0] = pr;
-  sc[S_NORM + 1] = pn;
-  sc[S_NORM + 2] = dr;
-  sc[S_NORM + 3] = dn;
-  sc[S_DONE] += 1.f;
-  sc[S_IT] += (float)count;
-  sc[S_CONV] = conv ? 1.f : 0.f;  // last: the other threads have read it
-}
-
-#define LAUNCH_CHECK()                                  \
-  do {                                                  \
-    cudaError_t e_ = cudaGetLastError();                \
-    if (e_ != cudaSuccess) return (int)e_;              \
-  } while (0)
-
-dim3 grid_of(int nx, int ny) {
-  return dim3((ny + BX - 1) / BX, (nx + BY - 1) / BY);
+  block_partials(v, b.partial);
 }
 
 // One chunk of `count` iterations without the seed: count-1 plain
@@ -389,8 +283,8 @@ int prost_rof_chunk(void* x, void* q, void* xp, void* qp, void* g, void* gp,
   int rc = chunk_body(b, count, dataterm, s);
   if (rc) return rc;
   AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  rof_finish<<<1, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
-                               count, 0, STEP_NONE, none);
+  pdhg_finish<<<1, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
+                                count, 0, STEP_NONE, none);
   LAUNCH_CHECK();
   return 0;
 }
@@ -416,8 +310,8 @@ int prost_rof_multichunk(void* x, void* q, void* xp, void* qp, void* g,
   for (int k = 0; k < k_chunks; ++k) {
     int rc = chunk_body(b, count, dataterm, s);
     if (rc) return rc;
-    rof_finish<<<1, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
-                                 count, 1, stepsize, c);
+    pdhg_finish<<<1, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
+                                  count, 1, stepsize, c);
     LAUNCH_CHECK();
   }
   return 0;

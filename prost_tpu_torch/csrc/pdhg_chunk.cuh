@@ -1,0 +1,147 @@
+// Pieces shared by the PDHG chunk kernels for NVIDIA Hopper (sm_90a):
+// csrc/fused_rof.cu (ROF) and csrc/fused_multilabel.cu (fast multilabel).
+//
+// * the slots of the device scalar buffer `sc` that every kernel of a
+//   launch reads (step sizes, the family's two scalars, the adaptation
+//   state, the tolerances, the converged flag, the chunk count, the norms);
+// * the pixel grid: one thread per pixel, 32x8 blocks with threadIdx.x
+//   along the contiguous y axis;
+// * pdhg_finish, the second pass of the four residual norms and, in a
+//   multichunk launch, the boyd/goldstein adaptation and the stopping test
+//   (adapt_scalars of prost_tpu/ops/fused_rof.py, which both JAX multichunk
+//   kernels share);
+// * LAUNCH_CHECK, which returns a launch's error from the C entry point.
+//
+// Every source that includes this header is its own library with a plain C
+// interface; the build hashes this header with each of them.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+// scalar buffer slots, mirrored by prost_tpu_torch/ops/pdhg_chunk.py
+enum {
+  S_TAU = 0, S_SIGMA = 1, S_THETA = 2,
+  S_ARG3 = 3, S_ARG4 = 4,  // the family's two scalars
+  S_ARG_ALPHA = 5, S_ARB_L = 6, S_ARB_U = 7, S_IT = 8,
+  S_TOL_RP = 9, S_TOL_RD = 10, S_TOL_AP = 11, S_TOL_AD = 12,
+  S_CONV = 13, S_DONE = 14, S_NORM = 15,  // S_NORM .. S_NORM + 3
+};
+
+enum { STEP_NONE = 0, STEP_GOLDSTEIN = 1, STEP_BOYD = 2 };
+
+constexpr int BX = 32;
+constexpr int BY = 8;
+constexpr int NT = BX * BY;
+constexpr int FIN = 512;  // threads of the final reduction
+
+__device__ __forceinline__ bool pixel(int nx, int ny, int& i, int& j) {
+  j = blockIdx.x * BX + threadIdx.x;
+  i = blockIdx.y * BY + threadIdx.y;
+  return i < nx && j < ny;
+}
+
+dim3 grid_of(int nx, int ny) {
+  return dim3((ny + BX - 1) / BX, (nx + BY - 1) / BY);
+}
+
+// Per-block tree sum of the four norm terms v[0..3] into partial[4 * block]
+// (the first pass; pdhg_finish is the second).  Every thread of the block
+// calls it, also those outside the plane (with zeros).
+__device__ __forceinline__ void block_partials(const float v[4],
+                                               float* __restrict__ partial) {
+  __shared__ float red[4][NT];
+  int t = threadIdx.y * BX + threadIdx.x;
+  for (int k = 0; k < 4; ++k) red[k][t] = v[k];
+  __syncthreads();
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    if (t < s)
+      for (int k = 0; k < 4; ++k) red[k][t] += red[k][t + s];
+    __syncthreads();
+  }
+  if (t == 0) {
+    int blk = blockIdx.y * gridDim.x + blockIdx.x;
+    for (int k = 0; k < 4; ++k) partial[4 * blk + k] = red[k][0];
+  }
+}
+
+struct AdaptConsts {
+  float sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta, arb_tau;
+};
+
+// Second pass, one block: the four squared norms in a fixed order.  With
+// `adapt` set (multichunk) thread 0 then runs adapt_scalars: the same f32
+// operations in the same order as the JAX package's, with the iteration
+// counter as f32 (exact below 2^24), and advances the chunk counters.
+// Bound: launch latency (a few KB of partials); it is what lets the
+// multichunk keep its step sizes and stopping test on the device, where
+// the TPU kernel ran them on SMEM scalars between chunks.
+__global__ void pdhg_finish(float* __restrict__ sc,
+                            const float* __restrict__ partial, int nblocks,
+                            int count, int adapt, int stepsize,
+                            AdaptConsts c) {
+  if (sc[S_CONV] != 0.f) return;
+  __shared__ float red[4][FIN];
+  int t = threadIdx.x;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int blk = t; blk < nblocks; blk += FIN)
+    for (int k = 0; k < 4; ++k) acc[k] += partial[4 * blk + k];
+  for (int k = 0; k < 4; ++k) red[k][t] = acc[k];
+  __syncthreads();
+  for (int s = FIN / 2; s > 0; s >>= 1) {
+    if (t < s)
+      for (int k = 0; k < 4; ++k) red[k][t] += red[k][t + s];
+    __syncthreads();
+  }
+  if (t != 0) return;
+  if (!adapt) {  // chunk: squared norms out, adaptation on the host side
+    for (int k = 0; k < 4; ++k) sc[S_NORM + k] = red[k][0];
+    return;
+  }
+  float pr = sqrtf(red[0][0]), pn = sqrtf(red[1][0]);
+  float dr = sqrtf(red[2][0]), dn = sqrtf(red[3][0]);
+  float it = sc[S_IT] + (float)(count - 1);  // pre-increment counter
+  float eps_pri = c.sqrt_nrows * sc[S_TOL_AP] + sc[S_TOL_RP] * pn;
+  float eps_dua = c.sqrt_ncols * sc[S_TOL_AD] + sc[S_TOL_RD] * dn;
+  bool conv = (pr < eps_pri) && (dr < eps_dua);
+  float tau = sc[S_TAU], sigma = sc[S_SIGMA], aa = sc[S_ARG_ALPHA];
+  float al = sc[S_ARB_L], au = sc[S_ARB_U];
+  if (stepsize == STEP_GOLDSTEIN) {
+    float scale = eps_dua / eps_pri;
+    bool up = dr > scale * pr * c.arg_delta;
+    bool dn_ = dr < scale * pr / c.arg_delta;
+    float fac = 1.f - aa;
+    tau = up ? tau / fac : (dn_ ? tau * fac : tau);
+    sigma = up ? sigma * fac : (dn_ ? sigma / fac : sigma);
+    aa = (up || dn_) ? aa * c.arg_nu : aa;
+  } else if (stepsize == STEP_BOYD) {
+    bool c1 = (dr < eps_dua) && (c.arb_tau * it > al);
+    bool c2 = (pr < eps_pri) && (c.arb_tau * it > au) && !c1;
+    tau = c1 ? tau / c.arb_delta : (c2 ? tau * c.arb_delta : tau);
+    sigma = c1 ? sigma * c.arb_delta : (c2 ? sigma / c.arb_delta : sigma);
+    au = c1 ? it : au;
+    al = c2 ? it : al;
+  }
+  sc[S_TAU] = tau;
+  sc[S_SIGMA] = sigma;
+  sc[S_ARG_ALPHA] = aa;
+  sc[S_ARB_L] = al;
+  sc[S_ARB_U] = au;
+  sc[S_NORM + 0] = pr;
+  sc[S_NORM + 1] = pn;
+  sc[S_NORM + 2] = dr;
+  sc[S_NORM + 3] = dn;
+  sc[S_DONE] += 1.f;
+  sc[S_IT] += (float)count;
+  sc[S_CONV] = conv ? 1.f : 0.f;  // last: the other threads have read it
+}
+
+#define LAUNCH_CHECK()                                  \
+  do {                                                  \
+    cudaError_t e_ = cudaGetLastError();                \
+    if (e_ != cudaSuccess) return (int)e_;              \
+  } while (0)
+
+}  // namespace

@@ -1,8 +1,12 @@
 """Fused iterations with hand-written CUDA kernels (counterpart of
-``prost_tpu/ops``): the ROF route by PDHG and by ADMM."""
+``prost_tpu/ops``): the ROF route by PDHG and by ADMM, and the fast
+multilabel route by PDHG."""
 
 from .fused_admm import (FusedROFADMM, admm_chunk, admm_chunk_plain,
                          admm_multichunk, admm_multichunk_plain)
+from .fused_multilabel import (match_multilabel_structure, ml_chunk,
+                               ml_chunk_plain, ml_multichunk,
+                               ml_multichunk_plain)
 from .fused_rof import (FusedROFPDHG, launch_counts, match_rof_structure,
                         reset_launch_counts, rof_chunk, rof_chunk_plain,
                         rof_multichunk, rof_multichunk_plain)
@@ -11,6 +15,7 @@ __all__ = [
     "FusedROFADMM",
     "FusedROFPDHG",
     "match_rof_structure",
+    "match_multilabel_structure",
     "admm_chunk",
     "admm_chunk_plain",
     "admm_multichunk",
@@ -19,6 +24,10 @@ __all__ = [
     "rof_chunk_plain",
     "rof_multichunk",
     "rof_multichunk_plain",
+    "ml_chunk",
+    "ml_chunk_plain",
+    "ml_multichunk",
+    "ml_multichunk_plain",
     "launch_counts",
     "reset_launch_counts",
 ]

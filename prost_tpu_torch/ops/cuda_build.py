@@ -3,10 +3,10 @@
 Each ``csrc/*.cu`` file has a plain C interface.  On first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``prost_tpu_torch/_build/`` (ignored by git), named by the hash of its
-source so a stale build is never loaded, and loaded with ``ctypes``.  The
-sources include no header of their own, so the hash of the source covers
-all of it.  ``load`` holds no lock while ``nvcc`` runs, so threads can
-build several libraries at once.
+source, of the ``csrc`` headers it includes (``#include "x.cuh"``, followed
+recursively) and of the flags, so a stale build is never loaded, and
+loaded with ``ctypes``.  ``load`` holds no lock while ``nvcc`` runs, so
+threads can build several libraries at once.
 Nothing here runs when the package is imported, and nothing falls back:
 a missing ``nvcc`` or a failed compile raises.
 """
@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,6 +49,27 @@ class CudaLibrary:
         self.path = path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_digest(name: str, csrc: str = CSRC) -> str:
+    """Hash of ``<csrc>/<name>.cu``, the headers it includes from ``csrc``
+    (each once, in the order first met) and the nvcc flags."""
+    h = hashlib.sha256()
+    todo, seen = [f"{name}.cu"], set()
+    while todo:
+        fname = todo.pop(0)
+        if fname in seen:
+            continue
+        seen.add(fname)
+        with open(os.path.join(csrc, fname), "rb") as fh:
+            text = fh.read()
+        h.update(fname.encode() + b"\0" + text)
+        todo += [m.decode() for m in _INCLUDE.findall(text)]
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 _lock = threading.Lock()
 _loaded: dict[str, CudaLibrary] = {}
 
@@ -68,9 +90,7 @@ def load(name: str) -> CudaLibrary:
         if name in _loaded:
             return _loaded[name]
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(
-            fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     log_path = path[:-3] + ".log"

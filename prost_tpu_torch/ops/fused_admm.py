@@ -50,9 +50,11 @@ from ..backend.admm import (ADMMState, BackendADMM, admm_residual_adapt,
                             cg_tolerance, dct_projection_plan)
 from ..backend.pdhg import hold_if
 from ..config import ProstError
-from .fused_rof import (DATATERMS, _SQRT_S, _SQRT_T, _dead_dual_flat, _dx,
-                        _dxt, _dy, _dyt, _entry_converged, _project_dead_dual,
-                        _ptr, _raise_on, match_rof_structure)
+from .fused_rof import (DATATERMS, _SQRT_S, _SQRT_T, _dead_dual_flat,
+                        match_rof_structure)
+from .pdhg_chunk import (CF, CI, VP, dx, dxt, dy, dyt, entry_converged,
+                         launch, project_dead_dual, ptr, scalar_buffer,
+                         typed_lib)
 from .phases import K_CHUNKS, run_phases
 
 _C_K = _SQRT_S * _SQRT_T  # K~ = c_K * grad
@@ -88,10 +90,10 @@ def _cgls_masked(d_x, d_y, u0, tol, maxit: int):
     eps = torch.finfo(d_x.dtype).eps
 
     def A(u):
-        return _C_K * _dx(u), _C_K * _dy(u)
+        return _C_K * dx(u), _C_K * dy(u)
 
     def At(vx, vy):
-        return _C_K * (_dxt(vx) + _dyt(vy))
+        return _C_K * (dxt(vx) + dyt(vy))
 
     ax, ay = A(u0)
     rx, ry = d_x - ax, d_y - ay
@@ -145,9 +147,9 @@ def _cheby_project(d_x, d_y, u0, degree: int):
     c2 = _C_K * _C_K
 
     def M(u):
-        return u + c2 * (_dxt(_dx(u)) + _dyt(_dy(u)))
+        return u + c2 * (dxt(dx(u)) + dyt(dy(u)))
 
-    b = _C_K * (_dxt(d_x) + _dyt(d_y))
+    b = _C_K * (dxt(d_x) + dyt(d_y))
     r = b - M(u0)
     x = u0
     d = r * (1.0 / _CHEB_THETA)
@@ -170,13 +172,13 @@ def _admm_iter(xh, xp, xd, zh, zp, zd, warm, f, w, project, rho, lmb,
     t2_y = _SQRT_S * (zh[1] + zd[1])
 
     # graph projection: min ||K~ u - d||^2 + ||u||^2, warm-started
-    d_x = t2_x - _C_K * _dx(t1)
-    d_y = t2_y - _C_K * _dy(t1)
+    d_x = t2_x - _C_K * dx(t1)
+    d_y = t2_y - _C_K * dy(t1)
     u = project(d_x, d_y, warm)
 
     xp_n = _SQRT_T * (u + t1)
-    zp_nx = _dx(xp_n)
-    zp_ny = _dy(xp_n)
+    zp_nx = dx(xp_n)
+    zp_ny = dy(xp_n)
     xd_n = _SQRT_T * t1 - xp_n
     zd_nx = t2_x * _INV_SQRT_S - zp_nx
     zd_ny = t2_y * _INV_SQRT_S - zp_ny
@@ -209,14 +211,14 @@ def _admm_iter(xh, xp, xd, zh, zp, zd, warm, f, w, project, rho, lmb,
 def _admm_norms(xh, xp, xd, zh, zp, zd, rho):
     """The four SQUARED preconditioned residual norms of an ADMM iterate
     with Sigma = 1/2, Tau = 1/4: |pr|^2, |pn|^2, |dr|^2, |dn|^2."""
-    pr_x = _SQRT_S * (_dx(xh) - zh[0])
-    pr_y = _SQRT_S * (_dy(xh) - zh[1])
+    pr_x = _SQRT_S * (dx(xh) - zh[0])
+    pr_y = _SQRT_S * (dy(xh) - zh[1])
     pn_x = _SQRT_S * zh[0]
     pn_y = _SQRT_S * zh[1]
     wv = (-rho * 4.0) * (xh - xp + xd)             # -rho / Tau
     y_x = (-rho * 0.5) * (zh[0] - zp[0] + zd[0])   # -rho * Sigma
     y_y = (-rho * 0.5) * (zh[1] - zp[1] + zd[1])
-    kty = _dxt(y_x) + _dyt(y_y)
+    kty = dxt(y_x) + dyt(y_y)
     dn = _SQRT_T * wv
     dr = _SQRT_T * (wv + kty)
     return (torch.sum(pr_x * pr_x) + torch.sum(pr_y * pr_y),
@@ -269,7 +271,7 @@ def _chunk_planes(planes, f, w, rho, lmb, radius, count, alpha, dataterm,
 def _entry_planes(xh, xp, xd, zh, zp, zd, warm):
     """The state as the kernels start from it: z dead coordinates zeroed,
     z-like arrays split into plane pairs."""
-    zs = tuple(_project_dead_dual(z[0], z[1]) for z in (zh, zp, zd))
+    zs = tuple(project_dead_dual(z[0], z[1]) for z in (zh, zp, zd))
     return (xh, xp, xd) + zs + (warm,)
 
 
@@ -295,7 +297,7 @@ def admm_chunk_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
     planes = _chunk_planes(_entry_planes(xh, xp, xd, zh, zp, zd, warm), f, w,
                            rho, lmb, radius, count, alpha, dataterm, project)
     norms2 = torch.stack(_admm_norms(*planes[:6], rho))
-    conv = _entry_converged(scal, 3)
+    conv = entry_converged(scal, 3)
     ins = (xh, xp, xd, zh, zp, zd, warm)
     outs = tuple(torch.where(conv, a, b) for a, b in zip(ins,
                                                          _stack_z(planes)))
@@ -318,7 +320,7 @@ def admm_multichunk_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal,
                                                    int(cheby_degree))
 
     ins = (xh, xp, xd, zh, zp, zd, warm)
-    conv0 = _entry_converged(scal, 11)
+    conv0 = entry_converged(scal, 11)
     planes = _entry_planes(*ins)
     sc = (scal[0], scal[3], scal[4], scal[5], conv0, zero)
     norms = (zero, zero, zero, zero)
@@ -395,20 +397,14 @@ class _Work:
         dev = self.planes[0].device
         self.scratch = torch.empty(8 * nx * ny, dtype=torch.float32,
                                    device=dev)
-        self.sc = torch.zeros(_S_LEN, dtype=torch.float32, device=dev)
-        self.sc[:n_scal] = scal[:n_scal]
-        if scal.numel() > n_scal:
-            self.sc[_S_CONV] = scal[n_scal]
+        self.sc = scalar_buffer(scal, n_scal, _S_CONV, _S_LEN)
         nblocks = lib.prost_admm_num_blocks(nx, ny)
         self.partial = torch.empty(4 * nblocks, dtype=torch.float32,
                                    device=dev)
 
-    def args(self, f, w):
-        nx, ny = self.planes[0].shape
-        ptrs = tuple(self.planes) + (f.contiguous(), w.contiguous(),
-                                     self.scratch, self.sc, self.partial)
-        self._keep = ptrs  # alive until the launches are queued
-        return [_ptr(t) for t in ptrs] + [nx, ny]
+    def buffers(self, f, w):
+        return self.planes + [f.contiguous(), w.contiguous(), self.scratch,
+                              self.sc, self.partial]
 
     def outputs(self):
         return tuple(self.planes)
@@ -417,27 +413,15 @@ class _Work:
 def _lib():
     """The fused ADMM kernel library, built from csrc/fused_admm.cu on
     first use."""
-    from .cuda_build import load
-
-    lib = load("fused_admm").lib
-    if not getattr(lib, "_prost_typed", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.prost_admm_num_blocks.argtypes = [ci, ci]
-        lib.prost_admm_num_blocks.restype = ci
-        lib.prost_error_string.argtypes = [ci]
-        lib.prost_error_string.restype = ctypes.c_char_p
+    return typed_lib("fused_admm", "prost_admm_num_blocks", {
         # 12 buffers, nx, ny, cg_tols, count, dataterm, degree, coeffs,
         # maxit, alpha, 1 - alpha, stream
-        lib.prost_admm_chunk.argtypes = ([vp] * 12 + [ci, ci, vp, ci, ci, ci,
-                                                      vp, ci, cf, cf, vp])
-        lib.prost_admm_chunk.restype = ci
+        "prost_admm_chunk": [VP] * 12 + [CI, CI, VP, CI, CI, CI, VP, CI, CF,
+                                         CF, VP],
         # 12 buffers, nx, ny, count, k_chunks, dataterm, degree, coeffs,
         # alpha, 1 - alpha, 4 adaptation constants, stream
-        lib.prost_admm_multichunk.argtypes = ([vp] * 12 + [ci] * 6 + [vp]
-                                              + [cf] * 6 + [vp])
-        lib.prost_admm_multichunk.restype = ci
-        lib._prost_typed = True
-    return lib
+        "prost_admm_multichunk": [VP] * 12 + [CI] * 6 + [VP] + [CF] * 6
+                                 + [VP]})
 
 
 def _coeff_array(degree):
@@ -475,19 +459,16 @@ def admm_chunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
         return admm_chunk_plain(*planes, f, w, scal, cg_tols, count, maxit,
                                 alpha, dataterm, cheby_degree)
     lib = _lib()
-    with torch.cuda.device(xh.device):
-        wk = _Work(lib, planes, scal, 3)
-        tols = (None if cheby_degree is not None
-                else cg_tols.to(torch.float32).contiguous())
-        stream = torch.cuda.current_stream(xh.device).cuda_stream
-        rc = lib.prost_admm_chunk(
-            *wk.args(f, w), None if tols is None else _ptr(tols),
-            int(count), DATATERMS[dataterm],
-            0 if cheby_degree is None else int(cheby_degree),
-            _coeff_array(cheby_degree), int(maxit), float(alpha),
-            1.0 - float(alpha), stream)
-        _raise_on(lib, rc, "admm_chunk")
-        launch_counts["admm_chunk"] += 1
+    wk = _Work(lib, planes, scal, 3)
+    tols = (None if cheby_degree is not None
+            else cg_tols.to(torch.float32).contiguous())
+    nx, ny = xh.shape
+    launch(lib, "prost_admm_chunk", "admm_chunk", launch_counts, xh.device,
+           wk.buffers(f, w), nx, ny, None if tols is None else ptr(tols),
+           int(count), DATATERMS[dataterm],
+           0 if cheby_degree is None else int(cheby_degree),
+           _coeff_array(cheby_degree), int(maxit), float(alpha),
+           1.0 - float(alpha))
     return wk.outputs() + (wk.sc[_S_NORM:_S_NORM + 4],)
 
 
@@ -512,15 +493,12 @@ def admm_multichunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
         return admm_multichunk_plain(*planes, f, w, scal, count, k_chunks,
                                      alpha, cheby_degree, consts, dataterm)
     lib = _lib()
-    with torch.cuda.device(xh.device):
-        wk = _Work(lib, planes, scal, 11)
-        stream = torch.cuda.current_stream(xh.device).cuda_stream
-        rc = lib.prost_admm_multichunk(
-            *wk.args(f, w), int(count), int(k_chunks), DATATERMS[dataterm],
-            int(cheby_degree), _coeff_array(cheby_degree), float(alpha),
-            1.0 - float(alpha), *[float(c) for c in consts], stream)
-        _raise_on(lib, rc, "admm_multichunk")
-        launch_counts["admm_multichunk"] += 1
+    wk = _Work(lib, planes, scal, 11)
+    nx, ny = xh.shape
+    launch(lib, "prost_admm_multichunk", "admm_multichunk", launch_counts,
+           xh.device, wk.buffers(f, w), nx, ny, int(count), int(k_chunks),
+           DATATERMS[dataterm], int(cheby_degree), _coeff_array(cheby_degree),
+           float(alpha), 1.0 - float(alpha), *[float(c) for c in consts])
     sout = torch.stack([wk.sc[i] for i in _SOUT])
     return wk.outputs() + (wk.sc[_S_NORM:_S_NORM + 4], sout)
 

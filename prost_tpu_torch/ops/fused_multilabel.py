@@ -1,0 +1,462 @@
+"""Fused PDHG iteration for the "fast" multilabel relaxation (counterpart of
+``prost_tpu/ops/fused_multilabel.py``, whole-plane route).
+
+Workload (examples/example_multilabel_fast.py):
+
+    min_{u >= 0} <u, f> + lmb TV(u)   s.t.  sum_l u_l = 1 per pixel
+
+in the saddle form with primal u (L label planes), duals q (2L gradient
+planes inside one per-pixel radius-lmb ball over all 2L components) and s
+(the sum-to-one multiplier plane):
+
+    K = [ grad2d (2nL x nL) ; kron(ones(1, L), I_n) (n x nL) ]
+
+With the Pock-Chambolle alpha preconditioner the diagonals are constant
+per segment: Tau = 1/5 (column sums 4 + 1), Sigma_q = 1/2 (gradient rows),
+Sigma_s = 1/L (the ones-row), so an iteration is stencils, pointwise work
+and sums over the label axis.
+
+Two kernels carry the route, hand-written CUDA in
+``csrc/fused_multilabel.cu`` with a plain PyTorch version beside each
+wrapper here:
+
+* ``ml_chunk`` (JAX ``ml_fused_chunk``): ``count`` iterations ending on a
+  residual iteration, with the four squared preconditioned residual norms;
+* ``ml_multichunk`` (JAX ``ml_fused_multichunk``): up to ``k_chunks``
+  chunks with the boyd/goldstein adaptation and the stopping test on the
+  device between chunks.
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel, or raises.  As on the ROF route there is no fallback
+to the generic path, and no VMEM gate: the kernels keep their planes in
+device memory, so the JAX package's banded variants for planes beyond a
+TPU core's VMEM (``ml_fused_chunk_banded``, ``ml_fused_multichunk_banded``)
+are served by the same two kernels at any size.
+
+Layout contract (the JAX package's, at every public function): u and f
+(L, nx, ny); q (2L, nx, ny) = [gx; gy] stacked label planes; s (nx, ny);
+the solver's y = [q; s] flattened.  The dead dual coordinates (q_x's last
+row and q_y's last column in every label plane) are zeroed once per run
+and at every chunk entry, as on the ROF route.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..backend.pdhg import PDHGState
+from ..config import ProstError, dtype as config_dtype
+from ..linop.base import LinearOperator
+from ..linop.blocks import BlockKronId
+from ..linop.gradient import BlockGradient2D
+from ..prox.elemop import ProxElem1D, ProxElemNorm2
+from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, adapt_scalars,
+                         ball_scale, chunk_state, dx, dxt, dy, dyt,
+                         entry_converged, isscalar, launch,
+                         multichunk_state, project_dead_dual, typed_lib)
+from .phases import K_CHUNKS, run_phases
+
+_SQRT_T = 0.4472135954999579    # sqrt(Tau)     = sqrt(1/5)
+_SQRT_S_Q = 0.7071067811865476  # sqrt(Sigma_q) = sqrt(1/2)
+
+# launches of each kernel wrapper on the card (CPU calls do not count)
+launch_counts = {"ml_chunk": 0, "ml_multichunk": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions of the chunk math
+# ---------------------------------------------------------------------------
+
+def _ml_update(u, qx, qy, s, gx, gy, su, tf, tau, sig_q, sig_s, theta,
+               radius, d_s):
+    """One preconditioned PDHG update.  tau, sig_q and sig_s arrive
+    pre-multiplied by Tau = 1/5, Sigma_q = 1/2 and Sigma_s = 1/L; tf is
+    tau * f.  (gx, gy, su) = (dx(u), dy(u), sum_l u) carried from the
+    previous iteration.  Returns the new state, the new carried planes and
+    K^T of the old dual."""
+    kty = dxt(qx) + dyt(qy) + s
+    # prox of ind_geq0(u) + <f, u>
+    u2 = torch.clamp_min(u - tau * kty - tf, 0.0)
+    gx2, gy2 = dx(u2), dy(u2)
+    su2 = torch.sum(u2, dim=0)
+    # per-pixel radius-lmb ball over all 2L gradient components
+    axq = qx + sig_q * ((1.0 + theta) * gx2 - theta * gx)
+    ayq = qy + sig_q * ((1.0 + theta) * gy2 - theta * gy)
+    scale = ball_scale(torch.sum(axq * axq + ayq * ayq, dim=0), radius)
+    # prox of <s, d_s> (linear: a shift)
+    s2 = s + sig_s * ((1.0 + theta) * su2 - theta * su) - sig_s * d_s
+    return u2, axq * scale, ayq * scale, s2, gx2, gy2, su2, kty
+
+
+def _ml_chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, qx0, qy0, s0,
+                   f, count: int, g0=None):
+    """One residual_iter-sized chunk: ``count - 1`` plain iterations, then
+    the aligned iteration with its four preconditioned residual norms
+    (squared).  ``g0`` seeds the carried planes (dx(u0), dy(u0),
+    sum_l u0), a previous chunk's.
+
+    Returns ((u2, qx2, qy2, s2), (u_prev, qx_prev, qy_prev, s_prev),
+    norms, (gx2, gy2, su2))."""
+    L = u0.shape[0]
+    tau = tau_raw * 0.2              # tau * Tau
+    sig_q = sigma_raw * 0.5          # sigma * Sigma_q
+    sig_s = sigma_raw * (1.0 / L)    # sigma * Sigma_s
+    tf = tau * f
+    qx, qy = project_dead_dual(qx0, qy0)
+    u, s = u0, s0
+    gx, gy, su = ((dx(u0), dy(u0), torch.sum(u0, dim=0)) if g0 is None
+                  else g0)
+    args = (tf, tau, sig_q, sig_s, theta, radius, d_s)
+    for _ in range(count - 1):
+        u, qx, qy, s, gx, gy, su, _ = _ml_update(u, qx, qy, s, gx, gy, su,
+                                                 *args)
+    # aligned iteration; (gx, gy, su) = K x_prev carried for free
+    u2, qx2, qy2, s2, gx2, gy2, su2, ktyp = _ml_update(u, qx, qy, s, gx, gy,
+                                                       su, *args)
+    kty2 = dxt(qx2) + dyt(qy2) + s2
+
+    # preconditioned residuals, segment-wise sqrt(Sigma)
+    sqrt_s_s = (1.0 / L) ** 0.5
+    inv_q = 1.0 / (sigma_raw * _SQRT_S_Q)
+    inv_s = 1.0 / (sigma_raw * sqrt_s_s)
+    zh_x = (qx - qx2) * inv_q + _SQRT_S_Q * ((1.0 + theta) * gx2 - theta * gx)
+    zh_y = (qy - qy2) * inv_q + _SQRT_S_Q * ((1.0 + theta) * gy2 - theta * gy)
+    zh_s = (s - s2) * inv_s + sqrt_s_s * ((1.0 + theta) * su2 - theta * su)
+    pd_x = zh_x - _SQRT_S_Q * gx2
+    pd_y = zh_y - _SQRT_S_Q * gy2
+    pd_s = zh_s - sqrt_s_s * su2
+    wh = (u - u2) * (1.0 / (tau_raw * _SQRT_T)) - _SQRT_T * ktyp
+    dd = wh + _SQRT_T * kty2
+
+    norms = (
+        torch.sum(pd_x * pd_x) + torch.sum(pd_y * pd_y)
+        + torch.sum(pd_s * pd_s),
+        torch.sum(zh_x * zh_x) + torch.sum(zh_y * zh_y)
+        + torch.sum(zh_s * zh_s),
+        torch.sum(dd * dd),
+        torch.sum(wh * wh),
+    )
+    return ((u2, qx2, qy2, s2), (u, qx, qy, s), norms, (gx2, gy2, su2))
+
+
+def ml_chunk_plain(u, q, s, f, scal, count: int):
+    """Plain PyTorch version of ``ml_chunk`` (any device)."""
+    L = u.shape[0]
+    new, prev, norms, _ = _ml_chunk_core(
+        scal[0], scal[1], scal[2], scal[3], scal[4], u, q[:L], q[L:], s, f,
+        int(count))
+    q2 = torch.cat([new[1], new[2]])
+    qp = torch.cat([prev[1], prev[2]])
+    n2 = torch.stack(norms)
+    conv = entry_converged(scal, 5)
+    return (torch.where(conv, u, new[0]), torch.where(conv, q, q2),
+            torch.where(conv, s, new[3]), torch.where(conv, u, prev[0]),
+            torch.where(conv, q, qp), torch.where(conv, s, prev[3]),
+            torch.where(conv, torch.zeros_like(n2), n2))
+
+
+def ml_multichunk_plain(u, q, s, f, scal, count: int, k_chunks: int,
+                        stepsize: str, consts):
+    """Plain PyTorch version of ``ml_multichunk`` (any device): every chunk
+    is computed and kept only while not converged, where the JAX kernel
+    branches around it with ``lax.cond``."""
+    L = u.shape[0]
+    theta, radius, d_s = scal[2], scal[3], scal[4]
+    it0 = scal[8]
+    tols4 = (scal[9], scal[10], scal[11], scal[12])
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    qx, qy = q[:L], q[L:]
+    planes = (u, qx, qy, s, u, qx, qy, s,
+              dx(u), dy(u), torch.sum(u, dim=0))
+    sc = (scal[0], scal[1], scal[5], scal[6], scal[7],
+          entry_converged(scal, 13), zero)
+    norms = (zero, zero, zero, zero)
+    for c in range(int(k_chunks)):
+        uc, qxc, qyc, sc_, _, _, _, _, gx, gy, su = planes
+        tau, sigma, aa, al, au, conv, done = sc
+        new, prev, nrm, g2 = _ml_chunk_core(
+            tau, sigma, theta, radius, d_s, uc, qxc, qyc, sc_, f, int(count),
+            g0=(gx, gy, su))
+        pr, pn = torch.sqrt(nrm[0]), torch.sqrt(nrm[1])
+        dr, dn = torch.sqrt(nrm[2]), torch.sqrt(nrm[3])
+        it = it0 + float((c + 1) * int(count) - 1)
+        tau2, sigma2, aa2, al2, au2, cv = adapt_scalars(
+            stepsize, consts, tols4, it, tau, sigma, aa, al, au,
+            pr, pn, dr, dn)
+        new_planes = new + prev + g2
+        new_sc = (tau2, sigma2, aa2, al2, au2, cv, done + 1.0)
+        planes = tuple(torch.where(conv, a, b)
+                       for a, b in zip(planes, new_planes))
+        sc = tuple(torch.where(conv, a, b) for a, b in zip(sc, new_sc))
+        norms = tuple(torch.where(conv, a, b)
+                      for a, b in zip(norms, (pr, pn, dr, dn)))
+    u2, qx2, qy2, s2, up, qxp, qyp, sp = planes[:8]
+    tau, sigma, aa, al, au, conv, done = sc
+    sout = torch.stack([tau, sigma, aa, al, au, conv.to(u.dtype), done])
+    return (u2, torch.cat([qx2, qy2]), s2, up, torch.cat([qxp, qyp]), sp,
+            torch.stack(norms), sout)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(u, q, s, f, scal, n_scal: int, count: int):
+    if int(count) < 1:
+        raise ProstError("A chunk needs count >= 1.")
+    if u.dim() != 3 or u.shape[0] < 1 or min(u.shape[1:]) < 2:
+        raise ProstError(
+            f"u must be an (L, nx, ny) stack, got {tuple(u.shape)}.")
+    L, nx, ny = u.shape
+    for name, t, shape in (("q", q, (2 * L, nx, ny)), ("s", s, (nx, ny)),
+                           ("f", f, (L, nx, ny))):
+        if tuple(t.shape) != shape:
+            raise ProstError(f"{name} must be {shape}, got {tuple(t.shape)}.")
+    if scal.numel() not in (n_scal, n_scal + 1):
+        raise ProstError(f"scal must hold {n_scal} scalars "
+                         f"(+1 converged flag), got {scal.numel()}.")
+    dev = u.device
+    for t in (u, q, s, f, scal):
+        if t.device != dev:
+            raise ProstError("All tensors must be on one device.")
+        if dev.type == "cuda" and t.dtype != torch.float32:
+            raise ProstError("The CUDA multilabel kernels take float32 only.")
+    if dev.type not in ("cpu", "cuda"):
+        raise ProstError(f"No multilabel kernel for device {dev}.")
+
+
+def _lib():
+    """The fused multilabel kernel library, built from
+    csrc/fused_multilabel.cu on first use."""
+    head = [VP] * 13 + [CI] * 3 + [CF] * 2
+    return typed_lib("fused_multilabel", "prost_ml_num_blocks", {
+        "prost_ml_chunk": head + [CI, VP],
+        "prost_ml_multichunk": head + [CI] * 3 + [CF] * 6 + [VP]})
+
+
+def _launch(fn: str, what: str, u, q, s, f, scal, n_scal: int, *args):
+    """One launch of ``fn`` on copies of (u, q, s); returns its ChunkWork."""
+    lib = _lib()
+    L, nx, ny = u.shape
+    wk = ChunkWork((u, q, s), (q, s), scal, n_scal,
+                   lib.prost_ml_num_blocks(nx, ny))
+    # 1/L and sqrt(1/L) rounded once from double, as the plain version
+    # rounds its Python constants
+    launch(lib, fn, what, launch_counts, u.device, wk.buffers(f), L, nx, ny,
+           1.0 / L, (1.0 / L) ** 0.5, *args)
+    return wk
+
+
+def ml_chunk(u, q, s, f, scal, count: int):
+    """``count`` fused iterations ending on a residual iteration.
+
+    u, f: (L, nx, ny); q: (2L, nx, ny); s: (nx, ny); scal: [tau, sigma,
+    theta, radius, d_s] (+ an optional converged flag: when set, nothing
+    runs and the inputs come back).  Returns (u2, q2, s2, u_prev, q_prev,
+    s_prev, norms2), norms2 the 4 SQUARED preconditioned residual norms, on
+    the inputs' device.  CPU tensors run the plain version; CUDA tensors
+    launch the kernel."""
+    _check(u, q, s, f, scal, 5, count)
+    if u.device.type == "cpu":
+        return ml_chunk_plain(u, q, s, f, scal, count)
+    return _launch("prost_ml_chunk", "ml_chunk", u, q, s, f, scal, 5,
+                   int(count)).outputs()
+
+
+def ml_multichunk(u, q, s, f, scal, count: int, k_chunks: int,
+                  stepsize: str, consts):
+    """Up to ``k_chunks * count`` fused iterations with the adaptation and
+    the stopping test on the device between chunks.
+
+    ``scal`` holds 13 scalars: [tau, sigma, theta, radius, d_s, arg_alpha,
+    arb_l, arb_u, it0, tol_rel_p, tol_rel_d, tol_abs_p, tol_abs_d] (+ an
+    optional converged-at-entry flag).  Returns (u2, q2, s2, u_prev,
+    q_prev, s_prev, norms, sout): norms the last executed chunk's sqrt'd
+    residual norms, sout = [tau, sigma, arg_alpha, arb_l, arb_u,
+    converged, chunks_done].  CPU tensors run the plain version; CUDA
+    tensors launch the kernel."""
+    _check(u, q, s, f, scal, 13, count)
+    if stepsize not in STEPSIZES:
+        raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
+    if u.device.type == "cpu":
+        return ml_multichunk_plain(u, q, s, f, scal, count, k_chunks,
+                                   stepsize, consts)
+    wk = _launch("prost_ml_multichunk", "ml_multichunk", u, q, s, f, scal, 13,
+                 int(count), int(k_chunks), STEPSIZES[stepsize],
+                 *[float(c) for c in consts])
+    return (*wk.outputs(), wk.sout())
+
+
+# ---------------------------------------------------------------------------
+# structure matching and the route
+# ---------------------------------------------------------------------------
+
+def _allclose(t, v) -> bool:
+    return bool(torch.allclose(t, torch.full_like(t, v)))
+
+
+def match_multilabel_structure(problem):
+    """Detect the fusable fast-multilabel structure; returns dict(nx, ny,
+    L, f, radius, d_s) or None.  Conditions (the model of
+    examples/example_multilabel_fast.py):
+
+    * linop = [BlockGradient2D(L, label_first=False) at (0, 0);
+               kron(ones(1, L), I_n) at (2nL, 0)]
+    * prox_g = one ProxElem1D ind_geq0 with a=1, b=0, c scalar > 0, d the
+      unary costs (vector or scalar), e=0;
+    * prox_fstar = ProxElemNorm2(dim=2L, planar, ind_leq0, scalar a, b;
+      d=e=0) over the gradient rows (per-pixel radius-(b/a) ball) and one
+      ProxElem1D zero (linear shift d_s) over the multiplier rows;
+    * alpha preconditioner: Sigma = [1/2; 1/L], Tau = 1/5.
+
+    The fused route is float32 only."""
+    if config_dtype() != torch.float32:
+        return None
+    linop = problem.linop
+    if not isinstance(linop, LinearOperator) or len(linop.blocks) != 2:
+        return None
+    grad = next((b for b in linop.blocks
+                 if isinstance(b, BlockGradient2D)), None)
+    kron = next((b for b in linop.blocks if isinstance(b, BlockKronId)), None)
+    if grad is None or kron is None or grad.label_first or grad.L < 1:
+        return None
+    L, nx, ny = grad.L, grad.nx, grad.ny
+    n = nx * ny
+    if grad.row != 0 or grad.col != 0:
+        return None
+    if kron.row != 2 * n * L or kron.col != 0 or kron.diaglength != n:
+        return None
+    if tuple(kron.data.shape) != (1, L) or not bool(torch.all(kron.data
+                                                              == 1.0)):
+        return None
+
+    # --- primal prox: positivity + linear unaries ---------------------------
+    if len(problem.prox_g) != 1 or len(problem.prox_fstar) != 2:
+        return None
+    pg = problem.prox_g[0]
+    if not isinstance(pg, ProxElem1D) or pg.fun != "ind_geq0":
+        return None
+    if pg.index != 0 or pg.size != n * L:
+        return None
+    a, b, c, d, e, _, _ = pg.coeffs
+    if not (isscalar(a) and a == 1.0 and isscalar(b) and b == 0.0):
+        return None
+    if not (isscalar(c) and c > 0.0) or not (isscalar(e) and e == 0.0):
+        return None
+    dev = problem.scaling_left.device
+    if isinstance(d, torch.Tensor):
+        f = torch.broadcast_to(d.to(torch.float32).reshape(-1), (n * L,))
+    else:
+        f = torch.full((n * L,), float(d), dtype=torch.float32, device=dev)
+    f = f.reshape(L, nx, ny).contiguous()
+
+    # --- dual proxes: 2L-ball over gradient rows + linear shift on s --------
+    ball = shift = None
+    for p in problem.prox_fstar:
+        if isinstance(p, ProxElemNorm2) and p.index == 0:
+            ball = p
+        elif isinstance(p, ProxElem1D) and p.index == 2 * n * L:
+            shift = p
+    if ball is None or shift is None:
+        return None
+    if (ball.fun != "ind_leq0" or ball.size != 2 * n * L
+            or ball.dim != 2 * L or ball.interleaved):
+        return None
+    ia, ib, ic, idd, ie, _, _ = ball.coeffs
+    for v in (ia, ib, ic):
+        if not isscalar(v):
+            return None
+    if idd != 0.0 or ie != 0.0 or ia <= 0:
+        return None
+    radius = float(ib) / float(ia)
+    if shift.fun != "zero" or shift.size != n:
+        return None
+    _, _, _, sd, se, _, _ = shift.coeffs
+    if not (isscalar(sd) and isscalar(se) and se == 0.0):
+        return None
+
+    # constant per-segment alpha preconditioner
+    sl, sr = problem.scaling_left, problem.scaling_right
+    if not (_allclose(sl[: 2 * n * L], 0.5) and _allclose(sl[2 * n * L:],
+                                                          1.0 / L)
+            and _allclose(sr, 0.2)):
+        return None
+    return {"nx": nx, "ny": ny, "L": L, "f": f, "radius": radius,
+            "d_s": float(sd)}
+
+
+def _planes(m, xf, yf):
+    """(u, q, s) views of the solver's flat x and y."""
+    L, nx, ny = m["L"], m["nx"], m["ny"]
+    n2 = 2 * L * nx * ny
+    return (xf.reshape(L, nx, ny), yf[:n2].reshape(2 * L, nx, ny),
+            yf[n2:].reshape(nx, ny))
+
+
+def _flat_y(q, s):
+    return torch.cat([q.reshape(-1), s.reshape(-1)])
+
+
+def _dead_dual_flat(m, yf):
+    L, nx, ny = m["L"], m["nx"], m["ny"]
+    n2 = 2 * L * nx * ny
+    q = yf[:n2].reshape(2 * L, nx, ny)
+    qx, qy = project_dead_dual(q[:L], q[L:])
+    return torch.cat([qx.reshape(-1), qy.reshape(-1), yf[n2:]])
+
+
+def _multi_chunk(b, s: PDHGState) -> PDHGState:
+    m, ri = b.ml, max(int(b.opts.residual_iter), 1)
+    dt = s.x.dtype
+    scal = torch.stack([
+        s.tau, s.sigma, s.theta, m["radius_t"], m["d_s_t"],
+        s.arg_alpha, s.arb_l, s.arb_u, s.iteration.to(dt), *m["tols_t"],
+        s.converged.to(dt)])
+    u2, q2, s2, up, qp, sp, norms, sc = ml_multichunk(
+        *_planes(m, s.x, s.y), m["f"], scal, ri, K_CHUNKS, b.opts.stepsize,
+        m["consts"])
+    return multichunk_state(s, ri, u2.reshape(-1), _flat_y(q2, s2),
+                            up.reshape(-1), _flat_y(qp, sp), norms, sc)
+
+
+def _fused_chunk(b, s: PDHGState) -> PDHGState:
+    m, ri = b.ml, max(int(b.opts.residual_iter), 1)
+    dt = s.x.dtype
+    scal = torch.stack([s.tau, s.sigma, s.theta, m["radius_t"], m["d_s_t"],
+                        s.converged.to(dt)])
+    u2, q2, s2, up, qp, sp, norms2 = ml_chunk(*_planes(m, s.x, s.y), m["f"],
+                                              scal, ri)
+    return chunk_state(b, s, ri, u2.reshape(-1), _flat_y(q2, s2),
+                       up.reshape(-1), _flat_y(qp, sp), norms2)
+
+
+def fused_ml_run(b, state: PDHGState, until: int, start: int) -> PDHGState:
+    """The phases of ``ops.phases.run_phases`` around the fused multilabel
+    chunks of ``FusedROFPDHG`` ``b``: as the ROF route, a chunk starts where
+    iteration % ri == 1 (pre-increment counter); the canonicalization zeroes
+    the dead dual coordinates of y and y_prev; the epilogue refreshes kx,
+    kty, kx_prev and kty_prev, which the chunks do not carry."""
+    m, lin = b.ml, b.problem.linop
+    ri = max(int(b.opts.residual_iter), 1)
+
+    def canonicalize(s):
+        return dataclasses.replace(s, y=_dead_dual_flat(m, s.y),
+                                   y_prev=_dead_dual_flat(m, s.y_prev))
+
+    def epilogue(s):
+        return dataclasses.replace(
+            s, kx=lin.apply(s.x), kty=lin.apply_adjoint(s.y),
+            kx_prev=lin.apply(s.x_prev),
+            kty_prev=lin.apply_adjoint(s.y_prev))
+
+    return run_phases(state, start, until, ri, 1 % ri, b.generic_step,
+                      canonicalize, lambda s: _fused_chunk(b, s),
+                      multichunk=lambda s: _multi_chunk(b, s),
+                      epilogue=epilogue)

@@ -27,36 +27,34 @@ Layout contract (the JAX package's, at every public function): x viewed
 
 Dead dual coordinates.  q_x's last row and q_y's last column multiply
 structurally zero rows of K.  They are zeroed once per run and at every
-chunk entry (``_project_dead_dual``); then the maskless adjoint stencil is
+chunk entry (``pdhg_chunk.project_dead_dual``); then the maskless adjoint stencil is
 exact, and the CUDA kernels can read plain bounds-checked neighbours.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import math
 
 import torch
 
-from ..backend.pdhg import BackendPDHG, PDHGState, hold_if, residual_and_adapt
+from ..backend.pdhg import BackendPDHG, PDHGState
 from ..config import ProstError, dtype as config_dtype
 from ..linop.base import LinearOperator
 from ..linop.gradient import BlockGradient2D
 from ..prox.combinators import ProxMoreau
 from ..prox.elemop import ProxElem1D, ProxElemNorm2
+from .fused_multilabel import fused_ml_run, match_multilabel_structure
+from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, adapt_scalars,
+                         ball_scale, chunk_state, dx, dxt, dy, dyt,
+                         entry_converged, isscalar, launch,
+                         multichunk_state, pdhg_adapt_consts,
+                         project_dead_dual, typed_lib)
 from .phases import K_CHUNKS, run_phases
 
 _SQRT_S = 0.7071067811865476  # sqrt(Sigma) = sqrt(1/2)
 _SQRT_T = 0.5                 # sqrt(Tau)   = sqrt(1/4)
 
 DATATERMS = {"square": 0, "wsquare": 1, "abs": 2}
-# alg2 never reaches the fused route; alg1 runs the stopping test only
-STEPSIZES = {"alg1": 0, "goldstein": 1, "boyd": 2}
-
-# slots of the kernels' device scalar buffer (csrc/fused_rof.cu, enum S_*)
-_S_CONV, _S_DONE, _S_NORM, _S_LEN = 13, 14, 15, 19
-_SOUT = (0, 1, 5, 6, 7, _S_CONV, _S_DONE)  # tau sigma aa arb_l arb_u conv done
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
 launch_counts = {"rof_chunk": 0, "rof_multichunk": 0}
@@ -71,39 +69,6 @@ def reset_launch_counts() -> None:
 # plain PyTorch versions of the chunk math
 # ---------------------------------------------------------------------------
 
-def _dx(u):
-    """Forward difference along rows, Neumann (zero last row)."""
-    return torch.cat([u[1:] - u[:-1], torch.zeros_like(u[:1])], dim=0)
-
-
-def _dy(u):
-    """Forward difference along columns, Neumann (zero last column)."""
-    return torch.cat([u[:, 1:] - u[:, :-1], torch.zeros_like(u[:, :1])],
-                     dim=1)
-
-
-def _dxt(p):
-    """Maskless adjoint of _dx, exact given p[-1, :] == 0."""
-    return torch.roll(p, 1, 0) - p
-
-
-def _dyt(p):
-    """Maskless adjoint of _dy, exact given p[:, -1] == 0."""
-    return torch.roll(p, 1, 1) - p
-
-
-def _project_dead_dual(qx, qy):
-    """Zero the dead dual coordinates: q_x's last row and q_y's last
-    column never enter K^T y, the ball projection maps zeros to zeros, so
-    this is a no-op on every state the solver produces from y0 = 0.  A warm
-    start with mass there is projected off it (the generic path lets it
-    decay instead; tests pin this deviation)."""
-    qx, qy = qx.clone(), qy.clone()
-    qx[-1, :] = 0.0
-    qy[:, -1] = 0.0
-    return qx, qy
-
-
 def _hoist_dataterm(f, w, tau, lmb, dataterm: str):
     """Constant planes/scalars of the primal prox within a chunk: square and
     wsquare share x_new = (arg + dt0) * dt1; abs keeps (f, shrink)."""
@@ -115,33 +80,24 @@ def _hoist_dataterm(f, w, tau, lmb, dataterm: str):
     return f, tau * lmb  # abs
 
 
-def _ball_scale(ax, ay, radius):
-    """min(1, r / |a|) for the r-ball projection.  A zero vector keeps scale
-    1 (its projection is itself): rsqrt(0) = inf would make radius * inf
-    NaN for radius == 0, where the JAX package's form gives NaN."""
-    nn = ax * ax + ay * ay
-    s = torch.clamp(radius * torch.rsqrt(nn), max=1.0)
-    return torch.where(nn > 0, s, torch.ones_like(s))
-
-
 def _rof_update(x, qx, qy, gx, gy, dt0, dt1, tau, sig_p, sig_t, radius,
                 dataterm: str):
     """One preconditioned PDHG update.  tau arrives pre-multiplied by
     Tau = 1/4; sig_p = sigma*Sigma*(1+theta), sig_t = sigma*Sigma*theta;
     (gx, gy) is grad(x) carried from the previous iteration.  Returns the
     new state, the new gradient planes and K^T of the old dual."""
-    kty = _dxt(qx) + _dyt(qy)
+    kty = dxt(qx) + dyt(qy)
     arg = x - tau * kty
     if dataterm in ("square", "wsquare"):
         x_new = (arg + dt0) * dt1
     else:  # abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
         d = arg - dt0
         x_new = arg - torch.minimum(torch.maximum(d, -dt1), dt1)
-    gx_new = _dx(x_new)
-    gy_new = _dy(x_new)
+    gx_new = dx(x_new)
+    gy_new = dy(x_new)
     ax = qx + sig_p * gx_new - sig_t * gx
     ay = qy + sig_p * gy_new - sig_t * gy
-    scale = _ball_scale(ax, ay, radius)
+    scale = ball_scale(ax * ax + ay * ay, radius)
     return x_new, ax * scale, ay * scale, gx_new, gy_new, kty
 
 
@@ -160,9 +116,9 @@ def _chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, qx0, qy0, f, w,
     sig_t = sigma_p * theta
     dt0, dt1 = _hoist_dataterm(f, w if dataterm == "wsquare" else None, tau,
                                lmb, dataterm)
-    qx, qy = _project_dead_dual(qx0, qy0)
+    qx, qy = project_dead_dual(qx0, qy0)
     x = x0
-    gx, gy = (_dx(x0), _dy(x0)) if g0 is None else g0
+    gx, gy = (dx(x0), dy(x0)) if g0 is None else g0
     for _ in range(count - 1):
         x, qx, qy, gx, gy, _ = _rof_update(x, qx, qy, gx, gy, dt0, dt1, tau,
                                            sig_p, sig_t, radius, dataterm)
@@ -170,7 +126,7 @@ def _chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, qx0, qy0, f, w,
     # aligned iteration; (gxp, gyp) is grad(x_prev) carried for free
     x2, qx2, qy2, gx2, gy2, ktyp = _rof_update(
         x, qx, qy, gxp, gyp, dt0, dt1, tau, sig_p, sig_t, radius, dataterm)
-    kty2 = _dxt(qx2) + _dyt(qy2)
+    kty2 = dxt(qx2) + dyt(qy2)
 
     inv_s = 1.0 / (sigma_raw * _SQRT_S)
     zh_x = (qx - qx2) * inv_s + _SQRT_S * ((1.0 + theta) * gx2 - theta * gxp)
@@ -191,55 +147,6 @@ def _chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, qx0, qy0, f, w,
     return x2, qx2, qy2, x, qx, qy, norms
 
 
-def adapt_scalars(stepsize: str, consts, tols4, it, tau, sigma, arg_alpha,
-                  arb_l, arb_u, pr, pn, dr, dn):
-    """The scalar math of ``backend.pdhg.residual_and_adapt`` as the
-    multichunk kernel runs it between chunks: same operations in the same
-    order on f32 0-d tensors.  ``consts`` = (sqrt_nrows, sqrt_ncols,
-    arg_delta, arg_nu, arb_delta, arb_tau) are Python floats; ``it`` is the
-    pre-increment counter of the residual iteration as f32.
-
-    Returns (tau, sigma, arg_alpha, arb_l, arb_u, converged)."""
-    trp, trd, tap, tad = tols4
-    sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta, arb_tau = consts
-    eps_pri = sqrt_nrows * tap + trp * pn
-    eps_dua = sqrt_ncols * tad + trd * dn
-    conv = (pr < eps_pri) & (dr < eps_dua)
-    if stepsize == "goldstein":
-        scale = eps_dua / eps_pri
-        up = dr > scale * pr * arg_delta
-        dn_ = dr < scale * pr / arg_delta
-        fac = 1.0 - arg_alpha
-        tau = torch.where(up, tau / fac, torch.where(dn_, tau * fac, tau))
-        sigma = torch.where(up, sigma * fac,
-                            torch.where(dn_, sigma / fac, sigma))
-        arg_alpha = torch.where(up | dn_, arg_alpha * arg_nu, arg_alpha)
-    elif stepsize == "boyd":
-        c1 = (dr < eps_dua) & (arb_tau * it > arb_l)
-        c2 = (pr < eps_pri) & (arb_tau * it > arb_u) & ~c1
-        tau = torch.where(c1, tau / arb_delta,
-                          torch.where(c2, tau * arb_delta, tau))
-        sigma = torch.where(c1, sigma * arb_delta,
-                            torch.where(c2, sigma / arb_delta, sigma))
-        arb_u = torch.where(c1, it, arb_u)
-        arb_l = torch.where(c2, it, arb_l)
-    return tau, sigma, arg_alpha, arb_l, arb_u, conv
-
-
-def pdhg_adapt_consts(problem, opts) -> tuple:
-    """The constant tuple for ``adapt_scalars``."""
-    return (math.sqrt(float(problem.nrows)), math.sqrt(float(problem.ncols)),
-            float(opts.arg_delta), float(opts.arg_nu),
-            float(opts.arb_delta), float(opts.arb_tau))
-
-
-def _entry_converged(scal, n: int):
-    """The optional converged-at-entry flag after the first ``n`` scalars."""
-    if scal.numel() > n:
-        return scal[n] != 0
-    return torch.zeros((), dtype=torch.bool, device=scal.device)
-
-
 def rof_chunk_plain(x, q, f, w, scal, count: int, dataterm: str = "square"):
     """Plain PyTorch version of ``rof_chunk`` (any device)."""
     x2, qx2, qy2, xp, qxp, qyp, norms = _chunk_core(
@@ -247,7 +154,7 @@ def rof_chunk_plain(x, q, f, w, scal, count: int, dataterm: str = "square"):
         int(count), dataterm)
     q2, qp = torch.stack([qx2, qy2]), torch.stack([qxp, qyp])
     n2 = torch.stack(norms)
-    conv = _entry_converged(scal, 5)
+    conv = entry_converged(scal, 5)
     return (torch.where(conv, x, x2), torch.where(conv, q, q2),
             torch.where(conv, x, xp), torch.where(conv, q, qp),
             torch.where(conv, torch.zeros_like(n2), n2))
@@ -262,9 +169,9 @@ def rof_multichunk_plain(x, q, f, w, scal, count: int, k_chunks: int,
     it0 = scal[8]
     tols4 = (scal[9], scal[10], scal[11], scal[12])
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    planes = (x, q[0], q[1], x, q[0], q[1], _dx(x), _dy(x))
+    planes = (x, q[0], q[1], x, q[0], q[1], dx(x), dy(x))
     sc = (scal[0], scal[1], scal[5], scal[6], scal[7],
-          _entry_converged(scal, 13), zero)
+          entry_converged(scal, 13), zero)
     norms = (zero, zero, zero, zero)
     for c in range(int(k_chunks)):
         xc, qx, qy, _, _, _, gx, gy = planes
@@ -321,60 +228,12 @@ def _check(x, q, f, w, scal, n_scal: int, count: int, dataterm: str):
         raise ProstError(f"No ROF kernel for device {dev}.")
 
 
-class _Work:
-    """The buffers one kernel call works on in place: the state planes
-    (copies of the inputs, so a call that returns at once hands its inputs
-    back), the carried gradients, the scalar buffer and the norm partials."""
-
-    def __init__(self, x, q, scal, n_scal: int):
-        self.x, self.q = x.contiguous().clone(), q.contiguous().clone()
-        self.xp, self.qp = self.x.clone(), self.q.clone()
-        self.g, self.gp = torch.empty_like(self.q), torch.empty_like(self.q)
-        self.sc = torch.zeros(_S_LEN, dtype=torch.float32, device=x.device)
-        self.sc[:n_scal] = scal[:n_scal]
-        if scal.numel() > n_scal:
-            self.sc[_S_CONV] = scal[n_scal]
-
-    def args(self, lib, f, w):
-        nx, ny = self.x.shape
-        nblocks = lib.prost_rof_num_blocks(nx, ny)
-        self.partial = torch.empty(4 * nblocks, dtype=torch.float32,
-                                   device=self.x.device)
-        ptrs = (self.x, self.q, self.xp, self.qp, self.g, self.gp,
-                f.contiguous(), w.contiguous(), self.sc, self.partial)
-        self._keep = ptrs  # alive until the launches are queued
-        return [_ptr(t) for t in ptrs] + [nx, ny]
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _lib():
     """The fused ROF kernel library, built from csrc/fused_rof.cu on first
     use."""
-    from .cuda_build import load
-
-    lib = load("fused_rof").lib
-    if not getattr(lib, "_prost_typed", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.prost_rof_num_blocks.argtypes = [ci, ci]
-        lib.prost_rof_num_blocks.restype = ci
-        lib.prost_error_string.argtypes = [ci]
-        lib.prost_error_string.restype = ctypes.c_char_p
-        lib.prost_rof_chunk.argtypes = [vp] * 10 + [ci] * 4 + [vp]
-        lib.prost_rof_chunk.restype = ci
-        lib.prost_rof_multichunk.argtypes = ([vp] * 10 + [ci] * 6 + [cf] * 6
-                                             + [vp])
-        lib.prost_rof_multichunk.restype = ci
-        lib._prost_typed = True
-    return lib
-
-
-def _raise_on(lib, rc: int, what: str):
-    if rc != 0:
-        msg = lib.prost_error_string(rc).decode()
-        raise ProstError(f"{what}: CUDA launch failed ({rc}: {msg}).")
+    return typed_lib("fused_rof", "prost_rof_num_blocks", {
+        "prost_rof_chunk": [VP] * 10 + [CI] * 4 + [VP],
+        "prost_rof_multichunk": [VP] * 10 + [CI] * 6 + [CF] * 6 + [VP]})
 
 
 def rof_chunk(x, q, f, w, scal, count: int, dataterm: str = "square"):
@@ -389,14 +248,11 @@ def rof_chunk(x, q, f, w, scal, count: int, dataterm: str = "square"):
     if x.device.type == "cpu":
         return rof_chunk_plain(x, q, f, w, scal, count, dataterm)
     lib = _lib()
-    with torch.cuda.device(x.device):
-        wk = _Work(x, q, scal, 5)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.prost_rof_chunk(*wk.args(lib, f, w), int(count),
-                                 DATATERMS[dataterm], stream)
-        _raise_on(lib, rc, "rof_chunk")
-        launch_counts["rof_chunk"] += 1
-    return wk.x, wk.q, wk.xp, wk.qp, wk.sc[_S_NORM:_S_NORM + 4]
+    nx, ny = x.shape
+    wk = ChunkWork((x, q), (q,), scal, 5, lib.prost_rof_num_blocks(nx, ny))
+    launch(lib, "prost_rof_chunk", "rof_chunk", launch_counts, x.device,
+           wk.buffers(f, w), nx, ny, int(count), DATATERMS[dataterm])
+    return wk.outputs()
 
 
 def rof_multichunk(x, q, f, w, scal, count: int, k_chunks: int,
@@ -417,26 +273,18 @@ def rof_multichunk(x, q, f, w, scal, count: int, k_chunks: int,
         return rof_multichunk_plain(x, q, f, w, scal, count, k_chunks,
                                     dataterm, stepsize, consts)
     lib = _lib()
-    with torch.cuda.device(x.device):
-        wk = _Work(x, q, scal, 13)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.prost_rof_multichunk(
-            *wk.args(lib, f, w), int(count), int(k_chunks),
-            DATATERMS[dataterm], STEPSIZES[stepsize],
-            *[float(c) for c in consts], stream)
-        _raise_on(lib, rc, "rof_multichunk")
-        launch_counts["rof_multichunk"] += 1
-    sout = torch.stack([wk.sc[i] for i in _SOUT])
-    return wk.x, wk.q, wk.xp, wk.qp, wk.sc[_S_NORM:_S_NORM + 4], sout
+    nx, ny = x.shape
+    wk = ChunkWork((x, q), (q,), scal, 13, lib.prost_rof_num_blocks(nx, ny))
+    launch(lib, "prost_rof_multichunk", "rof_multichunk", launch_counts,
+           x.device, wk.buffers(f, w), nx, ny, int(count), int(k_chunks),
+           DATATERMS[dataterm], STEPSIZES[stepsize],
+           *[float(c) for c in consts])
+    return (*wk.outputs(), wk.sout())
 
 
 # ---------------------------------------------------------------------------
 # structure matching and the backend
 # ---------------------------------------------------------------------------
-
-def _isscalar(v) -> bool:
-    return isinstance(v, (int, float))
-
 
 def _plane(v, nx, ny, dev):
     if isinstance(v, torch.Tensor):
@@ -469,10 +317,10 @@ def match_rof_structure(problem):
     if not isinstance(pg, ProxElem1D) or pg.fun not in ("square", "abs"):
         return None
     a, b, c, d, e, _, _ = pg.coeffs
-    if not (_isscalar(c) and _isscalar(d) and d == 0.0
-            and _isscalar(e) and e == 0.0):
+    if not (isscalar(c) and isscalar(d) and d == 0.0
+            and isscalar(e) and e == 0.0):
         return None
-    if _isscalar(a) and a == 1.0:
+    if isscalar(a) and a == 1.0:
         dataterm = "square" if pg.fun == "square" else "abs"
         f = _plane(b, nx, ny, dev)
         w = f  # ignored placeholder (keeps the kernel arity fixed)
@@ -502,9 +350,9 @@ def match_rof_structure(problem):
             return None
         ia, ib, ic, idd, ie, _, _ = inner.coeffs
         for v, want in ((ia, 1.0), (ib, 0.0), (idd, 0.0), (ie, 0.0)):
-            if not (_isscalar(v) and v == want):
+            if not (isscalar(v) and v == want):
                 return None
-        if not _isscalar(ic):
+        if not isscalar(ic):
             return None
         radius = float(ic)  # conjugate of c|x| -> radius-c ball
     elif isinstance(pf, ProxElemNorm2) and pf.fun == "ind_leq0":
@@ -512,7 +360,7 @@ def match_rof_structure(problem):
             return None
         ia, ib, ic, idd, ie, _, _ = pf.coeffs
         for v in (ia, ib, ic):
-            if not _isscalar(v):
+            if not isscalar(v):
                 return None
         if idd != 0.0 or ie != 0.0 or ia <= 0:
             return None
@@ -530,10 +378,12 @@ def match_rof_structure(problem):
 
 
 class FusedROFPDHG(BackendPDHG):
-    """BackendPDHG that runs ROF-structured problems through the fused
-    chunk kernels and behaves exactly like BackendPDHG otherwise.  Residual
-    iterations take their norms from the kernels, and the adaptation and
-    stopping test follow the generic code's order of operations."""
+    """BackendPDHG that runs ROF-structured problems through the fused ROF
+    chunk kernels and fast-multilabel problems through the fused multilabel
+    kernels (``ops/fused_multilabel.py``), and behaves exactly like
+    BackendPDHG otherwise.  Residual iterations take their norms from the
+    kernels, and the adaptation and stopping test follow the generic code's
+    order of operations."""
 
     def __init__(self, problem, opts, solver_opts):
         super().__init__(problem, opts, solver_opts)
@@ -542,29 +392,36 @@ class FusedROFPDHG(BackendPDHG):
         # generic path
         usable = opts.stepsize != "alg2" and not opts.reference_residuals
         self.rof = match_rof_structure(problem) if usable else None
-        if self.rof is not None:
-            like = problem.scaling_left
-            r = self.rof
-            r["lmb_t"] = like.new_full((), r["lmb"])
-            r["radius_t"] = like.new_full((), r["radius"])
+        self.ml = None
+        if usable and self.rof is None:
+            self.ml = match_multilabel_structure(problem)
+        like = problem.scaling_left
+        for r, names, kind in ((self.rof, ("lmb", "radius"), "ROF"),
+                               (self.ml, ("radius", "d_s"), "multilabel")):
+            if r is None:
+                continue
+            for name in names:
+                r[name + "_t"] = like.new_full((), r[name])
             r["tols_t"] = tuple(like.new_full((), float(t))
                                 for t in self.tols)
             r["consts"] = pdhg_adapt_consts(problem, opts)
             if solver_opts.verbose:
                 where = ("CUDA kernels" if like.device.type == "cuda"
                          else "plain PyTorch versions on the CPU")
-                print(f"FusedROFPDHG: fused ROF route ({where}).")
+                print(f"FusedROFPDHG: fused {kind} route ({where}).")
 
     def run(self, state: PDHGState, until_iter: int,
             start_iter: int) -> PDHGState:
         if self.rof is not None:
             return _fused_rof_run(self, state, until_iter, start_iter)
+        if self.ml is not None:
+            return fused_ml_run(self, state, until_iter, start_iter)
         return super().run(state, until_iter, start_iter)
 
 
 def _dead_dual_flat(yf, nx, ny):
     q = yf.reshape(2, nx, ny)
-    qx, qy = _project_dead_dual(q[0], q[1])
+    qx, qy = project_dead_dual(q[0], q[1])
     return torch.stack([qx, qy]).reshape(-1)
 
 
@@ -578,18 +435,8 @@ def _multi_chunk(b: FusedROFPDHG, s: PDHGState) -> PDHGState:
     x2, q2, xp, qp, norms, sc = rof_multichunk(
         s.x.reshape(nx, ny), s.y.reshape(2, nx, ny), r["f"], r["w"], scal,
         ri, K_CHUNKS, r["dataterm"], b.opts.stepsize, r["consts"])
-    done = sc[6].to(torch.int32)
-    new = dataclasses.replace(
-        s,
-        x=x2.reshape(-1), y=q2.reshape(-1),
-        x_prev=xp.reshape(-1), y_prev=qp.reshape(-1),
-        tau=sc[0], sigma=sc[1], arg_alpha=sc[2], arb_l=sc[3], arb_u=sc[4],
-        converged=sc[5] > 0.5,
-        primal_residual=norms[0], primal_var_norm=norms[1],
-        dual_residual=norms[2], dual_var_norm=norms[3],
-        iteration=s.iteration + done * ri,
-    )
-    return hold_if(s.converged, s, new)
+    return multichunk_state(s, ri, x2.reshape(-1), q2.reshape(-1),
+                            xp.reshape(-1), qp.reshape(-1), norms, sc)
 
 
 def _fused_chunk(b: FusedROFPDHG, s: PDHGState) -> PDHGState:
@@ -600,17 +447,8 @@ def _fused_chunk(b: FusedROFPDHG, s: PDHGState) -> PDHGState:
     x2, q2, xp, qp, norms2 = rof_chunk(
         s.x.reshape(nx, ny), s.y.reshape(2, nx, ny), r["f"], r["w"], scal,
         ri, r["dataterm"])
-    norms = torch.sqrt(norms2)
-    new = dataclasses.replace(
-        s, x=x2.reshape(-1), y=q2.reshape(-1),
-        x_prev=xp.reshape(-1), y_prev=qp.reshape(-1))
-    # the chunk covers iterations s.iteration .. s.iteration + ri - 1; the
-    # residual iteration's pre-increment counter is the last of them
-    new = residual_and_adapt(b.problem, b.opts, b.tols, new,
-                             norms[0], norms[1], norms[2], norms[3],
-                             s.iteration + (ri - 1))
-    new = dataclasses.replace(new, iteration=new.iteration + ri)
-    return hold_if(s.converged, s, new)
+    return chunk_state(b, s, ri, x2.reshape(-1), q2.reshape(-1),
+                       xp.reshape(-1), qp.reshape(-1), norms2)
 
 
 def _fused_rof_run(b: FusedROFPDHG, state: PDHGState, until: int,

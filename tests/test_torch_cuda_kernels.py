@@ -13,7 +13,10 @@ from torch.rsqrt; norms 1e-4 relative, block-tree sums against torch.sum.
 The ADMM kernels with the CGLS projection: planes 5e-5 absolute, since
 every CG step's alpha and beta come from whole-plane sums taken in another
 order; residual norms after a multichunk launch of 80 iterations 1e-3
-relative, being norms of differences of nearby iterates.
+relative, being norms of differences of nearby iterates.  The multilabel
+kernels: planes 2e-5 absolute as for ROF (their label sums run left to
+right, torch.sum over the label axis may pair them otherwise); norms 1e-4
+relative after a chunk, 1e-3 after a multichunk launch, as for ADMM.
 """
 
 import dataclasses
@@ -26,6 +29,7 @@ import prost_tpu_torch as ptt
 from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
 from prost_tpu_torch.ops import FusedROFADMM, FusedROFPDHG
 from prost_tpu_torch.ops import fused_admm as fa
+from prost_tpu_torch.ops import fused_multilabel as fm
 from prost_tpu_torch.ops import fused_rof as fr
 
 pytestmark = pytest.mark.cuda
@@ -275,6 +279,145 @@ def test_fused_admm_backend_on_card_matches_cpu(dev, projection):
     gpu, cpu = states
     assert bool(gpu.converged) and bool(cpu.converged)
     assert int(gpu.iteration) == int(cpu.iteration) < 1500
+    for f in dataclasses.fields(gpu):
+        a, b = getattr(gpu, f.name), getattr(cpu, f.name)
+        assert a.is_cuda, f.name
+        if a.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3,
+                                       msg=f.name)
+
+
+# ---------------------------------------------------------------------------
+# the multilabel kernels
+# ---------------------------------------------------------------------------
+
+# small; ragged against the 32x8 blocks; more labels than the dual step
+# holds in registers (its two-pass path)
+ML_SHAPES = [(3, 64, 48), (5, 250, 190), (9, 40, 36)]
+
+
+def _ml_inputs(seed, L, nx, ny, dev):
+    """u, q (with mass on the dead coordinates, which both versions zero
+    at entry), s, f."""
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(L, nx, ny), 0.3 * rng.randn(2 * L, nx, ny),
+            0.1 * rng.randn(nx, ny), rng.rand(L, nx, ny))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+def _ml_consts(L, nx, ny):
+    n = nx * ny
+    return (float(np.sqrt(2 * n * L + n)), float(np.sqrt(n * L)), 1.5, 0.95,
+            1.05, 0.8)
+
+
+@pytest.mark.parametrize("shape", ML_SHAPES)
+@pytest.mark.parametrize("ri", [1, 10])
+def test_ml_chunk_matches_plain(dev, shape, ri):
+    u, q, s, f = _ml_inputs(11, *shape, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 0.5, 1.0], device=dev)
+    before = fm.launch_counts["ml_chunk"]
+    out = fm.ml_chunk(u, q, s, f, scal, ri)
+    ref = fm.ml_chunk_plain(u, q, s, f, scal, ri)
+    torch.cuda.synchronize()
+    assert fm.launch_counts["ml_chunk"] == before + 1
+    assert all(t.is_cuda for t in out)
+    _close(out, ref, n_planes=6)
+
+
+@pytest.mark.parametrize("shape", ML_SHAPES)
+@pytest.mark.parametrize("stepsize,tol", [
+    ("alg1", 0.0), ("boyd", 5e-3), ("goldstein", 5e-3), ("boyd", 3e-2)])
+def test_ml_multichunk_matches_plain(dev, shape, stepsize, tol):
+    """A solve's start (u = q = s = 0) on random unaries; the 3e-2 boyd
+    case converges within the launch."""
+    L, nx, ny = shape
+    _, _, _, f = _ml_inputs(12, L, nx, ny, dev)
+    u = torch.zeros_like(f)
+    q = torch.zeros(2 * L, nx, ny, device=dev)
+    s = torch.zeros(nx, ny, device=dev)
+    scal = torch.tensor([1.0, 1.0, 1.0, 0.5, 1.0, 0.5, 0.0, 0.0, 1.0,
+                         tol, tol, tol, tol], device=dev)
+    before = fm.launch_counts["ml_multichunk"]
+    out = fm.ml_multichunk(u, q, s, f, scal, 10, 8, stepsize,
+                           _ml_consts(L, nx, ny))
+    ref = fm.ml_multichunk_plain(u, q, s, f, scal, 10, 8, stepsize,
+                                 _ml_consts(L, nx, ny))
+    torch.cuda.synchronize()
+    assert fm.launch_counts["ml_multichunk"] == before + 1
+    for a, b in zip(out[:6], ref[:6]):
+        torch.testing.assert_close(a, b, atol=PLANE_ATOL, rtol=0)
+    torch.testing.assert_close(out[6], ref[6], rtol=1e-3, atol=1e-7)
+    torch.testing.assert_close(out[7], ref[7], rtol=NORM_RTOL, atol=0)
+    # converged flag and executed-chunk count exactly
+    assert out[7][5:].tolist() == ref[7][5:].tolist()
+
+
+def test_ml_converged_at_entry_returns_the_inputs(dev):
+    u, q, s, f = _ml_inputs(13, 3, 40, 36, dev)
+    c = fm.ml_chunk(u, q, s, f, torch.tensor([0.9, 1.1, 1.0, 0.5, 1.0, 1.0],
+                                             device=dev), 5)
+    for a, b in zip(c[:6], (u, q, s, u, q, s)):
+        assert torch.equal(a, b)
+    assert c[6].abs().sum().item() == 0.0
+    scal = torch.tensor([0.9, 1.1, 1.0, 0.5, 1.0, 0.5, 2.0, 3.0, 11.0,
+                         1e-3, 1e-3, 1e-3, 1e-3, 1.0], device=dev)
+    m = fm.ml_multichunk(u, q, s, f, scal, 5, 8, "boyd",
+                         _ml_consts(3, 40, 36))
+    for a, b in zip(m[:6], (u, q, s, u, q, s)):
+        assert torch.equal(a, b)
+    ref = fm.ml_multichunk_plain(u, q, s, f, scal, 5, 8, "boyd",
+                                 _ml_consts(3, 40, 36))
+    assert m[7].tolist() == ref[7].tolist()
+
+
+def test_ml_kernels_refuse_what_they_do_not_take(dev):
+    u, q, s, f = _ml_inputs(14, 3, 32, 32, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 0.5, 1.0], device=dev)
+    with pytest.raises(ptt.ProstError, match="float32"):
+        fm.ml_chunk(u.double(), q, s, f, scal, 3)
+    with pytest.raises(ptt.ProstError, match="one device"):
+        fm.ml_chunk(u, q, s.cpu(), f, scal, 3)
+
+
+def _ml_problem(nx, ny, L, device):
+    n = nx * ny
+    f = np.random.RandomState(4).rand(n * L)
+    u, q, s = ptt.Variable(n * L), ptt.Variable(2 * n * L), ptt.Variable(n)
+    prob = ptt.MinMaxProblem([u], [q, s])
+    prob.add_function(u, ptt.function.sum_1d("ind_geq0", 1, 0, 1, f, 0))
+    prob.add_function(q, ptt.function.sum_norm2(2 * L, False, "ind_leq0",
+                                                2.0, 1, 1))
+    prob.add_function(s, ptt.function.sum_1d("zero", 1, 0, 1, 1, 0))
+    prob.add_dual_pair(u, q, ptt.block.gradient2d(nx, ny, L))
+    prob.add_dual_pair(u, s, ptt.block.sparse_kron_id(np.ones((1, L)), n))
+    return prob.finalize().to(device)
+
+
+@pytest.mark.parametrize("stepsize", ["goldstein", "boyd"])
+def test_fused_ml_backend_on_card_matches_cpu(dev, stepsize):
+    """The whole fused multilabel route on the card (both kernels, the
+    phase plan, convergence inside a multichunk launch) against the same
+    route on the CPU with the plain versions."""
+    t = 1e-3
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=t,
+                              tol_rel_dual=t, tol_abs_primal=t,
+                              tol_abs_dual=t)
+    opts = PDHGOptions(stepsize=stepsize, residual_iter=5,
+                       scale_steps_operator=False)
+    fm.reset_launch_counts()
+    states = []
+    for device in (dev, torch.device("cpu")):
+        b = FusedROFPDHG(_ml_problem(40, 36, 3, device), opts, sopts)
+        assert b.ml is not None
+        s = b.run(b.initial_state(), 57, 0)
+        s = b.run(s, 1500, int(s.iteration))
+        states.append(s)
+    assert fm.launch_counts["ml_chunk"] > 0
+    assert fm.launch_counts["ml_multichunk"] > 0
+    gpu, cpu = states
+    assert bool(gpu.converged) == bool(cpu.converged)
+    assert int(gpu.iteration) == int(cpu.iteration)
     for f in dataclasses.fields(gpu):
         a, b = getattr(gpu, f.name), getattr(cpu, f.name)
         assert a.is_cuda, f.name

@@ -162,7 +162,7 @@ def test_state_round_trip_through_interop():
 
 def test_import_leaves_jax_out():
     code = ("import sys, prost_tpu_torch, prost_tpu_torch.ops, "
-            "prost_tpu_torch.interop; "
+            "prost_tpu_torch.ops.fused_multilabel, prost_tpu_torch.interop; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'prost_tpu' not in sys.modules, 'prost_tpu imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
