@@ -5,7 +5,7 @@
 
 Phases (any failure ends the run with a traceback and a non-zero exit):
 
-1. build the three kernel libraries from prost_tpu_torch/csrc with nvcc
+1. build the five kernel libraries from prost_tpu_torch/csrc with nvcc
    (sm_90a), one nvcc process each, all started together;
 2. check each ROF kernel against its plain PyTorch version on the card, on
    the same inputs: ``rof_chunk`` at 512x512 and 2048x1536 for the square,
@@ -36,10 +36,23 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    iterations at tolerance 1e-5), through the modeling API with the fused
    route, count the multilabel kernels' launches, and hold its energy
    against the generic PDHG path on the same card;
-8. run a few hundred iterations of the fused ROF routes at 2048x2048 and
-   of the fused multilabel route at 512x512x8, where the JAX package bands
-   its kernels: every kernel launches, the state stays on the card and
-   finite.
+8. the same for the deblur kernel: ``deblur_chunk`` (ri = 10) at 512x512
+   with config 2's 9x9 motion blur, at a ragged 250x190 with an asymmetric
+   5x5 blur and at 2048x2048, timed against its plain version at 512x512;
+   and for the tight kernel: ``tight_chunk`` (ri = 10) at 128x128x4, at a
+   ragged 250x190x3 and at 512x512x4, timed at 128x128x4;
+9. solve BASELINE config 2, TV deblurring of data/flowers.png at 512x512
+   blurred by the motion kernel (lmb 100, boyd, residual_iter 10, 2000
+   iterations at tolerance 1e-5), by the fused deblur route and by the
+   generic path, count the kernel's launches and hold the energies
+   together; then the tight multilabel relaxation with 4 labels on
+   data/junction_gray.png at 128x128 (lmb 1) the same way, held together
+   on the energy, the constraint residual and the partition of unity;
+10. run a few hundred iterations of the fused ROF routes at 2048x2048, of
+   the fused multilabel route at 512x512x8, of the deblur route at
+   2048x2048 and of the tight route at 512x512x4, where the JAX package
+   bands its kernels: every kernel launches, the state stays on the card
+   and finite.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before
@@ -93,6 +106,10 @@ MC_NORM_RTOL = 1e-3
 # the JAX package's tests allow between the two backends), and above the
 # PDHG solve's dual energy, which no primal energy can undercut.
 ADMM_VS_PDHG_RTOL = 2e-3
+# The tight solve's constraint residual and partition-of-unity error, fused
+# against generic: small numbers (the relaxation stops short of 1e-5 in
+# 2000 iterations) that the f32 rounding of the two paths moves a little.
+TIGHT_MEASURE_RTOL = 1e-2
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
 # FP32 outside the tensor cores.  A kernel's bound is the larger of its
@@ -124,6 +141,21 @@ ML_NORM_OPS, ML_NORM_PIXEL_OPS = 44, 13
 # Config 3 (bench.py build_multilabel, examples/example_multilabel_fast.py)
 ML_SIZE, ML_LABELS, ML_LMB = 256, 8, 0.5
 ML_LARGE = 512  # the size at which the JAX package bands the ml kernels
+#   Deblur (T taps; n pixels of the image, m2 of the full convolution):
+#   seed: B x (2T - 1) per m2 pixel, grad x 2 per n.  Iteration: primal
+#   step 2T + 5 per n (B^T yv 2T - 1, the masked adjoint 4, step 2); dual
+#   step 2T + 11 per m2 (B x 2T - 1, the data term's conjugate prox 12) and
+#   18 per n (gradient 2, extrapolations 8, ball projection 8).  Residual
+#   norms 14 per m2 and 4T + 40 per n (two K^T y 4T + 6).
+# Config 2 (bench.py build_deblur, examples/example_deblurring.py)
+DB_SIZE, DB_KLEN, DB_LMB, DB_LARGE = 512, 9, 100.0, 2048
+#   Tight (L labels, k pairs, T taps of P^T; per pixel): seed 3L + 2T - 1;
+#   iteration 22L + 22k + 4T + 6 (primal 9 per label; dual: v and p 7 per
+#   pair plane, ball 8 per pair, q 6 per gradient plane, the kron products
+#   2 per tap each way, s 7 and the label sum); residual norms 44L + 46k
+#   + 4T + 13.
+# bench.py build_tight (tight128x4)
+TIGHT_SIZE, TIGHT_LABELS, TIGHT_LMB, TIGHT_LARGE = 128, 4, 1.0, 512
 
 
 def admm_iter_ops(degree):
@@ -164,10 +196,11 @@ def test_image(nx, ny, seed=42):
 
 @functools.lru_cache(maxsize=None)
 def read_png_rgb(path):
-    """An 8-bit RGB, non-interlaced PNG as an (h, w, 3) uint8 array,
-    decoded once with zlib and numpy: the card's machine has no image
-    library.  Undoes the five PNG row filters (none, sub, up, average,
-    Paeth).  The array is shared between calls: read it, do not write."""
+    """An 8-bit RGB (colour type 2) or grayscale (colour type 0),
+    non-interlaced PNG as an (h, w, c) uint8 array, c = 3 or 1, decoded
+    once with zlib and numpy: the card's machine has no image library.
+    Undoes the five PNG row filters (none, sub, up, average, Paeth).  The
+    array is shared between calls: read it, do not write."""
     import struct
     import zlib
 
@@ -186,9 +219,10 @@ def read_png_rgb(path):
             break
         pos += 12 + length
     w, h, depth, color, _, _, interlace = hdr
-    check((depth, color, interlace) == (8, 2, 0),
-          f"{path}: only 8-bit RGB non-interlaced PNGs are read")
-    bpp, stride = 3, 3 * w
+    check(depth == 8 and color in (0, 2) and interlace == 0,
+          f"{path}: only 8-bit RGB or gray non-interlaced PNGs are read")
+    bpp = 3 if color == 2 else 1
+    stride = bpp * w
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     raw = raw.reshape(h, stride + 1)
     out = np.empty((h, stride), np.uint8)
@@ -214,12 +248,12 @@ def read_png_rgb(path):
             cur[i] = (line[i] + pred) & 255
         out[r] = cur
         prev = cur
-    return out.reshape(h, w, 3)
+    return out.reshape(h, w, bpp)
 
 
-def cow_gray(ny, nx):
-    """data/cow.png as gray levels in [0, 1], the mean of its channels,
-    resized to (ny, nx) by bilinear interpolation with antialiasing.
+def fixture_gray(name, rows, cols):
+    """data/<name>.png as gray levels in [0, 1], the mean of its channels,
+    resized to (rows, cols) by bilinear interpolation with antialiasing.
     Not bit-equal to bench.py's PIL conversion and resize; the same image
     to a few gray levels."""
     import os
@@ -227,13 +261,18 @@ def cow_gray(ny, nx):
     import torch
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                        "cow.png")
+                        f"{name}.png")
     gray = read_png_rgb(path).astype(np.float64).mean(axis=-1) / 255.0
     t = torch.from_numpy(gray)[None, None]
-    t = torch.nn.functional.interpolate(t, size=(ny, nx),
+    t = torch.nn.functional.interpolate(t, size=(rows, cols),
                                         mode="bilinear", antialias=True,
                                         align_corners=False)
     return t[0, 0].numpy()
+
+
+def cow_gray(ny, nx):
+    """data/cow.png's gray levels at (ny, nx) (config 3's image)."""
+    return fixture_gray("cow", ny, nx)
 
 
 def ml_unaries(gray, L):
@@ -275,6 +314,142 @@ def ml_energy(u, f, lmb, L, nx, ny):
     gy[:, :, :-1] = u[:, :, 1:] - u[:, :, :-1]
     tv = np.sum(np.sqrt(np.sum(gx ** 2 + gy ** 2, axis=0)))
     return float(u.reshape(-1) @ f.astype(np.float64) + lmb * tv)
+
+
+def deblur_chunk_ops(n, m2, T, ri):
+    """FP32 operations of one deblur chunk of ``ri`` iterations."""
+    return (m2 * (2 * T - 1) + 2 * n + ri * (n * (2 * T + 23)
+                                             + m2 * (2 * T + 11))
+            + 14 * m2 + n * (4 * T + 40))
+
+
+def tight_chunk_ops(n, L, k, T, ri):
+    """FP32 operations of one tight chunk of ``ri`` iterations."""
+    return n * (3 * L + 2 * T - 1 + ri * (22 * L + 22 * k + 4 * T + 6)
+                + 44 * L + 46 * k + 4 * T + 13)
+
+
+def motion_kernel(klen=DB_KLEN):
+    """bench.py's 45-degree motion blur, (ky, kx): 7 nonzero taps at 9x9."""
+    kern = np.zeros((klen, klen))
+    c = (klen - 1) / 2
+    t = np.deg2rad(45.0)
+    for i in np.linspace(-c, c, 4 * klen):
+        kern[int(round(c + i * np.sin(t))), int(round(c + i * np.cos(t)))] = 1
+    return kern / kern.sum()
+
+
+def asym_kernel(k=5):
+    """tests/test_fused_deblur.py's 5x5 blur: a diagonal and one corner."""
+    ker = np.zeros((k, k))
+    for i in range(k):
+        ker[i, i] = 1.0
+    ker[0, k - 1] = 0.5
+    return ker / ker.sum()
+
+
+def deblur_data(nx, ny, seed=42):
+    """Config 2's observation as bench.py makes it: data/flowers.png's gray
+    levels at (nx, ny), fully convolved with the motion blur, plus 0.01
+    randn from RandomState(seed); flat."""
+    from scipy.signal import convolve2d
+
+    kern = motion_kernel()
+    rng = np.random.RandomState(seed)
+    clean = fixture_gray("flowers", nx, ny)
+    return (convolve2d(clean, kern, mode="full")
+            + 0.01 * rng.randn(nx + DB_KLEN - 1, ny + DB_KLEN - 1)
+            ).reshape(-1)
+
+
+def deblur_model(nx, ny, fb, lmb=DB_LMB):
+    """TV deblurring in the constrained form of bench.py's config 2:
+    min lmb/2 |v - fb|^2 + |g|_{2,1} s.t. v = B u, g = grad u."""
+    import prost_tpu_torch as ptt
+
+    kern = motion_kernel()
+    n = nx * ny
+    u = ptt.Variable(n)
+    v = ptt.Variable(fb.size)
+    g = ptt.Variable(2 * n)
+    prob = ptt.MinProblem([u], [v, g])
+    prob.add_function(v, ptt.function.sum_1d("square", 1, fb, lmb))
+    prob.add_function(g, ptt.function.sum_norm2(2, False, "abs"))
+    prob.add_constraint(u, v, ptt.block.conv2d(nx, ny, 1, kern))
+    prob.add_constraint(u, g, ptt.block.gradient2d(nx, ny, 1))
+    return prob
+
+
+def deblur_energy(u, fb, lmb, nx, ny):
+    """lmb/2 |B u - fb|^2 + TV(u) in float64."""
+    from scipy.signal import convolve2d
+
+    u = u.reshape(nx, ny).astype(np.float64)
+    bu = convolve2d(u, motion_kernel().T, mode="full").reshape(-1)
+    gx = np.zeros_like(u)
+    gy = np.zeros_like(u)
+    gx[:-1] = u[1:] - u[:-1]
+    gy[:, :-1] = u[:, 1:] - u[:, :-1]
+    return 0.5 * lmb * np.sum((bu - fb) ** 2) + np.sum(
+        np.sqrt(gx ** 2 + gy ** 2))
+
+
+def pair_matrix(L):
+    """P of examples/example_multilabel_tight.py, (2k, 2L)."""
+    k = L * (L - 1) // 2
+    P = np.zeros((2 * k, 2 * L))
+    idx = 0
+    for i in range(L):
+        for j in range(i + 1, L):
+            P[idx, i], P[idx, j] = 1.0, -1.0
+            P[idx + k, i + L], P[idx + k, j + L] = 1.0, -1.0
+            idx += 1
+    return P
+
+
+def tight_unaries(nx, ny, L):
+    """bench.py build_tight's unaries: (junction_gray - m)^2 against L
+    evenly spaced gray levels, the image at (nx, ny), label outermost."""
+    gray = fixture_gray("junction_gray", nx, ny)
+    return np.stack([(gray - m) ** 2 for m in np.linspace(0, 1, L)],
+                    axis=0).reshape(-1).astype(np.float32)
+
+
+def tight_model(nx, ny, L, f, lmb=TIGHT_LMB):
+    """The tight multilabel relaxation of bench.py build_tight."""
+    import prost_tpu_torch as ptt
+
+    n, k = nx * ny, L * (L - 1) // 2
+    u, v = ptt.Variable(n * L), ptt.Variable(2 * n * k)
+    q, p, s = ptt.Variable(2 * n * L), ptt.Variable(2 * n * k), ptt.Variable(n)
+    prob = ptt.MinMaxProblem([u, v], [q, p, s])
+    prob.add_function(u, ptt.function.sum_1d("ind_geq0", 1, 0, 1, f, 0))
+    prob.add_function(p, ptt.function.sum_norm2(2, False, "ind_leq0",
+                                                1 / lmb, 1, 1))
+    prob.add_function(s, ptt.function.sum_1d("zero", 1, 0, 1, 1, 0))
+    prob.add_dual_pair(u, q, ptt.block.gradient2d(nx, ny, L))
+    prob.add_dual_pair(u, s, ptt.block.sparse_kron_id(np.ones((1, L)), n))
+    prob.add_dual_pair(v, p, ptt.block.identity())
+    prob.add_dual_pair(v, q, ptt.block.sparse_kron_id(pair_matrix(L).T, n))
+    return prob
+
+
+def tight_measures(x, f, lmb, L, nx, ny):
+    """(<u, f> + lmb sum |v_pair|, |grad u + kron(P^T, I) v|, max |sum_l
+    u_l - 1|) in float64."""
+    n, k = nx * ny, L * (L - 1) // 2
+    x = x.astype(np.float64)
+    u, v = x[:n * L].reshape(L, nx, ny), x[n * L:].reshape(2 * k, n)
+    gx = np.zeros_like(u)
+    gy = np.zeros_like(u)
+    gx[:, :-1] = u[:, 1:] - u[:, :-1]
+    gy[:, :, :-1] = u[:, :, 1:] - u[:, :, :-1]
+    r = np.concatenate([gx.reshape(L, n), gy.reshape(L, n)])
+    r += pair_matrix(L).T @ v
+    energy = float(u.reshape(-1) @ f.astype(np.float64) + lmb * np.sum(
+        np.sqrt(v[:k] ** 2 + v[k:] ** 2)))
+    return (energy, float(np.sqrt(np.sum(r ** 2))),
+            float(np.max(np.abs(u.reshape(L, n).sum(axis=0) - 1.0))))
 
 
 def kernel_inputs(nx, ny, seed, dev):
@@ -330,7 +505,8 @@ def phase_build():
 
     from prost_tpu_torch.ops import cuda_build
 
-    names = ("fused_rof", "fused_admm", "fused_multilabel")
+    names = ("fused_rof", "fused_admm", "fused_multilabel", "fused_deblur",
+             "fused_tight")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(cuda_build.load, names)))
@@ -916,14 +1092,227 @@ def phase_ml_solve(card):
     return launches
 
 
+def scaled_errs(out, ref, n_planes):
+    """Largest abs error over the planes relative to max(1, |plane|max),
+    and largest norm error relative to max(|norm|, the largest norm): the
+    deblur route's dual variable norm is zero in exact arithmetic (its
+    prox_g is zero), so only a floor at the other norms' scale can hold
+    its rounding noise."""
+    import torch
+
+    plane = max(float(torch.max(torch.abs(a - b)))
+                / max(1.0, float(torch.max(torch.abs(b))))
+                for a, b in zip(out[:n_planes], ref[:n_planes]))
+    d = torch.abs(out[n_planes].double() - ref[n_planes].double())
+    ref_abs = torch.abs(ref[n_planes].double())
+    rel = float(torch.max(d / torch.clamp(ref_abs, min=float(ref_abs.max()))))
+    return plane, rel
+
+
+def phase_deblur_kernels(dev):
+    import torch
+
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    row = {"err": 0.0}
+    ri = 10
+    cases = ((DB_SIZE, DB_SIZE, motion_kernel()),
+             (250, 190, asym_kernel()),
+             (DB_LARGE, DB_LARGE, motion_kernel()))
+    for seed, (nx, ny, kern) in enumerate(cases):
+        taps = fd.kernel_taps(torch.as_tensor(kern.T, dtype=torch.float32))
+        nx2, ny2 = nx + kern.shape[1] - 1, ny + kern.shape[0] - 1
+        rng = np.random.RandomState(300 + seed)
+        arrs = (rng.rand(nx, ny), rng.randn(nx2, ny2),
+                0.3 * rng.randn(2, nx, ny), rng.rand(nx2, ny2),
+                0.5 + rng.rand(nx2, ny2))
+        x, yv, q, fb, sv = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                            for a in arrs]
+        scal = torch.tensor([0.9, 1.1, 1.0, DB_LMB, 1.0], device=dev)
+        args = (x, yv, q, fb, sv, scal, ri, taps, 0.5, 0.2)
+        out = fd.deblur_chunk(*args)
+        ref = fd.deblur_chunk_plain(*args)
+        torch.cuda.synchronize()
+        plane, rel = scaled_errs(out, ref, 6)
+        shape = f"{nx}x{ny} ({len(taps)} taps)"
+        print(f"deblur_chunk {shape}: max abs err planes / max(1, |plane|) "
+              f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms "
+              f"{rel:.3e} (tol {NORM_RTOL:g}, floor at the largest)")
+        check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
+              f"deblur_chunk {shape} disagrees with its plain version")
+        check(all(bool(torch.isfinite(t).all()) for t in out),
+              "deblur_chunk produced non-finite values")
+        row["err"] = max(row["err"], plane)
+        if nx == DB_SIZE:
+            row["ms"] = time_ms(lambda: fd.deblur_chunk(*args), 50)
+            row["plain_ms"] = time_ms(lambda: fd.deblur_chunk_plain(*args),
+                                      10)
+            n, m2, T = nx * ny, nx2 * ny2, len(taps)
+            # x, yv, q, fb, sv, taps in; new and previous x, yv, q out
+            row["bound"] = bound((9 * n + 5 * m2 + 3 * T) * 4,
+                                 deblur_chunk_ops(n, m2, T, ri))
+    print(f"deblur_chunk {DB_SIZE}x{DB_SIZE}: kernel {row['ms']:.4f} ms/call, "
+          f"plain {row['plain_ms']:.4f} ms/call, bound "
+          f"{row['bound'][0]:.5f} ms ({row['bound'][1]})")
+    return {"deblur_chunk": row}
+
+
+def phase_tight_kernels(dev):
+    import torch
+
+    from prost_tpu_torch.ops import fused_tight as ft
+
+    row = {"err": 0.0}
+    ri = 10
+    for seed, (L, nx, ny) in enumerate(((TIGHT_LABELS, TIGHT_SIZE,
+                                         TIGHT_SIZE), (3, 250, 190),
+                                        (TIGHT_LABELS, TIGHT_LARGE,
+                                         TIGHT_LARGE))):
+        k = L * (L - 1) // 2
+        pt_ = pair_matrix(L).T
+        taps = tuple((r, m, float(pt_[r, m])) for r in range(2 * L)
+                     for m in range(2 * k) if pt_[r, m] != 0.0)
+        consts = tuple(float(np.float32(c))
+                       for c in (1 / (L + 1), 1.0, 1 / L, 0.2, 1 / 3))
+        rng = np.random.RandomState(400 + seed)
+        arrs = (rng.rand(L, nx, ny), 0.1 * rng.randn(2 * k, nx, ny),
+                0.2 * rng.randn(2 * L, nx, ny), 0.1 * rng.randn(2 * k, nx, ny),
+                0.1 * rng.randn(nx, ny), rng.rand(L, nx, ny))
+        state = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                 for a in arrs]
+        scal = torch.tensor([0.9, 1.1, 1.0, TIGHT_LMB, 1.0], device=dev)
+        args = (*state, scal, ri, taps, consts)
+        out = ft.tight_chunk(*args)
+        ref = ft.tight_chunk_plain(*args)
+        torch.cuda.synchronize()
+        plane, rel = scaled_errs(out, ref, 10)
+        shape = f"{nx}x{ny}x{L}"
+        print(f"tight_chunk {shape}: max abs err planes / max(1, |plane|) "
+              f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms "
+              f"{rel:.3e} (tol {NORM_RTOL:g}, floor at the largest)")
+        check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
+              f"tight_chunk {shape} disagrees with its plain version")
+        check(all(bool(torch.isfinite(t).all()) for t in out),
+              "tight_chunk produced non-finite values")
+        row["err"] = max(row["err"], plane)
+        if nx == TIGHT_SIZE:
+            row["ms"] = time_ms(lambda: ft.tight_chunk(*args), 50)
+            row["plain_ms"] = time_ms(lambda: ft.tight_chunk_plain(*args),
+                                      10)
+            n, T = nx * ny, len(taps)
+            # u, v, q, p, s, f, taps in; new and previous state out
+            row["bound"] = bound(((10 * L + 12 * k + 3) * n + 4 * T
+                                  + 2 * L + 2 * k + 2) * 4,
+                                 tight_chunk_ops(n, L, k, T, ri))
+    print(f"tight_chunk {TIGHT_SIZE}x{TIGHT_SIZE}x{TIGHT_LABELS}: kernel "
+          f"{row['ms']:.4f} ms/call, plain {row['plain_ms']:.4f} ms/call, "
+          f"bound {row['bound'][0]:.5f} ms ({row['bound'][1]})")
+    return {"tight_chunk": row}
+
+
+def phase_deblur_solve(card):
+    """BASELINE config 2 at 512x512 (flowers, motion blur, lmb 100), fused
+    and generic."""
+    from prost_tpu_torch.backend import BackendPDHG, PDHGOptions
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    nx = ny = DB_SIZE
+    fb = deblur_data(nx, ny)
+
+    def run(generic, max_iters):
+        backend = recording("pdhg", PDHGOptions(stepsize="boyd",
+                                                residual_iter=10),
+                            BackendPDHG if generic else None)
+        return run_model(backend, deblur_model(nx, ny, fb), nx * ny,
+                         max_iters)
+
+    run(False, 200)  # warm-up of both routes
+    run(True, 20)
+
+    fd.reset_launch_counts()
+    res, backend, dt = run(False, 2000)
+    launches = dict(fd.launch_counts)
+    check(backend.made.deblur is not None, "the fused deblur route was not "
+          "taken")
+    check(all(v > 0 for v in launches.values()),
+          f"the deblur kernel was not launched: {launches}")
+    e_fused = deblur_energy(res.x, fb, DB_LMB, nx, ny)
+    print(f"fused deblur solve {nx}x{ny}: {rates(res, backend, dt)}; energy "
+          f"{e_fused:.8f}, launches {launches} [{card}]")
+
+    gres, gbackend, gdt = run(True, 2000)
+    e_gen = deblur_energy(gres.x, fb, DB_LMB, nx, ny)
+    rel = abs(e_fused - e_gen) / abs(e_gen)
+    print(f"generic deblur solve {nx}x{ny}: {rates(gres, gbackend, gdt)}; "
+          f"energy {e_gen:.8f} [{card}]")
+    print(f"energy fused vs generic deblur: rel diff {rel:.3e} "
+          f"(tol {ENERGY_RTOL:g})")
+    check(rel <= ENERGY_RTOL, "fused and generic deblur energies disagree")
+    return launches
+
+
+def phase_tight_solve(card):
+    """tight128x4 (junction_gray, 4 labels, lmb 1), fused and generic."""
+    from prost_tpu_torch.backend import BackendPDHG, PDHGOptions
+    from prost_tpu_torch.ops import fused_tight as ft
+
+    nx = ny = TIGHT_SIZE
+    L = TIGHT_LABELS
+    k = L * (L - 1) // 2
+    f = tight_unaries(nx, ny, L)
+
+    def run(generic, max_iters):
+        backend = recording("pdhg", PDHGOptions(stepsize="boyd",
+                                                residual_iter=10),
+                            BackendPDHG if generic else None)
+        return run_model(backend, tight_model(nx, ny, L, f),
+                         nx * ny * (L + 2 * k), max_iters)
+
+    run(False, 200)  # warm-up of both routes
+    run(True, 20)
+
+    ft.reset_launch_counts()
+    res, backend, dt = run(False, 2000)
+    launches = dict(ft.launch_counts)
+    check(backend.made.tight is not None, "the fused tight route was not "
+          "taken")
+    check(all(v > 0 for v in launches.values()),
+          f"the tight kernel was not launched: {launches}")
+    fused = tight_measures(res.x, f, TIGHT_LMB, L, nx, ny)
+    print(f"fused tight solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; "
+          f"energy {fused[0]:.8f}, |grad u + kron(P^T, I) v| "
+          f"{fused[1]:.6e}, max |sum_l u_l - 1| {fused[2]:.6e}, launches "
+          f"{launches} [{card}]")
+
+    gres, gbackend, gdt = run(True, 2000)
+    gen = tight_measures(gres.x, f, TIGHT_LMB, L, nx, ny)
+    print(f"generic tight solve {nx}x{ny}x{L}: {rates(gres, gbackend, gdt)};"
+          f" energy {gen[0]:.8f}, |grad u + kron(P^T, I) v| {gen[1]:.6e}, "
+          f"max |sum_l u_l - 1| {gen[2]:.6e} [{card}]")
+    rel = abs(fused[0] - gen[0]) / abs(gen[0])
+    print(f"energy fused vs generic tight: rel diff {rel:.3e} "
+          f"(tol {ENERGY_RTOL:g}); constraint residual and unity error "
+          f"within {TIGHT_MEASURE_RTOL:g} relative of the generic path's")
+    check(rel <= ENERGY_RTOL, "fused and generic tight energies disagree")
+    for a, b, what in ((fused[1], gen[1], "constraint residuals"),
+                       (fused[2], gen[2], "unity errors")):
+        check(abs(a - b) <= TIGHT_MEASURE_RTOL * b,
+              f"fused and generic tight {what} disagree")
+    return launches
+
+
 def phase_large(card):
-    """Both fused ROF routes at 2048x2048 and the fused multilabel route
-    at 512x512x8 (the JAX package's banded sizes): 300 iterations in two
-    callback epochs, so the second epoch reaches the multichunk phase."""
+    """Both fused ROF routes at 2048x2048, the fused multilabel route at
+    512x512x8, the deblur route at 2048x2048 and the tight route at
+    512x512x4 (the JAX package's banded sizes): 300 iterations in two
+    callback epochs, so the second epoch reaches the multichunk phase of
+    the routes that have one."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
     from prost_tpu_torch.ops import fused_admm as fa
+    from prost_tpu_torch.ops import fused_deblur as fd
     from prost_tpu_torch.ops import fused_multilabel as fm
     from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops import fused_tight as ft
 
     nx = ny = 2048
     lmb = 16.0
@@ -957,6 +1346,37 @@ def phase_large(card):
     print(f"fused multilabel solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; "
           f"energy {e:.6f}, launches {launches} [{card}]")
 
+    nx = ny = DB_LARGE
+    fb = deblur_data(nx, ny)
+    fd.reset_launch_counts()
+    res, backend, dt = run_model(
+        recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
+        deblur_model(nx, ny, fb), nx * ny, 300, num_cback_calls=2)
+    launches = dict(fd.launch_counts)
+    check(backend.made.deblur is not None
+          and all(v > 0 for v in launches.values()),
+          f"the deblur kernel was not launched at {nx}x{ny}: {launches}")
+    e = deblur_energy(res.x, fb, DB_LMB, nx, ny)
+    print(f"fused deblur solve {nx}x{ny}: {rates(res, backend, dt)}; energy "
+          f"{e:.6f}, launches {launches} [{card}]")
+
+    nx = ny = TIGHT_LARGE
+    L = TIGHT_LABELS
+    k = L * (L - 1) // 2
+    f = tight_unaries(nx, ny, L)
+    ft.reset_launch_counts()
+    res, backend, dt = run_model(
+        recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
+        tight_model(nx, ny, L, f), nx * ny * (L + 2 * k), 300,
+        num_cback_calls=2)
+    launches = dict(ft.launch_counts)
+    check(backend.made.tight is not None
+          and all(v > 0 for v in launches.values()),
+          f"the tight kernel was not launched at {nx}x{ny}x{L}: {launches}")
+    e = tight_measures(res.x, f, TIGHT_LMB, L, nx, ny)[0]
+    print(f"fused tight solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; "
+          f"energy {e:.6f}, launches {launches} [{card}]")
+
 
 def main() -> int:
     import torch
@@ -979,10 +1399,14 @@ def main() -> int:
     rows = phase_kernels(dev)
     rows.update(phase_admm_kernels(dev))
     rows.update(phase_ml_kernels(dev))
+    rows.update(phase_deblur_kernels(dev))
+    rows.update(phase_tight_kernels(dev))
     torch.cuda.synchronize()
     launches, e_pdhg, d_pdhg = phase_solve(card)
     launches.update(phase_admm_solve(card, e_pdhg, d_pdhg))
     launches.update(phase_ml_solve(card))
+    launches.update(phase_deblur_solve(card))
+    launches.update(phase_tight_solve(card))
     phase_large(card)
     check("jax" not in sys.modules, "jax was imported")
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
@@ -996,6 +1420,8 @@ def main() -> int:
                      "prost_tpu/ops/fused_multilabel.py:236"),
         "ml_multichunk": ("fused_multilabel",
                           "prost_tpu/ops/fused_multilabel.py:322"),
+        "deblur_chunk": ("fused_deblur", "prost_tpu/ops/fused_deblur.py:294"),
+        "tight_chunk": ("fused_tight", "prost_tpu/ops/fused_tight.py:172"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

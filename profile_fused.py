@@ -5,11 +5,13 @@
 
 Solves chip_smoke.py's ROF model at 512x512 (its procedural image, lmb 16)
 through the fused routes of ``backend_admm`` (Chebyshev projection) and
-``backend_pdhg`` (boyd), and its fast multilabel model (BASELINE config 3:
-8 labels on data/cow.png at 256x256, lmb 0.5) through the fused multilabel
-route of ``backend_pdhg`` (boyd); each with residual_iter 10, 2000
-iterations in 10 callback epochs at tolerance 1e-5, after a warm-up solve,
-three times:
+``backend_pdhg`` (boyd), and through the fused routes of ``backend_pdhg``
+(boyd) its fast multilabel model (BASELINE config 3: 8 labels on
+data/cow.png at 256x256, lmb 0.5), its deblurring model (BASELINE config 2:
+data/flowers.png at 512x512 under the 9x9 motion blur, lmb 100) and its
+tight multilabel model (4 labels on data/junction_gray.png at 128x128,
+lmb 1); each with residual_iter 10, 2000 iterations in 10 callback epochs
+at tolerance 1e-5, after a warm-up solve, three times:
 
 1. as a user runs it: the iterating time (host time inside the backend's
    ``run`` calls, each ending with a device sync) and, for each phase of
@@ -35,14 +37,20 @@ import re
 import sys
 import time
 
-from chip_smoke import (ML_LABELS, ML_LMB, ML_SIZE, card_line, check,
-                        cow_gray, ml_model, ml_unaries, recording, run_model,
-                        test_image, timed_solve)
+from chip_smoke import (DB_SIZE, ML_LABELS, ML_LMB, ML_SIZE, TIGHT_LABELS,
+                        TIGHT_SIZE, card_line, check, cow_gray, deblur_data,
+                        deblur_model, ml_model, ml_unaries, recording,
+                        run_model, test_image, tight_model, tight_unaries,
+                        timed_solve)
 
 PHASES = ("generic", "canonicalize", "multichunk", "chunk", "epilogue")
 LMB = 16.0
 SIZE, ITERS = 512, 2000
-ROUTES = ("admm", "pdhg", "ml")
+ROUTES = ("admm", "pdhg", "ml", "deblur", "tight")
+# the backend attribute that holds each route's match
+TAKEN = {"admm": "rof", "pdhg": "rof", "ml": "ml", "deblur": "deblur",
+         "tight": "tight"}
+TIGHT_PAIRS = TIGHT_LABELS * (TIGHT_LABELS - 1) // 2
 
 
 def csrc_kernel_names():
@@ -93,7 +101,26 @@ def instrumented(mod, stats, sync):
 
 
 def route_size(route):
-    return ML_SIZE if route == "ml" else SIZE
+    return {"ml": ML_SIZE, "deblur": DB_SIZE, "tight": TIGHT_SIZE}.get(
+        route, SIZE)
+
+
+def route_label(route):
+    size = route_size(route)
+    labels = {"ml": ML_LABELS, "tight": TIGHT_LABELS}
+    return f"{size}x{size}" + (f"x{labels[route]}" if route in labels
+                               else "")
+
+
+def route_data(route):
+    size = route_size(route)
+    if route == "ml":
+        return ml_unaries(cow_gray(size, size), ML_LABELS)
+    if route == "deblur":
+        return deblur_data(size, size)
+    if route == "tight":
+        return tight_unaries(size, size, TIGHT_LABELS)
+    return test_image(size, size).reshape(-1)
 
 
 def solve(route, iters, f):
@@ -101,20 +128,25 @@ def solve(route, iters, f):
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
 
     size = route_size(route)
+    n = size * size
     if route == "admm":
         backend = recording("admm", ADMMOptions(residual_iter=10))
     else:
         backend = recording("pdhg", PDHGOptions(stepsize="boyd",
                                                 residual_iter=10))
-    if route == "ml":
-        res, backend, wall = run_model(
-            backend, ml_model(size, size, ML_LABELS, f, ML_LMB),
-            size * size * ML_LABELS, iters)
-        taken = backend.made.ml
-    else:
+    if route in ("admm", "pdhg"):
         res, backend, wall = timed_solve(backend, size, size, f, LMB, iters)
-        taken = backend.made.rof
-    check(taken is not None, f"the fused {route} route was not taken")
+    else:
+        prob, ncols = {
+            "ml": lambda: (ml_model(size, size, ML_LABELS, f, ML_LMB),
+                           n * ML_LABELS),
+            "deblur": lambda: (deblur_model(size, size, f), n),
+            "tight": lambda: (tight_model(size, size, TIGHT_LABELS, f),
+                              n * (TIGHT_LABELS + 2 * TIGHT_PAIRS)),
+        }[route]()
+        res, backend, wall = run_model(backend, prob, ncols, iters)
+    check(getattr(backend.made, TAKEN[route]) is not None,
+          f"the fused {route} route was not taken")
     return res, backend, wall
 
 
@@ -168,24 +200,24 @@ def main() -> int:
         print("profile_fused: no CUDA device", file=sys.stderr)
         return 2
     import prost_tpu_torch as ptt
-    from prost_tpu_torch.ops import fused_admm, fused_multilabel, fused_rof
+    from prost_tpu_torch.ops import fused_admm, pdhg_chunk
 
     ptt.set_device("cuda:0")
     card = card_line()
     ours = csrc_kernel_names()
-    mods = {"admm": fused_admm, "pdhg": fused_rof, "ml": fused_multilabel}
+    # the module whose run_phases each route calls
+    mods = {route: pdhg_chunk for route in ROUTES}
+    mods["admm"] = fused_admm
     out = {}
     for route in ROUTES:
-        size = route_size(route)
-        f = (ml_unaries(cow_gray(size, size), ML_LABELS) if route == "ml"
-             else test_image(size, size).reshape(-1))
+        f = route_data(route)
         solve(route, 200, f)  # warm-up: build, first launches
         res, backend, wall, enqueue = phase_table(mods[route], route, f,
                                                   sync=False)
         _, sbackend, _, synced = phase_table(mods[route], route, f,
                                              sync=True)
         trace = traced(route, f, ours)
-        label = f"{size}x{size}" + (f"x{ML_LABELS}" if route == "ml" else "")
+        label = route_label(route)
         out[route] = {
             "size": label, "iterations": res.iterations,
             "solve_s": wall, "iterating_s": backend.loop_s,

@@ -3,10 +3,11 @@
 Counterpart of ``prost_tpu/config.py``.  The solver state and operators use
 one floating dtype (float32 by default; float64 for parity checks) and one
 ``torch.device``.  The device is chosen here, explicitly: ``set_device``
-names it, and until then ``device()`` is the first CUDA card when one is
-present and the CPU otherwise (JAX's default-backend rule).  Nothing in the
-package falls back from a device it was given: a CUDA tensor is computed
-on the card or the call raises.
+names it, and until then ``device()`` is the first CUDA card.  Without a
+card and without ``set_device`` it raises: the CPU is taken only when it is
+asked for (``set_device("cpu")``).  Nothing in the package falls back from
+a device it was given: a CUDA tensor is computed on the card or the call
+raises.
 """
 
 from __future__ import annotations
@@ -58,9 +59,11 @@ def set_device(dev) -> None:
 
 
 def device() -> torch.device:
-    """The device chosen by ``set_device``; by default the first CUDA card
-    when one is present, else the CPU."""
+    """The device chosen by ``set_device``; by default the first CUDA card.
+    Raises ``ProstError`` when there is no card and none was chosen."""
     if _DEVICE is None:
-        return (torch.device("cuda", 0) if torch.cuda.is_available()
-                else torch.device("cpu"))
+        if not torch.cuda.is_available():
+            raise ProstError('No CUDA card: call set_device("cpu") to run '
+                             "on the CPU.")
+        return torch.device("cuda", 0)
     return _DEVICE

@@ -1,0 +1,399 @@
+// Fused tight-multilabel PDHG chunk kernel for NVIDIA Hopper (sm_90a).
+//
+// Replaces the Pallas kernel on the tight-relaxation path of the JAX
+// package:
+//   prost_tpu/ops/fused_tight.py  tight_fused_chunk -> _tight_chunk_kernel
+// (whole-plane mode) whose math is _chunk_core and _kron_ops in the same
+// file and the masked _shift_ops_3d of fused_multilabel.py.  It also serves
+// the JAX package's banded variant (tight_fused_chunk_banded), which exists
+// only because a TPU core's VMEM cannot hold the planes of large images:
+// here the planes stay in device memory at every size.  The plain PyTorch
+// version lives beside its wrapper in prost_tpu_torch/ops/fused_tight.py.
+//
+// Workload: the tight multilabel relaxation, primal [u (L label planes);
+// v (2k pair planes)], dual [q (2L gradient planes, free); p (2k planes,
+// per-pixel dim-2 ball pairing plane m with m + k); s (one plane)], and
+// K = [grad, kron(P^T, I); 0, I; kron(1^T, I), 0] with T <= 512 nonzeros
+// ("taps") of the (2L, 2k) matrix P^T.
+//
+// Layout (the JAX package's): u, f (L, nx, ny); v, p (2k, nx, ny); q and
+// the carried kxq = grad u + kron(P^T, I) v (2L, nx, ny); s and the
+// carried su = sum_l u (nx, ny); row-major f32 planes.  The taps come in
+// one small device array (ops/fused_tight.py kron_array): by output row
+// [row_ptr; col; w] and by output column [col_ptr; row; w], each run in the
+// order of the plain version's left-to-right folds.
+//
+// What bounds it on this card.  An iteration streams about 15L + 13k + 5
+// planes (primal: u, 2L q, s, f in, u out; dual: u, v, q, p, kxq, s, su in,
+// v, q, p, kxq, s, su out), 131 at L = 4 (k = 6): 8.6 MB at 128x128, 137 MB
+// at 512x512, against about 24L + 24k + 4T operations a pixel, so it is
+// bound by memory traffic, and at 128x128 by launch latency: a chunk of ri
+// iterations is 2*ri + 3 launches.
+//
+// Design.  One thread per pixel, 32x8 blocks (pdhg_chunk.cuh); each thread
+// loops over its pixel's labels, pairs and taps, since the kron coupling,
+// the pair ball and the label sum are all per pixel.  Every kernel updates
+// its planes in place and reads neighbours only from a plane it does not
+// write: the primal step writes u and reads q's neighbours; the dual step
+// reads u's neighbours and updates v, p, q, s and the carried kxq and su at
+// its own pixel (v there, not in the primal step, because the dual step
+// needs v before and after its update).  The dual step writes the new v
+// and the unscaled p first and reads them back from its own pixel for the
+// kron product and the ball scaling, so it serves any (L, k) the matcher
+// takes.  No dual coordinate is canonicalized: the gradient adjoint is the
+// masked one, as in the JAX kernel.  The scalars live in the device buffer
+// `sc` (pdhg_chunk.cuh), and every kernel returns at once once sc[S_CONV]
+// is set.
+//
+// Rounding.  Built with -fmad=false; the five preconditioner constants and
+// their square roots are rounded once from double by the wrapper, as the
+// plain version rounds its Python constants; kron products fold left to
+// right in the plain version's order.  The differences to the plain version
+// are rsqrtf in the ball projection, the order of the label sums (left to
+// right here) and of the norm sums.  A zero pair vector keeps scale 1, where
+// the JAX form gives NaN for radius 0.
+//
+// Interface: plain C, loaded with ctypes; pointers and the stream arrive
+// as void*, and the entry point returns the cudaError_t of its launches.
+
+#include "pdhg_chunk.cuh"
+
+namespace {
+
+// the family's two scalars in the buffer's slots 3 and 4
+enum { S_BALL = S_ARG3, S_DS = S_ARG4 };  // pair-ball radius, s shift
+
+struct Consts {
+  float sig_q, sig_p, sig_s, tau_u, tau_v;  // preconditioner segments
+  float sqrt_q, sqrt_p, sqrt_s, sqrt_u, sqrt_v;  // their square roots
+};
+
+struct TK {
+  float* u;    // (L, nx, ny) labels, updated in place
+  float* v;    // (2k, nx, ny) pair multipliers, updated in place
+  float* q;    // (2L, nx, ny) gradient duals, updated in place
+  float* p;    // (2k, nx, ny) pair duals, updated in place
+  float* s;    // (nx, ny) sum multiplier, updated in place
+  float* up;   // u, v, q, p, s before the chunk's last (aligned) iteration
+  float* vp;
+  float* qp;
+  float* pp;
+  float* sp;
+  float* kxq;   // (2L, nx, ny) grad u + kron(P^T, I) v carried
+  float* kxqp;  // the same of the previous iterate
+  float* su;    // (nx, ny) sum_l u carried
+  float* sup;   // the same of u_prev
+  const float* f;
+  const float* kron;  // the taps, see the layout above
+  float* sc;
+  float* partial;  // 4 per block
+  int L, k, nx, ny, ntaps;
+  Consts c;
+};
+
+// Offsets of the runs of the taps array.
+struct Kron {
+  const float* row_ptr;  // 2L + 1
+  const float* col;      // T
+  const float* wr;       // T
+  const float* col_ptr;  // 2k + 1
+  const float* row;      // T
+  const float* wc;       // T
+};
+
+__device__ __forceinline__ Kron kron_of(const TK& b) {
+  Kron r;
+  int T = b.ntaps;
+  r.row_ptr = b.kron;
+  r.col = r.row_ptr + 2 * b.L + 1;
+  r.wr = r.col + T;
+  r.col_ptr = r.wr + T;
+  r.row = r.col_ptr + 2 * b.k + 1;
+  r.wc = r.row + T;
+  return r;
+}
+
+// One entry of kron(P^T, I) x or its transpose at pixel p: the fold over
+// the run [ptr[o], ptr[o + 1]) of w * src[idx * n + p], 0 for an empty run.
+__device__ __forceinline__ float kron_fold(const float* ptr, const float* idx,
+                                           const float* w, int o,
+                                           const float* src, size_t n,
+                                           size_t p) {
+  int lo = (int)__ldg(ptr + o), hi = (int)__ldg(ptr + o + 1);
+  if (lo == hi) return 0.f;
+  float acc = __ldg(w + lo) * src[(size_t)__ldg(idx + lo) * n + p];
+  for (int t = lo + 1; t < hi; ++t)
+    acc = acc + __ldg(w + t) * src[(size_t)__ldg(idx + t) * n + p];
+  return acc;
+}
+
+// Gradient row r of u at (i, j): dx of label r for r < L, dy of label
+// r - L otherwise, Neumann.
+__device__ __forceinline__ float grad_row(const float* u, int r, int L,
+                                          size_t n, int i, int j, int nx,
+                                          int ny) {
+  size_t p = (size_t)i * ny + j;
+  if (r < L) {
+    size_t pl = r * n + p;
+    return i < nx - 1 ? u[pl + ny] - u[pl] : 0.f;
+  }
+  size_t pl = (r - L) * n + p;
+  return j < ny - 1 ? u[pl + 1] - u[pl] : 0.f;
+}
+
+// The u rows of K^T y at label l of pixel (i, j): the masked gradient
+// adjoint of (q_x, q_y) plus s.
+__device__ __forceinline__ float kty_u(const float* q, float sv, int l,
+                                       int L, size_t n, int i, int j, int nx,
+                                       int ny) {
+  size_t pl = l * n + (size_t)i * ny + j, ql = pl + L * n;
+  float dxt = (i > 0 ? q[pl - ny] : 0.f) - (i < nx - 1 ? q[pl] : 0.f);
+  float dyt = (j > 0 ? q[ql - 1] : 0.f) - (j < ny - 1 ? q[ql] : 0.f);
+  return (dxt + dyt) + sv;
+}
+
+// Seed of a launch: kxq = grad u + kron(P^T, I) v and su = sum_l u.
+// Bound: memory, L + 2k planes read, 2L + 1 written.
+__global__ void tight_seed(TK b) {
+  if (b.sc[S_CONV] != 0.f) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  Kron kr = kron_of(b);
+  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  for (int r = 0; r < 2 * b.L; ++r)
+    b.kxq[r * n + p] = grad_row(b.u, r, b.L, n, i, j, b.nx, b.ny)
+                       + kron_fold(kr.row_ptr, kr.col, kr.wr, r, b.v, n, p);
+  float acc = 0.f;
+  for (int l = 0; l < b.L; ++l)
+    acc = l == 0 ? b.u[l * n + p] : acc + b.u[l * n + p];
+  b.su[p] = acc;
+}
+
+// Primal step (_chunk_core's update, u part): for every label,
+// u <- max(u - tau Tau_u K^T y - tau Tau_u f, 0).
+// Bound: memory, 4L + 1 planes read (u, q, f, s), L written (2L on the
+// aligned iteration, which also saves u_prev).
+__global__ void tight_primal(TK b, int save_prev) {
+  if (b.sc[S_CONV] != 0.f) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  float tu = b.sc[S_TAU] * b.c.tau_u;
+  float sv = b.s[p];
+  for (int l = 0; l < b.L; ++l) {
+    size_t pl = l * n + p;
+    float kty = kty_u(b.q, sv, l, b.L, n, i, j, b.nx, b.ny);
+    float uv = b.u[pl];
+    float tf = tu * b.f[pl];
+    if (save_prev) b.up[pl] = uv;
+    b.u[pl] = fmaxf((uv - tu * kty) - tf, 0.f);
+  }
+}
+
+// Dual step (the rest of the update, all at the thread's own pixel):
+//   v <- v - tau Tau_v (kron(P^T, I)^T q + p);
+//   p <- the pair-ball projection of p + sigma Sigma_p ((1 + theta) v_new
+//        - theta v);
+//   q <- q + sigma Sigma_q ((1 + theta) kxq_new - theta kxq), kxq_new =
+//        grad u + kron(P^T, I) v_new (the free dual);
+//   s <- s + sigma Sigma_s ((1 + theta) su_new - theta su) - sigma
+//        Sigma_s d_s.
+// Bound: memory, L + 6k + 4L + 2 planes read, 4k + 4L + 2 written (twice
+// that on the aligned iteration, which saves v, p, q, kxq, s, su).
+__global__ void tight_dual(TK b, int save_prev) {
+  if (b.sc[S_CONV] != 0.f) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  Kron kr = kron_of(b);
+  int L = b.L, k = b.k;
+  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  float tau = b.sc[S_TAU], sigma = b.sc[S_SIGMA], theta = b.sc[S_THETA];
+  float tp = 1.f + theta;
+  float tv = tau * b.c.tau_v, sq = sigma * b.c.sig_q;
+  float spc = sigma * b.c.sig_p, ss = sigma * b.c.sig_s;
+  // v and the unscaled p (K^T y of the old q)
+  for (int m = 0; m < 2 * k; ++m) {
+    size_t pm = m * n + p;
+    float pv = b.p[pm], vv = b.v[pm];
+    float ktyv = kron_fold(kr.col_ptr, kr.row, kr.wc, m, b.q, n, p) + pv;
+    float v2 = vv - tv * ktyv;
+    if (save_prev) {
+      b.vp[pm] = vv;
+      b.pp[pm] = pv;
+    }
+    b.v[pm] = v2;
+    b.p[pm] = pv + spc * (tp * v2 - theta * vv);
+  }
+  // the per-pixel radius ball of each pair (m, m + k)
+  float radius = b.sc[S_BALL];
+  for (int m = 0; m < k; ++m) {
+    size_t pa = m * n + p, pb = pa + k * n;
+    float a0 = b.p[pa], a1 = b.p[pb];
+    float nn = a0 * a0 + a1 * a1;
+    float scale = nn > 0.f ? fminf(1.f, radius * rsqrtf(nn)) : 1.f;
+    b.p[pa] = a0 * scale;
+    b.p[pb] = a1 * scale;
+  }
+  // q, the free dual, with kxq from the new u and v
+  for (int r = 0; r < 2 * L; ++r) {
+    size_t pr = r * n + p;
+    float kx2 = grad_row(b.u, r, L, n, i, j, b.nx, b.ny)
+                + kron_fold(kr.row_ptr, kr.col, kr.wr, r, b.v, n, p);
+    float qv = b.q[pr], kxo = b.kxq[pr];
+    if (save_prev) {
+      b.qp[pr] = qv;
+      b.kxqp[pr] = kxo;
+    }
+    b.q[pr] = qv + sq * (tp * kx2 - theta * kxo);
+    b.kxq[pr] = kx2;
+  }
+  // s with the new label sum
+  float su2 = 0.f;
+  for (int l = 0; l < L; ++l)
+    su2 = l == 0 ? b.u[l * n + p] : su2 + b.u[l * n + p];
+  float sv = b.s[p], suv = b.su[p];
+  if (save_prev) {
+    b.sp[p] = sv;
+    b.sup[p] = suv;
+  }
+  b.s[p] = (sv + ss * (tp * su2 - theta * suv)) - ss * b.sc[S_DS];
+  b.su[p] = su2;
+}
+
+// First pass of the four preconditioned residual norms (_chunk_core after
+// the aligned iteration): per pixel the terms of |pd|^2 and |z_hat|^2 over
+// the q, p and s planes and of |dd|^2 and |w_hat|^2 over the u and v planes,
+// then per-block tree sums into partial[4 * block].  K^T of the current and
+// previous duals is recomputed.
+// Bound: memory, about 14L + 16k + 4 planes read once per chunk.
+__global__ void tight_norm_partial(TK b) {
+  if (b.sc[S_CONV] != 0.f) return;
+  int i, j;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (pixel(b.nx, b.ny, i, j)) {
+    Kron kr = kron_of(b);
+    int L = b.L, k = b.k;
+    size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+    float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
+    float theta = b.sc[S_THETA];
+    float tp = 1.f + theta;
+    const Consts& c = b.c;
+    float dq = sigma_raw * c.sqrt_q, dp = sigma_raw * c.sqrt_p;
+    float ds = sigma_raw * c.sqrt_s;
+    float du = tau_raw * c.sqrt_u, dv = tau_raw * c.sqrt_v;
+    for (int r = 0; r < 2 * L; ++r) {
+      size_t pr = r * n + p;
+      float kx2 = b.kxq[pr];
+      float z = (b.qp[pr] - b.q[pr]) / dq
+                + c.sqrt_q * (tp * kx2 - theta * b.kxqp[pr]);
+      float pd = z - c.sqrt_q * kx2;
+      acc[0] += pd * pd;
+      acc[1] += z * z;
+    }
+    for (int m = 0; m < 2 * k; ++m) {
+      size_t pm = m * n + p;
+      float v2 = b.v[pm], vo = b.vp[pm];
+      float z = (b.pp[pm] - b.p[pm]) / dp
+                + c.sqrt_p * (tp * v2 - theta * vo);
+      float pd = z - c.sqrt_p * v2;
+      float kty2 = kron_fold(kr.col_ptr, kr.row, kr.wc, m, b.q, n, p)
+                   + b.p[pm];
+      float ktyp = kron_fold(kr.col_ptr, kr.row, kr.wc, m, b.qp, n, p)
+                   + b.pp[pm];
+      float wh = (vo - v2) / dv - c.sqrt_v * ktyp;
+      float dd = wh + c.sqrt_v * kty2;
+      acc[0] += pd * pd;
+      acc[1] += z * z;
+      acc[2] += dd * dd;
+      acc[3] += wh * wh;
+    }
+    float s2 = b.s[p], so = b.sp[p], su2 = b.su[p];
+    float zs = (so - s2) / ds + c.sqrt_s * (tp * su2 - theta * b.sup[p]);
+    float pds = zs - c.sqrt_s * su2;
+    acc[0] += pds * pds;
+    acc[1] += zs * zs;
+    for (int l = 0; l < L; ++l) {
+      size_t pl = l * n + p;
+      float kty2 = kty_u(b.q, s2, l, L, n, i, j, b.nx, b.ny);
+      float ktyp = kty_u(b.qp, so, l, L, n, i, j, b.nx, b.ny);
+      float wh = (b.up[pl] - b.u[pl]) / du - c.sqrt_u * ktyp;
+      float dd = wh + c.sqrt_u * kty2;
+      acc[2] += dd * dd;
+      acc[3] += wh * wh;
+    }
+  }
+  block_partials(acc, b.partial);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of per-block norm partials (4 floats each) for an (nx, ny) plane.
+int prost_tight_num_blocks(int nx, int ny) {
+  dim3 g = grid_of(nx, ny);
+  return (int)(g.x * g.y);
+}
+
+const char* prost_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// tight_fused_chunk: `count` iterations on (u, v, q, p, s) in place, the
+// previous iterate of the aligned iteration into (up, vp, qp, pp, sp), the
+// 4 SQUARED norms into sc[S_NORM..].  No-op when sc[S_CONV] is set.
+int prost_tight_chunk(void* u, void* v, void* q, void* p, void* s, void* up,
+                      void* vp, void* qp, void* pp, void* sp, void* kxq,
+                      void* kxqp, void* su, void* sup, const void* f,
+                      const void* kron, void* sc, void* partial, int L,
+                      int k, int nx, int ny, int ntaps, float sig_q,
+                      float sig_p, float sig_s, float tau_u, float tau_v,
+                      float sqrt_q, float sqrt_p, float sqrt_s, float sqrt_u,
+                      float sqrt_v, int count, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  TK b;
+  b.u = (float*)u;
+  b.v = (float*)v;
+  b.q = (float*)q;
+  b.p = (float*)p;
+  b.s = (float*)s;
+  b.up = (float*)up;
+  b.vp = (float*)vp;
+  b.qp = (float*)qp;
+  b.pp = (float*)pp;
+  b.sp = (float*)sp;
+  b.kxq = (float*)kxq;
+  b.kxqp = (float*)kxqp;
+  b.su = (float*)su;
+  b.sup = (float*)sup;
+  b.f = (const float*)f;
+  b.kron = (const float*)kron;
+  b.sc = (float*)sc;
+  b.partial = (float*)partial;
+  b.L = L;
+  b.k = k;
+  b.nx = nx;
+  b.ny = ny;
+  b.ntaps = ntaps;
+  b.c = {sig_q, sig_p, sig_s, tau_u, tau_v,
+         sqrt_q, sqrt_p, sqrt_s, sqrt_u, sqrt_v};
+  dim3 grid = grid_of(nx, ny), block(BX, BY);
+  tight_seed<<<grid, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  for (int it = 0; it < count; ++it) {
+    int last = it == count - 1;
+    tight_primal<<<grid, block, 0, st>>>(b, last);
+    LAUNCH_CHECK();
+    tight_dual<<<grid, block, 0, st>>>(b, last);
+    LAUNCH_CHECK();
+  }
+  tight_norm_partial<<<grid, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  pdhg_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, (int)(grid.x * grid.y),
+                                 count, 0, STEP_NONE, none);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+}  // extern "C"

@@ -4,10 +4,11 @@
   ``PDHGState`` / ``ADMMState`` from the fields of the JAX state given as
   numpy arrays, so both packages can go on from the same point;
 * ``pdhg_state_to_numpy`` / ``admm_state_to_numpy`` are their inverses;
-* ``problem_arrays`` lists a finalized problem's preconditioners and prox
-  coefficients as numpy, so a test can check that both packages finalize
-  the same problem.  It reads attributes only, so it takes a JAX
-  ``Problem`` as well as the port's.
+* ``problem_arrays`` lists a finalized problem's linear operator (its
+  blocks with their data), preconditioners and prox coefficients as numpy,
+  so a test can check that both packages build the same K and finalize the
+  same problem.  It reads attributes only, so it takes a JAX ``Problem`` as
+  well as the port's.
 """
 
 from __future__ import annotations
@@ -93,10 +94,33 @@ def _prox_arrays(p) -> dict:
     return out
 
 
+# the data of each block kind: sizes and flags as Python values, arrays
+# (conv kernel, kron matrix, diagonal factors) as numpy
+_BLOCK_FIELDS = ("nx", "ny", "L", "label_first", "kx", "ky", "diaglength",
+                 "offsets")
+_BLOCK_ARRAYS = ("kernel", "data", "factors")
+
+
+def _block_arrays(b) -> dict:
+    out = {"type": type(b).__name__, "row": int(b.row), "col": int(b.col),
+           "nrows": int(b.nrows), "ncols": int(b.ncols)}
+    for name in _BLOCK_FIELDS:
+        if hasattr(b, name):
+            out[name] = getattr(b, name)
+    for name in _BLOCK_ARRAYS:
+        if getattr(b, name, None) is not None:
+            out[name] = to_numpy(getattr(b, name))
+    return out
+
+
 def problem_arrays(problem) -> dict:
-    """Preconditioners and prox structure/coefficients of a finalized
-    problem, as numpy arrays and Python values."""
+    """The linear operator's blocks, preconditioners and prox
+    structure/coefficients of a finalized problem, as numpy arrays and
+    Python values."""
     out = {"nrows": int(problem.nrows), "ncols": int(problem.ncols),
+           "blocks": [_block_arrays(b)
+                      for b in sorted(problem.linop.blocks,
+                                      key=lambda b: (b.row, b.col))],
            "scaling_left": to_numpy(problem.scaling_left),
            "scaling_right": to_numpy(problem.scaling_right)}
     for side in ("prox_g", "prox_f", "prox_gstar", "prox_fstar"):

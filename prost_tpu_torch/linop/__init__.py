@@ -1,14 +1,17 @@
 """Linear-operator layer (counterpart of ``prost_tpu/linop``), the part
-that slices 1-3 need."""
+that slices 1-5 need."""
 
 from .base import Block, DualLinearOperator, LinearOperator
-from .blocks import BlockKronId
+from .blocks import BlockDiags, BlockKronId
+from .conv import BlockConv2D
 from .gradient import BlockGradient2D
 
 __all__ = [
     "Block",
     "LinearOperator",
     "DualLinearOperator",
+    "BlockConv2D",
+    "BlockDiags",
     "BlockKronId",
     "BlockGradient2D",
 ]

@@ -1,15 +1,31 @@
 """Block factories: each returns ``(row, col, nrows, ncols) -> (Block, sz)``
-(counterpart of ``prost_tpu/modeling/block.py``: the factories slices 1-3
+(counterpart of ``prost_tpu/modeling/block.py``: the factories slices 1-5
 need).  ``sz`` is the block's own (nrows, ncols), checked by the problem
 against the variable pair's dimensions."""
 
 from __future__ import annotations
 
-from ..linop import BlockGradient2D, BlockKronId
+import numpy as np
+
+from ..linop import BlockConv2D, BlockDiags, BlockGradient2D, BlockKronId
 
 
 def _shape(K):
     return int(K.shape[0]), int(K.shape[1])
+
+
+def diags(nrows, ncols, factors, offsets):
+    """Banded matrix of constant diagonals (diags.m)."""
+    return lambda row, col, _r, _c: (
+        BlockDiags.create(row, col, nrows, ncols, factors, offsets),
+        (nrows, ncols))
+
+
+def identity(scal=1.0):
+    """(Scaled) identity; sized by the variable pair (identity.m)."""
+    return lambda row, col, nrows, ncols: (
+        BlockDiags.create(row, col, nrows, ncols, [scal], [0]),
+        (nrows, ncols))
 
 
 def gradient2d(nx, ny, L, label_first=False):
@@ -31,3 +47,14 @@ def sparse_kron_id(K, diaglength):
 def dense_kron_id(K, diaglength):
     """kron(K, I_diaglength) for dense K (dense_kron_id.m)."""
     return sparse_kron_id(K, diaglength)
+
+
+def conv2d(nx, ny, L, kernel):
+    """Full 2D convolution with a (ky, kx) kernel, channels independent
+    (the JAX package's replacement for the reference's sparse convmtx2
+    pattern, example_deblurring.m:33-37).  Output size
+    (nx+kx-1)*(ny+ky-1)*L."""
+    ky, kx = np.asarray(kernel).shape
+    sz = ((nx + kx - 1) * (ny + ky - 1) * L, nx * ny * L)
+    return lambda row, col, nrows, ncols: (
+        BlockConv2D.create(row, col, nx, ny, L, kernel), sz)

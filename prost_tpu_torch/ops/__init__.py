@@ -1,21 +1,26 @@
 """Fused iterations with hand-written CUDA kernels (counterpart of
 ``prost_tpu/ops``): the ROF route by PDHG and by ADMM, and the fast
-multilabel route by PDHG."""
+multilabel, TV-deblurring and tight-multilabel routes by PDHG."""
 
 from .fused_admm import (FusedROFADMM, admm_chunk, admm_chunk_plain,
                          admm_multichunk, admm_multichunk_plain)
+from .fused_deblur import (deblur_chunk, deblur_chunk_plain,
+                           match_deblur_structure)
 from .fused_multilabel import (match_multilabel_structure, ml_chunk,
                                ml_chunk_plain, ml_multichunk,
                                ml_multichunk_plain)
 from .fused_rof import (FusedROFPDHG, launch_counts, match_rof_structure,
                         reset_launch_counts, rof_chunk, rof_chunk_plain,
                         rof_multichunk, rof_multichunk_plain)
+from .fused_tight import match_tight_structure, tight_chunk, tight_chunk_plain
 
 __all__ = [
     "FusedROFADMM",
     "FusedROFPDHG",
     "match_rof_structure",
     "match_multilabel_structure",
+    "match_deblur_structure",
+    "match_tight_structure",
     "admm_chunk",
     "admm_chunk_plain",
     "admm_multichunk",
@@ -28,6 +33,10 @@ __all__ = [
     "ml_chunk_plain",
     "ml_multichunk",
     "ml_multichunk_plain",
+    "deblur_chunk",
+    "deblur_chunk_plain",
+    "tight_chunk",
+    "tight_chunk_plain",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -1,0 +1,446 @@
+"""Fused PDHG iteration for TV deblurring (counterpart of
+``prost_tpu/ops/fused_deblur.py``, whole-plane route).
+
+Workload (examples/example_deblurring.py, BASELINE config 2):
+
+    min_u  lmb/2 ||B u - f||^2 + ||grad u||_{2,1}
+
+in saddle form with primal u (one (nx, ny) plane), duals y_v (the blur
+residual multiplier, one full-convolution (nx2, ny2) plane) and q = (qx,
+qy) (the TV dual):
+
+    K = [ B (full 2D convolution, m2 x n) ; grad2d (2n x n) ]
+
+The alpha preconditioner is constant on the gradient rows (Sigma_q) and on
+the columns (Tau), and a plane on the convolution rows (Sigma_v, the row
+sums of |B|, which vary at the boundary).
+
+One kernel carries the route, hand-written CUDA in ``csrc/fused_deblur.cu``
+with a plain PyTorch version beside its wrapper here: ``deblur_chunk`` (JAX
+``deblur_fused_chunk``), ``count`` iterations ending on a residual
+iteration, with the four squared preconditioned residual norms.  The JAX
+package has no multichunk kernel for this workload, and neither has the
+port.  A wrapper given CPU tensors runs the plain version; given CUDA
+tensors it launches the kernel, or raises.  There is no fallback to the
+generic path and no VMEM gate: the kernel keeps its planes in device
+memory, so it also serves the sizes for which the JAX package bands its
+kernel (``deblur_fused_chunk_banded``).
+
+Layout.  The JAX kernel holds every plane embedded in the (nx2, ny2)
+full-convolution geometry, zero outside the (nx, ny) region, and the
+padding stays zero.  The port's wrapper takes x as (nx, ny) and q as (2,
+nx, ny), the solver's own layout, and y_v, f_b and Sigma_v as (nx2, ny2);
+its kernel reads the missing padding as zero, which saves a pad and a crop
+per chunk.  The plain version embeds, runs the JAX package's arithmetic on
+the embedded planes and crops.
+
+Unlike the ROF and multilabel routes, nothing is canonicalized: the
+gradient adjoint is masked to the (nx, ny) region, so mass on q_x's last
+row or q_y's last column stays where it is and never enters K^T y, as in
+the JAX package, which zeroes no dead dual coordinate on this route.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..backend.pdhg import PDHGState
+from ..common import to_numpy
+from ..config import ProstError, dtype as config_dtype
+from ..linop.base import LinearOperator
+from ..linop.conv import BlockConv2D
+from ..linop.gradient import BlockGradient2D
+from ..prox.combinators import ProxMoreau
+from ..prox.elemop import ProxElem1D
+from ..prox.standalone import ProxZero
+from .pdhg_chunk import (CF, CI, VP, ChunkWork, ball_scale, chunk_state,
+                         coeff_vector, dual_ball_radius, entry_converged,
+                         isscalar, launch, run_pdhg_route, segment_const,
+                         typed_lib)
+
+MAX_TAPS = 96  # nonzero convolution taps the kernel takes
+
+# launches of the kernel wrapper on the card (CPU calls do not count)
+launch_counts = {"deblur_chunk": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version of the chunk math (the JAX package's, on embedded
+# planes)
+# ---------------------------------------------------------------------------
+
+def ordered_taps(taps):
+    """The taps in the order of the JAX package's sums: grouped by row
+    shift dx in the order first met, then as given within a group."""
+    groups = {}
+    for dx, dy, w in taps:
+        groups.setdefault(dx, []).append((dy, w))
+    return [(dx, dy, w) for dx, g in groups.items() for dy, w in g]
+
+
+def _tree_sum(terms):
+    """Pairwise tree: neighbours added level by level, an odd last term
+    carried up (the kernel's binary counter gives the same tree)."""
+    while len(terms) > 1:
+        nxt = [a + b for a, b in zip(terms[::2], terms[1::2])]
+        if len(terms) % 2:
+            nxt.append(terms[-1])
+        terms = nxt
+    return terms[0]
+
+
+def _conv_ops(nx2, ny2, region, taps):
+    """Forward full convolution and its adjoint (valid correlation) as
+    roll stencils on (nx2, ny2) planes whose padding is zero: the forward
+    wrap rows are padding, the adjoint is masked to the region."""
+    order = ordered_taps(taps)
+
+    def terms(u, sign):
+        out, rolled = [], {}
+        for dx, dy, w in order:
+            sx, sy = (sign * dx) % nx2, (sign * dy) % ny2
+            if sx not in rolled:
+                rolled[sx] = torch.roll(u, sx, -2) if sx else u
+            ux = rolled[sx]
+            out.append(w * (torch.roll(ux, sy, -1) if sy else ux))
+        return out
+
+    def fwd(u):
+        return _tree_sum(terms(u, 1))
+
+    def adj(v):
+        return torch.where(region, _tree_sum(terms(v, -1)), 0.0)
+
+    return fwd, adj
+
+
+def _grad_ops(nx, ny, nx2, ny2, device):
+    """Forward differences and their adjoint restricted to the (nx, ny)
+    region of an (nx2, ny2) plane."""
+    ri = torch.arange(nx2, device=device)[:, None]
+    ci = torch.arange(ny2, device=device)[None, :]
+    in_r, in_c = ri < nx - 1, ci < ny - 1
+    region = (ri < nx) & (ci < ny)
+
+    def dx(u):
+        return torch.where(in_r, torch.roll(u, -1, -2) - u, 0.0)
+
+    def dy(u):
+        return torch.where(in_c, torch.roll(u, -1, -1) - u, 0.0)
+
+    def dxt(p):
+        lead = torch.where(ri > 0, torch.roll(p, 1, -2), 0.0)
+        return torch.where(region, lead - torch.where(in_r, p, 0.0), 0.0)
+
+    def dyt(p):
+        lead = torch.where(ci > 0, torch.roll(p, 1, -1), 0.0)
+        return torch.where(region, lead - torch.where(in_c, p, 0.0), 0.0)
+
+    return dx, dy, dxt, dyt, region
+
+
+def chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, yv0, qx0, qy0, fb,
+               sv, count: int, nx: int, ny: int, taps, sig_q: float,
+               tau_t: float):
+    """``count - 1`` plain iterations, then the aligned iteration with its
+    four preconditioned residual norms (squared), on planes embedded in
+    (nx2, ny2) = fb.shape: the JAX package's ``_chunk_core``, whole plane.
+
+    Returns (x2, yv2, qx2, qy2, x_prev, yv_prev, qx_prev, qy_prev, norms),
+    all embedded."""
+    nx2, ny2 = fb.shape
+    dx, dy, dxt, dyt, region = _grad_ops(nx, ny, nx2, ny2, fb.device)
+    conv_fwd, conv_adj = _conv_ops(nx2, ny2, region, taps)
+
+    tau_s = tau_raw * tau_t            # tau * Tau
+    tsv = sigma_raw * sv               # sigma * Sigma_v (plane)
+    sq = sigma_raw * sig_q             # sigma * Sigma_q
+    sig_p = sq * (1.0 + theta)
+    sig_t = sq * theta
+    inv_l = 1.0 / lmb
+    dual_v_den = 1.0 / (1.0 + tsv * inv_l)
+    dual_v_sh = tsv * fb
+
+    def update(x, yv, qx, qy, bx, gx, gy):
+        kty = conv_adj(yv) + dxt(qx) + dyt(qy)
+        x2 = x - tau_s * kty
+        bx2 = conv_fwd(x2)
+        gx2, gy2 = dx(x2), dy(x2)
+        av = yv + tsv * ((1.0 + theta) * bx2 - theta * bx)
+        yv2 = (av - dual_v_sh) * dual_v_den
+        ax = qx + sig_p * gx2 - sig_t * gx
+        ay = qy + sig_p * gy2 - sig_t * gy
+        scale = ball_scale(ax * ax + ay * ay, radius)
+        return x2, yv2, ax * scale, ay * scale, bx2, gx2, gy2, kty
+
+    x, yv, qx, qy = x0, yv0, qx0, qy0
+    bx, gx, gy = conv_fwd(x0), dx(x0), dy(x0)
+    for _ in range(count - 1):
+        x, yv, qx, qy, bx, gx, gy, _ = update(x, yv, qx, qy, bx, gx, gy)
+    # aligned iteration; (bx, gx, gy) = K x_prev carried for free
+    x2, yv2, qx2, qy2, bx2, gx2, gy2, ktyp = update(x, yv, qx, qy, bx, gx,
+                                                    gy)
+    kty2 = conv_adj(yv2) + dxt(qx2) + dyt(qy2)
+
+    # preconditioned residuals, segment-wise sqrt(Sigma): plane for v,
+    # constant for q
+    sqrt_sv = torch.sqrt(sv)
+    sqrt_sq = sig_q ** 0.5
+    sqrt_t = tau_t ** 0.5
+    inv_v = 1.0 / (sigma_raw * sqrt_sv)
+    inv_q = 1.0 / (sigma_raw * sqrt_sq)
+    zh_v = (yv - yv2) * inv_v + sqrt_sv * ((1.0 + theta) * bx2 - theta * bx)
+    zh_x = (qx - qx2) * inv_q + sqrt_sq * ((1.0 + theta) * gx2 - theta * gx)
+    zh_y = (qy - qy2) * inv_q + sqrt_sq * ((1.0 + theta) * gy2 - theta * gy)
+    pd_v = zh_v - sqrt_sv * bx2
+    pd_x = zh_x - sqrt_sq * gx2
+    pd_y = zh_y - sqrt_sq * gy2
+    wh = (x - x2) * (1.0 / (tau_raw * sqrt_t)) - sqrt_t * ktyp
+    dd = wh + sqrt_t * kty2
+
+    norms = (
+        torch.sum(pd_v * pd_v) + torch.sum(pd_x * pd_x)
+        + torch.sum(pd_y * pd_y),
+        torch.sum(zh_v * zh_v) + torch.sum(zh_x * zh_x)
+        + torch.sum(zh_y * zh_y),
+        torch.sum(dd * dd),
+        torch.sum(wh * wh),
+    )
+    return x2, yv2, qx2, qy2, x, yv, qx, qy, norms
+
+
+def embed(a, nx2, ny2):
+    """Zero-pad the last two axes of ``a`` to (nx2, ny2)."""
+    return torch.nn.functional.pad(a, (0, ny2 - a.shape[-1],
+                                       0, nx2 - a.shape[-2]))
+
+
+def deblur_chunk_plain(x, yv, q, fb, sv, scal, count: int, taps,
+                       sig_q: float, tau_t: float):
+    """Plain PyTorch version of ``deblur_chunk`` (any device)."""
+    nx, ny = x.shape
+    nx2, ny2 = yv.shape
+    qe = embed(q, nx2, ny2)
+    x2, yv2, qx2, qy2, xp, yvp, qxp, qyp, norms = chunk_core(
+        scal[0], scal[1], scal[2], scal[3], scal[4], embed(x, nx2, ny2), yv,
+        qe[0], qe[1], fb, sv, int(count), nx, ny, taps, sig_q, tau_t)
+    crop = (..., slice(0, nx), slice(0, ny))
+    n2 = torch.stack(norms)
+    conv = entry_converged(scal, 5)
+    return (torch.where(conv, x, x2[crop]), torch.where(conv, yv, yv2),
+            torch.where(conv, q, torch.stack([qx2, qy2])[crop]),
+            torch.where(conv, x, xp[crop]), torch.where(conv, yv, yvp),
+            torch.where(conv, q, torch.stack([qxp, qyp])[crop]),
+            torch.where(conv, torch.zeros_like(n2), n2))
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def taps_array(taps, device) -> torch.Tensor:
+    """The taps as the kernel takes them: a (3, T) float32 array [dx; dy;
+    w] on ``device``, in ``ordered_taps`` order (made once per taps and
+    device)."""
+    order = ordered_taps(taps)
+    return torch.tensor([list(col) for col in zip(*order)],
+                        dtype=torch.float32, device=device)
+
+
+def _check(x, yv, q, fb, sv, scal, count: int, taps):
+    if int(count) < 1:
+        raise ProstError("A chunk needs count >= 1.")
+    if x.dim() != 2 or min(x.shape) < 2:
+        raise ProstError(f"x must be an (nx, ny) plane, got {tuple(x.shape)}.")
+    nx, ny = x.shape
+    if yv.dim() != 2 or yv.shape[0] < nx or yv.shape[1] < ny:
+        raise ProstError(f"yv must be an (nx2, ny2) plane with nx2 >= {nx}, "
+                         f"ny2 >= {ny}, got {tuple(yv.shape)}.")
+    nx2, ny2 = yv.shape
+    for name, t, shape in (("q", q, (2, nx, ny)), ("fb", fb, (nx2, ny2)),
+                           ("sv", sv, (nx2, ny2))):
+        if tuple(t.shape) != shape:
+            raise ProstError(f"{name} must be {shape}, got {tuple(t.shape)}.")
+    if not 1 <= len(taps) <= MAX_TAPS:
+        raise ProstError(f"The kernel takes 1 to {MAX_TAPS} taps, got "
+                         f"{len(taps)}.")
+    for dx, dy, _ in taps:
+        if not (0 <= dx <= nx2 - nx and 0 <= dy <= ny2 - ny):
+            raise ProstError(f"Tap ({dx}, {dy}) lies outside the "
+                             f"{nx2 - nx + 1}x{ny2 - ny + 1} kernel.")
+    if scal.numel() not in (5, 6):
+        raise ProstError("scal must hold 5 scalars (+1 converged flag), "
+                         f"got {scal.numel()}.")
+    dev = x.device
+    for t in (x, yv, q, fb, sv, scal):
+        if t.device != dev:
+            raise ProstError("All tensors must be on one device.")
+        if dev.type == "cuda" and t.dtype != torch.float32:
+            raise ProstError("The CUDA deblur kernel takes float32 only.")
+    if dev.type not in ("cpu", "cuda"):
+        raise ProstError(f"No deblur kernel for device {dev}.")
+
+
+def _lib():
+    """The fused deblur kernel library, built from csrc/fused_deblur.cu on
+    first use."""
+    return typed_lib("fused_deblur", "prost_deblur_num_blocks", {
+        "prost_deblur_chunk": [VP] * 15 + [CI] * 5 + [CF] * 4 + [CI, VP]})
+
+
+def deblur_chunk(x, yv, q, fb, sv, scal, count: int, taps, sig_q: float,
+                 tau_t: float):
+    """``count`` fused iterations ending on a residual iteration.
+
+    x: (nx, ny); q: (2, nx, ny); yv, fb (the blurred data) and sv
+    (Sigma_v): (nx2, ny2); taps: the nonzero (dx, dy, weight) of the
+    (kx, ky) kernel, kx = nx2 - nx + 1; sig_q, tau_t: the constant Sigma
+    of the gradient rows and Tau; scal: [tau, sigma, theta, lmb, radius]
+    (+ an optional converged flag: when set, nothing runs and the inputs
+    come back).  Returns (x2, yv2, q2, x_prev, yv_prev, q_prev, norms2),
+    norms2 the 4 SQUARED preconditioned residual norms, on the inputs'
+    device.  CPU tensors run the plain version; CUDA tensors launch the
+    kernel."""
+    _check(x, yv, q, fb, sv, scal, count, taps)
+    if x.device.type == "cpu":
+        return deblur_chunk_plain(x, yv, q, fb, sv, scal, count, taps, sig_q,
+                                  tau_t)
+    lib = _lib()
+    nx, ny = x.shape
+    nx2, ny2 = yv.shape
+    wk = ChunkWork((x, yv, q), (yv, q), scal, 5,
+                   lib.prost_deblur_num_blocks(nx2, ny2))
+    # sqrt(Sigma_q) and sqrt(Tau) rounded once from double, as the plain
+    # version rounds its Python constants
+    launch(lib, "prost_deblur_chunk", "deblur_chunk", launch_counts,
+           x.device, wk.buffers(fb, sv, taps_array(tuple(taps), x.device)),
+           nx, ny, nx2, ny2, len(taps), sig_q, tau_t, sig_q ** 0.5,
+           tau_t ** 0.5, int(count))
+    return wk.outputs()
+
+
+# ---------------------------------------------------------------------------
+# structure matching and the route
+# ---------------------------------------------------------------------------
+
+def kernel_taps(kernel):
+    """(dx, dy, weight) of the nonzero taps of a (kx, ky) kernel, dx
+    outermost, the weights the float32 values of the stored kernel."""
+    k = to_numpy(kernel)
+    return tuple((int(dx), int(dy), float(k[dx, dy]))
+                 for dx in range(k.shape[0]) for dy in range(k.shape[1])
+                 if k[dx, dy] != 0.0)
+
+
+def match_deblur_structure(problem, prox_g, prox_fstar):
+    """Detect the fusable deblurring structure; returns dict(nx, ny, nx2,
+    ny2, taps, fb, sv, lmb, radius, sig_q, tau_t) or None.  ``prox_g`` and
+    ``prox_fstar`` are the backend's lists (a MinProblem's data terms are
+    prox_f, which the backend turns into prox_fstar by Moreau).
+
+    Conditions (the model of examples/example_deblurring.py):
+
+    * linop = [BlockConv2D(L=1) at (0, 0); BlockGradient2D(L=1,
+      label_first=False) at (m2, 0)], the same (nx, ny), 1 to 96 taps;
+    * prox_g = one ProxZero over the whole primal;
+    * prox_fstar = Moreau(1D square, coeffs (1, fb, lmb > 0, 0, 0)) over
+      the conv rows + Moreau(norm2 abs, dim-2 planar, coeffs (1, 0, r, 0,
+      0)) or a norm2 ind_leq0 ball over the gradient rows;
+    * alpha preconditioner: Tau and the gradient-row Sigma constant (the
+      conv-row Sigma plane may vary at the boundary).
+
+    The fused route is float32 only."""
+    if config_dtype() != torch.float32:
+        return None
+    linop = problem.linop
+    if not isinstance(linop, LinearOperator) or len(linop.blocks) != 2:
+        return None
+    conv = next((b for b in linop.blocks if isinstance(b, BlockConv2D)), None)
+    grad = next((b for b in linop.blocks
+                 if isinstance(b, BlockGradient2D)), None)
+    if conv is None or grad is None:
+        return None
+    if conv.L != 1 or grad.L != 1 or grad.label_first:
+        return None
+    if conv.nx != grad.nx or conv.ny != grad.ny:
+        return None
+    nx, ny = conv.nx, conv.ny
+    n, m2 = nx * ny, conv.nx2 * conv.ny2
+    if conv.row != 0 or conv.col != 0 or grad.row != m2 or grad.col != 0:
+        return None
+    taps = kernel_taps(conv.kernel)
+    if not taps or len(taps) > MAX_TAPS:
+        return None
+
+    # --- primal prox: zero (the data term lives on the dual side) ----------
+    if len(prox_g) != 1 or not isinstance(prox_g[0], ProxZero):
+        return None
+
+    # --- dual proxes by index ----------------------------------------------
+    if len(prox_fstar) != 2:
+        return None
+    pv = next((p for p in prox_fstar if p.index == 0), None)
+    pq = next((p for p in prox_fstar if p.index == m2), None)
+    if pv is None or pq is None or pv.size != m2 or pq.size != 2 * n:
+        return None
+    if not isinstance(pv, ProxMoreau) or not isinstance(pv.child, ProxElem1D):
+        return None
+    sq = pv.child
+    if sq.fun != "square":
+        return None
+    a, b, c, d, e, _, _ = sq.coeffs
+    if not (isscalar(a) and a == 1.0 and isscalar(c) and c > 0.0):
+        return None
+    if not (isscalar(d) and d == 0.0 and isscalar(e) and e == 0.0):
+        return None
+    fb = coeff_vector(b, m2, problem.scaling_left.device)
+    radius = dual_ball_radius(pq)
+    if radius is None:
+        return None
+
+    # --- preconditioner: Tau and gradient-Sigma constant, conv-Sigma plane -
+    sl, sr = problem.scaling_left, problem.scaling_right
+    sig_q, tau_t = segment_const(sl[m2:]), segment_const(sr)
+    if sig_q is None or tau_t is None:
+        return None
+    shape = (conv.nx2, conv.ny2)
+    return {"nx": nx, "ny": ny, "nx2": conv.nx2, "ny2": conv.ny2,
+            "taps": taps, "fb": fb.reshape(shape).contiguous(),
+            "sv": sl[:m2].to(torch.float32).reshape(shape).contiguous(),
+            "lmb": float(c), "radius": radius, "sig_q": sig_q,
+            "tau_t": tau_t}
+
+
+def _planes(d, xf, yf):
+    """(x, yv, q) views of the solver's flat x and y."""
+    nx, ny, m2 = d["nx"], d["ny"], d["nx2"] * d["ny2"]
+    return (xf.reshape(nx, ny), yf[:m2].reshape(d["nx2"], d["ny2"]),
+            yf[m2:].reshape(2, nx, ny))
+
+
+def _fused_chunk(b, s: PDHGState) -> PDHGState:
+    d, ri = b.deblur, max(int(b.opts.residual_iter), 1)
+    scal = torch.stack([s.tau, s.sigma, s.theta, d["lmb_t"], d["radius_t"],
+                        s.converged.to(s.x.dtype)])
+    x2, yv2, q2, xp, yvp, qp, norms2 = deblur_chunk(
+        *_planes(d, s.x, s.y), d["fb"], d["sv"], scal, ri, d["taps"],
+        d["sig_q"], d["tau_t"])
+    return chunk_state(b, s, ri, x2.reshape(-1),
+                       torch.cat([yv2.reshape(-1), q2.reshape(-1)]),
+                       xp.reshape(-1),
+                       torch.cat([yvp.reshape(-1), qp.reshape(-1)]), norms2)
+
+
+def fused_deblur_run(b, state: PDHGState, until: int,
+                     start: int) -> PDHGState:
+    """``run_pdhg_route`` with the deblur chunks of ``FusedROFPDHG`` ``b``:
+    no multichunk (the JAX package has none) and no canonical form."""
+    return run_pdhg_route(b, state, until, start, lambda s: _fused_chunk(b, s))

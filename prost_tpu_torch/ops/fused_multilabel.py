@@ -53,10 +53,11 @@ from ..linop.blocks import BlockKronId
 from ..linop.gradient import BlockGradient2D
 from ..prox.elemop import ProxElem1D, ProxElemNorm2
 from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, adapt_scalars,
-                         ball_scale, chunk_state, dx, dxt, dy, dyt,
-                         entry_converged, isscalar, launch,
-                         multichunk_state, project_dead_dual, typed_lib)
-from .phases import K_CHUNKS, run_phases
+                         ball_scale, chunk_state, coeff_vector, dx, dxt, dy,
+                         dyt, entry_converged, isscalar, launch,
+                         leq0_ball_radius, multichunk_state,
+                         project_dead_dual, run_pdhg_route, typed_lib)
+from .phases import K_CHUNKS
 
 _SQRT_T = 0.4472135954999579    # sqrt(Tau)     = sqrt(1/5)
 _SQRT_S_Q = 0.7071067811865476  # sqrt(Sigma_q) = sqrt(1/2)
@@ -350,11 +351,7 @@ def match_multilabel_structure(problem):
         return None
     if not (isscalar(c) and c > 0.0) or not (isscalar(e) and e == 0.0):
         return None
-    dev = problem.scaling_left.device
-    if isinstance(d, torch.Tensor):
-        f = torch.broadcast_to(d.to(torch.float32).reshape(-1), (n * L,))
-    else:
-        f = torch.full((n * L,), float(d), dtype=torch.float32, device=dev)
+    f = coeff_vector(d, n * L, problem.scaling_left.device)
     f = f.reshape(L, nx, ny).contiguous()
 
     # --- dual proxes: 2L-ball over gradient rows + linear shift on s --------
@@ -364,18 +361,11 @@ def match_multilabel_structure(problem):
             ball = p
         elif isinstance(p, ProxElem1D) and p.index == 2 * n * L:
             shift = p
-    if ball is None or shift is None:
+    if ball is None or shift is None or ball.size != 2 * n * L:
         return None
-    if (ball.fun != "ind_leq0" or ball.size != 2 * n * L
-            or ball.dim != 2 * L or ball.interleaved):
+    radius = leq0_ball_radius(ball, 2 * L)
+    if radius is None:
         return None
-    ia, ib, ic, idd, ie, _, _ = ball.coeffs
-    for v in (ia, ib, ic):
-        if not isscalar(v):
-            return None
-    if idd != 0.0 or ie != 0.0 or ia <= 0:
-        return None
-    radius = float(ib) / float(ia)
     if shift.fun != "zero" or shift.size != n:
         return None
     _, _, _, sd, se, _, _ = shift.coeffs
@@ -421,7 +411,7 @@ def _multi_chunk(b, s: PDHGState) -> PDHGState:
         s.converged.to(dt)])
     u2, q2, s2, up, qp, sp, norms, sc = ml_multichunk(
         *_planes(m, s.x, s.y), m["f"], scal, ri, K_CHUNKS, b.opts.stepsize,
-        m["consts"])
+        m["adapt_consts"])
     return multichunk_state(s, ri, u2.reshape(-1), _flat_y(q2, s2),
                             up.reshape(-1), _flat_y(qp, sp), norms, sc)
 
@@ -438,25 +428,15 @@ def _fused_chunk(b, s: PDHGState) -> PDHGState:
 
 
 def fused_ml_run(b, state: PDHGState, until: int, start: int) -> PDHGState:
-    """The phases of ``ops.phases.run_phases`` around the fused multilabel
-    chunks of ``FusedROFPDHG`` ``b``: as the ROF route, a chunk starts where
-    iteration % ri == 1 (pre-increment counter); the canonicalization zeroes
-    the dead dual coordinates of y and y_prev; the epilogue refreshes kx,
-    kty, kx_prev and kty_prev, which the chunks do not carry."""
-    m, lin = b.ml, b.problem.linop
-    ri = max(int(b.opts.residual_iter), 1)
+    """``run_pdhg_route`` with the multilabel multichunks and chunks of
+    ``FusedROFPDHG`` ``b``; the canonicalization zeroes the dead dual
+    coordinates of y and y_prev."""
+    m = b.ml
 
     def canonicalize(s):
         return dataclasses.replace(s, y=_dead_dual_flat(m, s.y),
                                    y_prev=_dead_dual_flat(m, s.y_prev))
 
-    def epilogue(s):
-        return dataclasses.replace(
-            s, kx=lin.apply(s.x), kty=lin.apply_adjoint(s.y),
-            kx_prev=lin.apply(s.x_prev),
-            kty_prev=lin.apply_adjoint(s.y_prev))
-
-    return run_phases(state, start, until, ri, 1 % ri, b.generic_step,
-                      canonicalize, lambda s: _fused_chunk(b, s),
-                      multichunk=lambda s: _multi_chunk(b, s),
-                      epilogue=epilogue)
+    return run_pdhg_route(b, state, until, start,
+                          lambda s: _fused_chunk(b, s), canonicalize,
+                          lambda s: _multi_chunk(b, s))

@@ -41,15 +41,16 @@ from ..backend.pdhg import BackendPDHG, PDHGState
 from ..config import ProstError, dtype as config_dtype
 from ..linop.base import LinearOperator
 from ..linop.gradient import BlockGradient2D
-from ..prox.combinators import ProxMoreau
-from ..prox.elemop import ProxElem1D, ProxElemNorm2
+from ..prox.elemop import ProxElem1D
+from .fused_deblur import fused_deblur_run, match_deblur_structure
 from .fused_multilabel import fused_ml_run, match_multilabel_structure
+from .fused_tight import fused_tight_run, match_tight_structure
 from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, adapt_scalars,
-                         ball_scale, chunk_state, dx, dxt, dy, dyt,
-                         entry_converged, isscalar, launch,
+                         ball_scale, chunk_state, dual_ball_radius, dx, dxt,
+                         dy, dyt, entry_converged, isscalar, launch,
                          multichunk_state, pdhg_adapt_consts,
-                         project_dead_dual, typed_lib)
-from .phases import K_CHUNKS, run_phases
+                         project_dead_dual, run_pdhg_route, typed_lib)
+from .phases import K_CHUNKS
 
 _SQRT_S = 0.7071067811865476  # sqrt(Sigma) = sqrt(1/2)
 _SQRT_T = 0.5                 # sqrt(Tau)   = sqrt(1/4)
@@ -341,31 +342,8 @@ def match_rof_structure(problem):
         return None
 
     # --- regularizer: per-pixel r-ball projection of the dual --------------
-    pf = problem.prox_fstar[0]
-    if isinstance(pf, ProxMoreau):
-        inner = pf.child
-        if not isinstance(inner, ProxElemNorm2) or inner.fun != "abs":
-            return None
-        if inner.dim != 2 or inner.interleaved:
-            return None
-        ia, ib, ic, idd, ie, _, _ = inner.coeffs
-        for v, want in ((ia, 1.0), (ib, 0.0), (idd, 0.0), (ie, 0.0)):
-            if not (isscalar(v) and v == want):
-                return None
-        if not isscalar(ic):
-            return None
-        radius = float(ic)  # conjugate of c|x| -> radius-c ball
-    elif isinstance(pf, ProxElemNorm2) and pf.fun == "ind_leq0":
-        if pf.dim != 2 or pf.interleaved:
-            return None
-        ia, ib, ic, idd, ie, _, _ = pf.coeffs
-        for v in (ia, ib, ic):
-            if not isscalar(v):
-                return None
-        if idd != 0.0 or ie != 0.0 or ia <= 0:
-            return None
-        radius = float(ib) / float(ia)  # I(a|x| - b <= 0) -> b/a ball
-    else:
+    radius = dual_ball_radius(problem.prox_fstar[0])
+    if radius is None:
         return None
 
     # constant alpha preconditioner for a lone gradient2d block
@@ -379,11 +357,14 @@ def match_rof_structure(problem):
 
 class FusedROFPDHG(BackendPDHG):
     """BackendPDHG that runs ROF-structured problems through the fused ROF
-    chunk kernels and fast-multilabel problems through the fused multilabel
-    kernels (``ops/fused_multilabel.py``), and behaves exactly like
-    BackendPDHG otherwise.  Residual iterations take their norms from the
-    kernels, and the adaptation and stopping test follow the generic code's
-    order of operations."""
+    chunk kernels, fast-multilabel problems through the fused multilabel
+    kernels (``ops/fused_multilabel.py``), TV-deblurring problems through
+    the fused deblur kernel (``ops/fused_deblur.py``) and tight-multilabel
+    problems through the fused tight kernel (``ops/fused_tight.py``),
+    trying the routes in that order as the JAX package does, and behaves
+    exactly like BackendPDHG otherwise.  Residual iterations take their
+    norms from the kernels, and the adaptation and stopping test follow
+    the generic code's order of operations."""
 
     def __init__(self, problem, opts, solver_opts):
         super().__init__(problem, opts, solver_opts)
@@ -392,19 +373,29 @@ class FusedROFPDHG(BackendPDHG):
         # generic path
         usable = opts.stepsize != "alg2" and not opts.reference_residuals
         self.rof = match_rof_structure(problem) if usable else None
-        self.ml = None
+        self.ml = self.deblur = self.tight = None
         if usable and self.rof is None:
             self.ml = match_multilabel_structure(problem)
+        if usable and not (self.rof or self.ml):
+            # a MinProblem's data terms are prox_f: the deblur matcher reads
+            # the prox_fstar the backend made from them by Moreau
+            self.deblur = match_deblur_structure(problem, self.prox_g,
+                                                 self.prox_fstar)
+        if usable and not (self.rof or self.ml or self.deblur):
+            self.tight = match_tight_structure(problem)
         like = problem.scaling_left
         for r, names, kind in ((self.rof, ("lmb", "radius"), "ROF"),
-                               (self.ml, ("radius", "d_s"), "multilabel")):
+                               (self.ml, ("radius", "d_s"), "multilabel"),
+                               (self.deblur, ("lmb", "radius"), "deblur"),
+                               (self.tight, ("radius", "d_s"),
+                                "tight-multilabel")):
             if r is None:
                 continue
             for name in names:
                 r[name + "_t"] = like.new_full((), r[name])
             r["tols_t"] = tuple(like.new_full((), float(t))
                                 for t in self.tols)
-            r["consts"] = pdhg_adapt_consts(problem, opts)
+            r["adapt_consts"] = pdhg_adapt_consts(problem, opts)
             if solver_opts.verbose:
                 where = ("CUDA kernels" if like.device.type == "cuda"
                          else "plain PyTorch versions on the CPU")
@@ -416,6 +407,10 @@ class FusedROFPDHG(BackendPDHG):
             return _fused_rof_run(self, state, until_iter, start_iter)
         if self.ml is not None:
             return fused_ml_run(self, state, until_iter, start_iter)
+        if self.deblur is not None:
+            return fused_deblur_run(self, state, until_iter, start_iter)
+        if self.tight is not None:
+            return fused_tight_run(self, state, until_iter, start_iter)
         return super().run(state, until_iter, start_iter)
 
 
@@ -434,7 +429,7 @@ def _multi_chunk(b: FusedROFPDHG, s: PDHGState) -> PDHGState:
         s.converged.to(dt)])
     x2, q2, xp, qp, norms, sc = rof_multichunk(
         s.x.reshape(nx, ny), s.y.reshape(2, nx, ny), r["f"], r["w"], scal,
-        ri, K_CHUNKS, r["dataterm"], b.opts.stepsize, r["consts"])
+        ri, K_CHUNKS, r["dataterm"], b.opts.stepsize, r["adapt_consts"])
     return multichunk_state(s, ri, x2.reshape(-1), q2.reshape(-1),
                             xp.reshape(-1), qp.reshape(-1), norms, sc)
 
@@ -453,26 +448,14 @@ def _fused_chunk(b: FusedROFPDHG, s: PDHGState) -> PDHGState:
 
 def _fused_rof_run(b: FusedROFPDHG, state: PDHGState, until: int,
                    start: int) -> PDHGState:
-    """The phases of ``ops.phases.run_phases`` around the fused chunks.
-    A chunk starts where iteration % ri == 1 (pre-increment counter), so
-    it ends on a residual iteration; the canonicalization zeroes the dead
-    dual coordinates of y and y_prev; the epilogue refreshes kx, kty,
-    kx_prev and kty_prev, which the chunks do not carry."""
-    r, lin = b.rof, b.problem.linop
-    nx, ny = r["nx"], r["ny"]
-    ri = max(int(b.opts.residual_iter), 1)
+    """``run_pdhg_route`` with the ROF multichunks and chunks; the
+    canonicalization zeroes the dead dual coordinates of y and y_prev."""
+    nx, ny = b.rof["nx"], b.rof["ny"]
 
     def canonicalize(s):
         return dataclasses.replace(s, y=_dead_dual_flat(s.y, nx, ny),
                                    y_prev=_dead_dual_flat(s.y_prev, nx, ny))
 
-    def epilogue(s):
-        return dataclasses.replace(
-            s, kx=lin.apply(s.x), kty=lin.apply_adjoint(s.y),
-            kx_prev=lin.apply(s.x_prev),
-            kty_prev=lin.apply_adjoint(s.y_prev))
-
-    return run_phases(state, start, until, ri, 1 % ri, b.generic_step,
-                      canonicalize, lambda s: _fused_chunk(b, s),
-                      multichunk=lambda s: _multi_chunk(b, s),
-                      epilogue=epilogue)
+    return run_pdhg_route(b, state, until, start,
+                          lambda s: _fused_chunk(b, s), canonicalize,
+                          lambda s: _multi_chunk(b, s))

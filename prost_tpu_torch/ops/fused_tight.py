@@ -1,0 +1,432 @@
+"""Fused PDHG iteration for the tight multilabel relaxation (counterpart of
+``prost_tpu/ops/fused_tight.py``, whole-plane route).
+
+Workload (examples/example_multilabel_tight.py): on top of the fast
+relaxation, pairwise multipliers v couple the gradient dual q through
+per-pixel pairwise difference constraints:
+
+    primal x = [u (L label planes) ; v (2k pair planes, k = L(L-1)/2)]
+    dual   y = [q (2L gradient planes, free: no prox) ;
+                p (2k planes, per-pixel dim-2 radius ball) ;
+                s (the sum-to-one multiplier plane)]
+
+    K = [ grad2d (2nL x nL)           kron(P^T, I_n) (2nL x 2nk) ]
+        [ 0                           I (2nk x 2nk)              ]
+        [ kron(1_L^T, I_n) (n x nL)   0                          ]
+
+P^T's nonzeros (the taps, ±1 for the example) unroll to signed plane adds
+over the label and pair axes.  Every preconditioner segment is a constant,
+read from the problem at match time.
+
+One kernel carries the route, hand-written CUDA in ``csrc/fused_tight.cu``
+with a plain PyTorch version beside its wrapper here: ``tight_chunk`` (JAX
+``tight_fused_chunk``), ``count`` iterations ending on a residual
+iteration, with the four squared preconditioned residual norms.  The JAX
+package has no multichunk kernel for this workload, and neither has the
+port.  A wrapper given CPU tensors runs the plain version; given CUDA
+tensors it launches the kernel, or raises.  There is no fallback and no
+VMEM gate: the kernel keeps its planes in device memory, so it also serves
+the sizes for which the JAX package bands its kernel
+(``tight_fused_chunk_banded``).
+
+Layout contract (the JAX package's, at every public function): u and f
+(L, nx, ny); v and p (2k, nx, ny), pair planes [x parts (k); y parts (k)]
+(the dim-2 ball pairs plane m with plane m + k); q (2L, nx, ny) = [gx;
+gy]; s (nx, ny).  Nothing is canonicalized: q stays live at the boundary
+through the kron coupling, so the gradient adjoint is the masked one and
+no dual coordinate is zeroed, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..backend.pdhg import PDHGState
+from ..common import to_numpy
+from ..config import ProstError, dtype as config_dtype
+from ..linop.base import LinearOperator
+from ..linop.blocks import BlockDiags, BlockKronId
+from ..linop.gradient import BlockGradient2D, fwd_diff, fwd_diff_adjoint
+from ..prox.elemop import ProxElem1D
+from ..prox.standalone import ProxZero
+from .pdhg_chunk import (CF, CI, VP, ChunkWork, ball_scale, chunk_state,
+                         coeff_vector, entry_converged, isscalar, launch,
+                         leq0_ball_radius, run_pdhg_route, segment_const,
+                         typed_lib)
+
+MAX_TAPS = 512  # nonzeros of P^T the route takes (the JAX package's bound)
+
+# launches of the kernel wrapper on the card (CPU calls do not count)
+launch_counts = {"tight_chunk": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version of the chunk math
+# ---------------------------------------------------------------------------
+
+def _kron_ops(taps, nrows_out: int, ncols_out: int):
+    """kron(P^T, I_n) as signed plane adds, each output folded left to
+    right in the taps' (row, col) order: fwd maps (2k, nx, ny) -> (2L,
+    nx, ny), adj the reverse."""
+
+    def fold(src, n_out, key):
+        acc = [None] * n_out
+        for tap in taps:
+            out, inp = key(tap)
+            term = tap[2] * src[inp]
+            acc[out] = term if acc[out] is None else acc[out] + term
+        zero = torch.zeros_like(src[0])
+        return torch.stack([a if a is not None else zero for a in acc])
+
+    def fwd(v):
+        return fold(v, nrows_out, lambda t: (t[0], t[1]))
+
+    def adj(q):
+        return fold(q, ncols_out, lambda t: (t[1], t[0]))
+
+    return fwd, adj
+
+
+def _dx(u):
+    return fwd_diff(u, -2)
+
+
+def _dy(u):
+    return fwd_diff(u, -1)
+
+
+def _kty_u(q, s, L):
+    """The u rows of K^T y: the masked gradient adjoint plus s."""
+    return fwd_diff_adjoint(q[:L], -2) + fwd_diff_adjoint(q[L:], -1) + s[None]
+
+
+def chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, v0, q0, p0, s0, f,
+               count: int, taps, consts):
+    """``count - 1`` plain iterations, then the aligned iteration with its
+    four preconditioned residual norms (squared): the JAX package's
+    ``_chunk_core``, whole plane.  ``consts`` = (sig_q, sig_p, sig_s,
+    tau_u, tau_v), the constant preconditioner segments.
+
+    Returns ((u2, v2, q2, p2, s2), (u, v, q, p, s) before the aligned
+    iteration, norms)."""
+    L, k = u0.shape[0], v0.shape[0] // 2
+    sig_q_c, sig_p_c, sig_s_c, tau_u_c, tau_v_c = consts
+    kp_fwd, kp_adj = _kron_ops(taps, 2 * L, 2 * k)
+
+    tu = tau_raw * tau_u_c
+    tv = tau_raw * tau_v_c
+    sq = sigma_raw * sig_q_c
+    sp = sigma_raw * sig_p_c
+    ss = sigma_raw * sig_s_c
+    tf = tu * f
+
+    def update(u, v, q, p, s, kxq, su):
+        """One iteration; (kxq, su) = the q-row and s-row forward products
+        of the current primal, carried between iterations."""
+        ktyu = _kty_u(q, s, L)
+        ktyv = kp_adj(q) + p
+        u2 = torch.clamp_min(u - tu * ktyu - tf, 0.0)
+        v2 = v - tv * ktyv
+        kxq2 = torch.cat([_dx(u2), _dy(u2)]) + kp_fwd(v2)
+        su2 = torch.sum(u2, dim=0)
+        q2 = q + sq * ((1.0 + theta) * kxq2 - theta * kxq)  # free dual
+        ap = p + sp * ((1.0 + theta) * v2 - theta * v)
+        scale = ball_scale(ap[:k] * ap[:k] + ap[k:] * ap[k:], radius)
+        p2 = torch.cat([ap[:k] * scale, ap[k:] * scale])
+        s2 = s + ss * ((1.0 + theta) * su2 - theta * su) - ss * d_s
+        return u2, v2, q2, p2, s2, kxq2, su2, ktyu, ktyv
+
+    u, v, q, p, s = u0, v0, q0, p0, s0
+    kxq = torch.cat([_dx(u0), _dy(u0)]) + kp_fwd(v0)
+    su = torch.sum(u0, dim=0)
+    for _ in range(count - 1):
+        u, v, q, p, s, kxq, su, _, _ = update(u, v, q, p, s, kxq, su)
+    # aligned iteration; (kxq, su) = K x_prev products carried for free
+    u2, v2, q2, p2, s2, kxq2, su2, ktyu_p, ktyv_p = update(u, v, q, p, s,
+                                                           kxq, su)
+    ktyu2 = _kty_u(q2, s2, L)
+    ktyv2 = kp_adj(q2) + p2
+
+    # preconditioned residuals, segment-wise constants
+    sqrt_sq, sqrt_sp, sqrt_ss = sig_q_c ** 0.5, sig_p_c ** 0.5, sig_s_c ** 0.5
+    sqrt_tu, sqrt_tv = tau_u_c ** 0.5, tau_v_c ** 0.5
+    zh_q = (q - q2) / (sigma_raw * sqrt_sq) + sqrt_sq * (
+        (1.0 + theta) * kxq2 - theta * kxq)
+    zh_p = (p - p2) / (sigma_raw * sqrt_sp) + sqrt_sp * (
+        (1.0 + theta) * v2 - theta * v)
+    zh_s = (s - s2) / (sigma_raw * sqrt_ss) + sqrt_ss * (
+        (1.0 + theta) * su2 - theta * su)
+    pd_q = zh_q - sqrt_sq * kxq2
+    pd_p = zh_p - sqrt_sp * v2
+    pd_s = zh_s - sqrt_ss * su2
+    wh_u = (u - u2) / (tau_raw * sqrt_tu) - sqrt_tu * ktyu_p
+    wh_v = (v - v2) / (tau_raw * sqrt_tv) - sqrt_tv * ktyv_p
+    dd_u = wh_u + sqrt_tu * ktyu2
+    dd_v = wh_v + sqrt_tv * ktyv2
+
+    def ssq(a):
+        return torch.sum(a * a)
+
+    norms = (ssq(pd_q) + ssq(pd_p) + ssq(pd_s),
+             ssq(zh_q) + ssq(zh_p) + ssq(zh_s),
+             ssq(dd_u) + ssq(dd_v),
+             ssq(wh_u) + ssq(wh_v))
+    return (u2, v2, q2, p2, s2), (u, v, q, p, s), norms
+
+
+def tight_chunk_plain(u, v, q, p, s, f, scal, count: int, taps, consts):
+    """Plain PyTorch version of ``tight_chunk`` (any device)."""
+    new, prev, norms = chunk_core(scal[0], scal[1], scal[2], scal[3], scal[4],
+                                  u, v, q, p, s, f, int(count), taps, consts)
+    n2 = torch.stack(norms)
+    conv = entry_converged(scal, 5)
+    state = (u, v, q, p, s)
+    return (*(torch.where(conv, a, b) for a, b in zip(state, new)),
+            *(torch.where(conv, a, b) for a, b in zip(state, prev)),
+            torch.where(conv, torch.zeros_like(n2), n2))
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def kron_array(taps, L: int, k: int, device) -> torch.Tensor:
+    """P^T's taps as the kernel takes them, one float32 array on
+    ``device`` (made once per taps and device): by output row, [row_ptr
+    (2L + 1); col (T); w (T)], then by output column, [col_ptr (2k + 1);
+    row (T); w (T)], each run in the order of the plain version's folds."""
+    by_row = sorted(taps, key=lambda t: t[0])      # stable: (r, m) order
+    by_col = sorted(taps, key=lambda t: t[1])      # stable: r within m
+
+    def ptr(key, n, order):
+        out = [0] * (n + 1)
+        for t in order:
+            out[key(t) + 1] += 1
+        for i in range(n):
+            out[i + 1] += out[i]
+        return out
+
+    vals = (ptr(lambda t: t[0], 2 * L, by_row) + [t[1] for t in by_row]
+            + [t[2] for t in by_row]
+            + ptr(lambda t: t[1], 2 * k, by_col) + [t[0] for t in by_col]
+            + [t[2] for t in by_col])
+    return torch.tensor(vals, dtype=torch.float32, device=device)
+
+
+def _check(u, v, q, p, s, f, scal, count: int, taps, consts):
+    if int(count) < 1:
+        raise ProstError("A chunk needs count >= 1.")
+    if u.dim() != 3 or u.shape[0] < 1 or min(u.shape[1:]) < 2:
+        raise ProstError(
+            f"u must be an (L, nx, ny) stack, got {tuple(u.shape)}.")
+    L, nx, ny = u.shape
+    if v.dim() != 3 or v.shape[0] % 2 or tuple(v.shape[1:]) != (nx, ny):
+        raise ProstError(f"v must be a (2k, {nx}, {ny}) stack, got "
+                         f"{tuple(v.shape)}.")
+    k = v.shape[0] // 2
+    for name, t, shape in (("q", q, (2 * L, nx, ny)),
+                           ("p", p, (2 * k, nx, ny)), ("s", s, (nx, ny)),
+                           ("f", f, (L, nx, ny))):
+        if tuple(t.shape) != shape:
+            raise ProstError(f"{name} must be {shape}, got {tuple(t.shape)}.")
+    if not 1 <= len(taps) <= MAX_TAPS:
+        raise ProstError(f"The kernel takes 1 to {MAX_TAPS} taps, got "
+                         f"{len(taps)}.")
+    if any(not (0 <= r < 2 * L and 0 <= m < 2 * k) for r, m, _ in taps):
+        raise ProstError(f"A tap lies outside the ({2 * L}, {2 * k}) matrix.")
+    if len(consts) != 5:
+        raise ProstError("consts must hold (sig_q, sig_p, sig_s, tau_u, "
+                         "tau_v).")
+    if scal.numel() not in (5, 6):
+        raise ProstError("scal must hold 5 scalars (+1 converged flag), "
+                         f"got {scal.numel()}.")
+    dev = u.device
+    for t in (u, v, q, p, s, f, scal):
+        if t.device != dev:
+            raise ProstError("All tensors must be on one device.")
+        if dev.type == "cuda" and t.dtype != torch.float32:
+            raise ProstError("The CUDA tight kernel takes float32 only.")
+    if dev.type not in ("cpu", "cuda"):
+        raise ProstError(f"No tight kernel for device {dev}.")
+
+
+def _lib():
+    """The fused tight kernel library, built from csrc/fused_tight.cu on
+    first use."""
+    return typed_lib("fused_tight", "prost_tight_num_blocks", {
+        "prost_tight_chunk": [VP] * 18 + [CI] * 5 + [CF] * 10 + [CI, VP]})
+
+
+def tight_chunk(u, v, q, p, s, f, scal, count: int, taps, consts):
+    """``count`` fused iterations ending on a residual iteration.
+
+    u, f: (L, nx, ny); v, p: (2k, nx, ny); q: (2L, nx, ny); s: (nx, ny);
+    taps: the nonzero (row, col, weight) of the (2L, 2k) matrix P^T in
+    (row, col) order; consts: (sig_q, sig_p, sig_s, tau_u, tau_v); scal:
+    [tau, sigma, theta, radius, d_s] (+ an optional converged flag: when
+    set, nothing runs and the inputs come back).  Returns (u2, v2, q2, p2,
+    s2, u_prev, v_prev, q_prev, p_prev, s_prev, norms2), norms2 the 4
+    SQUARED preconditioned residual norms, on the inputs' device.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel."""
+    _check(u, v, q, p, s, f, scal, count, taps, consts)
+    if u.device.type == "cpu":
+        return tight_chunk_plain(u, v, q, p, s, f, scal, count, taps, consts)
+    lib = _lib()
+    L, nx, ny = u.shape
+    k = v.shape[0] // 2
+    wk = ChunkWork((u, v, q, p, s), (q, s), scal, 5,
+                   lib.prost_tight_num_blocks(nx, ny))
+    consts = [float(c) for c in consts]
+    # the square roots rounded once from double, as the plain version
+    # rounds its Python constants
+    launch(lib, "prost_tight_chunk", "tight_chunk", launch_counts, u.device,
+           wk.buffers(f, kron_array(tuple(taps), L, k, u.device)), L, k, nx,
+           ny, len(taps), *consts, *[c ** 0.5 for c in consts], int(count))
+    return wk.outputs()
+
+
+# ---------------------------------------------------------------------------
+# structure matching and the route
+# ---------------------------------------------------------------------------
+
+def match_tight_structure(problem):
+    """Detect the fusable tight-multilabel structure; returns dict(nx, ny,
+    L, k, taps, f, radius, d_s, consts) or None.  Conditions (the model of
+    examples/example_multilabel_tight.py):
+
+    * linop = [grad2d(L >= 2) at (0, 0); kron(P^T, I_n) at (0, nL), 1 to
+      512 nonzeros; identity diags at (2nL, nL); kron(ones(1, L), I_n) at
+      (2nL + 2nk, 0)];
+    * prox_g = ind_geq0 with linear unaries over u + zero over v;
+    * prox_fstar = zero over q + dim-2 planar ball over p + linear shift
+      over s;
+    * every preconditioner segment constant.
+
+    The fused route is float32 only."""
+    if config_dtype() != torch.float32:
+        return None
+    linop = problem.linop
+    if not isinstance(linop, LinearOperator) or len(linop.blocks) != 4:
+        return None
+    grad = next((b for b in linop.blocks
+                 if isinstance(b, BlockGradient2D)), None)
+    ident = next((b for b in linop.blocks if isinstance(b, BlockDiags)), None)
+    krons = [b for b in linop.blocks if isinstance(b, BlockKronId)]
+    if grad is None or ident is None or len(krons) != 2:
+        return None
+    if grad.label_first or grad.row != 0 or grad.col != 0 or grad.L < 2:
+        return None
+    L, nx, ny = grad.L, grad.nx, grad.ny
+    n = nx * ny
+    nL = n * L
+
+    pair = next((b for b in krons if b.col == nL), None)
+    lsum = next((b for b in krons if b.col == 0), None)
+    if pair is None or lsum is None:
+        return None
+    pmat = to_numpy(pair.data)
+    if pmat.shape[0] != 2 * L or pmat.shape[1] % 2 or pair.row != 0:
+        return None
+    k = pmat.shape[1] // 2
+    if pair.diaglength != n:
+        return None
+    taps = tuple((int(r), int(m), float(pmat[r, m]))
+                 for r in range(2 * L) for m in range(2 * k)
+                 if pmat[r, m] != 0.0)
+    if not taps or len(taps) > MAX_TAPS:
+        return None
+    m_sum = to_numpy(lsum.data)
+    if (lsum.row != 2 * nL + 2 * n * k or lsum.diaglength != n
+            or m_sum.shape != (1, L) or not (m_sum == 1.0).all()):
+        return None
+    if (ident.row != 2 * nL or ident.col != nL
+            or ident.nrows != 2 * n * k or ident.ncols != 2 * n * k):
+        return None
+    if ident.offsets != (0,) or not bool(torch.allclose(
+            ident.factors, torch.ones_like(ident.factors))):
+        return None
+
+    # --- primal proxes: positivity + unaries over u, zero over v -----------
+    if len(problem.prox_g) != 2 or len(problem.prox_fstar) != 3:
+        return None
+    pg_u = next((p for p in problem.prox_g if p.index == 0), None)
+    pg_v = next((p for p in problem.prox_g if p.index == nL), None)
+    if not isinstance(pg_u, ProxElem1D) or pg_u.fun != "ind_geq0":
+        return None
+    if pg_u.size != nL or not isinstance(pg_v, ProxZero):
+        return None
+    a, b, c, d, e, _, _ = pg_u.coeffs
+    if not (isscalar(a) and a == 1.0 and isscalar(b) and b == 0.0):
+        return None
+    if not (isscalar(c) and c > 0.0) or not (isscalar(e) and e == 0.0):
+        return None
+    f = coeff_vector(d, nL, problem.scaling_left.device)
+
+    # --- dual proxes: free q, dim-2 ball on p, linear shift on s -----------
+    pf_q = next((p for p in problem.prox_fstar if p.index == 0), None)
+    pf_p = next((p for p in problem.prox_fstar if p.index == 2 * nL), None)
+    pf_s = next((p for p in problem.prox_fstar
+                 if p.index == 2 * nL + 2 * n * k), None)
+    if not isinstance(pf_q, ProxZero) or pf_q.size != 2 * nL:
+        return None
+    radius = leq0_ball_radius(pf_p, 2)
+    if radius is None or pf_p.size != 2 * n * k:
+        return None
+    if not isinstance(pf_s, ProxElem1D) or pf_s.fun != "zero":
+        return None
+    _, _, _, sd, se, _, _ = pf_s.coeffs
+    if not (isscalar(sd) and isscalar(se) and se == 0.0):
+        return None
+
+    # --- constant per-segment preconditioner --------------------------------
+    sl, sr = problem.scaling_left, problem.scaling_right
+    consts = (segment_const(sl[:2 * nL]),
+              segment_const(sl[2 * nL:2 * nL + 2 * n * k]),
+              segment_const(sl[2 * nL + 2 * n * k:]),
+              segment_const(sr[:nL]),
+              segment_const(sr[nL:]))
+    if any(c is None for c in consts):
+        return None
+    return {"nx": nx, "ny": ny, "L": L, "k": k, "taps": taps,
+            "f": f.reshape(L, nx, ny).contiguous(), "radius": radius,
+            "d_s": float(sd), "consts": consts}
+
+
+def _planes(t, xf, yf):
+    """(u, v, q, p, s) views of the solver's flat x and y."""
+    L, k, nx, ny = t["L"], t["k"], t["nx"], t["ny"]
+    nL, nk2 = nx * ny * L, 2 * nx * ny * k
+    return (xf[:nL].reshape(L, nx, ny), xf[nL:].reshape(2 * k, nx, ny),
+            yf[:2 * nL].reshape(2 * L, nx, ny),
+            yf[2 * nL:2 * nL + nk2].reshape(2 * k, nx, ny),
+            yf[2 * nL + nk2:].reshape(nx, ny))
+
+
+def _flat(*planes):
+    return torch.cat([a.reshape(-1) for a in planes])
+
+
+def _fused_chunk(b, st: PDHGState) -> PDHGState:
+    t, ri = b.tight, max(int(b.opts.residual_iter), 1)
+    scal = torch.stack([st.tau, st.sigma, st.theta, t["radius_t"],
+                        t["d_s_t"], st.converged.to(st.x.dtype)])
+    out = tight_chunk(*_planes(t, st.x, st.y), t["f"], scal, ri, t["taps"],
+                      t["consts"])
+    u2, v2, q2, p2, s2, up, vp, qp, pp, sp, norms2 = out
+    return chunk_state(b, st, ri, _flat(u2, v2), _flat(q2, p2, s2),
+                       _flat(up, vp), _flat(qp, pp, sp), norms2)
+
+
+def fused_tight_run(b, state: PDHGState, until: int,
+                    start: int) -> PDHGState:
+    """``run_pdhg_route`` with the tight chunks of ``FusedROFPDHG`` ``b``:
+    no multichunk (the JAX package has none) and no canonical form."""
+    return run_pdhg_route(b, state, until, start, lambda s: _fused_chunk(b, s))

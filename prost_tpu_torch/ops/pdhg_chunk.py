@@ -1,13 +1,17 @@
-"""Pieces shared by the fused PDHG chunk routes, ROF (``ops/fused_rof.py``)
-and fast multilabel (``ops/fused_multilabel.py``): the Python side of
-``csrc/pdhg_chunk.cuh``.
+"""Pieces shared by the fused PDHG chunk routes, ROF (``ops/fused_rof.py``),
+fast multilabel (``ops/fused_multilabel.py``), deblurring
+(``ops/fused_deblur.py``) and tight multilabel (``ops/fused_tight.py``): the
+Python side of ``csrc/pdhg_chunk.cuh``.
 
 * the slots of the kernels' device scalar buffer;
 * the plain versions' stencils, dead-dual projection and ball scale, which
   act on the last two axes (nx, ny) of one plane or of a stack of label
   planes;
+* the structure matchers' readings of prox coefficients and
+  preconditioner segments;
 * ``adapt_scalars``, the multichunk's adaptation and stopping test, and the
   host-side state updates after a chunk or a multichunk launch;
+* ``run_pdhg_route``, a route's phase plan with its epilogue;
 * the launch plumbing of a kernel library with a plain C interface: typing
   its functions once, loading the scalar buffer, the buffers of one call,
   and the launch itself with its error check and its count.
@@ -26,6 +30,9 @@ import torch
 
 from ..backend.pdhg import BackendPDHG, PDHGState, hold_if, residual_and_adapt
 from ..config import ProstError
+from ..prox.combinators import ProxMoreau
+from ..prox.elemop import ProxElemNorm2
+from .phases import run_phases
 
 # alg2 never reaches a fused route; alg1 runs the stopping test only
 STEPSIZES = {"alg1": 0, "goldstein": 1, "boyd": 2}
@@ -84,6 +91,60 @@ def ball_scale(nn, radius):
 
 def isscalar(v) -> bool:
     return isinstance(v, (int, float))
+
+
+# ---------------------------------------------------------------------------
+# structure matching
+# ---------------------------------------------------------------------------
+
+def coeff_vector(v, n: int, device):
+    """A prox coefficient, a Python scalar or a tensor that broadcasts to
+    ``n``, as a float32 vector of length ``n``."""
+    if isinstance(v, torch.Tensor):
+        return torch.broadcast_to(v.to(torch.float32).reshape(-1), (n,))
+    return torch.full((n,), float(v), dtype=torch.float32, device=device)
+
+
+def segment_const(t):
+    """The constant value of a preconditioner segment, or None."""
+    if t.numel() == 0:
+        return None
+    v = float(t[0])
+    return v if bool(torch.allclose(t, torch.full_like(t, v))) else None
+
+
+def leq0_ball_radius(p, dim: int):
+    """Radius b/a of a planar norm2 ind_leq0 ball of dimension ``dim``
+    with scalar a > 0, b, c and d = e = 0 (I(a|x| - b <= 0)); None for any
+    other prox."""
+    if not isinstance(p, ProxElemNorm2) or p.fun != "ind_leq0":
+        return None
+    if p.dim != dim or p.interleaved:
+        return None
+    ia, ib, ic, idd, ie, _, _ = p.coeffs
+    if not all(isscalar(v) for v in (ia, ib, ic)):
+        return None
+    if idd != 0.0 or ie != 0.0 or ia <= 0:
+        return None
+    return float(ib) / float(ia)
+
+
+def dual_ball_radius(p):
+    """Radius of the per-pixel dim-2 ball of a gradient-row dual prox:
+    Moreau(norm2 abs, coeffs (1, 0, c, 0, 0)), the conjugate of c|x|, or a
+    dim-2 ind_leq0 ball; None otherwise."""
+    if not isinstance(p, ProxMoreau):
+        return leq0_ball_radius(p, 2)
+    inner = p.child
+    if not isinstance(inner, ProxElemNorm2) or inner.fun != "abs":
+        return None
+    if inner.dim != 2 or inner.interleaved:
+        return None
+    ia, ib, ic, idd, ie, _, _ = inner.coeffs
+    for v, want in ((ia, 1.0), (ib, 0.0), (idd, 0.0), (ie, 0.0)):
+        if not (isscalar(v) and v == want):
+            return None
+    return float(ic) if isscalar(ic) else None
 
 
 def adapt_scalars(stepsize: str, consts, tols4, it, tau, sigma, arg_alpha,
@@ -170,6 +231,28 @@ def chunk_state(b: BackendPDHG, s: PDHGState, ri: int, x, y, x_prev, y_prev,
                              s.iteration + (ri - 1))
     new = dataclasses.replace(new, iteration=new.iteration + ri)
     return hold_if(s.converged, s, new)
+
+
+def run_pdhg_route(b: BackendPDHG, state: PDHGState, until: int, start: int,
+                   chunk, canonicalize=None, multichunk=None) -> PDHGState:
+    """The phases of ``ops.phases.run_phases`` around a route's launches on
+    backend ``b``: a chunk starts where iteration % ri == 1 (pre-increment
+    counter), so it ends on a residual iteration; the epilogue refreshes
+    kx, kty, kx_prev and kty_prev, which the chunks do not carry.
+    ``chunk`` and ``multichunk`` take and return the state;
+    ``canonicalize`` is None where the kernels take the state as it is."""
+    lin = b.problem.linop
+    ri = max(int(b.opts.residual_iter), 1)
+
+    def epilogue(s):
+        return dataclasses.replace(
+            s, kx=lin.apply(s.x), kty=lin.apply_adjoint(s.y),
+            kx_prev=lin.apply(s.x_prev),
+            kty_prev=lin.apply_adjoint(s.y_prev))
+
+    return run_phases(state, start, until, ri, 1 % ri, b.generic_step,
+                      canonicalize, chunk, multichunk=multichunk,
+                      epilogue=epilogue)
 
 
 # ---------------------------------------------------------------------------

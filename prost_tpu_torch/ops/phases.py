@@ -8,7 +8,8 @@ state's iteration counter), so nothing is read from the device:
 
   A.  generic steps until ``it % ri == align``, where a chunk may start
   --  ``canonicalize``: once per run, the state put into the form the
-      kernels assume (the dead dual coordinates zeroed)
+      kernels assume (the dead dual coordinates zeroed), where a route
+      needs one
   B0. ``multichunk`` launches of ``K_CHUNKS * ri`` iterations
   B.  ``chunk`` launches of ``ri`` iterations
   --  ``epilogue``: whatever the chunks do not carry, refreshed once
@@ -28,8 +29,8 @@ K_CHUNKS = 8
 
 
 def run_phases(state, start: int, until: int, ri: int, align: int,
-               generic: Callable, canonicalize: Callable, chunk: Callable,
-               multichunk: Optional[Callable] = None,
+               generic: Callable, canonicalize: Optional[Callable],
+               chunk: Callable, multichunk: Optional[Callable] = None,
                epilogue: Optional[Callable] = None):
     """Run iterations ``start .. until - 1`` through the phases above.
     ``generic(state, it)`` takes the host's count of the iteration; the
@@ -39,7 +40,8 @@ def run_phases(state, start: int, until: int, ri: int, align: int,
         state = generic(state, it)
         it += 1
 
-    state = canonicalize(state)
+    if canonicalize is not None:
+        state = canonicalize(state)
 
     if multichunk is not None:
         while it + K_CHUNKS * ri <= until:

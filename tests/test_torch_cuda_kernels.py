@@ -16,7 +16,11 @@ order; residual norms after a multichunk launch of 80 iterations 1e-3
 relative, being norms of differences of nearby iterates.  The multilabel
 kernels: planes 2e-5 absolute as for ROF (their label sums run left to
 right, torch.sum over the label axis may pair them otherwise); norms 1e-4
-relative after a chunk, 1e-3 after a multichunk launch, as for ADMM.
+relative after a chunk, 1e-3 after a multichunk launch, as for ADMM.  The
+deblur and tight kernels: planes 2e-5 times max(1, |plane|max) (the blur
+dual scales with lmb); norms 1e-4 relative, with a floor of 1e-4 of the
+largest norm, since the deblur route's dual variable norm is zero in exact
+arithmetic (its prox_g is zero) and what is left is rounding noise.
 """
 
 import dataclasses
@@ -28,9 +32,12 @@ import torch
 import prost_tpu_torch as ptt
 from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
 from prost_tpu_torch.ops import FusedROFADMM, FusedROFPDHG
+from prost_tpu_torch.linop import BlockConv2D
 from prost_tpu_torch.ops import fused_admm as fa
+from prost_tpu_torch.ops import fused_deblur as fd
 from prost_tpu_torch.ops import fused_multilabel as fm
 from prost_tpu_torch.ops import fused_rof as fr
+from prost_tpu_torch.ops import fused_tight as ft
 
 pytestmark = pytest.mark.cuda
 
@@ -418,6 +425,226 @@ def test_fused_ml_backend_on_card_matches_cpu(dev, stepsize):
     gpu, cpu = states
     assert bool(gpu.converged) == bool(cpu.converged)
     assert int(gpu.iteration) == int(cpu.iteration)
+    for f in dataclasses.fields(gpu):
+        a, b = getattr(gpu, f.name), getattr(cpu, f.name)
+        assert a.is_cuda, f.name
+        if a.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3,
+                                       msg=f.name)
+
+
+# ---------------------------------------------------------------------------
+# the deblur and tight kernels
+# ---------------------------------------------------------------------------
+
+def _scaled_close(out, ref, n_planes):
+    """Planes within PLANE_ATOL * max(1, |plane|max); norms NORM_RTOL
+    relative with a floor of NORM_RTOL times the largest norm."""
+    for a, b in zip(out[:n_planes], ref[:n_planes]):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, atol=PLANE_ATOL * scale, rtol=0)
+    floor = NORM_RTOL * float(ref[n_planes].abs().max())
+    torch.testing.assert_close(out[n_planes], ref[n_planes], rtol=NORM_RTOL,
+                               atol=floor)
+
+
+def _asym_kernel(k=5):
+    """tests/test_fused_deblur.py's 5x5 blur: a diagonal and one corner."""
+    ker = np.zeros((k, k))
+    for i in range(k):
+        ker[i, i] = 1.0
+    ker[0, k - 1] = 0.5
+    return ker / ker.sum()
+
+
+def _motion_kernel(klen=9):
+    """bench.py's 45-degree motion blur: 7 nonzero taps at 9x9."""
+    kern = np.zeros((klen, klen))
+    c = (klen - 1) / 2
+    t = np.deg2rad(45.0)
+    for i in np.linspace(-c, c, 4 * klen):
+        kern[int(round(c + i * np.sin(t))), int(round(c + i * np.cos(t)))] = 1
+    return kern / kern.sum()
+
+
+def _deblur_inputs(seed, nx, ny, kernel, dev):
+    """x, yv, q (with mass on q's boundary coordinates, which the route
+    keeps), fb, sv and the taps of ``kernel`` (ky, kx)."""
+    taps = fd.kernel_taps(torch.as_tensor(kernel.T, dtype=torch.float32))
+    nx2, ny2 = nx + kernel.shape[1] - 1, ny + kernel.shape[0] - 1
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(nx, ny), rng.randn(nx2, ny2), 0.3 * rng.randn(2, nx, ny),
+            rng.rand(nx2, ny2), 0.5 + rng.rand(nx2, ny2))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in arrs], taps
+
+
+@pytest.mark.parametrize("case", ["motion", "asym_ragged"])
+@pytest.mark.parametrize("ri", [1, 10])
+def test_deblur_chunk_matches_plain(dev, case, ri):
+    nx, ny, kernel = ((96, 80, _motion_kernel()) if case == "motion"
+                      else (250, 190, _asym_kernel()))
+    (x, yv, q, fb, sv), taps = _deblur_inputs(15, nx, ny, kernel, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0], device=dev)
+    before = fd.launch_counts["deblur_chunk"]
+    out = fd.deblur_chunk(x, yv, q, fb, sv, scal, ri, taps, 0.5, 0.2)
+    ref = fd.deblur_chunk_plain(x, yv, q, fb, sv, scal, ri, taps, 0.5, 0.2)
+    torch.cuda.synchronize()
+    assert fd.launch_counts["deblur_chunk"] == before + 1
+    assert all(t.is_cuda for t in out)
+    _scaled_close(out, ref, 6)
+
+
+def _pair_taps(L, dense=False):
+    """P^T's taps of examples/example_multilabel_tight.py (k = L(L-1)/2
+    pairs, +-1); ``dense`` adds weights of 0.25 at random places and
+    empties row 0, which the kernel must fold like the plain version."""
+    k = L * (L - 1) // 2
+    pt_ = np.zeros((2 * L, 2 * k))
+    idx = 0
+    for i in range(L):
+        for j in range(i + 1, L):
+            pt_[i, idx], pt_[j, idx] = 1.0, -1.0
+            pt_[i + L, idx + k], pt_[j + L, idx + k] = 1.0, -1.0
+            idx += 1
+    if dense:
+        pt_ += 0.25 * (np.random.RandomState(3).rand(*pt_.shape) > 0.5)
+        pt_[0] = 0.0
+    return tuple((r, m, float(pt_[r, m])) for r in range(2 * L)
+                 for m in range(2 * k) if pt_[r, m] != 0.0)
+
+
+def _tight_inputs(seed, L, nx, ny, dev):
+    k = L * (L - 1) // 2
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(L, nx, ny), 0.1 * rng.randn(2 * k, nx, ny),
+            0.2 * rng.randn(2 * L, nx, ny), 0.1 * rng.randn(2 * k, nx, ny),
+            0.1 * rng.randn(nx, ny), rng.rand(L, nx, ny))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+def _tight_consts(L):
+    """The alpha preconditioner's segments of the example's model."""
+    return tuple(float(np.float32(c))
+                 for c in (1 / (L + 1), 1.0, 1 / L, 0.2, 1 / 3))
+
+
+# ragged against the 32x8 blocks; L = 16 is the largest the matcher takes
+# (4k = 480 taps)
+TIGHT_CASES = [(4, 128, 96, False), (3, 250, 190, False), (3, 64, 48, True),
+               (16, 40, 36, False)]
+
+
+@pytest.mark.parametrize("case", TIGHT_CASES)
+@pytest.mark.parametrize("ri", [1, 10])
+def test_tight_chunk_matches_plain(dev, case, ri):
+    L, nx, ny, dense = case
+    u, v, q, p, s, f = _tight_inputs(16, L, nx, ny, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 1.0, 1.0], device=dev)
+    taps = _pair_taps(L, dense)
+    before = ft.launch_counts["tight_chunk"]
+    out = ft.tight_chunk(u, v, q, p, s, f, scal, ri, taps, _tight_consts(L))
+    ref = ft.tight_chunk_plain(u, v, q, p, s, f, scal, ri, taps,
+                               _tight_consts(L))
+    torch.cuda.synchronize()
+    assert ft.launch_counts["tight_chunk"] == before + 1
+    assert all(t.is_cuda for t in out)
+    _scaled_close(out, ref, 10)
+
+
+def test_deblur_tight_converged_at_entry_return_the_inputs(dev):
+    (x, yv, q, fb, sv), taps = _deblur_inputs(17, 40, 36, _asym_kernel(),
+                                              dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0, 1.0], device=dev)
+    c = fd.deblur_chunk(x, yv, q, fb, sv, scal, 5, taps, 0.5, 0.2)
+    for a, b in zip(c[:6], (x, yv, q, x, yv, q)):
+        assert torch.equal(a, b)
+    assert c[6].abs().sum().item() == 0.0
+    state = _tight_inputs(18, 3, 40, 36, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 1.0, 1.0, 1.0], device=dev)
+    c = ft.tight_chunk(*state, scal, 5, _pair_taps(3), _tight_consts(3))
+    for a, b in zip(c[:10], state[:5] * 2):
+        assert torch.equal(a, b)
+    assert c[10].abs().sum().item() == 0.0
+
+
+def test_conv_block_runs_in_full_float32(dev):
+    """cuDNN would round a float32 convolution to TF32 (a 10-bit mantissa)
+    by default: the block's products on the card agree with the CPU's to
+    float32 rounding, and the global switch is left as it was."""
+    nx, ny = 200, 150
+    blk = BlockConv2D.create(0, 0, nx, ny, 1, _motion_kernel())
+    x = torch.from_numpy(np.random.RandomState(19).rand(nx * ny)
+                         .astype(np.float32))
+    y = torch.from_numpy(np.random.RandomState(20).rand(blk.nrows)
+                         .astype(np.float32))
+    flag = torch.backends.cudnn.allow_tf32
+    card = dataclasses.replace(blk, kernel=blk.kernel.to(dev))
+    for got, want in ((card.apply(x.to(dev)), blk.apply(x)),
+                      (card.apply_adjoint(y.to(dev)), blk.apply_adjoint(y))):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+    assert torch.backends.cudnn.allow_tf32 == flag
+
+
+def _deblur_problem(nx, ny, device):
+    rng = np.random.RandomState(5)
+    kernel = _asym_kernel()
+    nx2, ny2 = nx + 4, ny + 4
+    u, v = ptt.Variable(nx * ny), ptt.Variable(nx2 * ny2)
+    g = ptt.Variable(2 * nx * ny)
+    prob = ptt.MinProblem([u], [v, g])
+    prob.add_function(v, ptt.function.sum_1d("square", 1,
+                                             rng.rand(nx2 * ny2), 40.0))
+    prob.add_function(g, ptt.function.sum_norm2(2, False, "abs"))
+    prob.add_constraint(u, v, ptt.block.conv2d(nx, ny, 1, kernel))
+    prob.add_constraint(u, g, ptt.block.gradient2d(nx, ny, 1))
+    return prob.finalize().to(device)
+
+
+def _tight_problem(nx, ny, L, device):
+    n, k = nx * ny, L * (L - 1) // 2
+    f = np.random.RandomState(6).rand(n * L)
+    pt_ = np.zeros((2 * L, 2 * k))
+    for r, m, w in _pair_taps(L):
+        pt_[r, m] = w
+    u, v = ptt.Variable(n * L), ptt.Variable(2 * n * k)
+    q, p, s = (ptt.Variable(2 * n * L), ptt.Variable(2 * n * k),
+               ptt.Variable(n))
+    prob = ptt.MinMaxProblem([u, v], [q, p, s])
+    prob.add_function(u, ptt.function.sum_1d("ind_geq0", 1, 0, 1, f, 0))
+    prob.add_function(p, ptt.function.sum_norm2(2, False, "ind_leq0",
+                                                1.0, 1, 1))
+    prob.add_function(s, ptt.function.sum_1d("zero", 1, 0, 1, 1, 0))
+    prob.add_dual_pair(u, q, ptt.block.gradient2d(nx, ny, L))
+    prob.add_dual_pair(u, s, ptt.block.sparse_kron_id(np.ones((1, L)), n))
+    prob.add_dual_pair(v, p, ptt.block.identity())
+    prob.add_dual_pair(v, q, ptt.block.sparse_kron_id(pt_, n))
+    return prob.finalize().to(device)
+
+
+@pytest.mark.parametrize("route", ["deblur", "tight"])
+def test_fused_deblur_tight_backend_on_card_matches_cpu(dev, route):
+    """The whole fused deblur or tight route on the card (the chunk kernel
+    in the phase plan) against the same route on the CPU with the plain
+    version, over 157 iterations of boyd with ri 5."""
+    mod = fd if route == "deblur" else ft
+    make = ((lambda d: _deblur_problem(40, 36, d)) if route == "deblur"
+            else (lambda d: _tight_problem(40, 36, 3, d)))
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=0,
+                              tol_rel_dual=0, tol_abs_primal=0,
+                              tol_abs_dual=0)
+    opts = PDHGOptions(stepsize="boyd", residual_iter=5,
+                       scale_steps_operator=False)
+    mod.reset_launch_counts()
+    states = []
+    for device in (dev, torch.device("cpu")):
+        b = FusedROFPDHG(make(device), opts, sopts)
+        assert getattr(b, route) is not None
+        s = b.run(b.initial_state(), 57, 0)
+        states.append(b.run(s, 157, 57))
+    assert mod.launch_counts[f"{route}_chunk"] > 0
+    gpu, cpu = states
+    assert int(gpu.iteration) == int(cpu.iteration) == 157
     for f in dataclasses.fields(gpu):
         a, b = getattr(gpu, f.name), getattr(cpu, f.name)
         assert a.is_cuda, f.name

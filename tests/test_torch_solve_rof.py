@@ -160,9 +160,29 @@ def test_state_round_trip_through_interop():
     np.testing.assert_allclose(float(ts2.tau), float(js2.tau), rtol=1e-6)
 
 
+def test_device_without_card_or_choice_raises(monkeypatch):
+    """With no card and no set_device the port does not quietly take the
+    CPU: device() and the problems that need it raise, naming the way to
+    ask for the CPU; after set_device("cpu") both work."""
+    from prost_tpu_torch import config
+
+    monkeypatch.setattr(config, "_DEVICE", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ptt.ProstError, match=r'set_device\("cpu"\)'):
+        ptt.device()
+    prob = _model(ptt, 4, _image(4), 8.0)[0]
+    with pytest.raises(ptt.ProstError, match="No CUDA card"):
+        prob.finalize()
+    ptt.set_device("cpu")
+    assert ptt.device() == torch.device("cpu")
+    assert prob.finalize().scaling_left.device.type == "cpu"
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, prost_tpu_torch, prost_tpu_torch.ops, "
-            "prost_tpu_torch.ops.fused_multilabel, prost_tpu_torch.interop; "
+            "prost_tpu_torch.ops.fused_multilabel, "
+            "prost_tpu_torch.ops.fused_deblur, "
+            "prost_tpu_torch.ops.fused_tight, prost_tpu_torch.interop; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'prost_tpu' not in sys.modules, 'prost_tpu imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
