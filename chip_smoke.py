@@ -5,7 +5,7 @@
 
 Phases (any failure ends the run with a traceback and a non-zero exit):
 
-1. build the five kernel libraries from prost_tpu_torch/csrc with nvcc
+1. build the six kernel libraries from prost_tpu_torch/csrc with nvcc
    (sm_90a), one nvcc process each, all started together;
 2. check each ROF kernel against its plain PyTorch version on the card, on
    the same inputs: ``rof_chunk`` at 512x512 and 2048x1536 for the square,
@@ -48,11 +48,21 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    together; then the tight multilabel relaxation with 4 labels on
    data/junction_gray.png at 128x128 (lmb 1) the same way, held together
    on the energy, the constraint residual and the partition of unity;
-10. run a few hundred iterations of the fused ROF routes at 2048x2048, of
+10. the same for the volumetric kernels: ``vol_chunk`` (ri = 10) at
+   256x256x8, at a ragged 190x250x5 for the square, wsquare and abs data
+   terms, at 64x96x1 and at 512x512x8, and ``vol_multichunk`` (k = 8, ri =
+   10, boyd) from a solve's start on bench.py's vol256x8 data at the four
+   shapes, timed against their plain versions at 256x256x8;
+11. solve vol256x8, volumetric TV of eight noisy slices of data/dog.png at
+   256x256 (lmb 6, boyd, residual_iter 10, 2000 iterations at tolerance
+   1e-5), by the fused volumetric route and by the generic path, count
+   both kernels' launches and hold the energies and the iteration counts
+   together;
+12. run a few hundred iterations of the fused ROF routes at 2048x2048, of
    the fused multilabel route at 512x512x8, of the deblur route at
-   2048x2048 and of the tight route at 512x512x4, where the JAX package
-   bands its kernels: every kernel launches, the state stays on the card
-   and finite.
+   2048x2048, of the tight route at 512x512x4 and of the volumetric route
+   at 512x512x8, where the JAX package bands its kernels: every kernel
+   launches, the state stays on the card and finite.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before
@@ -156,6 +166,18 @@ DB_SIZE, DB_KLEN, DB_LMB, DB_LARGE = 512, 9, 100.0, 2048
 #   + 4T + 13.
 # bench.py build_tight (tight128x4)
 TIGHT_SIZE, TIGHT_LABELS, TIGHT_LMB, TIGHT_LARGE = 128, 4, 1.0, 512
+#   Volumetric TV, per voxel: seed 3 (grad3 u); iteration 36 (primal: K^T q
+#   5, step 2, data term 3; dual: grad3 3, extrapolations 12, ball
+#   projection 11); residual norms 59 (two K^T y 10, z_hat 21, pd 6, w_hat
+#   4, dd 2, squares 12, sums 4).
+VOL_SEED_OPS, VOL_ITER_OPS, VOL_NORM_OPS = 3, 36, 59
+# bench.py build_vol (vol256x8), and the size at which the JAX package bands
+# the vol kernels
+VOL_SIZE, VOL_LABELS, VOL_LMB, VOL_LARGE = 256, 8, 6.0, 512
+# the multichunk checks' stopping tolerance: boyd adapts and converges
+# partway through the launch at every shape (in chunk 3 of 8 at 256x256x8,
+# 4 at 190x250x5, 2 at 64x96x1; plain version on a CPU)
+VOL_MC_TOL = 5e-3
 
 
 def admm_iter_ops(degree):
@@ -168,6 +190,12 @@ def ml_chunk_ops(n, L, ri, chunks=1):
     return n * (L * ML_SEED_OPS + chunks * (
         ri * (L * ML_ITER_OPS + ML_PIXEL_OPS)
         + L * (ML_CHUNK_OPS + ML_NORM_OPS) + ML_NORM_PIXEL_OPS))
+
+
+def vol_chunk_ops(nvox, ri, chunks=1):
+    """FP32 operations of a volumetric launch of ``chunks`` chunks of
+    ``ri`` iterations on ``nvox`` voxels."""
+    return nvox * (VOL_SEED_OPS + chunks * (ri * VOL_ITER_OPS + VOL_NORM_OPS))
 
 
 def check(cond, msg):
@@ -452,6 +480,45 @@ def tight_measures(x, f, lmb, L, nx, ny):
             float(np.max(np.abs(u.reshape(L, n).sum(axis=0) - 1.0))))
 
 
+def vol_data(L, nx, ny, seed=42):
+    """bench.py build_vol's observation: data/dog.png's gray levels at (nx,
+    ny), each of the L slices with its own 0.02 randn, drawn in turn from
+    RandomState(seed); (L, nx, ny) flattened, f32."""
+    rng = np.random.RandomState(seed)
+    base = fixture_gray("dog", nx, ny)
+    return np.stack([base + 0.02 * rng.randn(nx, ny) for _ in range(L)]
+                    ).reshape(-1).astype(np.float32)
+
+
+def vol_model(nx, ny, L, f, lmb=VOL_LMB):
+    """Volumetric TV of examples/example_vol_tv.py: lmb/2 |u - f|^2 +
+    |grad3 u|_{2,1}, grad3 = gradient3d."""
+    import prost_tpu_torch as ptt
+
+    n = L * nx * ny
+    u = ptt.Variable(n)
+    q = ptt.Variable(3 * n)
+    prob = ptt.MinMaxProblem([u], [q])
+    prob.add_function(u, ptt.function.sum_1d("square", 1, f, lmb))
+    prob.add_function(q, ptt.function.conjugate(
+        ptt.function.sum_norm2(3, False, "abs")))
+    prob.add_dual_pair(u, q, ptt.block.gradient3d(nx, ny, L))
+    return prob
+
+
+def vol_energy(u, f, lmb, L, nx, ny):
+    """lmb/2 |u - f|^2 + sum over voxels of |(gx, gy, gl)|_2 in float64,
+    the label difference Dirichlet (gl of the last slice is -u)."""
+    u = u.reshape(L, nx, ny).astype(np.float64)
+    gx = np.zeros_like(u)
+    gy = np.zeros_like(u)
+    gx[:, :-1] = u[:, 1:] - u[:, :-1]
+    gy[:, :, :-1] = u[:, :, 1:] - u[:, :, :-1]
+    gl = np.concatenate([u[1:], np.zeros_like(u[:1])]) - u
+    return float(0.5 * lmb * np.sum((u.reshape(-1) - f) ** 2)
+                 + np.sum(np.sqrt(gx ** 2 + gy ** 2 + gl ** 2)))
+
+
 def kernel_inputs(nx, ny, seed, dev):
     import torch
 
@@ -506,7 +573,7 @@ def phase_build():
     from prost_tpu_torch.ops import cuda_build
 
     names = ("fused_rof", "fused_admm", "fused_multilabel", "fused_deblur",
-             "fused_tight")
+             "fused_tight", "fused_vol")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(cuda_build.load, names)))
@@ -1210,6 +1277,139 @@ def phase_tight_kernels(dev):
     return {"tight_chunk": row}
 
 
+def phase_vol_kernels(dev):
+    import torch
+
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    rows = {"vol_chunk": {"err": 0.0}, "vol_multichunk": {"err": 0.0}}
+    ri = 10
+    cases = ((VOL_LABELS, VOL_SIZE, VOL_SIZE, ("square",)),
+             (5, 190, 250, ("square", "wsquare", "abs")),
+             (1, 64, 96, ("square",)),
+             (VOL_LABELS, VOL_LARGE, VOL_LARGE, ("square",)))
+    for seed, (L, nx, ny, dataterms) in enumerate(cases):
+        nvox = L * nx * ny
+        shape = f"{nx}x{ny}x{L}"
+        # mass on the dead q coordinates, which both versions zero at entry
+        rng = np.random.RandomState(500 + seed)
+        arrs = (rng.rand(L, nx, ny), 0.3 * rng.randn(3, L, nx, ny),
+                rng.rand(L, nx, ny), 2.0 * (rng.rand(L, nx, ny) > 0.3))
+        u, q, f, w = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                      for a in arrs]
+        scal = torch.tensor([0.9, 1.1, 1.0, VOL_LMB, 1.0], device=dev)
+        for dataterm in dataterms:
+            out = fv.vol_chunk(u, q, f, w, scal, ri, dataterm)
+            ref = fv.vol_chunk_plain(u, q, f, w, scal, ri, dataterm)
+            torch.cuda.synchronize()
+            plane, rel = max_errs(out, ref)
+            print(f"vol_chunk {shape} {dataterm}: max abs err planes "
+                  f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms "
+                  f"{rel:.3e} (tol {NORM_RTOL:g})")
+            check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
+                  f"vol_chunk {shape} {dataterm} disagrees with its plain "
+                  "version")
+            check(all(bool(torch.isfinite(t).all()) for t in out),
+                  "vol_chunk produced non-finite values")
+            rows["vol_chunk"]["err"] = max(rows["vol_chunk"]["err"], plane)
+        if nx == VOL_SIZE:
+            rows["vol_chunk"]["ms"] = time_ms(
+                lambda: fv.vol_chunk(u, q, f, w, scal, ri), 50)
+            rows["vol_chunk"]["plain_ms"] = time_ms(
+                lambda: fv.vol_chunk_plain(u, q, f, w, scal, ri), 10)
+            # u, q, f in (5 volumes); new and previous u, q out (8)
+            rows["vol_chunk"]["bound"] = bound(13 * nvox * 4,
+                                               vol_chunk_ops(nvox, ri))
+
+        # a solve's start on bench.py's data: u = f, q = 0
+        f = torch.from_numpy(vol_data(L, nx, ny)).to(dev).reshape(L, nx, ny)
+        q = torch.zeros((3, L, nx, ny), device=dev)
+        consts = (np.sqrt(3 * nvox), np.sqrt(nvox), 1.5, 0.95, 1.05, 0.8)
+        runs = (("alg1", 0.0),) if nx == VOL_SIZE else ()
+        for stepsize, tol in runs + (("boyd", VOL_MC_TOL),):
+            scal = torch.tensor([1.0, 1.0, 1.0, VOL_LMB, 1.0, 0.5, 0.0, 0.0,
+                                 1.0, tol, tol, tol, tol], device=dev)
+            out = fv.vol_multichunk(f, q, f, f, scal, ri, 8, "square",
+                                    stepsize, consts)
+            ref = fv.vol_multichunk_plain(f, q, f, f, scal, ri, 8, "square",
+                                          stepsize, consts)
+            torch.cuda.synchronize()
+            plane, nrel = max_errs(out[:5], ref[:5])
+            _, srel = max_errs(out[4:], ref[4:], n_planes=1)
+            print(f"vol_multichunk {shape} {stepsize} tol {tol:g}: max abs "
+                  f"err planes {plane:.3e} (tol {PLANE_ATOL:g}), max rel err "
+                  f"norms {nrel:.3e} (tol {MC_NORM_RTOL:g}), scalars "
+                  f"{srel:.3e} (tol {NORM_RTOL:g}); sout kernel "
+                  f"{out[5].tolist()} plain {ref[5].tolist()}")
+            check(plane <= PLANE_ATOL and nrel <= MC_NORM_RTOL
+                  and srel <= NORM_RTOL,
+                  f"vol_multichunk {shape} {stepsize} tol {tol:g} disagrees "
+                  "with its plain version")
+            check(out[5][5:].tolist() == ref[5][5:].tolist(),
+                  "vol_multichunk's converged flag or chunk count disagrees")
+            rows["vol_multichunk"]["err"] = max(
+                rows["vol_multichunk"]["err"], plane)
+            if tol == 0.0:  # all 8 chunks run
+                rows["vol_multichunk"]["ms"] = time_ms(
+                    lambda: fv.vol_multichunk(f, q, f, f, scal, ri, 8,
+                                              "square", stepsize, consts), 20)
+                rows["vol_multichunk"]["plain_ms"] = time_ms(
+                    lambda: fv.vol_multichunk_plain(f, q, f, f, scal, ri, 8,
+                                                    "square", stepsize,
+                                                    consts), 3)
+                rows["vol_multichunk"]["bound"] = bound(
+                    13 * nvox * 4, vol_chunk_ops(nvox, ri, int(out[5][6])))
+    for name, r in rows.items():
+        print(f"{name} {VOL_SIZE}x{VOL_SIZE}x{VOL_LABELS}: kernel "
+              f"{r['ms']:.4f} ms/call, plain {r['plain_ms']:.4f} ms/call, "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    return rows
+
+
+def phase_vol_solve(card):
+    """vol256x8 (eight noisy slices of dog, lmb 6), fused and generic."""
+    from prost_tpu_torch.backend import BackendPDHG, PDHGOptions
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    nx = ny = VOL_SIZE
+    L = VOL_LABELS
+    f = vol_data(L, nx, ny)
+
+    def run(generic, max_iters):
+        backend = recording("pdhg", PDHGOptions(stepsize="boyd",
+                                                residual_iter=10),
+                            BackendPDHG if generic else None)
+        return run_model(backend, vol_model(nx, ny, L, f), nx * ny * L,
+                         max_iters)
+
+    run(False, 200)  # warm-up of both routes
+    run(True, 20)
+
+    fv.reset_launch_counts()
+    res, backend, dt = run(False, 2000)
+    launches = dict(fv.launch_counts)
+    check(backend.made.vol is not None, "the fused volumetric route was not "
+          "taken")
+    check(all(v > 0 for v in launches.values()),
+          f"a volumetric kernel of the path was not launched: {launches}")
+    e_fused = vol_energy(res.x, f, VOL_LMB, L, nx, ny)
+    print(f"fused vol solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; energy "
+          f"{e_fused:.8f}, launches {launches} [{card}]")
+
+    gres, gbackend, gdt = run(True, 2000)
+    e_gen = vol_energy(gres.x, f, VOL_LMB, L, nx, ny)
+    rel = abs(e_fused - e_gen) / abs(e_gen)
+    print(f"generic vol solve {nx}x{ny}x{L}: {rates(gres, gbackend, gdt)}; "
+          f"energy {e_gen:.8f} [{card}]")
+    print(f"energy fused vs generic vol: rel diff {rel:.3e} "
+          f"(tol {ENERGY_RTOL:g}); iterations {res.iterations} and "
+          f"{gres.iterations}")
+    check(rel <= ENERGY_RTOL, "fused and generic vol energies disagree")
+    check(res.iterations == gres.iterations,
+          "fused and generic vol solves stopped at different iterations")
+    return launches
+
+
 def phase_deblur_solve(card):
     """BASELINE config 2 at 512x512 (flowers, motion blur, lmb 100), fused
     and generic."""
@@ -1303,16 +1503,17 @@ def phase_tight_solve(card):
 
 def phase_large(card):
     """Both fused ROF routes at 2048x2048, the fused multilabel route at
-    512x512x8, the deblur route at 2048x2048 and the tight route at
-    512x512x4 (the JAX package's banded sizes): 300 iterations in two
-    callback epochs, so the second epoch reaches the multichunk phase of
-    the routes that have one."""
+    512x512x8, the deblur route at 2048x2048, the tight route at 512x512x4
+    and the volumetric route at 512x512x8 (the JAX package's banded sizes):
+    300 iterations in two callback epochs, each reaching the multichunk
+    phase of the routes that have one."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
     from prost_tpu_torch.ops import fused_admm as fa
     from prost_tpu_torch.ops import fused_deblur as fd
     from prost_tpu_torch.ops import fused_multilabel as fm
     from prost_tpu_torch.ops import fused_rof as fr
     from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.ops import fused_vol as fv
 
     nx = ny = 2048
     lmb = 16.0
@@ -1377,6 +1578,23 @@ def phase_large(card):
     print(f"fused tight solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; "
           f"energy {e:.6f}, launches {launches} [{card}]")
 
+    nx = ny = VOL_LARGE
+    L = VOL_LABELS
+    f = vol_data(L, nx, ny)
+    fv.reset_launch_counts()
+    res, backend, dt = run_model(
+        recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
+        vol_model(nx, ny, L, f), nx * ny * L, 300, num_cback_calls=2)
+    launches = dict(fv.launch_counts)
+    check(backend.made.vol is not None
+          and all(v > 0 for v in launches.values()),
+          f"a volumetric kernel was not launched at {nx}x{ny}x{L}: "
+          f"{launches}")
+    e = vol_energy(res.x, f, VOL_LMB, L, nx, ny)
+    check(np.isfinite(e), "the volumetric energy is not finite")
+    print(f"fused vol solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; energy "
+          f"{e:.6f}, launches {launches} [{card}]")
+
 
 def main() -> int:
     import torch
@@ -1401,12 +1619,14 @@ def main() -> int:
     rows.update(phase_ml_kernels(dev))
     rows.update(phase_deblur_kernels(dev))
     rows.update(phase_tight_kernels(dev))
+    rows.update(phase_vol_kernels(dev))
     torch.cuda.synchronize()
     launches, e_pdhg, d_pdhg = phase_solve(card)
     launches.update(phase_admm_solve(card, e_pdhg, d_pdhg))
     launches.update(phase_ml_solve(card))
     launches.update(phase_deblur_solve(card))
     launches.update(phase_tight_solve(card))
+    launches.update(phase_vol_solve(card))
     phase_large(card)
     check("jax" not in sys.modules, "jax was imported")
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
@@ -1422,6 +1642,8 @@ def main() -> int:
                           "prost_tpu/ops/fused_multilabel.py:322"),
         "deblur_chunk": ("fused_deblur", "prost_tpu/ops/fused_deblur.py:294"),
         "tight_chunk": ("fused_tight", "prost_tpu/ops/fused_tight.py:172"),
+        "vol_chunk": ("fused_vol", "prost_tpu/ops/fused_vol.py:213"),
+        "vol_multichunk": ("fused_vol", "prost_tpu/ops/fused_vol.py:362"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -8,10 +8,12 @@ through the fused routes of ``backend_admm`` (Chebyshev projection) and
 ``backend_pdhg`` (boyd), and through the fused routes of ``backend_pdhg``
 (boyd) its fast multilabel model (BASELINE config 3: 8 labels on
 data/cow.png at 256x256, lmb 0.5), its deblurring model (BASELINE config 2:
-data/flowers.png at 512x512 under the 9x9 motion blur, lmb 100) and its
+data/flowers.png at 512x512 under the 9x9 motion blur, lmb 100), its
 tight multilabel model (4 labels on data/junction_gray.png at 128x128,
-lmb 1); each with residual_iter 10, 2000 iterations in 10 callback epochs
-at tolerance 1e-5, after a warm-up solve, three times:
+lmb 1) and its volumetric TV model (vol256x8: eight noisy slices of
+data/dog.png at 256x256, lmb 6); each with residual_iter 10, 2000
+iterations in 10 callback epochs at tolerance 1e-5, after a warm-up
+solve, three times:
 
 1. as a user runs it: the iterating time (host time inside the backend's
    ``run`` calls, each ending with a device sync) and, for each phase of
@@ -38,18 +40,19 @@ import sys
 import time
 
 from chip_smoke import (DB_SIZE, ML_LABELS, ML_LMB, ML_SIZE, TIGHT_LABELS,
-                        TIGHT_SIZE, card_line, check, cow_gray, deblur_data,
-                        deblur_model, ml_model, ml_unaries, recording,
-                        run_model, test_image, tight_model, tight_unaries,
-                        timed_solve)
+                        TIGHT_SIZE, VOL_LABELS, VOL_SIZE, card_line, check,
+                        cow_gray, deblur_data, deblur_model, ml_model,
+                        ml_unaries, recording, run_model, test_image,
+                        tight_model, tight_unaries, timed_solve, vol_data,
+                        vol_model)
 
 PHASES = ("generic", "canonicalize", "multichunk", "chunk", "epilogue")
 LMB = 16.0
 SIZE, ITERS = 512, 2000
-ROUTES = ("admm", "pdhg", "ml", "deblur", "tight")
+ROUTES = ("admm", "pdhg", "ml", "deblur", "tight", "vol")
 # the backend attribute that holds each route's match
 TAKEN = {"admm": "rof", "pdhg": "rof", "ml": "ml", "deblur": "deblur",
-         "tight": "tight"}
+         "tight": "tight", "vol": "vol"}
 TIGHT_PAIRS = TIGHT_LABELS * (TIGHT_LABELS - 1) // 2
 
 
@@ -101,13 +104,13 @@ def instrumented(mod, stats, sync):
 
 
 def route_size(route):
-    return {"ml": ML_SIZE, "deblur": DB_SIZE, "tight": TIGHT_SIZE}.get(
-        route, SIZE)
+    return {"ml": ML_SIZE, "deblur": DB_SIZE, "tight": TIGHT_SIZE,
+            "vol": VOL_SIZE}.get(route, SIZE)
 
 
 def route_label(route):
     size = route_size(route)
-    labels = {"ml": ML_LABELS, "tight": TIGHT_LABELS}
+    labels = {"ml": ML_LABELS, "tight": TIGHT_LABELS, "vol": VOL_LABELS}
     return f"{size}x{size}" + (f"x{labels[route]}" if route in labels
                                else "")
 
@@ -120,6 +123,8 @@ def route_data(route):
         return deblur_data(size, size)
     if route == "tight":
         return tight_unaries(size, size, TIGHT_LABELS)
+    if route == "vol":
+        return vol_data(VOL_LABELS, size, size)
     return test_image(size, size).reshape(-1)
 
 
@@ -143,6 +148,8 @@ def solve(route, iters, f):
             "deblur": lambda: (deblur_model(size, size, f), n),
             "tight": lambda: (tight_model(size, size, TIGHT_LABELS, f),
                               n * (TIGHT_LABELS + 2 * TIGHT_PAIRS)),
+            "vol": lambda: (vol_model(size, size, VOL_LABELS, f),
+                            n * VOL_LABELS),
         }[route]()
         res, backend, wall = run_model(backend, prob, ncols, iters)
     check(getattr(backend.made, TAKEN[route]) is not None,

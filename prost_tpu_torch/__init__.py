@@ -4,14 +4,14 @@ large-scale convex-concave saddle-point problems with proximal structure:
     min_x max_y  g(x) + <Kx, y> - f*(y)
 
 The package mirrors ``prost_tpu``'s modules and names.  It imports torch
-and never jax (nor ``prost_tpu``).  Slices 1-2 cover ROF-type denoising
-by PDHG and by graph-projection ADMM: the modeling API, the prox and linop
-parts it uses, the preconditioned Problem, the generic PDHG backend with
-all four step-size rules, the generic ADMM backend with CGLS, Chebyshev
-and DCT projections, the solver loop, and the fused ROF routes of both
-backends, whose chunk kernels are hand-written CUDA for Hopper
-(``csrc/fused_rof.cu``, ``csrc/fused_admm.cu``), built by nvcc on first
-use.
+and never jax (nor ``prost_tpu``).  Slices 1-6 cover ROF-type denoising
+by PDHG and by graph-projection ADMM, the fast and tight multilabel
+relaxations, TV deblurring and volumetric TV: the modeling API, the prox
+and linop parts they use, the preconditioned Problem, the generic PDHG
+backend with all four step-size rules, the generic ADMM backend with CGLS,
+Chebyshev and DCT projections, the solver loop, and the fused routes,
+whose chunk kernels are hand-written CUDA for Hopper (``csrc/*.cu``),
+built by nvcc on first use.
 """
 
 from .config import (ProstError, device, dtype, list_devices, set_device,

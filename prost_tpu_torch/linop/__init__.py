@@ -1,10 +1,10 @@
 """Linear-operator layer (counterpart of ``prost_tpu/linop``), the part
-that slices 1-5 need."""
+that slices 1-6 need."""
 
 from .base import Block, DualLinearOperator, LinearOperator
 from .blocks import BlockDiags, BlockKronId
 from .conv import BlockConv2D
-from .gradient import BlockGradient2D
+from .gradient import BlockGradient2D, BlockGradient3D
 
 __all__ = [
     "Block",
@@ -14,4 +14,5 @@ __all__ = [
     "BlockDiags",
     "BlockKronId",
     "BlockGradient2D",
+    "BlockGradient3D",
 ]

@@ -1,5 +1,5 @@
 """Block factories: each returns ``(row, col, nrows, ncols) -> (Block, sz)``
-(counterpart of ``prost_tpu/modeling/block.py``: the factories slices 1-5
+(counterpart of ``prost_tpu/modeling/block.py``: the factories slices 1-6
 need).  ``sz`` is the block's own (nrows, ncols), checked by the problem
 against the variable pair's dimensions."""
 
@@ -7,7 +7,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..linop import BlockConv2D, BlockDiags, BlockGradient2D, BlockKronId
+from ..linop import (BlockConv2D, BlockDiags, BlockGradient2D,
+                     BlockGradient3D, BlockKronId)
 
 
 def _shape(K):
@@ -33,6 +34,14 @@ def gradient2d(nx, ny, L, label_first=False):
     sz = (2 * nx * ny * L, nx * ny * L)
     return lambda row, col, nrows, ncols: (
         BlockGradient2D(row=row, col=col, nx=nx, ny=ny, L=L,
+                        label_first=label_first), sz)
+
+
+def gradient3d(nx, ny, L, label_first=False):
+    """Gradient with a Dirichlet label-axis difference (gradient3d.m)."""
+    sz = (3 * nx * ny * L, nx * ny * L)
+    return lambda row, col, nrows, ncols: (
+        BlockGradient3D(row=row, col=col, nx=nx, ny=ny, L=L,
                         label_first=label_first), sz)
 
 

@@ -1,6 +1,7 @@
 """Fused iterations with hand-written CUDA kernels (counterpart of
 ``prost_tpu/ops``): the ROF route by PDHG and by ADMM, and the fast
-multilabel, TV-deblurring and tight-multilabel routes by PDHG."""
+multilabel, TV-deblurring, tight-multilabel and volumetric-TV routes by
+PDHG."""
 
 from .fused_admm import (FusedROFADMM, admm_chunk, admm_chunk_plain,
                          admm_multichunk, admm_multichunk_plain)
@@ -13,6 +14,8 @@ from .fused_rof import (FusedROFPDHG, launch_counts, match_rof_structure,
                         reset_launch_counts, rof_chunk, rof_chunk_plain,
                         rof_multichunk, rof_multichunk_plain)
 from .fused_tight import match_tight_structure, tight_chunk, tight_chunk_plain
+from .fused_vol import (match_vol_structure, vol_chunk, vol_chunk_plain,
+                        vol_multichunk, vol_multichunk_plain)
 
 __all__ = [
     "FusedROFADMM",
@@ -21,6 +24,7 @@ __all__ = [
     "match_multilabel_structure",
     "match_deblur_structure",
     "match_tight_structure",
+    "match_vol_structure",
     "admm_chunk",
     "admm_chunk_plain",
     "admm_multichunk",
@@ -37,6 +41,10 @@ __all__ = [
     "deblur_chunk_plain",
     "tight_chunk",
     "tight_chunk_plain",
+    "vol_chunk",
+    "vol_chunk_plain",
+    "vol_multichunk",
+    "vol_multichunk_plain",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -50,11 +50,10 @@ from ..backend.admm import (ADMMState, BackendADMM, admm_residual_adapt,
                             cg_tolerance, dct_projection_plan)
 from ..backend.pdhg import hold_if
 from ..config import ProstError
-from .fused_rof import (DATATERMS, _SQRT_S, _SQRT_T, _dead_dual_flat,
-                        match_rof_structure)
-from .pdhg_chunk import (CF, CI, VP, dx, dxt, dy, dyt, entry_converged,
-                         launch, project_dead_dual, ptr, scalar_buffer,
-                         typed_lib)
+from .fused_rof import DATATERMS, _SQRT_S, _SQRT_T, match_rof_structure
+from .pdhg_chunk import (CF, CI, VP, check_buffers, dead_dual_flat, dx, dxt,
+                         dy, dyt, entry_converged, launch, project_dead_dual,
+                         ptr, scalar_buffer, typed_lib)
 from .phases import K_CHUNKS, run_phases
 
 _C_K = _SQRT_S * _SQRT_T  # K~ = c_K * grad
@@ -369,21 +368,10 @@ def _check(planes, f, w, scal, n_scal: int, count: int, dataterm: str):
     nx, ny = xh.shape
     names = ("x_half", "x_proj", "x_dual", "z_half", "z_proj", "z_dual",
              "warm", "f", "w")
-    for name, t in zip(names, tuple(planes) + (f, w)):
-        shape = (2, nx, ny) if name.startswith("z") else (nx, ny)
-        if tuple(t.shape) != shape:
-            raise ProstError(f"{name} must be {shape}, got {tuple(t.shape)}.")
-    if scal.numel() not in (n_scal, n_scal + 1):
-        raise ProstError(f"scal must hold {n_scal} scalars "
-                         f"(+1 converged flag), got {scal.numel()}.")
-    dev = xh.device
-    for t in tuple(planes) + (f, w, scal):
-        if t.device != dev:
-            raise ProstError("All tensors must be on one device.")
-        if dev.type == "cuda" and t.dtype != torch.float32:
-            raise ProstError("The CUDA ADMM kernels take float32 only.")
-    if dev.type not in ("cpu", "cuda"):
-        raise ProstError(f"No ADMM kernel for device {dev}.")
+    check_buffers("ADMM", [(name, t, (2, nx, ny) if name.startswith("z")
+                            else (nx, ny))
+                           for name, t in zip(names, tuple(planes) + (f, w))],
+                  scal, n_scal)
 
 
 class _Work:
@@ -626,9 +614,9 @@ def _fused_admm_run(b: FusedROFADMM, state: ADMMState, until: int,
 
     def canonicalize(s):
         return dataclasses.replace(
-            s, z_half=_dead_dual_flat(s.z_half, nx, ny),
-            z_proj=_dead_dual_flat(s.z_proj, nx, ny),
-            z_dual=_dead_dual_flat(s.z_dual, nx, ny))
+            s, z_half=dead_dual_flat(s.z_half, 1, nx, ny),
+            z_proj=dead_dual_flat(s.z_proj, 1, nx, ny),
+            z_dual=dead_dual_flat(s.z_dual, 1, nx, ny))
 
     multichunk = None
     if b.mode == "cheby":

@@ -55,10 +55,10 @@ from ..linop.gradient import BlockGradient2D
 from ..prox.combinators import ProxMoreau
 from ..prox.elemop import ProxElem1D
 from ..prox.standalone import ProxZero
-from .pdhg_chunk import (CF, CI, VP, ChunkWork, ball_scale, chunk_state,
-                         coeff_vector, dual_ball_radius, entry_converged,
-                         isscalar, launch, run_pdhg_route, segment_const,
-                         typed_lib)
+from .pdhg_chunk import (CF, CI, VP, ChunkWork, ball_scale, check_buffers,
+                         chunk_state, coeff_vector, dual_ball_radius,
+                         entry_converged, isscalar, launch, run_pdhg_route,
+                         segment_const, typed_lib)
 
 MAX_TAPS = 96  # nonzero convolution taps the kernel takes
 
@@ -265,10 +265,6 @@ def _check(x, yv, q, fb, sv, scal, count: int, taps):
         raise ProstError(f"yv must be an (nx2, ny2) plane with nx2 >= {nx}, "
                          f"ny2 >= {ny}, got {tuple(yv.shape)}.")
     nx2, ny2 = yv.shape
-    for name, t, shape in (("q", q, (2, nx, ny)), ("fb", fb, (nx2, ny2)),
-                           ("sv", sv, (nx2, ny2))):
-        if tuple(t.shape) != shape:
-            raise ProstError(f"{name} must be {shape}, got {tuple(t.shape)}.")
     if not 1 <= len(taps) <= MAX_TAPS:
         raise ProstError(f"The kernel takes 1 to {MAX_TAPS} taps, got "
                          f"{len(taps)}.")
@@ -276,17 +272,9 @@ def _check(x, yv, q, fb, sv, scal, count: int, taps):
         if not (0 <= dx <= nx2 - nx and 0 <= dy <= ny2 - ny):
             raise ProstError(f"Tap ({dx}, {dy}) lies outside the "
                              f"{nx2 - nx + 1}x{ny2 - ny + 1} kernel.")
-    if scal.numel() not in (5, 6):
-        raise ProstError("scal must hold 5 scalars (+1 converged flag), "
-                         f"got {scal.numel()}.")
-    dev = x.device
-    for t in (x, yv, q, fb, sv, scal):
-        if t.device != dev:
-            raise ProstError("All tensors must be on one device.")
-        if dev.type == "cuda" and t.dtype != torch.float32:
-            raise ProstError("The CUDA deblur kernel takes float32 only.")
-    if dev.type not in ("cpu", "cuda"):
-        raise ProstError(f"No deblur kernel for device {dev}.")
+    check_buffers("deblur", (("x", x, (nx, ny)), ("yv", yv, (nx2, ny2)),
+                             ("q", q, (2, nx, ny)), ("fb", fb, (nx2, ny2)),
+                             ("sv", sv, (nx2, ny2))), scal, 5)
 
 
 def _lib():

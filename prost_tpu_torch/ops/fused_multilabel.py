@@ -42,8 +42,6 @@ and at every chunk entry, as on the ROF route.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from ..backend.pdhg import PDHGState
@@ -52,11 +50,12 @@ from ..linop.base import LinearOperator
 from ..linop.blocks import BlockKronId
 from ..linop.gradient import BlockGradient2D
 from ..prox.elemop import ProxElem1D, ProxElemNorm2
-from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, adapt_scalars,
-                         ball_scale, chunk_state, coeff_vector, dx, dxt, dy,
-                         dyt, entry_converged, isscalar, launch,
-                         leq0_ball_radius, multichunk_state,
-                         project_dead_dual, run_pdhg_route, typed_lib)
+from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, ball_scale,
+                         canonical_duals, check_buffers, chunk_state,
+                         coeff_vector, dx, dxt, dy, dyt, entry_converged,
+                         isscalar, launch, leq0_ball_radius, multichunk_plain,
+                         multichunk_state, project_dead_dual, run_pdhg_route,
+                         typed_lib)
 from .phases import K_CHUNKS
 
 _SQRT_T = 0.4472135954999579    # sqrt(Tau)     = sqrt(1/5)
@@ -170,39 +169,20 @@ def ml_multichunk_plain(u, q, s, f, scal, count: int, k_chunks: int,
     branches around it with ``lax.cond``."""
     L = u.shape[0]
     theta, radius, d_s = scal[2], scal[3], scal[4]
-    it0 = scal[8]
-    tols4 = (scal[9], scal[10], scal[11], scal[12])
-    zero = torch.zeros((), dtype=u.dtype, device=u.device)
-    qx, qy = q[:L], q[L:]
-    planes = (u, qx, qy, s, u, qx, qy, s,
-              dx(u), dy(u), torch.sum(u, dim=0))
-    sc = (scal[0], scal[1], scal[5], scal[6], scal[7],
-          entry_converged(scal, 13), zero)
-    norms = (zero, zero, zero, zero)
-    for c in range(int(k_chunks)):
-        uc, qxc, qyc, sc_, _, _, _, _, gx, gy, su = planes
-        tau, sigma, aa, al, au, conv, done = sc
+
+    def chunk(tau, sigma, p):
         new, prev, nrm, g2 = _ml_chunk_core(
-            tau, sigma, theta, radius, d_s, uc, qxc, qyc, sc_, f, int(count),
-            g0=(gx, gy, su))
-        pr, pn = torch.sqrt(nrm[0]), torch.sqrt(nrm[1])
-        dr, dn = torch.sqrt(nrm[2]), torch.sqrt(nrm[3])
-        it = it0 + float((c + 1) * int(count) - 1)
-        tau2, sigma2, aa2, al2, au2, cv = adapt_scalars(
-            stepsize, consts, tols4, it, tau, sigma, aa, al, au,
-            pr, pn, dr, dn)
-        new_planes = new + prev + g2
-        new_sc = (tau2, sigma2, aa2, al2, au2, cv, done + 1.0)
-        planes = tuple(torch.where(conv, a, b)
-                       for a, b in zip(planes, new_planes))
-        sc = tuple(torch.where(conv, a, b) for a, b in zip(sc, new_sc))
-        norms = tuple(torch.where(conv, a, b)
-                      for a, b in zip(norms, (pr, pn, dr, dn)))
+            tau, sigma, theta, radius, d_s, p[0], p[1], p[2], p[3], f,
+            int(count), g0=p[8:])
+        return new + prev + g2, nrm
+
+    qx, qy = q[:L], q[L:]
+    planes, norms, sout = multichunk_plain(
+        chunk, (u, qx, qy, s, u, qx, qy, s, dx(u), dy(u), torch.sum(u, dim=0)),
+        scal, count, k_chunks, stepsize, consts)
     u2, qx2, qy2, s2, up, qxp, qyp, sp = planes[:8]
-    tau, sigma, aa, al, au, conv, done = sc
-    sout = torch.stack([tau, sigma, aa, al, au, conv.to(u.dtype), done])
     return (u2, torch.cat([qx2, qy2]), s2, up, torch.cat([qxp, qyp]), sp,
-            torch.stack(norms), sout)
+            norms, sout)
 
 
 # ---------------------------------------------------------------------------
@@ -216,21 +196,10 @@ def _check(u, q, s, f, scal, n_scal: int, count: int):
         raise ProstError(
             f"u must be an (L, nx, ny) stack, got {tuple(u.shape)}.")
     L, nx, ny = u.shape
-    for name, t, shape in (("q", q, (2 * L, nx, ny)), ("s", s, (nx, ny)),
-                           ("f", f, (L, nx, ny))):
-        if tuple(t.shape) != shape:
-            raise ProstError(f"{name} must be {shape}, got {tuple(t.shape)}.")
-    if scal.numel() not in (n_scal, n_scal + 1):
-        raise ProstError(f"scal must hold {n_scal} scalars "
-                         f"(+1 converged flag), got {scal.numel()}.")
-    dev = u.device
-    for t in (u, q, s, f, scal):
-        if t.device != dev:
-            raise ProstError("All tensors must be on one device.")
-        if dev.type == "cuda" and t.dtype != torch.float32:
-            raise ProstError("The CUDA multilabel kernels take float32 only.")
-    if dev.type not in ("cpu", "cuda"):
-        raise ProstError(f"No multilabel kernel for device {dev}.")
+    check_buffers("multilabel", (("u", u, (L, nx, ny)),
+                                 ("q", q, (2 * L, nx, ny)),
+                                 ("s", s, (nx, ny)), ("f", f, (L, nx, ny))),
+                  scal, n_scal)
 
 
 def _lib():
@@ -394,14 +363,6 @@ def _flat_y(q, s):
     return torch.cat([q.reshape(-1), s.reshape(-1)])
 
 
-def _dead_dual_flat(m, yf):
-    L, nx, ny = m["L"], m["nx"], m["ny"]
-    n2 = 2 * L * nx * ny
-    q = yf[:n2].reshape(2 * L, nx, ny)
-    qx, qy = project_dead_dual(q[:L], q[L:])
-    return torch.cat([qx.reshape(-1), qy.reshape(-1), yf[n2:]])
-
-
 def _multi_chunk(b, s: PDHGState) -> PDHGState:
     m, ri = b.ml, max(int(b.opts.residual_iter), 1)
     dt = s.x.dtype
@@ -432,11 +393,7 @@ def fused_ml_run(b, state: PDHGState, until: int, start: int) -> PDHGState:
     ``FusedROFPDHG`` ``b``; the canonicalization zeroes the dead dual
     coordinates of y and y_prev."""
     m = b.ml
-
-    def canonicalize(s):
-        return dataclasses.replace(s, y=_dead_dual_flat(m, s.y),
-                                   y_prev=_dead_dual_flat(m, s.y_prev))
-
     return run_pdhg_route(b, state, until, start,
-                          lambda s: _fused_chunk(b, s), canonicalize,
+                          lambda s: _fused_chunk(b, s),
+                          canonical_duals(m["L"], m["nx"], m["ny"]),
                           lambda s: _multi_chunk(b, s))

@@ -33,21 +33,20 @@ exact, and the CUDA kernels can read plain bounds-checked neighbours.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from ..backend.pdhg import BackendPDHG, PDHGState
 from ..config import ProstError, dtype as config_dtype
 from ..linop.base import LinearOperator
 from ..linop.gradient import BlockGradient2D
-from ..prox.elemop import ProxElem1D
 from .fused_deblur import fused_deblur_run, match_deblur_structure
 from .fused_multilabel import fused_ml_run, match_multilabel_structure
 from .fused_tight import fused_tight_run, match_tight_structure
-from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, adapt_scalars,
-                         ball_scale, chunk_state, dual_ball_radius, dx, dxt,
-                         dy, dyt, entry_converged, isscalar, launch,
+from .fused_vol import fused_vol_run, match_vol_structure
+from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, ball_scale,
+                         canonical_duals, check_buffers, chunk_state,
+                         dual_ball_radius, dx, dxt, dy, dyt, entry_converged,
+                         launch, match_dataterm, multichunk_plain,
                          multichunk_state, pdhg_adapt_consts,
                          project_dead_dual, run_pdhg_route, typed_lib)
 from .phases import K_CHUNKS
@@ -167,37 +166,19 @@ def rof_multichunk_plain(x, q, f, w, scal, count: int, k_chunks: int,
     chunk is computed and kept only while not converged, where the JAX
     kernel branches around it with ``lax.cond``."""
     theta, lmb, radius = scal[2], scal[3], scal[4]
-    it0 = scal[8]
-    tols4 = (scal[9], scal[10], scal[11], scal[12])
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    planes = (x, q[0], q[1], x, q[0], q[1], dx(x), dy(x))
-    sc = (scal[0], scal[1], scal[5], scal[6], scal[7],
-          entry_converged(scal, 13), zero)
-    norms = (zero, zero, zero, zero)
-    for c in range(int(k_chunks)):
-        xc, qx, qy, _, _, _, gx, gy = planes
-        tau, sigma, aa, al, au, conv, done = sc
-        x2, qx2, qy2, xpn, qxpn, qypn, nrm, g2 = _chunk_core(
-            tau, sigma, theta, lmb, radius, xc, qx, qy, f, w, int(count),
-            dataterm, g0=(gx, gy), return_g=True)
-        pr, pn = torch.sqrt(nrm[0]), torch.sqrt(nrm[1])
-        dr, dn = torch.sqrt(nrm[2]), torch.sqrt(nrm[3])
-        it = it0 + float((c + 1) * int(count) - 1)
-        tau2, sigma2, aa2, al2, au2, cv = adapt_scalars(
-            stepsize, consts, tols4, it, tau, sigma, aa, al, au,
-            pr, pn, dr, dn)
-        new_planes = (x2, qx2, qy2, xpn, qxpn, qypn, g2[0], g2[1])
-        new_sc = (tau2, sigma2, aa2, al2, au2, cv, done + 1.0)
-        planes = tuple(torch.where(conv, a, b)
-                       for a, b in zip(planes, new_planes))
-        sc = tuple(torch.where(conv, a, b) for a, b in zip(sc, new_sc))
-        norms = tuple(torch.where(conv, a, b)
-                      for a, b in zip(norms, (pr, pn, dr, dn)))
-    x2, qx2, qy2, xp, qxp, qyp, _, _ = planes
-    tau, sigma, aa, al, au, conv, done = sc
-    sout = torch.stack([tau, sigma, aa, al, au, conv.to(x.dtype), done])
-    return (x2, torch.stack([qx2, qy2]), xp, torch.stack([qxp, qyp]),
-            torch.stack(norms), sout)
+
+    def chunk(tau, sigma, p):
+        *out, nrm, g2 = _chunk_core(tau, sigma, theta, lmb, radius, p[0],
+                                    p[1], p[2], f, w, int(count), dataterm,
+                                    g0=p[6:], return_g=True)
+        return (*out, *g2), nrm
+
+    planes, norms, sout = multichunk_plain(
+        chunk, (x, q[0], q[1], x, q[0], q[1], dx(x), dy(x)), scal, count,
+        k_chunks, stepsize, consts)
+    x2, qx2, qy2, xp, qxp, qyp = planes[:6]
+    return (x2, torch.stack([qx2, qy2]), xp, torch.stack([qxp, qyp]), norms,
+            sout)
 
 
 # ---------------------------------------------------------------------------
@@ -212,21 +193,9 @@ def _check(x, q, f, w, scal, n_scal: int, count: int, dataterm: str):
     if x.dim() != 2 or min(x.shape) < 2:
         raise ProstError(f"x must be an (nx, ny) plane, got {tuple(x.shape)}.")
     nx, ny = x.shape
-    for name, t, shape in (("q", q, (2, nx, ny)), ("f", f, (nx, ny)),
-                           ("w", w, (nx, ny))):
-        if tuple(t.shape) != shape:
-            raise ProstError(f"{name} must be {shape}, got {tuple(t.shape)}.")
-    if scal.numel() not in (n_scal, n_scal + 1):
-        raise ProstError(f"scal must hold {n_scal} scalars "
-                         f"(+1 converged flag), got {scal.numel()}.")
-    dev = x.device
-    for t in (x, q, f, w, scal):
-        if t.device != dev:
-            raise ProstError("All tensors must be on one device.")
-        if dev.type == "cuda" and t.dtype != torch.float32:
-            raise ProstError("The CUDA ROF kernels take float32 only.")
-    if dev.type not in ("cpu", "cuda"):
-        raise ProstError(f"No ROF kernel for device {dev}.")
+    check_buffers("ROF", (("x", x, (nx, ny)), ("q", q, (2, nx, ny)),
+                          ("f", f, (nx, ny)), ("w", w, (nx, ny))),
+                  scal, n_scal)
 
 
 def _lib():
@@ -287,12 +256,6 @@ def rof_multichunk(x, q, f, w, scal, count: int, k_chunks: int,
 # structure matching and the backend
 # ---------------------------------------------------------------------------
 
-def _plane(v, nx, ny, dev):
-    if isinstance(v, torch.Tensor):
-        return v.to(torch.float32).reshape(nx, ny).contiguous()
-    return torch.full((nx, ny), float(v), dtype=torch.float32, device=dev)
-
-
 def match_rof_structure(problem):
     """Detect the fusable ROF structure; returns dict(nx, ny, f, w, lmb,
     radius, dataterm) or None.  Conditions: single gradient2d block (L=1,
@@ -311,35 +274,12 @@ def match_rof_structure(problem):
         return None
     if len(problem.prox_g) != 1 or len(problem.prox_fstar) != 1:
         return None
-    dev = problem.scaling_left.device
     nx, ny = blk.nx, blk.ny
-    # --- data term ---------------------------------------------------------
-    pg = problem.prox_g[0]
-    if not isinstance(pg, ProxElem1D) or pg.fun not in ("square", "abs"):
+    data = match_dataterm(problem.prox_g[0], (nx, ny),
+                          problem.scaling_left.device)
+    if data is None:
         return None
-    a, b, c, d, e, _, _ = pg.coeffs
-    if not (isscalar(c) and isscalar(d) and d == 0.0
-            and isscalar(e) and e == 0.0):
-        return None
-    if isscalar(a) and a == 1.0:
-        dataterm = "square" if pg.fun == "square" else "abs"
-        f = _plane(b, nx, ny, dev)
-        w = f  # ignored placeholder (keeps the kernel arity fixed)
-    elif (pg.fun == "square" and isinstance(a, torch.Tensor)
-          and a.numel() == nx * ny):
-        # weighted quadratic lmb/2 (a u - b)^2 == lmb/2 a^2 (u - b/a)^2:
-        # the masked data term of TV inpainting
-        dataterm = "wsquare"
-        a64 = a.to(torch.float64).reshape(-1)
-        b64 = (b.to(torch.float64).reshape(-1) if isinstance(b, torch.Tensor)
-               else torch.full_like(a64, float(b)))
-        b64 = torch.broadcast_to(b64, a64.shape)
-        safe = torch.where(a64 != 0, a64, torch.ones_like(a64))
-        f = _plane(torch.where(a64 != 0, b64 / safe, torch.zeros_like(a64)),
-                   nx, ny, dev)
-        w = _plane(a64 ** 2, nx, ny, dev)
-    else:
-        return None
+    dataterm, f, w, lmb = data
 
     # --- regularizer: per-pixel r-ball projection of the dual --------------
     radius = dual_ball_radius(problem.prox_fstar[0])
@@ -351,7 +291,7 @@ def match_rof_structure(problem):
     if not (torch.allclose(sl, torch.full_like(sl, 0.5))
             and torch.allclose(sr, torch.full_like(sr, 0.25))):
         return None
-    return {"nx": nx, "ny": ny, "f": f, "w": w, "lmb": float(c),
+    return {"nx": nx, "ny": ny, "f": f, "w": w, "lmb": lmb,
             "radius": radius, "dataterm": dataterm}
 
 
@@ -359,10 +299,11 @@ class FusedROFPDHG(BackendPDHG):
     """BackendPDHG that runs ROF-structured problems through the fused ROF
     chunk kernels, fast-multilabel problems through the fused multilabel
     kernels (``ops/fused_multilabel.py``), TV-deblurring problems through
-    the fused deblur kernel (``ops/fused_deblur.py``) and tight-multilabel
-    problems through the fused tight kernel (``ops/fused_tight.py``),
-    trying the routes in that order as the JAX package does, and behaves
-    exactly like BackendPDHG otherwise.  Residual iterations take their
+    the fused deblur kernel (``ops/fused_deblur.py``), tight-multilabel
+    problems through the fused tight kernel (``ops/fused_tight.py``) and
+    volumetric-TV problems through the fused volumetric kernels
+    (``ops/fused_vol.py``), trying the routes in that order as the JAX
+    package does, and behaves exactly like BackendPDHG otherwise.  Residual iterations take their
     norms from the kernels, and the adaptation and stopping test follow
     the generic code's order of operations."""
 
@@ -373,7 +314,7 @@ class FusedROFPDHG(BackendPDHG):
         # generic path
         usable = opts.stepsize != "alg2" and not opts.reference_residuals
         self.rof = match_rof_structure(problem) if usable else None
-        self.ml = self.deblur = self.tight = None
+        self.ml = self.deblur = self.tight = self.vol = None
         if usable and self.rof is None:
             self.ml = match_multilabel_structure(problem)
         if usable and not (self.rof or self.ml):
@@ -383,12 +324,16 @@ class FusedROFPDHG(BackendPDHG):
                                                  self.prox_fstar)
         if usable and not (self.rof or self.ml or self.deblur):
             self.tight = match_tight_structure(problem)
+        if usable and not (self.rof or self.ml or self.deblur or self.tight):
+            self.vol = match_vol_structure(problem)
         like = problem.scaling_left
         for r, names, kind in ((self.rof, ("lmb", "radius"), "ROF"),
                                (self.ml, ("radius", "d_s"), "multilabel"),
                                (self.deblur, ("lmb", "radius"), "deblur"),
                                (self.tight, ("radius", "d_s"),
-                                "tight-multilabel")):
+                                "tight-multilabel"),
+                               (self.vol, ("lmb", "radius"),
+                                "volumetric-TV")):
             if r is None:
                 continue
             for name in names:
@@ -411,13 +356,9 @@ class FusedROFPDHG(BackendPDHG):
             return fused_deblur_run(self, state, until_iter, start_iter)
         if self.tight is not None:
             return fused_tight_run(self, state, until_iter, start_iter)
+        if self.vol is not None:
+            return fused_vol_run(self, state, until_iter, start_iter)
         return super().run(state, until_iter, start_iter)
-
-
-def _dead_dual_flat(yf, nx, ny):
-    q = yf.reshape(2, nx, ny)
-    qx, qy = project_dead_dual(q[0], q[1])
-    return torch.stack([qx, qy]).reshape(-1)
 
 
 def _multi_chunk(b: FusedROFPDHG, s: PDHGState) -> PDHGState:
@@ -450,12 +391,7 @@ def _fused_rof_run(b: FusedROFPDHG, state: PDHGState, until: int,
                    start: int) -> PDHGState:
     """``run_pdhg_route`` with the ROF multichunks and chunks; the
     canonicalization zeroes the dead dual coordinates of y and y_prev."""
-    nx, ny = b.rof["nx"], b.rof["ny"]
-
-    def canonicalize(s):
-        return dataclasses.replace(s, y=_dead_dual_flat(s.y, nx, ny),
-                                   y_prev=_dead_dual_flat(s.y_prev, nx, ny))
-
     return run_pdhg_route(b, state, until, start,
-                          lambda s: _fused_chunk(b, s), canonicalize,
+                          lambda s: _fused_chunk(b, s),
+                          canonical_duals(1, b.rof["nx"], b.rof["ny"]),
                           lambda s: _multi_chunk(b, s))

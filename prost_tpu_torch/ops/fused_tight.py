@@ -51,10 +51,10 @@ from ..linop.blocks import BlockDiags, BlockKronId
 from ..linop.gradient import BlockGradient2D, fwd_diff, fwd_diff_adjoint
 from ..prox.elemop import ProxElem1D
 from ..prox.standalone import ProxZero
-from .pdhg_chunk import (CF, CI, VP, ChunkWork, ball_scale, chunk_state,
-                         coeff_vector, entry_converged, isscalar, launch,
-                         leq0_ball_radius, run_pdhg_route, segment_const,
-                         typed_lib)
+from .pdhg_chunk import (CF, CI, VP, ChunkWork, ball_scale, check_buffers,
+                         chunk_state, coeff_vector, entry_converged, isscalar,
+                         launch, leq0_ball_radius, run_pdhg_route,
+                         segment_const, typed_lib)
 
 MAX_TAPS = 512  # nonzeros of P^T the route takes (the JAX package's bound)
 
@@ -232,11 +232,6 @@ def _check(u, v, q, p, s, f, scal, count: int, taps, consts):
         raise ProstError(f"v must be a (2k, {nx}, {ny}) stack, got "
                          f"{tuple(v.shape)}.")
     k = v.shape[0] // 2
-    for name, t, shape in (("q", q, (2 * L, nx, ny)),
-                           ("p", p, (2 * k, nx, ny)), ("s", s, (nx, ny)),
-                           ("f", f, (L, nx, ny))):
-        if tuple(t.shape) != shape:
-            raise ProstError(f"{name} must be {shape}, got {tuple(t.shape)}.")
     if not 1 <= len(taps) <= MAX_TAPS:
         raise ProstError(f"The kernel takes 1 to {MAX_TAPS} taps, got "
                          f"{len(taps)}.")
@@ -245,17 +240,10 @@ def _check(u, v, q, p, s, f, scal, count: int, taps, consts):
     if len(consts) != 5:
         raise ProstError("consts must hold (sig_q, sig_p, sig_s, tau_u, "
                          "tau_v).")
-    if scal.numel() not in (5, 6):
-        raise ProstError("scal must hold 5 scalars (+1 converged flag), "
-                         f"got {scal.numel()}.")
-    dev = u.device
-    for t in (u, v, q, p, s, f, scal):
-        if t.device != dev:
-            raise ProstError("All tensors must be on one device.")
-        if dev.type == "cuda" and t.dtype != torch.float32:
-            raise ProstError("The CUDA tight kernel takes float32 only.")
-    if dev.type not in ("cpu", "cuda"):
-        raise ProstError(f"No tight kernel for device {dev}.")
+    check_buffers("tight", (("u", u, (L, nx, ny)), ("v", v, (2 * k, nx, ny)),
+                            ("q", q, (2 * L, nx, ny)),
+                            ("p", p, (2 * k, nx, ny)), ("s", s, (nx, ny)),
+                            ("f", f, (L, nx, ny))), scal, 5)
 
 
 def _lib():

@@ -1,0 +1,339 @@
+"""Fused PDHG iteration for volumetric TV (counterpart of
+``prost_tpu/ops/fused_vol.py``, whole-volume route).
+
+Workload (examples/example_vol_tv.py): min_u c/2 ||u - f||^2 (or c |u - f|,
+or the per-voxel weighted square) + ||grad3 u||_{2,1} on an (L, nx, ny)
+volume, where grad3 = BlockGradient3D: x and y forward differences with a
+Neumann boundary and a label-axis difference with a Dirichlet far boundary
+(gl_{L-1} = -u_{L-1}).  For a lone gradient3d operator the alpha
+preconditioners are the constants Sigma = 1/2, Tau = 1/6, so a PDHG
+iteration is pointwise work plus three stencils and their adjoints, and the
+dual is projected voxel by voxel onto a 3-component ball.
+
+Two kernels carry the route, hand-written CUDA in ``csrc/fused_vol.cu`` with
+a plain PyTorch version beside each wrapper here:
+
+* ``vol_chunk`` (JAX ``vol_fused_chunk``): ``count`` iterations ending on a
+  residual iteration, with the four squared preconditioned residual norms;
+* ``vol_multichunk`` (JAX ``vol_fused_multichunk``): up to ``k_chunks``
+  chunks with the boyd/goldstein adaptation and the stopping test on the
+  device between chunks.
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel, or raises.  There is no fallback and no VMEM gate: the
+kernels keep the volume in device memory, so they also serve the sizes for
+which the JAX package bands its kernels (``vol_fused_chunk_banded``,
+``vol_fused_multichunk_banded``).
+
+Layout contract (the JAX package's, at every public function): u, f, w
+viewed (L, nx, ny) (label_first=False); y = [gx; gy; gl], each a whole
+(L, nx, ny) volume, viewed q (3, L, nx, ny).  The dead dual coordinates of
+the Neumann axes (q_x's last row and q_y's last column in every label
+plane) are zeroed once per run and at every chunk entry, as on the ROF
+route; the label axis is Dirichlet, so q_l has none: its last label plane
+couples to -u_last and is kept whole, and its adjoint keeps the mask.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..backend.pdhg import PDHGState
+from ..config import ProstError, dtype as config_dtype
+from ..linop.base import LinearOperator
+from ..linop.gradient import BlockGradient3D
+from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, ball_scale,
+                         canonical_duals, check_buffers, chunk_state,
+                         dual_ball_radius, dx, dxt, dy, dyt, entry_converged,
+                         launch, match_dataterm, multichunk_plain,
+                         multichunk_state, project_dead_dual, run_pdhg_route,
+                         typed_lib)
+from .phases import K_CHUNKS
+
+_SQRT_S = 0.7071067811865476  # sqrt(Sigma) = sqrt(1/2)
+_SQRT_T = 0.4082482904638631  # sqrt(Tau)   = sqrt(1/6)
+
+DATATERMS = {"square": 0, "wsquare": 1, "abs": 2}
+
+# launches of each kernel wrapper on the card (CPU calls do not count)
+launch_counts = {"vol_chunk": 0, "vol_multichunk": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions of the chunk math
+# ---------------------------------------------------------------------------
+
+def dl(u):
+    """Label-axis forward difference, Dirichlet: the last is -u_last."""
+    return torch.cat([u[1:], torch.zeros_like(u[:1])]) - u
+
+
+def dlt(p):
+    """Adjoint of dl: p_{l-1}[l > 0] - p_l (masked; q_l has no dead
+    coordinate)."""
+    return torch.cat([torch.zeros_like(p[:1]), p[:-1]]) - p
+
+
+def _vol_update(u, qx, qy, ql, gx, gy, gl, dt0, dt1, tau, sig_p, sig_t,
+                radius, dataterm: str):
+    """One preconditioned PDHG update (JAX ``_vol_update``).  tau arrives
+    pre-multiplied by Tau = 1/6; sig_p = sigma*Sigma*(1+theta), sig_t =
+    sigma*Sigma*theta; (gx, gy, gl) is grad3(u) carried from the previous
+    iteration.  Returns the new state, the new gradient volumes and K^T of
+    the old dual."""
+    kty = dxt(qx) + dyt(qy) + dlt(ql)
+    arg = u - tau * kty
+    if dataterm in ("square", "wsquare"):
+        u_new = (arg + dt0) * dt1
+    else:  # abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
+        d = arg - dt0
+        u_new = arg - torch.minimum(torch.maximum(d, -dt1), dt1)
+    gx_n, gy_n, gl_n = dx(u_new), dy(u_new), dl(u_new)
+    ax = qx + sig_p * gx_n - sig_t * gx
+    ay = qy + sig_p * gy_n - sig_t * gy
+    al = ql + sig_p * gl_n - sig_t * gl
+    scale = ball_scale(ax * ax + ay * ay + al * al, radius)
+    return (u_new, ax * scale, ay * scale, al * scale, gx_n, gy_n, gl_n,
+            kty)
+
+
+def _vol_chunk_core(tau_raw, sigma_raw, theta, lmb, radius, u0, q0, f, w,
+                    count: int, dataterm: str, g0=None):
+    """One residual_iter-sized chunk (JAX ``_vol_chunk_core``, whole
+    volume): ``count - 1`` plain iterations, then the aligned iteration with
+    its four preconditioned residual norms (squared), each the sum of its
+    x, y and label terms as three whole-volume sums.  ``g0`` seeds the
+    carried gradient (a previous chunk's grad3(u2)).
+
+    Returns (u2, q2, u_prev, q_prev, (n0, n1, n2, n3), (gx2, gy2, gl2))."""
+    tau = tau_raw * (1.0 / 6.0)  # tau * Tau
+    sigma_p = sigma_raw * 0.5    # sigma * Sigma
+    sig_p = sigma_p * (1.0 + theta)
+    sig_t = sigma_p * theta
+    if dataterm == "square":
+        dt0, dt1 = (tau * lmb) * f, 1.0 / (1.0 + tau * lmb)
+    elif dataterm == "wsquare":
+        tw = (tau * lmb) * w
+        dt0, dt1 = tw * f, 1.0 / (1.0 + tw)
+    else:
+        dt0, dt1 = f, tau * lmb
+    qx, qy = project_dead_dual(q0[0], q0[1])
+    ql = q0[2]
+    u = u0
+    gx, gy, gl = (dx(u0), dy(u0), dl(u0)) if g0 is None else g0
+    args = (tau, sig_p, sig_t, radius, dataterm)
+    for _ in range(count - 1):
+        u, qx, qy, ql, gx, gy, gl, _ = _vol_update(u, qx, qy, ql, gx, gy, gl,
+                                                   dt0, dt1, *args)
+    gxp, gyp, glp = gx, gy, gl
+    # aligned iteration; (gxp, gyp, glp) is grad3(u_prev) carried for free
+    u2, qx2, qy2, ql2, gx2, gy2, gl2, ktyp = _vol_update(
+        u, qx, qy, ql, gxp, gyp, glp, dt0, dt1, *args)
+    kty2 = dxt(qx2) + dyt(qy2) + dlt(ql2)
+
+    inv_s = 1.0 / (sigma_raw * _SQRT_S)
+    zh_x = (qx - qx2) * inv_s + _SQRT_S * ((1.0 + theta) * gx2 - theta * gxp)
+    zh_y = (qy - qy2) * inv_s + _SQRT_S * ((1.0 + theta) * gy2 - theta * gyp)
+    zh_l = (ql - ql2) * inv_s + _SQRT_S * ((1.0 + theta) * gl2 - theta * glp)
+    pd_x = zh_x - _SQRT_S * gx2
+    pd_y = zh_y - _SQRT_S * gy2
+    pd_l = zh_l - _SQRT_S * gl2
+    wh = (u - u2) * (1.0 / (tau_raw * _SQRT_T)) - _SQRT_T * ktyp
+    dd = wh + _SQRT_T * kty2
+
+    def ssq(a):
+        return torch.sum(a * a)
+
+    norms = (ssq(pd_x) + ssq(pd_y) + ssq(pd_l),
+             ssq(zh_x) + ssq(zh_y) + ssq(zh_l),
+             ssq(dd), ssq(wh))
+    return (u2, torch.stack([qx2, qy2, ql2]), u, torch.stack([qx, qy, ql]),
+            norms, (gx2, gy2, gl2))
+
+
+def vol_chunk_plain(u, q, f, w, scal, count: int, dataterm: str = "square"):
+    """Plain PyTorch version of ``vol_chunk`` (any device)."""
+    u2, q2, up, qp, norms, _ = _vol_chunk_core(
+        scal[0], scal[1], scal[2], scal[3], scal[4], u, q, f, w, int(count),
+        dataterm)
+    n2 = torch.stack(norms)
+    conv = entry_converged(scal, 5)
+    return (torch.where(conv, u, u2), torch.where(conv, q, q2),
+            torch.where(conv, u, up), torch.where(conv, q, qp),
+            torch.where(conv, torch.zeros_like(n2), n2))
+
+
+def vol_multichunk_plain(u, q, f, w, scal, count: int, k_chunks: int,
+                         dataterm: str, stepsize: str, consts):
+    """Plain PyTorch version of ``vol_multichunk`` (any device): every
+    chunk is computed and kept only while not converged, where the JAX
+    kernel branches around it with ``lax.cond``."""
+    theta, lmb, radius = scal[2], scal[3], scal[4]
+
+    def chunk(tau, sigma, p):
+        *out, nrm, g2 = _vol_chunk_core(tau, sigma, theta, lmb, radius, p[0],
+                                        p[1], f, w, int(count), dataterm,
+                                        g0=p[4:])
+        return (*out, *g2), nrm
+
+    planes, norms, sout = multichunk_plain(
+        chunk, (u, q, u, q, dx(u), dy(u), dl(u)), scal, count, k_chunks,
+        stepsize, consts)
+    return (*planes[:4], norms, sout)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(u, q, f, w, scal, n_scal: int, count: int, dataterm: str):
+    if dataterm not in DATATERMS:
+        raise ProstError(f"Unknown volumetric data term '{dataterm}'.")
+    if int(count) < 1:
+        raise ProstError("A chunk needs count >= 1.")
+    if u.dim() != 3 or u.shape[0] < 1 or min(u.shape[1:]) < 2:
+        raise ProstError(
+            f"u must be an (L, nx, ny) volume, got {tuple(u.shape)}.")
+    L, nx, ny = u.shape
+    check_buffers("volumetric", (("u", u, (L, nx, ny)),
+                                 ("q", q, (3, L, nx, ny)),
+                                 ("f", f, (L, nx, ny)), ("w", w, (L, nx, ny))),
+                  scal, n_scal)
+
+
+def _lib():
+    """The fused volumetric kernel library, built from csrc/fused_vol.cu on
+    first use."""
+    return typed_lib("fused_vol", "prost_vol_num_blocks", {
+        "prost_vol_chunk": [VP] * 10 + [CI] * 5 + [VP],
+        "prost_vol_multichunk": [VP] * 10 + [CI] * 7 + [CF] * 6 + [VP]})
+
+
+def vol_chunk(u, q, f, w, scal, count: int, dataterm: str = "square"):
+    """``count`` fused iterations ending on a residual iteration.
+
+    u, f, w: (L, nx, ny); q: (3, L, nx, ny); scal: [tau, sigma, theta, lmb,
+    radius] (+ an optional converged flag: when set, nothing runs and the
+    inputs come back).  Returns (u2, q2, u_prev, q_prev, norms2), norms2
+    the 4 SQUARED preconditioned residual norms, on the inputs' device.
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    _check(u, q, f, w, scal, 5, count, dataterm)
+    if u.device.type == "cpu":
+        return vol_chunk_plain(u, q, f, w, scal, count, dataterm)
+    lib = _lib()
+    L, nx, ny = u.shape
+    wk = ChunkWork((u, q), (q,), scal, 5, lib.prost_vol_num_blocks(nx, ny))
+    launch(lib, "prost_vol_chunk", "vol_chunk", launch_counts, u.device,
+           wk.buffers(f, w), L, nx, ny, int(count), DATATERMS[dataterm])
+    return wk.outputs()
+
+
+def vol_multichunk(u, q, f, w, scal, count: int, k_chunks: int,
+                   dataterm: str, stepsize: str, consts):
+    """Up to ``k_chunks * count`` fused iterations with the adaptation and
+    the stopping test on the device between chunks.
+
+    ``scal`` holds 13 scalars: [tau, sigma, theta, lmb, radius, arg_alpha,
+    arb_l, arb_u, it0, tol_rel_p, tol_rel_d, tol_abs_p, tol_abs_d] (+ an
+    optional converged-at-entry flag).  Returns (u2, q2, u_prev, q_prev,
+    norms, sout): norms the last executed chunk's sqrt'd residual norms,
+    sout = [tau, sigma, arg_alpha, arb_l, arb_u, converged, chunks_done].
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    _check(u, q, f, w, scal, 13, count, dataterm)
+    if stepsize not in STEPSIZES:
+        raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
+    if u.device.type == "cpu":
+        return vol_multichunk_plain(u, q, f, w, scal, count, k_chunks,
+                                    dataterm, stepsize, consts)
+    lib = _lib()
+    L, nx, ny = u.shape
+    wk = ChunkWork((u, q), (q,), scal, 13, lib.prost_vol_num_blocks(nx, ny))
+    launch(lib, "prost_vol_multichunk", "vol_multichunk", launch_counts,
+           u.device, wk.buffers(f, w), L, nx, ny, int(count), int(k_chunks),
+           DATATERMS[dataterm], STEPSIZES[stepsize],
+           *[float(c) for c in consts])
+    return (*wk.outputs(), wk.sout())
+
+
+# ---------------------------------------------------------------------------
+# structure matching and the route
+# ---------------------------------------------------------------------------
+
+def match_vol_structure(problem):
+    """Detect the fusable volumetric-TV structure; returns dict(L, nx, ny,
+    f, w, lmb, radius, dataterm) or None.  Conditions: a lone gradient3d
+    block (label_first=False); prox_g a single 1D square or abs with coeffs
+    (1, f, lmb, 0, 0), or a square with per-voxel a; prox_fstar a
+    Moreau(norm2 abs, dim=3 planar, coeffs (1, 0, c, 0, 0)) or a dim-3
+    norm2 ind_leq0 ball; alpha preconditioner (Sigma = 1/2, Tau = 1/6).
+    The fused route is float32 only."""
+    if config_dtype() != torch.float32:
+        return None
+    linop = problem.linop
+    if not isinstance(linop, LinearOperator) or len(linop.blocks) != 1:
+        return None
+    blk = linop.blocks[0]
+    if not isinstance(blk, BlockGradient3D) or blk.label_first:
+        return None
+    if len(problem.prox_g) != 1 or len(problem.prox_fstar) != 1:
+        return None
+    L, nx, ny = blk.L, blk.nx, blk.ny
+    data = match_dataterm(problem.prox_g[0], (L, nx, ny),
+                          problem.scaling_left.device)
+    if data is None:
+        return None
+    dataterm, f, w, lmb = data
+    radius = dual_ball_radius(problem.prox_fstar[0], dim=3)
+    if radius is None:
+        return None
+    sl, sr = problem.scaling_left, problem.scaling_right
+    if not (torch.allclose(sl, torch.full_like(sl, 0.5))
+            and torch.allclose(sr, torch.full_like(sr, 1.0 / 6.0))):
+        return None
+    return {"L": L, "nx": nx, "ny": ny, "f": f, "w": w, "lmb": lmb,
+            "radius": radius, "dataterm": dataterm}
+
+
+def _volumes(v, s: PDHGState):
+    L, nx, ny = v["L"], v["nx"], v["ny"]
+    return s.x.reshape(L, nx, ny), s.y.reshape(3, L, nx, ny)
+
+
+def _multi_chunk(b, s: PDHGState) -> PDHGState:
+    v, ri = b.vol, max(int(b.opts.residual_iter), 1)
+    scal = torch.stack([
+        s.tau, s.sigma, s.theta, v["lmb_t"], v["radius_t"],
+        s.arg_alpha, s.arb_l, s.arb_u, s.iteration.to(s.x.dtype),
+        *v["tols_t"], s.converged.to(s.x.dtype)])
+    u2, q2, up, qp, norms, sc = vol_multichunk(
+        *_volumes(v, s), v["f"], v["w"], scal, ri, K_CHUNKS, v["dataterm"],
+        b.opts.stepsize, v["adapt_consts"])
+    return multichunk_state(s, ri, u2.reshape(-1), q2.reshape(-1),
+                            up.reshape(-1), qp.reshape(-1), norms, sc)
+
+
+def _fused_chunk(b, s: PDHGState) -> PDHGState:
+    v, ri = b.vol, max(int(b.opts.residual_iter), 1)
+    scal = torch.stack([s.tau, s.sigma, s.theta, v["lmb_t"], v["radius_t"],
+                        s.converged.to(s.x.dtype)])
+    u2, q2, up, qp, norms2 = vol_chunk(*_volumes(v, s), v["f"], v["w"], scal,
+                                       ri, v["dataterm"])
+    return chunk_state(b, s, ri, u2.reshape(-1), q2.reshape(-1),
+                       up.reshape(-1), qp.reshape(-1), norms2)
+
+
+def fused_vol_run(b, state: PDHGState, until: int, start: int) -> PDHGState:
+    """``run_pdhg_route`` with the volumetric multichunks and chunks of
+    ``FusedROFPDHG`` ``b``; the canonicalization zeroes the dead dual
+    coordinates of y and y_prev (q_x's last row, q_y's last column) and
+    leaves q_l, the segment after them, whole."""
+    v = b.vol
+    return run_pdhg_route(b, state, until, start,
+                          lambda s: _fused_chunk(b, s),
+                          canonical_duals(v["L"], v["nx"], v["ny"]),
+                          lambda s: _multi_chunk(b, s))

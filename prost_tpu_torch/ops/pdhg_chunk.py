@@ -1,20 +1,22 @@
 """Pieces shared by the fused PDHG chunk routes, ROF (``ops/fused_rof.py``),
 fast multilabel (``ops/fused_multilabel.py``), deblurring
-(``ops/fused_deblur.py``) and tight multilabel (``ops/fused_tight.py``): the
-Python side of ``csrc/pdhg_chunk.cuh``.
+(``ops/fused_deblur.py``), tight multilabel (``ops/fused_tight.py``) and
+volumetric TV (``ops/fused_vol.py``): the Python side of
+``csrc/pdhg_chunk.cuh``.
 
 * the slots of the kernels' device scalar buffer;
 * the plain versions' stencils, dead-dual projection and ball scale, which
   act on the last two axes (nx, ny) of one plane or of a stack of label
-  planes;
-* the structure matchers' readings of prox coefficients and
+  planes, and the canonicalization of a state's duals;
+* the structure matchers' readings of data terms, prox coefficients and
   preconditioner segments;
 * ``adapt_scalars``, the multichunk's adaptation and stopping test, and the
   host-side state updates after a chunk or a multichunk launch;
 * ``run_pdhg_route``, a route's phase plan with its epilogue;
-* the launch plumbing of a kernel library with a plain C interface: typing
-  its functions once, loading the scalar buffer, the buffers of one call,
-  and the launch itself with its error check and its count.
+* the launch plumbing of a kernel library with a plain C interface: the
+  wrappers' common argument checks, typing its functions once, loading the
+  scalar buffer, the buffers of one call, and the launch itself with its
+  error check and its count.
 
 The ADMM route (``ops/fused_admm.py``) reuses the stencils and the launch
 plumbing with its own slot layout.
@@ -31,7 +33,7 @@ import torch
 from ..backend.pdhg import BackendPDHG, PDHGState, hold_if, residual_and_adapt
 from ..config import ProstError
 from ..prox.combinators import ProxMoreau
-from ..prox.elemop import ProxElemNorm2
+from ..prox.elemop import ProxElem1D, ProxElemNorm2
 from .phases import run_phases
 
 # alg2 never reaches a fused route; alg1 runs the stopping test only
@@ -78,6 +80,17 @@ def project_dead_dual(qx, qy):
     qx[..., -1, :] = 0.0
     qy[..., -1] = 0.0
     return qx, qy
+
+
+def dead_dual_flat(yf, L: int, nx: int, ny: int):
+    """``yf`` with the dead coordinates of its gradient duals zeroed: its
+    first 2 L nx ny entries are [q_x (L planes); q_y (L planes)]
+    (``project_dead_dual``); the rest (a label-difference or multiplier
+    segment, if any) comes back as it is."""
+    n2 = 2 * L * nx * ny
+    q = yf[:n2].reshape(2, L, nx, ny)
+    qx, qy = project_dead_dual(q[0], q[1])
+    return torch.cat([qx.reshape(-1), qy.reshape(-1), yf[n2:]])
 
 
 def ball_scale(nn, radius):
@@ -129,22 +142,56 @@ def leq0_ball_radius(p, dim: int):
     return float(ib) / float(ia)
 
 
-def dual_ball_radius(p):
-    """Radius of the per-pixel dim-2 ball of a gradient-row dual prox:
-    Moreau(norm2 abs, coeffs (1, 0, c, 0, 0)), the conjugate of c|x|, or a
-    dim-2 ind_leq0 ball; None otherwise."""
+def dual_ball_radius(p, dim: int = 2):
+    """Radius of the per-pixel dim-``dim`` ball of a gradient-row dual
+    prox: Moreau(norm2 abs, coeffs (1, 0, c, 0, 0)), the conjugate of c|x|,
+    or a dim-``dim`` ind_leq0 ball; None otherwise."""
     if not isinstance(p, ProxMoreau):
-        return leq0_ball_radius(p, 2)
+        return leq0_ball_radius(p, dim)
     inner = p.child
     if not isinstance(inner, ProxElemNorm2) or inner.fun != "abs":
         return None
-    if inner.dim != 2 or inner.interleaved:
+    if inner.dim != dim or inner.interleaved:
         return None
     ia, ib, ic, idd, ie, _, _ = inner.coeffs
     for v, want in ((ia, 1.0), (ib, 0.0), (idd, 0.0), (ie, 0.0)):
         if not (isscalar(v) and v == want):
             return None
     return float(ic) if isscalar(ic) else None
+
+
+def _const_tensor(v, shape, device):
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32).reshape(shape).contiguous()
+    return torch.full(shape, float(v), dtype=torch.float32, device=device)
+
+
+def match_dataterm(pg, shape, device):
+    """The fused ROF and volumetric data term of prox_g ``pg``, a 1D square
+    or abs with coeffs (1, f, lmb, 0, 0), or a square with a per-pixel a
+    (the masked inpainting term, lmb/2 (a u - b)^2 == lmb/2 a^2 (u - b/a)^2);
+    returns (dataterm, f, w, lmb) with f and w float32 tensors of
+    ``shape`` (w = f, a placeholder, unless wsquare), or None."""
+    if not isinstance(pg, ProxElem1D) or pg.fun not in ("square", "abs"):
+        return None
+    a, b, c, d, e, _, _ = pg.coeffs
+    if not (isscalar(c) and isscalar(d) and d == 0.0
+            and isscalar(e) and e == 0.0):
+        return None
+    if isscalar(a) and a == 1.0:
+        f = _const_tensor(b, shape, device)
+        return ("square" if pg.fun == "square" else "abs"), f, f, float(c)
+    if not (pg.fun == "square" and isinstance(a, torch.Tensor)
+            and a.numel() == math.prod(shape)):
+        return None
+    a64 = a.to(torch.float64).reshape(-1)
+    b64 = (b.to(torch.float64).reshape(-1) if isinstance(b, torch.Tensor)
+           else torch.full_like(a64, float(b)))
+    b64 = torch.broadcast_to(b64, a64.shape)
+    safe = torch.where(a64 != 0, a64, torch.ones_like(a64))
+    f = torch.where(a64 != 0, b64 / safe, torch.zeros_like(a64))
+    return ("wsquare", _const_tensor(f, shape, device),
+            _const_tensor(a64 ** 2, shape, device), float(c))
 
 
 def adapt_scalars(stepsize: str, consts, tols4, it, tau, sigma, arg_alpha,
@@ -180,6 +227,45 @@ def adapt_scalars(stepsize: str, consts, tols4, it, tau, sigma, arg_alpha,
         arb_u = torch.where(c1, it, arb_u)
         arb_l = torch.where(c2, it, arb_l)
     return tau, sigma, arg_alpha, arb_l, arb_u, conv
+
+
+def multichunk_plain(chunk, planes, scal, count: int, k_chunks: int,
+                     stepsize: str, consts):
+    """The loop of the PDHG routes' plain multichunk versions: up to
+    ``k_chunks`` chunks of ``count`` iterations with ``adapt_scalars``
+    between them.  ``chunk(tau, sigma, planes)`` runs one chunk and returns
+    (its planes, its 4 squared norms); ``planes`` is the launch's tuple of
+    state, previous iterate and carried planes; ``scal`` holds the 13
+    multichunk scalars (+ the converged-at-entry flag).  Every chunk is
+    computed and kept only while not converged, where the JAX kernels branch
+    around it with ``lax.cond``.
+
+    Returns (planes, the last executed chunk's sqrt'd norms, sout)."""
+    dt = planes[0].dtype
+    it0 = scal[8]
+    tols4 = (scal[9], scal[10], scal[11], scal[12])
+    zero = torch.zeros((), dtype=dt, device=scal.device)
+    sc = (scal[0], scal[1], scal[5], scal[6], scal[7],
+          entry_converged(scal, 13), zero)
+    norms = (zero, zero, zero, zero)
+    for c in range(int(k_chunks)):
+        tau, sigma, aa, al, au, conv, done = sc
+        new_planes, nrm = chunk(tau, sigma, planes)
+        pr, pn = torch.sqrt(nrm[0]), torch.sqrt(nrm[1])
+        dr, dn = torch.sqrt(nrm[2]), torch.sqrt(nrm[3])
+        it = it0 + float((c + 1) * int(count) - 1)
+        tau2, sigma2, aa2, al2, au2, cv = adapt_scalars(
+            stepsize, consts, tols4, it, tau, sigma, aa, al, au,
+            pr, pn, dr, dn)
+        new_sc = (tau2, sigma2, aa2, al2, au2, cv, done + 1.0)
+        planes = tuple(torch.where(conv, a, b)
+                       for a, b in zip(planes, new_planes))
+        sc = tuple(torch.where(conv, a, b) for a, b in zip(sc, new_sc))
+        norms = tuple(torch.where(conv, a, b)
+                      for a, b in zip(norms, (pr, pn, dr, dn)))
+    tau, sigma, aa, al, au, conv, done = sc
+    sout = torch.stack([tau, sigma, aa, al, au, conv.to(dt), done])
+    return planes, torch.stack(norms), sout
 
 
 def pdhg_adapt_consts(problem, opts) -> tuple:
@@ -233,6 +319,15 @@ def chunk_state(b: BackendPDHG, s: PDHGState, ri: int, x, y, x_prev, y_prev,
     return hold_if(s.converged, s, new)
 
 
+def canonical_duals(L: int, nx: int, ny: int):
+    """A route's canonicalization for ``run_pdhg_route``: the dead dual
+    coordinates of y and y_prev zeroed (``dead_dual_flat``)."""
+    def canonicalize(s):
+        return dataclasses.replace(s, y=dead_dual_flat(s.y, L, nx, ny),
+                                   y_prev=dead_dual_flat(s.y_prev, L, nx, ny))
+    return canonicalize
+
+
 def run_pdhg_route(b: BackendPDHG, state: PDHGState, until: int, start: int,
                    chunk, canonicalize=None, multichunk=None) -> PDHGState:
     """The phases of ``ops.phases.run_phases`` around a route's launches on
@@ -280,6 +375,28 @@ def typed_lib(name: str, num_blocks: str, signatures: dict):
             getattr(lib, fn).restype = CI
         lib._prost_typed = True
     return lib
+
+
+def check_buffers(kind: str, shapes, scal, n_scal: int) -> None:
+    """The checks every chunk wrapper makes after its own: each (name,
+    tensor, shape) of ``shapes`` has that shape, ``scal`` holds ``n_scal``
+    scalars (+1 converged flag), and all of them lie on one device, the CPU
+    or a card, in float32 on a card: the ``kind`` kernels take nothing
+    else."""
+    for name, t, shape in shapes:
+        if tuple(t.shape) != shape:
+            raise ProstError(f"{name} must be {shape}, got {tuple(t.shape)}.")
+    if scal.numel() not in (n_scal, n_scal + 1):
+        raise ProstError(f"scal must hold {n_scal} scalars "
+                         f"(+1 converged flag), got {scal.numel()}.")
+    dev = scal.device
+    for t in [t for _, t, _ in shapes] + [scal]:
+        if t.device != dev:
+            raise ProstError("All tensors must be on one device.")
+        if dev.type == "cuda" and t.dtype != torch.float32:
+            raise ProstError(f"The CUDA {kind} kernels take float32 only.")
+    if dev.type not in ("cpu", "cuda"):
+        raise ProstError(f"No {kind} kernel for device {dev}.")
 
 
 def ptr(t):

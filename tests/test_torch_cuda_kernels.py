@@ -20,7 +20,11 @@ relative after a chunk, 1e-3 after a multichunk launch, as for ADMM.  The
 deblur and tight kernels: planes 2e-5 times max(1, |plane|max) (the blur
 dual scales with lmb); norms 1e-4 relative, with a floor of 1e-4 of the
 largest norm, since the deblur route's dual variable norm is zero in exact
-arithmetic (its prox_g is zero) and what is left is rounding noise.
+arithmetic (its prox_g is zero) and what is left is rounding noise.  The
+volumetric kernels: planes 2e-5 absolute, norms 1e-4 relative after a
+chunk and 1e-3 after a multichunk launch, as for the multilabel kernels
+(their norm sums run per voxel, then over labels and blocks, where the
+plain version takes whole-volume sums).
 """
 
 import dataclasses
@@ -38,6 +42,7 @@ from prost_tpu_torch.ops import fused_deblur as fd
 from prost_tpu_torch.ops import fused_multilabel as fm
 from prost_tpu_torch.ops import fused_rof as fr
 from prost_tpu_torch.ops import fused_tight as ft
+from prost_tpu_torch.ops import fused_vol as fv
 
 pytestmark = pytest.mark.cuda
 
@@ -645,6 +650,148 @@ def test_fused_deblur_tight_backend_on_card_matches_cpu(dev, route):
     assert mod.launch_counts[f"{route}_chunk"] > 0
     gpu, cpu = states
     assert int(gpu.iteration) == int(cpu.iteration) == 157
+    for f in dataclasses.fields(gpu):
+        a, b = getattr(gpu, f.name), getattr(cpu, f.name)
+        assert a.is_cuda, f.name
+        if a.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3,
+                                       msg=f.name)
+
+
+# ---------------------------------------------------------------------------
+# the volumetric kernels
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's shapes: vol256x8, a ragged volume (ny not a multiple of 32,
+# nx not of 8), one slice, and the size the JAX package bands
+VOL_SHAPES = [(8, 256, 256), (5, 190, 250), (1, 64, 96), (8, 512, 512)]
+
+
+def _vol_inputs(seed, L, nx, ny, dev):
+    """u, q (with mass on the dead coordinates, which both versions zero
+    at entry, and on q_l's last label plane, which both keep), f, w."""
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(L, nx, ny), 0.3 * rng.randn(3, L, nx, ny),
+            rng.rand(L, nx, ny), 2.0 * (rng.rand(L, nx, ny) > 0.3))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+def _vol_consts(L, nx, ny):
+    n = L * nx * ny
+    return (float(np.sqrt(3 * n)), float(np.sqrt(n)), 1.5, 0.95, 1.05, 0.8)
+
+
+@pytest.mark.parametrize("shape,dataterm", [
+    (VOL_SHAPES[0], "square"), (VOL_SHAPES[1], "square"),
+    (VOL_SHAPES[1], "wsquare"), (VOL_SHAPES[1], "abs"),
+    (VOL_SHAPES[2], "square"), (VOL_SHAPES[3], "square")])
+@pytest.mark.parametrize("ri", [1, 10])
+def test_vol_chunk_matches_plain(dev, shape, dataterm, ri):
+    u, q, f, w = _vol_inputs(21, *shape, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 6.0, 1.0], device=dev)
+    before = fv.launch_counts["vol_chunk"]
+    out = fv.vol_chunk(u, q, f, w, scal, ri, dataterm)
+    ref = fv.vol_chunk_plain(u, q, f, w, scal, ri, dataterm)
+    torch.cuda.synchronize()
+    assert fv.launch_counts["vol_chunk"] == before + 1
+    assert all(t.is_cuda for t in out)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("shape", VOL_SHAPES)
+@pytest.mark.parametrize("stepsize,tol", [
+    ("alg1", 0.0), ("boyd", 5e-3), ("goldstein", 5e-3)])
+def test_vol_multichunk_matches_plain(dev, shape, stepsize, tol):
+    """A solve's start (u = f, q = 0) on random data; at 5e-3 the rules
+    adapt and the launch may converge within it."""
+    L, nx, ny = shape
+    f = _vol_inputs(22, L, nx, ny, dev)[2]
+    q = torch.zeros(3, L, nx, ny, device=dev)
+    scal = torch.tensor([1.0, 1.0, 1.0, 6.0, 1.0, 0.5, 0.0, 0.0, 1.0,
+                         tol, tol, tol, tol], device=dev)
+    consts = _vol_consts(L, nx, ny)
+    before = fv.launch_counts["vol_multichunk"]
+    out = fv.vol_multichunk(f, q, f, f, scal, 10, 8, "square", stepsize,
+                            consts)
+    ref = fv.vol_multichunk_plain(f, q, f, f, scal, 10, 8, "square",
+                                  stepsize, consts)
+    torch.cuda.synchronize()
+    assert fv.launch_counts["vol_multichunk"] == before + 1
+    for a, b in zip(out[:4], ref[:4]):
+        torch.testing.assert_close(a, b, atol=PLANE_ATOL, rtol=0)
+    torch.testing.assert_close(out[4], ref[4], rtol=1e-3, atol=1e-7)
+    torch.testing.assert_close(out[5], ref[5], rtol=NORM_RTOL, atol=0)
+    # converged flag and executed-chunk count exactly
+    assert out[5][5:].tolist() == ref[5][5:].tolist()
+
+
+def test_vol_converged_at_entry_returns_the_inputs(dev):
+    u, q, f, w = _vol_inputs(23, 3, 40, 36, dev)
+    c = fv.vol_chunk(u, q, f, w, torch.tensor([0.9, 1.1, 1.0, 6.0, 1.0, 1.0],
+                                              device=dev), 5)
+    for a, b in zip(c[:4], (u, q, u, q)):
+        assert torch.equal(a, b)
+    assert c[4].abs().sum().item() == 0.0
+    scal = torch.tensor([0.9, 1.1, 1.0, 6.0, 1.0, 0.5, 2.0, 3.0, 11.0,
+                         1e-3, 1e-3, 1e-3, 1e-3, 1.0], device=dev)
+    m = fv.vol_multichunk(u, q, f, w, scal, 5, 8, "square", "boyd",
+                          _vol_consts(3, 40, 36))
+    for a, b in zip(m[:4], (u, q, u, q)):
+        assert torch.equal(a, b)
+    ref = fv.vol_multichunk_plain(u, q, f, w, scal, 5, 8, "square", "boyd",
+                                  _vol_consts(3, 40, 36))
+    assert m[5].tolist() == ref[5].tolist()
+
+
+def test_vol_kernels_refuse_what_they_do_not_take(dev):
+    u, q, f, w = _vol_inputs(24, 3, 32, 32, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 6.0, 1.0], device=dev)
+    with pytest.raises(ptt.ProstError, match="float32"):
+        fv.vol_chunk(u.double(), q, f, w, scal, 3)
+    with pytest.raises(ptt.ProstError, match="one device"):
+        fv.vol_chunk(u, q, f.cpu(), w, scal, 3)
+    scal13 = torch.tensor([0.9, 1.1, 1.0, 6.0, 1.0, 0.5, 0.0, 0.0, 1.0,
+                           0.0, 0.0, 0.0, 0.0])
+    with pytest.raises(ptt.ProstError, match="one device"):
+        fv.vol_multichunk(u, q, f, w, scal13, 3, 8, "square", "boyd",
+                          _vol_consts(3, 32, 32))
+
+
+def _vol_problem(nx, ny, L, device):
+    f = np.random.RandomState(7).rand(nx * ny * L)
+    n = nx * ny * L
+    u, q = ptt.Variable(n), ptt.Variable(3 * n)
+    prob = ptt.MinMaxProblem([u], [q])
+    prob.add_function(u, ptt.function.sum_1d("square", 1, f, 6.0))
+    prob.add_function(q, ptt.function.conjugate(
+        ptt.function.sum_norm2(3, False, "abs")))
+    prob.add_dual_pair(u, q, ptt.block.gradient3d(nx, ny, L))
+    return prob.finalize().to(device)
+
+
+def test_fused_vol_backend_on_card_matches_cpu(dev):
+    """The whole fused volumetric route on the card (both kernels, the
+    phase plan, convergence inside a multichunk launch) against the same
+    route on the CPU with the plain versions."""
+    t = 1e-3
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=t,
+                              tol_rel_dual=t, tol_abs_primal=t,
+                              tol_abs_dual=t)
+    opts = PDHGOptions(stepsize="boyd", residual_iter=5,
+                       scale_steps_operator=False)
+    fv.reset_launch_counts()
+    states = []
+    for device in (dev, torch.device("cpu")):
+        b = FusedROFPDHG(_vol_problem(40, 36, 3, device), opts, sopts)
+        assert b.vol is not None
+        s = b.run(b.initial_state(), 57, 0)
+        s = b.run(s, 1500, int(s.iteration))
+        states.append(s)
+    assert fv.launch_counts["vol_chunk"] > 0
+    assert fv.launch_counts["vol_multichunk"] > 0
+    gpu, cpu = states
+    assert bool(gpu.converged) == bool(cpu.converged)
+    assert int(gpu.iteration) == int(cpu.iteration)
     for f in dataclasses.fields(gpu):
         a, b = getattr(gpu, f.name), getattr(cpu, f.name)
         assert a.is_cuda, f.name
