@@ -53,16 +53,38 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    terms, at 64x96x1 and at 512x512x8, and ``vol_multichunk`` (k = 8, ri =
    10, boyd) from a solve's start on bench.py's vol256x8 data at the four
    shapes, timed against their plain versions at 256x256x8;
-11. solve vol256x8, volumetric TV of eight noisy slices of data/dog.png at
+11. the batched chunks of the ensembles against their plain versions and,
+   instance by instance, against the single-instance kernels (bit-equal
+   expected): ``rof_chunk_batched`` (ri = 10) at B = 1024 of 128x128 on
+   BASELINE config 5's data with per-instance step sizes, at a ragged B =
+   5 of 250x190 for the three data terms and at B = 2 of 1280x1280 (where
+   the JAX package bands each instance); ``ml_chunk_batched`` at B = 8 of
+   256x256x8 and B = 3 of 250x190x5; ``vol_chunk_batched`` at B = 8 of
+   256x256x8, B = 3 of 190x250x5 for the three data terms and B = 2 of
+   64x96x1; timed at B = 1024 of 128x128 and B = 8 of 256x256x8;
+12. solve vol256x8, volumetric TV of eight noisy slices of data/dog.png at
    256x256 (lmb 6, boyd, residual_iter 10, 2000 iterations at tolerance
    1e-5), by the fused volumetric route and by the generic path, count
    both kernels' launches and hold the energies and the iteration counts
    together;
-12. run a few hundred iterations of the fused ROF routes at 2048x2048, of
+13. run BASELINE config 5, ensemble1024x128 as bench.py builds it (1024
+   ROF instances of the procedural 128x128 image, each with its own noise
+   and lmb), through ``BatchedPDHG``: the fused batched route and the
+   generic batched path, 21 + 1000 iterations each, with instance-it/s;
+   count the batched kernel's launches against the phase plan, hold every
+   instance's energy fused against generic and instances 0, 511 and 1023
+   against single-instance fused solves; then ensembles of 8 instances of
+   config 3 and of vol256x8, each instance with its own noise, the same
+   way;
+14. run a few hundred iterations of the fused ROF routes at 2048x2048, of
    the fused multilabel route at 512x512x8, of the deblur route at
    2048x2048, of the tight route at 512x512x4 and of the volumetric route
    at 512x512x8, where the JAX package bands its kernels: every kernel
    launches, the state stays on the card and finite.
+
+The images are bench.py's: data/*.png decoded by the script's own reader
+and converted and resized as PIL does (``fixture_gray``; the card's
+machine has no image library).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before
@@ -178,6 +200,17 @@ VOL_SIZE, VOL_LABELS, VOL_LMB, VOL_LARGE = 256, 8, 6.0, 512
 # partway through the launch at every shape (in chunk 3 of 8 at 256x256x8,
 # 4 at 190x250x5, 2 at 64x96x1; plain version on a CPU)
 VOL_MC_TOL = 5e-3
+# bench.py build_ensemble (ensemble1024x128, BASELINE config 5): B ROF
+# instances of the procedural image, each with its own 0.05 noise and lmb
+# from uniform(4, 32), drawn in turn from RandomState(42); timed over
+# ENS_ITERS iterations after ENS_WARM (the warm-up ends on a chunk boundary,
+# so the timed run is ENS_ITERS / 10 batched chunks and nothing else)
+ENS_B, ENS_SIZE, ENS_WARM, ENS_ITERS = 1024, 128, 21, 1000
+ENS_SAMPLES = (0, 511, 1023)  # instances held against single solves
+# the multilabel and vol ensembles: B instances of config 3 and vol256x8,
+# each with its own noise (0.05 on the cow's gray levels, vol256x8's own
+# slices drawn from RandomState(42 + b))
+SMALL_ENS_B, SMALL_ENS_ITERS = 8, 300
 
 
 def admm_iter_ops(degree):
@@ -196,6 +229,13 @@ def vol_chunk_ops(nvox, ri, chunks=1):
     """FP32 operations of a volumetric launch of ``chunks`` chunks of
     ``ri`` iterations on ``nvox`` voxels."""
     return nvox * (VOL_SEED_OPS + chunks * (ri * VOL_ITER_OPS + VOL_NORM_OPS))
+
+
+def single_launches(mod):
+    """The launch counts of a route module's single-instance kernels (its
+    batched chunk, if it has one, runs on the ensemble paths only)."""
+    return {k: v for k, v in mod.launch_counts.items()
+            if not k.endswith("_batched")}
 
 
 def check(cond, msg):
@@ -279,23 +319,67 @@ def read_png_rgb(path):
     return out.reshape(h, w, bpp)
 
 
-def fixture_gray(name, rows, cols):
-    """data/<name>.png as gray levels in [0, 1], the mean of its channels,
-    resized to (rows, cols) by bilinear interpolation with antialiasing.
-    Not bit-equal to bench.py's PIL conversion and resize; the same image
-    to a few gray levels."""
-    import os
+# PIL's resampling keeps its normalised filter coefficients in fixed point
+# with this many fraction bits (32 - 8 - 2) for 8-bit images.
+PIL_PRECISION_BITS = 22
 
-    import torch
+
+def pil_bilinear_pass(img, out_size):
+    """One pass of PIL's BILINEAR resample (Resample.c) along the last axis
+    of the uint8 array ``img``: the triangle filter's support widened by
+    the downscale factor, each output's coefficients normalised in double
+    and rounded to PIL_PRECISION_BITS fraction bits, an integer sum with
+    half added, shifted back and clipped to uint8."""
+    in_size = img.shape[-1]
+    scale = in_size / out_size
+    fscale = max(scale, 1.0)
+    support = fscale  # the bilinear filter's support is 1
+    inv = 1.0 / fscale
+    one = 1 << PIL_PRECISION_BITS
+    src = img.astype(np.int64)
+    out = np.empty(img.shape[:-1] + (out_size,), np.uint8)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        w = [max(0.0, 1.0 - abs((x - center + 0.5) * inv))
+             for x in range(xmin, xmax)]
+        total = 0.0
+        for v in w:  # summed in order, as the C loop does
+            total += v
+        if total != 0.0:
+            w = [v / total for v in w]
+        # C's (int) cast of the rounded fixed-point weight truncates
+        k = np.array([int(v * one - 0.5) if v < 0 else int(v * one + 0.5)
+                      for v in w], np.int64)
+        acc = (one >> 1) + src[..., xmin:xmax] @ k
+        out[..., xx] = np.clip(acc >> PIL_PRECISION_BITS, 0, 255)
+    return out
+
+
+def fixture_gray(name, rows, cols):
+    """data/<name>.png as bench.py reads it, with numpy alone (the card's
+    machine has no image library): PIL's ``convert("L")``, the ITU-R 601-2
+    luma (299 R + 587 G + 114 B) / 1000 in PIL's 16-bit fixed point and
+    rounded; PIL's ``resize((cols, rows), BILINEAR)``, a horizontal pass
+    then a vertical one with a uint8 image between them (a pass whose size
+    does not change is skipped); then / 255 in float32.  Bit-equal to PIL
+    on the four bench images (tests/test_torch_multilabel.py)."""
+    import os
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         f"{name}.png")
-    gray = read_png_rgb(path).astype(np.float64).mean(axis=-1) / 255.0
-    t = torch.from_numpy(gray)[None, None]
-    t = torch.nn.functional.interpolate(t, size=(rows, cols),
-                                        mode="bilinear", antialias=True,
-                                        align_corners=False)
-    return t[0, 0].numpy()
+    pix = read_png_rgb(path).astype(np.int64)
+    if pix.shape[-1] == 3:
+        gray = ((pix[..., 0] * 19595 + pix[..., 1] * 38470
+                 + pix[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
+    else:
+        gray = pix[..., 0].astype(np.uint8)
+    if gray.shape[1] != cols:
+        gray = pil_bilinear_pass(gray, cols)
+    if gray.shape[0] != rows:
+        gray = pil_bilinear_pass(gray.T, rows).T
+    return np.asarray(gray, np.float32) / np.float32(255.0)
 
 
 def cow_gray(ny, nx):
@@ -851,7 +935,7 @@ def phase_ml_kernels(dev):
 
         # a solve's start on the cow's unaries: u = q = s = 0; at
         # tolerance 5e-3 both rules adapt, and at 256x256x8 boyd converges
-        # in chunk 5 of 8 (plain version on a CPU)
+        # in chunk 6 of 8 (plain version on a CPU)
         f = torch.from_numpy(ml_unaries(cow_gray(ny, nx), L)).to(dev)
         f = f.reshape(L, nx, ny)
         u = torch.zeros_like(f)
@@ -1034,7 +1118,7 @@ def phase_solve(card):
 
     fr.reset_launch_counts()
     res, backend, dt = run(False, 2000)
-    launches = dict(fr.launch_counts)
+    launches = single_launches(fr)
     check(backend.made.rof is not None, "the fused route was not taken")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path was not launched: {launches}")
@@ -1082,7 +1166,7 @@ def phase_admm_solve(card, e_pdhg, d_pdhg):
 
     fa.reset_launch_counts()
     res, backend, dt = run(None, 2000)
-    launches = dict(fa.launch_counts)
+    launches = single_launches(fa)
     check(backend.made.mode == "cheby",
           f"the fused Chebyshev route was not taken: {backend.made.mode}")
     check(all(v > 0 for v in launches.values()),
@@ -1134,7 +1218,7 @@ def phase_ml_solve(card):
 
     fm.reset_launch_counts()
     res, backend, dt = run(False, 2000)
-    launches = dict(fm.launch_counts)
+    launches = single_launches(fm)
     check(backend.made.ml is not None, "the fused multilabel route was not "
           "taken")
     check(all(v > 0 for v in launches.values()),
@@ -1387,7 +1471,7 @@ def phase_vol_solve(card):
 
     fv.reset_launch_counts()
     res, backend, dt = run(False, 2000)
-    launches = dict(fv.launch_counts)
+    launches = single_launches(fv)
     check(backend.made.vol is not None, "the fused volumetric route was not "
           "taken")
     check(all(v > 0 for v in launches.values()),
@@ -1431,7 +1515,7 @@ def phase_deblur_solve(card):
 
     fd.reset_launch_counts()
     res, backend, dt = run(False, 2000)
-    launches = dict(fd.launch_counts)
+    launches = single_launches(fd)
     check(backend.made.deblur is not None, "the fused deblur route was not "
           "taken")
     check(all(v > 0 for v in launches.values()),
@@ -1473,7 +1557,7 @@ def phase_tight_solve(card):
 
     ft.reset_launch_counts()
     res, backend, dt = run(False, 2000)
-    launches = dict(ft.launch_counts)
+    launches = single_launches(ft)
     check(backend.made.tight is not None, "the fused tight route was not "
           "taken")
     check(all(v > 0 for v in launches.values()),
@@ -1501,6 +1585,376 @@ def phase_tight_solve(card):
     return launches
 
 
+def rof_energies(u, f, lmb, nx, ny):
+    """rof_energy of each of the B rows of ``u`` (with its own row of ``f``
+    and its own ``lmb``), in float64."""
+    u = u.reshape(-1, nx, ny).astype(np.float64)
+    gx = np.zeros_like(u)
+    gy = np.zeros_like(u)
+    gx[:, :-1] = u[:, 1:] - u[:, :-1]
+    gy[:, :, :-1] = u[:, :, 1:] - u[:, :, :-1]
+    fit = np.sum((u - f.reshape(u.shape)) ** 2, axis=(1, 2))
+    return 0.5 * np.asarray(lmb) * fit + np.sum(np.sqrt(gx ** 2 + gy ** 2),
+                                                axis=(1, 2))
+
+
+def ensemble_data(B, nx, ny, seed=42):
+    """bench.py build_ensemble's data: the procedural image plus each
+    instance's 0.05 randn, then its lmb from uniform(4, 32), in turn from
+    one RandomState(seed); ((B, nx*ny) f32, B lmb)."""
+    rng = np.random.RandomState(seed)
+    base = test_image(nx, ny, seed).reshape(-1)
+    fs, lmbs = [], []
+    for _ in range(B):
+        fs.append((base + 0.05 * rng.randn(nx * ny)).astype(np.float32))
+        lmbs.append(float(rng.uniform(4.0, 32.0)))
+    return np.stack(fs), lmbs
+
+
+def ensemble_problem(nx, ny, f, lmb):
+    """One instance of bench.py build_ensemble: Problem.create of a
+    BlockGradient2D, a ProxElem1D square data term with coeffs (1, f, lmb,
+    0, 0, 0, 0) and the conjugate of the dim-2 norm."""
+    import prost_tpu_torch as ptt
+
+    n = nx * ny
+    grad = ptt.linop.BlockGradient2D(row=0, col=0, nx=nx, ny=ny, L=1)
+    prox_g = [ptt.prox.ProxElem1D(index=0, size=n, fun="square",
+                                  coeffs=(1.0, f, lmb, 0.0, 0.0, 0.0, 0.0))]
+    pn = ptt.prox.ProxElemNorm2(index=0, size=2 * n, count=n, dim=2,
+                                interleaved=False, fun="abs",
+                                coeffs=(1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0))
+    return ptt.Problem.create(
+        ptt.linop.LinearOperator.create([grad]), prox_g=prox_g,
+        prox_fstar=[ptt.prox.ProxMoreau(index=0, size=2 * n, child=pn)])
+
+
+def batched_check(name, many, one, plain, planes, scal, n_planes, count,
+                  *extra):
+    """``many`` (a batched chunk wrapper) on the card against its plain
+    version on the same inputs, and each instance against the single-
+    instance kernel ``one`` on that instance alone (bit-equal expected).
+    Returns the largest plane error against the plain version."""
+    import torch
+
+    out = many(*planes, scal, count, *extra)
+    ref = plain(*planes, scal, count, *extra)
+    torch.cuda.synchronize()
+    plane, rel = max_errs(out, ref, n_planes)
+    single = 0.0
+    for b in range(planes[0].shape[0]):
+        s = one(*[p[b] for p in planes], scal[:, b], count, *extra)
+        for a, c in zip([o[b] for o in out[:n_planes]] + [out[n_planes][:, b]],
+                        s[:n_planes + 1]):
+            single = max(single, float(torch.max(torch.abs(a - c))))
+    print(f"{name}: max abs err planes {plane:.3e} (tol {PLANE_ATOL:g}), max "
+          f"rel err norms {rel:.3e} (tol {NORM_RTOL:g}); largest difference "
+          f"of an instance to the single-instance kernel {single:.3e} "
+          "(bit-equal expected)")
+    check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
+          f"{name} disagrees with its plain version")
+    check(single == 0.0, f"{name}: an instance differs from the single-"
+          "instance kernel")
+    check(all(bool(torch.isfinite(t).all()) for t in out),
+          f"{name} produced non-finite values")
+    return plane
+
+
+def batched_scal(seed, B, a, b, dev):
+    """(5, B) scalar rows with per-instance tau and sigma that differ:
+    tau, sigma in [0.8, 1.2), theta 1, the family's scalars a and b (rows
+    of B, or numbers)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    rows = [0.8 + 0.4 * rng.rand(B), 0.8 + 0.4 * rng.rand(B), np.ones(B),
+            np.broadcast_to(a, (B,)), np.broadcast_to(b, (B,))]
+    return torch.tensor(np.array(rows), dtype=torch.float32, device=dev)
+
+
+def phase_batched_kernels(dev):
+    """The three batched chunks against their plain versions and, instance
+    by instance, against the single-instance kernels; timed at the main
+    path's shapes (rof at ensemble1024x128, ml and vol at B = 8 of
+    256x256x8)."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    ri = 10
+    rows = {k: {"err": 0.0} for k in ("rof_chunk_batched", "ml_chunk_batched",
+                                       "vol_chunk_batched")}
+
+    # rof: the config-5 data (x = f, mass on q and on its dead coordinates),
+    # a ragged batch with the three data terms, and 1280x1280 instances,
+    # where the JAX package bands each instance (row 7)
+    fs, lmbs = ensemble_data(ENS_B, ENS_SIZE, ENS_SIZE)
+    rng = np.random.RandomState(600)
+    cases = [(ENS_B, ENS_SIZE, ENS_SIZE, "square"),
+             (5, 250, 190, "square"), (5, 250, 190, "wsquare"),
+             (5, 250, 190, "abs"), (2, 1280, 1280, "square")]
+    for seed, (B, nx, ny, dataterm) in enumerate(cases):
+        if B == ENS_B:
+            x = torch.from_numpy(fs).to(dev).reshape(B, nx, ny)
+            f, lmb = x, np.asarray(lmbs)
+        else:
+            x = torch.from_numpy(rng.rand(B, nx, ny).astype(np.float32)
+                                 ).to(dev)
+            f, lmb = torch.rand_like(x), 16.0
+        q = torch.from_numpy((0.3 * rng.randn(B, 2, nx, ny)).astype(
+            np.float32)).to(dev)
+        w = 2.0 * (torch.rand_like(x) > 0.3).float()
+        scal = batched_scal(610 + seed, B, lmb, 1.0, dev)
+        planes = (x, q, f, w)
+        err = batched_check(f"rof_chunk_batched B={B} {nx}x{ny} {dataterm}",
+                            fr.rof_chunk_batched, fr.rof_chunk,
+                            fr.rof_chunk_batched_plain, planes, scal, 4, ri,
+                            dataterm)
+        r = rows["rof_chunk_batched"]
+        r["err"] = max(r["err"], err)
+        if B == ENS_B:
+            r["ms"] = time_ms(lambda: fr.rof_chunk_batched(*planes, scal,
+                                                           ri), 20)
+            r["plain_ms"] = time_ms(lambda: fr.rof_chunk_batched_plain(
+                *planes, scal, ri), 5)
+            n = nx * ny
+            # x, q, f in (4 planes); new and previous x, q out (6)
+            r["bound"] = bound(10 * B * n * 4,
+                               B * n * (ri * ROF_ITER_OPS + ROF_NORM_OPS))
+
+    # ml: config 3's shape and a ragged one
+    for seed, (B, L, nx, ny) in enumerate(((SMALL_ENS_B, ML_LABELS, ML_SIZE,
+                                            ML_SIZE), (3, 5, 250, 190))):
+        arrs = (rng.rand(B, L, nx, ny), 0.3 * rng.randn(B, 2 * L, nx, ny),
+                0.1 * rng.randn(B, nx, ny), rng.rand(B, L, nx, ny))
+        planes = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                  for a in arrs]
+        scal = batched_scal(620 + seed, B, ML_LMB, 1.0, dev)
+        err = batched_check(f"ml_chunk_batched B={B} {nx}x{ny}x{L}",
+                            fm.ml_chunk_batched, fm.ml_chunk,
+                            fm.ml_chunk_batched_plain, planes, scal, 6, ri)
+        r = rows["ml_chunk_batched"]
+        r["err"] = max(r["err"], err)
+        if B == SMALL_ENS_B:
+            r["ms"] = time_ms(lambda: fm.ml_chunk_batched(*planes, scal, ri),
+                              20)
+            r["plain_ms"] = time_ms(lambda: fm.ml_chunk_batched_plain(
+                *planes, scal, ri), 5)
+            n = nx * ny
+            # u, q, s, f in; new and previous u, q, s out, per instance
+            r["bound"] = bound(B * (10 * L + 3) * n * 4,
+                               B * ml_chunk_ops(n, L, ri))
+
+    # vol: vol256x8's shape, a ragged one with the three data terms, and
+    # one slice
+    cases = [(SMALL_ENS_B, VOL_LABELS, VOL_SIZE, VOL_SIZE, "square"),
+             (3, 5, 190, 250, "square"), (3, 5, 190, 250, "wsquare"),
+             (3, 5, 190, 250, "abs"), (2, 1, 64, 96, "square")]
+    for seed, (B, L, nx, ny, dataterm) in enumerate(cases):
+        arrs = (rng.rand(B, L, nx, ny), 0.3 * rng.randn(B, 3, L, nx, ny),
+                rng.rand(B, L, nx, ny), 2.0 * (rng.rand(B, L, nx, ny) > 0.3))
+        planes = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                  for a in arrs]
+        scal = batched_scal(630 + seed, B, VOL_LMB, 1.0, dev)
+        err = batched_check(
+            f"vol_chunk_batched B={B} {nx}x{ny}x{L} {dataterm}",
+            fv.vol_chunk_batched, fv.vol_chunk, fv.vol_chunk_batched_plain,
+            planes, scal, 4, ri, dataterm)
+        r = rows["vol_chunk_batched"]
+        r["err"] = max(r["err"], err)
+        if B == SMALL_ENS_B:
+            r["ms"] = time_ms(lambda: fv.vol_chunk_batched(*planes, scal,
+                                                           ri), 20)
+            r["plain_ms"] = time_ms(lambda: fv.vol_chunk_batched_plain(
+                *planes, scal, ri), 5)
+            nvox = L * nx * ny
+            # u, q, f in (5 volumes); new and previous u, q out (8)
+            r["bound"] = bound(B * 13 * nvox * 4, B * vol_chunk_ops(nvox, ri))
+    for name, r in rows.items():
+        print(f"{name}: kernel {r['ms']:.4f} ms/call, plain "
+              f"{r['plain_ms']:.4f} ms/call, bound {r['bound'][0]:.5f} ms "
+              f"({r['bound'][1]})")
+    return rows
+
+
+def ensemble_run(b, warm, iters):
+    """``warm`` iterations of ``BatchedPDHG`` ``b`` from its initial state,
+    then ``iters`` more, timed on the host and synced by reading a scalar;
+    (state, seconds of the timed part)."""
+    s = b.run(b.initial_state(), warm, 0)
+    float(s.tau[0])
+    t0 = time.perf_counter()
+    s = b.run(s, warm + iters, warm)
+    float(s.tau[0])
+    return s, time.perf_counter() - t0
+
+
+def single_run(problem, opts, sopts, warm, iters):
+    """The single-instance fused route on one instance, with the same two
+    run calls as ``ensemble_run``; its final state."""
+    from prost_tpu_torch.ops import FusedROFPDHG
+
+    b = FusedROFPDHG(problem, opts, sopts)
+    check(b.rof is not None or b.ml is not None or b.vol is not None,
+          "the single-instance fused route was not taken")
+    s = b.run(b.initial_state(), warm, 0)
+    return b.run(s, warm + iters, warm)
+
+
+def ens_opts():
+    """bench.py's options for every configuration: boyd, residual_iter
+    10, no step scaling by the operator norm, all four tolerances 0 (no
+    instance converges, every run goes to its end)."""
+    import prost_tpu_torch as ptt
+    from prost_tpu_torch.backend import PDHGOptions
+
+    return (PDHGOptions(stepsize="boyd", residual_iter=10,
+                        scale_steps_operator=False),
+            ptt.SolverOptions(verbose=False, tol_rel_primal=0.0,
+                              tol_rel_dual=0.0, tol_abs_primal=0.0,
+                              tol_abs_dual=0.0))
+
+
+def phase_ensemble(card):
+    """ensemble1024x128 (BASELINE config 5) as bench.py builds it, through
+    BatchedPDHG: the fused batched route, then the generic batched path
+    (the route set to None), each ENS_WARM + ENS_ITERS iterations; every
+    instance's energy held fused against generic, three instances against
+    single-instance fused solves."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.parallel import BatchedPDHG
+
+    nx = ny = ENS_SIZE
+    fs, lmbs = ensemble_data(ENS_B, nx, ny)
+    opts, sopts = ens_opts()
+    t0 = time.perf_counter()
+    problems = [ensemble_problem(nx, ny, f, lmb) for f, lmb in zip(fs, lmbs)]
+    b = BatchedPDHG(problems, opts, sopts)
+    check(b.rof is not None, "the fused batched ROF route was not taken")
+    print(f"ensemble {ENS_B}x{nx}x{ny}: set-up {time.perf_counter() - t0:.2f}"
+          f" s (problems, stacking, matching); stacked leaves "
+          f"{b.batched_problem.paths}")
+
+    fr.reset_launch_counts()
+    state, dt = ensemble_run(b, ENS_WARM, ENS_ITERS)
+    launches = fr.launch_counts["rof_chunk_batched"]
+    # the phase plan: one generic step (iteration 0), two chunks to the end
+    # of the warm-up, then ENS_ITERS / 10 chunks
+    want = 2 + ENS_ITERS // 10
+    check(launches == want, f"rof_chunk_batched launches {launches}, the "
+          f"phase plan has {want}")
+    check(state.iteration.tolist() == [ENS_WARM + ENS_ITERS] * ENS_B
+          and not bool(state.converged.any()),
+          "the ensemble did not run every instance to its end")
+    x = state.x.cpu().numpy()
+    check(x.shape == (ENS_B, nx * ny) and np.all(np.isfinite(x)),
+          "non-finite or misshapen ensemble result")
+    e_fused = rof_energies(x, fs, lmbs, nx, ny)
+    rate = ENS_B * ENS_ITERS / dt
+    print(f"fused batched ensemble {ENS_B}x{nx}x{ny}: {ENS_ITERS} iterations "
+          f"in {dt:.4f} s = {ENS_ITERS / dt:.1f} it/s = {rate:.1f} "
+          f"instance-it/s, rof_chunk_batched launches {launches} (with the "
+          f"warm-up's) [{card}]")
+
+    b.rof = None  # the generic batched path, the JAX tests' idiom
+    gstate, gdt = ensemble_run(b, ENS_WARM, ENS_ITERS)
+    e_gen = rof_energies(gstate.x.cpu().numpy(), fs, lmbs, nx, ny)
+    grate = ENS_B * ENS_ITERS / gdt
+    rel = float(np.max(np.abs(e_fused - e_gen) / np.abs(e_gen)))
+    print(f"generic batched ensemble {ENS_B}x{nx}x{ny}: {ENS_ITERS} "
+          f"iterations in {gdt:.4f} s = {ENS_ITERS / gdt:.1f} it/s = "
+          f"{grate:.1f} instance-it/s [{card}]; fused/generic "
+          f"{rate / grate:.2f}x")
+    sampled = [float(e_fused[i]) for i in ENS_SAMPLES]
+    print(f"energy fused vs generic ensemble: max rel diff over the "
+          f"{ENS_B} instances {rel:.3e} (tol {ENERGY_RTOL:g}); energies of "
+          f"instances {ENS_SAMPLES}: {sampled}")
+    check(rel <= ENERGY_RTOL, "fused and generic ensemble energies disagree")
+    for i in ENS_SAMPLES:
+        s = single_run(problems[i], opts, sopts, ENS_WARM, ENS_ITERS)
+        e1 = rof_energies(s.x.cpu().numpy()[None], fs[i], [lmbs[i]], nx,
+                          ny)[0]
+        rel1 = abs(e_fused[i] - e1) / abs(e1)
+        print(f"ensemble instance {i} vs a single-instance fused solve: "
+              f"energy {e_fused[i]:.8f} vs {e1:.8f}, rel diff {rel1:.3e} "
+              f"(tol {ENERGY_RTOL:g})")
+        check(rel1 <= ENERGY_RTOL, f"ensemble instance {i} disagrees with "
+              "its single-instance solve")
+    del b, problems, state, gstate
+    torch.cuda.empty_cache()
+    return {"rof_chunk_batched": launches}, rate, grate
+
+
+def phase_small_ensembles(card):
+    """SMALL_ENS_B instances of config 3 (the cow, each instance's gray
+    levels with their own 0.05 noise) and of vol256x8 (each instance's
+    slices with their own noise), fused batched against generic batched
+    and against single-instance fused solves of two instances."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.ops import fused_vol as fv
+    from prost_tpu_torch.parallel import BatchedPDHG
+
+    opts, sopts = ens_opts()
+    B, L, nx, ny = SMALL_ENS_B, ML_LABELS, ML_SIZE, ML_SIZE
+    rng = np.random.RandomState(42)
+    gray = cow_gray(ny, nx)
+    mls = [ml_unaries(gray + 0.05 * rng.randn(*gray.shape), L)
+           for _ in range(B)]
+    vols = [vol_data(VOL_LABELS, VOL_SIZE, VOL_SIZE, seed=42 + i)
+            for i in range(B)]
+    cases = (
+        ("ml", fm, "ml_chunk_batched", mls,
+         lambda f: ml_model(nx, ny, L, f, ML_LMB).finalize(),
+         lambda x, f: ml_energy(x, f, ML_LMB, L, nx, ny)),
+        ("vol", fv, "vol_chunk_batched", vols,
+         lambda f: vol_model(VOL_SIZE, VOL_SIZE, VOL_LABELS, f).finalize(),
+         lambda x, f: vol_energy(x, f, VOL_LMB, VOL_LABELS, VOL_SIZE,
+                                 VOL_SIZE)))
+    launches = {}
+    for kind, mod, name, data, model, energy in cases:
+        problems = [model(f) for f in data]
+        b = BatchedPDHG(problems, opts, sopts)
+        check(getattr(b, kind) is not None,
+              f"the fused batched {kind} route was not taken")
+        mod.reset_launch_counts()
+        state, dt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
+        launches[name] = mod.launch_counts[name]
+        check(launches[name] > 0, f"{name} was not launched")
+        x = state.x.cpu().numpy()
+        check(np.all(np.isfinite(x)), f"non-finite {kind} ensemble result")
+        e_fused = np.array([energy(x[i], data[i]) for i in range(B)])
+        setattr(b, kind, None)
+        gstate, gdt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
+        gx = gstate.x.cpu().numpy()
+        e_gen = np.array([energy(gx[i], data[i]) for i in range(B)])
+        rel = float(np.max(np.abs(e_fused - e_gen) / np.abs(e_gen)))
+        print(f"{kind} ensemble {B}x{x.shape[1]}: fused "
+              f"{B * SMALL_ENS_ITERS / dt:.1f} instance-it/s, generic "
+              f"{B * SMALL_ENS_ITERS / gdt:.1f} [{card}]; energy max rel "
+              f"diff {rel:.3e} (tol {ENERGY_RTOL:g}); {name} launches "
+              f"{launches[name]}")
+        check(rel <= ENERGY_RTOL, f"fused and generic {kind} ensemble "
+              "energies disagree")
+        for i in (0, B - 1):
+            s = single_run(problems[i], opts, sopts, ENS_WARM,
+                           SMALL_ENS_ITERS)
+            e1 = energy(s.x.cpu().numpy(), data[i])
+            rel1 = abs(e_fused[i] - e1) / abs(e1)
+            print(f"{kind} ensemble instance {i} vs a single-instance fused "
+                  f"solve: rel diff {rel1:.3e} (tol {ENERGY_RTOL:g})")
+            check(rel1 <= ENERGY_RTOL, f"{kind} ensemble instance {i} "
+                  "disagrees with its single-instance solve")
+        del b, problems, state, gstate
+        torch.cuda.empty_cache()
+    return launches
+
+
 def phase_large(card):
     """Both fused ROF routes at 2048x2048, the fused multilabel route at
     512x512x8, the deblur route at 2048x2048, the tight route at 512x512x4
@@ -1524,7 +1978,7 @@ def phase_large(card):
         mod.reset_launch_counts()
         res, backend, dt = timed_solve(recording(kind, opts), nx, ny, f,
                                        lmb, 300, num_cback_calls=2)
-        launches = dict(mod.launch_counts)
+        launches = single_launches(mod)
         check(all(v > 0 for v in launches.values()),
               f"a {kind} kernel was not launched at 2048x2048: {launches}")
         e = rof_energy(res.x, f, lmb, nx, ny)
@@ -1538,7 +1992,7 @@ def phase_large(card):
     res, backend, dt = run_model(
         recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
         ml_model(nx, ny, L, f, ML_LMB), nx * ny * L, 300, num_cback_calls=2)
-    launches = dict(fm.launch_counts)
+    launches = single_launches(fm)
     check(backend.made.ml is not None and all(v > 0
                                                for v in launches.values()),
           f"a multilabel kernel was not launched at {nx}x{ny}x{L}: "
@@ -1553,7 +2007,7 @@ def phase_large(card):
     res, backend, dt = run_model(
         recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
         deblur_model(nx, ny, fb), nx * ny, 300, num_cback_calls=2)
-    launches = dict(fd.launch_counts)
+    launches = single_launches(fd)
     check(backend.made.deblur is not None
           and all(v > 0 for v in launches.values()),
           f"the deblur kernel was not launched at {nx}x{ny}: {launches}")
@@ -1570,7 +2024,7 @@ def phase_large(card):
         recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
         tight_model(nx, ny, L, f), nx * ny * (L + 2 * k), 300,
         num_cback_calls=2)
-    launches = dict(ft.launch_counts)
+    launches = single_launches(ft)
     check(backend.made.tight is not None
           and all(v > 0 for v in launches.values()),
           f"the tight kernel was not launched at {nx}x{ny}x{L}: {launches}")
@@ -1585,7 +2039,7 @@ def phase_large(card):
     res, backend, dt = run_model(
         recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
         vol_model(nx, ny, L, f), nx * ny * L, 300, num_cback_calls=2)
-    launches = dict(fv.launch_counts)
+    launches = single_launches(fv)
     check(backend.made.vol is not None
           and all(v > 0 for v in launches.values()),
           f"a volumetric kernel was not launched at {nx}x{ny}x{L}: "
@@ -1620,6 +2074,7 @@ def main() -> int:
     rows.update(phase_deblur_kernels(dev))
     rows.update(phase_tight_kernels(dev))
     rows.update(phase_vol_kernels(dev))
+    rows.update(phase_batched_kernels(dev))
     torch.cuda.synchronize()
     launches, e_pdhg, d_pdhg = phase_solve(card)
     launches.update(phase_admm_solve(card, e_pdhg, d_pdhg))
@@ -1627,6 +2082,9 @@ def main() -> int:
     launches.update(phase_deblur_solve(card))
     launches.update(phase_tight_solve(card))
     launches.update(phase_vol_solve(card))
+    ens_launches, _, _ = phase_ensemble(card)
+    launches.update(ens_launches)
+    launches.update(phase_small_ensembles(card))
     phase_large(card)
     check("jax" not in sys.modules, "jax was imported")
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
@@ -1644,6 +2102,10 @@ def main() -> int:
         "tight_chunk": ("fused_tight", "prost_tpu/ops/fused_tight.py:172"),
         "vol_chunk": ("fused_vol", "prost_tpu/ops/fused_vol.py:213"),
         "vol_multichunk": ("fused_vol", "prost_tpu/ops/fused_vol.py:362"),
+        "rof_chunk_batched": ("fused_rof", "prost_tpu/ops/fused_rof.py:485"),
+        "ml_chunk_batched": ("fused_multilabel",
+                             "prost_tpu/ops/fused_multilabel.py:675"),
+        "vol_chunk_batched": ("fused_vol", "prost_tpu/ops/fused_vol.py:300"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -11,7 +11,10 @@ and linop parts they use, the preconditioned Problem, the generic PDHG
 backend with all four step-size rules, the generic ADMM backend with CGLS,
 Chebyshev and DCT projections, the solver loop, and the fused routes,
 whose chunk kernels are hand-written CUDA for Hopper (``csrc/*.cu``),
-built by nvcc on first use.
+built by nvcc on first use.  ``prost_tpu_torch.parallel`` (slice 7)
+solves batched ensembles of B instances of one structure on one card
+(``BatchedPDHG``, ``stack_problems``), ROF, multilabel and volumetric-TV
+ensembles through batched chunk kernels.
 """
 
 from .config import (ProstError, device, dtype, list_devices, set_device,

@@ -1,8 +1,10 @@
 // Fused fast-multilabel PDHG chunk kernels for NVIDIA Hopper (sm_90a).
 //
-// Replace the two Pallas kernels on the multilabel path of the JAX package:
+// Replace the Pallas kernels of the JAX package's multilabel routes:
 //   prost_tpu/ops/fused_multilabel.py  ml_fused_chunk      -> _ml_chunk_kernel
 //   prost_tpu/ops/fused_multilabel.py  ml_fused_multichunk -> _ml_multichunk_kernel
+//   prost_tpu/ops/fused_multilabel.py  ml_fused_chunk_batched
+//                                      -> _ml_chunk_kernel_batched
 // whose math is _ml_chunk_core, _ml_update, _shift_ops_3d (whole plane,
 // maskless adjoint) and _project_dead_dual_3d in the same file, and
 // adapt_scalars in fused_rof.py.  They also serve the JAX package's banded
@@ -13,7 +15,9 @@
 //
 // Layout (the JAX package's): u, f are (L, nx, ny) row-major f32 label
 // planes; q and the carried gradient g are 2L such planes, [x part; y part];
-// s and the carried label sum su are (nx, ny) planes.
+// s and the carried label sum su are (nx, ny) planes.  A batched launch
+// takes B such instances back to back on the z axis of the grid, with
+// S_LEN scalars per instance (pdhg_chunk.cuh).
 //
 // What bounds it on this card.  An iteration streams about 14L + 5 planes
 // (primal: u, 2L q, s, f in, u out; dual: u, 2L q, 2L g, s, su in, 2L q,
@@ -81,11 +85,32 @@ struct ML {
   float sqrt_inv_l;  // sqrt(Sigma_s)
 };
 
+// The buffers of this block's instance (blockIdx.z) of a batched launch,
+// each moved by its per-instance size with 64-bit offsets: the dual of
+// 4096 instances of 256x256x8 holds 2^32 entries.
+__device__ __forceinline__ ML instance_of(ML b) {
+  size_t z = blockIdx.z, n = (size_t)b.nx * b.ny, nl = n * b.L;
+  b.u += z * nl;
+  b.q += 2 * z * nl;
+  b.s += z * n;
+  b.up += z * nl;
+  b.qp += 2 * z * nl;
+  b.sp += z * n;
+  b.g += 2 * z * nl;
+  b.gp += 2 * z * nl;
+  b.su += z * n;
+  b.sup += z * n;
+  b.f += z * nl;
+  b.sc += z * S_LEN;
+  return b;
+}
+
 // Seed of a launch: g = [dx u; dy u], su = sum_l u, and the dead dual
 // coordinates zeroed in every label plane (_project_dead_dual_3d at chunk
 // entry; the dual step keeps them zero).
 // Bound: memory, L planes read, 2L + 1 written.  Runs once per launch.
 __global__ void ml_seed(ML b) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
@@ -112,6 +137,7 @@ __global__ void ml_seed(ML b) {
 // Bound: memory, 4L + 1 planes read (u, q, f, s), L written (2L on the
 // aligned iteration, which also saves u_prev).
 __global__ void ml_primal(ML b, int save_prev) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
@@ -144,6 +170,7 @@ __global__ void ml_primal(ML b, int save_prev) {
 // + 4 on the aligned iteration, which saves q, s, g and su of u_prev).
 template <int LT>
 __global__ void ml_dual(ML b, int save_prev) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
@@ -222,6 +249,7 @@ __device__ __forceinline__ float kty_at(const float* q, float sv, size_t pl,
 // planes, then per-block tree sums into partial[4 * block].
 // Bound: memory, 10L + 4 planes read once per chunk.
 __global__ void ml_norm_partial(ML b) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -284,11 +312,11 @@ void dual(const ML& b, dim3 grid, dim3 block, int last, cudaStream_t s) {
   }
 }
 
-// One chunk of `count` iterations without the seed: count-1 plain
-// iterations, the aligned iteration saving the previous iterate and its
-// carried planes, and the per-block norm partials.
-int chunk_body(const ML& b, int count, cudaStream_t s) {
-  dim3 grid = grid_of(b.nx, b.ny), block(BX, BY);
+// One chunk of `count` iterations of `batch` instances without the seed:
+// count-1 plain iterations, the aligned iteration saving the previous
+// iterate and its carried planes, and the per-block norm partials.
+int chunk_body(const ML& b, int count, int batch, cudaStream_t s) {
+  dim3 grid = grid_of(b.nx, b.ny, batch), block(BX, BY);
   for (int k = 0; k < count; ++k) {
     int last = k == count - 1;
     ml_primal<<<grid, block, 0, s>>>(b, last);
@@ -297,6 +325,21 @@ int chunk_body(const ML& b, int count, cudaStream_t s) {
     LAUNCH_CHECK();
   }
   ml_norm_partial<<<grid, block, 0, s>>>(b);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// One chunk of `batch` instances: the seed, the chunk body, and the
+// squared norms of every instance into its scalars (one finish block each).
+int chunk(const ML& b, int count, int batch, cudaStream_t st) {
+  dim3 grid = grid_of(b.nx, b.ny, batch), block(BX, BY);
+  ml_seed<<<grid, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  int rc = chunk_body(b, count, batch, st);
+  if (rc) return rc;
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  pdhg_finish<<<batch, FIN, 0, st>>>(b.sc, b.partial, (int)(grid.x * grid.y),
+                                     count, 0, STEP_NONE, none);
   LAUNCH_CHECK();
   return 0;
 }
@@ -348,19 +391,23 @@ int prost_ml_chunk(void* u, void* q, void* s, void* up, void* qp, void* sp,
                    void* g, void* gp, void* su, void* sup, const void* f,
                    void* sc, void* partial, int L, int nx, int ny,
                    float inv_l, float sqrt_inv_l, int count, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   ML b = ml_of(u, q, s, up, qp, sp, g, gp, su, sup, f, sc, partial, L, nx,
                ny, inv_l, sqrt_inv_l);
-  dim3 grid = grid_of(nx, ny), block(BX, BY);
-  ml_seed<<<grid, block, 0, st>>>(b);
-  LAUNCH_CHECK();
-  int rc = chunk_body(b, count, st);
-  if (rc) return rc;
-  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  pdhg_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, (int)(grid.x * grid.y),
-                                 count, 0, STEP_NONE, none);
-  LAUNCH_CHECK();
-  return 0;
+  return chunk(b, count, 1, (cudaStream_t)stream);
+}
+
+// ml_fused_chunk_batched: the same for `batch` instances in one launch
+// sequence; sc holds S_LEN scalars per instance, partial 4 per block per
+// instance.  An instance whose sc[S_CONV] is set is a no-op.
+int prost_ml_chunk_batched(void* u, void* q, void* s, void* up, void* qp,
+                           void* sp, void* g, void* gp, void* su, void* sup,
+                           const void* f, void* sc, void* partial, int L,
+                           int nx, int ny, float inv_l, float sqrt_inv_l,
+                           int count, int batch, void* stream) {
+  if (int rc = batch_error(batch)) return rc;
+  ML b = ml_of(u, q, s, up, qp, sp, g, gp, su, sup, f, sc, partial, L, nx,
+               ny, inv_l, sqrt_inv_l);
+  return chunk(b, count, batch, (cudaStream_t)stream);
 }
 
 // ml_fused_multichunk: up to k_chunks chunks, the carried planes kept
@@ -384,7 +431,7 @@ int prost_ml_multichunk(void* u, void* q, void* s, void* up, void* qp,
   ml_seed<<<grid, block, 0, st>>>(b);
   LAUNCH_CHECK();
   for (int k = 0; k < k_chunks; ++k) {
-    int rc = chunk_body(b, count, st);
+    int rc = chunk_body(b, count, 1, st);
     if (rc) return rc;
     pdhg_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, (int)(grid.x * grid.y),
                                    count, 1, stepsize, c);

@@ -1,15 +1,21 @@
 // Fused ROF-by-PDHG chunk kernels for NVIDIA Hopper (sm_90a).
 //
-// Replaces the two Pallas kernels on the ROF main path of the JAX package:
+// Replaces the Pallas kernels of the JAX package's ROF routes:
 //   prost_tpu/ops/fused_rof.py  rof_fused_chunk      -> _rof_chunk_kernel
 //   prost_tpu/ops/fused_rof.py  rof_fused_multichunk -> _rof_multichunk_kernel
+//   prost_tpu/ops/fused_rof.py  rof_fused_chunk_batched
+//                               -> _rof_chunk_kernel_batched
 // whose math is _chunk_core, _rof_update, _shift_ops, _project_dead_dual,
-// _hoist_dataterm and adapt_scalars in the same file.  The plain PyTorch
-// versions of both live beside their wrappers in
-// prost_tpu_torch/ops/fused_rof.py.
+// _hoist_dataterm and adapt_scalars in the same file.  The batched chunk
+// also serves rof_fused_chunk_banded_batched, which bands each instance only
+// because a TPU core's VMEM cannot hold a large one.  The plain PyTorch
+// versions live beside their wrappers in prost_tpu_torch/ops/fused_rof.py.
 //
 // Layout (the JAX package's): x, f, w are (nx, ny) row-major f32 planes;
-// q, g are two such planes back to back, [gx; gy].
+// q, g are two such planes back to back, [gx; gy].  A batched launch takes
+// B such instances back to back, (B, nx, ny) and (B, 2, nx, ny), with a
+// scalar block of S_LEN per instance, and runs them on the z axis of the
+// grid (pdhg_chunk.cuh): one launch per half-iteration for all of them.
 //
 // What bounds it on this card.  The TPU kernels hold the whole state in
 // VMEM for a chunk.  A 512x512 f32 plane is 1 MiB and one iteration
@@ -18,6 +24,10 @@
 // use, so the state stays in device memory (and mostly in the 50 MB L2 at
 // 512x512) and every kernel is bound by memory traffic and, at this plane
 // size, by launch latency: one chunk of ri iterations is 2*ri + 3 launches.
+// A batched chunk of 1024 instances of 128x128 streams 10 planes of 64 MiB
+// once (x, 2 q, f in; x, 2 q, x_prev, 2 q_prev out), a bound of about 0.2
+// ms, but its working set (about 1 GB) is far beyond L2, so every
+// half-iteration streams it from device memory: bound by bytes.
 //
 // Design.  One thread per pixel, 32x8 blocks with threadIdx.x along the
 // contiguous y axis, so warps read and write coalesced rows.  The stencil
@@ -75,6 +85,22 @@ struct Planes {
   int nx, ny;
 };
 
+// The planes of this block's instance (blockIdx.z) of a batched launch:
+// every buffer moved by its per-instance size, with 64-bit offsets.
+__device__ __forceinline__ Planes instance_of(Planes b) {
+  size_t z = blockIdx.z, n = (size_t)b.nx * b.ny;
+  b.x += z * n;
+  b.q += 2 * z * n;
+  b.xp += z * n;
+  b.qp += 2 * z * n;
+  b.g += 2 * z * n;
+  b.gp += 2 * z * n;
+  b.f += z * n;
+  b.w += z * n;
+  b.sc += z * S_LEN;
+  return b;
+}
+
 // Adjoint stencil K^T q at (i, j).  Bounds-checked neighbours equal the
 // JAX package's maskless roll adjoint because the dead coordinates (q_x's
 // last row, q_y's last column) are zero: rof_seed zeroes them and the dual
@@ -92,18 +118,17 @@ __device__ __forceinline__ float kty_at(const float* q, int i, int j,
 // (_project_dead_dual at chunk entry; the dual step keeps them zero).
 // Replaces the seed stencils of _chunk_core / _rof_multichunk_kernel.
 // Bound: memory, 1 plane read, 2 written.  Runs once per launch.
-__global__ void rof_seed(const float* __restrict__ x, float* __restrict__ q,
-                         float* __restrict__ g, const float* __restrict__ sc,
-                         int nx, int ny) {
-  if (sc[S_CONV] != 0.f) return;
-  int i, j;
+__global__ void rof_seed(Planes b) {
+  b = instance_of(b);
+  if (b.sc[S_CONV] != 0.f) return;
+  int i, j, nx = b.nx, ny = b.ny;
   if (!pixel(nx, ny, i, j)) return;
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
-  float xv = x[p];
-  g[p] = i < nx - 1 ? x[p + ny] - xv : 0.f;
-  g[n + p] = j < ny - 1 ? x[p + 1] - xv : 0.f;
-  if (i == nx - 1) q[p] = 0.f;
-  if (j == ny - 1) q[n + p] = 0.f;
+  float xv = b.x[p];
+  b.g[p] = i < nx - 1 ? b.x[p + ny] - xv : 0.f;
+  b.g[n + p] = j < ny - 1 ? b.x[p + 1] - xv : 0.f;
+  if (i == nx - 1) b.q[p] = 0.f;
+  if (j == ny - 1) b.q[n + p] = 0.f;
 }
 
 // Primal step (_rof_update, first half): x <- prox_g(x - tau/4 K^T q),
@@ -112,15 +137,16 @@ __global__ void rof_seed(const float* __restrict__ x, float* __restrict__ q,
 // written (2 on the aligned iteration, which also saves x_prev).  The
 // q neighbours one row up are reread by the next warp row, so they come
 // from L1/L2, not device memory.
-__global__ void rof_primal(float* __restrict__ x, const float* __restrict__ q,
-                           const float* __restrict__ f,
-                           const float* __restrict__ w,
-                           float* __restrict__ xp,
-                           const float* __restrict__ sc, int nx, int ny,
-                           int dataterm, int save_prev) {
-  if (sc[S_CONV] != 0.f) return;
-  int i, j;
+__global__ void rof_primal(Planes b, int dataterm, int save_prev) {
+  b = instance_of(b);
+  if (b.sc[S_CONV] != 0.f) return;
+  int i, j, nx = b.nx, ny = b.ny;
   if (!pixel(nx, ny, i, j)) return;
+  float* __restrict__ x = b.x;
+  const float* __restrict__ q = b.q;
+  const float* __restrict__ f = b.f;
+  const float* __restrict__ w = b.w;
+  const float* __restrict__ sc = b.sc;
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
   float tau = sc[S_TAU] * 0.25f;  // tau * Tau
   float lmb = sc[S_LMB];
@@ -142,7 +168,7 @@ __global__ void rof_primal(float* __restrict__ x, const float* __restrict__ q,
     float d = arg - f[p];
     xn = arg - fminf(fmaxf(d, -t), t);
   }
-  if (save_prev) xp[p] = xv;
+  if (save_prev) b.xp[p] = xv;
   x[p] = xn;
 }
 
@@ -151,13 +177,17 @@ __global__ void rof_primal(float* __restrict__ x, const float* __restrict__ q,
 // Bound: memory, 5 planes read (x, q, g), 4 written (8 on the aligned
 // iteration, which saves q_prev and grad x_prev).  Carrying g saves the
 // two stencils of grad x_old that the extrapolation would need.
-__global__ void rof_dual(const float* __restrict__ x, float* __restrict__ q,
-                         float* __restrict__ g, float* __restrict__ qp,
-                         float* __restrict__ gp, const float* __restrict__ sc,
-                         int nx, int ny, int save_prev) {
-  if (sc[S_CONV] != 0.f) return;
-  int i, j;
+__global__ void rof_dual(Planes b, int save_prev) {
+  b = instance_of(b);
+  if (b.sc[S_CONV] != 0.f) return;
+  int i, j, nx = b.nx, ny = b.ny;
   if (!pixel(nx, ny, i, j)) return;
+  const float* __restrict__ x = b.x;
+  float* __restrict__ q = b.q;
+  float* __restrict__ g = b.g;
+  float* __restrict__ qp = b.qp;
+  float* __restrict__ gp = b.gp;
+  const float* __restrict__ sc = b.sc;
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
   float sigma_p = sc[S_SIGMA] * 0.5f;  // sigma * Sigma
   float theta = sc[S_THETA];
@@ -189,6 +219,7 @@ __global__ void rof_dual(const float* __restrict__ x, float* __restrict__ q,
 // Bound: memory, 10 planes read once per chunk; the tree sum in shared
 // memory replaces the TPU kernel's whole-plane jnp.sum into SMEM.
 __global__ void rof_norm_partial(Planes b) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -217,21 +248,36 @@ __global__ void rof_norm_partial(Planes b) {
   block_partials(v, b.partial);
 }
 
-// One chunk of `count` iterations without the seed: count-1 plain
-// iterations, the aligned iteration saving x_prev / q_prev / grad x_prev,
-// and the per-block norm partials.
-int chunk_body(const Planes& b, int count, int dataterm, cudaStream_t s) {
-  dim3 grid = grid_of(b.nx, b.ny), block(BX, BY);
+// One chunk of `count` iterations of `batch` instances without the seed:
+// count-1 plain iterations, the aligned iteration saving x_prev / q_prev /
+// grad x_prev, and the per-block norm partials.
+int chunk_body(const Planes& b, int count, int dataterm, int batch,
+               cudaStream_t s) {
+  dim3 grid = grid_of(b.nx, b.ny, batch), block(BX, BY);
   for (int k = 0; k < count; ++k) {
     int last = k == count - 1;
-    rof_primal<<<grid, block, 0, s>>>(b.x, b.q, b.f, b.w, b.xp, b.sc, b.nx,
-                                      b.ny, dataterm, last);
+    rof_primal<<<grid, block, 0, s>>>(b, dataterm, last);
     LAUNCH_CHECK();
-    rof_dual<<<grid, block, 0, s>>>(b.x, b.q, b.g, b.qp, b.gp, b.sc, b.nx,
-                                    b.ny, last);
+    rof_dual<<<grid, block, 0, s>>>(b, last);
     LAUNCH_CHECK();
   }
   rof_norm_partial<<<grid, block, 0, s>>>(b);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// One chunk of `batch` instances: the seed, the chunk body, and the
+// squared norms of every instance into its scalars (one finish block each).
+int chunk(const Planes& b, int count, int dataterm, int batch,
+          cudaStream_t s) {
+  dim3 grid = grid_of(b.nx, b.ny, batch), block(BX, BY);
+  rof_seed<<<grid, block, 0, s>>>(b);
+  LAUNCH_CHECK();
+  int rc = chunk_body(b, count, dataterm, batch, s);
+  if (rc) return rc;
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  pdhg_finish<<<batch, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
+                                    count, 0, STEP_NONE, none);
   LAUNCH_CHECK();
   return 0;
 }
@@ -275,18 +321,20 @@ const char* prost_error_string(int code) {
 int prost_rof_chunk(void* x, void* q, void* xp, void* qp, void* g, void* gp,
                     const void* f, const void* w, void* sc, void* partial,
                     int nx, int ny, int count, int dataterm, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   Planes b = planes_of(x, q, xp, qp, g, gp, f, w, sc, partial, nx, ny);
-  dim3 grid = grid_of(nx, ny), block(BX, BY);
-  rof_seed<<<grid, block, 0, s>>>(b.x, b.q, b.g, b.sc, nx, ny);
-  LAUNCH_CHECK();
-  int rc = chunk_body(b, count, dataterm, s);
-  if (rc) return rc;
-  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  pdhg_finish<<<1, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
-                                count, 0, STEP_NONE, none);
-  LAUNCH_CHECK();
-  return 0;
+  return chunk(b, count, dataterm, 1, (cudaStream_t)stream);
+}
+
+// rof_fused_chunk_batched: the same for `batch` instances in one launch
+// sequence; sc holds S_LEN scalars per instance, partial 4 per block per
+// instance.  An instance whose sc[S_CONV] is set is a no-op.
+int prost_rof_chunk_batched(void* x, void* q, void* xp, void* qp, void* g,
+                            void* gp, const void* f, const void* w, void* sc,
+                            void* partial, int nx, int ny, int count,
+                            int dataterm, int batch, void* stream) {
+  if (int rc = batch_error(batch)) return rc;
+  Planes b = planes_of(x, q, xp, qp, g, gp, f, w, sc, partial, nx, ny);
+  return chunk(b, count, dataterm, batch, (cudaStream_t)stream);
 }
 
 // rof_fused_multichunk: up to k_chunks chunks, the gradient carried across
@@ -305,10 +353,10 @@ int prost_rof_multichunk(void* x, void* q, void* xp, void* qp, void* g,
   dim3 grid = grid_of(nx, ny), block(BX, BY);
   AdaptConsts c = {sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta,
                    arb_tau};
-  rof_seed<<<grid, block, 0, s>>>(b.x, b.q, b.g, b.sc, nx, ny);
+  rof_seed<<<grid, block, 0, s>>>(b);
   LAUNCH_CHECK();
   for (int k = 0; k < k_chunks; ++k) {
-    int rc = chunk_body(b, count, dataterm, s);
+    int rc = chunk_body(b, count, dataterm, 1, s);
     if (rc) return rc;
     pdhg_finish<<<1, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
                                   count, 1, stepsize, c);

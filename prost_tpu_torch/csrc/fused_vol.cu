@@ -1,8 +1,10 @@
 // Fused volumetric-TV PDHG chunk kernels for NVIDIA Hopper (sm_90a).
 //
-// Replace the two Pallas kernels on the volumetric path of the JAX package:
+// Replace the Pallas kernels of the JAX package's volumetric routes:
 //   prost_tpu/ops/fused_vol.py  vol_fused_chunk      -> _vol_chunk_kernel
 //   prost_tpu/ops/fused_vol.py  vol_fused_multichunk -> _vol_multichunk_kernel
+//   prost_tpu/ops/fused_vol.py  vol_fused_chunk_batched
+//                               -> _vol_chunk_kernel_batched
 // whose math is _vol_chunk_core, _vol_update, _vol_ops (whole volume,
 // maskless x/y adjoints) and _project_dead_dual_vol in the same file, and
 // adapt_scalars in fused_rof.py.  They also serve the JAX package's banded
@@ -14,7 +16,9 @@
 //
 // Layout (the JAX package's): u, f, w are (L, nx, ny) row-major f32
 // volumes; q and the carried gradient g are three such volumes back to
-// back, [x part; y part; label part] (BlockGradient3D's segment order).
+// back, [x part; y part; label part] (BlockGradient3D's segment order).  A
+// batched launch takes B such instances back to back on the z axis of the
+// grid, with S_LEN scalars per instance (pdhg_chunk.cuh).
 //
 // The stencils: x and y forward differences with a Neumann boundary (zero
 // last difference), the label difference with a Dirichlet far boundary,
@@ -84,6 +88,22 @@ struct Vol {
   int L, nx, ny;
 };
 
+// The buffers of this block's instance (blockIdx.z) of a batched launch,
+// each moved by its per-instance size with 64-bit offsets.
+__device__ __forceinline__ Vol instance_of(Vol b) {
+  size_t z = blockIdx.z, nl = (size_t)b.nx * b.ny * b.L;
+  b.u += z * nl;
+  b.q += 3 * z * nl;
+  b.up += z * nl;
+  b.qp += 3 * z * nl;
+  b.g += 3 * z * nl;
+  b.gp += 3 * z * nl;
+  b.f += z * nl;
+  b.w += z * nl;
+  b.sc += z * S_LEN;
+  return b;
+}
+
 // K^T q at voxel (l, i, j): the maskless x and y adjoints (exact, the dead
 // coordinates being zero) plus the masked label adjoint, whose neighbour
 // q_l[l-1] the caller carries as `ql_below` (0 at l = 0).
@@ -101,6 +121,7 @@ __device__ __forceinline__ float kty_at(const float* q, size_t pl,
 // keeps them zero).  Replaces the seed stencils of _vol_chunk_core.
 // Bound: memory, L volumes' worth of u read, 3 written.  Once per launch.
 __global__ void vol_seed(Vol b) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
@@ -125,6 +146,7 @@ __global__ void vol_seed(Vol b) {
 // Bound: memory, 5 volumes read (u, 3 q, f; +w for wsquare), 1 written (2
 // on the aligned iteration, which also saves u_prev).
 __global__ void vol_primal(Vol b, int dataterm, int save_prev) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
@@ -165,6 +187,7 @@ __global__ void vol_primal(Vol b, int dataterm, int save_prev) {
 // Bound: memory, 7 volumes read (u, 3 q, 3 g), 6 written (12 on the
 // aligned iteration, which saves q_prev and grad3 u_prev).
 __global__ void vol_dual(Vol b, int save_prev) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
@@ -214,6 +237,7 @@ __global__ void vol_dual(Vol b, int save_prev) {
 // pixel's labels, then per-block tree sums into partial[4 * block].
 // Bound: memory, 16 volumes read once per chunk.
 __global__ void vol_norm_partial(Vol b) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -252,11 +276,12 @@ __global__ void vol_norm_partial(Vol b) {
   block_partials(v, b.partial);
 }
 
-// One chunk of `count` iterations without the seed: count-1 plain
-// iterations, the aligned iteration saving u_prev / q_prev / grad3 u_prev,
-// and the per-block norm partials.
-int chunk_body(const Vol& b, int count, int dataterm, cudaStream_t s) {
-  dim3 grid = grid_of(b.nx, b.ny), block(BX, BY);
+// One chunk of `count` iterations of `batch` instances without the seed:
+// count-1 plain iterations, the aligned iteration saving u_prev / q_prev /
+// grad3 u_prev, and the per-block norm partials.
+int chunk_body(const Vol& b, int count, int dataterm, int batch,
+               cudaStream_t s) {
+  dim3 grid = grid_of(b.nx, b.ny, batch), block(BX, BY);
   for (int k = 0; k < count; ++k) {
     int last = k == count - 1;
     vol_primal<<<grid, block, 0, s>>>(b, dataterm, last);
@@ -265,6 +290,21 @@ int chunk_body(const Vol& b, int count, int dataterm, cudaStream_t s) {
     LAUNCH_CHECK();
   }
   vol_norm_partial<<<grid, block, 0, s>>>(b);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// One chunk of `batch` instances: the seed, the chunk body, and the
+// squared norms of every instance into its scalars (one finish block each).
+int chunk(const Vol& b, int count, int dataterm, int batch, cudaStream_t s) {
+  dim3 grid = grid_of(b.nx, b.ny, batch), block(BX, BY);
+  vol_seed<<<grid, block, 0, s>>>(b);
+  LAUNCH_CHECK();
+  int rc = chunk_body(b, count, dataterm, batch, s);
+  if (rc) return rc;
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  pdhg_finish<<<batch, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
+                                    count, 0, STEP_NONE, none);
   LAUNCH_CHECK();
   return 0;
 }
@@ -311,18 +351,20 @@ int prost_vol_chunk(void* u, void* q, void* up, void* qp, void* g, void* gp,
                     const void* f, const void* w, void* sc, void* partial,
                     int L, int nx, int ny, int count, int dataterm,
                     void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   Vol b = vol_of(u, q, up, qp, g, gp, f, w, sc, partial, L, nx, ny);
-  dim3 grid = grid_of(nx, ny), block(BX, BY);
-  vol_seed<<<grid, block, 0, s>>>(b);
-  LAUNCH_CHECK();
-  int rc = chunk_body(b, count, dataterm, s);
-  if (rc) return rc;
-  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  pdhg_finish<<<1, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
-                                count, 0, STEP_NONE, none);
-  LAUNCH_CHECK();
-  return 0;
+  return chunk(b, count, dataterm, 1, (cudaStream_t)stream);
+}
+
+// vol_fused_chunk_batched: the same for `batch` instances in one launch
+// sequence; sc holds S_LEN scalars per instance, partial 4 per block per
+// instance.  An instance whose sc[S_CONV] is set is a no-op.
+int prost_vol_chunk_batched(void* u, void* q, void* up, void* qp, void* g,
+                            void* gp, const void* f, const void* w, void* sc,
+                            void* partial, int L, int nx, int ny, int count,
+                            int dataterm, int batch, void* stream) {
+  if (int rc = batch_error(batch)) return rc;
+  Vol b = vol_of(u, q, up, qp, g, gp, f, w, sc, partial, L, nx, ny);
+  return chunk(b, count, dataterm, batch, (cudaStream_t)stream);
 }
 
 // vol_fused_multichunk: up to k_chunks chunks, the gradient carried across
@@ -344,7 +386,7 @@ int prost_vol_multichunk(void* u, void* q, void* up, void* qp, void* g,
   vol_seed<<<grid, block, 0, s>>>(b);
   LAUNCH_CHECK();
   for (int k = 0; k < k_chunks; ++k) {
-    int rc = chunk_body(b, count, dataterm, s);
+    int rc = chunk_body(b, count, dataterm, 1, s);
     if (rc) return rc;
     pdhg_finish<<<1, FIN, 0, s>>>(b.sc, b.partial, (int)(grid.x * grid.y),
                                   count, 1, stepsize, c);

@@ -1,15 +1,24 @@
 // Pieces shared by the PDHG chunk kernels for NVIDIA Hopper (sm_90a):
-// csrc/fused_rof.cu (ROF) and csrc/fused_multilabel.cu (fast multilabel).
+// csrc/fused_rof.cu (ROF), csrc/fused_multilabel.cu (fast multilabel),
+// csrc/fused_deblur.cu, csrc/fused_tight.cu and csrc/fused_vol.cu.
 //
 // * the slots of the device scalar buffer `sc` that every kernel of a
 //   launch reads (step sizes, the family's two scalars, the adaptation
 //   state, the tolerances, the converged flag, the chunk count, the norms);
 // * the pixel grid: one thread per pixel, 32x8 blocks with threadIdx.x
 //   along the contiguous y axis;
-// * pdhg_finish, the second pass of the four residual norms and, in a
-//   multichunk launch, the boyd/goldstein adaptation and the stopping test
-//   (adapt_scalars of prost_tpu/ops/fused_rof.py, which both JAX multichunk
-//   kernels share);
+// * the instance axis of a batched launch (the JAX package's gridded batch
+//   kernels, grid = (B,)): one instance per blockIdx.z of the pixel grid,
+//   each with its own S_LEN scalars in `sc` and its own norm partials, its
+//   buffers at 64-bit offsets of z times its per-instance size (a family's
+//   instance_of).  A pixel block reads and writes only its own instance,
+//   and every instance is reduced exactly as a single-instance launch
+//   reduces its plane, so instance b of a batched launch is bit-equal to a
+//   single-instance launch on instance b alone;
+// * pdhg_finish, the second pass of the four residual norms (one block per
+//   instance) and, in a multichunk launch, the boyd/goldstein adaptation
+//   and the stopping test (adapt_scalars of prost_tpu/ops/fused_rof.py,
+//   which both JAX multichunk kernels share);
 // * LAUNCH_CHECK, which returns a launch's error from the C entry point.
 //
 // Every source that includes this header is its own library with a plain C
@@ -28,6 +37,7 @@ enum {
   S_ARG_ALPHA = 5, S_ARB_L = 6, S_ARB_U = 7, S_IT = 8,
   S_TOL_RP = 9, S_TOL_RD = 10, S_TOL_AP = 11, S_TOL_AD = 12,
   S_CONV = 13, S_DONE = 14, S_NORM = 15,  // S_NORM .. S_NORM + 3
+  S_LEN = 19,  // scalars of one instance
 };
 
 enum { STEP_NONE = 0, STEP_GOLDSTEIN = 1, STEP_BOYD = 2 };
@@ -36,6 +46,7 @@ constexpr int BX = 32;
 constexpr int BY = 8;
 constexpr int NT = BX * BY;
 constexpr int FIN = 512;  // threads of the final reduction
+constexpr int MAX_BATCH = 65535;  // instances of a launch: gridDim.z's limit
 
 __device__ __forceinline__ bool pixel(int nx, int ny, int& i, int& j) {
   j = blockIdx.x * BX + threadIdx.x;
@@ -43,16 +54,19 @@ __device__ __forceinline__ bool pixel(int nx, int ny, int& i, int& j) {
   return i < nx && j < ny;
 }
 
-dim3 grid_of(int nx, int ny) {
-  return dim3((ny + BX - 1) / BX, (nx + BY - 1) / BY);
+// The pixel grid of `batch` instances of an (nx, ny) plane.
+dim3 grid_of(int nx, int ny, int batch = 1) {
+  return dim3((ny + BX - 1) / BX, (nx + BY - 1) / BY, batch);
 }
 
-// Per-block tree sum of the four norm terms v[0..3] into partial[4 * block]
-// (the first pass; pdhg_finish is the second).  Every thread of the block
-// calls it, also those outside the plane (with zeros).
+// Per-block tree sum of the four norm terms v[0..3] into the partials of
+// the block's instance, partial[4 * block] there (the first pass;
+// pdhg_finish is the second).  Every thread of the block calls it, also
+// those outside the plane (with zeros).
 __device__ __forceinline__ void block_partials(const float v[4],
                                                float* __restrict__ partial) {
   __shared__ float red[4][NT];
+  partial += (size_t)blockIdx.z * 4 * gridDim.x * gridDim.y;
   int t = threadIdx.y * BX + threadIdx.x;
   for (int k = 0; k < 4; ++k) red[k][t] = v[k];
   __syncthreads();
@@ -71,17 +85,20 @@ struct AdaptConsts {
   float sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta, arb_tau;
 };
 
-// Second pass, one block: the four squared norms in a fixed order.  With
-// `adapt` set (multichunk) thread 0 then runs adapt_scalars: the same f32
+// Second pass, one block per instance (blockIdx.x): the instance's four
+// squared norms from its `nblocks` partials in a fixed order.  With `adapt`
+// set (multichunk) thread 0 then runs adapt_scalars: the same f32
 // operations in the same order as the JAX package's, with the iteration
 // counter as f32 (exact below 2^24), and advances the chunk counters.
-// Bound: launch latency (a few KB of partials); it is what lets the
-// multichunk keep its step sizes and stopping test on the device, where
-// the TPU kernel ran them on SMEM scalars between chunks.
+// Bound: launch latency (a few KB of partials per instance); it is what
+// lets the multichunk keep its step sizes and stopping test on the device,
+// where the TPU kernel ran them on SMEM scalars between chunks.
 __global__ void pdhg_finish(float* __restrict__ sc,
                             const float* __restrict__ partial, int nblocks,
                             int count, int adapt, int stepsize,
                             AdaptConsts c) {
+  sc += (size_t)blockIdx.x * S_LEN;
+  partial += (size_t)blockIdx.x * 4 * nblocks;
   if (sc[S_CONV] != 0.f) return;
   __shared__ float red[4][FIN];
   int t = threadIdx.x;
@@ -143,5 +160,10 @@ __global__ void pdhg_finish(float* __restrict__ sc,
     cudaError_t e_ = cudaGetLastError();                \
     if (e_ != cudaSuccess) return (int)e_;              \
   } while (0)
+
+// The error a batched entry point returns for a batch it cannot launch.
+inline int batch_error(int batch) {
+  return (batch < 1 || batch > MAX_BATCH) ? (int)cudaErrorInvalidValue : 0;
+}
 
 }  // namespace

@@ -2,7 +2,9 @@
 
 * ``pdhg_state_from_numpy`` / ``admm_state_from_numpy`` build the port's
   ``PDHGState`` / ``ADMMState`` from the fields of the JAX state given as
-  numpy arrays, so both packages can go on from the same point;
+  numpy arrays, so both packages can go on from the same point; a batched
+  PDHG state (``BatchedPDHG``'s) keeps its leading batch axis, vectors
+  (B, n) and scalars (B,);
 * ``pdhg_state_to_numpy`` / ``admm_state_to_numpy`` are their inverses;
 * ``problem_arrays`` lists a finalized problem's linear operator (its
   blocks with their data), preconditioners and prox coefficients as numpy,
@@ -32,8 +34,11 @@ _ADMM_VECTORS = ("x_half", "x_proj", "x_dual", "z_half", "z_proj", "z_dual",
 def _state_from_numpy(cls, vectors, fields: dict, device):
     """A ``cls`` state on ``device`` from numpy fields: vectors and scalars
     in the configured dtype, ``iteration`` int32, ``converged`` bool.
-    Every field of ``cls`` must be present."""
+    Every field of ``cls`` must be present.  Where the first vector has a
+    leading batch axis (B, n), every vector keeps it and every scalar is
+    (B,)."""
     dt = config_dtype()
+    lead = np.shape(fields[vectors[0]])[:-1]
     out = {}
     for f in dataclasses.fields(cls):
         v = np.asarray(fields[f.name])
@@ -43,7 +48,7 @@ def _state_from_numpy(cls, vectors, fields: dict, device):
             t = torch.as_tensor(v.astype(bool))
         else:
             t = torch.as_tensor(v.astype(np.float64)).to(dt)
-        t = t.reshape(-1) if f.name in vectors else t.reshape(())
+        t = t.reshape(*lead, -1) if f.name in vectors else t.reshape(lead)
         out[f.name] = t.to(device)
     return cls(**out)
 
@@ -55,7 +60,7 @@ def _state_to_numpy(state) -> dict:
 
 def pdhg_state_from_numpy(fields: dict, device) -> PDHGState:
     """The port's ``PDHGState`` on ``device`` from a JAX ``PDHGState``'s
-    fields as numpy arrays."""
+    fields as numpy arrays, batched or not."""
     return _state_from_numpy(PDHGState, _PDHG_VECTORS, fields, device)
 
 

@@ -16,7 +16,7 @@ per segment: Tau = 1/5 (column sums 4 + 1), Sigma_q = 1/2 (gradient rows),
 Sigma_s = 1/L (the ones-row), so an iteration is stencils, pointwise work
 and sums over the label axis.
 
-Two kernels carry the route, hand-written CUDA in
+Three kernels carry the multilabel routes, hand-written CUDA in
 ``csrc/fused_multilabel.cu`` with a plain PyTorch version beside each
 wrapper here:
 
@@ -24,7 +24,10 @@ wrapper here:
   residual iteration, with the four squared preconditioned residual norms;
 * ``ml_multichunk`` (JAX ``ml_fused_multichunk``): up to ``k_chunks``
   chunks with the boyd/goldstein adaptation and the stopping test on the
-  device between chunks.
+  device between chunks;
+* ``ml_chunk_batched`` (JAX ``ml_fused_chunk_batched``): one chunk for each
+  of B instances in one launch sequence, the batched ensembles' route
+  (``parallel/ensemble.py``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  As on the ROF route there is no fallback
@@ -55,14 +58,14 @@ from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, ball_scale,
                          coeff_vector, dx, dxt, dy, dyt, entry_converged,
                          isscalar, launch, leq0_ball_radius, multichunk_plain,
                          multichunk_state, project_dead_dual, run_pdhg_route,
-                         typed_lib)
+                         typed_lib, vmap_plain)
 from .phases import K_CHUNKS
 
 _SQRT_T = 0.4472135954999579    # sqrt(Tau)     = sqrt(1/5)
 _SQRT_S_Q = 0.7071067811865476  # sqrt(Sigma_q) = sqrt(1/2)
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
-launch_counts = {"ml_chunk": 0, "ml_multichunk": 0}
+launch_counts = {"ml_chunk": 0, "ml_multichunk": 0, "ml_chunk_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -162,6 +165,12 @@ def ml_chunk_plain(u, q, s, f, scal, count: int):
             torch.where(conv, torch.zeros_like(n2), n2))
 
 
+def ml_chunk_batched_plain(u, q, s, f, scal, count: int):
+    """Plain PyTorch version of ``ml_chunk_batched`` (any device):
+    ``ml_chunk_plain`` vmapped over the instances."""
+    return vmap_plain(ml_chunk_plain, (u, q, s, f), scal, int(count))
+
+
 def ml_multichunk_plain(u, q, s, f, scal, count: int, k_chunks: int,
                         stepsize: str, consts):
     """Plain PyTorch version of ``ml_multichunk`` (any device): every chunk
@@ -189,17 +198,21 @@ def ml_multichunk_plain(u, q, s, f, scal, count: int, k_chunks: int,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(u, q, s, f, scal, n_scal: int, count: int):
+def _check(u, q, s, f, scal, n_scal: int, count: int,
+           batched: bool = False):
     if int(count) < 1:
         raise ProstError("A chunk needs count >= 1.")
-    if u.dim() != 3 or u.shape[0] < 1 or min(u.shape[1:]) < 2:
-        raise ProstError(
-            f"u must be an (L, nx, ny) stack, got {tuple(u.shape)}.")
-    L, nx, ny = u.shape
-    check_buffers("multilabel", (("u", u, (L, nx, ny)),
-                                 ("q", q, (2 * L, nx, ny)),
-                                 ("s", s, (nx, ny)), ("f", f, (L, nx, ny))),
-                  scal, n_scal)
+    lead = u.shape[:1] if batched else ()
+    k = len(lead)
+    if u.dim() != 3 + k or u.shape[k] < 1 or min(u.shape[k + 1:]) < 2:
+        what = "a (B, L, nx, ny)" if batched else "an (L, nx, ny)"
+        raise ProstError(f"u must be {what} stack, got {tuple(u.shape)}.")
+    L, nx, ny = u.shape[k:]
+    check_buffers("multilabel", (("u", u, (*lead, L, nx, ny)),
+                                 ("q", q, (*lead, 2 * L, nx, ny)),
+                                 ("s", s, (*lead, nx, ny)),
+                                 ("f", f, (*lead, L, nx, ny))),
+                  scal, n_scal, lead[0] if batched else None)
 
 
 def _lib():
@@ -208,13 +221,15 @@ def _lib():
     head = [VP] * 13 + [CI] * 3 + [CF] * 2
     return typed_lib("fused_multilabel", "prost_ml_num_blocks", {
         "prost_ml_chunk": head + [CI, VP],
+        "prost_ml_chunk_batched": head + [CI, CI, VP],
         "prost_ml_multichunk": head + [CI] * 3 + [CF] * 6 + [VP]})
 
 
 def _launch(fn: str, what: str, u, q, s, f, scal, n_scal: int, *args):
-    """One launch of ``fn`` on copies of (u, q, s); returns its ChunkWork."""
+    """One launch of ``fn`` on copies of (u, q, s) (with a leading batch
+    axis for a batched launch); returns its ChunkWork."""
     lib = _lib()
-    L, nx, ny = u.shape
+    L, nx, ny = u.shape[-3:]
     wk = ChunkWork((u, q, s), (q, s), scal, n_scal,
                    lib.prost_ml_num_blocks(nx, ny))
     # 1/L and sqrt(1/L) rounded once from double, as the plain version
@@ -238,6 +253,23 @@ def ml_chunk(u, q, s, f, scal, count: int):
         return ml_chunk_plain(u, q, s, f, scal, count)
     return _launch("prost_ml_chunk", "ml_chunk", u, q, s, f, scal, 5,
                    int(count)).outputs()
+
+
+def ml_chunk_batched(u, q, s, f, scal, count: int):
+    """``ml_chunk`` for each of B instances in one launch sequence.
+
+    u, f: (B, L, nx, ny); q: (B, 2L, nx, ny); s: (B, nx, ny); scal: (5, B),
+    a row each of tau, sigma, theta, radius and d_s (+ an optional row of
+    converged flags: an instance whose flag is set runs nothing and gets
+    its inputs back).  Returns (u2, q2, s2, u_prev, q_prev, s_prev, norms2),
+    norms2 (4, B) the SQUARED preconditioned residual norms of each
+    instance.  Instance b comes out as ``ml_chunk`` on instance b alone.
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    _check(u, q, s, f, scal, 5, count, batched=True)
+    if u.device.type == "cpu":
+        return ml_chunk_batched_plain(u, q, s, f, scal, count)
+    return _launch("prost_ml_chunk_batched", "ml_chunk_batched", u, q, s, f,
+                   scal, 5, int(count), u.shape[0]).outputs()
 
 
 def ml_multichunk(u, q, s, f, scal, count: int, k_chunks: int,

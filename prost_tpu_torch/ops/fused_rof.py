@@ -7,14 +7,17 @@ preconditioner.  For a lone gradient2d operator the preconditioners are
 the constants Sigma = 1/2, Tau = 1/4, so a PDHG iteration is pointwise
 work plus two stencils, and the mathematical state is just (x, q).
 
-Two kernels carry the route, each a hand-written CUDA kernel set in
+Three kernels carry the ROF routes, each a hand-written CUDA kernel set in
 ``csrc/fused_rof.cu`` with a plain PyTorch version beside its wrapper here:
 
 * ``rof_chunk`` (JAX ``rof_fused_chunk``): ``count`` iterations ending on a
   residual iteration, with the four squared preconditioned residual norms;
 * ``rof_multichunk`` (JAX ``rof_fused_multichunk``): up to ``k_chunks``
   chunks with the boyd/goldstein adaptation and the stopping test on the
-  device between chunks.
+  device between chunks;
+* ``rof_chunk_batched`` (JAX ``rof_fused_chunk_batched``, and its banded
+  variant for large instances): one chunk for each of B instances in one
+  launch sequence, the batched ensembles' route (``parallel/ensemble.py``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no other route and no fallback:
@@ -48,7 +51,8 @@ from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, ball_scale,
                          dual_ball_radius, dx, dxt, dy, dyt, entry_converged,
                          launch, match_dataterm, multichunk_plain,
                          multichunk_state, pdhg_adapt_consts,
-                         project_dead_dual, run_pdhg_route, typed_lib)
+                         project_dead_dual, run_pdhg_route, typed_lib,
+                         vmap_plain)
 from .phases import K_CHUNKS
 
 _SQRT_S = 0.7071067811865476  # sqrt(Sigma) = sqrt(1/2)
@@ -57,7 +61,8 @@ _SQRT_T = 0.5                 # sqrt(Tau)   = sqrt(1/4)
 DATATERMS = {"square": 0, "wsquare": 1, "abs": 2}
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
-launch_counts = {"rof_chunk": 0, "rof_multichunk": 0}
+launch_counts = {"rof_chunk": 0, "rof_multichunk": 0,
+                 "rof_chunk_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -160,6 +165,14 @@ def rof_chunk_plain(x, q, f, w, scal, count: int, dataterm: str = "square"):
             torch.where(conv, torch.zeros_like(n2), n2))
 
 
+def rof_chunk_batched_plain(x, q, f, w, scal, count: int,
+                            dataterm: str = "square"):
+    """Plain PyTorch version of ``rof_chunk_batched`` (any device):
+    ``rof_chunk_plain`` vmapped over the instances."""
+    return vmap_plain(rof_chunk_plain, (x, q, f, w), scal, int(count),
+                      dataterm)
+
+
 def rof_multichunk_plain(x, q, f, w, scal, count: int, k_chunks: int,
                          dataterm: str, stepsize: str, consts):
     """Plain PyTorch version of ``rof_multichunk`` (any device): every
@@ -185,17 +198,22 @@ def rof_multichunk_plain(x, q, f, w, scal, count: int, k_chunks: int,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(x, q, f, w, scal, n_scal: int, count: int, dataterm: str):
+def _check(x, q, f, w, scal, n_scal: int, count: int, dataterm: str,
+           batched: bool = False):
     if dataterm not in DATATERMS:
         raise ProstError(f"Unknown ROF data term '{dataterm}'.")
     if int(count) < 1:
         raise ProstError("A chunk needs count >= 1.")
-    if x.dim() != 2 or min(x.shape) < 2:
-        raise ProstError(f"x must be an (nx, ny) plane, got {tuple(x.shape)}.")
-    nx, ny = x.shape
-    check_buffers("ROF", (("x", x, (nx, ny)), ("q", q, (2, nx, ny)),
-                          ("f", f, (nx, ny)), ("w", w, (nx, ny))),
-                  scal, n_scal)
+    lead = x.shape[:1] if batched else ()
+    if x.dim() != 2 + len(lead) or min(x.shape[len(lead):]) < 2:
+        what = "a (B, nx, ny) stack" if batched else "an (nx, ny) plane"
+        raise ProstError(f"x must be {what}, got {tuple(x.shape)}.")
+    nx, ny = x.shape[len(lead):]
+    check_buffers("ROF", (("x", x, (*lead, nx, ny)),
+                          ("q", q, (*lead, 2, nx, ny)),
+                          ("f", f, (*lead, nx, ny)),
+                          ("w", w, (*lead, nx, ny))),
+                  scal, n_scal, lead[0] if batched else None)
 
 
 def _lib():
@@ -203,6 +221,7 @@ def _lib():
     use."""
     return typed_lib("fused_rof", "prost_rof_num_blocks", {
         "prost_rof_chunk": [VP] * 10 + [CI] * 4 + [VP],
+        "prost_rof_chunk_batched": [VP] * 10 + [CI] * 5 + [VP],
         "prost_rof_multichunk": [VP] * 10 + [CI] * 6 + [CF] * 6 + [VP]})
 
 
@@ -222,6 +241,29 @@ def rof_chunk(x, q, f, w, scal, count: int, dataterm: str = "square"):
     wk = ChunkWork((x, q), (q,), scal, 5, lib.prost_rof_num_blocks(nx, ny))
     launch(lib, "prost_rof_chunk", "rof_chunk", launch_counts, x.device,
            wk.buffers(f, w), nx, ny, int(count), DATATERMS[dataterm])
+    return wk.outputs()
+
+
+def rof_chunk_batched(x, q, f, w, scal, count: int,
+                      dataterm: str = "square"):
+    """``rof_chunk`` for each of B instances in one launch sequence.
+
+    x, f, w: (B, nx, ny); q: (B, 2, nx, ny); scal: (5, B), a row each of
+    tau, sigma, theta, lmb and radius (+ an optional row of converged
+    flags: an instance whose flag is set runs nothing and gets its inputs
+    back).  Returns (x2, q2, x_prev, q_prev, norms2), norms2 (4, B) the
+    SQUARED preconditioned residual norms of each instance.  Instance b
+    comes out as ``rof_chunk`` on instance b alone.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel."""
+    _check(x, q, f, w, scal, 5, count, dataterm, batched=True)
+    if x.device.type == "cpu":
+        return rof_chunk_batched_plain(x, q, f, w, scal, count, dataterm)
+    lib = _lib()
+    batch, nx, ny = x.shape
+    wk = ChunkWork((x, q), (q,), scal, 5, lib.prost_rof_num_blocks(nx, ny))
+    launch(lib, "prost_rof_chunk_batched", "rof_chunk_batched",
+           launch_counts, x.device, wk.buffers(f, w), nx, ny, int(count),
+           DATATERMS[dataterm], batch)
     return wk.outputs()
 
 

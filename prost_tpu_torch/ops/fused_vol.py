@@ -10,14 +10,17 @@ preconditioners are the constants Sigma = 1/2, Tau = 1/6, so a PDHG
 iteration is pointwise work plus three stencils and their adjoints, and the
 dual is projected voxel by voxel onto a 3-component ball.
 
-Two kernels carry the route, hand-written CUDA in ``csrc/fused_vol.cu`` with
-a plain PyTorch version beside each wrapper here:
+Three kernels carry the volumetric routes, hand-written CUDA in
+``csrc/fused_vol.cu`` with a plain PyTorch version beside each wrapper here:
 
 * ``vol_chunk`` (JAX ``vol_fused_chunk``): ``count`` iterations ending on a
   residual iteration, with the four squared preconditioned residual norms;
 * ``vol_multichunk`` (JAX ``vol_fused_multichunk``): up to ``k_chunks``
   chunks with the boyd/goldstein adaptation and the stopping test on the
-  device between chunks.
+  device between chunks;
+* ``vol_chunk_batched`` (JAX ``vol_fused_chunk_batched``): one chunk for
+  each of B volumes in one launch sequence, the batched ensembles' route
+  (``parallel/ensemble.py``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no fallback and no VMEM gate: the
@@ -47,7 +50,7 @@ from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, ball_scale,
                          dual_ball_radius, dx, dxt, dy, dyt, entry_converged,
                          launch, match_dataterm, multichunk_plain,
                          multichunk_state, project_dead_dual, run_pdhg_route,
-                         typed_lib)
+                         typed_lib, vmap_plain)
 from .phases import K_CHUNKS
 
 _SQRT_S = 0.7071067811865476  # sqrt(Sigma) = sqrt(1/2)
@@ -56,7 +59,8 @@ _SQRT_T = 0.4082482904638631  # sqrt(Tau)   = sqrt(1/6)
 DATATERMS = {"square": 0, "wsquare": 1, "abs": 2}
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
-launch_counts = {"vol_chunk": 0, "vol_multichunk": 0}
+launch_counts = {"vol_chunk": 0, "vol_multichunk": 0,
+                 "vol_chunk_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -168,6 +172,14 @@ def vol_chunk_plain(u, q, f, w, scal, count: int, dataterm: str = "square"):
             torch.where(conv, torch.zeros_like(n2), n2))
 
 
+def vol_chunk_batched_plain(u, q, f, w, scal, count: int,
+                            dataterm: str = "square"):
+    """Plain PyTorch version of ``vol_chunk_batched`` (any device):
+    ``vol_chunk_plain`` vmapped over the instances."""
+    return vmap_plain(vol_chunk_plain, (u, q, f, w), scal, int(count),
+                      dataterm)
+
+
 def vol_multichunk_plain(u, q, f, w, scal, count: int, k_chunks: int,
                          dataterm: str, stepsize: str, consts):
     """Plain PyTorch version of ``vol_multichunk`` (any device): every
@@ -191,19 +203,23 @@ def vol_multichunk_plain(u, q, f, w, scal, count: int, k_chunks: int,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(u, q, f, w, scal, n_scal: int, count: int, dataterm: str):
+def _check(u, q, f, w, scal, n_scal: int, count: int, dataterm: str,
+           batched: bool = False):
     if dataterm not in DATATERMS:
         raise ProstError(f"Unknown volumetric data term '{dataterm}'.")
     if int(count) < 1:
         raise ProstError("A chunk needs count >= 1.")
-    if u.dim() != 3 or u.shape[0] < 1 or min(u.shape[1:]) < 2:
-        raise ProstError(
-            f"u must be an (L, nx, ny) volume, got {tuple(u.shape)}.")
-    L, nx, ny = u.shape
-    check_buffers("volumetric", (("u", u, (L, nx, ny)),
-                                 ("q", q, (3, L, nx, ny)),
-                                 ("f", f, (L, nx, ny)), ("w", w, (L, nx, ny))),
-                  scal, n_scal)
+    lead = u.shape[:1] if batched else ()
+    k = len(lead)
+    if u.dim() != 3 + k or u.shape[k] < 1 or min(u.shape[k + 1:]) < 2:
+        what = "a (B, L, nx, ny) stack" if batched else "an (L, nx, ny) volume"
+        raise ProstError(f"u must be {what}, got {tuple(u.shape)}.")
+    L, nx, ny = u.shape[k:]
+    check_buffers("volumetric", (("u", u, (*lead, L, nx, ny)),
+                                 ("q", q, (*lead, 3, L, nx, ny)),
+                                 ("f", f, (*lead, L, nx, ny)),
+                                 ("w", w, (*lead, L, nx, ny))),
+                  scal, n_scal, lead[0] if batched else None)
 
 
 def _lib():
@@ -211,6 +227,7 @@ def _lib():
     first use."""
     return typed_lib("fused_vol", "prost_vol_num_blocks", {
         "prost_vol_chunk": [VP] * 10 + [CI] * 5 + [VP],
+        "prost_vol_chunk_batched": [VP] * 10 + [CI] * 6 + [VP],
         "prost_vol_multichunk": [VP] * 10 + [CI] * 7 + [CF] * 6 + [VP]})
 
 
@@ -230,6 +247,29 @@ def vol_chunk(u, q, f, w, scal, count: int, dataterm: str = "square"):
     wk = ChunkWork((u, q), (q,), scal, 5, lib.prost_vol_num_blocks(nx, ny))
     launch(lib, "prost_vol_chunk", "vol_chunk", launch_counts, u.device,
            wk.buffers(f, w), L, nx, ny, int(count), DATATERMS[dataterm])
+    return wk.outputs()
+
+
+def vol_chunk_batched(u, q, f, w, scal, count: int,
+                      dataterm: str = "square"):
+    """``vol_chunk`` for each of B volumes in one launch sequence.
+
+    u, f, w: (B, L, nx, ny); q: (B, 3, L, nx, ny); scal: (5, B), a row each
+    of tau, sigma, theta, lmb and radius (+ an optional row of converged
+    flags: an instance whose flag is set runs nothing and gets its inputs
+    back).  Returns (u2, q2, u_prev, q_prev, norms2), norms2 (4, B) the
+    SQUARED preconditioned residual norms of each volume.  Instance b comes
+    out as ``vol_chunk`` on volume b alone.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
+    _check(u, q, f, w, scal, 5, count, dataterm, batched=True)
+    if u.device.type == "cpu":
+        return vol_chunk_batched_plain(u, q, f, w, scal, count, dataterm)
+    lib = _lib()
+    batch, L, nx, ny = u.shape
+    wk = ChunkWork((u, q), (q,), scal, 5, lib.prost_vol_num_blocks(nx, ny))
+    launch(lib, "prost_vol_chunk_batched", "vol_chunk_batched",
+           launch_counts, u.device, wk.buffers(f, w), L, nx, ny, int(count),
+           DATATERMS[dataterm], batch)
     return wk.outputs()
 
 

@@ -16,7 +16,11 @@ volumetric TV (``ops/fused_vol.py``): the Python side of
 * the launch plumbing of a kernel library with a plain C interface: the
   wrappers' common argument checks, typing its functions once, loading the
   scalar buffer, the buffers of one call, and the launch itself with its
-  error check and its count.
+  error check and its count;
+* the batched chunks' side of the instance axis: a (n, B) ``scal`` of
+  per-instance rows becomes one scalar block per instance, the norms come
+  back (4, B), and ``vmap_plain`` runs a single-instance plain version over
+  the instances.
 
 The ADMM route (``ops/fused_admm.py``) reuses the stencils and the launch
 plumbing with its own slot layout.
@@ -42,6 +46,8 @@ STEPSIZES = {"alg1": 0, "goldstein": 1, "boyd": 2}
 # slots of the kernels' device scalar buffer (csrc/pdhg_chunk.cuh, enum S_*)
 S_CONV, S_DONE, S_NORM, S_LEN = 13, 14, 15, 19
 SOUT = (0, 1, 5, 6, 7, S_CONV, S_DONE)  # tau sigma aa arb_l arb_u conv done
+# instances of a batched launch: the grid's z axis (csrc/pdhg_chunk.cuh)
+MAX_BATCH = 65535
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +281,15 @@ def pdhg_adapt_consts(problem, opts) -> tuple:
             float(opts.arb_delta), float(opts.arb_tau))
 
 
+def vmap_plain(plain, planes, scal, *static):
+    """A batched chunk's plain version: the single-instance ``plain``
+    version, called as ``plain(*planes, scal, *static)``, vmapped over the
+    instances, the leading axis of ``planes`` and the columns of the (n, B)
+    ``scal``; the last output, its norms, comes back (4, B)."""
+    out = torch.func.vmap(lambda *a: plain(*a, *static))(*planes, scal.T)
+    return (*out[:-1], out[-1].T)
+
+
 def entry_converged(scal, n: int):
     """The optional converged-at-entry flag after the first ``n`` scalars."""
     if scal.numel() > n:
@@ -377,18 +392,27 @@ def typed_lib(name: str, num_blocks: str, signatures: dict):
     return lib
 
 
-def check_buffers(kind: str, shapes, scal, n_scal: int) -> None:
+def check_buffers(kind: str, shapes, scal, n_scal: int,
+                  batch: int | None = None) -> None:
     """The checks every chunk wrapper makes after its own: each (name,
     tensor, shape) of ``shapes`` has that shape, ``scal`` holds ``n_scal``
-    scalars (+1 converged flag), and all of them lie on one device, the CPU
-    or a card, in float32 on a card: the ``kind`` kernels take nothing
-    else."""
+    scalars (+1 converged flag), or, for a ``batch`` of instances, is
+    (n_scal, batch) (+1 row of flags) with 1 <= batch <= MAX_BATCH, and all
+    of them lie on one device, the CPU or a card, in float32 on a card: the
+    ``kind`` kernels take nothing else."""
     for name, t, shape in shapes:
         if tuple(t.shape) != shape:
             raise ProstError(f"{name} must be {shape}, got {tuple(t.shape)}.")
-    if scal.numel() not in (n_scal, n_scal + 1):
+    if batch is None and scal.numel() not in (n_scal, n_scal + 1):
         raise ProstError(f"scal must hold {n_scal} scalars "
                          f"(+1 converged flag), got {scal.numel()}.")
+    if batch is not None:
+        if tuple(scal.shape) not in ((n_scal, batch), (n_scal + 1, batch)):
+            raise ProstError(f"scal must be ({n_scal}, {batch}) (+1 row of "
+                             f"converged flags), got {tuple(scal.shape)}.")
+        if not 1 <= batch <= MAX_BATCH:
+            raise ProstError(f"A batched launch takes 1 to {MAX_BATCH} "
+                             f"instances, got {batch}.")
     dev = scal.device
     for t in [t for _, t, _ in shapes] + [scal]:
         if t.device != dev:
@@ -406,11 +430,14 @@ def ptr(t):
 def scalar_buffer(scal, n_scal: int, conv_slot: int, length: int):
     """The device scalar buffer of one call: the first ``n_scal`` scalars
     in their slots, the optional converged-at-entry flag in ``conv_slot``,
-    zeros elsewhere."""
-    sc = torch.zeros(length, dtype=torch.float32, device=scal.device)
-    sc[:n_scal] = scal[:n_scal]
-    if scal.numel() > n_scal:
-        sc[conv_slot] = scal[n_scal]
+    zeros elsewhere; for a batched call's (n, B) ``scal``, one such block of
+    ``length`` per instance, (B, length)."""
+    rows = scal if scal.dim() == 1 else scal.t()
+    sc = torch.zeros(rows.shape[:-1] + (length,), dtype=torch.float32,
+                     device=scal.device)
+    sc[..., :n_scal] = rows[..., :n_scal]
+    if rows.shape[-1] > n_scal:
+        sc[..., conv_slot] = rows[..., n_scal]
     return sc
 
 
@@ -433,7 +460,8 @@ class ChunkWork:
     the state planes (so a call that returns at once hands its inputs
     back), the previous iterate's, two carried planes (this iterate's and
     the previous one's) for each of ``carried``, the scalar buffer and the
-    norm partials of ``nblocks`` blocks."""
+    norm partials of ``nblocks`` blocks, for each instance of a batched
+    call (a (n, B) ``scal``)."""
 
     def __init__(self, state, carried, scal, n_scal: int, nblocks: int):
         self.state = [t.contiguous().clone() for t in state]
@@ -442,7 +470,8 @@ class ChunkWork:
                                     device=t.device)
                         for t in carried for _ in range(2)]
         self.sc = scalar_buffer(scal, n_scal, S_CONV, S_LEN)
-        self.partial = torch.empty(4 * nblocks, dtype=torch.float32,
+        batch = 1 if scal.dim() == 1 else scal.shape[1]
+        self.partial = torch.empty(4 * nblocks * batch, dtype=torch.float32,
                                    device=scal.device)
 
     def buffers(self, *inputs):
@@ -453,8 +482,11 @@ class ChunkWork:
 
     def outputs(self):
         """The state and the previous iterate, then the 4 norms (squared
-        after a chunk, sqrt'd after a multichunk)."""
-        return (*self.state, *self.prev, self.sc[S_NORM:S_NORM + 4])
+        after a chunk, sqrt'd after a multichunk), (4, B) after a batched
+        chunk."""
+        norms = self.sc[..., S_NORM:S_NORM + 4]
+        return (*self.state, *self.prev,
+                norms.T if norms.dim() == 2 else norms)
 
     def sout(self):
         return torch.stack([self.sc[i] for i in SOUT])

@@ -1,0 +1,366 @@
+"""Batched problem ensembles: B instances of one structure solved together
+(counterpart of ``prost_tpu/parallel/ensemble.py``; BASELINE config 5,
+``ensemble1024x128``).
+
+All instances share one static structure (the same blocks, prox kinds and
+sizes); their data (prox coefficients, block values) may differ.
+
+* ``stack_problems`` (and ``stack_trees`` for any tree of the port's
+  dataclasses) stacks B trees into one: every leaf that differs between
+  instances, a tensor or a Python number among a prox's ``coeffs``, gets a
+  leading batch axis; a leaf equal in every instance stays shared.  Any
+  other difference (a string, an int, a shape, a prox kind) raises.
+* ``BatchedPDHG`` iterates every instance at once.  The generic step is the
+  port's ``pdhg_step`` under ``torch.func.vmap``, each instance's problem
+  and proxes rebuilt inside the mapped function from its slices of the
+  stacked leaves.  ROF, fast-multilabel and volumetric-TV ensembles take a
+  fused route instead, one batched chunk kernel launch sequence per chunk
+  for all instances (``rof_chunk_batched``, ``ml_chunk_batched``,
+  ``vol_chunk_batched``) on the phase plan of ``ops/phases.py``; deblur and
+  tight ensembles take the generic step until their batched kernels come.
+
+As in the JAX package, converged instances go on iterating: the run stops
+when every instance has converged or at ``until``.  The state's scalars,
+``iteration`` and ``converged`` included, have shape (B,), its vectors
+(B, n).  The JAX package's fallback to the generic path when a kernel fails
+to compile is not ported: a matched route on a card launches its kernels or
+raises.  There is no ``mesh``: the batch axis is not sharded across cards.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..backend.pdhg import (BackendPDHG, PDHGOptions, PDHGState, hold_if,
+                            pdhg_step, residual_and_adapt)
+from ..config import ProstError, dtype as config_dtype
+from ..ops.fused_multilabel import match_multilabel_structure, ml_chunk_batched
+from ..ops.fused_rof import match_rof_structure, rof_chunk_batched
+from ..ops.fused_vol import match_vol_structure, vol_chunk_batched
+from ..ops.pdhg_chunk import dead_dual_flat
+from ..ops.phases import run_phases
+from ..solver import SolverOptions
+
+_MISMATCH = "stack_problems: problems have different static structure."
+
+
+# ---------------------------------------------------------------------------
+# stacking trees of instances
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class Stacked:
+    """B instances of one tree: ``tree`` is the first instance's, with the
+    leaf at each of ``paths`` replaced by the stack of that leaf's values
+    (a leading batch axis).  A path is the tuple of field names and tuple
+    indices that leads to the leaf."""
+
+    tree: object
+    paths: tuple
+
+    def leaves(self) -> list:
+        """The stacked leaves, in the order of ``paths``."""
+        return [_get(self.tree, p) for p in self.paths]
+
+    def instance(self, leaves):
+        """``tree`` with the stacked leaves replaced by ``leaves``: inside a
+        vmap over the instances, one instance's tree."""
+        tree = self.tree
+        for path, leaf in zip(self.paths, leaves):
+            tree = _put(tree, path, leaf)
+        return tree
+
+
+def _get(tree, path):
+    for key in path:
+        tree = getattr(tree, key) if isinstance(key, str) else tree[key]
+    return tree
+
+
+def _put(tree, path, leaf):
+    if not path:
+        return leaf
+    key, rest = path[0], path[1:]
+    if isinstance(key, str):
+        return dataclasses.replace(
+            tree, **{key: _put(getattr(tree, key), rest, leaf)})
+    return type(tree)(_put(v, rest, leaf) if i == key else v
+                      for i, v in enumerate(tree))
+
+
+def _is_number(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def _stack(trees, path, paths, device):
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        if any(not isinstance(t, torch.Tensor) or t.shape != t0.shape
+               or t.dtype != t0.dtype for t in trees):
+            raise ProstError(_MISMATCH)
+        if all(torch.equal(t, t0) for t in trees[1:]):
+            return t0
+        paths.append(path)
+        return torch.stack(trees)
+    if _is_number(t0) and "coeffs" in path:
+        # a prox coefficient is data (a leaf of the JAX package's pytrees)
+        if not all(_is_number(t) for t in trees):
+            raise ProstError(_MISMATCH)
+        if all(t == t0 for t in trees[1:]):
+            return t0
+        paths.append(path)
+        return torch.tensor([float(t) for t in trees], dtype=config_dtype(),
+                            device=device)
+    if isinstance(t0, (tuple, list)):
+        if any(type(t) is not type(t0) or len(t) != len(t0) for t in trees):
+            raise ProstError(_MISMATCH)
+        return type(t0)(_stack([t[i] for t in trees], path + (i,), paths,
+                               device) for i in range(len(t0)))
+    if dataclasses.is_dataclass(t0) and not isinstance(t0, type):
+        if any(type(t) is not type(t0) for t in trees):
+            raise ProstError(_MISMATCH)
+        return dataclasses.replace(t0, **{
+            f.name: _stack([getattr(t, f.name) for t in trees],
+                           path + (f.name,), paths, device)
+            for f in dataclasses.fields(t0) if f.init})
+    if any(type(t) is not type(t0) or t != t0 for t in trees[1:]):
+        raise ProstError(_MISMATCH)
+    return t0
+
+
+def stack_trees(trees, device=None) -> Stacked:
+    """Stack structurally identical trees of the port's dataclasses,
+    tuples and tensors.  A differing Python number among a prox's
+    ``coeffs`` is stacked as a tensor of the configured dtype on
+    ``device``."""
+    paths = []
+    tree = _stack(list(trees), (), paths, device)
+    return Stacked(tree, tuple(paths))
+
+
+def stack_problems(problems) -> Stacked:
+    """Stack structurally identical Problems into one batched tree
+    (``Stacked``; its ``tree`` is a Problem whose differing leaves have a
+    leading batch axis)."""
+    if not problems:
+        raise ProstError("stack_problems: empty list.")
+    return stack_trees(problems, problems[0].scaling_left.device)
+
+
+# ---------------------------------------------------------------------------
+# the ensemble solver
+# ---------------------------------------------------------------------------
+
+def _match_all(problems, match, keys, stacks, scalars):
+    """One fused route's batched matching: every instance matches with
+    the same ``keys``; the ``stacks`` of their matches are stacked, the
+    ``scalars`` gathered into (B,) float32 tensors; None otherwise."""
+    ms = [match(p) for p in problems]
+    if any(m is None for m in ms):
+        return None
+    if len({tuple(m[k] for k in keys) for m in ms}) != 1:
+        return None
+    out = {k: ms[0][k] for k in keys}
+    out.update({k: torch.stack([m[k] for m in ms]) for k in stacks})
+    dev = problems[0].scaling_left.device
+    out.update({k: torch.tensor([m[k] for m in ms], dtype=torch.float32,
+                                device=dev) for k in scalars})
+    return out
+
+
+class BatchedPDHG:
+    """Solve a batch of problem instances together with PDHG.
+
+    The generic iteration is ``pdhg_step`` vmapped over (problem data,
+    proxes, state); the fused routes run one batched chunk launch sequence
+    per chunk for all instances.  The run holds the state once every
+    instance has converged, and stops at ``until``.  ``run(state, until,
+    start)`` takes the host's iteration count like every port backend."""
+
+    def __init__(self, problems, opts: PDHGOptions = None,
+                 solver_opts: SolverOptions = None, mesh=None):
+        if mesh is not None:
+            raise ProstError("BatchedPDHG: no mesh in this port yet; the "
+                             "batch axis runs on one card.")
+        # scale_steps_operator=False by default: a per-instance normest
+        # would run B host-side power iterations (as in the JAX package)
+        self.opts = opts or PDHGOptions(scale_steps_operator=False)
+        self.solver_opts = solver_opts or SolverOptions(verbose=False)
+        self.ri = max(int(self.opts.residual_iter), 1)
+        self.batched_problem = stack_problems(problems)
+        self.batch = len(problems)
+        backends = [BackendPDHG(p, self.opts, self.solver_opts)
+                    for p in problems]
+        self._backend0 = backends[0]
+        dev = problems[0].scaling_left.device
+        self.prox_g = stack_trees([b.prox_g for b in backends], dev)
+        self.prox_fstar = stack_trees([b.prox_fstar for b in backends], dev)
+        # the JAX order of the matchers; alg2 changes the steps every
+        # iteration and the reference-exact residuals need the generic path
+        self.rof = self.ml = self.vol = None
+        if self.opts.stepsize != "alg2" and not self.opts.reference_residuals:
+            self.rof = _match_all(problems, match_rof_structure,
+                                  ("nx", "ny", "dataterm"), ("f", "w"),
+                                  ("lmb", "radius"))
+            if self.rof is None:
+                self.ml = _match_all(problems, match_multilabel_structure,
+                                     ("nx", "ny", "L"), ("f",),
+                                     ("radius", "d_s"))
+            if self.rof is None and self.ml is None:
+                self.vol = _match_all(problems, match_vol_structure,
+                                      ("L", "nx", "ny", "dataterm"),
+                                      ("f", "w"), ("lmb", "radius"))
+
+    @property
+    def tols(self):
+        return self._backend0.tols
+
+    # ------------------------------------------------------------------
+    def initial_state(self) -> PDHGState:
+        """Instance 0's initial state, copied to every instance (a copy,
+        not a view: the kernels write their buffers in place)."""
+        s0 = self._backend0.initial_state()
+        return PDHGState(**{
+            k: v.unsqueeze(0).repeat(self.batch, *[1] * v.dim())
+            for k, v in vars(s0).items()})
+
+    # ------------------------------------------------------------------
+    def generic_step(self, s: PDHGState, it: int) -> PDHGState:
+        """One generic iteration of every instance (``it`` the host's count
+        of the iteration), the whole state held once every instance has
+        converged."""
+        opts, tols, do_res = self.opts, self.tols, it % self.ri == 0
+        P, G, F = self.batched_problem, self.prox_g, self.prox_fstar
+        n_p, n_g = len(P.paths), len(G.paths)
+
+        def one(fields, *leaves):
+            new = pdhg_step(P.instance(leaves[:n_p]),
+                            G.instance(leaves[n_p:n_p + n_g]),
+                            F.instance(leaves[n_p + n_g:]), opts, tols,
+                            PDHGState(**fields), do_res)
+            return vars(new)
+
+        new = torch.func.vmap(one)(vars(s), *P.leaves(), *G.leaves(),
+                                   *F.leaves())
+        return hold_if(s.converged.all(), s, PDHGState(**new))
+
+    def _linop(self, name: str, v):
+        """``linop.apply`` or ``linop.apply_adjoint`` of every instance on
+        the rows of ``v``."""
+        P = self.batched_problem
+
+        def one(v, *leaves):
+            return getattr(P.instance(leaves).linop, name)(v)
+
+        return torch.func.vmap(one)(v, *P.leaves())
+
+    def _epilogue(self, s: PDHGState) -> PDHGState:
+        """The operator products the chunks do not carry, per instance."""
+        return dataclasses.replace(
+            s, kx=self._linop("apply", s.x),
+            kty=self._linop("apply_adjoint", s.y),
+            kx_prev=self._linop("apply", s.x_prev),
+            kty_prev=self._linop("apply_adjoint", s.y_prev))
+
+    def _scal(self, s: PDHGState, a, b):
+        """The (6, B) scalar rows of a batched chunk: tau, sigma, theta, the
+        family's two scalars ``a`` and ``b``, and every instance's converged
+        flag set once all have converged."""
+        done = s.converged.all().to(s.tau.dtype).expand(self.batch)
+        return torch.stack([s.tau, s.sigma, s.theta, a, b, done])
+
+    def _after_chunk(self, s: PDHGState, x, y, x_prev, y_prev, norms2):
+        """``s`` after a batched chunk that returned the instances' flat
+        iterates and (4, B) squared norms: every instance's residual step
+        and adaptation, held once all had converged."""
+        ri = self.ri
+        norms = torch.sqrt(norms2)
+        new = dataclasses.replace(s, x=x, y=y, x_prev=x_prev, y_prev=y_prev)
+        # the chunk ends on the residual iteration s.iteration + ri - 1
+        new = residual_and_adapt(self.batched_problem.tree, self.opts,
+                                 self.tols, new, norms[0], norms[1],
+                                 norms[2], norms[3], s.iteration + (ri - 1))
+        new = dataclasses.replace(new, iteration=new.iteration + ri)
+        return hold_if(s.converged.all(), s, new)
+
+    def _rof_chunk(self, s: PDHGState) -> PDHGState:
+        r, B = self.rof, self.batch
+        nx, ny = r["nx"], r["ny"]
+        x2, q2, xp, qp, norms2 = rof_chunk_batched(
+            s.x.reshape(B, nx, ny), s.y.reshape(B, 2, nx, ny), r["f"],
+            r["w"], self._scal(s, r["lmb"], r["radius"]),
+            self.ri, r["dataterm"])
+        return self._after_chunk(s, x2.reshape(B, -1), q2.reshape(B, -1),
+                                 xp.reshape(B, -1), qp.reshape(B, -1), norms2)
+
+    def _rof_canonical(self, s: PDHGState) -> PDHGState:
+        """The dead dual coordinates of every instance's y and y_prev zeroed
+        once per run, as the JAX batched ROF run does (the batched ml and
+        vol runs do not)."""
+        nx, ny = self.rof["nx"], self.rof["ny"]
+
+        def canon(y):
+            return torch.func.vmap(lambda v: dead_dual_flat(v, 1, nx, ny))(y)
+
+        return dataclasses.replace(s, y=canon(s.y), y_prev=canon(s.y_prev))
+
+    def _ml_chunk(self, s: PDHGState) -> PDHGState:
+        m, B = self.ml, self.batch
+        L, nx, ny = m["L"], m["nx"], m["ny"]
+        n2 = 2 * L * nx * ny
+        out = ml_chunk_batched(
+            s.x.reshape(B, L, nx, ny), s.y[:, :n2].reshape(B, 2 * L, nx, ny),
+            s.y[:, n2:].reshape(B, nx, ny), m["f"],
+            self._scal(s, m["radius"], m["d_s"]),
+            self.ri)
+        u2, q2, s2, up, qp, sp, norms2 = out
+
+        def flat_y(q, sm):
+            return torch.cat([q.reshape(B, -1), sm.reshape(B, -1)], dim=1)
+
+        return self._after_chunk(s, u2.reshape(B, -1), flat_y(q2, s2),
+                                 up.reshape(B, -1), flat_y(qp, sp), norms2)
+
+    def _vol_chunk(self, s: PDHGState) -> PDHGState:
+        v, B = self.vol, self.batch
+        L, nx, ny = v["L"], v["nx"], v["ny"]
+        u2, q2, up, qp, norms2 = vol_chunk_batched(
+            s.x.reshape(B, L, nx, ny), s.y.reshape(B, 3, L, nx, ny), v["f"],
+            v["w"], self._scal(s, v["lmb"], v["radius"]),
+            self.ri, v["dataterm"])
+        return self._after_chunk(s, u2.reshape(B, -1), q2.reshape(B, -1),
+                                 up.reshape(B, -1), qp.reshape(B, -1), norms2)
+
+    def run(self, state: PDHGState, until_iter: int,
+            start_iter: int) -> PDHGState:
+        """Iterations ``start_iter`` (the host's copy of ``state.iteration``)
+        to ``until_iter``: through a fused route's phase plan where one
+        matched (generic steps until a chunk aligns, the ROF
+        canonicalization, chunks, the epilogue, a generic tail), else by
+        generic steps."""
+        if self.rof is not None:
+            chunk, canonicalize = self._rof_chunk, self._rof_canonical
+        elif self.ml is not None:
+            chunk, canonicalize = self._ml_chunk, None
+        elif self.vol is not None:
+            chunk, canonicalize = self._vol_chunk, None
+        else:
+            for it in range(start_iter, until_iter):
+                state = self.generic_step(state, it)
+            return state
+        return run_phases(state, start_iter, until_iter, self.ri, 1 % self.ri,
+                          self.generic_step, canonicalize, chunk,
+                          epilogue=self._epilogue)
+
+    # ------------------------------------------------------------------
+    def current_solution(self, state: PDHGState):
+        """(x, z, y, w), each with a leading batch axis."""
+        p = self.batched_problem.tree
+        tau, sigma, theta = (v[:, None] for v in (state.tau, state.sigma,
+                                                  state.theta))
+        w = (state.x_prev - state.x) / (p.scaling_right * tau) - state.kty_prev
+        z = (state.y_prev - state.y) / (sigma * p.scaling_left) + (
+            1.0 + theta) * state.kx - theta * state.kx_prev
+        return state.x, z, state.y, w

@@ -798,3 +798,173 @@ def test_fused_vol_backend_on_card_matches_cpu(dev):
         if a.is_floating_point():
             torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3,
                                        msg=f.name)
+
+
+# ---------------------------------------------------------------------------
+# the batched chunks (slice 7a): each instance of a batched launch is the
+# single-instance kernel on that instance alone, bit for bit (the same
+# kernels, the same reduction order per instance)
+# ---------------------------------------------------------------------------
+
+def _batched_scal(seed, B, a, b, dev, conv=None):
+    """(5, B) rows of per-instance tau, sigma, theta, and the family's two
+    scalars around ``a`` and ``b`` (+ a row of converged flags)."""
+    rng = np.random.RandomState(seed)
+    rows = [0.8 + 0.2 * rng.rand(B), 0.9 + 0.3 * rng.rand(B), np.ones(B),
+            a * (0.5 + rng.rand(B)), b * (0.5 + rng.rand(B))]
+    if conv is not None:
+        rows.append(np.asarray(conv, np.float64))
+    return torch.tensor(np.array(rows), dtype=torch.float32, device=dev)
+
+
+def _check_batched(many, one, plain, planes, scal, n_planes, count, *extra):
+    """``many`` on the batch against its plain version (PLANE_ATOL, norms
+    NORM_RTOL) and, instance by instance, against ``one`` bit for bit."""
+    out = many(*planes, scal, count, *extra)
+    ref = plain(*planes, scal, count, *extra)
+    torch.cuda.synchronize()
+    assert all(t.is_cuda for t in out)
+    B = planes[0].shape[0]
+    assert out[n_planes].shape == (4, B)
+    _close(out, ref, n_planes)
+    for b in range(B):
+        single = one(*[p[b] for p in planes], scal[:, b], count, *extra)
+        for a, s in zip(out[:n_planes], single[:n_planes]):
+            assert torch.equal(a[b], s)
+        assert torch.equal(out[n_planes][:, b], single[n_planes])
+    return out
+
+
+@pytest.mark.parametrize("B,nx,ny,dataterm", [
+    (64, 128, 128, "square"), (5, 250, 190, "square"),
+    (5, 250, 190, "wsquare"), (5, 250, 190, "abs"), (2, 1280, 1280, "square")])
+def test_rof_chunk_batched_matches_plain_and_single(dev, B, nx, ny,
+                                                    dataterm):
+    rng = np.random.RandomState(31)
+    arrs = (rng.rand(B, nx, ny), 0.3 * rng.randn(B, 2, nx, ny),
+            rng.rand(B, nx, ny), 2.0 * (rng.rand(B, nx, ny) > 0.3))
+    planes = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+    scal = _batched_scal(32, B, 16.0, 1.0, dev)
+    before = fr.launch_counts["rof_chunk_batched"]
+    _check_batched(fr.rof_chunk_batched, fr.rof_chunk,
+                   fr.rof_chunk_batched_plain, planes, scal, 4, 10, dataterm)
+    assert fr.launch_counts["rof_chunk_batched"] == before + 1
+
+
+@pytest.mark.parametrize("B,L,nx,ny", [(8, 8, 256, 256), (3, 5, 250, 190),
+                                       (2, 9, 40, 36)])
+def test_ml_chunk_batched_matches_plain_and_single(dev, B, L, nx, ny):
+    rng = np.random.RandomState(33)
+    arrs = (rng.rand(B, L, nx, ny), 0.3 * rng.randn(B, 2 * L, nx, ny),
+            0.1 * rng.randn(B, nx, ny), rng.rand(B, L, nx, ny))
+    planes = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+    scal = _batched_scal(34, B, 1.0, 1.0, dev)
+    before = fm.launch_counts["ml_chunk_batched"]
+    _check_batched(fm.ml_chunk_batched, fm.ml_chunk,
+                   fm.ml_chunk_batched_plain, planes, scal, 6, 10)
+    assert fm.launch_counts["ml_chunk_batched"] == before + 1
+
+
+@pytest.mark.parametrize("B,L,nx,ny,dataterm", [
+    (8, 8, 256, 256, "square"), (3, 5, 190, 250, "square"),
+    (3, 5, 190, 250, "wsquare"), (3, 5, 190, 250, "abs"),
+    (2, 1, 64, 96, "square")])
+def test_vol_chunk_batched_matches_plain_and_single(dev, B, L, nx, ny,
+                                                    dataterm):
+    rng = np.random.RandomState(35)
+    arrs = (rng.rand(B, L, nx, ny), 0.3 * rng.randn(B, 3, L, nx, ny),
+            rng.rand(B, L, nx, ny), 2.0 * (rng.rand(B, L, nx, ny) > 0.3))
+    planes = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+    scal = _batched_scal(36, B, 6.0, 1.0, dev)
+    before = fv.launch_counts["vol_chunk_batched"]
+    _check_batched(fv.vol_chunk_batched, fv.vol_chunk,
+                   fv.vol_chunk_batched_plain, planes, scal, 4, 10, dataterm)
+    assert fv.launch_counts["vol_chunk_batched"] == before + 1
+
+
+def test_batched_converged_flags_hold_their_instances(dev):
+    """An instance whose flag is set gets its inputs back and zero norms;
+    the others run as without it."""
+    B, nx, ny = 4, 48, 40
+    rng = np.random.RandomState(37)
+    arrs = (rng.rand(B, nx, ny), 0.3 * rng.randn(B, 2, nx, ny),
+            rng.rand(B, nx, ny), rng.rand(B, nx, ny))
+    x, q, f, w = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                  for a in arrs]
+    scal = _batched_scal(38, B, 8.0, 1.0, dev, conv=[0, 1, 0, 1])
+    out = fr.rof_chunk_batched(x, q, f, w, scal, 5)
+    free = fr.rof_chunk_batched(x, q, f, w, scal[:5], 5)
+    for b in range(B):
+        held = b % 2 == 1
+        for a, s, inp in zip(out[:4], free[:4], (x, q, x, q)):
+            assert torch.equal(a[b], inp[b] if held else s[b])
+        assert torch.equal(out[4][:, b],
+                           torch.zeros_like(out[4][:, b]) if held
+                           else free[4][:, b])
+
+
+def test_batched_kernels_refuse_what_they_do_not_take(dev):
+    B, nx, ny = 2, 16, 16
+    x = torch.rand(B, nx, ny, device=dev)
+    q = torch.rand(B, 2, nx, ny, device=dev)
+    scal = _batched_scal(39, B, 8.0, 1.0, dev)
+    with pytest.raises(ptt.ProstError, match="float32"):
+        fr.rof_chunk_batched(x.double(), q, x, x, scal, 3)
+    with pytest.raises(ptt.ProstError, match="one device"):
+        fr.rof_chunk_batched(x, q, x, x, scal.cpu(), 3)
+    with pytest.raises(ptt.ProstError, match="scal must be"):
+        fr.rof_chunk_batched(x, q, x, x, scal[:, :1], 3)
+
+
+def _rof_ensemble(B, nx, ny, device):
+    rng = np.random.RandomState(40)
+    probs = []
+    for _ in range(B):
+        n = nx * ny
+        grad = ptt.linop.BlockGradient2D(row=0, col=0, nx=nx, ny=ny, L=1)
+        prox_g = [ptt.prox.ProxElem1D(
+            index=0, size=n, fun="square",
+            coeffs=(1.0, rng.rand(n), float(rng.uniform(4, 32)), 0.0, 0.0,
+                    0.0, 0.0))]
+        pn = ptt.prox.ProxElemNorm2(index=0, size=2 * n, count=n, dim=2,
+                                    interleaved=False, fun="abs",
+                                    coeffs=(1.0, 0.0, 1.0, 0.0, 0.0, 0.0,
+                                            0.0))
+        probs.append(ptt.Problem.create(
+            ptt.linop.LinearOperator.create([grad]), prox_g=prox_g,
+            prox_fstar=[ptt.prox.ProxMoreau(index=0, size=2 * n, child=pn)],
+            device=device))
+    return probs
+
+
+def test_batched_rof_route_on_card_matches_cpu(dev):
+    """BatchedPDHG's fused ROF route on the card (the batched kernel, the
+    vmapped generic steps and epilogue) against the same route on the CPU
+    with the plain versions, to a tolerance at which some instances have
+    converged before the ensemble stops."""
+    from prost_tpu_torch.parallel import BatchedPDHG
+
+    t = 1e-3
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=t,
+                              tol_rel_dual=t, tol_abs_primal=t,
+                              tol_abs_dual=t)
+    opts = PDHGOptions(stepsize="boyd", residual_iter=10,
+                       scale_steps_operator=False)
+    fr.reset_launch_counts()
+    states = []
+    for device in (dev, torch.device("cpu")):
+        b = BatchedPDHG(_rof_ensemble(6, 40, 36, device), opts, sopts)
+        assert b.rof is not None
+        s = b.run(b.initial_state(), 37, 0)
+        s = b.run(s, 800, int(s.iteration[0]))
+        states.append(s)
+    assert fr.launch_counts["rof_chunk_batched"] > 0
+    gpu, cpu = states
+    assert gpu.converged.tolist() == cpu.converged.tolist()
+    assert gpu.iteration.tolist() == cpu.iteration.tolist()
+    for f in dataclasses.fields(gpu):
+        a, b = getattr(gpu, f.name), getattr(cpu, f.name)
+        assert a.is_cuda, f.name
+        if a.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3,
+                                       msg=f.name)

@@ -299,6 +299,26 @@ def test_png_decoder_matches_pil(name):
     np.testing.assert_array_equal(ours, ref)
 
 
+@pytest.mark.parametrize("name,rows,cols", [
+    ("flowers", 512, 512), ("cow", 256, 256), ("dog", 256, 256),
+    ("junction_gray", 128, 128), ("dog", 190, 250)])
+def test_fixture_gray_matches_bench_pil(name, rows, cols):
+    """chip_smoke.py's gray image is bench.py's, bit for bit: PIL's
+    convert("L") and BILINEAR resize to (rows, cols), then / 255 in
+    float32, at the sizes of configs 2 and 3, vol256x8 and tight128x4 (and
+    a ragged downscale)."""
+    from PIL import Image
+
+    import chip_smoke
+
+    path = os.path.join(REPO, "data", f"{name}.png")
+    im = Image.open(path).convert("L").resize((cols, rows), Image.BILINEAR)
+    ref = np.asarray(im, np.float32) / 255.0
+    ours = chip_smoke.fixture_gray(name, rows, cols)
+    assert ours.dtype == np.float32 and ours.shape == (rows, cols)
+    np.testing.assert_array_equal(ours, ref)
+
+
 def test_unaries_match_the_example():
     from example_multilabel_fast import unaries
 
