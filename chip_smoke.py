@@ -61,7 +61,11 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    the JAX package bands each instance); ``ml_chunk_batched`` at B = 8 of
    256x256x8 and B = 3 of 250x190x5; ``vol_chunk_batched`` at B = 8 of
    256x256x8, B = 3 of 190x250x5 for the three data terms and B = 2 of
-   64x96x1; timed at B = 1024 of 128x128 and B = 8 of 256x256x8;
+   64x96x1; ``deblur_chunk_batched`` at B = 8 of 512x512 with config 2's
+   motion blur and B = 3 of 250x190 with the asymmetric 5x5 blur;
+   ``tight_chunk_batched`` at B = 8 of 128x128x4 and B = 3 of 250x190x3;
+   timed at B = 1024 of 128x128, B = 8 of 256x256x8, 512x512 and
+   128x128x4;
 12. solve vol256x8, volumetric TV of eight noisy slices of data/dog.png at
    256x256 (lmb 6, boyd, residual_iter 10, 2000 iterations at tolerance
    1e-5), by the fused volumetric route and by the generic path, count
@@ -75,7 +79,12 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    instance's energy fused against generic and instances 0, 511 and 1023
    against single-instance fused solves; then ensembles of 8 instances of
    config 3 and of vol256x8, each instance with its own noise, the same
-   way;
+   way; then ``deblur8x512``, 8 frames of config 2 (one blur, each frame
+   its own noise), and ``tight8x128x4``, 8 instances of tight128x4 (each
+   its own noise on the gray levels): fused batched against generic
+   batched on every instance's energy (tight also on its constraint
+   residual and unity error), instances 0 and 7 against single-instance
+   fused solves within 1e-6;
 14. run a few hundred iterations of the fused ROF routes at 2048x2048, of
    the fused multilabel route at 512x512x8, of the deblur route at
    2048x2048, of the tight route at 512x512x4 and of the volumetric route
@@ -209,8 +218,16 @@ ENS_B, ENS_SIZE, ENS_WARM, ENS_ITERS = 1024, 128, 21, 1000
 ENS_SAMPLES = (0, 511, 1023)  # instances held against single solves
 # the multilabel and vol ensembles: B instances of config 3 and vol256x8,
 # each with its own noise (0.05 on the cow's gray levels, vol256x8's own
-# slices drawn from RandomState(42 + b))
+# slices drawn from RandomState(42 + b)); the deblur and tight ensembles:
+# B frames of config 2 and B instances of tight128x4, each with its own
+# noise (0.01 on the blurred flowers, 0.05 on the junction's gray levels)
+# drawn in turn from one RandomState(42)
 SMALL_ENS_B, SMALL_ENS_ITERS = 8, 300
+# An instance of a deblur or tight ensemble against its single-instance
+# fused solve: the batched kernels are the single-instance ones instance by
+# instance (bit-equal), so only the host's vmapped generic steps and
+# adaptation can round differently.
+SINGLE_RTOL = 1e-6
 
 
 def admm_iter_ops(degree):
@@ -460,18 +477,23 @@ def asym_kernel(k=5):
     return ker / ker.sum()
 
 
-def deblur_data(nx, ny, seed=42):
-    """Config 2's observation as bench.py makes it: data/flowers.png's gray
-    levels at (nx, ny), fully convolved with the motion blur, plus 0.01
-    randn from RandomState(seed); flat."""
+def deblur_frames(B, nx, ny, seed=42):
+    """Config 2's observation as bench.py makes it, for B frames:
+    data/flowers.png's gray levels at (nx, ny), fully convolved with the
+    motion blur, plus each frame's own 0.01 randn drawn in turn from one
+    RandomState(seed); (B, nx2 * ny2)."""
     from scipy.signal import convolve2d
 
-    kern = motion_kernel()
     rng = np.random.RandomState(seed)
-    clean = fixture_gray("flowers", nx, ny)
-    return (convolve2d(clean, kern, mode="full")
-            + 0.01 * rng.randn(nx + DB_KLEN - 1, ny + DB_KLEN - 1)
-            ).reshape(-1)
+    blurred = convolve2d(fixture_gray("flowers", nx, ny), motion_kernel(),
+                         mode="full")
+    return np.stack([(blurred + 0.01 * rng.randn(*blurred.shape)).reshape(-1)
+                     for _ in range(B)])
+
+
+def deblur_data(nx, ny, seed=42):
+    """Config 2's observation (the first of ``deblur_frames``); flat."""
+    return deblur_frames(1, nx, ny, seed)[0]
 
 
 def deblur_model(nx, ny, fb, lmb=DB_LMB):
@@ -519,12 +541,24 @@ def pair_matrix(L):
     return P
 
 
-def tight_unaries(nx, ny, L):
+def tight_unaries(nx, ny, L, gray=None):
     """bench.py build_tight's unaries: (junction_gray - m)^2 against L
-    evenly spaced gray levels, the image at (nx, ny), label outermost."""
-    gray = fixture_gray("junction_gray", nx, ny)
+    evenly spaced gray levels, the image at (nx, ny) (or ``gray``), label
+    outermost."""
+    if gray is None:
+        gray = fixture_gray("junction_gray", nx, ny)
     return np.stack([(gray - m) ** 2 for m in np.linspace(0, 1, L)],
                     axis=0).reshape(-1).astype(np.float32)
+
+
+def tight_ensemble_unaries(B, seed=42):
+    """The unaries of B instances of tight128x4, each on the gray levels
+    plus its own 0.05 randn, drawn in turn from one RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    gray = fixture_gray("junction_gray", TIGHT_SIZE, TIGHT_SIZE)
+    return [tight_unaries(TIGHT_SIZE, TIGHT_SIZE, TIGHT_LABELS,
+                          gray + 0.05 * rng.randn(*gray.shape))
+            for _ in range(B)]
 
 
 def tight_model(nx, ny, L, f, lmb=TIGHT_LMB):
@@ -1629,18 +1663,30 @@ def ensemble_problem(nx, ny, f, lmb):
         prox_fstar=[ptt.prox.ProxMoreau(index=0, size=2 * n, child=pn)])
 
 
+def batched_scaled_errs(out, ref, n_planes):
+    """``scaled_errs`` of each instance of a batched chunk's outputs (its
+    own planes' and norms' scales), the largest over the instances."""
+    def inst(o, b):
+        return [t[b] for t in o[:n_planes]] + [o[n_planes][:, b]]
+
+    errs = [scaled_errs(inst(out, b), inst(ref, b), n_planes)
+            for b in range(out[0].shape[0])]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
 def batched_check(name, many, one, plain, planes, scal, n_planes, count,
-                  *extra):
+                  *extra, errs=max_errs):
     """``many`` (a batched chunk wrapper) on the card against its plain
-    version on the same inputs, and each instance against the single-
-    instance kernel ``one`` on that instance alone (bit-equal expected).
-    Returns the largest plane error against the plain version."""
+    version on the same inputs (``errs``: the largest plane and norm
+    errors), and each instance against the single-instance kernel ``one``
+    on that instance alone (bit-equal expected).  Returns the largest plane
+    error against the plain version."""
     import torch
 
     out = many(*planes, scal, count, *extra)
     ref = plain(*planes, scal, count, *extra)
     torch.cuda.synchronize()
-    plane, rel = max_errs(out, ref, n_planes)
+    plane, rel = errs(out, ref, n_planes)
     single = 0.0
     for b in range(planes[0].shape[0]):
         s = one(*[p[b] for p in planes], scal[:, b], count, *extra)
@@ -1673,19 +1719,22 @@ def batched_scal(seed, B, a, b, dev):
 
 
 def phase_batched_kernels(dev):
-    """The three batched chunks against their plain versions and, instance
+    """The five batched chunks against their plain versions and, instance
     by instance, against the single-instance kernels; timed at the main
     path's shapes (rof at ensemble1024x128, ml and vol at B = 8 of
-    256x256x8)."""
+    256x256x8, deblur at B = 8 of 512x512, tight at B = 8 of 128x128x4)."""
     import torch
 
+    from prost_tpu_torch.ops import fused_deblur as fd
     from prost_tpu_torch.ops import fused_multilabel as fm
     from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops import fused_tight as ft
     from prost_tpu_torch.ops import fused_vol as fv
 
     ri = 10
-    rows = {k: {"err": 0.0} for k in ("rof_chunk_batched", "ml_chunk_batched",
-                                       "vol_chunk_batched")}
+    rows = {k: {"err": 0.0} for k in (
+        "rof_chunk_batched", "ml_chunk_batched", "vol_chunk_batched",
+        "deblur_chunk_batched", "tight_chunk_batched")}
 
     # rof: the config-5 data (x = f, mass on q and on its dead coordinates),
     # a ragged batch with the three data terms, and 1280x1280 instances,
@@ -1772,6 +1821,77 @@ def phase_batched_kernels(dev):
             nvox = L * nx * ny
             # u, q, f in (5 volumes); new and previous u, q out (8)
             r["bound"] = bound(B * 13 * nvox * 4, B * vol_chunk_ops(nvox, ri))
+
+    # deblur: deblur8x512's shape with config 2's blur, and a ragged one
+    # with the asymmetric blur (nx2 - nx and ny2 - ny differ from the
+    # motion blur's, the frames' planes of two sizes)
+    for seed, (B, nx, ny, kern) in enumerate((
+            (SMALL_ENS_B, DB_SIZE, DB_SIZE, motion_kernel()),
+            (3, 250, 190, asym_kernel()))):
+        taps = fd.kernel_taps(torch.as_tensor(kern.T, dtype=torch.float32))
+        nx2, ny2 = nx + kern.shape[1] - 1, ny + kern.shape[0] - 1
+        arrs = (rng.rand(B, nx, ny), rng.randn(B, nx2, ny2),
+                0.3 * rng.randn(B, 2, nx, ny), rng.rand(B, nx2, ny2),
+                0.5 + rng.rand(B, nx2, ny2))
+        planes = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                  for a in arrs]
+        scal = batched_scal(640 + seed, B, DB_LMB * (0.5 + rng.rand(B)),
+                            1.0, dev)
+        extra = (taps, 0.5, 0.2)
+        err = batched_check(
+            f"deblur_chunk_batched B={B} {nx}x{ny} ({len(taps)} taps)",
+            fd.deblur_chunk_batched, fd.deblur_chunk,
+            fd.deblur_chunk_batched_plain, planes, scal, 6, ri, *extra,
+            errs=batched_scaled_errs)
+        r = rows["deblur_chunk_batched"]
+        r["err"] = max(r["err"], err)
+        if B == SMALL_ENS_B:
+            r["ms"] = time_ms(lambda: fd.deblur_chunk_batched(
+                *planes, scal, ri, *extra), 20)
+            r["plain_ms"] = time_ms(lambda: fd.deblur_chunk_batched_plain(
+                *planes, scal, ri, *extra), 5)
+            n, m2, T = nx * ny, nx2 * ny2, len(taps)
+            # per frame x, yv, q, fb, sv in and new and previous x, yv, q
+            # out; the taps once
+            r["bound"] = bound((B * (9 * n + 5 * m2) + 3 * T) * 4,
+                               B * deblur_chunk_ops(n, m2, T, ri))
+
+    # tight: tight8x128x4's shape and a ragged one with L = 3
+    for seed, (B, L, nx, ny) in enumerate((
+            (SMALL_ENS_B, TIGHT_LABELS, TIGHT_SIZE, TIGHT_SIZE),
+            (3, 3, 250, 190))):
+        k = L * (L - 1) // 2
+        pt_ = pair_matrix(L).T
+        taps = tuple((r_, m, float(pt_[r_, m])) for r_ in range(2 * L)
+                     for m in range(2 * k) if pt_[r_, m] != 0.0)
+        consts = tuple(float(np.float32(c))
+                       for c in (1 / (L + 1), 1.0, 1 / L, 0.2, 1 / 3))
+        arrs = (rng.rand(B, L, nx, ny), 0.1 * rng.randn(B, 2 * k, nx, ny),
+                0.2 * rng.randn(B, 2 * L, nx, ny),
+                0.1 * rng.randn(B, 2 * k, nx, ny), 0.1 * rng.randn(B, nx, ny),
+                rng.rand(B, L, nx, ny))
+        planes = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                  for a in arrs]
+        scal = batched_scal(650 + seed, B, TIGHT_LMB * (0.5 + rng.rand(B)),
+                            1.0, dev)
+        err = batched_check(
+            f"tight_chunk_batched B={B} {nx}x{ny}x{L}",
+            ft.tight_chunk_batched, ft.tight_chunk,
+            ft.tight_chunk_batched_plain, planes, scal, 10, ri, taps, consts,
+            errs=batched_scaled_errs)
+        r = rows["tight_chunk_batched"]
+        r["err"] = max(r["err"], err)
+        if B == SMALL_ENS_B:
+            r["ms"] = time_ms(lambda: ft.tight_chunk_batched(
+                *planes, scal, ri, taps, consts), 20)
+            r["plain_ms"] = time_ms(lambda: ft.tight_chunk_batched_plain(
+                *planes, scal, ri, taps, consts), 5)
+            n, T = nx * ny, len(taps)
+            # per instance u, v, q, p, s, f in and the new and previous
+            # state out; the taps array once
+            r["bound"] = bound((B * (10 * L + 12 * k + 3) * n + 4 * T
+                                + 2 * L + 2 * k + 2) * 4,
+                               B * tight_chunk_ops(n, L, k, T, ri))
     for name, r in rows.items():
         print(f"{name}: kernel {r['ms']:.4f} ms/call, plain "
               f"{r['plain_ms']:.4f} ms/call, bound {r['bound'][0]:.5f} ms "
@@ -1797,7 +1917,8 @@ def single_run(problem, opts, sopts, warm, iters):
     from prost_tpu_torch.ops import FusedROFPDHG
 
     b = FusedROFPDHG(problem, opts, sopts)
-    check(b.rof is not None or b.ml is not None or b.vol is not None,
+    check(any(r is not None for r in (b.rof, b.ml, b.deblur, b.tight,
+                                      b.vol)),
           "the single-instance fused route was not taken")
     s = b.run(b.initial_state(), warm, 0)
     return b.run(s, warm + iters, warm)
@@ -1955,6 +2076,92 @@ def phase_small_ensembles(card):
     return launches
 
 
+def phase_conv_ensembles(card):
+    """deblur8x512 (SMALL_ENS_B frames of config 2 sharing its blur) and
+    tight8x128x4 (SMALL_ENS_B instances of tight128x4), each instance with
+    its own noise, through BatchedPDHG: the fused batched route, counted
+    against the phase plan, then the generic batched path on every
+    instance's energy (tight also on its constraint residual and unity
+    error, as the single tight solve), and instances 0 and B - 1 against
+    single-instance fused solves within SINGLE_RTOL."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.parallel import BatchedPDHG
+
+    opts, sopts = ens_opts()
+    B, L = SMALL_ENS_B, TIGHT_LABELS
+    fbs = deblur_frames(B, DB_SIZE, DB_SIZE)
+    unaries = tight_ensemble_unaries(B)
+    cases = (
+        ("deblur", fd, f"deblur{B}x{DB_SIZE}", fbs,
+         lambda fb: deblur_model(DB_SIZE, DB_SIZE, fb).finalize(),
+         lambda x, fb: (deblur_energy(x, fb, DB_LMB, DB_SIZE, DB_SIZE),)),
+        ("tight", ft, f"tight{B}x{TIGHT_SIZE}x{L}", unaries,
+         lambda f: tight_model(TIGHT_SIZE, TIGHT_SIZE, L, f).finalize(),
+         lambda x, f: tight_measures(x, f, TIGHT_LMB, L, TIGHT_SIZE,
+                                     TIGHT_SIZE)))
+    launches = {}
+    for kind, mod, cell, data, model, measures in cases:
+        name = f"{kind}_chunk_batched"
+        t0 = time.perf_counter()
+        problems = [model(d) for d in data]
+        b = BatchedPDHG(problems, opts, sopts)
+        check(getattr(b, kind) is not None,
+              f"the fused batched {kind} route was not taken")
+        print(f"{cell}: set-up {time.perf_counter() - t0:.2f} s; stacked "
+              f"leaves {b.batched_problem.paths}")
+        mod.reset_launch_counts()
+        state, dt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
+        launches[name] = mod.launch_counts[name]
+        # one generic step, two chunks to the end of the warm-up, then one
+        # chunk every 10 iterations
+        want = 2 + SMALL_ENS_ITERS // 10
+        check(launches[name] == want, f"{name} launches {launches[name]}, "
+              f"the phase plan has {want}")
+        check(state.iteration.tolist() == [ENS_WARM + SMALL_ENS_ITERS] * B
+              and not bool(state.converged.any()),
+              f"the {cell} ensemble did not run every instance to its end")
+        x = state.x.cpu().numpy()
+        check(np.all(np.isfinite(x)), f"non-finite {cell} result")
+        fused = np.array([measures(x[i], data[i]) for i in range(B)])
+        setattr(b, kind, None)  # the generic batched path
+        gstate, gdt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
+        gx = gstate.x.cpu().numpy()
+        gen = np.array([measures(gx[i], data[i]) for i in range(B)])
+        rel = float(np.max(np.abs(fused[:, 0] - gen[:, 0])
+                           / np.abs(gen[:, 0])))
+        print(f"{cell}: fused {B * SMALL_ENS_ITERS / dt:.1f} instance-it/s, "
+              f"generic {B * SMALL_ENS_ITERS / gdt:.1f} [{card}]; {name} "
+              f"launches {launches[name]}; energies {fused[:, 0].tolist()}; "
+              f"max rel diff to generic {rel:.3e} (tol {ENERGY_RTOL:g})")
+        check(rel <= ENERGY_RTOL, f"fused and generic {cell} energies "
+              "disagree")
+        if kind == "tight":
+            for j, what in ((1, "constraint residuals"),
+                            (2, "unity errors")):
+                worst = float(np.max(np.abs(fused[:, j] - gen[:, j])
+                                     / gen[:, j]))
+                print(f"{cell}: {what} {fused[:, j].tolist()}, max rel diff "
+                      f"to generic {worst:.3e} (tol {TIGHT_MEASURE_RTOL:g})")
+                check(worst <= TIGHT_MEASURE_RTOL,
+                      f"fused and generic {cell} {what} disagree")
+        for i in (0, B - 1):
+            s = single_run(problems[i], opts, sopts, ENS_WARM,
+                           SMALL_ENS_ITERS)
+            e1 = measures(s.x.cpu().numpy(), data[i])[0]
+            rel1 = abs(fused[i, 0] - e1) / abs(e1)
+            print(f"{cell} instance {i} vs a single-instance fused solve: "
+                  f"energy {fused[i, 0]:.8f} vs {e1:.8f}, rel diff "
+                  f"{rel1:.3e} (tol {SINGLE_RTOL:g})")
+            check(rel1 <= SINGLE_RTOL, f"{cell} instance {i} disagrees with "
+                  "its single-instance solve")
+        del b, problems, state, gstate
+        torch.cuda.empty_cache()
+    return launches
+
+
 def phase_large(card):
     """Both fused ROF routes at 2048x2048, the fused multilabel route at
     512x512x8, the deblur route at 2048x2048, the tight route at 512x512x4
@@ -2085,6 +2292,7 @@ def main() -> int:
     ens_launches, _, _ = phase_ensemble(card)
     launches.update(ens_launches)
     launches.update(phase_small_ensembles(card))
+    launches.update(phase_conv_ensembles(card))
     phase_large(card)
     check("jax" not in sys.modules, "jax was imported")
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
@@ -2106,6 +2314,10 @@ def main() -> int:
         "ml_chunk_batched": ("fused_multilabel",
                              "prost_tpu/ops/fused_multilabel.py:675"),
         "vol_chunk_batched": ("fused_vol", "prost_tpu/ops/fused_vol.py:300"),
+        "deblur_chunk_batched": ("fused_deblur",
+                                 "prost_tpu/ops/fused_deblur.py:327"),
+        "tight_chunk_batched": ("fused_tight",
+                                "prost_tpu/ops/fused_tight.py:253"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

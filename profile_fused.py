@@ -13,13 +13,18 @@ tight multilabel model (4 labels on data/junction_gray.png at 128x128,
 lmb 1) and its volumetric TV model (vol256x8: eight noisy slices of
 data/dog.png at 256x256, lmb 6); each with residual_iter 10, 2000
 iterations in 10 callback epochs at tolerance 1e-5, after a warm-up
-solve, three times:
+solve.  Then three of chip_smoke.py's ensembles through ``BatchedPDHG``'s
+fused routes, tolerances 0, after a warm-up run: ensemble1024x128
+(BASELINE config 5, 21 + 1000 iterations), deblur8x512 and tight8x128x4
+(21 + 300), and each one's generic batched path (the vmapped
+``pdhg_step``) for 100 iterations.  Each of them three times:
 
 1. as a user runs it: the iterating time (host time inside the backend's
    ``run`` calls, each ending with a device sync) and, for each phase of
    ``ops/phases.py`` (generic steps of A and C, canonicalization, B0
-   multichunks, B chunks with their adaptation, epilogue), the calls and
-   the host time spent issuing them;
+   multichunks, B chunks with their adaptation, epilogue; the generic
+   batched path has only generic steps), the calls and the host time
+   spent issuing them;
 2. with a device sync after every phase call, so that each phase's time
    includes its device work;
 3. under torch.profiler: device time by kernel (the ``csrc`` kernels and
@@ -39,12 +44,15 @@ import re
 import sys
 import time
 
-from chip_smoke import (DB_SIZE, ML_LABELS, ML_LMB, ML_SIZE, TIGHT_LABELS,
-                        TIGHT_SIZE, VOL_LABELS, VOL_SIZE, card_line, check,
-                        cow_gray, deblur_data, deblur_model, ml_model,
+from chip_smoke import (DB_SIZE, ENS_B, ENS_ITERS, ENS_SIZE, ENS_WARM,
+                        ML_LABELS, ML_LMB, ML_SIZE, SMALL_ENS_B,
+                        SMALL_ENS_ITERS, TIGHT_LABELS, TIGHT_SIZE,
+                        VOL_LABELS, VOL_SIZE, card_line, check, cow_gray,
+                        deblur_data, deblur_frames, deblur_model,
+                        ensemble_data, ensemble_problem, ens_opts, ml_model,
                         ml_unaries, recording, run_model, test_image,
-                        tight_model, tight_unaries, timed_solve, vol_data,
-                        vol_model)
+                        tight_ensemble_unaries, tight_model, tight_unaries,
+                        timed_solve, vol_data, vol_model)
 
 PHASES = ("generic", "canonicalize", "multichunk", "chunk", "epilogue")
 LMB = 16.0
@@ -54,6 +62,15 @@ ROUTES = ("admm", "pdhg", "ml", "deblur", "tight", "vol")
 TAKEN = {"admm": "rof", "pdhg": "rof", "ml": "ml", "deblur": "deblur",
          "tight": "tight", "vol": "vol"}
 TIGHT_PAIRS = TIGHT_LABELS * (TIGHT_LABELS - 1) // 2
+# the ensembles: (fused route, instances, label, timed iterations)
+ENSEMBLES = {
+    "ens_rof": ("rof", ENS_B, f"{ENS_B}x{ENS_SIZE}x{ENS_SIZE}", ENS_ITERS),
+    "ens_deblur": ("deblur", SMALL_ENS_B, f"{SMALL_ENS_B}x{DB_SIZE}x"
+                   f"{DB_SIZE}", SMALL_ENS_ITERS),
+    "ens_tight": ("tight", SMALL_ENS_B, f"{SMALL_ENS_B}x{TIGHT_SIZE}x"
+                  f"{TIGHT_SIZE}x{TIGHT_LABELS}", SMALL_ENS_ITERS),
+}
+GENERIC_ITERS = 100  # of each ensemble's generic batched path
 
 
 def csrc_kernel_names():
@@ -170,7 +187,85 @@ def phase_table(mod, route, f, sync):
         for name in PHASES if name in stats}
 
 
-def traced(route, f, ours):
+def ensemble(name):
+    """The BatchedPDHG of ensemble ``name`` on the card, its fused route
+    matched."""
+    from prost_tpu_torch.parallel import BatchedPDHG
+
+    route, B = ENSEMBLES[name][:2]
+    if route == "rof":
+        fs, lmbs = ensemble_data(B, ENS_SIZE, ENS_SIZE)
+        problems = [ensemble_problem(ENS_SIZE, ENS_SIZE, f, lmb)
+                    for f, lmb in zip(fs, lmbs)]
+    elif route == "deblur":
+        problems = [deblur_model(DB_SIZE, DB_SIZE, fb).finalize()
+                    for fb in deblur_frames(B, DB_SIZE, DB_SIZE)]
+    else:
+        problems = [tight_model(TIGHT_SIZE, TIGHT_SIZE, TIGHT_LABELS,
+                                f).finalize()
+                    for f in tight_ensemble_unaries(B)]
+    b = BatchedPDHG(problems, *ens_opts())
+    check(getattr(b, route) is not None,
+          f"the fused batched {route} route was not taken")
+    return b
+
+
+def warm_state(b, warm):
+    """``b``'s state after ``warm`` iterations from its initial state."""
+    s = b.initial_state()
+    if warm:
+        s = b.run(s, warm, 0)
+    float(s.tau[0])
+    return s
+
+
+def ensemble_run(b, s, iters, warm):
+    """``iters`` iterations of ``b`` from ``s`` (after ``warm``), synced by
+    a scalar read; the host seconds they took."""
+    t0 = time.perf_counter()
+    s = b.run(s, warm + iters, warm)
+    float(s.tau[0])
+    return time.perf_counter() - t0
+
+
+def ensemble_phases(b, s, iters, warm, sync):
+    """``ensemble_run`` with each phase timed: the fused route through
+    ``run_phases``, the generic path (no route) by its generic steps."""
+    import torch
+
+    from prost_tpu_torch.parallel import ensemble as ens
+
+    stats = {}
+    if warm:
+        orig = instrumented(ens, stats, sync)
+    else:
+        step = b.generic_step
+
+        def generic(*args):
+            t0 = time.perf_counter()
+            out = step(*args)
+            if sync:
+                torch.cuda.synchronize()
+            st = stats.setdefault("generic", [0, 0.0])
+            st[0] += 1
+            st[1] += time.perf_counter() - t0
+            return out
+        b.generic_step = generic
+    try:
+        dt = ensemble_run(b, s, iters, warm)
+    finally:
+        if warm:
+            ens.run_phases = orig
+        else:
+            del b.generic_step
+    return dt, {name: {"calls": stats[name][0], "ms": stats[name][1] * 1e3,
+                       "ms_per_call": stats[name][1] * 1e3 / stats[name][0]}
+                for name in PHASES if name in stats}
+
+
+def traced(work, ours):
+    """``work()`` under torch.profiler: device ms by kernel and the device
+    busy share of its wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -178,7 +273,7 @@ def traced(route, f, ours):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve(route, ITERS, f)
+        work()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kernel = {}
@@ -198,6 +293,22 @@ def traced(route, f, ours):
             "device_busy_share": device_ms / (wall * 1e3) if device_ms
             else None,
             "top_kernels_ms": dict(top)}
+
+
+def print_phases(enqueue, synced):
+    for label, table in (("host enqueue", enqueue),
+                         ("synced after each call", synced)):
+        for name, r in table.items():
+            print(f"  {label:24s} {name:12s} {r['calls']:5d} calls "
+                  f"{r['ms']:10.4f} ms ({r['ms_per_call']:.4f} ms/call)")
+
+
+def print_trace(trace):
+    print(f"  traced: wall {trace['wall_ms']:.4f} ms, device "
+          f"{trace['device_ms']:.4f} ms (csrc kernels "
+          f"{trace['csrc_kernels_ms']:.4f}, torch "
+          f"{trace['torch_kernels_ms']:.4f}), busy share "
+          f"{trace['device_busy_share']}")
 
 
 def main() -> int:
@@ -223,7 +334,7 @@ def main() -> int:
                                                   sync=False)
         _, sbackend, _, synced = phase_table(mods[route], route, f,
                                              sync=True)
-        trace = traced(route, f, ours)
+        trace = traced(lambda: solve(route, ITERS, f), ours)
         label = route_label(route)
         out[route] = {
             "size": label, "iterations": res.iterations,
@@ -235,16 +346,32 @@ def main() -> int:
               f"iterations, iterating {backend.loop_s * 1e3:.4f} ms "
               f"({res.iterations / backend.loop_s:.1f} it/s), solve() "
               f"{wall * 1e3:.4f} ms [{card}]")
-        for label, table in (("host enqueue", enqueue),
-                             ("synced after each call", synced)):
-            for name, r in table.items():
-                print(f"  {label:24s} {name:12s} {r['calls']:5d} calls "
-                      f"{r['ms']:10.4f} ms ({r['ms_per_call']:.4f} ms/call)")
-        print(f"  traced: wall {trace['wall_ms']:.4f} ms, device "
-              f"{trace['device_ms']:.4f} ms (csrc kernels "
-              f"{trace['csrc_kernels_ms']:.4f}, torch "
-              f"{trace['torch_kernels_ms']:.4f}), busy share "
-              f"{trace['device_busy_share']}")
+        print_phases(enqueue, synced)
+        print_trace(trace)
+    for name, (route, B, label, iters) in ENSEMBLES.items():
+        b = ensemble(name)
+        for variant, warm, n in (("fused", ENS_WARM, iters),
+                                 ("generic", 0, GENERIC_ITERS)):
+            if variant == "generic":
+                setattr(b, route, None)
+            s0 = warm_state(b, warm)
+            ensemble_run(b, s0, 10, warm)  # warm-up of the timed phases
+            dt, enqueue = ensemble_phases(b, s0, n, warm, sync=False)
+            sdt, synced = ensemble_phases(b, s0, n, warm, sync=True)
+            trace = traced(lambda: ensemble_run(b, s0, n, warm), ours)
+            key = f"{name}_{variant}"
+            out[key] = {
+                "size": label, "iterations": n, "iterating_s": dt,
+                "instance_it_per_s": B * n / dt, "phases_enqueue": enqueue,
+                "phases_synced": synced, "iterating_synced_s": sdt,
+                "trace": trace}
+            print(f"{key} {label}: {n} iterations after {warm}, iterating "
+                  f"{dt * 1e3:.4f} ms ({B * n / dt:.1f} instance-it/s) "
+                  f"[{card}]")
+            print_phases(enqueue, synced)
+            print_trace(trace)
+        del b
+        torch.cuda.empty_cache()
     print(card)
     print(json.dumps(out))
     return 0

@@ -1,13 +1,16 @@
 // Fused TV-deblurring PDHG chunk kernel for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas kernel on the deblurring path of the JAX package:
+// Replaces the Pallas kernels on the deblurring paths of the JAX package:
 //   prost_tpu/ops/fused_deblur.py  deblur_fused_chunk -> _deblur_chunk_kernel
-// (whole-plane mode) whose math is _chunk_core, _conv_ops and _grad_ops in
-// the same file.  It also serves the JAX package's banded variant
+//   (whole-plane mode)
+//   prost_tpu/ops/fused_deblur.py  deblur_fused_chunk_batched
+//                                  -> _deblur_chunk_kernel_batched
+// whose math is _chunk_core, _conv_ops and _grad_ops in the same file.  It
+// also serves the JAX package's banded variant
 // (deblur_fused_chunk_banded), which exists only because a TPU core's VMEM
 // cannot hold the planes of large images: here the planes stay in device
-// memory at every size.  The plain PyTorch version lives beside its wrapper
-// in prost_tpu_torch/ops/fused_deblur.py.
+// memory at every size.  The plain PyTorch versions live beside their
+// wrappers in prost_tpu_torch/ops/fused_deblur.py.
 //
 // Workload: min_u lmb/2 |B u - f|^2 + |grad u|_{2,1}, B a full 2D
 // convolution with T <= 96 nonzero taps; primal x (nx, ny), duals yv
@@ -18,13 +21,20 @@
 // JAX kernel embeds x and q in the (nx2, ny2) geometry with zero padding,
 // which every update keeps at zero; here a read outside (nx, ny) is that
 // zero, so no plane is padded or cropped.  The carried products are bx = B x
-// (nx2, ny2) and g = grad x (2, nx, ny).
+// (nx2, ny2) and g = grad x (2, nx, ny).  A batched launch takes B frames
+// that share one blur back to back, x (B, nx, ny), q (B, 2, nx, ny) and the
+// (nx2, ny2) planes (B, nx2, ny2), with a scalar block of S_LEN per frame,
+// on the z axis of both grids (pdhg_chunk.cuh); the taps are one array for
+// all frames.
 //
 // What bounds it on this card.  An iteration streams about 10 (nx, ny)
 // planes and 7 (nx2, ny2) planes (primal: x, 2 q, yv in, x out; dual: x, yv,
 // bx, fb, sv, 2 q, 2 g in, yv, bx, 2 q, 2 g out) and does about 4T + 35
 // operations a pixel, so at T = 7 it is bound by memory traffic, and at
 // 512x512 by launch latency: a chunk of ri iterations is 2*ri + 3 launches.
+// A batched chunk of 8 frames of 512x512 streams 8 times that per launch
+// in 8 times the blocks: about 140 MB an iteration, beyond the 50 MB L2, so
+// it is bound by device memory traffic.
 //
 // Design.  One thread per pixel, 32x8 blocks (pdhg_chunk.cuh): the primal
 // step runs on the (nx, ny) grid, the dual step and the norms on the (nx2,
@@ -50,7 +60,7 @@
 // NaN for radius 0.
 //
 // Interface: plain C, loaded with ctypes; pointers and the stream arrive
-// as void*, and the entry point returns the cudaError_t of its launches.
+// as void*, and every entry point returns the cudaError_t of its launches.
 
 #include "pdhg_chunk.cuh"
 
@@ -104,6 +114,29 @@ struct DB {
   float sig_q, tau_t;     // Sigma of the gradient rows, Tau
   float sqrt_q, sqrt_t;   // their square roots
 };
+
+// The buffers of this block's frame (blockIdx.z) of a batched launch, each
+// moved by its per-frame size with 64-bit offsets: (nx, ny) for x, (2, nx,
+// ny) for q and g, (nx2, ny2) for yv, bx, fb and sv.  The taps are shared,
+// and block_partials places the partials by blockIdx.z itself.
+__device__ __forceinline__ DB instance_of(DB b) {
+  size_t z = blockIdx.z, n = (size_t)b.nx * b.ny;
+  size_t m2 = (size_t)b.nx2 * b.ny2;
+  b.x += z * n;
+  b.xp += z * n;
+  b.q += 2 * z * n;
+  b.qp += 2 * z * n;
+  b.g += 2 * z * n;
+  b.gp += 2 * z * n;
+  b.yv += z * m2;
+  b.yvp += z * m2;
+  b.bx += z * m2;
+  b.bxp += z * m2;
+  b.fb += z * m2;
+  b.sv += z * m2;
+  b.sc += z * S_LEN;
+  return b;
+}
 
 // Pairwise tree sum of a stream of terms: level l holds the sum of the
 // last complete block of 2^l terms; a new term carries up like a binary
@@ -179,6 +212,7 @@ __device__ __forceinline__ float kty_at(const float* yv, const float* q,
 // Bound: memory, one (nx, ny) plane read (T times through L1), three
 // planes written.
 __global__ void deblur_seed(DB b) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   __shared__ Taps t;
   stage_taps(b.taps, b.ntaps, t);
@@ -197,6 +231,7 @@ __global__ void deblur_seed(DB b) {
 // Bound: memory, x, yv (T reads through L1), 2 q in, x out (2 x on the
 // aligned iteration, which also saves x_prev).
 __global__ void deblur_primal(DB b, int save_prev) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   __shared__ Taps t;
   stage_taps(b.taps, b.ntaps, t);
@@ -217,6 +252,7 @@ __global__ void deblur_primal(DB b, int save_prev) {
 // Bound: memory, x (T + 2 reads through L1), yv, bx, fb, sv, 2 q, 2 g in;
 // yv, bx, 2 q, 2 g out (twice that on the aligned iteration).
 __global__ void deblur_dual(DB b, int save_prev) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   __shared__ Taps t;
   stage_taps(b.taps, b.ntaps, t);
@@ -271,6 +307,7 @@ __global__ void deblur_dual(DB b, int save_prev) {
 // partial[4 * block].  K^T of the current and previous duals is recomputed.
 // Bound: memory, once per chunk.
 __global__ void deblur_norm_partial(DB b) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   __shared__ Taps t;
   stage_taps(b.taps, b.ntaps, t);
@@ -313,30 +350,36 @@ __global__ void deblur_norm_partial(DB b) {
   block_partials(v, b.partial);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Number of per-block norm partials (4 floats each) for an (nx2, ny2) grid.
-int prost_deblur_num_blocks(int nx2, int ny2) {
-  dim3 g = grid_of(nx2, ny2);
-  return (int)(g.x * g.y);
+// One chunk of `batch` frames: the seed, `count` iterations, the norm
+// partials on the (nx2, ny2) grid and the squared norms of every frame into
+// its scalars (one finish block each).
+int chunk(const DB& b, int count, int batch, cudaStream_t st) {
+  dim3 block(BX, BY), gfull = grid_of(b.nx2, b.ny2, batch);
+  dim3 gimg = grid_of(b.nx, b.ny, batch);
+  deblur_seed<<<gfull, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  for (int k = 0; k < count; ++k) {
+    int last = k == count - 1;
+    deblur_primal<<<gimg, block, 0, st>>>(b, last);
+    LAUNCH_CHECK();
+    deblur_dual<<<gfull, block, 0, st>>>(b, last);
+    LAUNCH_CHECK();
+  }
+  deblur_norm_partial<<<gfull, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  pdhg_finish<<<batch, FIN, 0, st>>>(b.sc, b.partial,
+                                     (int)(gfull.x * gfull.y), count, 0,
+                                     STEP_NONE, none);
+  LAUNCH_CHECK();
+  return 0;
 }
 
-const char* prost_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
-// deblur_fused_chunk: `count` iterations on (x, yv, q) in place, the
-// previous iterate of the aligned iteration into (xp, yvp, qp), the 4
-// SQUARED norms into sc[S_NORM..].  No-op when sc[S_CONV] is set.
-int prost_deblur_chunk(void* x, void* yv, void* q, void* xp, void* yvp,
-                       void* qp, void* bx, void* bxp, void* g, void* gp,
-                       const void* fb, const void* sv, const void* taps,
-                       void* sc, void* partial, int nx, int ny, int nx2,
-                       int ny2, int ntaps, float sig_q, float tau_t,
-                       float sqrt_q, float sqrt_t, int count, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+DB deblur_of(void* x, void* yv, void* q, void* xp, void* yvp, void* qp,
+             void* bx, void* bxp, void* g, void* gp, const void* fb,
+             const void* sv, const void* taps, void* sc, void* partial,
+             int nx, int ny, int nx2, int ny2, int ntaps, float sig_q,
+             float tau_t, float sqrt_q, float sqrt_t) {
   DB b;
   b.x = (float*)x;
   b.yv = (float*)yv;
@@ -362,23 +405,55 @@ int prost_deblur_chunk(void* x, void* yv, void* q, void* xp, void* yvp,
   b.tau_t = tau_t;
   b.sqrt_q = sqrt_q;
   b.sqrt_t = sqrt_t;
-  dim3 block(BX, BY), gfull = grid_of(nx2, ny2), gimg = grid_of(nx, ny);
-  deblur_seed<<<gfull, block, 0, st>>>(b);
-  LAUNCH_CHECK();
-  for (int k = 0; k < count; ++k) {
-    int last = k == count - 1;
-    deblur_primal<<<gimg, block, 0, st>>>(b, last);
-    LAUNCH_CHECK();
-    deblur_dual<<<gfull, block, 0, st>>>(b, last);
-    LAUNCH_CHECK();
-  }
-  deblur_norm_partial<<<gfull, block, 0, st>>>(b);
-  LAUNCH_CHECK();
-  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  pdhg_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, (int)(gfull.x * gfull.y),
-                                 count, 0, STEP_NONE, none);
-  LAUNCH_CHECK();
-  return 0;
+  return b;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of per-block norm partials (4 floats each) for an (nx2, ny2) grid.
+int prost_deblur_num_blocks(int nx2, int ny2) {
+  dim3 g = grid_of(nx2, ny2);
+  return (int)(g.x * g.y);
+}
+
+const char* prost_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// deblur_fused_chunk: `count` iterations on (x, yv, q) in place, the
+// previous iterate of the aligned iteration into (xp, yvp, qp), the 4
+// SQUARED norms into sc[S_NORM..].  No-op when sc[S_CONV] is set.
+int prost_deblur_chunk(void* x, void* yv, void* q, void* xp, void* yvp,
+                       void* qp, void* bx, void* bxp, void* g, void* gp,
+                       const void* fb, const void* sv, const void* taps,
+                       void* sc, void* partial, int nx, int ny, int nx2,
+                       int ny2, int ntaps, float sig_q, float tau_t,
+                       float sqrt_q, float sqrt_t, int count, void* stream) {
+  DB b = deblur_of(x, yv, q, xp, yvp, qp, bx, bxp, g, gp, fb, sv, taps, sc,
+                   partial, nx, ny, nx2, ny2, ntaps, sig_q, tau_t, sqrt_q,
+                   sqrt_t);
+  return chunk(b, count, 1, (cudaStream_t)stream);
+}
+
+// deblur_fused_chunk_batched: the same for `batch` frames sharing the taps
+// in one launch sequence; sc holds S_LEN scalars per frame, partial 4 per
+// block of the (nx2, ny2) grid per frame.  A frame whose sc[S_CONV] is set
+// is a no-op.
+int prost_deblur_chunk_batched(void* x, void* yv, void* q, void* xp,
+                               void* yvp, void* qp, void* bx, void* bxp,
+                               void* g, void* gp, const void* fb,
+                               const void* sv, const void* taps, void* sc,
+                               void* partial, int nx, int ny, int nx2,
+                               int ny2, int ntaps, float sig_q, float tau_t,
+                               float sqrt_q, float sqrt_t, int count,
+                               int batch, void* stream) {
+  if (int rc = batch_error(batch)) return rc;
+  DB b = deblur_of(x, yv, q, xp, yvp, qp, bx, bxp, g, gp, fb, sv, taps, sc,
+                   partial, nx, ny, nx2, ny2, ntaps, sig_q, tau_t, sqrt_q,
+                   sqrt_t);
+  return chunk(b, count, batch, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,14 +1,17 @@
 // Fused tight-multilabel PDHG chunk kernel for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas kernel on the tight-relaxation path of the JAX
+// Replaces the Pallas kernels on the tight-relaxation paths of the JAX
 // package:
 //   prost_tpu/ops/fused_tight.py  tight_fused_chunk -> _tight_chunk_kernel
-// (whole-plane mode) whose math is _chunk_core and _kron_ops in the same
+//   (whole-plane mode)
+//   prost_tpu/ops/fused_tight.py  tight_fused_chunk_batched
+//                                 -> _tight_chunk_kernel_batched
+// whose math is _chunk_core and _kron_ops in the same
 // file and the masked _shift_ops_3d of fused_multilabel.py.  It also serves
 // the JAX package's banded variant (tight_fused_chunk_banded), which exists
 // only because a TPU core's VMEM cannot hold the planes of large images:
 // here the planes stay in device memory at every size.  The plain PyTorch
-// version lives beside its wrapper in prost_tpu_torch/ops/fused_tight.py.
+// versions live beside their wrappers in prost_tpu_torch/ops/fused_tight.py.
 //
 // Workload: the tight multilabel relaxation, primal [u (L label planes);
 // v (2k pair planes)], dual [q (2L gradient planes, free); p (2k planes,
@@ -21,7 +24,11 @@
 // carried su = sum_l u (nx, ny); row-major f32 planes.  The taps come in
 // one small device array (ops/fused_tight.py kron_array): by output row
 // [row_ptr; col; w] and by output column [col_ptr; row; w], each run in the
-// order of the plain version's left-to-right folds.
+// order of the plain version's left-to-right folds.  A batched launch takes
+// B instances that share (L, k, the taps, the preconditioner constants)
+// back to back, each plane with a leading instance axis, with a scalar
+// block of S_LEN per instance, on the z axis of the grid (pdhg_chunk.cuh);
+// the taps are one array for all instances.
 //
 // What bounds it on this card.  An iteration streams about 15L + 13k + 5
 // planes (primal: u, 2L q, s, f in, u out; dual: u, v, q, p, kxq, s, su in,
@@ -29,6 +36,8 @@
 // at 512x512, against about 24L + 24k + 4T operations a pixel, so it is
 // bound by memory traffic, and at 128x128 by launch latency: a chunk of ri
 // iterations is 2*ri + 3 launches.
+// A batched chunk of 8 instances of 128x128x4 streams 69 MB an iteration in
+// 8 times the blocks, beyond the 50 MB L2: bound by device memory traffic.
 //
 // Design.  One thread per pixel, 32x8 blocks (pdhg_chunk.cuh); each thread
 // loops over its pixel's labels, pairs and taps, since the kron coupling,
@@ -54,7 +63,7 @@
 // the JAX form gives NaN for radius 0.
 //
 // Interface: plain C, loaded with ctypes; pointers and the stream arrive
-// as void*, and the entry point returns the cudaError_t of its launches.
+// as void*, and every entry point returns the cudaError_t of its launches.
 
 #include "pdhg_chunk.cuh"
 
@@ -90,6 +99,32 @@ struct TK {
   int L, k, nx, ny, ntaps;
   Consts c;
 };
+
+// The buffers of this block's instance (blockIdx.z) of a batched launch,
+// each moved by its per-instance size with 64-bit offsets: L planes for u
+// and f, 2k for v and p, 2L for q and kxq, one for s and su.  The taps are
+// shared, and block_partials places the partials by blockIdx.z itself.
+__device__ __forceinline__ TK instance_of(TK b) {
+  size_t z = blockIdx.z, n = (size_t)b.nx * b.ny;
+  size_t nl = n * b.L, nk2 = 2 * n * b.k;
+  b.u += z * nl;
+  b.up += z * nl;
+  b.f += z * nl;
+  b.v += z * nk2;
+  b.vp += z * nk2;
+  b.p += z * nk2;
+  b.pp += z * nk2;
+  b.q += 2 * z * nl;
+  b.qp += 2 * z * nl;
+  b.kxq += 2 * z * nl;
+  b.kxqp += 2 * z * nl;
+  b.s += z * n;
+  b.sp += z * n;
+  b.su += z * n;
+  b.sup += z * n;
+  b.sc += z * S_LEN;
+  return b;
+}
 
 // Offsets of the runs of the taps array.
 struct Kron {
@@ -155,6 +190,7 @@ __device__ __forceinline__ float kty_u(const float* q, float sv, int l,
 // Seed of a launch: kxq = grad u + kron(P^T, I) v and su = sum_l u.
 // Bound: memory, L + 2k planes read, 2L + 1 written.
 __global__ void tight_seed(TK b) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
@@ -174,6 +210,7 @@ __global__ void tight_seed(TK b) {
 // Bound: memory, 4L + 1 planes read (u, q, f, s), L written (2L on the
 // aligned iteration, which also saves u_prev).
 __global__ void tight_primal(TK b, int save_prev) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
@@ -201,6 +238,7 @@ __global__ void tight_primal(TK b, int save_prev) {
 // Bound: memory, L + 6k + 4L + 2 planes read, 4k + 4L + 2 written (twice
 // that on the aligned iteration, which saves v, p, q, kxq, s, su).
 __global__ void tight_dual(TK b, int save_prev) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
@@ -267,6 +305,7 @@ __global__ void tight_dual(TK b, int save_prev) {
 // previous duals is recomputed.
 // Bound: memory, about 14L + 16k + 4 planes read once per chunk.
 __global__ void tight_norm_partial(TK b) {
+  b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -325,6 +364,62 @@ __global__ void tight_norm_partial(TK b) {
   block_partials(acc, b.partial);
 }
 
+// One chunk of `batch` instances: the seed, `count` iterations, the norm
+// partials and the squared norms of every instance into its scalars (one
+// finish block each).
+int chunk(const TK& b, int count, int batch, cudaStream_t st) {
+  dim3 grid = grid_of(b.nx, b.ny, batch), block(BX, BY);
+  tight_seed<<<grid, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  for (int it = 0; it < count; ++it) {
+    int last = it == count - 1;
+    tight_primal<<<grid, block, 0, st>>>(b, last);
+    LAUNCH_CHECK();
+    tight_dual<<<grid, block, 0, st>>>(b, last);
+    LAUNCH_CHECK();
+  }
+  tight_norm_partial<<<grid, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  pdhg_finish<<<batch, FIN, 0, st>>>(b.sc, b.partial, (int)(grid.x * grid.y),
+                                     count, 0, STEP_NONE, none);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+TK tight_of(void* u, void* v, void* q, void* p, void* s, void* up, void* vp,
+            void* qp, void* pp, void* sp, void* kxq, void* kxqp, void* su,
+            void* sup, const void* f, const void* kron, void* sc,
+            void* partial, int L, int k, int nx, int ny, int ntaps,
+            Consts c) {
+  TK b;
+  b.u = (float*)u;
+  b.v = (float*)v;
+  b.q = (float*)q;
+  b.p = (float*)p;
+  b.s = (float*)s;
+  b.up = (float*)up;
+  b.vp = (float*)vp;
+  b.qp = (float*)qp;
+  b.pp = (float*)pp;
+  b.sp = (float*)sp;
+  b.kxq = (float*)kxq;
+  b.kxqp = (float*)kxqp;
+  b.su = (float*)su;
+  b.sup = (float*)sup;
+  b.f = (const float*)f;
+  b.kron = (const float*)kron;
+  b.sc = (float*)sc;
+  b.partial = (float*)partial;
+  b.L = L;
+  b.k = k;
+  b.nx = nx;
+  b.ny = ny;
+  b.ntaps = ntaps;
+  b.c = c;
+  return b;
+}
+
 }  // namespace
 
 extern "C" {
@@ -350,50 +445,33 @@ int prost_tight_chunk(void* u, void* v, void* q, void* p, void* s, void* up,
                       float sig_p, float sig_s, float tau_u, float tau_v,
                       float sqrt_q, float sqrt_p, float sqrt_s, float sqrt_u,
                       float sqrt_v, int count, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  TK b;
-  b.u = (float*)u;
-  b.v = (float*)v;
-  b.q = (float*)q;
-  b.p = (float*)p;
-  b.s = (float*)s;
-  b.up = (float*)up;
-  b.vp = (float*)vp;
-  b.qp = (float*)qp;
-  b.pp = (float*)pp;
-  b.sp = (float*)sp;
-  b.kxq = (float*)kxq;
-  b.kxqp = (float*)kxqp;
-  b.su = (float*)su;
-  b.sup = (float*)sup;
-  b.f = (const float*)f;
-  b.kron = (const float*)kron;
-  b.sc = (float*)sc;
-  b.partial = (float*)partial;
-  b.L = L;
-  b.k = k;
-  b.nx = nx;
-  b.ny = ny;
-  b.ntaps = ntaps;
-  b.c = {sig_q, sig_p, sig_s, tau_u, tau_v,
-         sqrt_q, sqrt_p, sqrt_s, sqrt_u, sqrt_v};
-  dim3 grid = grid_of(nx, ny), block(BX, BY);
-  tight_seed<<<grid, block, 0, st>>>(b);
-  LAUNCH_CHECK();
-  for (int it = 0; it < count; ++it) {
-    int last = it == count - 1;
-    tight_primal<<<grid, block, 0, st>>>(b, last);
-    LAUNCH_CHECK();
-    tight_dual<<<grid, block, 0, st>>>(b, last);
-    LAUNCH_CHECK();
-  }
-  tight_norm_partial<<<grid, block, 0, st>>>(b);
-  LAUNCH_CHECK();
-  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  pdhg_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, (int)(grid.x * grid.y),
-                                 count, 0, STEP_NONE, none);
-  LAUNCH_CHECK();
-  return 0;
+  Consts c = {sig_q, sig_p, sig_s, tau_u, tau_v,
+              sqrt_q, sqrt_p, sqrt_s, sqrt_u, sqrt_v};
+  TK b = tight_of(u, v, q, p, s, up, vp, qp, pp, sp, kxq, kxqp, su, sup, f,
+                  kron, sc, partial, L, k, nx, ny, ntaps, c);
+  return chunk(b, count, 1, (cudaStream_t)stream);
+}
+
+// tight_fused_chunk_batched: the same for `batch` instances sharing (L, k,
+// the taps, the constants) in one launch sequence; sc holds S_LEN scalars
+// per instance, partial 4 per block per instance.  An instance whose
+// sc[S_CONV] is set is a no-op.
+int prost_tight_chunk_batched(void* u, void* v, void* q, void* p, void* s,
+                              void* up, void* vp, void* qp, void* pp,
+                              void* sp, void* kxq, void* kxqp, void* su,
+                              void* sup, const void* f, const void* kron,
+                              void* sc, void* partial, int L, int k, int nx,
+                              int ny, int ntaps, float sig_q, float sig_p,
+                              float sig_s, float tau_u, float tau_v,
+                              float sqrt_q, float sqrt_p, float sqrt_s,
+                              float sqrt_u, float sqrt_v, int count,
+                              int batch, void* stream) {
+  if (int rc = batch_error(batch)) return rc;
+  Consts c = {sig_q, sig_p, sig_s, tau_u, tau_v,
+              sqrt_q, sqrt_p, sqrt_s, sqrt_u, sqrt_v};
+  TK b = tight_of(u, v, q, p, s, up, vp, qp, pp, sp, kxq, kxqp, su, sup, f,
+                  kron, sc, partial, L, k, nx, ny, ntaps, c);
+  return chunk(b, count, batch, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -15,12 +15,18 @@ The alpha preconditioner is constant on the gradient rows (Sigma_q) and on
 the columns (Tau), and a plane on the convolution rows (Sigma_v, the row
 sums of |B|, which vary at the boundary).
 
-One kernel carries the route, hand-written CUDA in ``csrc/fused_deblur.cu``
-with a plain PyTorch version beside its wrapper here: ``deblur_chunk`` (JAX
-``deblur_fused_chunk``), ``count`` iterations ending on a residual
-iteration, with the four squared preconditioned residual norms.  The JAX
-package has no multichunk kernel for this workload, and neither has the
-port.  A wrapper given CPU tensors runs the plain version; given CUDA
+Two kernels carry the route, hand-written CUDA in ``csrc/fused_deblur.cu``
+with a plain PyTorch version beside each wrapper here:
+
+* ``deblur_chunk`` (JAX ``deblur_fused_chunk``): ``count`` iterations
+  ending on a residual iteration, with the four squared preconditioned
+  residual norms;
+* ``deblur_chunk_batched`` (JAX ``deblur_fused_chunk_batched``): one chunk
+  for each of B frames that share one blur, in one launch sequence, the
+  batched ensembles' route (``parallel/ensemble.py``).
+
+The JAX package has no multichunk kernel for this workload, and neither
+has the port.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel, or raises.  There is no fallback to the
 generic path and no VMEM gate: the kernel keeps its planes in device
 memory, so it also serves the sizes for which the JAX package bands its
@@ -58,12 +64,12 @@ from ..prox.standalone import ProxZero
 from .pdhg_chunk import (CF, CI, VP, ChunkWork, ball_scale, check_buffers,
                          chunk_state, coeff_vector, dual_ball_radius,
                          entry_converged, isscalar, launch, run_pdhg_route,
-                         segment_const, typed_lib)
+                         segment_const, typed_lib, vmap_plain)
 
 MAX_TAPS = 96  # nonzero convolution taps the kernel takes
 
 # launches of the kernel wrapper on the card (CPU calls do not count)
-launch_counts = {"deblur_chunk": 0}
+launch_counts = {"deblur_chunk": 0, "deblur_chunk_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -241,8 +247,16 @@ def deblur_chunk_plain(x, yv, q, fb, sv, scal, count: int, taps,
             torch.where(conv, torch.zeros_like(n2), n2))
 
 
+def deblur_chunk_batched_plain(x, yv, q, fb, sv, scal, count: int, taps,
+                               sig_q: float, tau_t: float):
+    """Plain PyTorch version of ``deblur_chunk_batched`` (any device):
+    ``deblur_chunk_plain`` vmapped over the frames."""
+    return vmap_plain(deblur_chunk_plain, (x, yv, q, fb, sv), scal,
+                      int(count), taps, sig_q, tau_t)
+
+
 # ---------------------------------------------------------------------------
-# kernel wrapper
+# kernel wrappers
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=16)
@@ -255,16 +269,20 @@ def taps_array(taps, device) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
-def _check(x, yv, q, fb, sv, scal, count: int, taps):
+def _check(x, yv, q, fb, sv, scal, count: int, taps, batched: bool = False):
     if int(count) < 1:
         raise ProstError("A chunk needs count >= 1.")
-    if x.dim() != 2 or min(x.shape) < 2:
-        raise ProstError(f"x must be an (nx, ny) plane, got {tuple(x.shape)}.")
-    nx, ny = x.shape
-    if yv.dim() != 2 or yv.shape[0] < nx or yv.shape[1] < ny:
-        raise ProstError(f"yv must be an (nx2, ny2) plane with nx2 >= {nx}, "
-                         f"ny2 >= {ny}, got {tuple(yv.shape)}.")
-    nx2, ny2 = yv.shape
+    lead = x.shape[:1] if batched else ()
+    k = len(lead)
+    if x.dim() != 2 + k or min(x.shape[k:]) < 2:
+        what = "a (B, nx, ny) stack" if batched else "an (nx, ny) plane"
+        raise ProstError(f"x must be {what}, got {tuple(x.shape)}.")
+    nx, ny = x.shape[k:]
+    if yv.dim() != 2 + k or yv.shape[k] < nx or yv.shape[k + 1] < ny:
+        what = "a (B, nx2, ny2) stack" if batched else "an (nx2, ny2) plane"
+        raise ProstError(f"yv must be {what} with nx2 >= {nx}, ny2 >= {ny}, "
+                         f"got {tuple(yv.shape)}.")
+    nx2, ny2 = yv.shape[k:]
     if not 1 <= len(taps) <= MAX_TAPS:
         raise ProstError(f"The kernel takes 1 to {MAX_TAPS} taps, got "
                          f"{len(taps)}.")
@@ -272,16 +290,39 @@ def _check(x, yv, q, fb, sv, scal, count: int, taps):
         if not (0 <= dx <= nx2 - nx and 0 <= dy <= ny2 - ny):
             raise ProstError(f"Tap ({dx}, {dy}) lies outside the "
                              f"{nx2 - nx + 1}x{ny2 - ny + 1} kernel.")
-    check_buffers("deblur", (("x", x, (nx, ny)), ("yv", yv, (nx2, ny2)),
-                             ("q", q, (2, nx, ny)), ("fb", fb, (nx2, ny2)),
-                             ("sv", sv, (nx2, ny2))), scal, 5)
+    check_buffers("deblur", (("x", x, (*lead, nx, ny)),
+                             ("yv", yv, (*lead, nx2, ny2)),
+                             ("q", q, (*lead, 2, nx, ny)),
+                             ("fb", fb, (*lead, nx2, ny2)),
+                             ("sv", sv, (*lead, nx2, ny2))),
+                  scal, 5, lead[0] if batched else None)
 
 
 def _lib():
     """The fused deblur kernel library, built from csrc/fused_deblur.cu on
     first use."""
+    head = [VP] * 15 + [CI] * 5 + [CF] * 4
     return typed_lib("fused_deblur", "prost_deblur_num_blocks", {
-        "prost_deblur_chunk": [VP] * 15 + [CI] * 5 + [CF] * 4 + [CI, VP]})
+        "prost_deblur_chunk": head + [CI, VP],
+        "prost_deblur_chunk_batched": head + [CI, CI, VP]})
+
+
+def _launch(fn: str, what: str, x, yv, q, fb, sv, scal, count: int, taps,
+            sig_q: float, tau_t: float, *args):
+    """One launch of ``fn`` on copies of (x, yv, q) (with a leading frame
+    axis for a batched launch); returns its outputs."""
+    lib = _lib()
+    nx, ny = x.shape[-2:]
+    nx2, ny2 = yv.shape[-2:]
+    wk = ChunkWork((x, yv, q), (yv, q), scal, 5,
+                   lib.prost_deblur_num_blocks(nx2, ny2))
+    # sqrt(Sigma_q) and sqrt(Tau) rounded once from double, as the plain
+    # version rounds its Python constants
+    launch(lib, fn, what, launch_counts, x.device,
+           wk.buffers(fb, sv, taps_array(tuple(taps), x.device)),
+           nx, ny, nx2, ny2, len(taps), sig_q, tau_t, sig_q ** 0.5,
+           tau_t ** 0.5, int(count), *args)
+    return wk.outputs()
 
 
 def deblur_chunk(x, yv, q, fb, sv, scal, count: int, taps, sig_q: float,
@@ -301,18 +342,29 @@ def deblur_chunk(x, yv, q, fb, sv, scal, count: int, taps, sig_q: float,
     if x.device.type == "cpu":
         return deblur_chunk_plain(x, yv, q, fb, sv, scal, count, taps, sig_q,
                                   tau_t)
-    lib = _lib()
-    nx, ny = x.shape
-    nx2, ny2 = yv.shape
-    wk = ChunkWork((x, yv, q), (yv, q), scal, 5,
-                   lib.prost_deblur_num_blocks(nx2, ny2))
-    # sqrt(Sigma_q) and sqrt(Tau) rounded once from double, as the plain
-    # version rounds its Python constants
-    launch(lib, "prost_deblur_chunk", "deblur_chunk", launch_counts,
-           x.device, wk.buffers(fb, sv, taps_array(tuple(taps), x.device)),
-           nx, ny, nx2, ny2, len(taps), sig_q, tau_t, sig_q ** 0.5,
-           tau_t ** 0.5, int(count))
-    return wk.outputs()
+    return _launch("prost_deblur_chunk", "deblur_chunk", x, yv, q, fb, sv,
+                   scal, count, taps, sig_q, tau_t)
+
+
+def deblur_chunk_batched(x, yv, q, fb, sv, scal, count: int, taps,
+                         sig_q: float, tau_t: float):
+    """``deblur_chunk`` for each of B frames that share one blur (the taps,
+    sig_q and tau_t) in one launch sequence.
+
+    x: (B, nx, ny); q: (B, 2, nx, ny); yv, fb, sv: (B, nx2, ny2); scal: (5,
+    B), a row each of tau, sigma, theta, lmb and radius (+ an optional row
+    of converged flags: a frame whose flag is set runs nothing and gets its
+    inputs back).  Returns (x2, yv2, q2, x_prev, yv_prev, q_prev, norms2),
+    norms2 (4, B) the SQUARED preconditioned residual norms of each frame.
+    Frame b comes out as ``deblur_chunk`` on frame b alone.  CPU tensors run
+    the plain version; CUDA tensors launch the kernel."""
+    _check(x, yv, q, fb, sv, scal, count, taps, batched=True)
+    if x.device.type == "cpu":
+        return deblur_chunk_batched_plain(x, yv, q, fb, sv, scal, count,
+                                          taps, sig_q, tau_t)
+    return _launch("prost_deblur_chunk_batched", "deblur_chunk_batched", x,
+                   yv, q, fb, sv, scal, count, taps, sig_q, tau_t,
+                   x.shape[0])
 
 
 # ---------------------------------------------------------------------------

@@ -18,12 +18,19 @@ P^T's nonzeros (the taps, ±1 for the example) unroll to signed plane adds
 over the label and pair axes.  Every preconditioner segment is a constant,
 read from the problem at match time.
 
-One kernel carries the route, hand-written CUDA in ``csrc/fused_tight.cu``
-with a plain PyTorch version beside its wrapper here: ``tight_chunk`` (JAX
-``tight_fused_chunk``), ``count`` iterations ending on a residual
-iteration, with the four squared preconditioned residual norms.  The JAX
-package has no multichunk kernel for this workload, and neither has the
-port.  A wrapper given CPU tensors runs the plain version; given CUDA
+Two kernels carry the route, hand-written CUDA in ``csrc/fused_tight.cu``
+with a plain PyTorch version beside each wrapper here:
+
+* ``tight_chunk`` (JAX ``tight_fused_chunk``): ``count`` iterations ending
+  on a residual iteration, with the four squared preconditioned residual
+  norms;
+* ``tight_chunk_batched`` (JAX ``tight_fused_chunk_batched``): one chunk
+  for each of B instances that share (L, k, the taps, the constants), in
+  one launch sequence, the batched ensembles' route
+  (``parallel/ensemble.py``).
+
+The JAX package has no multichunk kernel for this workload, and neither
+has the port.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel, or raises.  There is no fallback and no
 VMEM gate: the kernel keeps its planes in device memory, so it also serves
 the sizes for which the JAX package bands its kernel
@@ -54,12 +61,12 @@ from ..prox.standalone import ProxZero
 from .pdhg_chunk import (CF, CI, VP, ChunkWork, ball_scale, check_buffers,
                          chunk_state, coeff_vector, entry_converged, isscalar,
                          launch, leq0_ball_radius, run_pdhg_route,
-                         segment_const, typed_lib)
+                         segment_const, typed_lib, vmap_plain)
 
 MAX_TAPS = 512  # nonzeros of P^T the route takes (the JAX package's bound)
 
 # launches of the kernel wrapper on the card (CPU calls do not count)
-launch_counts = {"tight_chunk": 0}
+launch_counts = {"tight_chunk": 0, "tight_chunk_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -193,8 +200,16 @@ def tight_chunk_plain(u, v, q, p, s, f, scal, count: int, taps, consts):
             torch.where(conv, torch.zeros_like(n2), n2))
 
 
+def tight_chunk_batched_plain(u, v, q, p, s, f, scal, count: int, taps,
+                              consts):
+    """Plain PyTorch version of ``tight_chunk_batched`` (any device):
+    ``tight_chunk_plain`` vmapped over the instances."""
+    return vmap_plain(tight_chunk_plain, (u, v, q, p, s, f), scal, int(count),
+                      taps, consts)
+
+
 # ---------------------------------------------------------------------------
-# kernel wrapper
+# kernel wrappers
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=16)
@@ -221,17 +236,22 @@ def kron_array(taps, L: int, k: int, device) -> torch.Tensor:
     return torch.tensor(vals, dtype=torch.float32, device=device)
 
 
-def _check(u, v, q, p, s, f, scal, count: int, taps, consts):
+def _check(u, v, q, p, s, f, scal, count: int, taps, consts,
+           batched: bool = False):
     if int(count) < 1:
         raise ProstError("A chunk needs count >= 1.")
-    if u.dim() != 3 or u.shape[0] < 1 or min(u.shape[1:]) < 2:
-        raise ProstError(
-            f"u must be an (L, nx, ny) stack, got {tuple(u.shape)}.")
-    L, nx, ny = u.shape
-    if v.dim() != 3 or v.shape[0] % 2 or tuple(v.shape[1:]) != (nx, ny):
-        raise ProstError(f"v must be a (2k, {nx}, {ny}) stack, got "
+    lead = u.shape[:1] if batched else ()
+    b = len(lead)
+    if u.dim() != 3 + b or u.shape[b] < 1 or min(u.shape[b + 1:]) < 2:
+        what = "a (B, L, nx, ny)" if batched else "an (L, nx, ny)"
+        raise ProstError(f"u must be {what} stack, got {tuple(u.shape)}.")
+    L, nx, ny = u.shape[b:]
+    if (v.dim() != 3 + b or v.shape[b] % 2
+            or tuple(v.shape[b + 1:]) != (nx, ny)):
+        want = ", ".join(map(str, (*lead, "2k", nx, ny)))
+        raise ProstError(f"v must be a ({want}) stack, got "
                          f"{tuple(v.shape)}.")
-    k = v.shape[0] // 2
+    k = v.shape[b] // 2
     if not 1 <= len(taps) <= MAX_TAPS:
         raise ProstError(f"The kernel takes 1 to {MAX_TAPS} taps, got "
                          f"{len(taps)}.")
@@ -240,17 +260,41 @@ def _check(u, v, q, p, s, f, scal, count: int, taps, consts):
     if len(consts) != 5:
         raise ProstError("consts must hold (sig_q, sig_p, sig_s, tau_u, "
                          "tau_v).")
-    check_buffers("tight", (("u", u, (L, nx, ny)), ("v", v, (2 * k, nx, ny)),
-                            ("q", q, (2 * L, nx, ny)),
-                            ("p", p, (2 * k, nx, ny)), ("s", s, (nx, ny)),
-                            ("f", f, (L, nx, ny))), scal, 5)
+    check_buffers("tight", (("u", u, (*lead, L, nx, ny)),
+                            ("v", v, (*lead, 2 * k, nx, ny)),
+                            ("q", q, (*lead, 2 * L, nx, ny)),
+                            ("p", p, (*lead, 2 * k, nx, ny)),
+                            ("s", s, (*lead, nx, ny)),
+                            ("f", f, (*lead, L, nx, ny))),
+                  scal, 5, lead[0] if batched else None)
 
 
 def _lib():
     """The fused tight kernel library, built from csrc/fused_tight.cu on
     first use."""
+    head = [VP] * 18 + [CI] * 5 + [CF] * 10
     return typed_lib("fused_tight", "prost_tight_num_blocks", {
-        "prost_tight_chunk": [VP] * 18 + [CI] * 5 + [CF] * 10 + [CI, VP]})
+        "prost_tight_chunk": head + [CI, VP],
+        "prost_tight_chunk_batched": head + [CI, CI, VP]})
+
+
+def _launch(fn: str, what: str, u, v, q, p, s, f, scal, count: int, taps,
+            consts, *args):
+    """One launch of ``fn`` on copies of (u, v, q, p, s) (with a leading
+    instance axis for a batched launch); returns its outputs."""
+    lib = _lib()
+    L, nx, ny = u.shape[-3:]
+    k = v.shape[-3] // 2
+    wk = ChunkWork((u, v, q, p, s), (q, s), scal, 5,
+                   lib.prost_tight_num_blocks(nx, ny))
+    consts = [float(c) for c in consts]
+    # the square roots rounded once from double, as the plain version
+    # rounds its Python constants
+    launch(lib, fn, what, launch_counts, u.device,
+           wk.buffers(f, kron_array(tuple(taps), L, k, u.device)), L, k, nx,
+           ny, len(taps), *consts, *[c ** 0.5 for c in consts], int(count),
+           *args)
+    return wk.outputs()
 
 
 def tight_chunk(u, v, q, p, s, f, scal, count: int, taps, consts):
@@ -267,18 +311,28 @@ def tight_chunk(u, v, q, p, s, f, scal, count: int, taps, consts):
     _check(u, v, q, p, s, f, scal, count, taps, consts)
     if u.device.type == "cpu":
         return tight_chunk_plain(u, v, q, p, s, f, scal, count, taps, consts)
-    lib = _lib()
-    L, nx, ny = u.shape
-    k = v.shape[0] // 2
-    wk = ChunkWork((u, v, q, p, s), (q, s), scal, 5,
-                   lib.prost_tight_num_blocks(nx, ny))
-    consts = [float(c) for c in consts]
-    # the square roots rounded once from double, as the plain version
-    # rounds its Python constants
-    launch(lib, "prost_tight_chunk", "tight_chunk", launch_counts, u.device,
-           wk.buffers(f, kron_array(tuple(taps), L, k, u.device)), L, k, nx,
-           ny, len(taps), *consts, *[c ** 0.5 for c in consts], int(count))
-    return wk.outputs()
+    return _launch("prost_tight_chunk", "tight_chunk", u, v, q, p, s, f, scal,
+                   count, taps, consts)
+
+
+def tight_chunk_batched(u, v, q, p, s, f, scal, count: int, taps, consts):
+    """``tight_chunk`` for each of B instances that share (L, k, taps,
+    consts) in one launch sequence.
+
+    u, f: (B, L, nx, ny); v, p: (B, 2k, nx, ny); q: (B, 2L, nx, ny); s: (B,
+    nx, ny); scal: (5, B), a row each of tau, sigma, theta, radius and d_s
+    (+ an optional row of converged flags: an instance whose flag is set
+    runs nothing and gets its inputs back).  Returns (u2, v2, q2, p2, s2,
+    u_prev, v_prev, q_prev, p_prev, s_prev, norms2), norms2 (4, B) the
+    SQUARED preconditioned residual norms of each instance.  Instance b
+    comes out as ``tight_chunk`` on instance b alone.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel."""
+    _check(u, v, q, p, s, f, scal, count, taps, consts, batched=True)
+    if u.device.type == "cpu":
+        return tight_chunk_batched_plain(u, v, q, p, s, f, scal, count, taps,
+                                         consts)
+    return _launch("prost_tight_chunk_batched", "tight_chunk_batched", u, v,
+                   q, p, s, f, scal, count, taps, consts, u.shape[0])
 
 
 # ---------------------------------------------------------------------------

@@ -13,11 +13,16 @@ sizes); their data (prox coefficients, block values) may differ.
 * ``BatchedPDHG`` iterates every instance at once.  The generic step is the
   port's ``pdhg_step`` under ``torch.func.vmap``, each instance's problem
   and proxes rebuilt inside the mapped function from its slices of the
-  stacked leaves.  ROF, fast-multilabel and volumetric-TV ensembles take a
-  fused route instead, one batched chunk kernel launch sequence per chunk
-  for all instances (``rof_chunk_batched``, ``ml_chunk_batched``,
-  ``vol_chunk_batched``) on the phase plan of ``ops/phases.py``; deblur and
-  tight ensembles take the generic step until their batched kernels come.
+  stacked leaves.  ROF, fast-multilabel, deblur, tight-multilabel and
+  volumetric-TV ensembles take a fused route instead, one batched chunk
+  kernel launch sequence per chunk for all instances
+  (``rof_chunk_batched``, ``ml_chunk_batched``, ``deblur_chunk_batched``,
+  ``tight_chunk_batched``, ``vol_chunk_batched``) on the phase plan of
+  ``ops/phases.py``.  A route is matched when every instance matches it
+  with the same launch constants (sizes, taps, preconditioner constants);
+  its per-instance data is stacked.  Other ensembles (deblur frames with
+  different blurs, tight instances with different label counts) take the
+  generic step.
 
 As in the JAX package, converged instances go on iterating: the run stops
 when every instance has converged or at ``until``.  The state's scalars,
@@ -36,8 +41,10 @@ import torch
 from ..backend.pdhg import (BackendPDHG, PDHGOptions, PDHGState, hold_if,
                             pdhg_step, residual_and_adapt)
 from ..config import ProstError, dtype as config_dtype
+from ..ops.fused_deblur import deblur_chunk_batched, match_deblur_structure
 from ..ops.fused_multilabel import match_multilabel_structure, ml_chunk_batched
 from ..ops.fused_rof import match_rof_structure, rof_chunk_batched
+from ..ops.fused_tight import match_tight_structure, tight_chunk_batched
 from ..ops.fused_vol import match_vol_structure, vol_chunk_batched
 from ..ops.pdhg_chunk import dead_dual_flat
 from ..ops.phases import run_phases
@@ -153,11 +160,34 @@ def stack_problems(problems) -> Stacked:
 # the ensemble solver
 # ---------------------------------------------------------------------------
 
-def _match_all(problems, match, keys, stacks, scalars):
-    """One fused route's batched matching: every instance matches with
-    the same ``keys``; the ``stacks`` of their matches are stacked, the
-    ``scalars`` gathered into (B,) float32 tensors; None otherwise."""
-    ms = [match(p) for p in problems]
+# The fused routes in the JAX package's order of matching: (name, matcher
+# of one instance and its backend, the keys every instance must share, the
+# planes stacked, the scalars gathered per instance).  A shared key is a
+# launch constant of the batched kernel.
+_ROUTES = (
+    ("rof", lambda p, b: match_rof_structure(p),
+     ("nx", "ny", "dataterm"), ("f", "w"), ("lmb", "radius")),
+    ("ml", lambda p, b: match_multilabel_structure(p),
+     ("nx", "ny", "L"), ("f",), ("radius", "d_s")),
+    # a MinProblem's data terms are prox_f: the deblur matcher reads the
+    # prox_fstar the backend made from them by Moreau
+    ("deblur", lambda p, b: match_deblur_structure(p, b.prox_g, b.prox_fstar),
+     ("nx", "ny", "nx2", "ny2", "taps", "sig_q", "tau_t"), ("fb", "sv"),
+     ("lmb", "radius")),
+    ("tight", lambda p, b: match_tight_structure(p),
+     ("nx", "ny", "L", "k", "taps", "consts"), ("f",), ("radius", "d_s")),
+    ("vol", lambda p, b: match_vol_structure(p),
+     ("L", "nx", "ny", "dataterm"), ("f", "w"), ("lmb", "radius")),
+)
+ROUTE_NAMES = tuple(r[0] for r in _ROUTES)
+
+
+def _match_all(problems, backends, match, keys, stacks, scalars):
+    """One fused route's batched matching: every instance matches (``match``
+    of its problem and backend) with the same ``keys``; the ``stacks`` of
+    their matches are stacked, the ``scalars`` gathered into (B,) float32
+    tensors; None otherwise."""
+    ms = [match(p, b) for p, b in zip(problems, backends)]
     if any(m is None for m in ms):
         return None
     if len({tuple(m[k] for k in keys) for m in ms}) != 1:
@@ -168,6 +198,11 @@ def _match_all(problems, match, keys, stacks, scalars):
     out.update({k: torch.tensor([m[k] for m in ms], dtype=torch.float32,
                                 device=dev) for k in scalars})
     return out
+
+
+def _flat(B: int, *planes):
+    """The (B, n) rows of a state vector from its per-instance planes."""
+    return torch.cat([a.reshape(B, -1) for a in planes], dim=1)
 
 
 class BatchedPDHG:
@@ -197,21 +232,17 @@ class BatchedPDHG:
         dev = problems[0].scaling_left.device
         self.prox_g = stack_trees([b.prox_g for b in backends], dev)
         self.prox_fstar = stack_trees([b.prox_fstar for b in backends], dev)
-        # the JAX order of the matchers; alg2 changes the steps every
-        # iteration and the reference-exact residuals need the generic path
-        self.rof = self.ml = self.vol = None
+        # the first route every instance matches, in the JAX order; alg2
+        # changes the steps every iteration and the reference-exact
+        # residuals need the generic path
+        self.rof = self.ml = self.deblur = self.tight = self.vol = None
         if self.opts.stepsize != "alg2" and not self.opts.reference_residuals:
-            self.rof = _match_all(problems, match_rof_structure,
-                                  ("nx", "ny", "dataterm"), ("f", "w"),
-                                  ("lmb", "radius"))
-            if self.rof is None:
-                self.ml = _match_all(problems, match_multilabel_structure,
-                                     ("nx", "ny", "L"), ("f",),
-                                     ("radius", "d_s"))
-            if self.rof is None and self.ml is None:
-                self.vol = _match_all(problems, match_vol_structure,
-                                      ("L", "nx", "ny", "dataterm"),
-                                      ("f", "w"), ("lmb", "radius"))
+            for name, match, keys, stacks, scalars in _ROUTES:
+                m = _match_all(problems, backends, match, keys, stacks,
+                               scalars)
+                if m is not None:
+                    setattr(self, name, m)
+                    break
 
     @property
     def tols(self):
@@ -316,12 +347,8 @@ class BatchedPDHG:
             self._scal(s, m["radius"], m["d_s"]),
             self.ri)
         u2, q2, s2, up, qp, sp, norms2 = out
-
-        def flat_y(q, sm):
-            return torch.cat([q.reshape(B, -1), sm.reshape(B, -1)], dim=1)
-
-        return self._after_chunk(s, u2.reshape(B, -1), flat_y(q2, s2),
-                                 up.reshape(B, -1), flat_y(qp, sp), norms2)
+        return self._after_chunk(s, u2.reshape(B, -1), _flat(B, q2, s2),
+                                 up.reshape(B, -1), _flat(B, qp, sp), norms2)
 
     def _vol_chunk(self, s: PDHGState) -> PDHGState:
         v, B = self.vol, self.batch
@@ -333,6 +360,40 @@ class BatchedPDHG:
         return self._after_chunk(s, u2.reshape(B, -1), q2.reshape(B, -1),
                                  up.reshape(B, -1), qp.reshape(B, -1), norms2)
 
+    def _deblur_chunk(self, s: PDHGState) -> PDHGState:
+        """The frames' chunk on views of the flat state in the port's
+        layout: x (nx, ny), yv (nx2, ny2), q (2, nx, ny) (the JAX run packs
+        x and q into the embedded (nx2, ny2) geometry instead)."""
+        d, B = self.deblur, self.batch
+        nx, ny, nx2, ny2 = d["nx"], d["ny"], d["nx2"], d["ny2"]
+        m2 = nx2 * ny2
+        x2, yv2, q2, xp, yvp, qp, norms2 = deblur_chunk_batched(
+            s.x.reshape(B, nx, ny), s.y[:, :m2].reshape(B, nx2, ny2),
+            s.y[:, m2:].reshape(B, 2, nx, ny), d["fb"], d["sv"],
+            self._scal(s, d["lmb"], d["radius"]), self.ri, d["taps"],
+            d["sig_q"], d["tau_t"])
+        return self._after_chunk(s, x2.reshape(B, -1), _flat(B, yv2, q2),
+                                 xp.reshape(B, -1), _flat(B, yvp, qp),
+                                 norms2)
+
+    def _tight_chunk(self, st: PDHGState) -> PDHGState:
+        t, B = self.tight, self.batch
+        L, k, nx, ny = t["L"], t["k"], t["nx"], t["ny"]
+        nL, nk2 = nx * ny * L, 2 * nx * ny * k
+        x, y = st.x, st.y
+        out = tight_chunk_batched(
+            x[:, :nL].reshape(B, L, nx, ny),
+            x[:, nL:].reshape(B, 2 * k, nx, ny),
+            y[:, :2 * nL].reshape(B, 2 * L, nx, ny),
+            y[:, 2 * nL:2 * nL + nk2].reshape(B, 2 * k, nx, ny),
+            y[:, 2 * nL + nk2:].reshape(B, nx, ny), t["f"],
+            self._scal(st, t["radius"], t["d_s"]), self.ri, t["taps"],
+            t["consts"])
+        u2, v2, q2, p2, s2, up, vp, qp, pp, sp, norms2 = out
+        return self._after_chunk(st, _flat(B, u2, v2), _flat(B, q2, p2, s2),
+                                 _flat(B, up, vp), _flat(B, qp, pp, sp),
+                                 norms2)
+
     def run(self, state: PDHGState, until_iter: int,
             start_iter: int) -> PDHGState:
         """Iterations ``start_iter`` (the host's copy of ``state.iteration``)
@@ -340,18 +401,16 @@ class BatchedPDHG:
         matched (generic steps until a chunk aligns, the ROF
         canonicalization, chunks, the epilogue, a generic tail), else by
         generic steps."""
-        if self.rof is not None:
-            chunk, canonicalize = self._rof_chunk, self._rof_canonical
-        elif self.ml is not None:
-            chunk, canonicalize = self._ml_chunk, None
-        elif self.vol is not None:
-            chunk, canonicalize = self._vol_chunk, None
-        else:
+        name = next((n for n in ROUTE_NAMES if getattr(self, n) is not None),
+                    None)
+        if name is None:
             for it in range(start_iter, until_iter):
                 state = self.generic_step(state, it)
             return state
+        canonicalize = self._rof_canonical if name == "rof" else None
         return run_phases(state, start_iter, until_iter, self.ri, 1 % self.ri,
-                          self.generic_step, canonicalize, chunk,
+                          self.generic_step, canonicalize,
+                          getattr(self, f"_{name}_chunk"),
                           epilogue=self._epilogue)
 
     # ------------------------------------------------------------------

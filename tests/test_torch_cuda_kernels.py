@@ -606,9 +606,9 @@ def _deblur_problem(nx, ny, device):
     return prob.finalize().to(device)
 
 
-def _tight_problem(nx, ny, L, device):
+def _tight_problem(nx, ny, L, device, seed=6):
     n, k = nx * ny, L * (L - 1) // 2
-    f = np.random.RandomState(6).rand(n * L)
+    f = np.random.RandomState(seed).rand(n * L)
     pt_ = np.zeros((2 * L, 2 * k))
     for r, m, w in _pair_taps(L):
         pt_[r, m] = w
@@ -817,16 +817,29 @@ def _batched_scal(seed, B, a, b, dev, conv=None):
     return torch.tensor(np.array(rows), dtype=torch.float32, device=dev)
 
 
-def _check_batched(many, one, plain, planes, scal, n_planes, count, *extra):
+def _instance(out, b, n_planes):
+    """Instance b of a batched chunk's outputs, as a single chunk's."""
+    return [o[b] for o in out[:n_planes]] + [out[n_planes][:, b]]
+
+
+def _check_batched(many, one, plain, planes, scal, n_planes, count, *extra,
+                   scaled=False):
     """``many`` on the batch against its plain version (PLANE_ATOL, norms
-    NORM_RTOL) and, instance by instance, against ``one`` bit for bit."""
+    NORM_RTOL; ``scaled``: each instance by ``_scaled_close``, the deblur
+    and tight kernels' tolerances) and, instance by instance, against
+    ``one`` bit for bit."""
     out = many(*planes, scal, count, *extra)
     ref = plain(*planes, scal, count, *extra)
     torch.cuda.synchronize()
     assert all(t.is_cuda for t in out)
     B = planes[0].shape[0]
     assert out[n_planes].shape == (4, B)
-    _close(out, ref, n_planes)
+    if scaled:
+        for b in range(B):
+            _scaled_close(_instance(out, b, n_planes),
+                          _instance(ref, b, n_planes), n_planes)
+    else:
+        _close(out, ref, n_planes)
     for b in range(B):
         single = one(*[p[b] for p in planes], scal[:, b], count, *extra)
         for a, s in zip(out[:n_planes], single[:n_planes]):
@@ -961,6 +974,155 @@ def test_batched_rof_route_on_card_matches_cpu(dev):
     assert fr.launch_counts["rof_chunk_batched"] > 0
     gpu, cpu = states
     assert gpu.converged.tolist() == cpu.converged.tolist()
+    assert gpu.iteration.tolist() == cpu.iteration.tolist()
+    for f in dataclasses.fields(gpu):
+        a, b = getattr(gpu, f.name), getattr(cpu, f.name)
+        assert a.is_cuda, f.name
+        if a.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3,
+                                       msg=f.name)
+
+
+# ---------------------------------------------------------------------------
+# the batched deblur and tight chunks (slice 7b)
+# ---------------------------------------------------------------------------
+
+def _deblur_frames(seed, B, nx, ny, kernel, dev):
+    """B frames of ``_deblur_inputs`` and the taps of ``kernel``."""
+    taps = fd.kernel_taps(torch.as_tensor(kernel.T, dtype=torch.float32))
+    nx2, ny2 = nx + kernel.shape[1] - 1, ny + kernel.shape[0] - 1
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(B, nx, ny), rng.randn(B, nx2, ny2),
+            0.3 * rng.randn(B, 2, nx, ny), rng.rand(B, nx2, ny2),
+            0.5 + rng.rand(B, nx2, ny2))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in arrs], taps
+
+
+def _tight_instances(seed, B, L, nx, ny, dev):
+    return [torch.stack(t) for t in zip(*[
+        _tight_inputs(seed + b, L, nx, ny, dev) for b in range(B)])]
+
+
+@pytest.mark.parametrize("B,nx,ny,case", [(8, 96, 80, "motion"),
+                                          (3, 250, 190, "asym"),
+                                          (2, 37, 11, "motion")])
+def test_deblur_chunk_batched_matches_plain_and_single(dev, B, nx, ny, case):
+    kernel = _motion_kernel() if case == "motion" else _asym_kernel()
+    planes, taps = _deblur_frames(41, B, nx, ny, kernel, dev)
+    scal = _batched_scal(42, B, 100.0, 1.0, dev)
+    before = fd.launch_counts["deblur_chunk_batched"]
+    _check_batched(fd.deblur_chunk_batched, fd.deblur_chunk,
+                   fd.deblur_chunk_batched_plain, planes, scal, 6, 10, taps,
+                   0.5, 0.2, scaled=True)
+    assert fd.launch_counts["deblur_chunk_batched"] == before + 1
+
+
+@pytest.mark.parametrize("B,L,nx,ny", [(8, 4, 128, 128), (3, 3, 250, 190),
+                                       (2, 16, 40, 36)])
+def test_tight_chunk_batched_matches_plain_and_single(dev, B, L, nx, ny):
+    planes = _tight_instances(43, B, L, nx, ny, dev)
+    scal = _batched_scal(44, B, 1.0, 1.0, dev)
+    before = ft.launch_counts["tight_chunk_batched"]
+    _check_batched(ft.tight_chunk_batched, ft.tight_chunk,
+                   ft.tight_chunk_batched_plain, planes, scal, 10, 10,
+                   _pair_taps(L), _tight_consts(L), scaled=True)
+    assert ft.launch_counts["tight_chunk_batched"] == before + 1
+
+
+@pytest.mark.parametrize("route", ["deblur", "tight"])
+def test_deblur_tight_batched_flags_hold_their_instances(dev, route):
+    """A frame or instance whose flag is set gets its inputs back and zero
+    norms; the others run as without it."""
+    B = 4
+    if route == "deblur":
+        planes, taps = _deblur_frames(45, B, 40, 36, _asym_kernel(), dev)
+        many, n_planes, extra = fd.deblur_chunk_batched, 6, (taps, 0.5, 0.2)
+    else:
+        planes = _tight_instances(46, B, 3, 40, 36, dev)
+        many, n_planes = ft.tight_chunk_batched, 10
+        extra = (_pair_taps(3), _tight_consts(3))
+    scal = _batched_scal(47, B, 8.0, 1.0, dev, conv=[0, 1, 0, 1])
+    out = many(*planes, scal, 5, *extra)
+    free = many(*planes, scal[:5], 5, *extra)
+    state = planes[:n_planes // 2]
+    for b in range(B):
+        held = b % 2 == 1
+        for a, f, inp in zip(out[:n_planes], free[:n_planes], state * 2):
+            assert torch.equal(a[b], inp[b] if held else f[b])
+        assert torch.equal(out[n_planes][:, b],
+                           torch.zeros_like(out[n_planes][:, b]) if held
+                           else free[n_planes][:, b])
+
+
+def test_deblur_tight_batched_refuse_what_they_do_not_take(dev):
+    B = 2
+    (x, yv, q, fb, sv), taps = _deblur_frames(48, B, 16, 12, _asym_kernel(),
+                                              dev)
+    scal = _batched_scal(49, B, 8.0, 1.0, dev)
+    extra = (taps, 0.5, 0.2)
+    with pytest.raises(ptt.ProstError, match="float32"):
+        fd.deblur_chunk_batched(x.double(), yv, q, fb, sv, scal, 3, *extra)
+    with pytest.raises(ptt.ProstError, match="one device"):
+        fd.deblur_chunk_batched(x, yv, q, fb, sv, scal.cpu(), 3, *extra)
+    with pytest.raises(ptt.ProstError, match="scal must be"):
+        fd.deblur_chunk_batched(x, yv, q, fb, sv, scal[:, :1], 3, *extra)
+    with pytest.raises(ptt.ProstError, match="fb must be"):
+        fd.deblur_chunk_batched(x, yv, q, fb[:1], sv, scal, 3, *extra)
+    u, v, qt, p, s, f = _tight_instances(50, B, 3, 16, 12, dev)
+    extra = (_pair_taps(3), _tight_consts(3))
+    with pytest.raises(ptt.ProstError, match="float32"):
+        ft.tight_chunk_batched(u, v, qt, p, s.double(), f, scal, 3, *extra)
+    with pytest.raises(ptt.ProstError, match="one device"):
+        ft.tight_chunk_batched(u, v, qt, p, s, f.cpu(), scal, 3, *extra)
+    with pytest.raises(ptt.ProstError, match="scal must be"):
+        ft.tight_chunk_batched(u, v, qt, p, s, f, scal[:4], 3, *extra)
+    with pytest.raises(ptt.ProstError, match="s must be"):
+        ft.tight_chunk_batched(u, v, qt, p, s[:1], f, scal, 3, *extra)
+
+
+def _deblur_ensemble(B, nx, ny, device):
+    rng = np.random.RandomState(51)
+    probs = []
+    for _ in range(B):
+        u, v = ptt.Variable(nx * ny), ptt.Variable((nx + 4) * (ny + 4))
+        g = ptt.Variable(2 * nx * ny)
+        prob = ptt.MinProblem([u], [v, g])
+        prob.add_function(v, ptt.function.sum_1d(
+            "square", 1, rng.rand((nx + 4) * (ny + 4)),
+            float(rng.uniform(20, 60))))
+        prob.add_function(g, ptt.function.sum_norm2(2, False, "abs"))
+        prob.add_constraint(u, v, ptt.block.conv2d(nx, ny, 1, _asym_kernel()))
+        prob.add_constraint(u, g, ptt.block.gradient2d(nx, ny, 1))
+        probs.append(prob.finalize().to(device))
+    return probs
+
+
+@pytest.mark.parametrize("route", ["deblur", "tight"])
+def test_batched_deblur_tight_route_on_card_matches_cpu(dev, route):
+    """BatchedPDHG's fused deblur or tight route on the card (the batched
+    kernel, the vmapped generic steps and epilogue) against the same route
+    on the CPU with the plain versions, 157 iterations of boyd with ri 5."""
+    from prost_tpu_torch.parallel import BatchedPDHG
+
+    mod = fd if route == "deblur" else ft
+    make = ((lambda d: _deblur_ensemble(4, 40, 36, d)) if route == "deblur"
+            else (lambda d: [_tight_problem(40, 36, 3, d, seed)
+                             for seed in (6, 7, 8)]))
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=0,
+                              tol_rel_dual=0, tol_abs_primal=0,
+                              tol_abs_dual=0)
+    opts = PDHGOptions(stepsize="boyd", residual_iter=5,
+                       scale_steps_operator=False)
+    mod.reset_launch_counts()
+    states = []
+    for device in (dev, torch.device("cpu")):
+        b = BatchedPDHG(make(device), opts, sopts)
+        assert getattr(b, route) is not None
+        s = b.run(b.initial_state(), 57, 0)
+        states.append(b.run(s, 157, 57))
+    assert mod.launch_counts[f"{route}_chunk_batched"] > 0
+    gpu, cpu = states
     assert gpu.iteration.tolist() == cpu.iteration.tolist()
     for f in dataclasses.fields(gpu):
         a, b = getattr(gpu, f.name), getattr(cpu, f.name)

@@ -80,12 +80,15 @@ def motion_kernel(klen=9):
     return kern / kern.sum()
 
 
-def deblur_model(mod, nx, ny, kernel, lmb=40.0, seed=2, dataterm="square"):
-    """examples/example_deblurring.py's model in package ``mod`` on a
-    random blurred observation; returns (problem, u, fb)."""
+def deblur_model(mod, nx, ny, kernel, lmb=40.0, seed=2, dataterm="square",
+                 fb=None):
+    """examples/example_deblurring.py's model in package ``mod`` on the
+    blurred observation ``fb``, random from ``seed`` by default; returns
+    (problem, u, fb)."""
     ky, kx = kernel.shape
     nx2, ny2 = nx + kx - 1, ny + ky - 1
-    fb = np.random.RandomState(seed).rand(nx2 * ny2)
+    if fb is None:
+        fb = np.random.RandomState(seed).rand(nx2 * ny2)
     u = mod.Variable(nx * ny)
     v = mod.Variable(nx2 * ny2)
     g = mod.Variable(2 * nx * ny)

@@ -1,4 +1,4 @@
-"""Port parity for slice 7a: batched ensembles (BASELINE config 5,
+"""Port parity for slices 7a and 7b: batched ensembles (BASELINE config 5,
 ``ensemble1024x128``) in prost_tpu_torch against prost_tpu.
 
 * ``stack_problems``: its errors, which leaves it stacks, and per-instance
@@ -7,16 +7,23 @@
   generic batched run in f64 (ROF, deblur and tight ensembles, and one in
   which instances converge at different iterations) and against
   sequential single-instance runs;
-* the three batched chunks' plain versions (what a CPU tensor runs)
-  against the JAX batched kernels in Pallas interpret mode, f32: planes
-  within 2e-5, norms 1e-4 relative (tests/test_torch_fused_*.py); ROF also
-  against the JAX banded-batched kernel (row 7 of the kernel table);
+* the ROF, ml and vol batched chunks' plain versions (what a CPU tensor
+  runs) against the JAX batched kernels in Pallas interpret mode, f32:
+  planes within 2e-5, norms 1e-4 relative (tests/test_torch_fused_*.py);
+  ROF also against the JAX banded-batched kernel (row 7 of the kernel
+  table); each instance of all five batched chunks against the
+  single-instance chunk;
 * ``BatchedPDHG``'s fused ROF, multilabel and volumetric routes against the
   JAX ``BatchedPDHG(interpret=True)`` (tests/test_parallel.py's setups and
   tolerances: x and y 2e-5, tau 1e-6 relative, ``current_solution``
   5e-5), warm starts with mass on the dead dual coordinates (the batched
   ROF run zeroes them once per run, the ml run does not), and the batched
-  state hand-over of ``interop``.
+  state hand-over of ``interop``;
+* deblur and tight ensembles whose launch constants differ (blur kernels,
+  pair matrices) take the generic path in both packages.
+
+The deblur and tight batched chunks against the JAX kernels and their
+routes against the JAX package's are in tests/test_torch_ensemble_conv.py.
 
 The CUDA kernels are held against the plain versions, and each instance
 against the single-instance kernel, on the card by
@@ -40,13 +47,16 @@ from prost_tpu.parallel import BatchedPDHG as JBatched
 from prost_tpu_torch import interop
 from prost_tpu_torch.backend import BackendPDHG as TBackend
 from prost_tpu_torch.backend import PDHGOptions as TOptions
+from prost_tpu_torch.ops import fused_deblur as td
 from prost_tpu_torch.ops import fused_multilabel as tm
 from prost_tpu_torch.ops import fused_rof as tr
+from prost_tpu_torch.ops import fused_tight as tt
 from prost_tpu_torch.ops import fused_vol as tv
 from prost_tpu_torch.parallel import BatchedPDHG as TBatched
 from prost_tpu_torch.parallel import stack_problems
+from prost_tpu_torch.parallel.ensemble import ROUTE_NAMES
 from test_torch_deblur import asym_kernel, deblur_model
-from test_torch_tight import tight_model
+from test_torch_tight import pair_matrix, tight_model
 from test_torch_vol import bench_vol_problem
 
 PLANE_ATOL, NORM_RTOL = 2e-5, 1e-4
@@ -118,7 +128,8 @@ def _batched(mod, problems, ri, t=0.0, fused=True):
                         interpret=fused)
     b = TBatched(problems, _opts(ptt, ri), _sopts(ptt, t))
     if not fused:
-        b.rof = b.ml = b.vol = None
+        for name in ROUTE_NAMES:
+            setattr(b, name, None)
     return b
 
 
@@ -254,9 +265,9 @@ def _rof_probs(mod, nx=16, ny=16, seed=7, lmbs=(4.0, 8.0, 16.0)):
                                            ("deblur", 5, 31),
                                            ("tight", 5, 31)])
 def test_generic_matches_jax_generic_f64(x64, case, ri, until):
-    """The generic batched path against the JAX generic batched run in f64:
-    three ROF instances of 16x16 (lmb 4, 8, 16), and the deblur and tight
-    ensembles, which take it in this slice; iterates, tau and the residual
+    """The generic batched path against the JAX generic batched run in f64
+    (no fused route takes f64): three ROF instances of 16x16 (lmb 4, 8,
+    16), and the deblur and tight ensembles; iterates, tau and the residual
     norms."""
     build = {"rof": _rof_probs, "deblur": _deblur_probs,
              "tight": _tight_probs}[case]
@@ -379,14 +390,17 @@ def test_vol_chunk_batched_matches_jax_kernel(L, dataterm):
     _close(t, j, 4)
 
 
-@pytest.mark.parametrize("family", ["rof", "ml", "vol"])
+@pytest.mark.parametrize("family", ["rof", "ml", "vol", "deblur", "tight"])
 def test_batched_chunk_is_each_instance_alone(family):
     """Instance b of a batched chunk is the single-instance chunk on
     instance b; an instance whose converged flag is set gets its inputs
-    back and zero norms."""
+    back and zero norms.  Deblur at the asymmetric 5x5 blur (nx2 - nx and
+    ny2 - ny both 4 on a 9x11 image), tight with L = 3 against k = 3 pairs
+    on 9x11, each family's planes at their own per-instance sizes."""
     rng = np.random.RandomState(8)
     B, L, nx, ny = 3, 2, 9, 11
     conv = np.array([[0.0, 1.0, 0.0]], np.float32)
+    extra = ()
     if family == "rof":
         *planes, scal = _rof_inputs(9, B, nx, ny)
         one, many, n_planes = tr.rof_chunk, tr.rof_chunk_batched, 4
@@ -397,24 +411,51 @@ def test_batched_chunk_is_each_instance_alone(family):
         scal = _scal(rng, B, lambda r, b: (0.5 + r.rand(b), r.rand(b)))
         one, many, n_planes = tm.ml_chunk, tm.ml_chunk_batched, 6
         state = (0, 1, 2)
-    else:
+    elif family == "vol":
         planes = [rng.rand(B, L, nx, ny), 0.3 * rng.randn(B, 3, L, nx, ny),
                   rng.rand(B, L, nx, ny), rng.rand(B, L, nx, ny)]
         scal = _scal(rng, B, lambda r, b: (6 + r.rand(b), 1.0 + 0 * r.rand(b)))
         one, many, n_planes = tv.vol_chunk, tv.vol_chunk_batched, 4
         state = (0, 1)
+    elif family == "deblur":
+        kernel = asym_kernel()
+        nx2, ny2 = nx + 4, ny + 4
+        planes = [rng.rand(B, nx, ny), rng.randn(B, nx2, ny2),
+                  0.3 * rng.randn(B, 2, nx, ny), rng.rand(B, nx2, ny2),
+                  0.5 + rng.rand(B, nx2, ny2)]
+        scal = _scal(rng, B, lambda r, b: (20 + 20 * r.rand(b),
+                                           0.5 + r.rand(b)))
+        extra = (td.kernel_taps(torch.as_tensor(kernel.T,
+                                                dtype=torch.float32)),
+                 0.5, 0.2)
+        one, many, n_planes = td.deblur_chunk, td.deblur_chunk_batched, 6
+        state = (0, 1, 2)
+    else:
+        Lt, k = 3, 3
+        m = tt.match_tight_structure(tight_model(ptt, nx, ny, Lt)[0]
+                                     .finalize())
+        planes = [rng.rand(B, Lt, nx, ny), 0.1 * rng.randn(B, 2 * k, nx, ny),
+                  0.2 * rng.randn(B, 2 * Lt, nx, ny),
+                  0.1 * rng.randn(B, 2 * k, nx, ny),
+                  0.1 * rng.randn(B, nx, ny),
+                  rng.rand(B, Lt, nx, ny)]
+        scal = _scal(rng, B, lambda r, b: (0.5 + r.rand(b), r.rand(b)))
+        extra = (m["taps"], m["consts"])
+        one, many, n_planes = tt.tight_chunk, tt.tight_chunk_batched, 10
+        state = (0, 1, 2, 3, 4)
     planes = [torch.from_numpy(np.asarray(a, np.float32)) for a in planes]
     scal = torch.from_numpy(np.concatenate([scal, conv]))
-    out = many(*planes, scal, 4)
+    out = many(*planes, scal, 4, *extra)
     assert out[n_planes].shape == (4, B)
     for b in range(B):
-        ref = one(*[p[b] for p in planes], scal[:, b], 4)
+        ref = one(*[p[b] for p in planes], scal[:, b], 4, *extra)
         for a, r in zip(out[:n_planes], ref[:n_planes]):
             torch.testing.assert_close(a[b], r, atol=1e-6, rtol=0)
         torch.testing.assert_close(out[n_planes][:, b], ref[n_planes],
                                    rtol=1e-5, atol=0)
     for i, k in enumerate(state):  # instance 1 is held
         assert torch.equal(out[i][1], planes[k][1])
+        assert torch.equal(out[n_planes // 2 + i][1], planes[k][1])
     assert float(out[n_planes][:, 1].abs().sum()) == 0.0
 
 
@@ -472,7 +513,7 @@ def test_fused_route_matches_jax_fused(family):
     iterates, steps and current_solution."""
     build, ri, until = FUSED[family]
     tb, jb = _batched(ptt, build(ptt), ri), _batched(pt, build(pt), ri)
-    for name in ("rof", "ml", "vol"):
+    for name in ROUTE_NAMES:
         assert (getattr(tb, name) is not None) == (name == family)
         assert (getattr(jb, name) is not None) == (name == family)
     ts, js = _run(tb, until), _run(jb, until)
@@ -482,13 +523,58 @@ def test_fused_route_matches_jax_fused(family):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=SOL_ATOL)
 
 
+def _mismatched_deblur(mod):
+    """Two 10x9 frames blurred by different 5x5 kernels (the asymmetric
+    blur and its mirror image): the taps, a launch constant of the batched
+    kernel, differ."""
+    ker = asym_kernel()
+    return [deblur_model(mod, 10, 9, k, seed=i)[0].finalize()
+            for i, k in enumerate((ker, ker[:, ::-1].copy()))]
+
+
+def _mismatched_tight(mod):
+    """Two 7x6 instances with 3 labels whose pair matrices differ (the
+    example's, and one with its first pair weighted twice): the taps and
+    the preconditioner constants differ."""
+    nx, ny, L = 7, 6, 3
+    n, k = nx * ny, L * (L - 1) // 2
+    probs = []
+    for seed, w in enumerate((1.0, 2.0)):
+        P = pair_matrix(L)
+        P[[0, k]] *= w
+        f = np.random.RandomState(seed).rand(n * L)
+        u, v = mod.Variable(n * L), mod.Variable(2 * n * k)
+        q, p, s = (mod.Variable(2 * n * L), mod.Variable(2 * n * k),
+                   mod.Variable(n))
+        prob = mod.MinMaxProblem([u, v], [q, p, s])
+        prob.add_function(u, mod.function.sum_1d("ind_geq0", 1, 0, 1, f, 0))
+        prob.add_function(p, mod.function.sum_norm2(2, False, "ind_leq0", 1,
+                                                    1, 1))
+        prob.add_function(s, mod.function.sum_1d("zero", 1, 0, 1, 1, 0))
+        prob.add_dual_pair(u, q, mod.block.gradient2d(nx, ny, L))
+        prob.add_dual_pair(u, s, mod.block.sparse_kron_id(np.ones((1, L)),
+                                                          n))
+        prob.add_dual_pair(v, p, mod.block.identity())
+        prob.add_dual_pair(v, q, mod.block.sparse_kron_id(P.T, n))
+        probs.append(prob.finalize())
+    return probs
+
+
 def test_deblur_and_tight_take_the_generic_path():
-    """No batched deblur or tight kernel in this slice: their ensembles
-    take the generic batched path (tested in f64 above)."""
-    for probs in (_deblur_probs(ptt), _tight_probs(ptt)):
-        b = TBatched(probs, _opts(ptt, 5), _sopts(ptt))
-        assert b.rof is None and b.ml is None and b.vol is None
-        assert not hasattr(b, "deblur") and not hasattr(b, "tight")
+    """Ensembles whose instances each match a fused route but not with the
+    same launch constants (deblur frames with different blurs, tight
+    instances with different pair matrices) take the generic batched path
+    in both packages, and run it alike; instances with different label
+    counts do not even stack (the structure differs)."""
+    for build in (_mismatched_deblur, _mismatched_tight):
+        tb, jb = _batched(ptt, build(ptt), 5), _batched(pt, build(pt), 5)
+        for b in (tb, jb):
+            assert all(getattr(b, name) is None for name in ROUTE_NAMES)
+        ts, js = _run(tb, 7), _run(jb, 7)
+        _assert_states(ts, js, RUN_ATOL)
+    with pytest.raises(ptt.ProstError, match="different static"):
+        stack_problems([tight_model(ptt, 7, 6, L=L)[0].finalize()
+                        for L in (2, 3)])
 
 
 @pytest.mark.parametrize("family,until", [("rof", 9), ("rof", 31),
