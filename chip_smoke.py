@@ -89,7 +89,20 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    the fused multilabel route at 512x512x8, of the deblur route at
    2048x2048, of the tight route at 512x512x4 and of the volumetric route
    at 512x512x8, where the JAX package bands its kernels: every kernel
-   launches, the state stays on the card and finite.
+   launches, the state stays on the card and finite;
+15. the halo chunks of spatial sharding at full width (ROF 512x512, ml and
+   vol 256x256x8, ri = 10, halo 22 rows): bands of 1, 2 and 4 shards cut
+   from the whole plane with zeros beyond its edges (what the halo
+   exchange delivers), each band's ``rof_chunk_halo`` / ``ml_chunk_halo``
+   / ``vol_chunk_halo`` against its plain version, the owned rows of every
+   band bit-equal to the whole-plane kernel and the bands' owned-row norms
+   summed within 1e-6 of its norms; timed at the one-shard band;
+16. solve config 1, config 3 and vol256x8 through ``ShardedFusedROF``,
+   ``ShardedFusedMultilabel`` and ``ShardedFusedVol`` (2000 iterations at
+   1e-5, boyd, residual_iter 10) on an NCCL group of one rank per card
+   (``torch.cuda.device_count()``; with one card both edges of the shard
+   receive zeros and its row offset is -22), count the halo kernels'
+   launches, and hold each energy against the one-card fused route's.
 
 The images are bench.py's: data/*.png decoded by the script's own reader
 and converted and resized as PIL does (``fixture_gray``; the card's
@@ -223,6 +236,13 @@ ENS_SAMPLES = (0, 511, 1023)  # instances held against single solves
 # noise (0.01 on the blurred flowers, 0.05 on the junction's gray levels)
 # drawn in turn from one RandomState(42)
 SMALL_ENS_B, SMALL_ENS_ITERS = 8, 300
+# The halo chunks (slice 8a): the bands' owned-row norms summed against the
+# whole-plane kernel's norms, the same squares summed in another order
+# (the thread blocks of an extended band group other rows).
+HALO_NORM_RTOL = 1e-6
+# BASELINE config 1 (bench.py, the main path's ROF model)
+ROF_SIZE, ROF_LMB = 512, 16.0
+HALO_SHARDS = (1, 2, 4)
 # An instance of a deblur or tight ensemble against its single-instance
 # fused solve: the batched kernels are the single-instance ones instance by
 # instance (bit-equal), so only the host's vmapped generic steps and
@@ -250,9 +270,10 @@ def vol_chunk_ops(nvox, ri, chunks=1):
 
 def single_launches(mod):
     """The launch counts of a route module's single-instance kernels (its
-    batched chunk, if it has one, runs on the ensemble paths only)."""
+    batched and halo chunks, if it has them, run on the ensemble and the
+    sharded paths only)."""
     return {k: v for k, v in mod.launch_counts.items()
-            if not k.endswith("_batched")}
+            if not k.endswith(("_batched", "_halo"))}
 
 
 def check(cond, msg):
@@ -1274,7 +1295,7 @@ def phase_ml_solve(card):
           f"(tol {ENERGY_RTOL:g})")
     check(rel <= ENERGY_RTOL, "fused and generic multilabel energies "
           "disagree")
-    return launches
+    return launches, e_fused
 
 
 def scaled_errs(out, ref, n_planes):
@@ -1525,7 +1546,7 @@ def phase_vol_solve(card):
     check(rel <= ENERGY_RTOL, "fused and generic vol energies disagree")
     check(res.iterations == gres.iterations,
           "fused and generic vol solves stopped at different iterations")
-    return launches
+    return launches, e_fused
 
 
 def phase_deblur_solve(card):
@@ -2162,6 +2183,240 @@ def phase_conv_ensembles(card):
     return launches
 
 
+def phase_halo_kernels(dev):
+    """The halo chunks at full width, bands of 1, 2 and 4 shards."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops import fused_vol as fv
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    ri = 10
+    H = 2 * ri + 2
+    # mass on the dead q coordinates, which every version zeroes at entry
+    rng = np.random.RandomState(600)
+    L, nv = VOL_LABELS, VOL_SIZE
+    vol = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.rand(L, nv, nv), 0.3 * rng.randn(3, L, nv, nv),
+        rng.rand(L, nv, nv), 2.0 * (rng.rand(L, nv, nv) > 0.3))]
+    # name: (halo kernel, plain, whole-plane kernel, planes, the family's
+    # two scalars, data term, output planes, bytes and operations of a
+    # call on an extended block of nb pixels: the state and the data in,
+    # the new and previous state out)
+    cases = {
+        "rof_chunk_halo": (
+            fr.rof_chunk_halo, fr.rof_chunk_halo_plain, fr.rof_chunk,
+            kernel_inputs(512, 512, 601, dev), [8.0, 1.0], ("square",), 4,
+            lambda nb: (10 * nb * 4,
+                        nb * (ri * ROF_ITER_OPS + ROF_NORM_OPS))),
+        "ml_chunk_halo": (
+            fm.ml_chunk_halo, fm.ml_chunk_halo_plain, fm.ml_chunk,
+            ml_kernel_inputs(ML_LABELS, ML_SIZE, ML_SIZE, 602, dev),
+            [ML_LMB, 1.0], (), 6,
+            lambda nb: ((10 * ML_LABELS + 3) * nb * 4,
+                        ml_chunk_ops(nb, ML_LABELS, ri))),
+        "vol_chunk_halo": (
+            fv.vol_chunk_halo, fv.vol_chunk_halo_plain, fv.vol_chunk, vol,
+            [VOL_LMB, 1.0], ("square",), 4,
+            lambda nb: (13 * L * nb * 4, vol_chunk_ops(L * nb, ri))),
+    }
+    rows = {}
+    for name, (halo, plain, whole, planes, two, extra, n, cost) in (
+            cases.items()):
+        nx, ny = planes[0].shape[-2:]
+        head = [0.9, 1.1, 1.0] + two
+        ref = whole(*planes, torch.tensor(head, device=dev), ri, *extra)
+        err = 0.0
+        for shards in HALO_SHARDS:
+            rs = nx // shards
+            total = torch.zeros(4, dtype=torch.float64, device=dev)
+            for rank in range(shards):
+                lo = rank * rs - H
+                ext = [window(a, lo, lo + rs + 2 * H) for a in planes]
+                scal = torch.tensor(head + [lo, H, H + rs], device=dev)
+                out = halo(*ext, scal, ri, nx, *extra)
+                want = plain(*ext, scal, ri, nx, *extra)
+                torch.cuda.synchronize()
+                plane, rel = max_errs(out, want, n_planes=n)
+                err = max(err, plane)
+                owned = all(torch.equal(a[..., H:H + rs, :],
+                                        b[..., rank * rs:(rank + 1) * rs, :])
+                            for a, b in zip(out[:n], ref[:n]))
+                print(f"{name} {nx}x{ny} band {rank} of {shards}: max abs "
+                      f"err planes {plane:.3e} (tol {PLANE_ATOL:g}), max rel "
+                      f"err norms {rel:.3e} (tol {NORM_RTOL:g}); owned rows "
+                      f"{'bit-equal to' if owned else 'DIFFER from'} the "
+                      "whole-plane kernel")
+                check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
+                      f"{name} disagrees with its plain version")
+                check(owned, f"{name}: a band's owned rows differ from the "
+                      "whole-plane kernel")
+                check(all(bool(torch.isfinite(t).all()) for t in out),
+                      f"{name} produced non-finite values")
+                total += out[n].double()
+                if shards == 1:
+                    rows[name] = {
+                        "ms": time_ms(lambda: halo(*ext, scal, ri, nx,
+                                                   *extra), 50),
+                        "plain_ms": time_ms(lambda: plain(*ext, scal, ri, nx,
+                                                          *extra), 10),
+                        "bound": bound(*cost(ext[0].shape[-2] * ny))}
+            rel = float(torch.max(torch.abs(total - ref[n].double())
+                                  / torch.abs(ref[n].double())))
+            print(f"{name} {nx}x{ny}: owned-row norms of {shards} bands "
+                  f"against the whole plane's: max rel diff {rel:.3e} (tol "
+                  f"{HALO_NORM_RTOL:g})")
+            check(rel <= HALO_NORM_RTOL, f"{name}: the bands' norms do not "
+                  "sum to the whole plane's")
+        rows[name]["err"] = err
+        r = rows[name]
+        print(f"{name} {nx}x{ny} one shard ({nx + 2 * H} rows): kernel "
+              f"{r['ms']:.4f} ms/call, plain {r['plain_ms']:.4f} ms/call, "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    return rows
+
+
+SHARDED_KINDS = ("rof", "ml", "vol")
+
+
+def sharded_solves(rank, world, init_method, card):
+    """This rank's part of phase 16: config 1, config 3 and vol256x8 solved
+    through the halo-sharded routes on the NCCL group; {kind: results}."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    import prost_tpu_torch as ptt
+    from prost_tpu_torch.backend import PDHGOptions
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops import fused_vol as fv
+    from prost_tpu_torch.parallel import (ShardedFusedMultilabel,
+                                          ShardedFusedROF, ShardedFusedVol,
+                                          make_mesh)
+
+    torch.cuda.set_device(rank)
+    ptt.set_device(f"cuda:{rank}")
+    dist.init_process_group("nccl", init_method=init_method, rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=300))
+    try:
+        mesh = make_mesh((world,), axis_names=("sp",))
+        ml_f = ml_unaries(cow_gray(ML_SIZE, ML_SIZE), ML_LABELS)
+        vol_f = vol_data(VOL_LABELS, VOL_SIZE, VOL_SIZE)
+        n = ROF_SIZE
+        rof_f = test_image(n, n).reshape(-1)
+        runs = {
+            "rof": (ShardedFusedROF, fr, lambda: rof_model(
+                n, n, rof_f, ROF_LMB), n * n,
+                lambda x: rof_energy(x, rof_f, ROF_LMB, n, n)),
+            "ml": (ShardedFusedMultilabel, fm, lambda: ml_model(
+                ML_SIZE, ML_SIZE, ML_LABELS, ml_f, ML_LMB),
+                ML_SIZE * ML_SIZE * ML_LABELS,
+                lambda x: ml_energy(x, ml_f, ML_LMB, ML_LABELS, ML_SIZE,
+                                    ML_SIZE)),
+            "vol": (ShardedFusedVol, fv, lambda: vol_model(
+                VOL_SIZE, VOL_SIZE, VOL_LABELS, vol_f),
+                VOL_SIZE * VOL_SIZE * VOL_LABELS,
+                lambda x: vol_energy(x, vol_f, VOL_LMB, VOL_LABELS,
+                                     VOL_SIZE, VOL_SIZE)),
+        }
+        out = {}
+        for kind in SHARDED_KINDS:
+            cls, mod, model, ncols, energy = runs[kind]
+
+            def make(p, o, so, cls=cls):
+                return cls(p, o, so, mesh)
+
+            def solve(iters):
+                backend = recording("pdhg", PDHGOptions(stepsize="boyd",
+                                                        residual_iter=10),
+                                    make)
+                return run_model(backend, model(), ncols, iters)
+
+            solve(200)  # warm-up
+            mod.reset_launch_counts()
+            res, backend, dt = solve(2000)
+            name = f"{kind}_chunk_halo"
+            launches = {k: v for k, v in mod.launch_counts.items() if v}
+            check(set(launches) == {name} and launches[name] > 0,
+                  f"the sharded {kind} route launched {launches}")
+            counts = backend.made.exchange.counts
+            print(f"rank {rank}: sharded {kind} solve: "
+                  f"{rates(res, backend, dt)}; launches {launches}, "
+                  f"exchanges {counts} [{card}]")
+            out[kind] = {"result": res.result.value,
+                         "iterations": res.iterations,
+                         "it_s": res.iterations / backend.loop_s,
+                         "energy": energy(res.x),
+                         "launches": mod.launch_counts[name],
+                         "backend": dist.get_backend()}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_rank(rank, world, init_method, card, results):
+    """A spawned rank of phase 16 (more than one card)."""
+    try:
+        results.put((rank, sharded_solves(rank, world, init_method, card),
+                     None))
+    except Exception as e:  # reported by the parent
+        results.put((rank, None, repr(e)))
+
+
+def phase_sharded_solve(card, one_card):
+    """Phase 16: the halo-sharded routes on one NCCL rank per card, each
+    energy against ``one_card[kind]``, the one-card fused route's."""
+    import multiprocessing as mp
+    import os
+    import tempfile
+
+    import torch
+
+    world = torch.cuda.device_count()
+    init = f"file://{os.path.join(tempfile.mkdtemp(), 'pg')}"
+    if world == 1:
+        per_rank = [sharded_solves(0, 1, init, card)]
+    else:
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        procs = [ctx.Process(target=_sharded_rank,
+                             args=(r, world, init, card, results))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            got = dict((r, (out, err)) for r, out, err in
+                       (results.get(timeout=900) for _ in range(world)))
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+        errors = [f"rank {r}: {e}" for r, (_, e) in got.items() if e]
+        check(not errors, f"sharded solves failed: {errors}")
+        per_rank = [got[r][0] for r in range(world)]
+    launches = {}
+    for kind in SHARDED_KINDS:
+        res = per_rank[0][kind]
+        rel = abs(res["energy"] - one_card[kind]) / abs(one_card[kind])
+        print(f"sharded {kind} solve on {world} rank(s), backend "
+              f"{res['backend']}: {res['result']} after {res['iterations']} "
+              f"iterations, {res['it_s']:.1f} it/s; energy "
+              f"{res['energy']:.8f}, one-card fused {one_card[kind]:.8f}, "
+              f"rel diff {rel:.3e} (tol {ENERGY_RTOL:g}) [{card}]")
+        check(rel <= ENERGY_RTOL, f"the sharded {kind} energy disagrees "
+              "with the one-card fused route's")
+        check(all(r[kind]["energy"] == res["energy"] for r in per_rank),
+              f"the ranks disagree on the sharded {kind} solution")
+        launches[f"{kind}_chunk_halo"] = sum(r[kind]["launches"]
+                                             for r in per_rank)
+    return launches
+
+
 def phase_large(card):
     """Both fused ROF routes at 2048x2048, the fused multilabel route at
     512x512x8, the deblur route at 2048x2048, the tight route at 512x512x4
@@ -2282,13 +2537,18 @@ def main() -> int:
     rows.update(phase_tight_kernels(dev))
     rows.update(phase_vol_kernels(dev))
     rows.update(phase_batched_kernels(dev))
+    rows.update(phase_halo_kernels(dev))
     torch.cuda.synchronize()
     launches, e_pdhg, d_pdhg = phase_solve(card)
     launches.update(phase_admm_solve(card, e_pdhg, d_pdhg))
-    launches.update(phase_ml_solve(card))
+    ml_launches, e_ml = phase_ml_solve(card)
+    launches.update(ml_launches)
     launches.update(phase_deblur_solve(card))
     launches.update(phase_tight_solve(card))
-    launches.update(phase_vol_solve(card))
+    vol_launches, e_vol = phase_vol_solve(card)
+    launches.update(vol_launches)
+    launches.update(phase_sharded_solve(
+        card, {"rof": e_pdhg, "ml": e_ml, "vol": e_vol}))
     ens_launches, _, _ = phase_ensemble(card)
     launches.update(ens_launches)
     launches.update(phase_small_ensembles(card))
@@ -2318,6 +2578,10 @@ def main() -> int:
                                  "prost_tpu/ops/fused_deblur.py:327"),
         "tight_chunk_batched": ("fused_tight",
                                 "prost_tpu/ops/fused_tight.py:253"),
+        "rof_chunk_halo": ("fused_rof", "prost_tpu/ops/fused_rof.py:512"),
+        "ml_chunk_halo": ("fused_multilabel",
+                          "prost_tpu/ops/fused_multilabel.py:236"),
+        "vol_chunk_halo": ("fused_vol", "prost_tpu/ops/fused_vol.py:213"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -11,10 +11,12 @@ and linop parts they use, the preconditioned Problem, the generic PDHG
 backend with all four step-size rules, the generic ADMM backend with CGLS,
 Chebyshev and DCT projections, the solver loop, and the fused routes,
 whose chunk kernels are hand-written CUDA for Hopper (``csrc/*.cu``),
-built by nvcc on first use.  ``prost_tpu_torch.parallel`` (slice 7)
+built by nvcc on first use.  ``prost_tpu_torch.parallel`` (slices 7-8a)
 solves batched ensembles of B instances of one structure on one card
-(``BatchedPDHG``, ``stack_problems``), ROF, multilabel and volumetric-TV
-ensembles through batched chunk kernels.
+(``BatchedPDHG``, ``stack_problems``) through batched chunk kernels, and
+shards one problem's pixel rows over the ranks of a ``torch.distributed``
+group (``make_mesh``, ``ShardedPDHG``, and the halo-exchange ROF,
+multilabel and volumetric-TV routes on the halo chunk kernels).
 """
 
 from .config import (ProstError, device, dtype, list_devices, set_device,

@@ -5,6 +5,8 @@
 //   prost_tpu/ops/fused_multilabel.py  ml_fused_multichunk -> _ml_multichunk_kernel
 //   prost_tpu/ops/fused_multilabel.py  ml_fused_chunk_batched
 //                                      -> _ml_chunk_kernel_batched
+//   prost_tpu/ops/fused_multilabel.py  ml_fused_chunk_halo
+//                                      -> _ml_chunk_kernel (halo=True)
 // whose math is _ml_chunk_core, _ml_update, _shift_ops_3d (whole plane,
 // maskless adjoint) and _project_dead_dual_3d in the same file, and
 // adapt_scalars in fused_rof.py.  They also serve the JAX package's banded
@@ -17,7 +19,10 @@
 // planes; q and the carried gradient g are 2L such planes, [x part; y part];
 // s and the carried label sum su are (nx, ny) planes.  A batched launch
 // takes B such instances back to back on the z axis of the grid, with
-// S_LEN scalars per instance (pdhg_chunk.cuh).
+// S_LEN scalars per instance (pdhg_chunk.cuh).  A halo launch takes one
+// shard of a row-partitioned plane extended by `halo` rows of each
+// neighbour, with the row context of pdhg_chunk.cuh (global row masks,
+// owned-row norms); the whole-plane launches are its case (0, nx, 0, nx).
 //
 // What bounds it on this card.  An iteration streams about 14L + 5 planes
 // (primal: u, 2L q, s, f in, u out; dual: u, 2L q, 2L g, s, su in, 2L q,
@@ -81,6 +86,7 @@ struct ML {
   float* sc;
   float* partial;  // 4 per block
   int L, nx, ny;
+  int nxg;           // rows of the global plane of a halo launch; 0: whole
   float inv_l;       // Sigma_s = 1/L
   float sqrt_inv_l;  // sqrt(Sigma_s)
 };
@@ -117,14 +123,16 @@ __global__ void ml_seed(ML b) {
   int nx = b.nx, ny = b.ny;
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
   size_t nl = n * b.L;
+  RowCtx r = row_ctx(b.sc, nx, b.nxg);
+  bool below = has_below(r, i, nx), dead = dead_row(r, i);
   float acc = 0.f;
   for (int l = 0; l < b.L; ++l) {
     size_t pl = l * n + p;
     float uv = b.u[pl];
-    b.g[pl] = i < nx - 1 ? b.u[pl + ny] - uv : 0.f;
+    b.g[pl] = below ? b.u[pl + ny] - uv : 0.f;
     b.g[nl + pl] = j < ny - 1 ? b.u[pl + 1] - uv : 0.f;
     acc = l == 0 ? uv : acc + uv;
-    if (i == nx - 1) b.q[pl] = 0.f;
+    if (dead) b.q[pl] = 0.f;
     if (j == ny - 1) b.q[nl + pl] = 0.f;
   }
   b.su[p] = acc;
@@ -146,10 +154,11 @@ __global__ void ml_primal(ML b, int save_prev) {
   size_t nl = n * b.L;
   float tau = b.sc[S_TAU] * TAU_C;  // tau * Tau
   float sv = b.s[p];
+  bool above = has_above(row_ctx(b.sc, b.nx, b.nxg), i);
   for (int l = 0; l < b.L; ++l) {
     size_t pl = l * n + p;
     float qx = b.q[pl], qy = b.q[nl + pl];
-    float lx = i > 0 ? b.q[pl - ny] : 0.f;
+    float lx = above ? b.q[pl - ny] : 0.f;
     float ly = j > 0 ? b.q[nl + pl - 1] : 0.f;
     float kty = ((lx - qx) + (ly - qy)) + sv;
     float uv = b.u[pl];
@@ -184,11 +193,12 @@ __global__ void ml_dual(ML b, int save_prev) {
   float tp = 1.f + theta;
   float ax[LT > 0 ? LT : 1], ay[LT > 0 ? LT : 1];
   float su2 = 0.f, nrm2 = 0.f;
+  bool below = has_below(row_ctx(b.sc, nx, b.nxg), i, nx);
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     size_t pl = l * n + p;
     float uv = b.u[pl];
-    float gx2 = i < nx - 1 ? b.u[pl + ny] - uv : 0.f;
+    float gx2 = below ? b.u[pl + ny] - uv : 0.f;
     float gy2 = j < ny - 1 ? b.u[pl + 1] - uv : 0.f;
     su2 = l == 0 ? uv : su2 + uv;
     float qx = b.q[pl], qy = b.q[nl + pl];
@@ -236,9 +246,10 @@ __global__ void ml_dual(ML b, int save_prev) {
 
 // K^T y at label plane l of pixel (i, j) from duals (q, s).
 __device__ __forceinline__ float kty_at(const float* q, float sv, size_t pl,
-                                        size_t nl, int i, int j, int ny) {
+                                        size_t nl, bool above, int j,
+                                        int ny) {
   float qx = q[pl], qy = q[nl + pl];
-  float lx = i > 0 ? q[pl - ny] : 0.f;
+  float lx = above ? q[pl - ny] : 0.f;
   float ly = j > 0 ? q[nl + pl - 1] : 0.f;
   return ((lx - qx) + (ly - qy)) + sv;
 }
@@ -253,10 +264,12 @@ __global__ void ml_norm_partial(ML b) {
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
-  if (pixel(b.nx, b.ny, i, j)) {
+  RowCtx r = row_ctx(b.sc, b.nx, b.nxg);
+  if (pixel(b.nx, b.ny, i, j) && owned_row(r, i)) {
     int ny = b.ny;
     size_t n = (size_t)b.nx * ny, p = (size_t)i * ny + j;
     size_t nl = n * b.L;
+    bool above = has_above(r, i);
     float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
     float theta = b.sc[S_THETA];
     float tp = 1.f + theta;
@@ -273,8 +286,8 @@ __global__ void ml_norm_partial(ML b) {
                  + SQRT_S_Q * (tp * gy2 - theta * b.gp[nl + pl]);
       float pdx = zx - SQRT_S_Q * gx2;
       float pdy = zy - SQRT_S_Q * gy2;
-      float kty2 = kty_at(b.q, s2, pl, nl, i, j, ny);
-      float ktyp = kty_at(b.qp, spv, pl, nl, i, j, ny);
+      float kty2 = kty_at(b.q, s2, pl, nl, above, j, ny);
+      float ktyp = kty_at(b.qp, spv, pl, nl, above, j, ny);
       float wh = (b.up[pl] - b.u[pl]) * inv_t - SQRT_T * ktyp;
       float dd = wh + SQRT_T * kty2;
       v[0] += pdx * pdx + pdy * pdy;
@@ -365,6 +378,7 @@ ML ml_of(void* u, void* q, void* s, void* up, void* qp, void* sp, void* g,
   b.L = L;
   b.nx = nx;
   b.ny = ny;
+  b.nxg = 0;
   b.inv_l = inv_l;
   b.sqrt_inv_l = sqrt_inv_l;
   return b;
@@ -415,6 +429,20 @@ int prost_ml_chunk_batched(void* u, void* q, void* s, void* up, void* qp,
 // chunk, and every kernel after convergence returning at once (the
 // lax.cond skip).  sc[S_NORM..] ends with the last executed chunk's sqrt'd
 // norms.
+// ml_fused_chunk_halo: ml_chunk on one halo-extended shard of a plane of
+// nx_global rows; sc holds the row context and the squared norms cover the
+// owned rows only.
+int prost_ml_chunk_halo(void* u, void* q, void* s, void* up, void* qp,
+                        void* sp, void* g, void* gp, void* su, void* sup,
+                        const void* f, void* sc, void* partial, int L, int nx,
+                        int ny, float inv_l, float sqrt_inv_l, int nx_global,
+                        int count, void* stream) {
+  ML b = ml_of(u, q, s, up, qp, sp, g, gp, su, sup, f, sc, partial, L, nx,
+               ny, inv_l, sqrt_inv_l);
+  b.nxg = nx_global;
+  return chunk(b, count, 1, (cudaStream_t)stream);
+}
+
 int prost_ml_multichunk(void* u, void* q, void* s, void* up, void* qp,
                         void* sp, void* g, void* gp, void* su, void* sup,
                         const void* f, void* sc, void* partial, int L, int nx,

@@ -5,6 +5,8 @@
 //   prost_tpu/ops/fused_rof.py  rof_fused_multichunk -> _rof_multichunk_kernel
 //   prost_tpu/ops/fused_rof.py  rof_fused_chunk_batched
 //                               -> _rof_chunk_kernel_batched
+//   prost_tpu/ops/fused_rof.py  rof_fused_chunk_halo
+//                               -> _rof_chunk_kernel_halo
 // whose math is _chunk_core, _rof_update, _shift_ops, _project_dead_dual,
 // _hoist_dataterm and adapt_scalars in the same file.  The batched chunk
 // also serves rof_fused_chunk_banded_batched, which bands each instance only
@@ -16,6 +18,11 @@
 // B such instances back to back, (B, nx, ny) and (B, 2, nx, ny), with a
 // scalar block of S_LEN per instance, and runs them on the z axis of the
 // grid (pdhg_chunk.cuh): one launch per half-iteration for all of them.
+// A halo launch takes one shard of a row-partitioned plane with `halo`
+// rows of each neighbour above and below it (zeros beyond the plane's
+// edges), nx = rows + 2 halo, and the row context of pdhg_chunk.cuh in its
+// scalars; the whole-plane launches are its special case (0, nx, 0, nx),
+// so they run the same arithmetic.
 //
 // What bounds it on this card.  The TPU kernels hold the whole state in
 // VMEM for a chunk.  A 512x512 f32 plane is 1 MiB and one iteration
@@ -83,6 +90,7 @@ struct Planes {
   float* sc;
   float* partial;  // 4 per block
   int nx, ny;
+  int nxg;  // rows of the global plane of a halo launch; 0: the whole plane
 };
 
 // The planes of this block's instance (blockIdx.z) of a batched launch:
@@ -101,15 +109,18 @@ __device__ __forceinline__ Planes instance_of(Planes b) {
   return b;
 }
 
-// Adjoint stencil K^T q at (i, j).  Bounds-checked neighbours equal the
-// JAX package's maskless roll adjoint because the dead coordinates (q_x's
-// last row, q_y's last column) are zero: rof_seed zeroes them and the dual
-// step keeps them zero.
-__device__ __forceinline__ float kty_at(const float* q, int i, int j,
-                                        int ny, size_t n) {
+// Adjoint stencil K^T q at (i, j).  Reading the upper neighbour only where
+// row i has one (has_above) and the pixel's own q unmasked equals the JAX
+// package's masked adjoint because the dead coordinates (q_x's global last
+// row, q_y's last column) are zero: rof_seed zeroes them and the dual step
+// keeps them zero.  On a shard the upper mask is what keeps global row 0
+// from reading the halo rows above it, which are not zero after a dual
+// step on an edge shard.
+__device__ __forceinline__ float kty_at(const float* q, const RowCtx& r,
+                                        int i, int j, int ny, size_t n) {
   size_t p = (size_t)i * ny + j;
   float qx = q[p], qy = q[n + p];
-  float lx = i > 0 ? q[p - ny] : 0.f;
+  float lx = has_above(r, i) ? q[p - ny] : 0.f;
   float ly = j > 0 ? q[n + p - 1] : 0.f;
   return (lx - qx) + (ly - qy);
 }
@@ -123,11 +134,12 @@ __global__ void rof_seed(Planes b) {
   if (b.sc[S_CONV] != 0.f) return;
   int i, j, nx = b.nx, ny = b.ny;
   if (!pixel(nx, ny, i, j)) return;
+  RowCtx r = row_ctx(b.sc, nx, b.nxg);
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
   float xv = b.x[p];
-  b.g[p] = i < nx - 1 ? b.x[p + ny] - xv : 0.f;
+  b.g[p] = has_below(r, i, nx) ? b.x[p + ny] - xv : 0.f;
   b.g[n + p] = j < ny - 1 ? b.x[p + 1] - xv : 0.f;
-  if (i == nx - 1) b.q[p] = 0.f;
+  if (dead_row(r, i)) b.q[p] = 0.f;
   if (j == ny - 1) b.q[n + p] = 0.f;
 }
 
@@ -150,7 +162,7 @@ __global__ void rof_primal(Planes b, int dataterm, int save_prev) {
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
   float tau = sc[S_TAU] * 0.25f;  // tau * Tau
   float lmb = sc[S_LMB];
-  float kty = kty_at(q, i, j, ny, n);
+  float kty = kty_at(q, row_ctx(sc, nx, b.nxg), i, j, ny, n);
   float xv = x[p];
   float arg = xv - tau * kty;
   float xn;
@@ -194,7 +206,8 @@ __global__ void rof_dual(Planes b, int save_prev) {
   float sig_p = sigma_p * (1.f + theta);
   float sig_t = sigma_p * theta;
   float xv = x[p];
-  float gxn = i < nx - 1 ? x[p + ny] - xv : 0.f;
+  float gxn = has_below(row_ctx(sc, nx, b.nxg), i, nx) ? x[p + ny] - xv
+                                                        : 0.f;
   float gyn = j < ny - 1 ? x[p + 1] - xv : 0.f;
   float qx = q[p], qy = q[n + p], gx = g[p], gy = g[n + p];
   float ax = (qx + sig_p * gxn) - sig_t * gx;
@@ -215,7 +228,7 @@ __global__ void rof_dual(Planes b, int save_prev) {
 
 // First pass of the four preconditioned residual norms (_chunk_core after
 // the aligned iteration): per-block tree sums of |pd|^2, |z_hat|^2,
-// |dd|^2, |w_hat|^2 into partial[4 * block].
+// |dd|^2, |w_hat|^2 into partial[4 * block], over the owned rows.
 // Bound: memory, 10 planes read once per chunk; the tree sum in shared
 // memory replaces the TPU kernel's whole-plane jnp.sum into SMEM.
 __global__ void rof_norm_partial(Planes b) {
@@ -223,15 +236,16 @@ __global__ void rof_norm_partial(Planes b) {
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
-  if (pixel(b.nx, b.ny, i, j)) {
+  RowCtx r = row_ctx(b.sc, b.nx, b.nxg);
+  if (pixel(b.nx, b.ny, i, j) && owned_row(r, i)) {
     int ny = b.ny;
     size_t n = (size_t)b.nx * ny, p = (size_t)i * ny + j;
     float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
     float theta = b.sc[S_THETA];
     float inv_s = 1.f / (sigma_raw * SQRT_S);
     float inv_t = 1.f / (tau_raw * SQRT_T);
-    float kty2 = kty_at(b.q, i, j, ny, n);
-    float ktyp = kty_at(b.qp, i, j, ny, n);
+    float kty2 = kty_at(b.q, r, i, j, ny, n);
+    float ktyp = kty_at(b.qp, r, i, j, ny, n);
     float zx = (b.qp[p] - b.q[p]) * inv_s
                + SQRT_S * ((1.f + theta) * b.g[p] - theta * b.gp[p]);
     float zy = (b.qp[n + p] - b.q[n + p]) * inv_s
@@ -298,6 +312,7 @@ Planes planes_of(void* x, void* q, void* xp, void* qp, void* g, void* gp,
   b.partial = (float*)partial;
   b.nx = nx;
   b.ny = ny;
+  b.nxg = 0;
   return b;
 }
 
@@ -335,6 +350,18 @@ int prost_rof_chunk_batched(void* x, void* q, void* xp, void* qp, void* g,
   if (int rc = batch_error(batch)) return rc;
   Planes b = planes_of(x, q, xp, qp, g, gp, f, w, sc, partial, nx, ny);
   return chunk(b, count, dataterm, batch, (cudaStream_t)stream);
+}
+
+// rof_fused_chunk_halo: rof_chunk on one halo-extended shard of a plane of
+// nx_global rows; sc holds the row context (S_ROW_OFF, S_OWN_LO, S_OWN_HI)
+// and the squared norms cover the owned rows only.
+int prost_rof_chunk_halo(void* x, void* q, void* xp, void* qp, void* g,
+                         void* gp, const void* f, const void* w, void* sc,
+                         void* partial, int nx, int ny, int nx_global,
+                         int count, int dataterm, void* stream) {
+  Planes b = planes_of(x, q, xp, qp, g, gp, f, w, sc, partial, nx, ny);
+  b.nxg = nx_global;
+  return chunk(b, count, dataterm, 1, (cudaStream_t)stream);
 }
 
 // rof_fused_multichunk: up to k_chunks chunks, the gradient carried across

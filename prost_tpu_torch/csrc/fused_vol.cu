@@ -5,6 +5,8 @@
 //   prost_tpu/ops/fused_vol.py  vol_fused_multichunk -> _vol_multichunk_kernel
 //   prost_tpu/ops/fused_vol.py  vol_fused_chunk_batched
 //                               -> _vol_chunk_kernel_batched
+//   prost_tpu/ops/fused_vol.py  vol_fused_chunk_halo
+//                               -> _vol_chunk_kernel (halo=True)
 // whose math is _vol_chunk_core, _vol_update, _vol_ops (whole volume,
 // maskless x/y adjoints) and _project_dead_dual_vol in the same file, and
 // adapt_scalars in fused_rof.py.  They also serve the JAX package's banded
@@ -18,7 +20,11 @@
 // volumes; q and the carried gradient g are three such volumes back to
 // back, [x part; y part; label part] (BlockGradient3D's segment order).  A
 // batched launch takes B such instances back to back on the z axis of the
-// grid, with S_LEN scalars per instance (pdhg_chunk.cuh).
+// grid, with S_LEN scalars per instance (pdhg_chunk.cuh).  A halo launch
+// takes one shard of the nx axis extended by `halo` rows of each
+// neighbour, with the row context of pdhg_chunk.cuh (global row masks,
+// owned-row norms); the label axis keeps its Dirichlet ends, and the
+// whole-volume launches are the case (0, nx, 0, nx).
 //
 // The stencils: x and y forward differences with a Neumann boundary (zero
 // last difference), the label difference with a Dirichlet far boundary,
@@ -86,6 +92,7 @@ struct Vol {
   float* sc;
   float* partial;  // 4 per block
   int L, nx, ny;
+  int nxg;  // rows of the global plane of a halo launch; 0: the whole plane
 };
 
 // The buffers of this block's instance (blockIdx.z) of a batched launch,
@@ -108,10 +115,10 @@ __device__ __forceinline__ Vol instance_of(Vol b) {
 // coordinates being zero) plus the masked label adjoint, whose neighbour
 // q_l[l-1] the caller carries as `ql_below` (0 at l = 0).
 __device__ __forceinline__ float kty_at(const float* q, size_t pl,
-                                        size_t nl, int i, int j, int ny,
+                                        size_t nl, bool above, int j, int ny,
                                         float ql_below) {
   float qx = q[pl], qy = q[nl + pl], ql = q[2 * nl + pl];
-  float lx = i > 0 ? q[pl - ny] : 0.f;
+  float lx = above ? q[pl - ny] : 0.f;
   float ly = j > 0 ? q[nl + pl - 1] : 0.f;
   return ((lx - qx) + (ly - qy)) + (ql_below - ql);
 }
@@ -128,15 +135,17 @@ __global__ void vol_seed(Vol b) {
   int nx = b.nx, ny = b.ny, L = b.L;
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
   size_t nl = n * L;
+  RowCtx r = row_ctx(b.sc, nx, b.nxg);
+  bool below = has_below(r, i, nx), dead = dead_row(r, i);
   float un = b.u[p];
   for (int l = 0; l < L; ++l) {
     size_t pl = l * n + p;
     float uv = un;
     un = l < L - 1 ? b.u[pl + n] : 0.f;
-    b.g[pl] = i < nx - 1 ? b.u[pl + ny] - uv : 0.f;
+    b.g[pl] = below ? b.u[pl + ny] - uv : 0.f;
     b.g[nl + pl] = j < ny - 1 ? b.u[pl + 1] - uv : 0.f;
     b.g[2 * nl + pl] = un - uv;
-    if (i == nx - 1) b.q[pl] = 0.f;
+    if (dead) b.q[pl] = 0.f;
     if (j == ny - 1) b.q[nl + pl] = 0.f;
   }
 }
@@ -155,10 +164,11 @@ __global__ void vol_primal(Vol b, int dataterm, int save_prev) {
   size_t nl = n * b.L;
   float tau = b.sc[S_TAU] * TAU_C;  // tau * Tau
   float tl = tau * b.sc[S_LMB];
+  bool above = has_above(row_ctx(b.sc, b.nx, b.nxg), i);
   float ql_below = 0.f;
   for (int l = 0; l < b.L; ++l) {
     size_t pl = l * n + p;
-    float kty = kty_at(b.q, pl, nl, i, j, ny, ql_below);
+    float kty = kty_at(b.q, pl, nl, above, j, ny, ql_below);
     ql_below = b.q[2 * nl + pl];
     float uv = b.u[pl];
     float arg = uv - tau * kty;
@@ -199,12 +209,13 @@ __global__ void vol_dual(Vol b, int save_prev) {
   float sig_p = sigma_p * (1.f + theta);
   float sig_t = sigma_p * theta;
   float radius = b.sc[S_RADIUS];
+  bool below = has_below(row_ctx(b.sc, nx, b.nxg), i, nx);
   float un = b.u[p];
   for (int l = 0; l < L; ++l) {
     size_t pl = l * n + p;
     float uv = un;
     un = l < L - 1 ? b.u[pl + n] : 0.f;
-    float gxn = i < nx - 1 ? b.u[pl + ny] - uv : 0.f;
+    float gxn = below ? b.u[pl + ny] - uv : 0.f;
     float gyn = j < ny - 1 ? b.u[pl + 1] - uv : 0.f;
     float gln = un - uv;
     float qx = b.q[pl], qy = b.q[nl + pl], ql = b.q[2 * nl + pl];
@@ -241,10 +252,12 @@ __global__ void vol_norm_partial(Vol b) {
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
-  if (pixel(b.nx, b.ny, i, j)) {
+  RowCtx r = row_ctx(b.sc, b.nx, b.nxg);
+  if (pixel(b.nx, b.ny, i, j) && owned_row(r, i)) {
     int ny = b.ny;
     size_t n = (size_t)b.nx * ny, p = (size_t)i * ny + j;
     size_t nl = n * b.L;
+    bool above = has_above(r, i);
     float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
     float theta = b.sc[S_THETA];
     float tp = 1.f + theta;
@@ -253,8 +266,8 @@ __global__ void vol_norm_partial(Vol b) {
     float ql2_below = 0.f, qlp_below = 0.f;
     for (int l = 0; l < b.L; ++l) {
       size_t pl = l * n + p;
-      float kty2 = kty_at(b.q, pl, nl, i, j, ny, ql2_below);
-      float ktyp = kty_at(b.qp, pl, nl, i, j, ny, qlp_below);
+      float kty2 = kty_at(b.q, pl, nl, above, j, ny, ql2_below);
+      float ktyp = kty_at(b.qp, pl, nl, above, j, ny, qlp_below);
       ql2_below = b.q[2 * nl + pl];
       qlp_below = b.qp[2 * nl + pl];
       float z[3], pd[3];
@@ -326,6 +339,7 @@ Vol vol_of(void* u, void* q, void* up, void* qp, void* g, void* gp,
   b.L = L;
   b.nx = nx;
   b.ny = ny;
+  b.nxg = 0;
   return b;
 }
 
@@ -365,6 +379,18 @@ int prost_vol_chunk_batched(void* u, void* q, void* up, void* qp, void* g,
   if (int rc = batch_error(batch)) return rc;
   Vol b = vol_of(u, q, up, qp, g, gp, f, w, sc, partial, L, nx, ny);
   return chunk(b, count, dataterm, batch, (cudaStream_t)stream);
+}
+
+// vol_fused_chunk_halo: vol_chunk on one halo-extended shard of the nx
+// axis of a volume of nx_global rows; sc holds the row context and the
+// squared norms cover the owned rows only.
+int prost_vol_chunk_halo(void* u, void* q, void* up, void* qp, void* g,
+                         void* gp, const void* f, const void* w, void* sc,
+                         void* partial, int L, int nx, int ny, int nx_global,
+                         int count, int dataterm, void* stream) {
+  Vol b = vol_of(u, q, up, qp, g, gp, f, w, sc, partial, L, nx, ny);
+  b.nxg = nx_global;
+  return chunk(b, count, dataterm, 1, (cudaStream_t)stream);
 }
 
 // vol_fused_multichunk: up to k_chunks chunks, the gradient carried across

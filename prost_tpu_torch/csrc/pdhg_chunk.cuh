@@ -15,6 +15,10 @@
 //   and every instance is reduced exactly as a single-instance launch
 //   reduces its plane, so instance b of a batched launch is bit-equal to a
 //   single-instance launch on instance b alone;
+// * the rows of a launch within the global plane (RowCtx): the whole plane,
+//   or one halo-extended shard of a row-partitioned plane (the halo chunks
+//   of spatial sharding, the JAX package's *_chunk_halo kernels), whose
+//   row masks use global rows and whose norms cover the owned rows only;
 // * pdhg_finish, the second pass of the four residual norms (one block per
 //   instance) and, in a multichunk launch, the boyd/goldstein adaptation
 //   and the stopping test (adapt_scalars of prost_tpu/ops/fused_rof.py,
@@ -40,6 +44,12 @@ enum {
   S_LEN = 19,  // scalars of one instance
 };
 
+// A halo chunk's row context in the slots of the multichunk's adaptation
+// state, which a chunk launch does not use: [tau, sigma, theta, arg3, arg4,
+// row_offset, own_lo, own_hi] is the JAX package's scal8 (integers as
+// floats, exact below 2^24).
+enum { S_ROW_OFF = 5, S_OWN_LO = 6, S_OWN_HI = 7 };
+
 enum { STEP_NONE = 0, STEP_GOLDSTEIN = 1, STEP_BOYD = 2 };
 
 constexpr int BX = 32;
@@ -52,6 +62,46 @@ __device__ __forceinline__ bool pixel(int nx, int ny, int& i, int& j) {
   j = blockIdx.x * BX + threadIdx.x;
   i = blockIdx.y * BY + threadIdx.y;
   return i < nx && j < ny;
+}
+
+// Where the nx rows of a launch lie in the global plane: local row i is
+// global row i + off of nxg; the norms sum local rows [own_lo, own_hi).
+// The whole plane is (0, nx, 0, nx).  A halo-extended shard (nxg > 0, the
+// halo entry points) reads its offset and owned rows from `sc`: its row
+// masks use global rows, so the Neumann boundary lies at global rows 0 and
+// nxg - 1 and not at the shard's edges, and a neighbour row is read only
+// where both the local and the global row have one.  The rows beyond the
+// global plane (an edge shard's halo) and the halo rows next to a local
+// edge compute values that no owned row reads within a chunk of at most
+// (halo - 2) / 2 iterations: information moves one row per half-step.
+struct RowCtx {
+  int off, nxg, own_lo, own_hi;
+};
+
+__device__ __forceinline__ RowCtx row_ctx(const float* sc, int nx,
+                                          int nxg) {
+  if (nxg == 0) return RowCtx{0, nx, 0, nx};
+  return RowCtx{(int)sc[S_ROW_OFF], nxg, (int)sc[S_OWN_LO],
+                (int)sc[S_OWN_HI]};
+}
+
+// The forward difference of row i reads row i + 1.
+__device__ __forceinline__ bool has_below(const RowCtx& r, int i, int nx) {
+  return i < nx - 1 && i + r.off < r.nxg - 1;
+}
+
+// The adjoint of row i reads row i - 1.
+__device__ __forceinline__ bool has_above(const RowCtx& r, int i) {
+  return i > 0 && i + r.off > 0;
+}
+
+// Row i is the global last row, where q_x is a dead coordinate.
+__device__ __forceinline__ bool dead_row(const RowCtx& r, int i) {
+  return i + r.off == r.nxg - 1;
+}
+
+__device__ __forceinline__ bool owned_row(const RowCtx& r, int i) {
+  return i >= r.own_lo && i < r.own_hi;
 }
 
 // The pixel grid of `batch` instances of an (nx, ny) plane.

@@ -6,6 +6,10 @@
   PDHG state (``BatchedPDHG``'s) keeps its leading batch axis, vectors
   (B, n) and scalars (B,);
 * ``pdhg_state_to_numpy`` / ``admm_state_to_numpy`` are their inverses;
+* ``sharded_pdhg_state_from_numpy`` / ``sharded_pdhg_state_to_numpy`` do
+  the same for the state of a spatially sharded backend (``ShardedPDHG``
+  and the halo routes): every rank builds its shard of each vector from
+  the whole (gathered) vectors, and every rank gets the whole vectors back;
 * ``problem_arrays`` lists a finalized problem's linear operator (its
   blocks with their data), preconditioners and prox coefficients as numpy,
   so a test can check that both packages build the same K and finalize the
@@ -67,6 +71,27 @@ def pdhg_state_from_numpy(fields: dict, device) -> PDHGState:
 def pdhg_state_to_numpy(state) -> dict:
     """Every field of a ``PDHGState`` as a numpy array."""
     return _state_to_numpy(state)
+
+
+def sharded_pdhg_state_from_numpy(fields: dict, mesh, device,
+                                  axis_name: str = "sp") -> PDHGState:
+    """This rank's sharded ``PDHGState`` on ``device`` (its shard of every
+    vector over ``mesh``'s ``axis_name``, the scalars whole) from a JAX
+    ``PDHGState``'s fields as numpy arrays, its vectors gathered whole.
+    Every rank of the mesh passes the same fields; no data is sent."""
+    from .parallel.spatial import shard_state, sp_mesh
+
+    return shard_state(pdhg_state_from_numpy(fields, device),
+                       sp_mesh(mesh, axis_name))
+
+
+def sharded_pdhg_state_to_numpy(state) -> dict:
+    """Every field of a sharded ``PDHGState`` as a numpy array, each vector
+    gathered whole: a collective, which every rank of the mesh calls."""
+    from .parallel.spatial import whole
+
+    return {f.name: to_numpy(whole(getattr(state, f.name)))
+            for f in dataclasses.fields(state)}
 
 
 def admm_state_from_numpy(fields: dict, device) -> ADMMState:

@@ -27,7 +27,10 @@ wrapper here:
   device between chunks;
 * ``ml_chunk_batched`` (JAX ``ml_fused_chunk_batched``): one chunk for each
   of B instances in one launch sequence, the batched ensembles' route
-  (``parallel/ensemble.py``).
+  (``parallel/ensemble.py``);
+* ``ml_chunk_halo`` (JAX ``ml_fused_chunk_halo``): one chunk on a
+  halo-extended shard of a row-partitioned plane, the spatially sharded
+  route's (``parallel/spatial_fused.py``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  As on the ROF route there is no fallback
@@ -53,11 +56,13 @@ from ..linop.base import LinearOperator
 from ..linop.blocks import BlockKronId
 from ..linop.gradient import BlockGradient2D
 from ..prox.elemop import ProxElem1D, ProxElemNorm2
-from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, ball_scale,
-                         canonical_duals, check_buffers, chunk_state,
-                         coeff_vector, dx, dxt, dy, dyt, entry_converged,
-                         isscalar, launch, leq0_ball_radius, multichunk_plain,
-                         multichunk_state, project_dead_dual, run_pdhg_route,
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, STEPSIZES, VP, WHOLE_PLANE,
+                         ChunkWork, ball_scale, canonical_duals,
+                         check_buffers, check_halo, chunk_state,
+                         coeff_vector, dx, dy, dyt, entry_converged,
+                         halo_copy, halo_into, halo_scal_rows, isscalar,
+                         launch, leq0_ball_radius,
+                         multichunk_plain, multichunk_state, run_pdhg_route,
                          typed_lib, vmap_plain)
 from .phases import K_CHUNKS
 
@@ -65,7 +70,8 @@ _SQRT_T = 0.4472135954999579    # sqrt(Tau)     = sqrt(1/5)
 _SQRT_S_Q = 0.7071067811865476  # sqrt(Sigma_q) = sqrt(1/2)
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
-launch_counts = {"ml_chunk": 0, "ml_multichunk": 0, "ml_chunk_batched": 0}
+launch_counts = {"ml_chunk": 0, "ml_multichunk": 0, "ml_chunk_batched": 0,
+                 "ml_chunk_halo": 0}
 
 
 def reset_launch_counts() -> None:
@@ -78,16 +84,16 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 def _ml_update(u, qx, qy, s, gx, gy, su, tf, tau, sig_q, sig_s, theta,
-               radius, d_s):
+               radius, d_s, rows=WHOLE_PLANE):
     """One preconditioned PDHG update.  tau, sig_q and sig_s arrive
     pre-multiplied by Tau = 1/5, Sigma_q = 1/2 and Sigma_s = 1/L; tf is
     tau * f.  (gx, gy, su) = (dx(u), dy(u), sum_l u) carried from the
     previous iteration.  Returns the new state, the new carried planes and
-    K^T of the old dual."""
-    kty = dxt(qx) + dyt(qy) + s
+    K^T of the old dual; ``rows`` is the planes' ``RowOps``."""
+    kty = rows.dxt(qx) + dyt(qy) + s
     # prox of ind_geq0(u) + <f, u>
     u2 = torch.clamp_min(u - tau * kty - tf, 0.0)
-    gx2, gy2 = dx(u2), dy(u2)
+    gx2, gy2 = rows.dx(u2), dy(u2)
     su2 = torch.sum(u2, dim=0)
     # per-pixel radius-lmb ball over all 2L gradient components
     axq = qx + sig_q * ((1.0 + theta) * gx2 - theta * gx)
@@ -99,11 +105,11 @@ def _ml_update(u, qx, qy, s, gx, gy, su, tf, tau, sig_q, sig_s, theta,
 
 
 def _ml_chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, qx0, qy0, s0,
-                   f, count: int, g0=None):
+                   f, count: int, g0=None, rows=WHOLE_PLANE):
     """One residual_iter-sized chunk: ``count - 1`` plain iterations, then
     the aligned iteration with its four preconditioned residual norms
     (squared).  ``g0`` seeds the carried planes (dx(u0), dy(u0),
-    sum_l u0), a previous chunk's.
+    sum_l u0), a previous chunk's; ``rows`` is the planes' ``RowOps``.
 
     Returns ((u2, qx2, qy2, s2), (u_prev, qx_prev, qy_prev, s_prev),
     norms, (gx2, gy2, su2))."""
@@ -112,18 +118,18 @@ def _ml_chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, qx0, qy0, s0,
     sig_q = sigma_raw * 0.5          # sigma * Sigma_q
     sig_s = sigma_raw * (1.0 / L)    # sigma * Sigma_s
     tf = tau * f
-    qx, qy = project_dead_dual(qx0, qy0)
+    qx, qy = rows.project(qx0, qy0)
     u, s = u0, s0
-    gx, gy, su = ((dx(u0), dy(u0), torch.sum(u0, dim=0)) if g0 is None
+    gx, gy, su = ((rows.dx(u0), dy(u0), torch.sum(u0, dim=0)) if g0 is None
                   else g0)
-    args = (tf, tau, sig_q, sig_s, theta, radius, d_s)
+    args = (tf, tau, sig_q, sig_s, theta, radius, d_s, rows)
     for _ in range(count - 1):
         u, qx, qy, s, gx, gy, su, _ = _ml_update(u, qx, qy, s, gx, gy, su,
                                                  *args)
     # aligned iteration; (gx, gy, su) = K x_prev carried for free
     u2, qx2, qy2, s2, gx2, gy2, su2, ktyp = _ml_update(u, qx, qy, s, gx, gy,
                                                        su, *args)
-    kty2 = dxt(qx2) + dyt(qy2) + s2
+    kty2 = rows.dxt(qx2) + dyt(qy2) + s2
 
     # preconditioned residuals, segment-wise sqrt(Sigma)
     sqrt_s_s = (1.0 / L) ** 0.5
@@ -138,31 +144,39 @@ def _ml_chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, qx0, qy0, s0,
     wh = (u - u2) * (1.0 / (tau_raw * _SQRT_T)) - _SQRT_T * ktyp
     dd = wh + _SQRT_T * kty2
 
+    nsum = rows.nsum
     norms = (
-        torch.sum(pd_x * pd_x) + torch.sum(pd_y * pd_y)
-        + torch.sum(pd_s * pd_s),
-        torch.sum(zh_x * zh_x) + torch.sum(zh_y * zh_y)
-        + torch.sum(zh_s * zh_s),
-        torch.sum(dd * dd),
-        torch.sum(wh * wh),
+        nsum(pd_x * pd_x) + nsum(pd_y * pd_y) + nsum(pd_s * pd_s),
+        nsum(zh_x * zh_x) + nsum(zh_y * zh_y) + nsum(zh_s * zh_s),
+        nsum(dd * dd),
+        nsum(wh * wh),
     )
     return ((u2, qx2, qy2, s2), (u, qx, qy, s), norms, (gx2, gy2, su2))
 
 
-def ml_chunk_plain(u, q, s, f, scal, count: int):
-    """Plain PyTorch version of ``ml_chunk`` (any device)."""
+def ml_chunk_plain(u, q, s, f, scal, count: int, rows=WHOLE_PLANE,
+                   n_scal: int = 5):
+    """Plain PyTorch version of ``ml_chunk`` (any device); with ``rows``
+    and ``n_scal`` that of a halo chunk."""
     L = u.shape[0]
     new, prev, norms, _ = _ml_chunk_core(
         scal[0], scal[1], scal[2], scal[3], scal[4], u, q[:L], q[L:], s, f,
-        int(count))
+        int(count), rows=rows)
     q2 = torch.cat([new[1], new[2]])
     qp = torch.cat([prev[1], prev[2]])
     n2 = torch.stack(norms)
-    conv = entry_converged(scal, 5)
+    conv = entry_converged(scal, n_scal)
     return (torch.where(conv, u, new[0]), torch.where(conv, q, q2),
             torch.where(conv, s, new[3]), torch.where(conv, u, prev[0]),
             torch.where(conv, q, qp), torch.where(conv, s, prev[3]),
             torch.where(conv, torch.zeros_like(n2), n2))
+
+
+def ml_chunk_halo_plain(u, q, s, f, scal, count: int, nx_global: int):
+    """Plain PyTorch version of ``ml_chunk_halo`` (any device; reads the
+    row context of ``scal`` on the host)."""
+    return ml_chunk_plain(u, q, s, f, scal, count,
+                          halo_scal_rows(scal, nx_global), N_HALO_SCAL)
 
 
 def ml_chunk_batched_plain(u, q, s, f, scal, count: int):
@@ -222,16 +236,19 @@ def _lib():
     return typed_lib("fused_multilabel", "prost_ml_num_blocks", {
         "prost_ml_chunk": head + [CI, VP],
         "prost_ml_chunk_batched": head + [CI, CI, VP],
+        "prost_ml_chunk_halo": head + [CI, CI, VP],
         "prost_ml_multichunk": head + [CI] * 3 + [CF] * 6 + [VP]})
 
 
-def _launch(fn: str, what: str, u, q, s, f, scal, n_scal: int, *args):
+def _launch(fn: str, what: str, u, q, s, f, scal, n_scal: int, *args,
+            prev=None):
     """One launch of ``fn`` on copies of (u, q, s) (with a leading batch
-    axis for a batched launch); returns its ChunkWork."""
+    axis for a batched launch), or on (u, q, s) and ``prev`` themselves;
+    returns its ChunkWork."""
     lib = _lib()
     L, nx, ny = u.shape[-3:]
     wk = ChunkWork((u, q, s), (q, s), scal, n_scal,
-                   lib.prost_ml_num_blocks(nx, ny))
+                   lib.prost_ml_num_blocks(nx, ny), prev=prev)
     # 1/L and sqrt(1/L) rounded once from double, as the plain version
     # rounds its Python constants
     launch(lib, fn, what, launch_counts, u.device, wk.buffers(f), L, nx, ny,
@@ -253,6 +270,37 @@ def ml_chunk(u, q, s, f, scal, count: int):
         return ml_chunk_plain(u, q, s, f, scal, count)
     return _launch("prost_ml_chunk", "ml_chunk", u, q, s, f, scal, 5,
                    int(count)).outputs()
+
+
+def ml_chunk_halo(u, q, s, f, scal, count: int, nx_global: int):
+    """``ml_chunk`` on one halo-extended shard of a row-partitioned plane
+    of ``nx_global`` rows.
+
+    u, f: (L, nxb, ny); q: (2L, nxb, ny); s: (nxb, ny), the shard's rows in
+    the middle and its neighbours' halo rows (zeros beyond the plane) above
+    and below; scal: [tau, sigma, theta, radius, d_s, row_offset, own_lo,
+    own_hi] (+ an optional converged flag), row_offset the global row of
+    local row 0 and [own_lo, own_hi) the owned local rows.  Returns the
+    tuple of ``ml_chunk``, norms2 over the owned rows only.  CPU tensors
+    run the plain version; CUDA tensors launch the kernel."""
+    return halo_copy(ml_chunk_halo_, (u, q, s), f, scal, count, nx_global)
+
+
+def ml_chunk_halo_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
+                   nx_global: int):
+    """``ml_chunk_halo`` in place, on the sharded route's persistent
+    buffers: (u, q, s) advance by ``count`` iterations and the previous
+    buffers take the iterate before the aligned one; with the converged
+    flag set nothing changes.  Returns norms2."""
+    _check(u, q, s, f, scal, N_HALO_SCAL, count)
+    check_halo(nx_global, (u, q, s), (u_prev, q_prev, s_prev))
+    if u.device.type == "cpu":
+        return halo_into((u, q, s), (u_prev, q_prev, s_prev),
+                         ml_chunk_halo_plain(u, q, s, f, scal, count,
+                                             nx_global), scal)
+    return _launch("prost_ml_chunk_halo", "ml_chunk_halo", u, q, s, f, scal,
+                   N_HALO_SCAL, int(nx_global), int(count),
+                   prev=(u_prev, q_prev, s_prev)).outputs()[-1]
 
 
 def ml_chunk_batched(u, q, s, f, scal, count: int):

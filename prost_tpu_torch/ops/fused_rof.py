@@ -17,7 +17,10 @@ Three kernels carry the ROF routes, each a hand-written CUDA kernel set in
   device between chunks;
 * ``rof_chunk_batched`` (JAX ``rof_fused_chunk_batched``, and its banded
   variant for large instances): one chunk for each of B instances in one
-  launch sequence, the batched ensembles' route (``parallel/ensemble.py``).
+  launch sequence, the batched ensembles' route (``parallel/ensemble.py``);
+* ``rof_chunk_halo`` (JAX ``rof_fused_chunk_halo``): one chunk on a
+  halo-extended shard of a row-partitioned plane, the spatially sharded
+  route's (``parallel/spatial_fused.py``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no other route and no fallback:
@@ -46,12 +49,13 @@ from .fused_deblur import fused_deblur_run, match_deblur_structure
 from .fused_multilabel import fused_ml_run, match_multilabel_structure
 from .fused_tight import fused_tight_run, match_tight_structure
 from .fused_vol import fused_vol_run, match_vol_structure
-from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, ball_scale,
-                         canonical_duals, check_buffers, chunk_state,
-                         dual_ball_radius, dx, dxt, dy, dyt, entry_converged,
-                         launch, match_dataterm, multichunk_plain,
-                         multichunk_state, pdhg_adapt_consts,
-                         project_dead_dual, run_pdhg_route, typed_lib,
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, STEPSIZES, VP, WHOLE_PLANE,
+                         ChunkWork, ball_scale, canonical_duals,
+                         check_buffers, check_halo, chunk_state,
+                         dual_ball_radius, dx, dy, dyt, entry_converged,
+                         halo_copy, halo_into, halo_scal_rows, launch,
+                         match_dataterm, multichunk_plain, multichunk_state,
+                         pdhg_adapt_consts, run_pdhg_route, typed_lib,
                          vmap_plain)
 from .phases import K_CHUNKS
 
@@ -62,7 +66,7 @@ DATATERMS = {"square": 0, "wsquare": 1, "abs": 2}
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
 launch_counts = {"rof_chunk": 0, "rof_multichunk": 0,
-                 "rof_chunk_batched": 0}
+                 "rof_chunk_batched": 0, "rof_chunk_halo": 0}
 
 
 def reset_launch_counts() -> None:
@@ -86,19 +90,20 @@ def _hoist_dataterm(f, w, tau, lmb, dataterm: str):
 
 
 def _rof_update(x, qx, qy, gx, gy, dt0, dt1, tau, sig_p, sig_t, radius,
-                dataterm: str):
+                dataterm: str, rows=WHOLE_PLANE):
     """One preconditioned PDHG update.  tau arrives pre-multiplied by
     Tau = 1/4; sig_p = sigma*Sigma*(1+theta), sig_t = sigma*Sigma*theta;
-    (gx, gy) is grad(x) carried from the previous iteration.  Returns the
-    new state, the new gradient planes and K^T of the old dual."""
-    kty = dxt(qx) + dyt(qy)
+    (gx, gy) is grad(x) carried from the previous iteration; ``rows`` the
+    planes' ``RowOps``.  Returns the new state, the new gradient planes and
+    K^T of the old dual."""
+    kty = rows.dxt(qx) + dyt(qy)
     arg = x - tau * kty
     if dataterm in ("square", "wsquare"):
         x_new = (arg + dt0) * dt1
     else:  # abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
         d = arg - dt0
         x_new = arg - torch.minimum(torch.maximum(d, -dt1), dt1)
-    gx_new = dx(x_new)
+    gx_new = rows.dx(x_new)
     gy_new = dy(x_new)
     ax = qx + sig_p * gx_new - sig_t * gx
     ay = qy + sig_p * gy_new - sig_t * gy
@@ -107,11 +112,13 @@ def _rof_update(x, qx, qy, gx, gy, dt0, dt1, tau, sig_p, sig_t, radius,
 
 
 def _chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, qx0, qy0, f, w,
-                count: int, dataterm: str, g0=None, return_g=False):
+                count: int, dataterm: str, g0=None, return_g=False,
+                rows=WHOLE_PLANE):
     """One residual_iter-sized chunk: ``count - 1`` plain iterations, then
     the aligned iteration with its four preconditioned residual norms
     (squared).  ``g0`` seeds the carried gradient (a previous chunk's
-    grad(x2)); ``return_g`` also returns grad(x2).
+    grad(x2)); ``return_g`` also returns grad(x2); ``rows`` is the planes'
+    ``RowOps`` (a halo-extended shard's: owned-row norms).
 
     Returns (x2, qx2, qy2, x_prev, qx_prev, qy_prev, (n0, n1, n2, n3)
     [, (gx2, gy2)])."""
@@ -121,17 +128,19 @@ def _chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, qx0, qy0, f, w,
     sig_t = sigma_p * theta
     dt0, dt1 = _hoist_dataterm(f, w if dataterm == "wsquare" else None, tau,
                                lmb, dataterm)
-    qx, qy = project_dead_dual(qx0, qy0)
+    qx, qy = rows.project(qx0, qy0)
     x = x0
-    gx, gy = (dx(x0), dy(x0)) if g0 is None else g0
+    gx, gy = (rows.dx(x0), dy(x0)) if g0 is None else g0
     for _ in range(count - 1):
         x, qx, qy, gx, gy, _ = _rof_update(x, qx, qy, gx, gy, dt0, dt1, tau,
-                                           sig_p, sig_t, radius, dataterm)
+                                           sig_p, sig_t, radius, dataterm,
+                                           rows)
     gxp, gyp = gx, gy
     # aligned iteration; (gxp, gyp) is grad(x_prev) carried for free
     x2, qx2, qy2, gx2, gy2, ktyp = _rof_update(
-        x, qx, qy, gxp, gyp, dt0, dt1, tau, sig_p, sig_t, radius, dataterm)
-    kty2 = dxt(qx2) + dyt(qy2)
+        x, qx, qy, gxp, gyp, dt0, dt1, tau, sig_p, sig_t, radius, dataterm,
+        rows)
+    kty2 = rows.dxt(qx2) + dyt(qy2)
 
     inv_s = 1.0 / (sigma_raw * _SQRT_S)
     zh_x = (qx - qx2) * inv_s + _SQRT_S * ((1.0 + theta) * gx2 - theta * gxp)
@@ -141,28 +150,39 @@ def _chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, qx0, qy0, f, w,
     wh = (x - x2) * (1.0 / (tau_raw * _SQRT_T)) - _SQRT_T * ktyp
     dd = wh + _SQRT_T * kty2
 
+    nsum = rows.nsum
     norms = (
-        torch.sum(pd_x * pd_x) + torch.sum(pd_y * pd_y),
-        torch.sum(zh_x * zh_x) + torch.sum(zh_y * zh_y),
-        torch.sum(dd * dd),
-        torch.sum(wh * wh),
+        nsum(pd_x * pd_x) + nsum(pd_y * pd_y),
+        nsum(zh_x * zh_x) + nsum(zh_y * zh_y),
+        nsum(dd * dd),
+        nsum(wh * wh),
     )
     if return_g:
         return x2, qx2, qy2, x, qx, qy, norms, (gx2, gy2)
     return x2, qx2, qy2, x, qx, qy, norms
 
 
-def rof_chunk_plain(x, q, f, w, scal, count: int, dataterm: str = "square"):
-    """Plain PyTorch version of ``rof_chunk`` (any device)."""
+def rof_chunk_plain(x, q, f, w, scal, count: int, dataterm: str = "square",
+                    rows=WHOLE_PLANE, n_scal: int = 5):
+    """Plain PyTorch version of ``rof_chunk`` (any device); with
+    ``rows`` and ``n_scal`` that of a halo chunk."""
     x2, qx2, qy2, xp, qxp, qyp, norms = _chunk_core(
         scal[0], scal[1], scal[2], scal[3], scal[4], x, q[0], q[1], f, w,
-        int(count), dataterm)
+        int(count), dataterm, rows=rows)
     q2, qp = torch.stack([qx2, qy2]), torch.stack([qxp, qyp])
     n2 = torch.stack(norms)
-    conv = entry_converged(scal, 5)
+    conv = entry_converged(scal, n_scal)
     return (torch.where(conv, x, x2), torch.where(conv, q, q2),
             torch.where(conv, x, xp), torch.where(conv, q, qp),
             torch.where(conv, torch.zeros_like(n2), n2))
+
+
+def rof_chunk_halo_plain(x, q, f, w, scal, count: int, nx_global: int,
+                         dataterm: str = "square"):
+    """Plain PyTorch version of ``rof_chunk_halo`` (any device; reads the
+    row context of ``scal`` on the host)."""
+    return rof_chunk_plain(x, q, f, w, scal, count, dataterm,
+                           halo_scal_rows(scal, nx_global), N_HALO_SCAL)
 
 
 def rof_chunk_batched_plain(x, q, f, w, scal, count: int,
@@ -222,6 +242,7 @@ def _lib():
     return typed_lib("fused_rof", "prost_rof_num_blocks", {
         "prost_rof_chunk": [VP] * 10 + [CI] * 4 + [VP],
         "prost_rof_chunk_batched": [VP] * 10 + [CI] * 5 + [VP],
+        "prost_rof_chunk_halo": [VP] * 10 + [CI] * 5 + [VP],
         "prost_rof_multichunk": [VP] * 10 + [CI] * 6 + [CF] * 6 + [VP]})
 
 
@@ -242,6 +263,44 @@ def rof_chunk(x, q, f, w, scal, count: int, dataterm: str = "square"):
     launch(lib, "prost_rof_chunk", "rof_chunk", launch_counts, x.device,
            wk.buffers(f, w), nx, ny, int(count), DATATERMS[dataterm])
     return wk.outputs()
+
+
+def rof_chunk_halo(x, q, f, w, scal, count: int, nx_global: int,
+                   dataterm: str = "square"):
+    """``rof_chunk`` on one halo-extended shard of a row-partitioned plane
+    of ``nx_global`` rows.
+
+    x, f, w: (nxb, ny) with the shard's rows in the middle and the halo
+    rows of its neighbours (zeros beyond the plane) above and below; q:
+    (2, nxb, ny); scal: [tau, sigma, theta, lmb, radius, row_offset,
+    own_lo, own_hi] (+ an optional converged flag), row_offset the global
+    row of local row 0 and [own_lo, own_hi) the owned local rows.  Returns
+    (x2, q2, x_prev, q_prev, norms2) like ``rof_chunk``, norms2 over the
+    owned rows only; the rows outside them are not the solution's.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel."""
+    return halo_copy(rof_chunk_halo_, (x, q), f, w, scal, count, nx_global,
+                     dataterm)
+
+
+def rof_chunk_halo_(x, q, x_prev, q_prev, f, w, scal, count: int,
+                    nx_global: int, dataterm: str = "square"):
+    """``rof_chunk_halo`` in place, on the sharded route's persistent
+    buffers: (x, q) advance by ``count`` iterations and (x_prev, q_prev)
+    take the iterate before the aligned one; with the converged flag set
+    nothing changes.  Returns norms2."""
+    _check(x, q, f, w, scal, N_HALO_SCAL, count, dataterm)
+    check_halo(nx_global, (x, q), (x_prev, q_prev))
+    if x.device.type == "cpu":
+        return halo_into((x, q), (x_prev, q_prev), rof_chunk_halo_plain(
+            x, q, f, w, scal, count, nx_global, dataterm), scal)
+    lib = _lib()
+    nx, ny = x.shape
+    wk = ChunkWork((x, q), (q,), scal, N_HALO_SCAL,
+                   lib.prost_rof_num_blocks(nx, ny), prev=(x_prev, q_prev))
+    launch(lib, "prost_rof_chunk_halo", "rof_chunk_halo", launch_counts,
+           x.device, wk.buffers(f, w), nx, ny, int(nx_global), int(count),
+           DATATERMS[dataterm])
+    return wk.outputs()[-1]
 
 
 def rof_chunk_batched(x, q, f, w, scal, count: int,

@@ -20,7 +20,10 @@ Three kernels carry the volumetric routes, hand-written CUDA in
   device between chunks;
 * ``vol_chunk_batched`` (JAX ``vol_fused_chunk_batched``): one chunk for
   each of B volumes in one launch sequence, the batched ensembles' route
-  (``parallel/ensemble.py``).
+  (``parallel/ensemble.py``);
+* ``vol_chunk_halo`` (JAX ``vol_fused_chunk_halo``): one chunk on a
+  halo-extended shard of the nx axis, the spatially sharded route's
+  (``parallel/spatial_fused.py``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no fallback and no VMEM gate: the
@@ -45,12 +48,13 @@ from ..backend.pdhg import PDHGState
 from ..config import ProstError, dtype as config_dtype
 from ..linop.base import LinearOperator
 from ..linop.gradient import BlockGradient3D
-from .pdhg_chunk import (CF, CI, STEPSIZES, VP, ChunkWork, ball_scale,
-                         canonical_duals, check_buffers, chunk_state,
-                         dual_ball_radius, dx, dxt, dy, dyt, entry_converged,
-                         launch, match_dataterm, multichunk_plain,
-                         multichunk_state, project_dead_dual, run_pdhg_route,
-                         typed_lib, vmap_plain)
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, STEPSIZES, VP, WHOLE_PLANE,
+                         ChunkWork, ball_scale, canonical_duals,
+                         check_buffers, check_halo, chunk_state,
+                         dual_ball_radius, dx, dy, dyt, entry_converged,
+                         halo_copy, halo_into, halo_scal_rows, launch,
+                         match_dataterm, multichunk_plain, multichunk_state,
+                         run_pdhg_route, typed_lib, vmap_plain)
 from .phases import K_CHUNKS
 
 _SQRT_S = 0.7071067811865476  # sqrt(Sigma) = sqrt(1/2)
@@ -60,7 +64,7 @@ DATATERMS = {"square": 0, "wsquare": 1, "abs": 2}
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
 launch_counts = {"vol_chunk": 0, "vol_multichunk": 0,
-                 "vol_chunk_batched": 0}
+                 "vol_chunk_batched": 0, "vol_chunk_halo": 0}
 
 
 def reset_launch_counts() -> None:
@@ -84,20 +88,20 @@ def dlt(p):
 
 
 def _vol_update(u, qx, qy, ql, gx, gy, gl, dt0, dt1, tau, sig_p, sig_t,
-                radius, dataterm: str):
+                radius, dataterm: str, rows=WHOLE_PLANE):
     """One preconditioned PDHG update (JAX ``_vol_update``).  tau arrives
     pre-multiplied by Tau = 1/6; sig_p = sigma*Sigma*(1+theta), sig_t =
     sigma*Sigma*theta; (gx, gy, gl) is grad3(u) carried from the previous
-    iteration.  Returns the new state, the new gradient volumes and K^T of
-    the old dual."""
-    kty = dxt(qx) + dyt(qy) + dlt(ql)
+    iteration; ``rows`` is the volume's ``RowOps`` along nx.  Returns the
+    new state, the new gradient volumes and K^T of the old dual."""
+    kty = rows.dxt(qx) + dyt(qy) + dlt(ql)
     arg = u - tau * kty
     if dataterm in ("square", "wsquare"):
         u_new = (arg + dt0) * dt1
     else:  # abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
         d = arg - dt0
         u_new = arg - torch.minimum(torch.maximum(d, -dt1), dt1)
-    gx_n, gy_n, gl_n = dx(u_new), dy(u_new), dl(u_new)
+    gx_n, gy_n, gl_n = rows.dx(u_new), dy(u_new), dl(u_new)
     ax = qx + sig_p * gx_n - sig_t * gx
     ay = qy + sig_p * gy_n - sig_t * gy
     al = ql + sig_p * gl_n - sig_t * gl
@@ -107,12 +111,13 @@ def _vol_update(u, qx, qy, ql, gx, gy, gl, dt0, dt1, tau, sig_p, sig_t,
 
 
 def _vol_chunk_core(tau_raw, sigma_raw, theta, lmb, radius, u0, q0, f, w,
-                    count: int, dataterm: str, g0=None):
+                    count: int, dataterm: str, g0=None, rows=WHOLE_PLANE):
     """One residual_iter-sized chunk (JAX ``_vol_chunk_core``, whole
     volume): ``count - 1`` plain iterations, then the aligned iteration with
     its four preconditioned residual norms (squared), each the sum of its
     x, y and label terms as three whole-volume sums.  ``g0`` seeds the
-    carried gradient (a previous chunk's grad3(u2)).
+    carried gradient (a previous chunk's grad3(u2)); ``rows`` is the
+    volume's ``RowOps`` along nx (a halo-extended shard's: owned-row norms).
 
     Returns (u2, q2, u_prev, q_prev, (n0, n1, n2, n3), (gx2, gy2, gl2))."""
     tau = tau_raw * (1.0 / 6.0)  # tau * Tau
@@ -126,11 +131,11 @@ def _vol_chunk_core(tau_raw, sigma_raw, theta, lmb, radius, u0, q0, f, w,
         dt0, dt1 = tw * f, 1.0 / (1.0 + tw)
     else:
         dt0, dt1 = f, tau * lmb
-    qx, qy = project_dead_dual(q0[0], q0[1])
+    qx, qy = rows.project(q0[0], q0[1])
     ql = q0[2]
     u = u0
-    gx, gy, gl = (dx(u0), dy(u0), dl(u0)) if g0 is None else g0
-    args = (tau, sig_p, sig_t, radius, dataterm)
+    gx, gy, gl = (rows.dx(u0), dy(u0), dl(u0)) if g0 is None else g0
+    args = (tau, sig_p, sig_t, radius, dataterm, rows)
     for _ in range(count - 1):
         u, qx, qy, ql, gx, gy, gl, _ = _vol_update(u, qx, qy, ql, gx, gy, gl,
                                                    dt0, dt1, *args)
@@ -138,7 +143,7 @@ def _vol_chunk_core(tau_raw, sigma_raw, theta, lmb, radius, u0, q0, f, w,
     # aligned iteration; (gxp, gyp, glp) is grad3(u_prev) carried for free
     u2, qx2, qy2, ql2, gx2, gy2, gl2, ktyp = _vol_update(
         u, qx, qy, ql, gxp, gyp, glp, dt0, dt1, *args)
-    kty2 = dxt(qx2) + dyt(qy2) + dlt(ql2)
+    kty2 = rows.dxt(qx2) + dyt(qy2) + dlt(ql2)
 
     inv_s = 1.0 / (sigma_raw * _SQRT_S)
     zh_x = (qx - qx2) * inv_s + _SQRT_S * ((1.0 + theta) * gx2 - theta * gxp)
@@ -151,7 +156,7 @@ def _vol_chunk_core(tau_raw, sigma_raw, theta, lmb, radius, u0, q0, f, w,
     dd = wh + _SQRT_T * kty2
 
     def ssq(a):
-        return torch.sum(a * a)
+        return rows.nsum(a * a)
 
     norms = (ssq(pd_x) + ssq(pd_y) + ssq(pd_l),
              ssq(zh_x) + ssq(zh_y) + ssq(zh_l),
@@ -160,16 +165,26 @@ def _vol_chunk_core(tau_raw, sigma_raw, theta, lmb, radius, u0, q0, f, w,
             norms, (gx2, gy2, gl2))
 
 
-def vol_chunk_plain(u, q, f, w, scal, count: int, dataterm: str = "square"):
-    """Plain PyTorch version of ``vol_chunk`` (any device)."""
+def vol_chunk_plain(u, q, f, w, scal, count: int, dataterm: str = "square",
+                    rows=WHOLE_PLANE, n_scal: int = 5):
+    """Plain PyTorch version of ``vol_chunk`` (any device); with ``rows``
+    and ``n_scal`` that of a halo chunk."""
     u2, q2, up, qp, norms, _ = _vol_chunk_core(
         scal[0], scal[1], scal[2], scal[3], scal[4], u, q, f, w, int(count),
-        dataterm)
+        dataterm, rows=rows)
     n2 = torch.stack(norms)
-    conv = entry_converged(scal, 5)
+    conv = entry_converged(scal, n_scal)
     return (torch.where(conv, u, u2), torch.where(conv, q, q2),
             torch.where(conv, u, up), torch.where(conv, q, qp),
             torch.where(conv, torch.zeros_like(n2), n2))
+
+
+def vol_chunk_halo_plain(u, q, f, w, scal, count: int, nx_global: int,
+                         dataterm: str = "square"):
+    """Plain PyTorch version of ``vol_chunk_halo`` (any device; reads the
+    row context of ``scal`` on the host)."""
+    return vol_chunk_plain(u, q, f, w, scal, count, dataterm,
+                           halo_scal_rows(scal, nx_global), N_HALO_SCAL)
 
 
 def vol_chunk_batched_plain(u, q, f, w, scal, count: int,
@@ -228,6 +243,7 @@ def _lib():
     return typed_lib("fused_vol", "prost_vol_num_blocks", {
         "prost_vol_chunk": [VP] * 10 + [CI] * 5 + [VP],
         "prost_vol_chunk_batched": [VP] * 10 + [CI] * 6 + [VP],
+        "prost_vol_chunk_halo": [VP] * 10 + [CI] * 6 + [VP],
         "prost_vol_multichunk": [VP] * 10 + [CI] * 7 + [CF] * 6 + [VP]})
 
 
@@ -248,6 +264,44 @@ def vol_chunk(u, q, f, w, scal, count: int, dataterm: str = "square"):
     launch(lib, "prost_vol_chunk", "vol_chunk", launch_counts, u.device,
            wk.buffers(f, w), L, nx, ny, int(count), DATATERMS[dataterm])
     return wk.outputs()
+
+
+def vol_chunk_halo(u, q, f, w, scal, count: int, nx_global: int,
+                   dataterm: str = "square"):
+    """``vol_chunk`` on one halo-extended shard of the nx axis of a volume
+    of ``nx_global`` rows.
+
+    u, f, w: (L, nxb, ny); q: (3, L, nxb, ny), the shard's rows in the
+    middle and its neighbours' halo rows (zeros beyond the volume) above
+    and below; scal: [tau, sigma, theta, lmb, radius, row_offset, own_lo,
+    own_hi] (+ an optional converged flag), row_offset the global row of
+    local row 0 and [own_lo, own_hi) the owned local rows.  Returns the
+    tuple of ``vol_chunk``, norms2 over the owned rows only.  The label
+    axis keeps its Dirichlet ends.  CPU tensors run the plain version;
+    CUDA tensors launch the kernel."""
+    return halo_copy(vol_chunk_halo_, (u, q), f, w, scal, count, nx_global,
+                     dataterm)
+
+
+def vol_chunk_halo_(u, q, u_prev, q_prev, f, w, scal, count: int,
+                    nx_global: int, dataterm: str = "square"):
+    """``vol_chunk_halo`` in place, on the sharded route's persistent
+    buffers: (u, q) advance by ``count`` iterations and (u_prev, q_prev)
+    take the iterate before the aligned one; with the converged flag set
+    nothing changes.  Returns norms2."""
+    _check(u, q, f, w, scal, N_HALO_SCAL, count, dataterm)
+    check_halo(nx_global, (u, q), (u_prev, q_prev))
+    if u.device.type == "cpu":
+        return halo_into((u, q), (u_prev, q_prev), vol_chunk_halo_plain(
+            u, q, f, w, scal, count, nx_global, dataterm), scal)
+    lib = _lib()
+    L, nx, ny = u.shape
+    wk = ChunkWork((u, q), (q,), scal, N_HALO_SCAL,
+                   lib.prost_vol_num_blocks(nx, ny), prev=(u_prev, q_prev))
+    launch(lib, "prost_vol_chunk_halo", "vol_chunk_halo", launch_counts,
+           u.device, wk.buffers(f, w), L, nx, ny, int(nx_global), int(count),
+           DATATERMS[dataterm])
+    return wk.outputs()[-1]
 
 
 def vol_chunk_batched(u, q, f, w, scal, count: int,

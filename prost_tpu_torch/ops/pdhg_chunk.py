@@ -8,6 +8,11 @@ volumetric TV (``ops/fused_vol.py``): the Python side of
 * the plain versions' stencils, dead-dual projection and ball scale, which
   act on the last two axes (nx, ny) of one plane or of a stack of label
   planes, and the canonicalization of a state's duals;
+* ``RowOps``, the row stencils, dead-dual projection and norm sum of a
+  chunk's planes: the whole plane, or one halo-extended shard of a
+  row-partitioned plane (``halo_row_ops``, the plain side of the row
+  context of ``csrc/pdhg_chunk.cuh`` and of the JAX package's
+  ``_shift_ops`` with a row offset);
 * the structure matchers' readings of data terms, prox coefficients and
   preconditioner segments;
 * ``adapt_scalars``, the multichunk's adaptation and stopping test, and the
@@ -31,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from typing import Callable
 
 import torch
 
@@ -45,6 +51,9 @@ STEPSIZES = {"alg1": 0, "goldstein": 1, "boyd": 2}
 
 # slots of the kernels' device scalar buffer (csrc/pdhg_chunk.cuh, enum S_*)
 S_CONV, S_DONE, S_NORM, S_LEN = 13, 14, 15, 19
+# a halo chunk's scal8: the family's five scalars, then the row context
+# (row_offset, own_lo, own_hi) in slots S_ROW_OFF .. S_OWN_HI
+N_HALO_SCAL = 8
 SOUT = (0, 1, 5, 6, 7, S_CONV, S_DONE)  # tau sigma aa arb_l arb_u conv done
 # instances of a batched launch: the grid's z axis (csrc/pdhg_chunk.cuh)
 MAX_BATCH = 65535
@@ -97,6 +106,67 @@ def dead_dual_flat(yf, L: int, nx: int, ny: int):
     q = yf[:n2].reshape(2, L, nx, ny)
     qx, qy = project_dead_dual(q[0], q[1])
     return torch.cat([qx.reshape(-1), qy.reshape(-1), yf[n2:]])
+
+
+@dataclasses.dataclass(frozen=True)
+class RowOps:
+    """The parts of a chunk's math that depend on where its rows lie in
+    the global plane: the row forward difference ``dx`` and its adjoint
+    ``dxt``, the dead-dual projection ``project`` (q_x's global last row,
+    q_y's last column) and the norms' sum ``nsum``."""
+
+    dx: Callable
+    dxt: Callable
+    project: Callable
+    nsum: Callable
+
+
+WHOLE_PLANE = RowOps(dx, dxt, project_dead_dual, torch.sum)
+
+
+def halo_row_ops(row_offset: int, nx_global: int, own_lo: int,
+                 own_hi: int) -> RowOps:
+    """``RowOps`` of one halo-extended shard of a plane of ``nx_global``
+    rows whose local row 0 is global row ``row_offset``: a row neighbour is
+    read only where the local and the global row both have one (the
+    Neumann boundary lies at global rows 0 and nx_global - 1, not at the
+    shard's edges), q_x is dead on the global last row, and the norms sum
+    the owned local rows [own_lo, own_hi).  With (0, nx, 0, nx) this is
+    ``WHOLE_PLANE``, value for value."""
+    def rows(a):
+        li = torch.arange(a.shape[-2], device=a.device)
+        return li, li + row_offset
+
+    def hdx(u):
+        li, gi = rows(u)
+        below = ((li < u.shape[-2] - 1) & (gi < nx_global - 1))[:, None]
+        return torch.where(below, torch.roll(u, -1, -2) - u, 0.0)
+
+    def hdxt(p):
+        li, gi = rows(p)
+        above = ((li > 0) & (gi > 0))[:, None]
+        return torch.where(above, torch.roll(p, 1, -2), 0.0) - p
+
+    def project(qx, qy):
+        _, gi = rows(qx)
+        qx = torch.where((gi == nx_global - 1)[:, None], 0.0, qx)
+        qy = qy.clone()
+        qy[..., -1] = 0.0
+        return qx, qy
+
+    def nsum(v):
+        li, _ = rows(v)
+        return torch.sum(torch.where(((li >= own_lo) & (li < own_hi))[:, None],
+                                     v, 0.0))
+
+    return RowOps(hdx, hdxt, project, nsum)
+
+
+def halo_scal_rows(scal, nx_global: int) -> RowOps:
+    """``halo_row_ops`` from a halo chunk's scal8 (its row context read on
+    the host: the plain versions only)."""
+    off, lo, hi = (int(v) for v in scal[5:N_HALO_SCAL].tolist())
+    return halo_row_ops(off, int(nx_global), lo, hi)
 
 
 def ball_scale(nn, radius):
@@ -392,6 +462,46 @@ def typed_lib(name: str, num_blocks: str, signatures: dict):
     return lib
 
 
+def check_halo(nx_global: int, state=(), prev=()) -> None:
+    """A halo chunk wrapper's checks: its global row count (the row
+    context itself stays on the device) and, for the in-place form, its
+    ``state`` and ``prev`` buffers, contiguous and of one shape each."""
+    if int(nx_global) < 2:
+        raise ProstError(f"nx_global must be >= 2, got {nx_global}.")
+    for a, b in zip(state, prev):
+        if b.shape != a.shape or b.device != a.device:
+            raise ProstError(f"A previous-iterate buffer must be "
+                             f"{tuple(a.shape)} on {a.device}, got "
+                             f"{tuple(b.shape)} on {b.device}.")
+        if not (a.is_contiguous() and b.is_contiguous()):
+            raise ProstError("An in-place halo chunk takes contiguous "
+                             "buffers only.")
+
+
+def halo_into(state, prev, out, scal):
+    """An in-place halo chunk from its plain version's outputs ``out``
+    (the state, the previous iterate, the norms): ``state`` takes the new
+    iterate and ``prev`` the previous one, except where the converged flag
+    is set, which leaves ``prev`` as it was.  Returns the squared norms."""
+    conv = entry_converged(scal, N_HALO_SCAL)
+    k = len(state)
+    for t, v in zip(state, out[:k]):
+        t.copy_(v)
+    for t, v in zip(prev, out[k:2 * k]):
+        t.copy_(torch.where(conv, t, v))
+    return out[-1]
+
+
+def halo_copy(inplace, state, *args):
+    """The functional form of the in-place halo chunk ``inplace`` on the
+    ``state`` planes: it works on copies and returns (state, previous
+    iterate, norms2), the previous iterate the state where nothing ran."""
+    new = [t.contiguous().clone() for t in state]
+    prev = [t.clone() for t in new]
+    norms2 = inplace(*new, *prev, *args)
+    return (*new, *prev, norms2)
+
+
 def check_buffers(kind: str, shapes, scal, n_scal: int,
                   batch: int | None = None) -> None:
     """The checks every chunk wrapper makes after its own: each (name,
@@ -461,11 +571,17 @@ class ChunkWork:
     back), the previous iterate's, two carried planes (this iterate's and
     the previous one's) for each of ``carried``, the scalar buffer and the
     norm partials of ``nblocks`` blocks, for each instance of a batched
-    call (a (n, B) ``scal``)."""
+    call (a (n, B) ``scal``).  Given ``prev``, the call works on the
+    caller's buffers instead: ``state`` and ``prev`` themselves (an
+    in-place halo chunk; nothing changes when nothing runs)."""
 
-    def __init__(self, state, carried, scal, n_scal: int, nblocks: int):
-        self.state = [t.contiguous().clone() for t in state]
-        self.prev = [t.clone() for t in self.state]
+    def __init__(self, state, carried, scal, n_scal: int, nblocks: int,
+                 prev=None):
+        if prev is None:
+            self.state = [t.contiguous().clone() for t in state]
+            self.prev = [t.clone() for t in self.state]
+        else:
+            self.state, self.prev = list(state), list(prev)
         self.carried = [torch.empty(t.shape, dtype=torch.float32,
                                     device=t.device)
                         for t in carried for _ in range(2)]

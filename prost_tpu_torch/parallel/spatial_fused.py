@@ -1,0 +1,304 @@
+"""Halo-exchange sharded fused PDHG (counterpart of
+``prost_tpu/parallel/spatial_fused.py``, its ROF, fast-multilabel and
+volumetric-TV routes).
+
+``ShardedPDHG`` (spatial.py) leaves the communication to DTensor, which
+gathers or exchanges on every stencil of every iteration.  These routes
+schedule it by hand for matched structures, the classic stencil-halo
+design:
+
+* the pixel rows (the nx axis) are partitioned over the mesh axis; each
+  rank holds its ``rows = nx / S`` rows of every plane in a persistent
+  buffer of ``rows + 2 H`` rows, its own rows in the middle;
+* before each residual_iter-sized chunk, ``HaloExchange.extend_`` sends
+  the rank's first and last ``H = 2 * ri + 2`` owned rows to its ring
+  neighbours and receives theirs straight into its top and bottom ``H``
+  rows (an edge rank's outer halo is zeroed: ``ppermute``'s semantics);
+* each rank runs the halo chunk kernel in place on its buffers
+  (``rof_chunk_halo_``, ``ml_chunk_halo_``, ``vol_chunk_halo_``),
+  recomputing the halo rows redundantly: information moves at most one
+  row per half-step, so the owned rows come out as the whole-plane
+  kernel's, bit for bit (the row masks use global rows);
+* the kernel's residual norms cover the owned rows only, so one 4-float
+  ``all_reduce`` per chunk gives the global norms (in another order of
+  summation than one card's, so a long run may take another boyd decision
+  after a one-ulp difference), and the step adaptation and the stopping
+  test run on them on every rank alike (``chunk_state``).
+
+Communication per chunk: two exchanges of H rows of the state planes (x,
+q_x, q_y for ROF; u, q, s for multilabel; u, q for volumetric TV) with
+each neighbour and one all-reduce of 4 floats.  The JAX package also
+exchanges the data planes f (and w) every chunk; here every rank holds the
+whole problem, so each cuts its extended f and w once.  The planes enter
+the buffers once per ``run`` (at phase B) and leave once, where the
+epilogue refreshes kx and kty.  Phases A and C are ``ShardedPDHG``'s
+generic step.  There is no VMEM gate: a halo chunk takes a shard of any
+size, so the JAX package's banding within a shard has no counterpart.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
+
+from ..backend.pdhg import PDHGState
+from ..config import ProstError
+from ..ops.fused_multilabel import match_multilabel_structure, ml_chunk_halo_
+from ..ops.fused_rof import match_rof_structure, rof_chunk_halo_
+from ..ops.fused_vol import match_vol_structure, vol_chunk_halo_
+from ..ops.pdhg_chunk import chunk_state
+from ..ops.phases import run_phases
+from .spatial import ShardedPDHG, shard_state, whole
+
+
+class HaloExchange:
+    """The communication of one rank of a halo-sharded route over
+    ``group``: the halo exchange along axis -2 of extended buffers and the
+    all-reduce of the norms, with counts of calls and bytes (sent and
+    received by this rank) that the comm-volume test reads."""
+
+    def __init__(self, group, halo: int):
+        self.group = group
+        self.halo = int(halo)
+        rank, size = dist.get_rank(group), dist.get_world_size(group)
+        self.prev = dist.get_global_rank(group, rank - 1) if rank else None
+        self.next = (dist.get_global_rank(group, rank + 1)
+                     if rank < size - 1 else None)
+        self.counts = {"exchanges": 0, "sent_bytes": 0, "received_bytes": 0,
+                       "all_reduces": 0, "reduced_bytes": 0}
+
+    def extend_(self, buffers) -> None:
+        """Fill the top and bottom ``halo`` rows (axis -2) of each extended
+        buffer in place: the previous rank's last owned rows into the top,
+        the next rank's first owned rows into the bottom, zeros at an edge.
+        One message each way per neighbour carries every buffer's rows."""
+        H = self.halo
+        ops, recv = [], {}
+        for peer, send_rows in ((self.prev, slice(H, 2 * H)),
+                                (self.next, slice(-2 * H, -H))):
+            if peer is None:
+                continue
+            out = torch.cat([a[..., send_rows, :].reshape(-1)
+                             for a in buffers])
+            recv[peer] = torch.empty_like(out)
+            ops += [dist.P2POp(dist.isend, out, peer, self.group),
+                    dist.P2POp(dist.irecv, recv[peer], peer, self.group)]
+            self.counts["sent_bytes"] += out.numel() * out.element_size()
+            self.counts["received_bytes"] += out.numel() * out.element_size()
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        for peer, rows in ((self.prev, slice(0, H)),
+                           (self.next, slice(-H, None))):
+            at = 0
+            for a in buffers:
+                dst = a[..., rows, :]
+                if peer is None:
+                    dst.zero_()
+                    continue
+                dst.copy_(recv[peer][at:at + dst.numel()].view(dst.shape))
+                at += dst.numel()
+        self.counts["exchanges"] += 1
+
+    def all_reduce(self, t):
+        """The sum of ``t`` over the group (a new tensor)."""
+        t = t.clone()
+        dist.all_reduce(t, group=self.group)
+        self.counts["all_reduces"] += 1
+        self.counts["reduced_bytes"] += t.numel() * t.element_size()
+        return t
+
+
+def window(a, lo: int, hi: int):
+    """Rows ``lo .. hi - 1`` (axis -2) of ``a``, zeros where they lie
+    outside it."""
+    out = a.new_zeros(a.shape[:-2] + (hi - lo, a.shape[-1]))
+    a_lo, a_hi = max(lo, 0), min(hi, a.shape[-2])
+    out[..., a_lo - lo:a_hi - lo, :] = a[..., a_lo:a_hi, :]
+    return out
+
+
+class _HaloRoute(ShardedPDHG):
+    """The phase plan of a halo-sharded route on ``ShardedPDHG``'s state.
+    A subclass names its structure (``kind``, ``_match``), its planes
+    (``_planes``: flat x, y -> plane stacks with the rows on axis -2;
+    ``_flat``: back), the two scalars of its scal8 (``_consts``), its data
+    planes (``_data``) and its in-place halo chunk (``_chunk_halo``)."""
+
+    kind = ""
+
+    def __init__(self, problem, opts, solver_opts, mesh,
+                 axis_name: str = "sp"):
+        super().__init__(problem, opts, solver_opts, mesh, axis_name)
+        if opts.reference_residuals:
+            raise ProstError(
+                f"{self.kind}: the fused chunk kernels compute "
+                "consistent-mode residual norms; reference_residuals=True "
+                "requires the generic path (BackendPDHG / ShardedPDHG).")
+        if opts.stepsize == "alg2":
+            raise ProstError(f"{self.kind}: alg2 changes the step sizes "
+                             "every iteration, a chunk holds them fixed; "
+                             "use ShardedPDHG.")
+        self.m = self._match(problem)
+        if self.m is None:
+            raise ProstError(f"{self.kind}: problem does not match the "
+                             "fused structure; use ShardedPDHG for the "
+                             "generic sharded path.")
+        n_shards, rank = self.mesh.size(), self.mesh.get_local_rank()
+        nx = self.m["nx"]
+        self.ri = max(int(opts.residual_iter), 1)
+        self.halo = 2 * self.ri + 2
+        if nx % n_shards:
+            raise ProstError(f"{self.kind}: nx={nx} not divisible by "
+                             f"{n_shards} shards.")
+        self.rows = nx // n_shards
+        if self.rows < self.halo:
+            raise ProstError(
+                f"{self.kind}: shard height {self.rows} < halo {self.halo} "
+                "(= 2*residual_iter + 2); lower residual_iter or use fewer "
+                "shards.")
+        self.lo = rank * self.rows - self.halo
+        like = problem.scaling_left
+        # scal8's last three: row_offset, own_lo, own_hi
+        self.rows_t = [like.new_full((), float(v)) for v in
+                       (self.lo, self.halo, self.halo + self.rows)]
+        self.consts_t = [like.new_full((), float(self.m[k]))
+                         for k in self._consts]
+        # the data planes' extended blocks, cut once from the whole problem
+        self.data = tuple(self._window(self.m[k]) for k in self._data)
+        self.exchange = HaloExchange(self.mesh.get_group(), self.halo)
+
+    def _window(self, a):
+        return window(a, self.lo, self.lo + self.rows + 2 * self.halo)
+
+    def run(self, state: PDHGState, until_iter: int,
+            start_iter: int) -> PDHGState:
+        return run_phases(state, start_iter, until_iter, self.ri,
+                          1 % self.ri, self.generic_step, self._enter,
+                          self._chunk, epilogue=self._leave)
+
+    def _enter(self, s: PDHGState):
+        """Phase B's carry: the state and this rank's persistent extended
+        buffers of its planes and of the previous iterate's, which every
+        chunk updates in place."""
+        cur = self._planes(whole(s.x), whole(s.y))
+        prev = self._planes(whole(s.x_prev), whole(s.y_prev))
+        return (s, tuple(self._window(a) for a in cur),
+                tuple(self._window(a) for a in prev))
+
+    def _chunk(self, carry):
+        s, cur, prev = carry
+        self.exchange.extend_(cur)
+        scal = torch.stack([s.tau, s.sigma, s.theta, *self.consts_t,
+                            *self.rows_t, s.converged.to(s.tau.dtype)])
+        norms2 = self.exchange.all_reduce(self._chunk_halo(cur, prev, scal))
+        # the planes live in the buffers until _leave: the state's vectors
+        # stay as they are, its scalars take the chunk's residual step
+        s = chunk_state(self, s, self.ri, s.x, s.y, s.x_prev, s.y_prev,
+                        norms2)
+        return s, cur, prev
+
+    def _gather(self, a):
+        """The whole plane stack of this rank's extended buffer ``a``."""
+        own = a[..., self.halo:self.halo + self.rows, :].contiguous()
+        return DTensor.from_local(own, self.mesh,
+                                  [Shard(a.dim() - 2)]).full_tensor()
+
+    def _leave(self, carry) -> PDHGState:
+        """The state after phase B: the owned rows back into sharded
+        vectors, and the epilogue's kx, kty, kx_prev, kty_prev."""
+        s, cur, prev = carry
+        x, y = self._flat(*(self._gather(a) for a in cur))
+        xp, yp = self._flat(*(self._gather(a) for a in prev))
+        lin = self.problem.linop
+        s = dataclasses.replace(
+            s, x=x, y=y, x_prev=xp, y_prev=yp, kx=lin.apply(x),
+            kty=lin.apply_adjoint(y), kx_prev=lin.apply(xp),
+            kty_prev=lin.apply_adjoint(yp))
+        return shard_state(s, self.mesh)
+
+
+class ShardedFusedROF(_HaloRoute):
+    """Halo-sharded fused backend for matched ROF/TV structures
+    (``ops/fused_rof.py``): one exchange of x, q_x, q_y halo rows and one
+    4-float all-reduce per chunk around ``rof_chunk_halo``.  Requires
+    nx % S == 0 and nx / S >= 2 * residual_iter + 2; follows the
+    trajectory of ``FusedROFPDHG``'s ROF route up to the order of the norm
+    sums."""
+
+    kind = "ShardedFusedROF"
+    _consts = ("lmb", "radius")
+    _data = ("f", "w")
+
+    @staticmethod
+    def _match(problem):
+        return match_rof_structure(problem)
+
+    def _planes(self, x, y):
+        nx, ny = self.m["nx"], self.m["ny"]
+        return x.reshape(nx, ny), y.reshape(2, nx, ny)
+
+    def _flat(self, x, q):
+        return x.reshape(-1), q.reshape(-1)
+
+    def _chunk_halo(self, cur, prev, scal):
+        return rof_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
+                               self.m["nx"], self.m["dataterm"])
+
+
+class ShardedFusedMultilabel(_HaloRoute):
+    """Halo-sharded fused backend for the fast-multilabel structure
+    (``ops/fused_multilabel.py``): one exchange of the u, q and s halo rows
+    (3L + 1 planes) and one 4-float all-reduce per chunk around
+    ``ml_chunk_halo``."""
+
+    kind = "ShardedFusedMultilabel"
+    _consts = ("radius", "d_s")
+    _data = ("f",)
+
+    @staticmethod
+    def _match(problem):
+        return match_multilabel_structure(problem)
+
+    def _planes(self, x, y):
+        L, nx, ny = self.m["L"], self.m["nx"], self.m["ny"]
+        nq = 2 * L * nx * ny
+        return (x.reshape(L, nx, ny), y[:nq].reshape(2 * L, nx, ny),
+                y[nq:].reshape(nx, ny))
+
+    def _flat(self, u, q, s):
+        return u.reshape(-1), torch.cat([q.reshape(-1), s.reshape(-1)])
+
+    def _chunk_halo(self, cur, prev, scal):
+        return ml_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
+                              self.m["nx"])
+
+
+class ShardedFusedVol(_HaloRoute):
+    """Halo-sharded fused backend for the volumetric-TV structure
+    (``ops/fused_vol.py``): the nx axis of the (L, nx, ny) volume is
+    partitioned (the label axis keeps its Dirichlet ends on every rank);
+    one exchange of the u and q halo rows (4L planes) and one 4-float
+    all-reduce per chunk around ``vol_chunk_halo``."""
+
+    kind = "ShardedFusedVol"
+    _consts = ("lmb", "radius")
+    _data = ("f", "w")
+
+    @staticmethod
+    def _match(problem):
+        return match_vol_structure(problem)
+
+    def _planes(self, x, y):
+        L, nx, ny = self.m["L"], self.m["nx"], self.m["ny"]
+        return x.reshape(L, nx, ny), y.reshape(3, L, nx, ny)
+
+    def _flat(self, u, q):
+        return u.reshape(-1), q.reshape(-1)
+
+    def _chunk_halo(self, cur, prev, scal):
+        return vol_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
+                               self.m["nx"], self.m["dataterm"])

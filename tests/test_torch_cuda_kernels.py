@@ -1130,3 +1130,180 @@ def test_batched_deblur_tight_route_on_card_matches_cpu(dev, route):
         if a.is_floating_point():
             torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3,
                                        msg=f.name)
+
+
+# ---------------------------------------------------------------------------
+# the halo chunks (slice 8a): a halo-extended band of a row-partitioned
+# plane, zeros beyond its edges (what the halo exchange delivers); its
+# owned rows are the whole-plane kernel's, bit for bit (the same kernels,
+# the row masks on global rows), and the bands' owned-row norms sum to the
+# whole plane's in another order
+# ---------------------------------------------------------------------------
+
+# ragged cases: nx divisible by the 4 bands but not by the 8 rows of a
+# thread block, ny not by its 32 columns
+HALO_CASES = [("rof", 1, 188, 250, "abs"), ("rof", 1, 512, 512, "square"),
+              ("rof", 1, 188, 250, "wsquare"), ("ml", 5, 252, 190, None),
+              ("ml", 8, 256, 256, None), ("vol", 5, 188, 250, "wsquare"),
+              ("vol", 8, 256, 256, "square")]
+
+
+def _halo_planes(kind, L, nx, ny, seed, dev):
+    """Whole planes of ``kind``, the dead dual coordinates zero."""
+    rng = np.random.RandomState(seed)
+    lead = () if kind == "rof" else (L,)
+    nq = {"rof": (2,), "ml": (2 * L,), "vol": (3, L)}[kind]
+    u = rng.rand(*lead, nx, ny)
+    q = 0.3 * rng.randn(*nq, nx, ny)
+    qx, qy = (q[:L], q[L:]) if kind == "ml" else (q[0], q[1])
+    qx[..., -1, :] = 0.0
+    qy[..., -1] = 0.0
+    third = (0.1 * rng.randn(nx, ny) if kind == "ml"
+             else rng.rand(*lead, nx, ny))
+    last = (rng.rand(L, nx, ny) if kind == "ml"
+            else 2.0 * (rng.rand(*lead, nx, ny) > 0.3))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (u, q, third, last)]
+
+
+def _halo_head(kind):
+    return {"rof": [0.9, 1.1, 1.0, 8.0, 1.0], "ml": [0.9, 1.1, 1.0, 0.7, 0.3],
+            "vol": [0.9, 1.1, 1.0, 6.0, 1.0]}[kind]
+
+
+def _halo_call(kind, dataterm, planes, scal, ri, nxg=None, plain=False):
+    """The halo chunk (``nxg`` given) or the whole-plane chunk of ``kind``,
+    its kernel or its plain version."""
+    mod = {"rof": fr, "ml": fm, "vol": fv}[kind]
+    name = f"{kind}_chunk" + ("_halo" if nxg else "") + ("_plain" * plain)
+    extra = (nxg,) if nxg else ()
+    if kind != "ml":
+        extra += (dataterm,)
+    return getattr(mod, name)(*planes, scal, ri, *extra)
+
+
+def _bands(kind, dataterm, planes, shards, ri, dev, plain=False):
+    """The outputs of each of ``shards`` halo bands: (rows, outputs)."""
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    nx = planes[0].shape[-2]
+    rows, H = nx // shards, 2 * ri + 2
+    out = []
+    for rank in range(shards):
+        lo = rank * rows - H
+        ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+        scal = torch.tensor(_halo_head(kind) + [lo, H, H + rows],
+                            device=dev)
+        out.append(_halo_call(kind, dataterm, ext, scal, ri, nx, plain))
+    return rows, H, out
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("kind,L,nx,ny,dataterm", HALO_CASES)
+def test_halo_chunk_matches_plain(dev, kind, L, nx, ny, dataterm, shards):
+    """Each band's halo kernel against its plain version (whole bands)."""
+    planes = _halo_planes(kind, L, nx, ny, 41, dev)
+    n = 6 if kind == "ml" else 4
+    before = {"rof": fr, "ml": fm, "vol": fv}[kind].launch_counts[
+        f"{kind}_chunk_halo"]
+    _, _, got = _bands(kind, dataterm, planes, shards, 10, dev)
+    _, _, ref = _bands(kind, dataterm, planes, shards, 10, dev, plain=True)
+    torch.cuda.synchronize()
+    for out, want in zip(got, ref):
+        assert all(t.is_cuda for t in out)
+        _close(out, want, n)
+    after = {"rof": fr, "ml": fm, "vol": fv}[kind].launch_counts[
+        f"{kind}_chunk_halo"]
+    assert after == before + shards
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("kind,L,nx,ny,dataterm", HALO_CASES)
+def test_halo_bands_match_whole_plane_kernel(dev, kind, L, nx, ny, dataterm,
+                                             shards):
+    """Owned rows of every band bit-equal to the whole-plane kernel's;
+    owned-row norms summed over the bands within 1e-6 of its norms."""
+    planes = _halo_planes(kind, L, nx, ny, 43, dev)
+    n = 6 if kind == "ml" else 4
+    ri = 10
+    whole = _halo_call(kind, dataterm, planes,
+                       torch.tensor(_halo_head(kind), device=dev), ri)
+    rows, H, bands = _bands(kind, dataterm, planes, shards, ri, dev)
+    total = torch.zeros(4, device=dev)
+    for rank, out in enumerate(bands):
+        for a, b in zip(out[:n], whole[:n]):
+            assert torch.equal(a[..., H:H + rows, :],
+                               b[..., rank * rows:(rank + 1) * rows, :])
+        total = total + out[n]
+    torch.testing.assert_close(total, whole[n], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["rof", "ml", "vol"])
+def test_in_place_halo_chunk_on_card(dev, kind):
+    """The in-place halo chunk the sharded routes call: the functional
+    wrapper's outputs in the caller's buffers, bit for bit, and every
+    buffer left as it was when the converged flag is set."""
+    L = 1 if kind == "rof" else 3
+    planes = _halo_planes(kind, L, 96, 72, 47, dev)
+    mod = {"rof": fr, "ml": fm, "vol": fv}[kind]
+    inplace = getattr(mod, f"{kind}_chunk_halo_")
+    k = 3 if kind == "ml" else 2
+    extra = () if kind == "ml" else ("square",)
+    H, rows = 12, 48
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    ext = [window(a, rows - H, 2 * rows + H) for a in planes]
+    scal = torch.tensor(_halo_head(kind) + [rows - H, H, H + rows],
+                        device=dev)
+    want = getattr(mod, f"{kind}_chunk_halo")(*ext, scal, 5, 96, *extra)
+    cur = [t.clone() for t in ext[:k]]
+    prev = [torch.full_like(t, 7.0) for t in cur]
+    norms2 = inplace(*cur, *prev, *ext[k:], scal, 5, 96, *extra)
+    torch.cuda.synchronize()
+    for a, b in zip(cur + prev + [norms2], want):
+        assert torch.equal(a, b)
+    before = [t.clone() for t in cur + prev]
+    held = torch.cat([scal, torch.ones(1, device=dev)])
+    norms2 = inplace(*cur, *prev, *ext[k:], held, 5, 96, *extra)
+    torch.cuda.synchronize()
+    assert not norms2.any()
+    for a, b in zip(cur + prev, before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["rof", "ml", "vol"])
+def test_sharded_route_on_one_card(dev, kind, tmp_path):
+    """The halo route on a one-rank NCCL group (both edges receive zeros,
+    row_offset = -halo) against the one-card fused route."""
+    import torch.distributed as dist
+
+    from prost_tpu_torch.parallel import (ShardedFusedMultilabel,
+                                          ShardedFusedROF, ShardedFusedVol,
+                                          make_mesh)
+
+    if kind == "rof":
+        prob, cls = _tv_problem(48, 40, dev), ShardedFusedROF
+    elif kind == "ml":
+        prob, cls = _ml_problem(48, 40, 4, dev), ShardedFusedMultilabel
+    else:
+        prob, cls = _vol_problem(48, 40, 3, dev), ShardedFusedVol
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=0,
+                              tol_rel_dual=0, tol_abs_primal=0,
+                              tol_abs_dual=0)
+    opts = PDHGOptions(stepsize="boyd", residual_iter=5,
+                       scale_steps_operator=False)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        b = cls(prob, opts, sopts, make_mesh((1,), axis_names=("sp",)))
+        s = b.run(b.initial_state(), 61, 0)
+        one = FusedROFPDHG(prob, opts, sopts)
+        ref = one.run(one.initial_state(), 61, 0)
+        assert b.exchange.counts["exchanges"] == 12
+        assert int(s.iteration) == int(ref.iteration) == 61
+        for name in ("x", "y", "x_prev", "y_prev"):
+            torch.testing.assert_close(getattr(s, name).full_tensor(),
+                                       getattr(ref, name), atol=2e-5,
+                                       rtol=0, msg=name)
+    finally:
+        dist.destroy_process_group()

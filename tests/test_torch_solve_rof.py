@@ -183,7 +183,10 @@ def test_import_leaves_jax_out():
             "prost_tpu_torch.ops.fused_multilabel, "
             "prost_tpu_torch.ops.fused_deblur, "
             "prost_tpu_torch.ops.fused_tight, prost_tpu_torch.ops.fused_vol, "
-            "prost_tpu_torch.parallel, prost_tpu_torch.interop; "
+            "prost_tpu_torch.parallel, prost_tpu_torch.parallel.mesh, "
+            "prost_tpu_torch.parallel.spatial, "
+            "prost_tpu_torch.parallel.spatial_fused, "
+            "prost_tpu_torch.interop; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'prost_tpu' not in sys.modules, 'prost_tpu imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
