@@ -96,13 +96,24 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    exchange delivers), each band's ``rof_chunk_halo`` / ``ml_chunk_halo``
    / ``vol_chunk_halo`` against its plain version, the owned rows of every
    band bit-equal to the whole-plane kernel and the bands' owned-row norms
-   summed within 1e-6 of its norms; timed at the one-shard band;
-16. solve config 1, config 3 and vol256x8 through ``ShardedFusedROF``,
-   ``ShardedFusedMultilabel`` and ``ShardedFusedVol`` (2000 iterations at
-   1e-5, boyd, residual_iter 10) on an NCCL group of one rank per card
+   summed within 1e-6 of its norms; timed at the one-shard band; the same
+   for ``deblur_chunk_halo`` at config 2's shape (bands of the 520-row
+   full-convolution grid: 1 and 2 shards at ri 10, halo 154; 4 shards at
+   ri 5, halo 84), ``tight_chunk_halo`` at 128x128x4 (ri 10, halo 22) and
+   ``admm_iter_halo`` at 512x512 (Chebyshev degree 10, halo 24, with and
+   without the norms, against ``admm_chunk`` with count 1);
+16. solve config 1, config 3, vol256x8, config 2, tight128x4 and config 4
+   (ROF 512x512 by Chebyshev ADMM) through ``ShardedFusedROF``,
+   ``ShardedFusedMultilabel``, ``ShardedFusedVol``, ``ShardedFusedDeblur``,
+   ``ShardedFusedTight`` and ``ShardedFusedADMM`` (2000 iterations at 1e-5,
+   residual_iter 10, boyd for PDHG) on an NCCL group of one rank per card
    (``torch.cuda.device_count()``; with one card both edges of the shard
-   receive zeros and its row offset is -22), count the halo kernels'
-   launches, and hold each energy against the one-card fused route's.
+   receive zeros and its row offset is minus the halo), count the halo
+   kernels' launches and the exchanges, and hold each energy against the
+   one-card fused route's; then run ensemble1024x128 through
+   ``BatchedPDHG`` over a dp mesh of those ranks (21 + 300 iterations) and
+   hold every field of every instance against the one-card run, bit for
+   bit.
 
 The images are bench.py's: data/*.png decoded by the script's own reader
 and converted and resized as PIL does (``fixture_gray``; the card's
@@ -1249,7 +1260,7 @@ def phase_admm_solve(card, e_pdhg, d_pdhg):
           f"{d_pdhg:.8f}")
     check(rel <= ADMM_VS_PDHG_RTOL, "ADMM and PDHG energies disagree")
     check(e_fused >= d_pdhg, "ADMM energy below the PDHG dual energy")
-    return launches
+    return launches, e_fused
 
 
 def phase_ml_solve(card):
@@ -1587,7 +1598,7 @@ def phase_deblur_solve(card):
     print(f"energy fused vs generic deblur: rel diff {rel:.3e} "
           f"(tol {ENERGY_RTOL:g})")
     check(rel <= ENERGY_RTOL, "fused and generic deblur energies disagree")
-    return launches
+    return launches, e_fused
 
 
 def phase_tight_solve(card):
@@ -1637,7 +1648,7 @@ def phase_tight_solve(card):
                        (fused[2], gen[2], "unity errors")):
         check(abs(a - b) <= TIGHT_MEASURE_RTOL * b,
               f"fused and generic tight {what} disagree")
-    return launches
+    return launches, fused[0]
 
 
 def rof_energies(u, f, lmb, nx, ny):
@@ -2277,25 +2288,212 @@ def phase_halo_kernels(dev):
     return rows
 
 
-SHARDED_KINDS = ("rof", "ml", "vol")
+def phase_halo_8b_kernels(dev):
+    """The halo modes of slice 8b at full width, bands of 1, 2 and 4
+    shards: ``deblur_chunk_halo`` at config 2's shape (512x512, the 9x9
+    motion blur, bands of the 520 rows of its full-convolution grid; ri 10,
+    halo 154, and ri 5, halo 84, for 4 shards of 130 rows),
+    ``tight_chunk_halo`` at 128x128x4 (ri 10, halo 22) and
+    ``admm_iter_halo`` at 512x512 (Chebyshev degree 10, halo 24) with and
+    without the norms; each against its plain version, the owned rows
+    against the whole-plane kernel (``deblur_chunk``, ``tight_chunk``,
+    ``admm_chunk`` with count 1), the bands' norms summed against its
+    norms; timed at the one-shard band (ADMM without the norms, the
+    variant of 9 of a chunk's 10 iterations)."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_admm as fa
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    rng = np.random.RandomState(610)
+    # deblur: x, yv, q, fb, sv of config 2's shape
+    n, kern = DB_SIZE, motion_kernel(DB_KLEN)
+    n2 = n + DB_KLEN - 1
+    taps = fd.kernel_taps(torch.as_tensor(kern.T, dtype=torch.float32))
+    deblur = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.rand(n, n), rng.randn(n2, n2), 0.3 * rng.randn(2, n, n),
+        rng.rand(n2, n2), 0.5 + rng.rand(n2, n2))]
+    # tight: u, v, q, p, s, f of tight128x4
+    L, nt = TIGHT_LABELS, TIGHT_SIZE
+    k = L * (L - 1) // 2
+    pt_ = pair_matrix(L).T
+    ttaps = tuple((r, m, float(pt_[r, m])) for r in range(2 * L)
+                  for m in range(2 * k) if pt_[r, m] != 0.0)
+    tconsts = tuple(float(np.float32(c))
+                    for c in (1 / (L + 1), 1.0, 1 / L, 0.2, 1 / 3))
+    tight = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.rand(L, nt, nt), 0.1 * rng.randn(2 * k, nt, nt),
+        0.2 * rng.randn(2 * L, nt, nt), 0.1 * rng.randn(2 * k, nt, nt),
+        0.1 * rng.randn(nt, nt), rng.rand(L, nt, nt))]
+    admm = admm_kernel_inputs(ROF_SIZE, ROF_SIZE, 611, dev)
+    degree, alpha = 10, 1.7
+
+    def deblur_call(fn, ext, scal, ri):
+        return fn(*ext, scal, ri, n, taps, 0.5, 0.2)
+
+    def tight_call(fn, ext, scal, ri):
+        return fn(*ext, scal, ri, nt, ttaps, tconsts)
+
+    # name: (halo kernel, plain, whole-plane call (ri), planes, rows of the
+    # partitioned grid, ri and halo by shard count, head of scal, planes
+    # out, bytes and operations of the one-shard band)
+    cases = {
+        "deblur_chunk_halo": (
+            lambda e, s, ri: deblur_call(fd.deblur_chunk_halo, e, s, ri),
+            lambda e, s, ri: fd.deblur_chunk_plain(*e, s, ri, taps, 0.5,
+                                                   0.2, n),
+            lambda ri: fd.deblur_chunk(*deblur, torch.tensor(
+                [0.9, 1.1, 1.0, DB_LMB, 1.0], device=dev), ri, taps, 0.5,
+                0.2),
+            deblur, n2,
+            {s: (ri, fd.deblur_halo_rows(ri, taps))
+             for s, ri in ((1, 10), (2, 10), (4, 5))},
+            [0.9, 1.1, 1.0, DB_LMB, 1.0], 6,
+            # x, yv, q, fb, sv, taps in; new and previous x, yv, q out; the
+            # x-plane work on the image's rows of the band
+            lambda rows: ((9 * rows * n + 5 * rows * n2 + 3 * len(taps)) * 4,
+                          deblur_chunk_ops(n * n, rows * n2, len(taps), 10))),
+        "tight_chunk_halo": (
+            lambda e, s, ri: tight_call(ft.tight_chunk_halo, e, s, ri),
+            lambda e, s, ri: tight_call(ft.tight_chunk_halo_plain, e, s, ri),
+            lambda ri: ft.tight_chunk(*tight, torch.tensor(
+                [0.9, 1.1, 1.0, TIGHT_LMB, 1.0], device=dev), ri, ttaps,
+                tconsts),
+            tight, nt, {s: (10, 22) for s in HALO_SHARDS},
+            [0.9, 1.1, 1.0, TIGHT_LMB, 1.0], 10,
+            lambda rows: (((10 * L + 12 * k + 3) * rows * nt + 4 * len(ttaps)
+                           + 2 * L + 2 * k + 2) * 4,
+                          tight_chunk_ops(rows * nt, L, k, len(ttaps), 10))),
+        "admm_iter_halo": (
+            None, None,
+            lambda ri: fa.admm_chunk(*admm, torch.tensor(
+                [1.3, 8.0, 1.0], device=dev), None, 1, 0, alpha, "square",
+                degree),
+            admm, ROF_SIZE,
+            {s: (degree, fa.admm_cheby_halo_rows(degree))
+             for s in HALO_SHARDS},
+            None, 7,
+            # xh, xp, xd, zh, zd, warm, f in (z_proj is only written), the
+            # seven state arrays out: 19 planes; no norms
+            lambda rows: (19 * rows * ROF_SIZE * 4,
+                          rows * ROF_SIZE * admm_iter_ops(degree))),
+    }
+    rows_out = {}
+    for name, (halo, plain, whole, planes, grid, geo, head, n_out,
+               cost) in cases.items():
+        err = 0.0
+        ny = planes[0].shape[-1]
+        nxg = planes[0].shape[-2]  # the image's rows
+        wholes = {}
+        for shards in HALO_SHARDS:
+            ri, H = geo[shards]
+            if ri not in wholes:
+                wholes[ri] = whole(ri)
+            ref = wholes[ri]
+            rs = grid // shards
+            total = torch.zeros(4, dtype=torch.float64, device=dev)
+            for rank in range(shards):
+                lo = rank * rs - H
+                ext = [window(a, lo, lo + rs + 2 * H) for a in planes]
+                if name == "admm_iter_halo":
+                    scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+                    tail = (ri, alpha, nxg, lo, H, H + rs, "square")
+                    outs = [fa.admm_iter_halo(*ext, scal, *tail,
+                                              with_norms=wn)
+                            for wn in (True, False)]
+                    wants = [fa.admm_iter_halo_plain(*ext, scal, *tail,
+                                                     with_norms=wn)
+                             for wn in (True, False)]
+                    call = (lambda ext=ext, scal=scal, tail=tail:
+                            fa.admm_iter_halo(*ext, scal, *tail,
+                                              with_norms=False))
+                    plain_call = (lambda ext=ext, scal=scal, tail=tail:
+                                  fa.admm_iter_halo_plain(
+                                      *ext, scal, *tail, with_norms=False))
+                else:
+                    scal = torch.tensor(head + [lo, H, H + rs], device=dev)
+                    outs = [halo(ext, scal, ri)]
+                    wants = [plain(ext, scal, ri)]
+                    call = (lambda ext=ext, scal=scal, ri=ri:
+                            halo(ext, scal, ri))
+                    plain_call = (lambda ext=ext, scal=scal, ri=ri:
+                                  plain(ext, scal, ri))
+                torch.cuda.synchronize()
+                for out, want in zip(outs, wants):
+                    if name == "admm_iter_halo":
+                        plane, rel = max_errs(out, want, n_planes=n_out)
+                    else:
+                        plane, rel = scaled_errs(out, want, n_out)
+                    err = max(err, plane)
+                    owned = all(torch.equal(a[..., H:H + rs, :],
+                                            window(b, rank * rs,
+                                                   (rank + 1) * rs))
+                                for a, b in zip(out[:n_out], ref[:n_out]))
+                    print(f"{name} band {rank} of {shards} (ri {ri}, halo "
+                          f"{H}): max abs err planes {plane:.3e} (tol "
+                          f"{PLANE_ATOL:g}), max rel err norms {rel:.3e} "
+                          f"(tol {NORM_RTOL:g}); owned rows "
+                          f"{'bit-equal to' if owned else 'DIFFER from'} "
+                          "the whole-plane kernel")
+                    check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
+                          f"{name} disagrees with its plain version")
+                    check(owned, f"{name}: a band's owned rows differ from "
+                          "the whole-plane kernel")
+                    check(all(bool(torch.isfinite(t).all()) for t in out),
+                          f"{name} produced non-finite values")
+                if name == "admm_iter_halo":
+                    check(not bool(outs[1][n_out].any()),
+                          "admm_iter_halo without norms returned norms")
+                total += outs[0][n_out].double()
+                if shards == 1:
+                    rows_out[name] = {
+                        "ms": time_ms(call, 50),
+                        "plain_ms": time_ms(plain_call, 10),
+                        "bound": bound(*cost(ext[0].shape[-2])),
+                        "band": f"{ext[0].shape[-2]} rows"}
+            rel = float(torch.max(torch.abs(total - ref[n_out].double())
+                                  / torch.abs(ref[n_out].double())))
+            print(f"{name}: owned-row norms of {shards} bands against the "
+                  f"whole plane's: max rel diff {rel:.3e} (tol "
+                  f"{HALO_NORM_RTOL:g})")
+            check(rel <= HALO_NORM_RTOL, f"{name}: the bands' norms do not "
+                  "sum to the whole plane's")
+        r = rows_out[name]
+        r["err"] = err
+        print(f"{name} one shard ({r['band']}): kernel {r['ms']:.4f} "
+              f"ms/call, plain {r['plain_ms']:.4f} ms/call, bound "
+              f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    return rows_out
+
+
+SHARDED_KINDS = ("rof", "ml", "vol", "deblur", "tight", "admm")
 
 
 def sharded_solves(rank, world, init_method, card):
-    """This rank's part of phase 16: config 1, config 3 and vol256x8 solved
-    through the halo-sharded routes on the NCCL group; {kind: results}."""
+    """This rank's part of phase 16: config 1, config 3, vol256x8, config
+    2, tight128x4 and config 4 solved through the halo-sharded routes, and
+    ensemble1024x128 through BatchedPDHG over a dp mesh, on the NCCL group;
+    {kind: results}."""
     from datetime import timedelta
 
     import torch
     import torch.distributed as dist
 
     import prost_tpu_torch as ptt
-    from prost_tpu_torch.backend import PDHGOptions
+    from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
+    from prost_tpu_torch.ops import fused_admm as fa
+    from prost_tpu_torch.ops import fused_deblur as fd
     from prost_tpu_torch.ops import fused_multilabel as fm
     from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops import fused_tight as ft
     from prost_tpu_torch.ops import fused_vol as fv
-    from prost_tpu_torch.parallel import (ShardedFusedMultilabel,
-                                          ShardedFusedROF, ShardedFusedVol,
-                                          make_mesh)
+    from prost_tpu_torch.parallel import (ShardedFusedADMM,
+                                          ShardedFusedDeblur,
+                                          ShardedFusedMultilabel,
+                                          ShardedFusedROF, ShardedFusedTight,
+                                          ShardedFusedVol, make_mesh)
 
     torch.cuda.set_device(rank)
     ptt.set_device(f"cuda:{rank}")
@@ -2308,6 +2506,17 @@ def sharded_solves(rank, world, init_method, card):
         vol_f = vol_data(VOL_LABELS, VOL_SIZE, VOL_SIZE)
         n = ROF_SIZE
         rof_f = test_image(n, n).reshape(-1)
+        db_fb = deblur_data(DB_SIZE, DB_SIZE)
+        L, nt = TIGHT_LABELS, TIGHT_SIZE
+        k = L * (L - 1) // 2
+        t_f = tight_unaries(nt, nt, L)
+        # config 2's halo is 154 rows at ri 10 (the blur's row reach is 7):
+        # shards of fewer rows of the 520-row grid run at ri 5 (halo 84)
+        db_taps = fd.kernel_taps(torch.as_tensor(motion_kernel(DB_KLEN).T,
+                                                 dtype=torch.float32))
+        db_rows = (DB_SIZE + DB_KLEN - 1) // world
+        db_ri = 10 if db_rows >= fd.deblur_halo_rows(10, db_taps) else 5
+        pdhg = PDHGOptions(stepsize="boyd", residual_iter=10)
         runs = {
             "rof": (ShardedFusedROF, fr, lambda: rof_model(
                 n, n, rof_f, ROF_LMB), n * n,
@@ -2322,24 +2531,37 @@ def sharded_solves(rank, world, init_method, card):
                 VOL_SIZE * VOL_SIZE * VOL_LABELS,
                 lambda x: vol_energy(x, vol_f, VOL_LMB, VOL_LABELS,
                                      VOL_SIZE, VOL_SIZE)),
+            "deblur": (ShardedFusedDeblur, fd, lambda: deblur_model(
+                DB_SIZE, DB_SIZE, db_fb), DB_SIZE * DB_SIZE,
+                lambda x: deblur_energy(x, db_fb, DB_LMB, DB_SIZE, DB_SIZE)),
+            "tight": (ShardedFusedTight, ft, lambda: tight_model(
+                nt, nt, L, t_f), nt * nt * (L + 2 * k),
+                lambda x: tight_measures(x, t_f, TIGHT_LMB, L, nt, nt)[0]),
+            "admm": (ShardedFusedADMM, fa, lambda: rof_model(
+                n, n, rof_f, ROF_LMB), n * n,
+                lambda x: rof_energy(x, rof_f, ROF_LMB, n, n)),
         }
         out = {}
         for kind in SHARDED_KINDS:
             cls, mod, model, ncols, energy = runs[kind]
+            opts = {"admm": ("admm", ADMMOptions(residual_iter=10)),
+                    "deblur": ("pdhg", PDHGOptions(stepsize="boyd",
+                                                   residual_iter=db_ri))
+                    }.get(kind, ("pdhg", pdhg))
 
             def make(p, o, so, cls=cls):
                 return cls(p, o, so, mesh)
 
-            def solve(iters):
-                backend = recording("pdhg", PDHGOptions(stepsize="boyd",
-                                                        residual_iter=10),
-                                    make)
-                return run_model(backend, model(), ncols, iters)
+            def solve(iters, opts=opts, make=make, model=model,
+                      ncols=ncols):
+                return run_model(recording(*opts, make), model(), ncols,
+                                 iters)
 
             solve(200)  # warm-up
             mod.reset_launch_counts()
             res, backend, dt = solve(2000)
-            name = f"{kind}_chunk_halo"
+            name = ("admm_iter_halo" if kind == "admm"
+                    else f"{kind}_chunk_halo")
             launches = {k: v for k, v in mod.launch_counts.items() if v}
             check(set(launches) == {name} and launches[name] > 0,
                   f"the sharded {kind} route launched {launches}")
@@ -2352,10 +2574,51 @@ def sharded_solves(rank, world, init_method, card):
                          "it_s": res.iterations / backend.loop_s,
                          "energy": energy(res.x),
                          "launches": mod.launch_counts[name],
+                         "name": name, "ri": opts[1].residual_iter,
                          "backend": dist.get_backend()}
+        out["dp"] = dp_ensemble(rank, world, card)
         return out
     finally:
         dist.destroy_process_group()
+
+
+def dp_ensemble(rank, world, card):
+    """ensemble1024x128 through BatchedPDHG over a dp mesh of the group's
+    ranks, ENS_WARM + 300 iterations; on rank 0 every field of every
+    instance (gathered) against the one-card BatchedPDHG's, bit for bit."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.parallel import BatchedPDHG, make_mesh
+
+    iters = 300
+    fs, lmbs = ensemble_data(ENS_B, ENS_SIZE, ENS_SIZE)
+    problems = [ensemble_problem(ENS_SIZE, ENS_SIZE, f, lmb)
+                for f, lmb in zip(fs, lmbs)]
+    opts, sopts = ens_opts()
+    b = BatchedPDHG(problems, opts, sopts,
+                    make_mesh((world,), axis_names=("dp",)))
+    check(b.rof is not None and b.batch == ENS_B // world,
+          "the dp ensemble did not take the fused route on its share")
+    fr.reset_launch_counts()
+    state, dt = ensemble_run(b, ENS_WARM, iters)
+    launches = fr.launch_counts["rof_chunk_batched"]
+    rate = ENS_B * iters / dt
+    gathered = {k: b.gather(v) for k, v in vars(state).items()}
+    print(f"rank {rank}: dp ensemble {ENS_B}x{ENS_SIZE}x{ENS_SIZE} on "
+          f"{world} rank(s), {b.batch} instances each: {iters} iterations in "
+          f"{dt:.4f} s = {rate:.1f} instance-it/s, rof_chunk_batched "
+          f"launches {launches}, flag all-reduces {b.flag_reduces} [{card}]")
+    equal = None
+    if rank == 0:
+        one = BatchedPDHG(problems, opts, sopts)
+        ref, _ = ensemble_run(one, ENS_WARM, iters)
+        equal = all(torch.equal(gathered[k], v)
+                    for k, v in vars(ref).items())
+        del one, ref
+    del b, problems, state, gathered
+    torch.cuda.empty_cache()
+    return {"equal": equal, "rate": rate, "launches": launches}
 
 
 def _sharded_rank(rank, world, init_method, card, results):
@@ -2404,16 +2667,21 @@ def phase_sharded_solve(card, one_card):
         res = per_rank[0][kind]
         rel = abs(res["energy"] - one_card[kind]) / abs(one_card[kind])
         print(f"sharded {kind} solve on {world} rank(s), backend "
-              f"{res['backend']}: {res['result']} after {res['iterations']} "
-              f"iterations, {res['it_s']:.1f} it/s; energy "
-              f"{res['energy']:.8f}, one-card fused {one_card[kind]:.8f}, "
-              f"rel diff {rel:.3e} (tol {ENERGY_RTOL:g}) [{card}]")
+              f"{res['backend']}, residual_iter {res['ri']}: {res['result']} "
+              f"after {res['iterations']} iterations, {res['it_s']:.1f} "
+              f"it/s; energy {res['energy']:.8f}, one-card fused "
+              f"{one_card[kind]:.8f}, rel diff {rel:.3e} (tol "
+              f"{ENERGY_RTOL:g}) [{card}]")
         check(rel <= ENERGY_RTOL, f"the sharded {kind} energy disagrees "
               "with the one-card fused route's")
         check(all(r[kind]["energy"] == res["energy"] for r in per_rank),
               f"the ranks disagree on the sharded {kind} solution")
-        launches[f"{kind}_chunk_halo"] = sum(r[kind]["launches"]
-                                             for r in per_rank)
+        launches[res["name"]] = sum(r[kind]["launches"] for r in per_rank)
+    dp = per_rank[0]["dp"]
+    print(f"dp ensemble on {world} rank(s): every field of every instance "
+          f"{'equal to' if dp['equal'] else 'DIFFERS from'} the one-card "
+          f"BatchedPDHG's; {dp['rate']:.1f} instance-it/s [{card}]")
+    check(dp["equal"], "the dp ensemble differs from the one-card run")
     return launches
 
 
@@ -2538,17 +2806,22 @@ def main() -> int:
     rows.update(phase_vol_kernels(dev))
     rows.update(phase_batched_kernels(dev))
     rows.update(phase_halo_kernels(dev))
+    rows.update(phase_halo_8b_kernels(dev))
     torch.cuda.synchronize()
     launches, e_pdhg, d_pdhg = phase_solve(card)
-    launches.update(phase_admm_solve(card, e_pdhg, d_pdhg))
+    admm_launches, e_admm = phase_admm_solve(card, e_pdhg, d_pdhg)
+    launches.update(admm_launches)
     ml_launches, e_ml = phase_ml_solve(card)
     launches.update(ml_launches)
-    launches.update(phase_deblur_solve(card))
-    launches.update(phase_tight_solve(card))
+    deblur_launches, e_deblur = phase_deblur_solve(card)
+    launches.update(deblur_launches)
+    tight_launches, e_tight = phase_tight_solve(card)
+    launches.update(tight_launches)
     vol_launches, e_vol = phase_vol_solve(card)
     launches.update(vol_launches)
     launches.update(phase_sharded_solve(
-        card, {"rof": e_pdhg, "ml": e_ml, "vol": e_vol}))
+        card, {"rof": e_pdhg, "ml": e_ml, "vol": e_vol, "deblur": e_deblur,
+               "tight": e_tight, "admm": e_admm}))
     ens_launches, _, _ = phase_ensemble(card)
     launches.update(ens_launches)
     launches.update(phase_small_ensembles(card))
@@ -2582,6 +2855,11 @@ def main() -> int:
         "ml_chunk_halo": ("fused_multilabel",
                           "prost_tpu/ops/fused_multilabel.py:236"),
         "vol_chunk_halo": ("fused_vol", "prost_tpu/ops/fused_vol.py:213"),
+        "deblur_chunk_halo": ("fused_deblur",
+                              "prost_tpu/ops/fused_deblur.py:294"),
+        "tight_chunk_halo": ("fused_tight",
+                             "prost_tpu/ops/fused_tight.py:172"),
+        "admm_iter_halo": ("fused_admm", "prost_tpu/ops/fused_admm.py:518"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

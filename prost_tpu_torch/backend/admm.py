@@ -351,6 +351,17 @@ def admm_residual_adapt(problem, opts: ADMMOptions, tols, q: ADMMState,
     post-increment counter of the residual iteration.  Shared by the
     generic path and the fused path, which computes the norms in its
     kernel."""
+    q, fac = admm_adapt(problem, opts, tols, q, primal_res, primal_norm,
+                        dual_res, dual_norm)
+    return dataclasses.replace(q, x_dual=q.x_dual * fac,
+                               z_dual=q.z_dual * fac)
+
+
+def admm_adapt(problem, opts: ADMMOptions, tols, q: ADMMState, primal_res,
+               primal_norm, dual_res, dual_norm):
+    """``admm_residual_adapt`` without the rescale of the duals: the state
+    with its new scalars, and the factor rho / rho_new by which the duals
+    are to be rescaled (the sharded route's duals live in its buffers)."""
     tol_rel_p, tol_rel_d, tol_abs_p, tol_abs_d = tols
     eps_pri = (_sqrt_size(primal_norm, problem.nrows) * tol_abs_p
                + tol_rel_p * primal_norm)
@@ -370,12 +381,11 @@ def admm_residual_adapt(problem, opts: ADMMOptions, tols, q: ADMMState,
     fac = q.rho / rho_new
     return dataclasses.replace(
         q,
-        x_dual=q.x_dual * fac, z_dual=q.z_dual * fac,
         rho=rho_new, delta=delta_new, arb_l=arb_l, arb_u=arb_u,
         primal_residual=primal_res, primal_var_norm=primal_norm,
         dual_residual=dual_res, dual_var_norm=dual_norm,
         converged=(primal_res < eps_pri) & (dual_res < eps_dua),
-    )
+    ), fac
 
 
 def admm_step(problem, prox_g, prox_f, opts: ADMMOptions, tols, s: ADMMState,

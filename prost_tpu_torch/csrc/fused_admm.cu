@@ -3,12 +3,25 @@
 // Replaces the Pallas kernels of the JAX package's ADMM ROF route:
 //   prost_tpu/ops/fused_admm.py  admm_fused_chunk      -> _admm_chunk_kernel
 //   prost_tpu/ops/fused_admm.py  admm_fused_multichunk -> _admm_multichunk_kernel
+//   prost_tpu/ops/fused_admm.py  admm_banded_iter
+//                                -> _admm_banded_kernel, _admm_banded_db_kernel
 // whose math is _admm_iter, _cgls_masked, _cheby_project, _admm_norms and
 // admm_adapt_scalars in the same file.  The planes live in device memory at
 // any size, so the same kernels also take the place of the banded route for
 // planes beyond a TPU core's VMEM (admm_banded_chunk ->
 // _admm_banded_chunk_kernel).  The plain PyTorch versions live beside the
 // wrappers in prost_tpu_torch/ops/fused_admm.py.
+//
+// Halo mode (spatial sharding, admm_banded_iter on a shard).  One outer
+// Chebyshev iteration on one halo-extended shard of a row-partitioned plane,
+// nx = rows + 2 halo, zeros beyond the plane's edges, in place: every
+// stencil tests its neighbour row by local and global row (Rows below), the
+// dead z row is the global last row, and the norms cover the owned rows.
+// One iteration moves information degree + 3 rows (the t1 gradient, the
+// warm start's M, degree - 1 Chebyshev steps, x_proj's gradient, the
+// norms' stencils), so the caller exchanges the halo before every
+// iteration.  The whole-plane launches are the case (0, nx, 0, nx) of the
+// same arithmetic.
 //
 // Layout (the JAX package's): x-like planes (nx, ny) row-major f32; z-like
 // arrays are two such planes back to back, [zx; zy].
@@ -96,6 +109,15 @@ constexpr float C2 = (float)(C_K_D * C_K_D);
 constexpr float INV_THETA = (float)(1.0 / 1.5);  // Chebyshev, spectrum [1, 2)
 constexpr float EPS = 1.1920928955078125e-07f;   // float32 machine epsilon
 
+// Where a launch's nx rows lie in the global plane (the row context of
+// pdhg_chunk.cuh, whose scalar slots this family does not share): local row
+// i is global row i + off of nxg, and the norms sum local rows [own_lo,
+// own_hi).  A neighbour row is read only where the local and the global row
+// both have one.
+struct Rows {
+  int off, nxg, own_lo, own_hi;
+};
+
 struct State {
   float *xh, *xp, *xd, *zh, *zp, *zd, *warm;  // updated in place
   const float *f, *w;
@@ -107,7 +129,18 @@ struct State {
   float* sc;
   float* partial;  // PS per block
   int nx, ny;
+  Rows rows;
 };
+
+// The forward difference of row i reads row i + 1.
+__device__ __forceinline__ bool below(const State& b, int i) {
+  return i < b.nx - 1 && i + b.rows.off < b.rows.nxg - 1;
+}
+
+// The adjoint of row i reads row i - 1.
+__device__ __forceinline__ bool above(const State& b, int i) {
+  return i > 0 && i + b.rows.off > 0;
+}
 
 __device__ __forceinline__ bool pixel(int nx, int ny, int& i, int& j) {
   j = blockIdx.x * BX + threadIdx.x;
@@ -148,22 +181,27 @@ __device__ __forceinline__ float t1_at(const State& b, size_t p, float alpha,
 }
 
 // M(v) = v + c_K^2 grad^T grad v at (i, j), the operator of the projection,
-// grad^T as the maskless roll adjoint of the plain version.
-__device__ __forceinline__ float m_at(const float* v, int i, int j, int nx,
-                                      int ny, size_t p) {
+// grad^T as the maskless roll adjoint of the plain version (row i - 1's
+// difference is zero where it has no row below, beyond the global plane).
+__device__ __forceinline__ float m_at(const float* v, const State& b, int i,
+                                      int j, size_t p) {
+  int ny = b.ny;
   float c = v[p];
-  float gxm = i > 0 ? c - v[p - ny] : 0.f;
-  float gx = i < nx - 1 ? v[p + ny] - c : 0.f;
+  float gxm = above(b, i) && below(b, i - 1) ? c - v[p - ny] : 0.f;
+  float gx = below(b, i) ? v[p + ny] - c : 0.f;
   float gym = j > 0 ? c - v[p - 1] : 0.f;
   float gy = j < ny - 1 ? v[p + 1] - c : 0.f;
   return c + C2 * ((gxm - gx) + (gym - gy));
 }
 
 // c_K grad^T of the two planes of v at (i, j); bounds-checked neighbours
-// equal the roll adjoint because v's dead coordinates are zero.
-__device__ __forceinline__ float ckt_at(const float* v, int i, int j, int ny,
-                                        size_t n, size_t p) {
-  float vxm = i > 0 ? v[p - ny] : 0.f;
+// equal the roll adjoint because v's dead coordinates are zero.  On a shard
+// the upper mask keeps global row 0 from reading the halo rows above it,
+// which are not zero after a step.
+__device__ __forceinline__ float ckt_at(const float* v, const State& b,
+                                        int i, int j, size_t n, size_t p) {
+  int ny = b.ny;
+  float vxm = above(b, i) ? v[p - ny] : 0.f;
   float vym = j > 0 ? v[n + p - 1] : 0.f;
   return C_K * ((vxm - v[p]) + (vym - v[n + p]));
 }
@@ -177,7 +215,7 @@ __global__ void admm_seed(State b) {
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
   size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-  if (i == b.nx - 1) b.zh[p] = b.zp[p] = b.zd[p] = 0.f;
+  if (i + b.rows.off == b.rows.nxg - 1) b.zh[p] = b.zp[p] = b.zd[p] = 0.f;
   if (j == b.ny - 1) b.zh[n + p] = b.zp[n + p] = b.zd[n + p] = 0.f;
 }
 
@@ -193,7 +231,7 @@ __global__ void admm_rhs(State b, float alpha, float oma, int cgls) {
   int nx = b.nx, ny = b.ny;
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
   float t1 = t1_at(b, p, alpha, oma);
-  float gx = i < nx - 1 ? t1_at(b, p + ny, alpha, oma) - t1 : 0.f;
+  float gx = below(b, i) ? t1_at(b, p + ny, alpha, oma) - t1 : 0.f;
   float gy = j < ny - 1 ? t1_at(b, p + 1, alpha, oma) - t1 : 0.f;
   float t2x = SQRT_S * (b.zh[p] + b.zd[p]);
   float t2y = SQRT_S * (b.zh[n + p] + b.zd[n + p]);
@@ -202,7 +240,7 @@ __global__ void admm_rhs(State b, float alpha, float oma, int cgls) {
   b.t1[p] = t1;
   if (cgls) {
     float u = b.warm[p];
-    float ux = i < nx - 1 ? b.warm[p + ny] - u : 0.f;
+    float ux = below(b, i) ? b.warm[p + ny] - u : 0.f;
     float uy = j < ny - 1 ? b.warm[p + 1] - u : 0.f;
     b.dd[p] = dx - C_K * ux;
     b.dd[n + p] = dy - C_K * uy;
@@ -221,8 +259,8 @@ __global__ void cheby_init(State b) {
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
   size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-  float rhs = ckt_at(b.dd, i, j, b.ny, n, p);
-  float r = rhs - m_at(b.warm, i, j, b.nx, b.ny, p);
+  float rhs = ckt_at(b.dd, b, i, j, n, p);
+  float r = rhs - m_at(b.warm, b, i, j, p);
   b.x[p] = b.warm[p];
   b.r[p] = r;
   b.v0[p] = r * INV_THETA;
@@ -241,7 +279,7 @@ __global__ void cheby_step(State b, const float* __restrict__ v,
   size_t p = (size_t)i * b.ny + j;
   float vv = v[p];
   b.x[p] = b.x[p] + vv;
-  float r = b.r[p] - m_at(v, i, j, b.nx, b.ny, p);
+  float r = b.r[p] - m_at(v, b, i, j, p);
   b.r[p] = r;
   vn[p] = c_prev * vv + c_r * r;
 }
@@ -255,7 +293,7 @@ __global__ void cg_init(State b) {
   float v[1] = {0.f};
   if (pixel(b.nx, b.ny, i, j)) {
     size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-    float s = ckt_at(b.dd, i, j, b.ny, n, p) - b.x[p];
+    float s = ckt_at(b.dd, b, i, j, n, p) - b.x[p];
     b.p[p] = s;
     v[0] = s * s;
   }
@@ -271,7 +309,7 @@ __global__ void cg_q(State b, int par) {
     int nx = b.nx, ny = b.ny;
     size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
     float pv = b.p[p];
-    float qx = C_K * (i < nx - 1 ? b.p[p + ny] - pv : 0.f);
+    float qx = C_K * (below(b, i) ? b.p[p + ny] - pv : 0.f);
     float qy = C_K * (j < ny - 1 ? b.p[p + 1] - pv : 0.f);
     b.q[p] = qx;
     b.q[n + p] = qy;
@@ -304,7 +342,7 @@ __global__ void cg_s(State b, int par) {
   float v[1] = {0.f};
   if (pixel(b.nx, b.ny, i, j)) {
     size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-    float s = ckt_at(b.dd, i, j, b.ny, n, p) - b.x[p];
+    float s = ckt_at(b.dd, b, i, j, n, p) - b.x[p];
     b.s[p] = s;
     v[0] = s * s;
   }
@@ -336,7 +374,7 @@ __global__ void admm_update(State b, const float* __restrict__ v,
   float t1 = b.t1[p];
   float xpn = SQRT_T * (u + t1);
   float zpx = 0.f, zpy = 0.f;
-  if (i < nx - 1) {
+  if (below(b, i)) {
     size_t o = p + ny;
     float uo = v ? b.x[o] + v[o] : b.x[o];
     zpx = SQRT_T * (uo + b.t1[o]) - xpn;
@@ -387,20 +425,20 @@ __global__ void admm_update(State b, const float* __restrict__ v,
 
 // First pass of _admm_norms after a chunk: per-block sums of the squared
 // primal residual, primal variable, dual residual and dual variable norms
-// (y and w recomputed at the neighbour for K^T y).
+// over the owned rows (y and w recomputed at the neighbour for K^T y).
 // Bound: memory, 10 planes read once per chunk.
 __global__ void admm_norm_partial(State b) {
   if (conv_set(b.sc)) return;
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
-  if (pixel(b.nx, b.ny, i, j)) {
+  if (pixel(b.nx, b.ny, i, j) && i >= b.rows.own_lo && i < b.rows.own_hi) {
     int nx = b.nx, ny = b.ny;
     size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
     float rho = b.sc[S_RHO];
     float cw = -rho * 4.f;  // -rho / Tau
     float cy = -rho * 0.5f;  // -rho * Sigma
     float xh = b.xh[p];
-    float kxx = i < nx - 1 ? b.xh[p + ny] - xh : 0.f;
+    float kxx = below(b, i) ? b.xh[p + ny] - xh : 0.f;
     float kxy = j < ny - 1 ? b.xh[p + 1] - xh : 0.f;
     float prx = SQRT_S * (kxx - b.zh[p]);
     float pry = SQRT_S * (kxy - b.zh[n + p]);
@@ -410,7 +448,7 @@ __global__ void admm_norm_partial(State b) {
     float yx = cy * ((b.zh[p] - b.zp[p]) + b.zd[p]);
     float yy = cy * ((b.zh[n + p] - b.zp[n + p]) + b.zd[n + p]);
     float yxm = 0.f, yym = 0.f;
-    if (i > 0) {
+    if (above(b, i)) {
       size_t o = p - ny;
       yxm = cy * ((b.zh[o] - b.zp[o]) + b.zd[o]);
     }
@@ -580,6 +618,7 @@ State state_of(void* xh, void* xp, void* xd, void* zh, void* zp, void* zd,
   b.partial = (float*)partial;
   b.nx = nx;
   b.ny = ny;
+  b.rows = Rows{0, nx, 0, nx};
   return b;
 }
 
@@ -713,6 +752,38 @@ int prost_admm_multichunk(void* xh, void* xp, void* xd, void* zh, void* zp,
     admm_rescale<<<grid, block, 0, st>>>(b);
     LAUNCH_CHECK();
   }
+  return 0;
+}
+
+// admm_banded_iter on one halo-extended shard of a plane of nx_global rows
+// (local row 0 is global row row_offset, [own_lo, own_hi) the owned rows):
+// one Chebyshev outer iteration on the 7 state arrays in place and, with
+// `with_norms`, the 4 SQUARED residual norms of the owned rows into
+// sc[S_NORM..] (zeros otherwise).  No-op when sc[S_CONV] is set.
+int prost_admm_iter_halo(void* xh, void* xp, void* xd, void* zh, void* zp,
+                         void* zd, void* warm, const void* f, const void* w,
+                         void* scratch, void* sc, void* partial, int nx,
+                         int ny, int dataterm, int degree,
+                         const float* coeffs, float alpha, float oma,
+                         int nx_global, int row_offset, int own_lo,
+                         int own_hi, int with_norms, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  State b = state_of(xh, xp, xd, zh, zp, zd, warm, f, w, scratch, sc,
+                     partial, nx, ny);
+  b.rows = Rows{row_offset, nx_global, own_lo, own_hi};
+  dim3 grid = grid_of(nx, ny), block(BX, BY);
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f};
+  admm_seed<<<grid, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  int rc = iteration(b, dataterm, degree, coeffs, 0, nullptr, 0, alpha, oma,
+                     st);
+  if (rc) return rc;
+  if (!with_norms) return 0;
+  admm_norm_partial<<<grid, block, 0, st>>>(b);
+  LAUNCH_CHECK();
+  admm_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, num_blocks(nx, ny),
+                                 OP_NORMS, 0, 0.f, nullptr, 0, none);
+  LAUNCH_CHECK();
   return 0;
 }
 

@@ -5,6 +5,8 @@
 //   (whole-plane mode)
 //   prost_tpu/ops/fused_deblur.py  deblur_fused_chunk_batched
 //                                  -> _deblur_chunk_kernel_batched
+//   prost_tpu/ops/fused_deblur.py  deblur_fused_chunk_halo
+//                                  -> _deblur_chunk_kernel (halo=True)
 // whose math is _chunk_core, _conv_ops and _grad_ops in the same file.  It
 // also serves the JAX package's banded variant
 // (deblur_fused_chunk_banded), which exists only because a TPU core's VMEM
@@ -26,6 +28,22 @@
 // (nx2, ny2) planes (B, nx2, ny2), with a scalar block of S_LEN per frame,
 // on the z axis of both grids (pdhg_chunk.cuh); the taps are one array for
 // all frames.
+//
+// Halo mode (spatial sharding).  The JAX package partitions the rows of
+// the embedded (nx2, ny2) grid over the shards, with a halo of
+// (2 ri + 2) * reach rows (reach = the blur's largest row shift, at least
+// the gradient's 1): each half-step moves information by the conv's row
+// reach.  Here a halo launch takes the shard's x, q, yv, fb and sv cut at
+// the same global rows of that grid, x (ext, ny), q (2, ext, ny) and the
+// others (ext, ny2), ext = rows + 2 halo, zeros beyond the planes (x and q
+// have only nx global rows).  The row context of pdhg_chunk.cuh (from the
+// scalars) turns every test of "inside (nx, ny)" into one on the global
+// row, i + off in [0, nx); a conv or stencil read beyond the local rows is
+// zero, which only the halo rows see.  The norms cover the owned rows of
+// both grids.  bx and g are not exchanged: the seed recomputes them from x
+// at every launch, as the JAX kernel does, and the halo's accounting
+// includes that application.  The whole-plane launches are the case
+// (0, nx, 0, nx2) of the same arithmetic.
 //
 // What bounds it on this card.  An iteration streams about 10 (nx, ny)
 // planes and 7 (nx2, ny2) planes (primal: x, 2 q, yv in, x out; dual: x, yv,
@@ -110,7 +128,8 @@ struct DB {
   const float* taps;  // (3, ntaps) [dx; dy; w]
   float* sc;
   float* partial;  // 4 per block of the (nx2, ny2) grid
-  int nx, ny, nx2, ny2, ntaps;
+  int nx, ny, nx2, ny2, ntaps;  // local rows of the x and yv planes
+  int nxg;  // image rows of a halo launch; 0: the whole plane
   float sig_q, tau_t;     // Sigma of the gradient rows, Tau
   float sqrt_q, sqrt_t;   // their square roots
 };
@@ -173,39 +192,58 @@ struct TreeSum {
   }
 };
 
-// (B u)(i, j) = sum_d w_d u(i - dx_d, j - dy_d) on the (nx2, ny2) grid, u an
-// (nx, ny) plane read as zero outside.
-__device__ __forceinline__ float conv_fwd(const float* u, int nx, int ny,
-                                          int i, int j, const Taps& t) {
+// Where a launch's rows lie: the whole plane is (0, nx, 0, nx2), the owned
+// rows all of the yv grid's; a halo launch reads its row context from sc.
+__device__ __forceinline__ RowCtx deblur_rows(const DB& b) {
+  if (b.nxg == 0) return RowCtx{0, b.nx, 0, b.nx2};
+  return RowCtx{(int)b.sc[S_ROW_OFF], b.nxg, (int)b.sc[S_OWN_LO],
+                (int)b.sc[S_OWN_HI]};
+}
+
+// Local row i of the x plane is an image row (global row in [0, nx)).
+__device__ __forceinline__ bool image_row(const RowCtx& r, int i, int nx) {
+  return i < nx && i + r.off >= 0 && i + r.off < r.nxg;
+}
+
+// (B u)(i, j) = sum_d w_d u(i - dx_d, j - dy_d) on the yv grid, u an x
+// plane read as zero outside the image and beyond its local rows.
+__device__ __forceinline__ float conv_fwd(const float* u, const DB& b,
+                                          const RowCtx& r, int i, int j,
+                                          const Taps& t) {
   TreeSum s;
   for (int k = 0; k < t.n; ++k) {
-    int a = i - t.dx[k], b = j - t.dy[k];
-    float v = (a >= 0 && a < nx && b >= 0 && b < ny) ? u[(size_t)a * ny + b]
-                                                     : 0.f;
+    int a = i - t.dx[k], c = j - t.dy[k];
+    float v = (a >= 0 && image_row(r, a, b.nx) && c >= 0 && c < b.ny)
+                  ? u[(size_t)a * b.ny + c]
+                  : 0.f;
     s.add(t.w[k] * v);
   }
   return s.total();
 }
 
-// (B^T v)(i, j) = sum_d w_d v(i + dx_d, j + dy_d) at (i, j) inside (nx, ny),
-// which keeps every read inside the (nx2, ny2) plane v.
-__device__ __forceinline__ float conv_adj(const float* v, int ny2, int i,
+// (B^T v)(i, j) = sum_d w_d v(i + dx_d, j + dy_d) at an image pixel (i, j);
+// on the whole plane every read lies inside v, on a halo band a read below
+// its last local row is zero.
+__device__ __forceinline__ float conv_adj(const float* v, const DB& b, int i,
                                           int j, const Taps& t) {
   TreeSum s;
-  for (int k = 0; k < t.n; ++k)
-    s.add(t.w[k] * v[(size_t)(i + t.dx[k]) * ny2 + (j + t.dy[k])]);
+  for (int k = 0; k < t.n; ++k) {
+    int a = i + t.dx[k];
+    s.add(t.w[k] * (a < b.nx2 ? v[(size_t)a * b.ny2 + (j + t.dy[k])] : 0.f));
+  }
   return s.total();
 }
 
-// K^T y at (i, j) inside (nx, ny): B^T yv plus the masked gradient adjoint
+// K^T y at an image pixel (i, j): B^T yv plus the masked gradient adjoint
 // (_grad_ops' dxt, dyt), summed in the JAX package's order.
 __device__ __forceinline__ float kty_at(const float* yv, const float* q,
-                                        const DB& b, int i, int j,
-                                        const Taps& t) {
+                                        const DB& b, const RowCtx& r, int i,
+                                        int j, const Taps& t) {
   size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-  float dxt = (i > 0 ? q[p - b.ny] : 0.f) - (i < b.nx - 1 ? q[p] : 0.f);
+  float dxt = (has_above(r, i) ? q[p - b.ny] : 0.f)
+              - (has_below(r, i, b.nx) ? q[p] : 0.f);
   float dyt = (j > 0 ? q[n + p - 1] : 0.f) - (j < b.ny - 1 ? q[n + p] : 0.f);
-  return (conv_adj(yv, b.ny2, i, j, t) + dxt) + dyt;
+  return (conv_adj(yv, b, i, j, t) + dxt) + dyt;
 }
 
 // Seed of a launch: bx = B x on the (nx2, ny2) grid, g = grad x inside.
@@ -218,11 +256,12 @@ __global__ void deblur_seed(DB b) {
   stage_taps(b.taps, b.ntaps, t);
   int i, j;
   if (!pixel(b.nx2, b.ny2, i, j)) return;
-  b.bx[(size_t)i * b.ny2 + j] = conv_fwd(b.x, b.nx, b.ny, i, j, t);
-  if (i < b.nx && j < b.ny) {
+  RowCtx r = deblur_rows(b);
+  b.bx[(size_t)i * b.ny2 + j] = conv_fwd(b.x, b, r, i, j, t);
+  if (image_row(r, i, b.nx) && j < b.ny) {
     size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
     float xv = b.x[p];
-    b.g[p] = i < b.nx - 1 ? b.x[p + b.ny] - xv : 0.f;
+    b.g[p] = has_below(r, i, b.nx) ? b.x[p + b.ny] - xv : 0.f;
     b.g[n + p] = j < b.ny - 1 ? b.x[p + 1] - xv : 0.f;
   }
 }
@@ -237,9 +276,14 @@ __global__ void deblur_primal(DB b, int save_prev) {
   stage_taps(b.taps, b.ntaps, t);
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
+  RowCtx r = deblur_rows(b);
   size_t p = (size_t)i * b.ny + j;
+  if (!image_row(r, i, b.nx)) {  // a band's row beyond the image stays
+    if (save_prev) b.xp[p] = b.x[p];
+    return;
+  }
   float tau_s = b.sc[S_TAU] * b.tau_t;  // tau * Tau
-  float kty = kty_at(b.yv, b.q, b, i, j, t);
+  float kty = kty_at(b.yv, b.q, b, r, i, j, t);
   float xv = b.x[p];
   if (save_prev) b.xp[p] = xv;
   b.x[p] = xv - tau_s * kty;
@@ -261,7 +305,8 @@ __global__ void deblur_dual(DB b, int save_prev) {
   float sigma = b.sc[S_SIGMA], theta = b.sc[S_THETA];
   float tp = 1.f + theta;
   size_t p2 = (size_t)i * b.ny2 + j;
-  float bx2 = conv_fwd(b.x, b.nx, b.ny, i, j, t);
+  RowCtx r = deblur_rows(b);
+  float bx2 = conv_fwd(b.x, b, r, i, j, t);
   float tsv = sigma * b.sv[p2];  // sigma * Sigma_v
   float inv_l = 1.f / b.sc[S_LMB];
   float den = 1.f / (1.f + tsv * inv_l);
@@ -275,10 +320,17 @@ __global__ void deblur_dual(DB b, int save_prev) {
   b.yv[p2] = (av - sh) * den;
   b.bx[p2] = bx2;
   if (i >= b.nx || j >= b.ny) return;
-
   size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  if (!image_row(r, i, b.nx)) {  // a band's row beyond the image stays
+    if (save_prev) {
+      b.qp[p] = b.q[p];
+      b.qp[n + p] = b.q[n + p];
+    }
+    return;
+  }
+
   float xv = b.x[p];
-  float gx2 = i < b.nx - 1 ? b.x[p + b.ny] - xv : 0.f;
+  float gx2 = has_below(r, i, b.nx) ? b.x[p + b.ny] - xv : 0.f;
   float gy2 = j < b.ny - 1 ? b.x[p + 1] - xv : 0.f;
   float sq = sigma * b.sig_q;  // sigma * Sigma_q
   float sig_p = sq * tp, sig_t = sq * theta;
@@ -301,10 +353,11 @@ __global__ void deblur_dual(DB b, int save_prev) {
 }
 
 // First pass of the four preconditioned residual norms (_chunk_core after
-// the aligned iteration): per pixel of the (nx2, ny2) grid the terms of
-// |pd|^2, |z_hat|^2 (the yv plane, and inside (nx, ny) the q planes), and
-// inside (nx, ny) |dd|^2 and |w_hat|^2, then per-block tree sums into
-// partial[4 * block].  K^T of the current and previous duals is recomputed.
+// the aligned iteration): per pixel of the owned rows of the yv grid the
+// terms of |pd|^2, |z_hat|^2 (the yv plane, and inside the image the q
+// planes), and inside the image |dd|^2 and |w_hat|^2, then per-block tree
+// sums into partial[4 * block].  K^T of the current and previous duals is
+// recomputed.
 // Bound: memory, once per chunk.
 __global__ void deblur_norm_partial(DB b) {
   b = instance_of(b);
@@ -313,7 +366,8 @@ __global__ void deblur_norm_partial(DB b) {
   stage_taps(b.taps, b.ntaps, t);
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
-  if (pixel(b.nx2, b.ny2, i, j)) {
+  RowCtx r = deblur_rows(b);
+  if (pixel(b.nx2, b.ny2, i, j) && owned_row(r, i)) {
     float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
     float theta = b.sc[S_THETA];
     float tp = 1.f + theta;
@@ -326,7 +380,7 @@ __global__ void deblur_norm_partial(DB b) {
     float pdv = zv - sqrt_sv * bx2;
     v[0] = pdv * pdv;
     v[1] = zv * zv;
-    if (i < b.nx && j < b.ny) {
+    if (image_row(r, i, b.nx) && j < b.ny) {
       size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
       float inv_q = 1.f / (sigma_raw * b.sqrt_q);
       float inv_t = 1.f / (tau_raw * b.sqrt_t);
@@ -337,8 +391,8 @@ __global__ void deblur_norm_partial(DB b) {
                  + b.sqrt_q * (tp * gy2 - theta * b.gp[n + p]);
       float pdx = zx - b.sqrt_q * gx2;
       float pdy = zy - b.sqrt_q * gy2;
-      float kty2 = kty_at(b.yv, b.q, b, i, j, t);
-      float ktyp = kty_at(b.yvp, b.qp, b, i, j, t);
+      float kty2 = kty_at(b.yv, b.q, b, r, i, j, t);
+      float ktyp = kty_at(b.yvp, b.qp, b, r, i, j, t);
       float wh = (b.xp[p] - b.x[p]) * inv_t - b.sqrt_t * ktyp;
       float dd = wh + b.sqrt_t * kty2;
       v[0] += pdx * pdx + pdy * pdy;
@@ -401,6 +455,7 @@ DB deblur_of(void* x, void* yv, void* q, void* xp, void* yvp, void* qp,
   b.nx2 = nx2;
   b.ny2 = ny2;
   b.ntaps = ntaps;
+  b.nxg = 0;
   b.sig_q = sig_q;
   b.tau_t = tau_t;
   b.sqrt_q = sqrt_q;
@@ -454,6 +509,25 @@ int prost_deblur_chunk_batched(void* x, void* yv, void* q, void* xp,
                    partial, nx, ny, nx2, ny2, ntaps, sig_q, tau_t, sqrt_q,
                    sqrt_t);
   return chunk(b, count, batch, (cudaStream_t)stream);
+}
+
+// deblur_fused_chunk_halo: prost_deblur_chunk on one halo-extended band of
+// the yv grid's rows, x and q cut at the same global rows (nx = nx2 = the
+// band's rows) of an image of nx_global rows; sc holds the row context
+// (S_ROW_OFF, S_OWN_LO, S_OWN_HI) and the squared norms cover the owned rows
+// only.
+int prost_deblur_chunk_halo(void* x, void* yv, void* q, void* xp, void* yvp,
+                            void* qp, void* bx, void* bxp, void* g, void* gp,
+                            const void* fb, const void* sv, const void* taps,
+                            void* sc, void* partial, int nx, int ny, int nx2,
+                            int ny2, int ntaps, float sig_q, float tau_t,
+                            float sqrt_q, float sqrt_t, int nx_global,
+                            int count, void* stream) {
+  DB b = deblur_of(x, yv, q, xp, yvp, qp, bx, bxp, g, gp, fb, sv, taps, sc,
+                   partial, nx, ny, nx2, ny2, ntaps, sig_q, tau_t, sqrt_q,
+                   sqrt_t);
+  b.nxg = nx_global;
+  return chunk(b, count, 1, (cudaStream_t)stream);
 }
 
 }  // extern "C"

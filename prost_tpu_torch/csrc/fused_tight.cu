@@ -6,6 +6,8 @@
 //   (whole-plane mode)
 //   prost_tpu/ops/fused_tight.py  tight_fused_chunk_batched
 //                                 -> _tight_chunk_kernel_batched
+//   prost_tpu/ops/fused_tight.py  tight_fused_chunk_halo
+//                                 -> _tight_chunk_kernel (halo=True)
 // whose math is _chunk_core and _kron_ops in the same
 // file and the masked _shift_ops_3d of fused_multilabel.py.  It also serves
 // the JAX package's banded variant (tight_fused_chunk_banded), which exists
@@ -28,7 +30,15 @@
 // B instances that share (L, k, the taps, the preconditioner constants)
 // back to back, each plane with a leading instance axis, with a scalar
 // block of S_LEN per instance, on the z axis of the grid (pdhg_chunk.cuh);
-// the taps are one array for all instances.
+// the taps are one array for all instances.  A halo launch takes one shard
+// of a row-partitioned plane with `halo` rows of each neighbour above and
+// below it (zeros beyond the plane's edges), nx = rows + 2 halo, and the row
+// context of pdhg_chunk.cuh in its scalars; the whole-plane launches are its
+// case (0, nx, 0, nx), so they run the same arithmetic.  The kron coupling,
+// the pair ball and the label sum are pointwise, so only the gradient and
+// its adjoint see the row context, and the halo is 2 ri + 2 rows as for
+// the multilabel chunk; v and p are exchanged all the same, since the halo
+// rows' u and q updates read them.
 //
 // What bounds it on this card.  An iteration streams about 15L + 13k + 5
 // planes (primal: u, 2L q, s, f in, u out; dual: u, v, q, p, kxq, s, su in,
@@ -97,6 +107,7 @@ struct TK {
   float* sc;
   float* partial;  // 4 per block
   int L, k, nx, ny, ntaps;
+  int nxg;  // rows of the global plane of a halo launch; 0: the whole plane
   Consts c;
 };
 
@@ -163,26 +174,27 @@ __device__ __forceinline__ float kron_fold(const float* ptr, const float* idx,
 }
 
 // Gradient row r of u at (i, j): dx of label r for r < L, dy of label
-// r - L otherwise, Neumann.
+// r - L otherwise, Neumann at the global plane's edges.
 __device__ __forceinline__ float grad_row(const float* u, int r, int L,
                                           size_t n, int i, int j, int nx,
-                                          int ny) {
+                                          int ny, const RowCtx& rc) {
   size_t p = (size_t)i * ny + j;
   if (r < L) {
     size_t pl = r * n + p;
-    return i < nx - 1 ? u[pl + ny] - u[pl] : 0.f;
+    return has_below(rc, i, nx) ? u[pl + ny] - u[pl] : 0.f;
   }
   size_t pl = (r - L) * n + p;
   return j < ny - 1 ? u[pl + 1] - u[pl] : 0.f;
 }
 
 // The u rows of K^T y at label l of pixel (i, j): the masked gradient
-// adjoint of (q_x, q_y) plus s.
+// adjoint of (q_x, q_y) plus s.  q_x is masked on the global last row.
 __device__ __forceinline__ float kty_u(const float* q, float sv, int l,
-                                       int L, size_t n, int i, int j, int nx,
-                                       int ny) {
+                                       int L, size_t n, int i, int j, int ny,
+                                       const RowCtx& rc) {
   size_t pl = l * n + (size_t)i * ny + j, ql = pl + L * n;
-  float dxt = (i > 0 ? q[pl - ny] : 0.f) - (i < nx - 1 ? q[pl] : 0.f);
+  float dxt = (has_above(rc, i) ? q[pl - ny] : 0.f)
+              - (i + rc.off < rc.nxg - 1 ? q[pl] : 0.f);
   float dyt = (j > 0 ? q[ql - 1] : 0.f) - (j < ny - 1 ? q[ql] : 0.f);
   return (dxt + dyt) + sv;
 }
@@ -195,9 +207,10 @@ __global__ void tight_seed(TK b) {
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
   Kron kr = kron_of(b);
+  RowCtx rc = row_ctx(b.sc, b.nx, b.nxg);
   size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
   for (int r = 0; r < 2 * b.L; ++r)
-    b.kxq[r * n + p] = grad_row(b.u, r, b.L, n, i, j, b.nx, b.ny)
+    b.kxq[r * n + p] = grad_row(b.u, r, b.L, n, i, j, b.nx, b.ny, rc)
                        + kron_fold(kr.row_ptr, kr.col, kr.wr, r, b.v, n, p);
   float acc = 0.f;
   for (int l = 0; l < b.L; ++l)
@@ -214,12 +227,13 @@ __global__ void tight_primal(TK b, int save_prev) {
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
+  RowCtx rc = row_ctx(b.sc, b.nx, b.nxg);
   size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
   float tu = b.sc[S_TAU] * b.c.tau_u;
   float sv = b.s[p];
   for (int l = 0; l < b.L; ++l) {
     size_t pl = l * n + p;
-    float kty = kty_u(b.q, sv, l, b.L, n, i, j, b.nx, b.ny);
+    float kty = kty_u(b.q, sv, l, b.L, n, i, j, b.ny, rc);
     float uv = b.u[pl];
     float tf = tu * b.f[pl];
     if (save_prev) b.up[pl] = uv;
@@ -243,6 +257,7 @@ __global__ void tight_dual(TK b, int save_prev) {
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
   Kron kr = kron_of(b);
+  RowCtx rc = row_ctx(b.sc, b.nx, b.nxg);
   int L = b.L, k = b.k;
   size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
   float tau = b.sc[S_TAU], sigma = b.sc[S_SIGMA], theta = b.sc[S_THETA];
@@ -275,7 +290,7 @@ __global__ void tight_dual(TK b, int save_prev) {
   // q, the free dual, with kxq from the new u and v
   for (int r = 0; r < 2 * L; ++r) {
     size_t pr = r * n + p;
-    float kx2 = grad_row(b.u, r, L, n, i, j, b.nx, b.ny)
+    float kx2 = grad_row(b.u, r, L, n, i, j, b.nx, b.ny, rc)
                 + kron_fold(kr.row_ptr, kr.col, kr.wr, r, b.v, n, p);
     float qv = b.q[pr], kxo = b.kxq[pr];
     if (save_prev) {
@@ -301,15 +316,16 @@ __global__ void tight_dual(TK b, int save_prev) {
 // First pass of the four preconditioned residual norms (_chunk_core after
 // the aligned iteration): per pixel the terms of |pd|^2 and |z_hat|^2 over
 // the q, p and s planes and of |dd|^2 and |w_hat|^2 over the u and v planes,
-// then per-block tree sums into partial[4 * block].  K^T of the current and
-// previous duals is recomputed.
+// then per-block tree sums into partial[4 * block], over the owned rows.
+// K^T of the current and previous duals is recomputed.
 // Bound: memory, about 14L + 16k + 4 planes read once per chunk.
 __global__ void tight_norm_partial(TK b) {
   b = instance_of(b);
   if (b.sc[S_CONV] != 0.f) return;
   int i, j;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (pixel(b.nx, b.ny, i, j)) {
+  RowCtx rc = row_ctx(b.sc, b.nx, b.nxg);
+  if (pixel(b.nx, b.ny, i, j) && owned_row(rc, i)) {
     Kron kr = kron_of(b);
     int L = b.L, k = b.k;
     size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
@@ -353,8 +369,8 @@ __global__ void tight_norm_partial(TK b) {
     acc[1] += zs * zs;
     for (int l = 0; l < L; ++l) {
       size_t pl = l * n + p;
-      float kty2 = kty_u(b.q, s2, l, L, n, i, j, b.nx, b.ny);
-      float ktyp = kty_u(b.qp, so, l, L, n, i, j, b.nx, b.ny);
+      float kty2 = kty_u(b.q, s2, l, L, n, i, j, b.ny, rc);
+      float ktyp = kty_u(b.qp, so, l, L, n, i, j, b.ny, rc);
       float wh = (b.up[pl] - b.u[pl]) / du - c.sqrt_u * ktyp;
       float dd = wh + c.sqrt_u * kty2;
       acc[2] += dd * dd;
@@ -416,6 +432,7 @@ TK tight_of(void* u, void* v, void* q, void* p, void* s, void* up, void* vp,
   b.nx = nx;
   b.ny = ny;
   b.ntaps = ntaps;
+  b.nxg = 0;
   b.c = c;
   return b;
 }
@@ -472,6 +489,27 @@ int prost_tight_chunk_batched(void* u, void* v, void* q, void* p, void* s,
   TK b = tight_of(u, v, q, p, s, up, vp, qp, pp, sp, kxq, kxqp, su, sup, f,
                   kron, sc, partial, L, k, nx, ny, ntaps, c);
   return chunk(b, count, batch, (cudaStream_t)stream);
+}
+
+// tight_fused_chunk_halo: prost_tight_chunk on one halo-extended shard of a
+// plane of nx_global rows; sc holds the row context (S_ROW_OFF, S_OWN_LO,
+// S_OWN_HI) and the squared norms cover the owned rows only.
+int prost_tight_chunk_halo(void* u, void* v, void* q, void* p, void* s,
+                           void* up, void* vp, void* qp, void* pp, void* sp,
+                           void* kxq, void* kxqp, void* su, void* sup,
+                           const void* f, const void* kron, void* sc,
+                           void* partial, int L, int k, int nx, int ny,
+                           int ntaps, float sig_q, float sig_p, float sig_s,
+                           float tau_u, float tau_v, float sqrt_q,
+                           float sqrt_p, float sqrt_s, float sqrt_u,
+                           float sqrt_v, int nx_global, int count,
+                           void* stream) {
+  Consts c = {sig_q, sig_p, sig_s, tau_u, tau_v,
+              sqrt_q, sqrt_p, sqrt_s, sqrt_u, sqrt_v};
+  TK b = tight_of(u, v, q, p, s, up, vp, qp, pp, sp, kxq, kxqp, su, sup, f,
+                  kron, sc, partial, L, k, nx, ny, ntaps, c);
+  b.nxg = nx_global;
+  return chunk(b, count, 1, (cudaStream_t)stream);
 }
 
 }  // extern "C"

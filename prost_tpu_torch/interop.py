@@ -10,6 +10,8 @@
   the same for the state of a spatially sharded backend (``ShardedPDHG``
   and the halo routes): every rank builds its shard of each vector from
   the whole (gathered) vectors, and every rank gets the whole vectors back;
+  ``sharded_admm_state_from_numpy`` / ``sharded_admm_state_to_numpy`` for
+  ``ShardedFusedADMM``'s state;
 * ``problem_arrays`` lists a finalized problem's linear operator (its
   blocks with their data), preconditioners and prox coefficients as numpy,
   so a test can check that both packages build the same K and finalize the
@@ -86,12 +88,27 @@ def sharded_pdhg_state_from_numpy(fields: dict, mesh, device,
 
 
 def sharded_pdhg_state_to_numpy(state) -> dict:
-    """Every field of a sharded ``PDHGState`` as a numpy array, each vector
-    gathered whole: a collective, which every rank of the mesh calls."""
+    """Every field of a sharded ``PDHGState`` (or ``ADMMState``) as a numpy
+    array, each vector gathered whole: a collective, which every rank of
+    the mesh calls."""
     from .parallel.spatial import whole
 
     return {f.name: to_numpy(whole(getattr(state, f.name)))
             for f in dataclasses.fields(state)}
+
+
+def sharded_admm_state_from_numpy(fields: dict, mesh, device,
+                                  axis_name: str = "sp") -> ADMMState:
+    """This rank's sharded ``ADMMState`` on ``device`` from a JAX
+    ``ADMMState``'s fields as numpy arrays, its vectors gathered whole
+    (``sharded_pdhg_state_from_numpy`` for ADMM)."""
+    from .parallel.spatial import shard_state, sp_mesh
+
+    return shard_state(admm_state_from_numpy(fields, device),
+                       sp_mesh(mesh, axis_name))
+
+
+sharded_admm_state_to_numpy = sharded_pdhg_state_to_numpy
 
 
 def admm_state_from_numpy(fields: dict, device) -> ADMMState:

@@ -17,7 +17,11 @@ Two kernels carry the route, each a hand-written CUDA kernel set in
   and the four squared residual norms of the last one;
 * ``admm_multichunk`` (JAX ``admm_fused_multichunk``): up to ``k_chunks``
   Chebyshev chunks with the Boyd rho adaptation, the dual rescale and the
-  stopping test on the device between chunks.
+  stopping test on the device between chunks;
+* ``admm_iter_halo`` (JAX ``admm_banded_iter`` on a shard): one Chebyshev
+  iteration in place on a halo-extended shard of a row-partitioned plane,
+  with the owned rows' norms or without, the spatially sharded route's
+  (``parallel/spatial_fused.py``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no other route and no fallback,
@@ -51,9 +55,9 @@ from ..backend.admm import (ADMMState, BackendADMM, admm_residual_adapt,
 from ..backend.pdhg import hold_if
 from ..config import ProstError
 from .fused_rof import DATATERMS, _SQRT_S, _SQRT_T, match_rof_structure
-from .pdhg_chunk import (CF, CI, VP, check_buffers, dead_dual_flat, dx, dxt,
-                         dy, dyt, entry_converged, launch, project_dead_dual,
-                         ptr, scalar_buffer, typed_lib)
+from .pdhg_chunk import (CF, CI, VP, WHOLE_PLANE, check_buffers, check_halo,
+                         dead_dual_flat, dx, dxt, dy, dyt, entry_converged,
+                         halo_row_ops, launch, ptr, scalar_buffer, typed_lib)
 from .phases import K_CHUNKS, run_phases
 
 _C_K = _SQRT_S * _SQRT_T  # K~ = c_K * grad
@@ -70,7 +74,8 @@ _S_CONV, _S_DONE, _S_NORM, _S_LEN = 11, 12, 13, 24
 _SOUT = (0, 3, 4, 5, _S_CONV, _S_DONE)  # rho delta arb_l arb_u conv done
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
-launch_counts = {"admm_chunk": 0, "admm_multichunk": 0}
+launch_counts = {"admm_chunk": 0, "admm_multichunk": 0,
+                 "admm_iter_halo": 0}
 
 
 def reset_launch_counts() -> None:
@@ -138,17 +143,28 @@ def cheby_coeffs(degree: int) -> list:
     return out
 
 
-def _cheby_project(d_x, d_y, u0, degree: int):
+def admm_cheby_halo_rows(degree: int) -> int:
+    """The halo of one Chebyshev-ADMM iteration on a shard: the rows one
+    outer iteration moves information, 2 degree + 4 as the JAX package
+    counts them (the degree - 1 steps, the right-hand side, the warm
+    start's M, x_proj's gradient, the norms' stencils), rounded up to 8
+    as the JAX package's DMA windows need, so that both packages exchange
+    the same rows."""
+    return -(-(2 * int(degree) + 4) // 8) * 8
+
+
+def _cheby_project(d_x, d_y, u0, degree: int, rows=WHOLE_PLANE):
     """Solve min ||A u - d||^2 + ||u||^2 (A = c_K grad) by ``degree`` steps
     of the classical Chebyshev iteration on (I + A^T A) u = A^T d,
     warm-started from u0; no reductions.  Degree 10 reaches about 4e-8
-    relative to the warm-start residual, the f32 floor."""
+    relative to the warm-start residual, the f32 floor.  ``rows`` is the
+    planes' ``RowOps``."""
     c2 = _C_K * _C_K
 
     def M(u):
-        return u + c2 * (dxt(dx(u)) + dyt(dy(u)))
+        return u + c2 * (rows.dxt(rows.dx(u)) + dyt(dy(u)))
 
-    b = _C_K * (dxt(d_x) + dyt(d_y))
+    b = _C_K * (rows.dxt(d_x) + dyt(d_y))
     r = b - M(u0)
     x = u0
     d = r * (1.0 / _CHEB_THETA)
@@ -160,23 +176,23 @@ def _cheby_project(d_x, d_y, u0, degree: int):
 
 
 def _admm_iter(xh, xp, xd, zh, zp, zd, warm, f, w, project, rho, lmb,
-               radius, alpha: float, dataterm: str):
+               radius, alpha: float, dataterm: str, rows=WHOLE_PLANE):
     """One graph-projection ADMM iteration (``backend.admm.admm_step``
     specialized to Sigma = 1/2, Tau = 1/4).  ``project(d_x, d_y, warm)``
     is the inner least-squares solver.  z-like values travel as (zx, zy)
-    plane pairs."""
+    plane pairs; ``rows`` is the planes' ``RowOps``."""
     # relaxed arguments (scaled space)
     t1 = (alpha * xh + (1.0 - alpha) * xp + xd) * _INV_SQRT_T
     t2_x = _SQRT_S * (zh[0] + zd[0])
     t2_y = _SQRT_S * (zh[1] + zd[1])
 
     # graph projection: min ||K~ u - d||^2 + ||u||^2, warm-started
-    d_x = t2_x - _C_K * dx(t1)
+    d_x = t2_x - _C_K * rows.dx(t1)
     d_y = t2_y - _C_K * dy(t1)
     u = project(d_x, d_y, warm)
 
     xp_n = _SQRT_T * (u + t1)
-    zp_nx = dx(xp_n)
+    zp_nx = rows.dx(xp_n)
     zp_ny = dy(xp_n)
     xd_n = _SQRT_T * t1 - xp_n
     zd_nx = t2_x * _INV_SQRT_S - zp_nx
@@ -207,22 +223,24 @@ def _admm_iter(xh, xp, xd, zh, zp, zd, warm, f, w, project, rho, lmb,
             (zd_nx, zd_ny), u)
 
 
-def _admm_norms(xh, xp, xd, zh, zp, zd, rho):
+def _admm_norms(xh, xp, xd, zh, zp, zd, rho, rows=WHOLE_PLANE):
     """The four SQUARED preconditioned residual norms of an ADMM iterate
-    with Sigma = 1/2, Tau = 1/4: |pr|^2, |pn|^2, |dr|^2, |dn|^2."""
-    pr_x = _SQRT_S * (dx(xh) - zh[0])
+    with Sigma = 1/2, Tau = 1/4: |pr|^2, |pn|^2, |dr|^2, |dn|^2, summed by
+    ``rows.nsum`` (a halo-extended shard's: the owned rows)."""
+    pr_x = _SQRT_S * (rows.dx(xh) - zh[0])
     pr_y = _SQRT_S * (dy(xh) - zh[1])
     pn_x = _SQRT_S * zh[0]
     pn_y = _SQRT_S * zh[1]
     wv = (-rho * 4.0) * (xh - xp + xd)             # -rho / Tau
     y_x = (-rho * 0.5) * (zh[0] - zp[0] + zd[0])   # -rho * Sigma
     y_y = (-rho * 0.5) * (zh[1] - zp[1] + zd[1])
-    kty = dxt(y_x) + dyt(y_y)
+    kty = rows.dxt(y_x) + dyt(y_y)
     dn = _SQRT_T * wv
     dr = _SQRT_T * (wv + kty)
-    return (torch.sum(pr_x * pr_x) + torch.sum(pr_y * pr_y),
-            torch.sum(pn_x * pn_x) + torch.sum(pn_y * pn_y),
-            torch.sum(dr * dr), torch.sum(dn * dn))
+    nsum = rows.nsum
+    return (nsum(pr_x * pr_x) + nsum(pr_y * pr_y),
+            nsum(pn_x * pn_x) + nsum(pn_y * pn_y),
+            nsum(dr * dr), nsum(dn * dn))
 
 
 def admm_adapt_scalars(consts, tols4, it, rho, delta, arb_l, arb_u,
@@ -267,10 +285,10 @@ def _chunk_planes(planes, f, w, rho, lmb, radius, count, alpha, dataterm,
     return xh, xp, xd, zh, zp, zd, warm
 
 
-def _entry_planes(xh, xp, xd, zh, zp, zd, warm):
+def _entry_planes(xh, xp, xd, zh, zp, zd, warm, rows=WHOLE_PLANE):
     """The state as the kernels start from it: z dead coordinates zeroed,
     z-like arrays split into plane pairs."""
-    zs = tuple(project_dead_dual(z[0], z[1]) for z in (zh, zp, zd))
+    zs = tuple(rows.project(z[0], z[1]) for z in (zh, zp, zd))
     return (xh, xp, xd) + zs + (warm,)
 
 
@@ -296,6 +314,31 @@ def admm_chunk_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
     planes = _chunk_planes(_entry_planes(xh, xp, xd, zh, zp, zd, warm), f, w,
                            rho, lmb, radius, count, alpha, dataterm, project)
     norms2 = torch.stack(_admm_norms(*planes[:6], rho))
+    conv = entry_converged(scal, 3)
+    ins = (xh, xp, xd, zh, zp, zd, warm)
+    outs = tuple(torch.where(conv, a, b) for a, b in zip(ins,
+                                                         _stack_z(planes)))
+    return outs + (torch.where(conv, torch.zeros_like(norms2), norms2),)
+
+
+def admm_iter_halo_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal,
+                         degree: int, alpha: float, nx_global: int,
+                         row_offset: int, own_lo: int, own_hi: int,
+                         dataterm: str = "square", with_norms: bool = True):
+    """Plain PyTorch version of ``admm_iter_halo`` (any device): the 7
+    state arrays after one Chebyshev iteration on the shard, and the owned
+    rows' 4 squared norms (zeros without ``with_norms``)."""
+    rows = halo_row_ops(row_offset, nx_global, own_lo, own_hi)
+    rho, lmb, radius = scal[0], scal[1], scal[2]
+
+    def project(d_x, d_y, u0):
+        return _cheby_project(d_x, d_y, u0, int(degree), rows)
+
+    planes = _admm_iter(*_entry_planes(xh, xp, xd, zh, zp, zd, warm, rows),
+                        f, w, project, rho, lmb, radius, alpha, dataterm,
+                        rows)
+    norms2 = (torch.stack(_admm_norms(*planes[:6], rho, rows)) if with_norms
+              else torch.zeros(4, dtype=xh.dtype, device=xh.device))
     conv = entry_converged(scal, 3)
     ins = (xh, xp, xd, zh, zp, zd, warm)
     outs = tuple(torch.where(conv, a, b) for a, b in zip(ins,
@@ -377,10 +420,12 @@ def _check(planes, f, w, scal, n_scal: int, count: int, dataterm: str):
 class _Work:
     """The buffers one kernel call works on in place: copies of the 7
     state planes (so a call that returns at once hands its inputs back),
-    8 scratch planes, the scalar buffer and the reduction partials."""
+    or with ``copy=False`` the caller's planes themselves, 8 scratch planes,
+    the scalar buffer and the reduction partials."""
 
-    def __init__(self, lib, planes, scal, n_scal: int):
-        self.planes = [t.contiguous().clone() for t in planes]
+    def __init__(self, lib, planes, scal, n_scal: int, copy: bool = True):
+        self.planes = ([t.contiguous().clone() for t in planes] if copy
+                       else list(planes))
         nx, ny = self.planes[0].shape
         dev = self.planes[0].device
         self.scratch = torch.empty(8 * nx * ny, dtype=torch.float32,
@@ -409,7 +454,11 @@ def _lib():
         # 12 buffers, nx, ny, count, k_chunks, dataterm, degree, coeffs,
         # alpha, 1 - alpha, 4 adaptation constants, stream
         "prost_admm_multichunk": [VP] * 12 + [CI] * 6 + [VP] + [CF] * 6
-                                 + [VP]})
+                                 + [VP],
+        # 12 buffers, nx, ny, dataterm, degree, coeffs, alpha, 1 - alpha,
+        # nx_global, row_offset, own_lo, own_hi, with_norms, stream
+        "prost_admm_iter_halo": [VP] * 12 + [CI] * 4 + [VP, CF, CF]
+                                + [CI] * 5 + [VP]})
 
 
 def _coeff_array(degree):
@@ -458,6 +507,61 @@ def admm_chunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
            _coeff_array(cheby_degree), int(maxit), float(alpha),
            1.0 - float(alpha))
     return wk.outputs() + (wk.sc[_S_NORM:_S_NORM + 4],)
+
+
+def admm_iter_halo(xh, xp, xd, zh, zp, zd, warm, f, w, scal, degree: int,
+                   alpha: float, nx_global: int, row_offset: int,
+                   own_lo: int, own_hi: int, dataterm: str = "square",
+                   with_norms: bool = True):
+    """One Chebyshev ADMM iteration on one halo-extended shard of a
+    row-partitioned plane of ``nx_global`` rows (JAX ``admm_banded_iter``
+    with one band, own_lo, out_rows, nx_global and row_offset0).
+
+    x-like planes (nxb, ny), z-like (2, nxb, ny), the shard's rows in the
+    middle and its neighbours' halo rows (zeros beyond the plane) above and
+    below; local row 0 is global row ``row_offset``, [own_lo, own_hi) are
+    the owned local rows; scal: [rho, lmb, radius] (+ an optional converged
+    flag: when set, nothing runs and the inputs come back).  Returns the 7
+    state arrays and the 4 SQUARED residual norms of the owned rows (zeros
+    without ``with_norms``).  CPU tensors run the plain version; CUDA
+    tensors launch the kernel."""
+    planes = [t.contiguous().clone() for t in (xh, xp, xd, zh, zp, zd, warm)]
+    norms2 = admm_iter_halo_(*planes, f, w, scal, degree, alpha, nx_global,
+                             row_offset, own_lo, own_hi, dataterm, with_norms)
+    return tuple(planes) + (norms2,)
+
+
+def admm_iter_halo_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, degree: int,
+                    alpha: float, nx_global: int, row_offset: int,
+                    own_lo: int, own_hi: int, dataterm: str = "square",
+                    with_norms: bool = True):
+    """``admm_iter_halo`` in place, on the sharded route's persistent
+    buffers: the 7 state arrays advance by one iteration (with the
+    converged flag set nothing changes).  Returns norms2."""
+    planes = (xh, xp, xd, zh, zp, zd, warm)
+    _check(planes, f, w, scal, 3, 1, dataterm)
+    check_halo(nx_global, planes)
+    if int(degree) < 1:
+        raise ProstError("The Chebyshev projection needs a degree >= 1.")
+    if not 0 <= own_lo < own_hi <= xh.shape[0]:
+        raise ProstError(f"The owned rows [{own_lo}, {own_hi}) must lie in "
+                         f"the shard's {xh.shape[0]} rows.")
+    if xh.device.type == "cpu":
+        out = admm_iter_halo_plain(*planes, f, w, scal, degree, alpha,
+                                   nx_global, row_offset, own_lo, own_hi,
+                                   dataterm, with_norms)
+        for t, v in zip(planes, out):
+            t.copy_(v)
+        return out[-1]
+    lib = _lib()
+    wk = _Work(lib, planes, scal, 3, copy=False)
+    nx, ny = xh.shape
+    launch(lib, "prost_admm_iter_halo", "admm_iter_halo", launch_counts,
+           xh.device, wk.buffers(f, w), nx, ny, DATATERMS[dataterm],
+           int(degree), _coeff_array(degree), float(alpha),
+           1.0 - float(alpha), int(nx_global), int(row_offset), int(own_lo),
+           int(own_hi), int(bool(with_norms)))
+    return wk.sc[_S_NORM:_S_NORM + 4]
 
 
 def admm_multichunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,

@@ -23,7 +23,10 @@ with a plain PyTorch version beside each wrapper here:
   residual norms;
 * ``deblur_chunk_batched`` (JAX ``deblur_fused_chunk_batched``): one chunk
   for each of B frames that share one blur, in one launch sequence, the
-  batched ensembles' route (``parallel/ensemble.py``).
+  batched ensembles' route (``parallel/ensemble.py``);
+* ``deblur_chunk_halo`` (JAX ``deblur_fused_chunk_halo``): one chunk on a
+  halo-extended band of the (nx2, ny2) grid's rows, x and q cut at the same
+  global rows, the spatially sharded route's (``parallel/spatial_fused.py``).
 
 The JAX package has no multichunk kernel for this workload, and neither
 has the port.  A wrapper given CPU tensors runs the plain version; given CUDA
@@ -38,7 +41,10 @@ padding stays zero.  The port's wrapper takes x as (nx, ny) and q as (2,
 nx, ny), the solver's own layout, and y_v, f_b and Sigma_v as (nx2, ny2);
 its kernel reads the missing padding as zero, which saves a pad and a crop
 per chunk.  The plain version embeds, runs the JAX package's arithmetic on
-the embedded planes and crops.
+the embedded planes and crops.  Its shifts fill with zeros where the JAX
+package's rolls wrap around: on the whole plane the wrapped rows and
+columns are padding or masked, so the values are the same, and on a halo
+band the zeros are what the kernel reads beyond the band's rows.
 
 Unlike the ROF and multilabel routes, nothing is canonicalized: the
 gradient adjoint is masked to the (nx, ny) region, so mass on q_x's last
@@ -61,15 +67,18 @@ from ..linop.gradient import BlockGradient2D
 from ..prox.combinators import ProxMoreau
 from ..prox.elemop import ProxElem1D
 from ..prox.standalone import ProxZero
-from .pdhg_chunk import (CF, CI, VP, ChunkWork, ball_scale, check_buffers,
-                         chunk_state, coeff_vector, dual_ball_radius,
-                         entry_converged, isscalar, launch, run_pdhg_route,
-                         segment_const, typed_lib, vmap_plain)
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, VP, ChunkWork, ball_scale,
+                         check_buffers, check_halo, chunk_state,
+                         coeff_vector, dual_ball_radius, entry_converged,
+                         halo_copy, halo_into, isscalar, launch,
+                         run_pdhg_route, segment_const, typed_lib,
+                         vmap_plain)
 
 MAX_TAPS = 96  # nonzero convolution taps the kernel takes
 
 # launches of the kernel wrapper on the card (CPU calls do not count)
-launch_counts = {"deblur_chunk": 0, "deblur_chunk_batched": 0}
+launch_counts = {"deblur_chunk": 0, "deblur_chunk_batched": 0,
+                 "deblur_chunk_halo": 0}
 
 
 def reset_launch_counts() -> None:
@@ -102,20 +111,33 @@ def _tree_sum(terms):
     return terms[0]
 
 
-def _conv_ops(nx2, ny2, region, taps):
+def _shift(u, s: int, dim: int):
+    """``u`` shifted by ``s`` along ``dim``: out[i] = u[i - s], zero where
+    i - s lies outside."""
+    n = u.shape[dim]
+    if s == 0:
+        return u
+    if abs(s) >= n:
+        return torch.zeros_like(u)
+    zeros = torch.zeros_like(u.narrow(dim, 0, abs(s)))
+    if s > 0:
+        return torch.cat([zeros, u.narrow(dim, 0, n - s)], dim)
+    return torch.cat([u.narrow(dim, -s, n + s), zeros], dim)
+
+
+def _conv_ops(region, taps):
     """Forward full convolution and its adjoint (valid correlation) as
-    roll stencils on (nx2, ny2) planes whose padding is zero: the forward
-    wrap rows are padding, the adjoint is masked to the region."""
+    shift stencils on planes embedded in the yv grid, zero outside the
+    image: the forward needs no mask, the adjoint is masked to the
+    image."""
     order = ordered_taps(taps)
 
     def terms(u, sign):
-        out, rolled = [], {}
+        out, shifted = [], {}
         for dx, dy, w in order:
-            sx, sy = (sign * dx) % nx2, (sign * dy) % ny2
-            if sx not in rolled:
-                rolled[sx] = torch.roll(u, sx, -2) if sx else u
-            ux = rolled[sx]
-            out.append(w * (torch.roll(ux, sy, -1) if sy else ux))
+            if dx not in shifted:
+                shifted[dx] = _shift(u, sign * dx, -2)
+            out.append(w * _shift(shifted[dx], sign * dy, -1))
         return out
 
     def fwd(u):
@@ -127,26 +149,30 @@ def _conv_ops(nx2, ny2, region, taps):
     return fwd, adj
 
 
-def _grad_ops(nx, ny, nx2, ny2, device):
-    """Forward differences and their adjoint restricted to the (nx, ny)
-    region of an (nx2, ny2) plane."""
-    ri = torch.arange(nx2, device=device)[:, None]
+def _grad_ops(nx, ny, nrows, ny2, device, row_offset: int = 0):
+    """Forward differences and their adjoint restricted to the image of
+    ``nrows`` rows of the yv grid whose local row 0 is global row
+    ``row_offset`` (0 for the whole plane, nrows = nx2), the image being
+    global rows [0, nx) and columns [0, ny)."""
+    li = torch.arange(nrows, device=device)[:, None]
+    gi = li + row_offset
     ci = torch.arange(ny2, device=device)[None, :]
-    in_r, in_c = ri < nx - 1, ci < ny - 1
-    region = (ri < nx) & (ci < ny)
+    in_r = (li < nrows - 1) & (gi >= 0) & (gi < nx - 1)
+    in_c = ci < ny - 1
+    region = (gi >= 0) & (gi < nx) & (ci < ny)
 
     def dx(u):
-        return torch.where(in_r, torch.roll(u, -1, -2) - u, 0.0)
+        return torch.where(in_r, _shift(u, -1, -2) - u, 0.0)
 
     def dy(u):
-        return torch.where(in_c, torch.roll(u, -1, -1) - u, 0.0)
+        return torch.where(in_c, _shift(u, -1, -1) - u, 0.0)
 
     def dxt(p):
-        lead = torch.where(ri > 0, torch.roll(p, 1, -2), 0.0)
+        lead = torch.where(gi > 0, _shift(p, 1, -2), 0.0)
         return torch.where(region, lead - torch.where(in_r, p, 0.0), 0.0)
 
     def dyt(p):
-        lead = torch.where(ci > 0, torch.roll(p, 1, -1), 0.0)
+        lead = torch.where(ci > 0, _shift(p, 1, -1), 0.0)
         return torch.where(region, lead - torch.where(in_c, p, 0.0), 0.0)
 
     return dx, dy, dxt, dyt, region
@@ -154,16 +180,29 @@ def _grad_ops(nx, ny, nx2, ny2, device):
 
 def chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, yv0, qx0, qy0, fb,
                sv, count: int, nx: int, ny: int, taps, sig_q: float,
-               tau_t: float):
+               tau_t: float, band=None):
     """``count - 1`` plain iterations, then the aligned iteration with its
     four preconditioned residual norms (squared), on planes embedded in
-    (nx2, ny2) = fb.shape: the JAX package's ``_chunk_core``, whole plane.
+    fb.shape, the yv grid: the JAX package's ``_chunk_core``.  ``band`` =
+    (row_offset, own_lo, own_hi) runs it on a halo-extended band of the yv
+    grid's rows, its masks on global rows and its norms over the owned
+    rows; None is the whole plane.
 
     Returns (x2, yv2, qx2, qy2, x_prev, yv_prev, qx_prev, qy_prev, norms),
     all embedded."""
-    nx2, ny2 = fb.shape
-    dx, dy, dxt, dyt, region = _grad_ops(nx, ny, nx2, ny2, fb.device)
-    conv_fwd, conv_adj = _conv_ops(nx2, ny2, region, taps)
+    nrows, ny2 = fb.shape
+    row_offset, own_lo, own_hi = (0, 0, nrows) if band is None else band
+    dx, dy, dxt, dyt, region = _grad_ops(nx, ny, nrows, ny2, fb.device,
+                                         row_offset)
+    conv_fwd, conv_adj = _conv_ops(region, taps)
+    if band is None:
+        nsum = torch.sum
+    else:
+        li = torch.arange(nrows, device=fb.device)[:, None]
+        owned = (li >= own_lo) & (li < own_hi)
+
+        def nsum(v):
+            return torch.sum(torch.where(owned, v, 0.0))
 
     tau_s = tau_raw * tau_t            # tau * Tau
     tsv = sigma_raw * sv               # sigma * Sigma_v (plane)
@@ -212,12 +251,10 @@ def chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, yv0, qx0, qy0, fb,
     dd = wh + sqrt_t * kty2
 
     norms = (
-        torch.sum(pd_v * pd_v) + torch.sum(pd_x * pd_x)
-        + torch.sum(pd_y * pd_y),
-        torch.sum(zh_v * zh_v) + torch.sum(zh_x * zh_x)
-        + torch.sum(zh_y * zh_y),
-        torch.sum(dd * dd),
-        torch.sum(wh * wh),
+        nsum(pd_v * pd_v) + nsum(pd_x * pd_x) + nsum(pd_y * pd_y),
+        nsum(zh_v * zh_v) + nsum(zh_x * zh_x) + nsum(zh_y * zh_y),
+        nsum(dd * dd),
+        nsum(wh * wh),
     )
     return x2, yv2, qx2, qy2, x, yv, qx, qy, norms
 
@@ -229,17 +266,24 @@ def embed(a, nx2, ny2):
 
 
 def deblur_chunk_plain(x, yv, q, fb, sv, scal, count: int, taps,
-                       sig_q: float, tau_t: float):
-    """Plain PyTorch version of ``deblur_chunk`` (any device)."""
+                       sig_q: float, tau_t: float, nx_global=None):
+    """Plain PyTorch version of ``deblur_chunk`` (any device); with
+    ``nx_global``, the image's rows, that of ``deblur_chunk_halo`` (it reads
+    the row context of ``scal`` on the host)."""
     nx, ny = x.shape
     nx2, ny2 = yv.shape
+    band, n_scal, nx_img = None, 5, nx
+    if nx_global is not None:
+        band = tuple(int(v) for v in scal[5:N_HALO_SCAL].tolist())
+        n_scal, nx_img = N_HALO_SCAL, int(nx_global)
     qe = embed(q, nx2, ny2)
     x2, yv2, qx2, qy2, xp, yvp, qxp, qyp, norms = chunk_core(
         scal[0], scal[1], scal[2], scal[3], scal[4], embed(x, nx2, ny2), yv,
-        qe[0], qe[1], fb, sv, int(count), nx, ny, taps, sig_q, tau_t)
+        qe[0], qe[1], fb, sv, int(count), nx_img, ny, taps, sig_q, tau_t,
+        band)
     crop = (..., slice(0, nx), slice(0, ny))
     n2 = torch.stack(norms)
-    conv = entry_converged(scal, 5)
+    conv = entry_converged(scal, n_scal)
     return (torch.where(conv, x, x2[crop]), torch.where(conv, yv, yv2),
             torch.where(conv, q, torch.stack([qx2, qy2])[crop]),
             torch.where(conv, x, xp[crop]), torch.where(conv, yv, yvp),
@@ -269,7 +313,8 @@ def taps_array(taps, device) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
-def _check(x, yv, q, fb, sv, scal, count: int, taps, batched: bool = False):
+def _check(x, yv, q, fb, sv, scal, count: int, taps, batched: bool = False,
+           halo: bool = False):
     if int(count) < 1:
         raise ProstError("A chunk needs count >= 1.")
     lead = x.shape[:1] if batched else ()
@@ -283,19 +328,25 @@ def _check(x, yv, q, fb, sv, scal, count: int, taps, batched: bool = False):
         raise ProstError(f"yv must be {what} with nx2 >= {nx}, ny2 >= {ny}, "
                          f"got {tuple(yv.shape)}.")
     nx2, ny2 = yv.shape[k:]
+    if halo and nx2 != nx:
+        raise ProstError(f"A halo band's x and yv have the same rows, got "
+                         f"{nx} and {nx2}.")
     if not 1 <= len(taps) <= MAX_TAPS:
         raise ProstError(f"The kernel takes 1 to {MAX_TAPS} taps, got "
                          f"{len(taps)}.")
+    # a band's rows do not bound the row shifts, the image's do
+    kx = nx2 - nx if not halo else max(dx for dx, _, _ in taps)
     for dx, dy, _ in taps:
-        if not (0 <= dx <= nx2 - nx and 0 <= dy <= ny2 - ny):
+        if not (0 <= dx <= kx and 0 <= dy <= ny2 - ny):
             raise ProstError(f"Tap ({dx}, {dy}) lies outside the "
-                             f"{nx2 - nx + 1}x{ny2 - ny + 1} kernel.")
+                             f"{kx + 1}x{ny2 - ny + 1} kernel.")
     check_buffers("deblur", (("x", x, (*lead, nx, ny)),
                              ("yv", yv, (*lead, nx2, ny2)),
                              ("q", q, (*lead, 2, nx, ny)),
                              ("fb", fb, (*lead, nx2, ny2)),
                              ("sv", sv, (*lead, nx2, ny2))),
-                  scal, 5, lead[0] if batched else None)
+                  scal, N_HALO_SCAL if halo else 5,
+                  lead[0] if batched else None)
 
 
 def _lib():
@@ -304,24 +355,26 @@ def _lib():
     head = [VP] * 15 + [CI] * 5 + [CF] * 4
     return typed_lib("fused_deblur", "prost_deblur_num_blocks", {
         "prost_deblur_chunk": head + [CI, VP],
-        "prost_deblur_chunk_batched": head + [CI, CI, VP]})
+        "prost_deblur_chunk_batched": head + [CI, CI, VP],
+        "prost_deblur_chunk_halo": head + [CI, CI, VP]})
 
 
-def _launch(fn: str, what: str, x, yv, q, fb, sv, scal, count: int, taps,
-            sig_q: float, tau_t: float, *args):
+def _launch(fn: str, what: str, x, yv, q, fb, sv, scal, n_scal: int, taps,
+            sig_q: float, tau_t: float, *args, prev=None):
     """One launch of ``fn`` on copies of (x, yv, q) (with a leading frame
-    axis for a batched launch); returns its outputs."""
+    axis for a batched launch), or on (x, yv, q) and ``prev`` themselves;
+    returns its outputs."""
     lib = _lib()
     nx, ny = x.shape[-2:]
     nx2, ny2 = yv.shape[-2:]
-    wk = ChunkWork((x, yv, q), (yv, q), scal, 5,
-                   lib.prost_deblur_num_blocks(nx2, ny2))
+    wk = ChunkWork((x, yv, q), (yv, q), scal, n_scal,
+                   lib.prost_deblur_num_blocks(nx2, ny2), prev=prev)
     # sqrt(Sigma_q) and sqrt(Tau) rounded once from double, as the plain
     # version rounds its Python constants
     launch(lib, fn, what, launch_counts, x.device,
            wk.buffers(fb, sv, taps_array(tuple(taps), x.device)),
            nx, ny, nx2, ny2, len(taps), sig_q, tau_t, sig_q ** 0.5,
-           tau_t ** 0.5, int(count), *args)
+           tau_t ** 0.5, *args)
     return wk.outputs()
 
 
@@ -343,7 +396,53 @@ def deblur_chunk(x, yv, q, fb, sv, scal, count: int, taps, sig_q: float,
         return deblur_chunk_plain(x, yv, q, fb, sv, scal, count, taps, sig_q,
                                   tau_t)
     return _launch("prost_deblur_chunk", "deblur_chunk", x, yv, q, fb, sv,
-                   scal, count, taps, sig_q, tau_t)
+                   scal, 5, taps, sig_q, tau_t, int(count))
+
+
+def deblur_halo_rows(count: int, taps) -> int:
+    """The halo of a deblur chunk on a band of the yv grid's rows: a chunk
+    of ``count`` iterations applies 2 count + 2 operators along the rows,
+    each spreading information by the blur's row reach (its largest row
+    shift, at least the gradient's 1)."""
+    reach = max(max(dx for dx, _, _ in taps), 1)
+    return (2 * int(count) + 2) * reach
+
+
+def deblur_chunk_halo(x, yv, q, fb, sv, scal, count: int, nx_global: int,
+                      taps, sig_q: float, tau_t: float):
+    """``deblur_chunk`` on one halo-extended band of the rows of the yv
+    grid (nx2, ny2) of an image of ``nx_global`` rows.
+
+    x: (nxb, ny); q: (2, nxb, ny); yv, fb, sv: (nxb, ny2): the band's rows
+    of each plane at the same global rows of the yv grid, its neighbours'
+    halo rows above and below, zeros beyond the planes (x and q have
+    nx_global rows, the others nx2); scal: [tau, sigma, theta, lmb, radius,
+    row_offset, own_lo, own_hi] (+ an optional converged flag), row_offset
+    the global row of local row 0 and [own_lo, own_hi) the owned local
+    rows.  Returns the tuple of ``deblur_chunk``, norms2 over the owned rows
+    only.  CPU tensors run the plain version; CUDA tensors launch the
+    kernel."""
+    return halo_copy(deblur_chunk_halo_, (x, yv, q), fb, sv, scal, count,
+                     nx_global, taps, sig_q, tau_t)
+
+
+def deblur_chunk_halo_(x, yv, q, x_prev, yv_prev, q_prev, fb, sv, scal,
+                       count: int, nx_global: int, taps, sig_q: float,
+                       tau_t: float):
+    """``deblur_chunk_halo`` in place, on the sharded route's persistent
+    buffers: (x, yv, q) advance by ``count`` iterations and the previous
+    buffers take the iterate before the aligned one; with the converged
+    flag set nothing changes.  Returns norms2."""
+    state, prev = (x, yv, q), (x_prev, yv_prev, q_prev)
+    _check(*state, fb, sv, scal, count, taps, halo=True)
+    check_halo(nx_global, state, prev)
+    if x.device.type == "cpu":
+        return halo_into(state, prev, deblur_chunk_plain(
+            *state, fb, sv, scal, count, taps, sig_q, tau_t, nx_global),
+            scal)
+    return _launch("prost_deblur_chunk_halo", "deblur_chunk_halo", *state, fb,
+                   sv, scal, N_HALO_SCAL, taps, sig_q, tau_t, int(nx_global),
+                   int(count), prev=prev)[-1]
 
 
 def deblur_chunk_batched(x, yv, q, fb, sv, scal, count: int, taps,
@@ -363,7 +462,7 @@ def deblur_chunk_batched(x, yv, q, fb, sv, scal, count: int, taps,
         return deblur_chunk_batched_plain(x, yv, q, fb, sv, scal, count,
                                           taps, sig_q, tau_t)
     return _launch("prost_deblur_chunk_batched", "deblur_chunk_batched", x,
-                   yv, q, fb, sv, scal, count, taps, sig_q, tau_t,
+                   yv, q, fb, sv, scal, 5, taps, sig_q, tau_t, int(count),
                    x.shape[0])
 
 

@@ -27,7 +27,10 @@ with a plain PyTorch version beside each wrapper here:
 * ``tight_chunk_batched`` (JAX ``tight_fused_chunk_batched``): one chunk
   for each of B instances that share (L, k, the taps, the constants), in
   one launch sequence, the batched ensembles' route
-  (``parallel/ensemble.py``).
+  (``parallel/ensemble.py``);
+* ``tight_chunk_halo`` (JAX ``tight_fused_chunk_halo``): one chunk on a
+  halo-extended shard of a row-partitioned plane, the spatially sharded
+  route's (``parallel/spatial_fused.py``).
 
 The JAX package has no multichunk kernel for this workload, and neither
 has the port.  A wrapper given CPU tensors runs the plain version; given CUDA
@@ -58,15 +61,18 @@ from ..linop.blocks import BlockDiags, BlockKronId
 from ..linop.gradient import BlockGradient2D, fwd_diff, fwd_diff_adjoint
 from ..prox.elemop import ProxElem1D
 from ..prox.standalone import ProxZero
-from .pdhg_chunk import (CF, CI, VP, ChunkWork, ball_scale, check_buffers,
-                         chunk_state, coeff_vector, entry_converged, isscalar,
-                         launch, leq0_ball_radius, run_pdhg_route,
-                         segment_const, typed_lib, vmap_plain)
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, VP, WHOLE_PLANE, ChunkWork,
+                         ball_scale, check_buffers, check_halo, chunk_state,
+                         coeff_vector, entry_converged, halo_copy, halo_into,
+                         halo_scal_rows, isscalar, launch, leq0_ball_radius,
+                         run_pdhg_route, segment_const, typed_lib,
+                         vmap_plain)
 
 MAX_TAPS = 512  # nonzeros of P^T the route takes (the JAX package's bound)
 
 # launches of the kernel wrapper on the card (CPU calls do not count)
-launch_counts = {"tight_chunk": 0, "tight_chunk_batched": 0}
+launch_counts = {"tight_chunk": 0, "tight_chunk_batched": 0,
+                 "tight_chunk_halo": 0}
 
 
 def reset_launch_counts() -> None:
@@ -101,25 +107,22 @@ def _kron_ops(taps, nrows_out: int, ncols_out: int):
     return fwd, adj
 
 
-def _dx(u):
-    return fwd_diff(u, -2)
-
-
 def _dy(u):
     return fwd_diff(u, -1)
 
 
-def _kty_u(q, s, L):
+def _kty_u(q, s, L, rows):
     """The u rows of K^T y: the masked gradient adjoint plus s."""
-    return fwd_diff_adjoint(q[:L], -2) + fwd_diff_adjoint(q[L:], -1) + s[None]
+    return rows.dxt_masked(q[:L]) + fwd_diff_adjoint(q[L:], -1) + s[None]
 
 
 def chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, v0, q0, p0, s0, f,
-               count: int, taps, consts):
+               count: int, taps, consts, rows=WHOLE_PLANE):
     """``count - 1`` plain iterations, then the aligned iteration with its
     four preconditioned residual norms (squared): the JAX package's
-    ``_chunk_core``, whole plane.  ``consts`` = (sig_q, sig_p, sig_s,
-    tau_u, tau_v), the constant preconditioner segments.
+    ``_chunk_core``.  ``consts`` = (sig_q, sig_p, sig_s, tau_u, tau_v), the
+    constant preconditioner segments; ``rows`` is the planes' ``RowOps``
+    (a halo-extended shard's: owned-row norms).
 
     Returns ((u2, v2, q2, p2, s2), (u, v, q, p, s) before the aligned
     iteration, norms)."""
@@ -137,11 +140,11 @@ def chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, v0, q0, p0, s0, f,
     def update(u, v, q, p, s, kxq, su):
         """One iteration; (kxq, su) = the q-row and s-row forward products
         of the current primal, carried between iterations."""
-        ktyu = _kty_u(q, s, L)
+        ktyu = _kty_u(q, s, L, rows)
         ktyv = kp_adj(q) + p
         u2 = torch.clamp_min(u - tu * ktyu - tf, 0.0)
         v2 = v - tv * ktyv
-        kxq2 = torch.cat([_dx(u2), _dy(u2)]) + kp_fwd(v2)
+        kxq2 = torch.cat([rows.dx(u2), _dy(u2)]) + kp_fwd(v2)
         su2 = torch.sum(u2, dim=0)
         q2 = q + sq * ((1.0 + theta) * kxq2 - theta * kxq)  # free dual
         ap = p + sp * ((1.0 + theta) * v2 - theta * v)
@@ -151,14 +154,14 @@ def chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, v0, q0, p0, s0, f,
         return u2, v2, q2, p2, s2, kxq2, su2, ktyu, ktyv
 
     u, v, q, p, s = u0, v0, q0, p0, s0
-    kxq = torch.cat([_dx(u0), _dy(u0)]) + kp_fwd(v0)
+    kxq = torch.cat([rows.dx(u0), _dy(u0)]) + kp_fwd(v0)
     su = torch.sum(u0, dim=0)
     for _ in range(count - 1):
         u, v, q, p, s, kxq, su, _, _ = update(u, v, q, p, s, kxq, su)
     # aligned iteration; (kxq, su) = K x_prev products carried for free
     u2, v2, q2, p2, s2, kxq2, su2, ktyu_p, ktyv_p = update(u, v, q, p, s,
                                                            kxq, su)
-    ktyu2 = _kty_u(q2, s2, L)
+    ktyu2 = _kty_u(q2, s2, L, rows)
     ktyv2 = kp_adj(q2) + p2
 
     # preconditioned residuals, segment-wise constants
@@ -179,7 +182,7 @@ def chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, v0, q0, p0, s0, f,
     dd_v = wh_v + sqrt_tv * ktyv2
 
     def ssq(a):
-        return torch.sum(a * a)
+        return rows.nsum(a * a)
 
     norms = (ssq(pd_q) + ssq(pd_p) + ssq(pd_s),
              ssq(zh_q) + ssq(zh_p) + ssq(zh_s),
@@ -188,16 +191,27 @@ def chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, v0, q0, p0, s0, f,
     return (u2, v2, q2, p2, s2), (u, v, q, p, s), norms
 
 
-def tight_chunk_plain(u, v, q, p, s, f, scal, count: int, taps, consts):
-    """Plain PyTorch version of ``tight_chunk`` (any device)."""
+def tight_chunk_plain(u, v, q, p, s, f, scal, count: int, taps, consts,
+                      rows=WHOLE_PLANE, n_scal: int = 5):
+    """Plain PyTorch version of ``tight_chunk`` (any device); with ``rows``
+    and ``n_scal`` that of a halo chunk."""
     new, prev, norms = chunk_core(scal[0], scal[1], scal[2], scal[3], scal[4],
-                                  u, v, q, p, s, f, int(count), taps, consts)
+                                  u, v, q, p, s, f, int(count), taps, consts,
+                                  rows)
     n2 = torch.stack(norms)
-    conv = entry_converged(scal, 5)
+    conv = entry_converged(scal, n_scal)
     state = (u, v, q, p, s)
     return (*(torch.where(conv, a, b) for a, b in zip(state, new)),
             *(torch.where(conv, a, b) for a, b in zip(state, prev)),
             torch.where(conv, torch.zeros_like(n2), n2))
+
+
+def tight_chunk_halo_plain(u, v, q, p, s, f, scal, count: int,
+                           nx_global: int, taps, consts):
+    """Plain PyTorch version of ``tight_chunk_halo`` (any device; reads the
+    row context of ``scal`` on the host)."""
+    return tight_chunk_plain(u, v, q, p, s, f, scal, count, taps, consts,
+                             halo_scal_rows(scal, nx_global), N_HALO_SCAL)
 
 
 def tight_chunk_batched_plain(u, v, q, p, s, f, scal, count: int, taps,
@@ -237,7 +251,7 @@ def kron_array(taps, L: int, k: int, device) -> torch.Tensor:
 
 
 def _check(u, v, q, p, s, f, scal, count: int, taps, consts,
-           batched: bool = False):
+           batched: bool = False, n_scal: int = 5):
     if int(count) < 1:
         raise ProstError("A chunk needs count >= 1.")
     lead = u.shape[:1] if batched else ()
@@ -266,7 +280,7 @@ def _check(u, v, q, p, s, f, scal, count: int, taps, consts,
                             ("p", p, (*lead, 2 * k, nx, ny)),
                             ("s", s, (*lead, nx, ny)),
                             ("f", f, (*lead, L, nx, ny))),
-                  scal, 5, lead[0] if batched else None)
+                  scal, n_scal, lead[0] if batched else None)
 
 
 def _lib():
@@ -275,25 +289,26 @@ def _lib():
     head = [VP] * 18 + [CI] * 5 + [CF] * 10
     return typed_lib("fused_tight", "prost_tight_num_blocks", {
         "prost_tight_chunk": head + [CI, VP],
-        "prost_tight_chunk_batched": head + [CI, CI, VP]})
+        "prost_tight_chunk_batched": head + [CI, CI, VP],
+        "prost_tight_chunk_halo": head + [CI, CI, VP]})
 
 
-def _launch(fn: str, what: str, u, v, q, p, s, f, scal, count: int, taps,
-            consts, *args):
+def _launch(fn: str, what: str, u, v, q, p, s, f, scal, n_scal: int, taps,
+            consts, *args, prev=None):
     """One launch of ``fn`` on copies of (u, v, q, p, s) (with a leading
-    instance axis for a batched launch); returns its outputs."""
+    instance axis for a batched launch), or on (u, v, q, p, s) and ``prev``
+    themselves; returns its outputs."""
     lib = _lib()
     L, nx, ny = u.shape[-3:]
     k = v.shape[-3] // 2
-    wk = ChunkWork((u, v, q, p, s), (q, s), scal, 5,
-                   lib.prost_tight_num_blocks(nx, ny))
+    wk = ChunkWork((u, v, q, p, s), (q, s), scal, n_scal,
+                   lib.prost_tight_num_blocks(nx, ny), prev=prev)
     consts = [float(c) for c in consts]
     # the square roots rounded once from double, as the plain version
     # rounds its Python constants
     launch(lib, fn, what, launch_counts, u.device,
            wk.buffers(f, kron_array(tuple(taps), L, k, u.device)), L, k, nx,
-           ny, len(taps), *consts, *[c ** 0.5 for c in consts], int(count),
-           *args)
+           ny, len(taps), *consts, *[c ** 0.5 for c in consts], *args)
     return wk.outputs()
 
 
@@ -312,7 +327,41 @@ def tight_chunk(u, v, q, p, s, f, scal, count: int, taps, consts):
     if u.device.type == "cpu":
         return tight_chunk_plain(u, v, q, p, s, f, scal, count, taps, consts)
     return _launch("prost_tight_chunk", "tight_chunk", u, v, q, p, s, f, scal,
-                   count, taps, consts)
+                   5, taps, consts, int(count))
+
+
+def tight_chunk_halo(u, v, q, p, s, f, scal, count: int, nx_global: int,
+                     taps, consts):
+    """``tight_chunk`` on one halo-extended shard of a row-partitioned plane
+    of ``nx_global`` rows.
+
+    u, f: (L, nxb, ny); v, p: (2k, nxb, ny); q: (2L, nxb, ny); s: (nxb,
+    ny), the shard's rows in the middle and its neighbours' halo rows
+    (zeros beyond the plane) above and below; scal: [tau, sigma, theta,
+    radius, d_s, row_offset, own_lo, own_hi] (+ an optional converged
+    flag), row_offset the global row of local row 0 and [own_lo, own_hi)
+    the owned local rows.  Returns the tuple of ``tight_chunk``, norms2
+    over the owned rows only.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel."""
+    return halo_copy(tight_chunk_halo_, (u, v, q, p, s), f, scal, count,
+                     nx_global, taps, consts)
+
+
+def tight_chunk_halo_(u, v, q, p, s, u_prev, v_prev, q_prev, p_prev, s_prev,
+                      f, scal, count: int, nx_global: int, taps, consts):
+    """``tight_chunk_halo`` in place, on the sharded route's persistent
+    buffers: (u, v, q, p, s) advance by ``count`` iterations and the
+    previous buffers take the iterate before the aligned one; with the
+    converged flag set nothing changes.  Returns norms2."""
+    state, prev = (u, v, q, p, s), (u_prev, v_prev, q_prev, p_prev, s_prev)
+    _check(*state, f, scal, count, taps, consts, n_scal=N_HALO_SCAL)
+    check_halo(nx_global, state, prev)
+    if u.device.type == "cpu":
+        return halo_into(state, prev, tight_chunk_halo_plain(
+            *state, f, scal, count, nx_global, taps, consts), scal)
+    return _launch("prost_tight_chunk_halo", "tight_chunk_halo", *state, f,
+                   scal, N_HALO_SCAL, taps, consts, int(nx_global),
+                   int(count), prev=prev)[-1]
 
 
 def tight_chunk_batched(u, v, q, p, s, f, scal, count: int, taps, consts):
@@ -332,7 +381,7 @@ def tight_chunk_batched(u, v, q, p, s, f, scal, count: int, taps, consts):
         return tight_chunk_batched_plain(u, v, q, p, s, f, scal, count, taps,
                                          consts)
     return _launch("prost_tight_chunk_batched", "tight_chunk_batched", u, v,
-                   q, p, s, f, scal, count, taps, consts, u.shape[0])
+                   q, p, s, f, scal, 5, taps, consts, int(count), u.shape[0])
 
 
 # ---------------------------------------------------------------------------

@@ -112,16 +112,26 @@ def dead_dual_flat(yf, L: int, nx: int, ny: int):
 class RowOps:
     """The parts of a chunk's math that depend on where its rows lie in
     the global plane: the row forward difference ``dx`` and its adjoint
-    ``dxt``, the dead-dual projection ``project`` (q_x's global last row,
-    q_y's last column) and the norms' sum ``nsum``."""
+    ``dxt`` (maskless: exact given a zero dead row), the masked adjoint
+    ``dxt_masked`` (for duals that stay live on the global last row), the
+    dead-dual projection ``project`` (q_x's global last row, q_y's last
+    column) and the norms' sum ``nsum``."""
 
     dx: Callable
     dxt: Callable
+    dxt_masked: Callable
     project: Callable
     nsum: Callable
 
 
-WHOLE_PLANE = RowOps(dx, dxt, project_dead_dual, torch.sum)
+def dxt_masked(p):
+    """Adjoint of dx that reads no last row: p_{i-1}[i>0] - p_i[i<n-1]."""
+    i = torch.arange(p.shape[-2], device=p.device)[:, None]
+    return (torch.where(i > 0, torch.roll(p, 1, -2), 0.0)
+            - torch.where(i < p.shape[-2] - 1, p, 0.0))
+
+
+WHOLE_PLANE = RowOps(dx, dxt, dxt_masked, project_dead_dual, torch.sum)
 
 
 def halo_row_ops(row_offset: int, nx_global: int, own_lo: int,
@@ -147,6 +157,13 @@ def halo_row_ops(row_offset: int, nx_global: int, own_lo: int,
         above = ((li > 0) & (gi > 0))[:, None]
         return torch.where(above, torch.roll(p, 1, -2), 0.0) - p
 
+    def hdxt_masked(p):
+        li, gi = rows(p)
+        above = ((li > 0) & (gi > 0))[:, None]
+        live = (gi < nx_global - 1)[:, None]
+        return (torch.where(above, torch.roll(p, 1, -2), 0.0)
+                - torch.where(live, p, 0.0))
+
     def project(qx, qy):
         _, gi = rows(qx)
         qx = torch.where((gi == nx_global - 1)[:, None], 0.0, qx)
@@ -159,7 +176,7 @@ def halo_row_ops(row_offset: int, nx_global: int, own_lo: int,
         return torch.sum(torch.where(((li >= own_lo) & (li < own_hi))[:, None],
                                      v, 0.0))
 
-    return RowOps(hdx, hdxt, project, nsum)
+    return RowOps(hdx, hdxt, hdxt_masked, project, nsum)
 
 
 def halo_scal_rows(scal, nx_global: int) -> RowOps:
@@ -473,9 +490,9 @@ def check_halo(nx_global: int, state=(), prev=()) -> None:
             raise ProstError(f"A previous-iterate buffer must be "
                              f"{tuple(a.shape)} on {a.device}, got "
                              f"{tuple(b.shape)} on {b.device}.")
-        if not (a.is_contiguous() and b.is_contiguous()):
-            raise ProstError("An in-place halo chunk takes contiguous "
-                             "buffers only.")
+    if not all(a.is_contiguous() for a in (*state, *prev)):
+        raise ProstError("An in-place halo chunk takes contiguous buffers "
+                         "only.")
 
 
 def halo_into(state, prev, out, scal):

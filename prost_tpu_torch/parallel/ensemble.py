@@ -29,7 +29,18 @@ when every instance has converged or at ``until``.  The state's scalars,
 ``iteration`` and ``converged`` included, have shape (B,), its vectors
 (B, n).  The JAX package's fallback to the generic path when a kernel fails
 to compile is not ported: a matched route on a card launches its kernels or
-raises.  There is no ``mesh``: the batch axis is not sharded across cards.
+raises.
+
+With a ``mesh`` (``make_mesh``; every rank passes the same B problems) the
+batch axis is split over the ranks of its ``dp`` axis: rank r takes
+instances [r B/S, (r + 1) B/S) and runs the routes above on them alone, so
+its state holds B/S instances, with no collective inside a step or a
+chunk.  The stop rule spans the ranks: after every step or chunk that may
+change a converged flag (a residual iteration) one all-reduce of one flag
+tells every rank whether every instance of every rank has converged, which
+is when the one-card run holds its state.  Every instance then takes the
+trajectory it takes on one card.  ``current_solution`` (and ``gather``)
+all-gather the instances.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from ..backend.pdhg import (BackendPDHG, PDHGOptions, PDHGState, hold_if,
                             pdhg_step, residual_and_adapt)
@@ -49,6 +61,7 @@ from ..ops.fused_vol import match_vol_structure, vol_chunk_batched
 from ..ops.pdhg_chunk import dead_dual_flat
 from ..ops.phases import run_phases
 from ..solver import SolverOptions
+from .spatial import sp_mesh
 
 _MISMATCH = "stack_problems: problems have different static structure."
 
@@ -212,13 +225,28 @@ class BatchedPDHG:
     proxes, state); the fused routes run one batched chunk launch sequence
     per chunk for all instances.  The run holds the state once every
     instance has converged, and stops at ``until``.  ``run(state, until,
-    start)`` takes the host's iteration count like every port backend."""
+    start)`` takes the host's iteration count like every port backend.
+    With ``mesh``, this rank's share of the instances along ``axis_name``
+    (``batch`` of them); ``flag_reduces`` counts the all-reduces of the
+    stop rule."""
 
     def __init__(self, problems, opts: PDHGOptions = None,
-                 solver_opts: SolverOptions = None, mesh=None):
+                 solver_opts: SolverOptions = None, mesh=None,
+                 axis_name: str = "dp"):
+        self.group = None
+        self.flag_reduces = 0
         if mesh is not None:
-            raise ProstError("BatchedPDHG: no mesh in this port yet; the "
-                             "batch axis runs on one card.")
+            n = mesh.size()
+            if len(problems) % n:
+                raise ProstError(
+                    f"BatchedPDHG: batch size {len(problems)} must be "
+                    f"divisible by the mesh's {n} devices (the batch axis "
+                    "is sharded evenly over the mesh).")
+            dp = sp_mesh(mesh, axis_name)
+            per = len(problems) // dp.size()
+            rank = dp.get_local_rank()
+            problems = problems[rank * per:(rank + 1) * per]
+            self.group = dp.get_group()
         # scale_steps_operator=False by default: a per-instance normest
         # would run B host-side power iterations (as in the JAX package)
         self.opts = opts or PDHGOptions(scale_steps_operator=False)
@@ -257,11 +285,22 @@ class BatchedPDHG:
             k: v.unsqueeze(0).repeat(self.batch, *[1] * v.dim())
             for k, v in vars(s0).items()})
 
+    def _all_converged(self, s: PDHGState):
+        """Whether every instance has converged: this rank's, and with a
+        mesh every rank's (one all-reduce of one flag)."""
+        done = s.converged.all()
+        if self.group is None:
+            return done
+        flag = done.to(s.tau.dtype).reshape(1)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
+        self.flag_reduces += 1
+        return flag[0] > 0.5
+
     # ------------------------------------------------------------------
-    def generic_step(self, s: PDHGState, it: int) -> PDHGState:
+    def generic_step(self, s: PDHGState, it: int, done=None) -> PDHGState:
         """One generic iteration of every instance (``it`` the host's count
         of the iteration), the whole state held once every instance has
-        converged."""
+        converged (``done``, the run's flag, or ``_all_converged``)."""
         opts, tols, do_res = self.opts, self.tols, it % self.ri == 0
         P, G, F = self.batched_problem, self.prox_g, self.prox_fstar
         n_p, n_g = len(P.paths), len(G.paths)
@@ -275,7 +314,9 @@ class BatchedPDHG:
 
         new = torch.func.vmap(one)(vars(s), *P.leaves(), *G.leaves(),
                                    *F.leaves())
-        return hold_if(s.converged.all(), s, PDHGState(**new))
+        if done is None:
+            done = self._all_converged(s)
+        return hold_if(done, s, PDHGState(**new))
 
     def _linop(self, name: str, v):
         """``linop.apply`` or ``linop.apply_adjoint`` of every instance on
@@ -295,17 +336,18 @@ class BatchedPDHG:
             kx_prev=self._linop("apply", s.x_prev),
             kty_prev=self._linop("apply_adjoint", s.y_prev))
 
-    def _scal(self, s: PDHGState, a, b):
+    def _scal(self, s: PDHGState, a, b, done):
         """The (6, B) scalar rows of a batched chunk: tau, sigma, theta, the
         family's two scalars ``a`` and ``b``, and every instance's converged
-        flag set once all have converged."""
-        done = s.converged.all().to(s.tau.dtype).expand(self.batch)
+        flag set once all have converged (``done``)."""
+        done = done.to(s.tau.dtype).expand(self.batch)
         return torch.stack([s.tau, s.sigma, s.theta, a, b, done])
 
-    def _after_chunk(self, s: PDHGState, x, y, x_prev, y_prev, norms2):
+    def _after_chunk(self, s: PDHGState, x, y, x_prev, y_prev, norms2,
+                     done):
         """``s`` after a batched chunk that returned the instances' flat
         iterates and (4, B) squared norms: every instance's residual step
-        and adaptation, held once all had converged."""
+        and adaptation, held once all had converged (``done``)."""
         ri = self.ri
         norms = torch.sqrt(norms2)
         new = dataclasses.replace(s, x=x, y=y, x_prev=x_prev, y_prev=y_prev)
@@ -314,17 +356,18 @@ class BatchedPDHG:
                                  self.tols, new, norms[0], norms[1],
                                  norms[2], norms[3], s.iteration + (ri - 1))
         new = dataclasses.replace(new, iteration=new.iteration + ri)
-        return hold_if(s.converged.all(), s, new)
+        return hold_if(done, s, new)
 
-    def _rof_chunk(self, s: PDHGState) -> PDHGState:
+    def _rof_chunk(self, s: PDHGState, done) -> PDHGState:
         r, B = self.rof, self.batch
         nx, ny = r["nx"], r["ny"]
         x2, q2, xp, qp, norms2 = rof_chunk_batched(
             s.x.reshape(B, nx, ny), s.y.reshape(B, 2, nx, ny), r["f"],
-            r["w"], self._scal(s, r["lmb"], r["radius"]),
+            r["w"], self._scal(s, r["lmb"], r["radius"], done),
             self.ri, r["dataterm"])
         return self._after_chunk(s, x2.reshape(B, -1), q2.reshape(B, -1),
-                                 xp.reshape(B, -1), qp.reshape(B, -1), norms2)
+                                 xp.reshape(B, -1), qp.reshape(B, -1), norms2,
+                                 done)
 
     def _rof_canonical(self, s: PDHGState) -> PDHGState:
         """The dead dual coordinates of every instance's y and y_prev zeroed
@@ -337,30 +380,32 @@ class BatchedPDHG:
 
         return dataclasses.replace(s, y=canon(s.y), y_prev=canon(s.y_prev))
 
-    def _ml_chunk(self, s: PDHGState) -> PDHGState:
+    def _ml_chunk(self, s: PDHGState, done) -> PDHGState:
         m, B = self.ml, self.batch
         L, nx, ny = m["L"], m["nx"], m["ny"]
         n2 = 2 * L * nx * ny
         out = ml_chunk_batched(
             s.x.reshape(B, L, nx, ny), s.y[:, :n2].reshape(B, 2 * L, nx, ny),
             s.y[:, n2:].reshape(B, nx, ny), m["f"],
-            self._scal(s, m["radius"], m["d_s"]),
+            self._scal(s, m["radius"], m["d_s"], done),
             self.ri)
         u2, q2, s2, up, qp, sp, norms2 = out
         return self._after_chunk(s, u2.reshape(B, -1), _flat(B, q2, s2),
-                                 up.reshape(B, -1), _flat(B, qp, sp), norms2)
+                                 up.reshape(B, -1), _flat(B, qp, sp), norms2,
+                                 done)
 
-    def _vol_chunk(self, s: PDHGState) -> PDHGState:
+    def _vol_chunk(self, s: PDHGState, done) -> PDHGState:
         v, B = self.vol, self.batch
         L, nx, ny = v["L"], v["nx"], v["ny"]
         u2, q2, up, qp, norms2 = vol_chunk_batched(
             s.x.reshape(B, L, nx, ny), s.y.reshape(B, 3, L, nx, ny), v["f"],
-            v["w"], self._scal(s, v["lmb"], v["radius"]),
+            v["w"], self._scal(s, v["lmb"], v["radius"], done),
             self.ri, v["dataterm"])
         return self._after_chunk(s, u2.reshape(B, -1), q2.reshape(B, -1),
-                                 up.reshape(B, -1), qp.reshape(B, -1), norms2)
+                                 up.reshape(B, -1), qp.reshape(B, -1), norms2,
+                                 done)
 
-    def _deblur_chunk(self, s: PDHGState) -> PDHGState:
+    def _deblur_chunk(self, s: PDHGState, done) -> PDHGState:
         """The frames' chunk on views of the flat state in the port's
         layout: x (nx, ny), yv (nx2, ny2), q (2, nx, ny) (the JAX run packs
         x and q into the embedded (nx2, ny2) geometry instead)."""
@@ -370,13 +415,13 @@ class BatchedPDHG:
         x2, yv2, q2, xp, yvp, qp, norms2 = deblur_chunk_batched(
             s.x.reshape(B, nx, ny), s.y[:, :m2].reshape(B, nx2, ny2),
             s.y[:, m2:].reshape(B, 2, nx, ny), d["fb"], d["sv"],
-            self._scal(s, d["lmb"], d["radius"]), self.ri, d["taps"],
+            self._scal(s, d["lmb"], d["radius"], done), self.ri, d["taps"],
             d["sig_q"], d["tau_t"])
         return self._after_chunk(s, x2.reshape(B, -1), _flat(B, yv2, q2),
                                  xp.reshape(B, -1), _flat(B, yvp, qp),
-                                 norms2)
+                                 norms2, done)
 
-    def _tight_chunk(self, st: PDHGState) -> PDHGState:
+    def _tight_chunk(self, st: PDHGState, done) -> PDHGState:
         t, B = self.tight, self.batch
         L, k, nx, ny = t["L"], t["k"], t["nx"], t["ny"]
         nL, nk2 = nx * ny * L, 2 * nx * ny * k
@@ -387,12 +432,12 @@ class BatchedPDHG:
             y[:, :2 * nL].reshape(B, 2 * L, nx, ny),
             y[:, 2 * nL:2 * nL + nk2].reshape(B, 2 * k, nx, ny),
             y[:, 2 * nL + nk2:].reshape(B, nx, ny), t["f"],
-            self._scal(st, t["radius"], t["d_s"]), self.ri, t["taps"],
+            self._scal(st, t["radius"], t["d_s"], done), self.ri, t["taps"],
             t["consts"])
         u2, v2, q2, p2, s2, up, vp, qp, pp, sp, norms2 = out
         return self._after_chunk(st, _flat(B, u2, v2), _flat(B, q2, p2, s2),
                                  _flat(B, up, vp), _flat(B, qp, pp, sp),
-                                 norms2)
+                                 norms2, done)
 
     def run(self, state: PDHGState, until_iter: int,
             start_iter: int) -> PDHGState:
@@ -401,25 +446,52 @@ class BatchedPDHG:
         matched (generic steps until a chunk aligns, the ROF
         canonicalization, chunks, the epilogue, a generic tail), else by
         generic steps."""
+        # whether every instance has converged, renewed after each step
+        # or chunk that may set a flag (a residual iteration)
+        done = [self._all_converged(state)]
+
+        def generic(s, it):
+            s = self.generic_step(s, it, done[0])
+            if it % self.ri == 0:
+                done[0] = self._all_converged(s)
+            return s
+
         name = next((n for n in ROUTE_NAMES if getattr(self, n) is not None),
                     None)
         if name is None:
             for it in range(start_iter, until_iter):
-                state = self.generic_step(state, it)
+                state = generic(state, it)
             return state
+        route_chunk = getattr(self, f"_{name}_chunk")
+
+        def chunk(s):
+            s = route_chunk(s, done[0])
+            done[0] = self._all_converged(s)
+            return s
+
         canonicalize = self._rof_canonical if name == "rof" else None
         return run_phases(state, start_iter, until_iter, self.ri, 1 % self.ri,
-                          self.generic_step, canonicalize,
-                          getattr(self, f"_{name}_chunk"),
+                          generic, canonicalize, chunk,
                           epilogue=self._epilogue)
 
     # ------------------------------------------------------------------
+    def gather(self, t):
+        """``t``, a tensor with this rank's instances on its leading axis,
+        with every rank's in rank order (``t`` itself without a mesh)."""
+        if self.group is None:
+            return t
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.cat(parts)
+
     def current_solution(self, state: PDHGState):
-        """(x, z, y, w), each with a leading batch axis."""
+        """(x, z, y, w), each with a leading batch axis over every
+        instance (with a mesh, every rank's, gathered)."""
         p = self.batched_problem.tree
         tau, sigma, theta = (v[:, None] for v in (state.tau, state.sigma,
                                                   state.theta))
         w = (state.x_prev - state.x) / (p.scaling_right * tau) - state.kty_prev
         z = (state.y_prev - state.y) / (sigma * p.scaling_left) + (
             1.0 + theta) * state.kx - theta * state.kx_prev
-        return state.x, z, state.y, w
+        return tuple(self.gather(v) for v in (state.x, z, state.y, w))

@@ -1307,3 +1307,260 @@ def test_sharded_route_on_one_card(dev, kind, tmp_path):
                                        rtol=0, msg=name)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the halo modes of slice 8b: deblur and tight chunks, one Chebyshev ADMM
+# iteration; the same contract as slice 8a's (owned rows bit-equal to the
+# whole-plane kernel, norms summed over the bands within 1e-6)
+# ---------------------------------------------------------------------------
+
+# (kind, variant, nx, ny, ri or Chebyshev degree): the deblur blurs of row
+# reach 4 and 8 on grids of 256 and 128 rows, tight at L = 3 and 4, ADMM at
+# degree 10 (halo 24); ragged against the 32x8 blocks, 4 bands each
+HALO_8B_CASES = [("deblur", "asym", 252, 190, 2),
+                 ("deblur", "motion", 120, 80, 1),
+                 ("tight", 3, 248, 190, 5), ("tight", 4, 128, 96, 5),
+                 ("admm", None, 300, 200, 10), ("admm", None, 188, 250, 10)]
+N_8B = {"deblur": 6, "tight": 10, "admm": 7}  # planes before the norms
+
+
+def _planes_8b(kind, variant, nx, ny, seed, dev):
+    """The whole planes of ``kind`` and its constants: deblur (x, yv, q,
+    fb, sv) and its taps, tight (u, v, q, p, s, f), its taps and
+    preconditioner segments, ADMM (the 7 state arrays, f, w)."""
+    if kind == "deblur":
+        kernel = _asym_kernel() if variant == "asym" else _motion_kernel()
+        planes, taps = _deblur_inputs(seed, nx, ny, kernel, dev)
+        return planes, (taps, 0.5, 0.2)
+    if kind == "tight":
+        return (_tight_inputs(seed, variant, nx, ny, dev),
+                (_pair_taps(variant), _tight_consts(variant)))
+    return _admm_inputs(seed, nx, ny, dev), ()
+
+
+def _halo_of_8b(kind, ri, consts):
+    if kind == "deblur":
+        return fd.deblur_halo_rows(ri, consts[0])
+    return fa.admm_cheby_halo_rows(ri) if kind == "admm" else 2 * ri + 2
+
+
+def _whole_8b(kind, planes, consts, ri):
+    dev = planes[0].device
+    if kind == "admm":
+        return fa.admm_chunk(*planes, torch.tensor([1.3, 8.0, 1.0],
+                                                   device=dev), None, 1, 0,
+                             1.7, "wsquare", ri)
+    head = [0.9, 1.1, 1.0, 100.0 if kind == "deblur" else 1.0, 1.0]
+    scal = torch.tensor(head, device=dev)
+    if kind == "deblur":
+        return fd.deblur_chunk(*planes, scal, ri, *consts)
+    return ft.tight_chunk(*planes, scal, ri, *consts)
+
+
+def _bands_8b(kind, planes, consts, shards, ri, plain=False):
+    """The outputs of each of ``shards`` halo bands: (rows, H, outputs)."""
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    dev = planes[0].device
+    grid = planes[1].shape[-2] if kind == "deblur" else planes[0].shape[-2]
+    nxg = planes[0].shape[-2]  # the image's rows
+    rows, H = grid // shards, _halo_of_8b(kind, ri, consts)
+    out = []
+    for rank in range(shards):
+        lo = rank * rows - H
+        ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+        if kind == "admm":
+            fn = fa.admm_iter_halo_plain if plain else fa.admm_iter_halo
+            out.append(fn(*ext, torch.tensor([1.3, 8.0, 1.0], device=dev),
+                          ri, 1.7, nxg, lo, H, H + rows, "wsquare"))
+            continue
+        head = [0.9, 1.1, 1.0, 100.0 if kind == "deblur" else 1.0, 1.0]
+        scal = torch.tensor(head + [lo, H, H + rows], device=dev)
+        if kind == "deblur":
+            taps, sig_q, tau_t = consts
+            out.append(fd.deblur_chunk_plain(*ext, scal, ri, taps, sig_q,
+                                             tau_t, nxg) if plain else
+                       fd.deblur_chunk_halo(*ext, scal, ri, nxg, *consts))
+        elif plain:
+            out.append(ft.tight_chunk_halo_plain(*ext, scal, ri, nxg,
+                                                 *consts))
+        else:
+            out.append(ft.tight_chunk_halo(*ext, scal, ri, nxg, *consts))
+    return rows, H, out
+
+
+def _counts_8b(kind):
+    mod = {"deblur": fd, "tight": ft, "admm": fa}[kind]
+    name = "admm_iter_halo" if kind == "admm" else f"{kind}_chunk_halo"
+    return mod.launch_counts[name]
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("kind,variant,nx,ny,ri", HALO_8B_CASES)
+def test_halo_8b_matches_plain(dev, kind, variant, nx, ny, ri, shards):
+    """Each band's halo kernel against its plain version (whole bands):
+    the deblur and tight bars of their whole-plane tests, ADMM's of one
+    Chebyshev iteration."""
+    planes, consts = _planes_8b(kind, variant, nx, ny, 51, dev)
+    before = _counts_8b(kind)
+    _, _, got = _bands_8b(kind, planes, consts, shards, ri)
+    _, _, ref = _bands_8b(kind, planes, consts, shards, ri, plain=True)
+    torch.cuda.synchronize()
+    assert _counts_8b(kind) == before + shards
+    for out, want in zip(got, ref):
+        assert all(t.is_cuda for t in out)
+        if kind == "admm":
+            _admm_close(out, want, ADMM_PLANE_ATOL[10], NORM_RTOL)
+        else:
+            _scaled_close(out, want, N_8B[kind])
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("kind,variant,nx,ny,ri", HALO_8B_CASES)
+def test_halo_8b_bands_match_whole_plane_kernel(dev, kind, variant, nx, ny,
+                                                ri, shards):
+    """Owned rows of every band bit-equal to the whole-plane kernel's (the
+    deblur x and q at the grid rows the image has; ADMM's against
+    ``admm_chunk`` with count 1 in Chebyshev mode); owned-row norms summed
+    over the bands within 1e-6 of its norms."""
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    planes, consts = _planes_8b(kind, variant, nx, ny, 53, dev)
+    whole = _whole_8b(kind, planes, consts, ri)
+    rows, H, bands = _bands_8b(kind, planes, consts, shards, ri)
+    n = N_8B[kind]
+    total = torch.zeros(4, device=dev)
+    for rank, out in enumerate(bands):
+        lo = rank * rows
+        for i, (a, b) in enumerate(zip(out[:n], whole[:n])):
+            assert torch.equal(a[..., H:H + rows, :],
+                               window(b, lo, lo + rows)), (rank, i)
+        total = total + out[n]
+    torch.testing.assert_close(total, whole[n], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["deblur", "tight", "admm"])
+def test_in_place_halo_8b_on_card(dev, kind):
+    """The in-place forms the sharded routes call: the functional wrapper's
+    outputs in the caller's buffers, bit for bit, and every buffer left as
+    it was when the converged flag is set."""
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    variant, ri = {"deblur": ("asym", 2), "tight": (3, 5),
+                   "admm": (None, 10)}[kind]
+    planes, consts = _planes_8b(kind, variant, 124, 72, 57, dev)
+    nxg = planes[0].shape[-2]
+    grid = planes[1].shape[-2] if kind == "deblur" else nxg
+    rows, H = grid // 2, _halo_of_8b(kind, ri, consts)
+    ext = [window(a, rows - H, 2 * rows + H) for a in planes]
+    k = {"deblur": 3, "tight": 5, "admm": 7}[kind]
+    if kind == "admm":
+        scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+        tail = (ri, 1.7, nxg, rows - H, H, H + rows, "wsquare")
+        want = fa.admm_iter_halo(*ext, scal, *tail)
+        cur = [t.clone() for t in ext[:k]]
+        norms2 = fa.admm_iter_halo_(*cur, *ext[k:], scal, *tail)
+        bufs = cur
+    else:
+        head = [0.9, 1.1, 1.0, 100.0 if kind == "deblur" else 1.0, 1.0]
+        scal = torch.tensor(head + [rows - H, H, H + rows], device=dev)
+        mod, name = (fd, "deblur_chunk_halo") if kind == "deblur" else (
+            ft, "tight_chunk_halo")
+        want = getattr(mod, name)(*ext, scal, ri, nxg, *consts)
+        cur = [t.clone() for t in ext[:k]]
+        prev = [torch.full_like(t, 7.0) for t in cur]
+        norms2 = getattr(mod, name + "_")(*cur, *prev, *ext[k:], scal, ri,
+                                          nxg, *consts)
+        bufs = cur + prev
+    torch.cuda.synchronize()
+    for a, b in zip(bufs + [norms2], want):
+        assert torch.equal(a, b)
+    before = [t.clone() for t in bufs]
+    held = torch.cat([scal, torch.ones(1, device=dev)])
+    if kind == "admm":
+        norms2 = fa.admm_iter_halo_(*cur, *ext[k:], held, *tail)
+    else:
+        norms2 = getattr(mod, name + "_")(*cur, *prev, *ext[k:], held, ri,
+                                          nxg, *consts)
+    torch.cuda.synchronize()
+    assert not norms2.any()
+    for a, b in zip(bufs, before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["deblur", "tight", "admm"])
+def test_sharded_8b_route_on_one_card(dev, kind, tmp_path):
+    """The deblur, tight and ADMM halo routes on a one-rank NCCL group
+    (both edges receive zeros, row_offset = -halo) against the one-card
+    fused routes."""
+    import torch.distributed as dist
+
+    from prost_tpu_torch.parallel import (ShardedFusedADMM,
+                                          ShardedFusedDeblur,
+                                          ShardedFusedTight, make_mesh)
+
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=0,
+                              tol_rel_dual=0, tol_abs_primal=0,
+                              tol_abs_dual=0)
+    if kind == "admm":
+        prob = _tv_problem(48, 40, dev)
+        opts = ADMMOptions(residual_iter=10, projection="cheby")
+        cls, one_cls, names = ShardedFusedADMM, FusedROFADMM, (
+            "x_half", "x_proj", "x_dual", "z_half", "z_proj", "z_dual",
+            "cg_warm")
+    else:
+        prob = (_deblur_problem(44, 40, dev) if kind == "deblur"
+                else _tight_problem(48, 40, 3, dev))
+        opts = PDHGOptions(stepsize="boyd", residual_iter=2,
+                           scale_steps_operator=False)
+        cls, one_cls = (ShardedFusedDeblur if kind == "deblur"
+                        else ShardedFusedTight), FusedROFPDHG
+        names = ("x", "y", "x_prev", "y_prev")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        b = cls(prob, opts, sopts, make_mesh((1,), axis_names=("sp",)))
+        s = b.run(b.initial_state(), 41, 0)
+        one = one_cls(prob, opts, sopts)
+        ref = one.run(one.initial_state(), 41, 0)
+        assert b.exchange.counts["exchanges"] == (40 if kind == "admm"
+                                                  else 20)
+        assert int(s.iteration) == int(ref.iteration) == 41
+        for name in names:
+            torch.testing.assert_close(getattr(s, name).full_tensor(),
+                                       getattr(ref, name), atol=2e-5,
+                                       rtol=0, msg=name)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dp_ensemble_on_one_card(dev, tmp_path):
+    """BatchedPDHG over a one-rank dp mesh on an NCCL group takes the
+    fused route and gives the one-card run's state, bit for bit."""
+    import torch.distributed as dist
+
+    from prost_tpu_torch.parallel import BatchedPDHG, make_mesh
+
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=1e-3,
+                              tol_rel_dual=1e-3, tol_abs_primal=1e-3,
+                              tol_abs_dual=1e-3)
+    opts = PDHGOptions(stepsize="boyd", residual_iter=10,
+                       scale_steps_operator=False)
+    one = BatchedPDHG(_rof_ensemble(6, 40, 36, dev), opts, sopts)
+    ref = one.run(one.initial_state(), 301, 0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        b = BatchedPDHG(_rof_ensemble(6, 40, 36, dev), opts, sopts,
+                        make_mesh((1,), axis_names=("dp",)))
+        assert b.rof is not None and b.batch == 6
+        s = b.run(b.initial_state(), 301, 0)
+        assert b.flag_reduces > 0
+        for f in dataclasses.fields(s):
+            assert torch.equal(b.gather(getattr(s, f.name)),
+                               getattr(ref, f.name)), f.name
+        for a, c in zip(b.current_solution(s), one.current_solution(ref)):
+            assert torch.equal(a, c)
+    finally:
+        dist.destroy_process_group()

@@ -624,5 +624,15 @@ def test_batched_state_hand_over():
 
 
 def test_mesh_is_refused():
-    with pytest.raises(ptt.ProstError, match="mesh"):
-        TBatched(_rof_probs(ptt), mesh=object())
+    """A mesh that does not split the batch evenly is refused, with the JAX
+    package's message (tests/test_parallel.py:196); an even split runs on
+    the mesh's ranks (tests/test_torch_spatial_admm.py)."""
+
+    class TwoRanks:
+        def size(self):
+            return 2
+
+    with pytest.raises(ptt.ProstError,
+                       match="batch size 3 must be divisible by the mesh's "
+                             "2 devices"):
+        TBatched(_rof_probs(ptt), mesh=TwoRanks())

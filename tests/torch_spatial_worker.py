@@ -79,13 +79,82 @@ def vol_problem(L, nx, ny, f, lmb):
         prox_fstar=[ptt.prox.ProxMoreau(index=0, size=3 * n, child=pn)])
 
 
+def blur_kernel(k):
+    """tests/test_fused_deblur.py's blur: a diagonal and one corner."""
+    ker = np.zeros((k, k))
+    for i in range(k):
+        ker[i, i] = 1.0
+    ker[0, k - 1] = 0.5
+    return ker / ker.sum()
+
+
+def deblur_problem(nx, ny, lmb, seed, k):
+    """tests/test_fused_deblur.py's ``deblur_problem`` in the port."""
+    import prost_tpu_torch as ptt
+    from prost_tpu_torch.modeling import block, function
+
+    rng = np.random.RandomState(seed)
+    rng.rand(nx * ny)  # the JAX model draws an unused image first
+    nx2, ny2 = nx + k - 1, ny + k - 1
+    u, v = ptt.Variable(nx * ny), ptt.Variable(nx2 * ny2)
+    g = ptt.Variable(2 * nx * ny)
+    prob = ptt.MinProblem([u], [v, g])
+    prob.add_function(v, function.sum_1d("square", 1, rng.rand(nx2 * ny2),
+                                         lmb))
+    prob.add_function(g, function.sum_norm2(2, False, "abs"))
+    prob.add_constraint(u, v, block.conv2d(nx, ny, 1, blur_kernel(k)))
+    prob.add_constraint(u, g, block.gradient2d(nx, ny, 1))
+    return prob.finalize()
+
+
+def pair_matrix(L):
+    """tests/test_fused_tight.py's ``pair_local_matrix``."""
+    k = L * (L - 1) // 2
+    P = np.zeros((2 * k, 2 * L))
+    idx = 0
+    for i in range(L):
+        for j in range(i + 1, L):
+            P[idx, i], P[idx, j] = 1.0, -1.0
+            P[idx + k, i + L], P[idx + k, j + L] = 1.0, -1.0
+            idx += 1
+    return P
+
+
+def tight_problem(nx, ny, L, lmb, seed):
+    """tests/test_fused_tight.py's ``tight_problem`` in the port."""
+    import prost_tpu_torch as ptt
+    from prost_tpu_torch.modeling import block, function
+
+    n, k = nx * ny, L * (L - 1) // 2
+    f = np.random.RandomState(seed).rand(n * L)
+    u, v = ptt.Variable(n * L), ptt.Variable(2 * n * k)
+    q, p, s = ptt.Variable(2 * n * L), ptt.Variable(2 * n * k), ptt.Variable(n)
+    prob = ptt.MinMaxProblem([u, v], [q, p, s])
+    prob.add_function(u, function.sum_1d("ind_geq0", 1, 0, 1, f, 0))
+    prob.add_function(p, function.sum_norm2(2, False, "ind_leq0", 1 / lmb, 1,
+                                            1))
+    prob.add_function(s, function.sum_1d("zero", 1, 0, 1, 1, 0))
+    prob.add_dual_pair(u, q, block.gradient2d(nx, ny, L))
+    prob.add_dual_pair(u, s, block.sparse_kron_id(np.ones((1, L)), n))
+    prob.add_dual_pair(v, p, block.identity())
+    prob.add_dual_pair(v, q, block.sparse_kron_id(pair_matrix(L).T, n))
+    return prob.finalize()
+
+
 def problem(kind):
     """The problem of each route test (tests/test_spatial_fused.py's)."""
-    if kind == "rof":
+    if kind in ("rof", "admm"):
         f = np.random.RandomState(5).rand(64 * 32).astype(np.float32)
+        if kind == "admm":  # test_sharded_fused_admm_matches_single_device
+            f = np.random.RandomState(17).rand(128 * 32).astype(np.float32)
+            return rof_problem(128, 32, f, 8.0)
         return rof_problem(64, 32, f, 12.0)
     if kind == "ml":
         return ml_problem(32, 16, 3, 0.4, 8)
+    if kind == "tight":
+        return tight_problem(64, 12, 3, 0.6, 9)
+    if kind == "deblur":  # a blur of row reach 2, nx2 = 128
+        return deblur_problem(126, 12, 25.0, 4, 3)
     f = np.random.RandomState(23).rand(3 * 64 * 16).astype(np.float32)
     return vol_problem(3, 64, 16, f, 6.0)
 
@@ -119,8 +188,11 @@ def route(world, kind, ri, iters, start=None):
     from prost_tpu_torch.parallel import (ShardedFusedMultilabel,
                                           ShardedFusedROF, ShardedFusedVol)
 
+    from prost_tpu_torch.parallel import ShardedFusedDeblur, ShardedFusedTight
+
     cls = {"rof": ShardedFusedROF, "ml": ShardedFusedMultilabel,
-           "vol": ShardedFusedVol}[kind]
+           "vol": ShardedFusedVol, "tight": ShardedFusedTight,
+           "deblur": ShardedFusedDeblur}[kind]
     opts = PDHGOptions(stepsize="boyd", residual_iter=ri,
                        scale_steps_operator=False)
     mesh = _mesh(world)
@@ -134,6 +206,124 @@ def route(world, kind, ri, iters, start=None):
     return {"state": interop.sharded_pdhg_state_to_numpy(state),
             "counts": dict(b.exchange.counts),
             "halo": b.halo, "rows": b.rows}
+
+
+def admm_route(world, iters, start=None):
+    """ShardedFusedADMM (Chebyshev, residual_iter 10) on
+    ``problem("admm")`` from the initial state (or from the whole JAX state
+    ``start`` at its iteration) to ``iters``: the gathered state and this
+    rank's exchange counts."""
+    from prost_tpu_torch import interop
+    from prost_tpu_torch.backend import ADMMOptions
+    from prost_tpu_torch.parallel import ShardedFusedADMM
+
+    mesh = _mesh(world)
+    b = ShardedFusedADMM(problem("admm"),
+                         ADMMOptions(residual_iter=10, projection="cheby"),
+                         solver_opts(), mesh)
+    if start is None:
+        state, it0 = b.initial_state(), 0
+    else:
+        state = interop.sharded_admm_state_from_numpy(start, mesh, "cpu")
+        it0 = int(start["iteration"])
+    state = b.run(state, iters, it0)
+    return {"state": interop.sharded_admm_state_to_numpy(state),
+            "counts": dict(b.exchange.counts), "halo": b.halo,
+            "rows": b.rows}
+
+
+def ensemble_problems(kind):
+    """tests/test_parallel.py's dp ensembles: 8 ROF instances of 16x16
+    (lmb 4 .. 48), 4 tight instances of 12x12, L = 3."""
+    if kind == "rof":
+        rng = np.random.RandomState(8)
+        return [rof_problem(16, 16, rng.rand(256).astype(np.float32), lmb)
+                for lmb in (4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0, 48.0)]
+    return [tight_problem(12, 12, 3, 1.0, i) for i in range(4)]
+
+
+def ensemble(world, kind, iters):
+    """BatchedPDHG over a dp mesh of ``world`` ranks: every instance's
+    state gathered, the route taken and the flag all-reduces."""
+    import torch
+
+    from prost_tpu_torch.backend import PDHGOptions
+    from prost_tpu_torch.parallel import BatchedPDHG, make_mesh
+
+    b = BatchedPDHG(ensemble_problems(kind),
+                    PDHGOptions(stepsize="boyd", residual_iter=5,
+                                scale_steps_operator=False),
+                    solver_opts(), make_mesh((world,), axis_names=("dp",)))
+    s = b.run(b.initial_state(), iters, 0)
+    state = {k: b.gather(v).numpy() for k, v in vars(s).items()}
+    sol = [v.numpy() for v in b.current_solution(s)]
+    return {"state": state, "solution": sol, "local": b.batch,
+            "route": kind if getattr(b, kind) is not None else None,
+            "flag_reduces": b.flag_reduces,
+            "x_shape": tuple(torch.as_tensor(s.x).shape)}
+
+
+def errors_8b(world):
+    """The errors of what the deblur, tight and ADMM routes and the dp
+    ensemble refuse (tests/test_spatial_fused.py:181-195, :315-323;
+    tests/test_parallel.py:196-211)."""
+    from prost_tpu_torch import ProstError
+    from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
+    from prost_tpu_torch.parallel import (BatchedPDHG, ShardedFusedADMM,
+                                          ShardedFusedDeblur,
+                                          ShardedFusedTight, make_mesh)
+
+    mesh = _mesh(world)
+    pdhg = dict(stepsize="boyd", scale_steps_operator=False)
+    f = np.random.RandomState(1).rand(64 * 32).astype(np.float32)
+    cases = {
+        "deblur_alg2": lambda: ShardedFusedDeblur(
+            problem("deblur"), PDHGOptions(stepsize="alg2", residual_iter=2,
+                                           scale_steps_operator=False),
+            solver_opts(), mesh),
+        "tight_reference": lambda: ShardedFusedTight(
+            problem("tight"), PDHGOptions(residual_iter=2,
+                                          reference_residuals=True, **pdhg),
+            solver_opts(), mesh),
+        # nx2 = 130 over 4 ranks
+        "deblur_divisible": lambda: ShardedFusedDeblur(
+            deblur_problem(128, 12, 25.0, 4, 3),
+            PDHGOptions(residual_iter=2, **pdhg), solver_opts(), mesh),
+        # 32 rows per rank < the halo (2 * 10 + 2) * 2 = 44 at ri 10
+        "deblur_halo": lambda: ShardedFusedDeblur(
+            problem("deblur"), PDHGOptions(residual_iter=10, **pdhg),
+            solver_opts(), mesh),
+        # 16 rows per rank < the halo 22 at ri 10
+        "tight_halo": lambda: ShardedFusedTight(
+            problem("tight"), PDHGOptions(residual_iter=10, **pdhg),
+            solver_opts(), mesh),
+        "tight_divisible": lambda: ShardedFusedTight(
+            tight_problem(30, 12, 3, 0.6, 9), PDHGOptions(residual_iter=2,
+                                                          **pdhg),
+            solver_opts(), mesh),
+        "admm_cgls": lambda: ShardedFusedADMM(
+            rof_problem(64, 32, f, 8.0), ADMMOptions(projection="cgls"),
+            solver_opts(), mesh),
+        # 16 rows per rank < the Chebyshev halo 24 at degree 10
+        "admm_halo": lambda: ShardedFusedADMM(
+            rof_problem(64, 32, f, 8.0), ADMMOptions(projection="cheby"),
+            solver_opts(), mesh),
+        "admm_divisible": lambda: ShardedFusedADMM(
+            rof_problem(66, 32, np.resize(f, 66 * 32), 8.0),
+            ADMMOptions(projection="cheby", cheby_degree=2), solver_opts(),
+            mesh),
+        "ensemble_batch": lambda: BatchedPDHG(
+            ensemble_problems("tight")[:3], mesh=make_mesh(
+                (world,), axis_names=("dp",))),
+    }
+    out = {}
+    for name, make in cases.items():
+        try:
+            make()
+            out[name] = None
+        except ProstError as e:
+            out[name] = str(e)
+    return out
 
 
 def sharded_pdhg(world, iters):
