@@ -65,7 +65,12 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    motion blur and B = 3 of 250x190 with the asymmetric 5x5 blur;
    ``tight_chunk_batched`` at B = 8 of 128x128x4 and B = 3 of 250x190x3;
    timed at B = 1024 of 128x128, B = 8 of 256x256x8, 512x512 and
-   128x128x4;
+   128x128x4; each ``rof_chunk_batched`` shape's path (a cluster of C CTAs
+   per instance, or the streaming launch sequence for 1280x1280) printed
+   and checked, and at B = 1024 of 128x128 the cluster launch in turns
+   with the streaming sequence in place (old, new, new, old), the
+   hand-written kernels each launches per call (profiler), and the
+   cluster launch at the larger cluster sizes;
 12. solve vol256x8, volumetric TV of eight noisy slices of data/dog.png at
    256x256 (lmb 6, boyd, residual_iter 10, 2000 iterations at tolerance
    1e-5), by the fused volumetric route and by the generic path, count
@@ -101,7 +106,10 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    full-convolution grid: 1 and 2 shards at ri 10, halo 154; 4 shards at
    ri 5, halo 84), ``tight_chunk_halo`` at 128x128x4 (ri 10, halo 22) and
    ``admm_iter_halo`` at 512x512 (Chebyshev degree 10, halo 24, with and
-   without the norms, against ``admm_chunk`` with count 1);
+   without the norms, against ``admm_chunk`` with count 1), timed in place
+   as the route calls it, and with the norms in turns with the launch
+   sequence of ``admm_chunk`` at count 1 on the one-shard band (old, new,
+   new, old), with the hand-written kernels each launches per call;
 16. solve config 1, config 3, vol256x8, config 2, tight128x4 and config 4
    (ROF 512x512 by Chebyshev ADMM) through ``ShardedFusedROF``,
    ``ShardedFusedMultilabel``, ``ShardedFusedVol``, ``ShardedFusedDeblur``,
@@ -707,6 +715,61 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def in_turns(old, new, reps):
+    """``time_ms`` of two callables doing the same work in turns, old, new,
+    new, old, in one process on one card: ((old 1, old 2), (new 1, new
+    2))."""
+    t = [time_ms(fn, reps) for fn in (old, new, new, old)]
+    return (t[0], t[3]), (t[1], t[2])
+
+
+def csrc_kernel_names():
+    """The names of the package's hand-written CUDA kernels, in the sources
+    and in the headers they share."""
+    import os
+    import re
+
+    from prost_tpu_torch.ops import cuda_build
+
+    names = set()
+    for fname in os.listdir(cuda_build.CSRC):
+        if fname.endswith((".cu", ".cuh")):
+            with open(os.path.join(cuda_build.CSRC, fname)) as fh:
+                names |= set(re.findall(r"__global__\s+void\s+(?:__launch_"
+                                        r"bounds__\([^)]*\)\s+)?(\w+)",
+                                        fh.read()))
+    return names
+
+
+def kernel_name(raw):
+    """A profiler event's kernel name without its namespace and arguments:
+    "void (anonymous namespace)::admm_rhs(State, ...)" -> admm_rhs."""
+    name = raw.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].strip().split(" ")[-1]
+
+
+def csrc_launches(fn):
+    """The hand-written kernels that one call of ``fn`` launches on the
+    card, in order, and their device ms summed, from torch.profiler's trace
+    of the call (after one untraced call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ours = csrc_kernel_names()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and kernel_name(e.name) in ours),
+                    key=lambda e: e.time_range.start)
+    return ([kernel_name(e.name) for e in events],
+            sum(e.time_range.elapsed_us() for e in events) * 1e-3)
 
 
 def bound(nbytes, ops):
@@ -1750,6 +1813,61 @@ def batched_scal(seed, B, a, b, dev):
     return torch.tensor(np.array(rows), dtype=torch.float32, device=dev)
 
 
+def rof_batched_timings(planes, scal, ri, csize):
+    """Row 4 at ensemble1024x128: the cluster launch that the route calls
+    (the wrapper, which reads its inputs and writes new outputs) in turns
+    with the streaming launch sequence in place on buffers made once (old,
+    new, new, old), the hand-written kernels each launches per call, and
+    the cluster launch itself at the larger cluster sizes.  Returns the
+    row's ms."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops.pdhg_chunk import (S_CONV, S_LEN, launch,
+                                                scalar_buffer)
+
+    x, q, f, w = planes
+    bufs = [t.clone() for t in (x, q, x, q)]
+
+    def old():
+        fr.rof_chunk_batched_streaming_(*bufs, f, w, scal, ri)
+
+    def new():
+        fr.rof_chunk_batched(*planes, scal, ri)
+
+    (o1, o2), (n1, n2) = in_turns(old, new, 20)
+    (lo, do), (ln, dn) = csrc_launches(old), csrc_launches(new)
+    print(f"rof_chunk_batched B={x.shape[0]} in turns: streaming sequence "
+          f"{o1:.4f} ms, cluster {n1:.4f}, cluster {n2:.4f}, streaming "
+          f"{o2:.4f} ms/call; hand-written launches per call: streaming "
+          f"{len(lo)} ({do:.4f} ms of device time traced), cluster "
+          f"{len(ln)} ({', '.join(ln)}; {dn:.4f} ms)")
+    check(ln == ["rof_chunk_cluster", "pdhg_finish"],
+          f"the cluster path launched {ln}")
+    lib = fr._lib()
+    batch, nx, ny = x.shape
+    outs = [torch.empty_like(t) for t in (x, q, x, q)]
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = x.new_empty(4 * lib.prost_rof_num_blocks(nx, ny) * batch)
+    def cluster(c, count):
+        return time_ms(lambda: launch(
+            lib, "prost_rof_chunk_cluster", "rof_chunk_batched",
+            fr.launch_counts, x.device, [x, q, f, w, *outs, sc, partial],
+            nx, ny, count, 0, batch, c), 20)
+
+    sizes = {c: cluster(c, ri) for c in (csize, 2 * csize, 4 * csize)
+             if c <= fr.CLUSTER_SIZES[-1]}
+    print("rof_chunk_batched cluster launch by cluster size: " + ", ".join(
+        f"C={c} {ms:.4f} ms" for c, ms in sizes.items()))
+    one = cluster(csize, 1)
+    print(f"rof_chunk_batched cluster launch by count (C={csize}): 1 "
+          f"iteration {one:.4f} ms, {ri} iterations {sizes[csize]:.4f} ms: "
+          f"{(sizes[csize] - one) / (ri - 1):.4f} ms an iteration beyond "
+          "the first")
+    return {"ms": time_ms(new, 20), "old_ms": (o1, o2), "new_ms": (n1, n2),
+            "launches_per_call": (len(lo), len(ln))}
+
+
 def phase_batched_kernels(dev):
     """The five batched chunks against their plain versions and, instance
     by instance, against the single-instance kernels; timed at the main
@@ -1777,6 +1895,19 @@ def phase_batched_kernels(dev):
              (5, 250, 190, "square"), (5, 250, 190, "wsquare"),
              (5, 250, 190, "abs"), (2, 1280, 1280, "square")]
     for seed, (B, nx, ny, dataterm) in enumerate(cases):
+        csize = fr.cluster_size(nx, ny, dataterm)
+        if csize is None:
+            path = "streaming launch sequence"
+        else:
+            held = fr._lib().prost_rof_cluster_occupancy(
+                nx, ny, fr.DATATERMS[dataterm], csize)
+            path = (f"cluster of {csize} CTAs, bands of "
+                    f"{fr.cluster_band_rows(nx, csize)} rows, "
+                    f"{fr.cluster_planes(dataterm)} planes in shared memory, "
+                    f"{held} clusters at once")
+        print(f"rof_chunk_batched B={B} {nx}x{ny} {dataterm}: {path}")
+        check((csize is None) == (nx == 1280), f"rof_chunk_batched {nx}x{ny} "
+              f"took the {path}")
         if B == ENS_B:
             x = torch.from_numpy(fs).to(dev).reshape(B, nx, ny)
             f, lmb = x, np.asarray(lmbs)
@@ -1796,8 +1927,7 @@ def phase_batched_kernels(dev):
         r = rows["rof_chunk_batched"]
         r["err"] = max(r["err"], err)
         if B == ENS_B:
-            r["ms"] = time_ms(lambda: fr.rof_chunk_batched(*planes, scal,
-                                                           ri), 20)
+            r.update(rof_batched_timings(planes, scal, ri, csize))
             r["plain_ms"] = time_ms(lambda: fr.rof_chunk_batched_plain(
                 *planes, scal, ri), 5)
             n = nx * ny
@@ -2298,8 +2428,8 @@ def phase_halo_8b_kernels(dev):
     without the norms; each against its plain version, the owned rows
     against the whole-plane kernel (``deblur_chunk``, ``tight_chunk``,
     ``admm_chunk`` with count 1), the bands' norms summed against its
-    norms; timed at the one-shard band (ADMM without the norms, the
-    variant of 9 of a chunk's 10 iterations)."""
+    norms; timed at the one-shard band (ADMM in place without the norms,
+    the variant of 9 of a chunk's 10 iterations; ``admm_halo_turns``)."""
     import torch
 
     from prost_tpu_torch.ops import fused_admm as fa
@@ -2406,9 +2536,11 @@ def phase_halo_8b_kernels(dev):
                     wants = [fa.admm_iter_halo_plain(*ext, scal, *tail,
                                                      with_norms=wn)
                              for wn in (True, False)]
-                    call = (lambda ext=ext, scal=scal, tail=tail:
-                            fa.admm_iter_halo(*ext, scal, *tail,
-                                              with_norms=False))
+                    # the route's call: in place on its buffers
+                    cur = [t.clone() for t in ext[:n_out]]
+                    call = (lambda cur=cur, ext=ext, scal=scal, tail=tail:
+                            fa.admm_iter_halo_(*cur, *ext[n_out:], scal,
+                                               *tail, with_norms=False))
                     plain_call = (lambda ext=ext, scal=scal, tail=tail:
                                   fa.admm_iter_halo_plain(
                                       *ext, scal, *tail, with_norms=False))
@@ -2447,6 +2579,8 @@ def phase_halo_8b_kernels(dev):
                     check(not bool(outs[1][n_out].any()),
                           "admm_iter_halo without norms returned norms")
                 total += outs[0][n_out].double()
+                if shards == 1 and name == "admm_iter_halo":
+                    admm_halo_turns(ext, scal, tail)
                 if shards == 1:
                     rows_out[name] = {
                         "ms": time_ms(call, 50),
@@ -2466,6 +2600,45 @@ def phase_halo_8b_kernels(dev):
               f"ms/call, plain {r['plain_ms']:.4f} ms/call, bound "
               f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
     return rows_out
+
+
+def admm_halo_turns(ext, scal, tail):
+    """Row 10 at the one-shard band: ``admm_iter_halo_`` with the norms
+    (the route's last iteration of a chunk) in turns with the launch
+    sequence of ``admm_chunk`` at count 1 on the band's planes as a whole
+    plane (old, new, new, old), both in place on buffers made once and
+    each call with its own scratch as ``admm_iter_halo_`` makes it; the
+    hand-written kernels each launches per call, and the cooperative
+    launch's blocks."""
+    from prost_tpu_torch.ops import fused_admm as fa
+    from prost_tpu_torch.ops.pdhg_chunk import launch
+
+    lib = fa._lib()
+    degree, alpha = tail[0], tail[1]
+    nx, ny = ext[0].shape
+    old_bufs = [t.clone() for t in ext[:7]]
+    new_bufs = [t.clone() for t in ext[:7]]
+    coeffs = fa._coeff_array(degree)
+
+    def old():
+        wk = fa._Work(lib, old_bufs, scal, 3, copy=False)
+        launch(lib, "prost_admm_chunk", "admm_chunk", fa.launch_counts,
+               ext[0].device, wk.buffers(*ext[7:]), nx, ny, None, 1,
+               fa.DATATERMS["square"], degree, coeffs, 0, alpha, 1.0 - alpha)
+
+    def new():
+        fa.admm_iter_halo_(*new_bufs, *ext[7:], scal, *tail)
+
+    (o1, o2), (n1, n2) = in_turns(old, new, 50)
+    (lo, do), (ln, dn) = csrc_launches(old), csrc_launches(new)
+    print(f"admm_iter_halo_ with norms at {nx}x{ny} in turns: admm_chunk "
+          f"count 1 {o1:.4f} ms, cooperative {n1:.4f}, cooperative "
+          f"{n2:.4f}, admm_chunk {o2:.4f} ms/call; hand-written launches "
+          f"per call: admm_chunk {len(lo)} ({do:.4f} ms of device time "
+          f"traced), admm_iter_halo_ {len(ln)} ({', '.join(ln)}; "
+          f"{dn:.4f} ms); {lib.prost_admm_coop_blocks()} blocks of 512 "
+          "threads")
+    check(ln == ["admm_iter_coop"], f"admm_iter_halo_ launched {ln}")
 
 
 SHARDED_KINDS = ("rof", "ml", "vol", "deblur", "tight", "admm")

@@ -49,7 +49,8 @@ from chip_smoke import (DB_SIZE, ENS_B, ENS_ITERS, ENS_SIZE, ENS_WARM,
                         SMALL_ENS_ITERS, TIGHT_LABELS, TIGHT_SIZE,
                         VOL_LABELS, VOL_SIZE, card_line, check, cow_gray,
                         deblur_data, deblur_frames, deblur_model,
-                        ensemble_data, ensemble_problem, ens_opts, ml_model,
+                        csrc_kernel_names, ensemble_data, ensemble_problem,
+                        ens_opts, kernel_name, ml_model,
                         ml_unaries, recording, run_model, test_image,
                         tight_ensemble_unaries, tight_model, tight_unaries,
                         timed_solve, vol_data, vol_model)
@@ -71,20 +72,6 @@ ENSEMBLES = {
                   f"{TIGHT_SIZE}x{TIGHT_LABELS}", SMALL_ENS_ITERS),
 }
 GENERIC_ITERS = 100  # of each ensemble's generic batched path
-
-
-def csrc_kernel_names():
-    """The names of the package's hand-written CUDA kernels, in the sources
-    and in the headers they share."""
-    from prost_tpu_torch.ops import cuda_build
-
-    names = set()
-    for fname in os.listdir(cuda_build.CSRC):
-        if fname.endswith((".cu", ".cuh")):
-            with open(os.path.join(cuda_build.CSRC, fname)) as fh:
-                names |= set(re.findall(r"__global__\s+void\s+(\w+)",
-                                        fh.read()))
-    return names
 
 
 def instrumented(mod, stats, sync):
@@ -279,9 +266,7 @@ def traced(work, ours):
     by_kernel = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            # "void (anonymous namespace)::admm_rhs(State, ...)" -> admm_rhs
-            name = e.name.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("<")[0].strip().split(" ")[-1]
+            name = kernel_name(e.name)
             by_kernel[name] = (by_kernel.get(name, 0.0)
                                + e.time_range.elapsed_us() * 1e-3)
     device_ms = sum(by_kernel.values())

@@ -21,7 +21,9 @@
 // warm start's M, degree - 1 Chebyshev steps, x_proj's gradient, the
 // norms' stencils), so the caller exchanges the halo before every
 // iteration.  The whole-plane launches are the case (0, nx, 0, nx) of the
-// same arithmetic.
+// same arithmetic.  The halo iteration runs as one cooperative launch
+// (admm_iter_coop), its steps separated by grid barriers; the chunks run
+// the launch sequence of iteration().
 //
 // Layout (the JAX package's): x-like planes (nx, ny) row-major f32; z-like
 // arrays are two such planes back to back, [zx; zy].
@@ -71,6 +73,7 @@
 // Interface: plain C, loaded with ctypes; pointers and the stream arrive as
 // void*, and every entry point returns the cudaError_t of its launches.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -210,13 +213,17 @@ __device__ __forceinline__ float ckt_at(const float* v, const State& b,
 // zeroed, as _admm_chunk_kernel does at entry; every later step keeps them
 // zero, which makes the maskless adjoints exact.
 // Bound: memory, a row and a column of three arrays.
+__device__ __forceinline__ void seed_at(const State& b, int i, int j) {
+  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  if (i + b.rows.off == b.rows.nxg - 1) b.zh[p] = b.zp[p] = b.zd[p] = 0.f;
+  if (j == b.ny - 1) b.zh[n + p] = b.zp[n + p] = b.zd[n + p] = 0.f;
+}
+
 __global__ void admm_seed(State b) {
   if (conv_set(b.sc)) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
-  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-  if (i + b.rows.off == b.rows.nxg - 1) b.zh[p] = b.zp[p] = b.zd[p] = 0.f;
-  if (j == b.ny - 1) b.zh[n + p] = b.zp[n + p] = b.zd[n + p] = 0.f;
+  seed_at(b, i, j);
 }
 
 // First step of _admm_iter: t1, and d = t2 - c_K grad t1 (t1 recomputed at
@@ -224,10 +231,8 @@ __global__ void admm_seed(State b) {
 // u0 and x = u0 (the head of _cgls_masked).
 // Bound: memory, 7 planes read (xh, xp, xd, zh, zd; + warm), 3 written
 // (+1 for CGLS).
-__global__ void admm_rhs(State b, float alpha, float oma, int cgls) {
-  if (conv_set(b.sc)) return;
-  int i, j;
-  if (!pixel(b.nx, b.ny, i, j)) return;
+__device__ __forceinline__ void rhs_at(const State& b, int i, int j,
+                                       float alpha, float oma, int cgls) {
   int nx = b.nx, ny = b.ny;
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
   float t1 = t1_at(b, p, alpha, oma);
@@ -251,13 +256,17 @@ __global__ void admm_rhs(State b, float alpha, float oma, int cgls) {
   }
 }
 
-// _cheby_project's head: b = c_K grad^T d, r = b - M(u0), x = u0,
-// v = r / theta.
-// Bound: memory, 3 planes read (d, u0), 3 written.
-__global__ void cheby_init(State b) {
+__global__ void admm_rhs(State b, float alpha, float oma, int cgls) {
   if (conv_set(b.sc)) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
+  rhs_at(b, i, j, alpha, oma, cgls);
+}
+
+// _cheby_project's head: b = c_K grad^T d, r = b - M(u0), x = u0,
+// v = r / theta.
+// Bound: memory, 3 planes read (d, u0), 3 written.
+__device__ __forceinline__ void cheby_init_at(const State& b, int i, int j) {
   size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
   float rhs = ckt_at(b.dd, b, i, j, n, p);
   float r = rhs - m_at(b.warm, b, i, j, p);
@@ -266,22 +275,37 @@ __global__ void cheby_init(State b) {
   b.v0[p] = r * INV_THETA;
 }
 
+__global__ void cheby_init(State b) {
+  if (conv_set(b.sc)) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  cheby_init_at(b, i, j);
+}
+
 // One Chebyshev step: x += v, r -= M(v), v' = c_prev v + c_r r, with v' in
 // the other ping-pong plane (M reads v's neighbours).  The coefficients are
 // host constants, as in the JAX kernel.
 // Bound: memory, 3 planes read, 3 written; degree - 1 launches per outer
 // iteration.
-__global__ void cheby_step(State b, const float* __restrict__ v,
-                           float* __restrict__ vn, float c_prev, float c_r) {
-  if (conv_set(b.sc)) return;
-  int i, j;
-  if (!pixel(b.nx, b.ny, i, j)) return;
+__device__ __forceinline__ void cheby_step_at(const State& b,
+                                              const float* __restrict__ v,
+                                              float* __restrict__ vn,
+                                              float c_prev, float c_r, int i,
+                                              int j) {
   size_t p = (size_t)i * b.ny + j;
   float vv = v[p];
   b.x[p] = b.x[p] + vv;
   float r = b.r[p] - m_at(v, b, i, j, p);
   b.r[p] = r;
   vn[p] = c_prev * vv + c_r * r;
+}
+
+__global__ void cheby_step(State b, const float* __restrict__ v,
+                           float* __restrict__ vn, float c_prev, float c_r) {
+  if (conv_set(b.sc)) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  cheby_step_at(b, v, vn, c_prev, c_r, i, j);
 }
 
 // The head of _cgls_masked after admm_rhs: s = c_K grad^T r - x, p = s, and
@@ -363,11 +387,9 @@ __global__ void cg_p(State b, int par) {
 // duals, prox_g of the data term and the 2-vector shrink of prox_f; the
 // warm start keeps u.
 // Bound: memory, 9 planes read (x, v, t1, zh, zd, f; +w), 10 written.
-__global__ void admm_update(State b, const float* __restrict__ v,
-                            int dataterm) {
-  if (conv_set(b.sc)) return;
-  int i, j;
-  if (!pixel(b.nx, b.ny, i, j)) return;
+__device__ __forceinline__ void update_at(const State& b,
+                                          const float* __restrict__ v,
+                                          int dataterm, int i, int j) {
   int nx = b.nx, ny = b.ny;
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
   float u = v ? b.x[p] + v[p] : b.x[p];
@@ -423,47 +445,59 @@ __global__ void admm_update(State b, const float* __restrict__ v,
   b.warm[p] = u;
 }
 
+__global__ void admm_update(State b, const float* __restrict__ v,
+                            int dataterm) {
+  if (conv_set(b.sc)) return;
+  int i, j;
+  if (!pixel(b.nx, b.ny, i, j)) return;
+  update_at(b, v, dataterm, i, j);
+}
+
 // First pass of _admm_norms after a chunk: per-block sums of the squared
 // primal residual, primal variable, dual residual and dual variable norms
 // over the owned rows (y and w recomputed at the neighbour for K^T y).
 // Bound: memory, 10 planes read once per chunk.
+__device__ __forceinline__ void norm_terms_at(const State& b, int i, int j,
+                                              float (&v)[4]) {
+  int nx = b.nx, ny = b.ny;
+  size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+  float rho = b.sc[S_RHO];
+  float cw = -rho * 4.f;  // -rho / Tau
+  float cy = -rho * 0.5f;  // -rho * Sigma
+  float xh = b.xh[p];
+  float kxx = below(b, i) ? b.xh[p + ny] - xh : 0.f;
+  float kxy = j < ny - 1 ? b.xh[p + 1] - xh : 0.f;
+  float prx = SQRT_S * (kxx - b.zh[p]);
+  float pry = SQRT_S * (kxy - b.zh[n + p]);
+  float pnx = SQRT_S * b.zh[p];
+  float pny = SQRT_S * b.zh[n + p];
+  float wv = cw * ((xh - b.xp[p]) + b.xd[p]);
+  float yx = cy * ((b.zh[p] - b.zp[p]) + b.zd[p]);
+  float yy = cy * ((b.zh[n + p] - b.zp[n + p]) + b.zd[n + p]);
+  float yxm = 0.f, yym = 0.f;
+  if (above(b, i)) {
+    size_t o = p - ny;
+    yxm = cy * ((b.zh[o] - b.zp[o]) + b.zd[o]);
+  }
+  if (j > 0) {
+    size_t o = n + p - 1;
+    yym = cy * ((b.zh[o] - b.zp[o]) + b.zd[o]);
+  }
+  float kty = (yxm - yx) + (yym - yy);
+  float dn = SQRT_T * wv;
+  float dr = SQRT_T * (wv + kty);
+  v[0] = prx * prx + pry * pry;
+  v[1] = pnx * pnx + pny * pny;
+  v[2] = dr * dr;
+  v[3] = dn * dn;
+}
+
 __global__ void admm_norm_partial(State b) {
   if (conv_set(b.sc)) return;
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
-  if (pixel(b.nx, b.ny, i, j) && i >= b.rows.own_lo && i < b.rows.own_hi) {
-    int nx = b.nx, ny = b.ny;
-    size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
-    float rho = b.sc[S_RHO];
-    float cw = -rho * 4.f;  // -rho / Tau
-    float cy = -rho * 0.5f;  // -rho * Sigma
-    float xh = b.xh[p];
-    float kxx = below(b, i) ? b.xh[p + ny] - xh : 0.f;
-    float kxy = j < ny - 1 ? b.xh[p + 1] - xh : 0.f;
-    float prx = SQRT_S * (kxx - b.zh[p]);
-    float pry = SQRT_S * (kxy - b.zh[n + p]);
-    float pnx = SQRT_S * b.zh[p];
-    float pny = SQRT_S * b.zh[n + p];
-    float wv = cw * ((xh - b.xp[p]) + b.xd[p]);
-    float yx = cy * ((b.zh[p] - b.zp[p]) + b.zd[p]);
-    float yy = cy * ((b.zh[n + p] - b.zp[n + p]) + b.zd[n + p]);
-    float yxm = 0.f, yym = 0.f;
-    if (above(b, i)) {
-      size_t o = p - ny;
-      yxm = cy * ((b.zh[o] - b.zp[o]) + b.zd[o]);
-    }
-    if (j > 0) {
-      size_t o = n + p - 1;
-      yym = cy * ((b.zh[o] - b.zp[o]) + b.zd[o]);
-    }
-    float kty = (yxm - yx) + (yym - yy);
-    float dn = SQRT_T * wv;
-    float dr = SQRT_T * (wv + kty);
-    v[0] = prx * prx + pry * pry;
-    v[1] = pnx * pnx + pny * pny;
-    v[2] = dr * dr;
-    v[3] = dn * dn;
-  }
+  if (pixel(b.nx, b.ny, i, j) && i >= b.rows.own_lo && i < b.rows.own_hi)
+    norm_terms_at(b, i, j, v);
   block_partial<4>(v, b.partial, 0);
 }
 
@@ -495,12 +529,16 @@ struct AdaptConsts {
 //   OP_CG_ALPHA  alpha = gamma / delta;
 //   OP_CG_BETA   beta, gamma and the next step's done flag, with the
 //                iteration's CG tolerance tols[tix].
-// Bound: launch latency (a few KB of partials).
-__global__ void admm_finish(float* __restrict__ sc,
-                            const float* __restrict__ partial, int nblocks,
-                            int op, int par, float aux,
-                            const float* __restrict__ tols, int tix,
-                            AdaptConsts c) {
+// Bound: launch latency (a few KB of partials).  finish_at is its body on
+// the FIN threads of a block, in the block's shared array `red`; the
+// cooperative iteration below runs it too.
+__device__ __forceinline__ void finish_at(float (*red)[FIN],
+                                          float* __restrict__ sc,
+                                          const float* __restrict__ partial,
+                                          int nblocks, int op, int par,
+                                          float aux,
+                                          const float* __restrict__ tols,
+                                          int tix, const AdaptConsts& c) {
   int t = threadIdx.x;
   if (sc[S_CONV] != 0.f) {
     if (t == 0 && op == OP_ADAPT) sc[S_FAC] = -1.f;
@@ -514,7 +552,6 @@ __global__ void admm_finish(float* __restrict__ sc,
   }
   int slot0 = op == OP_CG_BETA ? 1 : 0;
   int nsum = op == OP_CG_BETA ? 2 : (op <= OP_ADAPT ? 4 : 1);
-  __shared__ float red[4][FIN];
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int blk = t; blk < nblocks; blk += FIN)
     for (int k = 0; k < nsum; ++k) acc[k] += partial[PS * blk + slot0 + k];
@@ -573,6 +610,152 @@ __global__ void admm_finish(float* __restrict__ sc,
     sc[S_CG_GAMMA] = gamma_n;
     sc[S_CG_DONE + (par ^ 1)] = conv ? 1.f : 0.f;
   }
+}
+
+__global__ void admm_finish(float* __restrict__ sc,
+                            const float* __restrict__ partial, int nblocks,
+                            int op, int par, float aux,
+                            const float* __restrict__ tols, int tix,
+                            AdaptConsts c) {
+  __shared__ float red[4][FIN];
+  finish_at(red, sc, partial, nblocks, op, par, aux, tols, tix, c);
+}
+
+// ---------------------------------------------------------------------------
+// One Chebyshev iteration on a halo band as one cooperative launch
+// (admm_banded_iter -> _admm_banded_kernel, which is one launch on the TPU).
+//
+// What bounds it.  At the sharded route's band (560x512 at 512x512 on one
+// card) the iteration moves about 19 planes of 1.1 MB, about 0.007 ms of
+// device memory, and the planes sit in L2.  The launch sequence of
+// iteration() (seed, rhs, cheby_init, degree - 1 cheby_step, update, and
+// the norm pass and finish) pays a launch for each of those short passes.
+//
+// Design.  One cooperative launch per iteration (cudaLaunchCooperativeKernel)
+// with as many blocks as the card holds at once, the steps as stages
+// separated by grid barriers (cooperative_groups::this_grid().sync()):
+// seed and rhs (fused: the seed writes only the pixel's own dead z values,
+// which its rhs reads), cheby_init, the degree - 1 Chebyshev steps, the
+// update, and with norms the norm pass and the finish in block 0.  Each
+// block owns a fixed band of whole rows in every pixel stage (band_of), so
+// a stencil's row neighbours are mostly its own block's.  The planes stay
+// in device memory (L2): a block's band is a few rows at this size, as
+// many as the two neighbour rows a stage reads, so a shared-memory copy
+// would save little against the barriers.  The pixel work is the device
+// functions of the launch sequence, and the norm pass reduces the same
+// 32x8 tiles in the same tree (two tiles per block at a time) for the same
+// finish: the iteration is bit-equal to the launch sequence.  The
+// converged flag is read once at entry, and the whole grid returns before
+// any barrier.
+// ---------------------------------------------------------------------------
+
+constexpr int CO_THREADS = FIN;  // the finish's threads: two 32x8 tiles
+constexpr int CO_SMEM = 4 * FIN * sizeof(float);  // the reductions' array
+constexpr int MAX_DEGREE = 64;
+
+struct Cheby {
+  float c[2 * (MAX_DEGREE - 1)];  // (c_prev, c_r) of each Chebyshev step
+};
+
+// Rows [lo, hi) of band `blk` of `blocks` over nx rows (ops/fused_admm.py
+// admm_bands): every row in exactly one band, the bands' sizes within one.
+__host__ __device__ __forceinline__ void band_of(int nx, int blk, int blocks,
+                                                 int& lo, int& hi) {
+  lo = (int)((long long)blk * nx / blocks);
+  hi = (int)((long long)(blk + 1) * nx / blocks);
+}
+
+__global__ void __launch_bounds__(CO_THREADS)
+    admm_iter_coop(State b, float alpha, float oma, int dataterm,
+                   int degree, Cheby cf, int with_norms) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  if (conv_set(b.sc)) return;
+  extern __shared__ float smem[];
+  const int ny = b.ny;
+  int lo, hi;
+  band_of(b.nx, blockIdx.x, gridDim.x, lo, hi);
+  const int band = (hi - lo) * ny;
+
+  for (int k = threadIdx.x; k < band; k += CO_THREADS) {
+    int i = lo + k / ny, j = k % ny;
+    seed_at(b, i, j);
+    rhs_at(b, i, j, alpha, oma, 0);
+  }
+  grid.sync();
+  for (int k = threadIdx.x; k < band; k += CO_THREADS)
+    cheby_init_at(b, lo + k / ny, k % ny);
+  grid.sync();
+  float* cur = b.v0;
+  float* nxt = b.v1;
+  for (int s = 0; s < degree - 1; ++s) {
+    for (int k = threadIdx.x; k < band; k += CO_THREADS)
+      cheby_step_at(b, cur, nxt, cf.c[2 * s], cf.c[2 * s + 1], lo + k / ny,
+                    k % ny);
+    grid.sync();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  for (int k = threadIdx.x; k < band; k += CO_THREADS)
+    update_at(b, cur, dataterm, lo + k / ny, k % ny);
+  if (!with_norms) return;
+  grid.sync();
+
+  // admm_norm_partial's tiles, two at a time (block_partial's tree)
+  const int ntx = (ny + BX - 1) / BX;
+  const int ntiles = (b.nx + BY - 1) / BY * ntx;
+  const int half = threadIdx.x / NT, t = threadIdx.x % NT;
+  float* red = smem + half * 4 * NT;  // red[k * NT + t]
+  for (int base = 2 * blockIdx.x; base < ntiles; base += 2 * gridDim.x) {
+    const int tile = base + half;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (tile < ntiles) {
+      int i = tile / ntx * BY + t / BX, j = tile % ntx * BX + t % BX;
+      if (i < b.nx && j < ny && i >= b.rows.own_lo && i < b.rows.own_hi)
+        norm_terms_at(b, i, j, v);
+    }
+    for (int k = 0; k < 4; ++k) red[k * NT + t] = v[k];
+    __syncthreads();
+    for (int s = NT / 2; s > 0; s >>= 1) {
+      if (t < s)
+        for (int k = 0; k < 4; ++k) red[k * NT + t] += red[k * NT + t + s];
+      __syncthreads();
+    }
+    if (t == 0 && tile < ntiles)
+      for (int k = 0; k < 4; ++k) b.partial[PS * tile + k] = red[k * NT];
+    __syncthreads();  // the next pass overwrites red
+  }
+  grid.sync();
+  if (blockIdx.x == 0) {
+    AdaptConsts none = {0.f, 0.f, 0.f, 0.f};
+    finish_at(reinterpret_cast<float(*)[FIN]>(smem), b.sc, b.partial,
+              ntiles, OP_NORMS, 0, 0.f, nullptr, 0, none);
+  }
+}
+
+// The blocks of a cooperative launch: as many as the card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs), found once
+// per device.
+int coop_blocks(int* blocks) {
+  static int cached[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 64 && cached[dev] > 0) {
+    *blocks = cached[dev];
+    return 0;
+  }
+  int per_sm = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, admm_iter_coop,
+                                                    CO_THREADS, CO_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  *blocks = per_sm * sms;
+  if (*blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (dev < 64) cached[dev] = *blocks;
+  return 0;
 }
 
 #define LAUNCH_CHECK()                                  \
@@ -759,7 +942,9 @@ int prost_admm_multichunk(void* xh, void* xp, void* xd, void* zh, void* zp,
 // (local row 0 is global row row_offset, [own_lo, own_hi) the owned rows):
 // one Chebyshev outer iteration on the 7 state arrays in place and, with
 // `with_norms`, the 4 SQUARED residual norms of the owned rows into
-// sc[S_NORM..] (zeros otherwise).  No-op when sc[S_CONV] is set.
+// sc[S_NORM..] (zeros otherwise), as one cooperative launch
+// (admm_iter_coop).  No-op when sc[S_CONV] is set.  A launch the card
+// cannot hold at once returns cudaErrorCooperativeLaunchTooLarge.
 int prost_admm_iter_halo(void* xh, void* xp, void* xd, void* zh, void* zp,
                          void* zd, void* warm, const void* f, const void* w,
                          void* scratch, void* sc, void* partial, int nx,
@@ -767,24 +952,29 @@ int prost_admm_iter_halo(void* xh, void* xp, void* xd, void* zh, void* zp,
                          const float* coeffs, float alpha, float oma,
                          int nx_global, int row_offset, int own_lo,
                          int own_hi, int with_norms, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+  if (degree < 1 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   State b = state_of(xh, xp, xd, zh, zp, zd, warm, f, w, scratch, sc,
                      partial, nx, ny);
   b.rows = Rows{row_offset, nx_global, own_lo, own_hi};
-  dim3 grid = grid_of(nx, ny), block(BX, BY);
-  AdaptConsts none = {0.f, 0.f, 0.f, 0.f};
-  admm_seed<<<grid, block, 0, st>>>(b);
-  LAUNCH_CHECK();
-  int rc = iteration(b, dataterm, degree, coeffs, 0, nullptr, 0, alpha, oma,
-                     st);
-  if (rc) return rc;
-  if (!with_norms) return 0;
-  admm_norm_partial<<<grid, block, 0, st>>>(b);
-  LAUNCH_CHECK();
-  admm_finish<<<1, FIN, 0, st>>>(b.sc, b.partial, num_blocks(nx, ny),
-                                 OP_NORMS, 0, 0.f, nullptr, 0, none);
+  Cheby cf = {};
+  for (int k = 0; k < 2 * (degree - 1); ++k) cf.c[k] = coeffs[k];
+  int blocks = 0;
+  if (int rc = coop_blocks(&blocks)) return rc;
+  void* args[] = {&b, &alpha, &oma, &dataterm, &degree, &cf, &with_norms};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)admm_iter_coop, dim3(blocks), dim3(CO_THREADS), args,
+      CO_SMEM, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   LAUNCH_CHECK();
   return 0;
+}
+
+// The blocks of admm_iter_halo's cooperative launch on the current device,
+// or minus the error that refuses it.
+int prost_admm_coop_blocks() {
+  int blocks = 0;
+  int rc = coop_blocks(&blocks);
+  return rc ? -rc : blocks;
 }
 
 }  // extern "C"

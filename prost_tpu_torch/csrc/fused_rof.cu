@@ -33,8 +33,11 @@
 // size, by launch latency: one chunk of ri iterations is 2*ri + 3 launches.
 // A batched chunk of 1024 instances of 128x128 streams 10 planes of 64 MiB
 // once (x, 2 q, f in; x, 2 q, x_prev, 2 q_prev out), a bound of about 0.2
-// ms, but its working set (about 1 GB) is far beyond L2, so every
-// half-iteration streams it from device memory: bound by bytes.
+// ms; its working set (about 1 GB) is far beyond L2, so the streaming
+// sequence would move it through device memory on every half-iteration.
+// The batched chunk therefore holds each instance on chip in a
+// thread-block cluster (rof_chunk_cluster below) wherever one of at most 8
+// CTAs holds it, and keeps the streaming sequence for larger instances.
 //
 // Design.  One thread per pixel, 32x8 blocks with threadIdx.x along the
 // contiguous y axis, so warps read and write coalesced rows.  The stencil
@@ -65,6 +68,8 @@
 //
 // Interface: plain C, loaded with ctypes; pointers and the stream arrive
 // as void*, and every entry point returns the cudaError_t of its launches.
+
+#include <cooperative_groups.h>
 
 #include "pdhg_chunk.cuh"
 
@@ -143,8 +148,70 @@ __global__ void rof_seed(Planes b) {
   if (j == ny - 1) b.q[n + p] = 0.f;
 }
 
-// Primal step (_rof_update, first half): x <- prox_g(x - tau/4 K^T q),
-// with the data term hoisted as in _hoist_dataterm.
+// The primal prox at one pixel (_rof_update, first half, with the data
+// term hoisted as in _hoist_dataterm): x_new from x, K^T q and the pixel's
+// f and w (w is used for wsquare only).
+__device__ __forceinline__ float primal_at(float xv, float kty, float fv,
+                                           float wv, float tau, float lmb,
+                                           int dataterm) {
+  float arg = xv - tau * kty;
+  if (dataterm == DT_SQUARE) {
+    float dt0 = (tau * lmb) * fv;
+    float dt1 = 1.f / (1.f + tau * lmb);
+    return (arg + dt0) * dt1;
+  }
+  if (dataterm == DT_WSQUARE) {
+    float tw = (tau * lmb) * wv;
+    float dt0 = tw * fv;
+    float dt1 = 1.f / (1.f + tw);
+    return (arg + dt0) * dt1;
+  }
+  // abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
+  float t = tau * lmb;
+  float d = arg - fv;
+  return arg - fminf(fmaxf(d, -t), t);
+}
+
+// The dual step at one pixel (_rof_update, second half): q <- proj_{|.|<=r}
+// (q + sig_p grad x_new - sig_t grad x), (gxn, gyn) = grad x_new and
+// (gx, gy) the carried grad x.
+__device__ __forceinline__ void dual_at(float qx, float qy, float gxn,
+                                        float gyn, float gx, float gy,
+                                        float sig_p, float sig_t,
+                                        float radius, float& qxn,
+                                        float& qyn) {
+  float ax = (qx + sig_p * gxn) - sig_t * gx;
+  float ay = (qy + sig_p * gyn) - sig_t * gy;
+  float nn = ax * ax + ay * ay;
+  float scale = nn > 0.f ? fminf(1.f, radius * rsqrtf(nn)) : 1.f;
+  qxn = ax * scale;
+  qyn = ay * scale;
+}
+
+// The residual terms of the aligned iteration at one pixel (_chunk_core):
+// w_hat from x before (xp) and after (x) it and K^T of the dual before it;
+// |pd|^2 and |z_hat|^2 from the dual before (qp) and after (q) it and the
+// gradient after (g) and before (gp) it; dd from w_hat and K^T of the new
+// dual.
+__device__ __forceinline__ float w_hat(float xp, float x, float ktyp,
+                                       float inv_t) {
+  return (xp - x) * inv_t - SQRT_T * ktyp;
+}
+
+__device__ __forceinline__ void dual_terms(float qpx, float qpy, float qx,
+                                           float qy, float gx, float gy,
+                                           float gpx, float gpy, float inv_s,
+                                           float theta, float& pd2,
+                                           float& zh2) {
+  float zx = (qpx - qx) * inv_s + SQRT_S * ((1.f + theta) * gx - theta * gpx);
+  float zy = (qpy - qy) * inv_s + SQRT_S * ((1.f + theta) * gy - theta * gpy);
+  float pdx = zx - SQRT_S * gx;
+  float pdy = zy - SQRT_S * gy;
+  pd2 = pdx * pdx + pdy * pdy;
+  zh2 = zx * zx + zy * zy;
+}
+
+// Primal step (_rof_update, first half): x <- prox_g(x - tau/4 K^T q).
 // Bound: memory, 4 planes read (x, q_x, q_y, f; +w for wsquare), 1
 // written (2 on the aligned iteration, which also saves x_prev).  The
 // q neighbours one row up are reread by the next warp row, so they come
@@ -154,38 +221,18 @@ __global__ void rof_primal(Planes b, int dataterm, int save_prev) {
   if (b.sc[S_CONV] != 0.f) return;
   int i, j, nx = b.nx, ny = b.ny;
   if (!pixel(nx, ny, i, j)) return;
-  float* __restrict__ x = b.x;
-  const float* __restrict__ q = b.q;
-  const float* __restrict__ f = b.f;
-  const float* __restrict__ w = b.w;
   const float* __restrict__ sc = b.sc;
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
   float tau = sc[S_TAU] * 0.25f;  // tau * Tau
-  float lmb = sc[S_LMB];
-  float kty = kty_at(q, row_ctx(sc, nx, b.nxg), i, j, ny, n);
-  float xv = x[p];
-  float arg = xv - tau * kty;
-  float xn;
-  if (dataterm == DT_SQUARE) {
-    float dt0 = (tau * lmb) * f[p];
-    float dt1 = 1.f / (1.f + tau * lmb);
-    xn = (arg + dt0) * dt1;
-  } else if (dataterm == DT_WSQUARE) {
-    float tw = (tau * lmb) * w[p];
-    float dt0 = tw * f[p];
-    float dt1 = 1.f / (1.f + tw);
-    xn = (arg + dt0) * dt1;
-  } else {  // abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
-    float t = tau * lmb;
-    float d = arg - f[p];
-    xn = arg - fminf(fmaxf(d, -t), t);
-  }
+  float kty = kty_at(b.q, row_ctx(sc, nx, b.nxg), i, j, ny, n);
+  float xv = b.x[p];
+  float wv = dataterm == DT_WSQUARE ? b.w[p] : 0.f;
+  float xn = primal_at(xv, kty, b.f[p], wv, tau, sc[S_LMB], dataterm);
   if (save_prev) b.xp[p] = xv;
-  x[p] = xn;
+  b.x[p] = xn;
 }
 
-// Dual step (_rof_update, second half): q <- proj_{|.|<=r}(q + sig_p grad
-// x_new - sig_t grad x), grad x_new carried into g.
+// Dual step (_rof_update, second half), grad x_new carried into g.
 // Bound: memory, 5 planes read (x, q, g), 4 written (8 on the aligned
 // iteration, which saves q_prev and grad x_prev).  Carrying g saves the
 // two stencils of grad x_old that the extrapolation would need.
@@ -197,8 +244,6 @@ __global__ void rof_dual(Planes b, int save_prev) {
   const float* __restrict__ x = b.x;
   float* __restrict__ q = b.q;
   float* __restrict__ g = b.g;
-  float* __restrict__ qp = b.qp;
-  float* __restrict__ gp = b.gp;
   const float* __restrict__ sc = b.sc;
   size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
   float sigma_p = sc[S_SIGMA] * 0.5f;  // sigma * Sigma
@@ -210,18 +255,14 @@ __global__ void rof_dual(Planes b, int save_prev) {
                                                         : 0.f;
   float gyn = j < ny - 1 ? x[p + 1] - xv : 0.f;
   float qx = q[p], qy = q[n + p], gx = g[p], gy = g[n + p];
-  float ax = (qx + sig_p * gxn) - sig_t * gx;
-  float ay = (qy + sig_p * gyn) - sig_t * gy;
-  float nn = ax * ax + ay * ay;
-  float scale = nn > 0.f ? fminf(1.f, sc[S_RADIUS] * rsqrtf(nn)) : 1.f;
   if (save_prev) {
-    qp[p] = qx;
-    qp[n + p] = qy;
-    gp[p] = gx;
-    gp[n + p] = gy;
+    b.qp[p] = qx;
+    b.qp[n + p] = qy;
+    b.gp[p] = gx;
+    b.gp[n + p] = gy;
   }
-  q[p] = ax * scale;
-  q[n + p] = ay * scale;
+  dual_at(qx, qy, gxn, gyn, gx, gy, sig_p, sig_t, sc[S_RADIUS], q[p],
+          q[n + p]);
   g[p] = gxn;
   g[n + p] = gyn;
 }
@@ -240,26 +281,285 @@ __global__ void rof_norm_partial(Planes b) {
   if (pixel(b.nx, b.ny, i, j) && owned_row(r, i)) {
     int ny = b.ny;
     size_t n = (size_t)b.nx * ny, p = (size_t)i * ny + j;
-    float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
-    float theta = b.sc[S_THETA];
-    float inv_s = 1.f / (sigma_raw * SQRT_S);
-    float inv_t = 1.f / (tau_raw * SQRT_T);
-    float kty2 = kty_at(b.q, r, i, j, ny, n);
-    float ktyp = kty_at(b.qp, r, i, j, ny, n);
-    float zx = (b.qp[p] - b.q[p]) * inv_s
-               + SQRT_S * ((1.f + theta) * b.g[p] - theta * b.gp[p]);
-    float zy = (b.qp[n + p] - b.q[n + p]) * inv_s
-               + SQRT_S * ((1.f + theta) * b.g[n + p] - theta * b.gp[n + p]);
-    float pdx = zx - SQRT_S * b.g[p];
-    float pdy = zy - SQRT_S * b.g[n + p];
-    float wh = (b.xp[p] - b.x[p]) * inv_t - SQRT_T * ktyp;
-    float dd = wh + SQRT_T * kty2;
-    v[0] = pdx * pdx + pdy * pdy;
-    v[1] = zx * zx + zy * zy;
+    float inv_s = 1.f / (b.sc[S_SIGMA] * SQRT_S);
+    float inv_t = 1.f / (b.sc[S_TAU] * SQRT_T);
+    float wh = w_hat(b.xp[p], b.x[p], kty_at(b.qp, r, i, j, ny, n), inv_t);
+    float dd = wh + SQRT_T * kty_at(b.q, r, i, j, ny, n);
+    dual_terms(b.qp[p], b.qp[n + p], b.q[p], b.q[n + p], b.g[p], b.g[n + p],
+               b.gp[p], b.gp[n + p], inv_s, b.sc[S_THETA], v[0], v[1]);
     v[2] = dd * dd;
     v[3] = wh * wh;
   }
   block_partials(v, b.partial);
+}
+
+// ---------------------------------------------------------------------------
+// The batched chunk with each instance held on chip by a thread-block
+// cluster (rof_fused_chunk_batched -> _rof_chunk_kernel_batched, whose TPU
+// kernel keeps an instance in VMEM for the whole chunk, grid = (B,)).
+//
+// What bounds it.  A chunk of B instances reads x, q and f (and w) once and
+// writes x2, q2, x_prev and q_prev once: 10 planes per instance, bound by
+// bytes.  The streaming launch sequence above moves the whole working set
+// through device memory on every half-iteration (2 ri + 3 launches), about
+// twenty times the bound at B = 1024 of 128x128.
+//
+// Design.  One cluster launch per chunk: instance z is the cluster at
+// blockIdx.y, and its C CTAs (blockIdx.x, the cluster rank) own bands of
+// `rows` rows (a multiple of 8, so that every 32x8 norm tile lies in one
+// band; the last band may be shorter or empty).  Each CTA loads its band's
+// x, q_x, q_y and f (and w) into dynamic shared memory, seeds the carried
+// gradient g there, runs all `count` iterations on it and writes the
+// outputs once: g never leaves the chip.  The stencils reach one row into
+// a neighbour band, q_x's row above in the primal step and x's row below
+// in the dual step (and q_x's row above in the last norm pass).  Each band
+// keeps those two rows beside its planes (its slack rows): the warp that
+// takes a band's edge tile copies them from the neighbour CTA's shared
+// memory (DSMEM, map_shared_rank) into its own, and the same lanes read
+// them, so every stencil reads plain shared memory.  Each half-step writes
+// one set of planes and reads the other's neighbours, so one cluster
+// barrier after each half-step orders every remote read before the
+// neighbour's next write of that plane.  A last barrier keeps every CTA
+// resident until its neighbours have read it.  C, the smallest of 1, 2, 4
+// and 8 whose band and slack rows fit, comes from ops/fused_rof.py
+// cluster_size; a shape that no cluster of 8 holds keeps the streaming
+// sequence, chosen by the wrapper before the launch.
+//
+// The per-pixel arithmetic is that of rof_primal, rof_dual and
+// rof_norm_partial (the same device functions), and the norm partials are
+// block_partials' tree over the same 32x8 tiles (rows paired as the shared
+// tree pairs them, then lanes by shuffles), reduced by the same
+// pdhg_finish: every instance is bit-equal to rof_chunk on it alone.
+// Warps walk the band's 32x8 tiles, a lane one column of a tile; threads
+// outside the plane still reach every barrier.
+// ---------------------------------------------------------------------------
+
+constexpr int CL_THREADS = 1024;  // threads of a cluster CTA: 32 warps an SM
+constexpr int CL_WARPS = CL_THREADS / BX;
+constexpr int CLUSTER_MAX = 8;  // the portable cluster size
+// dynamic shared memory one block can opt into on Hopper (227 KB)
+constexpr int SMEM_MAX = 232448;
+
+struct Cluster {
+  const float *x, *q, *f, *w;  // (B, nx, ny) and (B, 2, nx, ny) inputs
+  float *x2, *q2, *xp, *qp;    // outputs
+  float* sc;
+  float* partial;  // 4 per 32x8 tile per instance
+  int nx, ny, rows, count;
+};
+
+// Planes a band holds in shared memory: x, q_x, q_y, g_x, g_y, f, and w
+// for wsquare (ops/fused_rof.py cluster_planes).
+inline int cluster_planes(int dataterm) {
+  return dataterm == DT_WSQUARE ? 7 : 6;
+}
+
+// Band rows of a CTA of a cluster of `csize` (ops/fused_rof.py
+// cluster_band_rows): ceil(nx / csize) rounded up to the 32x8 tiles.
+inline int cluster_band_rows(int nx, int csize) {
+  int r = (nx + csize - 1) / csize;
+  return (r + BY - 1) / BY * BY;
+}
+
+// The band's planes and its two slack rows (q_x's row above, x's row
+// below), in bytes (ops/fused_rof.py cluster_size).
+inline size_t cluster_smem(int nx, int ny, int dataterm, int csize) {
+  return ((size_t)cluster_planes(dataterm) * cluster_band_rows(nx, csize) +
+          2) * ny * sizeof(float);
+}
+
+// block_partials' tree of one 32x8 tile: a lane holds its column's 8 rows,
+// paired as the shared-memory tree pairs the tile's warp rows (s = 128, 64,
+// 32), then the lanes fold as it folds them (s = 16 .. 1).  Lane 0 ends
+// with the tile's sum.
+__device__ __forceinline__ float tile_sum(const float (&v)[BY]) {
+  float s = ((v[0] + v[4]) + (v[2] + v[6])) + ((v[1] + v[5]) + (v[3] + v[7]));
+  for (int o = BX / 2; o > 0; o >>= 1)
+    s += __shfl_down_sync(0xffffffffu, s, o);
+  return s;
+}
+
+template <int DT>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+    rof_chunk_cluster(Cluster a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ float smem[];
+  const int nx = a.nx, ny = a.ny, R = a.rows;
+  const int rank = (int)cl.block_rank();
+  const size_t z = blockIdx.y, n = (size_t)nx * ny;
+  const float* __restrict__ sc = a.sc + z * S_LEN;
+  const int r0 = rank * R, rows = max(min(R, nx - r0), 0);
+  const size_t band = (size_t)rows * ny;
+  const size_t o1 = z * n + (size_t)r0 * ny;           // band in x-like
+  const size_t o2 = 2 * z * n + (size_t)r0 * ny;       // band in q's q_x
+
+  if (sc[S_CONV] != 0.f) {  // converged: the inputs are the outputs
+    for (size_t k = threadIdx.x; k < band; k += CL_THREADS) {
+      float xv = a.x[o1 + k], qx = a.q[o2 + k], qy = a.q[o2 + n + k];
+      a.x2[o1 + k] = xv;
+      a.xp[o1 + k] = xv;
+      a.q2[o2 + k] = qx;
+      a.qp[o2 + k] = qx;
+      a.q2[o2 + n + k] = qy;
+      a.qp[o2 + n + k] = qy;
+    }
+    return;  // every CTA of the cluster returns here: no DSMEM was read
+  }
+
+  // q_x with its slack row above (row -1), x with its slack row below
+  // (row R), then q_y, g_x, g_y, f and w
+  const int P = R * ny;
+  float* sqx = smem + ny;
+  float* sx = sqx + P;
+  float* sqy = sx + P + ny;
+  float* sgx = sqy + P;
+  float* sgy = sgx + P;
+  float* sf = sgy + P;
+  float* sw = sf + P;  // wsquare only
+
+  // load the band; the seed (rof_seed): g = grad x, from the inputs, and
+  // the dead dual coordinates zeroed
+  const float* xin = a.x + z * n;
+  for (int k = threadIdx.x; k < (int)band; k += CL_THREADS) {
+    int i = r0 + k / ny, j = k % ny;
+    size_t p = (size_t)i * ny + j;
+    float xv = xin[p];
+    sx[k] = xv;
+    sgx[k] = i < nx - 1 ? xin[p + ny] - xv : 0.f;
+    sgy[k] = j < ny - 1 ? xin[p + 1] - xv : 0.f;
+    sqx[k] = i == nx - 1 ? 0.f : a.q[o2 + k];
+    sqy[k] = j == ny - 1 ? 0.f : a.q[o2 + n + k];
+    sf[k] = a.f[o1 + k];
+    if (DT == DT_WSQUARE) sw[k] = a.w[o1 + k];
+  }
+
+  // the neighbours' rows that fill the slack rows: q_x's last row of the
+  // band above (its row R - 1: only the last band is short), where this
+  // band has a global row above it; x's row 0 of the band below, where a
+  // global row follows this (full) band
+  const bool has_up = rank > 0 && rows > 0;
+  const bool has_dn = r0 + R < nx;
+  const float* up_qx =
+      has_up ? cl.map_shared_rank(sqx, rank - 1) + (R - 1) * ny : sqx;
+  const float* dn_x = has_dn ? cl.map_shared_rank(sx, rank + 1) : sx;
+
+  const float tau_raw = sc[S_TAU], sigma_raw = sc[S_SIGMA];
+  const float theta = sc[S_THETA], lmb = sc[S_LMB], radius = sc[S_RADIUS];
+  const float tau = tau_raw * 0.25f;      // tau * Tau
+  const float sigma_p = sigma_raw * 0.5f;  // sigma * Sigma
+  const float sig_p = sigma_p * (1.f + theta);
+  const float sig_t = sigma_p * theta;
+  const float inv_s = 1.f / (sigma_raw * SQRT_S);
+  const float inv_t = 1.f / (tau_raw * SQRT_T);
+
+  const int ntx = (ny + BX - 1) / BX;
+  const int ntiles = (rows + BY - 1) / BY * ntx;
+  const int warp = threadIdx.x / BX, lane = threadIdx.x % BX;
+  // this instance's partials; the band's first tile row is r0 / 8
+  float* partial = a.partial + z * 4 * (size_t)((nx + BY - 1) / BY * ntx) +
+                   (size_t)4 * (r0 / BY) * ntx;
+
+  // K^T q at local pixel lp of local row li (kty_at), q_x's row above the
+  // band from the slack row
+  auto kty = [&](int li, int j, int lp) {
+    float lx = r0 + li > 0 ? sqx[lp - ny] : 0.f;
+    float ly = j > 0 ? sqy[lp - 1] : 0.f;
+    return (lx - sqx[lp]) + (ly - sqy[lp]);
+  };
+
+  cl.sync();  // every band loaded and seeded
+  for (int it = 0; it < a.count; ++it) {
+    const bool last = it == a.count - 1;
+    // primal step; on the aligned iteration x_prev out, w_hat into f's
+    // slot (f is not read again) and its tile sums
+    for (int t = warp; t < ntiles; t += CL_WARPS) {
+      const int ty = t / ntx, j = (t % ntx) * BX + lane;
+      if (ty == 0 && has_up && j < ny) sqx[j - ny] = up_qx[j];
+      float v3[BY];
+#pragma unroll
+      for (int rr = 0; rr < BY; ++rr) {
+        const int li = ty * BY + rr, lp = li * ny + j;
+        v3[rr] = 0.f;
+        if (li >= rows || j >= ny) continue;
+        const float k = kty(li, j, lp);
+        const float xv = sx[lp];
+        const float xn = primal_at(xv, k, sf[lp],
+                                   DT == DT_WSQUARE ? sw[lp] : 0.f, tau,
+                                   lmb, DT);
+        if (last) {
+          a.xp[o1 + lp] = xv;
+          const float wh = w_hat(xv, xn, k, inv_t);
+          sf[lp] = wh;
+          v3[rr] = wh * wh;
+        }
+        sx[lp] = xn;
+      }
+      if (last) {
+        const float s3 = tile_sum(v3);
+        if (lane == 0) partial[4 * t + 3] = s3;
+      }
+    }
+    cl.sync();  // new x everywhere; the q reads above are done
+    // dual step; on the aligned iteration q_prev out and the tile sums of
+    // |pd|^2 and |z_hat|^2
+    for (int t = warp; t < ntiles; t += CL_WARPS) {
+      const int ty = t / ntx, j = (t % ntx) * BX + lane;
+      if (ty == R / BY - 1 && has_dn && j < ny) sx[P + j] = dn_x[j];
+      float v0[BY], v1[BY];
+#pragma unroll
+      for (int rr = 0; rr < BY; ++rr) {
+        const int li = ty * BY + rr, i = r0 + li, lp = li * ny + j;
+        v0[rr] = v1[rr] = 0.f;
+        if (li >= rows || j >= ny) continue;
+        const float xv = sx[lp];
+        const float gxn = i < nx - 1 ? sx[lp + ny] - xv : 0.f;
+        const float gyn = j < ny - 1 ? sx[lp + 1] - xv : 0.f;
+        const float qx = sqx[lp], qy = sqy[lp];
+        const float gx = sgx[lp], gy = sgy[lp];
+        float qxn, qyn;
+        dual_at(qx, qy, gxn, gyn, gx, gy, sig_p, sig_t, radius, qxn, qyn);
+        if (last) {
+          a.qp[o2 + lp] = qx;
+          a.qp[o2 + n + lp] = qy;
+          dual_terms(qx, qy, qxn, qyn, gxn, gyn, gx, gy, inv_s, theta,
+                     v0[rr], v1[rr]);
+        }
+        sqx[lp] = qxn;
+        sqy[lp] = qyn;
+        sgx[lp] = gxn;
+        sgy[lp] = gyn;
+      }
+      if (last) {
+        const float s0 = tile_sum(v0), s1 = tile_sum(v1);
+        if (lane == 0) {
+          partial[4 * t + 0] = s0;
+          partial[4 * t + 1] = s1;
+        }
+      }
+    }
+    cl.sync();  // new q everywhere; the x reads above are done
+  }
+  // the outputs, and the tile sums of dd^2 (K^T of the new dual)
+  for (int t = warp; t < ntiles; t += CL_WARPS) {
+    const int ty = t / ntx, j = (t % ntx) * BX + lane;
+    if (ty == 0 && has_up && j < ny) sqx[j - ny] = up_qx[j];
+    float v2[BY];
+#pragma unroll
+    for (int rr = 0; rr < BY; ++rr) {
+      const int li = ty * BY + rr, lp = li * ny + j;
+      v2[rr] = 0.f;
+      if (li >= rows || j >= ny) continue;
+      const float dd = sf[lp] + SQRT_T * kty(li, j, lp);
+      v2[rr] = dd * dd;
+      a.x2[o1 + lp] = sx[lp];
+      a.q2[o2 + lp] = sqx[lp];
+      a.q2[o2 + n + lp] = sqy[lp];
+    }
+    const float s2 = tile_sum(v2);
+    if (lane == 0) partial[4 * t + 2] = s2;
+  }
+  cl.sync();  // no CTA leaves while a neighbour still reads its planes
 }
 
 // One chunk of `count` iterations of `batch` instances without the seed:
@@ -294,6 +594,46 @@ int chunk(const Planes& b, int count, int dataterm, int batch,
                                     count, 0, STEP_NONE, none);
   LAUNCH_CHECK();
   return 0;
+}
+
+// The launch configuration of a chunk of `batch` instances in clusters of
+// `csize` CTAs, or the error that refuses it: a cluster size other than 1,
+// 2, 4 or 8, a band beyond the shared memory of a block, or a cluster that
+// the card cannot hold (cudaOccupancyMaxActiveClusters).
+using ClusterKernel = void (*)(Cluster);
+
+ClusterKernel cluster_kernel(int dataterm) {
+  return dataterm == DT_SQUARE    ? rof_chunk_cluster<DT_SQUARE>
+         : dataterm == DT_WSQUARE ? rof_chunk_cluster<DT_WSQUARE>
+                                  : rof_chunk_cluster<DT_ABS>;
+}
+
+int cluster_config(int nx, int ny, int dataterm, int csize, int batch,
+                   cudaStream_t s, cudaLaunchConfig_t& cfg,
+                   cudaLaunchAttribute& attr, int* clusters) {
+  if (csize < 1 || csize > CLUSTER_MAX || (csize & (csize - 1)))
+    return (int)cudaErrorInvalidClusterSize;
+  size_t smem = cluster_smem(nx, ny, dataterm, csize);
+  if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      cluster_kernel(dataterm), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(csize, batch);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = csize;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaOccupancyMaxActiveClusters(clusters, cluster_kernel(dataterm),
+                                     &cfg);
+  if (e != cudaSuccess) return (int)e;
+  return *clusters < 1 ? (int)cudaErrorLaunchOutOfResources : 0;
 }
 
 Planes planes_of(void* x, void* q, void* xp, void* qp, void* g, void* gp,
@@ -350,6 +690,53 @@ int prost_rof_chunk_batched(void* x, void* q, void* xp, void* qp, void* g,
   if (int rc = batch_error(batch)) return rc;
   Planes b = planes_of(x, q, xp, qp, g, gp, f, w, sc, partial, nx, ny);
   return chunk(b, count, dataterm, batch, (cudaStream_t)stream);
+}
+
+// rof_fused_chunk_batched with each instance held on chip by a cluster of
+// `csize` CTAs (ops/fused_rof.py cluster_size): one cluster launch and the
+// finish.  Reads x, q, f, w and writes x2, q2, x_prev, q_prev (all
+// distinct buffers); an instance whose sc[S_CONV] is set gets its inputs
+// as its outputs and keeps zero norms.  Refuses (returns the error of) a
+// cluster the card cannot hold.
+int prost_rof_chunk_cluster(const void* x, const void* q, const void* f,
+                            const void* w, void* x2, void* q2, void* xp,
+                            void* qp, void* sc, void* partial, int nx,
+                            int ny, int count, int dataterm, int batch,
+                            int csize, void* stream) {
+  if (int rc = batch_error(batch)) return rc;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  if (int rc = cluster_config(nx, ny, dataterm, csize, batch, s, cfg, attr,
+                              &clusters))
+    return rc;
+  Cluster a = {(const float*)x, (const float*)q, (const float*)f,
+               (const float*)w, (float*)x2, (float*)q2, (float*)xp,
+               (float*)qp, (float*)sc, (float*)partial, nx, ny,
+               cluster_band_rows(nx, csize), count};
+  cudaError_t e = cudaLaunchKernelEx(&cfg, cluster_kernel(dataterm), a);
+  if (e != cudaSuccess) return (int)e;
+  LAUNCH_CHECK();
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  pdhg_finish<<<batch, FIN, 0, s>>>((float*)sc, (const float*)partial,
+                                    prost_rof_num_blocks(nx, ny), count, 0,
+                                    STEP_NONE, none);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// The clusters of `csize` that the card holds at once for an (nx, ny)
+// chunk (cudaOccupancyMaxActiveClusters), or minus the error that refuses
+// the configuration.
+int prost_rof_cluster_occupancy(int nx, int ny, int dataterm, int csize) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  int rc = cluster_config(nx, ny, dataterm, csize, 1, 0, cfg, attr,
+                          &clusters);
+  return rc == (int)cudaErrorLaunchOutOfResources ? 0
+                                                  : (rc ? -rc : clusters);
 }
 
 // rof_fused_chunk_halo: rof_chunk on one halo-extended shard of a plane of

@@ -21,7 +21,7 @@ Two kernels carry the route, each a hand-written CUDA kernel set in
 * ``admm_iter_halo`` (JAX ``admm_banded_iter`` on a shard): one Chebyshev
   iteration in place on a halo-extended shard of a row-partitioned plane,
   with the owned rows' norms or without, the spatially sharded route's
-  (``parallel/spatial_fused.py``).
+  (``parallel/spatial_fused.py``), as one cooperative launch.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no other route and no fallback,
@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -72,6 +73,9 @@ _CHEB_SIGMA1 = _CHEB_THETA / _CHEB_DELTA
 # slots of the kernels' device scalar buffer (csrc/fused_admm.cu, enum S_*)
 _S_CONV, _S_DONE, _S_NORM, _S_LEN = 11, 12, 13, 24
 _SOUT = (0, 3, 4, 5, _S_CONV, _S_DONE)  # rho delta arb_l arb_u conv done
+# the Chebyshev degrees the halo iteration's launch argument holds
+# (csrc/fused_admm.cu MAX_DEGREE)
+MAX_HALO_DEGREE = 64
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
 launch_counts = {"admm_chunk": 0, "admm_multichunk": 0,
@@ -458,12 +462,24 @@ def _lib():
         # 12 buffers, nx, ny, dataterm, degree, coeffs, alpha, 1 - alpha,
         # nx_global, row_offset, own_lo, own_hi, with_norms, stream
         "prost_admm_iter_halo": [VP] * 12 + [CI] * 4 + [VP, CF, CF]
-                                + [CI] * 5 + [VP]})
+                                + [CI] * 5 + [VP],
+        "prost_admm_coop_blocks": []})
 
 
+def admm_bands(nx: int, blocks: int) -> list:
+    """The rows [lo, hi) that each block of ``admm_iter_halo``'s
+    cooperative launch owns in every pixel stage (csrc/fused_admm.cu
+    band_of): block b of ``blocks`` takes rows [b nx // blocks, (b + 1) nx
+    // blocks), so every row lies in exactly one band and the bands' sizes
+    differ by one at most (a band is empty where blocks > nx)."""
+    return [(b * int(nx) // int(blocks), (b + 1) * int(nx) // int(blocks))
+            for b in range(int(blocks))]
+
+
+@functools.lru_cache(maxsize=MAX_HALO_DEGREE + 1)
 def _coeff_array(degree):
     """The Chebyshev step coefficients as a host float array (c_prev, c_r
-    per step), or None for the CGLS projection."""
+    per step), or None for the CGLS projection; made once per degree."""
     if degree is None:
         return None
     flat = [c for pair in cheby_coeffs(int(degree)) for c in pair]
@@ -537,12 +553,17 @@ def admm_iter_halo_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, degree: int,
                     with_norms: bool = True):
     """``admm_iter_halo`` in place, on the sharded route's persistent
     buffers: the 7 state arrays advance by one iteration (with the
-    converged flag set nothing changes).  Returns norms2."""
+    converged flag set nothing changes).  Returns norms2.  On a card it is
+    one cooperative launch (csrc/fused_admm.cu admm_iter_coop: the
+    iteration's steps as stages between grid barriers, each block on its
+    band of ``admm_bands``), or raises ``ProstError`` where the card cannot
+    hold the launch at once."""
     planes = (xh, xp, xd, zh, zp, zd, warm)
     _check(planes, f, w, scal, 3, 1, dataterm)
     check_halo(nx_global, planes)
-    if int(degree) < 1:
-        raise ProstError("The Chebyshev projection needs a degree >= 1.")
+    if not 1 <= int(degree) <= MAX_HALO_DEGREE:
+        raise ProstError(f"The halo iteration takes a Chebyshev degree of 1 "
+                         f"to {MAX_HALO_DEGREE}, got {degree}.")
     if not 0 <= own_lo < own_hi <= xh.shape[0]:
         raise ProstError(f"The owned rows [{own_lo}, {own_hi}) must lie in "
                          f"the shard's {xh.shape[0]} rows.")

@@ -16,8 +16,11 @@ Three kernels carry the ROF routes, each a hand-written CUDA kernel set in
   chunks with the boyd/goldstein adaptation and the stopping test on the
   device between chunks;
 * ``rof_chunk_batched`` (JAX ``rof_fused_chunk_batched``, and its banded
-  variant for large instances): one chunk for each of B instances in one
-  launch sequence, the batched ensembles' route (``parallel/ensemble.py``);
+  variant for large instances): one chunk for each of B instances, the
+  batched ensembles' route (``parallel/ensemble.py``): one cluster launch
+  that holds each instance on chip in a thread-block cluster of
+  ``cluster_size`` CTAs, or, for instances that no cluster of 8 holds, the
+  streaming launch sequence (``rof_chunk_batched_streaming_``);
 * ``rof_chunk_halo`` (JAX ``rof_fused_chunk_halo``): one chunk on a
   halo-extended shard of a row-partitioned plane, the spatially sharded
   route's (``parallel/spatial_fused.py``).
@@ -49,20 +52,27 @@ from .fused_deblur import fused_deblur_run, match_deblur_structure
 from .fused_multilabel import fused_ml_run, match_multilabel_structure
 from .fused_tight import fused_tight_run, match_tight_structure
 from .fused_vol import fused_vol_run, match_vol_structure
-from .pdhg_chunk import (CF, CI, N_HALO_SCAL, STEPSIZES, VP, WHOLE_PLANE,
-                         ChunkWork, ball_scale, canonical_duals,
-                         check_buffers, check_halo, chunk_state,
-                         dual_ball_radius, dx, dy, dyt, entry_converged,
-                         halo_copy, halo_into, halo_scal_rows, launch,
-                         match_dataterm, multichunk_plain, multichunk_state,
-                         pdhg_adapt_consts, run_pdhg_route, typed_lib,
-                         vmap_plain)
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, S_CONV, S_LEN, S_NORM,
+                         STEPSIZES, VP, WHOLE_PLANE, ChunkWork, ball_scale,
+                         canonical_duals, check_buffers, check_halo,
+                         chunk_state, dual_ball_radius, dx, dy, dyt,
+                         entry_converged, halo_copy, halo_into,
+                         halo_scal_rows, launch, match_dataterm,
+                         multichunk_plain, multichunk_state,
+                         pdhg_adapt_consts, run_pdhg_route, scalar_buffer,
+                         typed_lib, vmap_plain)
 from .phases import K_CHUNKS
 
 _SQRT_S = 0.7071067811865476  # sqrt(Sigma) = sqrt(1/2)
 _SQRT_T = 0.5                 # sqrt(Tau)   = sqrt(1/4)
 
 DATATERMS = {"square": 0, "wsquare": 1, "abs": 2}
+
+# The batched chunk's clusters (csrc/fused_rof.cu rof_chunk_cluster): the
+# dynamic shared memory one block can opt into on Hopper (227 KB; the
+# kernel has no static shared memory), and the portable cluster sizes.
+SMEM_BYTES = 232448
+CLUSTER_SIZES = (1, 2, 4, 8)
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
 launch_counts = {"rof_chunk": 0, "rof_multichunk": 0,
@@ -236,12 +246,42 @@ def _check(x, q, f, w, scal, n_scal: int, count: int, dataterm: str,
                   scal, n_scal, lead[0] if batched else None)
 
 
+def cluster_planes(dataterm: str) -> int:
+    """Planes a cluster CTA holds in shared memory for its band: x, q_x,
+    q_y, the carried gradient (2) and f, and w for wsquare."""
+    return 7 if dataterm == "wsquare" else 6
+
+
+def cluster_band_rows(nx: int, csize: int) -> int:
+    """Rows of each CTA's band in a cluster of ``csize``: ceil(nx / csize)
+    rounded up to the 8 rows of a norm tile (the last band may be shorter
+    or empty)."""
+    rows = -(-int(nx) // int(csize))
+    return -(-rows // 8) * 8
+
+
+def cluster_size(nx: int, ny: int, dataterm: str = "square"):
+    """The CTAs of the cluster that holds one (nx, ny) instance of
+    ``rof_chunk_batched`` on chip: the smallest of ``CLUSTER_SIZES`` whose
+    band's planes and two slack rows (the neighbours' q_x row above and x
+    row below, copied in from their shared memory) fit in ``SMEM_BYTES``,
+    or None where no cluster of 8 holds it and the streaming launch
+    sequence runs instead."""
+    for csize in CLUSTER_SIZES:
+        rows = cluster_planes(dataterm) * cluster_band_rows(nx, csize) + 2
+        if rows * int(ny) * 4 <= SMEM_BYTES:
+            return csize
+    return None
+
+
 def _lib():
     """The fused ROF kernel library, built from csrc/fused_rof.cu on first
     use."""
     return typed_lib("fused_rof", "prost_rof_num_blocks", {
         "prost_rof_chunk": [VP] * 10 + [CI] * 4 + [VP],
         "prost_rof_chunk_batched": [VP] * 10 + [CI] * 5 + [VP],
+        "prost_rof_chunk_cluster": [VP] * 10 + [CI] * 6 + [VP],
+        "prost_rof_cluster_occupancy": [CI] * 4,
         "prost_rof_chunk_halo": [VP] * 10 + [CI] * 5 + [VP],
         "prost_rof_multichunk": [VP] * 10 + [CI] * 6 + [CF] * 6 + [VP]})
 
@@ -305,25 +345,63 @@ def rof_chunk_halo_(x, q, x_prev, q_prev, f, w, scal, count: int,
 
 def rof_chunk_batched(x, q, f, w, scal, count: int,
                       dataterm: str = "square"):
-    """``rof_chunk`` for each of B instances in one launch sequence.
+    """``rof_chunk`` for each of B instances.
 
     x, f, w: (B, nx, ny); q: (B, 2, nx, ny); scal: (5, B), a row each of
     tau, sigma, theta, lmb and radius (+ an optional row of converged
     flags: an instance whose flag is set runs nothing and gets its inputs
     back).  Returns (x2, q2, x_prev, q_prev, norms2), norms2 (4, B) the
-    SQUARED preconditioned residual norms of each instance.  Instance b
-    comes out as ``rof_chunk`` on instance b alone.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel."""
+    SQUARED preconditioned residual norms of each instance; the caller's
+    x and q are left as they were.  Instance b comes out as ``rof_chunk``
+    on instance b alone.  CPU tensors run the plain version; CUDA tensors
+    launch the kernel: where ``cluster_size`` gives a cluster, one cluster
+    launch (and the norms' finish) that reads the inputs and writes new
+    outputs; otherwise the streaming launch sequence on copies."""
     _check(x, q, f, w, scal, 5, count, dataterm, batched=True)
     if x.device.type == "cpu":
         return rof_chunk_batched_plain(x, q, f, w, scal, count, dataterm)
+    batch, nx, ny = x.shape
+    csize = cluster_size(nx, ny, dataterm)
+    if csize is None:
+        return halo_copy(rof_chunk_batched_streaming_, (x, q), f, w, scal,
+                         count, dataterm)
+    lib = _lib()
+    ins = [t.contiguous() for t in (x, q, f, w)]
+    outs = [torch.empty_like(t) for t in (ins[0], ins[1], ins[0], ins[1])]
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = torch.empty(4 * lib.prost_rof_num_blocks(nx, ny) * batch,
+                          dtype=torch.float32, device=x.device)
+    launch(lib, "prost_rof_chunk_cluster", "rof_chunk_batched",
+           launch_counts, x.device, ins + outs + [sc, partial], nx, ny,
+           int(count), DATATERMS[dataterm], batch, csize)
+    return (*outs, sc[:, S_NORM:S_NORM + 4].T)
+
+
+def rof_chunk_batched_streaming_(x, q, x_prev, q_prev, f, w, scal,
+                                 count: int, dataterm: str = "square"):
+    """The streaming launch sequence of ``rof_chunk_batched`` (seed, 2
+    ``count`` half-steps, norms, finish; every half-step streams all the
+    instances' planes through device memory) in place, on CUDA tensors:
+    (x, q) advance by ``count`` iterations and (x_prev, q_prev) take the
+    iterate before the aligned one; an instance whose flag is set keeps
+    all four.  The batched chunk runs it for instances that no cluster
+    holds.  Returns norms2 (4, B)."""
+    _check(x, q, f, w, scal, 5, count, dataterm, batched=True)
+    check_buffers("ROF", (("x_prev", x_prev, tuple(x.shape)),
+                          ("q_prev", q_prev, tuple(q.shape))), scal, 5,
+                  x.shape[0])
+    if not all(t.is_contiguous() for t in (x, q, x_prev, q_prev)):
+        raise ProstError("An in-place chunk takes contiguous buffers only.")
+    if x.device.type != "cuda":
+        raise ProstError("The streaming batched chunk runs on a card only.")
     lib = _lib()
     batch, nx, ny = x.shape
-    wk = ChunkWork((x, q), (q,), scal, 5, lib.prost_rof_num_blocks(nx, ny))
+    wk = ChunkWork((x, q), (q,), scal, 5, lib.prost_rof_num_blocks(nx, ny),
+                   prev=(x_prev, q_prev))
     launch(lib, "prost_rof_chunk_batched", "rof_chunk_batched",
            launch_counts, x.device, wk.buffers(f, w), nx, ny, int(count),
            DATATERMS[dataterm], batch)
-    return wk.outputs()
+    return wk.outputs()[-1]
 
 
 def rof_multichunk(x, q, f, w, scal, count: int, k_chunks: int,

@@ -510,9 +510,10 @@ def halo_into(state, prev, out, scal):
 
 
 def halo_copy(inplace, state, *args):
-    """The functional form of the in-place halo chunk ``inplace`` on the
-    ``state`` planes: it works on copies and returns (state, previous
-    iterate, norms2), the previous iterate the state where nothing ran."""
+    """The functional form of an in-place chunk ``inplace`` (a halo chunk,
+    or the streaming batched ROF chunk) on the ``state`` planes: it works
+    on copies and returns (state, previous iterate, norms2), the previous
+    iterate the state where nothing ran."""
     new = [t.contiguous().clone() for t in state]
     prev = [t.clone() for t in new]
     norms2 = inplace(*new, *prev, *args)
