@@ -27,7 +27,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    against the PDHG solve's energy; time the generic CGLS ADMM backend
    beside it;
 6. the same for the multilabel kernels: ``ml_chunk`` (ri = 10) at
-   256x256x8, at a ragged 250x190x5 and at 512x512x8, and
+   256x256x8, at a ragged 250x190x5 and at 512x512x8 (grid-resident at the
+   first two shapes, streaming at the third, as the shape rule chooses and
+   the script checks), and
    ``ml_multichunk`` (k = 8, ri = 10) under boyd and goldstein at the
    three shapes, with a boyd case that converges partway through the
    launch, and time both versions at 256x256x8;
@@ -38,7 +40,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    against the generic PDHG path on the same card;
 8. the same for the deblur kernel: ``deblur_chunk`` (ri = 10) at 512x512
    with config 2's 9x9 motion blur, at a ragged 250x190 with an asymmetric
-   5x5 blur and at 2048x2048, timed against its plain version at 512x512;
+   5x5 blur (both grid-resident) and at 2048x2048 (streaming), timed
+   against its plain version at 512x512;
    and for the tight kernel: ``tight_chunk`` (ri = 10) at 128x128x4, at a
    ragged 250x190x3 and at 512x512x4, timed at 128x128x4;
 9. solve BASELINE config 2, TV deblurring of data/flowers.png at 512x512
@@ -110,6 +113,14 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    as the route calls it, and with the norms in turns with the launch
    sequence of ``admm_chunk`` at count 1 on the one-shard band (old, new,
    new, old), with the hand-written kernels each launches per call;
+   then rows 17 and 12 grid-resident (``deblur_chunk_``, ``ml_chunk_``
+   and their halo forms at config 2's and config 3's shapes and one-shard
+   bands): bit-equal to the streaming sequences in the planes and the
+   norms, in turns with them, the launches and traced device ms of each,
+   and the call (the functional wrapper on copies, through the streaming
+   sequence, against the routes' light call) in turns; config 2 and
+   config 3 through the fused routes with the light call in turns with
+   that copying call (``copying_routes``), it/s and energies;
 16. solve config 1, config 3, vol256x8, config 2, tight128x4 and config 4
    (ROF 512x512 by Chebyshev ADMM) through ``ShardedFusedROF``,
    ``ShardedFusedMultilabel``, ``ShardedFusedVol``, ``ShardedFusedDeblur``,
@@ -118,10 +129,12 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    (``torch.cuda.device_count()``; with one card both edges of the shard
    receive zeros and its row offset is minus the halo), count the halo
    kernels' launches and the exchanges, and hold each energy against the
-   one-card fused route's; then run ensemble1024x128 through
-   ``BatchedPDHG`` over a dp mesh of those ranks (21 + 300 iterations) and
-   hold every field of every instance against the one-card run, bit for
-   bit.
+   one-card fused route's; the sharded multilabel and deblur routes again
+   in turns with the copying chunk call; ``ShardedFusedADMM`` at Chebyshev
+   degree 65 (300 iterations) against the one-card fused ADMM route; then
+   run ensemble1024x128 through ``BatchedPDHG`` over a dp mesh of those
+   ranks (21 + 300 iterations) and hold every field of every instance
+   against the one-card run, bit for bit.
 
 The images are bench.py's: data/*.png decoded by the script's own reader
 and converted and resized as PIL does (``fixture_gray``; the card's
@@ -129,7 +142,9 @@ machine has no image library).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before
-that lists each kernel with its launches, error, times and bound.
+that lists each kernel with its launches, error, times and bound, and the
+hand-written launches, device ms and PyTorch device ms of one timed call
+(torch.profiler).
 Without a CUDA card the script exits non-zero before printing a result.
 """
 
@@ -750,10 +765,12 @@ def kernel_name(raw):
     return name.split("(")[0].split("<")[0].strip().split(" ")[-1]
 
 
-def csrc_launches(fn):
-    """The hand-written kernels that one call of ``fn`` launches on the
-    card, in order, and their device ms summed, from torch.profiler's trace
-    of the call (after one untraced call)."""
+def traced_call(fn):
+    """What one call of ``fn`` runs on the card, from torch.profiler's
+    trace of the call (after one untraced call): the hand-written kernels
+    it launches, in order ("csrc"), their device ms summed ("csrc_ms"), and
+    the device ms and count of every other kernel, PyTorch's copies, fills
+    and arithmetic around them ("torch_ms", "torch_kernels")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -761,15 +778,36 @@ def csrc_launches(fn):
     ours = csrc_kernel_names()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA
-                     and kernel_name(e.name) in ours),
-                    key=lambda e: e.time_range.start)
-    return ([kernel_name(e.name) for e in events],
-            sum(e.time_range.elapsed_us() for e in events) * 1e-3)
+    events = []
+    for _ in range(3):  # a trace that caught no kernel at all is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events:
+            break
+    mine = [e for e in events if kernel_name(e.name) in ours]
+    other = [e for e in events if kernel_name(e.name) not in ours]
+    return {"csrc": [kernel_name(e.name) for e in mine],
+            "csrc_ms": sum(e.time_range.elapsed_us() for e in mine) * 1e-3,
+            "torch_ms": sum(e.time_range.elapsed_us() for e in other) * 1e-3,
+            "torch_kernels": len(other)}
+
+
+def csrc_launches(fn):
+    """The hand-written kernels that one call of ``fn`` launches on the
+    card, in order, and their device ms summed (``traced_call``)."""
+    t = traced_call(fn)
+    return t["csrc"], t["csrc_ms"]
+
+
+def timed(row, fn, reps):
+    """A kernel row's timing of ``fn``, one call of its wrapper: ``ms``
+    (``time_ms`` over ``reps`` calls) and ``traced`` (``traced_call``)."""
+    row["ms"] = time_ms(fn, reps)
+    row["traced"] = traced_call(fn)
 
 
 def bound(nbytes, ops):
@@ -829,7 +867,7 @@ def phase_kernels(dev):
                   "rof_chunk produced non-finite values")
             rows["rof_chunk"]["err"] = max(rows["rof_chunk"]["err"], plane)
             if (nx, ny) == (512, 512) and dataterm == "square":
-                rows["rof_chunk"]["ms"] = time_ms(
+                timed(rows["rof_chunk"], 
                     lambda: fr.rof_chunk(x, q, f, w, scal, 10, dataterm), 50)
                 rows["rof_chunk"]["plain_ms"] = time_ms(
                     lambda: fr.rof_chunk_plain(x, q, f, w, scal, 10,
@@ -860,7 +898,7 @@ def phase_kernels(dev):
         rows["rof_multichunk"]["err"] = max(rows["rof_multichunk"]["err"],
                                             plane)
         if stepsize == "alg1":  # all 8 chunks run
-            rows["rof_multichunk"]["ms"] = time_ms(
+            timed(rows["rof_multichunk"], 
                 lambda: fr.rof_multichunk(x, q, x, w, scal, 10, 8, "square",
                                           stepsize, consts), 20)
             rows["rof_multichunk"]["plain_ms"] = time_ms(
@@ -951,7 +989,7 @@ def phase_admm_kernels(dev):
                 rows["admm_chunk"]["err"] = max(rows["admm_chunk"]["err"],
                                                 plane)
                 if nx == 512 and dataterm == "square" and deg:
-                    rows["admm_chunk"]["ms"] = time_ms(
+                    timed(rows["admm_chunk"], 
                         lambda: fa.admm_chunk(*planes, f, w, scal, None, ri,
                                               10, alpha, dataterm, deg), 50)
                     rows["admm_chunk"]["plain_ms"] = time_ms(
@@ -993,7 +1031,7 @@ def phase_admm_kernels(dev):
         rows["admm_multichunk"]["err"] = max(rows["admm_multichunk"]["err"],
                                              plane)
         if tol == 0.0:  # all 8 chunks run
-            rows["admm_multichunk"]["ms"] = time_ms(
+            timed(rows["admm_multichunk"], 
                 lambda: fa.admm_multichunk(*planes, f, f, scal, ri, 8, alpha,
                                            degree, consts), 20)
             rows["admm_multichunk"]["plain_ms"] = time_ms(
@@ -1044,16 +1082,21 @@ def phase_ml_kernels(dev):
         ref = fm.ml_chunk_plain(u, q, s, f, scal, ri)
         torch.cuda.synchronize()
         plane, rel = max_errs(out, ref, n_planes=6)
-        print(f"ml_chunk {shape}: max abs err planes {plane:.3e} (tol "
-              f"{PLANE_ATOL:g}), max rel err norms {rel:.3e} (tol "
-              f"{NORM_RTOL:g})")
+        path = ("resident" if fm.resident_ok(L, nx, ny,
+                                             *fm.card_limits(dev, L))
+                else "streaming")
+        check(path == ("streaming" if nx == ML_LARGE else "resident"),
+              f"ml_chunk {shape}: the shape rule chose {path}")
+        print(f"ml_chunk {shape} ({path} path): max abs err planes "
+              f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms "
+              f"{rel:.3e} (tol {NORM_RTOL:g})")
         check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
               f"ml_chunk {shape} disagrees with its plain version")
         check(all(bool(torch.isfinite(t).all()) for t in out),
               "ml_chunk produced non-finite values")
         rows["ml_chunk"]["err"] = max(rows["ml_chunk"]["err"], plane)
         if nx == ML_SIZE:
-            rows["ml_chunk"]["ms"] = time_ms(
+            timed(rows["ml_chunk"], 
                 lambda: fm.ml_chunk(u, q, s, f, scal, ri), 50)
             rows["ml_chunk"]["plain_ms"] = time_ms(
                 lambda: fm.ml_chunk_plain(u, q, s, f, scal, ri), 10)
@@ -1099,7 +1142,7 @@ def phase_ml_kernels(dev):
                 check(out[7][5] == 1.0 and out[7][6] < 8,
                       "ml_multichunk did not converge partway")
             if nx == ML_SIZE and tol == 0.0:  # all 8 chunks run
-                rows["ml_multichunk"]["ms"] = time_ms(
+                timed(rows["ml_multichunk"], 
                     lambda: fm.ml_multichunk(u, q, s, f, scal, ri, 8,
                                              stepsize, consts), 20)
                 rows["ml_multichunk"]["plain_ms"] = time_ms(
@@ -1354,7 +1397,10 @@ def phase_ml_solve(card):
           f"a multilabel kernel of the path was not launched: {launches}")
     e_fused = ml_energy(res.x, f, ML_LMB, L, nx, ny)
     unity = float(np.max(np.abs(res.x.reshape(L, n).sum(axis=0) - 1.0)))
-    print(f"fused multilabel solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; "
+    check(backend.made.ml["call"].resident,
+          "config 3's chunks did not take the resident path")
+    print(f"fused multilabel solve {nx}x{ny}x{L} (resident path): "
+          f"{rates(res, backend, dt)}; "
           f"energy {e_fused:.8f}, max |sum_l u_l - 1| {unity:.3e}, "
           f"launches {launches} [{card}]")
 
@@ -1415,16 +1461,22 @@ def phase_deblur_kernels(dev):
         torch.cuda.synchronize()
         plane, rel = scaled_errs(out, ref, 6)
         shape = f"{nx}x{ny} ({len(taps)} taps)"
-        print(f"deblur_chunk {shape}: max abs err planes / max(1, |plane|) "
-              f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms "
-              f"{rel:.3e} (tol {NORM_RTOL:g}, floor at the largest)")
+        path = ("resident" if fd.resident_ok(nx2, ny, ny2, taps,
+                                             *fd.card_limits(dev))
+                else "streaming")
+        check(path == ("streaming" if nx == DB_LARGE else "resident"),
+              f"deblur_chunk {shape}: the shape rule chose {path}")
+        print(f"deblur_chunk {shape} ({path} path): max abs err planes / "
+              f"max(1, |plane|) {plane:.3e} (tol {PLANE_ATOL:g}), max rel "
+              f"err norms {rel:.3e} (tol {NORM_RTOL:g}, floor at the "
+              "largest)")
         check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
               f"deblur_chunk {shape} disagrees with its plain version")
         check(all(bool(torch.isfinite(t).all()) for t in out),
               "deblur_chunk produced non-finite values")
         row["err"] = max(row["err"], plane)
         if nx == DB_SIZE:
-            row["ms"] = time_ms(lambda: fd.deblur_chunk(*args), 50)
+            timed(row, lambda: fd.deblur_chunk(*args), 50)
             row["plain_ms"] = time_ms(lambda: fd.deblur_chunk_plain(*args),
                                       10)
             n, m2, T = nx * ny, nx2 * ny2, len(taps)
@@ -1476,7 +1528,7 @@ def phase_tight_kernels(dev):
               "tight_chunk produced non-finite values")
         row["err"] = max(row["err"], plane)
         if nx == TIGHT_SIZE:
-            row["ms"] = time_ms(lambda: ft.tight_chunk(*args), 50)
+            timed(row, lambda: ft.tight_chunk(*args), 50)
             row["plain_ms"] = time_ms(lambda: ft.tight_chunk_plain(*args),
                                       10)
             n, T = nx * ny, len(taps)
@@ -1526,7 +1578,7 @@ def phase_vol_kernels(dev):
                   "vol_chunk produced non-finite values")
             rows["vol_chunk"]["err"] = max(rows["vol_chunk"]["err"], plane)
         if nx == VOL_SIZE:
-            rows["vol_chunk"]["ms"] = time_ms(
+            timed(rows["vol_chunk"], 
                 lambda: fv.vol_chunk(u, q, f, w, scal, ri), 50)
             rows["vol_chunk"]["plain_ms"] = time_ms(
                 lambda: fv.vol_chunk_plain(u, q, f, w, scal, ri), 10)
@@ -1563,7 +1615,7 @@ def phase_vol_kernels(dev):
             rows["vol_multichunk"]["err"] = max(
                 rows["vol_multichunk"]["err"], plane)
             if tol == 0.0:  # all 8 chunks run
-                rows["vol_multichunk"]["ms"] = time_ms(
+                timed(rows["vol_multichunk"], 
                     lambda: fv.vol_multichunk(f, q, f, f, scal, ri, 8,
                                               "square", stepsize, consts), 20)
                 rows["vol_multichunk"]["plain_ms"] = time_ms(
@@ -1650,8 +1702,11 @@ def phase_deblur_solve(card):
     check(all(v > 0 for v in launches.values()),
           f"the deblur kernel was not launched: {launches}")
     e_fused = deblur_energy(res.x, fb, DB_LMB, nx, ny)
-    print(f"fused deblur solve {nx}x{ny}: {rates(res, backend, dt)}; energy "
-          f"{e_fused:.8f}, launches {launches} [{card}]")
+    check(backend.made.deblur["call"].resident,
+          "config 2's chunks did not take the resident path")
+    print(f"fused deblur solve {nx}x{ny} (resident path): "
+          f"{rates(res, backend, dt)}; energy {e_fused:.8f}, launches "
+          f"{launches} [{card}]")
 
     gres, gbackend, gdt = run(True, 2000)
     e_gen = deblur_energy(gres.x, fb, DB_LMB, nx, ny)
@@ -1864,7 +1919,8 @@ def rof_batched_timings(planes, scal, ri, csize):
           f"iteration {one:.4f} ms, {ri} iterations {sizes[csize]:.4f} ms: "
           f"{(sizes[csize] - one) / (ri - 1):.4f} ms an iteration beyond "
           "the first")
-    return {"ms": time_ms(new, 20), "old_ms": (o1, o2), "new_ms": (n1, n2),
+    return {"ms": time_ms(new, 20), "traced": traced_call(new),
+            "old_ms": (o1, o2), "new_ms": (n1, n2),
             "launches_per_call": (len(lo), len(ln))}
 
 
@@ -1949,7 +2005,7 @@ def phase_batched_kernels(dev):
         r = rows["ml_chunk_batched"]
         r["err"] = max(r["err"], err)
         if B == SMALL_ENS_B:
-            r["ms"] = time_ms(lambda: fm.ml_chunk_batched(*planes, scal, ri),
+            timed(r, lambda: fm.ml_chunk_batched(*planes, scal, ri),
                               20)
             r["plain_ms"] = time_ms(lambda: fm.ml_chunk_batched_plain(
                 *planes, scal, ri), 5)
@@ -1976,7 +2032,7 @@ def phase_batched_kernels(dev):
         r = rows["vol_chunk_batched"]
         r["err"] = max(r["err"], err)
         if B == SMALL_ENS_B:
-            r["ms"] = time_ms(lambda: fv.vol_chunk_batched(*planes, scal,
+            timed(r, lambda: fv.vol_chunk_batched(*planes, scal,
                                                            ri), 20)
             r["plain_ms"] = time_ms(lambda: fv.vol_chunk_batched_plain(
                 *planes, scal, ri), 5)
@@ -2008,7 +2064,7 @@ def phase_batched_kernels(dev):
         r = rows["deblur_chunk_batched"]
         r["err"] = max(r["err"], err)
         if B == SMALL_ENS_B:
-            r["ms"] = time_ms(lambda: fd.deblur_chunk_batched(
+            timed(r, lambda: fd.deblur_chunk_batched(
                 *planes, scal, ri, *extra), 20)
             r["plain_ms"] = time_ms(lambda: fd.deblur_chunk_batched_plain(
                 *planes, scal, ri, *extra), 5)
@@ -2044,7 +2100,7 @@ def phase_batched_kernels(dev):
         r = rows["tight_chunk_batched"]
         r["err"] = max(r["err"], err)
         if B == SMALL_ENS_B:
-            r["ms"] = time_ms(lambda: ft.tight_chunk_batched(
+            timed(r, lambda: ft.tight_chunk_batched(
                 *planes, scal, ri, taps, consts), 20)
             r["plain_ms"] = time_ms(lambda: ft.tight_chunk_batched_plain(
                 *planes, scal, ri, taps, consts), 5)
@@ -2398,11 +2454,11 @@ def phase_halo_kernels(dev):
                 total += out[n].double()
                 if shards == 1:
                     rows[name] = {
-                        "ms": time_ms(lambda: halo(*ext, scal, ri, nx,
-                                                   *extra), 50),
                         "plain_ms": time_ms(lambda: plain(*ext, scal, ri, nx,
                                                           *extra), 10),
                         "bound": bound(*cost(ext[0].shape[-2] * ny))}
+                    timed(rows[name], lambda: halo(*ext, scal, ri, nx,
+                                                   *extra), 50)
             rel = float(torch.max(torch.abs(total - ref[n].double())
                                   / torch.abs(ref[n].double())))
             print(f"{name} {nx}x{ny}: owned-row norms of {shards} bands "
@@ -2583,10 +2639,10 @@ def phase_halo_8b_kernels(dev):
                     admm_halo_turns(ext, scal, tail)
                 if shards == 1:
                     rows_out[name] = {
-                        "ms": time_ms(call, 50),
                         "plain_ms": time_ms(plain_call, 10),
                         "bound": bound(*cost(ext[0].shape[-2])),
                         "band": f"{ext[0].shape[-2]} rows"}
+                    timed(rows_out[name], call, 50)
             rel = float(torch.max(torch.abs(total - ref[n_out].double())
                                   / torch.abs(ref[n_out].double())))
             print(f"{name}: owned-row norms of {shards} bands against the "
@@ -2600,6 +2656,286 @@ def phase_halo_8b_kernels(dev):
               f"ms/call, plain {r['plain_ms']:.4f} ms/call, bound "
               f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
     return rows_out
+
+
+def phase_resident_kernels(dev):
+    """Rows 17 and 12 as grid-resident launches (one cooperative launch a
+    chunk) against their streaming launch sequences, whole plane and
+    one-shard halo band, at the main path's shapes (deblur 512x512 with
+    config 2's blur and its 828-row band; multilabel 256x256x8 and its
+    300-row band; ri 10): both paths from the same inputs bit-equal in the
+    planes and the norms; the path the shape rule takes; each path in
+    place on buffers made once, in turns (streaming, resident, resident,
+    streaming), with the hand-written kernels each launches per call and
+    their traced device ms; and the call, the copying one (the functional
+    wrapper on copies with buffers made per call, the streaming sequence)
+    against the route's light call in place (``DeblurChunk``, ``MLChunk``), in
+    turns, with the device ms of PyTorch's kernels around each."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.ops.pdhg_chunk import halo_copy
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    ri = 10
+    rng = np.random.RandomState(620)
+    n, kern = DB_SIZE, motion_kernel(DB_KLEN)
+    n2 = n + DB_KLEN - 1
+    taps = fd.kernel_taps(torch.as_tensor(kern.T, dtype=torch.float32))
+    db = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.rand(n, n), rng.randn(n2, n2), 0.3 * rng.randn(2, n, n),
+        rng.rand(n2, n2), 0.5 + rng.rand(n2, n2))]
+    m_db = {"nx": n, "ny": n, "nx2": n2, "ny2": n2, "taps": taps,
+            "lmb": DB_LMB, "radius": 1.0, "sig_q": 0.5, "tau_t": 0.2}
+    Hd = fd.deblur_halo_rows(ri, taps)
+    ext_db = [window(a, -Hd, n2 + Hd) for a in db]
+    L, nm = ML_LABELS, ML_SIZE
+    ml = ml_kernel_inputs(L, nm, nm, 621, dev)
+    m_ml = {"L": L, "nx": nm, "ny": nm, "radius": ML_LMB, "d_s": 1.0}
+    Hm = 2 * ri + 2
+    ext_ml = [window(a, -Hm, nm + Hm) for a in ml]
+
+    def scal(*v):
+        return torch.tensor(v, device=dev, dtype=torch.float32)
+
+    head = (0.9, 1.1, 1.0)
+    cases = {
+        "deblur_chunk": (
+            fd.deblur_chunk_, db, 3, (scal(*head, DB_LMB, 1.0), ri, taps,
+                                      0.5, 0.2),
+            fd.DeblurChunk(m_db, ri, dev), "deblur_resident"),
+        "deblur_chunk_halo": (
+            fd.deblur_chunk_halo_, ext_db, 3,
+            (scal(*head, DB_LMB, 1.0, -Hd, Hd, Hd + n2), ri, n, taps, 0.5,
+             0.2),
+            fd.DeblurChunk(m_db, ri, dev, (n, n2 + 2 * Hd, -Hd, Hd,
+                                           Hd + n2)), "deblur_resident"),
+        "ml_chunk": (
+            fm.ml_chunk_, ml, 3, (scal(*head, ML_LMB, 1.0), ri),
+            fm.MLChunk(m_ml, ri, dev), "ml_resident"),
+        "ml_chunk_halo": (
+            fm.ml_chunk_halo_, ext_ml, 3,
+            (scal(*head, ML_LMB, 1.0, -Hm, Hm, Hm + nm), ri, nm),
+            fm.MLChunk(m_ml, ri, dev, (nm, nm + 2 * Hm, -Hm, Hm, Hm + nm)),
+            "ml_resident"),
+    }
+    steps = [torch.tensor(v, device=dev) for v in head]
+    flag = torch.tensor(False, device=dev)
+    out = {}
+    for name, (fn, planes, k, args, light, kernel) in cases.items():
+        state, data = planes[:k], planes[k:]
+        rows = state[0].shape[-2]
+        check(light.resident, f"{name}: the shape rule streams {rows} rows")
+        got = {}
+        for path in ("streaming", "resident"):
+            cur = [t.clone() for t in state]
+            prev = [torch.empty_like(t) for t in state]
+            norms2 = fn(*cur, *prev, *data, *args, path=path).clone()
+            got[path] = cur + prev + [norms2]
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b)
+                    for a, b in zip(got["streaming"], got["resident"]))
+        check(equal and all(bool(torch.isfinite(t).all())
+                            for t in got["resident"]),
+              f"{name}: the resident launch is not the streaming sequence")
+        bufs = {p: ([t.clone() for t in state], [t.clone() for t in state])
+                for p in ("streaming", "resident")}
+
+        def run(path, fn=fn, data=data, args=args, bufs=bufs):
+            return lambda: fn(*bufs[path][0], *bufs[path][1], *data, *args,
+                              path=path)
+
+        (o1, o2), (r1, r2) = in_turns(run("streaming"), run("resident"), 50)
+        t_old, t_new = traced_call(run("streaming")), traced_call(
+            run("resident"))
+        one = traced_call(lambda fn=fn, data=data, args=args, bufs=bufs: fn(
+            *bufs["resident"][0], *bufs["resident"][1], *data, args[0], 1,
+            *args[2:], path="resident"))["csrc_ms"]
+        check(t_new["csrc"] == [kernel],
+              f"{name}'s resident path launched {t_new['csrc']}")
+
+        def copying(fn=fn, state=state, data=data, args=args):
+            return halo_copy(lambda *a: fn(*a, path="streaming"), state,
+                             *data, *args)
+
+        lcur = [t.clone() for t in state]
+        lprev = [t.clone() for t in state]
+
+        def call(light=light, lcur=lcur, lprev=lprev, data=data):
+            return light(lcur, lprev, *data, *steps, flag)
+
+        (c1, c2), (l1, l2) = in_turns(copying, call, 50)
+        t_copy, t_call = traced_call(copying), traced_call(call)
+        print(f"{name} {rows} rows: resident launch bit-equal to the "
+              f"streaming sequence in planes and norms; in place, in turns: "
+              f"streaming {o1:.4f} ms, resident {r1:.4f}, resident {r2:.4f}, "
+              f"streaming {o2:.4f} ms/call; hand-written launches per call: "
+              f"streaming {len(t_old['csrc'])} ({t_old['csrc_ms']:.4f} ms of "
+              f"device time traced), resident {len(t_new['csrc'])} "
+              f"({kernel}; {t_new['csrc_ms']:.4f} ms; at count 1 "
+              f"{one:.4f} ms, each further iteration "
+              f"{(t_new['csrc_ms'] - one) / (ri - 1):.4f} ms)")
+        print(f"{name} {rows} rows, the call in turns: copying (functional "
+              f"wrapper, copies, streaming) {c1:.4f} ms, light call "
+              f"{l1:.4f}, light call {l2:.4f}, copying {c2:.4f} ms/call; "
+              f"traced: copying {len(t_copy['csrc'])} hand-written "
+              f"({t_copy['csrc_ms']:.4f} ms) and {t_copy['torch_kernels']} "
+              f"PyTorch kernels ({t_copy['torch_ms']:.4f} ms), light call "
+              f"{len(t_call['csrc'])} ({t_call['csrc_ms']:.4f} ms) and "
+              f"{t_call['torch_kernels']} ({t_call['torch_ms']:.4f} ms)")
+        out[name] = {"streaming_ms": (o1, o2), "resident_ms": (r1, r2),
+                     "copying_call_ms": (c1, c2), "light_call_ms": (l1, l2),
+                     "launches": (len(t_old["csrc"]), len(t_new["csrc"])),
+                     "device_ms": (t_old["csrc_ms"], t_new["csrc_ms"])}
+    sms, smem = fd.card_limits(dev)
+    print(f"resident limits: {sms} SMs, {smem} bytes of dynamic shared "
+          f"memory a deblur block, {fm.card_limits(dev, L)[1]} a multilabel "
+          "block")
+    return out
+
+
+def copying_routes():
+    """A context in which the deblur and multilabel routes, whole-plane
+    (``FusedROFPDHG``) and halo-sharded (``ShardedFusedDeblur``,
+    ``ShardedFusedMultilabel``), make the copying chunk call that the
+    light calls replace: the scalars
+    stacked per chunk, the functional wrapper on copies of the state with
+    buffers made per call, the streaming launch sequence, and y and y_prev
+    concatenated after the chunk (whole plane); the scalars stacked and the
+    in-place halo chunk with buffers made per call (sharded)."""
+    import contextlib
+
+    import torch
+
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops.pdhg_chunk import (canonical_duals, chunk_state,
+                                                halo_copy, run_pdhg_route)
+    from prost_tpu_torch.parallel import spatial_fused as sf
+
+    def streaming(fn):
+        return lambda *a: fn(*a, path="streaming")
+
+    def deblur_chunk(b, s):
+        d, ri = b.deblur, max(int(b.opts.residual_iter), 1)
+        scal = torch.stack([s.tau, s.sigma, s.theta, d["lmb_t"],
+                            d["radius_t"], s.converged.to(s.x.dtype)])
+        x2, yv2, q2, xp, yvp, qp, norms2 = halo_copy(
+            streaming(fd.deblur_chunk_), fd._planes(d, s.x, s.y), d["fb"],
+            d["sv"], scal, ri, d["taps"], d["sig_q"], d["tau_t"])
+        return chunk_state(b, s, ri, x2.reshape(-1),
+                           torch.cat([yv2.reshape(-1), q2.reshape(-1)]),
+                           xp.reshape(-1),
+                           torch.cat([yvp.reshape(-1), qp.reshape(-1)]),
+                           norms2)
+
+    def ml_chunk(b, s):
+        m, ri = b.ml, max(int(b.opts.residual_iter), 1)
+        scal = torch.stack([s.tau, s.sigma, s.theta, m["radius_t"],
+                            m["d_s_t"], s.converged.to(s.x.dtype)])
+        u2, q2, s2, up, qp, sp, norms2 = halo_copy(
+            streaming(fm.ml_chunk_), fm._planes(m, s.x, s.y), m["f"], scal,
+            ri)
+        return chunk_state(b, s, ri, u2.reshape(-1), fm._flat_y(q2, s2),
+                           up.reshape(-1), fm._flat_y(qp, sp), norms2)
+
+    def deblur_run(b, state, until, start):
+        return run_pdhg_route(b, state, until, start,
+                              lambda s: deblur_chunk(b, s))
+
+    def ml_run(b, state, until, start):
+        m = b.ml
+        return run_pdhg_route(b, state, until, start,
+                              lambda s: ml_chunk(b, s),
+                              canonical_duals(m["L"], m["nx"], m["ny"]),
+                              lambda s: fm._multi_chunk(b, s))
+
+    def deblur_halo(self, cur, prev, scal):
+        m = self.m
+        return fd.deblur_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
+                                     m["nx"], m["taps"], m["sig_q"],
+                                     m["tau_t"], path="streaming")
+
+    def ml_halo(self, cur, prev, scal):
+        return fm.ml_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
+                                 self.m["nx"], path="streaming")
+
+    patches = [(fr, "fused_deblur_run", deblur_run),
+               (fr, "fused_ml_run", ml_run),
+               (sf.ShardedFusedDeblur, "_light", None),
+               (sf.ShardedFusedDeblur, "_chunk_halo", deblur_halo),
+               (sf.ShardedFusedMultilabel, "_light", None),
+               (sf.ShardedFusedMultilabel, "_chunk_halo", ml_halo)]
+
+    @contextlib.contextmanager
+    def patched():
+        saved = [(obj, name, obj.__dict__.get(name, None))
+                 for obj, name, _ in patches]
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        try:
+            yield
+        finally:
+            for obj, name, fn in saved:
+                if fn is None:
+                    delattr(obj, name)
+                else:
+                    setattr(obj, name, fn)
+
+    return patched()
+
+
+def route_turns(label, solve, energy, card=""):
+    """``solve()`` (a 2000-iteration solve: (result, backend, dt)) with the
+    copying chunk call (``copying_routes``) and with the light call, in
+    turns (copying, light, light, copying): the iterating it/s of each and
+    their energies, which must agree (the kernels are bit-equal, the
+    host's scalar work the same)."""
+    runs = []
+    for old in (True, False, False, True):
+        if old:
+            with copying_routes():
+                res, backend, _ = solve()
+        else:
+            res, backend, _ = solve()
+        runs.append((res.iterations / backend.loop_s, energy(res.x),
+                     res.iterations))
+    (a, ea, ia), (b, eb, ib), (c, ec, ic), (d, ed, id_) = runs
+    rel = max(abs(e - ea) / abs(ea) for e in (eb, ec, ed))
+    print(f"{label} in turns: copying chunk call {a:.1f} it/s, light call "
+          f"{b:.1f}, {c:.1f}, copying {d:.1f} it/s ({ia}, {ib}, {ic}, {id_} "
+          f"iterations); energies' max rel diff {rel:.3e} (tol "
+          f"{SINGLE_RTOL:g}) [{card}]")
+    check(rel <= SINGLE_RTOL and len({ia, ib, ic, id_}) == 1,
+          f"{label}: the light and the copying chunk calls disagree")
+    return {"copying_it_s": (a, d), "it_s": (b, c)}
+
+
+def phase_route_turns(card):
+    """Config 2 and config 3 through the fused routes, the light chunk
+    call against the copying one (``route_turns``), 2000 iterations at
+    1e-5."""
+    from prost_tpu_torch.backend import PDHGOptions
+
+    opts = PDHGOptions(stepsize="boyd", residual_iter=10)
+    fb = deblur_data(DB_SIZE, DB_SIZE)
+    f = ml_unaries(cow_gray(ML_SIZE, ML_SIZE), ML_LABELS)
+    out = {"deblur": route_turns(
+        f"config 2 fused route {DB_SIZE}x{DB_SIZE}",
+        lambda: run_model(recording("pdhg", opts),
+                          deblur_model(DB_SIZE, DB_SIZE, fb),
+                          DB_SIZE * DB_SIZE, 2000),
+        lambda x: deblur_energy(x, fb, DB_LMB, DB_SIZE, DB_SIZE), card=card)}
+    out["ml"] = route_turns(
+        f"config 3 fused route {ML_SIZE}x{ML_SIZE}x{ML_LABELS}",
+        lambda: run_model(recording("pdhg", opts),
+                          ml_model(ML_SIZE, ML_SIZE, ML_LABELS, f, ML_LMB),
+                          ML_SIZE * ML_SIZE * ML_LABELS, 2000),
+        lambda x: ml_energy(x, f, ML_LMB, ML_LABELS, ML_SIZE, ML_SIZE),
+        card=card)
+    return out
 
 
 def admm_halo_turns(ext, scal, tail):
@@ -2749,11 +3085,52 @@ def sharded_solves(rank, world, init_method, card):
                          "launches": mod.launch_counts[name],
                          "name": name, "ri": opts[1].residual_iter,
                          "backend": dist.get_backend()}
+            if kind in ("ml", "deblur"):
+                out[kind]["turns"] = route_turns(
+                    f"rank {rank}: sharded {kind} route on {world} rank(s)",
+                    lambda solve=solve: solve(2000), energy, card)
+        out["admm65"] = cheby65(rank, world, mesh, card)
         out["dp"] = dp_ensemble(rank, world, card)
         return out
     finally:
         dist.destroy_process_group()
 
+
+def cheby65(rank, world, mesh, card):
+    """ShardedFusedADMM at Chebyshev degree 65, above the 64 that a fixed
+    launch argument of its halo iteration once held (ROADMAP C3), on
+    config 4's model (ROF 512x512): 300 iterations against the one-card
+    fused ADMM route at the same degree; None where a shard holds fewer
+    rows than the degree's halo (136)."""
+    from prost_tpu_torch.backend import ADMMOptions
+    from prost_tpu_torch.ops import fused_admm as fa
+    from prost_tpu_torch.parallel import ShardedFusedADMM
+
+    n = ROF_SIZE
+    if n // world < fa.admm_cheby_halo_rows(65):
+        print(f"rank {rank}: Chebyshev degree 65 not run: shards of "
+              f"{n // world} rows")
+        return None
+    f = test_image(n, n).reshape(-1)
+    opts = ADMMOptions(residual_iter=10, cheby_degree=65)
+    fa.reset_launch_counts()
+    res, backend, dt = run_model(
+        recording("admm", opts,
+                  lambda p, o, so: ShardedFusedADMM(p, o, so, mesh)),
+        rof_model(n, n, f, ROF_LMB), n * n, 300)
+    launches = fa.launch_counts["admm_iter_halo"]
+    one, one_b, one_dt = run_model(recording("admm", opts),
+                                   rof_model(n, n, f, ROF_LMB), n * n, 300)
+    e, e_one = (rof_energy(r.x, f, ROF_LMB, n, n) for r in (res, one))
+    rel = abs(e - e_one) / abs(e_one)
+    print(f"rank {rank}: sharded ADMM at Chebyshev degree 65 on {world} "
+          f"rank(s): {rates(res, backend, dt)}, admm_iter_halo launches "
+          f"{launches}; energy {e:.8f}, one-card fused route "
+          f"{e_one:.8f} ({rates(one, one_b, one_dt)}), rel diff {rel:.3e} "
+          f"(tol {ENERGY_RTOL:g}) [{card}]")
+    check(launches > 0 and rel <= ENERGY_RTOL,
+          "the sharded ADMM route at degree 65 disagrees with one card")
+    return {"energy": e, "one_card": e_one, "rel": rel}
 
 def dp_ensemble(rank, world, card):
     """ensemble1024x128 through BatchedPDHG over a dp mesh of the group's
@@ -2850,6 +3227,11 @@ def phase_sharded_solve(card, one_card):
         check(all(r[kind]["energy"] == res["energy"] for r in per_rank),
               f"the ranks disagree on the sharded {kind} solution")
         launches[res["name"]] = sum(r[kind]["launches"] for r in per_rank)
+    c65 = per_rank[0]["admm65"]
+    if c65 is not None:
+        print(f"sharded ADMM at Chebyshev degree 65 on {world} rank(s): "
+              f"energy rel diff to one card {c65['rel']:.3e} (tol "
+              f"{ENERGY_RTOL:g}) [{card}]")
     dp = per_rank[0]["dp"]
     print(f"dp ensemble on {world} rank(s): every field of every instance "
           f"{'equal to' if dp['equal'] else 'DIFFERS from'} the one-card "
@@ -2901,8 +3283,11 @@ def phase_large(card):
           f"a multilabel kernel was not launched at {nx}x{ny}x{L}: "
           f"{launches}")
     e = ml_energy(res.x, f, ML_LMB, L, nx, ny)
-    print(f"fused multilabel solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; "
-          f"energy {e:.6f}, launches {launches} [{card}]")
+    check(not backend.made.ml["call"].resident,
+          "the shape rule made ML_LARGE's chunks resident")
+    print(f"fused multilabel solve {nx}x{ny}x{L} (streaming path): "
+          f"{rates(res, backend, dt)}; energy {e:.6f}, launches {launches} "
+          f"[{card}]")
 
     nx = ny = DB_LARGE
     fb = deblur_data(nx, ny)
@@ -2915,8 +3300,11 @@ def phase_large(card):
           and all(v > 0 for v in launches.values()),
           f"the deblur kernel was not launched at {nx}x{ny}: {launches}")
     e = deblur_energy(res.x, fb, DB_LMB, nx, ny)
-    print(f"fused deblur solve {nx}x{ny}: {rates(res, backend, dt)}; energy "
-          f"{e:.6f}, launches {launches} [{card}]")
+    check(not backend.made.deblur["call"].resident,
+          "the shape rule made DB_LARGE's chunks resident")
+    print(f"fused deblur solve {nx}x{ny} (streaming path): "
+          f"{rates(res, backend, dt)}; energy {e:.6f}, launches {launches} "
+          f"[{card}]")
 
     nx = ny = TIGHT_LARGE
     L = TIGHT_LABELS
@@ -2980,6 +3368,7 @@ def main() -> int:
     rows.update(phase_batched_kernels(dev))
     rows.update(phase_halo_kernels(dev))
     rows.update(phase_halo_8b_kernels(dev))
+    resident = phase_resident_kernels(dev)
     torch.cuda.synchronize()
     launches, e_pdhg, d_pdhg = phase_solve(card)
     admm_launches, e_admm = phase_admm_solve(card, e_pdhg, d_pdhg)
@@ -2992,6 +3381,7 @@ def main() -> int:
     launches.update(tight_launches)
     vol_launches, e_vol = phase_vol_solve(card)
     launches.update(vol_launches)
+    phase_route_turns(card)
     launches.update(phase_sharded_solve(
         card, {"rof": e_pdhg, "ml": e_ml, "vol": e_vol, "deblur": e_deblur,
                "tight": e_tight, "admm": e_admm}))
@@ -3040,7 +3430,11 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": rows[name]["err"],
          "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound"][0],
-         "bound_by": rows[name]["bound"][1], "library_ms": None}
+         "bound_by": rows[name]["bound"][1], "library_ms": None,
+         "device_ms": rows[name]["traced"]["csrc_ms"],
+         "torch_device_ms": rows[name]["traced"]["torch_ms"],
+         "launches_per_call": len(rows[name]["traced"]["csrc"]),
+         **({"resident": resident[name]} if name in resident else {})}
         for name, (src, replaces) in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -651,11 +651,6 @@ __global__ void admm_finish(float* __restrict__ sc,
 
 constexpr int CO_THREADS = FIN;  // the finish's threads: two 32x8 tiles
 constexpr int CO_SMEM = 4 * FIN * sizeof(float);  // the reductions' array
-constexpr int MAX_DEGREE = 64;
-
-struct Cheby {
-  float c[2 * (MAX_DEGREE - 1)];  // (c_prev, c_r) of each Chebyshev step
-};
 
 // Rows [lo, hi) of band `blk` of `blocks` over nx rows (ops/fused_admm.py
 // admm_bands): every row in exactly one band, the bands' sizes within one.
@@ -667,7 +662,8 @@ __host__ __device__ __forceinline__ void band_of(int nx, int blk, int blocks,
 
 __global__ void __launch_bounds__(CO_THREADS)
     admm_iter_coop(State b, float alpha, float oma, int dataterm,
-                   int degree, Cheby cf, int with_norms) {
+                   int degree, const float* __restrict__ coeffs,
+                   int with_norms) {
   namespace cg = cooperative_groups;
   cg::grid_group grid = cg::this_grid();
   if (conv_set(b.sc)) return;
@@ -690,8 +686,8 @@ __global__ void __launch_bounds__(CO_THREADS)
   float* nxt = b.v1;
   for (int s = 0; s < degree - 1; ++s) {
     for (int k = threadIdx.x; k < band; k += CO_THREADS)
-      cheby_step_at(b, cur, nxt, cf.c[2 * s], cf.c[2 * s + 1], lo + k / ny,
-                    k % ny);
+      cheby_step_at(b, cur, nxt, coeffs[2 * s], coeffs[2 * s + 1],
+                    lo + k / ny, k % ny);
     grid.sync();
     float* tmp = cur;
     cur = nxt;
@@ -943,21 +939,22 @@ int prost_admm_multichunk(void* xh, void* xp, void* xd, void* zh, void* zp,
 // one Chebyshev outer iteration on the 7 state arrays in place and, with
 // `with_norms`, the 4 SQUARED residual norms of the owned rows into
 // sc[S_NORM..] (zeros otherwise), as one cooperative launch
-// (admm_iter_coop).  No-op when sc[S_CONV] is set.  A launch the card
-// cannot hold at once returns cudaErrorCooperativeLaunchTooLarge.
+// (admm_iter_coop).  `coeffs` is a device array of the (c_prev, c_r) of
+// each of the degree - 1 Chebyshev steps, so any degree >= 1 runs.  No-op
+// when sc[S_CONV] is set.  A launch the card cannot hold at once returns
+// cudaErrorCooperativeLaunchTooLarge.
 int prost_admm_iter_halo(void* xh, void* xp, void* xd, void* zh, void* zp,
                          void* zd, void* warm, const void* f, const void* w,
                          void* scratch, void* sc, void* partial, int nx,
                          int ny, int dataterm, int degree,
-                         const float* coeffs, float alpha, float oma,
+                         const void* coeffs, float alpha, float oma,
                          int nx_global, int row_offset, int own_lo,
                          int own_hi, int with_norms, void* stream) {
-  if (degree < 1 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
+  if (degree < 1) return (int)cudaErrorInvalidValue;
   State b = state_of(xh, xp, xd, zh, zp, zd, warm, f, w, scratch, sc,
                      partial, nx, ny);
   b.rows = Rows{row_offset, nx_global, own_lo, own_hi};
-  Cheby cf = {};
-  for (int k = 0; k < 2 * (degree - 1); ++k) cf.c[k] = coeffs[k];
+  const float* cf = (const float*)coeffs;
   int blocks = 0;
   if (int rc = coop_blocks(&blocks)) return rc;
   void* args[] = {&b, &alpha, &oma, &dataterm, &degree, &cf, &with_norms};

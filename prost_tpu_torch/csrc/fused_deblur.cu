@@ -49,7 +49,14 @@
 // planes and 7 (nx2, ny2) planes (primal: x, 2 q, yv in, x out; dual: x, yv,
 // bx, fb, sv, 2 q, 2 g in, yv, bx, 2 q, 2 g out) and does about 4T + 35
 // operations a pixel, so at T = 7 it is bound by memory traffic, and at
-// 512x512 by launch latency: a chunk of ri iterations is 2*ri + 3 launches.
+// 512x512 by launch latency: a chunk of ri iterations is 2*ri + 3 launches
+// of the streaming sequence (chunk() below).  Where a chunk's planes fit in
+// the shared memory of one block per SM (the wrapper's shape rule: config
+// 2 at 512x512 and its one-shard halo band, not 2048x2048), the chunk and
+// its halo mode run instead as one grid-resident cooperative launch
+// (deblur_resident, further down), bit-equal to the sequence; on the card
+// that launch is bound by the instructions of its convolutions and by its
+// 23 grid barriers, not by bytes.
 // A batched chunk of 8 frames of 512x512 streams 8 times that per launch
 // in 8 times the blocks: about 140 MB an iteration, beyond the 50 MB L2, so
 // it is bound by device memory traffic.
@@ -112,6 +119,29 @@ __device__ __forceinline__ void stage_taps(const float* src, int n,
   __syncthreads();
 }
 
+// The taps in registers, for a count N known when compiling: the
+// convolutions' loops over them, and the binary counter of their pairwise
+// tree (TreeSum), unroll completely.
+template <int N>
+struct TapsN {
+  static constexpr int n = N;
+  int dx[N];
+  int dy[N];
+  float w[N];
+};
+
+template <int N>
+__device__ __forceinline__ TapsN<N> taps_in_registers(const Taps& t) {
+  TapsN<N> r;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    r.dx[k] = t.dx[k];
+    r.dy[k] = t.dy[k];
+    r.w[k] = t.w[k];
+  }
+  return r;
+}
+
 struct DB {
   float* x;    // (nx, ny) iterate, updated in place
   float* yv;   // (nx2, ny2) blur dual, updated in place
@@ -128,6 +158,7 @@ struct DB {
   const float* taps;  // (3, ntaps) [dx; dy; w]
   float* sc;
   float* partial;  // 4 per block of the (nx2, ny2) grid
+  float* terms;    // the resident chunk's norm terms, 4 (nx2, ny2) planes
   int nx, ny, nx2, ny2, ntaps;  // local rows of the x and yv planes
   int nxg;  // image rows of a halo launch; 0: the whole plane
   float sig_q, tau_t;     // Sigma of the gradient rows, Tau
@@ -205,16 +236,37 @@ __device__ __forceinline__ bool image_row(const RowCtx& r, int i, int nx) {
   return i < nx && i + r.off >= 0 && i + r.off < r.nxg;
 }
 
+// Row-major planes as the stencils read them: a plane in device memory
+// (Glob) or a window of rows [r0, ...) of one in shared memory (Win, the
+// grid-resident chunk's); at(i, j) is element (i, j) of the whole plane.
+struct Glob {
+  const float* a;
+  int w;
+  __device__ __forceinline__ float at(int i, int j) const {
+    return a[(size_t)i * w + j];
+  }
+};
+
+struct Win {
+  float* a;
+  int r0, w;
+  __device__ __forceinline__ float& at(int i, int j) const {
+    return a[(i - r0) * w + j];
+  }
+};
+
 // (B u)(i, j) = sum_d w_d u(i - dx_d, j - dy_d) on the yv grid, u an x
 // plane read as zero outside the image and beyond its local rows.
-__device__ __forceinline__ float conv_fwd(const float* u, const DB& b,
+template <typename P, typename T>
+__device__ __forceinline__ float conv_fwd(const P& u, const DB& b,
                                           const RowCtx& r, int i, int j,
-                                          const Taps& t) {
+                                          const T& t) {
   TreeSum s;
+#pragma unroll
   for (int k = 0; k < t.n; ++k) {
     int a = i - t.dx[k], c = j - t.dy[k];
     float v = (a >= 0 && image_row(r, a, b.nx) && c >= 0 && c < b.ny)
-                  ? u[(size_t)a * b.ny + c]
+                  ? u.at(a, c)
                   : 0.f;
     s.add(t.w[k] * v);
   }
@@ -224,26 +276,39 @@ __device__ __forceinline__ float conv_fwd(const float* u, const DB& b,
 // (B^T v)(i, j) = sum_d w_d v(i + dx_d, j + dy_d) at an image pixel (i, j);
 // on the whole plane every read lies inside v, on a halo band a read below
 // its last local row is zero.
-__device__ __forceinline__ float conv_adj(const float* v, const DB& b, int i,
-                                          int j, const Taps& t) {
+template <typename P, typename T>
+__device__ __forceinline__ float conv_adj(const P& v, const DB& b, int i,
+                                          int j, const T& t) {
   TreeSum s;
+#pragma unroll
   for (int k = 0; k < t.n; ++k) {
     int a = i + t.dx[k];
-    s.add(t.w[k] * (a < b.nx2 ? v[(size_t)a * b.ny2 + (j + t.dy[k])] : 0.f));
+    s.add(t.w[k] * (a < b.nx2 ? v.at(a, j + t.dy[k]) : 0.f));
   }
   return s.total();
 }
 
 // K^T y at an image pixel (i, j): B^T yv plus the masked gradient adjoint
 // (_grad_ops' dxt, dyt), summed in the JAX package's order.
-__device__ __forceinline__ float kty_at(const float* yv, const float* q,
-                                        const DB& b, const RowCtx& r, int i,
-                                        int j, const Taps& t) {
-  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-  float dxt = (has_above(r, i) ? q[p - b.ny] : 0.f)
-              - (has_below(r, i, b.nx) ? q[p] : 0.f);
-  float dyt = (j > 0 ? q[n + p - 1] : 0.f) - (j < b.ny - 1 ? q[n + p] : 0.f);
+template <typename P, typename Q, typename T>
+__device__ __forceinline__ float kty_at(const P& yv, const Q& qx,
+                                        const Q& qy, const DB& b,
+                                        const RowCtx& r, int i, int j,
+                                        const T& t) {
+  float dxt = (has_above(r, i) ? qx.at(i - 1, j) : 0.f)
+              - (has_below(r, i, b.nx) ? qx.at(i, j) : 0.f);
+  float dyt = (j > 0 ? qy.at(i, j - 1) : 0.f)
+              - (j < b.ny - 1 ? qy.at(i, j) : 0.f);
   return (conv_adj(yv, b, i, j, t) + dxt) + dyt;
+}
+
+// The x-grid planes of a launch in device memory: x and q_x, q_y.
+__device__ __forceinline__ Glob xplane(const float* a, const DB& b) {
+  return Glob{a, b.ny};
+}
+
+__device__ __forceinline__ Glob yplane(const float* a, const DB& b) {
+  return Glob{a, b.ny2};
 }
 
 // Seed of a launch: bx = B x on the (nx2, ny2) grid, g = grad x inside.
@@ -257,7 +322,7 @@ __global__ void deblur_seed(DB b) {
   int i, j;
   if (!pixel(b.nx2, b.ny2, i, j)) return;
   RowCtx r = deblur_rows(b);
-  b.bx[(size_t)i * b.ny2 + j] = conv_fwd(b.x, b, r, i, j, t);
+  b.bx[(size_t)i * b.ny2 + j] = conv_fwd(xplane(b.x, b), b, r, i, j, t);
   if (image_row(r, i, b.nx) && j < b.ny) {
     size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
     float xv = b.x[p];
@@ -283,7 +348,9 @@ __global__ void deblur_primal(DB b, int save_prev) {
     return;
   }
   float tau_s = b.sc[S_TAU] * b.tau_t;  // tau * Tau
-  float kty = kty_at(b.yv, b.q, b, r, i, j, t);
+  size_t n = (size_t)b.nx * b.ny;
+  float kty = kty_at(yplane(b.yv, b), xplane(b.q, b), xplane(b.q + n, b), b,
+                     r, i, j, t);
   float xv = b.x[p];
   if (save_prev) b.xp[p] = xv;
   b.x[p] = xv - tau_s * kty;
@@ -306,7 +373,7 @@ __global__ void deblur_dual(DB b, int save_prev) {
   float tp = 1.f + theta;
   size_t p2 = (size_t)i * b.ny2 + j;
   RowCtx r = deblur_rows(b);
-  float bx2 = conv_fwd(b.x, b, r, i, j, t);
+  float bx2 = conv_fwd(xplane(b.x, b), b, r, i, j, t);
   float tsv = sigma * b.sv[p2];  // sigma * Sigma_v
   float inv_l = 1.f / b.sc[S_LMB];
   float den = 1.f / (1.f + tsv * inv_l);
@@ -391,8 +458,10 @@ __global__ void deblur_norm_partial(DB b) {
                  + b.sqrt_q * (tp * gy2 - theta * b.gp[n + p]);
       float pdx = zx - b.sqrt_q * gx2;
       float pdy = zy - b.sqrt_q * gy2;
-      float kty2 = kty_at(b.yv, b.q, b, r, i, j, t);
-      float ktyp = kty_at(b.yvp, b.qp, b, r, i, j, t);
+      float kty2 = kty_at(yplane(b.yv, b), xplane(b.q, b),
+                          xplane(b.q + n, b), b, r, i, j, t);
+      float ktyp = kty_at(yplane(b.yvp, b), xplane(b.qp, b),
+                          xplane(b.qp + n, b), b, r, i, j, t);
       float wh = (b.xp[p] - b.x[p]) * inv_t - b.sqrt_t * ktyp;
       float dd = wh + b.sqrt_t * kty2;
       v[0] += pdx * pdx + pdy * pdy;
@@ -402,6 +471,306 @@ __global__ void deblur_norm_partial(DB b) {
     }
   }
   block_partials(v, b.partial);
+}
+
+// ---------------------------------------------------------------------------
+// The grid-resident chunk (deblur_resident): one cooperative launch runs
+// what chunk() runs in 2 count + 3 launches, for the whole plane and for a
+// halo band alike (the row context of deblur_rows).
+//
+// What bounds it.  At config 2's shape (512x512, 7 taps, ri 10) the
+// streaming sequence passes over the planes in device memory 2 count + 3
+// times and pays a launch and a tail for each pass; the state of the chunk
+// (x, yv, q, bx, g, fb, sv: about 10 MB) fits in the shared memory of the
+// card's SMs, so a half-step can read it on chip.
+//
+// Design.  One block of RES_THREADS on each SM; block b owns the rows
+// band_of(nx2, b, G) of the yv grid (and the same rows of the x grid) and
+// holds them in shared memory (DBRes) from the load to the norms: x with
+// the blur's row reach R above and 1 row below, q_x with 1 row above, yv
+// with R rows below, and the band's rows of q_y, g, wh, bx, fb and sv.
+// Each half-step updates the band in shared memory and writes the planes it
+// changed to their device buffers (x after the primal step; yv and q_x
+// after the dual step; q_y on the aligned iteration): those buffers are the
+// exchange.  After a grid barrier every block copies in the neighbours'
+// rows its next half-step reads.  The taps are staged once.  The aligned
+// iteration writes x_prev, yv_prev and q_prev to their buffers and keeps
+// what the norms need: its primal step's K^T y of the previous duals in
+// wh, its dual step's terms of |pd|^2 and |z_hat|^2 in `terms`; after the
+// last exchange K^T y of the new duals completes |dd|^2 and |w_hat|^2.
+// The per-pixel expressions are deblur_seed's, deblur_primal's,
+// deblur_dual's and deblur_norm_partial's (the same stencil functions on
+// shared-memory windows), the norms reduce through the same tiles and
+// finish (coop_tile_partials, finish_block): the launch is bit-equal to
+// the streaming sequence in the planes and the norms.  Barriers: one after
+// the load (no block writes a plane another still loads), two an
+// iteration, one before the tiles and one before the finish.
+// ---------------------------------------------------------------------------
+
+struct DBRes {
+  Win x, qx, qy, gx, gy, wh;  // ny wide
+  Win yv, bx, fb, sv;          // ny2 wide
+};
+
+// Floats of DBRes for bands of at most rmax rows, blur row reach R.
+__host__ __device__ __forceinline__ size_t deblur_resident_floats(
+    int rmax, int R, int ny, int ny2) {
+  return (size_t)(6 * rmax + R + 2) * ny + (size_t)(4 * rmax + R) * ny2;
+}
+
+__device__ __forceinline__ Win take(float*& p, int r0, int rows, int w) {
+  Win v{p, r0, w};
+  p += (size_t)rows * w;
+  return v;
+}
+
+__device__ __forceinline__ DBRes deblur_layout(float* smem, int lo, int rmax,
+                                               int R, int ny, int ny2) {
+  DBRes w;
+  float* p = smem;
+  w.x = take(p, lo - R, rmax + R + 1, ny);
+  w.qx = take(p, lo - 1, rmax + 1, ny);
+  w.qy = take(p, lo, rmax, ny);
+  w.gx = take(p, lo, rmax, ny);
+  w.gy = take(p, lo, rmax, ny);
+  w.wh = take(p, lo, rmax, ny);
+  w.yv = take(p, lo, rmax + R, ny2);
+  w.bx = take(p, lo, rmax, ny2);
+  w.fb = take(p, lo, rmax, ny2);
+  w.sv = take(p, lo, rmax, ny2);
+  return w;
+}
+
+// The pixel RES_THREADS further along a row-major walk of rows w wide.
+__device__ __forceinline__ void next_pixel(int& i, int& j, int w) {
+  j += RES_THREADS;
+  while (j >= w) {
+    j -= w;
+    ++i;
+  }
+}
+
+// Rows [a, e) of the (n, w) device plane `src` that exist into window
+// `dst` (its own rows in [0, n)).
+__device__ __forceinline__ void load_rows(const Win& dst, const float* src,
+                                          int a, int e, int n) {
+  a = a < 0 ? 0 : a;
+  e = e > n ? n : e;
+  const int cnt = (e - a) * dst.w;
+  for (int k = threadIdx.x; k < cnt; k += RES_THREADS) {
+    int i = a + k / dst.w, j = k % dst.w;
+    dst.at(i, j) = src[(size_t)i * dst.w + j];
+  }
+}
+
+// The body of deblur_resident with the taps `t` (staged in shared memory,
+// or in registers for a count known when compiling).
+template <typename T>
+__device__ __forceinline__ void deblur_resident_body(const DB& b, int count,
+                                                     int reach, int rmax,
+                                                     const T& t,
+                                                     float* smem) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  const int nx = b.nx, ny = b.ny, nx2 = b.nx2, ny2 = b.ny2;
+  const size_t n = (size_t)nx * ny, m2 = (size_t)nx2 * ny2;
+  const RowCtx r = deblur_rows(b);
+  int lo, hi;
+  band_of(nx2, blockIdx.x, gridDim.x, lo, hi);
+  const DBRes w = deblur_layout(smem, lo, rmax, reach, ny, ny2);
+  const int xhi = hi < nx ? hi : nx;  // the band's rows of the x grid
+  const int nyv = (hi - lo) * ny2, nxv = xhi > lo ? (xhi - lo) * ny : 0;
+
+  load_rows(w.x, b.x, lo - reach, hi + 1, nx);
+  load_rows(w.qx, b.q, lo - 1, hi, nx);
+  load_rows(w.qy, b.q + n, lo, hi, nx);
+  load_rows(w.yv, b.yv, lo, hi + reach, nx2);
+  load_rows(w.fb, b.fb, lo, hi, nx2);
+  load_rows(w.sv, b.sv, lo, hi, nx2);
+  __syncthreads();
+  for (int k = threadIdx.x, i = lo + k / ny2, j = k % ny2; k < nyv;
+       k += RES_THREADS, next_pixel(i, j, ny2)) {  // deblur_seed
+    w.bx.at(i, j) = conv_fwd(w.x, b, r, i, j, t);
+    if (image_row(r, i, nx) && j < ny) {
+      float xv = w.x.at(i, j);
+      w.gx.at(i, j) = has_below(r, i, nx) ? w.x.at(i + 1, j) - xv : 0.f;
+      w.gy.at(i, j) = j < ny - 1 ? w.x.at(i, j + 1) - xv : 0.f;
+    }
+  }
+  grid.sync();
+
+  // the launch's scalars and the constants the pixel loops share, each
+  // the same expression of them as in the streaming kernels
+  const float tau_raw = b.sc[S_TAU], sigma = b.sc[S_SIGMA];
+  const float theta = b.sc[S_THETA], radius = b.sc[S_RADIUS];
+  const float tau_s = tau_raw * b.tau_t;  // tau * Tau
+  const float inv_t = 1.f / (tau_raw * b.sqrt_t);
+  const float tp = 1.f + theta;
+  const float inv_l = 1.f / b.sc[S_LMB];
+  const float sq = sigma * b.sig_q;  // sigma * Sigma_q
+  const float sig_p = sq * tp, sig_t = sq * theta;
+  const float inv_q = 1.f / (sigma * b.sqrt_q);
+  for (int it = 0; it < count; ++it) {
+    const bool last = it == count - 1;
+    // deblur_primal on the band's rows of the x grid
+    for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < nxv;
+         k += RES_THREADS, next_pixel(i, j, ny)) {
+      size_t p = (size_t)i * ny + j;
+      float xv = w.x.at(i, j);
+      if (!image_row(r, i, nx)) {  // a band's row beyond the image stays
+        if (last) b.xp[p] = xv;
+        continue;
+      }
+      float kty = kty_at(w.yv, w.qx, w.qy, b, r, i, j, t);
+      float xn = xv - tau_s * kty;
+      if (last) {
+        b.xp[p] = xv;
+        w.wh.at(i, j) = (xv - xn) * inv_t - b.sqrt_t * kty;
+      }
+      w.x.at(i, j) = xn;
+      b.x[p] = xn;
+    }
+    grid.sync();
+    load_rows(w.x, b.x, lo - reach, lo, nx);
+    load_rows(w.x, b.x, hi, hi + 1, nx);
+    __syncthreads();
+    // deblur_dual on the band's rows of the yv grid
+    for (int k = threadIdx.x, i = lo + k / ny2, j = k % ny2; k < nyv;
+         k += RES_THREADS, next_pixel(i, j, ny2)) {
+      size_t p2 = (size_t)i * ny2 + j;
+      float bx2 = conv_fwd(w.x, b, r, i, j, t);
+      float svv = w.sv.at(i, j);
+      float tsv = sigma * svv;  // sigma * Sigma_v
+      float den = 1.f / (1.f + tsv * inv_l);
+      float sh = tsv * w.fb.at(i, j);
+      float yvv = w.yv.at(i, j), bxv = w.bx.at(i, j);
+      float av = yvv + tsv * (tp * bx2 - theta * bxv);
+      float yvn = (av - sh) * den;
+      w.yv.at(i, j) = yvn;
+      w.bx.at(i, j) = bx2;
+      b.yv[p2] = yvn;
+      const bool own = last && owned_row(r, i);
+      float v0 = 0.f, v1 = 0.f;
+      if (last) b.yvp[p2] = yvv;
+      if (own) {  // deblur_norm_partial's terms of the yv plane
+        float sqrt_sv = sqrtf(svv);
+        float inv_v = 1.f / (sigma * sqrt_sv);
+        float zv = (yvv - yvn) * inv_v + sqrt_sv * (tp * bx2 - theta * bxv);
+        float pdv = zv - sqrt_sv * bx2;
+        v0 = pdv * pdv;
+        v1 = zv * zv;
+      }
+      if (i < nx && j < ny) {
+        size_t p = (size_t)i * ny + j;
+        float qx = w.qx.at(i, j), qy = w.qy.at(i, j);
+        if (!image_row(r, i, nx)) {  // a band's row beyond the image stays
+          if (last) {
+            b.qp[p] = qx;
+            b.qp[n + p] = qy;
+          }
+        } else {
+          float xv = w.x.at(i, j);
+          float gx2 = has_below(r, i, nx) ? w.x.at(i + 1, j) - xv : 0.f;
+          float gy2 = j < ny - 1 ? w.x.at(i, j + 1) - xv : 0.f;
+          float gx = w.gx.at(i, j), gy = w.gy.at(i, j);
+          float ax = (qx + sig_p * gx2) - sig_t * gx;
+          float ay = (qy + sig_p * gy2) - sig_t * gy;
+          float nn = ax * ax + ay * ay;
+          float scale = nn > 0.f ? fminf(1.f, radius * rsqrtf(nn)) : 1.f;
+          float qxn = ax * scale, qyn = ay * scale;
+          w.qx.at(i, j) = qxn;
+          w.qy.at(i, j) = qyn;
+          w.gx.at(i, j) = gx2;
+          w.gy.at(i, j) = gy2;
+          b.q[p] = qxn;
+          if (last) {
+            b.q[n + p] = qyn;
+            b.qp[p] = qx;
+            b.qp[n + p] = qy;
+          }
+          if (own) {  // deblur_norm_partial's terms of the q planes
+            float zx = (qx - qxn) * inv_q
+                       + b.sqrt_q * (tp * gx2 - theta * gx);
+            float zy = (qy - qyn) * inv_q
+                       + b.sqrt_q * (tp * gy2 - theta * gy);
+            float pdx = zx - b.sqrt_q * gx2;
+            float pdy = zy - b.sqrt_q * gy2;
+            v0 += pdx * pdx + pdy * pdy;
+            v1 += zx * zx + zy * zy;
+          }
+        }
+      }
+      if (last) {
+        b.terms[p2] = v0;
+        b.terms[m2 + p2] = v1;
+      }
+    }
+    grid.sync();
+    load_rows(w.yv, b.yv, hi, hi + reach, nx2);
+    load_rows(w.qx, b.q, lo - 1, lo, nx);
+    __syncthreads();
+  }
+
+  // |dd|^2 and |w_hat|^2: K^T y of the new duals at the image's pixels
+  for (int k = threadIdx.x, i = lo + k / ny2, j = k % ny2; k < nyv;
+       k += RES_THREADS, next_pixel(i, j, ny2)) {
+    size_t p2 = (size_t)i * ny2 + j;
+    float v2 = 0.f, v3 = 0.f;
+    if (owned_row(r, i) && image_row(r, i, nx) && j < ny) {
+      float kty2 = kty_at(w.yv, w.qx, w.qy, b, r, i, j, t);
+      float wh = w.wh.at(i, j);
+      float dd = wh + b.sqrt_t * kty2;
+      v2 = dd * dd;
+      v3 = wh * wh;
+    }
+    b.terms[2 * m2 + p2] = v2;
+    b.terms[3 * m2 + p2] = v3;
+  }
+  grid.sync();
+  coop_tile_partials(b.terms, nx2, ny2, b.partial, smem);
+  grid.sync();
+  if (blockIdx.x == 0) {
+    AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    dim3 g = grid_of(nx2, ny2);
+    finish_block(reinterpret_cast<float(*)[FIN]>(smem), b.sc, b.partial,
+                 (int)(g.x * g.y), count, 0, STEP_NONE, none);
+  }
+}
+
+// N > 0: a launch of N taps, held in registers; N = 0: any count, read
+// from shared memory.
+template <int N>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    deblur_resident(DB b, int count, int reach, int rmax) {
+  if (b.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  __shared__ Taps ts;
+  stage_taps(b.taps, b.ntaps, ts);
+  if constexpr (N > 0) {
+    const TapsN<N> t = taps_in_registers<N>(ts);
+    deblur_resident_body(b, count, reach, rmax, t, smem);
+  } else {
+    deblur_resident_body(b, count, reach, rmax, ts, smem);
+  }
+}
+
+// The resident kernel for `ntaps` taps: the taps in registers up to
+// RES_REG_TAPS, else read from shared memory.
+constexpr int RES_REG_TAPS = 8;
+using DBResKernel = void (*)(DB, int, int, int);
+
+DBResKernel deblur_resident_kernel(int ntaps) {
+  switch (ntaps) {
+    case 1: return deblur_resident<1>;
+    case 2: return deblur_resident<2>;
+    case 3: return deblur_resident<3>;
+    case 4: return deblur_resident<4>;
+    case 5: return deblur_resident<5>;
+    case 6: return deblur_resident<6>;
+    case 7: return deblur_resident<7>;
+    case RES_REG_TAPS: return deblur_resident<RES_REG_TAPS>;
+    default: return deblur_resident<0>;
+  }
 }
 
 // One chunk of `batch` frames: the seed, `count` iterations, the norm
@@ -450,6 +819,7 @@ DB deblur_of(void* x, void* yv, void* q, void* xp, void* yvp, void* qp,
   b.taps = (const float*)taps;
   b.sc = (float*)sc;
   b.partial = (float*)partial;
+  b.terms = nullptr;
   b.nx = nx;
   b.ny = ny;
   b.nx2 = nx2;
@@ -528,6 +898,46 @@ int prost_deblur_chunk_halo(void* x, void* yv, void* q, void* xp, void* yvp,
                    sqrt_t);
   b.nxg = nx_global;
   return chunk(b, count, 1, (cudaStream_t)stream);
+}
+
+// deblur_fused_chunk and deblur_fused_chunk_halo as one grid-resident
+// cooperative launch (deblur_resident): the whole plane with nx_global = 0,
+// else one halo-extended band as prost_deblur_chunk_halo takes it; the
+// previous iterate into (xp, yvp, qp), the 4 SQUARED norms into
+// sc[S_NORM..]; `terms` holds 4 (nx2, ny2) planes of scratch and `reach`
+// is the taps' largest row shift.  A band's planes that do not fit in one
+// block's shared memory are refused (cudaErrorCooperativeLaunchTooLarge or
+// cudaErrorInvalidValue).  No-op when sc[S_CONV] is set.
+int prost_deblur_chunk_resident(void* x, void* yv, void* q, void* xp,
+                                void* yvp, void* qp, const void* fb,
+                                const void* sv, const void* taps, void* sc,
+                                void* partial, void* terms, int nx, int ny,
+                                int nx2, int ny2, int ntaps, int reach,
+                                float sig_q, float tau_t, float sqrt_q,
+                                float sqrt_t, int nx_global, int count,
+                                void* stream) {
+  DB b = deblur_of(x, yv, q, xp, yvp, qp, nullptr, nullptr, nullptr,
+                   nullptr, fb, sv, taps, sc, partial, nx, ny, nx2, ny2,
+                   ntaps, sig_q, tau_t, sqrt_q, sqrt_t);
+  b.terms = (float*)terms;
+  b.nxg = nx_global;
+  int sms = 0;
+  if (int rc = device_sms(&sms)) return rc;
+  int rmax = band_rows(nx2, sms);
+  size_t smem = deblur_resident_floats(rmax, reach, ny, ny2) * sizeof(float);
+  if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
+  DBResKernel kernel = deblur_resident_kernel(ntaps);
+  int limit = resident_smem_limit(kernel);
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  void* args[] = {&b, &count, &reach, &rmax};
+  return resident_launch(kernel, args, smem, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory deblur_resident's blocks may hold on the
+// current device (the same for every tap count), or minus the error.
+int prost_deblur_resident_smem() {
+  return resident_smem_limit(deblur_resident_kernel(0));
 }
 
 }  // extern "C"

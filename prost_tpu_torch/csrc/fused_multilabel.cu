@@ -30,7 +30,11 @@
 // The TPU kernels hold that state in VMEM for a chunk; here it lives in
 // device memory (in the 50 MB L2 at 256x256x8, beyond it at 512x512x8), so
 // every kernel is bound by memory traffic, and a chunk of ri iterations is
-// 2*ri + 3 launches.
+// 2*ri + 3 launches of the streaming sequence.  Where a chunk's planes fit
+// in the shared memory of one block per SM (the wrapper's shape rule:
+// 256x256x8 and its one-shard halo band, not 512x512x8), the chunk and its
+// halo mode run instead as one grid-resident cooperative launch
+// (ml_resident, further down), bit-equal to the sequence.
 //
 // Design.  One thread per pixel, 32x8 blocks with threadIdx.x along the
 // contiguous y axis (pdhg_chunk.cuh), and each thread loops over the L
@@ -85,6 +89,7 @@ struct ML {
   const float* f;
   float* sc;
   float* partial;  // 4 per block
+  float* terms;    // the resident chunk's norm terms, 4 (nx, ny) planes
   int L, nx, ny;
   int nxg;           // rows of the global plane of a halo launch; 0: whole
   float inv_l;       // Sigma_s = 1/L
@@ -305,6 +310,323 @@ __global__ void ml_norm_partial(ML b) {
   block_partials(v, b.partial);
 }
 
+// ---------------------------------------------------------------------------
+// The grid-resident chunk (ml_resident): one cooperative launch runs what
+// chunk() runs in 2 count + 3 launches, for the whole plane and for a halo
+// band alike (the row context of pdhg_chunk.cuh).
+//
+// What bounds it.  At config 3's shape (256x256x8, ri 10) the streaming
+// sequence passes over 14L + 5 planes in device memory an iteration and
+// pays a launch and a tail for each of its 2 count + 3 passes; the chunk's
+// state (u, q, g, s, su, f: 6L + 2 planes, 13 MB at L = 8) fits in the
+// shared memory of the card's SMs.
+//
+// Design.  One block of RES_THREADS on each SM; block b owns the rows
+// band_of(nx, b, G) and holds them in shared memory (MLRes) from the load
+// to the norms: u with 1 row below, q_x with 1 row above (the stencils'
+// reach), and the band's rows of q_y, g, f, s and su.  Each half-step
+// updates the band in shared memory and writes the planes its neighbours
+// read to their device buffers (u after the primal step, q_x after the
+// dual step; q_y and s on the aligned iteration), which are the exchange;
+// after a grid barrier every block copies in the one neighbour row its
+// next half-step reads.  (One barrier an iteration, the primal step
+// recomputed on the row below the band and q and s exchanged through
+// buffers per parity of the iteration, measured slower on an H100: 0.1000
+// against 0.0861 ms a chunk at 256x256x8; the extra row costs more than
+// the barrier.)  The aligned primal step writes u_prev and keeps
+// w_hat in f's rows (f is not read again); the aligned dual step writes
+// q_prev and s_prev and the terms of |pd|^2 and |z_hat|^2 (the previous
+// gradient held in registers); after the last exchange K^T y of the new
+// duals completes |dd|^2 and |w_hat|^2.  The per-pixel expressions are
+// ml_seed's, ml_primal's, ml_dual<LT>'s and ml_norm_partial's, the norms
+// reduce through the same tiles and finish (coop_tile_partials,
+// finish_block): the launch is bit-equal to the streaming sequence.  Up to
+// MAX_REG_L labels (a pixel's 2L components and its previous gradient in
+// registers); the wrapper's shape rule streams more.  Barriers: one after
+// the load, two an iteration, one before the tiles, one before the finish.
+// ---------------------------------------------------------------------------
+
+// A window of rows [r0, r0 + rows) of L label planes in shared memory.
+struct LWin {
+  float* a;
+  int r0, rows, w;
+  __device__ __forceinline__ float& at(int l, int i, int j) const {
+    return a[((size_t)l * rows + (i - r0)) * w + j];
+  }
+};
+
+struct MLRes {
+  LWin u, qx, qy, gx, gy, f;  // f's rows take w_hat after the last primal
+  LWin s, su;                 // one plane each
+};
+
+// Floats of MLRes for bands of at most rmax rows.
+__host__ __device__ __forceinline__ size_t ml_resident_floats(int L,
+                                                              int rmax,
+                                                              int ny) {
+  return ((size_t)2 * L * (rmax + 1) + (size_t)4 * L * rmax + 2 * rmax) * ny;
+}
+
+__device__ __forceinline__ LWin take(float*& p, int planes, int r0, int rows,
+                                     int w) {
+  LWin v{p, r0, rows, w};
+  p += (size_t)planes * rows * w;
+  return v;
+}
+
+__device__ __forceinline__ MLRes ml_layout(float* smem, int L, int lo,
+                                           int rmax, int ny) {
+  MLRes w;
+  float* p = smem;
+  w.u = take(p, L, lo, rmax + 1, ny);
+  w.qx = take(p, L, lo - 1, rmax + 1, ny);
+  w.qy = take(p, L, lo, rmax, ny);
+  w.gx = take(p, L, lo, rmax, ny);
+  w.gy = take(p, L, lo, rmax, ny);
+  w.f = take(p, L, lo, rmax, ny);
+  w.s = take(p, 1, lo, rmax, ny);
+  w.su = take(p, 1, lo, rmax, ny);
+  return w;
+}
+
+// The pixel RES_THREADS further along a row-major walk of rows w wide.
+__device__ __forceinline__ void next_pixel(int& i, int& j, int w) {
+  j += RES_THREADS;
+  while (j >= w) {
+    j -= w;
+    ++i;
+  }
+}
+
+// Rows [a, e) of the L (n, w) device planes at `src` (planes n w apart)
+// that exist into window `dst` (its own rows in [0, n)).
+__device__ __forceinline__ void load_rows(const LWin& dst, const float* src,
+                                          int L, int a, int e, int n) {
+  a = a < 0 ? 0 : a;
+  e = e > n ? n : e;
+  const int per = (e - a) * dst.w;
+  if (per <= 0) return;
+  for (int k = threadIdx.x; k < L * per; k += RES_THREADS) {
+    int l = k / per, i = a + k % per / dst.w, j = k % dst.w;
+    dst.at(l, i, j) = src[((size_t)l * n + i) * dst.w + j];
+  }
+}
+
+template <int LT>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    ml_resident(ML b, int count, int rmax) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  if (b.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  constexpr int L = LT;
+  const int nx = b.nx, ny = b.ny;
+  const size_t n = (size_t)nx * ny, nl = n * L;
+  const RowCtx r = row_ctx(b.sc, nx, b.nxg);
+  int lo, hi;
+  band_of(nx, blockIdx.x, gridDim.x, lo, hi);
+  const MLRes w = ml_layout(smem, L, lo, rmax, ny);
+  const int npx = (hi - lo) * ny;
+
+  load_rows(w.u, b.u, L, lo, hi + 1, nx);
+  load_rows(w.qx, b.q, L, lo - 1, hi, nx);
+  load_rows(w.qy, b.q + nl, L, lo, hi, nx);
+  load_rows(w.f, b.f, L, lo, hi, nx);
+  load_rows(w.s, b.s, 1, lo, hi, nx);
+  __syncthreads();
+  // ml_seed: the dead duals zeroed (also on the q_x row above the band),
+  // g and su of the band
+  const int top = lo > 0 ? lo - 1 : lo;
+  for (int k = threadIdx.x, i = top + k / ny, j = k % ny; k < (hi - top) * ny;
+       k += RES_THREADS, next_pixel(i, j, ny)) {
+    bool dead = dead_row(r, i);
+    if (i < lo) {
+      if (dead)
+        for (int l = 0; l < L; ++l) w.qx.at(l, i, j) = 0.f;
+      continue;
+    }
+    bool below = has_below(r, i, nx);
+    float acc = 0.f;
+    for (int l = 0; l < L; ++l) {
+      float uv = w.u.at(l, i, j);
+      w.gx.at(l, i, j) = below ? w.u.at(l, i + 1, j) - uv : 0.f;
+      w.gy.at(l, i, j) = j < ny - 1 ? w.u.at(l, i, j + 1) - uv : 0.f;
+      acc = l == 0 ? uv : acc + uv;
+      if (dead) w.qx.at(l, i, j) = 0.f;
+      if (j == ny - 1) w.qy.at(l, i, j) = 0.f;
+    }
+    w.su.at(0, i, j) = acc;
+  }
+  grid.sync();
+
+  // the launch's scalars and the constants the pixel loops share, each
+  // the same expression of them as in the streaming kernels
+  const float tau_raw = b.sc[S_TAU], sigma = b.sc[S_SIGMA];
+  const float theta = b.sc[S_THETA], ball = b.sc[S_BALL], ds = b.sc[S_DS];
+  const float tau = tau_raw * TAU_C;  // tau * Tau
+  const float inv_t = 1.f / (tau_raw * SQRT_T);
+  const float sig_q = sigma * SIG_Q;    // sigma * Sigma_q
+  const float sig_s = sigma * b.inv_l;  // sigma * Sigma_s
+  const float tp = 1.f + theta;
+  const float inv_q = 1.f / (sigma * SQRT_S_Q);
+  const float inv_s = 1.f / (sigma * b.sqrt_inv_l);
+  for (int it = 0; it < count; ++it) {
+    const bool last = it == count - 1;
+    // ml_primal
+    for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
+         k += RES_THREADS, next_pixel(i, j, ny)) {
+      size_t p = (size_t)i * ny + j;
+      float sv = w.s.at(0, i, j);
+      bool above = has_above(r, i);
+      for (int l = 0; l < L; ++l) {
+        size_t pl = l * n + p;
+        float qx = w.qx.at(l, i, j), qy = w.qy.at(l, i, j);
+        float lx = above ? w.qx.at(l, i - 1, j) : 0.f;
+        float ly = j > 0 ? w.qy.at(l, i, j - 1) : 0.f;
+        float kty = ((lx - qx) + (ly - qy)) + sv;
+        float uv = w.u.at(l, i, j);
+        float tf = tau * w.f.at(l, i, j);
+        float un = fmaxf((uv - tau * kty) - tf, 0.f);
+        if (last) {
+          b.up[pl] = uv;
+          w.f.at(l, i, j) = (uv - un) * inv_t - SQRT_T * kty;  // w_hat
+        }
+        w.u.at(l, i, j) = un;
+        b.u[pl] = un;
+      }
+    }
+    grid.sync();
+    load_rows(w.u, b.u, L, hi, hi + 1, nx);
+    __syncthreads();
+    // ml_dual<LT>
+    for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
+         k += RES_THREADS, next_pixel(i, j, ny)) {
+      size_t p = (size_t)i * ny + j;
+      float ax[L], ay[L], gpx[L], gpy[L];
+      float su2 = 0.f, nrm2 = 0.f;
+      bool below = has_below(r, i, nx);
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        size_t pl = l * n + p;
+        float uv = w.u.at(l, i, j);
+        float gx2 = below ? w.u.at(l, i + 1, j) - uv : 0.f;
+        float gy2 = j < ny - 1 ? w.u.at(l, i, j + 1) - uv : 0.f;
+        su2 = l == 0 ? uv : su2 + uv;
+        float qx = w.qx.at(l, i, j), qy = w.qy.at(l, i, j);
+        float gx = w.gx.at(l, i, j), gy = w.gy.at(l, i, j);
+        float axv = qx + sig_q * (tp * gx2 - theta * gx);
+        float ayv = qy + sig_q * (tp * gy2 - theta * gy);
+        float t = axv * axv + ayv * ayv;
+        nrm2 = l == 0 ? t : nrm2 + t;
+        if (last) {
+          b.qp[pl] = qx;
+          b.qp[nl + pl] = qy;
+        }
+        gpx[l] = gx;
+        gpy[l] = gy;
+        w.gx.at(l, i, j) = gx2;
+        w.gy.at(l, i, j) = gy2;
+        ax[l] = axv;
+        ay[l] = ayv;
+      }
+      float scale = nrm2 > 0.f ? fminf(1.f, ball * rsqrtf(nrm2)) : 1.f;
+      const bool own = last && owned_row(r, i);
+      float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        size_t pl = l * n + p;
+        float qxn = ax[l] * scale, qyn = ay[l] * scale;
+        if (own) {  // ml_norm_partial's terms of the q planes
+          float gx2 = w.gx.at(l, i, j), gy2 = w.gy.at(l, i, j);
+          float zx = (w.qx.at(l, i, j) - qxn) * inv_q
+                     + SQRT_S_Q * (tp * gx2 - theta * gpx[l]);
+          float zy = (w.qy.at(l, i, j) - qyn) * inv_q
+                     + SQRT_S_Q * (tp * gy2 - theta * gpy[l]);
+          float pdx = zx - SQRT_S_Q * gx2;
+          float pdy = zy - SQRT_S_Q * gy2;
+          v0 += pdx * pdx + pdy * pdy;
+          v1 += zx * zx + zy * zy;
+        }
+        w.qx.at(l, i, j) = qxn;
+        w.qy.at(l, i, j) = qyn;
+        b.q[pl] = qxn;
+        if (last) b.q[nl + pl] = qyn;
+      }
+      float sv = w.s.at(0, i, j), suv = w.su.at(0, i, j);
+      float sn = (sv + sig_s * (tp * su2 - theta * suv)) - sig_s * ds;
+      w.s.at(0, i, j) = sn;
+      w.su.at(0, i, j) = su2;
+      if (last) {
+        b.sp[p] = sv;
+        b.s[p] = sn;
+      }
+      if (own) {  // ml_norm_partial's terms of the multiplier plane
+        float zs = (sv - sn) * inv_s
+                   + b.sqrt_inv_l * (tp * su2 - theta * suv);
+        float pds = zs - b.sqrt_inv_l * su2;
+        v0 += pds * pds;
+        v1 += zs * zs;
+      }
+      if (last) {
+        b.terms[p] = v0;
+        b.terms[n + p] = v1;
+      }
+    }
+    grid.sync();
+    load_rows(w.qx, b.q, L, lo - 1, lo, nx);
+    __syncthreads();
+  }
+
+  // |dd|^2 and |w_hat|^2: K^T y of the new duals
+  for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
+       k += RES_THREADS, next_pixel(i, j, ny)) {
+    size_t p = (size_t)i * ny + j;
+    float v2 = 0.f, v3 = 0.f;
+    if (owned_row(r, i)) {
+      bool above = has_above(r, i);
+      float s2 = w.s.at(0, i, j);
+      for (int l = 0; l < L; ++l) {
+        float qx = w.qx.at(l, i, j), qy = w.qy.at(l, i, j);
+        float lx = above ? w.qx.at(l, i - 1, j) : 0.f;
+        float ly = j > 0 ? w.qy.at(l, i, j - 1) : 0.f;
+        float kty2 = ((lx - qx) + (ly - qy)) + s2;
+        float wh = w.f.at(l, i, j);
+        float dd = wh + SQRT_T * kty2;
+        v2 += dd * dd;
+        v3 += wh * wh;
+      }
+    }
+    b.terms[2 * n + p] = v2;
+    b.terms[3 * n + p] = v3;
+  }
+  grid.sync();
+  coop_tile_partials(b.terms, nx, ny, b.partial, smem);
+  grid.sync();
+  if (blockIdx.x == 0) {
+    AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    dim3 g = grid_of(nx, ny);
+    finish_block(reinterpret_cast<float(*)[FIN]>(smem), b.sc, b.partial,
+                 (int)(g.x * g.y), count, 0, STEP_NONE, none);
+  }
+}
+
+// The resident chunk's kernel for L labels, or null beyond MAX_REG_L.
+using MLResKernel = void (*)(ML, int, int);
+
+MLResKernel ml_resident_kernel(int L) {
+  switch (L) {
+    case 1: return ml_resident<1>;
+    case 2: return ml_resident<2>;
+    case 3: return ml_resident<3>;
+    case 4: return ml_resident<4>;
+    case 5: return ml_resident<5>;
+    case 6: return ml_resident<6>;
+    case 7: return ml_resident<7>;
+    case MAX_REG_L: return ml_resident<MAX_REG_L>;
+    default: return nullptr;
+  }
+}
+
 template <int LT>
 void launch_dual(const ML& b, dim3 grid, dim3 block, int last,
                  cudaStream_t s) {
@@ -375,6 +697,7 @@ ML ml_of(void* u, void* q, void* s, void* up, void* qp, void* sp, void* g,
   b.f = (const float*)f;
   b.sc = (float*)sc;
   b.partial = (float*)partial;
+  b.terms = nullptr;
   b.L = L;
   b.nx = nx;
   b.ny = ny;
@@ -424,11 +747,6 @@ int prost_ml_chunk_batched(void* u, void* q, void* s, void* up, void* qp,
   return chunk(b, count, batch, (cudaStream_t)stream);
 }
 
-// ml_fused_multichunk: up to k_chunks chunks, the carried planes kept
-// across chunks, adaptation + stopping test on the device after each
-// chunk, and every kernel after convergence returning at once (the
-// lax.cond skip).  sc[S_NORM..] ends with the last executed chunk's sqrt'd
-// norms.
 // ml_fused_chunk_halo: ml_chunk on one halo-extended shard of a plane of
 // nx_global rows; sc holds the row context and the squared norms cover the
 // owned rows only.
@@ -443,6 +761,50 @@ int prost_ml_chunk_halo(void* u, void* q, void* s, void* up, void* qp,
   return chunk(b, count, 1, (cudaStream_t)stream);
 }
 
+// ml_fused_chunk and ml_fused_chunk_halo as one grid-resident cooperative
+// launch (ml_resident): the whole plane with nx_global = 0, else one
+// halo-extended shard as prost_ml_chunk_halo takes it; the previous
+// iterate into (up, qp, sp), the 4 SQUARED norms into sc[S_NORM..];
+// `terms` holds 4 (nx, ny) planes of scratch.  Up to MAX_REG_L labels; a
+// band's planes that do not fit in one block's shared memory are refused
+// (cudaErrorCooperativeLaunchTooLarge or cudaErrorInvalidValue).  No-op
+// when sc[S_CONV] is set.
+int prost_ml_chunk_resident(void* u, void* q, void* s, void* up, void* qp,
+                            void* sp, const void* f, void* sc, void* partial,
+                            void* terms, int L, int nx, int ny, float inv_l,
+                            float sqrt_inv_l, int nx_global, int count,
+                            void* stream) {
+  MLResKernel kernel = ml_resident_kernel(L);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  ML b = ml_of(u, q, s, up, qp, sp, nullptr, nullptr, nullptr, nullptr, f,
+               sc, partial, L, nx, ny, inv_l, sqrt_inv_l);
+  b.terms = (float*)terms;
+  b.nxg = nx_global;
+  int sms = 0;
+  if (int rc = device_sms(&sms)) return rc;
+  int rmax = band_rows(nx, sms);
+  size_t smem = ml_resident_floats(L, rmax, ny) * sizeof(float);
+  if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
+  int limit = resident_smem_limit(kernel);
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  void* args[] = {&b, &count, &rmax};
+  return resident_launch(kernel, args, smem, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory ml_resident's blocks may hold on the current
+// device (for L labels), or minus the error.
+int prost_ml_resident_smem(int L) {
+  MLResKernel kernel = ml_resident_kernel(L);
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  return resident_smem_limit(kernel);
+}
+
+// ml_fused_multichunk: up to k_chunks chunks, the carried planes kept
+// across chunks, adaptation + stopping test on the device after each
+// chunk, and every kernel after convergence returning at once (the
+// lax.cond skip).  sc[S_NORM..] ends with the last executed chunk's sqrt'd
+// norms.
 int prost_ml_multichunk(void* u, void* q, void* s, void* up, void* qp,
                         void* sp, void* g, void* gp, void* su, void* sup,
                         const void* f, void* sc, void* partial, int L, int nx,

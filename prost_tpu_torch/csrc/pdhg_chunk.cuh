@@ -23,6 +23,11 @@
 //   instance) and, in a multichunk launch, the boyd/goldstein adaptation
 //   and the stopping test (adapt_scalars of prost_tpu/ops/fused_rof.py,
 //   which both JAX multichunk kernels share);
+// * the pieces of a grid-resident chunk (one cooperative launch, one block
+//   of RES_THREADS on each SM, each block holding a band of rows of every
+//   plane in shared memory): the bands (band_of), the per-tile norm
+//   partials from per-pixel terms (coop_tile_partials, the tree of
+//   block_partials) and the launch itself (resident_launch);
 // * LAUNCH_CHECK, which returns a launch's error from the C entry point.
 //
 // Every source that includes this header is its own library with a plain C
@@ -30,6 +35,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -105,7 +111,8 @@ __device__ __forceinline__ bool owned_row(const RowCtx& r, int i) {
 }
 
 // The pixel grid of `batch` instances of an (nx, ny) plane.
-dim3 grid_of(int nx, int ny, int batch = 1) {
+__host__ __device__ __forceinline__ dim3 grid_of(int nx, int ny,
+                                                 int batch = 1) {
   return dim3((ny + BX - 1) / BX, (nx + BY - 1) / BY, batch);
 }
 
@@ -135,7 +142,9 @@ struct AdaptConsts {
   float sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta, arb_tau;
 };
 
-// Second pass, one block per instance (blockIdx.x): the instance's four
+// Second pass (pdhg_finish, one block per instance, blockIdx.x; its body
+// finish_block, run by the FIN threads of a block on the reduction array
+// `red`): the instance's four
 // squared norms from its `nblocks` partials in a fixed order.  With `adapt`
 // set (multichunk) thread 0 then runs adapt_scalars: the same f32
 // operations in the same order as the JAX package's, with the iteration
@@ -143,14 +152,13 @@ struct AdaptConsts {
 // Bound: launch latency (a few KB of partials per instance); it is what
 // lets the multichunk keep its step sizes and stopping test on the device,
 // where the TPU kernel ran them on SMEM scalars between chunks.
-__global__ void pdhg_finish(float* __restrict__ sc,
-                            const float* __restrict__ partial, int nblocks,
-                            int count, int adapt, int stepsize,
-                            AdaptConsts c) {
-  sc += (size_t)blockIdx.x * S_LEN;
-  partial += (size_t)blockIdx.x * 4 * nblocks;
+__device__ __forceinline__ void finish_block(float (*red)[FIN],
+                                             float* __restrict__ sc,
+                                             const float* __restrict__ partial,
+                                             int nblocks, int count,
+                                             int adapt, int stepsize,
+                                             AdaptConsts c) {
   if (sc[S_CONV] != 0.f) return;
-  __shared__ float red[4][FIN];
   int t = threadIdx.x;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int blk = t; blk < nblocks; blk += FIN)
@@ -203,6 +211,131 @@ __global__ void pdhg_finish(float* __restrict__ sc,
   sc[S_DONE] += 1.f;
   sc[S_IT] += (float)count;
   sc[S_CONV] = conv ? 1.f : 0.f;  // last: the other threads have read it
+}
+
+__global__ void pdhg_finish(float* __restrict__ sc,
+                            const float* __restrict__ partial, int nblocks,
+                            int count, int adapt, int stepsize,
+                            AdaptConsts c) {
+  __shared__ float red[4][FIN];
+  finish_block(red, sc + (size_t)blockIdx.x * S_LEN,
+               partial + (size_t)blockIdx.x * 4 * nblocks, nblocks, count,
+               adapt, stepsize, c);
+}
+
+// ---------------------------------------------------------------------------
+// Grid-resident chunks (one cooperative launch a chunk).  The launch has one
+// block of RES_THREADS on each SM; block b owns the rows band_of(n, b, G)
+// of the chunk's grid and holds every plane of them in dynamic shared
+// memory, with the neighbours' rows its stencils read copied in after each
+// grid barrier.  The norms: each block writes its pixels' four terms to a
+// global array `terms` (4 planes of the grid), and after a barrier the
+// blocks reduce the 32x8 tiles of the streaming launches' grid_of in
+// block_partials' tree (coop_tile_partials), so the partials, and the
+// finish over them, are the streaming sequence's bit for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int RES_THREADS = FIN;  // finish_block's threads: two 32x8 tiles
+constexpr int RES_RED_BYTES = 4 * FIN * (int)sizeof(float);
+
+// Rows [lo, hi) of band `blk` of `blocks` over n rows: every row in exactly
+// one band, the bands' sizes within one (empty where blocks > n).
+__host__ __device__ __forceinline__ void band_of(int n, int blk, int blocks,
+                                                 int& lo, int& hi) {
+  lo = (int)((long long)blk * n / blocks);
+  hi = (int)((long long)(blk + 1) * n / blocks);
+}
+
+// The rows of the largest band of n rows over `blocks`.
+__host__ __device__ __forceinline__ int band_rows(int n, int blocks) {
+  return (n + blocks - 1) / blocks;
+}
+
+// block_partials for every 32x8 tile of the (nr, nc) grid from the terms
+// terms[k * nr * nc + pixel] (zeros where a pixel has none), RES_THREADS /
+// NT tiles at a time per block, tile t of grid_of(nr, nc) numbered as that
+// grid numbers its blocks; `red` holds 4 RES_THREADS floats.
+__device__ __forceinline__ void coop_tile_partials(
+    const float* __restrict__ terms, int nr, int nc,
+    float* __restrict__ partial, float* red) {
+  const int ntx = (nc + BX - 1) / BX;
+  const int ntiles = (nr + BY - 1) / BY * ntx;
+  const int per = RES_THREADS / NT;
+  const int g = threadIdx.x / NT, t = threadIdx.x % NT;
+  const size_t m = (size_t)nr * nc;
+  float* r = red + g * 4 * NT;  // r[k * NT + t]
+  for (int base = per * blockIdx.x; base < ntiles;
+       base += per * gridDim.x) {
+    const int tile = base + g;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (tile < ntiles) {
+      int i = tile / ntx * BY + t / BX, j = tile % ntx * BX + t % BX;
+      if (i < nr && j < nc) {
+        size_t p = (size_t)i * nc + j;
+        for (int k = 0; k < 4; ++k) v[k] = terms[k * m + p];
+      }
+    }
+    for (int k = 0; k < 4; ++k) r[k * NT + t] = v[k];
+    __syncthreads();
+    for (int s = NT / 2; s > 0; s >>= 1) {
+      if (t < s)
+        for (int k = 0; k < 4; ++k) r[k * NT + t] += r[k * NT + t + s];
+      __syncthreads();
+    }
+    if (t == 0 && tile < ntiles)
+      for (int k = 0; k < 4; ++k) partial[4 * tile + k] = r[k * NT];
+    __syncthreads();  // the next tiles overwrite r
+  }
+}
+
+// The SMs of the current device, found once per device.
+inline int device_sms(int* sms) {
+  static int cached[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 64 && cached[dev] > 0) {
+    *sms = cached[dev];
+    return 0;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 64) cached[dev] = *sms;
+  return 0;
+}
+
+// The dynamic shared memory a block of `kernel` may opt into on the current
+// device (the device's opt-in limit less the kernel's static shared
+// memory), or minus the error.
+template <typename K>
+int resident_smem_limit(K kernel) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, (const void*)kernel);
+  if (e != cudaSuccess) return -(int)e;
+  return optin - (int)attr.sharedSizeBytes;
+}
+
+// One cooperative launch of `kernel` with one block of RES_THREADS on each
+// SM and `smem` bytes of dynamic shared memory; the card refuses it
+// (cudaErrorCooperativeLaunchTooLarge) where a block does not fit on an SM.
+template <typename K>
+int resident_launch(K kernel, void** args, size_t smem, cudaStream_t st) {
+  int sms = 0;
+  if (int rc = device_sms(&sms)) return rc;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms),
+                                  dim3(RES_THREADS), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaGetLastError();
+  return (int)e;
 }
 
 #define LAUNCH_CHECK()                                  \

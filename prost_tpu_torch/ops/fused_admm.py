@@ -73,9 +73,6 @@ _CHEB_SIGMA1 = _CHEB_THETA / _CHEB_DELTA
 # slots of the kernels' device scalar buffer (csrc/fused_admm.cu, enum S_*)
 _S_CONV, _S_DONE, _S_NORM, _S_LEN = 11, 12, 13, 24
 _SOUT = (0, 3, 4, 5, _S_CONV, _S_DONE)  # rho delta arb_l arb_u conv done
-# the Chebyshev degrees the halo iteration's launch argument holds
-# (csrc/fused_admm.cu MAX_DEGREE)
-MAX_HALO_DEGREE = 64
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
 launch_counts = {"admm_chunk": 0, "admm_multichunk": 0,
@@ -476,7 +473,7 @@ def admm_bands(nx: int, blocks: int) -> list:
             for b in range(int(blocks))]
 
 
-@functools.lru_cache(maxsize=MAX_HALO_DEGREE + 1)
+@functools.lru_cache(maxsize=None)
 def _coeff_array(degree):
     """The Chebyshev step coefficients as a host float array (c_prev, c_r
     per step), or None for the CGLS projection; made once per degree."""
@@ -484,6 +481,15 @@ def _coeff_array(degree):
         return None
     flat = [c for pair in cheby_coeffs(int(degree)) for c in pair]
     return (ctypes.c_float * max(len(flat), 1))(*flat)
+
+
+@functools.lru_cache(maxsize=None)
+def _coeff_tensor(degree: int, device) -> torch.Tensor:
+    """``_coeff_array(degree)`` as a float32 array on ``device``, which
+    the halo iteration's cooperative launch reads: made once per degree and
+    device, so any degree runs."""
+    return torch.tensor(list(_coeff_array(degree)), dtype=torch.float32,
+                        device=device)
 
 
 def admm_chunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
@@ -561,9 +567,9 @@ def admm_iter_halo_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, degree: int,
     planes = (xh, xp, xd, zh, zp, zd, warm)
     _check(planes, f, w, scal, 3, 1, dataterm)
     check_halo(nx_global, planes)
-    if not 1 <= int(degree) <= MAX_HALO_DEGREE:
-        raise ProstError(f"The halo iteration takes a Chebyshev degree of 1 "
-                         f"to {MAX_HALO_DEGREE}, got {degree}.")
+    if int(degree) < 1:
+        raise ProstError(f"The halo iteration needs a Chebyshev degree >= 1, "
+                         f"got {degree}.")
     if not 0 <= own_lo < own_hi <= xh.shape[0]:
         raise ProstError(f"The owned rows [{own_lo}, {own_hi}) must lie in "
                          f"the shard's {xh.shape[0]} rows.")
@@ -579,7 +585,8 @@ def admm_iter_halo_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, degree: int,
     nx, ny = xh.shape
     launch(lib, "prost_admm_iter_halo", "admm_iter_halo", launch_counts,
            xh.device, wk.buffers(f, w), nx, ny, DATATERMS[dataterm],
-           int(degree), _coeff_array(degree), float(alpha),
+           int(degree), ptr(_coeff_tensor(int(degree), xh.device)),
+           float(alpha),
            1.0 - float(alpha), int(nx_global), int(row_offset), int(own_lo),
            int(own_hi), int(bool(with_norms)))
     return wk.sc[_S_NORM:_S_NORM + 4]

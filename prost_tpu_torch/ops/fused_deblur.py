@@ -28,6 +28,14 @@ with a plain PyTorch version beside each wrapper here:
   halo-extended band of the (nx2, ny2) grid's rows, x and q cut at the same
   global rows, the spatially sharded route's (``parallel/spatial_fused.py``).
 
+The single-instance chunk and its halo mode have in-place forms,
+``deblur_chunk_`` and ``deblur_chunk_halo_``, and the routes call them
+through ``DeblurChunk``, which makes their buffers once per route.  On a
+card each runs as one grid-resident cooperative launch where the shape
+rule (``resident_ok``) finds that its planes fit in the shared memory of
+one block per SM, and as the streaming launch sequence otherwise; both are
+bit-equal.  The batched chunk always streams.
+
 The JAX package has no multichunk kernel for this workload, and neither
 has the port.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel, or raises.  There is no fallback to the
@@ -67,12 +75,14 @@ from ..linop.gradient import BlockGradient2D
 from ..prox.combinators import ProxMoreau
 from ..prox.elemop import ProxElem1D
 from ..prox.standalone import ProxZero
-from .pdhg_chunk import (CF, CI, N_HALO_SCAL, VP, ChunkWork, ball_scale,
-                         check_buffers, check_halo, chunk_state,
-                         coeff_vector, dual_ball_radius, entry_converged,
-                         halo_copy, halo_into, isscalar, launch,
-                         run_pdhg_route, segment_const, typed_lib,
-                         vmap_plain)
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
+                         S_NORM, VP, ChunkWork, LightChunk, ball_scale,
+                         card_sms, check_buffers, check_halo, check_inplace,
+                         chunk_state, coeff_vector, dual_ball_radius,
+                         entry_converged, halo_copy, halo_into, isscalar,
+                         launch, own_vectors, pick_path, resident_rows,
+                         run_pdhg_route, scalar_buffer, segment_const,
+                         typed_lib, vmap_plain)
 
 MAX_TAPS = 96  # nonzero convolution taps the kernel takes
 
@@ -356,26 +366,111 @@ def _lib():
     return typed_lib("fused_deblur", "prost_deblur_num_blocks", {
         "prost_deblur_chunk": head + [CI, VP],
         "prost_deblur_chunk_batched": head + [CI, CI, VP],
-        "prost_deblur_chunk_halo": head + [CI, CI, VP]})
+        "prost_deblur_chunk_halo": head + [CI, CI, VP],
+        "prost_deblur_chunk_resident": [VP] * 12 + [CI] * 6 + [CF] * 4
+                                       + [CI, CI, VP],
+        "prost_deblur_resident_smem": []})
 
 
-def _launch(fn: str, what: str, x, yv, q, fb, sv, scal, n_scal: int, taps,
-            sig_q: float, tau_t: float, *args, prev=None):
-    """One launch of ``fn`` on copies of (x, yv, q) (with a leading frame
-    axis for a batched launch), or on (x, yv, q) and ``prev`` themselves;
-    returns its outputs."""
+def taps_reach(taps) -> int:
+    """The blur's largest row shift: the rows above and below its band
+    that a grid-resident block copies from its neighbours."""
+    return max(dx for dx, _, _ in taps)
+
+
+def resident_bytes(nx2: int, ny: int, ny2: int, taps, sms: int) -> int:
+    """The dynamic shared memory of one block of the grid-resident chunk
+    on a yv grid of ``nx2`` rows (the whole plane's, or a halo band's) over
+    ``sms`` blocks: csrc/fused_deblur.cu's DBRes for the largest band
+    (deblur_resident_floats), at least the reductions' array."""
+    rmax, reach = resident_rows(nx2, sms), taps_reach(taps)
+    floats = ((6 * rmax + reach + 2) * int(ny)
+              + (4 * rmax + reach) * int(ny2))
+    return max(4 * floats, RES_RED_BYTES)
+
+
+def resident_ok(nx2: int, ny: int, ny2: int, taps, sms: int,
+                smem: int) -> bool:
+    """The shape rule of ``deblur_chunk_`` and ``deblur_chunk_halo_``: a
+    chunk on a yv grid of ``nx2`` rows runs as one grid-resident launch
+    (csrc/fused_deblur.cu deblur_resident, one block per SM) where the
+    planes of its largest band fit in ``smem`` bytes of a block's dynamic
+    shared memory on a card of ``sms`` SMs, and as the streaming launch
+    sequence otherwise."""
+    return resident_bytes(nx2, ny, ny2, taps, sms) <= int(smem)
+
+
+@functools.lru_cache(maxsize=None)
+def card_limits(device) -> tuple:
+    """(SMs, the dynamic shared memory a block of the grid-resident chunk
+    may hold) of the card ``device``, read once."""
     lib = _lib()
-    nx, ny = x.shape[-2:]
-    nx2, ny2 = yv.shape[-2:]
-    wk = ChunkWork((x, yv, q), (yv, q), scal, n_scal,
-                   lib.prost_deblur_num_blocks(nx2, ny2), prev=prev)
+    with torch.cuda.device(device):
+        smem = lib.prost_deblur_resident_smem()
+    if smem < 0:
+        raise ProstError(f"deblur_chunk: no shared-memory limit for the "
+                         f"resident chunk on {device} (CUDA error {-smem}).")
+    return card_sms(device), smem
+
+
+def _scratch(resident: bool, nx, ny, nx2, ny2, device):
+    """A chunk launch's scratch: the grid-resident chunk's norm terms (4
+    planes of the yv grid), or the streaming sequence's carried planes
+    (B x and grad x, of this iterate and of the previous one)."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    if resident:
+        return [empty(4, nx2, ny2)]
+    return [empty(nx2, ny2), empty(nx2, ny2), empty(2, nx, ny),
+            empty(2, nx, ny)]
+
+
+def _launch_chunk(what: str, state, prev, fb, sv, taps_t, sc, partial, scratch,
+            resident: bool, count: int, taps, sig_q: float, tau_t: float,
+            nx_global=None):
+    """One chunk on the card in place on ``state`` (x, yv, q) and ``prev``:
+    the grid-resident launch or the streaming sequence, of the whole plane
+    or (with ``nx_global``) of a halo band, counted under ``what``."""
+    x, yv = state[0], state[1]
+    nx, ny = x.shape
+    nx2, ny2 = yv.shape
+    shape = (nx, ny, nx2, ny2, len(taps))
     # sqrt(Sigma_q) and sqrt(Tau) rounded once from double, as the plain
     # version rounds its Python constants
-    launch(lib, fn, what, launch_counts, x.device,
-           wk.buffers(fb, sv, taps_array(tuple(taps), x.device)),
-           nx, ny, nx2, ny2, len(taps), sig_q, tau_t, sig_q ** 0.5,
-           tau_t ** 0.5, *args)
-    return wk.outputs()
+    roots = (sig_q, tau_t, sig_q ** 0.5, tau_t ** 0.5)
+    lib = _lib()
+    if resident:
+        launch(lib, "prost_deblur_chunk_resident", what, launch_counts,
+               x.device, [*state, *prev, fb, sv, taps_t, sc, partial,
+                          *scratch], *shape, taps_reach(taps), *roots,
+               int(nx_global or 0), int(count))
+    else:
+        fn, tail = (("prost_deblur_chunk", ()) if nx_global is None else
+                    ("prost_deblur_chunk_halo", (int(nx_global),)))
+        launch(lib, fn, what, launch_counts, x.device,
+               [*state, *prev, *scratch, fb, sv, taps_t, sc, partial],
+               *shape, *roots, *tail, int(count))
+
+
+def _inplace(what: str, state, prev, fb, sv, scal, n_scal: int, count: int,
+             taps, sig_q: float, tau_t: float, nx_global, path):
+    """One chunk on the card in place, its buffers made for this call;
+    returns norms2."""
+    x, yv = state[0], state[1]
+    nx, ny = x.shape
+    nx2, ny2 = yv.shape
+    dev = x.device
+    resident = pick_path(path, resident_ok(nx2, ny, ny2, taps,
+                                           *card_limits(dev)), what)
+    sc = scalar_buffer(scal, n_scal, S_CONV, S_LEN)
+    partial = torch.empty(4 * _lib().prost_deblur_num_blocks(nx2, ny2),
+                          dtype=torch.float32, device=dev)
+    _launch_chunk(what, state, prev, fb.contiguous(), sv.contiguous(),
+            taps_array(tuple(taps), dev), sc, partial,
+            _scratch(resident, nx, ny, nx2, ny2, dev), resident, count, taps,
+            sig_q, tau_t, nx_global)
+    return sc[S_NORM:S_NORM + 4]
 
 
 def deblur_chunk(x, yv, q, fb, sv, scal, count: int, taps, sig_q: float,
@@ -389,14 +484,33 @@ def deblur_chunk(x, yv, q, fb, sv, scal, count: int, taps, sig_q: float,
     (+ an optional converged flag: when set, nothing runs and the inputs
     come back).  Returns (x2, yv2, q2, x_prev, yv_prev, q_prev, norms2),
     norms2 the 4 SQUARED preconditioned residual norms, on the inputs'
-    device.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel."""
+    device.  CPU tensors run the plain version; CUDA tensors run
+    ``deblur_chunk_`` on copies."""
     _check(x, yv, q, fb, sv, scal, count, taps)
     if x.device.type == "cpu":
         return deblur_chunk_plain(x, yv, q, fb, sv, scal, count, taps, sig_q,
                                   tau_t)
-    return _launch("prost_deblur_chunk", "deblur_chunk", x, yv, q, fb, sv,
-                   scal, 5, taps, sig_q, tau_t, int(count))
+    return halo_copy(deblur_chunk_, (x, yv, q), fb, sv, scal, count, taps,
+                     sig_q, tau_t)
+
+
+def deblur_chunk_(x, yv, q, x_prev, yv_prev, q_prev, fb, sv, scal,
+                  count: int, taps, sig_q: float, tau_t: float, path=None):
+    """``deblur_chunk`` in place: (x, yv, q) advance by ``count`` iterations
+    and the previous buffers take the iterate before the aligned one; with
+    the converged flag set nothing changes.  Returns norms2.  On a card
+    ``path`` None takes the shape rule's path (``resident_ok``): one
+    grid-resident launch (csrc/fused_deblur.cu deblur_resident) where the
+    planes fit on chip, else the streaming launch sequence; "resident" or
+    "streaming" asks for one ("resident" raises where it does not fit)."""
+    state, prev = (x, yv, q), (x_prev, yv_prev, q_prev)
+    _check(*state, fb, sv, scal, count, taps)
+    check_inplace(state, prev)
+    if x.device.type == "cpu":
+        return halo_into(state, prev, deblur_chunk_plain(
+            *state, fb, sv, scal, count, taps, sig_q, tau_t), scal, 5)
+    return _inplace("deblur_chunk", state, prev, fb, sv, scal, 5, count,
+                    taps, sig_q, tau_t, None, path)
 
 
 def deblur_halo_rows(count: int, taps) -> int:
@@ -428,11 +542,12 @@ def deblur_chunk_halo(x, yv, q, fb, sv, scal, count: int, nx_global: int,
 
 def deblur_chunk_halo_(x, yv, q, x_prev, yv_prev, q_prev, fb, sv, scal,
                        count: int, nx_global: int, taps, sig_q: float,
-                       tau_t: float):
+                       tau_t: float, path=None):
     """``deblur_chunk_halo`` in place, on the sharded route's persistent
     buffers: (x, yv, q) advance by ``count`` iterations and the previous
     buffers take the iterate before the aligned one; with the converged
-    flag set nothing changes.  Returns norms2."""
+    flag set nothing changes.  Returns norms2.  ``path`` as for
+    ``deblur_chunk_``, the shape rule on the band's rows."""
     state, prev = (x, yv, q), (x_prev, yv_prev, q_prev)
     _check(*state, fb, sv, scal, count, taps, halo=True)
     check_halo(nx_global, state, prev)
@@ -440,9 +555,55 @@ def deblur_chunk_halo_(x, yv, q, x_prev, yv_prev, q_prev, fb, sv, scal,
         return halo_into(state, prev, deblur_chunk_plain(
             *state, fb, sv, scal, count, taps, sig_q, tau_t, nx_global),
             scal)
-    return _launch("prost_deblur_chunk_halo", "deblur_chunk_halo", *state, fb,
-                   sv, scal, N_HALO_SCAL, taps, sig_q, tau_t, int(nx_global),
-                   int(count), prev=prev)[-1]
+    return _inplace("deblur_chunk_halo", state, prev, fb, sv, scal,
+                    N_HALO_SCAL, count, taps, sig_q, tau_t, int(nx_global),
+                    path)
+
+
+class DeblurChunk(LightChunk):
+    """The deblur routes' light chunk call: ``deblur_chunk_`` (with
+    ``band`` = (nx_global, rows, row_offset, own_lo, own_hi),
+    ``deblur_chunk_halo_`` on a band of ``rows`` rows) on the planes a route
+    holds, with what depends only on the shapes made once per route: the
+    path (``resident_ok``), the taps' device array, the scratch, the norm
+    partials and the scalar buffer with ``m``'s lmb and radius (and the
+    band's row context).  A call writes the step sizes and the flag into
+    the scalar buffer and launches; on the CPU it runs the plain
+    version."""
+
+    def __init__(self, m, count: int, device, band=None):
+        consts = (m["lmb"], m["radius"]) + tuple(band[2:] if band else ())
+        super().__init__(consts, device)
+        self.m, self.count, self.band = m, int(count), band
+        nx, ny, nx2, ny2 = (m[k] for k in ("nx", "ny", "nx2", "ny2"))
+        if band is not None:
+            nx = nx2 = int(band[1])
+        self.what = "deblur_chunk" if band is None else "deblur_chunk_halo"
+        self.nx_global = None if band is None else int(band[0])
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = resident_ok(nx2, ny, ny2, m["taps"],
+                                        *card_limits(device))
+            self.taps_t = taps_array(m["taps"], device)
+            self.partial = torch.empty(
+                4 * _lib().prost_deblur_num_blocks(nx2, ny2),
+                dtype=torch.float32, device=device)
+            self.scratch = _scratch(self.resident, nx, ny, nx2, ny2, device)
+
+    def __call__(self, state, prev, fb, sv, tau, sigma, theta, converged):
+        """``count`` iterations on ``state`` (x, yv, q) in place, the
+        previous iterate into ``prev``; returns norms2."""
+        self.scalars_(tau, sigma, theta, converged)
+        m = self.m
+        if self.resident is None:
+            scal = self.scal()
+            return halo_into(state, prev, deblur_chunk_plain(
+                *state, fb, sv, scal, self.count, m["taps"], m["sig_q"],
+                m["tau_t"], self.nx_global), scal, self.n_scal)
+        _launch_chunk(self.what, state, prev, fb, sv, self.taps_t, self.sc,
+                self.partial, self.scratch, self.resident, self.count,
+                m["taps"], m["sig_q"], m["tau_t"], self.nx_global)
+        return self.norms2()
 
 
 def deblur_chunk_batched(x, yv, q, fb, sv, scal, count: int, taps,
@@ -461,9 +622,19 @@ def deblur_chunk_batched(x, yv, q, fb, sv, scal, count: int, taps,
     if x.device.type == "cpu":
         return deblur_chunk_batched_plain(x, yv, q, fb, sv, scal, count,
                                           taps, sig_q, tau_t)
-    return _launch("prost_deblur_chunk_batched", "deblur_chunk_batched", x,
-                   yv, q, fb, sv, scal, 5, taps, sig_q, tau_t, int(count),
-                   x.shape[0])
+    lib = _lib()
+    nx, ny = x.shape[-2:]
+    nx2, ny2 = yv.shape[-2:]
+    wk = ChunkWork((x, yv, q), (yv, q), scal, 5,
+                   lib.prost_deblur_num_blocks(nx2, ny2))
+    # sqrt(Sigma_q) and sqrt(Tau) rounded once from double, as the plain
+    # version rounds its Python constants
+    launch(lib, "prost_deblur_chunk_batched", "deblur_chunk_batched",
+           launch_counts, x.device,
+           wk.buffers(fb, sv, taps_array(tuple(taps), x.device)),
+           nx, ny, nx2, ny2, len(taps), sig_q, tau_t, sig_q ** 0.5,
+           tau_t ** 0.5, int(count), x.shape[0])
+    return wk.outputs()
 
 
 # ---------------------------------------------------------------------------
@@ -566,20 +737,22 @@ def _planes(d, xf, yf):
 
 
 def _fused_chunk(b, s: PDHGState) -> PDHGState:
+    """One chunk in place on the views of the run's own x, y, x_prev and
+    y_prev (``own_vectors``) through the route's light call."""
     d, ri = b.deblur, max(int(b.opts.residual_iter), 1)
-    scal = torch.stack([s.tau, s.sigma, s.theta, d["lmb_t"], d["radius_t"],
-                        s.converged.to(s.x.dtype)])
-    x2, yv2, q2, xp, yvp, qp, norms2 = deblur_chunk(
-        *_planes(d, s.x, s.y), d["fb"], d["sv"], scal, ri, d["taps"],
-        d["sig_q"], d["tau_t"])
-    return chunk_state(b, s, ri, x2.reshape(-1),
-                       torch.cat([yv2.reshape(-1), q2.reshape(-1)]),
-                       xp.reshape(-1),
-                       torch.cat([yvp.reshape(-1), qp.reshape(-1)]), norms2)
+    if "call" not in d:
+        d["call"] = DeblurChunk(d, ri, s.x.device)
+    norms2 = d["call"](_planes(d, s.x, s.y), _planes(d, s.x_prev, s.y_prev),
+                       d["fb"], d["sv"], s.tau, s.sigma, s.theta,
+                       s.converged)
+    return chunk_state(b, s, ri, s.x, s.y, s.x_prev, s.y_prev, norms2)
 
 
 def fused_deblur_run(b, state: PDHGState, until: int,
                      start: int) -> PDHGState:
     """``run_pdhg_route`` with the deblur chunks of ``FusedROFPDHG`` ``b``:
-    no multichunk (the JAX package has none) and no canonical form."""
-    return run_pdhg_route(b, state, until, start, lambda s: _fused_chunk(b, s))
+    no multichunk (the JAX package has none) and no canonical form; the run
+    takes its own copies of the state's vectors before the chunks, which
+    update them in place."""
+    return run_pdhg_route(b, state, until, start, lambda s: _fused_chunk(b, s),
+                          own_vectors)

@@ -32,6 +32,14 @@ wrapper here:
   halo-extended shard of a row-partitioned plane, the spatially sharded
   route's (``parallel/spatial_fused.py``).
 
+The single-instance chunk and its halo mode have in-place forms,
+``ml_chunk_`` and ``ml_chunk_halo_``, and the routes call them through
+``MLChunk``, which makes their buffers once per route.  On a card each runs
+as one grid-resident cooperative launch where the shape rule
+(``resident_ok``) finds that its planes fit in the shared memory of one
+block per SM, and as the streaming launch sequence otherwise; both are
+bit-equal.  The multichunk and the batched chunk always stream.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  As on the ROF route there is no fallback
 to the generic path, and no VMEM gate: the kernels keep their planes in
@@ -48,6 +56,8 @@ and at every chunk entry, as on the ROF route.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..backend.pdhg import PDHGState
@@ -56,14 +66,16 @@ from ..linop.base import LinearOperator
 from ..linop.blocks import BlockKronId
 from ..linop.gradient import BlockGradient2D
 from ..prox.elemop import ProxElem1D, ProxElemNorm2
-from .pdhg_chunk import (CF, CI, N_HALO_SCAL, STEPSIZES, VP, WHOLE_PLANE,
-                         ChunkWork, ball_scale, canonical_duals,
-                         check_buffers, check_halo, chunk_state,
-                         coeff_vector, dx, dy, dyt, entry_converged,
-                         halo_copy, halo_into, halo_scal_rows, isscalar,
-                         launch, leq0_ball_radius,
-                         multichunk_plain, multichunk_state, run_pdhg_route,
-                         typed_lib, vmap_plain)
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
+                         S_NORM, STEPSIZES, VP, WHOLE_PLANE, ChunkWork,
+                         LightChunk, ball_scale, canonical_duals, card_sms,
+                         check_buffers, check_halo, check_inplace,
+                         chunk_state, coeff_vector, dx, dy, dyt,
+                         entry_converged, halo_copy, halo_into,
+                         halo_scal_rows, isscalar, launch, leq0_ball_radius,
+                         multichunk_plain, multichunk_state, own_vectors,
+                         pick_path, resident_rows, run_pdhg_route,
+                         scalar_buffer, typed_lib, vmap_plain)
 from .phases import K_CHUNKS
 
 _SQRT_T = 0.4472135954999579    # sqrt(Tau)     = sqrt(1/5)
@@ -237,6 +249,9 @@ def _lib():
         "prost_ml_chunk": head + [CI, VP],
         "prost_ml_chunk_batched": head + [CI, CI, VP],
         "prost_ml_chunk_halo": head + [CI, CI, VP],
+        "prost_ml_chunk_resident": [VP] * 10 + [CI] * 3 + [CF] * 2
+                                   + [CI, CI, VP],
+        "prost_ml_resident_smem": [CI],
         "prost_ml_multichunk": head + [CI] * 3 + [CF] * 6 + [VP]})
 
 
@@ -256,6 +271,101 @@ def _launch(fn: str, what: str, u, q, s, f, scal, n_scal: int, *args,
     return wk
 
 
+# labels a grid-resident block holds a pixel's components of in registers
+# (csrc/fused_multilabel.cu MAX_REG_L)
+MAX_RESIDENT_L = 8
+
+
+def resident_bytes(L: int, nx: int, ny: int, sms: int) -> int:
+    """The dynamic shared memory of one block of the grid-resident chunk
+    on ``nx`` rows (the whole plane's, or a halo band's) over ``sms``
+    blocks: csrc/fused_multilabel.cu's MLRes for the largest band
+    (ml_resident_floats), at least the reductions' array."""
+    rmax = resident_rows(nx, sms)
+    floats = (2 * L * (rmax + 1) + 4 * L * rmax + 2 * rmax) * int(ny)
+    return max(4 * floats, RES_RED_BYTES)
+
+
+def resident_ok(L: int, nx: int, ny: int, sms: int, smem: int) -> bool:
+    """The shape rule of ``ml_chunk_`` and ``ml_chunk_halo_``: a chunk of L
+    labels on ``nx`` rows runs as one grid-resident launch
+    (csrc/fused_multilabel.cu ml_resident, one block per SM) where L is at
+    most ``MAX_RESIDENT_L`` and the planes of its largest band fit in
+    ``smem`` bytes of a block's dynamic shared memory on a card of ``sms``
+    SMs, and as the streaming launch sequence otherwise."""
+    return (1 <= int(L) <= MAX_RESIDENT_L
+            and resident_bytes(L, nx, ny, sms) <= int(smem))
+
+
+@functools.lru_cache(maxsize=None)
+def card_limits(device, L: int) -> tuple:
+    """(SMs, the dynamic shared memory a block of the grid-resident chunk
+    of L labels may hold, 0 beyond ``MAX_RESIDENT_L``) of the card
+    ``device``, read once."""
+    if not 1 <= int(L) <= MAX_RESIDENT_L:
+        return card_sms(device), 0
+    lib = _lib()
+    with torch.cuda.device(device):
+        smem = lib.prost_ml_resident_smem(int(L))
+    if smem < 0:
+        raise ProstError(f"ml_chunk: no shared-memory limit for the "
+                         f"resident chunk on {device} (CUDA error {-smem}).")
+    return card_sms(device), smem
+
+
+def _scratch(resident: bool, L, nx, ny, device):
+    """A chunk launch's scratch: the grid-resident chunk's norm terms (4
+    planes), or the streaming sequence's carried planes (the gradient and
+    the label sum, of this iterate and of the previous one)."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    if resident:
+        return [empty(4, nx, ny)]
+    return [empty(2 * L, nx, ny), empty(2 * L, nx, ny), empty(nx, ny),
+            empty(nx, ny)]
+
+
+def _launch_chunk(what: str, state, prev, f, sc, partial, scratch,
+             resident: bool, count: int, nx_global=None):
+    """One chunk on the card in place on ``state`` (u, q, s) and ``prev``:
+    the grid-resident launch or the streaming sequence, of the whole plane
+    or (with ``nx_global``) of a halo band, counted under ``what``."""
+    u = state[0]
+    L, nx, ny = u.shape
+    # 1/L and sqrt(1/L) rounded once from double, as the plain version
+    # rounds its Python constants
+    shape = (L, nx, ny, 1.0 / L, (1.0 / L) ** 0.5)
+    lib = _lib()
+    if resident:
+        launch(lib, "prost_ml_chunk_resident", what, launch_counts,
+               u.device, [*state, *prev, f, sc, partial, *scratch], *shape,
+               int(nx_global or 0), int(count))
+    else:
+        fn, tail = (("prost_ml_chunk", ()) if nx_global is None else
+                    ("prost_ml_chunk_halo", (int(nx_global),)))
+        launch(lib, fn, what, launch_counts, u.device,
+               [*state, *prev, *scratch, f, sc, partial], *shape, *tail,
+               int(count))
+
+
+def _inplace(what: str, state, prev, f, scal, n_scal: int, count: int,
+             nx_global, path):
+    """One chunk on the card in place, its buffers made for this call;
+    returns norms2."""
+    u = state[0]
+    L, nx, ny = u.shape
+    dev = u.device
+    resident = pick_path(path, resident_ok(L, nx, ny, *card_limits(dev, L)),
+                         what)
+    sc = scalar_buffer(scal, n_scal, S_CONV, S_LEN)
+    partial = torch.empty(4 * _lib().prost_ml_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_chunk(what, state, prev, f.contiguous(), sc, partial,
+             _scratch(resident, L, nx, ny, dev), resident, count, nx_global)
+    return sc[S_NORM:S_NORM + 4]
+
+
 def ml_chunk(u, q, s, f, scal, count: int):
     """``count`` fused iterations ending on a residual iteration.
 
@@ -264,12 +374,29 @@ def ml_chunk(u, q, s, f, scal, count: int):
     runs and the inputs come back).  Returns (u2, q2, s2, u_prev, q_prev,
     s_prev, norms2), norms2 the 4 SQUARED preconditioned residual norms, on
     the inputs' device.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel."""
+    run ``ml_chunk_`` on copies."""
     _check(u, q, s, f, scal, 5, count)
     if u.device.type == "cpu":
         return ml_chunk_plain(u, q, s, f, scal, count)
-    return _launch("prost_ml_chunk", "ml_chunk", u, q, s, f, scal, 5,
-                   int(count)).outputs()
+    return halo_copy(ml_chunk_, (u, q, s), f, scal, count)
+
+
+def ml_chunk_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
+              path=None):
+    """``ml_chunk`` in place: (u, q, s) advance by ``count`` iterations and
+    the previous buffers take the iterate before the aligned one; with the
+    converged flag set nothing changes.  Returns norms2.  On a card
+    ``path`` None takes the shape rule's path (``resident_ok``): one
+    grid-resident launch (csrc/fused_multilabel.cu ml_resident) where the
+    planes fit on chip, else the streaming launch sequence; "resident" or
+    "streaming" asks for one ("resident" raises where it does not fit)."""
+    state, prev = (u, q, s), (u_prev, q_prev, s_prev)
+    _check(u, q, s, f, scal, 5, count)
+    check_inplace(state, prev)
+    if u.device.type == "cpu":
+        return halo_into(state, prev, ml_chunk_plain(u, q, s, f, scal, count),
+                         scal, 5)
+    return _inplace("ml_chunk", state, prev, f, scal, 5, count, None, path)
 
 
 def ml_chunk_halo(u, q, s, f, scal, count: int, nx_global: int):
@@ -287,20 +414,63 @@ def ml_chunk_halo(u, q, s, f, scal, count: int, nx_global: int):
 
 
 def ml_chunk_halo_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
-                   nx_global: int):
+                   nx_global: int, path=None):
     """``ml_chunk_halo`` in place, on the sharded route's persistent
     buffers: (u, q, s) advance by ``count`` iterations and the previous
     buffers take the iterate before the aligned one; with the converged
-    flag set nothing changes.  Returns norms2."""
+    flag set nothing changes.  Returns norms2.  ``path`` as for
+    ``ml_chunk_``, the shape rule on the band's rows."""
     _check(u, q, s, f, scal, N_HALO_SCAL, count)
     check_halo(nx_global, (u, q, s), (u_prev, q_prev, s_prev))
     if u.device.type == "cpu":
         return halo_into((u, q, s), (u_prev, q_prev, s_prev),
                          ml_chunk_halo_plain(u, q, s, f, scal, count,
                                              nx_global), scal)
-    return _launch("prost_ml_chunk_halo", "ml_chunk_halo", u, q, s, f, scal,
-                   N_HALO_SCAL, int(nx_global), int(count),
-                   prev=(u_prev, q_prev, s_prev)).outputs()[-1]
+    return _inplace("ml_chunk_halo", (u, q, s), (u_prev, q_prev, s_prev), f,
+                    scal, N_HALO_SCAL, count, int(nx_global), path)
+
+
+class MLChunk(LightChunk):
+    """The multilabel routes' light chunk call: ``ml_chunk_`` (with
+    ``band`` = (nx_global, rows, row_offset, own_lo, own_hi),
+    ``ml_chunk_halo_`` on a band of ``rows`` rows) on the planes a route
+    holds, with what depends only on the shapes made once per route: the
+    path (``resident_ok``), the scratch, the norm partials and the scalar
+    buffer with ``m``'s radius and d_s (and the band's row context).  A
+    call writes the step sizes and the flag into the scalar buffer and
+    launches; on the CPU it runs the plain version."""
+
+    def __init__(self, m, count: int, device, band=None):
+        consts = (m["radius"], m["d_s"]) + tuple(band[2:] if band else ())
+        super().__init__(consts, device)
+        self.count, self.band = int(count), band
+        L, nx, ny = m["L"], m["nx"], m["ny"]
+        if band is not None:
+            nx = int(band[1])
+        self.what = "ml_chunk" if band is None else "ml_chunk_halo"
+        self.nx_global = None if band is None else int(band[0])
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = resident_ok(L, nx, ny, *card_limits(device, L))
+            self.partial = torch.empty(4 * _lib().prost_ml_num_blocks(nx, ny),
+                                       dtype=torch.float32, device=device)
+            self.scratch = _scratch(self.resident, L, nx, ny, device)
+
+    def __call__(self, state, prev, f, tau, sigma, theta, converged):
+        """``count`` iterations on ``state`` (u, q, s) in place, the
+        previous iterate into ``prev``; returns norms2."""
+        self.scalars_(tau, sigma, theta, converged)
+        if self.resident is None:
+            scal = self.scal()
+            if self.band is None:
+                out = ml_chunk_plain(*state, f, scal, self.count)
+            else:
+                out = ml_chunk_halo_plain(*state, f, scal, self.count,
+                                          self.nx_global)
+            return halo_into(state, prev, out, scal, self.n_scal)
+        _launch_chunk(self.what, state, prev, f, self.sc, self.partial,
+                 self.scratch, self.resident, self.count, self.nx_global)
+        return self.norms2()
 
 
 def ml_chunk_batched(u, q, s, f, scal, count: int):
@@ -458,22 +628,24 @@ def _multi_chunk(b, s: PDHGState) -> PDHGState:
 
 
 def _fused_chunk(b, s: PDHGState) -> PDHGState:
+    """One chunk in place on the views of the run's own x, y, x_prev and
+    y_prev (``own_vectors``) through the route's light call."""
     m, ri = b.ml, max(int(b.opts.residual_iter), 1)
-    dt = s.x.dtype
-    scal = torch.stack([s.tau, s.sigma, s.theta, m["radius_t"], m["d_s_t"],
-                        s.converged.to(dt)])
-    u2, q2, s2, up, qp, sp, norms2 = ml_chunk(*_planes(m, s.x, s.y), m["f"],
-                                              scal, ri)
-    return chunk_state(b, s, ri, u2.reshape(-1), _flat_y(q2, s2),
-                       up.reshape(-1), _flat_y(qp, sp), norms2)
+    if "call" not in m:
+        m["call"] = MLChunk(m, ri, s.x.device)
+    norms2 = m["call"](_planes(m, s.x, s.y), _planes(m, s.x_prev, s.y_prev),
+                       m["f"], s.tau, s.sigma, s.theta, s.converged)
+    return chunk_state(b, s, ri, s.x, s.y, s.x_prev, s.y_prev, norms2)
 
 
 def fused_ml_run(b, state: PDHGState, until: int, start: int) -> PDHGState:
     """``run_pdhg_route`` with the multilabel multichunks and chunks of
     ``FusedROFPDHG`` ``b``; the canonicalization zeroes the dead dual
-    coordinates of y and y_prev."""
+    coordinates of y and y_prev, on the run's own copies of the state's
+    vectors, which the chunks update in place."""
     m = b.ml
+    canonical = canonical_duals(m["L"], m["nx"], m["ny"])
     return run_pdhg_route(b, state, until, start,
                           lambda s: _fused_chunk(b, s),
-                          canonical_duals(m["L"], m["nx"], m["ny"]),
+                          lambda s: own_vectors(canonical(s)),
                           lambda s: _multi_chunk(b, s))

@@ -482,9 +482,15 @@ def typed_lib(name: str, num_blocks: str, signatures: dict):
 def check_halo(nx_global: int, state=(), prev=()) -> None:
     """A halo chunk wrapper's checks: its global row count (the row
     context itself stays on the device) and, for the in-place form, its
-    ``state`` and ``prev`` buffers, contiguous and of one shape each."""
+    ``state`` and ``prev`` buffers (``check_inplace``)."""
     if int(nx_global) < 2:
         raise ProstError(f"nx_global must be >= 2, got {nx_global}.")
+    check_inplace(state, prev)
+
+
+def check_inplace(state, prev) -> None:
+    """An in-place chunk's ``state`` and ``prev`` buffers: contiguous and
+    of one shape and device each."""
     for a, b in zip(state, prev):
         if b.shape != a.shape or b.device != a.device:
             raise ProstError(f"A previous-iterate buffer must be "
@@ -495,12 +501,14 @@ def check_halo(nx_global: int, state=(), prev=()) -> None:
                          "only.")
 
 
-def halo_into(state, prev, out, scal):
-    """An in-place halo chunk from its plain version's outputs ``out``
-    (the state, the previous iterate, the norms): ``state`` takes the new
+def halo_into(state, prev, out, scal, n_scal: int = N_HALO_SCAL):
+    """An in-place chunk from its plain version's outputs ``out`` (the
+    state, the previous iterate, the norms): ``state`` takes the new
     iterate and ``prev`` the previous one, except where the converged flag
-    is set, which leaves ``prev`` as it was.  Returns the squared norms."""
-    conv = entry_converged(scal, N_HALO_SCAL)
+    (after the ``n_scal`` scalars of ``scal``, a halo chunk's eight by
+    default) is set, which leaves ``prev`` as it was.  Returns the squared
+    norms."""
+    conv = entry_converged(scal, n_scal)
     k = len(state)
     for t, v in zip(state, out[:k]):
         t.copy_(v)
@@ -518,6 +526,67 @@ def halo_copy(inplace, state, *args):
     prev = [t.clone() for t in new]
     norms2 = inplace(*new, *prev, *args)
     return (*new, *prev, norms2)
+
+
+class LightChunk:
+    """The scalar side of a route's light chunk call (the grid-resident
+    routes' ``DeblurChunk`` and ``MLChunk``): one device scalar buffer per
+    route, its family's two scalars (and a halo band's row context) written
+    once; a call writes its step sizes and converged flag into it in place,
+    two small device copies and no allocation.  ``scal()`` is the same call's
+    ``scal`` as the wrappers take it, for the plain versions."""
+
+    def __init__(self, consts, device):
+        self.n_scal = 3 + len(consts)
+        self.sc = torch.zeros(S_LEN, dtype=torch.float32, device=device)
+        self.sc[3:self.n_scal] = torch.tensor([float(c) for c in consts])
+
+    def scalars_(self, tau, sigma, theta, converged) -> None:
+        torch.stack([tau, sigma, theta], out=self.sc[:3])
+        self.sc[S_CONV].copy_(converged)
+
+    def scal(self):
+        return torch.cat([self.sc[:self.n_scal], self.sc[S_CONV:S_CONV + 1]])
+
+    def norms2(self):
+        return self.sc[S_NORM:S_NORM + 4]
+
+
+def own_vectors(s):
+    """``s`` with copies of its x, y, x_prev and y_prev, which the run then
+    owns: a route whose chunks work in place on the state's vectors takes
+    them once per run, so no state a caller holds changes under it."""
+    return dataclasses.replace(s, x=s.x.clone(), y=s.y.clone(),
+                               x_prev=s.x_prev.clone(),
+                               y_prev=s.y_prev.clone())
+
+
+def resident_rows(nrows: int, sms: int) -> int:
+    """Rows of the largest band of a grid-resident chunk (one block per SM,
+    ``band_of`` in csrc/pdhg_chunk.cuh) over ``nrows`` rows."""
+    return -(-int(nrows) // int(sms))
+
+
+# a grid-resident block's reduction array (csrc/pdhg_chunk.cuh RES_RED_BYTES)
+RES_RED_BYTES = 4 * 512 * 4
+PATHS = (None, "resident", "streaming")
+
+
+def pick_path(path, fits: bool, what: str) -> bool:
+    """Whether a chunk runs grid-resident: by the shape rule's ``fits``
+    where ``path`` is None, else as the caller asks ("resident" where it
+    does not fit raises)."""
+    if path not in PATHS:
+        raise ProstError(f"{what}: path must be one of {PATHS}, got {path!r}.")
+    if path == "resident" and not fits:
+        raise ProstError(f"{what}: the chunk's planes do not fit in the "
+                         "shared memory of one block per SM.")
+    return fits if path is None else path == "resident"
+
+
+def card_sms(device) -> int:
+    """The streaming multiprocessors of the card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_buffers(kind: str, shapes, scal, n_scal: int,

@@ -15,8 +15,10 @@ design:
   neighbours and receives theirs straight into its top and bottom ``H``
   rows (an edge rank's outer halo is zeroed: ``ppermute``'s semantics);
 * each rank runs the halo chunk kernel in place on its buffers
-  (``rof_chunk_halo_``, ``ml_chunk_halo_``, ``vol_chunk_halo_``,
-  ``tight_chunk_halo_``, ``deblur_chunk_halo_``), recomputing the halo
+  (``rof_chunk_halo_``, ``vol_chunk_halo_``, ``tight_chunk_halo_``; the
+  multilabel and deblur routes through their light calls, ``MLChunk`` and
+  ``DeblurChunk``, which make the scalar buffer, the scratch and the path
+  once per route), recomputing the halo
   rows redundantly: information moves at most one row per half-step (the
   blur's row reach for deblurring, whose halo is that many times wider),
   so the owned rows come out as the whole-plane kernel's, bit for bit (the
@@ -62,9 +64,9 @@ from ..backend.admm import ADMMState, BackendADMM, admm_adapt
 from ..backend.pdhg import PDHGState, hold_if
 from ..config import ProstError
 from ..ops.fused_admm import admm_cheby_halo_rows, admm_iter_halo_
-from ..ops.fused_deblur import (deblur_chunk_halo_, deblur_halo_rows,
+from ..ops.fused_deblur import (DeblurChunk, deblur_halo_rows,
                                 match_deblur_structure)
-from ..ops.fused_multilabel import match_multilabel_structure, ml_chunk_halo_
+from ..ops.fused_multilabel import MLChunk, match_multilabel_structure
 from ..ops.fused_rof import match_rof_structure, rof_chunk_halo_
 from ..ops.fused_tight import match_tight_structure, tight_chunk_halo_
 from ..ops.fused_vol import match_vol_structure, vol_chunk_halo_
@@ -176,14 +178,17 @@ class _HaloRoute(_Band, ShardedPDHG):
     A subclass names its structure (``kind``, ``_match``), its planes
     (``_planes``: flat x, y -> plane stacks with the rows on axis -2;
     ``_flat``: back), the two scalars of its scal8 (``_consts``), its data
-    planes (``_data``) and its in-place halo chunk (``_chunk_halo``); the
-    rows it partitions (``_grid``, a key of its match) and its halo
+    planes (``_data``) and its in-place halo chunk (``_chunk_halo``), or
+    the class of its light chunk call (``_light``, made once with the
+    band's row context: the multilabel and deblur routes'); the rows it
+    partitions (``_grid``, a key of its match) and its halo
     (``_halo``, ``_halo_rule``) where they differ from the pixel rows and
     2 ri + 2."""
 
     kind = ""
     _grid = "nx"
     _halo_rule = "2*residual_iter + 2"
+    _light = None
 
     def __init__(self, problem, opts, solver_opts, mesh,
                  axis_name: str = "sp"):
@@ -217,6 +222,10 @@ class _HaloRoute(_Band, ShardedPDHG):
         # the data planes' extended blocks, cut once from the whole problem
         self.data = tuple(self._window(self.m[k]) for k in self._data)
         self.exchange = HaloExchange(self.mesh.get_group(), self.halo)
+        self.call = None if self._light is None else self._light(
+            self.m, self.ri, like.device,
+            (self.m["nx"], self.rows + 2 * self.halo, self.lo, self.halo,
+             self.halo + self.rows))
 
     def _halo(self) -> int:
         return 2 * self.ri + 2
@@ -239,14 +248,22 @@ class _HaloRoute(_Band, ShardedPDHG):
     def _chunk(self, carry):
         s, cur, prev = carry
         self.exchange.extend_(cur)
-        scal = torch.stack([s.tau, s.sigma, s.theta, *self.consts_t,
-                            *self.rows_t, s.converged.to(s.tau.dtype)])
-        norms2 = self.exchange.all_reduce(self._chunk_halo(cur, prev, scal))
+        norms2 = self.exchange.all_reduce(self._chunk_step(s, cur, prev))
         # the planes live in the buffers until _leave: the state's vectors
         # stay as they are, its scalars take the chunk's residual step
         s = chunk_state(self, s, self.ri, s.x, s.y, s.x_prev, s.y_prev,
                         norms2)
         return s, cur, prev
+
+    def _chunk_step(self, s: PDHGState, cur, prev):
+        """This rank's chunk on its buffers; returns its owned rows'
+        norms2."""
+        if self.call is not None:
+            return self.call(cur, prev, *self.data, s.tau, s.sigma, s.theta,
+                             s.converged)
+        scal = torch.stack([s.tau, s.sigma, s.theta, *self.consts_t,
+                            *self.rows_t, s.converged.to(s.tau.dtype)])
+        return self._chunk_halo(cur, prev, scal)
 
     def _leave(self, carry) -> PDHGState:
         """The state after phase B: the owned rows back into sharded
@@ -298,6 +315,7 @@ class ShardedFusedMultilabel(_HaloRoute):
     kind = "ShardedFusedMultilabel"
     _consts = ("radius", "d_s")
     _data = ("f",)
+    _light = MLChunk
 
     def _match(self, problem):
         return match_multilabel_structure(problem)
@@ -311,9 +329,6 @@ class ShardedFusedMultilabel(_HaloRoute):
     def _flat(self, u, q, s):
         return u.reshape(-1), torch.cat([q.reshape(-1), s.reshape(-1)])
 
-    def _chunk_halo(self, cur, prev, scal):
-        return ml_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
-                              self.m["nx"])
 
 
 class ShardedFusedVol(_HaloRoute):
@@ -388,6 +403,7 @@ class ShardedFusedDeblur(_HaloRoute):
     _halo_rule = "(2*residual_iter + 2) * conv row reach"
     _consts = ("lmb", "radius")
     _data = ("fb", "sv")
+    _light = DeblurChunk
 
     def _match(self, problem):
         return match_deblur_structure(problem, self.prox_g, self.prox_fstar)
@@ -408,11 +424,6 @@ class ShardedFusedDeblur(_HaloRoute):
         return (x[:nx].reshape(-1),
                 torch.cat([yv.reshape(-1), q[:, :nx].reshape(-1)]))
 
-    def _chunk_halo(self, cur, prev, scal):
-        m = self.m
-        return deblur_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
-                                  m["nx"], m["taps"], m["sig_q"],
-                                  m["tau_t"])
 
 
 # the ADMM state arrays in the order of the halo iteration's arguments

@@ -1,6 +1,10 @@
-"""The two redesigned kernels on the card: ``rof_chunk_batched``'s cluster
-launch (each instance held on chip by a thread-block cluster) and
-``admm_iter_halo_``'s cooperative launch (one launch per iteration).
+"""The redesigned kernels on the card: ``rof_chunk_batched``'s cluster
+launch (each instance held on chip by a thread-block cluster),
+``admm_iter_halo_``'s cooperative launch (one launch per iteration, at any
+Chebyshev degree), and the grid-resident chunks of ``deblur_chunk_`` and
+``ml_chunk_`` and their halo forms (one cooperative launch a chunk, each
+block holding a band of rows in shared memory), bit for bit against the
+streaming launch sequences they replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
 redesigns run the per-pixel arithmetic and the norm trees of the launch
@@ -185,3 +189,196 @@ def test_admm_coop_launch_holds_every_block(dev):
     once: at least one per SM."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert fa._lib().prost_admm_coop_blocks() >= sms
+
+
+def test_admm_iter_halo_takes_degree_65(dev):
+    """The coefficients come from a device array made per degree: degree 65
+    runs, its owned rows bit-equal to ``admm_chunk`` at count 1."""
+    planes = _admm_planes(69, 160, 48, dev)
+    scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+    whole = fa.admm_chunk(*planes, scal, None, 1, 0, 1.7, "square", 65)
+    cur = [t.clone() for t in planes[:7]]
+    norms2 = fa.admm_iter_halo_(*cur, *planes[7:], scal, 65, 1.7, 160, 0, 0,
+                                160)
+    for a, b in zip(cur, whole[:7]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(norms2, whole[7], rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the grid-resident chunks of rows 17 and 12
+# ---------------------------------------------------------------------------
+
+def _blur(case):
+    """(taps, kx, ky): config 2's 9x9 motion blur (7 taps, row reach 7) or
+    an asymmetric 5x5 one."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    if case == "motion":
+        k = np.zeros((9, 9))
+        for i in range(1, 8):
+            k[i, i] = 1.0
+        k /= k.sum()
+    else:
+        k = np.eye(5)
+        k[0, 4] = 0.5
+        k /= k.sum()
+    return fd.kernel_taps(torch.as_tensor(k.T, dtype=torch.float32)), 9 if \
+        case == "motion" else 5
+
+
+def _deblur_planes(seed, nx, ny, kx, dev):
+    rng = np.random.RandomState(seed)
+    nx2, ny2 = nx + kx - 1, ny + kx - 1
+    arrs = (rng.rand(nx, ny), rng.randn(nx2, ny2), 0.3 * rng.randn(2, nx, ny),
+            rng.rand(nx2, ny2), 0.5 + rng.rand(nx2, ny2))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+def _both_paths(fn, state, data, *args):
+    """``fn`` (an in-place chunk) on copies of ``state`` along each path;
+    returns {path: (state, prev, norms2)}."""
+    out = {}
+    for path in ("streaming", "resident"):
+        cur = [t.clone() for t in state]
+        prev = [torch.full_like(t, float("nan")) for t in state]
+        norms2 = fn(*cur, *prev, *data, *args, path=path).clone()
+        out[path] = cur + prev + [norms2]
+    torch.cuda.synchronize()
+    return out
+
+
+def _bit_equal(out):
+    for a, b in zip(out["streaming"], out["resident"]):
+        assert torch.equal(a, b)
+    assert torch.isfinite(out["resident"][-1]).all()
+
+
+@pytest.mark.parametrize("nx,ny,blur,ri", [(512, 512, "motion", 10),
+                                           (250, 190, "asym", 3),
+                                           (20, 17, "motion", 1),
+                                           (7, 300, "asym", 2)])
+def test_deblur_resident_is_the_streaming_sequence(dev, nx, ny, blur, ri):
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    taps, k = _blur(blur)
+    planes = _deblur_planes(70, nx, ny, k, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0], device=dev)
+    before = fd.launch_counts["deblur_chunk"]
+    out = _both_paths(fd.deblur_chunk_, planes[:3], planes[3:], scal, ri,
+                      taps, 0.5, 0.2)
+    _bit_equal(out)
+    assert fd.launch_counts["deblur_chunk"] == before + 2
+
+
+@pytest.mark.parametrize("shards,ri", [(1, 10), (2, 10), (4, 5)])
+def test_deblur_halo_resident_is_the_streaming_sequence(dev, shards, ri):
+    """Config 2's bands (520 rows of the full-convolution grid): every
+    band's resident launch is its streaming sequence, bit for bit."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    taps, k = _blur("motion")
+    planes = _deblur_planes(71, 512, 512, k, dev)
+    H, rows = fd.deblur_halo_rows(ri, taps), 520 // shards
+    for rank in range(shards):
+        lo = rank * rows - H
+        ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+        scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0, lo, H, H + rows],
+                            device=dev)
+        _bit_equal(_both_paths(fd.deblur_chunk_halo_, ext[:3], ext[3:],
+                               scal, ri, 512, taps, 0.5, 0.2))
+
+
+def _ml_planes(seed, L, nx, ny, dev):
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(L, nx, ny), 0.3 * rng.randn(2 * L, nx, ny),
+            0.1 * rng.randn(nx, ny), rng.rand(L, nx, ny))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+@pytest.mark.parametrize("L,nx,ny,ri", [(8, 256, 256, 10), (5, 250, 190, 3),
+                                        (1, 9, 40, 2), (3, 300, 33, 1)])
+def test_ml_resident_is_the_streaming_sequence(dev, L, nx, ny, ri):
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    planes = _ml_planes(72, L, nx, ny, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 0.5, 1.0], device=dev)
+    before = fm.launch_counts["ml_chunk"]
+    _bit_equal(_both_paths(fm.ml_chunk_, planes[:3], planes[3:], scal, ri))
+    assert fm.launch_counts["ml_chunk"] == before + 2
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_ml_halo_resident_is_the_streaming_sequence(dev, shards):
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    planes = _ml_planes(73, 8, 256, 256, dev)
+    ri, rows = 10, 256 // shards
+    H = 2 * ri + 2
+    for rank in range(shards):
+        lo = rank * rows - H
+        ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+        scal = torch.tensor([0.9, 1.1, 1.0, 0.5, 1.0, lo, H, H + rows],
+                            device=dev)
+        _bit_equal(_both_paths(fm.ml_chunk_halo_, ext[:3], ext[3:], scal, ri,
+                               256))
+
+
+def test_resident_chunks_with_the_flag_leave_the_buffers(dev):
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    taps, k = _blur("motion")
+    db = _deblur_planes(74, 64, 48, k, dev)
+    ml = _ml_planes(75, 4, 64, 48, dev)
+    for fn, planes, head, extra in (
+            (fd.deblur_chunk_, db, [0.9, 1.1, 1.0, 100.0, 1.0],
+             (taps, 0.5, 0.2)),
+            (fm.ml_chunk_, ml, [0.9, 1.1, 1.0, 0.5, 1.0], ())):
+        cur = [t.clone() for t in planes[:3]]
+        prev = [t + 1.0 for t in cur]
+        before = [t.clone() for t in cur + prev]
+        scal = torch.tensor(head + [1.0], device=dev)
+        norms2 = fn(*cur, *prev, *planes[3:], scal, 4, *extra,
+                    path="resident")
+        torch.cuda.synchronize()
+        assert not norms2.any()
+        for a, b in zip(cur + prev, before):
+            assert torch.equal(a, b)
+
+
+def test_shape_rule_on_the_card(dev):
+    """The card's limits send config 2 and config 3 (and their one-shard
+    bands) to the resident launch and DB_LARGE and ML_LARGE to the
+    streaming sequence; asking for a resident chunk that does not fit
+    raises, and so does the launch the C side refuses (9 labels)."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.ops.pdhg_chunk import launch
+
+    taps, _ = _blur("motion")
+    sms, smem = fd.card_limits(dev)
+    assert sms == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fd.resident_ok(520, 512, 520, taps, sms, smem)
+    assert fd.resident_ok(828, 512, 520, taps, sms, smem)
+    assert not fd.resident_ok(2056, 2048, 2056, taps, sms, smem)
+    assert fm.resident_ok(8, 256, 256, *fm.card_limits(dev, 8))
+    assert fm.resident_ok(8, 300, 256, *fm.card_limits(dev, 8))
+    assert not fm.resident_ok(8, 512, 512, *fm.card_limits(dev, 8))
+    big = _deblur_planes(76, 2048, 2048, 9, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0], device=dev)
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fd.deblur_chunk_(*big[:3], *[t.clone() for t in big[:3]], *big[3:],
+                         scal, 2, taps, 0.5, 0.2, path="resident")
+    u, q, s, f = _ml_planes(77, 9, 16, 16, dev)
+    lib = fm._lib()
+    sc = scalar_buffer(torch.tensor([0.9, 1.1, 1.0, 0.5, 1.0], device=dev),
+                       5, S_CONV, S_LEN)
+    partial = u.new_empty(4 * lib.prost_ml_num_blocks(16, 16))
+    terms = u.new_empty(4, 16, 16)
+    with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+        launch(lib, "prost_ml_chunk_resident", "ml_chunk", fm.launch_counts,
+               dev, [u, q, s, u.clone(), q.clone(), s.clone(), f, sc,
+                     partial, terms], 9, 16, 16, 1 / 9, (1 / 9) ** 0.5, 0, 2)

@@ -112,11 +112,22 @@ def test_streaming_in_place_chunk_takes_card_tensors_only():
 
 
 def test_admm_iter_halo_refuses_degrees_beyond_its_launch():
+    """The halo iteration's launch takes its Chebyshev coefficients from a
+    device array made per degree, so it refuses only degrees below 1: a
+    degree above the 64 that a fixed launch argument once held runs, and
+    its owned rows are one whole-plane iteration of that degree
+    (``admm_chunk_plain`` with count 1), bit for bit."""
     rng = np.random.RandomState(73)
     shapes = [(32, 16)] * 3 + [(2, 32, 16)] * 3 + [(32, 16)] * 3
     planes = [torch.from_numpy(rng.rand(*s).astype(np.float32))
               for s in shapes]
     scal = torch.tensor([1.3, 8.0, 1.0])
-    with pytest.raises(ptt.ProstError, match="degree of 1 to 64"):
-        fa.admm_iter_halo_(*planes, scal, fa.MAX_HALO_DEGREE + 1, 1.7, 32,
-                           0, 0, 32)
+    with pytest.raises(ptt.ProstError, match="degree >= 1"):
+        fa.admm_iter_halo_(*planes, scal, 0, 1.7, 32, 0, 0, 32)
+    whole = fa.admm_chunk_plain(*planes, scal, None, 1, 0, 1.7, "square", 65)
+    cur = [t.clone() for t in planes[:7]]
+    norms2 = fa.admm_iter_halo_(*cur, *planes[7:], scal, 65, 1.7, 32, 0, 0,
+                                32)
+    for a, b in zip(cur + [norms2], whole):
+        assert torch.equal(a, b)
+    assert not torch.equal(cur[0], planes[0])

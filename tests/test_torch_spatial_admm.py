@@ -32,6 +32,7 @@ import prost_tpu_torch as ptt
 import torch_spatial_worker as worker
 from prost_tpu.backend import PDHGOptions as JOptions
 from prost_tpu.backend.admm import ADMMOptions as JADMMOptions
+from prost_tpu.backend.admm import BackendADMM as JBackendADMM
 from prost_tpu.ops import fused_admm as ja
 from prost_tpu.parallel import BatchedPDHG as JBatched
 from prost_tpu.parallel import ShardedFusedADMM as JShardedADMM
@@ -178,6 +179,7 @@ def test_halo_iteration_refuses_owned_rows_outside_the_band():
 # ---------------------------------------------------------------------------
 
 ADMM_ITERS, HANDOVER = 40, 20  # the JAX run to 20, the port on to 40
+ADMM65_ITERS = 20
 ENSEMBLES = {"rof": 31, "tight": 21}  # iterations (tests/test_parallel.py)
 ERRORS = {
     "admm_cgls": "ShardedFusedADMM: requires projection='auto' or 'cheby'",
@@ -297,6 +299,34 @@ def test_admm_comm_volume_per_iteration(ranks):
         assert c["received_bytes"] == c["sent_bytes"]
         assert c["all_reduces"] == ADMM_ITERS // 10
         assert c["reduced_bytes"] == c["all_reduces"] * 4 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_admm65(iters):
+    """The JAX package's Chebyshev ADMM at degree 65 on the worker's
+    ``problem("admm65")`` after ``iters`` iterations, numpy: its generic
+    step, the iteration its sharded route runs band by band (that route
+    takes about 500 s in interpret mode at this degree on a CPU)."""
+    f = np.random.RandomState(19).rand(144 * 16).astype(np.float32)
+    b = JBackendADMM(jrof_problem(144, 16, f, 8.0),
+                     JADMMOptions(residual_iter=10, projection="cheby",
+                                  cheby_degree=65), _jopts())
+    s = b.run(b.initial_state(), iters)
+    return {k: np.asarray(v) for k, v in vars(s).items()}
+
+
+def test_sharded_admm_runs_chebyshev_degree_65(tmp_path):
+    """ShardedFusedADMM takes any Chebyshev degree its constructor accepts,
+    as the JAX route does: at degree 65 (above the 64 that the halo
+    iteration's launch argument held before its coefficients moved to a
+    device array) on one gloo rank of 144 rows, which hold the JAX halo of
+    136, its state after 20 iterations matches the JAX ADMM's."""
+    res = worker.run_ranks(1, {"admm": ("admm_route", dict(
+        iters=ADMM65_ITERS, kind="admm65", degree=65))},
+        str(tmp_path / "pg"))[0]["admm"]
+    assert res["halo"] == ta.admm_cheby_halo_rows(65) == 136
+    assert int(res["state"]["iteration"]) == ADMM65_ITERS
+    _close_admm(res["state"], _jax_admm65(ADMM65_ITERS))
 
 
 @pytest.mark.parametrize("shards", [2, 4])

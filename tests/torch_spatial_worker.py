@@ -149,6 +149,9 @@ def problem(kind):
             f = np.random.RandomState(17).rand(128 * 32).astype(np.float32)
             return rof_problem(128, 32, f, 8.0)
         return rof_problem(64, 32, f, 12.0)
+    if kind == "admm65":  # 144 rows hold the halo of Chebyshev degree 65
+        f = np.random.RandomState(19).rand(144 * 16).astype(np.float32)
+        return rof_problem(144, 16, f, 8.0)
     if kind == "ml":
         return ml_problem(32, 16, 3, 0.4, 8)
     if kind == "tight":
@@ -208,9 +211,9 @@ def route(world, kind, ri, iters, start=None):
             "halo": b.halo, "rows": b.rows}
 
 
-def admm_route(world, iters, start=None):
-    """ShardedFusedADMM (Chebyshev, residual_iter 10) on
-    ``problem("admm")`` from the initial state (or from the whole JAX state
+def admm_route(world, iters, start=None, kind="admm", degree=10):
+    """ShardedFusedADMM (Chebyshev of ``degree``, residual_iter 10) on
+    ``problem(kind)`` from the initial state (or from the whole JAX state
     ``start`` at its iteration) to ``iters``: the gathered state and this
     rank's exchange counts."""
     from prost_tpu_torch import interop
@@ -218,8 +221,9 @@ def admm_route(world, iters, start=None):
     from prost_tpu_torch.parallel import ShardedFusedADMM
 
     mesh = _mesh(world)
-    b = ShardedFusedADMM(problem("admm"),
-                         ADMMOptions(residual_iter=10, projection="cheby"),
+    b = ShardedFusedADMM(problem(kind),
+                         ADMMOptions(residual_iter=10, projection="cheby",
+                                     cheby_degree=degree),
                          solver_opts(), mesh)
     if start is None:
         state, it0 = b.initial_state(), 0
