@@ -1006,6 +1006,8 @@ def phase_admm_kernels(dev):
     z = torch.zeros((2, nx, ny), device=dev)
     planes = [f, zero, zero, z, z, z, zero]
     consts = (np.sqrt(2 * n), np.sqrt(n), 0.8, 1.01)
+    check(fa.admm_resident_ok(nx, ny, "square", *fa.admm_card_limits(dev)),
+          f"admm_multichunk {nx}x{ny}: the shape rule streams")
     for tol in (0.0, 2e-3):
         scal = torch.tensor([1.0, 16.0, 1.0, 1.05, 0.0, 0.0, 0.0,
                              tol, tol, tol, tol], device=dev)
@@ -1016,9 +1018,10 @@ def phase_admm_kernels(dev):
         torch.cuda.synchronize()
         plane, nrel = max_errs(out[:8], ref[:8], n_planes=7)
         _, srel = max_errs(out[7:], ref[7:], n_planes=1)
-        print(f"admm_multichunk {nx}x{ny} tol {tol:g}: max abs err planes "
-              f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms "
-              f"{nrel:.3e} (tol {MC_NORM_RTOL:g}), scalars {srel:.3e} (tol "
+        print(f"admm_multichunk {nx}x{ny} tol {tol:g} (resident path): max "
+              f"abs err planes {plane:.3e} (tol {PLANE_ATOL:g}), max rel "
+              f"err norms {nrel:.3e} (tol {MC_NORM_RTOL:g}), scalars "
+              f"{srel:.3e} (tol "
               f"{NORM_RTOL:g}); sout kernel {out[8].tolist()} plain "
               f"{ref[8].tolist()}")
         check(plane <= PLANE_ATOL and nrel <= MC_NORM_RTOL
@@ -1999,9 +2002,13 @@ def phase_batched_kernels(dev):
         planes = [torch.from_numpy(a.astype(np.float32)).to(dev)
                   for a in arrs]
         scal = batched_scal(620 + seed, B, ML_LMB, 1.0, dev)
-        err = batched_check(f"ml_chunk_batched B={B} {nx}x{ny}x{L}",
-                            fm.ml_chunk_batched, fm.ml_chunk,
-                            fm.ml_chunk_batched_plain, planes, scal, 6, ri)
+        resident = fm.resident_ok(L, nx, ny, *fm.card_limits(dev, L, True))
+        check(resident, f"ml_chunk_batched B={B} {nx}x{ny}x{L}: the shape "
+              "rule streams")
+        err = batched_check(f"ml_chunk_batched B={B} {nx}x{ny}x{L} "
+                            "(resident path)", fm.ml_chunk_batched,
+                            fm.ml_chunk, fm.ml_chunk_batched_plain, planes,
+                            scal, 6, ri)
         r = rows["ml_chunk_batched"]
         r["err"] = max(r["err"], err)
         if B == SMALL_ENS_B:
@@ -2268,6 +2275,8 @@ def phase_small_ensembles(card):
         x = state.x.cpu().numpy()
         check(np.all(np.isfinite(x)), f"non-finite {kind} ensemble result")
         e_fused = np.array([energy(x[i], data[i]) for i in range(B)])
+        if kind == "ml":
+            ensemble_turns(b, data, energy, card)
         setattr(b, kind, None)
         gstate, gdt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
         gx = gstate.x.cpu().numpy()
@@ -2292,6 +2301,33 @@ def phase_small_ensembles(card):
         del b, problems, state, gstate
         torch.cuda.empty_cache()
     return launches
+
+
+def ensemble_turns(b, data, energy, card):
+    """The multilabel ensemble ``b`` with the copying batched chunk call
+    (``copying_routes``) and with the light call, in turns (copying,
+    light, light, copying): the instance-it/s of each, and every
+    instance's energy, which must be equal to the last digit (the kernels
+    are bit-equal, the host's scalar work the same)."""
+    B = b.batch
+    runs = []
+    for old in (True, False, False, True):
+        if old:
+            with copying_routes():
+                state, dt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
+        else:
+            state, dt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
+        x = state.x.cpu().numpy()
+        runs.append((B * SMALL_ENS_ITERS / dt,
+                     np.array([energy(x[i], data[i]) for i in range(B)])))
+    (a, ea), (c, ec), (d, ed), (e, ee) = runs
+    same = all(np.array_equal(ea, o) for o in (ec, ed, ee))
+    print(f"ml ensemble {B} instances in turns: copying batched chunk call "
+          f"{a:.1f} instance-it/s, light call {c:.1f}, {d:.1f}, copying "
+          f"{e:.1f}; every instance's energy equal in the four runs: {same} "
+          f"[{card}]")
+    check(same, "ml ensemble: the light and the copying chunk calls "
+          "disagree")
 
 
 def phase_conv_ensembles(card):
@@ -2742,18 +2778,9 @@ def phase_resident_kernels(dev):
         bufs = {p: ([t.clone() for t in state], [t.clone() for t in state])
                 for p in ("streaming", "resident")}
 
-        def run(path, fn=fn, data=data, args=args, bufs=bufs):
-            return lambda: fn(*bufs[path][0], *bufs[path][1], *data, *args,
-                              path=path)
-
-        (o1, o2), (r1, r2) = in_turns(run("streaming"), run("resident"), 50)
-        t_old, t_new = traced_call(run("streaming")), traced_call(
-            run("resident"))
-        one = traced_call(lambda fn=fn, data=data, args=args, bufs=bufs: fn(
-            *bufs["resident"][0], *bufs["resident"][1], *data, args[0], 1,
-            *args[2:], path="resident"))["csrc_ms"]
-        check(t_new["csrc"] == [kernel],
-              f"{name}'s resident path launched {t_new['csrc']}")
+        def run(path, count=ri, fn=fn, data=data, args=args, bufs=bufs):
+            return lambda: fn(*bufs[path][0], *bufs[path][1], *data,
+                              args[0], count, *args[2:], path=path)
 
         def copying(fn=fn, state=state, data=data, args=args):
             return halo_copy(lambda *a: fn(*a, path="streaming"), state,
@@ -2765,29 +2792,8 @@ def phase_resident_kernels(dev):
         def call(light=light, lcur=lcur, lprev=lprev, data=data):
             return light(lcur, lprev, *data, *steps, flag)
 
-        (c1, c2), (l1, l2) = in_turns(copying, call, 50)
-        t_copy, t_call = traced_call(copying), traced_call(call)
-        print(f"{name} {rows} rows: resident launch bit-equal to the "
-              f"streaming sequence in planes and norms; in place, in turns: "
-              f"streaming {o1:.4f} ms, resident {r1:.4f}, resident {r2:.4f}, "
-              f"streaming {o2:.4f} ms/call; hand-written launches per call: "
-              f"streaming {len(t_old['csrc'])} ({t_old['csrc_ms']:.4f} ms of "
-              f"device time traced), resident {len(t_new['csrc'])} "
-              f"({kernel}; {t_new['csrc_ms']:.4f} ms; at count 1 "
-              f"{one:.4f} ms, each further iteration "
-              f"{(t_new['csrc_ms'] - one) / (ri - 1):.4f} ms)")
-        print(f"{name} {rows} rows, the call in turns: copying (functional "
-              f"wrapper, copies, streaming) {c1:.4f} ms, light call "
-              f"{l1:.4f}, light call {l2:.4f}, copying {c2:.4f} ms/call; "
-              f"traced: copying {len(t_copy['csrc'])} hand-written "
-              f"({t_copy['csrc_ms']:.4f} ms) and {t_copy['torch_kernels']} "
-              f"PyTorch kernels ({t_copy['torch_ms']:.4f} ms), light call "
-              f"{len(t_call['csrc'])} ({t_call['csrc_ms']:.4f} ms) and "
-              f"{t_call['torch_kernels']} ({t_call['torch_ms']:.4f} ms)")
-        out[name] = {"streaming_ms": (o1, o2), "resident_ms": (r1, r2),
-                     "copying_call_ms": (c1, c2), "light_call_ms": (l1, l2),
-                     "launches": (len(t_old["csrc"]), len(t_new["csrc"])),
-                     "device_ms": (t_old["csrc_ms"], t_new["csrc_ms"])}
+        out[name] = resident_turns(f"{name} {rows} rows", run, copying, call,
+                                   kernel, ri - 1, reps=50)
     sms, smem = fd.card_limits(dev)
     print(f"resident limits: {sms} SMs, {smem} bytes of dynamic shared "
           f"memory a deblur block, {fm.card_limits(dev, L)[1]} a multilabel "
@@ -2795,24 +2801,224 @@ def phase_resident_kernels(dev):
     return out
 
 
+def phase_resident_multi(dev):
+    """Rows 15 and 9 grid-resident against their launch sequences at the
+    main path's shapes: ``ml_chunk_batched_`` at SMALL_ENS_B instances of
+    config 3's 256x256x8 on a route's flat rows (ri 10), each instance also
+    against ``ml_chunk_`` on it alone, and ``admm_multichunk_`` at config
+    4's 512x512 (degree 10, ri 10, 8 chunks, every one run): both paths
+    from the same inputs bit-equal; the path the shape rule takes; each
+    path in place on buffers made once, in turns (streaming, resident,
+    resident, streaming), with the hand-written kernels each launches per
+    call and their traced device ms, and the resident launch's device ms
+    at count 1; and the call, the copying one (the wrapper on copies with
+    buffers made per call, the streaming sequence) against the route's
+    light call in place (``MLBatchedChunk``, ``ADMMMultichunk``), in turns,
+    with the device ms of PyTorch's kernels around each."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_admm as fa
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.ops.pdhg_chunk import halo_copy
+
+    ri, degree, alpha, chunks = 10, 10, 1.7, 8
+    out = {}
+
+    # row 15: a route's flat x (B, L n) and y (B, 2 L n + n)
+    B, L, n = SMALL_ENS_B, ML_LABELS, ML_SIZE
+    N = n * n
+    rng = np.random.RandomState(630)
+    x = torch.from_numpy(rng.rand(B, L * N).astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.concatenate(
+        [0.3 * rng.randn(B, 2 * L * N), 0.1 * rng.randn(B, N)],
+        1).astype(np.float32)).to(dev)
+    f = torch.from_numpy(rng.rand(B, L, n, n).astype(np.float32)).to(dev)
+    scal = batched_scal(631, B, ML_LMB, 1.0, dev)
+
+    def views(xx, yy):
+        return (xx.view(B, L, n, n), yy[:, :2 * L * N].view(B, 2 * L, n, n),
+                yy[:, 2 * L * N:].view(B, n, n))
+
+    light = fm.MLBatchedChunk({"L": L, "nx": n, "ny": n, "radius": scal[3],
+                               "d_s": scal[4]}, B, ri, dev)
+    check(light.resident, f"ml_chunk_batched: the shape rule streams "
+          f"{B}x{n}x{n}x{L}")
+    print(f"ml_chunk_batched {B}x{n}x{n}x{L}: the shape rule takes the "
+          "resident path")
+    got = {}
+    for path in ("streaming", "resident"):
+        cur, prev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+        norms2 = fm.ml_chunk_batched_(*views(*cur), *views(*prev), f, scal,
+                                      ri, path=path).clone()
+        got[path] = cur + prev + [norms2]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                  got["resident"]))
+          and all(bool(torch.isfinite(t).all()) for t in got["resident"]),
+          "ml_chunk_batched: the resident launch is not the streaming "
+          "sequence")
+    res = views(*got["resident"][:2]) + views(*got["resident"][2:4])
+    for b in range(B):
+        cur = [v[b].clone() for v in views(x, y)]
+        prev = [torch.empty_like(t) for t in cur]
+        one = fm.ml_chunk_(*cur, *prev, f[b], scal[:, b], ri,
+                           path="resident")
+        check(all(torch.equal(a[b], c) for a, c in zip(res, cur + prev))
+              and torch.equal(got["resident"][4][:, b], one),
+              f"ml_chunk_batched: instance {b} is not ml_chunk_ on it alone")
+    bufs = {p: ([x.clone(), y.clone()], [x.clone(), y.clone()])
+            for p in ("streaming", "resident")}
+
+    def ml_run(path, count=ri):
+        return lambda: fm.ml_chunk_batched_(
+            *views(*bufs[path][0]), *views(*bufs[path][1]), f, scal, count,
+            path=path)
+
+    def ml_copying():
+        return halo_copy(lambda *a: fm.ml_chunk_batched_(
+            *a, path="streaming"), [v.contiguous() for v in views(x, y)], f,
+            scal, ri)
+
+    lcur, lprev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+    flag = torch.tensor(False, device=dev)
+
+    def ml_light():
+        return light(views(*lcur), views(*lprev), f, scal[0], scal[1],
+                     scal[2], flag)
+
+    out["ml_chunk_batched"] = resident_turns(
+        f"ml_chunk_batched {B}x{n}x{n}x{L}", ml_run, ml_copying, ml_light,
+        "ml_resident_batched", ri - 1)
+
+    # row 9: config 4's 512x512 from random state arrays, tolerance 0
+    nx = ny = ROF_SIZE
+    *planes, fa_f, fa_w = admm_kernel_inputs(nx, ny, 632, dev)
+    consts = (np.sqrt(2 * nx * ny), np.sqrt(nx * ny), 0.8, 1.01)
+    ascal = torch.tensor([1.3, 8.0, 1.0, 1.05, 0.0, 0.0, 0.0] + [0.0] * 4,
+                         device=dev)
+    r = {"nx": nx, "ny": ny, "f": fa_f, "w": fa_w, "dataterm": "square",
+         "lmb_t": ascal[1], "radius_t": ascal[2],
+         "tols_t": tuple(ascal[7:11]), "consts": consts}
+    alight = fa.ADMMMultichunk(r, ri, chunks, alpha, degree, dev)
+    check(alight.resident, f"admm_multichunk: the shape rule streams "
+          f"{nx}x{ny}")
+    print(f"admm_multichunk {nx}x{ny}: the shape rule takes the resident "
+          "path")
+    got = {}
+    for path in ("streaming", "resident"):
+        cur = [t.clone() for t in planes]
+        norms, sout = fa.admm_multichunk_(*cur, fa_f, fa_w, ascal, ri,
+                                          chunks, alpha, degree, consts,
+                                          path=path)
+        got[path] = cur + [norms.clone(), sout.clone()]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                  got["resident"]))
+          and all(bool(torch.isfinite(t).all()) for t in got["resident"])
+          and got["resident"][8][5].item() == chunks,
+          "admm_multichunk: the resident launch is not the launch sequence")
+    abufs = {p: [t.clone() for t in planes]
+             for p in ("streaming", "resident")}
+
+    def admm_run(path, count=ri):
+        return lambda: fa.admm_multichunk_(
+            *abufs[path], fa_f, fa_w, ascal, count, chunks, alpha, degree,
+            consts, path=path)
+
+    def admm_copying():
+        cp = [t.contiguous().clone() for t in planes]
+        return cp, fa.admm_multichunk_(*cp, fa_f, fa_w, ascal, ri, chunks,
+                                       alpha, degree, consts,
+                                       path="streaming")
+
+    lplanes = [t.clone() for t in planes]
+    st = [torch.tensor(v, device=dev) for v in (1.3, 1.05, 0.0, 0.0)]
+    it0 = torch.tensor(0, device=dev)
+
+    def admm_light():
+        return alight(lplanes, *st, it0, flag)
+
+    out["admm_multichunk"] = resident_turns(
+        f"admm_multichunk {nx}x{ny} degree {degree}, {chunks} chunks",
+        admm_run, admm_copying, admm_light, "admm_multichunk_resident",
+        chunks * (ri - 1))
+    sms, smem = fa.admm_card_limits(dev)
+    print(f"resident limits: {sms} SMs, {smem} bytes of dynamic shared "
+          f"memory an ADMM multichunk block (it holds "
+          f"{fa.admm_resident_bytes(nx, ny, sms, 'square')} at {nx}x{ny}), "
+          f"{fm.card_limits(dev, L, True)[1]} a batched multilabel block "
+          f"(it holds {fm.resident_bytes(L, n, n, sms)})")
+    return out
+
+
+def resident_turns(label, run, copying, call, kernel, extra_iters,
+                   reps=20):
+    """The timings of one resident redesign: ``run(path, count)`` makes a
+    call of its in-place form on buffers made once; ``copying`` and
+    ``call`` the copying call and the route's light call.  Both paths in
+    turns (streaming, resident, resident, streaming; ``reps`` calls
+    each), their traced hand-written launches and device ms, the resident
+    launch at count 1 (``extra_iters``: the iterations that the full
+    count adds), and the two calls in turns.  Fails unless the resident
+    path and the light call are one launch of ``kernel``."""
+    (o1, o2), (r1, r2) = in_turns(run("streaming"), run("resident"), reps)
+    t_old, t_new = traced_call(run("streaming")), traced_call(
+        run("resident"))
+    one = traced_call(run("resident", 1))["csrc_ms"]
+    check(t_new["csrc"] == [kernel],
+          f"{label}: the resident path launched {t_new['csrc']}")
+    (c1, c2), (l1, l2) = in_turns(copying, call, reps)
+    t_copy, t_call = traced_call(copying), traced_call(call)
+    check(t_call["csrc"] == [kernel],
+          f"{label}: the light call launched {t_call['csrc']}")
+    print(f"{label}: resident launch bit-equal to the streaming sequence; "
+          f"in place, in turns: streaming {o1:.4f} ms, resident {r1:.4f}, "
+          f"resident {r2:.4f}, streaming {o2:.4f} ms/call; hand-written "
+          f"launches per call: streaming {len(t_old['csrc'])} "
+          f"({t_old['csrc_ms']:.4f} ms of device time traced), resident "
+          f"{len(t_new['csrc'])} ({kernel}; {t_new['csrc_ms']:.4f} ms; at "
+          f"count 1 {one:.4f} ms, each further iteration "
+          f"{(t_new['csrc_ms'] - one) / extra_iters:.5f} ms)")
+    print(f"{label}, the call in turns: copying (wrapper on copies, "
+          f"streaming) {c1:.4f} ms, light call {l1:.4f}, light call "
+          f"{l2:.4f}, copying {c2:.4f} ms/call; traced: copying "
+          f"{len(t_copy['csrc'])} hand-written ({t_copy['csrc_ms']:.4f} ms) "
+          f"and {t_copy['torch_kernels']} PyTorch kernels "
+          f"({t_copy['torch_ms']:.4f} ms), light call {len(t_call['csrc'])} "
+          f"({t_call['csrc_ms']:.4f} ms) and {t_call['torch_kernels']} "
+          f"({t_call['torch_ms']:.4f} ms)")
+    return {"streaming_ms": (o1, o2), "resident_ms": (r1, r2),
+            "copying_call_ms": (c1, c2), "light_call_ms": (l1, l2),
+            "launches": (len(t_old["csrc"]), len(t_new["csrc"])),
+            "device_ms": (t_old["csrc_ms"], t_new["csrc_ms"]),
+            "count1_device_ms": one}
+
+
 def copying_routes():
     """A context in which the deblur and multilabel routes, whole-plane
     (``FusedROFPDHG``) and halo-sharded (``ShardedFusedDeblur``,
-    ``ShardedFusedMultilabel``), make the copying chunk call that the
-    light calls replace: the scalars
+    ``ShardedFusedMultilabel``), ``BatchedPDHG``'s multilabel route and
+    ``FusedROFADMM``'s multichunks make the copying call that the light
+    calls replace: the scalars
     stacked per chunk, the functional wrapper on copies of the state with
     buffers made per call, the streaming launch sequence, and y and y_prev
-    concatenated after the chunk (whole plane); the scalars stacked and the
-    in-place halo chunk with buffers made per call (sharded)."""
+    concatenated after the chunk (whole plane, ensemble); the scalars
+    stacked and the in-place halo chunk with buffers made per call
+    (sharded); the scalars stacked, copies of the seven state arrays, the
+    launch sequence and sout stacked (ADMM)."""
     import contextlib
 
     import torch
 
+    from prost_tpu_torch.backend.pdhg import hold_if
+    from prost_tpu_torch.ops import fused_admm as fa
     from prost_tpu_torch.ops import fused_deblur as fd
     from prost_tpu_torch.ops import fused_multilabel as fm
     from prost_tpu_torch.ops import fused_rof as fr
     from prost_tpu_torch.ops.pdhg_chunk import (canonical_duals, chunk_state,
                                                 halo_copy, run_pdhg_route)
+    from prost_tpu_torch.ops.phases import K_CHUNKS
+    from prost_tpu_torch.parallel import ensemble as ens
     from prost_tpu_torch.parallel import spatial_fused as sf
 
     def streaming(fn):
@@ -2862,8 +3068,42 @@ def copying_routes():
         return fm.ml_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
                                  self.m["nx"], path="streaming")
 
+    def ml_batched(self, s, done):
+        m, B = self.ml, self.batch
+        L, nx, ny = m["L"], m["nx"], m["ny"]
+        n2 = 2 * L * nx * ny
+        u2, q2, s2, up, qp, sp, norms2 = halo_copy(
+            streaming(fm.ml_chunk_batched_),
+            (s.x.reshape(B, L, nx, ny), s.y[:, :n2].reshape(B, 2 * L, nx, ny),
+             s.y[:, n2:].reshape(B, nx, ny)), m["f"],
+            self._scal(s, m["radius"], m["d_s"], done), self.ri)
+        return self._after_chunk(s, u2.reshape(B, -1), ens._flat(B, q2, s2),
+                                 up.reshape(B, -1), ens._flat(B, qp, sp),
+                                 norms2, done)
+
+    def admm_multi(b, s):
+        r, opts = b.rof, b.run_opts
+        ri, dt = max(int(opts.residual_iter), 1), s.x_half.dtype
+        scal = torch.stack([
+            s.rho, r["lmb_t"], r["radius_t"], s.delta, s.arb_l, s.arb_u,
+            s.iteration.to(dt), *r["tols_t"], s.converged.to(dt)])
+        planes = [t.contiguous().clone()
+                  for t in fa._planes_of(s, r["nx"], r["ny"])]
+        norms, sc = fa.admm_multichunk_(
+            *planes, r["f"], r["w"], scal, ri, K_CHUNKS, opts.alpha,
+            opts.cheby_degree, r["consts"], r["dataterm"], path="streaming")
+        new = fa._with_planes(
+            s, planes, rho=sc[0], delta=sc[1], arb_l=sc[2], arb_u=sc[3],
+            converged=sc[4] > 0.5, primal_residual=norms[0],
+            primal_var_norm=norms[1], dual_residual=norms[2],
+            dual_var_norm=norms[3],
+            iteration=s.iteration + sc[5].to(torch.int32) * ri)
+        return hold_if(s.converged, s, new)
+
     patches = [(fr, "fused_deblur_run", deblur_run),
                (fr, "fused_ml_run", ml_run),
+               (ens.BatchedPDHG, "_ml_chunk", ml_batched),
+               (fa, "_multi_chunk", admm_multi),
                (sf.ShardedFusedDeblur, "_light", None),
                (sf.ShardedFusedDeblur, "_chunk_halo", deblur_halo),
                (sf.ShardedFusedMultilabel, "_light", None),
@@ -2887,12 +3127,13 @@ def copying_routes():
     return patched()
 
 
-def route_turns(label, solve, energy, card=""):
+def route_turns(label, solve, energy, card="", exact=False):
     """``solve()`` (a 2000-iteration solve: (result, backend, dt)) with the
     copying chunk call (``copying_routes``) and with the light call, in
     turns (copying, light, light, copying): the iterating it/s of each and
     their energies, which must agree (the kernels are bit-equal, the
-    host's scalar work the same)."""
+    host's scalar work the same): within SINGLE_RTOL, or with ``exact``
+    to the last digit."""
     runs = []
     for old in (True, False, False, True):
         if old:
@@ -2908,16 +3149,17 @@ def route_turns(label, solve, energy, card=""):
           f"{b:.1f}, {c:.1f}, copying {d:.1f} it/s ({ia}, {ib}, {ic}, {id_} "
           f"iterations); energies' max rel diff {rel:.3e} (tol "
           f"{SINGLE_RTOL:g}) [{card}]")
-    check(rel <= SINGLE_RTOL and len({ia, ib, ic, id_}) == 1,
+    check((rel == 0.0 if exact else rel <= SINGLE_RTOL)
+          and len({ia, ib, ic, id_}) == 1,
           f"{label}: the light and the copying chunk calls disagree")
     return {"copying_it_s": (a, d), "it_s": (b, c)}
 
 
 def phase_route_turns(card):
-    """Config 2 and config 3 through the fused routes, the light chunk
-    call against the copying one (``route_turns``), 2000 iterations at
-    1e-5."""
-    from prost_tpu_torch.backend import PDHGOptions
+    """Config 2, config 3 and config 4 through the fused routes, the light
+    chunk (config 4: multichunk) call against the copying one
+    (``route_turns``), 2000 iterations at 1e-5."""
+    from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
 
     opts = PDHGOptions(stepsize="boyd", residual_iter=10)
     fb = deblur_data(DB_SIZE, DB_SIZE)
@@ -2935,6 +3177,13 @@ def phase_route_turns(card):
                           ML_SIZE * ML_SIZE * ML_LABELS, 2000),
         lambda x: ml_energy(x, f, ML_LMB, ML_LABELS, ML_SIZE, ML_SIZE),
         card=card)
+    f4 = test_image(ROF_SIZE, ROF_SIZE).reshape(-1)
+    out["admm"] = route_turns(
+        f"config 4 fused route {ROF_SIZE}x{ROF_SIZE} (Chebyshev ADMM)",
+        lambda: timed_solve(recording("admm", ADMMOptions(residual_iter=10)),
+                            ROF_SIZE, ROF_SIZE, f4, ROF_LMB, 2000),
+        lambda x: rof_energy(x, f4, ROF_LMB, ROF_SIZE, ROF_SIZE), card=card,
+        exact=True)
     return out
 
 
@@ -3266,9 +3515,15 @@ def phase_large(card):
         launches = single_launches(mod)
         check(all(v > 0 for v in launches.values()),
               f"a {kind} kernel was not launched at 2048x2048: {launches}")
+        path = ""
+        if kind == "admm":
+            check(not backend.made.rof["call"].resident,
+                  "the shape rule made the 2048x2048 multichunk resident")
+            path = " (multichunk on the streaming path)"
         e = rof_energy(res.x, f, lmb, nx, ny)
-        print(f"fused {kind} solve 2048x2048: {rates(res, backend, dt)}; "
-              f"energy {e:.6f}, launches {launches} [{card}]")
+        print(f"fused {kind} solve 2048x2048{path}: "
+              f"{rates(res, backend, dt)}; energy {e:.6f}, launches "
+              f"{launches} [{card}]")
 
     nx = ny = ML_LARGE
     L = ML_LABELS
@@ -3369,6 +3624,7 @@ def main() -> int:
     rows.update(phase_halo_kernels(dev))
     rows.update(phase_halo_8b_kernels(dev))
     resident = phase_resident_kernels(dev)
+    resident.update(phase_resident_multi(dev))
     torch.cuda.synchronize()
     launches, e_pdhg, d_pdhg = phase_solve(card)
     admm_launches, e_admm = phase_admm_solve(card, e_pdhg, d_pdhg)

@@ -13,8 +13,9 @@ tight multilabel model (4 labels on data/junction_gray.png at 128x128,
 lmb 1) and its volumetric TV model (vol256x8: eight noisy slices of
 data/dog.png at 256x256, lmb 6); each with residual_iter 10, 2000
 iterations in 10 callback epochs at tolerance 1e-5, after a warm-up
-solve.  Then three of chip_smoke.py's ensembles through ``BatchedPDHG``'s
-fused routes, tolerances 0, after a warm-up run: ensemble1024x128
+solve of 200 iterations in one epoch (every phase's kernels launched).
+Then three of chip_smoke.py's ensembles through ``BatchedPDHG``'s fused
+routes, tolerances 0, after a warm-up run: ensemble1024x128
 (BASELINE config 5, 21 + 1000 iterations), deblur8x512 and tight8x128x4
 (21 + 300), and each one's generic batched path (the vmapped
 ``pdhg_step``) for 100 iterations.  Each of them three times:
@@ -132,8 +133,9 @@ def route_data(route):
     return test_image(size, size).reshape(-1)
 
 
-def solve(route, iters, f):
-    """One solve of ``route``'s model on the data ``f``."""
+def solve(route, iters, f, cbacks=10):
+    """One solve of ``route``'s model on the data ``f`` in ``cbacks``
+    callback epochs."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
 
     size = route_size(route)
@@ -144,7 +146,8 @@ def solve(route, iters, f):
         backend = recording("pdhg", PDHGOptions(stepsize="boyd",
                                                 residual_iter=10))
     if route in ("admm", "pdhg"):
-        res, backend, wall = timed_solve(backend, size, size, f, LMB, iters)
+        res, backend, wall = timed_solve(backend, size, size, f, LMB, iters,
+                                         cbacks)
     else:
         prob, ncols = {
             "ml": lambda: (ml_model(size, size, ML_LABELS, f, ML_LMB),
@@ -155,7 +158,7 @@ def solve(route, iters, f):
             "vol": lambda: (vol_model(size, size, VOL_LABELS, f),
                             n * VOL_LABELS),
         }[route]()
-        res, backend, wall = run_model(backend, prob, ncols, iters)
+        res, backend, wall = run_model(backend, prob, ncols, iters, cbacks)
     check(getattr(backend.made, TAKEN[route]) is not None,
           f"the fused {route} route was not taken")
     return res, backend, wall
@@ -314,7 +317,9 @@ def main() -> int:
     out = {}
     for route in ROUTES:
         f = route_data(route)
-        solve(route, 200, f)  # warm-up: build, first launches
+        # warm-up: build, first launches, in one epoch long enough for the
+        # multichunk phase, so that no kernel's first call is timed
+        solve(route, 200, f, cbacks=1)
         res, backend, wall, enqueue = phase_table(mods[route], route, f,
                                                   sync=False)
         _, sbackend, _, synced = phase_table(mods[route], route, f,

@@ -23,7 +23,9 @@
 // iteration.  The whole-plane launches are the case (0, nx, 0, nx) of the
 // same arithmetic.  The halo iteration runs as one cooperative launch
 // (admm_iter_coop), its steps separated by grid barriers; the chunks run
-// the launch sequence of iteration().
+// the launch sequence of iteration(), and so does the multichunk unless
+// its planes fit in the shared memory of one block per SM, where it runs
+// as one grid-resident cooperative launch (admm_multichunk_resident).
 //
 // Layout (the JAX package's): x-like planes (nx, ny) row-major f32; z-like
 // arrays are two such planes back to back, [zx; zy].
@@ -133,6 +135,11 @@ struct State {
   float* partial;  // PS per block
   int nx, ny;
   Rows rows;
+  // floats from the x part of a z-like array (zh, zp, zd, dd, q) to its y
+  // part: nx ny in device memory, a window's size in a resident block's
+  // shared memory (admm_multichunk_resident), so that the pixel stages
+  // index a plane as p = i ny + j wherever it lives
+  size_t zn;
 };
 
 // The forward difference of row i reads row i + 1.
@@ -202,7 +209,8 @@ __device__ __forceinline__ float m_at(const float* v, const State& b, int i,
 // the upper mask keeps global row 0 from reading the halo rows above it,
 // which are not zero after a step.
 __device__ __forceinline__ float ckt_at(const float* v, const State& b,
-                                        int i, int j, size_t n, size_t p) {
+                                        int i, int j, size_t p) {
+  const size_t n = b.zn;
   int ny = b.ny;
   float vxm = above(b, i) ? v[p - ny] : 0.f;
   float vym = j > 0 ? v[n + p - 1] : 0.f;
@@ -214,7 +222,7 @@ __device__ __forceinline__ float ckt_at(const float* v, const State& b,
 // zero, which makes the maskless adjoints exact.
 // Bound: memory, a row and a column of three arrays.
 __device__ __forceinline__ void seed_at(const State& b, int i, int j) {
-  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  size_t n = b.zn, p = (size_t)i * b.ny + j;
   if (i + b.rows.off == b.rows.nxg - 1) b.zh[p] = b.zp[p] = b.zd[p] = 0.f;
   if (j == b.ny - 1) b.zh[n + p] = b.zp[n + p] = b.zd[n + p] = 0.f;
 }
@@ -226,6 +234,15 @@ __global__ void admm_seed(State b) {
   seed_at(b, i, j);
 }
 
+// d's x part at pixel p of row i from t1 there: t2_x - c_K dx(t1), t1
+// recomputed at the row below.
+__device__ __forceinline__ float rhs_dx(const State& b, int i, size_t p,
+                                        float t1, float alpha, float oma) {
+  float gx = below(b, i) ? t1_at(b, p + b.ny, alpha, oma) - t1 : 0.f;
+  float t2x = SQRT_S * (b.zh[p] + b.zd[p]);
+  return t2x - C_K * gx;
+}
+
 // First step of _admm_iter: t1, and d = t2 - c_K grad t1 (t1 recomputed at
 // the neighbour).  For CGLS also the warm start's residual r = d - c_K grad
 // u0 and x = u0 (the head of _cgls_masked).
@@ -233,14 +250,12 @@ __global__ void admm_seed(State b) {
 // (+1 for CGLS).
 __device__ __forceinline__ void rhs_at(const State& b, int i, int j,
                                        float alpha, float oma, int cgls) {
-  int nx = b.nx, ny = b.ny;
-  size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+  int ny = b.ny;
+  size_t n = b.zn, p = (size_t)i * ny + j;
   float t1 = t1_at(b, p, alpha, oma);
-  float gx = below(b, i) ? t1_at(b, p + ny, alpha, oma) - t1 : 0.f;
+  float dx = rhs_dx(b, i, p, t1, alpha, oma);
   float gy = j < ny - 1 ? t1_at(b, p + 1, alpha, oma) - t1 : 0.f;
-  float t2x = SQRT_S * (b.zh[p] + b.zd[p]);
   float t2y = SQRT_S * (b.zh[n + p] + b.zd[n + p]);
-  float dx = t2x - C_K * gx;
   float dy = t2y - C_K * gy;
   b.t1[p] = t1;
   if (cgls) {
@@ -266,13 +281,24 @@ __global__ void admm_rhs(State b, float alpha, float oma, int cgls) {
 // _cheby_project's head: b = c_K grad^T d, r = b - M(u0), x = u0,
 // v = r / theta.
 // Bound: memory, 3 planes read (d, u0), 3 written.
-__device__ __forceinline__ void cheby_init_at(const State& b, int i, int j) {
-  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-  float rhs = ckt_at(b.dd, b, i, j, n, p);
+// A pixel's new x, r and direction after cheby_init or a Chebyshev step.
+struct Step {
+  float x, r, v;
+};
+
+__device__ __forceinline__ Step cheby_init_val(const State& b, int i, int j) {
+  size_t p = (size_t)i * b.ny + j;
+  float rhs = ckt_at(b.dd, b, i, j, p);
   float r = rhs - m_at(b.warm, b, i, j, p);
-  b.x[p] = b.warm[p];
-  b.r[p] = r;
-  b.v0[p] = r * INV_THETA;
+  return Step{b.warm[p], r, r * INV_THETA};
+}
+
+__device__ __forceinline__ void cheby_init_at(const State& b, int i, int j) {
+  size_t p = (size_t)i * b.ny + j;
+  Step st = cheby_init_val(b, i, j);
+  b.x[p] = st.x;
+  b.r[p] = st.r;
+  b.v0[p] = st.v;
 }
 
 __global__ void cheby_init(State b) {
@@ -287,17 +313,27 @@ __global__ void cheby_init(State b) {
 // host constants, as in the JAX kernel.
 // Bound: memory, 3 planes read, 3 written; degree - 1 launches per outer
 // iteration.
+__device__ __forceinline__ Step cheby_step_val(const State& b,
+                                               const float* __restrict__ v,
+                                               float c_prev, float c_r, int i,
+                                               int j) {
+  size_t p = (size_t)i * b.ny + j;
+  float vv = v[p];
+  float x = b.x[p] + vv;
+  float r = b.r[p] - m_at(v, b, i, j, p);
+  return Step{x, r, c_prev * vv + c_r * r};
+}
+
 __device__ __forceinline__ void cheby_step_at(const State& b,
                                               const float* __restrict__ v,
                                               float* __restrict__ vn,
                                               float c_prev, float c_r, int i,
                                               int j) {
   size_t p = (size_t)i * b.ny + j;
-  float vv = v[p];
-  b.x[p] = b.x[p] + vv;
-  float r = b.r[p] - m_at(v, b, i, j, p);
-  b.r[p] = r;
-  vn[p] = c_prev * vv + c_r * r;
+  Step st = cheby_step_val(b, v, c_prev, c_r, i, j);
+  b.x[p] = st.x;
+  b.r[p] = st.r;
+  vn[p] = st.v;
 }
 
 __global__ void cheby_step(State b, const float* __restrict__ v,
@@ -316,8 +352,8 @@ __global__ void cg_init(State b) {
   int i, j;
   float v[1] = {0.f};
   if (pixel(b.nx, b.ny, i, j)) {
-    size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-    float s = ckt_at(b.dd, b, i, j, n, p) - b.x[p];
+    size_t p = (size_t)i * b.ny + j;
+    float s = ckt_at(b.dd, b, i, j, p) - b.x[p];
     b.p[p] = s;
     v[0] = s * s;
   }
@@ -330,8 +366,8 @@ __global__ void cg_q(State b, int par) {
   int i, j;
   float v[1] = {0.f};
   if (pixel(b.nx, b.ny, i, j)) {
-    int nx = b.nx, ny = b.ny;
-    size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+    int ny = b.ny;
+    size_t n = b.zn, p = (size_t)i * ny + j;
     float pv = b.p[p];
     float qx = C_K * (below(b, i) ? b.p[p + ny] - pv : 0.f);
     float qy = C_K * (j < ny - 1 ? b.p[p + 1] - pv : 0.f);
@@ -348,7 +384,7 @@ __global__ void cg_xr(State b, int par) {
   int i, j;
   float v[1] = {0.f};
   if (pixel(b.nx, b.ny, i, j)) {
-    size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+    size_t n = b.zn, p = (size_t)i * b.ny + j;
     float alpha = b.sc[S_CG_ALPHA];
     float x = b.x[p] + alpha * b.p[p];
     b.x[p] = x;
@@ -365,8 +401,8 @@ __global__ void cg_s(State b, int par) {
   int i, j;
   float v[1] = {0.f};
   if (pixel(b.nx, b.ny, i, j)) {
-    size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-    float s = ckt_at(b.dd, b, i, j, n, p) - b.x[p];
+    size_t p = (size_t)i * b.ny + j;
+    float s = ckt_at(b.dd, b, i, j, p) - b.x[p];
     b.s[p] = s;
     v[0] = s * s;
   }
@@ -387,11 +423,27 @@ __global__ void cg_p(State b, int par) {
 // duals, prox_g of the data term and the 2-vector shrink of prox_f; the
 // warm start keeps u.
 // Bound: memory, 9 planes read (x, v, t1, zh, zd, f; +w), 10 written.
+// The scalars of update_at that depend on rho, lmb and radius alone, the
+// same expressions wherever they are formed: per thread in admm_update,
+// once a chunk in the resident multichunk.
+struct UpdScal {
+  float tl;      // (Tau / rho) lmb
+  float inv_tl;  // 1 / (1 + tl), square's prox_g
+  float shrink;  // radius 2 / rho, prox_f's
+};
+
+__device__ __forceinline__ UpdScal upd_scal(const float* sc) {
+  float rho = sc[S_RHO];
+  float tl = (0.25f / rho) * sc[S_LMB];
+  return UpdScal{tl, 1.f / (1.f + tl), sc[S_RADIUS] * (2.f / rho)};
+}
+
 __device__ __forceinline__ void update_at(const State& b,
                                           const float* __restrict__ v,
-                                          int dataterm, int i, int j) {
-  int nx = b.nx, ny = b.ny;
-  size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+                                          int dataterm, int i, int j,
+                                          const UpdScal& k) {
+  int ny = b.ny;
+  size_t n = b.zn, p = (size_t)i * ny + j;
   float u = v ? b.x[p] + v[p] : b.x[p];
   float t1 = b.t1[p];
   float xpn = SQRT_T * (u + t1);
@@ -413,12 +465,11 @@ __device__ __forceinline__ void update_at(const State& b,
   float zdy = t2y * INV_SQRT_S - zpy;
 
   // prox_g with effective step Tau / rho = 1 / (4 rho)
-  float rho = b.sc[S_RHO];
-  float tl = (0.25f / rho) * b.sc[S_LMB];
+  const float tl = k.tl;
   float arg = xpn - xdn;
   float xhn;
   if (dataterm == DT_SQUARE) {
-    xhn = (arg + tl * b.f[p]) * (1.f / (1.f + tl));
+    xhn = (arg + tl * b.f[p]) * k.inv_tl;
   } else if (dataterm == DT_WSQUARE) {
     float tw = tl * b.w[p];
     xhn = (arg + tw * b.f[p]) / (1.f + tw);
@@ -429,9 +480,8 @@ __device__ __forceinline__ void update_at(const State& b,
 
   // prox_f: shrink the 2-vector by radius * 2 / rho (inverted step)
   float zax = zpx - zdx, zay = zpy - zdy;
-  float shrink = b.sc[S_RADIUS] * (2.f / rho);
   float nrm = sqrtf(zax * zax + zay * zay);
-  float scale = fmaxf(nrm - shrink, 0.f) / (nrm > 0.f ? nrm : 1.f);
+  float scale = fmaxf(nrm - k.shrink, 0.f) / (nrm > 0.f ? nrm : 1.f);
 
   b.xh[p] = xhn;
   b.xp[p] = xpn;
@@ -450,7 +500,7 @@ __global__ void admm_update(State b, const float* __restrict__ v,
   if (conv_set(b.sc)) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
-  update_at(b, v, dataterm, i, j);
+  update_at(b, v, dataterm, i, j, upd_scal(b.sc));
 }
 
 // First pass of _admm_norms after a chunk: per-block sums of the squared
@@ -459,8 +509,8 @@ __global__ void admm_update(State b, const float* __restrict__ v,
 // Bound: memory, 10 planes read once per chunk.
 __device__ __forceinline__ void norm_terms_at(const State& b, int i, int j,
                                               float (&v)[4]) {
-  int nx = b.nx, ny = b.ny;
-  size_t n = (size_t)nx * ny, p = (size_t)i * ny + j;
+  int ny = b.ny;
+  size_t n = b.zn, p = (size_t)i * ny + j;
   float rho = b.sc[S_RHO];
   float cw = -rho * 4.f;  // -rho / Tau
   float cy = -rho * 0.5f;  // -rho * Sigma
@@ -509,7 +559,7 @@ __global__ void admm_rescale(State b) {
   if (fac < 0.f) return;
   int i, j;
   if (!pixel(b.nx, b.ny, i, j)) return;
-  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  size_t n = b.zn, p = (size_t)i * b.ny + j;
   b.xd[p] = b.xd[p] * fac;
   b.zd[p] = b.zd[p] * fac;
   b.zd[n + p] = b.zd[n + p] * fac;
@@ -694,7 +744,7 @@ __global__ void __launch_bounds__(CO_THREADS)
     nxt = tmp;
   }
   for (int k = threadIdx.x; k < band; k += CO_THREADS)
-    update_at(b, cur, dataterm, lo + k / ny, k % ny);
+    update_at(b, cur, dataterm, lo + k / ny, k % ny, upd_scal(b.sc));
   if (!with_norms) return;
   grid.sync();
 
@@ -754,6 +804,372 @@ int coop_blocks(int* blocks) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// The Chebyshev multichunk grid-resident (admm_fused_multichunk ->
+// _admm_multichunk_kernel, which holds the planes in VMEM for the whole
+// launch on the TPU): one cooperative launch runs what
+// prost_admm_multichunk runs in about k_chunks (count (degree + 2) + 3)
+// launches.
+//
+// What bounds it.  At config 4's shape (512x512, degree 10, ri 10, 8
+// chunks) the launch sequence makes 985 launches of about 3 us of device
+// time each over 1 MiB planes: launch latency, not bytes (19 planes in and
+// out, 0.006 ms) or operations (0.05 ms).  The state of the launch, 12
+// planes with wsquare's weights and 7 of the iteration's scratch, fits in
+// the shared memory of the card's SMs at 512x512: bands of 4 rows.  What
+// sets the resident launch's time is then the stages' barriers and the
+// exchange of neighbour rows between them, degree + 1 an iteration.
+//
+// Design.  One block of RES_THREADS on each SM; block b owns the rows
+// band_of(nx, b, G) and holds them in dynamic shared memory from entry to
+// exit: xh, xp, xd, warm, v0 and v1 with the rows above and below, t1 and
+// x with the row below, zh, zp, zd and dd (both parts) with the row above,
+// and f, w and r (the stencils' reach).  A State whose pointers lie `lo`
+// rows before each window (and whose zn is a window's size) lets the pixel
+// stages of the launch sequence (seed_at, rhs_at and rhs_dx,
+// cheby_init_val, cheby_step_val, update_at, norm_terms_at) run unchanged
+// on the band.  An iteration is degree + 1 stages between grid barriers:
+//   1. rhs on the band, d's x part on the row above (rhs_dx) and t1 on the
+//      row below, then cheby_init, whose reach those rows are;
+//   2. the degree - 1 Chebyshev steps;
+//   3. update.
+// A stage updates the band in shared memory and writes to device memory
+// only the rows its neighbours' next stage reads (the direction's first
+// and last rows after 1 and 2, x's first row after the last of them; xh,
+// xp, xd and warm's first and last rows and zh and zd's last after 3, and
+// zp's last before the norms); after the barrier each block copies those
+// rows of its neighbours in, all of a stage's rows in one pass
+// (copy_row_set).  The Chebyshev stages hold four rows of a column per
+// thread, all read before any is written; update's scalars of rho, lmb
+// and radius are formed once a chunk (upd_scal).  After each chunk every
+// block writes its pixels' norm terms to a global `terms` array, the
+// blocks reduce the 32x8 tiles of admm_norm_partial's grid in
+// block_partial's tree, block 0 runs finish_at(OP_ADAPT) and, after a
+// barrier, every block reads the rescale factor and the flag: it rescales
+// x_dual and z_dual on its band and on the rows of them it holds, and once
+// the flag is set the whole grid leaves the loop together.  The state goes back to device
+// memory once, at exit.  The same pixel expressions on the same values,
+// the same tiles, tree and finish: bit-equal to prost_admm_multichunk.
+// The coefficients come from a device array, so any degree >= 1 runs.
+// Measured on an H100 and reverted (PERF.md): the stages synchronised by
+// flags between neighbouring blocks in place of grid barriers (49.7
+// against 43.8 us an iteration, an earlier form of this launch), and two
+// Chebyshev steps between barriers, the first also on the rows beyond the
+// band (35.1 against 32.6 us: the extra rows and register spills cost more
+// than the barriers saved).
+// ---------------------------------------------------------------------------
+
+constexpr int RES_THREADS = FIN;  // finish_at's threads: two 32x8 tiles
+constexpr int RES_RED = 4 * FIN;  // floats of the reductions' array
+constexpr int RES_GROUP = 4;      // rows of a column a thread holds
+
+// A block's windows, rmax the rows of the largest band: (rmax + 2) rows of
+// xh, xp, xd, warm, v0 and v1, (rmax + 1) of t1, x and of both parts of zh,
+// zp, zd and dd, rmax of f, r and (wsquare) w; then the reductions.
+__host__ __device__ __forceinline__ size_t admm_resident_floats(int rmax,
+                                                                int ny,
+                                                                int wsq) {
+  return ((size_t)6 * (rmax + 2) + (size_t)10 * (rmax + 1)
+          + (size_t)(2 + wsq) * rmax) * ny + RES_RED;
+}
+
+// A window of `rows` rows from row r0 at p, as a plane pointer: row i of
+// the window is at (i * ny) floats from the pointer.
+__device__ __forceinline__ float* take_rows(float*& p, int r0, int rows,
+                                            int ny) {
+  float* plane = p - (ptrdiff_t)r0 * ny;
+  p += (size_t)rows * ny;
+  return plane;
+}
+
+// The pixels [a, e) of row-major rows ny wide, RES_THREADS apart.
+#define FOR_ROWS(a, e, ny, i, j)                                           \
+  for (int k_ = threadIdx.x, i = (a) + k_ / (ny), j = k_ % (ny);           \
+       k_ < ((e) - (a)) * (ny);                                            \
+       k_ += RES_THREADS, j += RES_THREADS % (ny),                         \
+           i += RES_THREADS / (ny) + (j >= (ny) ? 1 : 0),                  \
+           j -= j >= (ny) ? (ny) : 0)
+
+// A stage of the Chebyshev iteration on the rows [lo, hi): each thread
+// takes RES_GROUP rows of a column, computes every pixel's Step from the
+// stage's inputs first and then writes them (`put`), so the reads of its
+// pixels are independent of each other.
+template <typename Val, typename Put>
+__device__ __forceinline__ void for_groups(int lo, int hi, int ny, Val val,
+                                           Put put) {
+  const int groups = (hi - lo + RES_GROUP - 1) / RES_GROUP;
+  for (int k = threadIdx.x; k < groups * ny; k += RES_THREADS) {
+    const int i0 = lo + RES_GROUP * (k / ny), j = k % ny;
+    Step o[RES_GROUP];
+#pragma unroll
+    for (int g = 0; g < RES_GROUP; ++g)
+      if (i0 + g < hi) o[g] = val(i0 + g, j);
+#pragma unroll
+    for (int g = 0; g < RES_GROUP; ++g)
+      if (i0 + g < hi) put((size_t)(i0 + g) * ny + j, o[g]);
+  }
+}
+
+// Rows [a, e) of the plane at `src` that lie in [0, nx) into the plane at
+// `dst` (an x part; with z set both parts, zs and zd floats apart).
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int a, int e, int nx, int ny,
+                                          size_t zd = 0, size_t zs = 0,
+                                          bool z = false) {
+  a = a < 0 ? 0 : a;
+  e = e > nx ? nx : e;
+  FOR_ROWS(a, e, ny, i, j) {
+    size_t p = (size_t)i * ny + j;
+    dst[p] = src[p];
+    if (z) dst[zd + p] = src[zs + p];
+  }
+}
+
+// One row of an exchange: row `row` of the plane at src into the plane at
+// dst (each indexed as take_rows' planes and device planes are); a row
+// outside [0, nx) is skipped, so -1 marks an entry that a stage leaves
+// out.
+struct RowIO {
+  float* dst;
+  const float* src;
+  int row;
+};
+
+// A stage's exchange rows in one pass: every thread reads all its entries
+// before it writes any, so the rows cost one round trip to L2, not one
+// each.
+template <int K>
+__device__ __forceinline__ void copy_row_set(const RowIO (&io)[K], int nx,
+                                             int ny) {
+  for (int j = threadIdx.x; j < ny; j += RES_THREADS) {
+    float v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (io[k].row >= 0 && io[k].row < nx)
+        v[k] = io[k].src[(size_t)io[k].row * ny + j];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (io[k].row >= 0 && io[k].row < nx)
+        io[k].dst[(size_t)io[k].row * ny + j] = v[k];
+  }
+}
+
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    admm_multichunk_resident(State g, float alpha, float oma, int dataterm,
+                             int degree, const float* __restrict__ coeffs,
+                             int count, int k_chunks, AdaptConsts c,
+                             float* __restrict__ terms, int rmax) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  if (conv_set(g.sc)) {  // every block, before any barrier
+    // each chunk of the launch sequence finds the flag and clears S_FAC
+    if (blockIdx.x == 0 && threadIdx.x == 0 && k_chunks > 0)
+      g.sc[S_FAC] = -1.f;
+    return;
+  }
+  extern __shared__ float smem[];
+  const int nx = g.nx, ny = g.ny;
+  const size_t n = (size_t)nx * ny;
+  int lo, hi;
+  band_of(nx, blockIdx.x, gridDim.x, lo, hi);
+  const bool wsq = dataterm == DT_WSQUARE;
+  // the band's first and last rows, -1 for an empty band
+  const int first = lo < hi ? lo : -1, last = lo < hi ? hi - 1 : -1;
+
+  State b = g;  // the band's windows; sc, partial, nx, ny and rows as g's
+  float* p = smem;
+  b.xh = take_rows(p, lo - 1, rmax + 2, ny);
+  b.xp = take_rows(p, lo - 1, rmax + 2, ny);
+  b.xd = take_rows(p, lo - 1, rmax + 2, ny);
+  b.warm = take_rows(p, lo - 1, rmax + 2, ny);
+  b.v0 = take_rows(p, lo - 1, rmax + 2, ny);
+  b.v1 = take_rows(p, lo - 1, rmax + 2, ny);
+  b.t1 = take_rows(p, lo, rmax + 1, ny);
+  b.x = take_rows(p, lo, rmax + 1, ny);
+  b.zn = (size_t)(rmax + 1) * ny;
+  b.zh = take_rows(p, lo - 1, 2 * (rmax + 1), ny);
+  b.zp = take_rows(p, lo - 1, 2 * (rmax + 1), ny);
+  b.zd = take_rows(p, lo - 1, 2 * (rmax + 1), ny);
+  b.dd = take_rows(p, lo - 1, 2 * (rmax + 1), ny);
+  float* f = take_rows(p, lo, rmax, ny);
+  b.r = take_rows(p, lo, rmax, ny);
+  float* w = wsq ? take_rows(p, lo, rmax, ny) : f;
+  b.f = f;
+  b.w = w;
+  float* red = p;  // RES_RED floats
+  b.p = b.q = b.s = nullptr;
+
+  // the band and the rows its first stage reads (xh, xp, xd and warm above
+  // and below, zh and zd's x part above), then admm_seed on the band
+  copy_rows(b.xh, g.xh, lo - 1, hi + 1, nx, ny);
+  copy_rows(b.xp, g.xp, lo - 1, hi + 1, nx, ny);
+  copy_rows(b.xd, g.xd, lo - 1, hi + 1, nx, ny);
+  copy_rows(b.warm, g.warm, lo - 1, hi + 1, nx, ny);
+  copy_rows(b.zh, g.zh, lo - 1, lo, nx, ny);
+  copy_rows(b.zd, g.zd, lo - 1, lo, nx, ny);
+  copy_rows(b.zh, g.zh, lo, hi, nx, ny, b.zn, n, true);
+  copy_rows(b.zp, g.zp, lo, hi, nx, ny, b.zn, n, true);
+  copy_rows(b.zd, g.zd, lo, hi, nx, ny, b.zn, n, true);
+  copy_rows(f, g.f, lo, hi, nx, ny);
+  if (wsq) copy_rows(w, g.w, lo, hi, nx, ny);
+  __syncthreads();
+  FOR_ROWS(lo, hi, ny, i, j) seed_at(b, i, j);
+  __syncthreads();
+
+  int ch = 0;
+  for (; ch < k_chunks; ++ch) {
+    const UpdScal us = upd_scal(g.sc);  // rho as this chunk's finish left it
+    for (int it = 0; it < count; ++it) {
+      const bool last_it = it == count - 1;
+      // 1. admm_rhs on the band, d_x on the row above, t1 on the row
+      // below; cheby_init
+      FOR_ROWS(lo, hi, ny, i, j) rhs_at(b, i, j, alpha, oma, 0);
+      for (int j = threadIdx.x; j < ny; j += RES_THREADS) {
+        if (lo > 0 && lo < hi) {
+          size_t q = (size_t)(lo - 1) * ny + j;
+          b.dd[q] = rhs_dx(b, lo - 1, q, t1_at(b, q, alpha, oma), alpha,
+                           oma);
+        }
+        if (hi < nx && lo < hi) {
+          size_t q = (size_t)hi * ny + j;
+          b.t1[q] = t1_at(b, q, alpha, oma);
+        }
+      }
+      __syncthreads();
+      for_groups(lo, hi, ny,
+                 [&](int i, int j) { return cheby_init_val(b, i, j); },
+                 [&](size_t q, const Step& o) {
+                   b.x[q] = o.x;
+                   b.r[q] = o.r;
+                   b.v0[q] = o.v;
+                 });
+      // 2. the degree - 1 steps; after 1 and each step the direction's
+      // first and last rows out, and x's first row after the last
+      float* cur = b.v0;
+      float* nxt = b.v1;
+      float* dcur = g.v0;
+      float* dnxt = g.v1;
+      for (int st = 0; st < degree; ++st) {
+        if (st > 0) {
+          const float cp = coeffs[2 * (st - 1)], cr = coeffs[2 * st - 1];
+          for_groups(lo, hi, ny,
+                     [&](int i, int j) {
+                       return cheby_step_val(b, cur, cp, cr, i, j);
+                     },
+                     [&](size_t q, const Step& o) {
+                       b.x[q] = o.x;
+                       b.r[q] = o.r;
+                       nxt[q] = o.v;
+                     });
+          float* t = cur;
+          cur = nxt;
+          nxt = t;
+          t = dcur;
+          dcur = dnxt;
+          dnxt = t;
+        }
+        const int xrow = st == degree - 1 ? first : -1;
+        __syncthreads();
+        const RowIO out[] = {{dcur, cur, first}, {dcur, cur, last},
+                             {g.x, b.x, xrow}};
+        copy_row_set(out, nx, ny);
+        grid.sync();
+        const RowIO in[] = {{cur, dcur, lo - 1}, {cur, dcur, hi},
+                            {b.x, g.x, xrow < 0 ? -1 : hi}};
+        copy_row_set(in, nx, ny);
+        __syncthreads();
+      }
+      // 3. admm_update; the first and last rows of xh, xp, xd and warm out,
+      // zh and zd's last rows, and before the norms zp's
+      FOR_ROWS(lo, hi, ny, i, j) update_at(b, cur, dataterm, i, j, us);
+      __syncthreads();
+      const int zp_last = last_it ? last : -1;
+      const RowIO out[] = {
+          {g.xh, b.xh, first}, {g.xp, b.xp, first}, {g.xd, b.xd, first},
+          {g.warm, b.warm, first}, {g.xh, b.xh, last}, {g.xp, b.xp, last},
+          {g.xd, b.xd, last}, {g.warm, b.warm, last}, {g.zh, b.zh, last},
+          {g.zd, b.zd, last}, {g.zp, b.zp, zp_last}};
+      copy_row_set(out, nx, ny);
+      grid.sync();
+      const int above = lo - 1, zp_above = last_it ? lo - 1 : -1;
+      const RowIO in[] = {
+          {b.xh, g.xh, above}, {b.xp, g.xp, above}, {b.xd, g.xd, above},
+          {b.warm, g.warm, above}, {b.xh, g.xh, hi}, {b.xp, g.xp, hi},
+          {b.xd, g.xd, hi}, {b.warm, g.warm, hi}, {b.zh, g.zh, above},
+          {b.zd, g.zd, above}, {b.zp, g.zp, zp_above}};
+      copy_row_set(in, nx, ny);
+      __syncthreads();
+    }
+
+    // admm_norm_partial's terms of the band, its tiles, admm_finish
+    FOR_ROWS(lo, hi, ny, i, j) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      norm_terms_at(b, i, j, v);
+      size_t q = (size_t)i * ny + j;
+      for (int k = 0; k < 4; ++k) terms[k * n + q] = v[k];
+    }
+    grid.sync();
+    const int ntx = (ny + BX - 1) / BX;
+    const int ntiles = (nx + BY - 1) / BY * ntx;
+    const int half = threadIdx.x / NT, t = threadIdx.x % NT;
+    float* r = red + half * 4 * NT;  // r[k * NT + t]
+    for (int base = 2 * blockIdx.x; base < ntiles; base += 2 * gridDim.x) {
+      const int tile = base + half;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (tile < ntiles) {
+        int i = tile / ntx * BY + t / BX, j = tile % ntx * BX + t % BX;
+        if (i < nx && j < ny)
+          for (int k = 0; k < 4; ++k)
+            v[k] = terms[k * n + (size_t)i * ny + j];
+      }
+      for (int k = 0; k < 4; ++k) r[k * NT + t] = v[k];
+      __syncthreads();
+      for (int s2 = NT / 2; s2 > 0; s2 >>= 1) {
+        if (t < s2)
+          for (int k = 0; k < 4; ++k) r[k * NT + t] += r[k * NT + t + s2];
+        __syncthreads();
+      }
+      if (t == 0 && tile < ntiles)
+        for (int k = 0; k < 4; ++k) g.partial[PS * tile + k] = r[k * NT];
+      __syncthreads();  // the next pass overwrites r
+    }
+    grid.sync();
+    if (blockIdx.x == 0)
+      finish_at(reinterpret_cast<float(*)[FIN]>(red), g.sc, g.partial,
+                ntiles, OP_ADAPT, 0, (float)((ch + 1) * count), nullptr, 0,
+                c);
+    grid.sync();
+    // admm_rescale on the band and on the rows of x_dual (above and below)
+    // and z_dual's x part (above) that the next rhs reads
+    const float fac = *(volatile float*)&g.sc[S_FAC];
+    const bool conv = *(volatile float*)&g.sc[S_CONV] != 0.f;
+    if (fac >= 0.f) {
+      const int a = lo > 0 ? lo - 1 : lo, e = hi < nx ? hi + 1 : hi;
+      FOR_ROWS(a, e, ny, i, j) {
+        size_t q = (size_t)i * ny + j;
+        b.xd[q] = b.xd[q] * fac;
+        if (i < hi) b.zd[q] = b.zd[q] * fac;
+        if (i >= lo && i < hi) b.zd[b.zn + q] = b.zd[b.zn + q] * fac;
+      }
+    }
+    __syncthreads();
+    if (conv) break;
+  }
+  // the launch sequence's later chunks each find the flag and clear S_FAC
+  if (ch < k_chunks - 1) {
+    grid.sync();  // every block has read this chunk's S_FAC
+    if (blockIdx.x == 0 && threadIdx.x == 0) g.sc[S_FAC] = -1.f;
+  }
+  // the state back to device memory, once
+  copy_rows(g.xh, b.xh, lo, hi, nx, ny);
+  copy_rows(g.xp, b.xp, lo, hi, nx, ny);
+  copy_rows(g.xd, b.xd, lo, hi, nx, ny);
+  copy_rows(g.warm, b.warm, lo, hi, nx, ny);
+  copy_rows(g.zh, b.zh, lo, hi, nx, ny, n, b.zn, true);
+  copy_rows(g.zp, b.zp, lo, hi, nx, ny, n, b.zn, true);
+  copy_rows(g.zd, b.zd, lo, hi, nx, ny, n, b.zn, true);
+}
+
 #define LAUNCH_CHECK()                                  \
   do {                                                  \
     cudaError_t e_ = cudaGetLastError();                \
@@ -798,6 +1214,7 @@ State state_of(void* xh, void* xp, void* xd, void* zh, void* zp, void* zd,
   b.nx = nx;
   b.ny = ny;
   b.rows = Rows{0, nx, 0, nx};
+  b.zn = n;
   return b;
 }
 
@@ -961,6 +1378,72 @@ int prost_admm_iter_halo(void* xh, void* xp, void* xd, void* zh, void* zp,
   cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)admm_iter_coop, dim3(blocks), dim3(CO_THREADS), args,
       CO_SMEM, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// The dynamic shared memory a block of admm_multichunk_resident may opt
+// into on the current device (the opt-in limit less its static shared
+// memory), or minus the error.
+int prost_admm_resident_smem() {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, (const void*)admm_multichunk_resident);
+  if (e != cudaSuccess) return -(int)e;
+  return optin - (int)attr.sharedSizeBytes;
+}
+
+// admm_fused_multichunk as one grid-resident cooperative launch
+// (admm_multichunk_resident): the arguments of prost_admm_multichunk, with
+// the Chebyshev coefficients as a device array (any degree >= 1) and
+// `scratch` of 12 planes (the 8 of the launch sequence, whose first rows
+// the blocks exchange, and the norms' 4 term planes).  Bit-equal to
+// prost_admm_multichunk in the 7 state arrays and in sc.  A launch whose
+// bands do not fit in one block's shared memory on each SM is refused
+// (cudaErrorInvalidValue, or the card's refusal of the cooperative
+// launch).
+int prost_admm_multichunk_resident(void* xh, void* xp, void* xd, void* zh,
+                                   void* zp, void* zd, void* warm,
+                                   const void* f, const void* w,
+                                   void* scratch, void* sc, void* partial,
+                                   int nx, int ny, int count, int k_chunks,
+                                   int dataterm, int degree,
+                                   const void* coeffs, float alpha,
+                                   float oma, float sqrt_nrows,
+                                   float sqrt_ncols, float arb_tau,
+                                   float arb_gamma, void* stream) {
+  if (degree < 1) return (int)cudaErrorInvalidValue;
+  State b = state_of(xh, xp, xd, zh, zp, zd, warm, f, w, scratch, sc,
+                     partial, nx, ny);
+  float* terms = (float*)scratch + (size_t)8 * nx * ny;
+  AdaptConsts c = {sqrt_nrows, sqrt_ncols, arb_tau, arb_gamma};
+  const float* cf = (const float*)coeffs;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  int rmax = (nx + sms - 1) / sms;
+  size_t smem = admm_resident_floats(rmax, ny, dataterm == DT_WSQUARE)
+                * sizeof(float);
+  int limit = prost_admm_resident_smem();
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute((const void*)admm_multichunk_resident,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&b, &alpha, &oma, &dataterm, &degree, &cf, &count,
+                  &k_chunks, &c, &terms, &rmax};
+  e = cudaLaunchCooperativeKernel((const void*)admm_multichunk_resident,
+                                  dim3(sms), dim3(RES_THREADS), args, smem,
+                                  (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   LAUNCH_CHECK();
   return 0;

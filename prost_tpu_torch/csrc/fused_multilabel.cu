@@ -34,7 +34,10 @@
 // in the shared memory of one block per SM (the wrapper's shape rule:
 // 256x256x8 and its one-shard halo band, not 512x512x8), the chunk and its
 // halo mode run instead as one grid-resident cooperative launch
-// (ml_resident, further down), bit-equal to the sequence.
+// (ml_resident, further down), bit-equal to the sequence, and the batched
+// chunk runs its instances one after another in one such launch
+// (ml_resident_batched): B = 8 of 256x256x8 stream 240 MB an iteration,
+// beyond the L2, where one instance's 13 MB of state stays on chip.
 //
 // Design.  One thread per pixel, 32x8 blocks with threadIdx.x along the
 // contiguous y axis (pdhg_chunk.cuh), and each thread loops over the L
@@ -94,19 +97,24 @@ struct ML {
   int nxg;           // rows of the global plane of a halo launch; 0: whole
   float inv_l;       // Sigma_s = 1/L
   float sqrt_inv_l;  // sqrt(Sigma_s)
+  // floats from one instance to the next of (u, up), (q, qp) and (s, sp)
+  // in a batched launch: L n, 2 L n and n where each buffer holds its
+  // instances back to back; a route's flat y = [q; s] rows give q and s
+  // the stride 2 L n + n
+  long long zu, zq, zs;
 };
 
-// The buffers of this block's instance (blockIdx.z) of a batched launch,
-// each moved by its per-instance size with 64-bit offsets: the dual of
-// 4096 instances of 256x256x8 holds 2^32 entries.
-__device__ __forceinline__ ML instance_of(ML b) {
-  size_t z = blockIdx.z, n = (size_t)b.nx * b.ny, nl = n * b.L;
-  b.u += z * nl;
-  b.q += 2 * z * nl;
-  b.s += z * n;
-  b.up += z * nl;
-  b.qp += 2 * z * nl;
-  b.sp += z * n;
+// The buffers of instance z of a batched launch, each moved by its
+// per-instance stride with 64-bit offsets: the dual of 4096 instances of
+// 256x256x8 holds 2^32 entries.
+__device__ __forceinline__ ML instance_at(ML b, size_t z) {
+  size_t n = (size_t)b.nx * b.ny, nl = n * b.L;
+  b.u += z * b.zu;
+  b.q += z * b.zq;
+  b.s += z * b.zs;
+  b.up += z * b.zu;
+  b.qp += z * b.zq;
+  b.sp += z * b.zs;
   b.g += 2 * z * nl;
   b.gp += 2 * z * nl;
   b.su += z * n;
@@ -114,6 +122,11 @@ __device__ __forceinline__ ML instance_of(ML b) {
   b.f += z * nl;
   b.sc += z * S_LEN;
   return b;
+}
+
+// This block's instance (blockIdx.z) of a streaming batched launch.
+__device__ __forceinline__ ML instance_of(ML b) {
+  return instance_at(b, blockIdx.z);
 }
 
 // Seed of a launch: g = [dx u; dy u], su = sum_l u, and the dead dual
@@ -313,7 +326,9 @@ __global__ void ml_norm_partial(ML b) {
 // ---------------------------------------------------------------------------
 // The grid-resident chunk (ml_resident): one cooperative launch runs what
 // chunk() runs in 2 count + 3 launches, for the whole plane and for a halo
-// band alike (the row context of pdhg_chunk.cuh).
+// band alike (the row context of pdhg_chunk.cuh).  Its batched form
+// (ml_resident_batched) runs the same chunk on B instances one after
+// another in one launch.
 //
 // What bounds it.  At config 3's shape (256x256x8, ri 10) the streaming
 // sequence passes over 14L + 5 planes in device memory an iteration and
@@ -412,13 +427,15 @@ __device__ __forceinline__ void load_rows(const LWin& dst, const float* src,
   }
 }
 
+// One chunk of one instance by the whole grid (the body of ml_resident and
+// ml_resident_batched), the instance's flag found clear by every block:
+// load, seed, `count` iterations, the norms' terms and tiles, and the
+// finish in block 0, which leaves `smem` to the next instance only after a
+// grid barrier.
 template <int LT>
-__global__ void __launch_bounds__(RES_THREADS, 1)
-    ml_resident(ML b, int count, int rmax) {
-  namespace cg = cooperative_groups;
-  cg::grid_group grid = cg::this_grid();
-  if (b.sc[S_CONV] != 0.f) return;  // every block, before any barrier
-  extern __shared__ float smem[];
+__device__ __forceinline__ void ml_resident_chunk(
+    const ML& b, int count, int rmax, float* smem,
+    cooperative_groups::grid_group& grid) {
   constexpr int L = LT;
   const int nx = b.nx, ny = b.ny;
   const size_t n = (size_t)nx * ny, nl = n * L;
@@ -610,8 +627,47 @@ __global__ void __launch_bounds__(RES_THREADS, 1)
   }
 }
 
-// The resident chunk's kernel for L labels, or null beyond MAX_REG_L.
+template <int LT>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    ml_resident(ML b, int count, int rmax) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (b.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  ml_resident_chunk<LT>(b, count, rmax, smem, grid);
+}
+
+// The batched chunk (ml_fused_chunk_batched) grid-resident: the instances
+// one after another, each as ml_resident runs it alone, so each keeps its
+// planes in shared memory for its whole chunk (the streaming batched
+// sequence passes over all B instances' planes each half-step, beyond the
+// L2 at B = 8 of 256x256x8).  Every block reads instance z's flag before
+// any barrier of z (no chunk writes a flag, so all read the same value)
+// and skips a flagged instance whole.  Instance z's norm partials lie at
+// z times one instance's tiles; the terms planes are reused, written by
+// z's last iteration only after every block has passed z - 1's tiles.  A
+// grid barrier between instances keeps block 0's finish of the one off
+// the shared memory the next one loads into.
+template <int LT>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    ml_resident_batched(ML b, int count, int rmax, int batch) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  extern __shared__ float smem[];
+  const dim3 g = grid_of(b.nx, b.ny);
+  const size_t tiles = (size_t)g.x * g.y;
+  bool first = true;
+  for (int z = 0; z < batch; ++z) {
+    ML bz = instance_at(b, z);
+    if (bz.sc[S_CONV] != 0.f) continue;
+    bz.partial += (size_t)z * 4 * tiles;
+    if (!first) grid.sync();
+    first = false;
+    ml_resident_chunk<LT>(bz, count, rmax, smem, grid);
+  }
+}
+
+// The resident chunk's kernels for L labels, or null beyond MAX_REG_L.
 using MLResKernel = void (*)(ML, int, int);
+using MLResBatchedKernel = void (*)(ML, int, int, int);
 
 MLResKernel ml_resident_kernel(int L) {
   switch (L) {
@@ -625,6 +681,43 @@ MLResKernel ml_resident_kernel(int L) {
     case MAX_REG_L: return ml_resident<MAX_REG_L>;
     default: return nullptr;
   }
+}
+
+MLResBatchedKernel ml_resident_batched_kernel(int L) {
+  switch (L) {
+    case 1: return ml_resident_batched<1>;
+    case 2: return ml_resident_batched<2>;
+    case 3: return ml_resident_batched<3>;
+    case 4: return ml_resident_batched<4>;
+    case 5: return ml_resident_batched<5>;
+    case 6: return ml_resident_batched<6>;
+    case 7: return ml_resident_batched<7>;
+    case MAX_REG_L: return ml_resident_batched<MAX_REG_L>;
+    default: return nullptr;
+  }
+}
+
+// The dynamic shared memory of a resident launch on nx rows: MLRes for the
+// largest band, at least the reductions' array; or 0 where `kernel` may
+// not hold it on the current device (then `rc` holds the error, if any).
+template <typename K>
+size_t resident_smem(K kernel, int L, int nx, int ny, int& rmax, int& rc) {
+  int sms = 0;
+  rc = device_sms(&sms);
+  if (rc) return 0;
+  rmax = band_rows(nx, sms);
+  size_t smem = ml_resident_floats(L, rmax, ny) * sizeof(float);
+  if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
+  int limit = resident_smem_limit(kernel);
+  if (limit < 0) {
+    rc = -limit;
+    return 0;
+  }
+  if (smem > (size_t)limit) {
+    rc = (int)cudaErrorInvalidValue;
+    return 0;
+  }
+  return smem;
 }
 
 template <int LT>
@@ -704,6 +797,9 @@ ML ml_of(void* u, void* q, void* s, void* up, void* qp, void* sp, void* g,
   b.nxg = 0;
   b.inv_l = inv_l;
   b.sqrt_inv_l = sqrt_inv_l;
+  b.zs = (long long)nx * ny;
+  b.zu = b.zs * L;
+  b.zq = 2 * b.zu;
   return b;
 }
 
@@ -735,15 +831,21 @@ int prost_ml_chunk(void* u, void* q, void* s, void* up, void* qp, void* sp,
 
 // ml_fused_chunk_batched: the same for `batch` instances in one launch
 // sequence; sc holds S_LEN scalars per instance, partial 4 per block per
-// instance.  An instance whose sc[S_CONV] is set is a no-op.
+// instance; instance z of (u, up), (q, qp) and (s, sp) lies zu, zq and zs
+// floats after instance z - 1 (f and the carried planes back to back).
+// An instance whose sc[S_CONV] is set is a no-op.
 int prost_ml_chunk_batched(void* u, void* q, void* s, void* up, void* qp,
                            void* sp, void* g, void* gp, void* su, void* sup,
                            const void* f, void* sc, void* partial, int L,
                            int nx, int ny, float inv_l, float sqrt_inv_l,
+                           long long zu, long long zq, long long zs,
                            int count, int batch, void* stream) {
   if (int rc = batch_error(batch)) return rc;
   ML b = ml_of(u, q, s, up, qp, sp, g, gp, su, sup, f, sc, partial, L, nx,
                ny, inv_l, sqrt_inv_l);
+  b.zu = zu;
+  b.zq = zq;
+  b.zs = zs;
   return chunk(b, count, batch, (cudaStream_t)stream);
 }
 
@@ -780,21 +882,50 @@ int prost_ml_chunk_resident(void* u, void* q, void* s, void* up, void* qp,
                sc, partial, L, nx, ny, inv_l, sqrt_inv_l);
   b.terms = (float*)terms;
   b.nxg = nx_global;
-  int sms = 0;
-  if (int rc = device_sms(&sms)) return rc;
-  int rmax = band_rows(nx, sms);
-  size_t smem = ml_resident_floats(L, rmax, ny) * sizeof(float);
-  if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
-  int limit = resident_smem_limit(kernel);
-  if (limit < 0) return -limit;
-  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int rmax = 0, rc = 0;
+  size_t smem = resident_smem(kernel, L, nx, ny, rmax, rc);
+  if (rc) return rc;
   void* args[] = {&b, &count, &rmax};
   return resident_launch(kernel, args, smem, (cudaStream_t)stream);
 }
 
-// The dynamic shared memory ml_resident's blocks may hold on the current
-// device (for L labels), or minus the error.
-int prost_ml_resident_smem(int L) {
+// ml_fused_chunk_batched as one grid-resident cooperative launch
+// (ml_resident_batched): the instances one after another, each bit-equal
+// to prost_ml_chunk_resident on it alone; buffers, strides and flags as
+// prost_ml_chunk_batched takes them, `terms` 4 (nx, ny) planes of scratch
+// shared by the instances.  Refused as prost_ml_chunk_resident is.
+int prost_ml_chunk_batched_resident(void* u, void* q, void* s, void* up,
+                                    void* qp, void* sp, const void* f,
+                                    void* sc, void* partial, void* terms,
+                                    int L, int nx, int ny, float inv_l,
+                                    float sqrt_inv_l, long long zu,
+                                    long long zq, long long zs, int count,
+                                    int batch, void* stream) {
+  if (int rc = batch_error(batch)) return rc;
+  MLResBatchedKernel kernel = ml_resident_batched_kernel(L);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  ML b = ml_of(u, q, s, up, qp, sp, nullptr, nullptr, nullptr, nullptr, f,
+               sc, partial, L, nx, ny, inv_l, sqrt_inv_l);
+  b.terms = (float*)terms;
+  b.zu = zu;
+  b.zq = zq;
+  b.zs = zs;
+  int rmax = 0, rc = 0;
+  size_t smem = resident_smem(kernel, L, nx, ny, rmax, rc);
+  if (rc) return rc;
+  void* args[] = {&b, &count, &rmax, &batch};
+  return resident_launch(kernel, args, smem, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory ml_resident's blocks (with `batched`,
+// ml_resident_batched's) may hold on the current device (for L labels), or
+// minus the error.
+int prost_ml_resident_smem(int L, int batched) {
+  if (batched) {
+    MLResBatchedKernel kernel = ml_resident_batched_kernel(L);
+    if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+    return resident_smem_limit(kernel);
+  }
   MLResKernel kernel = ml_resident_kernel(L);
   if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
   return resident_smem_limit(kernel);

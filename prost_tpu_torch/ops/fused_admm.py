@@ -9,7 +9,7 @@ operator is a multiple of the gradient, K~ = c_K grad with
 c_K = 1/(2 sqrt 2), so a whole outer iteration, inner projection
 included, is stencils, pointwise work and a few scalar reductions.
 
-Two kernels carry the route, each a hand-written CUDA kernel set in
+Three kernels carry the routes, each a hand-written CUDA kernel set in
 ``csrc/fused_admm.cu`` with a plain PyTorch version beside its wrapper here:
 
 * ``admm_chunk`` (JAX ``admm_fused_chunk``): ``count`` ADMM iterations, the
@@ -17,7 +17,12 @@ Two kernels carry the route, each a hand-written CUDA kernel set in
   and the four squared residual norms of the last one;
 * ``admm_multichunk`` (JAX ``admm_fused_multichunk``): up to ``k_chunks``
   Chebyshev chunks with the Boyd rho adaptation, the dual rescale and the
-  stopping test on the device between chunks;
+  stopping test on the device between chunks; on a card one grid-resident
+  cooperative launch where the shape rule (``admm_resident_ok``) finds that
+  its planes fit in the shared memory of one block per SM (512x512), the
+  launch sequence otherwise, bit-equal; its in-place form
+  ``admm_multichunk_`` serves the route's light call ``ADMMMultichunk``,
+  made once per route;
 * ``admm_iter_halo`` (JAX ``admm_banded_iter`` on a shard): one Chebyshev
   iteration in place on a halo-extended shard of a row-partitioned plane,
   with the owned rows' norms or without, the spatially sharded route's
@@ -56,9 +61,11 @@ from ..backend.admm import (ADMMState, BackendADMM, admm_residual_adapt,
 from ..backend.pdhg import hold_if
 from ..config import ProstError
 from .fused_rof import DATATERMS, _SQRT_S, _SQRT_T, match_rof_structure
-from .pdhg_chunk import (CF, CI, VP, WHOLE_PLANE, check_buffers, check_halo,
-                         dead_dual_flat, dx, dxt, dy, dyt, entry_converged,
-                         halo_row_ops, launch, ptr, scalar_buffer, typed_lib)
+from .pdhg_chunk import (CF, CI, PATHS, VP, WHOLE_PLANE, card_sms,
+                         check_buffers, check_halo, dead_dual_flat, dx, dxt,
+                         dy, dyt, entry_converged, halo_row_ops, launch,
+                         pick_path, ptr, resident_rows, scalar_buffer,
+                         typed_lib)
 from .phases import K_CHUNKS, run_phases
 
 _C_K = _SQRT_S * _SQRT_T  # K~ = c_K * grad
@@ -460,7 +467,11 @@ def _lib():
         # nx_global, row_offset, own_lo, own_hi, with_norms, stream
         "prost_admm_iter_halo": [VP] * 12 + [CI] * 4 + [VP, CF, CF]
                                 + [CI] * 5 + [VP],
-        "prost_admm_coop_blocks": []})
+        "prost_admm_coop_blocks": [],
+        # as prost_admm_multichunk, coeffs a device array
+        "prost_admm_multichunk_resident": [VP] * 12 + [CI] * 6 + [VP]
+                                          + [CF] * 6 + [VP],
+        "prost_admm_resident_smem": []})
 
 
 def admm_bands(nx: int, blocks: int) -> list:
@@ -471,6 +482,48 @@ def admm_bands(nx: int, blocks: int) -> list:
     differ by one at most (a band is empty where blocks > nx)."""
     return [(b * int(nx) // int(blocks), (b + 1) * int(nx) // int(blocks))
             for b in range(int(blocks))]
+
+
+# floats of a grid-resident multichunk block's reductions
+# (csrc/fused_admm.cu RES_RED)
+_RES_RED = 4 * 512
+
+
+def admm_resident_bytes(nx: int, ny: int, sms: int, dataterm: str) -> int:
+    """The dynamic shared memory of one block of the grid-resident
+    multichunk over ``sms`` blocks (csrc/fused_admm.cu
+    admm_resident_floats): for the largest band of R rows, R + 2 rows of
+    xh, xp, xd, warm and the two directions, R + 1 of t1, x and of both
+    parts of zh, zp, zd and dd, R of f, r and (wsquare) w, and the
+    reductions' array."""
+    r = resident_rows(nx, sms)
+    wsq = 1 if dataterm == "wsquare" else 0
+    return 4 * ((6 * (r + 2) + 10 * (r + 1) + (2 + wsq) * r) * int(ny)
+                + _RES_RED)
+
+
+def admm_resident_ok(nx: int, ny: int, dataterm: str, sms: int,
+                     smem: int) -> bool:
+    """The shape rule of ``admm_multichunk_``: the multichunk runs as one
+    grid-resident launch (csrc/fused_admm.cu admm_multichunk_resident, one
+    block per SM) where the bands' planes fit in ``smem`` bytes of a
+    block's dynamic shared memory on a card of ``sms`` SMs (512x512 on an
+    H100, not 2048x2048), and as the launch sequence otherwise."""
+    return admm_resident_bytes(nx, ny, sms, dataterm) <= int(smem)
+
+
+@functools.lru_cache(maxsize=None)
+def admm_card_limits(device) -> tuple:
+    """(SMs, the dynamic shared memory a block of the grid-resident
+    multichunk may hold) of the card ``device``, read once."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        smem = lib.prost_admm_resident_smem()
+    if smem < 0:
+        raise ProstError(f"admm_multichunk: no shared-memory limit for the "
+                         f"resident launch on {device} (CUDA error "
+                         f"{-smem}).")
+    return card_sms(device), smem
 
 
 @functools.lru_cache(maxsize=None)
@@ -604,23 +657,137 @@ def admm_multichunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
     converged-at-entry flag).  Returns the 7 state arrays, norms (the last
     executed chunk's sqrt'd residual norms) and sout = [rho, delta, arb_l,
     arb_u, converged, chunks_done].  CPU tensors run the plain version;
-    CUDA tensors launch the kernel."""
+    CUDA tensors run ``admm_multichunk_`` on copies."""
+    planes = [t.contiguous().clone() for t in (xh, xp, xd, zh, zp, zd, warm)]
+    norms, sout = admm_multichunk_(*planes, f, w, scal, count, k_chunks,
+                                   alpha, cheby_degree, consts, dataterm)
+    return tuple(planes) + (norms, sout)
+
+
+def _multichunk_card(planes, f, w, sc, partial, scratch, resident: bool,
+                     count: int, k_chunks: int, alpha: float, degree: int,
+                     consts, dataterm: str) -> None:
+    """One multichunk on the card in place on ``planes`` with the scalar
+    buffer ``sc``: the grid-resident launch or the launch sequence,
+    counted under ``admm_multichunk``."""
+    xh = planes[0]
+    nx, ny = xh.shape
+    coeffs = (ptr(_coeff_tensor(int(degree), xh.device)) if resident
+              else _coeff_array(degree))
+    launch(_lib(), "prost_admm_multichunk_resident" if resident
+           else "prost_admm_multichunk", "admm_multichunk", launch_counts,
+           xh.device, [*planes, f, w, scratch, sc, partial], nx, ny,
+           int(count), int(k_chunks), DATATERMS[dataterm], int(degree),
+           coeffs, float(alpha), 1.0 - float(alpha),
+           *[float(c) for c in consts])
+
+
+def _multichunk_scratch(resident: bool, nx: int, ny: int, device):
+    """The scratch of a multichunk launch: the launch sequence's 8 planes,
+    and for the grid-resident launch 4 more, its norms' terms."""
+    return torch.empty((12 if resident else 8) * nx * ny,
+                       dtype=torch.float32, device=device)
+
+
+def admm_multichunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
+                     k_chunks: int, alpha: float, cheby_degree: int, consts,
+                     dataterm: str = "square", path=None):
+    """``admm_multichunk`` in place: the 7 state arrays advance (with the
+    converged flag set at entry nothing changes).  Returns (norms, sout).
+    On a card ``path`` None takes the shape rule's path
+    (``admm_resident_ok``): one grid-resident cooperative launch
+    (csrc/fused_admm.cu admm_multichunk_resident) where the bands fit on
+    chip, else the launch sequence; "resident" or "streaming" asks for one
+    ("resident" raises where it does not fit)."""
     planes = (xh, xp, xd, zh, zp, zd, warm)
     _check(planes, f, w, scal, 11, count, dataterm)
     if int(cheby_degree) < 1:
         raise ProstError("The multichunk needs a Chebyshev degree >= 1.")
+    if not all(t.is_contiguous() for t in planes):
+        raise ProstError("admm_multichunk_ takes contiguous planes only.")
+    if path not in PATHS:
+        raise ProstError(f"admm_multichunk: path must be one of {PATHS}, "
+                         f"got {path!r}.")
     if xh.device.type == "cpu":
-        return admm_multichunk_plain(*planes, f, w, scal, count, k_chunks,
-                                     alpha, cheby_degree, consts, dataterm)
-    lib = _lib()
-    wk = _Work(lib, planes, scal, 11)
+        out = admm_multichunk_plain(*planes, f, w, scal, count, k_chunks,
+                                    alpha, cheby_degree, consts, dataterm)
+        for t, v in zip(planes, out):
+            t.copy_(v)
+        return out[7], out[8]
     nx, ny = xh.shape
-    launch(lib, "prost_admm_multichunk", "admm_multichunk", launch_counts,
-           xh.device, wk.buffers(f, w), nx, ny, int(count), int(k_chunks),
-           DATATERMS[dataterm], int(cheby_degree), _coeff_array(cheby_degree),
-           float(alpha), 1.0 - float(alpha), *[float(c) for c in consts])
-    sout = torch.stack([wk.sc[i] for i in _SOUT])
-    return wk.outputs() + (wk.sc[_S_NORM:_S_NORM + 4], sout)
+    dev = xh.device
+    resident = pick_path(path, admm_resident_ok(
+        nx, ny, dataterm, *admm_card_limits(dev)), "admm_multichunk")
+    sc = scalar_buffer(scal, 11, _S_CONV, _S_LEN)
+    partial = torch.empty(4 * _lib().prost_admm_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _multichunk_card(planes, f.contiguous(), w.contiguous(), sc, partial,
+                     _multichunk_scratch(resident, nx, ny, dev), resident,
+                     count, k_chunks, alpha, cheby_degree, consts, dataterm)
+    return sc[_S_NORM:_S_NORM + 4], torch.stack([sc[i] for i in _SOUT])
+
+
+class ADMMMultichunk:
+    """``FusedROFADMM``'s light call of the multichunk: ``admm_multichunk_``
+    on the run's own state arrays, with what depends only on the shapes
+    and the route made once per route: the path (``admm_resident_ok``),
+    the scratch, the norm partials and the scalar buffer with lmb, radius
+    and the tolerances.  A call writes rho, delta, arb_l, arb_u, the
+    iteration counter and the flag into the scalar buffer in place (one
+    stack and one indexed copy), launches, and reads the norms and sout out
+    of it in one gather; on the CPU it runs the plain version."""
+
+    # the slots a call writes: rho, delta, arb_l, arb_u, it, converged, and
+    # the chunk count, which the launch advances from 0
+    _IN = (0, 3, 4, 5, 6, _S_CONV, _S_DONE)
+
+    def __init__(self, r, count: int, k_chunks: int, alpha: float,
+                 degree: int, device):
+        self.r, self.count, self.k_chunks = r, int(count), int(k_chunks)
+        self.alpha, self.degree = float(alpha), int(degree)
+        nx, ny = r["nx"], r["ny"]
+        self.sc = torch.zeros(_S_LEN, dtype=torch.float32, device=device)
+        self.sc[1] = r["lmb_t"]
+        self.sc[2] = r["radius_t"]
+        self.sc[7:11] = torch.stack(r["tols_t"])
+        self.stage = torch.empty(len(self._IN), dtype=torch.float32,
+                                 device=device)
+        self.zero = torch.zeros((), dtype=torch.float32, device=device)
+        self.slots_in = torch.tensor(self._IN, device=device)
+        self.slots_out = torch.tensor(
+            tuple(range(_S_NORM, _S_NORM + 4)) + _SOUT, device=device)
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = admm_resident_ok(nx, ny, r["dataterm"],
+                                             *admm_card_limits(device))
+            self.partial = torch.empty(
+                4 * _lib().prost_admm_num_blocks(nx, ny),
+                dtype=torch.float32, device=device)
+            self.scratch = _multichunk_scratch(self.resident, nx, ny, device)
+
+    def __call__(self, planes, rho, delta, arb_l, arb_u, it, converged):
+        """Up to k_chunks chunks on ``planes`` in place from the state's
+        scalars (``it`` its iteration counter); returns (norms, sout)."""
+        dt = self.sc.dtype
+        torch.stack([rho, delta, arb_l, arb_u, it.to(dt),
+                     converged.to(dt), self.zero], out=self.stage)
+        self.sc.index_copy_(0, self.slots_in, self.stage)
+        r = self.r
+        if self.resident is None:
+            scal = self.sc[:_S_CONV + 1]
+            out = admm_multichunk_plain(*planes, r["f"], r["w"], scal,
+                                        self.count, self.k_chunks,
+                                        self.alpha, self.degree,
+                                        r["consts"], r["dataterm"])
+            for t, v in zip(planes, out):
+                t.copy_(v)
+            return out[7], out[8]
+        _multichunk_card(planes, r["f"], r["w"], self.sc, self.partial,
+                         self.scratch, self.resident, self.count,
+                         self.k_chunks, self.alpha, self.degree,
+                         r["consts"], r["dataterm"])
+        out = self.sc.index_select(0, self.slots_out)
+        return out[:4], out[4:]
 
 
 # ---------------------------------------------------------------------------
@@ -713,18 +880,20 @@ def _fused_chunk(b: FusedROFADMM, s: ADMMState) -> ADMMState:
 
 
 def _multi_chunk(b: FusedROFADMM, s: ADMMState) -> ADMMState:
+    """One multichunk in place on the views of the run's own state arrays
+    (``_fused_admm_run``'s canonicalization copies them once per run)
+    through the route's light call (``ADMMMultichunk``, made once per
+    route)."""
     r, opts = b.rof, b.run_opts
-    ri, dt = max(int(opts.residual_iter), 1), s.x_half.dtype
-    scal = torch.stack([
-        s.rho, r["lmb_t"], r["radius_t"], s.delta, s.arb_l, s.arb_u,
-        s.iteration.to(dt), *r["tols_t"], s.converged.to(dt)])
-    outs = admm_multichunk(*_planes_of(s, r["nx"], r["ny"]), r["f"],
-                           r["w"], scal, ri, K_CHUNKS, opts.alpha,
-                           opts.cheby_degree, r["consts"], r["dataterm"])
-    norms, sc = outs[7], outs[8]
+    ri = max(int(opts.residual_iter), 1)
+    if "call" not in r:
+        r["call"] = ADMMMultichunk(r, ri, K_CHUNKS, opts.alpha,
+                                   opts.cheby_degree, s.x_half.device)
+    norms, sc = r["call"](_planes_of(s, r["nx"], r["ny"]), s.rho, s.delta,
+                          s.arb_l, s.arb_u, s.iteration, s.converged)
     done = sc[5].to(torch.int32)
-    new = _with_planes(
-        s, outs, rho=sc[0], delta=sc[1], arb_l=sc[2], arb_u=sc[3],
+    new = dataclasses.replace(
+        s, rho=sc[0], delta=sc[1], arb_l=sc[2], arb_u=sc[3],
         converged=sc[4] > 0.5,
         primal_residual=norms[0], primal_var_norm=norms[1],
         dual_residual=norms[2], dual_var_norm=norms[3],
@@ -740,13 +909,19 @@ def _fused_admm_run(b: FusedROFADMM, state: ADMMState, until: int,
     canonicalization zeroes the dead coordinates of the three z arrays;
     there is no epilogue (the chunks carry the whole state).  Multichunk
     launches (phase B0) run in Chebyshev mode only: the CG tolerance
-    schedule is per iteration."""
+    schedule is per iteration.  The canonicalization also gives the run
+    its own copies of the state arrays, which the multichunks' light call
+    updates in place."""
     nx, ny = b.rof["nx"], b.rof["ny"]
     ri = max(int(b.run_opts.residual_iter), 1)
 
     def canonicalize(s):
+        # new z arrays and copies of the x-like ones: the run's own state
+        # arrays, which the multichunks update in place
         return dataclasses.replace(
-            s, z_half=dead_dual_flat(s.z_half, 1, nx, ny),
+            s, x_half=s.x_half.clone(), x_proj=s.x_proj.clone(),
+            x_dual=s.x_dual.clone(), cg_warm=s.cg_warm.clone(),
+            z_half=dead_dual_flat(s.z_half, 1, nx, ny),
             z_proj=dead_dual_flat(s.z_proj, 1, nx, ny),
             z_dual=dead_dual_flat(s.z_dual, 1, nx, ny))
 

@@ -26,19 +26,21 @@ wrapper here:
   chunks with the boyd/goldstein adaptation and the stopping test on the
   device between chunks;
 * ``ml_chunk_batched`` (JAX ``ml_fused_chunk_batched``): one chunk for each
-  of B instances in one launch sequence, the batched ensembles' route
-  (``parallel/ensemble.py``);
+  of B instances in one launch, or one launch sequence, the batched
+  ensembles' route (``parallel/ensemble.py``);
 * ``ml_chunk_halo`` (JAX ``ml_fused_chunk_halo``): one chunk on a
   halo-extended shard of a row-partitioned plane, the spatially sharded
   route's (``parallel/spatial_fused.py``).
 
-The single-instance chunk and its halo mode have in-place forms,
-``ml_chunk_`` and ``ml_chunk_halo_``, and the routes call them through
-``MLChunk``, which makes their buffers once per route.  On a card each runs
-as one grid-resident cooperative launch where the shape rule
-(``resident_ok``) finds that its planes fit in the shared memory of one
-block per SM, and as the streaming launch sequence otherwise; both are
-bit-equal.  The multichunk and the batched chunk always stream.
+The single-instance chunk, its halo mode and the batched chunk have
+in-place forms, ``ml_chunk_``, ``ml_chunk_halo_`` and ``ml_chunk_batched_``,
+and the routes call them through ``MLChunk`` and ``MLBatchedChunk``, which
+make their buffers once per route.  On a card each runs as one
+grid-resident cooperative launch where the shape rule (``resident_ok``, on
+one instance: a batched launch runs its instances one after another)
+finds that one instance's planes fit in the shared memory of one block per
+SM, and as the streaming launch sequence otherwise; both are bit-equal.
+The multichunk always streams.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  As on the ROF route there is no fallback
@@ -56,6 +58,7 @@ and at every chunk entry, as on the ROF route.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -245,21 +248,23 @@ def _lib():
     """The fused multilabel kernel library, built from
     csrc/fused_multilabel.cu on first use."""
     head = [VP] * 13 + [CI] * 3 + [CF] * 2
+    strides = [ctypes.c_longlong] * 3
     return typed_lib("fused_multilabel", "prost_ml_num_blocks", {
         "prost_ml_chunk": head + [CI, VP],
-        "prost_ml_chunk_batched": head + [CI, CI, VP],
+        "prost_ml_chunk_batched": head + strides + [CI, CI, VP],
         "prost_ml_chunk_halo": head + [CI, CI, VP],
         "prost_ml_chunk_resident": [VP] * 10 + [CI] * 3 + [CF] * 2
                                    + [CI, CI, VP],
-        "prost_ml_resident_smem": [CI],
+        "prost_ml_chunk_batched_resident": [VP] * 10 + [CI] * 3 + [CF] * 2
+                                           + strides + [CI, CI, VP],
+        "prost_ml_resident_smem": [CI, CI],
         "prost_ml_multichunk": head + [CI] * 3 + [CF] * 6 + [VP]})
 
 
 def _launch(fn: str, what: str, u, q, s, f, scal, n_scal: int, *args,
             prev=None):
-    """One launch of ``fn`` on copies of (u, q, s) (with a leading batch
-    axis for a batched launch), or on (u, q, s) and ``prev`` themselves;
-    returns its ChunkWork."""
+    """One launch of ``fn`` on copies of (u, q, s), or on (u, q, s) and
+    ``prev`` themselves; returns its ChunkWork."""
     lib = _lib()
     L, nx, ny = u.shape[-3:]
     wk = ChunkWork((u, q, s), (q, s), scal, n_scal,
@@ -298,32 +303,35 @@ def resident_ok(L: int, nx: int, ny: int, sms: int, smem: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def card_limits(device, L: int) -> tuple:
+def card_limits(device, L: int, batched: bool = False) -> tuple:
     """(SMs, the dynamic shared memory a block of the grid-resident chunk
-    of L labels may hold, 0 beyond ``MAX_RESIDENT_L``) of the card
-    ``device``, read once."""
+    of L labels, with ``batched`` the batched chunk's, may hold, 0 beyond
+    ``MAX_RESIDENT_L``) of the card ``device``, read once."""
     if not 1 <= int(L) <= MAX_RESIDENT_L:
         return card_sms(device), 0
     lib = _lib()
     with torch.cuda.device(device):
-        smem = lib.prost_ml_resident_smem(int(L))
+        smem = lib.prost_ml_resident_smem(int(L), int(bool(batched)))
     if smem < 0:
         raise ProstError(f"ml_chunk: no shared-memory limit for the "
                          f"resident chunk on {device} (CUDA error {-smem}).")
     return card_sms(device), smem
 
 
-def _scratch(resident: bool, L, nx, ny, device):
+def _scratch(resident: bool, L, nx, ny, device, batch: int = 0):
     """A chunk launch's scratch: the grid-resident chunk's norm terms (4
-    planes), or the streaming sequence's carried planes (the gradient and
-    the label sum, of this iterate and of the previous one)."""
+    planes, which a batched launch's instances share), or the streaming
+    sequence's carried planes (the gradient and the label sum, of this
+    iterate and of the previous one; with ``batch``, of every instance)."""
+    lead = (batch,) if batch else ()
+
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
     if resident:
         return [empty(4, nx, ny)]
-    return [empty(2 * L, nx, ny), empty(2 * L, nx, ny), empty(nx, ny),
-            empty(nx, ny)]
+    return [empty(*lead, 2 * L, nx, ny), empty(*lead, 2 * L, nx, ny),
+            empty(*lead, nx, ny), empty(*lead, nx, ny)]
 
 
 def _launch_chunk(what: str, state, prev, f, sc, partial, scratch,
@@ -474,7 +482,7 @@ class MLChunk(LightChunk):
 
 
 def ml_chunk_batched(u, q, s, f, scal, count: int):
-    """``ml_chunk`` for each of B instances in one launch sequence.
+    """``ml_chunk`` for each of B instances in one launch (sequence).
 
     u, f: (B, L, nx, ny); q: (B, 2L, nx, ny); s: (B, nx, ny); scal: (5, B),
     a row each of tau, sigma, theta, radius and d_s (+ an optional row of
@@ -482,12 +490,128 @@ def ml_chunk_batched(u, q, s, f, scal, count: int):
     its inputs back).  Returns (u2, q2, s2, u_prev, q_prev, s_prev, norms2),
     norms2 (4, B) the SQUARED preconditioned residual norms of each
     instance.  Instance b comes out as ``ml_chunk`` on instance b alone.
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors run
+    ``ml_chunk_batched_`` on copies."""
     _check(u, q, s, f, scal, 5, count, batched=True)
     if u.device.type == "cpu":
         return ml_chunk_batched_plain(u, q, s, f, scal, count)
-    return _launch("prost_ml_chunk_batched", "ml_chunk_batched", u, q, s, f,
-                   scal, 5, int(count), u.shape[0]).outputs()
+    return halo_copy(ml_chunk_batched_, (u, q, s), f, scal, count)
+
+
+def _instance_strides(state, prev):
+    """The floats from one instance to the next of each of the batched
+    buffers ``state`` (u, q, s) and of ``prev``, which must match them:
+    each instance contiguous in itself, the instances at any one stride
+    (q and s may be views of a route's flat (B, 2 L n + n) y)."""
+    strides = []
+    for a, b in zip(state, prev):
+        inner = a.shape[1:]
+        for t in (a, b):
+            if t.shape != a.shape or t.device != a.device:
+                raise ProstError(f"A previous-iterate buffer must be "
+                                 f"{tuple(a.shape)} on {a.device}, got "
+                                 f"{tuple(t.shape)} on {t.device}.")
+            if not t[0].is_contiguous():
+                raise ProstError("ml_chunk_batched_ takes instances that "
+                                 "are each contiguous.")
+        size = torch.Size(inner).numel()
+        if a.shape[0] > 1 and a.stride(0) != b.stride(0):
+            raise ProstError("ml_chunk_batched_: a buffer and its previous "
+                             "iterate's must space their instances alike.")
+        if a.shape[0] > 1 and a.stride(0) < size:
+            raise ProstError("ml_chunk_batched_: the instances of a buffer "
+                             "overlap.")
+        strides.append(a.stride(0) if a.shape[0] > 1 else size)
+    return strides
+
+
+def _launch_batched(state, prev, f, sc, partial, scratch, resident: bool,
+                    count: int, strides):
+    """One batched chunk on the card in place on ``state`` (u, q, s) and
+    ``prev``: the grid-resident launch (the instances one after another) or
+    the streaming sequence (all at once), counted under
+    ``ml_chunk_batched``."""
+    u = state[0]
+    B, L, nx, ny = u.shape
+    shape = (L, nx, ny, 1.0 / L, (1.0 / L) ** 0.5, *strides)
+    lib = _lib()
+    if resident:
+        launch(lib, "prost_ml_chunk_batched_resident", "ml_chunk_batched",
+               launch_counts, u.device, [*state, *prev, f, sc, partial,
+                                         *scratch], *shape, int(count), B)
+    else:
+        launch(lib, "prost_ml_chunk_batched", "ml_chunk_batched",
+               launch_counts, u.device, [*state, *prev, *scratch, f, sc,
+                                         partial], *shape, int(count), B)
+
+
+def ml_chunk_batched_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
+                      path=None):
+    """``ml_chunk_batched`` in place: every instance of (u, q, s) advances
+    by ``count`` iterations and the previous buffers take its iterate
+    before the aligned one; an instance whose flag is set changes nothing.
+    q and s may be views of a route's flat y (see ``_instance_strides``).
+    Returns norms2 (4, B).  On a card ``path`` None takes the shape rule's
+    path (``resident_ok`` on one instance, whatever B): one grid-resident
+    launch (csrc/fused_multilabel.cu ml_resident_batched, the instances one
+    after another) where one instance's planes fit on chip, else the
+    streaming launch sequence; "resident" or "streaming" asks for one
+    ("resident" raises where it does not fit)."""
+    state, prev = (u, q, s), (u_prev, q_prev, s_prev)
+    _check(u, q, s, f, scal, 5, count, batched=True)
+    strides = _instance_strides(state, prev)
+    if u.device.type == "cpu":
+        return halo_into(state, prev,
+                         ml_chunk_batched_plain(u, q, s, f, scal, count),
+                         scal, 5)
+    B, L, nx, ny = u.shape
+    dev = u.device
+    resident = pick_path(path, resident_ok(
+        L, nx, ny, *card_limits(dev, L, True)), "ml_chunk_batched")
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = torch.empty(4 * B * _lib().prost_ml_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_batched(state, prev, f.contiguous(), sc, partial,
+                    _scratch(resident, L, nx, ny, dev, B), resident,
+                    count, strides)
+    return sc[:, S_NORM:S_NORM + 4].T
+
+
+class MLBatchedChunk(LightChunk):
+    """``BatchedPDHG``'s light call of the batched multilabel chunk:
+    ``ml_chunk_batched_`` on the views of the run's own flat x, y, x_prev
+    and y_prev, with what depends only on the shapes made once per route:
+    the path (``resident_ok`` on one instance), the scratch, the norm
+    partials and the scalar buffer with every instance's radius and d_s.
+    A call writes the step sizes and the flags into the scalar buffer and
+    launches; on the CPU it runs the plain version."""
+
+    def __init__(self, m, batch: int, count: int, device):
+        super().__init__((m["radius"], m["d_s"]), device, batch)
+        self.count = int(count)
+        B, L, nx, ny = int(batch), m["L"], m["nx"], m["ny"]
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = resident_ok(L, nx, ny,
+                                        *card_limits(device, L, True))
+            self.partial = torch.empty(
+                4 * B * _lib().prost_ml_num_blocks(nx, ny),
+                dtype=torch.float32, device=device)
+            self.scratch = _scratch(self.resident, L, nx, ny, device, B)
+
+    def __call__(self, state, prev, f, tau, sigma, theta, converged):
+        """``count`` iterations of every instance of ``state`` (u, q, s)
+        in place, the previous iterate into ``prev``; ``converged`` sets
+        every instance's flag; returns norms2 (4, B)."""
+        self.scalars_(tau, sigma, theta, converged)
+        if self.resident is None:
+            scal = self.scal()
+            out = ml_chunk_batched_plain(*state, f, scal, self.count)
+            return halo_into(state, prev, out, scal, self.n_scal)
+        _launch_batched(state, prev, f, self.sc, self.partial, self.scratch,
+                        self.resident, self.count,
+                        _instance_strides(state, prev))
+        return self.norms2()
 
 
 def ml_multichunk(u, q, s, f, scal, count: int, k_chunks: int,

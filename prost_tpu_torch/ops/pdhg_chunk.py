@@ -506,14 +506,20 @@ def halo_into(state, prev, out, scal, n_scal: int = N_HALO_SCAL):
     state, the previous iterate, the norms): ``state`` takes the new
     iterate and ``prev`` the previous one, except where the converged flag
     (after the ``n_scal`` scalars of ``scal``, a halo chunk's eight by
-    default) is set, which leaves ``prev`` as it was.  Returns the squared
-    norms."""
-    conv = entry_converged(scal, n_scal)
+    default; for a batched chunk's (n, B) ``scal``, each instance's) is
+    set, which leaves ``prev`` as it was.  Returns the squared norms."""
+    if scal.dim() == 2:
+        conv = (scal[n_scal] != 0 if scal.shape[0] > n_scal else
+                torch.zeros(scal.shape[1], dtype=torch.bool,
+                            device=scal.device))
+    else:
+        conv = entry_converged(scal, n_scal)
     k = len(state)
     for t, v in zip(state, out[:k]):
         t.copy_(v)
     for t, v in zip(prev, out[k:2 * k]):
-        t.copy_(torch.where(conv, t, v))
+        c = conv.reshape(conv.shape + (1,) * (t.dim() - conv.dim()))
+        t.copy_(torch.where(c, t, v))
     return out[-1]
 
 
@@ -530,26 +536,37 @@ def halo_copy(inplace, state, *args):
 
 class LightChunk:
     """The scalar side of a route's light chunk call (the grid-resident
-    routes' ``DeblurChunk`` and ``MLChunk``): one device scalar buffer per
-    route, its family's two scalars (and a halo band's row context) written
-    once; a call writes its step sizes and converged flag into it in place,
-    two small device copies and no allocation.  ``scal()`` is the same call's
-    ``scal`` as the wrappers take it, for the plain versions."""
+    routes' ``DeblurChunk`` and ``MLChunk``, and with a ``batch`` of
+    instances ``MLBatchedChunk``): one device scalar buffer per route (one
+    block of S_LEN per instance), its family's two scalars (and a halo
+    band's row context) written once; a call writes its step sizes and
+    converged flag into it in place, a few small device copies and no
+    allocation of state.  ``scal()`` is the same call's ``scal`` as the
+    wrappers take it ((n, B) for a batch), for the plain versions."""
 
-    def __init__(self, consts, device):
+    def __init__(self, consts, device, batch=None):
         self.n_scal = 3 + len(consts)
-        self.sc = torch.zeros(S_LEN, dtype=torch.float32, device=device)
-        self.sc[3:self.n_scal] = torch.tensor([float(c) for c in consts])
+        shape = (S_LEN,) if batch is None else (int(batch), S_LEN)
+        self.sc = torch.zeros(shape, dtype=torch.float32, device=device)
+        self.sc[..., 3:self.n_scal] = torch.stack(
+            [torch.as_tensor(c, dtype=torch.float32).to(device).expand(
+                shape[:-1]) for c in consts], -1)
 
     def scalars_(self, tau, sigma, theta, converged) -> None:
-        torch.stack([tau, sigma, theta], out=self.sc[:3])
-        self.sc[S_CONV].copy_(converged)
+        if self.sc.dim() == 1:
+            torch.stack([tau, sigma, theta], out=self.sc[:3])
+        else:
+            self.sc[:, :3] = torch.stack([tau, sigma, theta], 1)
+        self.sc[..., S_CONV].copy_(converged)
 
     def scal(self):
-        return torch.cat([self.sc[:self.n_scal], self.sc[S_CONV:S_CONV + 1]])
+        sc = torch.cat([self.sc[..., :self.n_scal],
+                        self.sc[..., S_CONV:S_CONV + 1]], -1)
+        return sc if sc.dim() == 1 else sc.T
 
     def norms2(self):
-        return self.sc[S_NORM:S_NORM + 4]
+        norms = self.sc[..., S_NORM:S_NORM + 4]
+        return norms if norms.dim() == 1 else norms.T
 
 
 def own_vectors(s):

@@ -15,10 +15,11 @@ sizes); their data (prox coefficients, block values) may differ.
   and proxes rebuilt inside the mapped function from its slices of the
   stacked leaves.  ROF, fast-multilabel, deblur, tight-multilabel and
   volumetric-TV ensembles take a fused route instead, one batched chunk
-  kernel launch sequence per chunk for all instances
-  (``rof_chunk_batched``, ``ml_chunk_batched``, ``deblur_chunk_batched``,
-  ``tight_chunk_batched``, ``vol_chunk_batched``) on the phase plan of
-  ``ops/phases.py``.  A route is matched when every instance matches it
+  kernel launch (sequence) per chunk for all instances
+  (``rof_chunk_batched``, ``ml_chunk_batched`` through its light call
+  ``MLBatchedChunk`` in place on the run's own vectors,
+  ``deblur_chunk_batched``, ``tight_chunk_batched``, ``vol_chunk_batched``)
+  on the phase plan of ``ops/phases.py``.  A route is matched when every instance matches it
   with the same launch constants (sizes, taps, preconditioner constants);
   its per-instance data is stacked.  Other ensembles (deblur frames with
   different blurs, tight instances with different label counts) take the
@@ -54,11 +55,11 @@ from ..backend.pdhg import (BackendPDHG, PDHGOptions, PDHGState, hold_if,
                             pdhg_step, residual_and_adapt)
 from ..config import ProstError, dtype as config_dtype
 from ..ops.fused_deblur import deblur_chunk_batched, match_deblur_structure
-from ..ops.fused_multilabel import match_multilabel_structure, ml_chunk_batched
+from ..ops.fused_multilabel import MLBatchedChunk, match_multilabel_structure
 from ..ops.fused_rof import match_rof_structure, rof_chunk_batched
 from ..ops.fused_tight import match_tight_structure, tight_chunk_batched
 from ..ops.fused_vol import match_vol_structure, vol_chunk_batched
-from ..ops.pdhg_chunk import dead_dual_flat
+from ..ops.pdhg_chunk import dead_dual_flat, own_vectors
 from ..ops.phases import run_phases
 from ..solver import SolverOptions
 from .spatial import sp_mesh
@@ -381,17 +382,22 @@ class BatchedPDHG:
         return dataclasses.replace(s, y=canon(s.y), y_prev=canon(s.y_prev))
 
     def _ml_chunk(self, s: PDHGState, done) -> PDHGState:
+        """One batched chunk in place on the views of the run's own x, y,
+        x_prev and y_prev (``own_vectors``) through the route's light call
+        (``MLBatchedChunk``, made once per route)."""
         m, B = self.ml, self.batch
         L, nx, ny = m["L"], m["nx"], m["ny"]
         n2 = 2 * L * nx * ny
-        out = ml_chunk_batched(
-            s.x.reshape(B, L, nx, ny), s.y[:, :n2].reshape(B, 2 * L, nx, ny),
-            s.y[:, n2:].reshape(B, nx, ny), m["f"],
-            self._scal(s, m["radius"], m["d_s"], done),
-            self.ri)
-        u2, q2, s2, up, qp, sp, norms2 = out
-        return self._after_chunk(s, u2.reshape(B, -1), _flat(B, q2, s2),
-                                 up.reshape(B, -1), _flat(B, qp, sp), norms2,
+
+        def planes(x, y):
+            return (x.view(B, L, nx, ny), y[:, :n2].view(B, 2 * L, nx, ny),
+                    y[:, n2:].view(B, nx, ny))
+
+        if "call" not in m:
+            m["call"] = MLBatchedChunk(m, B, self.ri, s.x.device)
+        norms2 = m["call"](planes(s.x, s.y), planes(s.x_prev, s.y_prev),
+                           m["f"], s.tau, s.sigma, s.theta, done)
+        return self._after_chunk(s, s.x, s.y, s.x_prev, s.y_prev, norms2,
                                  done)
 
     def _vol_chunk(self, s: PDHGState, done) -> PDHGState:
@@ -469,7 +475,10 @@ class BatchedPDHG:
             done[0] = self._all_converged(s)
             return s
 
-        canonicalize = self._rof_canonical if name == "rof" else None
+        # the ROF canonicalization; the ml chunks work in place on the
+        # run's own copies of the state's vectors
+        canonicalize = {"rof": self._rof_canonical,
+                        "ml": own_vectors}.get(name)
         return run_phases(state, start_iter, until_iter, self.ri, 1 % self.ri,
                           generic, canonicalize, chunk,
                           epilogue=self._epilogue)

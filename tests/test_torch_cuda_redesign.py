@@ -1,10 +1,14 @@
 """The redesigned kernels on the card: ``rof_chunk_batched``'s cluster
 launch (each instance held on chip by a thread-block cluster),
 ``admm_iter_halo_``'s cooperative launch (one launch per iteration, at any
-Chebyshev degree), and the grid-resident chunks of ``deblur_chunk_`` and
+Chebyshev degree), the grid-resident chunks of ``deblur_chunk_`` and
 ``ml_chunk_`` and their halo forms (one cooperative launch a chunk, each
-block holding a band of rows in shared memory), bit for bit against the
-streaming launch sequences they replace.
+block holding a band of rows in shared memory), the grid-resident batched
+multilabel chunk ``ml_chunk_batched_`` (the instances one after another in
+one launch; ``-k ml_batched``) and the grid-resident ADMM multichunk
+``admm_multichunk_`` (every chunk of the launch with the planes in shared
+memory; ``-k admm_multichunk``), bit for bit against the streaming launch
+sequences they replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
 redesigns run the per-pixel arithmetic and the norm trees of the launch
@@ -382,3 +386,274 @@ def test_shape_rule_on_the_card(dev):
         launch(lib, "prost_ml_chunk_resident", "ml_chunk", fm.launch_counts,
                dev, [u, q, s, u.clone(), q.clone(), s.clone(), f, sc,
                      partial, terms], 9, 16, 16, 1 / 9, (1 / 9) ** 0.5, 0, 2)
+
+
+# ---------------------------------------------------------------------------
+# row 15: the batched multilabel chunk, its instances one after another
+# ---------------------------------------------------------------------------
+
+def _ml_batch(seed, B, L, nx, ny, dev, flags=None):
+    """A route's flat rows: x (B, L n), y (B, 2 L n + n), and f (B, L, nx,
+    ny) and the (5, B) (+ flags) scalar rows."""
+    rng = np.random.RandomState(seed)
+    n = nx * ny
+    x = rng.rand(B, L * n)
+    y = np.concatenate([0.3 * rng.randn(B, 2 * L * n),
+                        0.1 * rng.randn(B, n)], 1)
+    f = rng.rand(B, L, nx, ny)
+    rows = [0.8 + 0.2 * rng.rand(B), 0.9 + 0.3 * rng.rand(B), np.ones(B),
+            0.3 + 0.4 * rng.rand(B), rng.rand(B)]
+    if flags is not None:
+        rows.append(np.asarray(flags, np.float64))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (x, y, f, np.array(rows))]
+
+
+def _ml_views(x, y, L, nx, ny):
+    B, n2 = x.shape[0], 2 * L * nx * ny
+    return (x.view(B, L, nx, ny), y[:, :n2].view(B, 2 * L, nx, ny),
+            y[:, n2:].view(B, nx, ny))
+
+
+@pytest.mark.parametrize("B,L,nx,ny,ri,flags", [
+    (8, 8, 256, 256, 10, None),                      # the 8-instance config 3
+    (8, 8, 256, 256, 10, [0, 1, 0, 0, 1, 1, 0, 0]),  # with flagged instances
+    (3, 5, 250, 190, 3, [0, 1, 0]),                  # ragged
+    (1, 8, 256, 256, 10, None),                      # B = 1
+    (4, 1, 9, 40, 2, [1, 0, 0, 1])])
+def test_ml_batched_resident_is_streaming_and_each_instance(dev, B, L, nx,
+                                                            ny, ri, flags):
+    """``ml_chunk_batched_`` in place on a route's views: the resident
+    launch against the streaming sequence from the same inputs, and each
+    instance against ``ml_chunk_`` (resident) on that instance alone, bit
+    for bit in the state, the previous iterate and the norms; a flagged
+    instance's buffers untouched; one launch per call."""
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    x, y, f, scal = _ml_batch(80 + B + L, B, L, nx, ny, dev, flags)
+    got = {}
+    for path in ("streaming", "resident"):
+        cur = [x.clone(), y.clone()]
+        prev = [torch.full_like(x, 7.0), torch.full_like(y, 7.0)]
+        before = fm.launch_counts["ml_chunk_batched"]
+        norms2 = fm.ml_chunk_batched_(*_ml_views(*cur, L, nx, ny),
+                                      *_ml_views(*prev, L, nx, ny), f, scal,
+                                      ri, path=path).clone()
+        assert fm.launch_counts["ml_chunk_batched"] == before + 1
+        got[path] = cur + prev + [norms2]
+    torch.cuda.synchronize()
+    for a, b in zip(got["streaming"], got["resident"]):
+        assert torch.equal(a, b)
+    res = got["resident"]
+    views = _ml_views(res[0], res[1], L, nx, ny) + _ml_views(res[2], res[3],
+                                                             L, nx, ny)
+    ins = _ml_views(x, y, L, nx, ny)
+    for b in range(B):
+        if flags and flags[b]:
+            for a, i in zip(views[:3], ins):
+                assert torch.equal(a[b], i[b])
+            for a in views[3:]:
+                assert torch.all(a[b] == 7.0)
+            assert not res[4][:, b].any()
+            continue
+        cur = [i[b].contiguous().clone() for i in ins]
+        prev = [torch.empty_like(t) for t in cur]
+        one = fm.ml_chunk_(*cur, *prev, f[b], scal[:5, b], ri,
+                           path="resident")
+        for a, c in zip(views, cur + prev):
+            assert torch.equal(a[b], c)
+        assert torch.equal(res[4][:, b], one)
+
+
+def test_ml_batched_light_call_on_the_card(dev):
+    """``MLBatchedChunk`` at 8 instances of 256x256x8 takes the resident
+    path and leaves what ``ml_chunk_batched_`` leaves, twice in a row."""
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    B, L, n = 8, 8, 256
+    x, y, f, scal = _ml_batch(90, B, L, n, n, dev)
+    m = {"L": L, "nx": n, "ny": n, "radius": scal[3], "d_s": scal[4]}
+    call = fm.MLBatchedChunk(m, B, 10, dev)
+    assert call.resident
+    cur, prev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+    want_cur, want_prev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+    flag = torch.tensor(False, device=dev)
+    full = torch.cat([scal, torch.zeros(1, B, device=dev)])
+    for _ in range(2):
+        norms2 = call(_ml_views(*cur, L, n, n), _ml_views(*prev, L, n, n), f,
+                      scal[0], scal[1], scal[2], flag)
+        want = fm.ml_chunk_batched_(*_ml_views(*want_cur, L, n, n),
+                                    *_ml_views(*want_prev, L, n, n), f, full,
+                                    10, path="resident")
+        for a, b in zip(cur + prev + [norms2],
+                        want_cur + want_prev + [want]):
+            assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# row 9: the ADMM multichunk grid-resident
+# ---------------------------------------------------------------------------
+
+def _both_multichunks(planes, f, w, scal, count, k_chunks, degree, consts,
+                      dataterm):
+    """``admm_multichunk_`` by the launch sequence and by the resident
+    launch from the same inputs: (arrays, norms, sout) of each."""
+    from prost_tpu_torch.ops import fused_admm as fa
+
+    out = {}
+    for path in ("streaming", "resident"):
+        cur = [t.clone() for t in planes]
+        before = fa.launch_counts["admm_multichunk"]
+        norms, sout = fa.admm_multichunk_(*cur, f, w, scal, count, k_chunks,
+                                          1.7, degree, consts, dataterm,
+                                          path=path)
+        assert fa.launch_counts["admm_multichunk"] == before + 1
+        out[path] = cur + [norms.clone(), sout.clone()]
+    torch.cuda.synchronize()
+    return out
+
+
+def _admm_consts(nx, ny):
+    return (float(np.sqrt(2 * nx * ny)), float(np.sqrt(nx * ny)), 0.8, 1.01)
+
+
+@pytest.mark.parametrize("degree", [1, 10, 65])
+@pytest.mark.parametrize("dataterm", ["square", "wsquare", "abs"])
+@pytest.mark.parametrize("nx,ny", [(512, 512), (300, 190)])
+def test_admm_multichunk_resident_is_the_launch_sequence(dev, nx, ny,
+                                                         dataterm, degree):
+    """Every chunk runs (tolerance 0): the resident launch's arrays, norms
+    and sout bit-equal to the launch sequence's, from arrays with mass on
+    the dead z coordinates."""
+    planes = _admm_planes(100 + degree, nx, ny, dev)
+    scal = torch.tensor([1.3, 8.0, 1.0, 1.05, 0.0, 0.0, 0.0] + [0.0] * 4,
+                        device=dev)
+    out = _both_multichunks(planes[:7], *planes[7:], scal, 10, 8, degree,
+                            _admm_consts(nx, ny), dataterm)
+    for a, b in zip(out["streaming"], out["resident"]):
+        assert torch.equal(a, b)
+    assert out["resident"][8][4:].tolist() == [0.0, 8.0]
+    assert all(bool(torch.isfinite(t).all()) for t in out["resident"])
+
+
+def _solve_start(nx, ny, dev):
+    """A solve's first state (x_half = f = a smooth test image, the rest
+    zero), f and w."""
+    i, j = np.meshgrid(np.linspace(0, 1, nx), np.linspace(0, 1, ny),
+                       indexing="ij")
+    rng = np.random.RandomState(7)
+    f = (0.4 * ((i - 0.5) ** 2 + (j - 0.5) ** 2 < 0.09) + 0.3 * (i > 0.7)
+         + 0.05 * rng.randn(nx, ny)).astype(np.float32)
+    f = torch.from_numpy(f).to(dev)
+    zero, z = torch.zeros_like(f), torch.zeros((2, nx, ny), device=dev)
+    return [f, zero, zero, z, z, z, zero], f
+
+
+@pytest.mark.parametrize("nx,ny", [(512, 512), (300, 190)])
+def test_admm_multichunk_resident_converging_mid_call(dev, nx, ny):
+    """From a solve's start with tolerance 2e-3 rho adapts and the launch
+    converges before its last chunk: the resident launch leaves the loop
+    with the whole grid at the same chunk, bit-equal to the sequence,
+    rescale factor included."""
+    planes, f = _solve_start(nx, ny, dev)
+    scal = torch.tensor([1.0, 16.0, 1.0, 1.05, 0.0, 0.0, 0.0]
+                        + [2e-3] * 4, device=dev)
+    out = _both_multichunks(planes, f, f, scal, 10, 8, 10,
+                            _admm_consts(nx, ny), "square")
+    for a, b in zip(out["streaming"], out["resident"]):
+        assert torch.equal(a, b)
+    sout = out["resident"][8]
+    assert float(sout[4]) == 1.0 and float(sout[5]) < 8.0
+    assert float(sout[0]) != 1.0  # rho adapted
+
+
+def test_admm_multichunk_resident_with_the_flag_at_entry(dev):
+    from prost_tpu_torch.ops import fused_admm as fa
+
+    planes = _admm_planes(110, 512, 512, dev)
+    scal = torch.tensor([1.3, 8.0, 1.0, 1.05, 2.0, 3.0, 11.0] + [1e-3] * 4
+                        + [1.0], device=dev)
+    out = _both_multichunks(planes[:7], *planes[7:], scal, 10, 8, 10,
+                            _admm_consts(512, 512), "square")
+    for a, b in zip(out["streaming"], out["resident"]):
+        assert torch.equal(a, b)
+    for a, b in zip(out["resident"][:7], planes[:7]):
+        assert torch.equal(a, b)
+    assert out["resident"][8].tolist() == pytest.approx(
+        [1.3, 1.05, 2.0, 3.0, 1.0, 0.0])
+    assert fa.admm_resident_ok(512, 512, "square",
+                               *fa.admm_card_limits(dev))
+
+
+def test_admm_multichunk_light_call_on_the_card(dev):
+    """``ADMMMultichunk`` at config 4's 512x512 takes the resident path and
+    leaves what ``admm_multichunk_`` leaves, twice in a row from the state
+    it left (its scalar buffer reused)."""
+    from prost_tpu_torch.ops import fused_admm as fa
+
+    planes, f = _solve_start(512, 512, dev)
+    r = {"nx": 512, "ny": 512, "f": f, "w": f, "dataterm": "square",
+         "lmb_t": torch.tensor(16.0, device=dev),
+         "radius_t": torch.tensor(1.0, device=dev),
+         "tols_t": tuple(torch.tensor(1e-4, device=dev) for _ in range(4)),
+         "consts": _admm_consts(512, 512)}
+    call = fa.ADMMMultichunk(r, 10, 8, 1.7, 10, dev)
+    assert call.resident
+    cur = [t.clone() for t in planes]
+    want = [t.clone() for t in planes]
+    s = [torch.tensor(v, device=dev) for v in (1.0, 1.05, 0.0, 0.0)]
+    for it in (0, 80):
+        norms, sout = call(cur, *s, torch.tensor(it, device=dev),
+                           torch.tensor(False, device=dev))
+        scal = torch.tensor([1.0, 16.0, 1.0, 1.05, 0.0, 0.0, float(it)]
+                            + [1e-4] * 4 + [0.0], device=dev)
+        wn, ws = fa.admm_multichunk_(*want, f, f, scal, 10, 8, 1.7, 10,
+                                     r["consts"], "square", path="resident")
+        for a, b in zip(cur + [norms, sout], want + [wn, ws]):
+            assert torch.equal(a, b)
+
+
+def test_ml_batched_and_admm_multichunk_rules_on_the_card(dev):
+    """The card's limits send 8 instances of config 3 (and any batch of
+    them) and config 4 at 512x512 to the resident launches, 512x512x8
+    instances and the 2048x2048 ADMM plane to the streaming sequences;
+    asking for a resident launch that does not fit raises, and so does the
+    launch the C side refuses (9 labels)."""
+    from prost_tpu_torch.ops import fused_admm as fa
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    limits = fm.card_limits(dev, 8, True)
+    assert limits[0] == torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    assert fm.resident_ok(8, 256, 256, *limits)
+    assert not fm.resident_ok(8, 512, 512, *limits)
+    for dataterm in ("square", "wsquare", "abs"):
+        assert fa.admm_resident_ok(512, 512, dataterm,
+                                   *fa.admm_card_limits(dev))
+        assert not fa.admm_resident_ok(2048, 2048, dataterm,
+                                       *fa.admm_card_limits(dev))
+    x, y, f, scal = _ml_batch(120, 2, 8, 512, 512, dev)
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fm.ml_chunk_batched_(*_ml_views(x, y, 8, 512, 512),
+                             *_ml_views(x.clone(), y.clone(), 8, 512, 512),
+                             f, scal, 2, path="resident")
+    big = _admm_planes(121, 2048, 2048, dev)
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fa.admm_multichunk_(*big[:7], *big[7:],
+                            torch.tensor([1.3, 8.0, 1.0, 1.05, 0.0, 0.0, 0.0]
+                                         + [0.0] * 4, device=dev), 10, 8,
+                            1.7, 10, _admm_consts(2048, 2048),
+                            path="resident")
+    x, y, f, scal = _ml_batch(122, 2, 9, 16, 16, dev)
+    lib = fm._lib()
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = x.new_empty(8 * lib.prost_ml_num_blocks(16, 16))
+    terms = x.new_empty(4, 16, 16)
+    n = 16 * 16
+    with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+        launch(lib, "prost_ml_chunk_batched_resident", "ml_chunk_batched",
+               fm.launch_counts, dev,
+               [*_ml_views(x, y, 9, 16, 16),
+                *_ml_views(x.clone(), y.clone(), 9, 16, 16), f, sc, partial,
+                terms], 9, 16, 16, 1 / 9, (1 / 9) ** 0.5, 9 * n,
+               19 * n, 19 * n, 2, 2)
