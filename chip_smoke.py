@@ -92,7 +92,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    its own noise on the gray levels): fused batched against generic
    batched on every instance's energy (tight also on its constraint
    residual and unity error), instances 0 and 7 against single-instance
-   fused solves within 1e-6;
+   fused solves within 1e-6; the ml, vol and deblur ensembles also with
+   the batched chunks' light call in turns with the copying call
+   (``ensemble_turns``: instance-it/s, every instance's energy equal);
 14. run a few hundred iterations of the fused ROF routes at 2048x2048, of
    the fused multilabel route at 512x512x8, of the deblur route at
    2048x2048, of the tight route at 512x512x4 and of the volumetric route
@@ -118,9 +120,16 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    bands): bit-equal to the streaming sequences in the planes and the
    norms, in turns with them, the launches and traced device ms of each,
    and the call (the functional wrapper on copies, through the streaming
-   sequence, against the routes' light call) in turns; config 2 and
-   config 3 through the fused routes with the light call in turns with
-   that copying call (``copying_routes``), it/s and energies;
+   sequence, against the routes' light call) in turns; then rows 15 and 9
+   (``phase_resident_multi``: the batched multilabel chunk at 8 instances
+   of config 3, each instance also against ``ml_chunk_`` alone; the ADMM
+   multichunk at config 4's 512x512) and rows 25 and 18
+   (``phase_resident_batched``: the batched volumetric chunk at 8 volumes
+   of vol256x8, each also against ``vol_chunk`` alone; the batched deblur
+   chunk at 8 frames of config 2, each also against ``deblur_chunk_``
+   alone; both on a route's flat rows) the same way; config 2 and config 3
+   through the fused routes with the light call in turns with that
+   copying call (``copying_routes``), it/s and energies;
 16. solve config 1, config 3, vol256x8, config 2, tight128x4 and config 4
    (ROF 512x512 by Chebyshev ADMM) through ``ShardedFusedROF``,
    ``ShardedFusedMultilabel``, ``ShardedFusedVol``, ``ShardedFusedDeblur``,
@@ -779,14 +788,15 @@ def traced_call(fn):
     fn()
     torch.cuda.synchronize()
     events = []
-    for _ in range(3):  # a trace that caught no kernel at all is taken again
+    for _ in range(3):  # a trace that caught no hand-written kernel is
+        # taken again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
-        if events:
+        if any(kernel_name(e.name) in ours for e in events):
             break
     mine = [e for e in events if kernel_name(e.name) in ours]
     other = [e for e in events if kernel_name(e.name) not in ours]
@@ -2275,8 +2285,7 @@ def phase_small_ensembles(card):
         x = state.x.cpu().numpy()
         check(np.all(np.isfinite(x)), f"non-finite {kind} ensemble result")
         e_fused = np.array([energy(x[i], data[i]) for i in range(B)])
-        if kind == "ml":
-            ensemble_turns(b, data, energy, card)
+        ensemble_turns(kind, b, data, energy, card)
         setattr(b, kind, None)
         gstate, gdt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
         gx = gstate.x.cpu().numpy()
@@ -2303,12 +2312,12 @@ def phase_small_ensembles(card):
     return launches
 
 
-def ensemble_turns(b, data, energy, card):
-    """The multilabel ensemble ``b`` with the copying batched chunk call
-    (``copying_routes``) and with the light call, in turns (copying,
-    light, light, copying): the instance-it/s of each, and every
-    instance's energy, which must be equal to the last digit (the kernels
-    are bit-equal, the host's scalar work the same)."""
+def ensemble_turns(kind, b, data, energy, card):
+    """The ``kind`` (ml, vol or deblur) ensemble ``b`` with the copying
+    batched chunk call (``copying_routes``) and with the light call, in
+    turns (copying, light, light, copying): the instance-it/s of each, and
+    every instance's energy, which must be equal to the last digit (the
+    kernels are bit-equal, the host's scalar work the same)."""
     B = b.batch
     runs = []
     for old in (True, False, False, True):
@@ -2322,12 +2331,13 @@ def ensemble_turns(b, data, energy, card):
                      np.array([energy(x[i], data[i]) for i in range(B)])))
     (a, ea), (c, ec), (d, ed), (e, ee) = runs
     same = all(np.array_equal(ea, o) for o in (ec, ed, ee))
-    print(f"ml ensemble {B} instances in turns: copying batched chunk call "
-          f"{a:.1f} instance-it/s, light call {c:.1f}, {d:.1f}, copying "
+    print(f"{kind} ensemble {B} instances in turns: copying batched chunk "
+          f"call {a:.1f} instance-it/s, light call {c:.1f}, {d:.1f}, copying "
           f"{e:.1f}; every instance's energy equal in the four runs: {same} "
           f"[{card}]")
-    check(same, "ml ensemble: the light and the copying chunk calls "
+    check(same, f"{kind} ensemble: the light and the copying chunk calls "
           "disagree")
+    return {"copying": (a, e), "light": (c, d)}
 
 
 def phase_conv_ensembles(card):
@@ -2380,6 +2390,9 @@ def phase_conv_ensembles(card):
         x = state.x.cpu().numpy()
         check(np.all(np.isfinite(x)), f"non-finite {cell} result")
         fused = np.array([measures(x[i], data[i]) for i in range(B)])
+        if kind == "deblur":
+            ensemble_turns(cell, b, data,
+                           lambda x, d: measures(x, d)[0], card)
         setattr(b, kind, None)  # the generic batched path
         gstate, gdt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
         gx = gstate.x.cpu().numpy()
@@ -2951,6 +2964,215 @@ def phase_resident_multi(dev):
     return out
 
 
+def phase_resident_batched(dev):
+    """Rows 25 and 18 grid-resident against their launch sequences at the
+    main path's shapes, on a route's flat rows (ri 10):
+    ``vol_chunk_batched_`` at SMALL_ENS_B volumes of vol256x8 (256x256x8),
+    each volume also against ``vol_chunk`` on it alone, and
+    ``deblur_chunk_batched_`` at SMALL_ENS_B frames of config 2 (512x512,
+    the motion blur's 7 taps), each frame also against ``deblur_chunk_``
+    (resident) on it alone: both paths from the same inputs bit-equal; the
+    path the shape rule takes; each path in place on buffers made once, in
+    turns (streaming, resident, resident, streaming), with the hand-written
+    kernels each launches per call and their traced device ms, and the
+    resident launch's device ms at count 1; and the call, the copying one
+    (the wrapper on copies with buffers made per call, the streaming
+    sequence) against the route's light call in place
+    (``VolBatchedChunk``, ``DeblurBatchedChunk``), in turns, with the
+    device ms of PyTorch's kernels around each; and the deblur chunk's two
+    resident forms, one frame a block and two (``deblur_pairs_turns``)."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.ops import fused_vol as fv
+    from prost_tpu_torch.ops.pdhg_chunk import halo_copy
+
+    ri, B = 10, SMALL_ENS_B
+    flag = torch.tensor(False, device=dev)
+    rng = np.random.RandomState(640)
+    out = {}
+
+    def case(name, kernel, fn, views, x, y, data, extra, light, one):
+        """Row ``name``'s checks and timings on the route's rows x and y
+        (``views`` cuts them into the chunk's planes); ``one(b, cur,
+        prev)`` runs the single-instance kernel on instance b of the
+        inputs in place and returns its norms."""
+        label = f"{name} {B}x{'x'.join(map(str, views(x, y)[0].shape[1:]))}"
+        check(light.resident, f"{label}: the shape rule streams")
+        print(f"{label}: the shape rule takes the resident path")
+        got = {}
+        for path in ("streaming", "resident"):
+            cur, prev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+            norms2 = fn(*views(*cur), *views(*prev), *data, ri, *extra,
+                        path=path).clone()
+            got[path] = cur + prev + [norms2]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                      got["resident"]))
+              and all(bool(torch.isfinite(t).all())
+                      for t in got["resident"]),
+              f"{label}: the resident launch is not the streaming sequence")
+        res = views(*got["resident"][:2]) + views(*got["resident"][2:4])
+        for b in range(B):
+            cur = [v[b].contiguous().clone() for v in views(x, y)]
+            prev = [torch.empty_like(t) for t in cur]
+            norms = one(b, cur, prev)
+            check(all(torch.equal(a[b], c) for a, c in zip(res, cur + prev))
+                  and torch.equal(got["resident"][4][:, b], norms),
+                  f"{label}: instance {b} is not the single-instance kernel "
+                  "on it alone")
+        print(f"{label}: each instance bit-equal to the single-instance "
+              "kernel on it alone")
+        bufs = {p: ([x.clone(), y.clone()], [x.clone(), y.clone()])
+                for p in ("streaming", "resident")}
+
+        def run(path, count=ri):
+            return lambda: fn(*views(*bufs[path][0]), *views(*bufs[path][1]),
+                              *data, count, *extra, path=path)
+
+        def copying():
+            return halo_copy(lambda *a: fn(*a, path="streaming"),
+                             [v.contiguous() for v in views(x, y)], *data,
+                             ri, *extra)
+
+        lcur, lprev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+        steps = (data[-1][0], data[-1][1], data[-1][2])
+
+        def call():
+            return light(views(*lcur), views(*lprev), *data[:-1], *steps,
+                         flag)
+
+        out[name] = resident_turns(label, run, copying, call, kernel, ri - 1)
+
+    # row 25: the volumes of vol256x8's ensemble, square data term
+    L, n = VOL_LABELS, VOL_SIZE
+    N = L * n * n
+    x = torch.from_numpy(rng.rand(B, N).astype(np.float32)).to(dev)
+    y = torch.from_numpy((0.3 * rng.randn(B, 3 * N)).astype(
+        np.float32)).to(dev)
+    f = torch.from_numpy(rng.rand(B, L, n, n).astype(np.float32)).to(dev)
+    scal = batched_scal(641, B, VOL_LMB, 1.0, dev)
+
+    def vol_views(xx, yy):
+        return xx.view(B, L, n, n), yy.view(B, 3, L, n, n)
+
+    def vol_one(b, cur, prev):
+        o = fv.vol_chunk(*cur, f[b], f[b], scal[:, b], ri)
+        for t, v in zip(cur + prev, o[:4]):
+            t.copy_(v)
+        return o[4]
+
+    case("vol_chunk_batched", "vol_resident_batched", fv.vol_chunk_batched_,
+         vol_views, x, y, (f, f, scal), (),
+         fv.VolBatchedChunk({"L": L, "nx": n, "ny": n, "dataterm": "square",
+                             "lmb": scal[3], "radius": scal[4]}, B, ri, dev),
+         vol_one)
+
+    # row 18: the frames of deblur8x512, config 2's motion blur
+    n, kern = DB_SIZE, motion_kernel(DB_KLEN)
+    n2 = n + DB_KLEN - 1
+    m2, N = n2 * n2, n * n
+    taps = fd.kernel_taps(torch.as_tensor(kern.T, dtype=torch.float32))
+    x = torch.from_numpy(rng.rand(B, N).astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.concatenate(
+        [rng.randn(B, m2), 0.3 * rng.randn(B, 2 * N)], 1).astype(
+        np.float32)).to(dev)
+    fb = torch.from_numpy(rng.rand(B, n2, n2).astype(np.float32)).to(dev)
+    sv = torch.from_numpy((0.5 + rng.rand(B, n2, n2)).astype(
+        np.float32)).to(dev)
+    scal = batched_scal(642, B, DB_LMB * (0.5 + rng.rand(B)), 1.0, dev)
+
+    def db_views(xx, yy):
+        return (xx.view(B, n, n), yy[:, :m2].view(B, n2, n2),
+                yy[:, m2:].view(B, 2, n, n))
+
+    def db_one(b, cur, prev):
+        return fd.deblur_chunk_(*cur, *prev, fb[b], sv[b], scal[:, b], ri,
+                                taps, 0.5, 0.2, path="resident")
+
+    m_db = {"nx": n, "ny": n, "nx2": n2, "ny2": n2, "taps": taps,
+            "sig_q": 0.5, "tau_t": 0.2, "lmb": scal[3], "radius": scal[4]}
+    case("deblur_chunk_batched", "deblur_resident_batched",
+         fd.deblur_chunk_batched_, db_views, x, y, (fb, sv, scal),
+         (taps, 0.5, 0.2), fd.DeblurBatchedChunk(m_db, B, ri, dev), db_one)
+    out["deblur_chunk_batched"]["pairs"] = deblur_pairs_turns(
+        db_views, x, y, fb, sv, scal, taps, ri)
+    sms, smem = fv.card_limits(dev, L)
+    print(f"resident limits: {sms} SMs, {smem} bytes of dynamic shared "
+          f"memory a batched vol block (it holds "
+          f"{fv.resident_bytes(L, VOL_SIZE, VOL_SIZE, sms)} at "
+          f"{VOL_SIZE}x{VOL_SIZE}x{L}, "
+          f"{fv.resident_bytes(L, VOL_SIZE, VOL_SIZE, sms, 'wsquare')} with "
+          f"wsquare), {fd.card_limits(dev, fd.BATCHED)[1]} a batched deblur "
+          f"block (it holds {fd.resident_bytes(n2, n, n2, taps, sms)}, two "
+          f"frames {2 * fd.resident_bytes(n2, n, n2, taps, sms)} of "
+          f"{fd.card_limits(dev, fd.PAIRS)[1]})")
+    return out
+
+
+def deblur_pairs_turns(views, x, y, fb, sv, scal, taps, ri, reps=20):
+    """Row 18's two grid-resident forms at deblur8x512's shape, in place
+    on a route's rows ``x``, ``y`` (``views`` cuts them into the frames'
+    planes): the frames one after another (``deblur_resident_batched``
+    with G = 1, a block of 512 threads a frame) and two at a time side by
+    side (G = 2, a block of 1024 threads, each half a frame, the form the
+    shape rule takes, whose traced device ms
+    ``resident_turns`` reports), from the same inputs bit-equal; in turns
+    (serial, pairs, pairs, serial), each a launch with no PyTorch kernel
+    around it, timed by CUDA events."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.ops.pdhg_chunk import (S_CONV, S_LEN,
+                                                instance_strides,
+                                                scalar_buffer)
+
+    dev = x.device
+    B, nx, ny = views(x, y)[0].shape
+    nx2, ny2 = views(x, y)[1].shape[-2:]
+    limits = fd.card_limits(dev, fd.PAIRS)
+    check(fd.pairs_ok(nx2, ny, ny2, taps, *limits),
+          f"deblur_chunk_batched: two {nx}x{ny} frames do not fit a block "
+          f"({2 * fd.resident_bytes(nx2, ny, ny2, taps, limits[0])} bytes, "
+          f"{limits[1]} allowed)")
+    taps_t = fd.taps_array(tuple(taps), dev)
+
+    def form(pairs, count=ri):
+        cur, prev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+        sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+        partial = torch.empty(4 * B * fd._lib().prost_deblur_num_blocks(
+            nx2, ny2), dtype=torch.float32, device=dev)
+        scratch = fd._scratch(True, nx, ny, nx2, ny2, dev, B, pairs)
+        st, pv = views(*cur), views(*prev)
+        strides = instance_strides(st, pv, "deblur_chunk_batched_")
+
+        def go():
+            fd._launch_batched(st, pv, fb, sv, taps_t, sc, partial, scratch,
+                               True, count, taps, 0.5, 0.2, strides, pairs)
+            return sc
+
+        return go, cur + prev
+
+    outs = {}
+    for pairs in (False, True):
+        go, bufs = form(pairs)
+        sc = go()
+        outs[pairs] = bufs + [sc[:, 15:19].clone()]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(outs[False], outs[True])),
+          "deblur_chunk_batched: the frames two at a time are not the frames "
+          "one after another")
+    (s1, s2), (p1, p2) = in_turns(form(False)[0], form(True)[0], reps)
+    (c1, c2), (q1, q2) = in_turns(form(False, 1)[0], form(True, 1)[0], reps)
+    print(f"deblur_chunk_batched {B}x{nx}x{ny}, two frames a block: "
+          f"bit-equal to one frame a block; in place, in turns: one a block "
+          f"{s1:.4f} ms, two {p1:.4f}, two {p2:.4f}, one {s2:.4f} ms/call; "
+          f"at count 1: one a block {c1:.4f} ms, two {q1:.4f}, two "
+          f"{q2:.4f}, one {c2:.4f} ms/call")
+    return {"serial_ms": (s1, s2), "pairs_ms": (p1, p2),
+            "count1_serial_ms": (c1, c2), "count1_pairs_ms": (q1, q2)}
+
+
 def resident_turns(label, run, copying, call, kernel, extra_iters,
                    reps=20):
     """The timings of one resident redesign: ``run(path, count)`` makes a
@@ -2997,9 +3219,9 @@ def resident_turns(label, run, copying, call, kernel, extra_iters,
 def copying_routes():
     """A context in which the deblur and multilabel routes, whole-plane
     (``FusedROFPDHG``) and halo-sharded (``ShardedFusedDeblur``,
-    ``ShardedFusedMultilabel``), ``BatchedPDHG``'s multilabel route and
-    ``FusedROFADMM``'s multichunks make the copying call that the light
-    calls replace: the scalars
+    ``ShardedFusedMultilabel``), ``BatchedPDHG``'s multilabel, volumetric
+    and deblur routes and ``FusedROFADMM``'s multichunks make the copying
+    call that the light calls replace: the scalars
     stacked per chunk, the functional wrapper on copies of the state with
     buffers made per call, the streaming launch sequence, and y and y_prev
     concatenated after the chunk (whole plane, ensemble); the scalars
@@ -3015,6 +3237,7 @@ def copying_routes():
     from prost_tpu_torch.ops import fused_deblur as fd
     from prost_tpu_torch.ops import fused_multilabel as fm
     from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops import fused_vol as fv
     from prost_tpu_torch.ops.pdhg_chunk import (canonical_duals, chunk_state,
                                                 halo_copy, run_pdhg_route)
     from prost_tpu_torch.ops.phases import K_CHUNKS
@@ -3081,6 +3304,32 @@ def copying_routes():
                                  up.reshape(B, -1), ens._flat(B, qp, sp),
                                  norms2, done)
 
+    def vol_batched(self, s, done):
+        v, B = self.vol, self.batch
+        L, nx, ny = v["L"], v["nx"], v["ny"]
+        u2, q2, up, qp, norms2 = halo_copy(
+            streaming(fv.vol_chunk_batched_),
+            (s.x.reshape(B, L, nx, ny), s.y.reshape(B, 3, L, nx, ny)),
+            v["f"], v["w"], self._scal(s, v["lmb"], v["radius"], done),
+            self.ri, v["dataterm"])
+        return self._after_chunk(s, u2.reshape(B, -1), q2.reshape(B, -1),
+                                 up.reshape(B, -1), qp.reshape(B, -1),
+                                 norms2, done)
+
+    def deblur_batched(self, s, done):
+        d, B = self.deblur, self.batch
+        nx, ny, nx2, ny2 = d["nx"], d["ny"], d["nx2"], d["ny2"]
+        m2 = nx2 * ny2
+        x2, yv2, q2, xp, yvp, qp, norms2 = halo_copy(
+            streaming(fd.deblur_chunk_batched_),
+            (s.x.reshape(B, nx, ny), s.y[:, :m2].reshape(B, nx2, ny2),
+             s.y[:, m2:].reshape(B, 2, nx, ny)), d["fb"], d["sv"],
+            self._scal(s, d["lmb"], d["radius"], done), self.ri, d["taps"],
+            d["sig_q"], d["tau_t"])
+        return self._after_chunk(s, x2.reshape(B, -1), ens._flat(B, yv2, q2),
+                                 xp.reshape(B, -1), ens._flat(B, yvp, qp),
+                                 norms2, done)
+
     def admm_multi(b, s):
         r, opts = b.rof, b.run_opts
         ri, dt = max(int(opts.residual_iter), 1), s.x_half.dtype
@@ -3103,6 +3352,8 @@ def copying_routes():
     patches = [(fr, "fused_deblur_run", deblur_run),
                (fr, "fused_ml_run", ml_run),
                (ens.BatchedPDHG, "_ml_chunk", ml_batched),
+               (ens.BatchedPDHG, "_vol_chunk", vol_batched),
+               (ens.BatchedPDHG, "_deblur_chunk", deblur_batched),
                (fa, "_multi_chunk", admm_multi),
                (sf.ShardedFusedDeblur, "_light", None),
                (sf.ShardedFusedDeblur, "_chunk_halo", deblur_halo),
@@ -3625,6 +3876,7 @@ def main() -> int:
     rows.update(phase_halo_8b_kernels(dev))
     resident = phase_resident_kernels(dev)
     resident.update(phase_resident_multi(dev))
+    resident.update(phase_resident_batched(dev))
     torch.cuda.synchronize()
     launches, e_pdhg, d_pdhg = phase_solve(card)
     admm_launches, e_admm = phase_admm_solve(card, e_pdhg, d_pdhg)

@@ -14,11 +14,12 @@ lmb 1) and its volumetric TV model (vol256x8: eight noisy slices of
 data/dog.png at 256x256, lmb 6); each with residual_iter 10, 2000
 iterations in 10 callback epochs at tolerance 1e-5, after a warm-up
 solve of 200 iterations in one epoch (every phase's kernels launched).
-Then three of chip_smoke.py's ensembles through ``BatchedPDHG``'s fused
+Then four of chip_smoke.py's ensembles through ``BatchedPDHG``'s fused
 routes, tolerances 0, after a warm-up run: ensemble1024x128
-(BASELINE config 5, 21 + 1000 iterations), deblur8x512 and tight8x128x4
-(21 + 300), and each one's generic batched path (the vmapped
-``pdhg_step``) for 100 iterations.  Each of them three times:
+(BASELINE config 5, 21 + 1000 iterations), deblur8x512, tight8x128x4 and
+the 8-instance vol256x8 ensemble (21 + 300), and each one's generic
+batched path (the vmapped ``pdhg_step``) for 100 iterations.  Each of
+them three times:
 
 1. as a user runs it: the iterating time (host time inside the backend's
    ``run`` calls, each ending with a device sync) and, for each phase of
@@ -71,6 +72,8 @@ ENSEMBLES = {
                    f"{DB_SIZE}", SMALL_ENS_ITERS),
     "ens_tight": ("tight", SMALL_ENS_B, f"{SMALL_ENS_B}x{TIGHT_SIZE}x"
                   f"{TIGHT_SIZE}x{TIGHT_LABELS}", SMALL_ENS_ITERS),
+    "ens_vol": ("vol", SMALL_ENS_B, f"{SMALL_ENS_B}x{VOL_SIZE}x{VOL_SIZE}x"
+                f"{VOL_LABELS}", SMALL_ENS_ITERS),
 }
 GENERIC_ITERS = 100  # of each ensemble's generic batched path
 
@@ -190,6 +193,11 @@ def ensemble(name):
     elif route == "deblur":
         problems = [deblur_model(DB_SIZE, DB_SIZE, fb).finalize()
                     for fb in deblur_frames(B, DB_SIZE, DB_SIZE)]
+    elif route == "vol":  # chip_smoke.py's phase_small_ensembles' volumes
+        problems = [vol_model(VOL_SIZE, VOL_SIZE, VOL_LABELS,
+                              vol_data(VOL_LABELS, VOL_SIZE, VOL_SIZE,
+                                       seed=42 + i)).finalize()
+                    for i in range(B)]
     else:
         problems = [tight_model(TIGHT_SIZE, TIGHT_SIZE, TIGHT_LABELS,
                                 f).finalize()

@@ -59,7 +59,10 @@
 // 23 grid barriers, not by bytes.
 // A batched chunk of 8 frames of 512x512 streams 8 times that per launch
 // in 8 times the blocks: about 140 MB an iteration, beyond the 50 MB L2, so
-// it is bound by device memory traffic.
+// that sequence is bound by device memory traffic; where one frame's
+// planes fit (the same rule on one frame), the batched chunk runs instead
+// as one grid-resident launch that takes the frames one after another
+// (deblur_resident_batched), each as deblur_resident runs it alone.
 //
 // Design.  One thread per pixel, 32x8 blocks (pdhg_chunk.cuh): the primal
 // step runs on the (nx, ny) grid, the dual step and the norms on the (nx2,
@@ -163,29 +166,39 @@ struct DB {
   int nxg;  // image rows of a halo launch; 0: the whole plane
   float sig_q, tau_t;     // Sigma of the gradient rows, Tau
   float sqrt_q, sqrt_t;   // their square roots
+  // floats from one frame to the next of (x, xp), (yv, yvp) and (q, qp) in
+  // a batched launch: n, m2 and 2 n where each buffer holds its frames
+  // back to back; a route's flat y = [yv; q] rows give yv and q the
+  // stride m2 + 2 n
+  long long zx, zyv, zq;
 };
 
-// The buffers of this block's frame (blockIdx.z) of a batched launch, each
-// moved by its per-frame size with 64-bit offsets: (nx, ny) for x, (2, nx,
-// ny) for q and g, (nx2, ny2) for yv, bx, fb and sv.  The taps are shared,
-// and block_partials places the partials by blockIdx.z itself.
-__device__ __forceinline__ DB instance_of(DB b) {
-  size_t z = blockIdx.z, n = (size_t)b.nx * b.ny;
-  size_t m2 = (size_t)b.nx2 * b.ny2;
-  b.x += z * n;
-  b.xp += z * n;
-  b.q += 2 * z * n;
-  b.qp += 2 * z * n;
+// The buffers of frame z of a batched launch, each moved by its per-frame
+// stride with 64-bit offsets: zx, zyv and zq for the state and its
+// previous iterate, (2, nx, ny) for g, (nx2, ny2) for bx, fb and sv.  The
+// taps are shared.
+__device__ __forceinline__ DB frame_at(DB b, size_t z) {
+  size_t n = (size_t)b.nx * b.ny, m2 = (size_t)b.nx2 * b.ny2;
+  b.x += z * b.zx;
+  b.xp += z * b.zx;
+  b.q += z * b.zq;
+  b.qp += z * b.zq;
+  b.yv += z * b.zyv;
+  b.yvp += z * b.zyv;
   b.g += 2 * z * n;
   b.gp += 2 * z * n;
-  b.yv += z * m2;
-  b.yvp += z * m2;
   b.bx += z * m2;
   b.bxp += z * m2;
   b.fb += z * m2;
   b.sv += z * m2;
   b.sc += z * S_LEN;
   return b;
+}
+
+// The buffers of this block's frame (blockIdx.z) of a streaming launch;
+// block_partials places the partials by blockIdx.z itself.
+__device__ __forceinline__ DB instance_of(const DB& b) {
+  return frame_at(b, blockIdx.z);
 }
 
 // Pairwise tree sum of a stream of terms: level l holds the sum of the
@@ -541,15 +554,6 @@ __device__ __forceinline__ DBRes deblur_layout(float* smem, int lo, int rmax,
   return w;
 }
 
-// The pixel RES_THREADS further along a row-major walk of rows w wide.
-__device__ __forceinline__ void next_pixel(int& i, int& j, int w) {
-  j += RES_THREADS;
-  while (j >= w) {
-    j -= w;
-    ++i;
-  }
-}
-
 // Rows [a, e) of the (n, w) device plane `src` that exist into window
 // `dst` (its own rows in [0, n)).
 __device__ __forceinline__ void load_rows(const Win& dst, const float* src,
@@ -773,6 +777,125 @@ DBResKernel deblur_resident_kernel(int ntaps) {
   }
 }
 
+// The frames of a batched launch, G at a time (the body of
+// deblur_resident_batched<N, G>): thread group threadIdx.y of every block
+// runs the g-th frame of each set of G whose flags are clear, as
+// deblur_resident runs it alone, in its own `smem` and its own 4 planes
+// of `terms`; the groups meet at the same barriers.  An odd frame out
+// runs in every group, which write the same values to the same places.
+template <int G, typename T>
+__device__ __forceinline__ void deblur_frames(const DB& b, int count,
+                                              int reach, int rmax, int batch,
+                                              const T& t, float* smem) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const dim3 g = grid_of(b.nx2, b.ny2);
+  const size_t tiles = (size_t)g.x * g.y;
+  const size_t m2 = (size_t)b.nx2 * b.ny2;
+  bool first = true;
+  int set[G];
+  int have = 0;
+  for (int z = 0; z <= batch; ++z) {
+    if (z < batch) {
+      if (b.sc[(size_t)z * S_LEN + S_CONV] != 0.f) continue;
+      set[have++] = z;
+      if (have < G) continue;
+    } else if (have == 0) {
+      break;
+    }
+    const int f = set[(int)threadIdx.y < have ? threadIdx.y : 0];
+    DB bz = frame_at(b, f);
+    bz.partial += (size_t)f * 4 * tiles;
+    bz.terms += (size_t)threadIdx.y * 4 * m2;
+    if (!first) grid.sync();
+    first = false;
+    deblur_resident_body(bz, count, reach, rmax, t, smem);
+    have = 0;
+  }
+}
+
+// The batched chunk (deblur_fused_chunk_batched) grid-resident: the frames
+// G at a time, each as deblur_resident runs it alone, so each keeps its
+// planes in shared memory for its whole chunk (the streaming batched
+// sequence passes over all B frames' planes each half-step, about 140 MB
+// an iteration at B = 8 of 512x512, beyond the L2).  G = 1: one frame
+// after another; G = 2: two frames side by side in a block of two thread
+// groups of RES_THREADS, each with `half` floats of the shared memory
+// (where two frames' bands fit: half the grid barriers a frame, 32 warps
+// an SM to hide the convolutions' latency, at most 64 registers a
+// thread).  The taps are staged once a launch.  Every block reads frame
+// z's flag before any barrier of z (no chunk writes a flag, so all read
+// the same value) and skips a flagged frame whole.  Frame z's norm
+// partials lie at z times one frame's tiles; the terms planes are reused,
+// written by a set's last iteration only after every block has passed
+// the previous set's tiles.  A grid barrier between sets keeps block 0's
+// finish of the one off the shared memory the next one loads into.
+template <int N, int G>
+__global__ void __launch_bounds__(G * RES_THREADS, 1)
+    deblur_resident_batched(DB b, int count, int reach, int rmax, int batch,
+                            int half) {
+  extern __shared__ float smem[];
+  __shared__ Taps ts;
+  stage_taps(b.taps, b.ntaps, ts);
+  float* mine = smem + (size_t)threadIdx.y * half;
+  if constexpr (N > 0) {
+    const TapsN<N> t = taps_in_registers<N>(ts);
+    deblur_frames<G>(b, count, reach, rmax, batch, t, mine);
+  } else {
+    deblur_frames<G>(b, count, reach, rmax, batch, ts, mine);
+  }
+}
+
+using DBResBatchedKernel = void (*)(DB, int, int, int, int, int);
+
+template <int G>
+DBResBatchedKernel deblur_resident_batched_kernel(int ntaps) {
+  switch (ntaps) {
+    case 1: return deblur_resident_batched<1, G>;
+    case 2: return deblur_resident_batched<2, G>;
+    case 3: return deblur_resident_batched<3, G>;
+    case 4: return deblur_resident_batched<4, G>;
+    case 5: return deblur_resident_batched<5, G>;
+    case 6: return deblur_resident_batched<6, G>;
+    case 7: return deblur_resident_batched<7, G>;
+    case RES_REG_TAPS: return deblur_resident_batched<RES_REG_TAPS, G>;
+    default: return deblur_resident_batched<0, G>;
+  }
+}
+
+// The batched kernel for `ntaps` taps and `groups` (1 or 2) frames a
+// block.
+DBResBatchedKernel deblur_resident_batched_kernel(int ntaps, int groups) {
+  return groups == 2 ? deblur_resident_batched_kernel<2>(ntaps)
+                     : deblur_resident_batched_kernel<1>(ntaps);
+}
+
+// The dynamic shared memory of a resident launch on a yv grid of nx2 rows
+// with `groups` frames a block: DBRes for the largest band, at least the
+// reductions' array (`half` floats), for each group; or 0 where `kernel`
+// may not hold it on the current device (then `rc` holds the error).
+template <typename K>
+size_t resident_smem(K kernel, int nx2, int ny, int ny2, int reach,
+                     int groups, int& rmax, int& half, int& rc) {
+  int sms = 0;
+  rc = device_sms(&sms);
+  if (rc) return 0;
+  rmax = band_rows(nx2, sms);
+  size_t one = deblur_resident_floats(rmax, reach, ny, ny2) * sizeof(float);
+  if (one < (size_t)RES_RED_BYTES) one = RES_RED_BYTES;
+  half = (int)(one / sizeof(float));
+  size_t smem = groups * one;
+  int limit = resident_smem_limit(kernel);
+  if (limit < 0) {
+    rc = -limit;
+    return 0;
+  }
+  if (smem > (size_t)limit) {
+    rc = (int)cudaErrorInvalidValue;
+    return 0;
+  }
+  return smem;
+}
+
 // One chunk of `batch` frames: the seed, `count` iterations, the norm
 // partials on the (nx2, ny2) grid and the squared norms of every frame into
 // its scalars (one finish block each).
@@ -830,6 +953,9 @@ DB deblur_of(void* x, void* yv, void* q, void* xp, void* yvp, void* qp,
   b.tau_t = tau_t;
   b.sqrt_q = sqrt_q;
   b.sqrt_t = sqrt_t;
+  b.zx = (long long)nx * ny;
+  b.zyv = (long long)nx2 * ny2;
+  b.zq = 2 * b.zx;
   return b;
 }
 
@@ -864,20 +990,26 @@ int prost_deblur_chunk(void* x, void* yv, void* q, void* xp, void* yvp,
 
 // deblur_fused_chunk_batched: the same for `batch` frames sharing the taps
 // in one launch sequence; sc holds S_LEN scalars per frame, partial 4 per
-// block of the (nx2, ny2) grid per frame.  A frame whose sc[S_CONV] is set
-// is a no-op.
+// block of the (nx2, ny2) grid per frame; frame z of (x, xp), (yv, yvp)
+// and (q, qp) lies zx, zyv and zq floats after frame z - 1 (fb, sv and the
+// carried planes back to back).  A frame whose sc[S_CONV] is set is a
+// no-op.
 int prost_deblur_chunk_batched(void* x, void* yv, void* q, void* xp,
                                void* yvp, void* qp, void* bx, void* bxp,
                                void* g, void* gp, const void* fb,
                                const void* sv, const void* taps, void* sc,
                                void* partial, int nx, int ny, int nx2,
                                int ny2, int ntaps, float sig_q, float tau_t,
-                               float sqrt_q, float sqrt_t, int count,
+                               float sqrt_q, float sqrt_t, long long zx,
+                               long long zyv, long long zq, int count,
                                int batch, void* stream) {
   if (int rc = batch_error(batch)) return rc;
   DB b = deblur_of(x, yv, q, xp, yvp, qp, bx, bxp, g, gp, fb, sv, taps, sc,
                    partial, nx, ny, nx2, ny2, ntaps, sig_q, tau_t, sqrt_q,
                    sqrt_t);
+  b.zx = zx;
+  b.zyv = zyv;
+  b.zq = zq;
   return chunk(b, count, batch, (cudaStream_t)stream);
 }
 
@@ -921,23 +1053,53 @@ int prost_deblur_chunk_resident(void* x, void* yv, void* q, void* xp,
                    ntaps, sig_q, tau_t, sqrt_q, sqrt_t);
   b.terms = (float*)terms;
   b.nxg = nx_global;
-  int sms = 0;
-  if (int rc = device_sms(&sms)) return rc;
-  int rmax = band_rows(nx2, sms);
-  size_t smem = deblur_resident_floats(rmax, reach, ny, ny2) * sizeof(float);
-  if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
   DBResKernel kernel = deblur_resident_kernel(ntaps);
-  int limit = resident_smem_limit(kernel);
-  if (limit < 0) return -limit;
-  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int rmax = 0, half = 0, rc = 0;
+  size_t smem = resident_smem(kernel, nx2, ny, ny2, reach, 1, rmax, half, rc);
+  if (rc) return rc;
   void* args[] = {&b, &count, &reach, &rmax};
   return resident_launch(kernel, args, smem, (cudaStream_t)stream);
 }
 
-// The dynamic shared memory deblur_resident's blocks may hold on the
-// current device (the same for every tap count), or minus the error.
-int prost_deblur_resident_smem() {
-  return resident_smem_limit(deblur_resident_kernel(0));
+// deblur_fused_chunk_batched as one grid-resident cooperative launch
+// (deblur_resident_batched): the frames one after another, or with `pairs`
+// two at a time side by side, each bit-equal to
+// prost_deblur_chunk_resident on it alone; buffers, strides and flags as
+// prost_deblur_chunk_batched takes them, `terms` 4 (nx2, ny2) planes of
+// scratch shared by the frames (8 with `pairs`).  Refused as
+// prost_deblur_chunk_resident is.
+int prost_deblur_chunk_batched_resident(
+    void* x, void* yv, void* q, void* xp, void* yvp, void* qp,
+    const void* fb, const void* sv, const void* taps, void* sc,
+    void* partial, void* terms, int nx, int ny, int nx2, int ny2, int ntaps,
+    int reach, float sig_q, float tau_t, float sqrt_q, float sqrt_t,
+    long long zx, long long zyv, long long zq, int pairs, int count,
+    int batch, void* stream) {
+  if (int rc = batch_error(batch)) return rc;
+  DB b = deblur_of(x, yv, q, xp, yvp, qp, nullptr, nullptr, nullptr,
+                   nullptr, fb, sv, taps, sc, partial, nx, ny, nx2, ny2,
+                   ntaps, sig_q, tau_t, sqrt_q, sqrt_t);
+  b.terms = (float*)terms;
+  b.zx = zx;
+  b.zyv = zyv;
+  b.zq = zq;
+  const int groups = pairs ? 2 : 1;
+  DBResBatchedKernel kernel = deblur_resident_batched_kernel(ntaps, groups);
+  int rmax = 0, half = 0, rc = 0;
+  size_t smem = resident_smem(kernel, nx2, ny, ny2, reach, groups, rmax,
+                              half, rc);
+  if (rc) return rc;
+  void* args[] = {&b, &count, &reach, &rmax, &batch, &half};
+  return resident_launch(kernel, args, smem, (cudaStream_t)stream, groups);
+}
+
+// The dynamic shared memory a block of deblur_resident (kind 0) or of
+// deblur_resident_batched with one (1) or two (2) frames a block may hold
+// on the current device (the same for every tap count), or minus the
+// error.
+int prost_deblur_resident_smem(int kind) {
+  if (kind == 0) return resident_smem_limit(deblur_resident_kernel(0));
+  return resident_smem_limit(deblur_resident_batched_kernel(0, kind));
 }
 
 }  // extern "C"

@@ -361,15 +361,6 @@ __global__ void ml_norm_partial(ML b) {
 // the load, two an iteration, one before the tiles, one before the finish.
 // ---------------------------------------------------------------------------
 
-// A window of rows [r0, r0 + rows) of L label planes in shared memory.
-struct LWin {
-  float* a;
-  int r0, rows, w;
-  __device__ __forceinline__ float& at(int l, int i, int j) const {
-    return a[((size_t)l * rows + (i - r0)) * w + j];
-  }
-};
-
 struct MLRes {
   LWin u, qx, qy, gx, gy, f;  // f's rows take w_hat after the last primal
   LWin s, su;                 // one plane each
@@ -380,13 +371,6 @@ __host__ __device__ __forceinline__ size_t ml_resident_floats(int L,
                                                               int rmax,
                                                               int ny) {
   return ((size_t)2 * L * (rmax + 1) + (size_t)4 * L * rmax + 2 * rmax) * ny;
-}
-
-__device__ __forceinline__ LWin take(float*& p, int planes, int r0, int rows,
-                                     int w) {
-  LWin v{p, r0, rows, w};
-  p += (size_t)planes * rows * w;
-  return v;
 }
 
 __device__ __forceinline__ MLRes ml_layout(float* smem, int L, int lo,
@@ -402,29 +386,6 @@ __device__ __forceinline__ MLRes ml_layout(float* smem, int L, int lo,
   w.s = take(p, 1, lo, rmax, ny);
   w.su = take(p, 1, lo, rmax, ny);
   return w;
-}
-
-// The pixel RES_THREADS further along a row-major walk of rows w wide.
-__device__ __forceinline__ void next_pixel(int& i, int& j, int w) {
-  j += RES_THREADS;
-  while (j >= w) {
-    j -= w;
-    ++i;
-  }
-}
-
-// Rows [a, e) of the L (n, w) device planes at `src` (planes n w apart)
-// that exist into window `dst` (its own rows in [0, n)).
-__device__ __forceinline__ void load_rows(const LWin& dst, const float* src,
-                                          int L, int a, int e, int n) {
-  a = a < 0 ? 0 : a;
-  e = e > n ? n : e;
-  const int per = (e - a) * dst.w;
-  if (per <= 0) return;
-  for (int k = threadIdx.x; k < L * per; k += RES_THREADS) {
-    int l = k / per, i = a + k % per / dst.w, j = k % dst.w;
-    dst.at(l, i, j) = src[((size_t)l * n + i) * dst.w + j];
-  }
 }
 
 // One chunk of one instance by the whole grid (the body of ml_resident and

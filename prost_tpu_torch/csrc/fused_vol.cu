@@ -41,7 +41,14 @@
 // fits the 50 MB L2, and 134 MB at 512x512x8, which does not.  The TPU
 // kernels hold that state in VMEM for a chunk; here it lives in device
 // memory, so every kernel is bound by memory traffic and, at these sizes,
-// by launch latency: a chunk of ri iterations is 2*ri + 3 launches.
+// by launch latency: a chunk of ri iterations is 2*ri + 3 launches.  The
+// batched sequence streams all B instances' volumes at once, 268 MB an
+// iteration at B = 8 of 256x256x8, beyond the L2.  Where one instance's
+// volumes fit in the shared memory of one block per SM (the wrapper's
+// shape rule: 256x256x8, not 512x512x8), the batched chunk runs instead
+// as one grid-resident cooperative launch that takes the instances one
+// after another (vol_resident_batched, further down), bit-equal to the
+// sequence.
 //
 // Design.  One thread per (i, j) pixel of the 32x8 pixel grid of
 // pdhg_chunk.cuh, looping over the L labels, as in fused_multilabel.cu: the
@@ -91,24 +98,34 @@ struct Vol {
   const float* w;
   float* sc;
   float* partial;  // 4 per block
+  float* terms;    // the resident chunk's norm terms, 4 (nx, ny) planes
   int L, nx, ny;
   int nxg;  // rows of the global plane of a halo launch; 0: the whole plane
+  // floats from one instance to the next of (u, up) and (q, qp) in a
+  // batched launch: L n and 3 L n where each buffer holds its instances
+  // back to back, or the rows of a route's flat x and y
+  long long zu, zq;
 };
 
-// The buffers of this block's instance (blockIdx.z) of a batched launch,
-// each moved by its per-instance size with 64-bit offsets.
-__device__ __forceinline__ Vol instance_of(Vol b) {
-  size_t z = blockIdx.z, nl = (size_t)b.nx * b.ny * b.L;
-  b.u += z * nl;
-  b.q += 3 * z * nl;
-  b.up += z * nl;
-  b.qp += 3 * z * nl;
+// The buffers of instance z of a batched launch, each moved by its
+// per-instance stride with 64-bit offsets.
+__device__ __forceinline__ Vol instance_at(Vol b, size_t z) {
+  size_t nl = (size_t)b.nx * b.ny * b.L;
+  b.u += z * b.zu;
+  b.q += z * b.zq;
+  b.up += z * b.zu;
+  b.qp += z * b.zq;
   b.g += 3 * z * nl;
   b.gp += 3 * z * nl;
   b.f += z * nl;
   b.w += z * nl;
   b.sc += z * S_LEN;
   return b;
+}
+
+// The buffers of this block's instance (blockIdx.z) of a streaming launch.
+__device__ __forceinline__ Vol instance_of(const Vol& b) {
+  return instance_at(b, blockIdx.z);
 }
 
 // K^T q at voxel (l, i, j): the maskless x and y adjoints (exact, the dead
@@ -289,6 +306,329 @@ __global__ void vol_norm_partial(Vol b) {
   block_partials(v, b.partial);
 }
 
+// ---------------------------------------------------------------------------
+// The grid-resident batched chunk (vol_resident_batched): one cooperative
+// launch runs what chunk() runs in 2 count + 3 launches for B instances,
+// the instances one after another.
+//
+// What bounds it.  At vol256x8's shape (256x256x8, ri 10) the streaming
+// batched sequence passes over all B instances' volumes each half-step:
+// about 16 volumes of 2 MiB an iteration per instance, 268 MB an
+// iteration at B = 8, beyond the 50 MB L2, so it is bound by device
+// memory.  One instance's chunk state (u, q, g, f: 8 volumes, 16 MB; 9
+// with wsquare's w) fits in the shared memory of the card's SMs.
+//
+// Design.  One block of RES_THREADS on each SM; block b owns the rows
+// band_of(nx, b, G) of every label plane of an instance and holds them in
+// shared memory (VolRes) from the load to the norms: u with 1 row below,
+// q_x with 1 row above (the stencils' reach), and the band's rows of q_y,
+// q_l, g_x, g_y, g_l and f (and w).  The label neighbours (u[l+1] in the
+// dual step, q_l[l-1] in the primal step and the norms) ride in a
+// register along the l loop, as in vol_primal and vol_dual, so the only
+// exchange is u's row below after the primal step and q_x's row above
+// after the dual step: each half-step writes the plane its neighbours
+// read to its device buffer (u, q_x; q_y and q_l on the aligned
+// iteration), and after a grid barrier every block copies in the one row
+// its next half-step reads.  The aligned primal step writes u_prev and
+// keeps w_hat in f's rows (f is not read again); the aligned dual step
+// writes q_prev and the terms of |pd|^2 and |z_hat|^2 (the previous
+// gradient in registers); after the last exchange K^T q of the new duals
+// completes |dd|^2 and |w_hat|^2.  The per-voxel expressions are
+// vol_seed's, vol_primal's, vol_dual's and vol_norm_partial's, in the
+// same order, and the norms reduce through the same tiles and finish
+// (coop_tile_partials, finish_block): each instance is bit-equal to the
+// streaming sequence in the volumes and the norms.  The instances run one
+// after another, each as one chunk of the whole grid: every block reads
+// instance z's flag before any barrier of z (no chunk writes a flag, so
+// all read the same value) and skips a flagged instance whole; instance
+// z's norm partials lie at z times one instance's tiles; the terms planes
+// are shared, written by z's last iteration only after every block has
+// passed z - 1's tiles; a grid barrier between instances keeps block 0's
+// finish of one off the shared memory the next one loads into.  Up to
+// MAX_RES_L labels (the loops over them unrolled); the wrapper's shape
+// rule streams more.  Barriers: one after the load, two an iteration, one
+// before the tiles, one before the finish, one between instances.
+// ---------------------------------------------------------------------------
+
+constexpr int MAX_RES_L = 8;  // mirrored by ops/fused_vol.py
+
+struct VolRes {
+  LWin u, qx, qy, ql, gx, gy, gl;
+  LWin f;  // its rows take w_hat after the last primal step
+  LWin w;  // wsquare's weights (f again for the other data terms)
+};
+
+// Floats of VolRes for bands of at most rmax rows (with w where wsq).
+__host__ __device__ __forceinline__ size_t vol_resident_floats(int L,
+                                                               int rmax,
+                                                               int ny,
+                                                               int wsq) {
+  return ((size_t)2 * L * (rmax + 1) + (size_t)(6 + (wsq ? 1 : 0)) * L * rmax)
+         * ny;
+}
+
+__device__ __forceinline__ VolRes vol_layout(float* smem, int L, int lo,
+                                             int rmax, int ny, bool wsq) {
+  VolRes v;
+  float* p = smem;
+  v.u = take(p, L, lo, rmax + 1, ny);
+  v.qx = take(p, L, lo - 1, rmax + 1, ny);
+  v.qy = take(p, L, lo, rmax, ny);
+  v.ql = take(p, L, lo, rmax, ny);
+  v.gx = take(p, L, lo, rmax, ny);
+  v.gy = take(p, L, lo, rmax, ny);
+  v.gl = take(p, L, lo, rmax, ny);
+  v.f = take(p, L, lo, rmax, ny);
+  v.w = wsq ? take(p, L, lo, rmax, ny) : v.f;
+  return v;
+}
+
+// One chunk of one instance by the whole grid, the instance's flag found
+// clear by every block: load, seed, `count` iterations, the norms' terms
+// and tiles, and the finish in block 0, which leaves `smem` to the next
+// instance only after a grid barrier.
+template <int LT>
+__device__ __forceinline__ void vol_resident_chunk(
+    const Vol& b, int count, int dataterm, int rmax, float* smem,
+    cooperative_groups::grid_group& grid) {
+  constexpr int L = LT;
+  const int nx = b.nx, ny = b.ny;
+  const size_t n = (size_t)nx * ny, nl = n * L;
+  const RowCtx r = row_ctx(b.sc, nx, b.nxg);
+  const bool wsq = dataterm == DT_WSQUARE;
+  int lo, hi;
+  band_of(nx, blockIdx.x, gridDim.x, lo, hi);
+  const VolRes v = vol_layout(smem, L, lo, rmax, ny, wsq);
+  const int npx = (hi - lo) * ny;
+
+  load_rows(v.u, b.u, L, lo, hi + 1, nx);
+  load_rows(v.qx, b.q, L, lo - 1, hi, nx);
+  load_rows(v.qy, b.q + nl, L, lo, hi, nx);
+  load_rows(v.ql, b.q + 2 * nl, L, lo, hi, nx);
+  load_rows(v.f, b.f, L, lo, hi, nx);
+  if (wsq) load_rows(v.w, b.w, L, lo, hi, nx);
+  __syncthreads();
+  // vol_seed: the dead duals zeroed (also on the q_x row above the band),
+  // grad3 u of the band
+  const int top = lo > 0 ? lo - 1 : lo;
+  for (int k = threadIdx.x, i = top + k / ny, j = k % ny; k < (hi - top) * ny;
+       k += RES_THREADS, next_pixel(i, j, ny)) {
+    const bool dead = dead_row(r, i);
+    if (i < lo) {
+      if (dead) {
+#pragma unroll
+        for (int l = 0; l < L; ++l) v.qx.at(l, i, j) = 0.f;
+      }
+      continue;
+    }
+    const bool below = has_below(r, i, nx);
+    float un = v.u.at(0, i, j);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      float uv = un;
+      un = l < L - 1 ? v.u.at(l + 1, i, j) : 0.f;
+      v.gx.at(l, i, j) = below ? v.u.at(l, i + 1, j) - uv : 0.f;
+      v.gy.at(l, i, j) = j < ny - 1 ? v.u.at(l, i, j + 1) - uv : 0.f;
+      v.gl.at(l, i, j) = un - uv;
+      if (dead) v.qx.at(l, i, j) = 0.f;
+      if (j == ny - 1) v.qy.at(l, i, j) = 0.f;
+    }
+  }
+  grid.sync();
+
+  // the launch's scalars and the constants the voxel loops share, each the
+  // same expression of them as in the streaming kernels
+  const float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
+  const float theta = b.sc[S_THETA], radius = b.sc[S_RADIUS];
+  const float tau = tau_raw * TAU_C;  // tau * Tau
+  const float tl = tau * b.sc[S_LMB];
+  const float sigma_p = sigma_raw * 0.5f;  // sigma * Sigma
+  const float sig_p = sigma_p * (1.f + theta);
+  const float sig_t = sigma_p * theta;
+  const float tp = 1.f + theta;
+  const float inv_s = 1.f / (sigma_raw * SQRT_S);
+  const float inv_t = 1.f / (tau_raw * SQRT_T);
+  for (int it = 0; it < count; ++it) {
+    const bool last = it == count - 1;
+    // vol_primal
+    for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
+         k += RES_THREADS, next_pixel(i, j, ny)) {
+      const size_t p = (size_t)i * ny + j;
+      const bool above = has_above(r, i);
+      float ql_below = 0.f;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const size_t pl = l * n + p;
+        float qx = v.qx.at(l, i, j), qy = v.qy.at(l, i, j);
+        float ql = v.ql.at(l, i, j);
+        float lx = above ? v.qx.at(l, i - 1, j) : 0.f;
+        float ly = j > 0 ? v.qy.at(l, i, j - 1) : 0.f;
+        float kty = ((lx - qx) + (ly - qy)) + (ql_below - ql);
+        ql_below = ql;
+        float uv = v.u.at(l, i, j);
+        float arg = uv - tau * kty;
+        float fv = v.f.at(l, i, j);
+        float un;
+        if (dataterm == DT_SQUARE) {
+          float dt0 = tl * fv;
+          float dt1 = 1.f / (1.f + tl);
+          un = (arg + dt0) * dt1;
+        } else if (dataterm == DT_WSQUARE) {
+          float tw = tl * v.w.at(l, i, j);
+          float dt0 = tw * fv;
+          float dt1 = 1.f / (1.f + tw);
+          un = (arg + dt0) * dt1;
+        } else {  // abs
+          float d = arg - fv;
+          un = arg - fminf(fmaxf(d, -tl), tl);
+        }
+        if (last) {
+          b.up[pl] = uv;
+          v.f.at(l, i, j) = (uv - un) * inv_t - SQRT_T * kty;  // w_hat
+        }
+        v.u.at(l, i, j) = un;
+        b.u[pl] = un;
+      }
+    }
+    grid.sync();
+    load_rows(v.u, b.u, L, hi, hi + 1, nx);
+    __syncthreads();
+    // vol_dual
+    for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
+         k += RES_THREADS, next_pixel(i, j, ny)) {
+      const size_t p = (size_t)i * ny + j;
+      const bool below = has_below(r, i, nx);
+      const bool own = last && owned_row(r, i);
+      float v0 = 0.f, v1 = 0.f;
+      float un = v.u.at(0, i, j);
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const size_t pl = l * n + p;
+        float uv = un;
+        un = l < L - 1 ? v.u.at(l + 1, i, j) : 0.f;
+        float gxn = below ? v.u.at(l, i + 1, j) - uv : 0.f;
+        float gyn = j < ny - 1 ? v.u.at(l, i, j + 1) - uv : 0.f;
+        float gln = un - uv;
+        float qx = v.qx.at(l, i, j), qy = v.qy.at(l, i, j);
+        float ql = v.ql.at(l, i, j);
+        float gx = v.gx.at(l, i, j), gy = v.gy.at(l, i, j);
+        float gl = v.gl.at(l, i, j);
+        float ax = (qx + sig_p * gxn) - sig_t * gx;
+        float ay = (qy + sig_p * gyn) - sig_t * gy;
+        float al = (ql + sig_p * gln) - sig_t * gl;
+        float nn = (ax * ax + ay * ay) + al * al;
+        float scale = nn > 0.f ? fminf(1.f, radius * rsqrtf(nn)) : 1.f;
+        float qxn = ax * scale, qyn = ay * scale, qln = al * scale;
+        if (last) {
+          b.qp[pl] = qx;
+          b.qp[nl + pl] = qy;
+          b.qp[2 * nl + pl] = ql;
+        }
+        if (own) {  // vol_norm_partial's |pd|^2 and |z_hat|^2 terms
+          float z0 = (qx - qxn) * inv_s + SQRT_S * (tp * gxn - theta * gx);
+          float z1 = (qy - qyn) * inv_s + SQRT_S * (tp * gyn - theta * gy);
+          float z2 = (ql - qln) * inv_s + SQRT_S * (tp * gln - theta * gl);
+          float pd0 = z0 - SQRT_S * gxn;
+          float pd1 = z1 - SQRT_S * gyn;
+          float pd2 = z2 - SQRT_S * gln;
+          v0 += (pd0 * pd0 + pd1 * pd1) + pd2 * pd2;
+          v1 += (z0 * z0 + z1 * z1) + z2 * z2;
+        }
+        v.qx.at(l, i, j) = qxn;
+        v.qy.at(l, i, j) = qyn;
+        v.ql.at(l, i, j) = qln;
+        v.gx.at(l, i, j) = gxn;
+        v.gy.at(l, i, j) = gyn;
+        v.gl.at(l, i, j) = gln;
+        b.q[pl] = qxn;
+        if (last) {
+          b.q[nl + pl] = qyn;
+          b.q[2 * nl + pl] = qln;
+        }
+      }
+      if (last) {
+        b.terms[p] = v0;
+        b.terms[n + p] = v1;
+      }
+    }
+    grid.sync();
+    load_rows(v.qx, b.q, L, lo - 1, lo, nx);
+    __syncthreads();
+  }
+
+  // |dd|^2 and |w_hat|^2: K^T q of the new duals
+  for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
+       k += RES_THREADS, next_pixel(i, j, ny)) {
+    const size_t p = (size_t)i * ny + j;
+    float v2 = 0.f, v3 = 0.f;
+    if (owned_row(r, i)) {
+      const bool above = has_above(r, i);
+      float ql_below = 0.f;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        float qx = v.qx.at(l, i, j), qy = v.qy.at(l, i, j);
+        float ql = v.ql.at(l, i, j);
+        float lx = above ? v.qx.at(l, i - 1, j) : 0.f;
+        float ly = j > 0 ? v.qy.at(l, i, j - 1) : 0.f;
+        float kty2 = ((lx - qx) + (ly - qy)) + (ql_below - ql);
+        ql_below = ql;
+        float wh = v.f.at(l, i, j);
+        float dd = wh + SQRT_T * kty2;
+        v2 += dd * dd;
+        v3 += wh * wh;
+      }
+    }
+    b.terms[2 * n + p] = v2;
+    b.terms[3 * n + p] = v3;
+  }
+  grid.sync();
+  coop_tile_partials(b.terms, nx, ny, b.partial, smem);
+  grid.sync();
+  if (blockIdx.x == 0) {
+    AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    dim3 g = grid_of(nx, ny);
+    finish_block(reinterpret_cast<float(*)[FIN]>(smem), b.sc, b.partial,
+                 (int)(g.x * g.y), count, 0, STEP_NONE, none);
+  }
+}
+
+template <int LT>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    vol_resident_batched(Vol b, int count, int dataterm, int rmax,
+                         int batch) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  extern __shared__ float smem[];
+  const dim3 g = grid_of(b.nx, b.ny);
+  const size_t tiles = (size_t)g.x * g.y;
+  bool first = true;
+  for (int z = 0; z < batch; ++z) {
+    Vol bz = instance_at(b, z);
+    if (bz.sc[S_CONV] != 0.f) continue;
+    bz.partial += (size_t)z * 4 * tiles;
+    if (!first) grid.sync();
+    first = false;
+    vol_resident_chunk<LT>(bz, count, dataterm, rmax, smem, grid);
+  }
+}
+
+// The resident batched chunk's kernel for L labels, or null beyond
+// MAX_RES_L.
+using VolResKernel = void (*)(Vol, int, int, int, int);
+
+VolResKernel vol_resident_kernel(int L) {
+  switch (L) {
+    case 1: return vol_resident_batched<1>;
+    case 2: return vol_resident_batched<2>;
+    case 3: return vol_resident_batched<3>;
+    case 4: return vol_resident_batched<4>;
+    case 5: return vol_resident_batched<5>;
+    case 6: return vol_resident_batched<6>;
+    case 7: return vol_resident_batched<7>;
+    case MAX_RES_L: return vol_resident_batched<MAX_RES_L>;
+    default: return nullptr;
+  }
+}
+
 // One chunk of `count` iterations of `batch` instances without the seed:
 // count-1 plain iterations, the aligned iteration saving u_prev / q_prev /
 // grad3 u_prev, and the per-block norm partials.
@@ -336,10 +676,13 @@ Vol vol_of(void* u, void* q, void* up, void* qp, void* g, void* gp,
   b.w = (const float*)w;
   b.sc = (float*)sc;
   b.partial = (float*)partial;
+  b.terms = nullptr;
   b.L = L;
   b.nx = nx;
   b.ny = ny;
   b.nxg = 0;
+  b.zu = (long long)nx * ny * L;
+  b.zq = 3 * b.zu;
   return b;
 }
 
@@ -371,14 +714,61 @@ int prost_vol_chunk(void* u, void* q, void* up, void* qp, void* g, void* gp,
 
 // vol_fused_chunk_batched: the same for `batch` instances in one launch
 // sequence; sc holds S_LEN scalars per instance, partial 4 per block per
-// instance.  An instance whose sc[S_CONV] is set is a no-op.
+// instance; instance z of (u, up) and (q, qp) lies zu and zq floats after
+// instance z - 1 (f, w and the carried volumes back to back).  An instance
+// whose sc[S_CONV] is set is a no-op.
 int prost_vol_chunk_batched(void* u, void* q, void* up, void* qp, void* g,
                             void* gp, const void* f, const void* w, void* sc,
-                            void* partial, int L, int nx, int ny, int count,
+                            void* partial, int L, int nx, int ny,
+                            long long zu, long long zq, int count,
                             int dataterm, int batch, void* stream) {
   if (int rc = batch_error(batch)) return rc;
   Vol b = vol_of(u, q, up, qp, g, gp, f, w, sc, partial, L, nx, ny);
+  b.zu = zu;
+  b.zq = zq;
   return chunk(b, count, dataterm, batch, (cudaStream_t)stream);
+}
+
+// vol_fused_chunk_batched as one grid-resident cooperative launch
+// (vol_resident_batched): the instances one after another, each bit-equal
+// to prost_vol_chunk on it alone; buffers, strides and flags as
+// prost_vol_chunk_batched takes them, `terms` 4 (nx, ny) planes of
+// scratch shared by the instances.  Up to MAX_RES_L labels; a band's
+// volumes that do not fit in one block's shared memory are refused
+// (cudaErrorCooperativeLaunchTooLarge or cudaErrorInvalidValue).
+int prost_vol_chunk_batched_resident(void* u, void* q, void* up, void* qp,
+                                     const void* f, const void* w, void* sc,
+                                     void* partial, void* terms, int L,
+                                     int nx, int ny, long long zu,
+                                     long long zq, int count, int dataterm,
+                                     int batch, void* stream) {
+  if (int rc = batch_error(batch)) return rc;
+  VolResKernel kernel = vol_resident_kernel(L);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  Vol b = vol_of(u, q, up, qp, nullptr, nullptr, f, w, sc, partial, L, nx,
+                 ny);
+  b.terms = (float*)terms;
+  b.zu = zu;
+  b.zq = zq;
+  int sms = 0;
+  if (int rc = device_sms(&sms)) return rc;
+  int rmax = band_rows(nx, sms);
+  size_t smem = vol_resident_floats(L, rmax, ny, dataterm == DT_WSQUARE)
+                * sizeof(float);
+  if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
+  int limit = resident_smem_limit(kernel);
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  void* args[] = {&b, &count, &dataterm, &rmax, &batch};
+  return resident_launch(kernel, args, smem, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory vol_resident_batched's blocks may hold on the
+// current device (for L labels), or minus the error.
+int prost_vol_resident_smem(int L) {
+  VolResKernel kernel = vol_resident_kernel(L);
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  return resident_smem_limit(kernel);
 }
 
 // vol_fused_chunk_halo: vol_chunk on one halo-extended shard of the nx

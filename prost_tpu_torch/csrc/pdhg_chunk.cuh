@@ -25,9 +25,11 @@
 //   which both JAX multichunk kernels share);
 // * the pieces of a grid-resident chunk (one cooperative launch, one block
 //   of RES_THREADS on each SM, each block holding a band of rows of every
-//   plane in shared memory): the bands (band_of), the per-tile norm
-//   partials from per-pixel terms (coop_tile_partials, the tree of
-//   block_partials) and the launch itself (resident_launch);
+//   plane in shared memory): the bands (band_of), the windows of label
+//   planes' rows in shared memory (LWin, take), the walk over a band's
+//   pixels (next_pixel) and the row copies into a window (load_rows), the
+//   per-tile norm partials from per-pixel terms (coop_tile_partials, the
+//   tree of block_partials) and the launch itself (resident_launch);
 // * LAUNCH_CHECK, which returns a launch's error from the C entry point.
 //
 // Every source that includes this header is its own library with a plain C
@@ -288,6 +290,45 @@ __device__ __forceinline__ void coop_tile_partials(
   }
 }
 
+// A window of rows [r0, r0 + rows) of L label planes in shared memory.
+struct LWin {
+  float* a;
+  int r0, rows, w;
+  __device__ __forceinline__ float& at(int l, int i, int j) const {
+    return a[((size_t)l * rows + (i - r0)) * w + j];
+  }
+};
+
+__device__ __forceinline__ LWin take(float*& p, int planes, int r0, int rows,
+                                     int w) {
+  LWin v{p, r0, rows, w};
+  p += (size_t)planes * rows * w;
+  return v;
+}
+
+// The pixel RES_THREADS further along a row-major walk of rows w wide.
+__device__ __forceinline__ void next_pixel(int& i, int& j, int w) {
+  j += RES_THREADS;
+  while (j >= w) {
+    j -= w;
+    ++i;
+  }
+}
+
+// Rows [a, e) of the L (n, w) device planes at `src` (planes n w apart)
+// that exist into window `dst` (its own rows in [0, n)).
+__device__ __forceinline__ void load_rows(const LWin& dst, const float* src,
+                                          int L, int a, int e, int n) {
+  a = a < 0 ? 0 : a;
+  e = e > n ? n : e;
+  const int per = (e - a) * dst.w;
+  if (per <= 0) return;
+  for (int k = threadIdx.x; k < L * per; k += RES_THREADS) {
+    int l = k / per, i = a + k % per / dst.w, j = k % dst.w;
+    dst.at(l, i, j) = src[((size_t)l * n + i) * dst.w + j];
+  }
+}
+
 // The SMs of the current device, found once per device.
 inline int device_sms(int* sms) {
   static int cached[64];
@@ -320,11 +361,13 @@ int resident_smem_limit(K kernel) {
   return optin - (int)attr.sharedSizeBytes;
 }
 
-// One cooperative launch of `kernel` with one block of RES_THREADS on each
-// SM and `smem` bytes of dynamic shared memory; the card refuses it
+// One cooperative launch of `kernel` with one block of `groups` x
+// RES_THREADS threads (threadIdx.y the group) on each SM and `smem` bytes
+// of dynamic shared memory; the card refuses it
 // (cudaErrorCooperativeLaunchTooLarge) where a block does not fit on an SM.
 template <typename K>
-int resident_launch(K kernel, void** args, size_t smem, cudaStream_t st) {
+int resident_launch(K kernel, void** args, size_t smem, cudaStream_t st,
+                    int groups = 1) {
   int sms = 0;
   if (int rc = device_sms(&sms)) return rc;
   cudaError_t e = cudaFuncSetAttribute(
@@ -332,7 +375,7 @@ int resident_launch(K kernel, void** args, size_t smem, cudaStream_t st) {
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms),
-                                  dim3(RES_THREADS), args, smem, st);
+                                  dim3(RES_THREADS, groups), args, smem, st);
   if (e != cudaSuccess) return (int)e;
   e = cudaGetLastError();
   return (int)e;

@@ -22,19 +22,21 @@ with a plain PyTorch version beside each wrapper here:
   ending on a residual iteration, with the four squared preconditioned
   residual norms;
 * ``deblur_chunk_batched`` (JAX ``deblur_fused_chunk_batched``): one chunk
-  for each of B frames that share one blur, in one launch sequence, the
-  batched ensembles' route (``parallel/ensemble.py``);
+  for each of B frames that share one blur, in one launch, or one launch
+  sequence, the batched ensembles' route (``parallel/ensemble.py``);
 * ``deblur_chunk_halo`` (JAX ``deblur_fused_chunk_halo``): one chunk on a
   halo-extended band of the (nx2, ny2) grid's rows, x and q cut at the same
   global rows, the spatially sharded route's (``parallel/spatial_fused.py``).
 
-The single-instance chunk and its halo mode have in-place forms,
-``deblur_chunk_`` and ``deblur_chunk_halo_``, and the routes call them
-through ``DeblurChunk``, which makes their buffers once per route.  On a
-card each runs as one grid-resident cooperative launch where the shape
-rule (``resident_ok``) finds that its planes fit in the shared memory of
-one block per SM, and as the streaming launch sequence otherwise; both are
-bit-equal.  The batched chunk always streams.
+The single-instance chunk, its halo mode and the batched chunk have
+in-place forms, ``deblur_chunk_``, ``deblur_chunk_halo_`` and
+``deblur_chunk_batched_``, and the routes call them through
+``DeblurChunk`` and ``DeblurBatchedChunk``, which make their buffers once
+per route.  On a card each runs as one grid-resident cooperative launch
+where the shape rule (``resident_ok``, on one frame: a batched launch runs
+its frames one after another) finds that one frame's planes fit in the
+shared memory of one block per SM, and as the streaming launch sequence
+otherwise; both are bit-equal.
 
 The JAX package has no multichunk kernel for this workload, and neither
 has the port.  A wrapper given CPU tensors runs the plain version; given CUDA
@@ -62,6 +64,7 @@ the JAX package, which zeroes no dead dual coordinate on this route.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -76,13 +79,14 @@ from ..prox.combinators import ProxMoreau
 from ..prox.elemop import ProxElem1D
 from ..prox.standalone import ProxZero
 from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
-                         S_NORM, VP, ChunkWork, LightChunk, ball_scale,
-                         card_sms, check_buffers, check_halo, check_inplace,
+                         S_NORM, VP, LightChunk, ball_scale, card_sms,
+                         check_buffers, check_halo, check_inplace,
                          chunk_state, coeff_vector, dual_ball_radius,
-                         entry_converged, halo_copy, halo_into, isscalar,
-                         launch, own_vectors, pick_path, resident_rows,
-                         run_pdhg_route, scalar_buffer, segment_const,
-                         typed_lib, vmap_plain)
+                         entry_converged, halo_copy, halo_into,
+                         instance_strides, isscalar, launch, own_vectors,
+                         pick_path, resident_rows, run_pdhg_route,
+                         scalar_buffer, segment_const, typed_lib,
+                         vmap_plain)
 
 MAX_TAPS = 96  # nonzero convolution taps the kernel takes
 
@@ -363,13 +367,16 @@ def _lib():
     """The fused deblur kernel library, built from csrc/fused_deblur.cu on
     first use."""
     head = [VP] * 15 + [CI] * 5 + [CF] * 4
+    resident = [VP] * 12 + [CI] * 6 + [CF] * 4
+    strides = [ctypes.c_longlong] * 3
     return typed_lib("fused_deblur", "prost_deblur_num_blocks", {
         "prost_deblur_chunk": head + [CI, VP],
-        "prost_deblur_chunk_batched": head + [CI, CI, VP],
+        "prost_deblur_chunk_batched": head + strides + [CI, CI, VP],
         "prost_deblur_chunk_halo": head + [CI, CI, VP],
-        "prost_deblur_chunk_resident": [VP] * 12 + [CI] * 6 + [CF] * 4
-                                       + [CI, CI, VP],
-        "prost_deblur_resident_smem": []})
+        "prost_deblur_chunk_resident": resident + [CI, CI, VP],
+        "prost_deblur_chunk_batched_resident": resident + strides
+                                               + [CI, CI, CI, VP],
+        "prost_deblur_resident_smem": [CI]})
 
 
 def taps_reach(taps) -> int:
@@ -391,39 +398,58 @@ def resident_bytes(nx2: int, ny: int, ny2: int, taps, sms: int) -> int:
 
 def resident_ok(nx2: int, ny: int, ny2: int, taps, sms: int,
                 smem: int) -> bool:
-    """The shape rule of ``deblur_chunk_`` and ``deblur_chunk_halo_``: a
-    chunk on a yv grid of ``nx2`` rows runs as one grid-resident launch
-    (csrc/fused_deblur.cu deblur_resident, one block per SM) where the
+    """The shape rule of ``deblur_chunk_``, ``deblur_chunk_halo_`` and, on
+    one frame, ``deblur_chunk_batched_``: a chunk on a yv grid of ``nx2``
+    rows runs as one grid-resident launch (csrc/fused_deblur.cu
+    deblur_resident, deblur_resident_batched; one block per SM) where the
     planes of its largest band fit in ``smem`` bytes of a block's dynamic
     shared memory on a card of ``sms`` SMs, and as the streaming launch
     sequence otherwise."""
     return resident_bytes(nx2, ny, ny2, taps, sms) <= int(smem)
 
 
+def pairs_ok(nx2: int, ny: int, ny2: int, taps, sms: int, smem: int) -> bool:
+    """Whether the grid-resident batched chunk can run its frames two at a
+    time (csrc/fused_deblur.cu deblur_resident_batched<N, 2>, two thread
+    groups a block): two frames' bands fit in ``smem`` bytes of a block's
+    dynamic shared memory."""
+    return 2 * resident_bytes(nx2, ny, ny2, taps, sms) <= int(smem)
+
+
+# the kernels whose shared-memory limit card_limits reads
+SINGLE, BATCHED, PAIRS = 0, 1, 2
+
+
 @functools.lru_cache(maxsize=None)
-def card_limits(device) -> tuple:
-    """(SMs, the dynamic shared memory a block of the grid-resident chunk
-    may hold) of the card ``device``, read once."""
+def card_limits(device, kind: int = SINGLE) -> tuple:
+    """(SMs, the dynamic shared memory a block of the grid-resident chunk,
+    of kind ``SINGLE``, ``BATCHED`` or ``PAIRS``, may hold) of the card
+    ``device``, read once."""
     lib = _lib()
     with torch.cuda.device(device):
-        smem = lib.prost_deblur_resident_smem()
+        smem = lib.prost_deblur_resident_smem(int(kind))
     if smem < 0:
         raise ProstError(f"deblur_chunk: no shared-memory limit for the "
                          f"resident chunk on {device} (CUDA error {-smem}).")
     return card_sms(device), smem
 
 
-def _scratch(resident: bool, nx, ny, nx2, ny2, device):
+def _scratch(resident: bool, nx, ny, nx2, ny2, device, batch: int = 0,
+             pairs: bool = False):
     """A chunk launch's scratch: the grid-resident chunk's norm terms (4
-    planes of the yv grid), or the streaming sequence's carried planes
-    (B x and grad x, of this iterate and of the previous one)."""
+    planes of the yv grid, which a batched launch's frames share; 8 where
+    it runs them two at a time), or the streaming sequence's carried planes
+    (B x and grad x, of this iterate and of the previous one; with
+    ``batch``, of every frame)."""
+    lead = (batch,) if batch else ()
+
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
     if resident:
-        return [empty(4, nx2, ny2)]
-    return [empty(nx2, ny2), empty(nx2, ny2), empty(2, nx, ny),
-            empty(2, nx, ny)]
+        return [empty(8 if pairs else 4, nx2, ny2)]
+    return [empty(*lead, nx2, ny2), empty(*lead, nx2, ny2),
+            empty(*lead, 2, nx, ny), empty(*lead, 2, nx, ny)]
 
 
 def _launch_chunk(what: str, state, prev, fb, sv, taps_t, sc, partial, scratch,
@@ -609,7 +635,7 @@ class DeblurChunk(LightChunk):
 def deblur_chunk_batched(x, yv, q, fb, sv, scal, count: int, taps,
                          sig_q: float, tau_t: float):
     """``deblur_chunk`` for each of B frames that share one blur (the taps,
-    sig_q and tau_t) in one launch sequence.
+    sig_q and tau_t) in one launch (sequence).
 
     x: (B, nx, ny); q: (B, 2, nx, ny); yv, fb, sv: (B, nx2, ny2); scal: (5,
     B), a row each of tau, sigma, theta, lmb and radius (+ an optional row
@@ -617,24 +643,141 @@ def deblur_chunk_batched(x, yv, q, fb, sv, scal, count: int, taps,
     inputs back).  Returns (x2, yv2, q2, x_prev, yv_prev, q_prev, norms2),
     norms2 (4, B) the SQUARED preconditioned residual norms of each frame.
     Frame b comes out as ``deblur_chunk`` on frame b alone.  CPU tensors run
-    the plain version; CUDA tensors launch the kernel."""
+    the plain version; CUDA tensors run ``deblur_chunk_batched_`` on
+    copies."""
     _check(x, yv, q, fb, sv, scal, count, taps, batched=True)
     if x.device.type == "cpu":
         return deblur_chunk_batched_plain(x, yv, q, fb, sv, scal, count,
                                           taps, sig_q, tau_t)
-    lib = _lib()
-    nx, ny = x.shape[-2:]
+    return halo_copy(deblur_chunk_batched_, (x, yv, q), fb, sv, scal, count,
+                     taps, sig_q, tau_t)
+
+
+def _launch_batched(state, prev, fb, sv, taps_t, sc, partial, scratch,
+                    resident: bool, count: int, taps, sig_q: float,
+                    tau_t: float, strides, pairs: bool = False):
+    """One batched chunk on the card in place on ``state`` (x, yv, q) and
+    ``prev``: the grid-resident launch (the frames one after another, or
+    with ``pairs`` two at a time) or the streaming sequence (all at once),
+    counted under ``deblur_chunk_batched``."""
+    x, yv = state[0], state[1]
+    B, nx, ny = x.shape
     nx2, ny2 = yv.shape[-2:]
-    wk = ChunkWork((x, yv, q), (yv, q), scal, 5,
-                   lib.prost_deblur_num_blocks(nx2, ny2))
+    shape = (nx, ny, nx2, ny2, len(taps))
     # sqrt(Sigma_q) and sqrt(Tau) rounded once from double, as the plain
     # version rounds its Python constants
-    launch(lib, "prost_deblur_chunk_batched", "deblur_chunk_batched",
-           launch_counts, x.device,
-           wk.buffers(fb, sv, taps_array(tuple(taps), x.device)),
-           nx, ny, nx2, ny2, len(taps), sig_q, tau_t, sig_q ** 0.5,
-           tau_t ** 0.5, int(count), x.shape[0])
-    return wk.outputs()
+    roots = (sig_q, tau_t, sig_q ** 0.5, tau_t ** 0.5)
+    tail = (*strides, int(count), B)
+    lib = _lib()
+    if resident:
+        launch(lib, "prost_deblur_chunk_batched_resident",
+               "deblur_chunk_batched", launch_counts, x.device,
+               [*state, *prev, fb, sv, taps_t, sc, partial, *scratch],
+               *shape, taps_reach(taps), *roots, *strides, int(pairs),
+               int(count), B)
+    else:
+        launch(lib, "prost_deblur_chunk_batched", "deblur_chunk_batched",
+               launch_counts, x.device,
+               [*state, *prev, *scratch, fb, sv, taps_t, sc, partial],
+               *shape, *roots, *tail)
+
+
+def deblur_chunk_batched_(x, yv, q, x_prev, yv_prev, q_prev, fb, sv, scal,
+                          count: int, taps, sig_q: float, tau_t: float,
+                          path=None):
+    """``deblur_chunk_batched`` in place: every frame of (x, yv, q)
+    advances by ``count`` iterations and the previous buffers take its
+    iterate before the aligned one; a frame whose flag is set changes
+    nothing.  yv and q may be views of a route's flat y (see
+    ``instance_strides``).  Returns norms2 (4, B).  On a card ``path``
+    None takes the shape rule's path (``resident_ok`` on one frame,
+    whatever B): one grid-resident launch where one frame's planes fit on
+    chip (csrc/fused_deblur.cu deblur_resident_batched<N, G>: G = 2 frames
+    at a time side by side where two frames' bands fit in a block and
+    B > 1, else one after another), else the streaming launch sequence;
+    "resident" or "streaming" asks for one ("resident" raises where it
+    does not fit)."""
+    state, prev = (x, yv, q), (x_prev, yv_prev, q_prev)
+    _check(*state, fb, sv, scal, count, taps, batched=True)
+    strides = instance_strides(state, prev, "deblur_chunk_batched_")
+    if x.device.type == "cpu":
+        return halo_into(state, prev, deblur_chunk_batched_plain(
+            *state, fb, sv, scal, count, taps, sig_q, tau_t), scal, 5)
+    B, nx, ny = x.shape
+    nx2, ny2 = yv.shape[-2:]
+    dev = x.device
+    resident = pick_path(path, resident_ok(nx2, ny, ny2, taps,
+                                           *card_limits(dev, BATCHED)),
+                         "deblur_chunk_batched")
+    pairs = resident and _two_a_block(B, nx2, ny, ny2, taps, dev)
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = torch.empty(4 * B * _lib().prost_deblur_num_blocks(nx2, ny2),
+                          dtype=torch.float32, device=dev)
+    _launch_batched(state, prev, fb.contiguous(), sv.contiguous(),
+                    taps_array(tuple(taps), dev), sc, partial,
+                    _scratch(resident, nx, ny, nx2, ny2, dev, B, pairs),
+                    resident, count, taps, sig_q, tau_t, strides, pairs)
+    return sc[:, S_NORM:S_NORM + 4].T
+
+
+def _two_a_block(B: int, nx2: int, ny: int, ny2: int, taps, device) -> bool:
+    """Whether a grid-resident batched launch of B frames runs them two at
+    a time (deblur_resident_batched<N, 2>): where two frames' bands fit in
+    a block, from two frames on (one frame alone would run in both
+    halves).  Two a block took 1.0183 ms a chunk of 8 frames of config 2
+    against 1.1203-1.1219 one a block, in turns (NVIDIA H100 80GB HBM3,
+    ``chip_smoke.py``'s ``deblur_pairs_turns``)."""
+    return B > 1 and pairs_ok(nx2, ny, ny2, taps, *card_limits(device,
+                                                               PAIRS))
+
+
+class DeblurBatchedChunk(LightChunk):
+    """``BatchedPDHG``'s light call of the batched deblur chunk:
+    ``deblur_chunk_batched_`` on the views of the run's own flat x, y,
+    x_prev and y_prev, with what depends only on the shapes made once per
+    route: the path (``resident_ok`` on one frame; two frames a block
+    where they fit), the taps' device array, the scratch, the norm
+    partials and the scalar buffer with every frame's lmb and radius.  A
+    call writes the step sizes and the flags into the scalar buffer and
+    launches; on the CPU it runs the plain version."""
+
+    def __init__(self, m, batch: int, count: int, device):
+        super().__init__((m["lmb"], m["radius"]), device, batch)
+        self.m, self.count = m, int(count)
+        B = int(batch)
+        nx, ny, nx2, ny2 = (m[k] for k in ("nx", "ny", "nx2", "ny2"))
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = resident_ok(nx2, ny, ny2, m["taps"],
+                                        *card_limits(device, BATCHED))
+            self.pairs = self.resident and _two_a_block(B, nx2, ny, ny2,
+                                                        m["taps"], device)
+            self.taps_t = taps_array(m["taps"], device)
+            self.partial = torch.empty(
+                4 * B * _lib().prost_deblur_num_blocks(nx2, ny2),
+                dtype=torch.float32, device=device)
+            self.scratch = _scratch(self.resident, nx, ny, nx2, ny2, device,
+                                    B, self.pairs)
+
+    def __call__(self, state, prev, fb, sv, tau, sigma, theta, converged):
+        """``count`` iterations of every frame of ``state`` (x, yv, q) in
+        place, the previous iterate into ``prev``; ``converged`` sets every
+        frame's flag; returns norms2 (4, B)."""
+        self.scalars_(tau, sigma, theta, converged)
+        m = self.m
+        if self.resident is None:
+            scal = self.scal()
+            out = deblur_chunk_batched_plain(*state, fb, sv, scal,
+                                             self.count, m["taps"],
+                                             m["sig_q"], m["tau_t"])
+            return halo_into(state, prev, out, scal, self.n_scal)
+        _launch_batched(state, prev, fb, sv, self.taps_t, self.sc,
+                        self.partial, self.scratch, self.resident,
+                        self.count, m["taps"], m["sig_q"], m["tau_t"],
+                        instance_strides(state, prev,
+                                         "deblur_chunk_batched_"),
+                        self.pairs)
+        return self.norms2()
 
 
 # ---------------------------------------------------------------------------

@@ -75,10 +75,11 @@ from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
                          check_buffers, check_halo, check_inplace,
                          chunk_state, coeff_vector, dx, dy, dyt,
                          entry_converged, halo_copy, halo_into,
-                         halo_scal_rows, isscalar, launch, leq0_ball_radius,
-                         multichunk_plain, multichunk_state, own_vectors,
-                         pick_path, resident_rows, run_pdhg_route,
-                         scalar_buffer, typed_lib, vmap_plain)
+                         halo_scal_rows, instance_strides, isscalar, launch,
+                         leq0_ball_radius, multichunk_plain, multichunk_state,
+                         own_vectors, pick_path, resident_rows,
+                         run_pdhg_route, scalar_buffer, typed_lib,
+                         vmap_plain)
 from .phases import K_CHUNKS
 
 _SQRT_T = 0.4472135954999579    # sqrt(Tau)     = sqrt(1/5)
@@ -498,33 +499,6 @@ def ml_chunk_batched(u, q, s, f, scal, count: int):
     return halo_copy(ml_chunk_batched_, (u, q, s), f, scal, count)
 
 
-def _instance_strides(state, prev):
-    """The floats from one instance to the next of each of the batched
-    buffers ``state`` (u, q, s) and of ``prev``, which must match them:
-    each instance contiguous in itself, the instances at any one stride
-    (q and s may be views of a route's flat (B, 2 L n + n) y)."""
-    strides = []
-    for a, b in zip(state, prev):
-        inner = a.shape[1:]
-        for t in (a, b):
-            if t.shape != a.shape or t.device != a.device:
-                raise ProstError(f"A previous-iterate buffer must be "
-                                 f"{tuple(a.shape)} on {a.device}, got "
-                                 f"{tuple(t.shape)} on {t.device}.")
-            if not t[0].is_contiguous():
-                raise ProstError("ml_chunk_batched_ takes instances that "
-                                 "are each contiguous.")
-        size = torch.Size(inner).numel()
-        if a.shape[0] > 1 and a.stride(0) != b.stride(0):
-            raise ProstError("ml_chunk_batched_: a buffer and its previous "
-                             "iterate's must space their instances alike.")
-        if a.shape[0] > 1 and a.stride(0) < size:
-            raise ProstError("ml_chunk_batched_: the instances of a buffer "
-                             "overlap.")
-        strides.append(a.stride(0) if a.shape[0] > 1 else size)
-    return strides
-
-
 def _launch_batched(state, prev, f, sc, partial, scratch, resident: bool,
                     count: int, strides):
     """One batched chunk on the card in place on ``state`` (u, q, s) and
@@ -550,7 +524,7 @@ def ml_chunk_batched_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
     """``ml_chunk_batched`` in place: every instance of (u, q, s) advances
     by ``count`` iterations and the previous buffers take its iterate
     before the aligned one; an instance whose flag is set changes nothing.
-    q and s may be views of a route's flat y (see ``_instance_strides``).
+    q and s may be views of a route's flat y (see ``instance_strides``).
     Returns norms2 (4, B).  On a card ``path`` None takes the shape rule's
     path (``resident_ok`` on one instance, whatever B): one grid-resident
     launch (csrc/fused_multilabel.cu ml_resident_batched, the instances one
@@ -559,7 +533,7 @@ def ml_chunk_batched_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
     ("resident" raises where it does not fit)."""
     state, prev = (u, q, s), (u_prev, q_prev, s_prev)
     _check(u, q, s, f, scal, 5, count, batched=True)
-    strides = _instance_strides(state, prev)
+    strides = instance_strides(state, prev, "ml_chunk_batched_")
     if u.device.type == "cpu":
         return halo_into(state, prev,
                          ml_chunk_batched_plain(u, q, s, f, scal, count),
@@ -610,7 +584,7 @@ class MLBatchedChunk(LightChunk):
             return halo_into(state, prev, out, scal, self.n_scal)
         _launch_batched(state, prev, f, self.sc, self.partial, self.scratch,
                         self.resident, self.count,
-                        _instance_strides(state, prev))
+                        instance_strides(state, prev, "ml_chunk_batched_"))
         return self.norms2()
 
 

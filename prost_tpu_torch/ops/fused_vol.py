@@ -19,11 +19,19 @@ Three kernels carry the volumetric routes, hand-written CUDA in
   chunks with the boyd/goldstein adaptation and the stopping test on the
   device between chunks;
 * ``vol_chunk_batched`` (JAX ``vol_fused_chunk_batched``): one chunk for
-  each of B volumes in one launch sequence, the batched ensembles' route
-  (``parallel/ensemble.py``);
+  each of B volumes in one launch, or one launch sequence, the batched
+  ensembles' route (``parallel/ensemble.py``);
 * ``vol_chunk_halo`` (JAX ``vol_fused_chunk_halo``): one chunk on a
   halo-extended shard of the nx axis, the spatially sharded route's
   (``parallel/spatial_fused.py``).
+
+The batched chunk has an in-place form, ``vol_chunk_batched_``, which
+``BatchedPDHG`` calls through ``VolBatchedChunk``, made once per route.
+On a card it runs as one grid-resident cooperative launch, the volumes one
+after another, where the shape rule (``resident_ok``, on one volume) finds
+that one volume's planes fit in the shared memory of one block per SM, and
+as the streaming launch sequence otherwise; both are bit-equal.  The
+single-instance chunk, its halo mode and the multichunk stream.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no fallback and no VMEM gate: the
@@ -42,19 +50,25 @@ couples to -u_last and is kept whole, and its adjoint keeps the mask.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from ..backend.pdhg import PDHGState
 from ..config import ProstError, dtype as config_dtype
 from ..linop.base import LinearOperator
 from ..linop.gradient import BlockGradient3D
-from .pdhg_chunk import (CF, CI, N_HALO_SCAL, STEPSIZES, VP, WHOLE_PLANE,
-                         ChunkWork, ball_scale, canonical_duals,
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
+                         S_NORM, STEPSIZES, VP, WHOLE_PLANE, ChunkWork,
+                         LightChunk, ball_scale, canonical_duals, card_sms,
                          check_buffers, check_halo, chunk_state,
                          dual_ball_radius, dx, dy, dyt, entry_converged,
-                         halo_copy, halo_into, halo_scal_rows, launch,
-                         match_dataterm, multichunk_plain, multichunk_state,
-                         run_pdhg_route, typed_lib, vmap_plain)
+                         halo_copy, halo_into, halo_scal_rows,
+                         instance_strides, launch, match_dataterm,
+                         multichunk_plain, multichunk_state, pick_path,
+                         resident_rows, run_pdhg_route, scalar_buffer,
+                         typed_lib, vmap_plain)
 from .phases import K_CHUNKS
 
 _SQRT_S = 0.7071067811865476  # sqrt(Sigma) = sqrt(1/2)
@@ -240,9 +254,14 @@ def _check(u, q, f, w, scal, n_scal: int, count: int, dataterm: str,
 def _lib():
     """The fused volumetric kernel library, built from csrc/fused_vol.cu on
     first use."""
+    strides = [ctypes.c_longlong] * 2
     return typed_lib("fused_vol", "prost_vol_num_blocks", {
         "prost_vol_chunk": [VP] * 10 + [CI] * 5 + [VP],
-        "prost_vol_chunk_batched": [VP] * 10 + [CI] * 6 + [VP],
+        "prost_vol_chunk_batched": [VP] * 10 + [CI] * 3 + strides
+                                   + [CI] * 3 + [VP],
+        "prost_vol_chunk_batched_resident": [VP] * 9 + [CI] * 3 + strides
+                                            + [CI] * 3 + [VP],
+        "prost_vol_resident_smem": [CI],
         "prost_vol_chunk_halo": [VP] * 10 + [CI] * 6 + [VP],
         "prost_vol_multichunk": [VP] * 10 + [CI] * 7 + [CF] * 6 + [VP]})
 
@@ -306,7 +325,7 @@ def vol_chunk_halo_(u, q, u_prev, q_prev, f, w, scal, count: int,
 
 def vol_chunk_batched(u, q, f, w, scal, count: int,
                       dataterm: str = "square"):
-    """``vol_chunk`` for each of B volumes in one launch sequence.
+    """``vol_chunk`` for each of B volumes in one launch (sequence).
 
     u, f, w: (B, L, nx, ny); q: (B, 3, L, nx, ny); scal: (5, B), a row each
     of tau, sigma, theta, lmb and radius (+ an optional row of converged
@@ -314,17 +333,165 @@ def vol_chunk_batched(u, q, f, w, scal, count: int,
     back).  Returns (u2, q2, u_prev, q_prev, norms2), norms2 (4, B) the
     SQUARED preconditioned residual norms of each volume.  Instance b comes
     out as ``vol_chunk`` on volume b alone.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors run ``vol_chunk_batched_`` on copies."""
     _check(u, q, f, w, scal, 5, count, dataterm, batched=True)
     if u.device.type == "cpu":
         return vol_chunk_batched_plain(u, q, f, w, scal, count, dataterm)
+    return halo_copy(vol_chunk_batched_, (u, q), f, w, scal, count, dataterm)
+
+
+# labels a grid-resident block unrolls its loops over (csrc/fused_vol.cu
+# MAX_RES_L)
+MAX_RESIDENT_L = 8
+
+
+def resident_bytes(L: int, nx: int, ny: int, sms: int,
+                   dataterm: str = "square") -> int:
+    """The dynamic shared memory of one block of the grid-resident batched
+    chunk on volumes of ``nx`` rows over ``sms`` blocks:
+    csrc/fused_vol.cu's VolRes for the largest band (vol_resident_floats:
+    u with a row below, q_x with a row above, q_y, q_l, the three carried
+    gradient volumes and f, and wsquare's w), at least the reductions'
+    array."""
+    rmax = resident_rows(nx, sms)
+    planes = 7 if dataterm == "wsquare" else 6
+    floats = (2 * L * (rmax + 1) + planes * L * rmax) * int(ny)
+    return max(4 * floats, RES_RED_BYTES)
+
+
+def resident_ok(L: int, nx: int, ny: int, dataterm: str, sms: int,
+                smem: int) -> bool:
+    """The shape rule of ``vol_chunk_batched_`` and ``VolBatchedChunk``, on
+    one volume (the launch runs its volumes one after another, so B does
+    not enter it): the chunk runs as one grid-resident launch
+    (csrc/fused_vol.cu vol_resident_batched, one block per SM) where L is
+    at most ``MAX_RESIDENT_L`` and the planes of a volume's largest band
+    fit in ``smem`` bytes of a block's dynamic shared memory on a card of
+    ``sms`` SMs, and as the streaming launch sequence otherwise."""
+    return (1 <= int(L) <= MAX_RESIDENT_L
+            and resident_bytes(L, nx, ny, sms, dataterm) <= int(smem))
+
+
+@functools.lru_cache(maxsize=None)
+def card_limits(device, L: int) -> tuple:
+    """(SMs, the dynamic shared memory a block of the grid-resident batched
+    chunk of L labels may hold, 0 beyond ``MAX_RESIDENT_L``) of the card
+    ``device``, read once."""
+    if not 1 <= int(L) <= MAX_RESIDENT_L:
+        return card_sms(device), 0
     lib = _lib()
-    batch, L, nx, ny = u.shape
-    wk = ChunkWork((u, q), (q,), scal, 5, lib.prost_vol_num_blocks(nx, ny))
-    launch(lib, "prost_vol_chunk_batched", "vol_chunk_batched",
-           launch_counts, u.device, wk.buffers(f, w), L, nx, ny, int(count),
-           DATATERMS[dataterm], batch)
-    return wk.outputs()
+    with torch.cuda.device(device):
+        smem = lib.prost_vol_resident_smem(int(L))
+    if smem < 0:
+        raise ProstError(f"vol_chunk_batched: no shared-memory limit for the "
+                         f"resident chunk on {device} (CUDA error {-smem}).")
+    return card_sms(device), smem
+
+
+def _scratch(resident: bool, B, L, nx, ny, device):
+    """A batched launch's scratch: the grid-resident chunk's norm terms (4
+    planes, which its volumes share), or the streaming sequence's carried
+    gradient volumes of every instance (of this iterate and of the
+    previous one)."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    if resident:
+        return [empty(4, nx, ny)]
+    return [empty(B, 3, L, nx, ny), empty(B, 3, L, nx, ny)]
+
+
+def _launch_batched(state, prev, f, w, sc, partial, scratch, resident: bool,
+                    count: int, dataterm: str, strides):
+    """One batched chunk on the card in place on ``state`` (u, q) and
+    ``prev``: the grid-resident launch (the volumes one after another) or
+    the streaming sequence (all at once), counted under
+    ``vol_chunk_batched``."""
+    u = state[0]
+    B, L, nx, ny = u.shape
+    tail = (int(count), DATATERMS[dataterm], B)
+    lib = _lib()
+    if resident:
+        launch(lib, "prost_vol_chunk_batched_resident", "vol_chunk_batched",
+               launch_counts, u.device, [*state, *prev, f, w, sc, partial,
+                                         *scratch], L, nx, ny, *strides,
+               *tail)
+    else:
+        launch(lib, "prost_vol_chunk_batched", "vol_chunk_batched",
+               launch_counts, u.device, [*state, *prev, *scratch, f, w, sc,
+                                         partial], L, nx, ny, *strides,
+               *tail)
+
+
+def vol_chunk_batched_(u, q, u_prev, q_prev, f, w, scal, count: int,
+                       dataterm: str = "square", path=None):
+    """``vol_chunk_batched`` in place: every volume of (u, q) advances by
+    ``count`` iterations and (u_prev, q_prev) take its iterate before the
+    aligned one; a volume whose flag is set changes nothing.  u and q may
+    be views of a route's flat x and y (see ``instance_strides``).
+    Returns norms2 (4, B).  On a card ``path`` None takes the shape rule's
+    path (``resident_ok`` on one volume, whatever B): one grid-resident
+    launch (csrc/fused_vol.cu vol_resident_batched, the volumes one after
+    another) where one volume's planes fit on chip, else the streaming
+    launch sequence; "resident" or "streaming" asks for one ("resident"
+    raises where it does not fit)."""
+    state, prev = (u, q), (u_prev, q_prev)
+    _check(u, q, f, w, scal, 5, count, dataterm, batched=True)
+    strides = instance_strides(state, prev, "vol_chunk_batched_")
+    if u.device.type == "cpu":
+        return halo_into(state, prev, vol_chunk_batched_plain(
+            u, q, f, w, scal, count, dataterm), scal, 5)
+    B, L, nx, ny = u.shape
+    dev = u.device
+    resident = pick_path(path, resident_ok(L, nx, ny, dataterm,
+                                           *card_limits(dev, L)),
+                         "vol_chunk_batched")
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = torch.empty(4 * B * _lib().prost_vol_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_batched(state, prev, f.contiguous(), w.contiguous(), sc, partial,
+                    _scratch(resident, B, L, nx, ny, dev), resident, count,
+                    dataterm, strides)
+    return sc[:, S_NORM:S_NORM + 4].T
+
+
+class VolBatchedChunk(LightChunk):
+    """``BatchedPDHG``'s light call of the batched volumetric chunk:
+    ``vol_chunk_batched_`` on the views of the run's own flat x, y, x_prev
+    and y_prev, with what depends only on the shapes made once per route:
+    the path (``resident_ok`` on one volume), the scratch, the norm
+    partials and the scalar buffer with every instance's lmb and radius.
+    A call writes the step sizes and the flags into the scalar buffer and
+    launches; on the CPU it runs the plain version."""
+
+    def __init__(self, m, batch: int, count: int, device):
+        super().__init__((m["lmb"], m["radius"]), device, batch)
+        self.count, self.dataterm = int(count), m["dataterm"]
+        B, L, nx, ny = int(batch), m["L"], m["nx"], m["ny"]
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = resident_ok(L, nx, ny, self.dataterm,
+                                        *card_limits(device, L))
+            self.partial = torch.empty(
+                4 * B * _lib().prost_vol_num_blocks(nx, ny),
+                dtype=torch.float32, device=device)
+            self.scratch = _scratch(self.resident, B, L, nx, ny, device)
+
+    def __call__(self, state, prev, f, w, tau, sigma, theta, converged):
+        """``count`` iterations of every volume of ``state`` (u, q) in
+        place, the previous iterate into ``prev``; ``converged`` sets every
+        instance's flag; returns norms2 (4, B)."""
+        self.scalars_(tau, sigma, theta, converged)
+        if self.resident is None:
+            scal = self.scal()
+            out = vol_chunk_batched_plain(*state, f, w, scal, self.count,
+                                          self.dataterm)
+            return halo_into(state, prev, out, scal, self.n_scal)
+        _launch_batched(state, prev, f, w, self.sc, self.partial,
+                        self.scratch, self.resident, self.count,
+                        self.dataterm,
+                        instance_strides(state, prev, "vol_chunk_batched_"))
+        return self.norms2()
 
 
 def vol_multichunk(u, q, f, w, scal, count: int, k_chunks: int,

@@ -501,6 +501,33 @@ def check_inplace(state, prev) -> None:
                          "only.")
 
 
+def instance_strides(state, prev, what: str):
+    """The floats from one instance to the next of each of the batched
+    buffers ``state`` and of ``prev``, which must match them: each
+    instance contiguous in itself, the instances at any one stride (a
+    batched in-place chunk's buffers may be views of a route's flat (B, n)
+    rows, several buffers to a row); ``what`` names the chunk."""
+    strides = []
+    for a, b in zip(state, prev):
+        inner = a.shape[1:]
+        for t in (a, b):
+            if t.shape != a.shape or t.device != a.device:
+                raise ProstError(f"A previous-iterate buffer must be "
+                                 f"{tuple(a.shape)} on {a.device}, got "
+                                 f"{tuple(t.shape)} on {t.device}.")
+            if not t[0].is_contiguous():
+                raise ProstError(f"{what} takes instances that are each "
+                                 "contiguous.")
+        size = torch.Size(inner).numel()
+        if a.shape[0] > 1 and a.stride(0) != b.stride(0):
+            raise ProstError(f"{what}: a buffer and its previous iterate's "
+                             "must space their instances alike.")
+        if a.shape[0] > 1 and a.stride(0) < size:
+            raise ProstError(f"{what}: the instances of a buffer overlap.")
+        strides.append(a.stride(0) if a.shape[0] > 1 else size)
+    return strides
+
+
 def halo_into(state, prev, out, scal, n_scal: int = N_HALO_SCAL):
     """An in-place chunk from its plain version's outputs ``out`` (the
     state, the previous iterate, the norms): ``state`` takes the new
@@ -537,7 +564,8 @@ def halo_copy(inplace, state, *args):
 class LightChunk:
     """The scalar side of a route's light chunk call (the grid-resident
     routes' ``DeblurChunk`` and ``MLChunk``, and with a ``batch`` of
-    instances ``MLBatchedChunk``): one device scalar buffer per route (one
+    instances ``MLBatchedChunk``, ``VolBatchedChunk`` and
+    ``DeblurBatchedChunk``): one device scalar buffer per route (one
     block of S_LEN per instance), its family's two scalars (and a halo
     band's row context) written once; a call writes its step sizes and
     converged flag into it in place, a few small device copies and no

@@ -16,10 +16,11 @@ sizes); their data (prox coefficients, block values) may differ.
   stacked leaves.  ROF, fast-multilabel, deblur, tight-multilabel and
   volumetric-TV ensembles take a fused route instead, one batched chunk
   kernel launch (sequence) per chunk for all instances
-  (``rof_chunk_batched``, ``ml_chunk_batched`` through its light call
-  ``MLBatchedChunk`` in place on the run's own vectors,
-  ``deblur_chunk_batched``, ``tight_chunk_batched``, ``vol_chunk_batched``)
-  on the phase plan of ``ops/phases.py``.  A route is matched when every instance matches it
+  (``rof_chunk_batched``, ``tight_chunk_batched``; ``ml_chunk_batched``,
+  ``deblur_chunk_batched`` and ``vol_chunk_batched`` through their light
+  calls ``MLBatchedChunk``, ``DeblurBatchedChunk`` and ``VolBatchedChunk``
+  in place on the run's own vectors) on the phase plan of
+  ``ops/phases.py``.  A route is matched when every instance matches it
   with the same launch constants (sizes, taps, preconditioner constants);
   its per-instance data is stacked.  Other ensembles (deblur frames with
   different blurs, tight instances with different label counts) take the
@@ -54,11 +55,11 @@ import torch.distributed as dist
 from ..backend.pdhg import (BackendPDHG, PDHGOptions, PDHGState, hold_if,
                             pdhg_step, residual_and_adapt)
 from ..config import ProstError, dtype as config_dtype
-from ..ops.fused_deblur import deblur_chunk_batched, match_deblur_structure
+from ..ops.fused_deblur import DeblurBatchedChunk, match_deblur_structure
 from ..ops.fused_multilabel import MLBatchedChunk, match_multilabel_structure
 from ..ops.fused_rof import match_rof_structure, rof_chunk_batched
 from ..ops.fused_tight import match_tight_structure, tight_chunk_batched
-from ..ops.fused_vol import match_vol_structure, vol_chunk_batched
+from ..ops.fused_vol import VolBatchedChunk, match_vol_structure
 from ..ops.pdhg_chunk import dead_dual_flat, own_vectors
 from ..ops.phases import run_phases
 from ..solver import SolverOptions
@@ -401,31 +402,42 @@ class BatchedPDHG:
                                  done)
 
     def _vol_chunk(self, s: PDHGState, done) -> PDHGState:
+        """One batched chunk in place on the views of the run's own x, y,
+        x_prev and y_prev (``own_vectors``) through the route's light call
+        (``VolBatchedChunk``, made once per route)."""
         v, B = self.vol, self.batch
         L, nx, ny = v["L"], v["nx"], v["ny"]
-        u2, q2, up, qp, norms2 = vol_chunk_batched(
-            s.x.reshape(B, L, nx, ny), s.y.reshape(B, 3, L, nx, ny), v["f"],
-            v["w"], self._scal(s, v["lmb"], v["radius"], done),
-            self.ri, v["dataterm"])
-        return self._after_chunk(s, u2.reshape(B, -1), q2.reshape(B, -1),
-                                 up.reshape(B, -1), qp.reshape(B, -1), norms2,
+
+        def volumes(x, y):
+            return x.view(B, L, nx, ny), y.view(B, 3, L, nx, ny)
+
+        if "call" not in v:
+            v["call"] = VolBatchedChunk(v, B, self.ri, s.x.device)
+        norms2 = v["call"](volumes(s.x, s.y), volumes(s.x_prev, s.y_prev),
+                           v["f"], v["w"], s.tau, s.sigma, s.theta, done)
+        return self._after_chunk(s, s.x, s.y, s.x_prev, s.y_prev, norms2,
                                  done)
 
     def _deblur_chunk(self, s: PDHGState, done) -> PDHGState:
-        """The frames' chunk on views of the flat state in the port's
-        layout: x (nx, ny), yv (nx2, ny2), q (2, nx, ny) (the JAX run packs
-        x and q into the embedded (nx2, ny2) geometry instead)."""
+        """The frames' chunk in place on views of the run's own flat
+        vectors (``own_vectors``) in the port's layout, x (nx, ny), yv
+        (nx2, ny2), q (2, nx, ny) (the JAX run packs x and q into the
+        embedded (nx2, ny2) geometry instead), through the route's light
+        call (``DeblurBatchedChunk``, made once per route)."""
         d, B = self.deblur, self.batch
         nx, ny, nx2, ny2 = d["nx"], d["ny"], d["nx2"], d["ny2"]
         m2 = nx2 * ny2
-        x2, yv2, q2, xp, yvp, qp, norms2 = deblur_chunk_batched(
-            s.x.reshape(B, nx, ny), s.y[:, :m2].reshape(B, nx2, ny2),
-            s.y[:, m2:].reshape(B, 2, nx, ny), d["fb"], d["sv"],
-            self._scal(s, d["lmb"], d["radius"], done), self.ri, d["taps"],
-            d["sig_q"], d["tau_t"])
-        return self._after_chunk(s, x2.reshape(B, -1), _flat(B, yv2, q2),
-                                 xp.reshape(B, -1), _flat(B, yvp, qp),
-                                 norms2, done)
+
+        def planes(x, y):
+            return (x.view(B, nx, ny), y[:, :m2].view(B, nx2, ny2),
+                    y[:, m2:].view(B, 2, nx, ny))
+
+        if "call" not in d:
+            d["call"] = DeblurBatchedChunk(d, B, self.ri, s.x.device)
+        norms2 = d["call"](planes(s.x, s.y), planes(s.x_prev, s.y_prev),
+                           d["fb"], d["sv"], s.tau, s.sigma, s.theta, done)
+        return self._after_chunk(s, s.x, s.y, s.x_prev, s.y_prev, norms2,
+                                 done)
 
     def _tight_chunk(self, st: PDHGState, done) -> PDHGState:
         t, B = self.tight, self.batch
@@ -475,10 +487,10 @@ class BatchedPDHG:
             done[0] = self._all_converged(s)
             return s
 
-        # the ROF canonicalization; the ml chunks work in place on the
-        # run's own copies of the state's vectors
-        canonicalize = {"rof": self._rof_canonical,
-                        "ml": own_vectors}.get(name)
+        # the ROF canonicalization; the ml, deblur and vol chunks work in
+        # place on the run's own copies of the state's vectors
+        canonicalize = {"rof": self._rof_canonical, "ml": own_vectors,
+                        "deblur": own_vectors, "vol": own_vectors}.get(name)
         return run_phases(state, start_iter, until_iter, self.ri, 1 % self.ri,
                           generic, canonicalize, chunk,
                           epilogue=self._epilogue)

@@ -5,10 +5,12 @@ Chebyshev degree), the grid-resident chunks of ``deblur_chunk_`` and
 ``ml_chunk_`` and their halo forms (one cooperative launch a chunk, each
 block holding a band of rows in shared memory), the grid-resident batched
 multilabel chunk ``ml_chunk_batched_`` (the instances one after another in
-one launch; ``-k ml_batched``) and the grid-resident ADMM multichunk
+one launch; ``-k ml_batched``), the grid-resident ADMM multichunk
 ``admm_multichunk_`` (every chunk of the launch with the planes in shared
-memory; ``-k admm_multichunk``), bit for bit against the streaming launch
-sequences they replace.
+memory; ``-k admm_multichunk``) and the grid-resident batched volumetric
+and deblur chunks ``vol_chunk_batched_`` and ``deblur_chunk_batched_``
+(``-k "vol_batched or deblur_batched"``), bit for bit against the
+streaming launch sequences they replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
 redesigns run the per-pixel arithmetic and the norm trees of the launch
@@ -657,3 +659,322 @@ def test_ml_batched_and_admm_multichunk_rules_on_the_card(dev):
                 *_ml_views(x.clone(), y.clone(), 9, 16, 16), f, sc, partial,
                 terms], 9, 16, 16, 1 / 9, (1 / 9) ** 0.5, 9 * n,
                19 * n, 19 * n, 2, 2)
+
+
+# ---------------------------------------------------------------------------
+# rows 25 and 18: the batched volumetric and deblur chunks, their instances
+# one after another
+# ---------------------------------------------------------------------------
+
+def _vol_batch(seed, B, L, nx, ny, dev, flags=None):
+    """A route's flat rows: x (B, L n), y (B, 3 L n), f and w (B, L, nx,
+    ny) and the (5, B) (+ flags) scalar rows."""
+    rng = np.random.RandomState(seed)
+    n = L * nx * ny
+    arrs = (rng.rand(B, n), 0.3 * rng.randn(B, 3 * n), rng.rand(B, L, nx, ny),
+            2.0 * (rng.rand(B, L, nx, ny) > 0.3))
+    rows = [0.8 + 0.4 * rng.rand(B), 0.8 + 0.4 * rng.rand(B), np.ones(B),
+            6.0 * (0.5 + rng.rand(B)), 0.5 + rng.rand(B)]
+    if flags is not None:
+        rows.append(np.asarray(flags, np.float64))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (*arrs, np.array(rows))]
+
+
+def _vol_views(x, y, L, nx, ny):
+    B = x.shape[0]
+    return x.view(B, L, nx, ny), y.view(B, 3, L, nx, ny)
+
+
+@pytest.mark.parametrize("B,L,nx,ny,ri,dataterm,flags", [
+    (8, 8, 256, 256, 10, "square", None),              # vol256x8's ensemble
+    (8, 8, 256, 256, 10, "wsquare", [0, 1, 0, 0, 1, 1, 0, 0]),
+    (8, 8, 256, 256, 10, "abs", None),
+    (3, 5, 190, 250, 3, "wsquare", [0, 1, 0]),         # ragged
+    (3, 3, 77, 33, 2, "abs", [1, 0, 0]),
+    (2, 1, 64, 96, 1, "square", None),                 # one slice
+    (1, 8, 256, 256, 10, "square", None)])             # B = 1
+def test_vol_batched_resident_is_streaming_and_each_instance(
+        dev, B, L, nx, ny, ri, dataterm, flags):
+    """``vol_chunk_batched_`` in place on a route's views: the resident
+    launch against the streaming sequence from the same inputs, and each
+    volume against ``vol_chunk`` (the streaming single-instance chunk) on
+    it alone, bit for bit in the state, the previous iterate and the norms;
+    a flagged volume's buffers untouched; one launch per call."""
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    x, y, f, w, scal = _vol_batch(130 + B + L, B, L, nx, ny, dev, flags)
+    got = {}
+    for path in ("streaming", "resident"):
+        cur = [x.clone(), y.clone()]
+        prev = [torch.full_like(x, 7.0), torch.full_like(y, 7.0)]
+        before = fv.launch_counts["vol_chunk_batched"]
+        norms2 = fv.vol_chunk_batched_(
+            *_vol_views(*cur, L, nx, ny), *_vol_views(*prev, L, nx, ny), f,
+            w, scal, ri, dataterm, path=path).clone()
+        assert fv.launch_counts["vol_chunk_batched"] == before + 1
+        got[path] = cur + prev + [norms2]
+    torch.cuda.synchronize()
+    for a, b in zip(got["streaming"], got["resident"]):
+        assert torch.equal(a, b)
+    res = got["resident"]
+    views = _vol_views(res[0], res[1], L, nx, ny) + _vol_views(
+        res[2], res[3], L, nx, ny)
+    ins = _vol_views(x, y, L, nx, ny)
+    for b in range(B):
+        if flags and flags[b]:
+            for a, i in zip(views[:2], ins):
+                assert torch.equal(a[b], i[b])
+            for a in views[2:]:
+                assert torch.all(a[b] == 7.0)
+            assert not res[4][:, b].any()
+            continue
+        one = fv.vol_chunk(ins[0][b], ins[1][b], f[b], w[b], scal[:5, b], ri,
+                           dataterm)
+        for a, c in zip(views, one[:4]):
+            assert torch.equal(a[b], c)
+        assert torch.equal(res[4][:, b], one[4])
+    assert all(bool(torch.isfinite(t).all()) for t in res)
+
+
+def test_vol_batched_light_call_on_the_card(dev):
+    """``VolBatchedChunk`` at 8 volumes of 256x256x8 takes the resident
+    path and leaves what ``vol_chunk_batched_`` leaves, twice in a row."""
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    B, L, n = 8, 8, 256
+    x, y, f, w, scal = _vol_batch(140, B, L, n, n, dev)
+    m = {"L": L, "nx": n, "ny": n, "dataterm": "square", "lmb": scal[3],
+         "radius": scal[4]}
+    call = fv.VolBatchedChunk(m, B, 10, dev)
+    assert call.resident
+    cur, prev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+    want_cur, want_prev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+    flag = torch.tensor(False, device=dev)
+    full = torch.cat([scal, torch.zeros(1, B, device=dev)])
+    for _ in range(2):
+        norms2 = call(_vol_views(*cur, L, n, n), _vol_views(*prev, L, n, n),
+                      f, w, scal[0], scal[1], scal[2], flag)
+        want = fv.vol_chunk_batched_(*_vol_views(*want_cur, L, n, n),
+                                     *_vol_views(*want_prev, L, n, n), f, w,
+                                     full, 10, path="resident")
+        for a, b in zip(cur + prev + [norms2],
+                        want_cur + want_prev + [want]):
+            assert torch.equal(a, b)
+
+
+def _deblur_batch(seed, B, nx, ny, blur, dev, flags=None):
+    """A route's flat rows x (B, n) and y (B, m2 + 2 n), fb and sv (B,
+    nx2, ny2), the (5, B) (+ flags) scalar rows, the taps and (nx2,
+    ny2)."""
+    taps, k = _blur(blur)
+    nx2, ny2 = nx + k - 1, ny + k - 1
+    n, m2 = nx * ny, nx2 * ny2
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(B, n),
+            np.concatenate([rng.randn(B, m2), 0.3 * rng.randn(B, 2 * n)], 1),
+            rng.rand(B, nx2, ny2), 0.5 + rng.rand(B, nx2, ny2))
+    rows = [0.8 + 0.4 * rng.rand(B), 0.8 + 0.4 * rng.rand(B), np.ones(B),
+            100.0 * (0.5 + rng.rand(B)), np.ones(B)]
+    if flags is not None:
+        rows.append(np.asarray(flags, np.float64))
+    out = [torch.from_numpy(a.astype(np.float32)).to(dev)
+           for a in (*arrs, np.array(rows))]
+    return out, taps, (nx2, ny2)
+
+
+def _deblur_views(x, y, nx, ny, nx2, ny2):
+    B, m2 = x.shape[0], nx2 * ny2
+    return (x.view(B, nx, ny), y[:, :m2].view(B, nx2, ny2),
+            y[:, m2:].view(B, 2, nx, ny))
+
+
+@pytest.mark.parametrize("B,nx,ny,blur,ri,flags", [
+    (8, 512, 512, "motion", 10, None),                    # deblur8x512
+    (8, 512, 512, "motion", 10, [0, 0, 1, 0, 0, 0, 1, 0]),
+    (3, 250, 190, "asym", 3, [0, 1, 0]),                  # ragged
+    (3, 20, 17, "motion", 1, None),
+    (2, 7, 300, "asym", 2, [1, 0]),
+    (1, 512, 512, "motion", 10, None)])                   # B = 1
+def test_deblur_batched_resident_is_streaming_and_each_frame(
+        dev, B, nx, ny, blur, ri, flags):
+    """``deblur_chunk_batched_`` in place on a route's views (yv and q
+    share a row): the resident launch against the streaming sequence from
+    the same inputs, and each frame against ``deblur_chunk_`` (resident) on
+    it alone, bit for bit in the state, the previous iterate and the norms;
+    a flagged frame's buffers untouched; one launch per call."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    (x, y, fb, sv, scal), taps, (nx2, ny2) = _deblur_batch(
+        150 + B + nx, B, nx, ny, blur, dev, flags)
+    shape = (nx, ny, nx2, ny2)
+    got = {}
+    for path in ("streaming", "resident"):
+        cur = [x.clone(), y.clone()]
+        prev = [torch.full_like(x, 7.0), torch.full_like(y, 7.0)]
+        before = fd.launch_counts["deblur_chunk_batched"]
+        norms2 = fd.deblur_chunk_batched_(
+            *_deblur_views(*cur, *shape), *_deblur_views(*prev, *shape), fb,
+            sv, scal, ri, taps, 0.5, 0.2, path=path).clone()
+        assert fd.launch_counts["deblur_chunk_batched"] == before + 1
+        got[path] = cur + prev + [norms2]
+    torch.cuda.synchronize()
+    for a, b in zip(got["streaming"], got["resident"]):
+        assert torch.equal(a, b)
+    res = got["resident"]
+    views = _deblur_views(res[0], res[1], *shape) + _deblur_views(
+        res[2], res[3], *shape)
+    ins = _deblur_views(x, y, *shape)
+    for b in range(B):
+        if flags and flags[b]:
+            for a, i in zip(views[:3], ins):
+                assert torch.equal(a[b], i[b])
+            for a in views[3:]:
+                assert torch.all(a[b] == 7.0)
+            assert not res[4][:, b].any()
+            continue
+        cur = [i[b].contiguous().clone() for i in ins]
+        prev = [torch.empty_like(t) for t in cur]
+        one = fd.deblur_chunk_(*cur, *prev, fb[b], sv[b], scal[:5, b], ri,
+                               taps, 0.5, 0.2, path="resident")
+        for a, c in zip(views, cur + prev):
+            assert torch.equal(a[b], c)
+        assert torch.equal(res[4][:, b], one)
+    assert all(bool(torch.isfinite(t).all()) for t in res)
+
+
+def test_deblur_batched_light_call_on_the_card(dev):
+    """``DeblurBatchedChunk`` at deblur8x512's shape takes the resident
+    path and leaves what ``deblur_chunk_batched_`` leaves, twice in a
+    row."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    B, n = 8, 512
+    (x, y, fb, sv, scal), taps, (nx2, ny2) = _deblur_batch(160, B, n, n,
+                                                           "motion", dev)
+    shape = (n, n, nx2, ny2)
+    m = {"nx": n, "ny": n, "nx2": nx2, "ny2": ny2, "taps": taps,
+         "sig_q": 0.5, "tau_t": 0.2, "lmb": scal[3], "radius": scal[4]}
+    call = fd.DeblurBatchedChunk(m, B, 10, dev)
+    assert call.resident
+    cur, prev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+    want_cur, want_prev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+    flag = torch.tensor(False, device=dev)
+    full = torch.cat([scal, torch.zeros(1, B, device=dev)])
+    for _ in range(2):
+        norms2 = call(_deblur_views(*cur, *shape),
+                      _deblur_views(*prev, *shape), fb, sv, scal[0], scal[1],
+                      scal[2], flag)
+        want = fd.deblur_chunk_batched_(
+            *_deblur_views(*want_cur, *shape),
+            *_deblur_views(*want_prev, *shape), fb, sv, full, 10, taps, 0.5,
+            0.2, path="resident")
+        for a, b in zip(cur + prev + [norms2],
+                        want_cur + want_prev + [want]):
+            assert torch.equal(a, b)
+
+
+def test_vol_batched_and_deblur_batched_rules_on_the_card(dev):
+    """The card's limits send the 8-volume vol256x8 ensemble (every data
+    term) and deblur8x512's frames to the resident launches, 512x512x8
+    volumes and 2048x2048 frames to the streaming sequences; asking for a
+    resident launch that does not fit raises, and so do the launches the C
+    side refuses (9 labels, a band beyond the card's shared memory)."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    sms, smem = fv.card_limits(dev, 8)
+    assert sms == torch.cuda.get_device_properties(dev).multi_processor_count
+    for dataterm in ("square", "wsquare", "abs"):
+        assert fv.resident_ok(8, 256, 256, dataterm, sms, smem)
+        assert not fv.resident_ok(8, 512, 512, dataterm, sms, smem)
+    taps, _ = _blur("motion")
+    limits = fd.card_limits(dev, fd.BATCHED)
+    assert fd.resident_ok(520, 512, 520, taps, *limits)
+    assert not fd.resident_ok(2056, 2048, 2056, taps, *limits)
+    x, y, f, w, scal = _vol_batch(170, 2, 8, 512, 512, dev)
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fv.vol_chunk_batched_(*_vol_views(x, y, 8, 512, 512),
+                              *_vol_views(x.clone(), y.clone(), 8, 512, 512),
+                              f, w, scal, 2, path="resident")
+    (dx, dy, fb, sv, dscal), _, (nx2, ny2) = _deblur_batch(
+        171, 2, 2048, 2048, "motion", dev)
+    shape = (2048, 2048, nx2, ny2)
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fd.deblur_chunk_batched_(*_deblur_views(dx, dy, *shape),
+                                 *_deblur_views(dx.clone(), dy.clone(),
+                                                *shape), fb, sv, dscal, 2,
+                                 taps, 0.5, 0.2, path="resident")
+    lib = fv._lib()
+    x, y, f, w, scal = _vol_batch(172, 2, 9, 16, 16, dev)
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = x.new_empty(8 * lib.prost_vol_num_blocks(16, 16))
+    terms = x.new_empty(4, 16, 16)
+    n = 9 * 16 * 16
+    with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+        launch(lib, "prost_vol_chunk_batched_resident", "vol_chunk_batched",
+               fv.launch_counts, dev,
+               [*_vol_views(x, y, 9, 16, 16),
+                *_vol_views(x.clone(), y.clone(), 9, 16, 16), f, w, sc,
+                partial, terms], 9, 16, 16, n, 3 * n, 2, 0, 2)
+    dlib = fd._lib()
+    sc = scalar_buffer(dscal, 5, S_CONV, S_LEN)
+    partial = dx.new_empty(8 * dlib.prost_deblur_num_blocks(nx2, ny2))
+    terms = dx.new_empty(4, nx2, ny2)
+    m2, nn = nx2 * ny2, 2048 * 2048
+    with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+        launch(dlib, "prost_deblur_chunk_batched_resident",
+               "deblur_chunk_batched", fd.launch_counts, dev,
+               [*_deblur_views(dx, dy, *shape),
+                *_deblur_views(dx.clone(), dy.clone(), *shape), fb, sv,
+                fd.taps_array(taps, dev), sc, partial, terms], *shape,
+               len(taps), fd.taps_reach(taps), 0.5, 0.2, 0.5 ** 0.5,
+               0.2 ** 0.5, nn, m2 + 2 * nn, m2 + 2 * nn, 0, 2, 2)
+
+
+@pytest.mark.parametrize("B,nx,ny,blur,ri,flags", [
+    (8, 512, 512, "motion", 10, None),                    # deblur8x512
+    (5, 250, 190, "asym", 3, [0, 0, 1, 0, 0]),            # an odd frame out
+    (3, 20, 17, "motion", 2, [0, 1, 1]),                  # one frame left
+    (2, 7, 300, "asym", 2, None)])
+def test_deblur_batched_pairs_is_one_frame_a_block(dev, B, nx, ny, blur, ri,
+                                                   flags):
+    """The resident batched deblur chunk with two frames side by side in a
+    block (``deblur_resident_batched<N, 2>``) against one frame a block
+    (``deblur_resident_batched``), in place on a route's views from the
+    same inputs: bit for bit in the state, the previous iterate and the
+    norms, flagged frames untouched, an odd frame out run in both halves."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.ops.pdhg_chunk import instance_strides
+
+    (x, y, fb, sv, scal), taps, (nx2, ny2) = _deblur_batch(
+        180 + B + nx, B, nx, ny, blur, dev, flags)
+    shape = (nx, ny, nx2, ny2)
+    assert fd.pairs_ok(nx2, ny, ny2, taps, *fd.card_limits(dev, fd.PAIRS))
+    taps_t = fd.taps_array(taps, dev)
+    got = {}
+    for pairs in (False, True):
+        cur = [x.clone(), y.clone()]
+        prev = [torch.full_like(x, 7.0), torch.full_like(y, 7.0)]
+        st = _deblur_views(*cur, *shape)
+        pv = _deblur_views(*prev, *shape)
+        sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+        partial = x.new_empty(4 * B * fd._lib().prost_deblur_num_blocks(
+            nx2, ny2))
+        fd._launch_batched(st, pv, fb, sv, taps_t, sc, partial,
+                           fd._scratch(True, nx, ny, nx2, ny2, dev, B, pairs),
+                           True, ri, taps, 0.5, 0.2,
+                           instance_strides(st, pv, "deblur_chunk_batched_"),
+                           pairs)
+        got[pairs] = cur + prev + [sc[:, 15:19].clone()]
+    torch.cuda.synchronize()
+    for a, b in zip(got[False], got[True]):
+        assert torch.equal(a, b)
+    ins = _deblur_views(x, y, *shape)
+    outs = _deblur_views(got[True][0], got[True][1], *shape)
+    for b in range(B):
+        if flags and flags[b]:
+            for a, i in zip(outs, ins):
+                assert torch.equal(a[b], i[b])
+        else:
+            assert not torch.equal(outs[0][b], ins[0][b])
