@@ -2708,22 +2708,26 @@ def phase_halo_8b_kernels(dev):
 
 
 def phase_resident_kernels(dev):
-    """Rows 17 and 12 as grid-resident launches (one cooperative launch a
-    chunk) against their streaming launch sequences, whole plane and
-    one-shard halo band, at the main path's shapes (deblur 512x512 with
+    """Rows 17, 12, 20, 23 and 24 as grid-resident launches (one cooperative
+    launch a chunk) against their streaming launch sequences, whole plane
+    and one-shard halo band, at the main path's shapes (deblur 512x512 with
     config 2's blur and its 828-row band; multilabel 256x256x8 and its
-    300-row band; ri 10): both paths from the same inputs bit-equal in the
+    300-row band; tight128x4 and its 172-row band; vol256x8 and its 300-row
+    band; ri 10): both paths from the same inputs bit-equal in the
     planes and the norms; the path the shape rule takes; each path in
     place on buffers made once, in turns (streaming, resident, resident,
     streaming), with the hand-written kernels each launches per call and
     their traced device ms; and the call, the copying one (the functional
     wrapper on copies with buffers made per call, the streaming sequence)
-    against the route's light call in place (``DeblurChunk``, ``MLChunk``), in
-    turns, with the device ms of PyTorch's kernels around each."""
+    against the route's light call in place (``DeblurChunk``, ``MLChunk``,
+    ``TightChunk``, ``VolChunk``), in turns, with the device ms of
+    PyTorch's kernels around each."""
     import torch
 
     from prost_tpu_torch.ops import fused_deblur as fd
     from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.ops import fused_vol as fv
     from prost_tpu_torch.ops.pdhg_chunk import halo_copy
     from prost_tpu_torch.parallel.spatial_fused import window
 
@@ -2744,6 +2748,27 @@ def phase_resident_kernels(dev):
     m_ml = {"L": L, "nx": nm, "ny": nm, "radius": ML_LMB, "d_s": 1.0}
     Hm = 2 * ri + 2
     ext_ml = [window(a, -Hm, nm + Hm) for a in ml]
+    Lt, nt = TIGHT_LABELS, TIGHT_SIZE
+    kt = Lt * (Lt - 1) // 2
+    pt_ = pair_matrix(Lt).T
+    t_taps = tuple((r, m, float(pt_[r, m])) for r in range(2 * Lt)
+                   for m in range(2 * kt) if pt_[r, m] != 0.0)
+    t_consts = tuple(float(np.float32(c))
+                     for c in (1 / (Lt + 1), 1.0, 1 / Lt, 0.2, 1 / 3))
+    tg = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.rand(Lt, nt, nt), 0.1 * rng.randn(2 * kt, nt, nt),
+        0.2 * rng.randn(2 * Lt, nt, nt), 0.1 * rng.randn(2 * kt, nt, nt),
+        0.1 * rng.randn(nt, nt), rng.rand(Lt, nt, nt))]
+    m_t = {"L": Lt, "k": kt, "nx": nt, "ny": nt, "taps": t_taps,
+           "consts": t_consts, "radius": TIGHT_LMB, "d_s": 1.0}
+    ext_t = [window(a, -Hm, nt + Hm) for a in tg]
+    Lv, nv = VOL_LABELS, VOL_SIZE
+    vl = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.rand(Lv, nv, nv), 0.3 * rng.randn(3, Lv, nv, nv),
+        rng.rand(Lv, nv, nv), 2.0 * (rng.rand(Lv, nv, nv) > 0.3))]
+    m_v = {"L": Lv, "nx": nv, "ny": nv, "lmb": VOL_LMB, "radius": 1.0,
+           "dataterm": "square"}
+    ext_v = [window(a, -Hm, nv + Hm) for a in vl]
 
     def scal(*v):
         return torch.tensor(v, device=dev, dtype=torch.float32)
@@ -2768,6 +2793,24 @@ def phase_resident_kernels(dev):
             (scal(*head, ML_LMB, 1.0, -Hm, Hm, Hm + nm), ri, nm),
             fm.MLChunk(m_ml, ri, dev, (nm, nm + 2 * Hm, -Hm, Hm, Hm + nm)),
             "ml_resident"),
+        "tight_chunk": (
+            ft.tight_chunk_, tg, 5, (scal(*head, TIGHT_LMB, 1.0), ri, t_taps,
+                                     t_consts),
+            ft.TightChunk(m_t, ri, dev), "tight_resident"),
+        "tight_chunk_halo": (
+            ft.tight_chunk_halo_, ext_t, 5,
+            (scal(*head, TIGHT_LMB, 1.0, -Hm, Hm, Hm + nt), ri, nt, t_taps,
+             t_consts),
+            ft.TightChunk(m_t, ri, dev, (nt, nt + 2 * Hm, -Hm, Hm, Hm + nt)),
+            "tight_resident"),
+        "vol_chunk": (
+            fv.vol_chunk_, vl, 2, (scal(*head, VOL_LMB, 1.0), ri, "square"),
+            fv.VolChunk(m_v, ri, dev), "vol_resident"),
+        "vol_chunk_halo": (
+            fv.vol_chunk_halo_, ext_v, 2,
+            (scal(*head, VOL_LMB, 1.0, -Hm, Hm, Hm + nv), ri, nv, "square"),
+            fv.VolChunk(m_v, ri, dev, (nv, nv + 2 * Hm, -Hm, Hm, Hm + nv)),
+            "vol_resident"),
     }
     steps = [torch.tensor(v, device=dev) for v in head]
     flag = torch.tensor(False, device=dev)
@@ -2810,7 +2853,24 @@ def phase_resident_kernels(dev):
     sms, smem = fd.card_limits(dev)
     print(f"resident limits: {sms} SMs, {smem} bytes of dynamic shared "
           f"memory a deblur block, {fm.card_limits(dev, L)[1]} a multilabel "
-          "block")
+          f"block, {ft.card_limits(dev)[1]} a tight block, "
+          f"{fv.card_limits(dev, Lv)[1]} a volumetric block")
+    check(not fv.resident_ok(Lv, nv + 2 * Hm, nv, "wsquare",
+                             *fv.card_limits(dev, Lv)),
+          "the 300-row vol band with wsquare's weights takes the resident "
+          "launch")
+    before = fv.launch_counts["vol_chunk_halo"]
+    out_ws = fv.vol_chunk_halo(*ext_v, scal(*head, VOL_LMB, 1.0, -Hm, Hm,
+                                           Hm + nv), ri, nv, "wsquare")
+    traced = csrc_launches(lambda: fv.vol_chunk_halo(
+        *ext_v, scal(*head, VOL_LMB, 1.0, -Hm, Hm, Hm + nv), ri, nv,
+        "wsquare"))[0]
+    check(all(bool(torch.isfinite(t).all()) for t in out_ws)
+          and fv.launch_counts["vol_chunk_halo"] > before
+          and "vol_resident" not in traced,
+          "vol_chunk_halo with wsquare on the 300-row band did not stream")
+    print(f"vol_chunk_halo wsquare {nv + 2 * Hm} rows: streams by the shape "
+          f"rule ({len(traced)} hand-written launches)")
     return out
 
 
@@ -3217,9 +3277,11 @@ def resident_turns(label, run, copying, call, kernel, extra_iters,
 
 
 def copying_routes():
-    """A context in which the deblur and multilabel routes, whole-plane
-    (``FusedROFPDHG``) and halo-sharded (``ShardedFusedDeblur``,
-    ``ShardedFusedMultilabel``), ``BatchedPDHG``'s multilabel, volumetric
+    """A context in which the deblur, multilabel, tight and volumetric
+    routes, whole-plane (``FusedROFPDHG``) and halo-sharded
+    (``ShardedFusedDeblur``, ``ShardedFusedMultilabel``,
+    ``ShardedFusedTight``, ``ShardedFusedVol``), ``BatchedPDHG``'s
+    multilabel, volumetric
     and deblur routes and ``FusedROFADMM``'s multichunks make the copying
     call that the light calls replace: the scalars
     stacked per chunk, the functional wrapper on copies of the state with
@@ -3237,6 +3299,7 @@ def copying_routes():
     from prost_tpu_torch.ops import fused_deblur as fd
     from prost_tpu_torch.ops import fused_multilabel as fm
     from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops import fused_tight as ft
     from prost_tpu_torch.ops import fused_vol as fv
     from prost_tpu_torch.ops.pdhg_chunk import (canonical_duals, chunk_state,
                                                 halo_copy, run_pdhg_route)
@@ -3269,6 +3332,52 @@ def copying_routes():
             ri)
         return chunk_state(b, s, ri, u2.reshape(-1), fm._flat_y(q2, s2),
                            up.reshape(-1), fm._flat_y(qp, sp), norms2)
+
+    def tight_chunk(b, s):
+        t, ri = b.tight, max(int(b.opts.residual_iter), 1)
+        scal = torch.stack([s.tau, s.sigma, s.theta, t["radius_t"],
+                            t["d_s_t"], s.converged.to(s.x.dtype)])
+        u2, v2, q2, p2, s2, up, vp, qp, pp, sp, norms2 = halo_copy(
+            streaming(ft.tight_chunk_), ft._planes(t, s.x, s.y), t["f"], scal,
+            ri, t["taps"], t["consts"])
+
+        def flat(*planes):
+            return torch.cat([a.reshape(-1) for a in planes])
+
+        return chunk_state(b, s, ri, flat(u2, v2), flat(q2, p2, s2),
+                           flat(up, vp), flat(qp, pp, sp), norms2)
+
+    def vol_chunk(b, s):
+        v, ri = b.vol, max(int(b.opts.residual_iter), 1)
+        scal = torch.stack([s.tau, s.sigma, s.theta, v["lmb_t"],
+                            v["radius_t"], s.converged.to(s.x.dtype)])
+        u2, q2, up, qp, norms2 = halo_copy(
+            streaming(fv.vol_chunk_), fv._volumes(v, s.x, s.y), v["f"],
+            v["w"], scal, ri, v["dataterm"])
+        return chunk_state(b, s, ri, u2.reshape(-1), q2.reshape(-1),
+                           up.reshape(-1), qp.reshape(-1), norms2)
+
+    def tight_run(b, state, until, start):
+        return run_pdhg_route(b, state, until, start,
+                              lambda s: tight_chunk(b, s))
+
+    def vol_run(b, state, until, start):
+        v = b.vol
+        return run_pdhg_route(b, state, until, start,
+                              lambda s: vol_chunk(b, s),
+                              canonical_duals(v["L"], v["nx"], v["ny"]),
+                              lambda s: fv._multi_chunk(b, s))
+
+    def tight_halo(self, cur, prev, scal):
+        m = self.m
+        return ft.tight_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
+                                    m["nx"], m["taps"], m["consts"],
+                                    path="streaming")
+
+    def vol_halo(self, cur, prev, scal):
+        return fv.vol_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
+                                  self.m["nx"], self.m["dataterm"],
+                                  path="streaming")
 
     def deblur_run(b, state, until, start):
         return run_pdhg_route(b, state, until, start,
@@ -3351,6 +3460,8 @@ def copying_routes():
 
     patches = [(fr, "fused_deblur_run", deblur_run),
                (fr, "fused_ml_run", ml_run),
+               (fr, "fused_tight_run", tight_run),
+               (fr, "fused_vol_run", vol_run),
                (ens.BatchedPDHG, "_ml_chunk", ml_batched),
                (ens.BatchedPDHG, "_vol_chunk", vol_batched),
                (ens.BatchedPDHG, "_deblur_chunk", deblur_batched),
@@ -3358,7 +3469,11 @@ def copying_routes():
                (sf.ShardedFusedDeblur, "_light", None),
                (sf.ShardedFusedDeblur, "_chunk_halo", deblur_halo),
                (sf.ShardedFusedMultilabel, "_light", None),
-               (sf.ShardedFusedMultilabel, "_chunk_halo", ml_halo)]
+               (sf.ShardedFusedMultilabel, "_chunk_halo", ml_halo),
+               (sf.ShardedFusedTight, "_light", None),
+               (sf.ShardedFusedTight, "_chunk_halo", tight_halo),
+               (sf.ShardedFusedVol, "_light", None),
+               (sf.ShardedFusedVol, "_chunk_halo", vol_halo)]
 
     @contextlib.contextmanager
     def patched():
@@ -3407,9 +3522,9 @@ def route_turns(label, solve, energy, card="", exact=False):
 
 
 def phase_route_turns(card):
-    """Config 2, config 3 and config 4 through the fused routes, the light
-    chunk (config 4: multichunk) call against the copying one
-    (``route_turns``), 2000 iterations at 1e-5."""
+    """Config 2, config 3, tight128x4, vol256x8 and config 4 through the
+    fused routes, the light chunk (config 4: multichunk) call against the
+    copying one (``route_turns``), 2000 iterations at 1e-5."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
 
     opts = PDHGOptions(stepsize="boyd", residual_iter=10)
@@ -3428,6 +3543,24 @@ def phase_route_turns(card):
                           ML_SIZE * ML_SIZE * ML_LABELS, 2000),
         lambda x: ml_energy(x, f, ML_LMB, ML_LABELS, ML_SIZE, ML_SIZE),
         card=card)
+    L, nt = TIGHT_LABELS, TIGHT_SIZE
+    k = L * (L - 1) // 2
+    t_f = tight_unaries(nt, nt, L)
+    out["tight"] = route_turns(
+        f"tight128x4 fused route {nt}x{nt}x{L}",
+        lambda: run_model(recording("pdhg", opts),
+                          tight_model(nt, nt, L, t_f), nt * nt * (L + 2 * k),
+                          2000),
+        lambda x: tight_measures(x, t_f, TIGHT_LMB, L, nt, nt)[0],
+        card=card, exact=True)
+    vol_f = vol_data(VOL_LABELS, VOL_SIZE, VOL_SIZE)
+    out["vol"] = route_turns(
+        f"vol256x8 fused route {VOL_SIZE}x{VOL_SIZE}x{VOL_LABELS}",
+        lambda: run_model(recording("pdhg", opts),
+                          vol_model(VOL_SIZE, VOL_SIZE, VOL_LABELS, vol_f),
+                          VOL_SIZE * VOL_SIZE * VOL_LABELS, 2000),
+        lambda x: vol_energy(x, vol_f, VOL_LMB, VOL_LABELS, VOL_SIZE,
+                             VOL_SIZE), card=card, exact=True)
     f4 = test_image(ROF_SIZE, ROF_SIZE).reshape(-1)
     out["admm"] = route_turns(
         f"config 4 fused route {ROF_SIZE}x{ROF_SIZE} (Chebyshev ADMM)",
@@ -3585,7 +3718,7 @@ def sharded_solves(rank, world, init_method, card):
                          "launches": mod.launch_counts[name],
                          "name": name, "ri": opts[1].residual_iter,
                          "backend": dist.get_backend()}
-            if kind in ("ml", "deblur"):
+            if kind in ("ml", "deblur", "vol", "tight"):
                 out[kind]["turns"] = route_turns(
                     f"rank {rank}: sharded {kind} route on {world} rank(s)",
                     lambda solve=solve: solve(2000), energy, card)
@@ -3864,40 +3997,45 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    phase_build()
-    rows = phase_kernels(dev)
-    rows.update(phase_admm_kernels(dev))
-    rows.update(phase_ml_kernels(dev))
-    rows.update(phase_deblur_kernels(dev))
-    rows.update(phase_tight_kernels(dev))
-    rows.update(phase_vol_kernels(dev))
-    rows.update(phase_batched_kernels(dev))
-    rows.update(phase_halo_kernels(dev))
-    rows.update(phase_halo_8b_kernels(dev))
-    resident = phase_resident_kernels(dev)
-    resident.update(phase_resident_multi(dev))
-    resident.update(phase_resident_batched(dev))
-    torch.cuda.synchronize()
-    launches, e_pdhg, d_pdhg = phase_solve(card)
-    admm_launches, e_admm = phase_admm_solve(card, e_pdhg, d_pdhg)
+
+    def phase(fn, *args):
+        """``fn(*args)``, its wall time printed."""
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    phase(phase_build)
+    rows = phase(phase_kernels, dev)
+    for fn in (phase_admm_kernels, phase_ml_kernels, phase_deblur_kernels,
+               phase_tight_kernels, phase_vol_kernels, phase_batched_kernels,
+               phase_halo_kernels, phase_halo_8b_kernels):
+        rows.update(phase(fn, dev))
+    resident = phase(phase_resident_kernels, dev)
+    resident.update(phase(phase_resident_multi, dev))
+    resident.update(phase(phase_resident_batched, dev))
+    launches, e_pdhg, d_pdhg = phase(phase_solve, card)
+    admm_launches, e_admm = phase(phase_admm_solve, card, e_pdhg, d_pdhg)
     launches.update(admm_launches)
-    ml_launches, e_ml = phase_ml_solve(card)
+    ml_launches, e_ml = phase(phase_ml_solve, card)
     launches.update(ml_launches)
-    deblur_launches, e_deblur = phase_deblur_solve(card)
+    deblur_launches, e_deblur = phase(phase_deblur_solve, card)
     launches.update(deblur_launches)
-    tight_launches, e_tight = phase_tight_solve(card)
+    tight_launches, e_tight = phase(phase_tight_solve, card)
     launches.update(tight_launches)
-    vol_launches, e_vol = phase_vol_solve(card)
+    vol_launches, e_vol = phase(phase_vol_solve, card)
     launches.update(vol_launches)
-    phase_route_turns(card)
-    launches.update(phase_sharded_solve(
-        card, {"rof": e_pdhg, "ml": e_ml, "vol": e_vol, "deblur": e_deblur,
-               "tight": e_tight, "admm": e_admm}))
-    ens_launches, _, _ = phase_ensemble(card)
+    phase(phase_route_turns, card)
+    launches.update(phase(
+        phase_sharded_solve, card,
+        {"rof": e_pdhg, "ml": e_ml, "vol": e_vol, "deblur": e_deblur,
+         "tight": e_tight, "admm": e_admm}))
+    ens_launches, _, _ = phase(phase_ensemble, card)
     launches.update(ens_launches)
-    launches.update(phase_small_ensembles(card))
-    launches.update(phase_conv_ensembles(card))
-    phase_large(card)
+    launches.update(phase(phase_small_ensembles, card))
+    launches.update(phase(phase_conv_ensembles, card))
+    phase(phase_large, card)
     check("jax" not in sys.modules, "jax was imported")
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
 

@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of a fused solve goes, phase by phase, on one card.
 
-    python3 profile_fused.py
+    python3 profile_fused.py [name ...]
+
+With names (of ``ROUTES`` or ``ENSEMBLES``, e.g. ``tight vol``) it runs
+only those; without, all of them.
 
 Solves chip_smoke.py's ROF model at 512x512 (its procedural image, lmb 16)
 through the fused routes of ``backend_admm`` (Chebyshev projection) and
@@ -307,8 +310,14 @@ def print_trace(trace):
           f"{trace['device_busy_share']}")
 
 
-def main() -> int:
+def main(names) -> int:
     import torch
+
+    unknown = set(names) - set(ROUTES) - set(ENSEMBLES)
+    if unknown:
+        print(f"profile_fused: unknown names {sorted(unknown)}; routes "
+              f"{ROUTES}, ensembles {tuple(ENSEMBLES)}", file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("profile_fused: no CUDA device", file=sys.stderr)
@@ -324,6 +333,8 @@ def main() -> int:
     mods["admm"] = fused_admm
     out = {}
     for route in ROUTES:
+        if names and route not in names:
+            continue
         f = route_data(route)
         # warm-up: build, first launches, in one epoch long enough for the
         # multichunk phase, so that no kernel's first call is timed
@@ -347,6 +358,8 @@ def main() -> int:
         print_phases(enqueue, synced)
         print_trace(trace)
     for name, (route, B, label, iters) in ENSEMBLES.items():
+        if names and name not in names:
+            continue
         b = ensemble(name)
         for variant, warm, n in (("fused", ENS_WARM, iters),
                                  ("generic", 0, GENERIC_ITERS)):
@@ -376,4 +389,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -48,6 +48,11 @@
 // iterations is 2*ri + 3 launches.
 // A batched chunk of 8 instances of 128x128x4 streams 69 MB an iteration in
 // 8 times the blocks, beyond the 50 MB L2: bound by device memory traffic.
+// Where a chunk's planes fit in the shared memory of one block per SM (the
+// wrapper's shape rule: 128x128x4 and its one-shard halo band, 250x190x3,
+// not 512x512x4), the chunk and its halo mode run instead as one
+// grid-resident cooperative launch (tight_resident, further down),
+// bit-equal to the sequence.
 //
 // Design.  One thread per pixel, 32x8 blocks (pdhg_chunk.cuh); each thread
 // loops over its pixel's labels, pairs and taps, since the kron coupling,
@@ -106,6 +111,7 @@ struct TK {
   const float* kron;  // the taps, see the layout above
   float* sc;
   float* partial;  // 4 per block
+  float* terms;    // the resident chunk's norm terms, 4 (nx, ny) planes
   int L, k, nx, ny, ntaps;
   int nxg;  // rows of the global plane of a halo launch; 0: the whole plane
   Consts c;
@@ -147,16 +153,25 @@ struct Kron {
   const float* wc;       // T
 };
 
-__device__ __forceinline__ Kron kron_of(const TK& b) {
+// The floats of the taps array for (L, k) and T taps.
+__host__ __device__ __forceinline__ int kron_floats(int L, int k, int T) {
+  return 2 * L + 2 * k + 2 + 4 * T;
+}
+
+__device__ __forceinline__ Kron kron_at(const float* kron, int L, int k,
+                                        int T) {
   Kron r;
-  int T = b.ntaps;
-  r.row_ptr = b.kron;
-  r.col = r.row_ptr + 2 * b.L + 1;
+  r.row_ptr = kron;
+  r.col = r.row_ptr + 2 * L + 1;
   r.wr = r.col + T;
   r.col_ptr = r.wr + T;
-  r.row = r.col_ptr + 2 * b.k + 1;
+  r.row = r.col_ptr + 2 * k + 1;
   r.wc = r.row + T;
   return r;
+}
+
+__device__ __forceinline__ Kron kron_of(const TK& b) {
+  return kron_at(b.kron, b.L, b.k, b.ntaps);
 }
 
 // One entry of kron(P^T, I) x or its transpose at pixel p: the fold over
@@ -313,11 +328,68 @@ __global__ void tight_dual(TK b, int save_prev) {
   b.su[p] = su2;
 }
 
-// First pass of the four preconditioned residual norms (_chunk_core after
-// the aligned iteration): per pixel the terms of |pd|^2 and |z_hat|^2 over
-// the q, p and s planes and of |dd|^2 and |w_hat|^2 over the u and v planes,
-// then per-block tree sums into partial[4 * block], over the owned rows.
-// K^T of the current and previous duals is recomputed.
+// The four norm terms of pixel (i, j) of an owned row, added to acc in
+// the order of the first pass (_chunk_core after the aligned iteration):
+// the terms of |pd|^2 and |z_hat|^2 over the q, p and s planes and of
+// |dd|^2 and |w_hat|^2 over the u and v planes.  K^T of the current and
+// previous duals is recomputed.  Reads device memory only: the body of
+// tight_norm_partial and of the resident chunk's norms.
+__device__ __forceinline__ void norm_terms(const TK& b, const RowCtx& rc,
+                                           int i, int j, float acc[4]) {
+  Kron kr = kron_of(b);
+  int L = b.L, k = b.k;
+  size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
+  float theta = b.sc[S_THETA];
+  float tp = 1.f + theta;
+  const Consts& c = b.c;
+  float dq = sigma_raw * c.sqrt_q, dp = sigma_raw * c.sqrt_p;
+  float ds = sigma_raw * c.sqrt_s;
+  float du = tau_raw * c.sqrt_u, dv = tau_raw * c.sqrt_v;
+  for (int r = 0; r < 2 * L; ++r) {
+    size_t pr = r * n + p;
+    float kx2 = b.kxq[pr];
+    float z = (b.qp[pr] - b.q[pr]) / dq
+              + c.sqrt_q * (tp * kx2 - theta * b.kxqp[pr]);
+    float pd = z - c.sqrt_q * kx2;
+    acc[0] += pd * pd;
+    acc[1] += z * z;
+  }
+  for (int m = 0; m < 2 * k; ++m) {
+    size_t pm = m * n + p;
+    float v2 = b.v[pm], vo = b.vp[pm];
+    float z = (b.pp[pm] - b.p[pm]) / dp
+              + c.sqrt_p * (tp * v2 - theta * vo);
+    float pd = z - c.sqrt_p * v2;
+    float kty2 = kron_fold(kr.col_ptr, kr.row, kr.wc, m, b.q, n, p)
+                 + b.p[pm];
+    float ktyp = kron_fold(kr.col_ptr, kr.row, kr.wc, m, b.qp, n, p)
+                 + b.pp[pm];
+    float wh = (vo - v2) / dv - c.sqrt_v * ktyp;
+    float dd = wh + c.sqrt_v * kty2;
+    acc[0] += pd * pd;
+    acc[1] += z * z;
+    acc[2] += dd * dd;
+    acc[3] += wh * wh;
+  }
+  float s2 = b.s[p], so = b.sp[p], su2 = b.su[p];
+  float zs = (so - s2) / ds + c.sqrt_s * (tp * su2 - theta * b.sup[p]);
+  float pds = zs - c.sqrt_s * su2;
+  acc[0] += pds * pds;
+  acc[1] += zs * zs;
+  for (int l = 0; l < L; ++l) {
+    size_t pl = l * n + p;
+    float kty2 = kty_u(b.q, s2, l, L, n, i, j, b.ny, rc);
+    float ktyp = kty_u(b.qp, so, l, L, n, i, j, b.ny, rc);
+    float wh = (b.up[pl] - b.u[pl]) / du - c.sqrt_u * ktyp;
+    float dd = wh + c.sqrt_u * kty2;
+    acc[2] += dd * dd;
+    acc[3] += wh * wh;
+  }
+}
+
+// First pass of the four preconditioned residual norms: norm_terms of every
+// pixel of the owned rows, then per-block tree sums into partial[4 * block].
 // Bound: memory, about 14L + 16k + 4 planes read once per chunk.
 __global__ void tight_norm_partial(TK b) {
   b = instance_of(b);
@@ -325,58 +397,8 @@ __global__ void tight_norm_partial(TK b) {
   int i, j;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   RowCtx rc = row_ctx(b.sc, b.nx, b.nxg);
-  if (pixel(b.nx, b.ny, i, j) && owned_row(rc, i)) {
-    Kron kr = kron_of(b);
-    int L = b.L, k = b.k;
-    size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-    float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
-    float theta = b.sc[S_THETA];
-    float tp = 1.f + theta;
-    const Consts& c = b.c;
-    float dq = sigma_raw * c.sqrt_q, dp = sigma_raw * c.sqrt_p;
-    float ds = sigma_raw * c.sqrt_s;
-    float du = tau_raw * c.sqrt_u, dv = tau_raw * c.sqrt_v;
-    for (int r = 0; r < 2 * L; ++r) {
-      size_t pr = r * n + p;
-      float kx2 = b.kxq[pr];
-      float z = (b.qp[pr] - b.q[pr]) / dq
-                + c.sqrt_q * (tp * kx2 - theta * b.kxqp[pr]);
-      float pd = z - c.sqrt_q * kx2;
-      acc[0] += pd * pd;
-      acc[1] += z * z;
-    }
-    for (int m = 0; m < 2 * k; ++m) {
-      size_t pm = m * n + p;
-      float v2 = b.v[pm], vo = b.vp[pm];
-      float z = (b.pp[pm] - b.p[pm]) / dp
-                + c.sqrt_p * (tp * v2 - theta * vo);
-      float pd = z - c.sqrt_p * v2;
-      float kty2 = kron_fold(kr.col_ptr, kr.row, kr.wc, m, b.q, n, p)
-                   + b.p[pm];
-      float ktyp = kron_fold(kr.col_ptr, kr.row, kr.wc, m, b.qp, n, p)
-                   + b.pp[pm];
-      float wh = (vo - v2) / dv - c.sqrt_v * ktyp;
-      float dd = wh + c.sqrt_v * kty2;
-      acc[0] += pd * pd;
-      acc[1] += z * z;
-      acc[2] += dd * dd;
-      acc[3] += wh * wh;
-    }
-    float s2 = b.s[p], so = b.sp[p], su2 = b.su[p];
-    float zs = (so - s2) / ds + c.sqrt_s * (tp * su2 - theta * b.sup[p]);
-    float pds = zs - c.sqrt_s * su2;
-    acc[0] += pds * pds;
-    acc[1] += zs * zs;
-    for (int l = 0; l < L; ++l) {
-      size_t pl = l * n + p;
-      float kty2 = kty_u(b.q, s2, l, L, n, i, j, b.ny, rc);
-      float ktyp = kty_u(b.qp, so, l, L, n, i, j, b.ny, rc);
-      float wh = (b.up[pl] - b.u[pl]) / du - c.sqrt_u * ktyp;
-      float dd = wh + c.sqrt_u * kty2;
-      acc[2] += dd * dd;
-      acc[3] += wh * wh;
-    }
-  }
+  if (pixel(b.nx, b.ny, i, j) && owned_row(rc, i))
+    norm_terms(b, rc, i, j, acc);
   block_partials(acc, b.partial);
 }
 
@@ -403,6 +425,302 @@ int chunk(const TK& b, int count, int batch, cudaStream_t st) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// The grid-resident chunk (tight_resident): one cooperative launch runs what
+// chunk() runs in 2 count + 3 launches, for the whole plane and for a halo
+// band alike (the row context of pdhg_chunk.cuh).
+//
+// What bounds it.  At tight128x4's shape (128x128, L = 4, k = 6, 24 taps,
+// ri 10) the streaming sequence is 23 launches of about 9 us, most of it
+// launch latency and tails: an iteration's 131 planes of 64 KB stay in the
+// L2.  The chunk's state (u, v, q, p, s, f and the carried kxq and su: 3L +
+// 4k + 2 + 2L planes, 50 floats a pixel at L = 4) fits in the shared memory
+// of the card's SMs.
+//
+// Design.  One block of RES_THREADS on each SM; block b owns the rows
+// band_of(nx, b, G) and holds them in shared memory (TightRes) from the load
+// to the last iteration: u with 1 row below (the forward difference), q
+// with 1 row above (q_x's adjoint; q_y's row above is room only), and the
+// band's rows of v, p, kxq, f, s and su, with the taps array beside them.
+// A band of a 128-wide plane is 1 or 2 rows, 128 or 256 pixels for 512
+// threads, so each half-step spreads its independent per-pixel loops over
+// the threads as items (t, pixel), t the label, pair plane or row: the
+// primal step over (label, pixel); the dual step in two passes, first v and
+// the unscaled p over (pair plane, pixel) (they read the old q), then, after
+// a __syncthreads, the pair balls over (pair, pixel), q with the carried kxq
+// over (row, pixel) (they read the new v) and s with su over pixels.  Each
+// value is tight_seed's, tight_primal's or tight_dual's expression in the
+// same order, the kron folds left to right over the same runs; the label
+// sums stay in one thread.  The exchange is as in fused_multilabel.cu: the
+// primal step writes u to device memory and the dual step q_x, and after a
+// grid barrier every block copies in the one row its next half-step reads
+// (u's row below, q_x's row above).  The aligned iteration also writes the
+// new and previous v, p, q, s, the previous u and the carried kxq and su of
+// both iterates into the streaming sequence's buffers; after a grid barrier
+// every block runs tight_norm_partial's per-pixel body (norm_terms) on its
+// band's pixels from device memory, and the norms reduce through the
+// streaming grid's tiles and finish (coop_tile_partials, finish_block): the
+// launch is bit-equal to the streaming sequence in the planes and the
+// norms.  Barriers: two an iteration, one before the tiles, one before the
+// finish.
+// ---------------------------------------------------------------------------
+
+struct TightRes {
+  LWin u, q, v, p, kxq, f, s, su;
+  float* kron;  // the taps array
+};
+
+// Floats of TightRes for bands of at most rmax rows.
+__host__ __device__ __forceinline__ size_t tight_resident_floats(
+    int L, int k, int ntaps, int rmax, int ny) {
+  return ((size_t)3 * L * (rmax + 1) + (size_t)(4 * k + 3 * L + 2) * rmax)
+             * ny
+         + kron_floats(L, k, ntaps);
+}
+
+__device__ __forceinline__ TightRes tight_layout(float* smem, int L, int k,
+                                                 int lo, int rmax, int ny) {
+  TightRes w;
+  float* p = smem;
+  w.u = take(p, L, lo, rmax + 1, ny);
+  w.q = take(p, 2 * L, lo - 1, rmax + 1, ny);
+  w.v = take(p, 2 * k, lo, rmax, ny);
+  w.p = take(p, 2 * k, lo, rmax, ny);
+  w.kxq = take(p, 2 * L, lo, rmax, ny);
+  w.f = take(p, L, lo, rmax, ny);
+  w.s = take(p, 1, lo, rmax, ny);
+  w.su = take(p, 1, lo, rmax, ny);
+  w.kron = p;
+  return w;
+}
+
+// Planes [l, ...) of window v.
+__device__ __forceinline__ LWin from_plane(const LWin& v, int l) {
+  return LWin{v.a + (size_t)l * v.rows * v.w, v.r0, v.rows, v.w};
+}
+
+// kron_fold on the taps in shared memory and a window of planes.
+__device__ __forceinline__ float kron_fold_w(const float* ptr,
+                                             const float* idx,
+                                             const float* w, int o,
+                                             const LWin& src, int i, int j) {
+  int lo = (int)ptr[o], hi = (int)ptr[o + 1];
+  if (lo == hi) return 0.f;
+  float acc = w[lo] * src.at((int)idx[lo], i, j);
+  for (int t = lo + 1; t < hi; ++t)
+    acc = acc + w[t] * src.at((int)idx[t], i, j);
+  return acc;
+}
+
+// grad_row on the window of u.
+__device__ __forceinline__ float grad_row_w(const LWin& u, int r, int L,
+                                            int i, int j, int nx, int ny,
+                                            const RowCtx& rc) {
+  if (r < L) return has_below(rc, i, nx) ? u.at(r, i + 1, j) - u.at(r, i, j)
+                                         : 0.f;
+  return j < ny - 1 ? u.at(r - L, i, j + 1) - u.at(r - L, i, j) : 0.f;
+}
+
+// kty_u on the window of q.
+__device__ __forceinline__ float kty_u_w(const LWin& q, float sv, int l,
+                                         int L, int i, int j, int ny,
+                                         const RowCtx& rc) {
+  float dxt = (has_above(rc, i) ? q.at(l, i - 1, j) : 0.f)
+              - (i + rc.off < rc.nxg - 1 ? q.at(l, i, j) : 0.f);
+  float dyt = (j > 0 ? q.at(L + l, i, j - 1) : 0.f)
+              - (j < ny - 1 ? q.at(L + l, i, j) : 0.f);
+  return (dxt + dyt) + sv;
+}
+
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    tight_resident(TK b, int count, int rmax) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (b.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  const int L = b.L, k = b.k, nx = b.nx, ny = b.ny;
+  const size_t n = (size_t)nx * ny;
+  const RowCtx rc = row_ctx(b.sc, nx, b.nxg);
+  int lo, hi;
+  band_of(nx, blockIdx.x, gridDim.x, lo, hi);
+  const TightRes w = tight_layout(smem, L, k, lo, rmax, ny);
+  const int npx = (hi - lo) * ny;
+  const int nk = kron_floats(L, k, b.ntaps);
+  for (int t = threadIdx.x; t < nk; t += RES_THREADS) w.kron[t] = b.kron[t];
+  const Kron kr = kron_at(w.kron, L, k, b.ntaps);
+
+  load_rows(w.u, b.u, L, lo, hi + 1, nx);
+  load_rows(w.q, b.q, L, lo - 1, hi, nx);
+  load_rows(from_plane(w.q, L), b.q + L * n, L, lo, hi, nx);
+  load_rows(w.v, b.v, 2 * k, lo, hi, nx);
+  load_rows(w.p, b.p, 2 * k, lo, hi, nx);
+  load_rows(w.f, b.f, L, lo, hi, nx);
+  load_rows(w.s, b.s, 1, lo, hi, nx);
+  __syncthreads();
+  // tight_seed over (row, pixel), the label sum over pixels
+  for (int e = threadIdx.x; e < (2 * L + 1) * npx; e += RES_THREADS) {
+    const int t = e / npx, px = e % npx, i = lo + px / ny, j = px % ny;
+    if (t < 2 * L) {
+      w.kxq.at(t, i, j) = grad_row_w(w.u, t, L, i, j, nx, ny, rc)
+                          + kron_fold_w(kr.row_ptr, kr.col, kr.wr, t, w.v, i,
+                                        j);
+    } else {
+      float acc = 0.f;
+      for (int l = 0; l < L; ++l)
+        acc = l == 0 ? w.u.at(l, i, j) : acc + w.u.at(l, i, j);
+      w.su.at(0, i, j) = acc;
+    }
+  }
+  __syncthreads();
+
+  // the launch's scalars and the constants the loops share, each the same
+  // expression of them as in the streaming kernels
+  const float tau = b.sc[S_TAU], sigma = b.sc[S_SIGMA];
+  const float theta = b.sc[S_THETA], radius = b.sc[S_BALL];
+  const float ds = b.sc[S_DS];
+  const float tu = tau * b.c.tau_u;
+  const float tp = 1.f + theta;
+  const float tv = tau * b.c.tau_v, sq = sigma * b.c.sig_q;
+  const float spc = sigma * b.c.sig_p, ss = sigma * b.c.sig_s;
+  for (int it = 0; it < count; ++it) {
+    const bool last = it == count - 1;
+    // tight_primal over (label, pixel)
+    for (int e = threadIdx.x; e < L * npx; e += RES_THREADS) {
+      const int l = e / npx, px = e % npx, i = lo + px / ny, j = px % ny;
+      const size_t pl = l * n + (size_t)i * ny + j;
+      float kty = kty_u_w(w.q, w.s.at(0, i, j), l, L, i, j, ny, rc);
+      float uv = w.u.at(l, i, j);
+      float tf = tu * w.f.at(l, i, j);
+      if (last) b.up[pl] = uv;
+      float un = fmaxf((uv - tu * kty) - tf, 0.f);
+      w.u.at(l, i, j) = un;
+      b.u[pl] = un;
+    }
+    grid.sync();
+    load_rows(w.u, b.u, L, hi, hi + 1, nx);
+    __syncthreads();
+    // tight_dual, first pass: v and the unscaled p over (pair plane,
+    // pixel), K^T y of the old q
+    for (int e = threadIdx.x; e < 2 * k * npx; e += RES_THREADS) {
+      const int m = e / npx, px = e % npx, i = lo + px / ny, j = px % ny;
+      const size_t pm = m * n + (size_t)i * ny + j;
+      float pv = w.p.at(m, i, j), vv = w.v.at(m, i, j);
+      float ktyv = kron_fold_w(kr.col_ptr, kr.row, kr.wc, m, w.q, i, j)
+                   + pv;
+      float v2 = vv - tv * ktyv;
+      if (last) {
+        b.vp[pm] = vv;
+        b.pp[pm] = pv;
+        b.v[pm] = v2;
+      }
+      w.v.at(m, i, j) = v2;
+      w.p.at(m, i, j) = pv + spc * (tp * v2 - theta * vv);
+    }
+    __syncthreads();
+    // second pass: the pair balls over (pair, pixel), q and kxq over (row,
+    // pixel) from the new u and v, s and su over pixels
+    for (int e = threadIdx.x; e < (k + 2 * L + 1) * npx;
+         e += RES_THREADS) {
+      const int t = e / npx, px = e % npx, i = lo + px / ny, j = px % ny;
+      const size_t p = (size_t)i * ny + j;
+      if (t < k) {
+        float a0 = w.p.at(t, i, j), a1 = w.p.at(t + k, i, j);
+        float nn = a0 * a0 + a1 * a1;
+        float scale = nn > 0.f ? fminf(1.f, radius * rsqrtf(nn)) : 1.f;
+        float p0 = a0 * scale, p1 = a1 * scale;
+        w.p.at(t, i, j) = p0;
+        w.p.at(t + k, i, j) = p1;
+        if (last) {
+          b.p[t * n + p] = p0;
+          b.p[(t + k) * n + p] = p1;
+        }
+      } else if (t < k + 2 * L) {
+        const int r = t - k;
+        const size_t pr = r * n + p;
+        float kx2 = grad_row_w(w.u, r, L, i, j, nx, ny, rc)
+                    + kron_fold_w(kr.row_ptr, kr.col, kr.wr, r, w.v, i, j);
+        float qv = w.q.at(r, i, j), kxo = w.kxq.at(r, i, j);
+        float qn = qv + sq * (tp * kx2 - theta * kxo);
+        if (last) {
+          b.qp[pr] = qv;
+          b.kxqp[pr] = kxo;
+          b.kxq[pr] = kx2;
+        }
+        w.q.at(r, i, j) = qn;
+        w.kxq.at(r, i, j) = kx2;
+        if (r < L || last) b.q[pr] = qn;
+      } else {
+        float su2 = 0.f;
+        for (int l = 0; l < L; ++l)
+          su2 = l == 0 ? w.u.at(l, i, j) : su2 + w.u.at(l, i, j);
+        float sv = w.s.at(0, i, j), suv = w.su.at(0, i, j);
+        float sn = (sv + ss * (tp * su2 - theta * suv)) - ss * ds;
+        w.s.at(0, i, j) = sn;
+        w.su.at(0, i, j) = su2;
+        if (last) {
+          b.sp[p] = sv;
+          b.sup[p] = suv;
+          b.s[p] = sn;
+          b.su[p] = su2;
+        }
+      }
+    }
+    grid.sync();
+    if (!last) {
+      load_rows(w.q, b.q, L, lo - 1, lo, nx);
+      __syncthreads();
+    }
+  }
+
+  // the norms' terms from device memory, as tight_norm_partial takes them
+  for (int px = threadIdx.x; px < npx; px += RES_THREADS) {
+    const int i = lo + px / ny, j = px % ny;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (owned_row(rc, i)) norm_terms(b, rc, i, j, acc);
+    const size_t p = (size_t)i * ny + j;
+    for (int t = 0; t < 4; ++t) b.terms[t * n + p] = acc[t];
+  }
+  grid.sync();
+  coop_tile_partials(b.terms, nx, ny, b.partial, smem);
+  grid.sync();
+  if (blockIdx.x == 0) {
+    AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    dim3 g = grid_of(nx, ny);
+    finish_block(reinterpret_cast<float(*)[FIN]>(smem), b.sc, b.partial,
+                 (int)(g.x * g.y), count, 0, STEP_NONE, none);
+  }
+}
+
+// The dynamic shared memory of a resident launch of `b`: TightRes for the
+// largest band (rmax rows), at least the reductions' array; or 0 where it
+// does not fit on the current device (then `rc` holds the error).
+size_t resident_smem(const TK& b, int& rmax, int& rc) {
+  int sms = 0;
+  rc = device_sms(&sms);
+  if (rc) return 0;
+  rmax = band_rows(b.nx, sms);
+  size_t smem = tight_resident_floats(b.L, b.k, b.ntaps, rmax, b.ny)
+                * sizeof(float);
+  if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
+  int limit = resident_smem_limit(tight_resident);
+  if (limit < 0) {
+    rc = -limit;
+    return 0;
+  }
+  if (smem > (size_t)limit) {
+    rc = (int)cudaErrorInvalidValue;
+    return 0;
+  }
+  return smem;
+}
+
+int resident_chunk(TK b, int count, cudaStream_t st) {
+  int rmax = 0, rc = 0;
+  size_t smem = resident_smem(b, rmax, rc);
+  if (rc) return rc;
+  void* args[] = {&b, &count, &rmax};
+  return resident_launch(tight_resident, args, smem, st);
+}
+
 TK tight_of(void* u, void* v, void* q, void* p, void* s, void* up, void* vp,
             void* qp, void* pp, void* sp, void* kxq, void* kxqp, void* su,
             void* sup, const void* f, const void* kron, void* sc,
@@ -427,6 +745,7 @@ TK tight_of(void* u, void* v, void* q, void* p, void* s, void* up, void* vp,
   b.kron = (const float*)kron;
   b.sc = (float*)sc;
   b.partial = (float*)partial;
+  b.terms = nullptr;
   b.L = L;
   b.k = k;
   b.nx = nx;
@@ -511,5 +830,51 @@ int prost_tight_chunk_halo(void* u, void* v, void* q, void* p, void* s,
   b.nxg = nx_global;
   return chunk(b, count, 1, (cudaStream_t)stream);
 }
+
+// tight_fused_chunk and tight_fused_chunk_halo as one grid-resident
+// cooperative launch (tight_resident), bit-equal to prost_tight_chunk and
+// prost_tight_chunk_halo: the same buffers, the carried planes (kxq, kxqp,
+// su, sup) written on the aligned iteration only, `terms` 4 (nx, ny)
+// planes of scratch.  A band's planes that do not fit in one block's shared
+// memory are refused (cudaErrorCooperativeLaunchTooLarge or
+// cudaErrorInvalidValue).  No-op when sc[S_CONV] is set.
+int prost_tight_chunk_resident(void* u, void* v, void* q, void* p, void* s,
+                               void* up, void* vp, void* qp, void* pp,
+                               void* sp, void* kxq, void* kxqp, void* su,
+                               void* sup, const void* f, const void* kron,
+                               void* sc, void* partial, void* terms, int L,
+                               int k, int nx, int ny, int ntaps, float sig_q,
+                               float sig_p, float sig_s, float tau_u,
+                               float tau_v, float sqrt_q, float sqrt_p,
+                               float sqrt_s, float sqrt_u, float sqrt_v,
+                               int count, void* stream) {
+  Consts c = {sig_q, sig_p, sig_s, tau_u, tau_v,
+              sqrt_q, sqrt_p, sqrt_s, sqrt_u, sqrt_v};
+  TK b = tight_of(u, v, q, p, s, up, vp, qp, pp, sp, kxq, kxqp, su, sup, f,
+                  kron, sc, partial, L, k, nx, ny, ntaps, c);
+  b.terms = (float*)terms;
+  return resident_chunk(b, count, (cudaStream_t)stream);
+}
+
+int prost_tight_chunk_halo_resident(
+    void* u, void* v, void* q, void* p, void* s, void* up, void* vp,
+    void* qp, void* pp, void* sp, void* kxq, void* kxqp, void* su, void* sup,
+    const void* f, const void* kron, void* sc, void* partial, void* terms,
+    int L, int k, int nx, int ny, int ntaps, float sig_q, float sig_p,
+    float sig_s, float tau_u, float tau_v, float sqrt_q, float sqrt_p,
+    float sqrt_s, float sqrt_u, float sqrt_v, int nx_global, int count,
+    void* stream) {
+  Consts c = {sig_q, sig_p, sig_s, tau_u, tau_v,
+              sqrt_q, sqrt_p, sqrt_s, sqrt_u, sqrt_v};
+  TK b = tight_of(u, v, q, p, s, up, vp, qp, pp, sp, kxq, kxqp, su, sup, f,
+                  kron, sc, partial, L, k, nx, ny, ntaps, c);
+  b.terms = (float*)terms;
+  b.nxg = nx_global;
+  return resident_chunk(b, count, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory tight_resident's blocks may hold on the current
+// device, or minus the error.
+int prost_tight_resident_smem() { return resident_smem_limit(tight_resident); }
 
 }  // extern "C"

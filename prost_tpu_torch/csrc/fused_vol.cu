@@ -45,10 +45,11 @@
 // batched sequence streams all B instances' volumes at once, 268 MB an
 // iteration at B = 8 of 256x256x8, beyond the L2.  Where one instance's
 // volumes fit in the shared memory of one block per SM (the wrapper's
-// shape rule: 256x256x8, not 512x512x8), the batched chunk runs instead
-// as one grid-resident cooperative launch that takes the instances one
-// after another (vol_resident_batched, further down), bit-equal to the
-// sequence.
+// shape rule: 256x256x8 and its one-shard halo band, not 512x512x8), the
+// chunk and its halo mode run instead as one grid-resident cooperative
+// launch (vol_resident, further down), and the batched chunk as one such
+// launch that takes the instances one after another
+// (vol_resident_batched), each bit-equal to the sequence.
 //
 // Design.  One thread per (i, j) pixel of the 32x8 pixel grid of
 // pdhg_chunk.cuh, looping over the L labels, as in fused_multilabel.cu: the
@@ -307,16 +308,20 @@ __global__ void vol_norm_partial(Vol b) {
 }
 
 // ---------------------------------------------------------------------------
-// The grid-resident batched chunk (vol_resident_batched): one cooperative
-// launch runs what chunk() runs in 2 count + 3 launches for B instances,
-// the instances one after another.
+// The grid-resident chunks: one cooperative launch runs what chunk() runs
+// in 2 count + 3 launches, for one volume or one halo band (vol_resident)
+// and for B instances one after another (vol_resident_batched).
 //
 // What bounds it.  At vol256x8's shape (256x256x8, ri 10) the streaming
+// sequence is 23 launches of 5-6 us each, mostly latency and tails; the
 // batched sequence passes over all B instances' volumes each half-step:
 // about 16 volumes of 2 MiB an iteration per instance, 268 MB an
 // iteration at B = 8, beyond the 50 MB L2, so it is bound by device
 // memory.  One instance's chunk state (u, q, g, f: 8 volumes, 16 MB; 9
-// with wsquare's w) fits in the shared memory of the card's SMs.
+// with wsquare's w) fits in the shared memory of the card's SMs, and so
+// does that of its one-shard halo band (300 rows: bands of 3 rows, 212992
+// bytes a block; with wsquare 237568, beyond the card's 232448, so that
+// band streams).
 //
 // Design.  One block of RES_THREADS on each SM; block b owns the rows
 // band_of(nx, b, G) of every label plane of an instance and holds them in
@@ -592,6 +597,19 @@ __device__ __forceinline__ void vol_resident_chunk(
   }
 }
 
+// The chunk (vol_fused_chunk, and its halo mode on one band: the row
+// context of pdhg_chunk.cuh, which vol_resident_chunk reads for every row
+// mask, every dead row and the owned rows of the norms) grid-resident: one
+// instance as vol_resident_batched runs each of its instances.
+template <int LT>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    vol_resident(Vol b, int count, int dataterm, int rmax) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (b.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  vol_resident_chunk<LT>(b, count, dataterm, rmax, smem, grid);
+}
+
 template <int LT>
 __global__ void __launch_bounds__(RES_THREADS, 1)
     vol_resident_batched(Vol b, int count, int dataterm, int rmax,
@@ -611,11 +629,25 @@ __global__ void __launch_bounds__(RES_THREADS, 1)
   }
 }
 
-// The resident batched chunk's kernel for L labels, or null beyond
-// MAX_RES_L.
-using VolResKernel = void (*)(Vol, int, int, int, int);
+// The resident chunk's kernels for L labels, or null beyond MAX_RES_L.
+using VolResKernel = void (*)(Vol, int, int, int);
+using VolResBatchedKernel = void (*)(Vol, int, int, int, int);
 
 VolResKernel vol_resident_kernel(int L) {
+  switch (L) {
+    case 1: return vol_resident<1>;
+    case 2: return vol_resident<2>;
+    case 3: return vol_resident<3>;
+    case 4: return vol_resident<4>;
+    case 5: return vol_resident<5>;
+    case 6: return vol_resident<6>;
+    case 7: return vol_resident<7>;
+    case MAX_RES_L: return vol_resident<MAX_RES_L>;
+    default: return nullptr;
+  }
+}
+
+VolResBatchedKernel vol_resident_batched_kernel(int L) {
   switch (L) {
     case 1: return vol_resident_batched<1>;
     case 2: return vol_resident_batched<2>;
@@ -627,6 +659,44 @@ VolResKernel vol_resident_kernel(int L) {
     case MAX_RES_L: return vol_resident_batched<MAX_RES_L>;
     default: return nullptr;
   }
+}
+
+// The dynamic shared memory of a resident launch on volumes of nx rows:
+// VolRes for the largest band (rmax rows), at least the reductions' array;
+// or 0 where `kernel` may not hold it on the current device (then `rc`
+// holds the error).
+template <typename K>
+size_t resident_smem(K kernel, int L, int nx, int ny, int dataterm,
+                     int& rmax, int& rc) {
+  int sms = 0;
+  rc = device_sms(&sms);
+  if (rc) return 0;
+  rmax = band_rows(nx, sms);
+  size_t smem = vol_resident_floats(L, rmax, ny, dataterm == DT_WSQUARE)
+                * sizeof(float);
+  if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
+  int limit = resident_smem_limit(kernel);
+  if (limit < 0) {
+    rc = -limit;
+    return 0;
+  }
+  if (smem > (size_t)limit) {
+    rc = (int)cudaErrorInvalidValue;
+    return 0;
+  }
+  return smem;
+}
+
+// One resident chunk of `b` (the whole volume, or a halo band where b.nxg
+// is set).
+int resident_chunk(Vol b, int count, int dataterm, cudaStream_t st) {
+  VolResKernel kernel = vol_resident_kernel(b.L);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  int rmax = 0, rc = 0;
+  size_t smem = resident_smem(kernel, b.L, b.nx, b.ny, dataterm, rmax, rc);
+  if (rc) return rc;
+  void* args[] = {&b, &count, &dataterm, &rmax};
+  return resident_launch(kernel, args, smem, st);
 }
 
 // One chunk of `count` iterations of `batch` instances without the seed:
@@ -743,29 +813,58 @@ int prost_vol_chunk_batched_resident(void* u, void* q, void* up, void* qp,
                                      long long zq, int count, int dataterm,
                                      int batch, void* stream) {
   if (int rc = batch_error(batch)) return rc;
-  VolResKernel kernel = vol_resident_kernel(L);
+  VolResBatchedKernel kernel = vol_resident_batched_kernel(L);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   Vol b = vol_of(u, q, up, qp, nullptr, nullptr, f, w, sc, partial, L, nx,
                  ny);
   b.terms = (float*)terms;
   b.zu = zu;
   b.zq = zq;
-  int sms = 0;
-  if (int rc = device_sms(&sms)) return rc;
-  int rmax = band_rows(nx, sms);
-  size_t smem = vol_resident_floats(L, rmax, ny, dataterm == DT_WSQUARE)
-                * sizeof(float);
-  if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
-  int limit = resident_smem_limit(kernel);
-  if (limit < 0) return -limit;
-  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int rmax = 0, rc = 0;
+  size_t smem = resident_smem(kernel, L, nx, ny, dataterm, rmax, rc);
+  if (rc) return rc;
   void* args[] = {&b, &count, &dataterm, &rmax, &batch};
   return resident_launch(kernel, args, smem, (cudaStream_t)stream);
 }
 
-// The dynamic shared memory vol_resident_batched's blocks may hold on the
-// current device (for L labels), or minus the error.
-int prost_vol_resident_smem(int L) {
+// vol_fused_chunk and vol_fused_chunk_halo as one grid-resident cooperative
+// launch (vol_resident), bit-equal to prost_vol_chunk and
+// prost_vol_chunk_halo: the same volumes and scalars without the carried
+// gradient's, `terms` 4 (nx, ny) planes of scratch.  Up to MAX_RES_L
+// labels; a band's volumes that do not fit in one block's shared memory
+// are refused (cudaErrorCooperativeLaunchTooLarge or
+// cudaErrorInvalidValue).  No-op when sc[S_CONV] is set.
+int prost_vol_chunk_resident(void* u, void* q, void* up, void* qp,
+                             const void* f, const void* w, void* sc,
+                             void* partial, void* terms, int L, int nx,
+                             int ny, int count, int dataterm, void* stream) {
+  Vol b = vol_of(u, q, up, qp, nullptr, nullptr, f, w, sc, partial, L, nx,
+                 ny);
+  b.terms = (float*)terms;
+  return resident_chunk(b, count, dataterm, (cudaStream_t)stream);
+}
+
+int prost_vol_chunk_halo_resident(void* u, void* q, void* up, void* qp,
+                                  const void* f, const void* w, void* sc,
+                                  void* partial, void* terms, int L, int nx,
+                                  int ny, int nx_global, int count,
+                                  int dataterm, void* stream) {
+  Vol b = vol_of(u, q, up, qp, nullptr, nullptr, f, w, sc, partial, L, nx,
+                 ny);
+  b.terms = (float*)terms;
+  b.nxg = nx_global;
+  return resident_chunk(b, count, dataterm, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory vol_resident's blocks (with `batched`,
+// vol_resident_batched's) may hold on the current device (for L labels), or
+// minus the error.
+int prost_vol_resident_smem(int L, int batched) {
+  if (batched) {
+    VolResBatchedKernel kernel = vol_resident_batched_kernel(L);
+    if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+    return resident_smem_limit(kernel);
+  }
   VolResKernel kernel = vol_resident_kernel(L);
   if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
   return resident_smem_limit(kernel);

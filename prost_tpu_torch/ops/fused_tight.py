@@ -33,10 +33,16 @@ with a plain PyTorch version beside each wrapper here:
   route's (``parallel/spatial_fused.py``).
 
 The JAX package has no multichunk kernel for this workload, and neither
-has the port.  A wrapper given CPU tensors runs the plain version; given CUDA
-tensors it launches the kernel, or raises.  There is no fallback and no
-VMEM gate: the kernel keeps its planes in device memory, so it also serves
-the sizes for which the JAX package bands its kernel
+has the port.  The chunk and its halo mode have in-place forms,
+``tight_chunk_`` and ``tight_chunk_halo_``, which the whole-plane and the
+sharded routes call through ``TightChunk``, made once per route.  On a card
+each runs as one grid-resident cooperative launch where the shape rule
+(``resident_ok``) finds that the planes of a band fit in the shared memory
+of one block per SM, and as the streaming launch sequence otherwise; both
+are bit-equal.  A wrapper given CPU tensors runs the plain version; given
+CUDA tensors it launches the kernel, or raises.  There is no fallback and
+no VMEM gate: the streaming kernels keep the planes in device memory, so
+they also serve the sizes for which the JAX package bands its kernel
 (``tight_fused_chunk_banded``).
 
 Layout contract (the JAX package's, at every public function): u and f
@@ -61,12 +67,15 @@ from ..linop.blocks import BlockDiags, BlockKronId
 from ..linop.gradient import BlockGradient2D, fwd_diff, fwd_diff_adjoint
 from ..prox.elemop import ProxElem1D
 from ..prox.standalone import ProxZero
-from .pdhg_chunk import (CF, CI, N_HALO_SCAL, VP, WHOLE_PLANE, ChunkWork,
-                         ball_scale, check_buffers, check_halo, chunk_state,
-                         coeff_vector, entry_converged, halo_copy, halo_into,
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
+                         S_NORM, VP, WHOLE_PLANE, ChunkWork, LightChunk,
+                         ball_scale, card_sms, check_buffers, check_halo,
+                         check_inplace, chunk_state, coeff_vector,
+                         entry_converged, halo_copy, halo_into,
                          halo_scal_rows, isscalar, launch, leq0_ball_radius,
-                         run_pdhg_route, segment_const, typed_lib,
-                         vmap_plain)
+                         own_vectors, pick_path, resident_rows,
+                         run_pdhg_route, scalar_buffer, segment_const,
+                         typed_lib, vmap_plain)
 
 MAX_TAPS = 512  # nonzeros of P^T the route takes (the JAX package's bound)
 
@@ -287,29 +296,129 @@ def _lib():
     """The fused tight kernel library, built from csrc/fused_tight.cu on
     first use."""
     head = [VP] * 18 + [CI] * 5 + [CF] * 10
+    res = [VP] * 19 + [CI] * 5 + [CF] * 10
     return typed_lib("fused_tight", "prost_tight_num_blocks", {
         "prost_tight_chunk": head + [CI, VP],
         "prost_tight_chunk_batched": head + [CI, CI, VP],
-        "prost_tight_chunk_halo": head + [CI, CI, VP]})
+        "prost_tight_chunk_halo": head + [CI, CI, VP],
+        "prost_tight_chunk_resident": res + [CI, VP],
+        "prost_tight_chunk_halo_resident": res + [CI, CI, VP],
+        "prost_tight_resident_smem": []})
 
 
 def _launch(fn: str, what: str, u, v, q, p, s, f, scal, n_scal: int, taps,
-            consts, *args, prev=None):
-    """One launch of ``fn`` on copies of (u, v, q, p, s) (with a leading
-    instance axis for a batched launch), or on (u, v, q, p, s) and ``prev``
-    themselves; returns its outputs."""
+            consts, *args):
+    """One launch of the streaming batched ``fn`` on copies of (u, v, q, p,
+    s), each with a leading instance axis; returns its outputs."""
     lib = _lib()
     L, nx, ny = u.shape[-3:]
     k = v.shape[-3] // 2
     wk = ChunkWork((u, v, q, p, s), (q, s), scal, n_scal,
-                   lib.prost_tight_num_blocks(nx, ny), prev=prev)
-    consts = [float(c) for c in consts]
-    # the square roots rounded once from double, as the plain version
-    # rounds its Python constants
+                   lib.prost_tight_num_blocks(nx, ny))
     launch(lib, fn, what, launch_counts, u.device,
            wk.buffers(f, kron_array(tuple(taps), L, k, u.device)), L, k, nx,
-           ny, len(taps), *consts, *[c ** 0.5 for c in consts], *args)
+           ny, len(taps), *_consts10(consts), *args)
     return wk.outputs()
+
+
+def _consts10(consts):
+    """The five preconditioner constants and their square roots, rounded
+    once from double, as the plain version rounds its Python constants."""
+    consts = [float(c) for c in consts]
+    return consts + [c ** 0.5 for c in consts]
+
+
+def resident_bytes(L: int, k: int, ntaps: int, nx: int, ny: int,
+                   sms: int) -> int:
+    """The dynamic shared memory of one block of the grid-resident chunk on
+    ``nx`` rows (the whole plane's, or a halo band's) over ``sms`` blocks:
+    csrc/fused_tight.cu's TightRes for the largest band
+    (tight_resident_floats: u with a row below, q with a row above, v, p,
+    the carried kxq, f, s and su, and the taps array), at least the
+    reductions' array."""
+    rmax = resident_rows(nx, sms)
+    floats = ((3 * L * (rmax + 1) + (4 * k + 3 * L + 2) * rmax) * int(ny)
+              + 2 * L + 2 * k + 2 + 4 * int(ntaps))
+    return max(4 * floats, RES_RED_BYTES)
+
+
+def resident_ok(L: int, k: int, ntaps: int, nx: int, ny: int, sms: int,
+                smem: int) -> bool:
+    """The shape rule of ``tight_chunk_`` and ``tight_chunk_halo_``: a
+    chunk on ``nx`` rows runs as one grid-resident launch
+    (csrc/fused_tight.cu tight_resident, one block per SM) where the planes
+    of its largest band and the taps fit in ``smem`` bytes of a block's
+    dynamic shared memory on a card of ``sms`` SMs, and as the streaming
+    launch sequence otherwise."""
+    return resident_bytes(L, k, ntaps, nx, ny, sms) <= int(smem)
+
+
+@functools.lru_cache(maxsize=None)
+def card_limits(device) -> tuple:
+    """(SMs, the dynamic shared memory a block of the grid-resident chunk
+    may hold) of the card ``device``, read once."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        smem = lib.prost_tight_resident_smem()
+    if smem < 0:
+        raise ProstError(f"tight_chunk: no shared-memory limit for the "
+                         f"resident chunk on {device} (CUDA error {-smem}).")
+    return card_sms(device), smem
+
+
+def _resident(L, k, ntaps, nx, ny, device) -> bool:
+    return resident_ok(L, k, ntaps, nx, ny, *card_limits(device))
+
+
+def _scratch(resident: bool, L, nx, ny, device):
+    """A chunk launch's scratch: the carried planes kxq and su of this
+    iterate and of the previous one (the grid-resident launch writes them
+    on the aligned iteration only), and the grid-resident chunk's norm
+    terms (4 planes)."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    carried = [empty(2 * L, nx, ny), empty(2 * L, nx, ny), empty(nx, ny),
+               empty(nx, ny)]
+    return carried + ([empty(4, nx, ny)] if resident else [])
+
+
+def _launch_chunk(what: str, state, prev, f, kron, sc, partial, scratch,
+                  resident: bool, count: int, ntaps: int, consts,
+                  nx_global=None):
+    """One chunk on the card in place on ``state`` (u, v, q, p, s) and
+    ``prev``: the grid-resident launch or the streaming sequence, of the
+    whole plane or (with ``nx_global``) of a halo band, counted under
+    ``what``."""
+    u, v = state[0], state[1]
+    L, nx, ny = u.shape
+    k = v.shape[0] // 2
+    fn = "prost_tight_chunk" + ("" if nx_global is None else "_halo")
+    tail = () if nx_global is None else (int(nx_global),)
+    carried, terms = scratch[:4], scratch[4:]
+    launch(_lib(), fn + ("_resident" if resident else ""), what,
+           launch_counts, u.device,
+           [*state, *prev, *carried, f, kron, sc, partial, *terms], L, k, nx,
+           ny, int(ntaps), *consts, *tail, int(count))
+
+
+def _inplace(what: str, state, prev, f, scal, n_scal: int, count: int,
+             taps, consts, nx_global, path):
+    """One chunk on the card in place, its buffers made for this call;
+    returns norms2."""
+    u, v = state[0], state[1]
+    L, nx, ny = u.shape
+    k = v.shape[0] // 2
+    dev = u.device
+    resident = pick_path(path, _resident(L, k, len(taps), nx, ny, dev), what)
+    sc = scalar_buffer(scal, n_scal, S_CONV, S_LEN)
+    partial = torch.empty(4 * _lib().prost_tight_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_chunk(what, state, prev, f.contiguous(),
+                  kron_array(tuple(taps), L, k, dev), sc, partial,
+                  _scratch(resident, L, nx, ny, dev), resident, count,
+                  len(taps), _consts10(consts), nx_global)
+    return sc[S_NORM:S_NORM + 4]
 
 
 def tight_chunk(u, v, q, p, s, f, scal, count: int, taps, consts):
@@ -322,12 +431,32 @@ def tight_chunk(u, v, q, p, s, f, scal, count: int, taps, consts):
     set, nothing runs and the inputs come back).  Returns (u2, v2, q2, p2,
     s2, u_prev, v_prev, q_prev, p_prev, s_prev, norms2), norms2 the 4
     SQUARED preconditioned residual norms, on the inputs' device.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel."""
+    tensors run the plain version; CUDA tensors run ``tight_chunk_`` on
+    copies."""
     _check(u, v, q, p, s, f, scal, count, taps, consts)
     if u.device.type == "cpu":
         return tight_chunk_plain(u, v, q, p, s, f, scal, count, taps, consts)
-    return _launch("prost_tight_chunk", "tight_chunk", u, v, q, p, s, f, scal,
-                   5, taps, consts, int(count))
+    return halo_copy(tight_chunk_, (u, v, q, p, s), f, scal, count, taps,
+                     consts)
+
+
+def tight_chunk_(u, v, q, p, s, u_prev, v_prev, q_prev, p_prev, s_prev, f,
+                 scal, count: int, taps, consts, path=None):
+    """``tight_chunk`` in place: (u, v, q, p, s) advance by ``count``
+    iterations and the previous buffers take the iterate before the aligned
+    one; with the converged flag set nothing changes.  Returns norms2.  On
+    a card ``path`` None takes the shape rule's path (``resident_ok``): one
+    grid-resident launch (csrc/fused_tight.cu tight_resident) where the
+    planes fit on chip, else the streaming launch sequence; "resident" or
+    "streaming" asks for one ("resident" raises where it does not fit)."""
+    state, prev = (u, v, q, p, s), (u_prev, v_prev, q_prev, p_prev, s_prev)
+    _check(*state, f, scal, count, taps, consts)
+    check_inplace(state, prev)
+    if u.device.type == "cpu":
+        return halo_into(state, prev, tight_chunk_plain(
+            *state, f, scal, count, taps, consts), scal, 5)
+    return _inplace("tight_chunk", state, prev, f, scal, 5, count, taps,
+                    consts, None, path)
 
 
 def tight_chunk_halo(u, v, q, p, s, f, scal, count: int, nx_global: int,
@@ -342,26 +471,77 @@ def tight_chunk_halo(u, v, q, p, s, f, scal, count: int, nx_global: int,
     flag), row_offset the global row of local row 0 and [own_lo, own_hi)
     the owned local rows.  Returns the tuple of ``tight_chunk``, norms2
     over the owned rows only.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel."""
+    tensors run ``tight_chunk_halo_`` on copies."""
     return halo_copy(tight_chunk_halo_, (u, v, q, p, s), f, scal, count,
                      nx_global, taps, consts)
 
 
 def tight_chunk_halo_(u, v, q, p, s, u_prev, v_prev, q_prev, p_prev, s_prev,
-                      f, scal, count: int, nx_global: int, taps, consts):
+                      f, scal, count: int, nx_global: int, taps, consts,
+                      path=None):
     """``tight_chunk_halo`` in place, on the sharded route's persistent
     buffers: (u, v, q, p, s) advance by ``count`` iterations and the
     previous buffers take the iterate before the aligned one; with the
-    converged flag set nothing changes.  Returns norms2."""
+    converged flag set nothing changes.  Returns norms2.  ``path`` as for
+    ``tight_chunk_``, the shape rule on the band's rows."""
     state, prev = (u, v, q, p, s), (u_prev, v_prev, q_prev, p_prev, s_prev)
     _check(*state, f, scal, count, taps, consts, n_scal=N_HALO_SCAL)
     check_halo(nx_global, state, prev)
     if u.device.type == "cpu":
         return halo_into(state, prev, tight_chunk_halo_plain(
             *state, f, scal, count, nx_global, taps, consts), scal)
-    return _launch("prost_tight_chunk_halo", "tight_chunk_halo", *state, f,
-                   scal, N_HALO_SCAL, taps, consts, int(nx_global),
-                   int(count), prev=prev)[-1]
+    return _inplace("tight_chunk_halo", state, prev, f, scal, N_HALO_SCAL,
+                    count, taps, consts, int(nx_global), path)
+
+
+class TightChunk(LightChunk):
+    """The tight routes' light chunk call: ``tight_chunk_`` (with ``band``
+    = (nx_global, rows, row_offset, own_lo, own_hi), ``tight_chunk_halo_``
+    on a band of ``rows`` rows) on the planes a route holds, with what
+    depends only on the shapes made once per route: the path
+    (``resident_ok``), the scratch, the norm partials, the taps array, the
+    constants and the scalar buffer with ``m``'s radius and d_s (and the
+    band's row context).  A call writes the step sizes and the flag into
+    the scalar buffer and launches; on the CPU it runs the plain version."""
+
+    def __init__(self, m, count: int, device, band=None):
+        consts = (m["radius"], m["d_s"]) + tuple(band[2:] if band else ())
+        super().__init__(consts, device)
+        self.count, self.band = int(count), band
+        self.taps, self.consts = m["taps"], m["consts"]
+        L, k, nx, ny = m["L"], m["k"], m["nx"], m["ny"]
+        if band is not None:
+            nx = int(band[1])
+        self.what = "tight_chunk" if band is None else "tight_chunk_halo"
+        self.nx_global = None if band is None else int(band[0])
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = _resident(L, k, len(self.taps), nx, ny, device)
+            self.partial = torch.empty(
+                4 * _lib().prost_tight_num_blocks(nx, ny),
+                dtype=torch.float32, device=device)
+            self.scratch = _scratch(self.resident, L, nx, ny, device)
+            self.kron = kron_array(tuple(self.taps), L, k, device)
+            self.consts10 = _consts10(self.consts)
+
+    def __call__(self, state, prev, f, tau, sigma, theta, converged):
+        """``count`` iterations on ``state`` (u, v, q, p, s) in place, the
+        previous iterate into ``prev``; returns norms2."""
+        self.scalars_(tau, sigma, theta, converged)
+        if self.resident is None:
+            scal = self.scal()
+            if self.band is None:
+                out = tight_chunk_plain(*state, f, scal, self.count,
+                                        self.taps, self.consts)
+            else:
+                out = tight_chunk_halo_plain(*state, f, scal, self.count,
+                                             self.nx_global, self.taps,
+                                             self.consts)
+            return halo_into(state, prev, out, scal, self.n_scal)
+        _launch_chunk(self.what, state, prev, f, self.kron, self.sc,
+                      self.partial, self.scratch, self.resident, self.count,
+                      len(self.taps), self.consts10, self.nx_global)
+        return self.norms2()
 
 
 def tight_chunk_batched(u, v, q, p, s, f, scal, count: int, taps, consts):
@@ -501,23 +681,23 @@ def _planes(t, xf, yf):
             yf[2 * nL + nk2:].reshape(nx, ny))
 
 
-def _flat(*planes):
-    return torch.cat([a.reshape(-1) for a in planes])
-
-
 def _fused_chunk(b, st: PDHGState) -> PDHGState:
+    """One chunk in place on the views of the run's own x, y, x_prev and
+    y_prev (``own_vectors``) through the route's light call."""
     t, ri = b.tight, max(int(b.opts.residual_iter), 1)
-    scal = torch.stack([st.tau, st.sigma, st.theta, t["radius_t"],
-                        t["d_s_t"], st.converged.to(st.x.dtype)])
-    out = tight_chunk(*_planes(t, st.x, st.y), t["f"], scal, ri, t["taps"],
-                      t["consts"])
-    u2, v2, q2, p2, s2, up, vp, qp, pp, sp, norms2 = out
-    return chunk_state(b, st, ri, _flat(u2, v2), _flat(q2, p2, s2),
-                       _flat(up, vp), _flat(qp, pp, sp), norms2)
+    if "call" not in t:
+        t["call"] = TightChunk(t, ri, st.x.device)
+    norms2 = t["call"](_planes(t, st.x, st.y),
+                       _planes(t, st.x_prev, st.y_prev), t["f"], st.tau,
+                       st.sigma, st.theta, st.converged)
+    return chunk_state(b, st, ri, st.x, st.y, st.x_prev, st.y_prev, norms2)
 
 
 def fused_tight_run(b, state: PDHGState, until: int,
                     start: int) -> PDHGState:
     """``run_pdhg_route`` with the tight chunks of ``FusedROFPDHG`` ``b``:
-    no multichunk (the JAX package has none) and no canonical form."""
-    return run_pdhg_route(b, state, until, start, lambda s: _fused_chunk(b, s))
+    no multichunk (the JAX package has none) and no canonical form; the run
+    takes its own copies of the state's vectors, which the chunks update in
+    place."""
+    return run_pdhg_route(b, state, until, start, lambda s: _fused_chunk(b, s),
+                          own_vectors)

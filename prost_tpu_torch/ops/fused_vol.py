@@ -25,13 +25,15 @@ Three kernels carry the volumetric routes, hand-written CUDA in
   halo-extended shard of the nx axis, the spatially sharded route's
   (``parallel/spatial_fused.py``).
 
-The batched chunk has an in-place form, ``vol_chunk_batched_``, which
-``BatchedPDHG`` calls through ``VolBatchedChunk``, made once per route.
-On a card it runs as one grid-resident cooperative launch, the volumes one
-after another, where the shape rule (``resident_ok``, on one volume) finds
-that one volume's planes fit in the shared memory of one block per SM, and
-as the streaming launch sequence otherwise; both are bit-equal.  The
-single-instance chunk, its halo mode and the multichunk stream.
+The chunk, its halo mode and the batched chunk have in-place forms,
+``vol_chunk_``, ``vol_chunk_halo_`` and ``vol_chunk_batched_``, which the
+whole-volume and sharded routes call through ``VolChunk`` and
+``BatchedPDHG`` through ``VolBatchedChunk``, each made once per route.  On
+a card each runs as one grid-resident cooperative launch (the batched
+chunk's volumes one after another) where the shape rule (``resident_ok``,
+on one volume or band) finds that the volume's planes fit in the shared
+memory of one block per SM, and as the streaming launch sequence
+otherwise; both are bit-equal.  The multichunk streams.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no fallback and no VMEM gate: the
@@ -65,8 +67,9 @@ from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
                          check_buffers, check_halo, chunk_state,
                          dual_ball_radius, dx, dy, dyt, entry_converged,
                          halo_copy, halo_into, halo_scal_rows,
-                         instance_strides, launch, match_dataterm,
-                         multichunk_plain, multichunk_state, pick_path,
+                         check_inplace, instance_strides, launch,
+                         match_dataterm, multichunk_plain, multichunk_state,
+                         own_vectors, pick_path,
                          resident_rows, run_pdhg_route, scalar_buffer,
                          typed_lib, vmap_plain)
 from .phases import K_CHUNKS
@@ -261,7 +264,9 @@ def _lib():
                                    + [CI] * 3 + [VP],
         "prost_vol_chunk_batched_resident": [VP] * 9 + [CI] * 3 + strides
                                             + [CI] * 3 + [VP],
-        "prost_vol_resident_smem": [CI],
+        "prost_vol_chunk_resident": [VP] * 9 + [CI] * 5 + [VP],
+        "prost_vol_chunk_halo_resident": [VP] * 9 + [CI] * 6 + [VP],
+        "prost_vol_resident_smem": [CI, CI],
         "prost_vol_chunk_halo": [VP] * 10 + [CI] * 6 + [VP],
         "prost_vol_multichunk": [VP] * 10 + [CI] * 7 + [CF] * 6 + [VP]})
 
@@ -273,16 +278,70 @@ def vol_chunk(u, q, f, w, scal, count: int, dataterm: str = "square"):
     radius] (+ an optional converged flag: when set, nothing runs and the
     inputs come back).  Returns (u2, q2, u_prev, q_prev, norms2), norms2
     the 4 SQUARED preconditioned residual norms, on the inputs' device.
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors run ``vol_chunk_`` on
+    copies."""
     _check(u, q, f, w, scal, 5, count, dataterm)
     if u.device.type == "cpu":
         return vol_chunk_plain(u, q, f, w, scal, count, dataterm)
-    lib = _lib()
+    return halo_copy(vol_chunk_, (u, q), f, w, scal, count, dataterm)
+
+
+def _launch_chunk(what: str, state, prev, f, w, sc, partial, scratch,
+                  resident: bool, count: int, dataterm: str,
+                  nx_global=None):
+    """One chunk on the card in place on ``state`` (u, q) and ``prev``:
+    the grid-resident launch or the streaming sequence, of the whole
+    volume or (with ``nx_global``) of a halo band, counted under
+    ``what``."""
+    u = state[0]
     L, nx, ny = u.shape
-    wk = ChunkWork((u, q), (q,), scal, 5, lib.prost_vol_num_blocks(nx, ny))
-    launch(lib, "prost_vol_chunk", "vol_chunk", launch_counts, u.device,
-           wk.buffers(f, w), L, nx, ny, int(count), DATATERMS[dataterm])
-    return wk.outputs()
+    fn = "prost_vol_chunk" + ("" if nx_global is None else "_halo")
+    tail = (() if nx_global is None else (int(nx_global),)) + (
+        int(count), DATATERMS[dataterm])
+    if resident:
+        bufs = [*state, *prev, f, w, sc, partial, *scratch]
+        fn += "_resident"
+    else:
+        bufs = [*state, *prev, *scratch, f, w, sc, partial]
+    launch(_lib(), fn, what, launch_counts, u.device, bufs, L, nx, ny,
+           *tail)
+
+
+def _inplace(what: str, state, prev, f, w, scal, n_scal: int, count: int,
+             dataterm: str, nx_global, path):
+    """One chunk on the card in place, its buffers made for this call;
+    returns norms2."""
+    u = state[0]
+    L, nx, ny = u.shape
+    dev = u.device
+    resident = pick_path(path, resident_ok(L, nx, ny, dataterm,
+                                           *card_limits(dev, L)), what)
+    sc = scalar_buffer(scal, n_scal, S_CONV, S_LEN)
+    partial = torch.empty(4 * _lib().prost_vol_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_chunk(what, state, prev, f.contiguous(), w.contiguous(), sc,
+                  partial, _scratch(resident, 0, L, nx, ny, dev), resident,
+                  count, dataterm, nx_global)
+    return sc[S_NORM:S_NORM + 4]
+
+
+def vol_chunk_(u, q, u_prev, q_prev, f, w, scal, count: int,
+               dataterm: str = "square", path=None):
+    """``vol_chunk`` in place: (u, q) advance by ``count`` iterations and
+    (u_prev, q_prev) take the iterate before the aligned one; with the
+    converged flag set nothing changes.  Returns norms2.  On a card
+    ``path`` None takes the shape rule's path (``resident_ok``): one
+    grid-resident launch (csrc/fused_vol.cu vol_resident) where the
+    volume's planes fit on chip, else the streaming launch sequence;
+    "resident" or "streaming" asks for one ("resident" raises where it does
+    not fit)."""
+    _check(u, q, f, w, scal, 5, count, dataterm)
+    check_inplace((u, q), (u_prev, q_prev))
+    if u.device.type == "cpu":
+        return halo_into((u, q), (u_prev, q_prev), vol_chunk_plain(
+            u, q, f, w, scal, count, dataterm), scal, 5)
+    return _inplace("vol_chunk", (u, q), (u_prev, q_prev), f, w, scal, 5,
+                    count, dataterm, None, path)
 
 
 def vol_chunk_halo(u, q, f, w, scal, count: int, nx_global: int,
@@ -297,30 +356,73 @@ def vol_chunk_halo(u, q, f, w, scal, count: int, nx_global: int,
     local row 0 and [own_lo, own_hi) the owned local rows.  Returns the
     tuple of ``vol_chunk``, norms2 over the owned rows only.  The label
     axis keeps its Dirichlet ends.  CPU tensors run the plain version;
-    CUDA tensors launch the kernel."""
+    CUDA tensors run ``vol_chunk_halo_`` on copies."""
     return halo_copy(vol_chunk_halo_, (u, q), f, w, scal, count, nx_global,
                      dataterm)
 
 
 def vol_chunk_halo_(u, q, u_prev, q_prev, f, w, scal, count: int,
-                    nx_global: int, dataterm: str = "square"):
+                    nx_global: int, dataterm: str = "square", path=None):
     """``vol_chunk_halo`` in place, on the sharded route's persistent
     buffers: (u, q) advance by ``count`` iterations and (u_prev, q_prev)
     take the iterate before the aligned one; with the converged flag set
-    nothing changes.  Returns norms2."""
+    nothing changes.  Returns norms2.  ``path`` as for ``vol_chunk_``, the
+    shape rule on the band's rows."""
     _check(u, q, f, w, scal, N_HALO_SCAL, count, dataterm)
     check_halo(nx_global, (u, q), (u_prev, q_prev))
     if u.device.type == "cpu":
         return halo_into((u, q), (u_prev, q_prev), vol_chunk_halo_plain(
             u, q, f, w, scal, count, nx_global, dataterm), scal)
-    lib = _lib()
-    L, nx, ny = u.shape
-    wk = ChunkWork((u, q), (q,), scal, N_HALO_SCAL,
-                   lib.prost_vol_num_blocks(nx, ny), prev=(u_prev, q_prev))
-    launch(lib, "prost_vol_chunk_halo", "vol_chunk_halo", launch_counts,
-           u.device, wk.buffers(f, w), L, nx, ny, int(nx_global), int(count),
-           DATATERMS[dataterm])
-    return wk.outputs()[-1]
+    return _inplace("vol_chunk_halo", (u, q), (u_prev, q_prev), f, w, scal,
+                    N_HALO_SCAL, count, dataterm, int(nx_global), path)
+
+
+class VolChunk(LightChunk):
+    """The volumetric routes' light chunk call: ``vol_chunk_`` (with
+    ``band`` = (nx_global, rows, row_offset, own_lo, own_hi),
+    ``vol_chunk_halo_`` on a band of ``rows`` rows) on the volumes a route
+    holds, with what depends only on the shapes made once per route: the
+    path (``resident_ok``), the scratch, the norm partials and the scalar
+    buffer with ``m``'s lmb and radius (and the band's row context).  A
+    call writes the step sizes and the flag into the scalar buffer and
+    launches; on the CPU it runs the plain version."""
+
+    def __init__(self, m, count: int, device, band=None):
+        consts = (m["lmb"], m["radius"]) + tuple(band[2:] if band else ())
+        super().__init__(consts, device)
+        self.count, self.band = int(count), band
+        self.dataterm = m["dataterm"]
+        L, nx, ny = m["L"], m["nx"], m["ny"]
+        if band is not None:
+            nx = int(band[1])
+        self.what = "vol_chunk" if band is None else "vol_chunk_halo"
+        self.nx_global = None if band is None else int(band[0])
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = resident_ok(L, nx, ny, self.dataterm,
+                                        *card_limits(device, L))
+            self.partial = torch.empty(
+                4 * _lib().prost_vol_num_blocks(nx, ny), dtype=torch.float32,
+                device=device)
+            self.scratch = _scratch(self.resident, 0, L, nx, ny, device)
+
+    def __call__(self, state, prev, f, w, tau, sigma, theta, converged):
+        """``count`` iterations on ``state`` (u, q) in place, the previous
+        iterate into ``prev``; returns norms2."""
+        self.scalars_(tau, sigma, theta, converged)
+        if self.resident is None:
+            scal = self.scal()
+            if self.band is None:
+                out = vol_chunk_plain(*state, f, w, scal, self.count,
+                                      self.dataterm)
+            else:
+                out = vol_chunk_halo_plain(*state, f, w, scal, self.count,
+                                           self.nx_global, self.dataterm)
+            return halo_into(state, prev, out, scal, self.n_scal)
+        _launch_chunk(self.what, state, prev, f, w, self.sc, self.partial,
+                      self.scratch, self.resident, self.count, self.dataterm,
+                      self.nx_global)
+        return self.norms2()
 
 
 def vol_chunk_batched(u, q, f, w, scal, count: int,
@@ -347,8 +449,8 @@ MAX_RESIDENT_L = 8
 
 def resident_bytes(L: int, nx: int, ny: int, sms: int,
                    dataterm: str = "square") -> int:
-    """The dynamic shared memory of one block of the grid-resident batched
-    chunk on volumes of ``nx`` rows over ``sms`` blocks:
+    """The dynamic shared memory of one block of the grid-resident chunk
+    on volumes (or halo bands) of ``nx`` rows over ``sms`` blocks:
     csrc/fused_vol.cu's VolRes for the largest band (vol_resident_floats:
     u with a row below, q_x with a row above, q_y, q_l, the three carried
     gradient volumes and f, and wsquare's w), at least the reductions'
@@ -361,44 +463,47 @@ def resident_bytes(L: int, nx: int, ny: int, sms: int,
 
 def resident_ok(L: int, nx: int, ny: int, dataterm: str, sms: int,
                 smem: int) -> bool:
-    """The shape rule of ``vol_chunk_batched_`` and ``VolBatchedChunk``, on
-    one volume (the launch runs its volumes one after another, so B does
-    not enter it): the chunk runs as one grid-resident launch
-    (csrc/fused_vol.cu vol_resident_batched, one block per SM) where L is
-    at most ``MAX_RESIDENT_L`` and the planes of a volume's largest band
-    fit in ``smem`` bytes of a block's dynamic shared memory on a card of
-    ``sms`` SMs, and as the streaming launch sequence otherwise."""
+    """The shape rule of ``vol_chunk_``, ``vol_chunk_halo_`` and
+    ``vol_chunk_batched_`` (on one volume: the batched launch runs its
+    volumes one after another, so B does not enter it): the chunk runs as
+    one grid-resident launch (csrc/fused_vol.cu vol_resident and
+    vol_resident_batched, one block per SM) where L is at most
+    ``MAX_RESIDENT_L`` and the planes of a volume's (or band's) largest
+    band fit in ``smem`` bytes of a block's dynamic shared memory on a card
+    of ``sms`` SMs, and as the streaming launch sequence otherwise."""
     return (1 <= int(L) <= MAX_RESIDENT_L
             and resident_bytes(L, nx, ny, sms, dataterm) <= int(smem))
 
 
 @functools.lru_cache(maxsize=None)
-def card_limits(device, L: int) -> tuple:
-    """(SMs, the dynamic shared memory a block of the grid-resident batched
-    chunk of L labels may hold, 0 beyond ``MAX_RESIDENT_L``) of the card
-    ``device``, read once."""
+def card_limits(device, L: int, batched: bool = False) -> tuple:
+    """(SMs, the dynamic shared memory a block of the grid-resident chunk
+    of L labels, with ``batched`` the batched chunk's, may hold, 0 beyond
+    ``MAX_RESIDENT_L``) of the card ``device``, read once."""
     if not 1 <= int(L) <= MAX_RESIDENT_L:
         return card_sms(device), 0
     lib = _lib()
     with torch.cuda.device(device):
-        smem = lib.prost_vol_resident_smem(int(L))
+        smem = lib.prost_vol_resident_smem(int(L), int(bool(batched)))
     if smem < 0:
-        raise ProstError(f"vol_chunk_batched: no shared-memory limit for the "
+        raise ProstError(f"vol_chunk: no shared-memory limit for the "
                          f"resident chunk on {device} (CUDA error {-smem}).")
     return card_sms(device), smem
 
 
 def _scratch(resident: bool, B, L, nx, ny, device):
-    """A batched launch's scratch: the grid-resident chunk's norm terms (4
-    planes, which its volumes share), or the streaming sequence's carried
-    gradient volumes of every instance (of this iterate and of the
-    previous one)."""
+    """A launch's scratch: the grid-resident chunk's norm terms (4 planes,
+    which a batched launch's volumes share), or the streaming sequence's
+    carried gradient volumes (of this iterate and of the previous one; with
+    ``B``, of every instance)."""
+    lead = (B,) if B else ()
+
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
     if resident:
         return [empty(4, nx, ny)]
-    return [empty(B, 3, L, nx, ny), empty(B, 3, L, nx, ny)]
+    return [empty(*lead, 3, L, nx, ny), empty(*lead, 3, L, nx, ny)]
 
 
 def _launch_batched(state, prev, f, w, sc, partial, scratch, resident: bool,
@@ -444,7 +549,7 @@ def vol_chunk_batched_(u, q, u_prev, q_prev, f, w, scal, count: int,
     B, L, nx, ny = u.shape
     dev = u.device
     resident = pick_path(path, resident_ok(L, nx, ny, dataterm,
-                                           *card_limits(dev, L)),
+                                           *card_limits(dev, L, True)),
                          "vol_chunk_batched")
     sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
     partial = torch.empty(4 * B * _lib().prost_vol_num_blocks(nx, ny),
@@ -471,7 +576,7 @@ class VolBatchedChunk(LightChunk):
         self.resident = None  # the path on a card
         if torch.device(device).type == "cuda":
             self.resident = resident_ok(L, nx, ny, self.dataterm,
-                                        *card_limits(device, L))
+                                        *card_limits(device, L, True))
             self.partial = torch.empty(
                 4 * B * _lib().prost_vol_num_blocks(nx, ny),
                 dtype=torch.float32, device=device)
@@ -560,9 +665,10 @@ def match_vol_structure(problem):
             "radius": radius, "dataterm": dataterm}
 
 
-def _volumes(v, s: PDHGState):
+def _volumes(v, x, y):
+    """(u, q) views of the solver's flat x and y."""
     L, nx, ny = v["L"], v["nx"], v["ny"]
-    return s.x.reshape(L, nx, ny), s.y.reshape(3, L, nx, ny)
+    return x.reshape(L, nx, ny), y.reshape(3, L, nx, ny)
 
 
 def _multi_chunk(b, s: PDHGState) -> PDHGState:
@@ -572,29 +678,32 @@ def _multi_chunk(b, s: PDHGState) -> PDHGState:
         s.arg_alpha, s.arb_l, s.arb_u, s.iteration.to(s.x.dtype),
         *v["tols_t"], s.converged.to(s.x.dtype)])
     u2, q2, up, qp, norms, sc = vol_multichunk(
-        *_volumes(v, s), v["f"], v["w"], scal, ri, K_CHUNKS, v["dataterm"],
-        b.opts.stepsize, v["adapt_consts"])
+        *_volumes(v, s.x, s.y), v["f"], v["w"], scal, ri, K_CHUNKS,
+        v["dataterm"], b.opts.stepsize, v["adapt_consts"])
     return multichunk_state(s, ri, u2.reshape(-1), q2.reshape(-1),
                             up.reshape(-1), qp.reshape(-1), norms, sc)
 
 
 def _fused_chunk(b, s: PDHGState) -> PDHGState:
+    """One chunk in place on the views of the run's own x, y, x_prev and
+    y_prev (``own_vectors``) through the route's light call."""
     v, ri = b.vol, max(int(b.opts.residual_iter), 1)
-    scal = torch.stack([s.tau, s.sigma, s.theta, v["lmb_t"], v["radius_t"],
-                        s.converged.to(s.x.dtype)])
-    u2, q2, up, qp, norms2 = vol_chunk(*_volumes(v, s), v["f"], v["w"], scal,
-                                       ri, v["dataterm"])
-    return chunk_state(b, s, ri, u2.reshape(-1), q2.reshape(-1),
-                       up.reshape(-1), qp.reshape(-1), norms2)
+    if "call" not in v:
+        v["call"] = VolChunk(v, ri, s.x.device)
+    norms2 = v["call"](_volumes(v, s.x, s.y), _volumes(v, s.x_prev, s.y_prev),
+                       v["f"], v["w"], s.tau, s.sigma, s.theta, s.converged)
+    return chunk_state(b, s, ri, s.x, s.y, s.x_prev, s.y_prev, norms2)
 
 
 def fused_vol_run(b, state: PDHGState, until: int, start: int) -> PDHGState:
     """``run_pdhg_route`` with the volumetric multichunks and chunks of
     ``FusedROFPDHG`` ``b``; the canonicalization zeroes the dead dual
     coordinates of y and y_prev (q_x's last row, q_y's last column) and
-    leaves q_l, the segment after them, whole."""
+    leaves q_l, the segment after them, whole, on the run's own copies of
+    the state's vectors, which the chunks update in place."""
     v = b.vol
+    canonical = canonical_duals(v["L"], v["nx"], v["ny"])
     return run_pdhg_route(b, state, until, start,
                           lambda s: _fused_chunk(b, s),
-                          canonical_duals(v["L"], v["nx"], v["ny"]),
+                          lambda s: own_vectors(canonical(s)),
                           lambda s: _multi_chunk(b, s))

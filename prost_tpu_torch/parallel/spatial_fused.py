@@ -15,8 +15,8 @@ design:
   neighbours and receives theirs straight into its top and bottom ``H``
   rows (an edge rank's outer halo is zeroed: ``ppermute``'s semantics);
 * each rank runs the halo chunk kernel in place on its buffers
-  (``rof_chunk_halo_``, ``vol_chunk_halo_``, ``tight_chunk_halo_``; the
-  multilabel and deblur routes through their light calls, ``MLChunk`` and
+  (``rof_chunk_halo_``; the multilabel, volumetric, tight and deblur routes
+  through their light calls, ``MLChunk``, ``VolChunk``, ``TightChunk`` and
   ``DeblurChunk``, which make the scalar buffer, the scratch and the path
   once per route), recomputing the halo
   rows redundantly: information moves at most one row per half-step (the
@@ -68,8 +68,8 @@ from ..ops.fused_deblur import (DeblurChunk, deblur_halo_rows,
                                 match_deblur_structure)
 from ..ops.fused_multilabel import MLChunk, match_multilabel_structure
 from ..ops.fused_rof import match_rof_structure, rof_chunk_halo_
-from ..ops.fused_tight import match_tight_structure, tight_chunk_halo_
-from ..ops.fused_vol import match_vol_structure, vol_chunk_halo_
+from ..ops.fused_tight import TightChunk, match_tight_structure
+from ..ops.fused_vol import VolChunk, match_vol_structure
 from ..ops.pdhg_chunk import chunk_state
 from ..ops.phases import run_phases
 from .spatial import ShardedPDHG, shard_state, sp_mesh, whole
@@ -180,7 +180,8 @@ class _HaloRoute(_Band, ShardedPDHG):
     ``_flat``: back), the two scalars of its scal8 (``_consts``), its data
     planes (``_data``) and its in-place halo chunk (``_chunk_halo``), or
     the class of its light chunk call (``_light``, made once with the
-    band's row context: the multilabel and deblur routes'); the rows it
+    band's row context: the multilabel, volumetric, tight and deblur
+    routes'); the rows it
     partitions (``_grid``, a key of its match) and its halo
     (``_halo``, ``_halo_rule``) where they differ from the pixel rows and
     2 ri + 2."""
@@ -341,6 +342,7 @@ class ShardedFusedVol(_HaloRoute):
     kind = "ShardedFusedVol"
     _consts = ("lmb", "radius")
     _data = ("f", "w")
+    _light = VolChunk
 
     def _match(self, problem):
         return match_vol_structure(problem)
@@ -351,10 +353,6 @@ class ShardedFusedVol(_HaloRoute):
 
     def _flat(self, u, q):
         return u.reshape(-1), q.reshape(-1)
-
-    def _chunk_halo(self, cur, prev, scal):
-        return vol_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
-                               self.m["nx"], self.m["dataterm"])
 
 
 class ShardedFusedTight(_HaloRoute):
@@ -367,6 +365,7 @@ class ShardedFusedTight(_HaloRoute):
     kind = "ShardedFusedTight"
     _consts = ("radius", "d_s")
     _data = ("f",)
+    _light = TightChunk
 
     def _match(self, problem):
         return match_tight_structure(problem)
@@ -382,11 +381,6 @@ class ShardedFusedTight(_HaloRoute):
     def _flat(self, u, v, q, p, s):
         return (torch.cat([u.reshape(-1), v.reshape(-1)]),
                 torch.cat([q.reshape(-1), p.reshape(-1), s.reshape(-1)]))
-
-    def _chunk_halo(self, cur, prev, scal):
-        m = self.m
-        return tight_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
-                                 m["nx"], m["taps"], m["consts"])
 
 
 class ShardedFusedDeblur(_HaloRoute):

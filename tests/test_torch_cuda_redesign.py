@@ -9,7 +9,9 @@ one launch; ``-k ml_batched``), the grid-resident ADMM multichunk
 ``admm_multichunk_`` (every chunk of the launch with the planes in shared
 memory; ``-k admm_multichunk``) and the grid-resident batched volumetric
 and deblur chunks ``vol_chunk_batched_`` and ``deblur_chunk_batched_``
-(``-k "vol_batched or deblur_batched"``), bit for bit against the
+(``-k "vol_batched or deblur_batched"``) and the grid-resident tight and
+volumetric chunks ``tight_chunk_``, ``vol_chunk_`` and their halo forms
+(``-k "tight_resident or vol_resident"``), bit for bit against the
 streaming launch sequences they replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
@@ -978,3 +980,234 @@ def test_deblur_batched_pairs_is_one_frame_a_block(dev, B, nx, ny, blur, ri,
                 assert torch.equal(a[b], i[b])
         else:
             assert not torch.equal(outs[0][b], ins[0][b])
+
+
+# ---------------------------------------------------------------------------
+# rows 20, 23 and 24: the tight and volumetric chunks grid-resident, whole
+# plane and halo band (-k "tight_resident or vol_resident")
+# ---------------------------------------------------------------------------
+
+def _tight_case(seed, L, nx, ny, dev):
+    """The example's taps and constant preconditioner for L labels, and a
+    chunk's u, v, q, p, s and f on the card."""
+    k = L * (L - 1) // 2
+    P = np.zeros((2 * k, 2 * L))
+    idx = 0
+    for i in range(L):
+        for j in range(i + 1, L):
+            P[idx, i], P[idx, j] = 1.0, -1.0
+            P[idx + k, i + L], P[idx + k, j + L] = 1.0, -1.0
+            idx += 1
+    taps = tuple((r, m, float(P.T[r, m])) for r in range(2 * L)
+                 for m in range(2 * k) if P.T[r, m] != 0.0)
+    consts = tuple(float(np.float32(c))
+                   for c in (1 / (L + 1), 1.0, 1 / L, 0.2, 1 / 3))
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(L, nx, ny), 0.1 * rng.randn(2 * k, nx, ny),
+            0.2 * rng.randn(2 * L, nx, ny), 0.1 * rng.randn(2 * k, nx, ny),
+            0.1 * rng.randn(nx, ny), rng.rand(L, nx, ny))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in arrs], taps, consts
+
+
+@pytest.mark.parametrize("L,nx,ny,ri", [(4, 128, 128, 10), (3, 128, 128, 10),
+                                        (3, 250, 190, 3), (2, 9, 40, 2),
+                                        (5, 300, 33, 1)])
+def test_tight_resident_is_the_streaming_sequence(dev, L, nx, ny, ri):
+    from prost_tpu_torch.ops import fused_tight as ft
+
+    planes, taps, consts = _tight_case(180, L, nx, ny, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 0.7, 1.0], device=dev)
+    before = ft.launch_counts["tight_chunk"]
+    _bit_equal(_both_paths(ft.tight_chunk_, planes[:5], planes[5:], scal, ri,
+                           taps, consts))
+    assert ft.launch_counts["tight_chunk"] == before + 2
+
+
+@pytest.mark.parametrize("L", [3, 4])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_tight_resident_halo_is_the_streaming_sequence(dev, L, shards):
+    """tight128x4's bands (ri 10, halo 22; 172 rows for one shard): every
+    band's resident launch, edge and middle shards, is its streaming
+    sequence, bit for bit."""
+    from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    planes, taps, consts = _tight_case(181, L, 128, 128, dev)
+    ri, rows = 10, 128 // shards
+    H = 2 * ri + 2
+    for rank in range(shards):
+        lo = rank * rows - H
+        ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+        scal = torch.tensor([0.9, 1.1, 1.0, 0.7, 1.0, lo, H, H + rows],
+                            device=dev)
+        _bit_equal(_both_paths(ft.tight_chunk_halo_, ext[:5], ext[5:], scal,
+                               ri, 128, taps, consts))
+
+
+def _vol_planes(seed, L, nx, ny, dev):
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(L, nx, ny), 0.3 * rng.randn(3, L, nx, ny),
+            rng.rand(L, nx, ny), 2.0 * (rng.rand(L, nx, ny) > 0.3))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+@pytest.mark.parametrize("L,nx,ny,ri,dataterm", [
+    (8, 256, 256, 10, "square"), (8, 256, 256, 10, "abs"),
+    (8, 256, 256, 10, "wsquare"), (5, 190, 250, 3, "wsquare"),
+    (1, 9, 40, 2, "square"), (3, 300, 33, 1, "abs")])
+def test_vol_resident_is_the_streaming_sequence(dev, L, nx, ny, ri,
+                                                dataterm):
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    planes = _vol_planes(182, L, nx, ny, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 6.0, 1.0], device=dev)
+    before = fv.launch_counts["vol_chunk"]
+    _bit_equal(_both_paths(fv.vol_chunk_, planes[:2], planes[2:], scal, ri,
+                           dataterm))
+    assert fv.launch_counts["vol_chunk"] == before + 2
+
+
+@pytest.mark.parametrize("dataterm", ["square", "abs"])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_vol_resident_halo_is_the_streaming_sequence(dev, shards, dataterm):
+    """vol256x8's bands (ri 10, halo 22; 300 rows for one shard, bands of 3
+    rows a block): every band's resident launch, edge and middle shards,
+    is its streaming sequence, bit for bit."""
+    from prost_tpu_torch.ops import fused_vol as fv
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    planes = _vol_planes(183, 8, 256, 256, dev)
+    ri, rows = 10, 256 // shards
+    H = 2 * ri + 2
+    for rank in range(shards):
+        lo = rank * rows - H
+        ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+        scal = torch.tensor([0.9, 1.1, 1.0, 6.0, 1.0, lo, H, H + rows],
+                            device=dev)
+        _bit_equal(_both_paths(fv.vol_chunk_halo_, ext[:2], ext[2:], scal,
+                               ri, 256, dataterm))
+
+
+def test_tight_resident_and_vol_resident_with_the_flag_leave_the_buffers(
+        dev):
+    from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    tplanes, taps, consts = _tight_case(184, 4, 64, 48, dev)
+    vplanes = _vol_planes(185, 4, 64, 48, dev)
+    for fn, state, data, head, extra in (
+            (ft.tight_chunk_, tplanes[:5], tplanes[5:],
+             [0.9, 1.1, 1.0, 0.7, 1.0], (taps, consts)),
+            (fv.vol_chunk_, vplanes[:2], vplanes[2:],
+             [0.9, 1.1, 1.0, 6.0, 1.0], ())):
+        cur = [t.clone() for t in state]
+        prev = [t + 1.0 for t in cur]
+        before = [t.clone() for t in cur + prev]
+        scal = torch.tensor(head + [1.0], device=dev)
+        norms2 = fn(*cur, *prev, *data, scal, 4, *extra, path="resident")
+        torch.cuda.synchronize()
+        assert not norms2.any()
+        for a, b in zip(cur + prev, before):
+            assert torch.equal(a, b)
+
+
+def test_tight_resident_and_vol_resident_light_calls_on_the_card(dev):
+    """``TightChunk`` and ``VolChunk``, whole plane and on a band of two
+    shards, on the card: the resident path, twice in a row on the same
+    buffers, the in-place forms' buffers and norms bit for bit."""
+    from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.ops import fused_vol as fv
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    steps = [torch.tensor(v, device=dev) for v in (0.9, 1.1, 1.0)]
+    flag = torch.tensor(False, device=dev)
+    tplanes, taps, consts = _tight_case(186, 4, 128, 128, dev)
+    mt = {"L": 4, "k": 6, "nx": 128, "ny": 128, "taps": taps,
+          "consts": consts, "radius": 0.7, "d_s": 1.0}
+    vplanes = _vol_planes(187, 8, 256, 256, dev)
+    mv = {"L": 8, "nx": 256, "ny": 256, "lmb": 6.0, "radius": 1.0,
+          "dataterm": "square"}
+    ri, H = 10, 22
+
+    def band(m, planes):
+        rows = m["nx"] // 2
+        lo = rows - H
+        ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+        return ext, (m["nx"], rows + 2 * H, lo, H, H + rows)
+
+    text, tband = band(mt, tplanes)
+    vext, vband = band(mv, vplanes)
+    # (light call, in-place form, state, data, family scalars and row
+    # context, the form's arguments after scal and count)
+    cases = [(ft.TightChunk(mt, ri, dev), ft.tight_chunk_, tplanes[:5],
+              tplanes[5:], [0.7, 1.0], (taps, consts)),
+             (fv.VolChunk(mv, ri, dev), fv.vol_chunk_, vplanes[:2],
+              vplanes[2:], [6.0, 1.0], ("square",)),
+             (ft.TightChunk(mt, ri, dev, tband), ft.tight_chunk_halo_,
+              text[:5], text[5:], [0.7, 1.0, *tband[2:]],
+              (128, taps, consts)),
+             (fv.VolChunk(mv, ri, dev, vband), fv.vol_chunk_halo_, vext[:2],
+              vext[2:], [6.0, 1.0, *vband[2:]], (256, "square"))]
+    for call, fn, state, data, consts_, tail in cases:
+        assert call.resident
+        scal = torch.tensor([0.9, 1.1, 1.0] + consts_, device=dev)
+        cur = [t.clone() for t in state]
+        prev = [t.clone() for t in state]
+        want_cur = [t.clone() for t in state]
+        want_prev = [t.clone() for t in state]
+        for _ in range(2):
+            norms2 = call(cur, prev, *data, *steps, flag)
+            want = fn(*want_cur, *want_prev, *data, scal, ri, *tail,
+                      path="resident")
+            for a, b in zip(cur + prev + [norms2],
+                            want_cur + want_prev + [want]):
+                assert torch.equal(a, b)
+
+
+def test_tight_resident_and_vol_resident_rules_on_the_card(dev):
+    """The card's limits send tight128x4, its 172-row band and 250x190x3,
+    and vol256x8 and its 300-row band (square and abs) to the resident
+    launches, and 512x512x4, 512x512x8 and the 300-row band with wsquare's
+    weights to the streaming sequences; asking for a resident launch that
+    does not fit raises, and so does the launch the C side refuses (9
+    labels)."""
+    from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    sms, smem = ft.card_limits(dev)
+    assert sms == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ft.resident_ok(4, 6, 24, 128, 128, sms, smem)
+    assert ft.resident_ok(4, 6, 24, 172, 128, sms, smem)
+    assert ft.resident_ok(3, 3, 12, 250, 190, sms, smem)
+    assert not ft.resident_ok(4, 6, 24, 512, 512, sms, smem)
+    limits = fv.card_limits(dev, 8)
+    for dataterm in ("square", "abs"):
+        assert fv.resident_ok(8, 256, 256, dataterm, *limits)
+        assert fv.resident_ok(8, 300, 256, dataterm, *limits)
+    assert not fv.resident_ok(8, 300, 256, "wsquare", *limits)
+    assert not fv.resident_ok(8, 512, 512, "square", *limits)
+    planes, taps, consts = _tight_case(188, 4, 512, 512, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 0.7, 1.0], device=dev)
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        ft.tight_chunk_(*planes[:5], *[t.clone() for t in planes[:5]],
+                        planes[5], scal, 2, taps, consts, path="resident")
+    u, q, f, w = _vol_planes(189, 8, 300, 256, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 6.0, 1.0, -22, 22, 278], device=dev)
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fv.vol_chunk_halo_(u, q, u.clone(), q.clone(), f, w, scal, 2, 256,
+                           "wsquare", path="resident")
+    # the 300-row band with wsquare streams by the shape rule
+    before = fv.launch_counts["vol_chunk_halo"]
+    fv.vol_chunk_halo_(u, q, u.clone(), q.clone(), f, w, scal, 2, 256,
+                       "wsquare")
+    assert fv.launch_counts["vol_chunk_halo"] == before + 1
+    lib = fv._lib()
+    u, q, f, w = _vol_planes(190, 9, 16, 16, dev)
+    sc = scalar_buffer(torch.tensor([0.9, 1.1, 1.0, 6.0, 1.0], device=dev),
+                       5, S_CONV, S_LEN)
+    partial = u.new_empty(4 * lib.prost_vol_num_blocks(16, 16))
+    with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+        launch(lib, "prost_vol_chunk_resident", "vol_chunk", fv.launch_counts,
+               dev, [u, q, u.clone(), q.clone(), f, w, sc, partial,
+                     u.new_empty(4, 16, 16)], 9, 16, 16, 2, 0)
