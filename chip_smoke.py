@@ -127,9 +127,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    (``phase_resident_batched``: the batched volumetric chunk at 8 volumes
    of vol256x8, each also against ``vol_chunk`` alone; the batched deblur
    chunk at 8 frames of config 2, each also against ``deblur_chunk_``
-   alone; both on a route's flat rows) the same way; config 2 and config 3
-   through the fused routes with the light call in turns with that
-   copying call (``copying_routes``), it/s and energies;
+   alone; both on a route's flat rows) and rows 8 and 26
+   (``phase_resident_chunk_multi``: the Chebyshev ADMM chunk at config 4's
+   512x512, counts 1 and 10; the volumetric multichunk at vol256x8, every
+   chunk run and converging mid-launch) the same way; config 2, config 3,
+   tight128x4, vol256x8 and config 4 through the fused routes with the
+   light calls in turns with the copying calls (``copying_routes``), it/s
+   and energies;
 16. solve config 1, config 3, vol256x8, config 2, tight128x4 and config 4
    (ROF 512x512 by Chebyshev ADMM) through ``ShardedFusedROF``,
    ``ShardedFusedMultilabel``, ``ShardedFusedVol``, ``ShardedFusedDeblur``,
@@ -788,8 +792,9 @@ def traced_call(fn):
     fn()
     torch.cuda.synchronize()
     events = []
-    for _ in range(3):  # a trace that caught no hand-written kernel is
-        # taken again
+    for _ in range(5):  # a trace that caught no hand-written kernel is
+        # taken again (the card's tracer has been seen to lose a call's
+        # events three times in a row)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -3170,6 +3175,180 @@ def phase_resident_batched(dev):
     return out
 
 
+def phase_resident_chunk_multi(dev):
+    """Rows 8 and 26 grid-resident against their launch sequences at the
+    main path's shapes: ``admm_chunk_`` (Chebyshev) at config 4's 512x512
+    (degree 10, counts 1 and 10) and ``vol_multichunk_`` at vol256x8
+    (256x256x8, ri 10, 8 chunks, every one run, boyd; and from a solve's
+    start at a tolerance at which the launch converges before its last
+    chunk): both paths from the same inputs bit-equal (ADMM: the 7 planes
+    and the 4 squared norms; vol: the volumes, the previous iterates, the
+    norms and sout); the path the shape rule takes; each path in place on
+    buffers made once, in turns (streaming, resident, resident,
+    streaming), with the hand-written kernels each launches per call and
+    their traced device ms, and the resident launch's device ms at count
+    1; and the call, the copying one (the wrapper on copies with buffers
+    made per call, the launch sequence) against the route's light call in
+    place (``ADMMChunk``, ``VolMultichunk``), in turns, with the device ms
+    of PyTorch's kernels around each."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_admm as fa
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    ri, degree, alpha, chunks = 10, 10, 1.7, 8
+    flag = torch.tensor(False, device=dev)
+    out = {}
+
+    # row 8: config 4's 512x512 from random state arrays
+    nx = ny = ROF_SIZE
+    *planes, fa_f, fa_w = admm_kernel_inputs(nx, ny, 650, dev)
+    scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+    r = {"nx": nx, "ny": ny, "f": fa_f, "w": fa_w, "dataterm": "square",
+         "lmb_t": scal[1], "radius_t": scal[2]}
+    light = fa.ADMMChunk(r, ri, alpha, degree, dev)
+    check(light.resident, f"admm_chunk: the shape rule streams {nx}x{ny}")
+    print(f"admm_chunk {nx}x{ny} degree {degree}: the shape rule takes the "
+          "resident path")
+    for count in (1, ri):
+        got = {}
+        for path in ("streaming", "resident"):
+            cur = [t.clone() for t in planes]
+            norms2 = fa.admm_chunk_(*cur, fa_f, fa_w, scal, None, count, 0,
+                                    alpha, "square", degree,
+                                    path=path).clone()
+            got[path] = cur + [norms2]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                      got["resident"]))
+              and all(bool(torch.isfinite(t).all()) for t in got["resident"])
+              and bool((got["resident"][7] > 0).all()),
+              f"admm_chunk count {count}: the resident launch is not the "
+              "launch sequence")
+    print(f"admm_chunk {nx}x{ny}: resident bit-equal to the launch sequence "
+          "in the 7 planes and the 4 squared norms at counts 1 and 10")
+    abufs = {p: [t.clone() for t in planes]
+             for p in ("streaming", "resident")}
+
+    def admm_run(path, count=ri):
+        return lambda: fa.admm_chunk_(*abufs[path], fa_f, fa_w, scal, None,
+                                      count, 0, alpha, "square", degree,
+                                      path=path)
+
+    def admm_copying():
+        cp = [t.contiguous().clone() for t in planes]
+        return cp, fa.admm_chunk_(*cp, fa_f, fa_w, scal, None, ri, 0, alpha,
+                                  "square", degree, path="streaming")
+
+    lplanes = [t.clone() for t in planes]
+    rho = scal[0].clone()
+
+    def admm_light():
+        return light(lplanes, rho, flag)
+
+    out["admm_chunk"] = resident_turns(
+        f"admm_chunk {nx}x{ny} degree {degree}", admm_run, admm_copying,
+        admm_light, "admm_chunk_resident", ri - 1, reps=50)
+
+    # row 26: vol256x8 (bench.py's data), boyd
+    L, n = VOL_LABELS, VOL_SIZE
+    nvox = L * n * n
+    f = torch.from_numpy(vol_data(L, n, n)).to(dev).reshape(L, n, n)
+    rng = np.random.RandomState(651)
+    u0 = torch.from_numpy(rng.rand(L, n, n).astype(np.float32)).to(dev)
+    q0 = torch.from_numpy((0.3 * rng.randn(3, L, n, n)).astype(
+        np.float32)).to(dev)
+    consts = (np.sqrt(3 * nvox), np.sqrt(nvox), 1.5, 0.95, 1.05, 0.8)
+
+    def vscal(tol, tau=0.9, sigma=1.1):
+        return torch.tensor([tau, sigma, 1.0, VOL_LMB, 1.0, 0.5, 0.0, 0.0,
+                             1.0, tol, tol, tol, tol], device=dev)
+
+    m = {"L": L, "nx": n, "ny": n, "f": f, "w": f, "dataterm": "square",
+         "lmb_t": torch.tensor(VOL_LMB, device=dev),
+         "radius_t": torch.tensor(1.0, device=dev),
+         "tols_t": tuple(torch.tensor(0.0, device=dev) for _ in range(4)),
+         "adapt_consts": consts}
+    vlight = fv.VolMultichunk(m, ri, chunks, "boyd", dev)
+    check(vlight.resident, f"vol_multichunk: the shape rule streams "
+          f"{n}x{n}x{L}")
+    print(f"vol_multichunk {n}x{n}x{L}: the shape rule takes the resident "
+          "path")
+
+    def both(u, q, sc):
+        got = {}
+        for path in ("streaming", "resident"):
+            cur, prev = [u.clone(), q.clone()], [u.clone(), q.clone()]
+            norms, sout = fv.vol_multichunk_(*cur, *prev, f, f, sc, ri,
+                                             chunks, "square", "boyd",
+                                             consts, path=path)
+            got[path] = cur + prev + [norms.clone(), sout.clone()]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                      got["resident"]))
+              and all(bool(torch.isfinite(t).all())
+                      for t in got["resident"]),
+              "vol_multichunk: the resident launch is not the launch "
+              "sequence")
+        return got["resident"][5]
+
+    sout = both(u0, q0, vscal(0.0))
+    check(sout[6].item() == chunks, "vol_multichunk: not every chunk ran")
+    # a solve's start (u = f, q = 0): the first tolerance at which the
+    # launch converges before its last chunk
+    for tol in (2e-2, 1e-2, 5e-3, 2e-3, 1e-3, 5e-4, 2e-4, 1e-4):
+        sout = both(f, torch.zeros_like(q0), vscal(tol, 1.0, 1.0))
+        if sout[5].item() == 1.0 and 1 < sout[6].item() < chunks:
+            break
+    check(sout[5].item() == 1.0 and sout[6].item() < chunks,
+          "vol_multichunk: no tolerance converged mid-launch")
+    print(f"vol_multichunk {n}x{n}x{L}: resident bit-equal to the launch "
+          f"sequence in the volumes, previous iterates, norms and sout, "
+          f"every chunk run and converging at tolerance {tol:g} after "
+          f"{int(sout[6].item())} chunks (sout {sout.tolist()})")
+    vbufs = {p: ([u0.clone(), q0.clone()], [u0.clone(), q0.clone()])
+             for p in ("streaming", "resident")}
+    sc0 = vscal(0.0)
+
+    def vol_run(path, count=ri):
+        return lambda: fv.vol_multichunk_(
+            *vbufs[path][0], *vbufs[path][1], f, f, sc0, count, chunks,
+            "square", "boyd", consts, path=path)
+
+    def vol_copying():
+        cur = [u0.clone(), q0.clone()]
+        prev = [t.clone() for t in cur]
+        return cur, prev, fv.vol_multichunk_(
+            *cur, *prev, f, f, sc0, ri, chunks, "square", "boyd", consts,
+            path="streaming")
+
+    lcur, lprev = [u0.clone(), q0.clone()], [u0.clone(), q0.clone()]
+    steps = [torch.tensor(v, device=dev) for v in (0.9, 1.1, 1.0, 0.5, 0.0,
+                                                   0.0)]
+    it0 = torch.tensor(1, device=dev)
+
+    def vol_light():
+        return vlight(lcur, lprev, *steps, it0, flag)
+
+    out["vol_multichunk"] = resident_turns(
+        f"vol_multichunk {n}x{n}x{L}, {chunks} chunks", vol_run, vol_copying,
+        vol_light, "vol_multichunk_resident", chunks * (ri - 1))
+    sms, smem = fv.card_limits(dev, L, multi=True)
+    print(f"resident limits: {sms} SMs, {smem} bytes of dynamic shared "
+          f"memory a vol multichunk block (it holds "
+          f"{fv.resident_bytes(L, n, n, sms, multi=True)} at {n}x{n}x{L}, "
+          f"{fv.resident_bytes(L, n, n, sms, 'wsquare', True)} with "
+          f"wsquare; {VOL_LARGE}x{VOL_LARGE}x{L} streams: "
+          f"{fv.resident_bytes(L, VOL_LARGE, VOL_LARGE, sms, multi=True)}), "
+          f"{fa.admm_card_limits(dev)[1]} an ADMM chunk block (it holds "
+          f"{fa.admm_resident_bytes(nx, ny, sms, 'square')})")
+    check(not fv.resident_ok(L, VOL_LARGE, VOL_LARGE, "square", sms, smem,
+                             multi=True),
+          f"the shape rule made {VOL_LARGE}x{VOL_LARGE}x{L}'s multichunk "
+          "resident")
+    return out
+
+
 def deblur_pairs_turns(views, x, y, fb, sv, scal, taps, ri, reps=20):
     """Row 18's two grid-resident forms at deblur8x512's shape, in place
     on a route's rows ``x``, ``y`` (``views`` cuts them into the frames'
@@ -3282,11 +3461,13 @@ def copying_routes():
     (``ShardedFusedDeblur``, ``ShardedFusedMultilabel``,
     ``ShardedFusedTight``, ``ShardedFusedVol``), ``BatchedPDHG``'s
     multilabel, volumetric
-    and deblur routes and ``FusedROFADMM``'s multichunks make the copying
+    and deblur routes, the volumetric route's multichunks and
+    ``FusedROFADMM``'s chunks and multichunks make the copying
     call that the light calls replace: the scalars
     stacked per chunk, the functional wrapper on copies of the state with
     buffers made per call, the streaming launch sequence, and y and y_prev
-    concatenated after the chunk (whole plane, ensemble); the scalars
+    concatenated after the chunk (whole plane, ensemble, the vol
+    multichunk's copies of u and q); the scalars
     stacked and the in-place halo chunk with buffers made per call
     (sharded); the scalars stacked, copies of the seven state arrays, the
     launch sequence and sout stacked (ADMM)."""
@@ -3294,6 +3475,8 @@ def copying_routes():
 
     import torch
 
+    from prost_tpu_torch.backend.admm import (admm_residual_adapt,
+                                              cg_tolerance)
     from prost_tpu_torch.backend.pdhg import hold_if
     from prost_tpu_torch.ops import fused_admm as fa
     from prost_tpu_torch.ops import fused_deblur as fd
@@ -3302,7 +3485,8 @@ def copying_routes():
     from prost_tpu_torch.ops import fused_tight as ft
     from prost_tpu_torch.ops import fused_vol as fv
     from prost_tpu_torch.ops.pdhg_chunk import (canonical_duals, chunk_state,
-                                                halo_copy, run_pdhg_route)
+                                                halo_copy, multichunk_state,
+                                                run_pdhg_route)
     from prost_tpu_torch.ops.phases import K_CHUNKS
     from prost_tpu_torch.parallel import ensemble as ens
     from prost_tpu_torch.parallel import spatial_fused as sf
@@ -3361,12 +3545,26 @@ def copying_routes():
         return run_pdhg_route(b, state, until, start,
                               lambda s: tight_chunk(b, s))
 
+    def vol_multi(b, s):
+        v, ri = b.vol, max(int(b.opts.residual_iter), 1)
+        scal = torch.stack([
+            s.tau, s.sigma, s.theta, v["lmb_t"], v["radius_t"],
+            s.arg_alpha, s.arb_l, s.arb_u, s.iteration.to(s.x.dtype),
+            *v["tols_t"], s.converged.to(s.x.dtype)])
+        cur = [t.contiguous().clone() for t in fv._volumes(v, s.x, s.y)]
+        prev = [t.clone() for t in cur]
+        norms, sc = fv.vol_multichunk_(
+            *cur, *prev, v["f"], v["w"], scal, ri, K_CHUNKS, v["dataterm"],
+            b.opts.stepsize, v["adapt_consts"], path="streaming")
+        return multichunk_state(s, ri, *[t.reshape(-1) for t in cur + prev],
+                                norms, sc)
+
     def vol_run(b, state, until, start):
         v = b.vol
         return run_pdhg_route(b, state, until, start,
                               lambda s: vol_chunk(b, s),
                               canonical_duals(v["L"], v["nx"], v["ny"]),
-                              lambda s: fv._multi_chunk(b, s))
+                              lambda s: vol_multi(b, s))
 
     def tight_halo(self, cur, prev, scal):
         m = self.m
@@ -3439,6 +3637,28 @@ def copying_routes():
                                  xp.reshape(B, -1), ens._flat(B, yvp, qp),
                                  norms2, done)
 
+    def admm_chunk(b, s):
+        r, opts = b.rof, b.run_opts
+        ri, dt = max(int(opts.residual_iter), 1), s.x_half.dtype
+        cheby = b.mode == "cheby"
+        cg_tols = None
+        if not cheby:
+            it_f = (s.iteration + 1 + r["steps"]).to(dt)
+            cg_tols = torch.clamp(cg_tolerance(it_f, opts),
+                                  min=10.0 * torch.finfo(dt).eps)
+        scal = torch.stack([s.rho, r["lmb_t"], r["radius_t"],
+                            s.converged.to(dt)])
+        planes = [t.contiguous().clone()
+                  for t in fa._planes_of(s, r["nx"], r["ny"])]
+        norms = torch.sqrt(fa.admm_chunk_(
+            *planes, r["f"], r["w"], scal, cg_tols, ri, opts.cg_max_iter,
+            opts.alpha, r["dataterm"], opts.cheby_degree if cheby else None,
+            path="streaming"))
+        new = fa._with_planes(s, planes, iteration=s.iteration + ri)
+        new = admm_residual_adapt(b.problem, opts, b.tols, new, norms[0],
+                                  norms[1], norms[2], norms[3])
+        return hold_if(s.converged, s, new)
+
     def admm_multi(b, s):
         r, opts = b.rof, b.run_opts
         ri, dt = max(int(opts.residual_iter), 1), s.x_half.dtype
@@ -3465,6 +3685,7 @@ def copying_routes():
                (ens.BatchedPDHG, "_ml_chunk", ml_batched),
                (ens.BatchedPDHG, "_vol_chunk", vol_batched),
                (ens.BatchedPDHG, "_deblur_chunk", deblur_batched),
+               (fa, "_fused_chunk", admm_chunk),
                (fa, "_multi_chunk", admm_multi),
                (sf.ShardedFusedDeblur, "_light", None),
                (sf.ShardedFusedDeblur, "_chunk_halo", deblur_halo),
@@ -3523,8 +3744,9 @@ def route_turns(label, solve, energy, card="", exact=False):
 
 def phase_route_turns(card):
     """Config 2, config 3, tight128x4, vol256x8 and config 4 through the
-    fused routes, the light chunk (config 4: multichunk) call against the
-    copying one (``route_turns``), 2000 iterations at 1e-5."""
+    fused routes, the light chunk calls (vol256x8 and config 4: chunk and
+    multichunk) against the copying ones (``route_turns``), 2000
+    iterations at 1e-5."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
 
     opts = PDHGOptions(stepsize="boyd", residual_iter=10)
@@ -3590,7 +3812,7 @@ def admm_halo_turns(ext, scal, tail):
     coeffs = fa._coeff_array(degree)
 
     def old():
-        wk = fa._Work(lib, old_bufs, scal, 3, copy=False)
+        wk = fa._Work(lib, old_bufs, scal, 3)
         launch(lib, "prost_admm_chunk", "admm_chunk", fa.launch_counts,
                ext[0].device, wk.buffers(*ext[7:]), nx, ny, None, 1,
                fa.DATATERMS["square"], degree, coeffs, 0, alpha, 1.0 - alpha)
@@ -3901,9 +4123,11 @@ def phase_large(card):
               f"a {kind} kernel was not launched at 2048x2048: {launches}")
         path = ""
         if kind == "admm":
-            check(not backend.made.rof["call"].resident,
-                  "the shape rule made the 2048x2048 multichunk resident")
-            path = " (multichunk on the streaming path)"
+            check(not backend.made.rof["call"].resident
+                  and not backend.made.rof["chunk"].resident,
+                  "the shape rule made the 2048x2048 multichunk or chunk "
+                  "resident")
+            path = " (multichunk and chunk on the streaming path)"
         e = rof_energy(res.x, f, lmb, nx, ny)
         print(f"fused {kind} solve 2048x2048{path}: "
               f"{rates(res, backend, dt)}; energy {e:.6f}, launches "
@@ -3976,8 +4200,12 @@ def phase_large(card):
           f"{launches}")
     e = vol_energy(res.x, f, VOL_LMB, L, nx, ny)
     check(np.isfinite(e), "the volumetric energy is not finite")
-    print(f"fused vol solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; energy "
-          f"{e:.6f}, launches {launches} [{card}]")
+    check(not backend.made.vol["multi"].resident
+          and not backend.made.vol["call"].resident,
+          "the shape rule made VOL_LARGE's multichunk or chunk resident")
+    print(f"fused vol solve {nx}x{ny}x{L} (streaming path): "
+          f"{rates(res, backend, dt)}; energy {e:.6f}, launches {launches} "
+          f"[{card}]")
 
 
 def main() -> int:
@@ -4015,6 +4243,7 @@ def main() -> int:
     resident = phase(phase_resident_kernels, dev)
     resident.update(phase(phase_resident_multi, dev))
     resident.update(phase(phase_resident_batched, dev))
+    resident.update(phase(phase_resident_chunk_multi, dev))
     launches, e_pdhg, d_pdhg = phase(phase_solve, card)
     admm_launches, e_admm = phase(phase_admm_solve, card, e_pdhg, d_pdhg)
     launches.update(admm_launches)

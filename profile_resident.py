@@ -6,7 +6,8 @@
 Builds ``csrc/fused_admm.cu`` (and any other source of the same interface
 named on the command line) with the package's nvcc flags into
 ``prost_tpu_torch/_build/profile_resident/``, and from the same source
-variants that leave parts of ``admm_multichunk_resident``'s iteration out,
+variants that leave parts of the resident iteration out (``band_iterations``,
+which ``admm_multichunk_resident`` runs),
 for timing only (their results differ): the stages' grid barriers
 (``no_barrier``), the neighbour rows' exchange (``no_exchange``), both
 (``compute``), and on top of both one kind of stage's pixel work
@@ -37,10 +38,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NX = NY = 512
 DEGREE, RI, CHUNKS, REPS = 10, 10, 8, 20
 
-# the iteration loop of admm_multichunk_resident, whose barriers and
-# exchanges the variants compile out
-_LOOP = ("    for (int it = 0; it < count; ++it) {",
-         "    // admm_norm_partial's terms of the band")
+# the iteration loop of the resident kernels (band_iterations), whose
+# barriers and exchanges the variants compile out, and the end of its body
+_LOOP = ("  for (int it = 0; it < count; ++it) {", "\n}\n")
 _SWITCHES = """
 #ifdef NO_BARRIER
 #define STAGE_SYNC() __syncthreads()
@@ -56,10 +56,10 @@ _SWITCHES = """
 # one kind of stage's pixel work, and the statement that does it
 _STAGES = {
     "update": "FOR_ROWS(lo, hi, ny, i, j) update_at(",
-    "steps": "for_groups(lo, hi, ny,\n                     [&](int i, int j) {\n"
-             "                       return cheby_step_val(",
+    "steps": "for_groups(lo, hi, ny,\n                   [&](int i, int j) {\n"
+             "                     return cheby_step_val(",
     "rhs": "FOR_ROWS(lo, hi, ny, i, j) rhs_at(",
-    "init": "for_groups(lo, hi, ny,\n                 [&](int i, int j) { "
+    "init": "for_groups(lo, hi, ny,\n               [&](int i, int j) { "
             "return cheby_init_val(",
 }
 
@@ -68,7 +68,7 @@ def variant_source(text: str, defines=(), skip=None) -> str:
     """``text`` (csrc/fused_admm.cu) with its iteration loop's stage
     barriers and exchanges behind the switches, ``defines`` set, and with
     ``skip`` one of _STAGES' statements not run."""
-    k = text.index("admm_multichunk_resident(State g")
+    k = text.index("void band_iterations(")
     a = text.index(_LOOP[0], k)
     b = text.index(_LOOP[1], a)
     loop = text[a:b].replace("grid.sync();", "STAGE_SYNC();")
@@ -77,7 +77,7 @@ def variant_source(text: str, defines=(), skip=None) -> str:
         if _STAGES[skip] not in loop:
             raise SystemExit(f"profile_resident: no {skip} stage in the loop")
         loop = loop.replace(_STAGES[skip], "if (0) " + _STAGES[skip], 1)
-    head = text.rindex("__global__", 0, k)
+    head = text.rindex("__device__", 0, k)
     return ("".join(f"#define {d}\n" for d in defines) + text[:head]
             + _SWITCHES + text[head:a] + loop + text[b:])
 

@@ -22,10 +22,11 @@
 // norms' stencils), so the caller exchanges the halo before every
 // iteration.  The whole-plane launches are the case (0, nx, 0, nx) of the
 // same arithmetic.  The halo iteration runs as one cooperative launch
-// (admm_iter_coop), its steps separated by grid barriers; the chunks run
-// the launch sequence of iteration(), and so does the multichunk unless
-// its planes fit in the shared memory of one block per SM, where it runs
-// as one grid-resident cooperative launch (admm_multichunk_resident).
+// (admm_iter_coop), its steps separated by grid barriers; the chunk and
+// the multichunk run the launch sequence of iteration() unless their
+// planes fit in the shared memory of one block per SM, where each runs as
+// one grid-resident cooperative launch (admm_chunk_resident,
+// admm_multichunk_resident; the CGLS chunk always as the sequence).
 //
 // Layout (the JAX package's): x-like planes (nx, ny) row-major f32; z-like
 // arrays are two such planes back to back, [zx; zy].
@@ -805,18 +806,20 @@ int coop_blocks(int* blocks) {
 }
 
 // ---------------------------------------------------------------------------
-// The Chebyshev multichunk grid-resident (admm_fused_multichunk ->
-// _admm_multichunk_kernel, which holds the planes in VMEM for the whole
-// launch on the TPU): one cooperative launch runs what
-// prost_admm_multichunk runs in about k_chunks (count (degree + 2) + 3)
-// launches.
+// The Chebyshev multichunk and chunk grid-resident (admm_fused_multichunk
+// -> _admm_multichunk_kernel and admm_fused_chunk -> _admm_chunk_kernel,
+// which hold the planes in VMEM for the whole launch on the TPU): one
+// cooperative launch runs what prost_admm_multichunk runs in about
+// k_chunks (count (degree + 2) + 3) launches, or prost_admm_chunk in
+// count (degree + 2) + 3.
 //
-// What bounds it.  At config 4's shape (512x512, degree 10, ri 10, 8
-// chunks) the launch sequence makes 985 launches of about 3 us of device
-// time each over 1 MiB planes: launch latency, not bytes (19 planes in and
-// out, 0.006 ms) or operations (0.05 ms).  The state of the launch, 12
-// planes with wsquare's weights and 7 of the iteration's scratch, fits in
-// the shared memory of the card's SMs at 512x512: bands of 4 rows.  What
+// What bounds them.  At config 4's shape (512x512, degree 10, ri 10, 8
+// chunks) the launch sequence makes 985 launches (a chunk 123) of about 3
+// us of device time each over 1 MiB planes: launch latency, not bytes (19
+// planes in and out, 0.006 ms) or operations (0.05 ms).  The state of the
+// launch, 12 planes with wsquare's weights and 7 of the iteration's
+// scratch, fits in the shared memory of the card's SMs at 512x512: bands
+// of 4 rows.  What
 // sets the resident launch's time is then the stages' barriers and the
 // exchange of neighbour rows between them, degree + 1 an iteration.
 //
@@ -847,10 +850,14 @@ int coop_blocks(int* blocks) {
 // block_partial's tree, block 0 runs finish_at(OP_ADAPT) and, after a
 // barrier, every block reads the rescale factor and the flag: it rescales
 // x_dual and z_dual on its band and on the rows of them it holds, and once
-// the flag is set the whole grid leaves the loop together.  The state goes back to device
-// memory once, at exit.  The same pixel expressions on the same values,
+// the flag is set the whole grid leaves the loop together.  The state goes
+// back to device memory once, at exit.  The same pixel expressions on the
+// same values,
 // the same tiles, tree and finish: bit-equal to prost_admm_multichunk.
-// The coefficients come from a device array, so any degree >= 1 runs.
+// The pieces (band_load, band_iterations, band_norms, band_store) are one
+// chunk's; admm_chunk_resident runs them once and ends in finish_at's
+// OP_NORMS, bit-equal to prost_admm_chunk.  The coefficients come from a
+// device array, so any degree >= 1 runs.
 // Measured on an H100 and reverted (PERF.md): the stages synchronised by
 // flags between neighbouring blocks in place of grid barriers (49.7
 // against 43.8 us an iteration, an earlier form of this launch), and two
@@ -954,29 +961,32 @@ __device__ __forceinline__ void copy_row_set(const RowIO (&io)[K], int nx,
   }
 }
 
-__global__ void __launch_bounds__(RES_THREADS, 1)
-    admm_multichunk_resident(State g, float alpha, float oma, int dataterm,
-                             int degree, const float* __restrict__ coeffs,
-                             int count, int k_chunks, AdaptConsts c,
-                             float* __restrict__ terms, int rmax) {
-  namespace cg = cooperative_groups;
-  cg::grid_group grid = cg::this_grid();
-  if (conv_set(g.sc)) {  // every block, before any barrier
-    // each chunk of the launch sequence finds the flag and clears S_FAC
-    if (blockIdx.x == 0 && threadIdx.x == 0 && k_chunks > 0)
-      g.sc[S_FAC] = -1.f;
-    return;
-  }
-  extern __shared__ float smem[];
+// A block's band of rows [lo, hi) and its windows in shared memory
+// (admm_resident_floats): a State whose pointers lie `lo` rows before each
+// window and whose zn is a window's size, so that the pixel stages of the
+// launch sequence run unchanged on the band.
+struct Band {
+  State b;     // sc, partial, nx, ny and rows as the grid's
+  float* red;  // RES_RED floats: the norm tiles' trees and finish_at's
+  int lo, hi;
+  int first, last;  // the band's first and last rows, -1 for an empty band
+};
+
+// The band's windows, the band and the rows its first stage reads loaded
+// (xh, xp, xd and warm above and below, zh and zd's x part above), then
+// admm_seed on the band.
+__device__ __forceinline__ Band band_load(const State& g, int dataterm,
+                                          int rmax, float* smem) {
   const int nx = g.nx, ny = g.ny;
   const size_t n = (size_t)nx * ny;
-  int lo, hi;
-  band_of(nx, blockIdx.x, gridDim.x, lo, hi);
+  Band d;
+  band_of(nx, blockIdx.x, gridDim.x, d.lo, d.hi);
+  const int lo = d.lo, hi = d.hi;
+  d.first = lo < hi ? lo : -1;
+  d.last = lo < hi ? hi - 1 : -1;
   const bool wsq = dataterm == DT_WSQUARE;
-  // the band's first and last rows, -1 for an empty band
-  const int first = lo < hi ? lo : -1, last = lo < hi ? hi - 1 : -1;
-
-  State b = g;  // the band's windows; sc, partial, nx, ny and rows as g's
+  State& b = d.b;
+  b = g;
   float* p = smem;
   b.xh = take_rows(p, lo - 1, rmax + 2, ny);
   b.xp = take_rows(p, lo - 1, rmax + 2, ny);
@@ -996,11 +1006,9 @@ __global__ void __launch_bounds__(RES_THREADS, 1)
   float* w = wsq ? take_rows(p, lo, rmax, ny) : f;
   b.f = f;
   b.w = w;
-  float* red = p;  // RES_RED floats
+  d.red = p;
   b.p = b.q = b.s = nullptr;
 
-  // the band and the rows its first stage reads (xh, xp, xd and warm above
-  // and below, zh and zd's x part above), then admm_seed on the band
   copy_rows(b.xh, g.xh, lo - 1, hi + 1, nx, ny);
   copy_rows(b.xp, g.xp, lo - 1, hi + 1, nx, ny);
   copy_rows(b.xd, g.xd, lo - 1, hi + 1, nx, ny);
@@ -1015,127 +1023,181 @@ __global__ void __launch_bounds__(RES_THREADS, 1)
   __syncthreads();
   FOR_ROWS(lo, hi, ny, i, j) seed_at(b, i, j);
   __syncthreads();
+  return d;
+}
 
-  int ch = 0;
-  for (; ch < k_chunks; ++ch) {
-    const UpdScal us = upd_scal(g.sc);  // rho as this chunk's finish left it
-    for (int it = 0; it < count; ++it) {
-      const bool last_it = it == count - 1;
-      // 1. admm_rhs on the band, d_x on the row above, t1 on the row
-      // below; cheby_init
-      FOR_ROWS(lo, hi, ny, i, j) rhs_at(b, i, j, alpha, oma, 0);
-      for (int j = threadIdx.x; j < ny; j += RES_THREADS) {
-        if (lo > 0 && lo < hi) {
-          size_t q = (size_t)(lo - 1) * ny + j;
-          b.dd[q] = rhs_dx(b, lo - 1, q, t1_at(b, q, alpha, oma), alpha,
-                           oma);
-        }
-        if (hi < nx && lo < hi) {
-          size_t q = (size_t)hi * ny + j;
-          b.t1[q] = t1_at(b, q, alpha, oma);
-        }
+// `count` outer iterations on the band, degree + 1 stages each between grid
+// barriers, with rho, lmb and radius as sc holds them at entry.
+__device__ __forceinline__ void band_iterations(
+    const State& g, const Band& d, float alpha, float oma, int dataterm,
+    int degree, const float* __restrict__ coeffs, int count,
+    cooperative_groups::grid_group& grid) {
+  const int nx = g.nx, ny = g.ny;
+  const int lo = d.lo, hi = d.hi, first = d.first, last = d.last;
+  const State& b = d.b;
+  const UpdScal us = upd_scal(g.sc);
+  for (int it = 0; it < count; ++it) {
+    const bool last_it = it == count - 1;
+    // 1. admm_rhs on the band, d_x on the row above, t1 on the row
+    // below; cheby_init
+    FOR_ROWS(lo, hi, ny, i, j) rhs_at(b, i, j, alpha, oma, 0);
+    for (int j = threadIdx.x; j < ny; j += RES_THREADS) {
+      if (lo > 0 && lo < hi) {
+        size_t q = (size_t)(lo - 1) * ny + j;
+        b.dd[q] = rhs_dx(b, lo - 1, q, t1_at(b, q, alpha, oma), alpha,
+                         oma);
       }
-      __syncthreads();
-      for_groups(lo, hi, ny,
-                 [&](int i, int j) { return cheby_init_val(b, i, j); },
-                 [&](size_t q, const Step& o) {
-                   b.x[q] = o.x;
-                   b.r[q] = o.r;
-                   b.v0[q] = o.v;
-                 });
-      // 2. the degree - 1 steps; after 1 and each step the direction's
-      // first and last rows out, and x's first row after the last
-      float* cur = b.v0;
-      float* nxt = b.v1;
-      float* dcur = g.v0;
-      float* dnxt = g.v1;
-      for (int st = 0; st < degree; ++st) {
-        if (st > 0) {
-          const float cp = coeffs[2 * (st - 1)], cr = coeffs[2 * st - 1];
-          for_groups(lo, hi, ny,
-                     [&](int i, int j) {
-                       return cheby_step_val(b, cur, cp, cr, i, j);
-                     },
-                     [&](size_t q, const Step& o) {
-                       b.x[q] = o.x;
-                       b.r[q] = o.r;
-                       nxt[q] = o.v;
-                     });
-          float* t = cur;
-          cur = nxt;
-          nxt = t;
-          t = dcur;
-          dcur = dnxt;
-          dnxt = t;
-        }
-        const int xrow = st == degree - 1 ? first : -1;
-        __syncthreads();
-        const RowIO out[] = {{dcur, cur, first}, {dcur, cur, last},
-                             {g.x, b.x, xrow}};
-        copy_row_set(out, nx, ny);
-        grid.sync();
-        const RowIO in[] = {{cur, dcur, lo - 1}, {cur, dcur, hi},
-                            {b.x, g.x, xrow < 0 ? -1 : hi}};
-        copy_row_set(in, nx, ny);
-        __syncthreads();
+      if (hi < nx && lo < hi) {
+        size_t q = (size_t)hi * ny + j;
+        b.t1[q] = t1_at(b, q, alpha, oma);
       }
-      // 3. admm_update; the first and last rows of xh, xp, xd and warm out,
-      // zh and zd's last rows, and before the norms zp's
-      FOR_ROWS(lo, hi, ny, i, j) update_at(b, cur, dataterm, i, j, us);
+    }
+    __syncthreads();
+    for_groups(lo, hi, ny,
+               [&](int i, int j) { return cheby_init_val(b, i, j); },
+               [&](size_t q, const Step& o) {
+                 b.x[q] = o.x;
+                 b.r[q] = o.r;
+                 b.v0[q] = o.v;
+               });
+    // 2. the degree - 1 steps; after 1 and each step the direction's
+    // first and last rows out, and x's first row after the last
+    float* cur = b.v0;
+    float* nxt = b.v1;
+    float* dcur = g.v0;
+    float* dnxt = g.v1;
+    for (int st = 0; st < degree; ++st) {
+      if (st > 0) {
+        const float cp = coeffs[2 * (st - 1)], cr = coeffs[2 * st - 1];
+        for_groups(lo, hi, ny,
+                   [&](int i, int j) {
+                     return cheby_step_val(b, cur, cp, cr, i, j);
+                   },
+                   [&](size_t q, const Step& o) {
+                     b.x[q] = o.x;
+                     b.r[q] = o.r;
+                     nxt[q] = o.v;
+                   });
+        float* t = cur;
+        cur = nxt;
+        nxt = t;
+        t = dcur;
+        dcur = dnxt;
+        dnxt = t;
+      }
+      const int xrow = st == degree - 1 ? first : -1;
       __syncthreads();
-      const int zp_last = last_it ? last : -1;
-      const RowIO out[] = {
-          {g.xh, b.xh, first}, {g.xp, b.xp, first}, {g.xd, b.xd, first},
-          {g.warm, b.warm, first}, {g.xh, b.xh, last}, {g.xp, b.xp, last},
-          {g.xd, b.xd, last}, {g.warm, b.warm, last}, {g.zh, b.zh, last},
-          {g.zd, b.zd, last}, {g.zp, b.zp, zp_last}};
+      const RowIO out[] = {{dcur, cur, first}, {dcur, cur, last},
+                           {g.x, b.x, xrow}};
       copy_row_set(out, nx, ny);
       grid.sync();
-      const int above = lo - 1, zp_above = last_it ? lo - 1 : -1;
-      const RowIO in[] = {
-          {b.xh, g.xh, above}, {b.xp, g.xp, above}, {b.xd, g.xd, above},
-          {b.warm, g.warm, above}, {b.xh, g.xh, hi}, {b.xp, g.xp, hi},
-          {b.xd, g.xd, hi}, {b.warm, g.warm, hi}, {b.zh, g.zh, above},
-          {b.zd, g.zd, above}, {b.zp, g.zp, zp_above}};
+      const RowIO in[] = {{cur, dcur, lo - 1}, {cur, dcur, hi},
+                          {b.x, g.x, xrow < 0 ? -1 : hi}};
       copy_row_set(in, nx, ny);
       __syncthreads();
     }
+    // 3. admm_update; the first and last rows of xh, xp, xd and warm out,
+    // zh and zd's last rows, and before the norms zp's
+    FOR_ROWS(lo, hi, ny, i, j) update_at(b, cur, dataterm, i, j, us);
+    __syncthreads();
+    const int zp_last = last_it ? last : -1;
+    const RowIO out[] = {
+        {g.xh, b.xh, first}, {g.xp, b.xp, first}, {g.xd, b.xd, first},
+        {g.warm, b.warm, first}, {g.xh, b.xh, last}, {g.xp, b.xp, last},
+        {g.xd, b.xd, last}, {g.warm, b.warm, last}, {g.zh, b.zh, last},
+        {g.zd, b.zd, last}, {g.zp, b.zp, zp_last}};
+    copy_row_set(out, nx, ny);
+    grid.sync();
+    const int above = lo - 1, zp_above = last_it ? lo - 1 : -1;
+    const RowIO in[] = {
+        {b.xh, g.xh, above}, {b.xp, g.xp, above}, {b.xd, g.xd, above},
+        {b.warm, g.warm, above}, {b.xh, g.xh, hi}, {b.xp, g.xp, hi},
+        {b.xd, g.xd, hi}, {b.warm, g.warm, hi}, {b.zh, g.zh, above},
+        {b.zd, g.zd, above}, {b.zp, g.zp, zp_above}};
+    copy_row_set(in, nx, ny);
+    __syncthreads();
+  }
+}
 
-    // admm_norm_partial's terms of the band, its tiles, admm_finish
-    FOR_ROWS(lo, hi, ny, i, j) {
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      norm_terms_at(b, i, j, v);
-      size_t q = (size_t)i * ny + j;
-      for (int k = 0; k < 4; ++k) terms[k * n + q] = v[k];
+// admm_norm_partial's terms of the band into `terms`, then its 32x8 tiles
+// in block_partial's tree into g.partial; every block leaves after a grid
+// barrier, so that block 0 may run the finish over the tiles' partials,
+// whose number it returns.
+__device__ __forceinline__ int band_norms(
+    const State& g, const Band& d, float* __restrict__ terms,
+    cooperative_groups::grid_group& grid) {
+  const int nx = g.nx, ny = g.ny;
+  const size_t n = (size_t)nx * ny;
+  FOR_ROWS(d.lo, d.hi, ny, i, j) {
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    norm_terms_at(d.b, i, j, v);
+    size_t q = (size_t)i * ny + j;
+    for (int k = 0; k < 4; ++k) terms[k * n + q] = v[k];
+  }
+  grid.sync();
+  const int ntx = (ny + BX - 1) / BX;
+  const int ntiles = (nx + BY - 1) / BY * ntx;
+  const int half = threadIdx.x / NT, t = threadIdx.x % NT;
+  float* r = d.red + half * 4 * NT;  // r[k * NT + t]
+  for (int base = 2 * blockIdx.x; base < ntiles; base += 2 * gridDim.x) {
+    const int tile = base + half;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (tile < ntiles) {
+      int i = tile / ntx * BY + t / BX, j = tile % ntx * BX + t % BX;
+      if (i < nx && j < ny)
+        for (int k = 0; k < 4; ++k) v[k] = terms[k * n + (size_t)i * ny + j];
     }
-    grid.sync();
-    const int ntx = (ny + BX - 1) / BX;
-    const int ntiles = (nx + BY - 1) / BY * ntx;
-    const int half = threadIdx.x / NT, t = threadIdx.x % NT;
-    float* r = red + half * 4 * NT;  // r[k * NT + t]
-    for (int base = 2 * blockIdx.x; base < ntiles; base += 2 * gridDim.x) {
-      const int tile = base + half;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (tile < ntiles) {
-        int i = tile / ntx * BY + t / BX, j = tile % ntx * BX + t % BX;
-        if (i < nx && j < ny)
-          for (int k = 0; k < 4; ++k)
-            v[k] = terms[k * n + (size_t)i * ny + j];
-      }
-      for (int k = 0; k < 4; ++k) r[k * NT + t] = v[k];
+    for (int k = 0; k < 4; ++k) r[k * NT + t] = v[k];
+    __syncthreads();
+    for (int s2 = NT / 2; s2 > 0; s2 >>= 1) {
+      if (t < s2)
+        for (int k = 0; k < 4; ++k) r[k * NT + t] += r[k * NT + t + s2];
       __syncthreads();
-      for (int s2 = NT / 2; s2 > 0; s2 >>= 1) {
-        if (t < s2)
-          for (int k = 0; k < 4; ++k) r[k * NT + t] += r[k * NT + t + s2];
-        __syncthreads();
-      }
-      if (t == 0 && tile < ntiles)
-        for (int k = 0; k < 4; ++k) g.partial[PS * tile + k] = r[k * NT];
-      __syncthreads();  // the next pass overwrites r
     }
-    grid.sync();
+    if (t == 0 && tile < ntiles)
+      for (int k = 0; k < 4; ++k) g.partial[PS * tile + k] = r[k * NT];
+    __syncthreads();  // the next pass overwrites r
+  }
+  grid.sync();
+  return ntiles;
+}
+
+// The band's state back to device memory.
+__device__ __forceinline__ void band_store(const State& g, const Band& d) {
+  const int nx = g.nx, ny = g.ny, lo = d.lo, hi = d.hi;
+  const size_t n = (size_t)nx * ny;
+  const State& b = d.b;
+  copy_rows(g.xh, b.xh, lo, hi, nx, ny);
+  copy_rows(g.xp, b.xp, lo, hi, nx, ny);
+  copy_rows(g.xd, b.xd, lo, hi, nx, ny);
+  copy_rows(g.warm, b.warm, lo, hi, nx, ny);
+  copy_rows(g.zh, b.zh, lo, hi, nx, ny, n, b.zn, true);
+  copy_rows(g.zp, b.zp, lo, hi, nx, ny, n, b.zn, true);
+  copy_rows(g.zd, b.zd, lo, hi, nx, ny, n, b.zn, true);
+}
+
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    admm_multichunk_resident(State g, float alpha, float oma, int dataterm,
+                             int degree, const float* __restrict__ coeffs,
+                             int count, int k_chunks, AdaptConsts c,
+                             float* __restrict__ terms, int rmax) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (conv_set(g.sc)) {  // every block, before any barrier
+    // each chunk of the launch sequence finds the flag and clears S_FAC
+    if (blockIdx.x == 0 && threadIdx.x == 0 && k_chunks > 0)
+      g.sc[S_FAC] = -1.f;
+    return;
+  }
+  extern __shared__ float smem[];
+  const Band d = band_load(g, dataterm, rmax, smem);
+  const int nx = g.nx, ny = g.ny, lo = d.lo, hi = d.hi;
+  const State& b = d.b;
+  int ch = 0;
+  for (; ch < k_chunks; ++ch) {
+    band_iterations(g, d, alpha, oma, dataterm, degree, coeffs, count, grid);
+    const int ntiles = band_norms(g, d, terms, grid);
     if (blockIdx.x == 0)
-      finish_at(reinterpret_cast<float(*)[FIN]>(red), g.sc, g.partial,
+      finish_at(reinterpret_cast<float(*)[FIN]>(d.red), g.sc, g.partial,
                 ntiles, OP_ADAPT, 0, (float)((ch + 1) * count), nullptr, 0,
                 c);
     grid.sync();
@@ -1160,14 +1222,29 @@ __global__ void __launch_bounds__(RES_THREADS, 1)
     grid.sync();  // every block has read this chunk's S_FAC
     if (blockIdx.x == 0 && threadIdx.x == 0) g.sc[S_FAC] = -1.f;
   }
-  // the state back to device memory, once
-  copy_rows(g.xh, b.xh, lo, hi, nx, ny);
-  copy_rows(g.xp, b.xp, lo, hi, nx, ny);
-  copy_rows(g.xd, b.xd, lo, hi, nx, ny);
-  copy_rows(g.warm, b.warm, lo, hi, nx, ny);
-  copy_rows(g.zh, b.zh, lo, hi, nx, ny, n, b.zn, true);
-  copy_rows(g.zp, b.zp, lo, hi, nx, ny, n, b.zn, true);
-  copy_rows(g.zd, b.zd, lo, hi, nx, ny, n, b.zn, true);
+  band_store(g, d);  // the state back to device memory, once
+}
+
+// One Chebyshev chunk grid-resident (admm_fused_chunk ->
+// _admm_chunk_kernel): the multichunk's body for one chunk, ending in
+// admm_finish's OP_NORMS in block 0, without the adaptation and the
+// rescale; bit-equal to prost_admm_chunk.
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    admm_chunk_resident(State g, float alpha, float oma, int dataterm,
+                        int degree, const float* __restrict__ coeffs,
+                        int count, float* __restrict__ terms, int rmax) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (conv_set(g.sc)) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  const Band d = band_load(g, dataterm, rmax, smem);
+  band_iterations(g, d, alpha, oma, dataterm, degree, coeffs, count, grid);
+  const int ntiles = band_norms(g, d, terms, grid);
+  if (blockIdx.x == 0) {
+    AdaptConsts none = {0.f, 0.f, 0.f, 0.f};
+    finish_at(reinterpret_cast<float(*)[FIN]>(d.red), g.sc, g.partial,
+              ntiles, OP_NORMS, 0, 0.f, nullptr, 0, none);
+  }
+  band_store(g, d);  // the state back to device memory, once
 }
 
 #define LAUNCH_CHECK()                                  \
@@ -1383,21 +1460,65 @@ int prost_admm_iter_halo(void* xh, void* xp, void* xd, void* zh, void* zp,
   return 0;
 }
 
-// The dynamic shared memory a block of admm_multichunk_resident may opt
-// into on the current device (the opt-in limit less its static shared
-// memory), or minus the error.
+// The dynamic shared memory a block of admm_multichunk_resident and
+// admm_chunk_resident may opt into on the current device (the opt-in limit
+// less the kernels' static shared memory, the smaller of the two), or minus
+// the error.
 int prost_admm_resident_smem() {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncAttributes attr;
+  cudaFuncAttributes multi, one;
   if (e == cudaSuccess)
-    e = cudaFuncGetAttributes(&attr, (const void*)admm_multichunk_resident);
+    e = cudaFuncGetAttributes(&multi, (const void*)admm_multichunk_resident);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&one, (const void*)admm_chunk_resident);
   if (e != cudaSuccess) return -(int)e;
-  return optin - (int)attr.sharedSizeBytes;
+  size_t fixed = multi.sharedSizeBytes > one.sharedSizeBytes
+                     ? multi.sharedSizeBytes
+                     : one.sharedSizeBytes;
+  return optin - (int)fixed;
 }
+
+}  // extern "C"
+
+namespace {
+
+// One grid-resident launch of `kernel` with `args` (whose rmax entry points
+// at `rmax`): one block of RES_THREADS on each SM, the largest band's
+// windows in dynamic shared memory; a band that does not fit is refused
+// with cudaErrorInvalidValue, a grid the card cannot hold at once by the
+// card (cudaErrorCooperativeLaunchTooLarge).
+template <typename K>
+int resident_launch(K kernel, void** args, int& rmax, int nx, int ny,
+                    int dataterm, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  rmax = (nx + sms - 1) / sms;
+  size_t smem = admm_resident_floats(rmax, ny, dataterm == DT_WSQUARE)
+                * sizeof(float);
+  int limit = prost_admm_resident_smem();
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute((const void*)kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms),
+                                  dim3(RES_THREADS), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  LAUNCH_CHECK();
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
 
 // admm_fused_multichunk as one grid-resident cooperative launch
 // (admm_multichunk_resident): the arguments of prost_admm_multichunk, with
@@ -1424,29 +1545,36 @@ int prost_admm_multichunk_resident(void* xh, void* xp, void* xd, void* zh,
   float* terms = (float*)scratch + (size_t)8 * nx * ny;
   AdaptConsts c = {sqrt_nrows, sqrt_ncols, arb_tau, arb_gamma};
   const float* cf = (const float*)coeffs;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  int rmax = (nx + sms - 1) / sms;
-  size_t smem = admm_resident_floats(rmax, ny, dataterm == DT_WSQUARE)
-                * sizeof(float);
-  int limit = prost_admm_resident_smem();
-  if (limit < 0) return -limit;
-  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute((const void*)admm_multichunk_resident,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  int rmax = 0;
   void* args[] = {&b, &alpha, &oma, &dataterm, &degree, &cf, &count,
                   &k_chunks, &c, &terms, &rmax};
-  e = cudaLaunchCooperativeKernel((const void*)admm_multichunk_resident,
-                                  dim3(sms), dim3(RES_THREADS), args, smem,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  LAUNCH_CHECK();
-  return 0;
+  return resident_launch(admm_multichunk_resident, args, rmax, nx, ny,
+                         dataterm, (cudaStream_t)stream);
+}
+
+// admm_fused_chunk with the Chebyshev projection as one grid-resident
+// cooperative launch (admm_chunk_resident): the arguments of
+// prost_admm_chunk without the CGLS ones, the coefficients as a device
+// array (any degree >= 1), `scratch` of 12 planes as for
+// prost_admm_multichunk_resident.  Bit-equal to prost_admm_chunk in the 7
+// state arrays and the 4 squared norms.  No-op when sc[S_CONV] is set.  A
+// launch that does not fit is refused as the multichunk's is.
+int prost_admm_chunk_resident(void* xh, void* xp, void* xd, void* zh,
+                              void* zp, void* zd, void* warm, const void* f,
+                              const void* w, void* scratch, void* sc,
+                              void* partial, int nx, int ny, int count,
+                              int dataterm, int degree, const void* coeffs,
+                              float alpha, float oma, void* stream) {
+  if (degree < 1) return (int)cudaErrorInvalidValue;
+  State b = state_of(xh, xp, xd, zh, zp, zd, warm, f, w, scratch, sc,
+                     partial, nx, ny);
+  float* terms = (float*)scratch + (size_t)8 * nx * ny;
+  const float* cf = (const float*)coeffs;
+  int rmax = 0;
+  void* args[] = {&b, &alpha, &oma, &dataterm, &degree, &cf, &count, &terms,
+                  &rmax};
+  return resident_launch(admm_chunk_resident, args, rmax, nx, ny, dataterm,
+                         (cudaStream_t)stream);
 }
 
 // The blocks of admm_iter_halo's cooperative launch on the current device,

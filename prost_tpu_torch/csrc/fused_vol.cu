@@ -47,9 +47,11 @@
 // volumes fit in the shared memory of one block per SM (the wrapper's
 // shape rule: 256x256x8 and its one-shard halo band, not 512x512x8), the
 // chunk and its halo mode run instead as one grid-resident cooperative
-// launch (vol_resident, further down), and the batched chunk as one such
+// launch (vol_resident, further down), the batched chunk as one such
 // launch that takes the instances one after another
-// (vol_resident_batched), each bit-equal to the sequence.
+// (vol_resident_batched), and the multichunk as one such launch for all
+// its chunks with the adaptation between them (vol_multichunk_resident),
+// each bit-equal to the sequence.
 //
 // Design.  One thread per (i, j) pixel of the 32x8 pixel grid of
 // pdhg_chunk.cuh, looping over the L labels, as in fused_multilabel.cu: the
@@ -310,7 +312,9 @@ __global__ void vol_norm_partial(Vol b) {
 // ---------------------------------------------------------------------------
 // The grid-resident chunks: one cooperative launch runs what chunk() runs
 // in 2 count + 3 launches, for one volume or one halo band (vol_resident)
-// and for B instances one after another (vol_resident_batched).
+// and for B instances one after another (vol_resident_batched), and what
+// prost_vol_multichunk runs in 1 + k_chunks (2 count + 2) launches
+// (vol_multichunk_resident: 177 at vol256x8's 8 chunks of ri 10).
 //
 // What bounds it.  At vol256x8's shape (256x256x8, ri 10) the streaming
 // sequence is 23 launches of 5-6 us each, mostly latency and tails; the
@@ -352,28 +356,46 @@ __global__ void vol_norm_partial(Vol b) {
 // finish of one off the shared memory the next one loads into.  Up to
 // MAX_RES_L labels (the loops over them unrolled); the wrapper's shape
 // rule streams more.  Barriers: one after the load, two an iteration, one
-// before the tiles, one before the finish, one between instances.
+// before the tiles, one before the finish, one between instances.  The
+// pieces (vol_res_load_seed, vol_res_iteration, vol_res_norms) also make
+// the multichunk: the load and the seed once, then for each chunk the
+// scalars read anew (the last finish adapted them), `count` iterations,
+// the norms and finish_block's adaptation in block 0, and after a barrier
+// the flag, on which the whole grid leaves together; w_hat takes a window
+// of its own (f is read in the next chunk), which the tiles and the
+// finish borrow as their reduction array.
 // ---------------------------------------------------------------------------
 
 constexpr int MAX_RES_L = 8;  // mirrored by ops/fused_vol.py
+constexpr int RES_RED = RES_RED_BYTES / (int)sizeof(float);
 
 struct VolRes {
   LWin u, qx, qy, ql, gx, gy, gl;
-  LWin f;  // its rows take w_hat after the last primal step
-  LWin w;  // wsquare's weights (f again for the other data terms)
+  LWin f;
+  LWin w;   // wsquare's weights (f again for the other data terms)
+  LWin wh;  // w_hat of the aligned primal step: f's rows in a chunk (f is
+            // not read again), a window of its own in a multichunk
+  float* red;  // RES_RED floats for the tiles and the finish: the start of
+               // the windows in a chunk (all read by then), w_hat's window
+               // in a multichunk (read by then, rewritten in the next chunk)
 };
 
-// Floats of VolRes for bands of at most rmax rows (with w where wsq).
-__host__ __device__ __forceinline__ size_t vol_resident_floats(int L,
-                                                               int rmax,
-                                                               int ny,
-                                                               int wsq) {
-  return ((size_t)2 * L * (rmax + 1) + (size_t)(6 + (wsq ? 1 : 0)) * L * rmax)
-         * ny;
+// Floats of VolRes for bands of at most rmax rows (with w where wsq; with
+// `multi`, w_hat's window, at least the reductions' array).
+__host__ __device__ __forceinline__ size_t vol_resident_floats(
+    int L, int rmax, int ny, int wsq, int multi = 0) {
+  size_t floats = ((size_t)2 * L * (rmax + 1)
+                   + (size_t)(6 + (wsq ? 1 : 0)) * L * rmax) * ny;
+  if (multi) {
+    size_t wh = (size_t)L * rmax * ny;
+    floats += wh > (size_t)RES_RED ? wh : (size_t)RES_RED;
+  }
+  return floats;
 }
 
 __device__ __forceinline__ VolRes vol_layout(float* smem, int L, int lo,
-                                             int rmax, int ny, bool wsq) {
+                                             int rmax, int ny, bool wsq,
+                                             bool multi) {
   VolRes v;
   float* p = smem;
   v.u = take(p, L, lo, rmax + 1, ny);
@@ -385,27 +407,47 @@ __device__ __forceinline__ VolRes vol_layout(float* smem, int L, int lo,
   v.gl = take(p, L, lo, rmax, ny);
   v.f = take(p, L, lo, rmax, ny);
   v.w = wsq ? take(p, L, lo, rmax, ny) : v.f;
+  v.wh = multi ? take(p, L, lo, rmax, ny) : v.f;
+  v.red = multi ? v.wh.a : smem;
   return v;
 }
 
-// One chunk of one instance by the whole grid, the instance's flag found
-// clear by every block: load, seed, `count` iterations, the norms' terms
-// and tiles, and the finish in block 0, which leaves `smem` to the next
-// instance only after a grid barrier.
-template <int LT>
-__device__ __forceinline__ void vol_resident_chunk(
-    const Vol& b, int count, int dataterm, int rmax, float* smem,
-    cooperative_groups::grid_group& grid) {
-  constexpr int L = LT;
-  const int nx = b.nx, ny = b.ny;
-  const size_t n = (size_t)nx * ny, nl = n * L;
-  const RowCtx r = row_ctx(b.sc, nx, b.nxg);
-  const bool wsq = dataterm == DT_WSQUARE;
-  int lo, hi;
-  band_of(nx, blockIdx.x, gridDim.x, lo, hi);
-  const VolRes v = vol_layout(smem, L, lo, rmax, ny, wsq);
-  const int npx = (hi - lo) * ny;
+// The launch's scalars and the constants the voxel loops share, each the
+// same expression of them as in the streaming kernels; read through a
+// volatile pointer, since a multichunk's finish in block 0 changes them
+// between chunks.
+struct VolStep {
+  float tau_raw, sigma_raw, theta, radius;
+  float tau, tl, sig_p, sig_t, tp, inv_s, inv_t;
+};
 
+__device__ __forceinline__ VolStep vol_step(const float* sc) {
+  const volatile float* s = sc;
+  VolStep k;
+  k.tau_raw = s[S_TAU];
+  k.sigma_raw = s[S_SIGMA];
+  k.theta = s[S_THETA];
+  k.radius = s[S_RADIUS];
+  k.tau = k.tau_raw * TAU_C;  // tau * Tau
+  k.tl = k.tau * s[S_LMB];
+  const float sigma_p = k.sigma_raw * 0.5f;  // sigma * Sigma
+  k.sig_p = sigma_p * (1.f + k.theta);
+  k.sig_t = sigma_p * k.theta;
+  k.tp = 1.f + k.theta;
+  k.inv_s = 1.f / (k.sigma_raw * SQRT_S);
+  k.inv_t = 1.f / (k.tau_raw * SQRT_T);
+  return k;
+}
+
+// The band's rows of u (and the row below), q (q_x with the row above), f
+// and w into their windows, then vol_seed: the dead duals zeroed (also on
+// the q_x row above the band), grad3 u of the band; a grid barrier.
+template <int L>
+__device__ __forceinline__ void vol_res_load_seed(
+    const Vol& b, const VolRes& v, const RowCtx& r, int lo, int hi,
+    bool wsq, cooperative_groups::grid_group& grid) {
+  const int nx = b.nx, ny = b.ny;
+  const size_t nl = (size_t)nx * ny * L;
   load_rows(v.u, b.u, L, lo, hi + 1, nx);
   load_rows(v.qx, b.q, L, lo - 1, hi, nx);
   load_rows(v.qy, b.q + nl, L, lo, hi, nx);
@@ -413,8 +455,6 @@ __device__ __forceinline__ void vol_resident_chunk(
   load_rows(v.f, b.f, L, lo, hi, nx);
   if (wsq) load_rows(v.w, b.w, L, lo, hi, nx);
   __syncthreads();
-  // vol_seed: the dead duals zeroed (also on the q_x row above the band),
-  // grad3 u of the band
   const int top = lo > 0 ? lo - 1 : lo;
   for (int k = threadIdx.x, i = top + k / ny, j = k % ny; k < (hi - top) * ny;
        k += RES_THREADS, next_pixel(i, j, ny)) {
@@ -440,130 +480,139 @@ __device__ __forceinline__ void vol_resident_chunk(
     }
   }
   grid.sync();
+}
 
-  // the launch's scalars and the constants the voxel loops share, each the
-  // same expression of them as in the streaming kernels
-  const float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
-  const float theta = b.sc[S_THETA], radius = b.sc[S_RADIUS];
-  const float tau = tau_raw * TAU_C;  // tau * Tau
-  const float tl = tau * b.sc[S_LMB];
-  const float sigma_p = sigma_raw * 0.5f;  // sigma * Sigma
-  const float sig_p = sigma_p * (1.f + theta);
-  const float sig_t = sigma_p * theta;
-  const float tp = 1.f + theta;
-  const float inv_s = 1.f / (sigma_raw * SQRT_S);
-  const float inv_t = 1.f / (tau_raw * SQRT_T);
-  for (int it = 0; it < count; ++it) {
-    const bool last = it == count - 1;
-    // vol_primal
-    for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
-         k += RES_THREADS, next_pixel(i, j, ny)) {
-      const size_t p = (size_t)i * ny + j;
-      const bool above = has_above(r, i);
-      float ql_below = 0.f;
+// One iteration on the band: vol_primal, the row of u below exchanged,
+// vol_dual, the row of q_x above exchanged.  The aligned (`last`)
+// iteration also writes u_prev, q_prev, w_hat and the |pd|^2 and |z_hat|^2
+// terms, and q's other parts to device memory.
+template <int L>
+__device__ __forceinline__ void vol_res_iteration(
+    const Vol& b, const VolRes& v, const RowCtx& r, const VolStep& k,
+    int dataterm, int lo, int hi, bool last,
+    cooperative_groups::grid_group& grid) {
+  const int nx = b.nx, ny = b.ny;
+  const size_t n = (size_t)nx * ny, nl = n * L;
+  const int npx = (hi - lo) * ny;
+  // vol_primal
+  for (int t = threadIdx.x, i = lo + t / ny, j = t % ny; t < npx;
+       t += RES_THREADS, next_pixel(i, j, ny)) {
+    const size_t p = (size_t)i * ny + j;
+    const bool above = has_above(r, i);
+    float ql_below = 0.f;
 #pragma unroll
-      for (int l = 0; l < L; ++l) {
-        const size_t pl = l * n + p;
-        float qx = v.qx.at(l, i, j), qy = v.qy.at(l, i, j);
-        float ql = v.ql.at(l, i, j);
-        float lx = above ? v.qx.at(l, i - 1, j) : 0.f;
-        float ly = j > 0 ? v.qy.at(l, i, j - 1) : 0.f;
-        float kty = ((lx - qx) + (ly - qy)) + (ql_below - ql);
-        ql_below = ql;
-        float uv = v.u.at(l, i, j);
-        float arg = uv - tau * kty;
-        float fv = v.f.at(l, i, j);
-        float un;
-        if (dataterm == DT_SQUARE) {
-          float dt0 = tl * fv;
-          float dt1 = 1.f / (1.f + tl);
-          un = (arg + dt0) * dt1;
-        } else if (dataterm == DT_WSQUARE) {
-          float tw = tl * v.w.at(l, i, j);
-          float dt0 = tw * fv;
-          float dt1 = 1.f / (1.f + tw);
-          un = (arg + dt0) * dt1;
-        } else {  // abs
-          float d = arg - fv;
-          un = arg - fminf(fmaxf(d, -tl), tl);
-        }
-        if (last) {
-          b.up[pl] = uv;
-          v.f.at(l, i, j) = (uv - un) * inv_t - SQRT_T * kty;  // w_hat
-        }
-        v.u.at(l, i, j) = un;
-        b.u[pl] = un;
-      }
-    }
-    grid.sync();
-    load_rows(v.u, b.u, L, hi, hi + 1, nx);
-    __syncthreads();
-    // vol_dual
-    for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
-         k += RES_THREADS, next_pixel(i, j, ny)) {
-      const size_t p = (size_t)i * ny + j;
-      const bool below = has_below(r, i, nx);
-      const bool own = last && owned_row(r, i);
-      float v0 = 0.f, v1 = 0.f;
-      float un = v.u.at(0, i, j);
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        const size_t pl = l * n + p;
-        float uv = un;
-        un = l < L - 1 ? v.u.at(l + 1, i, j) : 0.f;
-        float gxn = below ? v.u.at(l, i + 1, j) - uv : 0.f;
-        float gyn = j < ny - 1 ? v.u.at(l, i, j + 1) - uv : 0.f;
-        float gln = un - uv;
-        float qx = v.qx.at(l, i, j), qy = v.qy.at(l, i, j);
-        float ql = v.ql.at(l, i, j);
-        float gx = v.gx.at(l, i, j), gy = v.gy.at(l, i, j);
-        float gl = v.gl.at(l, i, j);
-        float ax = (qx + sig_p * gxn) - sig_t * gx;
-        float ay = (qy + sig_p * gyn) - sig_t * gy;
-        float al = (ql + sig_p * gln) - sig_t * gl;
-        float nn = (ax * ax + ay * ay) + al * al;
-        float scale = nn > 0.f ? fminf(1.f, radius * rsqrtf(nn)) : 1.f;
-        float qxn = ax * scale, qyn = ay * scale, qln = al * scale;
-        if (last) {
-          b.qp[pl] = qx;
-          b.qp[nl + pl] = qy;
-          b.qp[2 * nl + pl] = ql;
-        }
-        if (own) {  // vol_norm_partial's |pd|^2 and |z_hat|^2 terms
-          float z0 = (qx - qxn) * inv_s + SQRT_S * (tp * gxn - theta * gx);
-          float z1 = (qy - qyn) * inv_s + SQRT_S * (tp * gyn - theta * gy);
-          float z2 = (ql - qln) * inv_s + SQRT_S * (tp * gln - theta * gl);
-          float pd0 = z0 - SQRT_S * gxn;
-          float pd1 = z1 - SQRT_S * gyn;
-          float pd2 = z2 - SQRT_S * gln;
-          v0 += (pd0 * pd0 + pd1 * pd1) + pd2 * pd2;
-          v1 += (z0 * z0 + z1 * z1) + z2 * z2;
-        }
-        v.qx.at(l, i, j) = qxn;
-        v.qy.at(l, i, j) = qyn;
-        v.ql.at(l, i, j) = qln;
-        v.gx.at(l, i, j) = gxn;
-        v.gy.at(l, i, j) = gyn;
-        v.gl.at(l, i, j) = gln;
-        b.q[pl] = qxn;
-        if (last) {
-          b.q[nl + pl] = qyn;
-          b.q[2 * nl + pl] = qln;
-        }
+    for (int l = 0; l < L; ++l) {
+      const size_t pl = l * n + p;
+      float qx = v.qx.at(l, i, j), qy = v.qy.at(l, i, j);
+      float ql = v.ql.at(l, i, j);
+      float lx = above ? v.qx.at(l, i - 1, j) : 0.f;
+      float ly = j > 0 ? v.qy.at(l, i, j - 1) : 0.f;
+      float kty = ((lx - qx) + (ly - qy)) + (ql_below - ql);
+      ql_below = ql;
+      float uv = v.u.at(l, i, j);
+      float arg = uv - k.tau * kty;
+      float fv = v.f.at(l, i, j);
+      float un;
+      if (dataterm == DT_SQUARE) {
+        float dt0 = k.tl * fv;
+        float dt1 = 1.f / (1.f + k.tl);
+        un = (arg + dt0) * dt1;
+      } else if (dataterm == DT_WSQUARE) {
+        float tw = k.tl * v.w.at(l, i, j);
+        float dt0 = tw * fv;
+        float dt1 = 1.f / (1.f + tw);
+        un = (arg + dt0) * dt1;
+      } else {  // abs
+        float d = arg - fv;
+        un = arg - fminf(fmaxf(d, -k.tl), k.tl);
       }
       if (last) {
-        b.terms[p] = v0;
-        b.terms[n + p] = v1;
+        b.up[pl] = uv;
+        v.wh.at(l, i, j) = (uv - un) * k.inv_t - SQRT_T * kty;  // w_hat
+      }
+      v.u.at(l, i, j) = un;
+      b.u[pl] = un;
+    }
+  }
+  grid.sync();
+  load_rows(v.u, b.u, L, hi, hi + 1, nx);
+  __syncthreads();
+  // vol_dual
+  for (int t = threadIdx.x, i = lo + t / ny, j = t % ny; t < npx;
+       t += RES_THREADS, next_pixel(i, j, ny)) {
+    const size_t p = (size_t)i * ny + j;
+    const bool below = has_below(r, i, nx);
+    const bool own = last && owned_row(r, i);
+    float v0 = 0.f, v1 = 0.f;
+    float un = v.u.at(0, i, j);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const size_t pl = l * n + p;
+      float uv = un;
+      un = l < L - 1 ? v.u.at(l + 1, i, j) : 0.f;
+      float gxn = below ? v.u.at(l, i + 1, j) - uv : 0.f;
+      float gyn = j < ny - 1 ? v.u.at(l, i, j + 1) - uv : 0.f;
+      float gln = un - uv;
+      float qx = v.qx.at(l, i, j), qy = v.qy.at(l, i, j);
+      float ql = v.ql.at(l, i, j);
+      float gx = v.gx.at(l, i, j), gy = v.gy.at(l, i, j);
+      float gl = v.gl.at(l, i, j);
+      float ax = (qx + k.sig_p * gxn) - k.sig_t * gx;
+      float ay = (qy + k.sig_p * gyn) - k.sig_t * gy;
+      float al = (ql + k.sig_p * gln) - k.sig_t * gl;
+      float nn = (ax * ax + ay * ay) + al * al;
+      float scale = nn > 0.f ? fminf(1.f, k.radius * rsqrtf(nn)) : 1.f;
+      float qxn = ax * scale, qyn = ay * scale, qln = al * scale;
+      if (last) {
+        b.qp[pl] = qx;
+        b.qp[nl + pl] = qy;
+        b.qp[2 * nl + pl] = ql;
+      }
+      if (own) {  // vol_norm_partial's |pd|^2 and |z_hat|^2 terms
+        const float th = k.theta, tp = k.tp, inv_s = k.inv_s;
+        float z0 = (qx - qxn) * inv_s + SQRT_S * (tp * gxn - th * gx);
+        float z1 = (qy - qyn) * inv_s + SQRT_S * (tp * gyn - th * gy);
+        float z2 = (ql - qln) * inv_s + SQRT_S * (tp * gln - th * gl);
+        float pd0 = z0 - SQRT_S * gxn;
+        float pd1 = z1 - SQRT_S * gyn;
+        float pd2 = z2 - SQRT_S * gln;
+        v0 += (pd0 * pd0 + pd1 * pd1) + pd2 * pd2;
+        v1 += (z0 * z0 + z1 * z1) + z2 * z2;
+      }
+      v.qx.at(l, i, j) = qxn;
+      v.qy.at(l, i, j) = qyn;
+      v.ql.at(l, i, j) = qln;
+      v.gx.at(l, i, j) = gxn;
+      v.gy.at(l, i, j) = gyn;
+      v.gl.at(l, i, j) = gln;
+      b.q[pl] = qxn;
+      if (last) {
+        b.q[nl + pl] = qyn;
+        b.q[2 * nl + pl] = qln;
       }
     }
-    grid.sync();
-    load_rows(v.qx, b.q, L, lo - 1, lo, nx);
-    __syncthreads();
+    if (last) {
+      b.terms[p] = v0;
+      b.terms[n + p] = v1;
+    }
   }
+  grid.sync();
+  load_rows(v.qx, b.q, L, lo - 1, lo, nx);
+  __syncthreads();
+}
 
-  // |dd|^2 and |w_hat|^2: K^T q of the new duals
-  for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
-       k += RES_THREADS, next_pixel(i, j, ny)) {
+// After the aligned iteration: |dd|^2 and |w_hat|^2 from K^T q of the new
+// duals, then the 32x8 tiles' partials of the four terms; every block
+// leaves after a grid barrier, so that block 0 may run the finish.
+template <int L>
+__device__ __forceinline__ void vol_res_norms(
+    const Vol& b, const VolRes& v, const RowCtx& r, int lo, int hi,
+    cooperative_groups::grid_group& grid) {
+  const int nx = b.nx, ny = b.ny;
+  const size_t n = (size_t)nx * ny;
+  const int npx = (hi - lo) * ny;
+  for (int t = threadIdx.x, i = lo + t / ny, j = t % ny; t < npx;
+       t += RES_THREADS, next_pixel(i, j, ny)) {
     const size_t p = (size_t)i * ny + j;
     float v2 = 0.f, v3 = 0.f;
     if (owned_row(r, i)) {
@@ -577,7 +626,7 @@ __device__ __forceinline__ void vol_resident_chunk(
         float ly = j > 0 ? v.qy.at(l, i, j - 1) : 0.f;
         float kty2 = ((lx - qx) + (ly - qy)) + (ql_below - ql);
         ql_below = ql;
-        float wh = v.f.at(l, i, j);
+        float wh = v.wh.at(l, i, j);
         float dd = wh + SQRT_T * kty2;
         v2 += dd * dd;
         v3 += wh * wh;
@@ -587,12 +636,33 @@ __device__ __forceinline__ void vol_resident_chunk(
     b.terms[3 * n + p] = v3;
   }
   grid.sync();
-  coop_tile_partials(b.terms, nx, ny, b.partial, smem);
+  coop_tile_partials(b.terms, nx, ny, b.partial, v.red);
   grid.sync();
+}
+
+// One chunk of one instance by the whole grid, the instance's flag found
+// clear by every block: load, seed, `count` iterations, the norms' terms
+// and tiles, and the finish in block 0, which leaves `smem` to the next
+// instance only after a grid barrier.
+template <int L>
+__device__ __forceinline__ void vol_resident_chunk(
+    const Vol& b, int count, int dataterm, int rmax, float* smem,
+    cooperative_groups::grid_group& grid) {
+  const RowCtx r = row_ctx(b.sc, b.nx, b.nxg);
+  const bool wsq = dataterm == DT_WSQUARE;
+  int lo, hi;
+  band_of(b.nx, blockIdx.x, gridDim.x, lo, hi);
+  const VolRes v = vol_layout(smem, L, lo, rmax, b.ny, wsq, false);
+  vol_res_load_seed<L>(b, v, r, lo, hi, wsq, grid);
+  const VolStep k = vol_step(b.sc);
+  for (int it = 0; it < count; ++it)
+    vol_res_iteration<L>(b, v, r, k, dataterm, lo, hi, it == count - 1,
+                         grid);
+  vol_res_norms<L>(b, v, r, lo, hi, grid);
   if (blockIdx.x == 0) {
     AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    dim3 g = grid_of(nx, ny);
-    finish_block(reinterpret_cast<float(*)[FIN]>(smem), b.sc, b.partial,
+    dim3 g = grid_of(b.nx, b.ny);
+    finish_block(reinterpret_cast<float(*)[FIN]>(v.red), b.sc, b.partial,
                  (int)(g.x * g.y), count, 0, STEP_NONE, none);
   }
 }
@@ -601,16 +671,16 @@ __device__ __forceinline__ void vol_resident_chunk(
 // context of pdhg_chunk.cuh, which vol_resident_chunk reads for every row
 // mask, every dead row and the owned rows of the norms) grid-resident: one
 // instance as vol_resident_batched runs each of its instances.
-template <int LT>
+template <int L>
 __global__ void __launch_bounds__(RES_THREADS, 1)
     vol_resident(Vol b, int count, int dataterm, int rmax) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   if (b.sc[S_CONV] != 0.f) return;  // every block, before any barrier
   extern __shared__ float smem[];
-  vol_resident_chunk<LT>(b, count, dataterm, rmax, smem, grid);
+  vol_resident_chunk<L>(b, count, dataterm, rmax, smem, grid);
 }
 
-template <int LT>
+template <int L>
 __global__ void __launch_bounds__(RES_THREADS, 1)
     vol_resident_batched(Vol b, int count, int dataterm, int rmax,
                          int batch) {
@@ -625,13 +695,52 @@ __global__ void __launch_bounds__(RES_THREADS, 1)
     bz.partial += (size_t)z * 4 * tiles;
     if (!first) grid.sync();
     first = false;
-    vol_resident_chunk<LT>(bz, count, dataterm, rmax, smem, grid);
+    vol_resident_chunk<L>(bz, count, dataterm, rmax, smem, grid);
+  }
+}
+
+// The multichunk (vol_fused_multichunk) grid-resident: load and seed once,
+// then up to k_chunks chunks, each `count` iterations, the norms' terms and
+// tiles and, in block 0, finish_block's adaptation and stopping test;
+// after a grid barrier every block reads the new scalars and the flag, and
+// the grid leaves together once it is set.  The state and the carried
+// gradient stay in shared memory across chunks (w_hat in a window of its
+// own: f is read again in the next chunk); u, q_x and, on every aligned
+// iteration, q's other parts, u_prev and q_prev go to device memory as the
+// chunk writes them.  Bit-equal to prost_vol_multichunk.
+template <int L>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    vol_multichunk_resident(Vol b, int count, int k_chunks, int dataterm,
+                            int stepsize, AdaptConsts c, int rmax) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (b.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  const RowCtx r = row_ctx(b.sc, b.nx, b.nxg);
+  const bool wsq = dataterm == DT_WSQUARE;
+  int lo, hi;
+  band_of(b.nx, blockIdx.x, gridDim.x, lo, hi);
+  const VolRes v = vol_layout(smem, L, lo, rmax, b.ny, wsq, true);
+  const dim3 g = grid_of(b.nx, b.ny);
+  vol_res_load_seed<L>(b, v, r, lo, hi, wsq, grid);
+  for (int ch = 0; ch < k_chunks; ++ch) {
+    const VolStep k = vol_step(b.sc);  // as the last finish left them
+    for (int it = 0; it < count; ++it)
+      vol_res_iteration<L>(b, v, r, k, dataterm, lo, hi, it == count - 1,
+                           grid);
+    vol_res_norms<L>(b, v, r, lo, hi, grid);
+    if (blockIdx.x == 0)
+      finish_block(reinterpret_cast<float(*)[FIN]>(v.red), b.sc, b.partial,
+                   (int)(g.x * g.y), count, 1, stepsize, c);
+    grid.sync();
+    if (*(volatile float*)&b.sc[S_CONV] != 0.f) break;
   }
 }
 
 // The resident chunk's kernels for L labels, or null beyond MAX_RES_L.
 using VolResKernel = void (*)(Vol, int, int, int);
 using VolResBatchedKernel = void (*)(Vol, int, int, int, int);
+using VolResMultiKernel = void (*)(Vol, int, int, int, int, AdaptConsts,
+                                   int);
 
 VolResKernel vol_resident_kernel(int L) {
   switch (L) {
@@ -661,19 +770,33 @@ VolResBatchedKernel vol_resident_batched_kernel(int L) {
   }
 }
 
+VolResMultiKernel vol_multichunk_resident_kernel(int L) {
+  switch (L) {
+    case 1: return vol_multichunk_resident<1>;
+    case 2: return vol_multichunk_resident<2>;
+    case 3: return vol_multichunk_resident<3>;
+    case 4: return vol_multichunk_resident<4>;
+    case 5: return vol_multichunk_resident<5>;
+    case 6: return vol_multichunk_resident<6>;
+    case 7: return vol_multichunk_resident<7>;
+    case MAX_RES_L: return vol_multichunk_resident<MAX_RES_L>;
+    default: return nullptr;
+  }
+}
+
 // The dynamic shared memory of a resident launch on volumes of nx rows:
-// VolRes for the largest band (rmax rows), at least the reductions' array;
-// or 0 where `kernel` may not hold it on the current device (then `rc`
-// holds the error).
+// VolRes for the largest band (rmax rows; with `multi` the multichunk's),
+// at least the reductions' array; or 0 where `kernel` may not hold it on
+// the current device (then `rc` holds the error).
 template <typename K>
 size_t resident_smem(K kernel, int L, int nx, int ny, int dataterm,
-                     int& rmax, int& rc) {
+                     int& rmax, int& rc, int multi = 0) {
   int sms = 0;
   rc = device_sms(&sms);
   if (rc) return 0;
   rmax = band_rows(nx, sms);
-  size_t smem = vol_resident_floats(L, rmax, ny, dataterm == DT_WSQUARE)
-                * sizeof(float);
+  size_t smem = vol_resident_floats(L, rmax, ny, dataterm == DT_WSQUARE,
+                                    multi) * sizeof(float);
   if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
   int limit = resident_smem_limit(kernel);
   if (limit < 0) {
@@ -856,12 +979,17 @@ int prost_vol_chunk_halo_resident(void* u, void* q, void* up, void* qp,
   return resident_chunk(b, count, dataterm, (cudaStream_t)stream);
 }
 
-// The dynamic shared memory vol_resident's blocks (with `batched`,
-// vol_resident_batched's) may hold on the current device (for L labels), or
-// minus the error.
-int prost_vol_resident_smem(int L, int batched) {
-  if (batched) {
+// The dynamic shared memory vol_resident's blocks (`kind` 1:
+// vol_resident_batched's, 2: vol_multichunk_resident's) may hold on the
+// current device (for L labels), or minus the error.
+int prost_vol_resident_smem(int L, int kind) {
+  if (kind == 1) {
     VolResBatchedKernel kernel = vol_resident_batched_kernel(L);
+    if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+    return resident_smem_limit(kernel);
+  }
+  if (kind == 2) {
+    VolResMultiKernel kernel = vol_multichunk_resident_kernel(L);
     if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
     return resident_smem_limit(kernel);
   }
@@ -908,6 +1036,36 @@ int prost_vol_multichunk(void* u, void* q, void* up, void* qp, void* g,
     LAUNCH_CHECK();
   }
   return 0;
+}
+
+// vol_fused_multichunk as one grid-resident cooperative launch
+// (vol_multichunk_resident), bit-equal to prost_vol_multichunk in the
+// volumes, the previous iterates and sc: its arguments without the carried
+// gradient's volumes, `terms` 4 (nx, ny) planes of scratch.  Up to
+// MAX_RES_L labels; a band's volumes that do not fit in one block's shared
+// memory are refused (cudaErrorCooperativeLaunchTooLarge or
+// cudaErrorInvalidValue).  No-op when sc[S_CONV] is set.
+int prost_vol_multichunk_resident(void* u, void* q, void* up, void* qp,
+                                  const void* f, const void* w, void* sc,
+                                  void* partial, void* terms, int L, int nx,
+                                  int ny, int count, int k_chunks,
+                                  int dataterm, int stepsize,
+                                  float sqrt_nrows, float sqrt_ncols,
+                                  float arg_delta, float arg_nu,
+                                  float arb_delta, float arb_tau,
+                                  void* stream) {
+  VolResMultiKernel kernel = vol_multichunk_resident_kernel(L);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  Vol b = vol_of(u, q, up, qp, nullptr, nullptr, f, w, sc, partial, L, nx,
+                 ny);
+  b.terms = (float*)terms;
+  AdaptConsts c = {sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta,
+                   arb_tau};
+  int rmax = 0, rc = 0;
+  size_t smem = resident_smem(kernel, L, nx, ny, dataterm, rmax, rc, 1);
+  if (rc) return rc;
+  void* args[] = {&b, &count, &k_chunks, &dataterm, &stepsize, &c, &rmax};
+  return resident_launch(kernel, args, smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,11 @@ Three kernels carry the routes, each a hand-written CUDA kernel set in
 
 * ``admm_chunk`` (JAX ``admm_fused_chunk``): ``count`` ADMM iterations, the
   inner projection by masked CGLS or by a degree-d Chebyshev iteration,
-  and the four squared residual norms of the last one;
+  and the four squared residual norms of the last one; with the Chebyshev
+  projection on a card one grid-resident cooperative launch where
+  ``admm_resident_ok`` holds, the launch sequence otherwise (and always
+  with CGLS), bit-equal; its in-place form ``admm_chunk_`` serves the
+  route's light call ``ADMMChunk``, made once per route;
 * ``admm_multichunk`` (JAX ``admm_fused_multichunk``): up to ``k_chunks``
   Chebyshev chunks with the Boyd rho adaptation, the dual rescale and the
   stopping test on the device between chunks; on a card one grid-resident
@@ -426,14 +430,12 @@ def _check(planes, f, w, scal, n_scal: int, count: int, dataterm: str):
 
 
 class _Work:
-    """The buffers one kernel call works on in place: copies of the 7
-    state planes (so a call that returns at once hands its inputs back),
-    or with ``copy=False`` the caller's planes themselves, 8 scratch planes,
-    the scalar buffer and the reduction partials."""
+    """The buffers one kernel call works on in place: the caller's 7 state
+    planes, 8 scratch planes, the scalar buffer and the reduction
+    partials."""
 
-    def __init__(self, lib, planes, scal, n_scal: int, copy: bool = True):
-        self.planes = ([t.contiguous().clone() for t in planes] if copy
-                       else list(planes))
+    def __init__(self, lib, planes, scal, n_scal: int):
+        self.planes = list(planes)
         nx, ny = self.planes[0].shape
         dev = self.planes[0].device
         self.scratch = torch.empty(8 * nx * ny, dtype=torch.float32,
@@ -446,9 +448,6 @@ class _Work:
     def buffers(self, f, w):
         return self.planes + [f.contiguous(), w.contiguous(), self.scratch,
                               self.sc, self.partial]
-
-    def outputs(self):
-        return tuple(self.planes)
 
 
 def _lib():
@@ -471,6 +470,10 @@ def _lib():
         # as prost_admm_multichunk, coeffs a device array
         "prost_admm_multichunk_resident": [VP] * 12 + [CI] * 6 + [VP]
                                           + [CF] * 6 + [VP],
+        # 12 buffers, nx, ny, count, dataterm, degree, coeffs (a device
+        # array), alpha, 1 - alpha, stream
+        "prost_admm_chunk_resident": [VP] * 12 + [CI] * 5 + [VP, CF, CF,
+                                                             VP],
         "prost_admm_resident_smem": []})
 
 
@@ -491,7 +494,7 @@ _RES_RED = 4 * 512
 
 def admm_resident_bytes(nx: int, ny: int, sms: int, dataterm: str) -> int:
     """The dynamic shared memory of one block of the grid-resident
-    multichunk over ``sms`` blocks (csrc/fused_admm.cu
+    multichunk or chunk over ``sms`` blocks (csrc/fused_admm.cu
     admm_resident_floats): for the largest band of R rows, R + 2 rows of
     xh, xp, xd, warm and the two directions, R + 1 of t1, x and of both
     parts of zh, zp, zd and dd, R of f, r and (wsquare) w, and the
@@ -504,18 +507,20 @@ def admm_resident_bytes(nx: int, ny: int, sms: int, dataterm: str) -> int:
 
 def admm_resident_ok(nx: int, ny: int, dataterm: str, sms: int,
                      smem: int) -> bool:
-    """The shape rule of ``admm_multichunk_``: the multichunk runs as one
-    grid-resident launch (csrc/fused_admm.cu admm_multichunk_resident, one
-    block per SM) where the bands' planes fit in ``smem`` bytes of a
-    block's dynamic shared memory on a card of ``sms`` SMs (512x512 on an
-    H100, not 2048x2048), and as the launch sequence otherwise."""
+    """The shape rule of ``admm_multichunk_`` and of ``admm_chunk_``'s
+    Chebyshev chunk: each runs as one grid-resident launch
+    (csrc/fused_admm.cu admm_multichunk_resident, admm_chunk_resident, one
+    block per SM, the same layout) where the bands' planes fit in ``smem``
+    bytes of a block's dynamic shared memory on a card of ``sms`` SMs
+    (512x512 on an H100, not 2048x2048), and as the launch sequence
+    otherwise."""
     return admm_resident_bytes(nx, ny, sms, dataterm) <= int(smem)
 
 
 @functools.lru_cache(maxsize=None)
 def admm_card_limits(device) -> tuple:
     """(SMs, the dynamic shared memory a block of the grid-resident
-    multichunk may hold) of the card ``device``, read once."""
+    multichunk and chunk may hold) of the card ``device``, read once."""
     lib = _lib()
     with torch.cuda.device(device):
         smem = lib.prost_admm_resident_smem()
@@ -539,8 +544,8 @@ def _coeff_array(degree):
 @functools.lru_cache(maxsize=None)
 def _coeff_tensor(degree: int, device) -> torch.Tensor:
     """``_coeff_array(degree)`` as a float32 array on ``device``, which
-    the halo iteration's cooperative launch reads: made once per degree and
-    device, so any degree runs."""
+    the cooperative and grid-resident launches read: made once per degree
+    and device, so any degree runs."""
     return torch.tensor(list(_coeff_array(degree)), dtype=torch.float32,
                         device=device)
 
@@ -556,7 +561,57 @@ def admm_chunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
     eps (ignored, and may be None, when ``cheby_degree`` selects the
     Chebyshev projection).  Returns the 7 updated state arrays and the 4
     SQUARED residual norms, on the inputs' device.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel."""
+    plain version; CUDA tensors run ``admm_chunk_`` on copies."""
+    planes = [t.contiguous().clone() for t in (xh, xp, xd, zh, zp, zd, warm)]
+    norms2 = admm_chunk_(*planes, f, w, scal, cg_tols, count, maxit, alpha,
+                         dataterm, cheby_degree)
+    return tuple(planes) + (norms2,)
+
+
+def _scratch(resident: bool, nx: int, ny: int, device):
+    """The scratch of a chunk or multichunk launch: the launch sequence's 8
+    planes, and for the grid-resident launch 4 more, its norms' terms."""
+    return torch.empty((12 if resident else 8) * nx * ny,
+                       dtype=torch.float32, device=device)
+
+
+def _chunk_card(planes, f, w, sc, partial, scratch, resident: bool, tols,
+                count: int, maxit: int, alpha: float, degree,
+                dataterm: str) -> None:
+    """One chunk on the card in place on ``planes`` with the scalar buffer
+    ``sc``: the grid-resident launch (Chebyshev only) or the launch
+    sequence (``degree`` None: CGLS with the tolerances ``tols``), counted
+    under ``admm_chunk``."""
+    xh = planes[0]
+    nx, ny = xh.shape
+    bufs = [*planes, f, w, scratch, sc, partial]
+    if resident:
+        launch(_lib(), "prost_admm_chunk_resident", "admm_chunk",
+               launch_counts, xh.device, bufs, nx, ny, int(count),
+               DATATERMS[dataterm], int(degree),
+               ptr(_coeff_tensor(int(degree), xh.device)), float(alpha),
+               1.0 - float(alpha))
+        return
+    launch(_lib(), "prost_admm_chunk", "admm_chunk", launch_counts,
+           xh.device, bufs, nx, ny, None if tols is None else ptr(tols),
+           int(count), DATATERMS[dataterm],
+           0 if degree is None else int(degree), _coeff_array(degree),
+           int(maxit), float(alpha), 1.0 - float(alpha))
+
+
+def admm_chunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
+                count: int, maxit: int, alpha: float,
+                dataterm: str = "square", cheby_degree=None, path=None):
+    """``admm_chunk`` in place: the 7 state arrays advance by ``count``
+    iterations (with the converged flag set nothing changes).  Returns the
+    4 SQUARED residual norms.  On a card ``path`` None takes the shape
+    rule's path (``admm_resident_ok``): with the Chebyshev projection one
+    grid-resident cooperative launch (csrc/fused_admm.cu
+    admm_chunk_resident) where the bands fit on chip, else the launch
+    sequence; "resident" or "streaming" asks for one ("resident" raises
+    where it does not fit).  The CGLS projection (``cheby_degree`` None)
+    runs as the launch sequence only: its CG steps reduce across the grid
+    several times an iteration."""
     planes = (xh, xp, xd, zh, zp, zd, warm)
     _check(planes, f, w, scal, 3, count, dataterm)
     if cheby_degree is None:
@@ -565,23 +620,85 @@ def admm_chunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
                              "tolerances.")
         if cg_tols.device != xh.device:
             raise ProstError("All tensors must be on one device.")
+        if path == "resident":
+            raise ProstError("admm_chunk: the CGLS projection runs as the "
+                             "launch sequence only.")
     elif int(cheby_degree) < 1:
         raise ProstError("The Chebyshev projection needs a degree >= 1.")
+    if not all(t.is_contiguous() for t in planes):
+        raise ProstError("admm_chunk_ takes contiguous planes only.")
+    if path not in PATHS:
+        raise ProstError(f"admm_chunk: path must be one of {PATHS}, got "
+                         f"{path!r}.")
     if xh.device.type == "cpu":
-        return admm_chunk_plain(*planes, f, w, scal, cg_tols, count, maxit,
-                                alpha, dataterm, cheby_degree)
-    lib = _lib()
-    wk = _Work(lib, planes, scal, 3)
+        out = admm_chunk_plain(*planes, f, w, scal, cg_tols, count, maxit,
+                               alpha, dataterm, cheby_degree)
+        for t, v in zip(planes, out):
+            t.copy_(v)
+        return out[7]
+    nx, ny = xh.shape
+    dev = xh.device
+    resident = pick_path(path, cheby_degree is not None and admm_resident_ok(
+        nx, ny, dataterm, *admm_card_limits(dev)), "admm_chunk")
+    sc = scalar_buffer(scal, 3, _S_CONV, _S_LEN)
+    partial = torch.empty(4 * _lib().prost_admm_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
     tols = (None if cheby_degree is not None
             else cg_tols.to(torch.float32).contiguous())
-    nx, ny = xh.shape
-    launch(lib, "prost_admm_chunk", "admm_chunk", launch_counts, xh.device,
-           wk.buffers(f, w), nx, ny, None if tols is None else ptr(tols),
-           int(count), DATATERMS[dataterm],
-           0 if cheby_degree is None else int(cheby_degree),
-           _coeff_array(cheby_degree), int(maxit), float(alpha),
-           1.0 - float(alpha))
-    return wk.outputs() + (wk.sc[_S_NORM:_S_NORM + 4],)
+    _chunk_card(planes, f.contiguous(), w.contiguous(), sc, partial,
+                _scratch(resident, nx, ny, dev), resident, tols, count,
+                maxit, alpha, cheby_degree, dataterm)
+    return sc[_S_NORM:_S_NORM + 4]
+
+
+class ADMMChunk:
+    """``FusedROFADMM``'s light call of the Chebyshev chunk: ``admm_chunk_``
+    on the run's own state arrays, with what depends only on the shapes
+    and the route made once per route: the path (``admm_resident_ok``),
+    the scratch, the norm partials and the scalar buffer with lmb and
+    radius.  A call writes rho and the flag into the scalar buffer in
+    place (and zeros into its norms, which a flagged call leaves), in one
+    stack and one indexed copy, launches, and returns the squared norms, a
+    view of the buffer that the next call overwrites; on the CPU it runs
+    the plain version."""
+
+    # the slots a call writes: rho, the converged flag, the 4 norms
+    _IN = (0, _S_CONV) + tuple(range(_S_NORM, _S_NORM + 4))
+
+    def __init__(self, r, count: int, alpha: float, degree: int, device):
+        self.r, self.count = r, int(count)
+        self.alpha, self.degree = float(alpha), int(degree)
+        nx, ny = r["nx"], r["ny"]
+        self.sc = torch.zeros(_S_LEN, dtype=torch.float32, device=device)
+        self.sc[1] = r["lmb_t"]
+        self.sc[2] = r["radius_t"]
+        self.stage = torch.zeros(len(self._IN), dtype=torch.float32,
+                                 device=device)
+        self.slots_in = torch.tensor(self._IN, device=device)
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = admm_resident_ok(nx, ny, r["dataterm"],
+                                             *admm_card_limits(device))
+            self.partial = torch.empty(
+                4 * _lib().prost_admm_num_blocks(nx, ny),
+                dtype=torch.float32, device=device)
+            self.scratch = _scratch(self.resident, nx, ny, device)
+
+    def __call__(self, planes, rho, converged):
+        """``count`` iterations on ``planes`` in place; returns the 4
+        squared norms."""
+        torch.stack([rho, converged.to(self.sc.dtype)],
+                    out=self.stage[:2])
+        self.sc.index_copy_(0, self.slots_in, self.stage)
+        r = self.r
+        if self.resident is None:
+            return admm_chunk_(*planes, r["f"], r["w"],
+                               self.sc[[0, 1, 2, _S_CONV]], None, self.count,
+                               0, self.alpha, r["dataterm"], self.degree)
+        _chunk_card(planes, r["f"], r["w"], self.sc, self.partial,
+                    self.scratch, self.resident, None, self.count, 0,
+                    self.alpha, self.degree, r["dataterm"])
+        return self.sc[_S_NORM:_S_NORM + 4]
 
 
 def admm_iter_halo(xh, xp, xd, zh, zp, zd, warm, f, w, scal, degree: int,
@@ -634,7 +751,7 @@ def admm_iter_halo_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, degree: int,
             t.copy_(v)
         return out[-1]
     lib = _lib()
-    wk = _Work(lib, planes, scal, 3, copy=False)
+    wk = _Work(lib, planes, scal, 3)
     nx, ny = xh.shape
     launch(lib, "prost_admm_iter_halo", "admm_iter_halo", launch_counts,
            xh.device, wk.buffers(f, w), nx, ny, DATATERMS[dataterm],
@@ -682,13 +799,6 @@ def _multichunk_card(planes, f, w, sc, partial, scratch, resident: bool,
            *[float(c) for c in consts])
 
 
-def _multichunk_scratch(resident: bool, nx: int, ny: int, device):
-    """The scratch of a multichunk launch: the launch sequence's 8 planes,
-    and for the grid-resident launch 4 more, its norms' terms."""
-    return torch.empty((12 if resident else 8) * nx * ny,
-                       dtype=torch.float32, device=device)
-
-
 def admm_multichunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
                      k_chunks: int, alpha: float, cheby_degree: int, consts,
                      dataterm: str = "square", path=None):
@@ -722,7 +832,7 @@ def admm_multichunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
     partial = torch.empty(4 * _lib().prost_admm_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     _multichunk_card(planes, f.contiguous(), w.contiguous(), sc, partial,
-                     _multichunk_scratch(resident, nx, ny, dev), resident,
+                     _scratch(resident, nx, ny, dev), resident,
                      count, k_chunks, alpha, cheby_degree, consts, dataterm)
     return sc[_S_NORM:_S_NORM + 4], torch.stack([sc[i] for i in _SOUT])
 
@@ -763,7 +873,7 @@ class ADMMMultichunk:
             self.partial = torch.empty(
                 4 * _lib().prost_admm_num_blocks(nx, ny),
                 dtype=torch.float32, device=device)
-            self.scratch = _multichunk_scratch(self.resident, nx, ny, device)
+            self.scratch = _scratch(self.resident, nx, ny, device)
 
     def __call__(self, planes, rho, delta, arb_l, arb_u, it, converged):
         """Up to k_chunks chunks on ``planes`` in place from the state's
@@ -856,22 +966,31 @@ def _with_planes(s: ADMMState, outs, **kw) -> ADMMState:
 
 
 def _fused_chunk(b: FusedROFADMM, s: ADMMState) -> ADMMState:
+    """One chunk: in Chebyshev mode in place on the views of the run's own
+    state arrays (``_fused_admm_run``'s canonicalization copies them once
+    per run) through the route's light call (``ADMMChunk``, made once per
+    route); in CGLS mode ``admm_chunk`` on copies, the launch sequence."""
     r, opts = b.rof, b.run_opts
     ri, dt = max(int(opts.residual_iter), 1), s.x_half.dtype
-    cheby = b.mode == "cheby"
-    cg_tols = None
-    if not cheby:
+    if b.mode == "cheby":
+        if "chunk" not in r:
+            r["chunk"] = ADMMChunk(r, ri, opts.alpha, opts.cheby_degree,
+                                   s.x_half.device)
+        norms = torch.sqrt(r["chunk"](_planes_of(s, r["nx"], r["ny"]),
+                                      s.rho, s.converged))
+        new = dataclasses.replace(s, iteration=s.iteration + ri)
+    else:
         # the chunk's CG tolerance schedule with cgls_solve's 10 eps clamp
         it_f = (s.iteration + 1 + r["steps"]).to(dt)
         cg_tols = torch.clamp(cg_tolerance(it_f, opts),
                               min=10.0 * torch.finfo(dt).eps)
-    scal = torch.stack([s.rho, r["lmb_t"], r["radius_t"],
-                        s.converged.to(dt)])
-    outs = admm_chunk(*_planes_of(s, r["nx"], r["ny"]), r["f"], r["w"], scal,
-                      cg_tols, ri, opts.cg_max_iter, opts.alpha,
-                      r["dataterm"], opts.cheby_degree if cheby else None)
-    norms = torch.sqrt(outs[7])
-    new = _with_planes(s, outs, iteration=s.iteration + ri)
+        scal = torch.stack([s.rho, r["lmb_t"], r["radius_t"],
+                            s.converged.to(dt)])
+        outs = admm_chunk(*_planes_of(s, r["nx"], r["ny"]), r["f"], r["w"],
+                          scal, cg_tols, ri, opts.cg_max_iter, opts.alpha,
+                          r["dataterm"])
+        norms = torch.sqrt(outs[7])
+        new = _with_planes(s, outs, iteration=s.iteration + ri)
     # adaptation sees the post-increment counter of the chunk's last
     # iteration, which is new.iteration
     new = admm_residual_adapt(b.problem, opts, b.tols, new, norms[0],
@@ -910,14 +1029,15 @@ def _fused_admm_run(b: FusedROFADMM, state: ADMMState, until: int,
     there is no epilogue (the chunks carry the whole state).  Multichunk
     launches (phase B0) run in Chebyshev mode only: the CG tolerance
     schedule is per iteration.  The canonicalization also gives the run
-    its own copies of the state arrays, which the multichunks' light call
-    updates in place."""
+    its own copies of the state arrays, which the Chebyshev chunks' and
+    the multichunks' light calls update in place."""
     nx, ny = b.rof["nx"], b.rof["ny"]
     ri = max(int(b.run_opts.residual_iter), 1)
 
     def canonicalize(s):
         # new z arrays and copies of the x-like ones: the run's own state
-        # arrays, which the multichunks update in place
+        # arrays, which the Chebyshev chunks and multichunks update in
+        # place
         return dataclasses.replace(
             s, x_half=s.x_half.clone(), x_proj=s.x_proj.clone(),
             x_dual=s.x_dual.clone(), cg_warm=s.cg_warm.clone(),

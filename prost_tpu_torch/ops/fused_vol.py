@@ -17,7 +17,8 @@ Three kernels carry the volumetric routes, hand-written CUDA in
   residual iteration, with the four squared preconditioned residual norms;
 * ``vol_multichunk`` (JAX ``vol_fused_multichunk``): up to ``k_chunks``
   chunks with the boyd/goldstein adaptation and the stopping test on the
-  device between chunks;
+  device between chunks; its in-place form ``vol_multichunk_`` serves the
+  route's light call ``VolMultichunk``, made once per route;
 * ``vol_chunk_batched`` (JAX ``vol_fused_chunk_batched``): one chunk for
   each of B volumes in one launch, or one launch sequence, the batched
   ensembles' route (``parallel/ensemble.py``);
@@ -33,7 +34,9 @@ a card each runs as one grid-resident cooperative launch (the batched
 chunk's volumes one after another) where the shape rule (``resident_ok``,
 on one volume or band) finds that the volume's planes fit in the shared
 memory of one block per SM, and as the streaming launch sequence
-otherwise; both are bit-equal.  The multichunk streams.
+otherwise; both are bit-equal.  The multichunk likewise runs all its
+chunks as one grid-resident launch where its own rule
+(``resident_ok(..., multi=True)``: w_hat takes a window of its own) holds.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no fallback and no VMEM gate: the
@@ -61,15 +64,15 @@ from ..backend.pdhg import PDHGState
 from ..config import ProstError, dtype as config_dtype
 from ..linop.base import LinearOperator
 from ..linop.gradient import BlockGradient3D
-from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
-                         S_NORM, STEPSIZES, VP, WHOLE_PLANE, ChunkWork,
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_DONE,
+                         S_LEN, S_NORM, SOUT, STEPSIZES, VP, WHOLE_PLANE,
                          LightChunk, ball_scale, canonical_duals, card_sms,
                          check_buffers, check_halo, chunk_state,
                          dual_ball_radius, dx, dy, dyt, entry_converged,
                          halo_copy, halo_into, halo_scal_rows,
                          check_inplace, instance_strides, launch,
                          match_dataterm, multichunk_plain, multichunk_state,
-                         own_vectors, pick_path,
+                         own_vectors, PATHS, pick_path,
                          resident_rows, run_pdhg_route, scalar_buffer,
                          typed_lib, vmap_plain)
 from .phases import K_CHUNKS
@@ -268,7 +271,9 @@ def _lib():
         "prost_vol_chunk_halo_resident": [VP] * 9 + [CI] * 6 + [VP],
         "prost_vol_resident_smem": [CI, CI],
         "prost_vol_chunk_halo": [VP] * 10 + [CI] * 6 + [VP],
-        "prost_vol_multichunk": [VP] * 10 + [CI] * 7 + [CF] * 6 + [VP]})
+        "prost_vol_multichunk": [VP] * 10 + [CI] * 7 + [CF] * 6 + [VP],
+        "prost_vol_multichunk_resident": [VP] * 9 + [CI] * 7 + [CF] * 6
+                                         + [VP]})
 
 
 def vol_chunk(u, q, f, w, scal, count: int, dataterm: str = "square"):
@@ -448,43 +453,52 @@ MAX_RESIDENT_L = 8
 
 
 def resident_bytes(L: int, nx: int, ny: int, sms: int,
-                   dataterm: str = "square") -> int:
+                   dataterm: str = "square", multi: bool = False) -> int:
     """The dynamic shared memory of one block of the grid-resident chunk
     on volumes (or halo bands) of ``nx`` rows over ``sms`` blocks:
     csrc/fused_vol.cu's VolRes for the largest band (vol_resident_floats:
     u with a row below, q_x with a row above, q_y, q_l, the three carried
     gradient volumes and f, and wsquare's w), at least the reductions'
-    array."""
+    array; with ``multi`` the multichunk's, which adds w_hat's window (f
+    is read again in the next chunk), at least the reductions' array that
+    borrows it."""
     rmax = resident_rows(nx, sms)
     planes = 7 if dataterm == "wsquare" else 6
     floats = (2 * L * (rmax + 1) + planes * L * rmax) * int(ny)
+    if multi:
+        floats += max(L * rmax * int(ny), RES_RED_BYTES // 4)
     return max(4 * floats, RES_RED_BYTES)
 
 
 def resident_ok(L: int, nx: int, ny: int, dataterm: str, sms: int,
-                smem: int) -> bool:
+                smem: int, multi: bool = False) -> bool:
     """The shape rule of ``vol_chunk_``, ``vol_chunk_halo_`` and
     ``vol_chunk_batched_`` (on one volume: the batched launch runs its
-    volumes one after another, so B does not enter it): the chunk runs as
-    one grid-resident launch (csrc/fused_vol.cu vol_resident and
-    vol_resident_batched, one block per SM) where L is at most
-    ``MAX_RESIDENT_L`` and the planes of a volume's (or band's) largest
-    band fit in ``smem`` bytes of a block's dynamic shared memory on a card
-    of ``sms`` SMs, and as the streaming launch sequence otherwise."""
+    volumes one after another, so B does not enter it), and with ``multi``
+    of ``vol_multichunk_``: the chunk (multichunk) runs as one
+    grid-resident launch (csrc/fused_vol.cu vol_resident,
+    vol_resident_batched, vol_multichunk_resident, one block per SM) where
+    L is at most ``MAX_RESIDENT_L`` and the planes of a volume's (or
+    band's) largest band fit in ``smem`` bytes of a block's dynamic shared
+    memory on a card of ``sms`` SMs, and as the streaming launch sequence
+    otherwise."""
     return (1 <= int(L) <= MAX_RESIDENT_L
-            and resident_bytes(L, nx, ny, sms, dataterm) <= int(smem))
+            and resident_bytes(L, nx, ny, sms, dataterm, multi) <= int(smem))
 
 
 @functools.lru_cache(maxsize=None)
-def card_limits(device, L: int, batched: bool = False) -> tuple:
+def card_limits(device, L: int, batched: bool = False,
+                multi: bool = False) -> tuple:
     """(SMs, the dynamic shared memory a block of the grid-resident chunk
-    of L labels, with ``batched`` the batched chunk's, may hold, 0 beyond
-    ``MAX_RESIDENT_L``) of the card ``device``, read once."""
+    of L labels, with ``batched`` the batched chunk's, with ``multi`` the
+    multichunk's, may hold, 0 beyond ``MAX_RESIDENT_L``) of the card
+    ``device``, read once."""
     if not 1 <= int(L) <= MAX_RESIDENT_L:
         return card_sms(device), 0
     lib = _lib()
     with torch.cuda.device(device):
-        smem = lib.prost_vol_resident_smem(int(L), int(bool(batched)))
+        smem = lib.prost_vol_resident_smem(int(L), 2 if multi
+                                           else int(bool(batched)))
     if smem < 0:
         raise ProstError(f"vol_chunk: no shared-memory limit for the "
                          f"resident chunk on {device} (CUDA error {-smem}).")
@@ -609,21 +623,139 @@ def vol_multichunk(u, q, f, w, scal, count: int, k_chunks: int,
     optional converged-at-entry flag).  Returns (u2, q2, u_prev, q_prev,
     norms, sout): norms the last executed chunk's sqrt'd residual norms,
     sout = [tau, sigma, arg_alpha, arb_l, arb_u, converged, chunks_done].
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors run ``vol_multichunk_``
+    on copies."""
     _check(u, q, f, w, scal, 13, count, dataterm)
     if stepsize not in STEPSIZES:
         raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
     if u.device.type == "cpu":
         return vol_multichunk_plain(u, q, f, w, scal, count, k_chunks,
                                     dataterm, stepsize, consts)
-    lib = _lib()
+    *planes, (norms, sout) = halo_copy(vol_multichunk_, (u, q), f, w, scal,
+                                       count, k_chunks, dataterm, stepsize,
+                                       consts)
+    return (*planes, norms, sout)
+
+
+def _launch_multichunk(state, prev, f, w, sc, partial, scratch,
+                       resident: bool, count: int, k_chunks: int,
+                       dataterm: str, stepsize: str, consts) -> None:
+    """One multichunk on the card in place on ``state`` (u, q) and
+    ``prev``: the grid-resident launch or the streaming sequence, counted
+    under ``vol_multichunk``."""
+    u = state[0]
     L, nx, ny = u.shape
-    wk = ChunkWork((u, q), (q,), scal, 13, lib.prost_vol_num_blocks(nx, ny))
-    launch(lib, "prost_vol_multichunk", "vol_multichunk", launch_counts,
-           u.device, wk.buffers(f, w), L, nx, ny, int(count), int(k_chunks),
-           DATATERMS[dataterm], STEPSIZES[stepsize],
-           *[float(c) for c in consts])
-    return (*wk.outputs(), wk.sout())
+    if resident:
+        fn, bufs = ("prost_vol_multichunk_resident",
+                    [*state, *prev, f, w, sc, partial, *scratch])
+    else:
+        fn, bufs = "prost_vol_multichunk", [*state, *prev, *scratch, f, w,
+                                            sc, partial]
+    launch(_lib(), fn, "vol_multichunk", launch_counts, u.device, bufs, L,
+           nx, ny, int(count), int(k_chunks), DATATERMS[dataterm],
+           STEPSIZES[stepsize], *[float(c) for c in consts])
+
+
+def vol_multichunk_(u, q, u_prev, q_prev, f, w, scal, count: int,
+                    k_chunks: int, dataterm: str, stepsize: str, consts,
+                    path=None):
+    """``vol_multichunk`` in place: (u, q) advance by up to ``k_chunks``
+    chunks and (u_prev, q_prev) take the iterate before the last executed
+    chunk's aligned iteration; with the converged flag set at entry nothing
+    changes.  Returns (norms, sout).  On a card ``path`` None takes the
+    shape rule's path (``resident_ok(..., multi=True)``): one grid-resident
+    launch for all the chunks (csrc/fused_vol.cu vol_multichunk_resident)
+    where the volume's planes fit on chip, else the streaming launch
+    sequence; "resident" or "streaming" asks for one ("resident" raises
+    where it does not fit)."""
+    _check(u, q, f, w, scal, 13, count, dataterm)
+    if stepsize not in STEPSIZES:
+        raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
+    state, prev = (u, q), (u_prev, q_prev)
+    check_inplace(state, prev)
+    if path not in PATHS:
+        raise ProstError(f"vol_multichunk: path must be one of {PATHS}, got "
+                         f"{path!r}.")
+    if u.device.type == "cpu":
+        out = vol_multichunk_plain(u, q, f, w, scal, count, k_chunks,
+                                   dataterm, stepsize, consts)
+        return halo_into(state, prev, out[:5], scal, 13), out[5]
+    L, nx, ny = u.shape
+    dev = u.device
+    resident = pick_path(path, resident_ok(
+        L, nx, ny, dataterm, *card_limits(dev, L, multi=True), multi=True),
+        "vol_multichunk")
+    sc = scalar_buffer(scal, 13, S_CONV, S_LEN)
+    partial = torch.empty(4 * _lib().prost_vol_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_multichunk(state, prev, f.contiguous(), w.contiguous(), sc,
+                       partial, _scratch(resident, 0, L, nx, ny, dev),
+                       resident, count, k_chunks, dataterm, stepsize, consts)
+    return sc[S_NORM:S_NORM + 4], torch.stack([sc[i] for i in SOUT])
+
+
+class VolMultichunk:
+    """The volumetric route's light call of the multichunk:
+    ``vol_multichunk_`` on the views of the run's own x, y, x_prev and
+    y_prev, with what depends only on the shapes and the route made once
+    per route: the path (``resident_ok(..., multi=True)``), the scratch,
+    the norm partials and the scalar buffer with lmb, radius and the
+    tolerances.  A call writes tau, sigma, theta, arg_alpha, arb_l, arb_u,
+    the iteration counter and the flag into the scalar buffer, and zeros
+    into the chunk count and the norms, in one stack and one indexed copy,
+    launches, and reads the norms and sout out of it in one gather; on the
+    CPU it runs the plain version."""
+
+    # the slots a call writes: the step sizes and the adaptation state, the
+    # counter, the flag, the chunk count and the norms
+    _IN = (0, 1, 2, 5, 6, 7, 8, S_CONV, S_DONE) + tuple(
+        range(S_NORM, S_NORM + 4))
+
+    def __init__(self, m, count: int, k_chunks: int, stepsize: str, device):
+        self.m, self.count, self.k_chunks = m, int(count), int(k_chunks)
+        self.stepsize = stepsize
+        L, nx, ny = m["L"], m["nx"], m["ny"]
+        self.sc = torch.zeros(S_LEN, dtype=torch.float32, device=device)
+        self.sc[3] = m["lmb_t"]
+        self.sc[4] = m["radius_t"]
+        self.sc[9:13] = torch.stack(m["tols_t"])
+        self.stage = torch.zeros(len(self._IN), dtype=torch.float32,
+                                 device=device)
+        self.slots_in = torch.tensor(self._IN, device=device)
+        self.slots_out = torch.tensor(
+            tuple(range(S_NORM, S_NORM + 4)) + SOUT, device=device)
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = resident_ok(
+                L, nx, ny, m["dataterm"],
+                *card_limits(device, L, multi=True), multi=True)
+            self.partial = torch.empty(
+                4 * _lib().prost_vol_num_blocks(nx, ny), dtype=torch.float32,
+                device=device)
+            self.scratch = _scratch(self.resident, 0, L, nx, ny, device)
+
+    def __call__(self, state, prev, tau, sigma, theta, arg_alpha, arb_l,
+                 arb_u, it, converged):
+        """Up to k_chunks chunks on ``state`` (u, q) in place, the previous
+        iterate into ``prev``, from the state's scalars (``it`` its
+        iteration counter); returns (norms, sout)."""
+        dt = self.sc.dtype
+        torch.stack([tau, sigma, theta, arg_alpha, arb_l, arb_u, it.to(dt),
+                     converged.to(dt)], out=self.stage[:8])
+        self.sc.index_copy_(0, self.slots_in, self.stage)
+        m = self.m
+        if self.resident is None:
+            return vol_multichunk_(*state, *prev, m["f"], m["w"],
+                                   torch.cat([self.sc[:13],
+                                              self.sc[S_CONV:S_CONV + 1]]),
+                                   self.count, self.k_chunks, m["dataterm"],
+                                   self.stepsize, m["adapt_consts"])
+        _launch_multichunk(state, prev, m["f"], m["w"], self.sc,
+                           self.partial, self.scratch, self.resident,
+                           self.count, self.k_chunks, m["dataterm"],
+                           self.stepsize, m["adapt_consts"])
+        out = self.sc.index_select(0, self.slots_out)
+        return out[:4], out[4:]
 
 
 # ---------------------------------------------------------------------------
@@ -672,16 +804,19 @@ def _volumes(v, x, y):
 
 
 def _multi_chunk(b, s: PDHGState) -> PDHGState:
+    """One multichunk in place on the views of the run's own x, y, x_prev
+    and y_prev (``own_vectors``) through the route's light call
+    (``VolMultichunk``, made once per route)."""
     v, ri = b.vol, max(int(b.opts.residual_iter), 1)
-    scal = torch.stack([
-        s.tau, s.sigma, s.theta, v["lmb_t"], v["radius_t"],
-        s.arg_alpha, s.arb_l, s.arb_u, s.iteration.to(s.x.dtype),
-        *v["tols_t"], s.converged.to(s.x.dtype)])
-    u2, q2, up, qp, norms, sc = vol_multichunk(
-        *_volumes(v, s.x, s.y), v["f"], v["w"], scal, ri, K_CHUNKS,
-        v["dataterm"], b.opts.stepsize, v["adapt_consts"])
-    return multichunk_state(s, ri, u2.reshape(-1), q2.reshape(-1),
-                            up.reshape(-1), qp.reshape(-1), norms, sc)
+    if "multi" not in v:
+        v["multi"] = VolMultichunk(v, ri, K_CHUNKS, b.opts.stepsize,
+                                   s.x.device)
+    norms, sout = v["multi"](
+        _volumes(v, s.x, s.y), _volumes(v, s.x_prev, s.y_prev), s.tau,
+        s.sigma, s.theta, s.arg_alpha, s.arb_l, s.arb_u, s.iteration,
+        s.converged)
+    return multichunk_state(s, ri, s.x, s.y, s.x_prev, s.y_prev, norms,
+                            sout)
 
 
 def _fused_chunk(b, s: PDHGState) -> PDHGState:
@@ -700,7 +835,8 @@ def fused_vol_run(b, state: PDHGState, until: int, start: int) -> PDHGState:
     ``FusedROFPDHG`` ``b``; the canonicalization zeroes the dead dual
     coordinates of y and y_prev (q_x's last row, q_y's last column) and
     leaves q_l, the segment after them, whole, on the run's own copies of
-    the state's vectors, which the chunks update in place."""
+    the state's vectors, which the multichunks and chunks update in
+    place."""
     v = b.vol
     canonical = canonical_duals(v["L"], v["nx"], v["ny"])
     return run_pdhg_route(b, state, until, start,

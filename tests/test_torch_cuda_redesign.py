@@ -11,7 +11,9 @@ memory; ``-k admm_multichunk``) and the grid-resident batched volumetric
 and deblur chunks ``vol_chunk_batched_`` and ``deblur_chunk_batched_``
 (``-k "vol_batched or deblur_batched"``) and the grid-resident tight and
 volumetric chunks ``tight_chunk_``, ``vol_chunk_`` and their halo forms
-(``-k "tight_resident or vol_resident"``), bit for bit against the
+(``-k "tight_resident or vol_resident"``), and the grid-resident Chebyshev
+ADMM chunk ``admm_chunk_`` and volumetric multichunk ``vol_multichunk_``
+(``-k "admm_chunk or vol_multichunk"``), bit for bit against the
 streaming launch sequences they replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
@@ -1211,3 +1213,243 @@ def test_tight_resident_and_vol_resident_rules_on_the_card(dev):
         launch(lib, "prost_vol_chunk_resident", "vol_chunk", fv.launch_counts,
                dev, [u, q, u.clone(), q.clone(), f, w, sc, partial,
                      u.new_empty(4, 16, 16)], 9, 16, 16, 2, 0)
+
+
+# ---------------------------------------------------------------------------
+# row 8: the Chebyshev ADMM chunk grid-resident; row 26: the volumetric
+# multichunk grid-resident
+# ---------------------------------------------------------------------------
+
+def _both_admm_chunks(planes, f, w, scal, count, degree, dataterm):
+    """``admm_chunk_`` by the launch sequence and by the resident launch
+    from the same inputs: the 7 arrays and the squared norms of each, one
+    launch each."""
+    out = {}
+    for path in ("streaming", "resident"):
+        cur = [t.clone() for t in planes]
+        before = fa.launch_counts["admm_chunk"]
+        norms2 = fa.admm_chunk_(*cur, f, w, scal, None, count, 0, 1.7,
+                                dataterm, degree, path=path).clone()
+        assert fa.launch_counts["admm_chunk"] == before + 1
+        out[path] = cur + [norms2]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("count", [1, 10])
+@pytest.mark.parametrize("degree", [1, 10, 65])
+@pytest.mark.parametrize("dataterm", ["square", "wsquare", "abs"])
+@pytest.mark.parametrize("nx,ny", [(512, 512), (300, 190), (13, 40)])
+def test_admm_chunk_resident_is_the_launch_sequence(dev, nx, ny, dataterm,
+                                                    degree, count):
+    """From arrays with mass on the dead z coordinates: the resident
+    chunk's arrays and squared norms bit-equal to the launch sequence's
+    (13 rows: most of the 132 bands empty)."""
+    planes = _admm_planes(200 + degree + count, nx, ny, dev)
+    scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+    out = _both_admm_chunks(planes[:7], *planes[7:], scal, count, degree,
+                            dataterm)
+    for a, b in zip(out["streaming"], out["resident"]):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(t).all()) for t in out["resident"])
+    assert bool((out["resident"][7] > 0).all())
+
+
+def test_admm_chunk_resident_with_the_flag_leaves_the_buffers(dev):
+    planes = _admm_planes(210, 512, 512, dev)
+    cur = [t.clone() for t in planes[:7]]
+    norms2 = fa.admm_chunk_(*cur, *planes[7:],
+                            torch.tensor([1.3, 8.0, 1.0, 1.0], device=dev),
+                            None, 10, 0, 1.7, "square", 10, path="resident")
+    torch.cuda.synchronize()
+    assert not norms2.any()
+    for a, b in zip(cur, planes[:7]):
+        assert torch.equal(a, b)
+
+
+def test_admm_chunk_light_call_on_the_card(dev):
+    """``ADMMChunk`` at config 4's 512x512 takes the resident path and
+    leaves what ``admm_chunk_`` leaves, twice in a row from the state it
+    left (its scalar buffer reused), and then with the flag set nothing;
+    the CGLS chunk asked to run resident raises."""
+    planes, f = _solve_start(512, 512, dev)
+    r = {"nx": 512, "ny": 512, "f": f, "w": f, "dataterm": "square",
+         "lmb_t": torch.tensor(16.0, device=dev),
+         "radius_t": torch.tensor(1.0, device=dev)}
+    call = fa.ADMMChunk(r, 10, 1.7, 10, dev)
+    assert call.resident
+    cur = [t.clone() for t in planes]
+    want = [t.clone() for t in planes]
+    for rho, conv in ((1.0, 0.0), (1.05, 0.0), (1.05, 1.0)):
+        norms2 = call(cur, torch.tensor(rho, device=dev),
+                      torch.tensor(conv > 0, device=dev))
+        scal = torch.tensor([rho, 16.0, 1.0, conv], device=dev)
+        wn = fa.admm_chunk_(*want, f, f, scal, None, 10, 0, 1.7, "square",
+                            10, path="resident")
+        for a, b in zip(cur + [norms2], want + [wn]):
+            assert torch.equal(a, b)
+    with pytest.raises(ptt.ProstError, match="CGLS projection runs"):
+        fa.admm_chunk_(*want, f, f, scal, torch.ones(10, device=dev), 10, 10,
+                       1.7, "square", None, path="resident")
+
+
+def _vol_mc_scal(tol, dev, tau=0.9, sigma=1.1, conv=None):
+    return torch.tensor([tau, sigma, 1.0, 6.0, 1.0, 0.5, 0.0, 0.0, 1.0]
+                        + [tol] * 4 + ([conv] if conv is not None else []),
+                        device=dev)
+
+
+def _vol_mc_consts(L, nx, ny):
+    n = L * nx * ny
+    return (float(np.sqrt(3 * n)), float(np.sqrt(n)), 1.5, 0.95, 1.05, 0.8)
+
+
+def _both_vol_multichunks(u, q, f, w, scal, count, k_chunks, dataterm,
+                          stepsize):
+    """``vol_multichunk_`` by the launch sequence and by the resident
+    launch from the same inputs: volumes, previous iterates, norms and sout
+    of each, one launch each."""
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    L, nx, ny = u.shape
+    out = {}
+    for path in ("streaming", "resident"):
+        cur, prev = [u.clone(), q.clone()], [u.clone(), q.clone()]
+        before = fv.launch_counts["vol_multichunk"]
+        norms, sout = fv.vol_multichunk_(*cur, *prev, f, w, scal, count,
+                                         k_chunks, dataterm, stepsize,
+                                         _vol_mc_consts(L, nx, ny),
+                                         path=path)
+        assert fv.launch_counts["vol_multichunk"] == before + 1
+        out[path] = cur + prev + [norms.clone(), sout.clone()]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("stepsize", ["boyd", "goldstein"])
+@pytest.mark.parametrize("L,nx,ny,ri,dataterm", [
+    (8, 256, 256, 10, "square"), (8, 256, 256, 10, "abs"),
+    (8, 256, 256, 10, "wsquare"), (5, 190, 250, 3, "wsquare"),
+    (1, 9, 40, 2, "square"), (3, 300, 33, 1, "abs")])
+def test_vol_multichunk_resident_is_the_launch_sequence(dev, L, nx, ny, ri,
+                                                        dataterm, stepsize):
+    """Every chunk runs (tolerance 0), from volumes with mass on the dead
+    dual coordinates: the resident launch's volumes, previous iterates,
+    norms and sout bit-equal to the launch sequence's."""
+    u, q, f, w = _vol_planes(220 + L + ri, L, nx, ny, dev)
+    out = _both_vol_multichunks(u, q, f, w, _vol_mc_scal(0.0, dev), ri, 8,
+                                dataterm, stepsize)
+    for a, b in zip(out["streaming"], out["resident"]):
+        assert torch.equal(a, b)
+    assert out["resident"][5][5:].tolist() == [0.0, 8.0]
+    assert all(bool(torch.isfinite(t).all()) for t in out["resident"])
+
+
+@pytest.mark.parametrize("stepsize", ["boyd", "goldstein"])
+def test_vol_multichunk_resident_converging_mid_launch(dev, stepsize):
+    """From a solve's start (u = f, q = 0) at tolerance 1e-2 the launch
+    adapts and converges before its last chunk: the whole grid leaves at
+    the same chunk, bit-equal to the sequence in the volumes, the previous
+    iterates, the norms and sout."""
+    L, nx, ny = 3, 16, 20
+    f = _vol_planes(7, L, nx, ny, dev)[2]
+    out = _both_vol_multichunks(f, torch.zeros((3, L, nx, ny), device=dev),
+                                f, f, _vol_mc_scal(1e-2, dev, 1.0, 1.0), 5,
+                                8, "square", stepsize)
+    for a, b in zip(out["streaming"], out["resident"]):
+        assert torch.equal(a, b)
+    sout = out["resident"][5]
+    assert float(sout[5]) == 1.0 and 1 < float(sout[6]) < 8
+
+
+def test_vol_multichunk_resident_with_the_flag_leaves_the_buffers(dev):
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    u, q, f, w = _vol_planes(230, 8, 256, 256, dev)
+    cur = [u.clone(), q.clone()]
+    prev = [t + 1.0 for t in cur]
+    before = [t.clone() for t in cur + prev]
+    norms, sout = fv.vol_multichunk_(*cur, *prev, f, w,
+                                     _vol_mc_scal(1e-3, dev, conv=1.0), 10,
+                                     8, "square", "boyd",
+                                     _vol_mc_consts(8, 256, 256),
+                                     path="resident")
+    torch.cuda.synchronize()
+    assert not norms.any() and sout[5:].tolist() == [1.0, 0.0]
+    for a, b in zip(cur + prev, before):
+        assert torch.equal(a, b)
+
+
+def test_vol_multichunk_light_call_on_the_card(dev):
+    """``VolMultichunk`` at vol256x8 takes the resident path and leaves
+    what ``vol_multichunk_`` leaves, twice in a row from the state it left
+    (its scalar buffer reused)."""
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    u, q, f, w = _vol_planes(231, 8, 256, 256, dev)
+    consts = _vol_mc_consts(8, 256, 256)
+    m = {"L": 8, "nx": 256, "ny": 256, "f": f, "w": w, "dataterm": "square",
+         "lmb_t": torch.tensor(6.0, device=dev),
+         "radius_t": torch.tensor(1.0, device=dev),
+         "tols_t": tuple(torch.tensor(1e-4, device=dev) for _ in range(4)),
+         "adapt_consts": consts}
+    call = fv.VolMultichunk(m, 10, 8, "boyd", dev)
+    assert call.resident
+    cur, prev = [u.clone(), q.clone()], [u.clone(), q.clone()]
+    want_cur, want_prev = [u.clone(), q.clone()], [u.clone(), q.clone()]
+    steps = (0.9, 1.1, 1.0, 0.5, 0.0, 0.0)
+    for it in (1, 81):
+        got = call(cur, prev, *(torch.tensor(v, device=dev) for v in steps),
+                   torch.tensor(it, device=dev),
+                   torch.tensor(False, device=dev))
+        scal = torch.tensor(list(steps[:3]) + [6.0, 1.0] + list(steps[3:])
+                            + [float(it)] + [1e-4] * 4 + [0.0], device=dev)
+        want = fv.vol_multichunk_(*want_cur, *want_prev, f, w, scal, 10, 8,
+                                  "square", "boyd", consts, path="resident")
+        for a, b in zip(cur + prev + list(got),
+                        want_cur + want_prev + list(want)):
+            assert torch.equal(a, b)
+
+
+def test_admm_chunk_and_vol_multichunk_rules_on_the_card(dev):
+    """The card's limits send config 4's 512x512 chunk (every data term)
+    and vol256x8's multichunk (square, abs and wsquare) to the resident
+    launches, the 2048x2048 chunk and 512x512x8's multichunk to the launch
+    sequences; asking for a resident launch that does not fit raises, and
+    so does the launch the C side refuses (9 labels)."""
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    for dataterm in ("square", "wsquare", "abs"):
+        assert fa.admm_resident_ok(512, 512, dataterm,
+                                   *fa.admm_card_limits(dev))
+        assert fv.resident_ok(8, 256, 256, dataterm,
+                              *fv.card_limits(dev, 8, multi=True),
+                              multi=True)
+    limits = fv.card_limits(dev, 8, multi=True)
+    assert limits[0] == torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    assert not fv.resident_ok(8, 512, 512, "square", *limits, multi=True)
+    big = _admm_planes(240, 2048, 2048, dev)
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fa.admm_chunk_(*big[:7], *big[7:],
+                       torch.tensor([1.3, 8.0, 1.0], device=dev), None, 2, 0,
+                       1.7, "square", 10, path="resident")
+    before = fa.launch_counts["admm_chunk"]
+    fa.admm_chunk_(*big[:7], *big[7:],
+                   torch.tensor([1.3, 8.0, 1.0], device=dev), None, 2, 0,
+                   1.7, "square", 10)
+    assert fa.launch_counts["admm_chunk"] == before + 1
+    u, q, f, w = _vol_planes(241, 8, 512, 512, dev)
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fv.vol_multichunk_(u, q, u.clone(), q.clone(), f, w,
+                           _vol_mc_scal(0.0, dev), 2, 2, "square", "boyd",
+                           _vol_mc_consts(8, 512, 512), path="resident")
+    lib = fv._lib()
+    u, q, f, w = _vol_planes(242, 9, 16, 16, dev)
+    sc = scalar_buffer(_vol_mc_scal(0.0, dev), 13, S_CONV, S_LEN)
+    partial = u.new_empty(4 * lib.prost_vol_num_blocks(16, 16))
+    with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+        launch(lib, "prost_vol_multichunk_resident", "vol_multichunk",
+               fv.launch_counts, dev, [u, q, u.clone(), q.clone(), f, w, sc,
+                                       partial, u.new_empty(4, 16, 16)],
+               9, 16, 16, 2, 2, 0, 2, *_vol_mc_consts(9, 16, 16))
