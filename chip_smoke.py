@@ -8,10 +8,11 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 1. build the six kernel libraries from prost_tpu_torch/csrc with nvcc
    (sm_90a), one nvcc process each, all started together;
 2. check each ROF kernel against its plain PyTorch version on the card, on
-   the same inputs: ``rof_chunk`` at 512x512 and 2048x1536 for the square,
-   wsquare and abs data terms (ri = 10), ``rof_multichunk`` with alg1 and
-   boyd (k = 8, ri = 10) at 512x512 and with alg1 at 2048x2048, and time
-   both versions at 512x512;
+   the same inputs: ``rof_chunk`` at 512x512 (grid-resident) and 2048x1536
+   (streaming, as the shape rule chooses and the script checks) for the
+   square, wsquare and abs data terms (ri = 10), ``rof_multichunk`` with
+   alg1 and boyd (k = 8, ri = 10) at 512x512 and with alg1 at 2048x2048
+   (streaming), and time both versions at 512x512;
 3. the same for the ADMM kernels: ``admm_chunk`` with the Chebyshev and
    the CGLS projection at 512x512 and 2048x2048 for the three data terms
    (ri = 10), ``admm_multichunk`` at 512x512 (k = 8, ri = 10) without a
@@ -130,7 +131,11 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    alone; both on a route's flat rows) and rows 8 and 26
    (``phase_resident_chunk_multi``: the Chebyshev ADMM chunk at config 4's
    512x512, counts 1 and 10; the volumetric multichunk at vol256x8, every
-   chunk run and converging mid-launch) the same way; config 2, config 3,
+   chunk run and converging mid-launch) and rows 2 and 1, the main path's
+   (``phase_resident_rof``: the ROF chunk at config 1's 512x512, counts 1
+   and 10, three data terms; the ROF multichunk, every chunk run under
+   boyd and alg1 and converging mid-launch; the 2048-row planes on the
+   streaming path) the same way; config 1, config 2, config 3,
    tight128x4, vol256x8 and config 4 through the fused routes with the
    light calls in turns with the copying calls (``copying_routes``), it/s
    and energies;
@@ -872,9 +877,14 @@ def phase_kernels(dev):
             ref = fr.rof_chunk_plain(x, q, f, w, scal, 10, dataterm)
             torch.cuda.synchronize()
             plane, rel = max_errs(out, ref)
-            print(f"rof_chunk {nx}x{ny} {dataterm}: max abs err planes "
-                  f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms "
-                  f"{rel:.3e} (tol {NORM_RTOL:g})")
+            resident = fr.resident_ok(nx, ny, dataterm,
+                                      *fr.card_limits(dev))
+            check(resident == ((nx, ny) == (512, 512)),
+                  f"rof_chunk {nx}x{ny}: the shape rule took the wrong path")
+            print(f"rof_chunk {nx}x{ny} {dataterm} "
+                  f"({'resident' if resident else 'streaming'}): max abs "
+                  f"err planes {plane:.3e} (tol {PLANE_ATOL:g}), max rel err "
+                  f"norms {rel:.3e} (tol {NORM_RTOL:g})")
             check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
                   f"rof_chunk {nx}x{ny} {dataterm} disagrees with its "
                   "plain version")
@@ -938,9 +948,12 @@ def phase_kernels(dev):
                                   consts)
     torch.cuda.synchronize()
     plane, rel = max_errs(out, ref)
-    print(f"rof_multichunk {nx}x{ny} alg1: max abs err planes {plane:.3e} "
-          f"(tol {PLANE_ATOL:g}), max rel err norms+scalars {rel:.3e} "
-          f"(tol {NORM_RTOL:g})")
+    check(not fr.resident_ok(nx, ny, "square", *fr.card_limits(dev, True),
+                             True),
+          f"rof_multichunk {nx}x{ny}: the shape rule made it resident")
+    print(f"rof_multichunk {nx}x{ny} alg1 (streaming): max abs err planes "
+          f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms+scalars "
+          f"{rel:.3e} (tol {NORM_RTOL:g})")
     check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
           "rof_multichunk 2048x2048 disagrees with its plain version")
     rows["rof_multichunk"]["err"] = max(rows["rof_multichunk"]["err"], plane)
@@ -3349,6 +3362,188 @@ def phase_resident_chunk_multi(dev):
     return out
 
 
+def phase_resident_rof(dev):
+    """Rows 2 and 1, the main path's kernels, grid-resident against their
+    launch sequences at config 1's 512x512 (ri 10): ``rof_chunk_`` at
+    counts 1 and 10 for the square, wsquare and abs data terms (planes,
+    previous iterates and squared norms) and ``rof_multichunk_`` with 8
+    chunks, every one run, under boyd and alg1 for the three data terms,
+    and from a solve's start at the first tolerance at which the launch
+    converges before its last chunk (planes, previous iterates, norms and
+    sout): both paths from the same inputs bit-equal; the path the shape
+    rule takes (resident at 512x512; streaming at 2048x1536 and 2048x2048,
+    where ``path="resident"`` raises); each path in place on buffers made
+    once, in turns (streaming, resident, resident, streaming), with the
+    hand-written kernels each launches per call and their traced device ms;
+    and the copying call (the functional wrapper's work on copies with
+    buffers made per call, the launch sequence) against the route's light
+    call in place (``ROFChunk``, ``ROFMultichunk``), in turns."""
+    import torch
+
+    import prost_tpu_torch as ptt
+    from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops.pdhg_chunk import halo_copy
+
+    ri, chunks, n = 10, 8, ROF_SIZE
+    flag = torch.tensor(False, device=dev)
+    x0, q0, f, w = kernel_inputs(n, n, 660, dev)  # mass on the dead duals
+    lmb = torch.tensor(ROF_LMB, device=dev)
+    radius = torch.tensor(1.0, device=dev)
+    consts = (np.sqrt(2 * n * n), np.sqrt(n * n), 1.5, 0.95, 1.05, 0.8)
+    m = {"nx": n, "ny": n, "f": f, "w": w, "dataterm": "square",
+         "lmb": ROF_LMB, "radius": 1.0, "lmb_t": lmb, "radius_t": radius,
+         "tols_t": tuple(torch.tensor(0.0, device=dev) for _ in range(4)),
+         "adapt_consts": consts}
+    light = fr.ROFChunk(m, ri, dev)
+    mlight = fr.ROFMultichunk(m, ri, chunks, "boyd", dev)
+    check(light.resident and mlight.resident,
+          f"rof_chunk / rof_multichunk: the shape rule streams {n}x{n}")
+    print(f"rof_chunk and rof_multichunk {n}x{n}: the shape rule takes the "
+          "resident path")
+
+    scal = torch.tensor([0.9, 1.1, 1.0, ROF_LMB, 1.0], device=dev)
+    for dataterm in ("square", "wsquare", "abs"):
+        for count in (1, ri):
+            got = {}
+            for path in ("streaming", "resident"):
+                cur = [x0.clone(), q0.clone()]
+                prev = [torch.full_like(t, float("nan")) for t in cur]
+                norms2 = fr.rof_chunk_(*cur, *prev, f, w, scal, count,
+                                       dataterm, path=path).clone()
+                got[path] = cur + prev + [norms2]
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                          got["resident"]))
+                  and all(bool(torch.isfinite(t).all())
+                          for t in got["resident"])
+                  and bool((got["resident"][4] > 0).all()),
+                  f"rof_chunk {dataterm} count {count}: the resident launch "
+                  "is not the launch sequence")
+    print(f"rof_chunk {n}x{n}: resident bit-equal to the launch sequence in "
+          "the planes, the previous iterates and the 4 squared norms at "
+          "counts 1 and 10 for square, wsquare and abs")
+
+    def mscal(tol, tau=0.9, sigma=1.1):
+        return torch.tensor([tau, sigma, 1.0, ROF_LMB, 1.0, 0.5, 0.0, 0.0,
+                             1.0, tol, tol, tol, tol], device=dev)
+
+    def both(x, q, fd, sc, dataterm, stepsize):
+        got = {}
+        for path in ("streaming", "resident"):
+            cur, prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
+            norms, sout = fr.rof_multichunk_(*cur, *prev, fd, w, sc, ri,
+                                             chunks, dataterm, stepsize,
+                                             consts, path=path)
+            got[path] = cur + prev + [norms.clone(), sout.clone()]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                      got["resident"]))
+              and all(bool(torch.isfinite(t).all())
+                      for t in got["resident"]),
+              f"rof_multichunk {dataterm} {stepsize}: the resident launch is "
+              "not the launch sequence")
+        return got["resident"][5]
+
+    for dataterm in ("square", "wsquare", "abs"):
+        for stepsize in ("boyd", "alg1"):
+            sout = both(x0, q0, f, mscal(0.0), dataterm, stepsize)
+            check(sout[6].item() == chunks,
+                  "rof_multichunk: not every chunk ran")
+    # a solve's start (x = f = the test image, q = 0): the first tolerance
+    # at which the launch converges before its last chunk
+    fimg = torch.from_numpy(test_image(n, n)).to(dev)
+    for tol in (2e-2, 1e-2, 5e-3, 2e-3, 1e-3, 5e-4, 2e-4, 1e-4):
+        sout = both(fimg, torch.zeros_like(q0), fimg, mscal(tol, 1.0, 1.0),
+                    "square", "boyd")
+        if sout[5].item() == 1.0 and 1 < sout[6].item() < chunks:
+            break
+    check(sout[5].item() == 1.0 and sout[6].item() < chunks,
+          "rof_multichunk: no tolerance converged mid-launch")
+    print(f"rof_multichunk {n}x{n}: resident bit-equal to the launch "
+          f"sequence in the planes, previous iterates, norms and sout, every "
+          f"chunk run under boyd and alg1 for square, wsquare and abs, and "
+          f"converging at tolerance {tol:g} after {int(sout[6].item())} "
+          f"chunks (sout {sout.tolist()})")
+
+    out = {}
+    bufs = {p: [x0.clone(), q0.clone(), x0.clone(), q0.clone()]
+            for p in ("streaming", "resident")}
+
+    def chunk_run(path, count=ri):
+        return lambda: fr.rof_chunk_(*bufs[path], f, w, scal, count,
+                                     "square", path=path)
+
+    def chunk_copying():
+        return halo_copy(lambda *a: fr.rof_chunk_(*a, path="streaming"),
+                         (x0, q0), f, w, scal, ri, "square")
+
+    lcur, lprev = [x0.clone(), q0.clone()], [x0.clone(), q0.clone()]
+    steps = [torch.tensor(v, device=dev) for v in (0.9, 1.1, 1.0, 0.5, 0.0,
+                                                   0.0)]
+
+    def chunk_light():
+        return light(lcur, lprev, f, w, *steps[:3], flag)
+
+    out["rof_chunk"] = resident_turns(
+        f"rof_chunk {n}x{n}", chunk_run, chunk_copying, chunk_light,
+        "rof_resident", ri - 1, reps=50)
+
+    mbufs = {p: ([x0.clone(), q0.clone()], [x0.clone(), q0.clone()])
+             for p in ("streaming", "resident")}
+    sc0 = mscal(0.0)
+
+    def multi_run(path, count=ri):
+        return lambda: fr.rof_multichunk_(
+            *mbufs[path][0], *mbufs[path][1], f, w, sc0, count, chunks,
+            "square", "boyd", consts, path=path)
+
+    def multi_copying():
+        cur = [x0.clone(), q0.clone()]
+        prev = [t.clone() for t in cur]
+        return cur, prev, fr.rof_multichunk_(
+            *cur, *prev, f, w, sc0, ri, chunks, "square", "boyd", consts,
+            path="streaming")
+
+    mcur, mprev = [x0.clone(), q0.clone()], [x0.clone(), q0.clone()]
+    it0 = torch.tensor(1, device=dev)
+
+    def multi_light():
+        return mlight(mcur, mprev, *steps, it0, flag)
+
+    out["rof_multichunk"] = resident_turns(
+        f"rof_multichunk {n}x{n}, {chunks} chunks", multi_run, multi_copying,
+        multi_light, "rof_multichunk_resident", chunks * (ri - 1))
+
+    sms, smem = fr.card_limits(dev)
+    msmem = fr.card_limits(dev, True)[1]
+    print(f"resident limits: {sms} SMs, {smem} bytes of dynamic shared "
+          f"memory a ROF chunk block, {msmem} a multichunk block (they hold "
+          f"{fr.resident_bytes(n, n, sms)} and "
+          f"{fr.resident_bytes(n, n, sms, multi=True)} at {n}x{n}, "
+          f"{fr.resident_bytes(n, n, sms, 'wsquare', True)} for the "
+          f"multichunk with wsquare)")
+    for nx, ny in ((2048, 1536), (2048, 2048)):
+        check(not fr.resident_ok(nx, ny, "square", sms, smem)
+              and not fr.resident_ok(nx, ny, "square", sms, msmem, True),
+              f"the shape rule made {nx}x{ny}'s chunk or multichunk "
+              "resident")
+        bx, bq, bf, bw = kernel_inputs(nx, ny, 661, dev)
+        for fn, args in ((fr.rof_chunk_, (scal, 2)),
+                         (fr.rof_multichunk_, (mscal(0.0), 2, 2, "square",
+                                               "boyd", consts))):
+            try:
+                fn(bx, bq, bx.clone(), bq.clone(), bf, bw, *args,
+                   path="resident")
+            except ptt.ProstError:
+                continue
+            check(False, f"{fn.__name__} {nx}x{ny}: path='resident' did not "
+                  "raise")
+        print(f"rof_chunk_ and rof_multichunk_ {nx}x{ny}: the shape rule "
+              f"streams ({fr.resident_bytes(nx, ny, sms)} bytes a block); "
+              "path='resident' raises ProstError")
+    return out
+
+
 def deblur_pairs_turns(views, x, y, fb, sv, scal, taps, ri, reps=20):
     """Row 18's two grid-resident forms at deblur8x512's shape, in place
     on a route's rows ``x``, ``y`` (``views`` cuts them into the frames'
@@ -3456,18 +3651,18 @@ def resident_turns(label, run, copying, call, kernel, extra_iters,
 
 
 def copying_routes():
-    """A context in which the deblur, multilabel, tight and volumetric
+    """A context in which the ROF, deblur, multilabel, tight and volumetric
     routes, whole-plane (``FusedROFPDHG``) and halo-sharded
     (``ShardedFusedDeblur``, ``ShardedFusedMultilabel``,
     ``ShardedFusedTight``, ``ShardedFusedVol``), ``BatchedPDHG``'s
     multilabel, volumetric
-    and deblur routes, the volumetric route's multichunks and
+    and deblur routes, the ROF and volumetric routes' multichunks and
     ``FusedROFADMM``'s chunks and multichunks make the copying
     call that the light calls replace: the scalars
     stacked per chunk, the functional wrapper on copies of the state with
     buffers made per call, the streaming launch sequence, and y and y_prev
-    concatenated after the chunk (whole plane, ensemble, the vol
-    multichunk's copies of u and q); the scalars
+    concatenated after the chunk (whole plane, ensemble, the ROF and vol
+    multichunks' copies of the state planes); the scalars
     stacked and the in-place halo chunk with buffers made per call
     (sharded); the scalars stacked, copies of the seven state arrays, the
     launch sequence and sout stacked (ADMM)."""
@@ -3558,6 +3753,37 @@ def copying_routes():
             b.opts.stepsize, v["adapt_consts"], path="streaming")
         return multichunk_state(s, ri, *[t.reshape(-1) for t in cur + prev],
                                 norms, sc)
+
+    def rof_chunk(b, s):
+        r, ri = b.rof, max(int(b.opts.residual_iter), 1)
+        scal = torch.stack([s.tau, s.sigma, s.theta, r["lmb_t"],
+                            r["radius_t"], s.converged.to(s.x.dtype)])
+        x2, q2, xp, qp, norms2 = halo_copy(
+            streaming(fr.rof_chunk_), fr._planes(r, s.x, s.y), r["f"],
+            r["w"], scal, ri, r["dataterm"])
+        return chunk_state(b, s, ri, x2.reshape(-1), q2.reshape(-1),
+                           xp.reshape(-1), qp.reshape(-1), norms2)
+
+    def rof_multi(b, s):
+        r, ri = b.rof, max(int(b.opts.residual_iter), 1)
+        scal = torch.stack([
+            s.tau, s.sigma, s.theta, r["lmb_t"], r["radius_t"],
+            s.arg_alpha, s.arb_l, s.arb_u, s.iteration.to(s.x.dtype),
+            *r["tols_t"], s.converged.to(s.x.dtype)])
+        cur = [t.contiguous().clone() for t in fr._planes(r, s.x, s.y)]
+        prev = [t.clone() for t in cur]
+        norms, sc = fr.rof_multichunk_(
+            *cur, *prev, r["f"], r["w"], scal, ri, K_CHUNKS, r["dataterm"],
+            b.opts.stepsize, r["adapt_consts"], path="streaming")
+        return multichunk_state(s, ri, *[t.reshape(-1) for t in cur + prev],
+                                norms, sc)
+
+    def rof_run(b, state, until, start):
+        r = b.rof
+        return run_pdhg_route(b, state, until, start,
+                              lambda s: rof_chunk(b, s),
+                              canonical_duals(1, r["nx"], r["ny"]),
+                              lambda s: rof_multi(b, s))
 
     def vol_run(b, state, until, start):
         v = b.vol
@@ -3678,7 +3904,8 @@ def copying_routes():
             iteration=s.iteration + sc[5].to(torch.int32) * ri)
         return hold_if(s.converged, s, new)
 
-    patches = [(fr, "fused_deblur_run", deblur_run),
+    patches = [(fr, "_fused_rof_run", rof_run),
+               (fr, "fused_deblur_run", deblur_run),
                (fr, "fused_ml_run", ml_run),
                (fr, "fused_tight_run", tight_run),
                (fr, "fused_vol_run", vol_run),
@@ -3743,21 +3970,28 @@ def route_turns(label, solve, energy, card="", exact=False):
 
 
 def phase_route_turns(card):
-    """Config 2, config 3, tight128x4, vol256x8 and config 4 through the
-    fused routes, the light chunk calls (vol256x8 and config 4: chunk and
-    multichunk) against the copying ones (``route_turns``), 2000
-    iterations at 1e-5."""
+    """Config 1, config 2, config 3, tight128x4, vol256x8 and config 4
+    through the fused routes, the light chunk calls (config 1, vol256x8 and
+    config 4: chunk and multichunk) against the copying ones
+    (``route_turns``), 2000 iterations at 1e-5."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
 
     opts = PDHGOptions(stepsize="boyd", residual_iter=10)
+    f1 = test_image(ROF_SIZE, ROF_SIZE).reshape(-1)
+    out = {"rof": route_turns(
+        f"config 1 fused route {ROF_SIZE}x{ROF_SIZE}",
+        lambda: timed_solve(recording("pdhg", opts), ROF_SIZE, ROF_SIZE, f1,
+                            ROF_LMB, 2000),
+        lambda x: rof_energy(x, f1, ROF_LMB, ROF_SIZE, ROF_SIZE), card=card,
+        exact=True)}
     fb = deblur_data(DB_SIZE, DB_SIZE)
     f = ml_unaries(cow_gray(ML_SIZE, ML_SIZE), ML_LABELS)
-    out = {"deblur": route_turns(
+    out["deblur"] = route_turns(
         f"config 2 fused route {DB_SIZE}x{DB_SIZE}",
         lambda: run_model(recording("pdhg", opts),
                           deblur_model(DB_SIZE, DB_SIZE, fb),
                           DB_SIZE * DB_SIZE, 2000),
-        lambda x: deblur_energy(x, fb, DB_LMB, DB_SIZE, DB_SIZE), card=card)}
+        lambda x: deblur_energy(x, fb, DB_LMB, DB_SIZE, DB_SIZE), card=card)
     out["ml"] = route_turns(
         f"config 3 fused route {ML_SIZE}x{ML_SIZE}x{ML_LABELS}",
         lambda: run_model(recording("pdhg", opts),
@@ -4122,6 +4356,12 @@ def phase_large(card):
         check(all(v > 0 for v in launches.values()),
               f"a {kind} kernel was not launched at 2048x2048: {launches}")
         path = ""
+        if kind == "pdhg":
+            check(not backend.made.rof["multi"].resident
+                  and not backend.made.rof["call"].resident,
+                  "the shape rule made the 2048x2048 ROF multichunk or "
+                  "chunk resident")
+            path = " (multichunk and chunk on the streaming path)"
         if kind == "admm":
             check(not backend.made.rof["call"].resident
                   and not backend.made.rof["chunk"].resident,
@@ -4244,6 +4484,7 @@ def main() -> int:
     resident.update(phase(phase_resident_multi, dev))
     resident.update(phase(phase_resident_batched, dev))
     resident.update(phase(phase_resident_chunk_multi, dev))
+    resident.update(phase(phase_resident_rof, dev))
     launches, e_pdhg, d_pdhg = phase(phase_solve, card)
     admm_launches, e_admm = phase(phase_admm_solve, card, e_pdhg, d_pdhg)
     launches.update(admm_launches)

@@ -25,34 +25,46 @@
 // so they run the same arithmetic.
 //
 // What bounds it on this card.  The TPU kernels hold the whole state in
-// VMEM for a chunk.  A 512x512 f32 plane is 1 MiB and one iteration
-// touches about 14 planes (primal: x, 2 q, f in, x out; dual: x, 2 q, 2 g
-// in, 2 q, 2 g out), far above the 227 KB of shared memory a block can
-// use, so the state stays in device memory (and mostly in the 50 MB L2 at
-// 512x512) and every kernel is bound by memory traffic and, at this plane
-// size, by launch latency: one chunk of ri iterations is 2*ri + 3 launches.
-// A batched chunk of 1024 instances of 128x128 streams 10 planes of 64 MiB
-// once (x, 2 q, f in; x, 2 q, x_prev, 2 q_prev out), a bound of about 0.2
-// ms; its working set (about 1 GB) is far beyond L2, so the streaming
-// sequence would move it through device memory on every half-iteration.
-// The batched chunk therefore holds each instance on chip in a
-// thread-block cluster (rof_chunk_cluster below) wherever one of at most 8
-// CTAs holds it, and keeps the streaming sequence for larger instances.
+// VMEM for a chunk.  One iteration touches about 14 planes (primal: x, 2
+// q, f in, x out; dual: x, 2 q, 2 g in, 2 q, 2 g out); at 512x512 a plane
+// is 1 MiB and a launch of one half-step does about 3 us of work, so a
+// chunk streamed through device memory (and the 50 MB L2) is paced by
+// launch latency: 2*ri + 3 launches a chunk, 1 + k (2*ri + 2) a multichunk.
+// Split over the card's SMs, though, the chunk's state is small: a block
+// of one SM holds 4 rows of each plane at 512x512 (58 KB, 68 KB with
+// wsquare's w).  So each chunk has two paths, bit-equal to each other:
+//   * the grid-resident launch (rof_resident, rof_multichunk_resident,
+//     further down): one cooperative launch a chunk, or a multichunk of k
+//     chunks with the adaptation between them, one block per SM holding a
+//     band of rows of every plane in shared memory;
+//   * the streaming launch sequence (rof_seed, rof_primal, rof_dual,
+//     rof_norm_partial, pdhg_finish), for planes whose band does not fit in
+//     the shared memory a block may opt into (2048x1536 and 2048x2048 need
+//     600-800 KB a block), and for the batched and halo chunks.
+// The wrapper's shape rule (ops/fused_rof.py resident_ok, on the card's
+// SM count and opt-in limit) picks the path before the launch.  A batched
+// chunk of 1024 instances of 128x128 streams 10 planes of 64 MiB once
+// (x, 2 q, f in; x, 2 q, x_prev, 2 q_prev out), a bound of about 0.2 ms;
+// its working set (about 1 GB) is far beyond L2, so it holds each
+// instance on chip in a thread-block cluster (rof_chunk_cluster below)
+// wherever one of at most 8 CTAs holds it, and keeps the streaming
+// sequence for larger instances.
 //
-// Design.  One thread per pixel, 32x8 blocks with threadIdx.x along the
-// contiguous y axis, so warps read and write coalesced rows.  The stencil
-// neighbours come straight from global memory through L1/L2, no shared
-// tiles (tiling with a halo is later work).  The gradient of x is carried
-// from one iteration to the next in g (saves 2 of 6 stencils), and every
-// kernel updates its planes in place: a pixel reads only its own x in the
-// primal step and only its own q and g in the dual step; neighbour reads
-// go to the plane the kernel does not write.  The scalars (tau, sigma,
-// theta, lmb, radius, adaptation state, converged flag, norms) live in a
-// small device buffer `sc`, read by every kernel: the step sizes never
-// cross to the host, and a kernel returns at once when sc[CONV] is set, so
-// the host can queue a whole multichunk launch sequence without a sync.
-// Norms are reduced in two deterministic passes (per-block tree, then one
-// block over the partials), with no atomics, so reruns are bit-stable.
+// Design of the streaming kernels.  One thread per pixel, 32x8 blocks
+// with threadIdx.x along the contiguous y axis, so warps read and write
+// coalesced rows.  The stencil neighbours come straight from global memory
+// through L1/L2.  The gradient of x is carried from one iteration to the
+// next in g (saves 2 of 6 stencils), and every kernel updates its planes
+// in place: a pixel reads only its own x in the primal step and only its
+// own q and g in the dual step; neighbour reads go to the plane the kernel
+// does not write.  The scalars (tau, sigma, theta, lmb, radius, adaptation
+// state, converged flag, norms) live in a small device buffer `sc`, read
+// by every kernel: the step sizes never cross to the host, and a kernel
+// returns at once when sc[CONV] is set, so the host can queue a whole
+// multichunk launch sequence without a sync.  Norms are reduced in two
+// deterministic passes (per-block tree, then one block over the partials),
+// with no atomics, so reruns are bit-stable; the resident launches reduce
+// the same 32x8 tiles in the same tree.
 //
 // Rounding.  The build passes -fmad=false: no multiply-add is contracted
 // into an FMA, so each expression rounds in the same places as the plain
@@ -94,6 +106,8 @@ struct Planes {
   const float* w;
   float* sc;
   float* partial;  // 4 per block
+  float* terms;    // the resident launches' scratch, 8 (nx, ny) planes: the
+                   // norm terms, then 2 parities of q_x and q_y rows
   int nx, ny;
   int nxg;  // rows of the global plane of a halo launch; 0: the whole plane
 };
@@ -596,6 +610,401 @@ int chunk(const Planes& b, int count, int dataterm, int batch,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// The grid-resident chunk and multichunk (rof_fused_chunk ->
+// _rof_chunk_kernel, rof_fused_multichunk -> _rof_multichunk_kernel, whose
+// TPU kernels hold the plane in VMEM for the whole launch): one
+// cooperative launch runs what chunk() runs in 2 count + 3 launches
+// (rof_resident) and what prost_rof_multichunk runs in 1 + k_chunks
+// (2 count + 2) launches (rof_multichunk_resident: 177 at config 1's 8
+// chunks of ri 10).
+//
+// What bounds it.  At 512x512 a chunk reads x, q and f (and w) once and
+// writes x, q, x_prev and q_prev once, 10 planes (3.1 us at the card's
+// memory rate); its iterations' operations take about 0.01 ms at the FP32
+// peak.  The streaming sequence pays about 2.8 us a launch for each of its
+// 23 (177) launches.  Here an iteration costs one grid barrier, the copy
+// of three neighbour rows after it, and the pixels of a band: 4 rows of
+// 512 at 512x512 over 132 SMs.
+//
+// Design.  One block of RES_THREADS on each SM; block b owns the rows
+// [lo, hi) = band_of(nx, b, G) and holds them in shared memory (RofRes)
+// from the load to the store, with the neighbour rows its stencils reach:
+// x, q_y and f (and w) with the row below (row hi), q_x with the row above
+// and the row below, and the band's rows of the carried gradient g_x, g_y.
+// One grid barrier an iteration: each band takes the primal step of its
+// own rows and of row hi too (the first row of the band below, from the
+// same values with the same expressions, so the same bits), so that its
+// dual step reads grad x_new without an exchange of x.  The dual step
+// publishes the rows its neighbours read next, q_x and q_y of row lo (for
+// the band above, whose row hi it is) and q_x of row hi - 1 (for the band
+// below), into exchange planes that alternate with the iteration's parity
+// (a band may write iteration k + 1's rows while its neighbour still
+// reads iteration k's: no barrier lies between them); after the grid
+// barrier every block copies in those three rows.  The aligned primal step
+// writes x_prev and keeps w_hat in f's rows (in a chunk f is not read
+// again; row hi keeps f); the aligned dual step writes q_prev and the
+// terms of |pd|^2 and |z_hat|^2 (the previous gradient is still in
+// registers); after the last exchange K^T q of the new dual completes
+// |dd|^2 and |w_hat|^2, and the band is stored once.  The per-pixel
+// expressions are rof_seed's, rof_primal's, rof_dual's and
+// rof_norm_partial's (the same device functions, in the same order), and
+// the norms reduce through the same tiles and finish (coop_tile_partials,
+// finish_block): the planes and the norms are bit-equal to the streaming
+// sequence.  The body takes the row context (RowCtx) for every row mask,
+// dead row and owned row of the norms, so a halo band can run it too.
+// Barriers: one after the load, one an iteration, two around the tiles.
+// The multichunk loads and seeds once, then for each chunk reads the
+// scalars anew through a volatile pointer (the last finish adapted them),
+// runs `count` iterations, the norms and finish_block's adaptation and
+// stopping test in block 0, and after a barrier reads the flag, on which
+// the whole grid leaves together; w_hat takes a window of its own (f is
+// read again in the next chunk, with the new tau), which the tiles and the
+// finish borrow as their reduction array; x_prev and q_prev are written on
+// every chunk's aligned iteration and the band stored once after the last
+// chunk.
+// ---------------------------------------------------------------------------
+
+constexpr int RES_RED = RES_RED_BYTES / (int)sizeof(float);
+
+struct RofRes {
+  LWin x, qx, qy, gx, gy, f;
+  LWin w;   // wsquare's weights (f again for the other data terms)
+  LWin wh;  // w_hat of the aligned primal step: f's rows in a chunk, a
+            // window of its own in a multichunk
+  float* red;  // RES_RED floats for the tiles and the finish: the start of
+               // the windows in a chunk (stored by then), w_hat's window in
+               // a multichunk (read by then, rewritten in the next chunk)
+};
+
+// Floats of RofRes for bands of at most rmax rows (with w where wsq; with
+// `multi`, w_hat's window, at least the reductions' array), mirrored by
+// ops/fused_rof.py resident_bytes: x, q_y and f (and w) rmax + 1 rows, q_x
+// rmax + 2, g_x and g_y rmax.
+__host__ __device__ __forceinline__ size_t rof_resident_floats(int rmax,
+                                                               int ny,
+                                                               int wsq,
+                                                               int multi) {
+  size_t floats = ((size_t)(6 + (wsq ? 1 : 0)) * (rmax + 1) - 1) * ny;
+  if (multi) {
+    size_t wh = (size_t)rmax * ny;
+    floats += wh > (size_t)RES_RED ? wh : (size_t)RES_RED;
+  }
+  return floats;
+}
+
+__device__ __forceinline__ RofRes rof_layout(float* smem, int lo, int rmax,
+                                             int ny, bool wsq, bool multi) {
+  RofRes v;
+  float* p = smem;
+  v.x = take(p, 1, lo, rmax + 1, ny);
+  v.qx = take(p, 1, lo - 1, rmax + 2, ny);
+  v.qy = take(p, 1, lo, rmax + 1, ny);
+  v.gx = take(p, 1, lo, rmax, ny);
+  v.gy = take(p, 1, lo, rmax, ny);
+  v.f = take(p, 1, lo, rmax + 1, ny);
+  v.w = wsq ? take(p, 1, lo, rmax + 1, ny) : v.f;
+  v.wh = multi ? take(p, 1, lo, rmax, ny) : v.f;
+  v.red = multi ? v.wh.a : smem;
+  return v;
+}
+
+// The launch's scalars and the constants the pixel loops share, each the
+// same expression of them as in the streaming kernels; read through a
+// volatile pointer, since a multichunk's finish in block 0 changes them
+// between chunks.
+struct RofStep {
+  float theta, lmb, radius, tau, sig_p, sig_t, inv_s, inv_t;
+};
+
+__device__ __forceinline__ RofStep rof_step(const float* sc) {
+  const volatile float* s = sc;
+  RofStep k;
+  const float tau_raw = s[S_TAU], sigma_raw = s[S_SIGMA];
+  k.theta = s[S_THETA];
+  k.lmb = s[S_LMB];
+  k.radius = s[S_RADIUS];
+  k.tau = tau_raw * 0.25f;                 // tau * Tau
+  const float sigma_p = sigma_raw * 0.5f;  // sigma * Sigma
+  k.sig_p = sigma_p * (1.f + k.theta);
+  k.sig_t = sigma_p * k.theta;
+  k.inv_s = 1.f / (sigma_raw * SQRT_S);
+  k.inv_t = 1.f / (tau_raw * SQRT_T);
+  return k;
+}
+
+// K^T q at (i, j) from the band's windows (kty_at).
+__device__ __forceinline__ float kty_band(const RofRes& v, const RowCtx& r,
+                                          int i, int j) {
+  float lx = has_above(r, i) ? v.qx.at(0, i - 1, j) : 0.f;
+  float ly = j > 0 ? v.qy.at(0, i, j - 1) : 0.f;
+  return (lx - v.qx.at(0, i, j)) + (ly - v.qy.at(0, i, j));
+}
+
+// The rows of the primal step a band takes: its own and row hi, the first
+// row of the band below, where the band has rows and the plane has row hi.
+__device__ __forceinline__ int primal_end(int lo, int hi, int nx) {
+  return lo < hi && hi < nx ? hi + 1 : hi;
+}
+
+// The band's rows of x, q (q_x also the row above), f and w, with row hi,
+// into their windows, then rof_seed: the dead duals zeroed (also on the
+// neighbour rows), grad x of the band's own rows; a grid barrier.
+__device__ __forceinline__ void rof_res_load_seed(
+    const Planes& b, const RofRes& v, const RowCtx& r, int lo, int hi,
+    bool wsq, cooperative_groups::grid_group& grid) {
+  const int nx = b.nx, ny = b.ny;
+  load_rows(v.x, b.x, 1, lo, hi + 1, nx);
+  load_rows(v.qx, b.q, 1, lo - 1, hi + 1, nx);
+  load_rows(v.qy, b.q + (size_t)nx * ny, 1, lo, hi + 1, nx);
+  load_rows(v.f, b.f, 1, lo, hi + 1, nx);
+  if (wsq) load_rows(v.w, b.w, 1, lo, hi + 1, nx);
+  __syncthreads();
+  const int top = lo > 0 ? lo - 1 : lo, end = hi < nx ? hi + 1 : hi;
+  for (int k = threadIdx.x, i = top + k / ny, j = k % ny; k < (end - top) * ny;
+       k += RES_THREADS, next_pixel(i, j, ny)) {
+    if (dead_row(r, i)) v.qx.at(0, i, j) = 0.f;
+    if (i < lo) continue;
+    if (j == ny - 1) v.qy.at(0, i, j) = 0.f;
+    if (i == hi) continue;
+    const float xv = v.x.at(0, i, j);
+    v.gx.at(0, i, j) = has_below(r, i, nx) ? v.x.at(0, i + 1, j) - xv : 0.f;
+    v.gy.at(0, i, j) = j < ny - 1 ? v.x.at(0, i, j + 1) - xv : 0.f;
+  }
+  grid.sync();
+}
+
+// One iteration on the band: rof_primal on its rows and row hi, rof_dual
+// on its rows, the rows its neighbours read published in the exchange
+// planes of the iteration's `parity`, a grid barrier, and the three rows it
+// reads copied in.  The aligned (`last`) iteration also writes x_prev,
+// q_prev, w_hat and the |pd|^2 and |z_hat|^2 terms.
+template <int DT>
+__device__ __forceinline__ void rof_res_iteration(
+    const Planes& b, const RofRes& v, const RowCtx& r, const RofStep& k,
+    int lo, int hi, bool last, int parity,
+    cooperative_groups::grid_group& grid) {
+  const int nx = b.nx, ny = b.ny;
+  const size_t n = (size_t)nx * ny;
+  // rof_primal
+  for (int t = threadIdx.x, i = lo + t / ny, j = t % ny;
+       t < (primal_end(lo, hi, nx) - lo) * ny;
+       t += RES_THREADS, next_pixel(i, j, ny)) {
+    const float kty = kty_band(v, r, i, j);
+    const float xv = v.x.at(0, i, j);
+    const float xn = primal_at(xv, kty, v.f.at(0, i, j),
+                               DT == DT_WSQUARE ? v.w.at(0, i, j) : 0.f,
+                               k.tau, k.lmb, DT);
+    if (last && i < hi) {
+      b.xp[(size_t)i * ny + j] = xv;
+      v.wh.at(0, i, j) = w_hat(xv, xn, kty, k.inv_t);
+    }
+    v.x.at(0, i, j) = xn;
+  }
+  __syncthreads();
+  // rof_dual
+  float* xq = b.terms + (size_t)(4 + 2 * parity) * n;  // q_x, q_y rows
+  for (int t = threadIdx.x, i = lo + t / ny, j = t % ny; t < (hi - lo) * ny;
+       t += RES_THREADS, next_pixel(i, j, ny)) {
+    const size_t p = (size_t)i * ny + j;
+    const float xv = v.x.at(0, i, j);
+    const float gxn = has_below(r, i, nx) ? v.x.at(0, i + 1, j) - xv : 0.f;
+    const float gyn = j < ny - 1 ? v.x.at(0, i, j + 1) - xv : 0.f;
+    const float qx = v.qx.at(0, i, j), qy = v.qy.at(0, i, j);
+    const float gx = v.gx.at(0, i, j), gy = v.gy.at(0, i, j);
+    float qxn, qyn;
+    dual_at(qx, qy, gxn, gyn, gx, gy, k.sig_p, k.sig_t, k.radius, qxn, qyn);
+    if (last) {  // rof_norm_partial's |pd|^2 and |z_hat|^2 terms
+      b.qp[p] = qx;
+      b.qp[n + p] = qy;
+      float pd2 = 0.f, zh2 = 0.f;
+      if (owned_row(r, i))
+        dual_terms(qx, qy, qxn, qyn, gxn, gyn, gx, gy, k.inv_s, k.theta, pd2,
+                   zh2);
+      b.terms[p] = pd2;
+      b.terms[n + p] = zh2;
+    }
+    v.qx.at(0, i, j) = qxn;
+    v.qy.at(0, i, j) = qyn;
+    v.gx.at(0, i, j) = gxn;
+    v.gy.at(0, i, j) = gyn;
+    if (i == lo || i == hi - 1) xq[p] = qxn;
+    if (i == lo) xq[n + p] = qyn;
+  }
+  grid.sync();
+  load_rows(v.qx, xq, 1, lo - 1, lo, nx);
+  if (lo < hi) {
+    load_rows(v.qx, xq, 1, hi, hi + 1, nx);
+    load_rows(v.qy, xq + n, 1, hi, hi + 1, nx);
+  }
+  __syncthreads();
+}
+
+// After the aligned iteration: the |dd|^2 and |w_hat|^2 terms from K^T q of
+// the new dual (rof_norm_partial).
+__device__ __forceinline__ void rof_res_terms(const Planes& b,
+                                              const RofRes& v,
+                                              const RowCtx& r, int lo,
+                                              int hi) {
+  const int ny = b.ny;
+  const size_t n = (size_t)b.nx * ny;
+  for (int t = threadIdx.x, i = lo + t / ny, j = t % ny; t < (hi - lo) * ny;
+       t += RES_THREADS, next_pixel(i, j, ny)) {
+    const size_t p = (size_t)i * ny + j;
+    float dd2 = 0.f, wh2 = 0.f;
+    if (owned_row(r, i)) {
+      const float wh = v.wh.at(0, i, j);
+      const float dd = wh + SQRT_T * kty_band(v, r, i, j);
+      dd2 = dd * dd;
+      wh2 = wh * wh;
+    }
+    b.terms[2 * n + p] = dd2;
+    b.terms[3 * n + p] = wh2;
+  }
+}
+
+// The band's x and q into device memory.
+__device__ __forceinline__ void rof_res_store(const Planes& b,
+                                              const RofRes& v, int lo,
+                                              int hi) {
+  const int ny = b.ny;
+  const size_t n = (size_t)b.nx * ny;
+  for (int t = threadIdx.x, i = lo + t / ny, j = t % ny; t < (hi - lo) * ny;
+       t += RES_THREADS, next_pixel(i, j, ny)) {
+    const size_t p = (size_t)i * ny + j;
+    b.x[p] = v.x.at(0, i, j);
+    b.q[p] = v.qx.at(0, i, j);
+    b.q[n + p] = v.qy.at(0, i, j);
+  }
+}
+
+// The 32x8 tiles' partials of the four terms between two grid barriers,
+// so that block 0 may run the finish.
+__device__ __forceinline__ void rof_res_tiles(
+    const Planes& b, const RofRes& v, cooperative_groups::grid_group& grid) {
+  grid.sync();
+  coop_tile_partials(b.terms, b.nx, b.ny, b.partial, v.red);
+  grid.sync();
+}
+
+// The chunk (rof_fused_chunk) grid-resident: load, seed, `count`
+// iterations, the norms' terms, the band stored, the tiles and the finish
+// in block 0.  Bit-equal to chunk() on one instance.
+template <int DT>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    rof_resident(Planes b, int count, int rmax) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (b.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  const RowCtx r = row_ctx(b.sc, b.nx, b.nxg);
+  int lo, hi;
+  band_of(b.nx, blockIdx.x, gridDim.x, lo, hi);
+  const RofRes v = rof_layout(smem, lo, rmax, b.ny, DT == DT_WSQUARE, false);
+  rof_res_load_seed(b, v, r, lo, hi, DT == DT_WSQUARE, grid);
+  const RofStep k = rof_step(b.sc);
+  for (int it = 0; it < count; ++it)
+    rof_res_iteration<DT>(b, v, r, k, lo, hi, it == count - 1, it & 1,
+                          grid);
+  rof_res_terms(b, v, r, lo, hi);
+  rof_res_store(b, v, lo, hi);  // before the tiles reuse the windows
+  rof_res_tiles(b, v, grid);
+  if (blockIdx.x == 0) {
+    AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    dim3 g = grid_of(b.nx, b.ny);
+    finish_block(reinterpret_cast<float(*)[FIN]>(v.red), b.sc, b.partial,
+                 (int)(g.x * g.y), count, 0, STEP_NONE, none);
+  }
+}
+
+// The multichunk (rof_fused_multichunk) grid-resident: load and seed once,
+// then up to k_chunks chunks, each `count` iterations, the norms' terms and
+// tiles and, in block 0, finish_block's adaptation and stopping test;
+// after a grid barrier every block reads the new scalars and the flag, and
+// the grid leaves together once it is set; the band stored at the end.
+// Bit-equal to prost_rof_multichunk.
+template <int DT>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    rof_multichunk_resident(Planes b, int count, int k_chunks, int stepsize,
+                            AdaptConsts c, int rmax) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (b.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  const RowCtx r = row_ctx(b.sc, b.nx, b.nxg);
+  int lo, hi;
+  band_of(b.nx, blockIdx.x, gridDim.x, lo, hi);
+  const RofRes v = rof_layout(smem, lo, rmax, b.ny, DT == DT_WSQUARE, true);
+  const dim3 g = grid_of(b.nx, b.ny);
+  rof_res_load_seed(b, v, r, lo, hi, DT == DT_WSQUARE, grid);
+  for (int ch = 0; ch < k_chunks; ++ch) {
+    const RofStep k = rof_step(b.sc);  // as the last finish left them
+    for (int it = 0; it < count; ++it)
+      rof_res_iteration<DT>(b, v, r, k, lo, hi, it == count - 1,
+                            (ch * count + it) & 1, grid);
+    rof_res_terms(b, v, r, lo, hi);
+    rof_res_tiles(b, v, grid);
+    if (blockIdx.x == 0)
+      finish_block(reinterpret_cast<float(*)[FIN]>(v.red), b.sc, b.partial,
+                   (int)(g.x * g.y), count, 1, stepsize, c);
+    grid.sync();
+    if (*(volatile float*)&b.sc[S_CONV] != 0.f) break;
+  }
+  rof_res_store(b, v, lo, hi);
+}
+
+using RofResKernel = void (*)(Planes, int, int);
+using RofResMultiKernel = void (*)(Planes, int, int, int, AdaptConsts, int);
+
+RofResKernel rof_resident_kernel(int dataterm) {
+  return dataterm == DT_SQUARE    ? rof_resident<DT_SQUARE>
+         : dataterm == DT_WSQUARE ? rof_resident<DT_WSQUARE>
+                                  : rof_resident<DT_ABS>;
+}
+
+RofResMultiKernel rof_multichunk_resident_kernel(int dataterm) {
+  return dataterm == DT_SQUARE    ? rof_multichunk_resident<DT_SQUARE>
+         : dataterm == DT_WSQUARE ? rof_multichunk_resident<DT_WSQUARE>
+                                  : rof_multichunk_resident<DT_ABS>;
+}
+
+// The dynamic shared memory a block of the resident chunk (with `multi`,
+// multichunk) may hold on the current device: the smallest of its three
+// data terms' kernels' limits, or minus the error.
+int rof_resident_limit(int multi) {
+  int limit = -1;
+  for (int dt = 0; dt < 3; ++dt) {
+    int l = multi ? resident_smem_limit(rof_multichunk_resident_kernel(dt))
+                  : resident_smem_limit(rof_resident_kernel(dt));
+    if (l < 0) return l;
+    limit = limit < 0 || l < limit ? l : limit;
+  }
+  return limit;
+}
+
+// The dynamic shared memory of a resident launch on planes of nx rows:
+// RofRes for the largest band (rmax rows), at least the reductions' array;
+// or 0 where a block may not hold it on the current device (then `rc`
+// holds the error).
+size_t resident_smem(int nx, int ny, int dataterm, int multi, int& rmax,
+                     int& rc) {
+  int sms = 0;
+  rc = device_sms(&sms);
+  if (rc) return 0;
+  rmax = band_rows(nx, sms);
+  size_t smem = rof_resident_floats(rmax, ny, dataterm == DT_WSQUARE,
+                                    multi) * sizeof(float);
+  if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
+  int limit = rof_resident_limit(multi);
+  if (limit < 0) {
+    rc = -limit;
+    return 0;
+  }
+  if (smem > (size_t)limit) {
+    rc = (int)cudaErrorInvalidValue;
+    return 0;
+  }
+  return smem;
+}
+
 // The launch configuration of a chunk of `batch` instances in clusters of
 // `csize` CTAs, or the error that refuses it: a cluster size other than 1,
 // 2, 4 or 8, a band beyond the shared memory of a block, or a cluster that
@@ -650,6 +1059,7 @@ Planes planes_of(void* x, void* q, void* xp, void* qp, void* g, void* gp,
   b.w = (const float*)w;
   b.sc = (float*)sc;
   b.partial = (float*)partial;
+  b.terms = nullptr;
   b.nx = nx;
   b.ny = ny;
   b.nxg = 0;
@@ -778,5 +1188,58 @@ int prost_rof_multichunk(void* x, void* q, void* xp, void* qp, void* g,
   }
   return 0;
 }
+
+// rof_fused_chunk as one grid-resident cooperative launch (rof_resident),
+// bit-equal to prost_rof_chunk: the same planes and scalars without the
+// carried gradient's, `terms` 8 (nx, ny) planes of scratch.  A band that
+// does not fit in one block's shared memory is refused
+// (cudaErrorInvalidValue or cudaErrorCooperativeLaunchTooLarge).  No-op
+// when sc[S_CONV] is set.
+int prost_rof_chunk_resident(void* x, void* q, void* xp, void* qp,
+                             const void* f, const void* w, void* sc,
+                             void* partial, void* terms, int nx, int ny,
+                             int count, int dataterm, void* stream) {
+  Planes b = planes_of(x, q, xp, qp, nullptr, nullptr, f, w, sc, partial,
+                       nx, ny);
+  b.terms = (float*)terms;
+  int rmax = 0, rc = 0;
+  size_t smem = resident_smem(nx, ny, dataterm, 0, rmax, rc);
+  if (rc) return rc;
+  void* args[] = {&b, &count, &rmax};
+  return resident_launch(rof_resident_kernel(dataterm), args, smem,
+                         (cudaStream_t)stream);
+}
+
+// rof_fused_multichunk as one grid-resident cooperative launch
+// (rof_multichunk_resident), bit-equal to prost_rof_multichunk in the
+// planes, the previous iterates and sc: its arguments without the carried
+// gradient's planes, `terms` 8 (nx, ny) planes of scratch.  Refuses a band
+// that does not fit as prost_rof_chunk_resident does.  No-op when
+// sc[S_CONV] is set.
+int prost_rof_multichunk_resident(void* x, void* q, void* xp, void* qp,
+                                  const void* f, const void* w, void* sc,
+                                  void* partial, void* terms, int nx, int ny,
+                                  int count, int k_chunks, int dataterm,
+                                  int stepsize, float sqrt_nrows,
+                                  float sqrt_ncols, float arg_delta,
+                                  float arg_nu, float arb_delta,
+                                  float arb_tau, void* stream) {
+  Planes b = planes_of(x, q, xp, qp, nullptr, nullptr, f, w, sc, partial,
+                       nx, ny);
+  b.terms = (float*)terms;
+  AdaptConsts c = {sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta,
+                   arb_tau};
+  int rmax = 0, rc = 0;
+  size_t smem = resident_smem(nx, ny, dataterm, 1, rmax, rc);
+  if (rc) return rc;
+  void* args[] = {&b, &count, &k_chunks, &stepsize, &c, &rmax};
+  return resident_launch(rof_multichunk_resident_kernel(dataterm), args,
+                         smem, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory a block of rof_resident (with `multi`,
+// rof_multichunk_resident) may hold on the current device, or minus the
+// error.
+int prost_rof_resident_smem(int multi) { return rof_resident_limit(multi); }
 
 }  // extern "C"

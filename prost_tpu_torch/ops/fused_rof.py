@@ -7,14 +7,17 @@ preconditioner.  For a lone gradient2d operator the preconditioners are
 the constants Sigma = 1/2, Tau = 1/4, so a PDHG iteration is pointwise
 work plus two stencils, and the mathematical state is just (x, q).
 
-Three kernels carry the ROF routes, each a hand-written CUDA kernel set in
+Four kernels carry the ROF routes, each a hand-written CUDA kernel set in
 ``csrc/fused_rof.cu`` with a plain PyTorch version beside its wrapper here:
 
 * ``rof_chunk`` (JAX ``rof_fused_chunk``): ``count`` iterations ending on a
   residual iteration, with the four squared preconditioned residual norms;
+  its in-place form ``rof_chunk_`` serves the route's light call
+  ``ROFChunk``, made once per route;
 * ``rof_multichunk`` (JAX ``rof_fused_multichunk``): up to ``k_chunks``
   chunks with the boyd/goldstein adaptation and the stopping test on the
-  device between chunks;
+  device between chunks; its in-place form ``rof_multichunk_`` serves the
+  route's light call ``ROFMultichunk``;
 * ``rof_chunk_batched`` (JAX ``rof_fused_chunk_batched``, and its banded
   variant for large instances): one chunk for each of B instances, the
   batched ensembles' route (``parallel/ensemble.py``): one cluster launch
@@ -24,6 +27,13 @@ Three kernels carry the ROF routes, each a hand-written CUDA kernel set in
 * ``rof_chunk_halo`` (JAX ``rof_fused_chunk_halo``): one chunk on a
   halo-extended shard of a row-partitioned plane, the spatially sharded
   route's (``parallel/spatial_fused.py``).
+
+On a card the chunk and the multichunk each run as one grid-resident
+cooperative launch (one block per SM holding a band of rows of every plane
+in shared memory) where the shape rule (``resident_ok``, on the card's SMs
+and the shared memory a block may opt into) finds that the planes fit,
+and as the streaming launch sequence otherwise (2048x1536 and larger);
+both are bit-equal.  ``path=`` forces one.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no other route and no fallback:
@@ -36,11 +46,14 @@ Layout contract (the JAX package's, at every public function): x viewed
 
 Dead dual coordinates.  q_x's last row and q_y's last column multiply
 structurally zero rows of K.  They are zeroed once per run and at every
-chunk entry (``pdhg_chunk.project_dead_dual``); then the maskless adjoint stencil is
-exact, and the CUDA kernels can read plain bounds-checked neighbours.
+chunk entry (``pdhg_chunk.project_dead_dual``); then the maskless adjoint
+stencil is exact, and the CUDA kernels can read plain bounds-checked
+neighbours.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -52,14 +65,16 @@ from .fused_deblur import fused_deblur_run, match_deblur_structure
 from .fused_multilabel import fused_ml_run, match_multilabel_structure
 from .fused_tight import fused_tight_run, match_tight_structure
 from .fused_vol import fused_vol_run, match_vol_structure
-from .pdhg_chunk import (CF, CI, N_HALO_SCAL, S_CONV, S_LEN, S_NORM,
-                         STEPSIZES, VP, WHOLE_PLANE, ChunkWork, ball_scale,
-                         canonical_duals, check_buffers, check_halo,
-                         chunk_state, dual_ball_radius, dx, dy, dyt,
-                         entry_converged, halo_copy, halo_into,
-                         halo_scal_rows, launch, match_dataterm,
-                         multichunk_plain, multichunk_state,
-                         pdhg_adapt_consts, run_pdhg_route, scalar_buffer,
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, PATHS, RES_RED_BYTES, S_CONV,
+                         S_LEN, S_NORM, SOUT, STEPSIZES, VP, WHOLE_PLANE,
+                         ChunkWork, LightChunk, LightMultichunk, ball_scale,
+                         canonical_duals, card_sms, check_buffers,
+                         check_halo, check_inplace, chunk_state,
+                         dual_ball_radius, dx, dy, dyt, entry_converged,
+                         halo_copy, halo_into, halo_scal_rows, launch,
+                         match_dataterm, multichunk_plain, multichunk_state,
+                         own_vectors, pdhg_adapt_consts, pick_path,
+                         resident_rows, run_pdhg_route, scalar_buffer,
                          typed_lib, vmap_plain)
 from .phases import K_CHUNKS
 
@@ -283,7 +298,11 @@ def _lib():
         "prost_rof_chunk_cluster": [VP] * 10 + [CI] * 6 + [VP],
         "prost_rof_cluster_occupancy": [CI] * 4,
         "prost_rof_chunk_halo": [VP] * 10 + [CI] * 5 + [VP],
-        "prost_rof_multichunk": [VP] * 10 + [CI] * 6 + [CF] * 6 + [VP]})
+        "prost_rof_multichunk": [VP] * 10 + [CI] * 6 + [CF] * 6 + [VP],
+        "prost_rof_chunk_resident": [VP] * 9 + [CI] * 4 + [VP],
+        "prost_rof_multichunk_resident": [VP] * 9 + [CI] * 6 + [CF] * 6
+                                         + [VP],
+        "prost_rof_resident_smem": [CI]})
 
 
 def rof_chunk(x, q, f, w, scal, count: int, dataterm: str = "square"):
@@ -293,16 +312,145 @@ def rof_chunk(x, q, f, w, scal, count: int, dataterm: str = "square"):
     radius] (+ an optional converged flag: when set, nothing runs and the
     inputs come back).  Returns (x2, q2, x_prev, q_prev, norms2), norms2
     the 4 SQUARED preconditioned residual norms, on the inputs' device.
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors run ``rof_chunk_`` on
+    copies (the shape rule's path)."""
     _check(x, q, f, w, scal, 5, count, dataterm)
     if x.device.type == "cpu":
         return rof_chunk_plain(x, q, f, w, scal, count, dataterm)
-    lib = _lib()
+    return halo_copy(rof_chunk_, (x, q), f, w, scal, count, dataterm)
+
+
+def resident_bytes(nx: int, ny: int, sms: int, dataterm: str = "square",
+                   multi: bool = False) -> int:
+    """The dynamic shared memory of one block of the grid-resident chunk on
+    planes of ``nx`` rows over ``sms`` blocks: csrc/fused_rof.cu's RofRes
+    for the largest band (rof_resident_floats: x, q_y and f, and wsquare's
+    w, with the row below, q_x with the rows above and below, and the two
+    carried gradient planes), at least the reductions' array; with
+    ``multi`` the multichunk's, which adds w_hat's window (f is read again
+    in the next chunk), at least the reductions' array that borrows it."""
+    rmax = resident_rows(nx, sms)
+    planes = 7 if dataterm == "wsquare" else 6
+    floats = (planes * (rmax + 1) - 1) * int(ny)
+    if multi:
+        floats += max(rmax * int(ny), RES_RED_BYTES // 4)
+    return max(4 * floats, RES_RED_BYTES)
+
+
+def resident_ok(nx: int, ny: int, dataterm: str, sms: int, smem: int,
+                multi: bool = False) -> bool:
+    """The shape rule of ``rof_chunk_`` (with ``multi``, of
+    ``rof_multichunk_``): one grid-resident launch (csrc/fused_rof.cu
+    rof_resident, rof_multichunk_resident, one block per SM) where the
+    planes of the largest band fit in ``smem`` bytes of a block's dynamic
+    shared memory on a card of ``sms`` SMs, and the streaming launch
+    sequence otherwise."""
+    return resident_bytes(nx, ny, sms, dataterm, multi) <= int(smem)
+
+
+@functools.lru_cache(maxsize=None)
+def card_limits(device, multi: bool = False) -> tuple:
+    """(SMs, the dynamic shared memory a block of the grid-resident chunk,
+    with ``multi`` of the multichunk, may hold) of the card ``device``,
+    read once."""
+    with torch.cuda.device(device):
+        smem = _lib().prost_rof_resident_smem(int(bool(multi)))
+    if smem < 0:
+        raise ProstError(f"rof_chunk: no shared-memory limit for the "
+                         f"resident chunk on {device} (CUDA error {-smem}).")
+    return card_sms(device), smem
+
+
+def _scratch(resident: bool, nx: int, ny: int, device):
+    """A launch's scratch: the grid-resident launch's norm terms and its
+    exchange planes (8 planes), or the streaming sequence's carried
+    gradient planes (of this iterate and of the previous one)."""
+    if resident:
+        return [torch.empty((8, nx, ny), dtype=torch.float32, device=device)]
+    return [torch.empty((2, nx, ny), dtype=torch.float32, device=device)
+            for _ in range(2)]
+
+
+def _launch_chunk(state, prev, f, w, sc, partial, scratch, resident: bool,
+                  count: int, dataterm: str) -> None:
+    """One chunk on the card in place on ``state`` (x, q) and ``prev``: the
+    grid-resident launch or the streaming sequence, counted under
+    ``rof_chunk``."""
+    x = state[0]
     nx, ny = x.shape
-    wk = ChunkWork((x, q), (q,), scal, 5, lib.prost_rof_num_blocks(nx, ny))
-    launch(lib, "prost_rof_chunk", "rof_chunk", launch_counts, x.device,
-           wk.buffers(f, w), nx, ny, int(count), DATATERMS[dataterm])
-    return wk.outputs()
+    if resident:
+        fn, bufs = ("prost_rof_chunk_resident",
+                    [*state, *prev, f, w, sc, partial, *scratch])
+    else:
+        fn, bufs = "prost_rof_chunk", [*state, *prev, *scratch, f, w, sc,
+                                       partial]
+    launch(_lib(), fn, "rof_chunk", launch_counts, x.device, bufs, nx, ny,
+           int(count), DATATERMS[dataterm])
+
+
+def rof_chunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
+               dataterm: str = "square", path=None):
+    """``rof_chunk`` in place: (x, q) advance by ``count`` iterations and
+    (x_prev, q_prev) take the iterate before the aligned one; with the
+    converged flag set nothing changes.  Returns norms2.  On a card
+    ``path`` None takes the shape rule's path (``resident_ok``): one
+    grid-resident launch (csrc/fused_rof.cu rof_resident) where the planes
+    fit on chip, else the streaming launch sequence; "resident" or
+    "streaming" asks for one ("resident" raises where it does not fit)."""
+    _check(x, q, f, w, scal, 5, count, dataterm)
+    check_inplace((x, q), (x_prev, q_prev))
+    if path not in PATHS:
+        raise ProstError(f"rof_chunk: path must be one of {PATHS}, got "
+                         f"{path!r}.")
+    if x.device.type == "cpu":
+        return halo_into((x, q), (x_prev, q_prev), rof_chunk_plain(
+            x, q, f, w, scal, count, dataterm), scal, 5)
+    nx, ny = x.shape
+    dev = x.device
+    resident = pick_path(path, resident_ok(nx, ny, dataterm,
+                                           *card_limits(dev)), "rof_chunk")
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = torch.empty(4 * _lib().prost_rof_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_chunk((x, q), (x_prev, q_prev), f.contiguous(), w.contiguous(),
+                  sc, partial, _scratch(resident, nx, ny, dev), resident,
+                  count, dataterm)
+    return sc[S_NORM:S_NORM + 4]
+
+
+class ROFChunk(LightChunk):
+    """The ROF route's light chunk call: ``rof_chunk_`` on the views (x,
+    q) of the run's own x, y, x_prev and y_prev, with what depends only on
+    the shapes made once per route: the path (``resident_ok``), the
+    scratch, the norm partials and the scalar buffer with ``m``'s lmb and
+    radius.  A call writes the step sizes and the flag into the scalar
+    buffer and launches; on the CPU it runs the plain version."""
+
+    def __init__(self, m, count: int, device):
+        super().__init__((m["lmb"], m["radius"]), device)
+        self.count, self.dataterm = int(count), m["dataterm"]
+        nx, ny = m["nx"], m["ny"]
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = resident_ok(nx, ny, self.dataterm,
+                                        *card_limits(device))
+            self.partial = torch.empty(
+                4 * _lib().prost_rof_num_blocks(nx, ny), dtype=torch.float32,
+                device=device)
+            self.scratch = _scratch(self.resident, nx, ny, device)
+
+    def __call__(self, state, prev, f, w, tau, sigma, theta, converged):
+        """``count`` iterations on ``state`` (x, q) in place, the previous
+        iterate into ``prev``; returns norms2."""
+        self.scalars_(tau, sigma, theta, converged)
+        if self.resident is None:
+            scal = self.scal()
+            out = rof_chunk_plain(*state, f, w, scal, self.count,
+                                  self.dataterm)
+            return halo_into(state, prev, out, scal, self.n_scal)
+        _launch_chunk(state, prev, f, w, self.sc, self.partial, self.scratch,
+                      self.resident, self.count, self.dataterm)
+        return self.norms2()
 
 
 def rof_chunk_halo(x, q, f, w, scal, count: int, nx_global: int,
@@ -414,21 +562,93 @@ def rof_multichunk(x, q, f, w, scal, count: int, k_chunks: int,
     optional converged-at-entry flag).  Returns (x2, q2, x_prev, q_prev,
     norms, sout): norms the last executed chunk's sqrt'd residual norms,
     sout = [tau, sigma, arg_alpha, arb_l, arb_u, converged, chunks_done].
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors run ``rof_multichunk_``
+    on copies (the shape rule's path)."""
     _check(x, q, f, w, scal, 13, count, dataterm)
     if stepsize not in STEPSIZES:
         raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
     if x.device.type == "cpu":
         return rof_multichunk_plain(x, q, f, w, scal, count, k_chunks,
                                     dataterm, stepsize, consts)
-    lib = _lib()
+    *planes, (norms, sout) = halo_copy(rof_multichunk_, (x, q), f, w, scal,
+                                       count, k_chunks, dataterm, stepsize,
+                                       consts)
+    return (*planes, norms, sout)
+
+
+def _launch_multichunk(state, prev, f, w, sc, partial, scratch,
+                       resident: bool, count: int, k_chunks: int,
+                       dataterm: str, stepsize: str, consts) -> None:
+    """One multichunk on the card in place on ``state`` (x, q) and
+    ``prev``: the grid-resident launch or the streaming sequence, counted
+    under ``rof_multichunk``."""
+    x = state[0]
     nx, ny = x.shape
-    wk = ChunkWork((x, q), (q,), scal, 13, lib.prost_rof_num_blocks(nx, ny))
-    launch(lib, "prost_rof_multichunk", "rof_multichunk", launch_counts,
-           x.device, wk.buffers(f, w), nx, ny, int(count), int(k_chunks),
-           DATATERMS[dataterm], STEPSIZES[stepsize],
-           *[float(c) for c in consts])
-    return (*wk.outputs(), wk.sout())
+    if resident:
+        fn, bufs = ("prost_rof_multichunk_resident",
+                    [*state, *prev, f, w, sc, partial, *scratch])
+    else:
+        fn, bufs = "prost_rof_multichunk", [*state, *prev, *scratch, f, w,
+                                            sc, partial]
+    launch(_lib(), fn, "rof_multichunk", launch_counts, x.device, bufs, nx,
+           ny, int(count), int(k_chunks), DATATERMS[dataterm],
+           STEPSIZES[stepsize], *[float(c) for c in consts])
+
+
+def rof_multichunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
+                    k_chunks: int, dataterm: str, stepsize: str, consts,
+                    path=None):
+    """``rof_multichunk`` in place: (x, q) advance by up to ``k_chunks``
+    chunks and (x_prev, q_prev) take the iterate before the last executed
+    chunk's aligned iteration; with the converged flag set at entry nothing
+    changes.  Returns (norms, sout).  On a card ``path`` None takes the
+    shape rule's path (``resident_ok(..., multi=True)``): one grid-resident
+    launch for all the chunks (csrc/fused_rof.cu rof_multichunk_resident)
+    where the planes fit on chip, else the streaming launch sequence;
+    "resident" or "streaming" asks for one ("resident" raises where it does
+    not fit)."""
+    _check(x, q, f, w, scal, 13, count, dataterm)
+    if stepsize not in STEPSIZES:
+        raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
+    state, prev = (x, q), (x_prev, q_prev)
+    check_inplace(state, prev)
+    if path not in PATHS:
+        raise ProstError(f"rof_multichunk: path must be one of {PATHS}, got "
+                         f"{path!r}.")
+    if x.device.type == "cpu":
+        out = rof_multichunk_plain(x, q, f, w, scal, count, k_chunks,
+                                   dataterm, stepsize, consts)
+        return halo_into(state, prev, out[:5], scal, 13), out[5]
+    nx, ny = x.shape
+    dev = x.device
+    resident = pick_path(path, resident_ok(
+        nx, ny, dataterm, *card_limits(dev, True), multi=True),
+        "rof_multichunk")
+    sc = scalar_buffer(scal, 13, S_CONV, S_LEN)
+    partial = torch.empty(4 * _lib().prost_rof_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_multichunk(state, prev, f.contiguous(), w.contiguous(), sc,
+                       partial, _scratch(resident, nx, ny, dev), resident,
+                       count, k_chunks, dataterm, stepsize, consts)
+    return sc[S_NORM:S_NORM + 4], torch.stack([sc[i] for i in SOUT])
+
+
+class ROFMultichunk(LightMultichunk):
+    """The ROF route's light call of the multichunk: ``rof_multichunk_`` on
+    the views (x, q) of the run's own x, y, x_prev and y_prev, its path
+    ``resident_ok(..., multi=True)``."""
+
+    _inplace = staticmethod(rof_multichunk_)
+    _launch = staticmethod(_launch_multichunk)
+
+    def _card(self, device):
+        m = self.m
+        nx, ny = m["nx"], m["ny"]
+        resident = resident_ok(nx, ny, m["dataterm"],
+                               *card_limits(device, True), multi=True)
+        partial = torch.empty(4 * _lib().prost_rof_num_blocks(nx, ny),
+                              dtype=torch.float32, device=device)
+        return resident, partial, _scratch(resident, nx, ny, device)
 
 
 # ---------------------------------------------------------------------------
@@ -540,37 +760,46 @@ class FusedROFPDHG(BackendPDHG):
         return super().run(state, until_iter, start_iter)
 
 
+def _planes(r, x, y):
+    """(x, q) views of the solver's flat x and y."""
+    nx, ny = r["nx"], r["ny"]
+    return x.reshape(nx, ny), y.reshape(2, nx, ny)
+
+
 def _multi_chunk(b: FusedROFPDHG, s: PDHGState) -> PDHGState:
+    """One multichunk in place on the views of the run's own x, y, x_prev
+    and y_prev (``own_vectors``) through the route's light call
+    (``ROFMultichunk``, made once per route)."""
     r, ri = b.rof, max(int(b.opts.residual_iter), 1)
-    nx, ny, dt = r["nx"], r["ny"], s.x.dtype
-    scal = torch.stack([
-        s.tau, s.sigma, s.theta, r["lmb_t"], r["radius_t"],
-        s.arg_alpha, s.arb_l, s.arb_u, s.iteration.to(dt), *r["tols_t"],
-        s.converged.to(dt)])
-    x2, q2, xp, qp, norms, sc = rof_multichunk(
-        s.x.reshape(nx, ny), s.y.reshape(2, nx, ny), r["f"], r["w"], scal,
-        ri, K_CHUNKS, r["dataterm"], b.opts.stepsize, r["adapt_consts"])
-    return multichunk_state(s, ri, x2.reshape(-1), q2.reshape(-1),
-                            xp.reshape(-1), qp.reshape(-1), norms, sc)
+    if "multi" not in r:
+        r["multi"] = ROFMultichunk(r, ri, K_CHUNKS, b.opts.stepsize,
+                                   s.x.device)
+    norms, sout = r["multi"](
+        _planes(r, s.x, s.y), _planes(r, s.x_prev, s.y_prev), s.tau, s.sigma,
+        s.theta, s.arg_alpha, s.arb_l, s.arb_u, s.iteration, s.converged)
+    return multichunk_state(s, ri, s.x, s.y, s.x_prev, s.y_prev, norms,
+                            sout)
 
 
 def _fused_chunk(b: FusedROFPDHG, s: PDHGState) -> PDHGState:
+    """One chunk in place on the views of the run's own x, y, x_prev and
+    y_prev through the route's light call (``ROFChunk``)."""
     r, ri = b.rof, max(int(b.opts.residual_iter), 1)
-    nx, ny, dt = r["nx"], r["ny"], s.x.dtype
-    scal = torch.stack([s.tau, s.sigma, s.theta, r["lmb_t"], r["radius_t"],
-                        s.converged.to(dt)])
-    x2, q2, xp, qp, norms2 = rof_chunk(
-        s.x.reshape(nx, ny), s.y.reshape(2, nx, ny), r["f"], r["w"], scal,
-        ri, r["dataterm"])
-    return chunk_state(b, s, ri, x2.reshape(-1), q2.reshape(-1),
-                       xp.reshape(-1), qp.reshape(-1), norms2)
+    if "call" not in r:
+        r["call"] = ROFChunk(r, ri, s.x.device)
+    norms2 = r["call"](_planes(r, s.x, s.y), _planes(r, s.x_prev, s.y_prev),
+                       r["f"], r["w"], s.tau, s.sigma, s.theta, s.converged)
+    return chunk_state(b, s, ri, s.x, s.y, s.x_prev, s.y_prev, norms2)
 
 
 def _fused_rof_run(b: FusedROFPDHG, state: PDHGState, until: int,
                    start: int) -> PDHGState:
     """``run_pdhg_route`` with the ROF multichunks and chunks; the
-    canonicalization zeroes the dead dual coordinates of y and y_prev."""
+    canonicalization zeroes the dead dual coordinates of y and y_prev on
+    the run's own copies of the state's vectors, which the multichunks and
+    chunks update in place."""
+    canonical = canonical_duals(1, b.rof["nx"], b.rof["ny"])
     return run_pdhg_route(b, state, until, start,
                           lambda s: _fused_chunk(b, s),
-                          canonical_duals(1, b.rof["nx"], b.rof["ny"]),
+                          lambda s: own_vectors(canonical(s)),
                           lambda s: _multi_chunk(b, s))

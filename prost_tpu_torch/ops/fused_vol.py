@@ -64,10 +64,11 @@ from ..backend.pdhg import PDHGState
 from ..config import ProstError, dtype as config_dtype
 from ..linop.base import LinearOperator
 from ..linop.gradient import BlockGradient3D
-from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_DONE,
-                         S_LEN, S_NORM, SOUT, STEPSIZES, VP, WHOLE_PLANE,
-                         LightChunk, ball_scale, canonical_duals, card_sms,
-                         check_buffers, check_halo, chunk_state,
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
+                         S_NORM, SOUT, STEPSIZES, VP, WHOLE_PLANE,
+                         LightChunk, LightMultichunk, ball_scale,
+                         canonical_duals, card_sms, check_buffers,
+                         check_halo, chunk_state,
                          dual_ball_radius, dx, dy, dyt, entry_converged,
                          halo_copy, halo_into, halo_scal_rows,
                          check_inplace, instance_strides, launch,
@@ -694,68 +695,23 @@ def vol_multichunk_(u, q, u_prev, q_prev, f, w, scal, count: int,
     return sc[S_NORM:S_NORM + 4], torch.stack([sc[i] for i in SOUT])
 
 
-class VolMultichunk:
+class VolMultichunk(LightMultichunk):
     """The volumetric route's light call of the multichunk:
-    ``vol_multichunk_`` on the views of the run's own x, y, x_prev and
-    y_prev, with what depends only on the shapes and the route made once
-    per route: the path (``resident_ok(..., multi=True)``), the scratch,
-    the norm partials and the scalar buffer with lmb, radius and the
-    tolerances.  A call writes tau, sigma, theta, arg_alpha, arb_l, arb_u,
-    the iteration counter and the flag into the scalar buffer, and zeros
-    into the chunk count and the norms, in one stack and one indexed copy,
-    launches, and reads the norms and sout out of it in one gather; on the
-    CPU it runs the plain version."""
+    ``vol_multichunk_`` on the views (u, q) of the run's own x, y, x_prev
+    and y_prev, its path ``resident_ok(..., multi=True)``."""
 
-    # the slots a call writes: the step sizes and the adaptation state, the
-    # counter, the flag, the chunk count and the norms
-    _IN = (0, 1, 2, 5, 6, 7, 8, S_CONV, S_DONE) + tuple(
-        range(S_NORM, S_NORM + 4))
+    _inplace = staticmethod(vol_multichunk_)
+    _launch = staticmethod(_launch_multichunk)
 
-    def __init__(self, m, count: int, k_chunks: int, stepsize: str, device):
-        self.m, self.count, self.k_chunks = m, int(count), int(k_chunks)
-        self.stepsize = stepsize
-        L, nx, ny = m["L"], m["nx"], m["ny"]
-        self.sc = torch.zeros(S_LEN, dtype=torch.float32, device=device)
-        self.sc[3] = m["lmb_t"]
-        self.sc[4] = m["radius_t"]
-        self.sc[9:13] = torch.stack(m["tols_t"])
-        self.stage = torch.zeros(len(self._IN), dtype=torch.float32,
-                                 device=device)
-        self.slots_in = torch.tensor(self._IN, device=device)
-        self.slots_out = torch.tensor(
-            tuple(range(S_NORM, S_NORM + 4)) + SOUT, device=device)
-        self.resident = None  # the path on a card
-        if torch.device(device).type == "cuda":
-            self.resident = resident_ok(
-                L, nx, ny, m["dataterm"],
-                *card_limits(device, L, multi=True), multi=True)
-            self.partial = torch.empty(
-                4 * _lib().prost_vol_num_blocks(nx, ny), dtype=torch.float32,
-                device=device)
-            self.scratch = _scratch(self.resident, 0, L, nx, ny, device)
-
-    def __call__(self, state, prev, tau, sigma, theta, arg_alpha, arb_l,
-                 arb_u, it, converged):
-        """Up to k_chunks chunks on ``state`` (u, q) in place, the previous
-        iterate into ``prev``, from the state's scalars (``it`` its
-        iteration counter); returns (norms, sout)."""
-        dt = self.sc.dtype
-        torch.stack([tau, sigma, theta, arg_alpha, arb_l, arb_u, it.to(dt),
-                     converged.to(dt)], out=self.stage[:8])
-        self.sc.index_copy_(0, self.slots_in, self.stage)
+    def _card(self, device):
         m = self.m
-        if self.resident is None:
-            return vol_multichunk_(*state, *prev, m["f"], m["w"],
-                                   torch.cat([self.sc[:13],
-                                              self.sc[S_CONV:S_CONV + 1]]),
-                                   self.count, self.k_chunks, m["dataterm"],
-                                   self.stepsize, m["adapt_consts"])
-        _launch_multichunk(state, prev, m["f"], m["w"], self.sc,
-                           self.partial, self.scratch, self.resident,
-                           self.count, self.k_chunks, m["dataterm"],
-                           self.stepsize, m["adapt_consts"])
-        out = self.sc.index_select(0, self.slots_out)
-        return out[:4], out[4:]
+        L, nx, ny = m["L"], m["nx"], m["ny"]
+        resident = resident_ok(L, nx, ny, m["dataterm"],
+                               *card_limits(device, L, multi=True),
+                               multi=True)
+        partial = torch.empty(4 * _lib().prost_vol_num_blocks(nx, ny),
+                              dtype=torch.float32, device=device)
+        return resident, partial, _scratch(resident, 0, L, nx, ny, device)
 
 
 # ---------------------------------------------------------------------------

@@ -563,13 +563,14 @@ def halo_copy(inplace, state, *args):
 
 class LightChunk:
     """The scalar side of a route's light chunk call (the grid-resident
-    routes' ``DeblurChunk`` and ``MLChunk``, and with a ``batch`` of
-    instances ``MLBatchedChunk``, ``VolBatchedChunk`` and
+    routes' ``ROFChunk``, ``DeblurChunk`` and ``MLChunk``, and with a
+    ``batch`` of instances ``MLBatchedChunk``, ``VolBatchedChunk`` and
     ``DeblurBatchedChunk``): one device scalar buffer per route (one
     block of S_LEN per instance), its family's two scalars (and a halo
     band's row context) written once; a call writes its step sizes and
-    converged flag into it in place, a few small device copies and no
-    allocation of state.  ``scal()`` is the same call's ``scal`` as the
+    converged flag into it in place and zeros into its norms (a call the
+    flag stops returns zeros, as the in-place forms do), a few small
+    device copies and no allocation of state.  ``scal()`` is the same call's ``scal`` as the
     wrappers take it ((n, B) for a batch), for the plain versions."""
 
     def __init__(self, consts, device, batch=None):
@@ -586,6 +587,7 @@ class LightChunk:
         else:
             self.sc[:, :3] = torch.stack([tau, sigma, theta], 1)
         self.sc[..., S_CONV].copy_(converged)
+        self.sc[..., S_NORM:S_NORM + 4].zero_()  # what a flagged call leaves
 
     def scal(self):
         sc = torch.cat([self.sc[..., :self.n_scal],
@@ -595,6 +597,63 @@ class LightChunk:
     def norms2(self):
         norms = self.sc[..., S_NORM:S_NORM + 4]
         return norms if norms.dim() == 1 else norms.T
+
+
+class LightMultichunk:
+    """A route's light call of its multichunk (``ROFMultichunk``,
+    ``VolMultichunk``): the family's in-place multichunk on the views of the
+    run's own x, y, x_prev and y_prev, with what depends only on the shapes
+    and the route ``m`` made once per route: the path, the scratch and the
+    norm partials (``_card``) and the scalar buffer with lmb, radius and
+    the tolerances.  A call writes tau, sigma, theta, arg_alpha, arb_l,
+    arb_u, the iteration counter and the flag into the scalar buffer, and
+    zeros into the chunk count and the norms, in one stack and one indexed
+    copy, launches (``_launch``), and reads the norms and sout out of it in
+    one gather; on the CPU it runs the in-place form (``_inplace``, the
+    plain version)."""
+
+    # the slots a call writes: the step sizes and the adaptation state, the
+    # counter, the flag, the chunk count and the norms
+    _IN = (0, 1, 2, 5, 6, 7, 8, S_CONV, S_DONE) + tuple(
+        range(S_NORM, S_NORM + 4))
+
+    def __init__(self, m, count: int, k_chunks: int, stepsize: str, device):
+        self.m, self.count, self.k_chunks = m, int(count), int(k_chunks)
+        self.stepsize = stepsize
+        self.sc = torch.zeros(S_LEN, dtype=torch.float32, device=device)
+        self.sc[3] = m["lmb_t"]
+        self.sc[4] = m["radius_t"]
+        self.sc[9:13] = torch.stack(m["tols_t"])
+        self.stage = torch.zeros(len(self._IN), dtype=torch.float32,
+                                 device=device)
+        self.slots_in = torch.tensor(self._IN, device=device)
+        self.slots_out = torch.tensor(
+            tuple(range(S_NORM, S_NORM + 4)) + SOUT, device=device)
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident, self.partial, self.scratch = self._card(device)
+
+    def __call__(self, state, prev, tau, sigma, theta, arg_alpha, arb_l,
+                 arb_u, it, converged):
+        """Up to k_chunks chunks on ``state`` in place, the previous
+        iterate into ``prev``, from the state's scalars (``it`` its
+        iteration counter); returns (norms, sout)."""
+        dt = self.sc.dtype
+        torch.stack([tau, sigma, theta, arg_alpha, arb_l, arb_u, it.to(dt),
+                     converged.to(dt)], out=self.stage[:8])
+        self.sc.index_copy_(0, self.slots_in, self.stage)
+        m = self.m
+        args = (self.count, self.k_chunks, m["dataterm"], self.stepsize,
+                m["adapt_consts"])
+        if self.resident is None:
+            return self._inplace(*state, *prev, m["f"], m["w"],
+                                 torch.cat([self.sc[:13],
+                                            self.sc[S_CONV:S_CONV + 1]]),
+                                 *args)
+        self._launch(state, prev, m["f"], m["w"], self.sc, self.partial,
+                     self.scratch, self.resident, *args)
+        out = self.sc.index_select(0, self.slots_out)
+        return out[:4], out[4:]
 
 
 def own_vectors(s):

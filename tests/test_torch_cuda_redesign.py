@@ -13,8 +13,10 @@ and deblur chunks ``vol_chunk_batched_`` and ``deblur_chunk_batched_``
 volumetric chunks ``tight_chunk_``, ``vol_chunk_`` and their halo forms
 (``-k "tight_resident or vol_resident"``), and the grid-resident Chebyshev
 ADMM chunk ``admm_chunk_`` and volumetric multichunk ``vol_multichunk_``
-(``-k "admm_chunk or vol_multichunk"``), bit for bit against the
-streaming launch sequences they replace.
+(``-k "admm_chunk or vol_multichunk"``), and the grid-resident ROF chunk
+``rof_chunk_`` and multichunk ``rof_multichunk_`` (``-k "rof_resident or
+rof_multichunk or rof_light"``), bit for bit against the streaming launch
+sequences they replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
 redesigns run the per-pixel arithmetic and the norm trees of the launch
@@ -1453,3 +1455,199 @@ def test_admm_chunk_and_vol_multichunk_rules_on_the_card(dev):
                fv.launch_counts, dev, [u, q, u.clone(), q.clone(), f, w, sc,
                                        partial, u.new_empty(4, 16, 16)],
                9, 16, 16, 2, 2, 0, 2, *_vol_mc_consts(9, 16, 16))
+
+
+# ---------------------------------------------------------------------------
+# rows 2 and 1: the ROF chunk and multichunk grid-resident
+# ---------------------------------------------------------------------------
+
+def _rof_planes(seed, nx, ny, dev):
+    """x, q (with mass on the dead dual coordinates), f and wsquare's w."""
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(nx, ny), 0.3 * rng.randn(2, nx, ny), rng.rand(nx, ny),
+            2.0 * (rng.rand(nx, ny) > 0.3))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+@pytest.mark.parametrize("count", [1, 10])
+@pytest.mark.parametrize("dataterm", ["square", "wsquare", "abs"])
+@pytest.mark.parametrize("nx,ny", [(512, 512), (250, 190), (13, 40),
+                                   (7, 300)])
+def test_rof_resident_is_the_launch_sequence(dev, nx, ny, dataterm, count):
+    """The resident chunk's planes, previous iterates and squared norms
+    bit-equal to the launch sequence's, one launch each (13 and 7 rows:
+    most of the bands empty)."""
+    planes = _rof_planes(300 + nx + count, nx, ny, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0], device=dev)
+    before = fr.launch_counts["rof_chunk"]
+    _bit_equal(_both_paths(fr.rof_chunk_, planes[:2], planes[2:], scal,
+                           count, dataterm))
+    assert fr.launch_counts["rof_chunk"] == before + 2
+
+
+def _rof_mc_scal(tol, dev, tau=0.9, sigma=1.1, conv=None):
+    return torch.tensor([tau, sigma, 1.0, 16.0, 1.0, 0.5, 0.0, 0.0, 1.0]
+                        + [tol] * 4 + ([conv] if conv is not None else []),
+                        device=dev)
+
+
+def _rof_mc_consts(nx, ny):
+    return (float(np.sqrt(2 * nx * ny)), float(np.sqrt(nx * ny)), 1.5, 0.95,
+            1.05, 0.8)
+
+
+def _both_rof_multichunks(x, q, f, w, scal, count, k_chunks, dataterm,
+                          stepsize):
+    """``rof_multichunk_`` by the launch sequence and by the resident
+    launch from the same inputs: planes, previous iterates, norms and sout
+    of each, one launch each."""
+    nx, ny = x.shape
+    out = {}
+    for path in ("streaming", "resident"):
+        cur, prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
+        before = fr.launch_counts["rof_multichunk"]
+        norms, sout = fr.rof_multichunk_(*cur, *prev, f, w, scal, count,
+                                         k_chunks, dataterm, stepsize,
+                                         _rof_mc_consts(nx, ny), path=path)
+        assert fr.launch_counts["rof_multichunk"] == before + 1
+        out[path] = cur + prev + [norms.clone(), sout.clone()]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("stepsize", ["alg1", "boyd", "goldstein"])
+@pytest.mark.parametrize("nx,ny,ri,dataterm", [
+    (512, 512, 10, "square"), (512, 512, 10, "abs"),
+    (512, 512, 10, "wsquare"), (250, 190, 3, "wsquare"), (9, 40, 2, "abs")])
+def test_rof_multichunk_resident_is_the_launch_sequence(dev, nx, ny, ri,
+                                                        dataterm, stepsize):
+    """Every chunk runs (tolerance 0), from planes with mass on the dead
+    dual coordinates: the resident launch's planes, previous iterates,
+    norms and sout bit-equal to the launch sequence's."""
+    x, q, f, w = _rof_planes(320 + ri, nx, ny, dev)
+    out = _both_rof_multichunks(x, q, f, w, _rof_mc_scal(0.0, dev), ri, 8,
+                                dataterm, stepsize)
+    for a, b in zip(out["streaming"], out["resident"]):
+        assert torch.equal(a, b)
+    assert out["resident"][5][5:].tolist() == [0.0, 8.0]
+    assert all(bool(torch.isfinite(t).all()) for t in out["resident"])
+
+
+@pytest.mark.parametrize("nx,ny", [(512, 512), (24, 40)])
+def test_rof_multichunk_resident_converging_mid_launch(dev, nx, ny):
+    """From a solve's start (x = f, q = 0) boyd adapts and, at the first
+    tolerance of a list at which it does, the launch converges before its
+    last chunk: the whole grid leaves at the same chunk, bit-equal to the
+    sequence in the planes, the previous iterates, the norms and sout."""
+    f = _rof_planes(330, nx, ny, dev)[2]
+    for tol in (2e-2, 1e-2, 5e-3, 2e-3, 1e-3, 5e-4, 2e-4):
+        out = _both_rof_multichunks(f, torch.zeros((2, nx, ny), device=dev),
+                                    f, f, _rof_mc_scal(tol, dev, 1.0, 1.0),
+                                    10, 8, "square", "boyd")
+        for a, b in zip(out["streaming"], out["resident"]):
+            assert torch.equal(a, b)
+        sout = out["resident"][5]
+        if float(sout[5]) == 1.0 and 1 < float(sout[6]) < 8:
+            return
+    pytest.fail("no tolerance converged mid-launch")
+
+
+def test_rof_resident_with_the_flag_leaves_the_buffers(dev):
+    x, q, f, w = _rof_planes(331, 512, 512, dev)
+    cur = [x.clone(), q.clone()]
+    prev = [t + 1.0 for t in cur]
+    before = [t.clone() for t in cur + prev]
+    norms2 = fr.rof_chunk_(*cur, *prev, f, w,
+                           torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0, 1.0],
+                                        device=dev), 10, path="resident")
+    norms, sout = fr.rof_multichunk_(*cur, *prev, f, w,
+                                     _rof_mc_scal(1e-3, dev, conv=1.0), 10,
+                                     8, "square", "boyd",
+                                     _rof_mc_consts(512, 512),
+                                     path="resident")
+    torch.cuda.synchronize()
+    assert not norms2.any() and not norms.any()
+    assert sout[5:].tolist() == [1.0, 0.0]
+    for a, b in zip(cur + prev, before):
+        assert torch.equal(a, b)
+
+
+def _rof_route_match(dev, f, w, dataterm, tol):
+    return {"nx": f.shape[0], "ny": f.shape[1], "f": f, "w": w,
+            "dataterm": dataterm, "lmb": 16.0, "radius": 1.0,
+            "lmb_t": torch.tensor(16.0, device=dev),
+            "radius_t": torch.tensor(1.0, device=dev),
+            "tols_t": tuple(torch.tensor(tol, device=dev) for _ in range(4)),
+            "adapt_consts": _rof_mc_consts(*f.shape)}
+
+
+@pytest.mark.parametrize("dataterm", ["square", "wsquare"])
+def test_rof_light_calls_on_the_card(dev, dataterm):
+    """``ROFChunk`` and ``ROFMultichunk`` at config 1's 512x512 take the
+    resident path and leave what ``rof_chunk_`` and ``rof_multichunk_``
+    leave, twice in a row from the state they left (their scalar buffers
+    reused), and with the flag set nothing."""
+    x, q, f, w = _rof_planes(332, 512, 512, dev)
+    m = _rof_route_match(dev, f, w, dataterm, 1e-4)
+    chunk = fr.ROFChunk(m, 10, dev)
+    multi = fr.ROFMultichunk(m, 10, 8, "boyd", dev)
+    assert chunk.resident and multi.resident
+    cur, prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
+    want_cur, want_prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
+    for tau, conv in ((0.9, 0.0), (1.1, 0.0), (1.1, 1.0)):
+        got = chunk(cur, prev, f, w, torch.tensor(tau, device=dev),
+                    torch.tensor(1.1, device=dev),
+                    torch.tensor(1.0, device=dev),
+                    torch.tensor(conv > 0, device=dev))
+        scal = torch.tensor([tau, 1.1, 1.0, 16.0, 1.0, conv], device=dev)
+        want = fr.rof_chunk_(*want_cur, *want_prev, f, w, scal, 10, dataterm,
+                             path="resident")
+        for a, b in zip(cur + prev + [got], want_cur + want_prev + [want]):
+            assert torch.equal(a, b)
+    steps = (0.9, 1.1, 1.0, 0.5, 0.0, 0.0)
+    for it in (1, 81):
+        got = multi(cur, prev, *(torch.tensor(v, device=dev) for v in steps),
+                    torch.tensor(it, device=dev),
+                    torch.tensor(False, device=dev))
+        scal = torch.tensor(list(steps[:3]) + [16.0, 1.0] + list(steps[3:])
+                            + [float(it)] + [1e-4] * 4 + [0.0], device=dev)
+        want = fr.rof_multichunk_(*want_cur, *want_prev, f, w, scal, 10, 8,
+                                  dataterm, "boyd", m["adapt_consts"],
+                                  path="resident")
+        for a, b in zip(cur + prev + list(got),
+                        want_cur + want_prev + list(want)):
+            assert torch.equal(a, b)
+
+
+def test_rof_resident_rules_on_the_card(dev):
+    """The card's limits send config 1's 512x512 chunk and multichunk
+    (every data term) to the resident launches and the 2048x1536 and
+    2048x2048 planes to the launch sequences; asking for a resident launch
+    that does not fit raises, and so does the launch the C side refuses."""
+    for multi in (False, True):
+        limits = fr.card_limits(dev, multi)
+        assert limits[0] == torch.cuda.get_device_properties(
+            dev).multi_processor_count
+        for dataterm in ("square", "wsquare", "abs"):
+            assert fr.resident_ok(512, 512, dataterm, *limits, multi)
+        for nx, ny in ((2048, 1536), (2048, 2048)):
+            assert not fr.resident_ok(nx, ny, "square", *limits, multi)
+    x, q, f, w = _rof_planes(333, 2048, 2048, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0], device=dev)
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fr.rof_chunk_(x, q, x.clone(), q.clone(), f, w, scal, 2,
+                      path="resident")
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fr.rof_multichunk_(x, q, x.clone(), q.clone(), f, w,
+                           _rof_mc_scal(0.0, dev), 2, 2, "square", "boyd",
+                           _rof_mc_consts(2048, 2048), path="resident")
+    before = fr.launch_counts["rof_chunk"]
+    fr.rof_chunk_(x, q, x.clone(), q.clone(), f, w, scal, 2)
+    assert fr.launch_counts["rof_chunk"] == before + 1
+    lib = fr._lib()
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = x.new_empty(4 * lib.prost_rof_num_blocks(2048, 2048))
+    with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+        launch(lib, "prost_rof_chunk_resident", "rof_chunk", fr.launch_counts,
+               dev, [x, q, x.clone(), q.clone(), f, w, sc, partial,
+                     x.new_empty(4, 2048, 2048)], 2048, 2048, 2, 0)

@@ -16,7 +16,9 @@ ctypes and call its C entry points with host (numpy) buffers; the extra
 faults and holds one form of a kernel against another bit for bit (both
 run the host's arithmetic); against the plain PyTorch versions expect a
 few ulp (the host rounds rsqrtf and the sums otherwise).  Keep the SM
-count small: a resident launch starts 512 threads a block.
+count small: a resident launch starts 512 threads a block.  Thread-block
+clusters (``fused_rof.cu``'s batched chunk) compile but do not run: their
+launch reports ``cudaErrorNotSupported``.
 """
 
 import os
