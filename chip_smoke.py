@@ -135,7 +135,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    (``phase_resident_rof``: the ROF chunk at config 1's 512x512, counts 1
    and 10, three data terms; the ROF multichunk, every chunk run under
    boyd and alg1 and converging mid-launch; the 2048-row planes on the
-   streaming path) the same way; config 1, config 2, config 3,
+   streaming path) and rows 13 and 3 (``phase_resident_ml_halo``: the
+   multilabel multichunk at config 3's 256x256x8 and at 250x190x5, every
+   chunk run under boyd and goldstein and converging mid-launch, and
+   512x512x8 on the streaming path; the ROF halo chunk on config 1's
+   bands of 1, 2 and 4 shards for the three data terms, each band
+   bit-equal to its launch sequence and its owned rows to the
+   whole-plane chunk) the same way; config 1, config 2, config 3,
    tight128x4, vol256x8 and config 4 through the fused routes with the
    light calls in turns with the copying calls (``copying_routes``), it/s
    and energies;
@@ -147,8 +153,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    (``torch.cuda.device_count()``; with one card both edges of the shard
    receive zeros and its row offset is minus the halo), count the halo
    kernels' launches and the exchanges, and hold each energy against the
-   one-card fused route's; the sharded multilabel and deblur routes again
-   in turns with the copying chunk call; ``ShardedFusedADMM`` at Chebyshev
+   one-card fused route's; the sharded ROF, multilabel, volumetric,
+   deblur and tight routes again in turns with the copying chunk call;
+   ``ShardedFusedADMM`` at Chebyshev
    degree 65 (300 iterations) against the one-card fused ADMM route; then
    run ensemble1024x128 through ``BatchedPDHG`` over a dp mesh of those
    ranks (21 + 300 iterations) and hold every field of every instance
@@ -3544,6 +3551,267 @@ def phase_resident_rof(dev):
     return out
 
 
+def phase_resident_ml_halo(dev):
+    """Rows 13 and 3 grid-resident against their launch sequences at the
+    main path's shapes: ``ml_multichunk_`` at config 3's 256x256x8 and the
+    ragged 250x190x5 (ri 10, 8 chunks) under boyd and goldstein, every
+    chunk run and, from a solve's start on the cow's unaries, at the first
+    tolerance at which the launch converges before its last chunk (planes,
+    previous iterates, norms and sout), and at 512x512x8 on the streaming
+    path (``path="resident"`` raises); ``rof_chunk_halo_`` on config 1's
+    512x512 cut into 1, 2 and 4 bands (ri 10, halo 22) for the square,
+    wsquare and abs data terms: every band's resident launch bit-equal to
+    its streaming sequence (planes, previous iterates, owned-row norms),
+    its owned rows bit-equal to the whole-plane resident chunk's, and the
+    bands' owned-row norms summed within HALO_NORM_RTOL of the whole
+    plane's; the path the shape rule takes (2092x2048 streams); each path
+    in place on buffers made once, in turns (streaming, resident,
+    resident, streaming), with the hand-written kernels each launches per
+    call and their traced device ms; and the call, the copying one (the
+    wrapper on copies, the launch sequence, for the multichunk; for the
+    halo chunk the sharded route's old call: the scalars stacked and the
+    in-place halo chunk with buffers made per call) against the route's
+    light call in place (``MLMultichunk``, ``ROFChunk`` on the band), in
+    turns."""
+    import torch
+
+    import prost_tpu_torch as ptt
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    ri, chunks = 10, 8
+    flag = torch.tensor(False, device=dev)
+    out = {}
+
+    # row 13
+    def mscal(tol, tau=0.9, sigma=1.1):
+        return torch.tensor([tau, sigma, 1.0, ML_LMB, 1.0, 0.5, 0.0, 0.0,
+                             1.0, tol, tol, tol, tol], device=dev)
+
+    def consts_of(L, nx, ny):
+        n = nx * ny
+        return (np.sqrt(2 * n * L + n), np.sqrt(n * L), 1.5, 0.95, 1.05,
+                0.8)
+
+    def both(u, q, s, f, sc, stepsize, label):
+        L, nx, ny = u.shape
+        got = {}
+        for path in ("streaming", "resident"):
+            cur = [u.clone(), q.clone(), s.clone()]
+            prev = [torch.full_like(t, float("nan")) for t in cur]
+            norms, sout = fm.ml_multichunk_(*cur, *prev, f, sc, ri, chunks,
+                                            stepsize, consts_of(L, nx, ny),
+                                            path=path)
+            got[path] = cur + prev + [norms.clone(), sout.clone()]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                      got["resident"]))
+              and all(bool(torch.isfinite(t).all())
+                      for t in got["resident"]),
+              f"ml_multichunk {label}: the resident launch is not the "
+              "launch sequence")
+        return got["resident"][7]
+
+    for seed, (L, nx, ny) in enumerate(((ML_LABELS, ML_SIZE, ML_SIZE),
+                                        (5, 250, 190))):
+        shape = f"{nx}x{ny}x{L}"
+        check(fm.resident_ok(L, nx, ny, *fm.card_limits(dev, L, multi=True),
+                             multi=True),
+              f"ml_multichunk: the shape rule streams {shape}")
+        u, q, s, f = ml_kernel_inputs(L, nx, ny, 670 + seed, dev)
+        fcow = torch.from_numpy(ml_unaries(cow_gray(ny, nx), L)).to(
+            dev).reshape(L, nx, ny)
+        zeros = [torch.zeros_like(fcow), torch.zeros((2 * L, nx, ny),
+                                                     device=dev),
+                 torch.zeros((nx, ny), device=dev)]
+        for stepsize in ("boyd", "goldstein"):
+            sout = both(u, q, s, f, mscal(0.0), stepsize,
+                        f"{shape} {stepsize}")
+            check(sout[5:].tolist() == [0.0, chunks],
+                  "ml_multichunk: not every chunk ran")
+            for tol in (2e-2, 1e-2, 5e-3, 2e-3, 1e-3, 5e-4, 2e-4, 1e-4):
+                sout = both(*zeros, fcow, mscal(tol, 1.0, 1.0), stepsize,
+                            f"{shape} {stepsize} tol {tol:g}")
+                if sout[5].item() == 1.0 and 1 < sout[6].item() < chunks:
+                    break
+            check(sout[5].item() == 1.0 and sout[6].item() < chunks,
+                  f"ml_multichunk {shape} {stepsize}: no tolerance "
+                  "converged mid-launch")
+            print(f"ml_multichunk {shape} {stepsize}: resident bit-equal to "
+                  f"the launch sequence in the planes, previous iterates, "
+                  f"norms and sout, every chunk run and converging at "
+                  f"tolerance {tol:g} after {int(sout[6].item())} chunks "
+                  f"(sout {sout.tolist()})")
+
+    L, n = ML_LABELS, ML_SIZE
+    u0, q0, s0, f = ml_kernel_inputs(L, n, n, 672, dev)
+    consts = consts_of(L, n, n)
+    m = {"L": L, "nx": n, "ny": n, "f": f,
+         "radius_t": torch.tensor(ML_LMB, device=dev),
+         "d_s_t": torch.tensor(1.0, device=dev),
+         "tols_t": tuple(torch.tensor(0.0, device=dev) for _ in range(4)),
+         "adapt_consts": consts}
+    mlight = fm.MLMultichunk(m, ri, chunks, "boyd", dev)
+    check(mlight.resident, f"MLMultichunk: the shape rule streams "
+          f"{n}x{n}x{L}")
+    mbufs = {p: ([u0.clone(), q0.clone(), s0.clone()],
+                 [u0.clone(), q0.clone(), s0.clone()])
+             for p in ("streaming", "resident")}
+    sc0 = mscal(0.0)
+
+    def multi_run(path, count=ri):
+        return lambda: fm.ml_multichunk_(
+            *mbufs[path][0], *mbufs[path][1], f, sc0, count, chunks, "boyd",
+            consts, path=path)
+
+    def multi_copying():
+        cur = [u0.clone(), q0.clone(), s0.clone()]
+        prev = [t.clone() for t in cur]
+        return cur, prev, fm.ml_multichunk_(*cur, *prev, f, sc0, ri, chunks,
+                                            "boyd", consts,
+                                            path="streaming")
+
+    lcur = [u0.clone(), q0.clone(), s0.clone()]
+    lprev = [t.clone() for t in lcur]
+    steps = [torch.tensor(v, device=dev) for v in (0.9, 1.1, 1.0, 0.5, 0.0,
+                                                   0.0)]
+    it0 = torch.tensor(1, device=dev)
+
+    def multi_light():
+        return mlight(lcur, lprev, *steps, it0, flag)
+
+    out["ml_multichunk"] = resident_turns(
+        f"ml_multichunk {n}x{n}x{L}, {chunks} chunks", multi_run,
+        multi_copying, multi_light, "ml_multichunk_resident",
+        chunks * (ri - 1))
+    sms, smem = fm.card_limits(dev, L, multi=True)
+    print(f"resident limits: {sms} SMs, {smem} bytes of dynamic shared "
+          f"memory a multilabel multichunk block (it holds "
+          f"{fm.resident_bytes(L, n, n, sms, True)} at {n}x{n}x{L}; "
+          f"{ML_LARGE}x{ML_LARGE}x{L} streams: "
+          f"{fm.resident_bytes(L, ML_LARGE, ML_LARGE, sms, True)})")
+    check(not fm.resident_ok(L, ML_LARGE, ML_LARGE, sms, smem, multi=True),
+          f"the shape rule made {ML_LARGE}x{ML_LARGE}x{L}'s multichunk "
+          "resident")
+    bu, bq, bs, bf = ml_kernel_inputs(L, ML_LARGE, ML_LARGE, 673, dev)
+    bargs = (bf, mscal(0.0), 2, 2, "boyd", consts_of(L, ML_LARGE, ML_LARGE))
+    try:
+        fm.ml_multichunk_(bu, bq, bs, bu.clone(), bq.clone(), bs.clone(),
+                          *bargs, path="resident")
+        check(False, "ml_multichunk_ 512x512x8: path='resident' did not "
+              "raise")
+    except ptt.ProstError:
+        pass
+    traced = csrc_launches(lambda: fm.ml_multichunk_(
+        bu, bq, bs, bu.clone(), bq.clone(), bs.clone(), *bargs))[0]
+    check("ml_multichunk_resident" not in traced and len(traced) > 1
+          and all(bool(torch.isfinite(t).all()) for t in (bu, bq, bs)),
+          f"ml_multichunk_ {ML_LARGE}x{ML_LARGE}x{L} did not stream")
+    print(f"ml_multichunk_ {ML_LARGE}x{ML_LARGE}x{L}: streams by the shape "
+          f"rule ({len(traced)} hand-written launches at 2 chunks of 2); "
+          "path='resident' raises ProstError")
+
+    # row 3
+    nr, H = ROF_SIZE, 2 * ri + 2
+    planes = kernel_inputs(nr, nr, 674, dev)  # mass on the dead duals
+    head = [0.9, 1.1, 1.0, ROF_LMB, 1.0]
+    for dataterm in ("square", "wsquare", "abs"):
+        whole = [t.clone() for t in planes[:2]]
+        wprev = [torch.empty_like(t) for t in whole]
+        wn = fr.rof_chunk_(*whole, *wprev, *planes[2:],
+                           torch.tensor(head, device=dev), ri, dataterm,
+                           path="resident").clone()
+        for shards in HALO_SHARDS:
+            rs = nr // shards
+            total = torch.zeros(4, dtype=torch.float64, device=dev)
+            for rank in range(shards):
+                lo = rank * rs - H
+                ext = [window(a, lo, lo + rs + 2 * H) for a in planes]
+                scal = torch.tensor(head + [lo, H, H + rs], device=dev)
+                check(fr.resident_ok(rs + 2 * H, nr, dataterm,
+                                     *fr.card_limits(dev)),
+                      f"rof_chunk_halo: the shape rule streams the "
+                      f"{rs + 2 * H}-row band")
+                got = {}
+                for path in ("streaming", "resident"):
+                    cur = [t.clone() for t in ext[:2]]
+                    prev = [torch.full_like(t, float("nan")) for t in cur]
+                    norms2 = fr.rof_chunk_halo_(*cur, *prev, *ext[2:], scal,
+                                                ri, nr, dataterm,
+                                                path=path).clone()
+                    got[path] = cur + prev + [norms2]
+                torch.cuda.synchronize()
+                res = got["resident"]
+                check(all(torch.equal(a, b) for a, b in
+                          zip(got["streaming"], res))
+                      and all(bool(torch.isfinite(t).all()) for t in res),
+                      f"rof_chunk_halo {dataterm} band {rank} of {shards}: "
+                      "the resident launch is not the launch sequence")
+                check(all(torch.equal(a[..., H:H + rs, :],
+                                      b[..., rank * rs:(rank + 1) * rs, :])
+                          for a, b in zip(res[:4], whole + wprev)),
+                      f"rof_chunk_halo {dataterm} band {rank} of {shards}: "
+                      "the owned rows are not the whole-plane chunk's")
+                total += res[4].double()
+            rel = float(torch.max(torch.abs(total - wn.double())
+                                  / torch.abs(wn.double())))
+            check(rel <= HALO_NORM_RTOL,
+                  f"rof_chunk_halo {dataterm}: the norms of {shards} bands "
+                  "do not sum to the whole plane's")
+            print(f"rof_chunk_halo {nr}x{nr} {dataterm}, {shards} band(s) of "
+                  f"{rs + 2 * H} rows: resident bit-equal to the launch "
+                  f"sequence in the planes, previous iterates and owned-row "
+                  f"norms; owned rows bit-equal to the whole-plane resident "
+                  f"chunk; the bands' norms against the whole plane's: max "
+                  f"rel diff {rel:.3e} (tol {HALO_NORM_RTOL:g})")
+    ext = [window(a, -H, nr + H) for a in planes]
+    scal = torch.tensor(head + [-H, H, H + nr], device=dev)
+    hbufs = {p: ([t.clone() for t in ext[:2]], [t.clone() for t in ext[:2]])
+             for p in ("streaming", "resident")}
+
+    def halo_run(path, count=ri):
+        return lambda: fr.rof_chunk_halo_(*hbufs[path][0], *hbufs[path][1],
+                                          *ext[2:], scal, count, nr,
+                                          path=path)
+
+    # the sharded route's old call: the scalars stacked from the state's
+    # and the route's tensors, the in-place halo chunk with buffers made
+    # per call, on the route's buffers
+    ccur, cprev = [t.clone() for t in ext[:2]], [t.clone() for t in ext[:2]]
+    consts_t = [torch.tensor(v, device=dev) for v in head[3:]]
+    rows_t = [torch.tensor(float(v), device=dev) for v in (-H, H, H + nr)]
+
+    def halo_copying():
+        sc = torch.stack([*steps[:3], *consts_t, *rows_t,
+                          flag.to(torch.float32)])
+        return fr.rof_chunk_halo_(*ccur, *cprev, *ext[2:], sc, ri, nr,
+                                  path="streaming")
+
+    rm = {"nx": nr, "ny": nr, "dataterm": "square", "lmb": ROF_LMB,
+          "radius": 1.0}
+    hlight = fr.ROFChunk(rm, ri, dev, (nr, nr + 2 * H, -H, H, H + nr))
+    check(hlight.resident, f"ROFChunk: the shape rule streams the "
+          f"{nr + 2 * H}-row band")
+    hcur, hprev = [t.clone() for t in ext[:2]], [t.clone() for t in ext[:2]]
+
+    def halo_light():
+        return hlight(hcur, hprev, *ext[2:], *steps[:3], flag)
+
+    out["rof_chunk_halo"] = resident_turns(
+        f"rof_chunk_halo {nr + 2 * H}x{nr} band", halo_run, halo_copying,
+        halo_light, "rof_resident", ri - 1, reps=50)
+    sms, smem = fr.card_limits(dev)
+    big = 2048 + 2 * H
+    print(f"resident limits: a ROF chunk block holds "
+          f"{fr.resident_bytes(nr + 2 * H, nr, sms)} bytes on the "
+          f"{nr + 2 * H}-row band ({smem} allowed); the {big}x2048 band "
+          f"streams ({fr.resident_bytes(big, 2048, sms)} bytes)")
+    check(not fr.resident_ok(big, 2048, "square", sms, smem),
+          f"the shape rule made the {big}x2048 band resident")
+    return out
+
+
 def deblur_pairs_turns(views, x, y, fb, sv, scal, taps, ri, reps=20):
     """Row 18's two grid-resident forms at deblur8x512's shape, in place
     on a route's rows ``x``, ``y`` (``views`` cuts them into the frames'
@@ -3653,19 +3921,20 @@ def resident_turns(label, run, copying, call, kernel, extra_iters,
 def copying_routes():
     """A context in which the ROF, deblur, multilabel, tight and volumetric
     routes, whole-plane (``FusedROFPDHG``) and halo-sharded
-    (``ShardedFusedDeblur``, ``ShardedFusedMultilabel``,
-    ``ShardedFusedTight``, ``ShardedFusedVol``), ``BatchedPDHG``'s
-    multilabel, volumetric
-    and deblur routes, the ROF and volumetric routes' multichunks and
-    ``FusedROFADMM``'s chunks and multichunks make the copying
-    call that the light calls replace: the scalars
+    (``ShardedFusedROF``, ``ShardedFusedDeblur``,
+    ``ShardedFusedMultilabel``, ``ShardedFusedTight``,
+    ``ShardedFusedVol``), ``BatchedPDHG``'s multilabel, volumetric
+    and deblur routes, the ROF, multilabel and volumetric routes'
+    multichunks and ``FusedROFADMM``'s chunks and multichunks make the
+    copying call that the light calls replace: the scalars
     stacked per chunk, the functional wrapper on copies of the state with
     buffers made per call, the streaming launch sequence, and y and y_prev
-    concatenated after the chunk (whole plane, ensemble, the ROF and vol
-    multichunks' copies of the state planes); the scalars
-    stacked and the in-place halo chunk with buffers made per call
-    (sharded); the scalars stacked, copies of the seven state arrays, the
-    launch sequence and sout stacked (ADMM)."""
+    concatenated after the chunk (whole plane, ensemble, the ROF,
+    multilabel and vol multichunks' copies of the state planes); the
+    scalars stacked from tensors made once per route and the in-place
+    halo chunk with buffers made per call (sharded); the scalars stacked,
+    copies of the seven state arrays, the launch sequence and sout stacked
+    (ADMM)."""
     import contextlib
 
     import torch
@@ -3689,6 +3958,9 @@ def copying_routes():
     def streaming(fn):
         return lambda *a: fn(*a, path="streaming")
 
+    def flat_y(q, s):
+        return torch.cat([q.reshape(-1), s.reshape(-1)])
+
     def deblur_chunk(b, s):
         d, ri = b.deblur, max(int(b.opts.residual_iter), 1)
         scal = torch.stack([s.tau, s.sigma, s.theta, d["lmb_t"],
@@ -3709,8 +3981,8 @@ def copying_routes():
         u2, q2, s2, up, qp, sp, norms2 = halo_copy(
             streaming(fm.ml_chunk_), fm._planes(m, s.x, s.y), m["f"], scal,
             ri)
-        return chunk_state(b, s, ri, u2.reshape(-1), fm._flat_y(q2, s2),
-                           up.reshape(-1), fm._flat_y(qp, sp), norms2)
+        return chunk_state(b, s, ri, u2.reshape(-1), flat_y(q2, s2),
+                           up.reshape(-1), flat_y(qp, sp), norms2)
 
     def tight_chunk(b, s):
         t, ri = b.tight, max(int(b.opts.residual_iter), 1)
@@ -3778,6 +4050,21 @@ def copying_routes():
         return multichunk_state(s, ri, *[t.reshape(-1) for t in cur + prev],
                                 norms, sc)
 
+    def ml_multi(b, s):
+        m, ri = b.ml, max(int(b.opts.residual_iter), 1)
+        scal = torch.stack([
+            s.tau, s.sigma, s.theta, m["radius_t"], m["d_s_t"],
+            s.arg_alpha, s.arb_l, s.arb_u, s.iteration.to(s.x.dtype),
+            *m["tols_t"], s.converged.to(s.x.dtype)])
+        cur = [t.contiguous().clone() for t in fm._planes(m, s.x, s.y)]
+        prev = [t.clone() for t in cur]
+        norms, sc = fm.ml_multichunk_(
+            *cur, *prev, m["f"], scal, ri, K_CHUNKS, b.opts.stepsize,
+            m["adapt_consts"], path="streaming")
+        return multichunk_state(s, ri, cur[0].reshape(-1),
+                                flat_y(cur[1], cur[2]), prev[0].reshape(-1),
+                                flat_y(prev[1], prev[2]), norms, sc)
+
     def rof_run(b, state, until, start):
         r = b.rof
         return run_pdhg_route(b, state, until, start,
@@ -3792,16 +4079,23 @@ def copying_routes():
                               canonical_duals(v["L"], v["nx"], v["ny"]),
                               lambda s: vol_multi(b, s))
 
-    def tight_halo(self, cur, prev, scal):
-        m = self.m
-        return ft.tight_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
-                                    m["nx"], m["taps"], m["consts"],
-                                    path="streaming")
-
-    def vol_halo(self, cur, prev, scal):
-        return fv.vol_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
-                                  self.m["nx"], self.m["dataterm"],
-                                  path="streaming")
+    def halo_step(fn, consts, extra):
+        """A halo route's copying ``_chunk_step``: scal8 stacked from the
+        state's scalars and tensors of the route's two scalars and row
+        context (made on its first chunk), ``fn`` in place on the route's
+        buffers with buffers of its own made per call, the launch
+        sequence."""
+        def step(self, s, cur, prev):
+            if "_copy_scal" not in self.__dict__:
+                like = s.tau
+                self._copy_scal = [like.new_full((), float(v)) for v in (
+                    *(self.m[k] for k in consts), self.lo, self.halo,
+                    self.halo + self.rows)]
+            scal = torch.stack([s.tau, s.sigma, s.theta, *self._copy_scal,
+                                s.converged.to(s.tau.dtype)])
+            return fn(*cur, *prev, *self.data, scal, self.ri, self.m["nx"],
+                      *extra(self.m), path="streaming")
+        return step
 
     def deblur_run(b, state, until, start):
         return run_pdhg_route(b, state, until, start,
@@ -3812,17 +4106,8 @@ def copying_routes():
         return run_pdhg_route(b, state, until, start,
                               lambda s: ml_chunk(b, s),
                               canonical_duals(m["L"], m["nx"], m["ny"]),
-                              lambda s: fm._multi_chunk(b, s))
+                              lambda s: ml_multi(b, s))
 
-    def deblur_halo(self, cur, prev, scal):
-        m = self.m
-        return fd.deblur_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
-                                     m["nx"], m["taps"], m["sig_q"],
-                                     m["tau_t"], path="streaming")
-
-    def ml_halo(self, cur, prev, scal):
-        return fm.ml_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
-                                 self.m["nx"], path="streaming")
 
     def ml_batched(self, s, done):
         m, B = self.ml, self.batch
@@ -3914,14 +4199,20 @@ def copying_routes():
                (ens.BatchedPDHG, "_deblur_chunk", deblur_batched),
                (fa, "_fused_chunk", admm_chunk),
                (fa, "_multi_chunk", admm_multi),
-               (sf.ShardedFusedDeblur, "_light", None),
-               (sf.ShardedFusedDeblur, "_chunk_halo", deblur_halo),
-               (sf.ShardedFusedMultilabel, "_light", None),
-               (sf.ShardedFusedMultilabel, "_chunk_halo", ml_halo),
-               (sf.ShardedFusedTight, "_light", None),
-               (sf.ShardedFusedTight, "_chunk_halo", tight_halo),
-               (sf.ShardedFusedVol, "_light", None),
-               (sf.ShardedFusedVol, "_chunk_halo", vol_halo)]
+               (sf.ShardedFusedROF, "_chunk_step", halo_step(
+                   fr.rof_chunk_halo_, ("lmb", "radius"),
+                   lambda m: (m["dataterm"],))),
+               (sf.ShardedFusedDeblur, "_chunk_step", halo_step(
+                   fd.deblur_chunk_halo_, ("lmb", "radius"),
+                   lambda m: (m["taps"], m["sig_q"], m["tau_t"]))),
+               (sf.ShardedFusedMultilabel, "_chunk_step", halo_step(
+                   fm.ml_chunk_halo_, ("radius", "d_s"), lambda m: ())),
+               (sf.ShardedFusedTight, "_chunk_step", halo_step(
+                   ft.tight_chunk_halo_, ("radius", "d_s"),
+                   lambda m: (m["taps"], m["consts"]))),
+               (sf.ShardedFusedVol, "_chunk_step", halo_step(
+                   fv.vol_chunk_halo_, ("lmb", "radius"),
+                   lambda m: (m["dataterm"],)))]
 
     @contextlib.contextmanager
     def patched():
@@ -4174,7 +4465,7 @@ def sharded_solves(rank, world, init_method, card):
                          "launches": mod.launch_counts[name],
                          "name": name, "ri": opts[1].residual_iter,
                          "backend": dist.get_backend()}
-            if kind in ("ml", "deblur", "vol", "tight"):
+            if kind in ("rof", "ml", "deblur", "vol", "tight"):
                 out[kind]["turns"] = route_turns(
                     f"rank {rank}: sharded {kind} route on {world} rank(s)",
                     lambda solve=solve: solve(2000), energy, card)
@@ -4386,8 +4677,9 @@ def phase_large(card):
           f"a multilabel kernel was not launched at {nx}x{ny}x{L}: "
           f"{launches}")
     e = ml_energy(res.x, f, ML_LMB, L, nx, ny)
-    check(not backend.made.ml["call"].resident,
-          "the shape rule made ML_LARGE's chunks resident")
+    check(not backend.made.ml["multi"].resident
+          and not backend.made.ml["call"].resident,
+          "the shape rule made ML_LARGE's multichunk or chunks resident")
     print(f"fused multilabel solve {nx}x{ny}x{L} (streaming path): "
           f"{rates(res, backend, dt)}; energy {e:.6f}, launches {launches} "
           f"[{card}]")
@@ -4485,6 +4777,7 @@ def main() -> int:
     resident.update(phase(phase_resident_batched, dev))
     resident.update(phase(phase_resident_chunk_multi, dev))
     resident.update(phase(phase_resident_rof, dev))
+    resident.update(phase(phase_resident_ml_halo, dev))
     launches, e_pdhg, d_pdhg = phase(phase_solve, card)
     admm_launches, e_admm = phase(phase_admm_solve, card, e_pdhg, d_pdhg)
     launches.update(admm_launches)

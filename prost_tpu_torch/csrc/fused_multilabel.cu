@@ -34,10 +34,12 @@
 // in the shared memory of one block per SM (the wrapper's shape rule:
 // 256x256x8 and its one-shard halo band, not 512x512x8), the chunk and its
 // halo mode run instead as one grid-resident cooperative launch
-// (ml_resident, further down), bit-equal to the sequence, and the batched
+// (ml_resident, further down), bit-equal to the sequence; the batched
 // chunk runs its instances one after another in one such launch
 // (ml_resident_batched): B = 8 of 256x256x8 stream 240 MB an iteration,
-// beyond the L2, where one instance's 13 MB of state stays on chip.
+// beyond the L2, where one instance's 13 MB of state stays on chip; and
+// the multichunk runs all its chunks and their adaptation in one such
+// launch (ml_multichunk_resident), where the launch sequence takes 177.
 //
 // Design.  One thread per pixel, 32x8 blocks with threadIdx.x along the
 // contiguous y axis (pdhg_chunk.cuh), and each thread loops over the L
@@ -328,7 +330,9 @@ __global__ void ml_norm_partial(ML b) {
 // chunk() runs in 2 count + 3 launches, for the whole plane and for a halo
 // band alike (the row context of pdhg_chunk.cuh).  Its batched form
 // (ml_resident_batched) runs the same chunk on B instances one after
-// another in one launch.
+// another in one launch, and its multichunk form (ml_multichunk_resident)
+// runs what prost_ml_multichunk runs in 1 + k_chunks (2 count + 2)
+// launches.
 //
 // What bounds it.  At config 3's shape (256x256x8, ri 10) the streaming
 // sequence passes over 14L + 5 planes in device memory an iteration and
@@ -349,32 +353,56 @@ __global__ void ml_norm_partial(ML b) {
 // buffers per parity of the iteration, measured slower on an H100: 0.1000
 // against 0.0861 ms a chunk at 256x256x8; the extra row costs more than
 // the barrier.)  The aligned primal step writes u_prev and keeps
-// w_hat in f's rows (f is not read again); the aligned dual step writes
-// q_prev and s_prev and the terms of |pd|^2 and |z_hat|^2 (the previous
-// gradient held in registers); after the last exchange K^T y of the new
-// duals completes |dd|^2 and |w_hat|^2.  The per-pixel expressions are
-// ml_seed's, ml_primal's, ml_dual<LT>'s and ml_norm_partial's, the norms
+// w_hat in f's rows (f is not read again in a chunk); the aligned dual
+// step writes q_prev and s_prev and the terms of |pd|^2 and |z_hat|^2 (the
+// previous gradient held in registers); after the last exchange K^T y of
+// the new duals completes |dd|^2 and |w_hat|^2.  The per-pixel expressions
+// are ml_seed's, ml_primal's, ml_dual<LT>'s and ml_norm_partial's, the norms
 // reduce through the same tiles and finish (coop_tile_partials,
 // finish_block): the launch is bit-equal to the streaming sequence.  Up to
 // MAX_REG_L labels (a pixel's 2L components and its previous gradient in
 // registers); the wrapper's shape rule streams more.  Barriers: one after
 // the load, two an iteration, one before the tiles, one before the finish.
+// The pieces (ml_res_load_seed, ml_res_iteration, ml_res_norms) also make
+// the multichunk: the load and the seed once, then for each chunk the
+// scalars read anew (the last finish adapted them), `count` iterations,
+// the norms and finish_block's adaptation in block 0, and after a barrier
+// the flag, on which the whole grid leaves together; w_hat takes a window
+// of its own (f is read in the next chunk), which the tiles and the finish
+// borrow as their reduction array; q_y and s go to device memory once,
+// after the last chunk.
 // ---------------------------------------------------------------------------
 
 struct MLRes {
-  LWin u, qx, qy, gx, gy, f;  // f's rows take w_hat after the last primal
-  LWin s, su;                 // one plane each
+  LWin u, qx, qy, gx, gy, f;
+  LWin s, su;  // one plane each
+  LWin wh;     // w_hat of the aligned primal step: f's rows in a chunk (f is
+               // not read again), a window of its own in a multichunk
+  float* red;  // RES_RED floats for the tiles and the finish: the start of
+               // the windows in a chunk (all read by then), w_hat's window
+               // in a multichunk (read by then, rewritten in the next chunk)
 };
 
-// Floats of MLRes for bands of at most rmax rows.
+constexpr int RES_RED = RES_RED_BYTES / (int)sizeof(float);
+
+// Floats of MLRes for bands of at most rmax rows (with `multi`, w_hat's
+// window, at least the reductions' array), mirrored by
+// ops/fused_multilabel.py resident_bytes.
 __host__ __device__ __forceinline__ size_t ml_resident_floats(int L,
                                                               int rmax,
-                                                              int ny) {
-  return ((size_t)2 * L * (rmax + 1) + (size_t)4 * L * rmax + 2 * rmax) * ny;
+                                                              int ny,
+                                                              int multi = 0) {
+  size_t floats =
+      ((size_t)2 * L * (rmax + 1) + (size_t)4 * L * rmax + 2 * rmax) * ny;
+  if (multi) {
+    size_t wh = (size_t)L * rmax * ny;
+    floats += wh > (size_t)RES_RED ? wh : (size_t)RES_RED;
+  }
+  return floats;
 }
 
 __device__ __forceinline__ MLRes ml_layout(float* smem, int L, int lo,
-                                           int rmax, int ny) {
+                                           int rmax, int ny, bool multi) {
   MLRes w;
   float* p = smem;
   w.u = take(p, L, lo, rmax + 1, ny);
@@ -385,35 +413,51 @@ __device__ __forceinline__ MLRes ml_layout(float* smem, int L, int lo,
   w.f = take(p, L, lo, rmax, ny);
   w.s = take(p, 1, lo, rmax, ny);
   w.su = take(p, 1, lo, rmax, ny);
+  w.wh = multi ? take(p, L, lo, rmax, ny) : w.f;
+  w.red = multi ? w.wh.a : smem;
   return w;
 }
 
-// One chunk of one instance by the whole grid (the body of ml_resident and
-// ml_resident_batched), the instance's flag found clear by every block:
-// load, seed, `count` iterations, the norms' terms and tiles, and the
-// finish in block 0, which leaves `smem` to the next instance only after a
-// grid barrier.
-template <int LT>
-__device__ __forceinline__ void ml_resident_chunk(
-    const ML& b, int count, int rmax, float* smem,
-    cooperative_groups::grid_group& grid) {
-  constexpr int L = LT;
-  const int nx = b.nx, ny = b.ny;
-  const size_t n = (size_t)nx * ny, nl = n * L;
-  const RowCtx r = row_ctx(b.sc, nx, b.nxg);
-  int lo, hi;
-  band_of(nx, blockIdx.x, gridDim.x, lo, hi);
-  const MLRes w = ml_layout(smem, L, lo, rmax, ny);
-  const int npx = (hi - lo) * ny;
+// The launch's scalars and the constants the pixel loops share, each the
+// same expression of them as in the streaming kernels; read through a
+// volatile pointer, since a multichunk's finish in block 0 changes them
+// between chunks.
+struct MLStep {
+  float theta, ball, ds, tau, inv_t, sig_q, sig_s, tp, inv_q, inv_s;
+};
 
+__device__ __forceinline__ MLStep ml_step(const ML& b) {
+  const volatile float* s = b.sc;
+  MLStep k;
+  const float tau_raw = s[S_TAU], sigma = s[S_SIGMA];
+  k.theta = s[S_THETA];
+  k.ball = s[S_BALL];
+  k.ds = s[S_DS];
+  k.tau = tau_raw * TAU_C;  // tau * Tau
+  k.inv_t = 1.f / (tau_raw * SQRT_T);
+  k.sig_q = sigma * SIG_Q;    // sigma * Sigma_q
+  k.sig_s = sigma * b.inv_l;  // sigma * Sigma_s
+  k.tp = 1.f + k.theta;
+  k.inv_q = 1.f / (sigma * SQRT_S_Q);
+  k.inv_s = 1.f / (sigma * b.sqrt_inv_l);
+  return k;
+}
+
+// The band's rows of u (and the row below), q (q_x with the row above), f
+// and s into their windows, then ml_seed: the dead duals zeroed (also on
+// the q_x row above the band), g and su of the band; a grid barrier.
+template <int L>
+__device__ __forceinline__ void ml_res_load_seed(
+    const ML& b, const MLRes& w, const RowCtx& r, int lo, int hi,
+    cooperative_groups::grid_group& grid) {
+  const int nx = b.nx, ny = b.ny;
+  const size_t nl = (size_t)nx * ny * L;
   load_rows(w.u, b.u, L, lo, hi + 1, nx);
   load_rows(w.qx, b.q, L, lo - 1, hi, nx);
   load_rows(w.qy, b.q + nl, L, lo, hi, nx);
   load_rows(w.f, b.f, L, lo, hi, nx);
   load_rows(w.s, b.s, 1, lo, hi, nx);
   __syncthreads();
-  // ml_seed: the dead duals zeroed (also on the q_x row above the band),
-  // g and su of the band
   const int top = lo > 0 ? lo - 1 : lo;
   for (int k = threadIdx.x, i = top + k / ny, j = k % ny; k < (hi - top) * ny;
        k += RES_THREADS, next_pixel(i, j, ny)) {
@@ -436,128 +480,138 @@ __device__ __forceinline__ void ml_resident_chunk(
     w.su.at(0, i, j) = acc;
   }
   grid.sync();
+}
 
-  // the launch's scalars and the constants the pixel loops share, each
-  // the same expression of them as in the streaming kernels
-  const float tau_raw = b.sc[S_TAU], sigma = b.sc[S_SIGMA];
-  const float theta = b.sc[S_THETA], ball = b.sc[S_BALL], ds = b.sc[S_DS];
-  const float tau = tau_raw * TAU_C;  // tau * Tau
-  const float inv_t = 1.f / (tau_raw * SQRT_T);
-  const float sig_q = sigma * SIG_Q;    // sigma * Sigma_q
-  const float sig_s = sigma * b.inv_l;  // sigma * Sigma_s
-  const float tp = 1.f + theta;
-  const float inv_q = 1.f / (sigma * SQRT_S_Q);
-  const float inv_s = 1.f / (sigma * b.sqrt_inv_l);
-  for (int it = 0; it < count; ++it) {
-    const bool last = it == count - 1;
-    // ml_primal
-    for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
-         k += RES_THREADS, next_pixel(i, j, ny)) {
-      size_t p = (size_t)i * ny + j;
-      float sv = w.s.at(0, i, j);
-      bool above = has_above(r, i);
-      for (int l = 0; l < L; ++l) {
-        size_t pl = l * n + p;
-        float qx = w.qx.at(l, i, j), qy = w.qy.at(l, i, j);
-        float lx = above ? w.qx.at(l, i - 1, j) : 0.f;
-        float ly = j > 0 ? w.qy.at(l, i, j - 1) : 0.f;
-        float kty = ((lx - qx) + (ly - qy)) + sv;
-        float uv = w.u.at(l, i, j);
-        float tf = tau * w.f.at(l, i, j);
-        float un = fmaxf((uv - tau * kty) - tf, 0.f);
-        if (last) {
-          b.up[pl] = uv;
-          w.f.at(l, i, j) = (uv - un) * inv_t - SQRT_T * kty;  // w_hat
-        }
-        w.u.at(l, i, j) = un;
-        b.u[pl] = un;
-      }
-    }
-    grid.sync();
-    load_rows(w.u, b.u, L, hi, hi + 1, nx);
-    __syncthreads();
-    // ml_dual<LT>
-    for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
-         k += RES_THREADS, next_pixel(i, j, ny)) {
-      size_t p = (size_t)i * ny + j;
-      float ax[L], ay[L], gpx[L], gpy[L];
-      float su2 = 0.f, nrm2 = 0.f;
-      bool below = has_below(r, i, nx);
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        size_t pl = l * n + p;
-        float uv = w.u.at(l, i, j);
-        float gx2 = below ? w.u.at(l, i + 1, j) - uv : 0.f;
-        float gy2 = j < ny - 1 ? w.u.at(l, i, j + 1) - uv : 0.f;
-        su2 = l == 0 ? uv : su2 + uv;
-        float qx = w.qx.at(l, i, j), qy = w.qy.at(l, i, j);
-        float gx = w.gx.at(l, i, j), gy = w.gy.at(l, i, j);
-        float axv = qx + sig_q * (tp * gx2 - theta * gx);
-        float ayv = qy + sig_q * (tp * gy2 - theta * gy);
-        float t = axv * axv + ayv * ayv;
-        nrm2 = l == 0 ? t : nrm2 + t;
-        if (last) {
-          b.qp[pl] = qx;
-          b.qp[nl + pl] = qy;
-        }
-        gpx[l] = gx;
-        gpy[l] = gy;
-        w.gx.at(l, i, j) = gx2;
-        w.gy.at(l, i, j) = gy2;
-        ax[l] = axv;
-        ay[l] = ayv;
-      }
-      float scale = nrm2 > 0.f ? fminf(1.f, ball * rsqrtf(nrm2)) : 1.f;
-      const bool own = last && owned_row(r, i);
-      float v0 = 0.f, v1 = 0.f;
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        size_t pl = l * n + p;
-        float qxn = ax[l] * scale, qyn = ay[l] * scale;
-        if (own) {  // ml_norm_partial's terms of the q planes
-          float gx2 = w.gx.at(l, i, j), gy2 = w.gy.at(l, i, j);
-          float zx = (w.qx.at(l, i, j) - qxn) * inv_q
-                     + SQRT_S_Q * (tp * gx2 - theta * gpx[l]);
-          float zy = (w.qy.at(l, i, j) - qyn) * inv_q
-                     + SQRT_S_Q * (tp * gy2 - theta * gpy[l]);
-          float pdx = zx - SQRT_S_Q * gx2;
-          float pdy = zy - SQRT_S_Q * gy2;
-          v0 += pdx * pdx + pdy * pdy;
-          v1 += zx * zx + zy * zy;
-        }
-        w.qx.at(l, i, j) = qxn;
-        w.qy.at(l, i, j) = qyn;
-        b.q[pl] = qxn;
-        if (last) b.q[nl + pl] = qyn;
-      }
-      float sv = w.s.at(0, i, j), suv = w.su.at(0, i, j);
-      float sn = (sv + sig_s * (tp * su2 - theta * suv)) - sig_s * ds;
-      w.s.at(0, i, j) = sn;
-      w.su.at(0, i, j) = su2;
+// One iteration on the band: ml_primal, the row of u below exchanged,
+// ml_dual<L>, the row of q_x above exchanged.  The aligned (`last`)
+// iteration also writes u_prev, q_prev, s_prev, w_hat and the |pd|^2 and
+// |z_hat|^2 terms, and with `put` q_y and s to device memory (a chunk's
+// band is then stored; a multichunk stores q_y and s after its last
+// chunk).
+template <int L>
+__device__ __forceinline__ void ml_res_iteration(
+    const ML& b, const MLRes& w, const RowCtx& r, const MLStep& k, int lo,
+    int hi, bool last, bool put, cooperative_groups::grid_group& grid) {
+  const int nx = b.nx, ny = b.ny;
+  const size_t n = (size_t)nx * ny, nl = n * L;
+  const int npx = (hi - lo) * ny;
+  // ml_primal
+  for (int t = threadIdx.x, i = lo + t / ny, j = t % ny; t < npx;
+       t += RES_THREADS, next_pixel(i, j, ny)) {
+    size_t p = (size_t)i * ny + j;
+    float sv = w.s.at(0, i, j);
+    bool above = has_above(r, i);
+    for (int l = 0; l < L; ++l) {
+      size_t pl = l * n + p;
+      float qx = w.qx.at(l, i, j), qy = w.qy.at(l, i, j);
+      float lx = above ? w.qx.at(l, i - 1, j) : 0.f;
+      float ly = j > 0 ? w.qy.at(l, i, j - 1) : 0.f;
+      float kty = ((lx - qx) + (ly - qy)) + sv;
+      float uv = w.u.at(l, i, j);
+      float tf = k.tau * w.f.at(l, i, j);
+      float un = fmaxf((uv - k.tau * kty) - tf, 0.f);
       if (last) {
-        b.sp[p] = sv;
-        b.s[p] = sn;
+        b.up[pl] = uv;
+        w.wh.at(l, i, j) = (uv - un) * k.inv_t - SQRT_T * kty;  // w_hat
       }
-      if (own) {  // ml_norm_partial's terms of the multiplier plane
-        float zs = (sv - sn) * inv_s
-                   + b.sqrt_inv_l * (tp * su2 - theta * suv);
-        float pds = zs - b.sqrt_inv_l * su2;
-        v0 += pds * pds;
-        v1 += zs * zs;
-      }
-      if (last) {
-        b.terms[p] = v0;
-        b.terms[n + p] = v1;
-      }
+      w.u.at(l, i, j) = un;
+      b.u[pl] = un;
     }
-    grid.sync();
-    load_rows(w.qx, b.q, L, lo - 1, lo, nx);
-    __syncthreads();
   }
+  grid.sync();
+  load_rows(w.u, b.u, L, hi, hi + 1, nx);
+  __syncthreads();
+  // ml_dual<L>
+  for (int t = threadIdx.x, i = lo + t / ny, j = t % ny; t < npx;
+       t += RES_THREADS, next_pixel(i, j, ny)) {
+    size_t p = (size_t)i * ny + j;
+    float ax[L], ay[L], gpx[L], gpy[L];
+    float su2 = 0.f, nrm2 = 0.f;
+    bool below = has_below(r, i, nx);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      size_t pl = l * n + p;
+      float uv = w.u.at(l, i, j);
+      float gx2 = below ? w.u.at(l, i + 1, j) - uv : 0.f;
+      float gy2 = j < ny - 1 ? w.u.at(l, i, j + 1) - uv : 0.f;
+      su2 = l == 0 ? uv : su2 + uv;
+      float qx = w.qx.at(l, i, j), qy = w.qy.at(l, i, j);
+      float gx = w.gx.at(l, i, j), gy = w.gy.at(l, i, j);
+      float axv = qx + k.sig_q * (k.tp * gx2 - k.theta * gx);
+      float ayv = qy + k.sig_q * (k.tp * gy2 - k.theta * gy);
+      float t2 = axv * axv + ayv * ayv;
+      nrm2 = l == 0 ? t2 : nrm2 + t2;
+      if (last) {
+        b.qp[pl] = qx;
+        b.qp[nl + pl] = qy;
+      }
+      gpx[l] = gx;
+      gpy[l] = gy;
+      w.gx.at(l, i, j) = gx2;
+      w.gy.at(l, i, j) = gy2;
+      ax[l] = axv;
+      ay[l] = ayv;
+    }
+    float scale = nrm2 > 0.f ? fminf(1.f, k.ball * rsqrtf(nrm2)) : 1.f;
+    const bool own = last && owned_row(r, i);
+    float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      size_t pl = l * n + p;
+      float qxn = ax[l] * scale, qyn = ay[l] * scale;
+      if (own) {  // ml_norm_partial's terms of the q planes
+        float gx2 = w.gx.at(l, i, j), gy2 = w.gy.at(l, i, j);
+        float zx = (w.qx.at(l, i, j) - qxn) * k.inv_q
+                   + SQRT_S_Q * (k.tp * gx2 - k.theta * gpx[l]);
+        float zy = (w.qy.at(l, i, j) - qyn) * k.inv_q
+                   + SQRT_S_Q * (k.tp * gy2 - k.theta * gpy[l]);
+        float pdx = zx - SQRT_S_Q * gx2;
+        float pdy = zy - SQRT_S_Q * gy2;
+        v0 += pdx * pdx + pdy * pdy;
+        v1 += zx * zx + zy * zy;
+      }
+      w.qx.at(l, i, j) = qxn;
+      w.qy.at(l, i, j) = qyn;
+      b.q[pl] = qxn;
+      if (last && put) b.q[nl + pl] = qyn;
+    }
+    float sv = w.s.at(0, i, j), suv = w.su.at(0, i, j);
+    float sn = (sv + k.sig_s * (k.tp * su2 - k.theta * suv)) - k.sig_s * k.ds;
+    w.s.at(0, i, j) = sn;
+    w.su.at(0, i, j) = su2;
+    if (last) {
+      b.sp[p] = sv;
+      if (put) b.s[p] = sn;
+    }
+    if (own) {  // ml_norm_partial's terms of the multiplier plane
+      float zs = (sv - sn) * k.inv_s
+                 + b.sqrt_inv_l * (k.tp * su2 - k.theta * suv);
+      float pds = zs - b.sqrt_inv_l * su2;
+      v0 += pds * pds;
+      v1 += zs * zs;
+    }
+    if (last) {
+      b.terms[p] = v0;
+      b.terms[n + p] = v1;
+    }
+  }
+  grid.sync();
+  load_rows(w.qx, b.q, L, lo - 1, lo, nx);
+  __syncthreads();
+}
 
-  // |dd|^2 and |w_hat|^2: K^T y of the new duals
-  for (int k = threadIdx.x, i = lo + k / ny, j = k % ny; k < npx;
-       k += RES_THREADS, next_pixel(i, j, ny)) {
+// After the aligned iteration: |dd|^2 and |w_hat|^2 from K^T y of the new
+// duals, then the 32x8 tiles' partials of the four terms; every block
+// leaves after a grid barrier, so that block 0 may run the finish.
+template <int L>
+__device__ __forceinline__ void ml_res_norms(
+    const ML& b, const MLRes& w, const RowCtx& r, int lo, int hi,
+    cooperative_groups::grid_group& grid) {
+  const int nx = b.nx, ny = b.ny;
+  const size_t n = (size_t)nx * ny;
+  const int npx = (hi - lo) * ny;
+  for (int t = threadIdx.x, i = lo + t / ny, j = t % ny; t < npx;
+       t += RES_THREADS, next_pixel(i, j, ny)) {
     size_t p = (size_t)i * ny + j;
     float v2 = 0.f, v3 = 0.f;
     if (owned_row(r, i)) {
@@ -568,7 +622,7 @@ __device__ __forceinline__ void ml_resident_chunk(
         float lx = above ? w.qx.at(l, i - 1, j) : 0.f;
         float ly = j > 0 ? w.qy.at(l, i, j - 1) : 0.f;
         float kty2 = ((lx - qx) + (ly - qy)) + s2;
-        float wh = w.f.at(l, i, j);
+        float wh = w.wh.at(l, i, j);
         float dd = wh + SQRT_T * kty2;
         v2 += dd * dd;
         v3 += wh * wh;
@@ -578,12 +632,47 @@ __device__ __forceinline__ void ml_resident_chunk(
     b.terms[3 * n + p] = v3;
   }
   grid.sync();
-  coop_tile_partials(b.terms, nx, ny, b.partial, smem);
+  coop_tile_partials(b.terms, nx, ny, b.partial, w.red);
   grid.sync();
+}
+
+// The band's q_y and s into device memory (u and q_x are there after
+// every half-step).
+template <int L>
+__device__ __forceinline__ void ml_res_store(const ML& b, const MLRes& w,
+                                             int lo, int hi) {
+  const int ny = b.ny;
+  const size_t n = (size_t)b.nx * ny, nl = n * L;
+  for (int t = threadIdx.x, i = lo + t / ny, j = t % ny; t < (hi - lo) * ny;
+       t += RES_THREADS, next_pixel(i, j, ny)) {
+    size_t p = (size_t)i * ny + j;
+    for (int l = 0; l < L; ++l) b.q[nl + l * n + p] = w.qy.at(l, i, j);
+    b.s[p] = w.s.at(0, i, j);
+  }
+}
+
+// One chunk of one instance by the whole grid (the body of ml_resident and
+// ml_resident_batched), the instance's flag found clear by every block:
+// load, seed, `count` iterations, the norms' terms and tiles, and the
+// finish in block 0, which leaves `smem` to the next instance only after a
+// grid barrier.
+template <int L>
+__device__ __forceinline__ void ml_resident_chunk(
+    const ML& b, int count, int rmax, float* smem,
+    cooperative_groups::grid_group& grid) {
+  const RowCtx r = row_ctx(b.sc, b.nx, b.nxg);
+  int lo, hi;
+  band_of(b.nx, blockIdx.x, gridDim.x, lo, hi);
+  const MLRes w = ml_layout(smem, L, lo, rmax, b.ny, false);
+  ml_res_load_seed<L>(b, w, r, lo, hi, grid);
+  const MLStep k = ml_step(b);
+  for (int it = 0; it < count; ++it)
+    ml_res_iteration<L>(b, w, r, k, lo, hi, it == count - 1, true, grid);
+  ml_res_norms<L>(b, w, r, lo, hi, grid);
   if (blockIdx.x == 0) {
     AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    dim3 g = grid_of(nx, ny);
-    finish_block(reinterpret_cast<float(*)[FIN]>(smem), b.sc, b.partial,
+    dim3 g = grid_of(b.nx, b.ny);
+    finish_block(reinterpret_cast<float(*)[FIN]>(w.red), b.sc, b.partial,
                  (int)(g.x * g.y), count, 0, STEP_NONE, none);
   }
 }
@@ -626,9 +715,47 @@ __global__ void __launch_bounds__(RES_THREADS, 1)
   }
 }
 
+// The multichunk (ml_fused_multichunk) grid-resident: load and seed once,
+// then up to k_chunks chunks, each `count` iterations, the norms' terms and
+// tiles and, in block 0, finish_block's adaptation and stopping test;
+// after a grid barrier every block reads the new scalars and the flag, and
+// the grid leaves together once it is set.  The state and the carried
+// gradient and label sum stay in shared memory across chunks (w_hat in a
+// window of its own: f is read again in the next chunk, with the new tau);
+// u and q_x go to device memory every half-step (the exchange), u_prev,
+// q_prev and s_prev on every chunk's aligned iteration, and q_y and s
+// once after the last chunk.  Bit-equal to prost_ml_multichunk.
+template <int LT>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+    ml_multichunk_resident(ML b, int count, int k_chunks, int stepsize,
+                           AdaptConsts c, int rmax) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (b.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  const RowCtx r = row_ctx(b.sc, b.nx, b.nxg);
+  int lo, hi;
+  band_of(b.nx, blockIdx.x, gridDim.x, lo, hi);
+  const MLRes w = ml_layout(smem, LT, lo, rmax, b.ny, true);
+  const dim3 g = grid_of(b.nx, b.ny);
+  ml_res_load_seed<LT>(b, w, r, lo, hi, grid);
+  for (int ch = 0; ch < k_chunks; ++ch) {
+    const MLStep k = ml_step(b);  // as the last finish left them
+    for (int it = 0; it < count; ++it)
+      ml_res_iteration<LT>(b, w, r, k, lo, hi, it == count - 1, false, grid);
+    ml_res_norms<LT>(b, w, r, lo, hi, grid);
+    if (blockIdx.x == 0)
+      finish_block(reinterpret_cast<float(*)[FIN]>(w.red), b.sc, b.partial,
+                   (int)(g.x * g.y), count, 1, stepsize, c);
+    grid.sync();
+    if (*(volatile float*)&b.sc[S_CONV] != 0.f) break;
+  }
+  ml_res_store<LT>(b, w, lo, hi);
+}
+
 // The resident chunk's kernels for L labels, or null beyond MAX_REG_L.
 using MLResKernel = void (*)(ML, int, int);
 using MLResBatchedKernel = void (*)(ML, int, int, int);
+using MLResMultiKernel = void (*)(ML, int, int, int, AdaptConsts, int);
 
 MLResKernel ml_resident_kernel(int L) {
   switch (L) {
@@ -658,16 +785,32 @@ MLResBatchedKernel ml_resident_batched_kernel(int L) {
   }
 }
 
+MLResMultiKernel ml_multichunk_resident_kernel(int L) {
+  switch (L) {
+    case 1: return ml_multichunk_resident<1>;
+    case 2: return ml_multichunk_resident<2>;
+    case 3: return ml_multichunk_resident<3>;
+    case 4: return ml_multichunk_resident<4>;
+    case 5: return ml_multichunk_resident<5>;
+    case 6: return ml_multichunk_resident<6>;
+    case 7: return ml_multichunk_resident<7>;
+    case MAX_REG_L: return ml_multichunk_resident<MAX_REG_L>;
+    default: return nullptr;
+  }
+}
+
 // The dynamic shared memory of a resident launch on nx rows: MLRes for the
-// largest band, at least the reductions' array; or 0 where `kernel` may
-// not hold it on the current device (then `rc` holds the error, if any).
+// largest band (with `multi` the multichunk's), at least the reductions'
+// array; or 0 where `kernel` may not hold it on the current device (then
+// `rc` holds the error, if any).
 template <typename K>
-size_t resident_smem(K kernel, int L, int nx, int ny, int& rmax, int& rc) {
+size_t resident_smem(K kernel, int L, int nx, int ny, int& rmax, int& rc,
+                     int multi = 0) {
   int sms = 0;
   rc = device_sms(&sms);
   if (rc) return 0;
   rmax = band_rows(nx, sms);
-  size_t smem = ml_resident_floats(L, rmax, ny) * sizeof(float);
+  size_t smem = ml_resident_floats(L, rmax, ny, multi) * sizeof(float);
   if (smem < (size_t)RES_RED_BYTES) smem = RES_RED_BYTES;
   int limit = resident_smem_limit(kernel);
   if (limit < 0) {
@@ -878,12 +1021,17 @@ int prost_ml_chunk_batched_resident(void* u, void* q, void* s, void* up,
   return resident_launch(kernel, args, smem, (cudaStream_t)stream);
 }
 
-// The dynamic shared memory ml_resident's blocks (with `batched`,
-// ml_resident_batched's) may hold on the current device (for L labels), or
-// minus the error.
-int prost_ml_resident_smem(int L, int batched) {
-  if (batched) {
+// The dynamic shared memory ml_resident's blocks (`kind` 1:
+// ml_resident_batched's, 2: ml_multichunk_resident's) may hold on the
+// current device (for L labels), or minus the error.
+int prost_ml_resident_smem(int L, int kind) {
+  if (kind == 1) {
     MLResBatchedKernel kernel = ml_resident_batched_kernel(L);
+    if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+    return resident_smem_limit(kernel);
+  }
+  if (kind == 2) {
+    MLResMultiKernel kernel = ml_multichunk_resident_kernel(L);
     if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
     return resident_smem_limit(kernel);
   }
@@ -920,6 +1068,36 @@ int prost_ml_multichunk(void* u, void* q, void* s, void* up, void* qp,
     LAUNCH_CHECK();
   }
   return 0;
+}
+
+// ml_fused_multichunk as one grid-resident cooperative launch
+// (ml_multichunk_resident), bit-equal to prost_ml_multichunk in the planes,
+// the previous iterates and sc: its arguments without the carried planes,
+// `terms` 4 (nx, ny) planes of scratch.  Up to MAX_REG_L labels; a band's
+// planes that do not fit in one block's shared memory are refused
+// (cudaErrorCooperativeLaunchTooLarge or cudaErrorInvalidValue).  No-op
+// when sc[S_CONV] is set.
+int prost_ml_multichunk_resident(void* u, void* q, void* s, void* up,
+                                 void* qp, void* sp, const void* f, void* sc,
+                                 void* partial, void* terms, int L, int nx,
+                                 int ny, float inv_l, float sqrt_inv_l,
+                                 int count, int k_chunks, int stepsize,
+                                 float sqrt_nrows, float sqrt_ncols,
+                                 float arg_delta, float arg_nu,
+                                 float arb_delta, float arb_tau,
+                                 void* stream) {
+  MLResMultiKernel kernel = ml_multichunk_resident_kernel(L);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  ML b = ml_of(u, q, s, up, qp, sp, nullptr, nullptr, nullptr, nullptr, f,
+               sc, partial, L, nx, ny, inv_l, sqrt_inv_l);
+  b.terms = (float*)terms;
+  AdaptConsts c = {sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta,
+                   arb_tau};
+  int rmax = 0, rc = 0;
+  size_t smem = resident_smem(kernel, L, nx, ny, rmax, rc, 1);
+  if (rc) return rc;
+  void* args[] = {&b, &count, &k_chunks, &stepsize, &c, &rmax};
+  return resident_launch(kernel, args, smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

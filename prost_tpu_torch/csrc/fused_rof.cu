@@ -34,13 +34,15 @@
 // of one SM holds 4 rows of each plane at 512x512 (58 KB, 68 KB with
 // wsquare's w).  So each chunk has two paths, bit-equal to each other:
 //   * the grid-resident launch (rof_resident, rof_multichunk_resident,
-//     further down): one cooperative launch a chunk, or a multichunk of k
-//     chunks with the adaptation between them, one block per SM holding a
-//     band of rows of every plane in shared memory;
+//     further down): one cooperative launch a chunk (of the whole plane or
+//     of a halo band), or a multichunk of k chunks with the adaptation
+//     between them, one block per SM holding a band of rows of every plane
+//     in shared memory;
 //   * the streaming launch sequence (rof_seed, rof_primal, rof_dual,
 //     rof_norm_partial, pdhg_finish), for planes whose band does not fit in
 //     the shared memory a block may opt into (2048x1536 and 2048x2048 need
-//     600-800 KB a block), and for the batched and halo chunks.
+//     600-800 KB a block, the 2092-row band of a 2048-wide plane about
+//     800 KB), and for the batched chunks.
 // The wrapper's shape rule (ops/fused_rof.py resident_ok, on the card's
 // SM count and opt-in limit) picks the path before the launch.  A batched
 // chunk of 1024 instances of 128x128 streams 10 planes of 64 MiB once
@@ -652,7 +654,9 @@ int chunk(const Planes& b, int count, int dataterm, int batch,
 // the norms reduce through the same tiles and finish (coop_tile_partials,
 // finish_block): the planes and the norms are bit-equal to the streaming
 // sequence.  The body takes the row context (RowCtx) for every row mask,
-// dead row and owned row of the norms, so a halo band can run it too.
+// dead row and owned row of the norms, so a halo band runs it too
+// (prost_rof_chunk_halo_resident: config 1's one-shard band of 556 rows
+// holds bands of 5 rows, 71680 bytes a block).
 // Barriers: one after the load, one an iteration, two around the tiles.
 // The multichunk loads and seeds once, then for each chunk reads the
 // scalars anew through a volatile pointer (the last finish adapted them),
@@ -1005,6 +1009,16 @@ size_t resident_smem(int nx, int ny, int dataterm, int multi, int& rmax,
   return smem;
 }
 
+// One resident chunk of `b` (the whole plane, or a halo band where b.nxg
+// is set).
+int resident_chunk(Planes b, int count, int dataterm, cudaStream_t st) {
+  int rmax = 0, rc = 0;
+  size_t smem = resident_smem(b.nx, b.ny, dataterm, 0, rmax, rc);
+  if (rc) return rc;
+  void* args[] = {&b, &count, &rmax};
+  return resident_launch(rof_resident_kernel(dataterm), args, smem, st);
+}
+
 // The launch configuration of a chunk of `batch` instances in clusters of
 // `csize` CTAs, or the error that refuses it: a cluster size other than 1,
 // 2, 4 or 8, a band beyond the shared memory of a block, or a cluster that
@@ -1202,12 +1216,25 @@ int prost_rof_chunk_resident(void* x, void* q, void* xp, void* qp,
   Planes b = planes_of(x, q, xp, qp, nullptr, nullptr, f, w, sc, partial,
                        nx, ny);
   b.terms = (float*)terms;
-  int rmax = 0, rc = 0;
-  size_t smem = resident_smem(nx, ny, dataterm, 0, rmax, rc);
-  if (rc) return rc;
-  void* args[] = {&b, &count, &rmax};
-  return resident_launch(rof_resident_kernel(dataterm), args, smem,
-                         (cudaStream_t)stream);
+  return resident_chunk(b, count, dataterm, (cudaStream_t)stream);
+}
+
+// rof_fused_chunk_halo as one grid-resident cooperative launch
+// (rof_resident on one halo-extended band, the row context in sc as
+// prost_rof_chunk_halo takes it), bit-equal to prost_rof_chunk_halo: its
+// planes and scalars without the carried gradient's, `terms` 8 (nx, ny)
+// planes of scratch.  Refuses a band that does not fit as
+// prost_rof_chunk_resident does.  No-op when sc[S_CONV] is set.
+int prost_rof_chunk_halo_resident(void* x, void* q, void* xp, void* qp,
+                                  const void* f, const void* w, void* sc,
+                                  void* partial, void* terms, int nx, int ny,
+                                  int nx_global, int count, int dataterm,
+                                  void* stream) {
+  Planes b = planes_of(x, q, xp, qp, nullptr, nullptr, f, w, sc, partial,
+                       nx, ny);
+  b.terms = (float*)terms;
+  b.nxg = nx_global;
+  return resident_chunk(b, count, dataterm, (cudaStream_t)stream);
 }
 
 // rof_fused_multichunk as one grid-resident cooperative launch

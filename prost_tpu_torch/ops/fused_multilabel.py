@@ -32,15 +32,17 @@ wrapper here:
   halo-extended shard of a row-partitioned plane, the spatially sharded
   route's (``parallel/spatial_fused.py``).
 
-The single-instance chunk, its halo mode and the batched chunk have
-in-place forms, ``ml_chunk_``, ``ml_chunk_halo_`` and ``ml_chunk_batched_``,
-and the routes call them through ``MLChunk`` and ``MLBatchedChunk``, which
-make their buffers once per route.  On a card each runs as one
-grid-resident cooperative launch where the shape rule (``resident_ok``, on
-one instance: a batched launch runs its instances one after another)
-finds that one instance's planes fit in the shared memory of one block per
-SM, and as the streaming launch sequence otherwise; both are bit-equal.
-The multichunk always streams.
+The single-instance chunk, its halo mode, the batched chunk and the
+multichunk have in-place forms, ``ml_chunk_``, ``ml_chunk_halo_``,
+``ml_chunk_batched_`` and ``ml_multichunk_``, and the routes call them
+through ``MLChunk``, ``MLBatchedChunk`` and ``MLMultichunk``, which make
+their buffers once per route.  On a card each runs as one grid-resident
+cooperative launch (the multichunk: all its chunks and their adaptation in
+one) where the shape rule (``resident_ok``, on one instance: a batched
+launch runs its instances one after another; with ``multi`` the
+multichunk's) finds that one instance's planes fit in the shared memory of
+one block per SM, and as the streaming launch sequence otherwise; both are
+bit-equal.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  As on the ROF route there is no fallback
@@ -69,9 +71,10 @@ from ..linop.base import LinearOperator
 from ..linop.blocks import BlockKronId
 from ..linop.gradient import BlockGradient2D
 from ..prox.elemop import ProxElem1D, ProxElemNorm2
-from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
-                         S_NORM, STEPSIZES, VP, WHOLE_PLANE, ChunkWork,
-                         LightChunk, ball_scale, canonical_duals, card_sms,
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, PATHS, RES_RED_BYTES, S_CONV,
+                         S_LEN, S_NORM, SOUT, STEPSIZES, VP, WHOLE_PLANE,
+                         LightChunk, LightMultichunk, ball_scale,
+                         canonical_duals, card_sms,
                          check_buffers, check_halo, check_inplace,
                          chunk_state, coeff_vector, dx, dy, dyt,
                          entry_converged, halo_copy, halo_into,
@@ -259,22 +262,9 @@ def _lib():
         "prost_ml_chunk_batched_resident": [VP] * 10 + [CI] * 3 + [CF] * 2
                                            + strides + [CI, CI, VP],
         "prost_ml_resident_smem": [CI, CI],
-        "prost_ml_multichunk": head + [CI] * 3 + [CF] * 6 + [VP]})
-
-
-def _launch(fn: str, what: str, u, q, s, f, scal, n_scal: int, *args,
-            prev=None):
-    """One launch of ``fn`` on copies of (u, q, s), or on (u, q, s) and
-    ``prev`` themselves; returns its ChunkWork."""
-    lib = _lib()
-    L, nx, ny = u.shape[-3:]
-    wk = ChunkWork((u, q, s), (q, s), scal, n_scal,
-                   lib.prost_ml_num_blocks(nx, ny), prev=prev)
-    # 1/L and sqrt(1/L) rounded once from double, as the plain version
-    # rounds its Python constants
-    launch(lib, fn, what, launch_counts, u.device, wk.buffers(f), L, nx, ny,
-           1.0 / L, (1.0 / L) ** 0.5, *args)
-    return wk
+        "prost_ml_multichunk": head + [CI] * 3 + [CF] * 6 + [VP],
+        "prost_ml_multichunk_resident": [VP] * 10 + [CI] * 3 + [CF] * 2
+                                        + [CI] * 3 + [CF] * 6 + [VP]})
 
 
 # labels a grid-resident block holds a pixel's components of in registers
@@ -282,37 +272,50 @@ def _launch(fn: str, what: str, u, q, s, f, scal, n_scal: int, *args,
 MAX_RESIDENT_L = 8
 
 
-def resident_bytes(L: int, nx: int, ny: int, sms: int) -> int:
+def resident_bytes(L: int, nx: int, ny: int, sms: int,
+                   multi: bool = False) -> int:
     """The dynamic shared memory of one block of the grid-resident chunk
     on ``nx`` rows (the whole plane's, or a halo band's) over ``sms``
     blocks: csrc/fused_multilabel.cu's MLRes for the largest band
-    (ml_resident_floats), at least the reductions' array."""
+    (ml_resident_floats: u with a row below, q_x with a row above, q_y,
+    the carried gradient and f, L planes each; s and su), at least the
+    reductions' array; with ``multi`` the multichunk's, which adds w_hat's
+    window (f is read again in the next chunk), at least the reductions'
+    array that borrows it."""
     rmax = resident_rows(nx, sms)
     floats = (2 * L * (rmax + 1) + 4 * L * rmax + 2 * rmax) * int(ny)
+    if multi:
+        floats += max(L * rmax * int(ny), RES_RED_BYTES // 4)
     return max(4 * floats, RES_RED_BYTES)
 
 
-def resident_ok(L: int, nx: int, ny: int, sms: int, smem: int) -> bool:
-    """The shape rule of ``ml_chunk_`` and ``ml_chunk_halo_``: a chunk of L
-    labels on ``nx`` rows runs as one grid-resident launch
-    (csrc/fused_multilabel.cu ml_resident, one block per SM) where L is at
-    most ``MAX_RESIDENT_L`` and the planes of its largest band fit in
-    ``smem`` bytes of a block's dynamic shared memory on a card of ``sms``
-    SMs, and as the streaming launch sequence otherwise."""
+def resident_ok(L: int, nx: int, ny: int, sms: int, smem: int,
+                multi: bool = False) -> bool:
+    """The shape rule of ``ml_chunk_``, ``ml_chunk_halo_`` and
+    ``ml_chunk_batched_``, and with ``multi`` of ``ml_multichunk_``: a
+    chunk (multichunk) of L labels on ``nx`` rows runs as one grid-resident
+    launch (csrc/fused_multilabel.cu ml_resident, ml_multichunk_resident,
+    one block per SM) where L is at most ``MAX_RESIDENT_L`` and the planes
+    of its largest band fit in ``smem`` bytes of a block's dynamic shared
+    memory on a card of ``sms`` SMs, and as the streaming launch sequence
+    otherwise."""
     return (1 <= int(L) <= MAX_RESIDENT_L
-            and resident_bytes(L, nx, ny, sms) <= int(smem))
+            and resident_bytes(L, nx, ny, sms, multi) <= int(smem))
 
 
 @functools.lru_cache(maxsize=None)
-def card_limits(device, L: int, batched: bool = False) -> tuple:
+def card_limits(device, L: int, batched: bool = False,
+                multi: bool = False) -> tuple:
     """(SMs, the dynamic shared memory a block of the grid-resident chunk
-    of L labels, with ``batched`` the batched chunk's, may hold, 0 beyond
-    ``MAX_RESIDENT_L``) of the card ``device``, read once."""
+    of L labels, with ``batched`` the batched chunk's, with ``multi`` the
+    multichunk's, may hold, 0 beyond ``MAX_RESIDENT_L``) of the card
+    ``device``, read once."""
     if not 1 <= int(L) <= MAX_RESIDENT_L:
         return card_sms(device), 0
     lib = _lib()
     with torch.cuda.device(device):
-        smem = lib.prost_ml_resident_smem(int(L), int(bool(batched)))
+        smem = lib.prost_ml_resident_smem(int(L), 2 if multi
+                                          else int(bool(batched)))
     if smem < 0:
         raise ProstError(f"ml_chunk: no shared-memory limit for the "
                          f"resident chunk on {device} (CUDA error {-smem}).")
@@ -599,17 +602,97 @@ def ml_multichunk(u, q, s, f, scal, count: int, k_chunks: int,
     q_prev, s_prev, norms, sout): norms the last executed chunk's sqrt'd
     residual norms, sout = [tau, sigma, arg_alpha, arb_l, arb_u,
     converged, chunks_done].  CPU tensors run the plain version; CUDA
-    tensors launch the kernel."""
+    tensors run ``ml_multichunk_`` on copies (the shape rule's path)."""
     _check(u, q, s, f, scal, 13, count)
     if stepsize not in STEPSIZES:
         raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
     if u.device.type == "cpu":
         return ml_multichunk_plain(u, q, s, f, scal, count, k_chunks,
                                    stepsize, consts)
-    wk = _launch("prost_ml_multichunk", "ml_multichunk", u, q, s, f, scal, 13,
-                 int(count), int(k_chunks), STEPSIZES[stepsize],
-                 *[float(c) for c in consts])
-    return (*wk.outputs(), wk.sout())
+    *planes, (norms, sout) = halo_copy(ml_multichunk_, (u, q, s), f, scal,
+                                       count, k_chunks, stepsize, consts)
+    return (*planes, norms, sout)
+
+
+def _launch_multichunk(state, prev, f, sc, partial, scratch, resident: bool,
+                       count: int, k_chunks: int, stepsize: str,
+                       consts) -> None:
+    """One multichunk on the card in place on ``state`` (u, q, s) and
+    ``prev``: the grid-resident launch or the streaming sequence, counted
+    under ``ml_multichunk``."""
+    u = state[0]
+    L, nx, ny = u.shape
+    if resident:
+        fn, bufs = ("prost_ml_multichunk_resident",
+                    [*state, *prev, f, sc, partial, *scratch])
+    else:
+        fn, bufs = "prost_ml_multichunk", [*state, *prev, *scratch, f, sc,
+                                           partial]
+    # 1/L and sqrt(1/L) rounded once from double, as the plain version
+    # rounds its Python constants
+    launch(_lib(), fn, "ml_multichunk", launch_counts, u.device, bufs, L, nx,
+           ny, 1.0 / L, (1.0 / L) ** 0.5, int(count), int(k_chunks),
+           STEPSIZES[stepsize], *[float(c) for c in consts])
+
+
+def ml_multichunk_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
+                   k_chunks: int, stepsize: str, consts, path=None):
+    """``ml_multichunk`` in place: (u, q, s) advance by up to ``k_chunks``
+    chunks and the previous buffers take the iterate before the last
+    executed chunk's aligned iteration; with the converged flag set at
+    entry nothing changes.  Returns (norms, sout).  On a card ``path``
+    None takes the shape rule's path (``resident_ok(..., multi=True)``):
+    one grid-resident launch for all the chunks (csrc/fused_multilabel.cu
+    ml_multichunk_resident) where the planes fit on chip, else the
+    streaming launch sequence; "resident" or "streaming" asks for one
+    ("resident" raises where it does not fit)."""
+    _check(u, q, s, f, scal, 13, count)
+    if stepsize not in STEPSIZES:
+        raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
+    state, prev = (u, q, s), (u_prev, q_prev, s_prev)
+    check_inplace(state, prev)
+    if path not in PATHS:
+        raise ProstError(f"ml_multichunk: path must be one of {PATHS}, got "
+                         f"{path!r}.")
+    if u.device.type == "cpu":
+        out = ml_multichunk_plain(u, q, s, f, scal, count, k_chunks,
+                                  stepsize, consts)
+        return halo_into(state, prev, out[:7], scal, 13), out[7]
+    L, nx, ny = u.shape
+    dev = u.device
+    resident = pick_path(path, resident_ok(
+        L, nx, ny, *card_limits(dev, L, multi=True), multi=True),
+        "ml_multichunk")
+    sc = scalar_buffer(scal, 13, S_CONV, S_LEN)
+    partial = torch.empty(4 * _lib().prost_ml_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_multichunk(state, prev, f.contiguous(), sc, partial,
+                       _scratch(resident, L, nx, ny, dev), resident, count,
+                       k_chunks, stepsize, consts)
+    return sc[S_NORM:S_NORM + 4], torch.stack([sc[i] for i in SOUT])
+
+
+class MLMultichunk(LightMultichunk):
+    """The multilabel route's light call of the multichunk:
+    ``ml_multichunk_`` on the views (u, q, s) of the run's own x, y, x_prev
+    and y_prev, its path ``resident_ok(..., multi=True)``; the family's
+    scalars are radius and d_s, its one data plane f, and it has no data
+    term."""
+
+    _consts = ("radius_t", "d_s_t")
+    _data = ("f",)
+    _dataterm = False
+    _inplace = staticmethod(ml_multichunk_)
+    _launch = staticmethod(_launch_multichunk)
+
+    def _card(self, device):
+        m = self.m
+        L, nx, ny = m["L"], m["nx"], m["ny"]
+        resident = resident_ok(L, nx, ny, *card_limits(device, L, multi=True),
+                               multi=True)
+        partial = torch.empty(4 * _lib().prost_ml_num_blocks(nx, ny),
+                              dtype=torch.float32, device=device)
+        return resident, partial, _scratch(resident, L, nx, ny, device)
 
 
 # ---------------------------------------------------------------------------
@@ -707,22 +790,19 @@ def _planes(m, xf, yf):
             yf[n2:].reshape(nx, ny))
 
 
-def _flat_y(q, s):
-    return torch.cat([q.reshape(-1), s.reshape(-1)])
-
-
 def _multi_chunk(b, s: PDHGState) -> PDHGState:
+    """One multichunk in place on the views of the run's own x, y, x_prev
+    and y_prev (``own_vectors``) through the route's light call
+    (``MLMultichunk``, made once per route)."""
     m, ri = b.ml, max(int(b.opts.residual_iter), 1)
-    dt = s.x.dtype
-    scal = torch.stack([
-        s.tau, s.sigma, s.theta, m["radius_t"], m["d_s_t"],
-        s.arg_alpha, s.arb_l, s.arb_u, s.iteration.to(dt), *m["tols_t"],
-        s.converged.to(dt)])
-    u2, q2, s2, up, qp, sp, norms, sc = ml_multichunk(
-        *_planes(m, s.x, s.y), m["f"], scal, ri, K_CHUNKS, b.opts.stepsize,
-        m["adapt_consts"])
-    return multichunk_state(s, ri, u2.reshape(-1), _flat_y(q2, s2),
-                            up.reshape(-1), _flat_y(qp, sp), norms, sc)
+    if "multi" not in m:
+        m["multi"] = MLMultichunk(m, ri, K_CHUNKS, b.opts.stepsize,
+                                  s.x.device)
+    norms, sout = m["multi"](
+        _planes(m, s.x, s.y), _planes(m, s.x_prev, s.y_prev), s.tau, s.sigma,
+        s.theta, s.arg_alpha, s.arb_l, s.arb_u, s.iteration, s.converged)
+    return multichunk_state(s, ri, s.x, s.y, s.x_prev, s.y_prev, norms,
+                            sout)
 
 
 def _fused_chunk(b, s: PDHGState) -> PDHGState:
@@ -740,7 +820,7 @@ def fused_ml_run(b, state: PDHGState, until: int, start: int) -> PDHGState:
     """``run_pdhg_route`` with the multilabel multichunks and chunks of
     ``FusedROFPDHG`` ``b``; the canonicalization zeroes the dead dual
     coordinates of y and y_prev, on the run's own copies of the state's
-    vectors, which the chunks update in place."""
+    vectors, which the multichunks and chunks update in place."""
     m = b.ml
     canonical = canonical_duals(m["L"], m["nx"], m["ny"])
     return run_pdhg_route(b, state, until, start,

@@ -26,14 +26,16 @@ Four kernels carry the ROF routes, each a hand-written CUDA kernel set in
   streaming launch sequence (``rof_chunk_batched_streaming_``);
 * ``rof_chunk_halo`` (JAX ``rof_fused_chunk_halo``): one chunk on a
   halo-extended shard of a row-partitioned plane, the spatially sharded
-  route's (``parallel/spatial_fused.py``).
+  route's (``parallel/spatial_fused.py``); its in-place form
+  ``rof_chunk_halo_`` serves ``ROFChunk`` made with the band's rows.
 
-On a card the chunk and the multichunk each run as one grid-resident
-cooperative launch (one block per SM holding a band of rows of every plane
-in shared memory) where the shape rule (``resident_ok``, on the card's SMs
-and the shared memory a block may opt into) finds that the planes fit,
-and as the streaming launch sequence otherwise (2048x1536 and larger);
-both are bit-equal.  ``path=`` forces one.
+On a card the chunk, its halo mode and the multichunk each run as one
+grid-resident cooperative launch (one block per SM holding a band of rows
+of every plane in shared memory) where the shape rule (``resident_ok``, on
+the card's SMs and the shared memory a block may opt into) finds that the
+planes fit, and as the streaming launch sequence otherwise (2048x1536 and
+larger, and the halo bands of 2048-wide planes); both are bit-equal.
+``path=`` forces one.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no other route and no fallback:
@@ -261,6 +263,13 @@ def _check(x, q, f, w, scal, n_scal: int, count: int, dataterm: str,
                   scal, n_scal, lead[0] if batched else None)
 
 
+def _check_path(path, what: str) -> None:
+    """An in-place form's ``path`` is one it knows, on any device."""
+    if path not in PATHS:
+        raise ProstError(f"{what}: path must be one of {PATHS}, got "
+                         f"{path!r}.")
+
+
 def cluster_planes(dataterm: str) -> int:
     """Planes a cluster CTA holds in shared memory for its band: x, q_x,
     q_y, the carried gradient (2) and f, and w for wsquare."""
@@ -300,6 +309,7 @@ def _lib():
         "prost_rof_chunk_halo": [VP] * 10 + [CI] * 5 + [VP],
         "prost_rof_multichunk": [VP] * 10 + [CI] * 6 + [CF] * 6 + [VP],
         "prost_rof_chunk_resident": [VP] * 9 + [CI] * 4 + [VP],
+        "prost_rof_chunk_halo_resident": [VP] * 9 + [CI] * 5 + [VP],
         "prost_rof_multichunk_resident": [VP] * 9 + [CI] * 6 + [CF] * 6
                                          + [VP],
         "prost_rof_resident_smem": [CI]})
@@ -371,21 +381,40 @@ def _scratch(resident: bool, nx: int, ny: int, device):
             for _ in range(2)]
 
 
-def _launch_chunk(state, prev, f, w, sc, partial, scratch, resident: bool,
-                  count: int, dataterm: str) -> None:
+def _launch_chunk(what: str, state, prev, f, w, sc, partial, scratch,
+                  resident: bool, count: int, dataterm: str,
+                  nx_global=None) -> None:
     """One chunk on the card in place on ``state`` (x, q) and ``prev``: the
-    grid-resident launch or the streaming sequence, counted under
-    ``rof_chunk``."""
+    grid-resident launch or the streaming sequence, of the whole plane or
+    (with ``nx_global``) of a halo band, counted under ``what``."""
     x = state[0]
     nx, ny = x.shape
+    fn = "prost_rof_chunk" + ("" if nx_global is None else "_halo")
+    tail = (() if nx_global is None else (int(nx_global),)) + (
+        int(count), DATATERMS[dataterm])
     if resident:
-        fn, bufs = ("prost_rof_chunk_resident",
-                    [*state, *prev, f, w, sc, partial, *scratch])
+        fn, bufs = fn + "_resident", [*state, *prev, f, w, sc, partial,
+                                      *scratch]
     else:
-        fn, bufs = "prost_rof_chunk", [*state, *prev, *scratch, f, w, sc,
-                                       partial]
-    launch(_lib(), fn, "rof_chunk", launch_counts, x.device, bufs, nx, ny,
-           int(count), DATATERMS[dataterm])
+        bufs = [*state, *prev, *scratch, f, w, sc, partial]
+    launch(_lib(), fn, what, launch_counts, x.device, bufs, nx, ny, *tail)
+
+
+def _inplace(what: str, state, prev, f, w, scal, n_scal: int, count: int,
+             dataterm: str, nx_global, path):
+    """One chunk on the card in place, its buffers made for this call;
+    returns norms2."""
+    nx, ny = state[0].shape
+    dev = state[0].device
+    resident = pick_path(path, resident_ok(nx, ny, dataterm,
+                                           *card_limits(dev)), what)
+    sc = scalar_buffer(scal, n_scal, S_CONV, S_LEN)
+    partial = torch.empty(4 * _lib().prost_rof_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_chunk(what, state, prev, f.contiguous(), w.contiguous(), sc,
+                  partial, _scratch(resident, nx, ny, dev), resident, count,
+                  dataterm, nx_global)
+    return sc[S_NORM:S_NORM + 4]
 
 
 def rof_chunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
@@ -399,37 +428,33 @@ def rof_chunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
     "streaming" asks for one ("resident" raises where it does not fit)."""
     _check(x, q, f, w, scal, 5, count, dataterm)
     check_inplace((x, q), (x_prev, q_prev))
-    if path not in PATHS:
-        raise ProstError(f"rof_chunk: path must be one of {PATHS}, got "
-                         f"{path!r}.")
+    _check_path(path, "rof_chunk")
     if x.device.type == "cpu":
         return halo_into((x, q), (x_prev, q_prev), rof_chunk_plain(
             x, q, f, w, scal, count, dataterm), scal, 5)
-    nx, ny = x.shape
-    dev = x.device
-    resident = pick_path(path, resident_ok(nx, ny, dataterm,
-                                           *card_limits(dev)), "rof_chunk")
-    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
-    partial = torch.empty(4 * _lib().prost_rof_num_blocks(nx, ny),
-                          dtype=torch.float32, device=dev)
-    _launch_chunk((x, q), (x_prev, q_prev), f.contiguous(), w.contiguous(),
-                  sc, partial, _scratch(resident, nx, ny, dev), resident,
-                  count, dataterm)
-    return sc[S_NORM:S_NORM + 4]
+    return _inplace("rof_chunk", (x, q), (x_prev, q_prev), f, w, scal, 5,
+                    count, dataterm, None, path)
 
 
 class ROFChunk(LightChunk):
-    """The ROF route's light chunk call: ``rof_chunk_`` on the views (x,
-    q) of the run's own x, y, x_prev and y_prev, with what depends only on
-    the shapes made once per route: the path (``resident_ok``), the
-    scratch, the norm partials and the scalar buffer with ``m``'s lmb and
-    radius.  A call writes the step sizes and the flag into the scalar
-    buffer and launches; on the CPU it runs the plain version."""
+    """The ROF routes' light chunk call: ``rof_chunk_`` (with ``band`` =
+    (nx_global, rows, row_offset, own_lo, own_hi), ``rof_chunk_halo_`` on a
+    band of ``rows`` rows) on the planes (x, q) a route holds, with what
+    depends only on the shapes made once per route: the path
+    (``resident_ok``), the scratch, the norm partials and the scalar
+    buffer with ``m``'s lmb and radius (and the band's row context).  A
+    call writes the step sizes and the flag into the scalar buffer and
+    launches; on the CPU it runs the plain version."""
 
-    def __init__(self, m, count: int, device):
-        super().__init__((m["lmb"], m["radius"]), device)
-        self.count, self.dataterm = int(count), m["dataterm"]
+    def __init__(self, m, count: int, device, band=None):
+        consts = (m["lmb"], m["radius"]) + tuple(band[2:] if band else ())
+        super().__init__(consts, device)
+        self.count, self.dataterm, self.band = int(count), m["dataterm"], band
         nx, ny = m["nx"], m["ny"]
+        if band is not None:
+            nx = int(band[1])
+        self.what = "rof_chunk" if band is None else "rof_chunk_halo"
+        self.nx_global = None if band is None else int(band[0])
         self.resident = None  # the path on a card
         if torch.device(device).type == "cuda":
             self.resident = resident_ok(nx, ny, self.dataterm,
@@ -445,11 +470,16 @@ class ROFChunk(LightChunk):
         self.scalars_(tau, sigma, theta, converged)
         if self.resident is None:
             scal = self.scal()
-            out = rof_chunk_plain(*state, f, w, scal, self.count,
-                                  self.dataterm)
+            if self.band is None:
+                out = rof_chunk_plain(*state, f, w, scal, self.count,
+                                      self.dataterm)
+            else:
+                out = rof_chunk_halo_plain(*state, f, w, scal, self.count,
+                                           self.nx_global, self.dataterm)
             return halo_into(state, prev, out, scal, self.n_scal)
-        _launch_chunk(state, prev, f, w, self.sc, self.partial, self.scratch,
-                      self.resident, self.count, self.dataterm)
+        _launch_chunk(self.what, state, prev, f, w, self.sc, self.partial,
+                      self.scratch, self.resident, self.count, self.dataterm,
+                      self.nx_global)
         return self.norms2()
 
 
@@ -465,30 +495,28 @@ def rof_chunk_halo(x, q, f, w, scal, count: int, nx_global: int,
     row of local row 0 and [own_lo, own_hi) the owned local rows.  Returns
     (x2, q2, x_prev, q_prev, norms2) like ``rof_chunk``, norms2 over the
     owned rows only; the rows outside them are not the solution's.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel."""
+    tensors run the plain version; CUDA tensors run ``rof_chunk_halo_``
+    on copies (the shape rule's path)."""
     return halo_copy(rof_chunk_halo_, (x, q), f, w, scal, count, nx_global,
                      dataterm)
 
 
 def rof_chunk_halo_(x, q, x_prev, q_prev, f, w, scal, count: int,
-                    nx_global: int, dataterm: str = "square"):
+                    nx_global: int, dataterm: str = "square", path=None):
     """``rof_chunk_halo`` in place, on the sharded route's persistent
     buffers: (x, q) advance by ``count`` iterations and (x_prev, q_prev)
     take the iterate before the aligned one; with the converged flag set
-    nothing changes.  Returns norms2."""
+    nothing changes.  Returns norms2.  ``path`` as for ``rof_chunk_``, the
+    shape rule on the band's rows (csrc/fused_rof.cu rof_resident on the
+    band where it fits)."""
     _check(x, q, f, w, scal, N_HALO_SCAL, count, dataterm)
     check_halo(nx_global, (x, q), (x_prev, q_prev))
+    _check_path(path, "rof_chunk_halo")
     if x.device.type == "cpu":
         return halo_into((x, q), (x_prev, q_prev), rof_chunk_halo_plain(
             x, q, f, w, scal, count, nx_global, dataterm), scal)
-    lib = _lib()
-    nx, ny = x.shape
-    wk = ChunkWork((x, q), (q,), scal, N_HALO_SCAL,
-                   lib.prost_rof_num_blocks(nx, ny), prev=(x_prev, q_prev))
-    launch(lib, "prost_rof_chunk_halo", "rof_chunk_halo", launch_counts,
-           x.device, wk.buffers(f, w), nx, ny, int(nx_global), int(count),
-           DATATERMS[dataterm])
-    return wk.outputs()[-1]
+    return _inplace("rof_chunk_halo", (x, q), (x_prev, q_prev), f, w, scal,
+                    N_HALO_SCAL, count, dataterm, int(nx_global), path)
 
 
 def rof_chunk_batched(x, q, f, w, scal, count: int,
@@ -612,9 +640,7 @@ def rof_multichunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
         raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
     state, prev = (x, q), (x_prev, q_prev)
     check_inplace(state, prev)
-    if path not in PATHS:
-        raise ProstError(f"rof_multichunk: path must be one of {PATHS}, got "
-                         f"{path!r}.")
+    _check_path(path, "rof_multichunk")
     if x.device.type == "cpu":
         out = rof_multichunk_plain(x, q, f, w, scal, count, k_chunks,
                                    dataterm, stepsize, consts)

@@ -601,28 +601,34 @@ class LightChunk:
 
 class LightMultichunk:
     """A route's light call of its multichunk (``ROFMultichunk``,
-    ``VolMultichunk``): the family's in-place multichunk on the views of the
-    run's own x, y, x_prev and y_prev, with what depends only on the shapes
-    and the route ``m`` made once per route: the path, the scratch and the
-    norm partials (``_card``) and the scalar buffer with lmb, radius and
+    ``VolMultichunk``, ``MLMultichunk``): the family's in-place multichunk
+    on the views of the run's own x, y, x_prev and y_prev, with what
+    depends only on the shapes and the route ``m`` made once per route: the
+    path, the scratch and the norm partials (``_card``) and the scalar
+    buffer with the family's two scalars (``_consts``, keys of ``m``) and
     the tolerances.  A call writes tau, sigma, theta, arg_alpha, arb_l,
     arb_u, the iteration counter and the flag into the scalar buffer, and
     zeros into the chunk count and the norms, in one stack and one indexed
-    copy, launches (``_launch``), and reads the norms and sout out of it in
-    one gather; on the CPU it runs the in-place form (``_inplace``, the
-    plain version)."""
+    copy, launches (``_launch``) on the data planes (``_data``, keys of
+    ``m``) with ``m``'s data term where the family has one
+    (``_dataterm``), and reads the norms and sout out of it in one gather;
+    on the CPU it runs the in-place form (``_inplace``, the plain
+    version)."""
 
     # the slots a call writes: the step sizes and the adaptation state, the
     # counter, the flag, the chunk count and the norms
     _IN = (0, 1, 2, 5, 6, 7, 8, S_CONV, S_DONE) + tuple(
         range(S_NORM, S_NORM + 4))
+    _consts = ("lmb_t", "radius_t")  # slots 3 and 4
+    _data = ("f", "w")
+    _dataterm = True
 
     def __init__(self, m, count: int, k_chunks: int, stepsize: str, device):
         self.m, self.count, self.k_chunks = m, int(count), int(k_chunks)
         self.stepsize = stepsize
         self.sc = torch.zeros(S_LEN, dtype=torch.float32, device=device)
-        self.sc[3] = m["lmb_t"]
-        self.sc[4] = m["radius_t"]
+        self.sc[3] = m[self._consts[0]]
+        self.sc[4] = m[self._consts[1]]
         self.sc[9:13] = torch.stack(m["tols_t"])
         self.stage = torch.zeros(len(self._IN), dtype=torch.float32,
                                  device=device)
@@ -643,15 +649,17 @@ class LightMultichunk:
                      converged.to(dt)], out=self.stage[:8])
         self.sc.index_copy_(0, self.slots_in, self.stage)
         m = self.m
-        args = (self.count, self.k_chunks, m["dataterm"], self.stepsize,
+        data = [m[k] for k in self._data]
+        args = (self.count, self.k_chunks,
+                *((m["dataterm"],) if self._dataterm else ()), self.stepsize,
                 m["adapt_consts"])
         if self.resident is None:
-            return self._inplace(*state, *prev, m["f"], m["w"],
+            return self._inplace(*state, *prev, *data,
                                  torch.cat([self.sc[:13],
                                             self.sc[S_CONV:S_CONV + 1]]),
                                  *args)
-        self._launch(state, prev, m["f"], m["w"], self.sc, self.partial,
-                     self.scratch, self.resident, *args)
+        self._launch(state, prev, *data, self.sc, self.partial, self.scratch,
+                     self.resident, *args)
         out = self.sc.index_select(0, self.slots_out)
         return out[:4], out[4:]
 

@@ -14,11 +14,11 @@ design:
   the rank's first and last ``H = 2 * ri + 2`` owned rows to its ring
   neighbours and receives theirs straight into its top and bottom ``H``
   rows (an edge rank's outer halo is zeroed: ``ppermute``'s semantics);
-* each rank runs the halo chunk kernel in place on its buffers
-  (``rof_chunk_halo_``; the multilabel, volumetric, tight and deblur routes
-  through their light calls, ``MLChunk``, ``VolChunk``, ``TightChunk`` and
-  ``DeblurChunk``, which make the scalar buffer, the scratch and the path
-  once per route), recomputing the halo
+* each rank runs the halo chunk kernel in place on its buffers through
+  its route's light call (``ROFChunk``, ``MLChunk``, ``VolChunk``,
+  ``TightChunk`` and ``DeblurChunk``, made once per route with the band's
+  row context, which make the scalar buffer, the scratch and the path
+  once), recomputing the halo
   rows redundantly: information moves at most one row per half-step (the
   blur's row reach for deblurring, whose halo is that many times wider),
   so the owned rows come out as the whole-plane kernel's, bit for bit (the
@@ -67,7 +67,7 @@ from ..ops.fused_admm import admm_cheby_halo_rows, admm_iter_halo_
 from ..ops.fused_deblur import (DeblurChunk, deblur_halo_rows,
                                 match_deblur_structure)
 from ..ops.fused_multilabel import MLChunk, match_multilabel_structure
-from ..ops.fused_rof import match_rof_structure, rof_chunk_halo_
+from ..ops.fused_rof import ROFChunk, match_rof_structure
 from ..ops.fused_tight import TightChunk, match_tight_structure
 from ..ops.fused_vol import VolChunk, match_vol_structure
 from ..ops.pdhg_chunk import chunk_state
@@ -177,19 +177,15 @@ class _HaloRoute(_Band, ShardedPDHG):
     """The phase plan of a halo-sharded route on ``ShardedPDHG``'s state.
     A subclass names its structure (``kind``, ``_match``), its planes
     (``_planes``: flat x, y -> plane stacks with the rows on axis -2;
-    ``_flat``: back), the two scalars of its scal8 (``_consts``), its data
-    planes (``_data``) and its in-place halo chunk (``_chunk_halo``), or
-    the class of its light chunk call (``_light``, made once with the
-    band's row context: the multilabel, volumetric, tight and deblur
-    routes'); the rows it
-    partitions (``_grid``, a key of its match) and its halo
+    ``_flat``: back), its data planes (``_data``) and the class of its
+    light chunk call (``_light``, made once with the band's row context);
+    the rows it partitions (``_grid``, a key of its match) and its halo
     (``_halo``, ``_halo_rule``) where they differ from the pixel rows and
     2 ri + 2."""
 
     kind = ""
     _grid = "nx"
     _halo_rule = "2*residual_iter + 2"
-    _light = None
 
     def __init__(self, problem, opts, solver_opts, mesh,
                  axis_name: str = "sp"):
@@ -214,17 +210,12 @@ class _HaloRoute(_Band, ShardedPDHG):
         self.rows = _geometry(self.kind, self._grid, self.m[self._grid],
                               n_shards, self.halo, self._halo_rule)
         self.lo = rank * self.rows - self.halo
-        like = problem.scaling_left
-        # scal8's last three: row_offset, own_lo, own_hi
-        self.rows_t = [like.new_full((), float(v)) for v in
-                       (self.lo, self.halo, self.halo + self.rows)]
-        self.consts_t = [like.new_full((), float(self.m[k]))
-                         for k in self._consts]
         # the data planes' extended blocks, cut once from the whole problem
         self.data = tuple(self._window(self.m[k]) for k in self._data)
         self.exchange = HaloExchange(self.mesh.get_group(), self.halo)
-        self.call = None if self._light is None else self._light(
-            self.m, self.ri, like.device,
+        # the band: the global rows, its rows, row_offset, own_lo, own_hi
+        self.call = self._light(
+            self.m, self.ri, problem.scaling_left.device,
             (self.m["nx"], self.rows + 2 * self.halo, self.lo, self.halo,
              self.halo + self.rows))
 
@@ -259,12 +250,8 @@ class _HaloRoute(_Band, ShardedPDHG):
     def _chunk_step(self, s: PDHGState, cur, prev):
         """This rank's chunk on its buffers; returns its owned rows'
         norms2."""
-        if self.call is not None:
-            return self.call(cur, prev, *self.data, s.tau, s.sigma, s.theta,
-                             s.converged)
-        scal = torch.stack([s.tau, s.sigma, s.theta, *self.consts_t,
-                            *self.rows_t, s.converged.to(s.tau.dtype)])
-        return self._chunk_halo(cur, prev, scal)
+        return self.call(cur, prev, *self.data, s.tau, s.sigma, s.theta,
+                         s.converged)
 
     def _leave(self, carry) -> PDHGState:
         """The state after phase B: the owned rows back into sharded
@@ -289,8 +276,8 @@ class ShardedFusedROF(_HaloRoute):
     sums."""
 
     kind = "ShardedFusedROF"
-    _consts = ("lmb", "radius")
     _data = ("f", "w")
+    _light = ROFChunk
 
     def _match(self, problem):
         return match_rof_structure(problem)
@@ -302,10 +289,6 @@ class ShardedFusedROF(_HaloRoute):
     def _flat(self, x, q):
         return x.reshape(-1), q.reshape(-1)
 
-    def _chunk_halo(self, cur, prev, scal):
-        return rof_chunk_halo_(*cur, *prev, *self.data, scal, self.ri,
-                               self.m["nx"], self.m["dataterm"])
-
 
 class ShardedFusedMultilabel(_HaloRoute):
     """Halo-sharded fused backend for the fast-multilabel structure
@@ -314,7 +297,6 @@ class ShardedFusedMultilabel(_HaloRoute):
     ``ml_chunk_halo``."""
 
     kind = "ShardedFusedMultilabel"
-    _consts = ("radius", "d_s")
     _data = ("f",)
     _light = MLChunk
 
@@ -340,7 +322,6 @@ class ShardedFusedVol(_HaloRoute):
     all-reduce per chunk around ``vol_chunk_halo``."""
 
     kind = "ShardedFusedVol"
-    _consts = ("lmb", "radius")
     _data = ("f", "w")
     _light = VolChunk
 
@@ -363,7 +344,6 @@ class ShardedFusedTight(_HaloRoute):
     ``tight_chunk_halo``."""
 
     kind = "ShardedFusedTight"
-    _consts = ("radius", "d_s")
     _data = ("f",)
     _light = TightChunk
 
@@ -395,7 +375,6 @@ class ShardedFusedDeblur(_HaloRoute):
     kind = "ShardedFusedDeblur"
     _grid = "nx2"
     _halo_rule = "(2*residual_iter + 2) * conv row reach"
-    _consts = ("lmb", "radius")
     _data = ("fb", "sv")
     _light = DeblurChunk
 

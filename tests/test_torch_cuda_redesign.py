@@ -15,8 +15,10 @@ volumetric chunks ``tight_chunk_``, ``vol_chunk_`` and their halo forms
 ADMM chunk ``admm_chunk_`` and volumetric multichunk ``vol_multichunk_``
 (``-k "admm_chunk or vol_multichunk"``), and the grid-resident ROF chunk
 ``rof_chunk_`` and multichunk ``rof_multichunk_`` (``-k "rof_resident or
-rof_multichunk or rof_light"``), bit for bit against the streaming launch
-sequences they replace.
+rof_multichunk or rof_light"``), and the grid-resident multilabel
+multichunk ``ml_multichunk_`` and ROF halo chunk ``rof_chunk_halo_`` (``-k
+"ml_multichunk or rof_halo or rof_chunk_band"``), bit for bit against the
+streaming launch sequences they replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
 redesigns run the per-pixel arithmetic and the norm trees of the launch
@@ -1651,3 +1653,251 @@ def test_rof_resident_rules_on_the_card(dev):
         launch(lib, "prost_rof_chunk_resident", "rof_chunk", fr.launch_counts,
                dev, [x, q, x.clone(), q.clone(), f, w, sc, partial,
                      x.new_empty(4, 2048, 2048)], 2048, 2048, 2, 0)
+
+
+# ---------------------------------------------------------------------------
+# rows 13 and 3: the multilabel multichunk grid-resident, and the ROF halo
+# chunk on the grid-resident ROF body
+# ---------------------------------------------------------------------------
+
+def _ml_mc_scal(tol, dev, tau=0.9, sigma=1.1, conv=None):
+    return torch.tensor([tau, sigma, 1.0, 0.5, 1.0, 0.5, 0.0, 0.0, 1.0]
+                        + [tol] * 4 + ([conv] if conv is not None else []),
+                        device=dev)
+
+
+def _ml_mc_consts(L, nx, ny):
+    n = nx * ny
+    return (float(np.sqrt(2 * n * L + n)), float(np.sqrt(n * L)), 1.5, 0.95,
+            1.05, 0.8)
+
+
+def _both_ml_multichunks(u, q, s, f, scal, count, k_chunks, stepsize):
+    """``ml_multichunk_`` by the launch sequence and by the resident launch
+    from the same inputs: planes, previous iterates, norms and sout of
+    each, one launch each."""
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    L, nx, ny = u.shape
+    out = {}
+    for path in ("streaming", "resident"):
+        cur = [u.clone(), q.clone(), s.clone()]
+        prev = [torch.full_like(t, float("nan")) for t in cur]
+        before = fm.launch_counts["ml_multichunk"]
+        norms, sout = fm.ml_multichunk_(*cur, *prev, f, scal, count,
+                                        k_chunks, stepsize,
+                                        _ml_mc_consts(L, nx, ny), path=path)
+        assert fm.launch_counts["ml_multichunk"] == before + 1
+        out[path] = cur + prev + [norms.clone(), sout.clone()]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("stepsize", ["boyd", "goldstein"])
+@pytest.mark.parametrize("L,nx,ny,ri", [(8, 256, 256, 10), (5, 250, 190, 3),
+                                        (1, 9, 40, 2), (3, 300, 33, 1)])
+def test_ml_multichunk_resident_is_the_launch_sequence(dev, L, nx, ny, ri,
+                                                       stepsize):
+    """Every chunk runs (tolerance 0), from planes with mass on the dead
+    dual coordinates: the resident launch's planes, previous iterates,
+    norms and sout bit-equal to the launch sequence's."""
+    u, q, s, f = _ml_planes(340 + L + ri, L, nx, ny, dev)
+    out = _both_ml_multichunks(u, q, s, f, _ml_mc_scal(0.0, dev), ri, 8,
+                               stepsize)
+    for a, b in zip(out["streaming"], out["resident"]):
+        assert torch.equal(a, b)
+    assert out["resident"][7][5:].tolist() == [0.0, 8.0]
+    assert all(bool(torch.isfinite(t).all()) for t in out["resident"])
+
+
+@pytest.mark.parametrize("stepsize", ["boyd", "goldstein"])
+@pytest.mark.parametrize("nx,ny", [(256, 256), (24, 40)])
+def test_ml_multichunk_resident_converging_mid_launch(dev, nx, ny, stepsize):
+    """From a solve's start (u = q = s = 0) the rule adapts and, at the
+    first tolerance of a list at which it does, the launch converges before
+    its last chunk: the whole grid leaves at the same chunk, bit-equal to
+    the sequence in the planes, the previous iterates, the norms and
+    sout."""
+    f = _ml_planes(350, 8, nx, ny, dev)[3]
+    zeros = [torch.zeros((8, nx, ny), device=dev),
+             torch.zeros((16, nx, ny), device=dev),
+             torch.zeros((nx, ny), device=dev)]
+    for tol in (5e-2, 2e-2, 1e-2, 5e-3, 2e-3, 1e-3, 5e-4):
+        out = _both_ml_multichunks(*zeros, f,
+                                   _ml_mc_scal(tol, dev, 1.0, 1.0), 10, 8,
+                                   stepsize)
+        for a, b in zip(out["streaming"], out["resident"]):
+            assert torch.equal(a, b)
+        sout = out["resident"][7]
+        if float(sout[5]) == 1.0 and 1 < float(sout[6]) < 8:
+            return
+    pytest.fail("no tolerance converged mid-launch")
+
+
+def test_ml_multichunk_resident_with_the_flag_leaves_the_buffers(dev):
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    u, q, s, f = _ml_planes(351, 8, 256, 256, dev)
+    cur = [u.clone(), q.clone(), s.clone()]
+    prev = [t + 1.0 for t in cur]
+    before = [t.clone() for t in cur + prev]
+    norms, sout = fm.ml_multichunk_(*cur, *prev, f,
+                                    _ml_mc_scal(1e-3, dev, conv=1.0), 10, 8,
+                                    "boyd", _ml_mc_consts(8, 256, 256),
+                                    path="resident")
+    torch.cuda.synchronize()
+    assert not norms.any() and sout[5:].tolist() == [1.0, 0.0]
+    for a, b in zip(cur + prev, before):
+        assert torch.equal(a, b)
+
+
+def test_ml_multichunk_light_call_on_the_card(dev):
+    """``MLMultichunk`` at config 3's 256x256x8 takes the resident path and
+    leaves what ``ml_multichunk_`` leaves, twice in a row from the state it
+    left (its scalar buffer reused)."""
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    u, q, s, f = _ml_planes(352, 8, 256, 256, dev)
+    consts = _ml_mc_consts(8, 256, 256)
+    m = {"L": 8, "nx": 256, "ny": 256, "f": f,
+         "radius_t": torch.tensor(0.5, device=dev),
+         "d_s_t": torch.tensor(1.0, device=dev),
+         "tols_t": tuple(torch.tensor(1e-4, device=dev) for _ in range(4)),
+         "adapt_consts": consts}
+    call = fm.MLMultichunk(m, 10, 8, "boyd", dev)
+    assert call.resident
+    cur = [u.clone(), q.clone(), s.clone()]
+    prev = [t.clone() for t in cur]
+    want_cur, want_prev = [t.clone() for t in cur], [t.clone() for t in cur]
+    steps = (0.9, 1.1, 1.0, 0.5, 0.0, 0.0)
+    for it in (1, 81):
+        got = call(cur, prev, *(torch.tensor(v, device=dev) for v in steps),
+                   torch.tensor(it, device=dev),
+                   torch.tensor(False, device=dev))
+        scal = torch.tensor(list(steps[:3]) + [0.5, 1.0] + list(steps[3:])
+                            + [float(it)] + [1e-4] * 4 + [0.0], device=dev)
+        want = fm.ml_multichunk_(*want_cur, *want_prev, f, scal, 10, 8,
+                                 "boyd", consts, path="resident")
+        for a, b in zip(cur + prev + list(got),
+                        want_cur + want_prev + list(want)):
+            assert torch.equal(a, b)
+
+
+def test_ml_multichunk_rules_on_the_card(dev):
+    """The card's limits send config 3's 256x256x8 multichunk and the
+    ragged 250x190x5 to the resident launch and 512x512x8 to the launch
+    sequence; asking for a resident launch that does not fit raises, and
+    so does the launch the C side refuses (9 labels)."""
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    limits = fm.card_limits(dev, 8, multi=True)
+    assert limits[0] == torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    assert fm.resident_ok(8, 256, 256, *limits, multi=True)
+    assert fm.resident_ok(5, 250, 190, *fm.card_limits(dev, 5, multi=True),
+                          multi=True)
+    assert not fm.resident_ok(8, 512, 512, *limits, multi=True)
+    u, q, s, f = _ml_planes(353, 8, 512, 512, dev)
+    args = (f, _ml_mc_scal(0.0, dev), 2, 2, "boyd",
+            _ml_mc_consts(8, 512, 512))
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fm.ml_multichunk_(u, q, s, u.clone(), q.clone(), s.clone(), *args,
+                          path="resident")
+    before = fm.launch_counts["ml_multichunk"]
+    fm.ml_multichunk_(u, q, s, u.clone(), q.clone(), s.clone(), *args)
+    assert fm.launch_counts["ml_multichunk"] == before + 1
+    lib = fm._lib()
+    u, q, s, f = _ml_planes(354, 9, 16, 16, dev)
+    sc = scalar_buffer(_ml_mc_scal(0.0, dev), 13, S_CONV, S_LEN)
+    partial = u.new_empty(4 * lib.prost_ml_num_blocks(16, 16))
+    with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+        launch(lib, "prost_ml_multichunk_resident", "ml_multichunk",
+               fm.launch_counts, dev, [u, q, s, u.clone(), q.clone(),
+                                       s.clone(), f, sc, partial,
+                                       u.new_empty(4, 16, 16)],
+               9, 16, 16, 1.0 / 9, (1.0 / 9) ** 0.5, 2, 2, 2,
+               *_ml_mc_consts(9, 16, 16))
+
+
+@pytest.mark.parametrize("dataterm", ["square", "wsquare", "abs"])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_rof_halo_resident_is_the_launch_sequence(dev, shards, dataterm):
+    """Config 1's 512x512 cut into bands (ri 10, halo 22): every band's
+    resident launch is its streaming sequence, bit for bit in the planes,
+    the previous iterates and the owned-row norms; its owned rows are the
+    whole-plane resident chunk's, bit for bit."""
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    planes = _rof_planes(360, 512, 512, dev)
+    ri, rows = 10, 512 // shards
+    H = 2 * ri + 2
+    head = [0.9, 1.1, 1.0, 8.0, 1.0]
+    whole = [t.clone() for t in planes[:2]]
+    wprev = [torch.empty_like(t) for t in whole]
+    fr.rof_chunk_(*whole, *wprev, *planes[2:], torch.tensor(head, device=dev),
+                  ri, dataterm, path="resident")
+    for rank in range(shards):
+        lo = rank * rows - H
+        ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+        scal = torch.tensor(head + [lo, H, H + rows], device=dev)
+        before = fr.launch_counts["rof_chunk_halo"]
+        out = _both_paths(fr.rof_chunk_halo_, ext[:2], ext[2:], scal, ri,
+                          512, dataterm)
+        assert fr.launch_counts["rof_chunk_halo"] == before + 2
+        _bit_equal(out)
+        for a, b in zip(out["resident"][:4], whole + wprev):
+            assert torch.equal(a[..., H:H + rows, :],
+                               b[..., rank * rows:(rank + 1) * rows, :])
+
+
+def test_rof_chunk_band_light_call_on_the_card(dev):
+    """``ROFChunk`` on config 1's one-shard band (556 rows) takes the
+    resident path and leaves what ``rof_chunk_halo_`` leaves, twice in a
+    row from the state it left, and with the flag set nothing."""
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    planes = _rof_planes(361, 512, 512, dev)
+    H = 22
+    ext = [window(a, -H, 512 + H) for a in planes]
+    m = {"nx": 512, "ny": 512, "dataterm": "square", "lmb": 8.0,
+         "radius": 1.0}
+    call = fr.ROFChunk(m, 10, dev, (512, 512 + 2 * H, -H, H, H + 512))
+    assert call.resident
+    cur, prev = [t.clone() for t in ext[:2]], [t.clone() for t in ext[:2]]
+    want_cur, want_prev = ([t.clone() for t in ext[:2]] for _ in range(2))
+    for tau, conv in ((0.9, 0.0), (1.1, 0.0), (1.1, 1.0)):
+        got = call(cur, prev, *ext[2:], torch.tensor(tau, device=dev),
+                   torch.tensor(1.1, device=dev),
+                   torch.tensor(1.0, device=dev),
+                   torch.tensor(conv > 0, device=dev))
+        scal = torch.tensor([tau, 1.1, 1.0, 8.0, 1.0, -H, H, H + 512, conv],
+                            device=dev)
+        want = fr.rof_chunk_halo_(*want_cur, *want_prev, *ext[2:], scal, 10,
+                                  512, path="resident")
+        for a, b in zip(cur + prev + [got], want_cur + want_prev + [want]):
+            assert torch.equal(a, b)
+
+
+def test_rof_halo_rules_on_the_card(dev):
+    """The card's limits send config 1's bands of 1, 2 and 4 shards (556,
+    300 and 172 rows) to the resident launch and the one-shard band of a
+    2048-wide plane (2092 rows) to the launch sequence, where asking for
+    the resident launch raises."""
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    limits = fr.card_limits(dev)
+    for rows in (556, 300, 172):
+        for dataterm in ("square", "wsquare", "abs"):
+            assert fr.resident_ok(rows, 512, dataterm, *limits)
+    assert not fr.resident_ok(2092, 2048, "square", *limits)
+    planes = _rof_planes(362, 2048, 2048, dev)
+    ext = [window(a, -22, 2048 + 22) for a in planes]
+    scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0, -22, 22, 2070],
+                        device=dev)
+    with pytest.raises(ptt.ProstError, match="do not fit"):
+        fr.rof_chunk_halo_(*ext[:2], ext[0].clone(), ext[1].clone(),
+                           *ext[2:], scal, 2, 2048, path="resident")
+    before = fr.launch_counts["rof_chunk_halo"]
+    fr.rof_chunk_halo_(*ext[:2], ext[0].clone(), ext[1].clone(), *ext[2:],
+                       scal, 2, 2048)
+    assert fr.launch_counts["rof_chunk_halo"] == before + 1

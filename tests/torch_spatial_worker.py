@@ -209,7 +209,7 @@ def route(world, kind, ri, iters, start=None):
     return {"state": interop.sharded_pdhg_state_to_numpy(state),
             "counts": dict(b.exchange.counts),
             "halo": b.halo, "rows": b.rows,
-            "light": None if b.call is None else type(b.call).__name__}
+            "light": type(b.call).__name__}
 
 
 def admm_route(world, iters, start=None, kind="admm", degree=10):
