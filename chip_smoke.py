@@ -93,8 +93,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    its own noise on the gray levels): fused batched against generic
    batched on every instance's energy (tight also on its constraint
    residual and unity error), instances 0 and 7 against single-instance
-   fused solves within 1e-6; the ml, vol and deblur ensembles also with
-   the batched chunks' light call in turns with the copying call
+   fused solves within 1e-6; the ml, vol, deblur and tight ensembles also
+   with the batched chunks' light call in turns with the copying call
    (``ensemble_turns``: instance-it/s, every instance's energy equal);
 14. run a few hundred iterations of the fused ROF routes at 2048x2048, of
    the fused multilabel route at 512x512x8, of the deblur route at
@@ -124,11 +124,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    sequence, against the routes' light call) in turns; then rows 15 and 9
    (``phase_resident_multi``: the batched multilabel chunk at 8 instances
    of config 3, each instance also against ``ml_chunk_`` alone; the ADMM
-   multichunk at config 4's 512x512) and rows 25 and 18
+   multichunk at config 4's 512x512) and rows 25, 18 and 21
    (``phase_resident_batched``: the batched volumetric chunk at 8 volumes
    of vol256x8, each also against ``vol_chunk`` alone; the batched deblur
    chunk at 8 frames of config 2, each also against ``deblur_chunk_``
-   alone; both on a route's flat rows) and rows 8 and 26
+   alone; the batched tight chunk at 8 instances of tight128x4, side by
+   side, each also against ``tight_chunk_`` alone; all on a route's flat
+   rows) and rows 8 and 26
    (``phase_resident_chunk_multi``: the Chebyshev ADMM chunk at config 4's
    512x512, counts 1 and 10; the volumetric multichunk at vol256x8, every
    chunk run and converging mid-launch) and rows 2 and 1, the main path's
@@ -2338,7 +2340,7 @@ def phase_small_ensembles(card):
 
 
 def ensemble_turns(kind, b, data, energy, card):
-    """The ``kind`` (ml, vol or deblur) ensemble ``b`` with the copying
+    """The ``kind`` (ml, vol, deblur or tight) ensemble ``b`` with the copying
     batched chunk call (``copying_routes``) and with the light call, in
     turns (copying, light, light, copying): the instance-it/s of each, and
     every instance's energy, which must be equal to the last digit (the
@@ -2372,7 +2374,8 @@ def phase_conv_ensembles(card):
     against the phase plan, then the generic batched path on every
     instance's energy (tight also on its constraint residual and unity
     error, as the single tight solve), and instances 0 and B - 1 against
-    single-instance fused solves within SINGLE_RTOL."""
+    single-instance fused solves within SINGLE_RTOL; each also with the
+    light call in turns with the copying call (``ensemble_turns``)."""
     import torch
 
     from prost_tpu_torch.ops import fused_deblur as fd
@@ -2415,9 +2418,7 @@ def phase_conv_ensembles(card):
         x = state.x.cpu().numpy()
         check(np.all(np.isfinite(x)), f"non-finite {cell} result")
         fused = np.array([measures(x[i], data[i]) for i in range(B)])
-        if kind == "deblur":
-            ensemble_turns(cell, b, data,
-                           lambda x, d: measures(x, d)[0], card)
+        ensemble_turns(cell, b, data, lambda x, d: measures(x, d)[0], card)
         setattr(b, kind, None)  # the generic batched path
         gstate, gdt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
         gx = gstate.x.cpu().numpy()
@@ -3050,25 +3051,30 @@ def phase_resident_multi(dev):
 
 
 def phase_resident_batched(dev):
-    """Rows 25 and 18 grid-resident against their launch sequences at the
-    main path's shapes, on a route's flat rows (ri 10):
+    """Rows 25, 18 and 21 grid-resident against their launch sequences at
+    the main path's shapes, on a route's flat rows (ri 10):
     ``vol_chunk_batched_`` at SMALL_ENS_B volumes of vol256x8 (256x256x8),
-    each volume also against ``vol_chunk`` on it alone, and
+    each volume also against ``vol_chunk`` on it alone,
     ``deblur_chunk_batched_`` at SMALL_ENS_B frames of config 2 (512x512,
     the motion blur's 7 taps), each frame also against ``deblur_chunk_``
-    (resident) on it alone: both paths from the same inputs bit-equal; the
+    (resident) on it alone, and ``tight_chunk_batched_`` at SMALL_ENS_B
+    instances of tight128x4 (128x128x4, side by side in one launch), each
+    also against ``tight_chunk_`` on it alone: both paths from the same
+    inputs bit-equal; the
     path the shape rule takes; each path in place on buffers made once, in
     turns (streaming, resident, resident, streaming), with the hand-written
     kernels each launches per call and their traced device ms, and the
     resident launch's device ms at count 1; and the call, the copying one
     (the wrapper on copies with buffers made per call, the streaming
     sequence) against the route's light call in place
-    (``VolBatchedChunk``, ``DeblurBatchedChunk``), in turns, with the
-    device ms of PyTorch's kernels around each; and the deblur chunk's two
-    resident forms, one frame a block and two (``deblur_pairs_turns``)."""
+    (``VolBatchedChunk``, ``DeblurBatchedChunk``, ``TightBatchedChunk``),
+    in turns, with the device ms of PyTorch's kernels around each; and the
+    deblur chunk's two resident forms, one frame a block and two
+    (``deblur_pairs_turns``)."""
     import torch
 
     from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.ops import fused_tight as ft
     from prost_tpu_torch.ops import fused_vol as fv
     from prost_tpu_torch.ops.pdhg_chunk import halo_copy
 
@@ -3182,6 +3188,46 @@ def phase_resident_batched(dev):
          (taps, 0.5, 0.2), fd.DeblurBatchedChunk(m_db, B, ri, dev), db_one)
     out["deblur_chunk_batched"]["pairs"] = deblur_pairs_turns(
         db_views, x, y, fb, sv, scal, taps, ri)
+
+    # row 21: the instances of tight8x128x4 side by side
+    TL, tn = TIGHT_LABELS, TIGHT_SIZE
+    k = TL * (TL - 1) // 2
+    pt_ = pair_matrix(TL).T
+    ttaps = tuple((r_, m, float(pt_[r_, m])) for r_ in range(2 * TL)
+                  for m in range(2 * k) if pt_[r_, m] != 0.0)
+    consts = tuple(float(np.float32(c))
+                   for c in (1 / (TL + 1), 1.0, 1 / TL, 0.2, 1 / 3))
+    tN, nL, nk2 = tn * tn, TL * tn * tn, 2 * k * tn * tn
+    x = torch.from_numpy(np.concatenate(
+        [rng.rand(B, nL), 0.1 * rng.randn(B, nk2)], 1).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(np.concatenate(
+        [0.2 * rng.randn(B, 2 * nL), 0.1 * rng.randn(B, nk2),
+         0.1 * rng.randn(B, tN)], 1).astype(np.float32)).to(dev)
+    f = torch.from_numpy(rng.rand(B, TL, tn, tn).astype(np.float32)).to(dev)
+    scal = batched_scal(643, B, TIGHT_LMB * (0.5 + rng.rand(B)), 1.0, dev)
+
+    def tight_views(xx, yy):
+        return (xx[:, :nL].view(B, TL, tn, tn),
+                xx[:, nL:].view(B, 2 * k, tn, tn),
+                yy[:, :2 * nL].view(B, 2 * TL, tn, tn),
+                yy[:, 2 * nL:2 * nL + nk2].view(B, 2 * k, tn, tn),
+                yy[:, 2 * nL + nk2:].view(B, tn, tn))
+
+    def tight_one(b, cur, prev):
+        return ft.tight_chunk_(*cur, *prev, f[b], scal[:, b], ri, ttaps,
+                               consts)
+
+    m_t = {"L": TL, "k": k, "nx": tn, "ny": tn, "taps": ttaps,
+           "consts": consts, "radius": scal[3], "d_s": scal[4]}
+    case("tight_chunk_batched", "tight_resident_batched",
+         ft.tight_chunk_batched_, tight_views, x, y, (f, scal),
+         (ttaps, consts), ft.TightBatchedChunk(m_t, B, ri, dev), tight_one)
+    tsms, tsmem = ft.card_limits(dev, True)
+    print(f"resident limits: {tsmem} bytes of dynamic shared memory a "
+          f"batched tight block (it holds "
+          f"{ft.resident_bytes(TL, k, len(ttaps), tn, tn, tsms // B)} at "
+          f"{B} instances of {tn}x{tn}x{TL}, {tsms // B} blocks each)")
     sms, smem = fv.card_limits(dev, L)
     print(f"resident limits: {sms} SMs, {smem} bytes of dynamic shared "
           f"memory a batched vol block (it holds "
@@ -3923,8 +3969,8 @@ def copying_routes():
     routes, whole-plane (``FusedROFPDHG``) and halo-sharded
     (``ShardedFusedROF``, ``ShardedFusedDeblur``,
     ``ShardedFusedMultilabel``, ``ShardedFusedTight``,
-    ``ShardedFusedVol``), ``BatchedPDHG``'s multilabel, volumetric
-    and deblur routes, the ROF, multilabel and volumetric routes'
+    ``ShardedFusedVol``), ``BatchedPDHG``'s multilabel, volumetric,
+    deblur and tight routes, the ROF, multilabel and volumetric routes'
     multichunks and ``FusedROFADMM``'s chunks and multichunks make the
     copying call that the light calls replace: the scalars
     stacked per chunk, the functional wrapper on copies of the state with
@@ -3960,6 +4006,11 @@ def copying_routes():
 
     def flat_y(q, s):
         return torch.cat([q.reshape(-1), s.reshape(-1)])
+
+    def rows(B, *planes):
+        """The (B, n) rows of a state vector from its per-instance
+        planes."""
+        return torch.cat([a.reshape(B, -1) for a in planes], dim=1)
 
     def deblur_chunk(b, s):
         d, ri = b.deblur, max(int(b.opts.residual_iter), 1)
@@ -4118,8 +4169,8 @@ def copying_routes():
             (s.x.reshape(B, L, nx, ny), s.y[:, :n2].reshape(B, 2 * L, nx, ny),
              s.y[:, n2:].reshape(B, nx, ny)), m["f"],
             self._scal(s, m["radius"], m["d_s"], done), self.ri)
-        return self._after_chunk(s, u2.reshape(B, -1), ens._flat(B, q2, s2),
-                                 up.reshape(B, -1), ens._flat(B, qp, sp),
+        return self._after_chunk(s, u2.reshape(B, -1), rows(B, q2, s2),
+                                 up.reshape(B, -1), rows(B, qp, sp),
                                  norms2, done)
 
     def vol_batched(self, s, done):
@@ -4144,8 +4195,26 @@ def copying_routes():
              s.y[:, m2:].reshape(B, 2, nx, ny)), d["fb"], d["sv"],
             self._scal(s, d["lmb"], d["radius"], done), self.ri, d["taps"],
             d["sig_q"], d["tau_t"])
-        return self._after_chunk(s, x2.reshape(B, -1), ens._flat(B, yv2, q2),
-                                 xp.reshape(B, -1), ens._flat(B, yvp, qp),
+        return self._after_chunk(s, x2.reshape(B, -1), rows(B, yv2, q2),
+                                 xp.reshape(B, -1), rows(B, yvp, qp),
+                                 norms2, done)
+
+    def tight_batched(self, s, done):
+        t, B = self.tight, self.batch
+        L, k, nx, ny = t["L"], t["k"], t["nx"], t["ny"]
+        nL, nk2 = nx * ny * L, 2 * nx * ny * k
+        x, y = s.x, s.y
+        u2, v2, q2, p2, s2, up, vp, qp, pp, sp, norms2 = halo_copy(
+            streaming(ft.tight_chunk_batched_),
+            (x[:, :nL].reshape(B, L, nx, ny),
+             x[:, nL:].reshape(B, 2 * k, nx, ny),
+             y[:, :2 * nL].reshape(B, 2 * L, nx, ny),
+             y[:, 2 * nL:2 * nL + nk2].reshape(B, 2 * k, nx, ny),
+             y[:, 2 * nL + nk2:].reshape(B, nx, ny)), t["f"],
+            self._scal(s, t["radius"], t["d_s"], done), self.ri, t["taps"],
+            t["consts"])
+        return self._after_chunk(s, rows(B, u2, v2), rows(B, q2, p2, s2),
+                                 rows(B, up, vp), rows(B, qp, pp, sp),
                                  norms2, done)
 
     def admm_chunk(b, s):
@@ -4197,6 +4266,7 @@ def copying_routes():
                (ens.BatchedPDHG, "_ml_chunk", ml_batched),
                (ens.BatchedPDHG, "_vol_chunk", vol_batched),
                (ens.BatchedPDHG, "_deblur_chunk", deblur_batched),
+               (ens.BatchedPDHG, "_tight_chunk", tight_batched),
                (fa, "_fused_chunk", admm_chunk),
                (fa, "_multi_chunk", admm_multi),
                (sf.ShardedFusedROF, "_chunk_step", halo_step(

@@ -256,18 +256,19 @@ __host__ __device__ __forceinline__ int band_rows(int n, int blocks) {
 // block_partials for every 32x8 tile of the (nr, nc) grid from the terms
 // terms[k * nr * nc + pixel] (zeros where a pixel has none), RES_THREADS /
 // NT tiles at a time per block, tile t of grid_of(nr, nc) numbered as that
-// grid numbers its blocks; `red` holds 4 RES_THREADS floats.
+// grid numbers its blocks; `red` holds 4 RES_THREADS floats.  Block `blk`
+// of the `nblk` blocks that share the tiles calls it (every block of the
+// launch, or one instance's group of blocks).
 __device__ __forceinline__ void coop_tile_partials(
     const float* __restrict__ terms, int nr, int nc,
-    float* __restrict__ partial, float* red) {
+    float* __restrict__ partial, float* red, int blk, int nblk) {
   const int ntx = (nc + BX - 1) / BX;
   const int ntiles = (nr + BY - 1) / BY * ntx;
   const int per = RES_THREADS / NT;
   const int g = threadIdx.x / NT, t = threadIdx.x % NT;
   const size_t m = (size_t)nr * nc;
   float* r = red + g * 4 * NT;  // r[k * NT + t]
-  for (int base = per * blockIdx.x; base < ntiles;
-       base += per * gridDim.x) {
+  for (int base = per * blk; base < ntiles; base += per * nblk) {
     const int tile = base + g;
     float v[4] = {0.f, 0.f, 0.f, 0.f};
     if (tile < ntiles) {
@@ -288,6 +289,12 @@ __device__ __forceinline__ void coop_tile_partials(
       for (int k = 0; k < 4; ++k) partial[4 * tile + k] = r[k * NT];
     __syncthreads();  // the next tiles overwrite r
   }
+}
+
+__device__ __forceinline__ void coop_tile_partials(
+    const float* __restrict__ terms, int nr, int nc,
+    float* __restrict__ partial, float* red) {
+  coop_tile_partials(terms, nr, nc, partial, red, blockIdx.x, gridDim.x);
 }
 
 // A window of rows [r0, r0 + rows) of L label planes in shared memory.
@@ -362,14 +369,16 @@ int resident_smem_limit(K kernel) {
 }
 
 // One cooperative launch of `kernel` with one block of `groups` x
-// RES_THREADS threads (threadIdx.y the group) on each SM and `smem` bytes
-// of dynamic shared memory; the card refuses it
-// (cudaErrorCooperativeLaunchTooLarge) where a block does not fit on an SM.
+// RES_THREADS threads (threadIdx.y the group) on each SM (on `blocks` SMs
+// where it is set) and `smem` bytes of dynamic shared memory; the card
+// refuses it (cudaErrorCooperativeLaunchTooLarge) where a block does not
+// fit on an SM.
 template <typename K>
 int resident_launch(K kernel, void** args, size_t smem, cudaStream_t st,
-                    int groups = 1) {
+                    int groups = 1, int blocks = 0) {
   int sms = 0;
   if (int rc = device_sms(&sms)) return rc;
+  if (blocks > 0) sms = blocks;
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -26,21 +26,23 @@ with a plain PyTorch version beside each wrapper here:
   norms;
 * ``tight_chunk_batched`` (JAX ``tight_fused_chunk_batched``): one chunk
   for each of B instances that share (L, k, the taps, the constants), in
-  one launch sequence, the batched ensembles' route
+  one launch (sequence), the batched ensembles' route
   (``parallel/ensemble.py``);
 * ``tight_chunk_halo`` (JAX ``tight_fused_chunk_halo``): one chunk on a
   halo-extended shard of a row-partitioned plane, the spatially sharded
   route's (``parallel/spatial_fused.py``).
 
 The JAX package has no multichunk kernel for this workload, and neither
-has the port.  The chunk and its halo mode have in-place forms,
-``tight_chunk_`` and ``tight_chunk_halo_``, which the whole-plane and the
-sharded routes call through ``TightChunk``, made once per route.  On a card
-each runs as one grid-resident cooperative launch where the shape rule
-(``resident_ok``) finds that the planes of a band fit in the shared memory
-of one block per SM, and as the streaming launch sequence otherwise; both
-are bit-equal.  A wrapper given CPU tensors runs the plain version; given
-CUDA tensors it launches the kernel, or raises.  There is no fallback and
+has the port.  Each kernel has an in-place form, ``tight_chunk_``,
+``tight_chunk_halo_`` and ``tight_chunk_batched_``, which the whole-plane
+and the sharded routes call through ``TightChunk`` and ``BatchedPDHG``'s
+tight route through ``TightBatchedChunk``, each made once per route.  On a
+card each runs as one grid-resident cooperative launch where the shape rule
+(``resident_ok``; with ``batch``, on each instance's share of the SMs)
+finds that the planes of a band fit in the shared memory of one block per
+SM, and as the streaming launch sequence otherwise; both are bit-equal.  A
+wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel, or raises.  There is no fallback and
 no VMEM gate: the streaming kernels keep the planes in device memory, so
 they also serve the sizes for which the JAX package bands its kernel
 (``tight_fused_chunk_banded``).
@@ -55,6 +57,7 @@ no dual coordinate is zeroed, as in the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -68,14 +71,14 @@ from ..linop.gradient import BlockGradient2D, fwd_diff, fwd_diff_adjoint
 from ..prox.elemop import ProxElem1D
 from ..prox.standalone import ProxZero
 from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
-                         S_NORM, VP, WHOLE_PLANE, ChunkWork, LightChunk,
-                         ball_scale, card_sms, check_buffers, check_halo,
-                         check_inplace, chunk_state, coeff_vector,
-                         entry_converged, halo_copy, halo_into,
-                         halo_scal_rows, isscalar, launch, leq0_ball_radius,
-                         own_vectors, pick_path, resident_rows,
-                         run_pdhg_route, scalar_buffer, segment_const,
-                         typed_lib, vmap_plain)
+                         S_NORM, VP, WHOLE_PLANE, LightChunk, ball_scale,
+                         card_sms, check_buffers, check_halo, check_inplace,
+                         chunk_state, coeff_vector, entry_converged,
+                         halo_copy, halo_into, halo_scal_rows,
+                         instance_strides, isscalar, launch,
+                         leq0_ball_radius, own_vectors, pick_path,
+                         resident_rows, run_pdhg_route, scalar_buffer,
+                         segment_const, typed_lib, vmap_plain)
 
 MAX_TAPS = 512  # nonzeros of P^T the route takes (the JAX package's bound)
 
@@ -297,28 +300,15 @@ def _lib():
     first use."""
     head = [VP] * 18 + [CI] * 5 + [CF] * 10
     res = [VP] * 19 + [CI] * 5 + [CF] * 10
+    strides = [ctypes.c_longlong] * 5
     return typed_lib("fused_tight", "prost_tight_num_blocks", {
         "prost_tight_chunk": head + [CI, VP],
-        "prost_tight_chunk_batched": head + [CI, CI, VP],
+        "prost_tight_chunk_batched": head + strides + [CI, CI, VP],
+        "prost_tight_chunk_batched_resident": res + strides + [CI, CI, VP],
         "prost_tight_chunk_halo": head + [CI, CI, VP],
         "prost_tight_chunk_resident": res + [CI, VP],
         "prost_tight_chunk_halo_resident": res + [CI, CI, VP],
-        "prost_tight_resident_smem": []})
-
-
-def _launch(fn: str, what: str, u, v, q, p, s, f, scal, n_scal: int, taps,
-            consts, *args):
-    """One launch of the streaming batched ``fn`` on copies of (u, v, q, p,
-    s), each with a leading instance axis; returns its outputs."""
-    lib = _lib()
-    L, nx, ny = u.shape[-3:]
-    k = v.shape[-3] // 2
-    wk = ChunkWork((u, v, q, p, s), (q, s), scal, n_scal,
-                   lib.prost_tight_num_blocks(nx, ny))
-    launch(lib, fn, what, launch_counts, u.device,
-           wk.buffers(f, kron_array(tuple(taps), L, k, u.device)), L, k, nx,
-           ny, len(taps), *_consts10(consts), *args)
-    return wk.outputs()
+        "prost_tight_resident_smem": [CI]})
 
 
 def _consts10(consts):
@@ -343,40 +333,51 @@ def resident_bytes(L: int, k: int, ntaps: int, nx: int, ny: int,
 
 
 def resident_ok(L: int, k: int, ntaps: int, nx: int, ny: int, sms: int,
-                smem: int) -> bool:
+                smem: int, batch: int | None = None) -> bool:
     """The shape rule of ``tight_chunk_`` and ``tight_chunk_halo_``: a
     chunk on ``nx`` rows runs as one grid-resident launch
     (csrc/fused_tight.cu tight_resident, one block per SM) where the planes
     of its largest band and the taps fit in ``smem`` bytes of a block's
     dynamic shared memory on a card of ``sms`` SMs, and as the streaming
-    launch sequence otherwise."""
+    launch sequence otherwise.  With ``batch`` = B, that of
+    ``tight_chunk_batched_``: its B instances side by side in one launch
+    (tight_resident_batched), each on sms // B blocks, where B <= sms and
+    a band of ``nx`` rows over sms // B blocks fits."""
+    if batch is not None:
+        if not 1 <= int(batch) <= int(sms):
+            return False
+        sms = int(sms) // int(batch)
     return resident_bytes(L, k, ntaps, nx, ny, sms) <= int(smem)
 
 
 @functools.lru_cache(maxsize=None)
-def card_limits(device) -> tuple:
-    """(SMs, the dynamic shared memory a block of the grid-resident chunk
-    may hold) of the card ``device``, read once."""
+def card_limits(device, batched: bool = False) -> tuple:
+    """(SMs, the dynamic shared memory a block of the grid-resident chunk,
+    with ``batched`` the batched chunk's, may hold) of the card ``device``,
+    read once."""
     lib = _lib()
     with torch.cuda.device(device):
-        smem = lib.prost_tight_resident_smem()
+        smem = lib.prost_tight_resident_smem(int(bool(batched)))
     if smem < 0:
         raise ProstError(f"tight_chunk: no shared-memory limit for the "
                          f"resident chunk on {device} (CUDA error {-smem}).")
     return card_sms(device), smem
 
 
-def _resident(L, k, ntaps, nx, ny, device) -> bool:
-    return resident_ok(L, k, ntaps, nx, ny, *card_limits(device))
+def _resident(L, k, ntaps, nx, ny, device, batch=None) -> bool:
+    return resident_ok(L, k, ntaps, nx, ny,
+                       *card_limits(device, batch is not None), batch)
 
 
-def _scratch(resident: bool, L, nx, ny, device):
+def _scratch(resident: bool, L, nx, ny, device, B=None):
     """A chunk launch's scratch: the carried planes kxq and su of this
     iterate and of the previous one (the grid-resident launch writes them
     on the aligned iteration only), and the grid-resident chunk's norm
-    terms (4 planes)."""
+    terms (4 planes); with ``B``, of every instance."""
+    lead = () if B is None else (int(B),)
+
     def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=device)
+        return torch.empty(lead + shape, dtype=torch.float32, device=device)
 
     carried = [empty(2 * L, nx, ny), empty(2 * L, nx, ny), empty(nx, ny),
                empty(nx, ny)]
@@ -546,7 +547,7 @@ class TightChunk(LightChunk):
 
 def tight_chunk_batched(u, v, q, p, s, f, scal, count: int, taps, consts):
     """``tight_chunk`` for each of B instances that share (L, k, taps,
-    consts) in one launch sequence.
+    consts) in one launch (sequence).
 
     u, f: (B, L, nx, ny); v, p: (B, 2k, nx, ny); q: (B, 2L, nx, ny); s: (B,
     nx, ny); scal: (5, B), a row each of tau, sigma, theta, radius and d_s
@@ -555,13 +556,107 @@ def tight_chunk_batched(u, v, q, p, s, f, scal, count: int, taps, consts):
     u_prev, v_prev, q_prev, p_prev, s_prev, norms2), norms2 (4, B) the
     SQUARED preconditioned residual norms of each instance.  Instance b
     comes out as ``tight_chunk`` on instance b alone.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel."""
+    plain version; CUDA tensors run ``tight_chunk_batched_`` on copies."""
     _check(u, v, q, p, s, f, scal, count, taps, consts, batched=True)
     if u.device.type == "cpu":
         return tight_chunk_batched_plain(u, v, q, p, s, f, scal, count, taps,
                                          consts)
-    return _launch("prost_tight_chunk_batched", "tight_chunk_batched", u, v,
-                   q, p, s, f, scal, 5, taps, consts, int(count), u.shape[0])
+    return halo_copy(tight_chunk_batched_, (u, v, q, p, s), f, scal, count,
+                     taps, consts)
+
+
+def _launch_batched(state, prev, f, kron, sc, partial, scratch,
+                    resident: bool, count: int, ntaps: int, consts,
+                    strides) -> None:
+    """One batched chunk on the card in place on ``state`` (u, v, q, p, s)
+    and ``prev``: the grid-resident launch (the instances side by side) or
+    the streaming sequence, counted under ``tight_chunk_batched``."""
+    u, v = state[0], state[1]
+    B, L, nx, ny = u.shape
+    k = v.shape[1] // 2
+    carried, terms = scratch[:4], scratch[4:]
+    fn = "prost_tight_chunk_batched" + ("_resident" if resident else "")
+    launch(_lib(), fn, "tight_chunk_batched", launch_counts, u.device,
+           [*state, *prev, *carried, f, kron, sc, partial, *terms], L, k, nx,
+           ny, int(ntaps), *consts, *strides, int(count), B)
+
+
+def tight_chunk_batched_(u, v, q, p, s, u_prev, v_prev, q_prev, p_prev,
+                         s_prev, f, scal, count: int, taps, consts,
+                         path=None):
+    """``tight_chunk_batched`` in place: every instance of (u, v, q, p, s)
+    advances by ``count`` iterations and the previous buffers take its
+    iterate before the aligned one; an instance whose flag is set changes
+    nothing.  u and v may be views of a route's flat x, q, p and s of its
+    flat y (see ``instance_strides``).  Returns norms2 (4, B).  On a card
+    ``path`` None takes the shape rule's path (``resident_ok`` with
+    ``batch``): one grid-resident launch (csrc/fused_tight.cu
+    tight_resident_batched, the instances side by side) where a band of
+    each instance's share of the SMs fits on chip, else the streaming
+    launch sequence; "resident" or "streaming" asks for one ("resident"
+    raises where it does not fit)."""
+    state, prev = (u, v, q, p, s), (u_prev, v_prev, q_prev, p_prev, s_prev)
+    _check(*state, f, scal, count, taps, consts, batched=True)
+    strides = instance_strides(state, prev, "tight_chunk_batched_")
+    if u.device.type == "cpu":
+        return halo_into(state, prev, tight_chunk_batched_plain(
+            *state, f, scal, count, taps, consts), scal, 5)
+    B, L, nx, ny = u.shape
+    k = v.shape[1] // 2
+    dev = u.device
+    resident = pick_path(path, _resident(L, k, len(taps), nx, ny, dev, B),
+                         "tight_chunk_batched")
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = torch.empty(4 * B * _lib().prost_tight_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_batched(state, prev, f.contiguous(),
+                    kron_array(tuple(taps), L, k, dev), sc, partial,
+                    _scratch(resident, L, nx, ny, dev, B), resident, count,
+                    len(taps), _consts10(consts), strides)
+    return sc[:, S_NORM:S_NORM + 4].T
+
+
+class TightBatchedChunk(LightChunk):
+    """``BatchedPDHG``'s light call of the batched tight chunk:
+    ``tight_chunk_batched_`` on the views of the run's own flat x, y,
+    x_prev and y_prev, with what depends only on the shapes made once per
+    route: the path (``resident_ok`` with ``batch``), the scratch, the norm
+    partials, the taps array, the constants and the scalar buffer with
+    every instance's radius and d_s.  A call writes the step sizes and the
+    flags into the scalar buffer and launches; on the CPU it runs the plain
+    version."""
+
+    def __init__(self, m, batch: int, count: int, device):
+        super().__init__((m["radius"], m["d_s"]), device, batch)
+        self.count = int(count)
+        self.taps, self.consts = m["taps"], m["consts"]
+        B, L, k, nx, ny = int(batch), m["L"], m["k"], m["nx"], m["ny"]
+        self.resident = None  # the path on a card
+        if torch.device(device).type == "cuda":
+            self.resident = _resident(L, k, len(self.taps), nx, ny, device,
+                                      B)
+            self.partial = torch.empty(
+                4 * B * _lib().prost_tight_num_blocks(nx, ny),
+                dtype=torch.float32, device=device)
+            self.scratch = _scratch(self.resident, L, nx, ny, device, B)
+            self.kron = kron_array(tuple(self.taps), L, k, device)
+            self.consts10 = _consts10(self.consts)
+
+    def __call__(self, state, prev, f, tau, sigma, theta, converged):
+        """``count`` iterations of every instance of ``state`` (u, v, q,
+        p, s) in place, the previous iterate into ``prev``; ``converged``
+        sets every instance's flag; returns norms2 (4, B)."""
+        self.scalars_(tau, sigma, theta, converged)
+        if self.resident is None:
+            scal = self.scal()
+            out = tight_chunk_batched_plain(*state, f, scal, self.count,
+                                            self.taps, self.consts)
+            return halo_into(state, prev, out, scal, self.n_scal)
+        _launch_batched(state, prev, f, self.kron, self.sc, self.partial,
+                        self.scratch, self.resident, self.count,
+                        len(self.taps), self.consts10,
+                        instance_strides(state, prev, "tight_chunk_batched_"))
+        return self.norms2()
 
 
 # ---------------------------------------------------------------------------

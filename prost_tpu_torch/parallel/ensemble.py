@@ -16,11 +16,11 @@ sizes); their data (prox coefficients, block values) may differ.
   stacked leaves.  ROF, fast-multilabel, deblur, tight-multilabel and
   volumetric-TV ensembles take a fused route instead, one batched chunk
   kernel launch (sequence) per chunk for all instances
-  (``rof_chunk_batched``, ``tight_chunk_batched``; ``ml_chunk_batched``,
-  ``deblur_chunk_batched`` and ``vol_chunk_batched`` through their light
-  calls ``MLBatchedChunk``, ``DeblurBatchedChunk`` and ``VolBatchedChunk``
-  in place on the run's own vectors) on the phase plan of
-  ``ops/phases.py``.  A route is matched when every instance matches it
+  (``rof_chunk_batched``; ``ml_chunk_batched``, ``deblur_chunk_batched``,
+  ``tight_chunk_batched`` and ``vol_chunk_batched`` through their light
+  calls ``MLBatchedChunk``, ``DeblurBatchedChunk``, ``TightBatchedChunk``
+  and ``VolBatchedChunk`` in place on the run's own vectors) on the phase
+  plan of ``ops/phases.py``.  A route is matched when every instance matches it
   with the same launch constants (sizes, taps, preconditioner constants);
   its per-instance data is stacked.  Other ensembles (deblur frames with
   different blurs, tight instances with different label counts) take the
@@ -58,7 +58,7 @@ from ..config import ProstError, dtype as config_dtype
 from ..ops.fused_deblur import DeblurBatchedChunk, match_deblur_structure
 from ..ops.fused_multilabel import MLBatchedChunk, match_multilabel_structure
 from ..ops.fused_rof import match_rof_structure, rof_chunk_batched
-from ..ops.fused_tight import match_tight_structure, tight_chunk_batched
+from ..ops.fused_tight import TightBatchedChunk, match_tight_structure
 from ..ops.fused_vol import VolBatchedChunk, match_vol_structure
 from ..ops.pdhg_chunk import dead_dual_flat, own_vectors
 from ..ops.phases import run_phases
@@ -213,11 +213,6 @@ def _match_all(problems, backends, match, keys, stacks, scalars):
     out.update({k: torch.tensor([m[k] for m in ms], dtype=torch.float32,
                                 device=dev) for k in scalars})
     return out
-
-
-def _flat(B: int, *planes):
-    """The (B, n) rows of a state vector from its per-instance planes."""
-    return torch.cat([a.reshape(B, -1) for a in planes], dim=1)
 
 
 class BatchedPDHG:
@@ -440,21 +435,26 @@ class BatchedPDHG:
                                  done)
 
     def _tight_chunk(self, st: PDHGState, done) -> PDHGState:
+        """One batched chunk in place on the views of the run's own x, y,
+        x_prev and y_prev (``own_vectors``): u and v in x, q, p and s in y,
+        through the route's light call (``TightBatchedChunk``, made once
+        per route)."""
         t, B = self.tight, self.batch
         L, k, nx, ny = t["L"], t["k"], t["nx"], t["ny"]
         nL, nk2 = nx * ny * L, 2 * nx * ny * k
-        x, y = st.x, st.y
-        out = tight_chunk_batched(
-            x[:, :nL].reshape(B, L, nx, ny),
-            x[:, nL:].reshape(B, 2 * k, nx, ny),
-            y[:, :2 * nL].reshape(B, 2 * L, nx, ny),
-            y[:, 2 * nL:2 * nL + nk2].reshape(B, 2 * k, nx, ny),
-            y[:, 2 * nL + nk2:].reshape(B, nx, ny), t["f"],
-            self._scal(st, t["radius"], t["d_s"], done), self.ri, t["taps"],
-            t["consts"])
-        u2, v2, q2, p2, s2, up, vp, qp, pp, sp, norms2 = out
-        return self._after_chunk(st, _flat(B, u2, v2), _flat(B, q2, p2, s2),
-                                 _flat(B, up, vp), _flat(B, qp, pp, sp),
+
+        def planes(x, y):
+            return (x[:, :nL].view(B, L, nx, ny),
+                    x[:, nL:].view(B, 2 * k, nx, ny),
+                    y[:, :2 * nL].view(B, 2 * L, nx, ny),
+                    y[:, 2 * nL:2 * nL + nk2].view(B, 2 * k, nx, ny),
+                    y[:, 2 * nL + nk2:].view(B, nx, ny))
+
+        if "call" not in t:
+            t["call"] = TightBatchedChunk(t, B, self.ri, st.x.device)
+        norms2 = t["call"](planes(st.x, st.y), planes(st.x_prev, st.y_prev),
+                           t["f"], st.tau, st.sigma, st.theta, done)
+        return self._after_chunk(st, st.x, st.y, st.x_prev, st.y_prev,
                                  norms2, done)
 
     def run(self, state: PDHGState, until_iter: int,
@@ -487,10 +487,11 @@ class BatchedPDHG:
             done[0] = self._all_converged(s)
             return s
 
-        # the ROF canonicalization; the ml, deblur and vol chunks work in
-        # place on the run's own copies of the state's vectors
+        # the ROF canonicalization; the ml, deblur, tight and vol chunks
+        # work in place on the run's own copies of the state's vectors
         canonicalize = {"rof": self._rof_canonical, "ml": own_vectors,
-                        "deblur": own_vectors, "vol": own_vectors}.get(name)
+                        "deblur": own_vectors, "tight": own_vectors,
+                        "vol": own_vectors}.get(name)
         return run_phases(state, start_iter, until_iter, self.ri, 1 % self.ri,
                           generic, canonicalize, chunk,
                           epilogue=self._epilogue)

@@ -1901,3 +1901,214 @@ def test_rof_halo_rules_on_the_card(dev):
     fr.rof_chunk_halo_(*ext[:2], ext[0].clone(), ext[1].clone(), *ext[2:],
                        scal, 2, 2048)
     assert fr.launch_counts["rof_chunk_halo"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# row 21: the batched tight chunk grid-resident, its instances side by side
+# (-k tight_batched)
+# ---------------------------------------------------------------------------
+
+def _tight_batch(seed, B, L, nx, ny, dev, flags=None):
+    """A route's flat rows x (B, (L + 2k) n) and y (B, (2L + 2k + 1) n),
+    f (B, L, nx, ny) and the (5, B) (+ flags) scalar rows on the card, the
+    example's taps and constants, and k."""
+    _, taps, consts = _tight_case(seed, L, 2, 2, dev)
+    k = L * (L - 1) // 2
+    n = nx * ny
+    rng = np.random.RandomState(seed)
+    x = np.concatenate([rng.rand(B, L * n), 0.1 * rng.randn(B, 2 * k * n)],
+                       1)
+    y = np.concatenate([0.2 * rng.randn(B, 2 * L * n),
+                        0.1 * rng.randn(B, 2 * k * n),
+                        0.1 * rng.randn(B, n)], 1)
+    rows = [0.8 + 0.4 * rng.rand(B), 0.8 + 0.4 * rng.rand(B), np.ones(B),
+            0.7 * (0.5 + rng.rand(B)), np.ones(B)]
+    if flags is not None:
+        rows.append(np.asarray(flags, np.float64))
+    arrs = [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (x, y, rng.rand(B, L, nx, ny), np.array(rows))]
+    return (*arrs, taps, consts, k)
+
+
+def _tight_views(x, y, L, k, nx, ny):
+    """(u, v, q, p, s) views of the flat rows."""
+    B, n = x.shape[0], nx * ny
+    nL, nk2 = L * n, 2 * k * n
+    return (x[:, :nL].view(B, L, nx, ny), x[:, nL:].view(B, 2 * k, nx, ny),
+            y[:, :2 * nL].view(B, 2 * L, nx, ny),
+            y[:, 2 * nL:2 * nL + nk2].view(B, 2 * k, nx, ny),
+            y[:, 2 * nL + nk2:].view(B, nx, ny))
+
+
+def _finishes(seconds):
+    """Fail unless the work queued on the current stream finishes within
+    ``seconds`` (a grid barrier that some block never reaches would hang
+    the launch)."""
+    import time
+
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.monotonic()
+    while not done.query():
+        if time.monotonic() - t0 > seconds:
+            pytest.fail(f"the launch did not finish within {seconds} s")
+        time.sleep(0.001)
+
+
+@pytest.mark.parametrize("B,L,nx,ny,ri,flags", [
+    (8, 4, 128, 128, 10, None),                  # tight8x128x4
+    (8, 4, 128, 128, 10, [0, 1, 0, 0, 1, 1, 0, 0]),
+    (3, 3, 250, 190, 3, None),                   # ragged
+    (3, 3, 250, 190, 10, [0, 1, 0]),
+    (2, 4, 128, 128, 10, None),                  # B = 2
+    (2, 2, 9, 40, 2, [1, 0]),                    # empty bands
+    (1, 4, 128, 128, 1, None)])                  # B = 1, count 1
+def test_tight_batched_resident_is_streaming_and_each_instance(
+        dev, B, L, nx, ny, ri, flags):
+    """``tight_chunk_batched_`` in place on a route's views: the resident
+    launch against the streaming sequence from the same inputs, and each
+    instance against ``tight_chunk_`` on it alone, bit for bit in the
+    state, the previous iterate and the norms; a flagged instance's buffers
+    untouched and its norms zero; one launch per call."""
+    from prost_tpu_torch.ops import fused_tight as ft
+
+    x, y, f, scal, taps, consts, k = _tight_batch(200 + B + L, B, L, nx, ny,
+                                                  dev, flags)
+    got = {}
+    for path in ("streaming", "resident"):
+        cur = [x.clone(), y.clone()]
+        prev = [torch.full_like(x, 7.0), torch.full_like(y, 7.0)]
+        before = ft.launch_counts["tight_chunk_batched"]
+        norms2 = ft.tight_chunk_batched_(
+            *_tight_views(*cur, L, k, nx, ny),
+            *_tight_views(*prev, L, k, nx, ny), f, scal, ri, taps, consts,
+            path=path).clone()
+        assert ft.launch_counts["tight_chunk_batched"] == before + 1
+        got[path] = cur + prev + [norms2]
+    torch.cuda.synchronize()
+    for a, b in zip(got["streaming"], got["resident"]):
+        assert torch.equal(a, b)
+    res = got["resident"]
+    views = _tight_views(res[0], res[1], L, k, nx, ny) + _tight_views(
+        res[2], res[3], L, k, nx, ny)
+    ins = _tight_views(x, y, L, k, nx, ny)
+    for b in range(B):
+        if flags and flags[b]:
+            for a, i in zip(views[:5], ins):
+                assert torch.equal(a[b], i[b])
+            for a in views[5:]:
+                assert torch.all(a[b] == 7.0)
+            assert not res[4][:, b].any()
+            continue
+        cur = [t[b].clone() for t in ins]
+        prev = [torch.empty_like(t) for t in cur]
+        norms = ft.tight_chunk_(*cur, *prev, f[b], scal[:5, b], ri, taps,
+                                consts)
+        for a, c in zip(views, cur + prev):
+            assert torch.equal(a[b], c)
+        assert torch.equal(res[4][:, b], norms)
+    assert all(bool(torch.isfinite(t).all()) for t in res)
+
+
+@pytest.mark.parametrize("flags", [[1, 0, 1, 1, 0, 1, 1, 1],
+                                   [1, 1, 1, 1, 1, 1, 1, 0],
+                                   [1] * 8])
+def test_tight_batched_resident_mixed_flags_finish(dev, flags):
+    """The resident launch at 8 instances of 128x128x4 with flags set on
+    some or all of them finishes within 20 s (a flagged instance's blocks
+    pass every grid barrier; all flagged, the grid leaves at once), and
+    leaves the flagged instances' buffers as they were."""
+    from prost_tpu_torch.ops import fused_tight as ft
+
+    B, L, n = 8, 4, 128
+    x, y, f, scal, taps, consts, k = _tight_batch(210, B, L, n, n, dev,
+                                                  flags)
+    cur = [x.clone(), y.clone()]
+    prev = [torch.full_like(x, 7.0), torch.full_like(y, 7.0)]
+    norms2 = ft.tight_chunk_batched_(*_tight_views(*cur, L, k, n, n),
+                                     *_tight_views(*prev, L, k, n, n), f,
+                                     scal, 10, taps, consts, path="resident")
+    _finishes(20.0)
+    for b in range(B):
+        flagged = bool(flags[b])
+        assert torch.equal(cur[0][b], x[b]) is flagged
+        assert torch.equal(cur[1][b], y[b]) is flagged
+        assert bool(torch.all(prev[0][b] == 7.0)) is flagged
+        assert bool(norms2[:, b].any()) is not flagged
+
+
+def test_tight_batched_light_call_on_the_card(dev):
+    """``TightBatchedChunk`` at 8 instances of 128x128x4 takes the resident
+    path and leaves what ``tight_chunk_batched_`` leaves, twice in a row;
+    with the flag set it changes nothing."""
+    from prost_tpu_torch.ops import fused_tight as ft
+
+    B, L, n = 8, 4, 128
+    x, y, f, scal, taps, consts, k = _tight_batch(211, B, L, n, n, dev)
+    m = {"L": L, "k": k, "nx": n, "ny": n, "taps": taps, "consts": consts,
+         "radius": scal[3], "d_s": scal[4]}
+    call = ft.TightBatchedChunk(m, B, 10, dev)
+    assert call.resident
+    cur, prev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+    want_cur, want_prev = [x.clone(), y.clone()], [x.clone(), y.clone()]
+    full = torch.cat([scal, torch.zeros(1, B, device=dev)])
+    for _ in range(2):
+        norms2 = call(_tight_views(*cur, L, k, n, n),
+                      _tight_views(*prev, L, k, n, n), f, scal[0], scal[1],
+                      scal[2], torch.tensor(False, device=dev))
+        want = ft.tight_chunk_batched_(*_tight_views(*want_cur, L, k, n, n),
+                                       *_tight_views(*want_prev, L, k, n, n),
+                                       f, full, 10, taps, consts,
+                                       path="resident")
+        for a, b in zip(cur + prev + [norms2],
+                        want_cur + want_prev + [want]):
+            assert torch.equal(a, b)
+    held = [t.clone() for t in cur + prev]
+    norms2 = call(_tight_views(*cur, L, k, n, n),
+                  _tight_views(*prev, L, k, n, n), f, scal[0], scal[1],
+                  scal[2], torch.tensor(True, device=dev))
+    _finishes(20.0)
+    assert not norms2.any()
+    for a, b in zip(cur + prev, held):
+        assert torch.equal(a, b)
+
+
+def test_tight_batched_rules_on_the_card(dev):
+    """The card's limits send 8 instances of 128x128x4, 3 of 250x190x3 and
+    2 of 128x128x4 to the resident launch and 16 of 128x128x4 and more
+    instances than SMs to the streaming sequence, where asking for the
+    resident launch raises; the launch the C side refuses (more instances
+    than SMs) raises."""
+    from prost_tpu_torch.ops import fused_tight as ft
+
+    sms, smem = ft.card_limits(dev, True)
+    assert sms == torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ft.resident_ok(4, 6, 24, 128, 128, sms, smem, batch=8)
+    assert ft.resident_ok(4, 6, 24, 128, 128, sms, smem, batch=2)
+    assert ft.resident_ok(3, 3, 12, 250, 190, sms, smem, batch=3)
+    assert not ft.resident_ok(4, 6, 24, 128, 128, sms, smem, batch=16)
+    assert not ft.resident_ok(2, 1, 2, 4, 4, sms, smem, batch=sms + 1)
+    for B, L, nx in ((16, 4, 128), (sms + 1, 2, 4)):
+        x, y, f, scal, taps, consts, k = _tight_batch(212, B, L, nx, nx, dev)
+        views = _tight_views(x, y, L, k, nx, nx)
+        prev = _tight_views(x.clone(), y.clone(), L, k, nx, nx)
+        with pytest.raises(ptt.ProstError, match="do not fit"):
+            ft.tight_chunk_batched_(*views, *prev, f, scal, 2, taps, consts,
+                                    path="resident")
+        before = ft.launch_counts["tight_chunk_batched"]
+        ft.tight_chunk_batched_(*views, *prev, f, scal, 2, taps, consts)
+        assert ft.launch_counts["tight_chunk_batched"] == before + 1
+    # the C side refuses more instances than SMs
+    lib = ft._lib()
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = x.new_empty(4 * B * lib.prost_tight_num_blocks(nx, nx))
+    carried = ft._scratch(True, L, nx, nx, dev, B)
+    kron = ft.kron_array(tuple(taps), L, k, dev)
+    n = nx * nx
+    X, Y = (L + 2 * k) * n, (2 * L + 2 * k + 1) * n
+    with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+        launch(lib, "prost_tight_chunk_batched_resident",
+               "tight_chunk_batched", ft.launch_counts, dev,
+               [*views, *prev, *carried[:4], f, kron, sc, partial,
+                carried[4]], L, k, nx, nx, len(taps),
+               *ft._consts10(consts), X, X, Y, Y, Y, 2, B)
