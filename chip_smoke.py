@@ -39,6 +39,19 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    iterations at tolerance 1e-5), through the modeling API with the fused
    route, count the multilabel kernels' launches, and hold its energy
    against the generic PDHG path on the same card;
+   then, on the generic PDHG (no fused route takes them), with the native
+   host runtime required: the dual of config 1's ROF (lmb 16) at 512x512
+   as examples/example_rof_dual.py poses it, -grad^T a ``block.sparse``
+   (first held on the card against ``BlockGradient2D``, two applies
+   bit-equal; goldstein, residual_iter 100, ``DUAL_ROF_ITERS``
+   iterations at tolerance 1e-7), u recovered with ``get_all_variables``,
+   its own primal-dual gap within ENERGY_RTOL of its energy and that
+   energy between config 1's dual energy and its energy; config 3's
+   problem with the simplex in g (``transform(sum_ind_simplex, d=f)``, no
+   sum-to-one dual) at 256x256x8 against config 3's fused energy and its
+   own lower bound, and on the simplex; and every function and block factory of the JAX package's
+   registry through ``eval_prox`` and ``eval_linop`` on the card against
+   the CPU;
 8. the same for the deblur kernel: ``deblur_chunk`` (ri = 10) at 512x512
    with config 2's 9x9 motion blur, at a ragged 250x190 with an asymmetric
    5x5 blur (both grid-resident) and at 2048x2048 (streaming), timed
@@ -255,6 +268,17 @@ ML_ITER_OPS, ML_PIXEL_OPS, ML_SEED_OPS, ML_CHUNK_OPS = 27, 10, 3, 1
 ML_NORM_OPS, ML_NORM_PIXEL_OPS = 44, 13
 # Config 3 (bench.py build_multilabel, examples/example_multilabel_fast.py)
 ML_SIZE, ML_LABELS, ML_LMB = 256, 8, 0.5
+# The simplex multilabel model (config 3's problem with the simplex in g)
+# against config 3's fused energy, after 2000 iterations each: the same
+# convex problem, each run short of the optimum by its own distance.  On
+# an H100 the simplex run ends 3.6e-3 below config 3's energy, and its own
+# lower bound (``ml_dual_energy``) shows config 3's run at least 3.5e-3
+# above the optimum (808.85 after 4000 iterations against 812.76), so the
+# two are held within 5e-3, and the simplex run's own gap within 1e-2 of
+# its energy (5.7e-3 after 2000 iterations, 1.3e-3 after 4000;
+# tools/zoo_probe.py).
+SIMPLEX_ML_RTOL, SIMPLEX_GAP_RTOL = 5e-3, 1e-2
+SIMPLEX_TOL = 1e-5   # every pixel's u on the simplex (f32 sort and sums)
 ML_LARGE = 512  # the size at which the JAX package bands the ml kernels
 #   Deblur (T taps; n pixels of the image, m2 of the full convolution):
 #   seed: B x (2T - 1) per m2 pixel, grad x 2 per n.  Iteration: primal
@@ -303,6 +327,21 @@ SMALL_ENS_B, SMALL_ENS_ITERS = 8, 300
 HALO_NORM_RTOL = 1e-6
 # BASELINE config 1 (bench.py, the main path's ROF model)
 ROF_SIZE, ROF_LMB = 512, 16.0
+# The dual ROF on block.sparse: iterations of its solve (goldstein,
+# residual_iter 100, as example_rof_dual.py).  Config 1's primal solve
+# ends 1.2e-3 above the optimum after its 2000 iterations (its certified
+# gap is 1.7e-3), so the dual's energy is not held within ENERGY_RTOL of
+# it: the dual solve's own gap is, and on an H100 it takes 4000 iterations
+# to get there (1.7e-4 of the energy after 2000, 3.9e-5 after 4000, 1.1e-5
+# after 8000; tools/zoo_probe.py).  Its apply and adjoint on the card against BlockGradient2D's
+# (the same differences summed in CSR order against a stencil: a few f32
+# ulp of max(1, |out|)).
+DUAL_ROF_ITERS = 4000
+SPARSE_TOL = 1e-5
+# The factories' proxes and blocks on the card against the CPU (f32, of
+# max(1, |out|)): closed forms; solvers (eigh, Cholesky, the polyhedral
+# epigraph's sweeps)
+ZOO_TOL, ZOO_EIGH_TOL = 1e-5, 1e-4
 HALO_SHARDS = (1, 2, 4)
 # An instance of a deblur or tight ensemble against its single-instance
 # fused solve: the batched kernels are the single-instance ones instance by
@@ -525,6 +564,22 @@ def ml_energy(u, f, lmb, L, nx, ny):
     gy[:, :, :-1] = u[:, :, 1:] - u[:, :, :-1]
     tv = np.sum(np.sqrt(np.sum(gx ** 2 + gy ** 2, axis=0)))
     return float(u.reshape(-1) @ f.astype(np.float64) + lmb * tv)
+
+
+def ml_dual_energy(q, f, lmb, L, nx, ny):
+    """The lower bound of the multilabel problem with the simplex in g at
+    the dual q clipped to its per-pixel 2L-ball of radius lmb:
+    sum_px min_l (f + K^T q)_l, in float64 (no energy of a u on the
+    simplex can undercut it)."""
+    p = q.reshape(2, L, nx, ny).astype(np.float64)
+    norm = np.sqrt(np.sum(p ** 2, axis=(0, 1)))
+    p = p * np.minimum(1.0, lmb / np.maximum(norm, 1e-300))[None, None]
+    ktq = f.reshape(L, nx, ny).astype(np.float64).copy()
+    ktq[:, 1:] += p[0, :, :-1]
+    ktq[:, :-1] -= p[0, :, :-1]
+    ktq[:, :, 1:] += p[1, :, :, :-1]
+    ktq[:, :, :-1] -= p[1, :, :, :-1]
+    return float(np.sum(np.min(ktq, axis=0)))
 
 
 def deblur_chunk_ops(n, m2, T, ri):
@@ -1456,6 +1511,341 @@ def phase_ml_solve(card):
     check(rel <= ENERGY_RTOL, "fused and generic multilabel energies "
           "disagree")
     return launches, e_fused
+
+
+def sparse_gradient(nx, ny):
+    """gradient2d's forward differences (Neumann boundary) as a scipy
+    matrix, spmat_gradient2d.m as examples/example_rof_dual.py builds it."""
+    import scipy.sparse as sp
+
+    dy = sp.spdiags(np.vstack([np.r_[-np.ones(ny - 1), 0], np.ones(ny)]),
+                    [0, 1], ny, ny)
+    dy = sp.kron(sp.eye(nx), dy)
+    dx = sp.spdiags(np.vstack([np.r_[-np.ones(ny * (nx - 1)), np.zeros(ny)],
+                               np.ones(nx * ny)]), [0, ny], nx * ny, nx * ny)
+    return sp.vstack([dx, dy]).tocsc()
+
+
+def rof_dual_model(nx, ny, f, lmb):
+    """The dual of ``rof_model``'s ROF as examples/example_rof_dual.py
+    poses it: min over (q, w = -grad^T q, a ``block.sparse``) of
+    I(||q_i|| <= 1) + 1/(2 lmb) ||w + lmb f||^2; u is the dual variable of
+    the constraint, q the dual p of ``rof_model``."""
+    import prost_tpu_torch as ptt
+
+    n = nx * ny
+    q, w = ptt.Variable(2 * n), ptt.Variable(n)
+    prob = ptt.MinProblem([q], [w])
+    prob.add_function(q, ptt.function.sum_norm2(2, False, "ind_leq0", 1, 1,
+                                                1))
+    prob.add_function(w, ptt.function.sum_1d("square", 1, -f * lmb,
+                                             1 / lmb))
+    prob.add_constraint(q, w, ptt.block.sparse(-sparse_gradient(nx, ny).T))
+    return prob
+
+
+def simplex_ml_model(nx, ny, L, f, lmb):
+    """Config 3's convex problem with the simplex in g: the unaries and
+    the simplex indicator (``transform(sum_ind_simplex, d=f)``), the
+    per-pixel 2L-ball of radius lmb on grad u, and no sum-to-one dual."""
+    import prost_tpu_torch as ptt
+
+    n = nx * ny
+    u, q = ptt.Variable(n * L), ptt.Variable(2 * n * L)
+    prob = ptt.MinMaxProblem([u], [q])
+    prob.add_function(u, ptt.function.transform(
+        ptt.function.sum_ind_simplex(L, False), 1, 0, 1, f))
+    prob.add_function(q, ptt.function.sum_norm2(2 * L, False, "ind_leq0",
+                                                1 / lmb, 1, 1))
+    prob.add_dual_pair(u, q, ptt.block.gradient2d(nx, ny, L))
+    return prob
+
+
+def device_busy(work):
+    """``work()`` under torch.profiler: (device ms, wall ms, the three
+    kernels with the most device ms).  The tracer adds host time to every
+    launch, so device ms over wall ms is a lower bound of the busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        work()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = kernel_name(e.name)[:40]
+            by_kernel[name] = (by_kernel.get(name, 0.0)
+                               + e.time_range.elapsed_us() * 1e-3)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:3]
+    return sum(by_kernel.values()), wall, top
+
+
+def generic_route(backend):
+    """Whether ``backend`` (made by ``recording``) runs the generic PDHG:
+    no fused route matched the problem."""
+    b = backend.made
+    return (b.rof, b.ml, b.deblur, b.tight, b.vol) == (None,) * 5
+
+
+def print_busy(label, work, card):
+    device_ms, wall_ms, top = device_busy(work)
+    print(f"{label}: traced wall {wall_ms:.4f} ms, device {device_ms:.4f} "
+          f"ms, busy share {device_ms / wall_ms:.4f}; top kernels "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in top) + f" [{card}]")
+
+
+def phase_dual_rof_solve(card, e_pdhg, d_pdhg, nx=ROF_SIZE):
+    """The dual of config 1's ROF (lmb 16, the procedural image) on a
+    ``block.sparse`` -grad^T at full width, through ``pt.solve`` and the
+    generic PDHG (goldstein, residual_iter 100, as example_rof_dual.py),
+    u recovered with ``get_all_variables``; first the sparse block on the
+    card against BlockGradient2D."""
+    import torch
+
+    import prost_tpu_torch as ptt
+    from prost_tpu_torch._native import host
+    from prost_tpu_torch.backend import PDHGOptions
+    from prost_tpu_torch.common import tree_to
+    from prost_tpu_torch.linop import BlockGradient2D
+
+    ny, n, lmb = nx, nx * nx, ROF_LMB
+    f = test_image(nx, ny).reshape(-1)
+    print(f"host runtime native: {host.available()} [{card}]")
+    check(host.available(), "the native host runtime did not build")
+
+    dev = ptt.device()
+    t0 = time.perf_counter()
+    blk, _ = ptt.block.sparse(-sparse_gradient(nx, ny).T)(0, 0, n, 2 * n)
+    create_s = time.perf_counter() - t0
+    blk = tree_to(blk, dev)
+    grad = BlockGradient2D(row=0, col=0, nx=nx, ny=ny, L=1)
+    rng = np.random.RandomState(0)
+    p = torch.as_tensor(rng.randn(2 * n), dtype=torch.float32, device=dev)
+    u = torch.as_tensor(rng.randn(n), dtype=torch.float32, device=dev)
+    errs = []
+    for out, ref in ((blk.apply(p), -grad.apply_adjoint(p)),
+                     (blk.apply_adjoint(u), -grad.apply(u))):
+        errs.append(float(torch.max(torch.abs(out - ref)
+                                    / torch.clamp(torch.abs(ref), min=1.0))))
+    same = (torch.equal(blk.apply(p), blk.apply(p))
+            and torch.equal(blk.apply_adjoint(u), blk.apply_adjoint(u)))
+    ms = [time_ms(fn, 50) for fn in (lambda: blk.apply(p),
+                                     lambda: grad.apply_adjoint(p),
+                                     lambda: blk.apply_adjoint(u),
+                                     lambda: grad.apply(u))]
+    print(f"block.sparse -grad^T {nx}x{ny} ({blk.vals_f.numel()} nonzeros, "
+          f"made in {create_s:.4f} s on the host): apply vs -K^T err "
+          f"{errs[0]:.3e}, adjoint vs -K err {errs[1]:.3e} (tol "
+          f"{SPARSE_TOL:g} of max(1, |out|)); two applies bit-equal: {same}; "
+          f"apply {ms[0]:.4f} ms (BlockGradient2D adjoint {ms[1]:.4f}), "
+          f"adjoint {ms[2]:.4f} ms (BlockGradient2D apply {ms[3]:.4f}) "
+          f"[{card}]")
+    check(max(errs) <= SPARSE_TOL, "block.sparse disagrees with gradient2d")
+    check(same, "two block.sparse applies on the card differ")
+
+    def run(max_iters):
+        backend = recording("pdhg", PDHGOptions(stepsize="goldstein",
+                                                residual_iter=100))
+        return run_model(backend, rof_dual_model(nx, ny, f, lmb), 2 * n,
+                         max_iters, tol=1e-7)
+
+    run(200)  # warm-up
+    res, backend, dt = run(DUAL_ROF_ITERS)
+    check(generic_route(backend), "a fused route took the dual ROF")
+    uv = ptt.Variable(n)
+    ptt.get_all_variables(res, (), (), (uv,), ())
+    e_dual = rof_energy(uv.val, f, lmb, nx, ny)
+    d_dual = rof_dual_energy(res.x, f, lmb, nx, ny)
+    gap_rel = (e_dual - d_dual) / e_dual
+    rel = (e_dual - e_pdhg) / e_pdhg
+    print(f"dual ROF solve {nx}x{ny} on block.sparse (generic PDHG, "
+          f"goldstein): {rates(res, backend, dt)}; energy of u {e_dual:.8f}, "
+          f"its own gap {e_dual - d_dual:.6f} = {gap_rel:.3e} relative (tol "
+          f"{ENERGY_RTOL:g}); vs the primal solve's energy {e_pdhg:.8f}: "
+          f"{rel:+.3e} relative, its dual energy {d_pdhg:.8f} [{card}]")
+    print_busy(f"dual ROF solve {nx}x{ny}, 200 iterations",
+               lambda: run(200), card)
+    check(gap_rel <= ENERGY_RTOL, "the dual ROF solve's own gap is above "
+          "ENERGY_RTOL")
+    check(d_pdhg <= e_dual <= e_pdhg * (1 + ENERGY_RTOL),
+          "the dual ROF energy is outside [the primal solve's dual energy, "
+          "its energy]")
+    return e_dual
+
+
+def phase_simplex_ml_solve(card, e_ml, nx=ML_SIZE):
+    """Config 3's problem with the simplex in g (``simplex_ml_model``) at
+    full width, through ``pt.solve`` and the generic PDHG (boyd,
+    residual_iter 10; the fused multilabel route must not take it), held
+    against config 3's fused energy and its own lower bound, and on the
+    simplex."""
+    from prost_tpu_torch.backend import PDHGOptions
+
+    ny, L, n = nx, ML_LABELS, nx * nx
+    f = ml_unaries(cow_gray(ny, nx), L)
+
+    def run(max_iters):
+        backend = recording("pdhg", PDHGOptions(stepsize="boyd",
+                                                residual_iter=10))
+        return run_model(backend, simplex_ml_model(nx, ny, L, f, ML_LMB),
+                         n * L, max_iters)
+
+    run(200)  # warm-up
+    res, backend, dt = run(2000)
+    check(backend.made.ml is None and generic_route(backend),
+          "a fused route took the simplex multilabel model")
+    e = ml_energy(res.x, f, ML_LMB, L, nx, ny)
+    d = ml_dual_energy(res.y, f, ML_LMB, L, nx, ny)
+    u = res.x.reshape(L, n).astype(np.float64)
+    off = max(float(np.max(np.abs(u.sum(axis=0) - 1.0))),
+              float(max(0.0, -u.min())))
+    rel = (e - e_ml) / e_ml
+    print(f"simplex multilabel solve {nx}x{ny}x{L} (generic PDHG, boyd): "
+          f"{rates(res, backend, dt)}; energy {e:.8f} vs config 3's fused "
+          f"{e_ml:.8f}: {rel:+.3e} relative (tol {SIMPLEX_ML_RTOL:g}); "
+          f"its lower bound {d:.8f}, own gap {(e - d) / e:.3e} relative (tol "
+          f"{SIMPLEX_GAP_RTOL:g}); distance from the simplex {off:.3e} (tol "
+          f"{SIMPLEX_TOL:g}) [{card}]")
+    print_busy(f"simplex multilabel solve {nx}x{ny}x{L}, 200 iterations",
+               lambda: run(200), card)
+    check(abs(rel) <= SIMPLEX_ML_RTOL, "the simplex multilabel energy "
+          "disagrees with config 3's")
+    check(0.0 <= e - d <= SIMPLEX_GAP_RTOL * e,
+          "the simplex multilabel solve's own gap is too large")
+    check(off <= SIMPLEX_TOL, "a pixel's u is off the simplex")
+    return e
+
+
+def sparse_range_matrix(rng):
+    """A 12x3 scipy CSR matrix of full column rank, about half zeros."""
+    import scipy.sparse as sp
+
+    a = rng.randn(12, 3)
+    a[np.abs(a) < 0.7] = 0.0
+    a[:3] += np.eye(3)
+    return sp.csr_matrix(a)
+
+
+def zoo_registries():
+    """Every factory of tests/test_modeling.py:153-200, both registries,
+    with the JAX test's sizes (and ``ind_range`` of a sparse A as well):
+    [(name, factory, size, tolerance)] of
+    ``function`` and [(name, factory, nrows, ncols, tolerance)] of
+    ``block``.  Tolerances (f32, of max(1, |out|), card against CPU):
+    ZOO_TOL for the closed forms; ZOO_EIGH_TOL where a solver decomposes
+    (eigh, Cholesky) or iterates (the polyhedral epigraph's sweeps, whose
+    stop can fall a sweep apart), since the card's solver and LAPACK
+    round otherwise."""
+    import prost_tpu_torch as ptt
+
+    fn, bl = ptt.function, ptt.block
+    r = np.random.RandomState(2)
+    K = np.random.RandomState(3).randn(4, 6)
+    closed, solver = ZOO_TOL, ZOO_EIGH_TOL
+    functions = [
+        ("zero", fn.zero(), 12, closed),
+        ("sum_1d", fn.sum_1d("huber", alpha=0.5), 12, closed),
+        ("sum_norm2", fn.sum_norm2(3, False, "abs"), 12, closed),
+        ("sum_ind_simplex", fn.sum_ind_simplex(4, False), 12, closed),
+        ("sum_ind_sum", fn.sum_ind_sum(4, False), 12, closed),
+        ("sum_ind_sum2", fn.sum_ind_sum2(3, [0, 1, 2, 3, 4, 5], 1.0), 12,
+         closed),
+        ("sum_ind_soc", fn.sum_ind_soc(6, False), 12, closed),
+        ("sum_ind_halfspace", fn.sum_ind_halfspace(4, False, np.ones(4),
+                                                   1.0), 12, closed),
+        ("sum_ind_epi_quad", fn.sum_ind_epi_quad(4, False, 1.0, np.zeros(3),
+                                                 0.0), 12, closed),
+        ("sum_ind_epi_polyhedral", fn.sum_ind_epi_polyhedral(
+            3, False, np.tile([1.0, -1.0, 0.5, 2.0], 4),
+            np.tile([0.1, 0.2], 4), np.full(4, 2), np.arange(4) * 2), 12,
+         solver),
+        ("sum_eigen_2x2", fn.sum_eigen_2x2(False, "ind_geq0"), 16, closed),
+        ("sum_eigen_3x3", fn.sum_eigen_3x3(False, "abs"), 18, solver),
+        ("sum_eigen_nxn", fn.sum_eigen_nxn(4, False, "square"), 32, solver),
+        ("sum_singular_nx2", fn.sum_singular_nx2(6, False, "sum_1d:abs"), 12,
+         closed),
+        ("sum_mass_norm", fn.sum_mass_norm(4, False), 12, solver),
+        ("sum_ind_comass_ball", fn.sum_ind_comass_ball(5, False), 20,
+         solver),
+        ("ind_range", fn.ind_range(r.randn(12, 3)), 12, solver),
+        ("ind_range (sparse A)", fn.ind_range(sparse_range_matrix(r)), 12,
+         solver),
+        ("conjugate", fn.conjugate(fn.sum_1d("abs")), 12, closed),
+        ("transform", fn.transform(fn.sum_1d("abs"), 2.0, 1.0), 12, closed),
+        ("permute", fn.permute(fn.sum_1d("abs"), np.arange(12)[::-1]), 12,
+         closed),
+    ]
+    blocks = [
+        ("sparse", bl.sparse(K), 4, 6, closed),
+        ("dense", bl.dense(K), 4, 6, closed),
+        ("diags", bl.diags(5, 5, [1.0, -2.0], [0, 1]), 5, 5, closed),
+        ("identity", bl.identity(), 7, 7, closed),
+        ("zero", bl.zero(), 4, 9, closed),
+        ("gradient2d", bl.gradient2d(4, 5, 2), 80, 40, closed),
+        ("gradient3d", bl.gradient3d(4, 5, 2), 120, 40, closed),
+        ("sparse_kron_id", bl.sparse_kron_id(K, 3), 12, 18, closed),
+        ("dense_kron_id", bl.dense_kron_id(K, 3), 12, 18, closed),
+        ("id_kron_sparse", bl.id_kron_sparse(K, 3), 12, 18, closed),
+        ("id_kron_dense", bl.id_kron_dense(K, 3), 12, 18, closed),
+    ]
+    return functions, blocks
+
+
+def phase_zoo(card):
+    """Every factory of both registries evaluated through ``eval_prox``
+    and ``eval_linop`` on the card and on the CPU from the same seeded
+    input, each pair held within its tolerance (``zoo_registries``)."""
+    import prost_tpu_torch as ptt
+
+    functions, blocks = zoo_registries()
+    card_dev = ptt.device()
+
+    def both(evaluate):
+        """(card result, CPU result) of ``evaluate()``."""
+        try:
+            out = evaluate()
+            ptt.set_device("cpu")
+            return out, evaluate()
+        finally:
+            ptt.set_device(card_dev)
+
+    def err(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
+
+    worst = []
+    for name, factory, size, tol in functions:
+        rng = np.random.RandomState(7)
+        arg, tau_diag = rng.randn(size), 0.5 + rng.rand(size)
+        (out, ms), (ref, _) = both(
+            lambda: ptt.eval_prox(factory, arg, 0.7, tau_diag))
+        e = err(out, ref)
+        worst.append((e / tol, f"function.{name}"))
+        print(f"eval_prox {name} ({size}): card vs CPU {e:.3e} (tol "
+              f"{tol:g}), {ms:.4f} ms on the card")
+        check(np.all(np.isfinite(out)) and e <= tol,
+              f"function.{name}: card and CPU disagree")
+    for name, factory, m, n, tol in blocks:
+        for adjoint in (False, True):
+            x = np.random.RandomState(8).randn(m if adjoint else n)
+            (out, ms), (ref, _) = both(lambda: (
+                lambda r: (np.concatenate(r[:3]), r[3]))(
+                    ptt.eval_linop([(factory, 0, 0, m, n)], x, adjoint)))
+            e = err(out, ref)
+            worst.append((e / tol, f"block.{name}"))
+            print(f"eval_linop {name} ({m}x{n}{', adjoint' if adjoint else ''}"
+                  f"): card vs CPU {e:.3e} (tol {tol:g}), {ms:.4f} ms on "
+                  "the card")
+            check(np.all(np.isfinite(out)) and e <= tol,
+                  f"block.{name}: card and CPU disagree")
+    share, name = max(worst)
+    print(f"zoo: {len(functions)} function and {len(blocks)} block "
+          f"cases, card vs CPU within tolerance (closest: {name} at "
+          f"{share:.3f} of its tolerance) [{card}]")
 
 
 def scaled_errs(out, ref, n_planes):
@@ -4853,6 +5243,9 @@ def main() -> int:
     launches.update(admm_launches)
     ml_launches, e_ml = phase(phase_ml_solve, card)
     launches.update(ml_launches)
+    phase(phase_dual_rof_solve, card, e_pdhg, d_pdhg)
+    phase(phase_simplex_ml_solve, card, e_ml)
+    phase(phase_zoo, card)
     deblur_launches, e_deblur = phase(phase_deblur_solve, card)
     launches.update(deblur_launches)
     tight_launches, e_tight = phase(phase_tight_solve, card)

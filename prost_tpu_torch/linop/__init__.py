@@ -1,8 +1,9 @@
-"""Linear-operator layer (counterpart of ``prost_tpu/linop``), the part
-that slices 1-6 need."""
+"""Linear-operator layer: block-structured K (counterpart of
+``prost_tpu/linop``)."""
 
 from .base import Block, DualLinearOperator, LinearOperator
-from .blocks import BlockDiags, BlockKronId
+from .blocks import (BlockDense, BlockDiags, BlockIdKron, BlockKronId,
+                     BlockSparse, BlockZero)
 from .conv import BlockConv2D
 from .gradient import BlockGradient2D, BlockGradient3D
 
@@ -11,8 +12,12 @@ __all__ = [
     "LinearOperator",
     "DualLinearOperator",
     "BlockConv2D",
+    "BlockDense",
     "BlockDiags",
+    "BlockIdKron",
     "BlockKronId",
+    "BlockSparse",
+    "BlockZero",
     "BlockGradient2D",
     "BlockGradient3D",
 ]

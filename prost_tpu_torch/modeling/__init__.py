@@ -1,9 +1,19 @@
 """Modeling layer: variables, problems, function/block factories, solve
-(counterpart of ``prost_tpu/modeling``, the part slices 1-2 need)."""
+and the debug entry points (counterpart of ``prost_tpu/modeling``; the
+wire format is not ported yet)."""
 
 from . import block, function
 from .problems import MinMaxProblem, MinProblem
-from .solve import Backend, backend_admm, backend_pdhg, options, solve
+from .solve import (
+    Backend,
+    backend_admm,
+    backend_pdhg,
+    eval_linop,
+    eval_prox,
+    get_all_variables,
+    options,
+    solve,
+)
 from .variable import SubVariable, Variable
 
 __all__ = [
@@ -18,4 +28,7 @@ __all__ = [
     "Backend",
     "backend_pdhg",
     "backend_admm",
+    "eval_prox",
+    "eval_linop",
+    "get_all_variables",
 ]

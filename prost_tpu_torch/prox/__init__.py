@@ -1,11 +1,30 @@
-"""Proximal-operator layer (counterpart of ``prost_tpu/prox``), the part
-that slice 1 (ROF by PDHG) needs."""
+"""Proximal-operator layer (counterpart of ``prost_tpu/prox``)."""
 
 from .base import Prox, ProxSeparableSum, apply_proxs, check_domain
-from .combinators import ProxMoreau
-from .elemop import ProxElem1D, ProxElemNorm2
+from .combinators import ProxMoreau, ProxPermute, ProxTransform
+from .elemop import (
+    ProxElem1D,
+    ProxElemIndSimplex,
+    ProxElemIndSum,
+    ProxElemNorm2,
+)
 from .fun1d import FUN_1D
-from .standalone import ProxZero
+from .fun2d import FUN_2D
+from .spectral import (
+    ProxElemEigen2x2,
+    ProxElemEigenNxN,
+    ProxElemMassNorm,
+    ProxElemSingularNx2,
+)
+from .standalone import (
+    ProxIndEpiPolyhedral,
+    ProxIndEpiQuad,
+    ProxIndHalfspace,
+    ProxIndRange,
+    ProxIndSOC,
+    ProxIndSum,
+    ProxZero,
+)
 
 __all__ = [
     "Prox",
@@ -13,8 +32,23 @@ __all__ = [
     "apply_proxs",
     "check_domain",
     "ProxMoreau",
+    "ProxPermute",
+    "ProxTransform",
     "ProxElem1D",
     "ProxElemNorm2",
+    "ProxElemIndSimplex",
+    "ProxElemIndSum",
     "FUN_1D",
+    "FUN_2D",
+    "ProxElemEigen2x2",
+    "ProxElemEigenNxN",
+    "ProxElemSingularNx2",
+    "ProxElemMassNorm",
     "ProxZero",
+    "ProxIndSOC",
+    "ProxIndHalfspace",
+    "ProxIndEpiQuad",
+    "ProxIndEpiPolyhedral",
+    "ProxIndSum",
+    "ProxIndRange",
 ]

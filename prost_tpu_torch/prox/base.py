@@ -36,6 +36,12 @@ class Prox:
     def diagsteps(self) -> bool:
         return False
 
+    def get_separable_structure(self):
+        """List of (start_index, count, stride) triples (absolute indices)
+        describing the groups whose preconditioner entries are averaged
+        when diagsteps is False.  Default: the whole range, stride 1."""
+        return [(self.index, self.size, 1)]
+
     def average_precond(self, seg):
         """Preconditioner averaged over this prox's separable groups."""
         return seg.mean().expand_as(seg).clone()
@@ -56,6 +62,14 @@ class ProxSeparableSum(Prox):
     count: int
     dim: int
     interleaved: bool
+
+    def get_separable_structure(self):
+        # one entry per dim-dimensional vector
+        if self.interleaved:
+            return [(self.index + i * self.dim, self.dim, 1)
+                    for i in range(self.count)]
+        return [(self.index + i, self.dim, self.count)
+                for i in range(self.count)]
 
     def average_precond(self, seg):
         vecs = self.to_vectors(seg)

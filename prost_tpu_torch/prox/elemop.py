@@ -1,6 +1,6 @@
-"""Element-wise prox operations: 1d and norm2 (counterpart of
-``prost_tpu/prox/elemop.py``; the simplex and ind_sum elem-ops come with a
-later slice).
+"""Element-wise prox operations: 1d, norm2, ind_simplex and ind_sum
+(counterpart of ``prost_tpu/prox/elemop.py``).  Each is one vectorized
+torch expression over the (dim, count) view of its segment.
 
 Coefficients follow the reference's broadcast contract: each of the 7
 coefficients is a Python float or a per-vector tensor.
@@ -113,3 +113,44 @@ class ProxElemNorm2(ProxSeparableSum):
         scale = torch.where(norm > 0, prox_norm / safe_norm,
                             torch.zeros_like(norm))
         return self.from_vectors(vecs * scale[None, :])
+
+
+@dataclasses.dataclass(eq=False)
+class ProxElemIndSimplex(ProxSeparableSum):
+    """Projection onto the unit simplex per dim-vector
+    (elem_operation:ind_simplex; algorithm of Chen & Ye, arXiv:1101.6081):
+    one batched descending sort along the dim axis, with no size cap."""
+
+    index: int
+    size: int
+    count: int
+    dim: int
+    interleaved: bool
+
+    def eval_local(self, arg, tau_diag, tau_scal, invert_tau):
+        vecs = self.to_vectors(arg)  # (dim, count)
+        u = torch.sort(vecs, dim=0, descending=True).values
+        ks = torch.arange(1, self.dim + 1, dtype=vecs.dtype,
+                          device=vecs.device)
+        css = (torch.cumsum(u, dim=0) - 1.0) / ks[:, None]
+        # rho = largest k (1-based) with u_k > css_k; tmax = css_rho
+        rho = torch.clamp(torch.sum(u > css, dim=0) - 1, min=0)
+        tmax = torch.gather(css, 0, rho[None, :])[0]
+        return self.from_vectors(torch.clamp(vecs - tmax[None, :], min=0.0))
+
+
+@dataclasses.dataclass(eq=False)
+class ProxElemIndSum(ProxSeparableSum):
+    """Projection onto the affine set {sum_i x_i = 1} per dim-vector
+    (elem_operation:ind_sum)."""
+
+    index: int
+    size: int
+    count: int
+    dim: int
+    interleaved: bool
+
+    def eval_local(self, arg, tau_diag, tau_scal, invert_tau):
+        vecs = self.to_vectors(arg)
+        shift = (torch.sum(vecs, dim=0) - 1.0) / self.dim
+        return self.from_vectors(vecs - shift[None, :])
