@@ -174,7 +174,27 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    degree 65 (300 iterations) against the one-card fused ADMM route; then
    run ensemble1024x128 through ``BatchedPDHG`` over a dp mesh of those
    ranks (21 + 300 iterations) and hold every field of every instance
-   against the one-card run, bit for bit.
+   against the one-card run, bit for bit;
+17. the wire format (``modeling/wire.py``): config 1, config 4, config 3,
+   config 2, tight128x4, vol256x8 and the dual ROF on ``block.sparse``
+   through ``to_spec``, JSON and ``from_spec`` (seconds and bytes of
+   each), each rebuilt problem on the card with its preconditioners bit
+   for bit and taking the original's route; config 1's rebuilt problem
+   solved as phase 4 solves it, within WIRE_RTOL of phase 4's energy, and
+   beside the original's solve bit for bit;
+18. checkpoints (``util/checkpoint.py``): config 1 on the fused ROF route,
+   config 4 on the fused Chebyshev ADMM route and ml8x256x8 on
+   ``BatchedPDHG`` run to a multichunk's start, saved, loaded and run on
+   to 2000 iterations, every field and the energies held within
+   RESUME_ATOL of the straight run (and bit-equality reported);
+19. every example of ``prost_tpu_torch/examples`` at its run() defaults:
+   the route it takes, the kernels it launches, its invariant (those of
+   tests/test_examples.py that need no oracle), iterations, it/s and wall
+   seconds;
+20. ``entry()``'s step against ``generic_step``, ``util.timed``,
+   ``memory_stats`` and ``compiled_memory_analysis`` on it,
+   ``dryrun_multichip`` on one NCCL rank a card, and ``util.trace`` of one
+   config 1 multichunk naming ``rof_multichunk_resident``.
 
 The images are bench.py's: data/*.png decoded by the script's own reader
 and converted and resized as PIL does (``fixture_gray``; the card's
@@ -190,13 +210,17 @@ Without a CUDA card the script exits non-zero before printing a result.
 
 from __future__ import annotations
 
-import functools
 import json
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+# The fixture images as bench.py reads them with PIL, decoded and resized
+# with numpy alone (the card's machine has no image library): the
+# examples' reader, bit-equal to PIL (tests/test_torch_multilabel.py).
+from prost_tpu_torch.examples._common import fixture_gray, read_png_rgb  # noqa: F401
 
 # Tolerances of kernel vs plain version on the card.  Both run in f32 with
 # the same operations in the same order (the kernels are built with
@@ -398,126 +422,6 @@ def test_image(nx, ny, seed=42):
     xx, yy = np.meshgrid(x, np.linspace(0, 1, ny), indexing="ij")
     im = 0.4 * ((xx - 0.5) ** 2 + (yy - 0.5) ** 2 < 0.09) + 0.3 * (xx > 0.7)
     return (im + 0.05 * rng.randn(nx, ny)).astype(np.float32)
-
-
-@functools.lru_cache(maxsize=None)
-def read_png_rgb(path):
-    """An 8-bit RGB (colour type 2) or grayscale (colour type 0),
-    non-interlaced PNG as an (h, w, c) uint8 array, c = 3 or 1, decoded
-    once with zlib and numpy: the card's machine has no image library.
-    Undoes the five PNG row filters (none, sub, up, average, Paeth).  The
-    array is shared between calls: read it, do not write."""
-    import struct
-    import zlib
-
-    with open(path, "rb") as fh:
-        data = fh.read()
-    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
-    pos, idat, hdr = 8, [], None
-    while pos < len(data):
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-        pos += 12 + length
-    w, h, depth, color, _, _, interlace = hdr
-    check(depth == 8 and color in (0, 2) and interlace == 0,
-          f"{path}: only 8-bit RGB or gray non-interlaced PNGs are read")
-    bpp = 3 if color == 2 else 1
-    stride = bpp * w
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prev = [0] * stride
-    for r in range(h):
-        kind, line = int(raw[r, 0]), raw[r, 1:].tolist()
-        cur = [0] * stride
-        for i in range(stride):
-            a = cur[i - bpp] if i >= bpp else 0
-            b = prev[i]
-            if kind == 0:
-                pred = 0
-            elif kind == 1:
-                pred = a
-            elif kind == 2:
-                pred = b
-            elif kind == 3:
-                pred = (a + b) >> 1
-            else:
-                c = prev[i - bpp] if i >= bpp else 0
-                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-            cur[i] = (line[i] + pred) & 255
-        out[r] = cur
-        prev = cur
-    return out.reshape(h, w, bpp)
-
-
-# PIL's resampling keeps its normalised filter coefficients in fixed point
-# with this many fraction bits (32 - 8 - 2) for 8-bit images.
-PIL_PRECISION_BITS = 22
-
-
-def pil_bilinear_pass(img, out_size):
-    """One pass of PIL's BILINEAR resample (Resample.c) along the last axis
-    of the uint8 array ``img``: the triangle filter's support widened by
-    the downscale factor, each output's coefficients normalised in double
-    and rounded to PIL_PRECISION_BITS fraction bits, an integer sum with
-    half added, shifted back and clipped to uint8."""
-    in_size = img.shape[-1]
-    scale = in_size / out_size
-    fscale = max(scale, 1.0)
-    support = fscale  # the bilinear filter's support is 1
-    inv = 1.0 / fscale
-    one = 1 << PIL_PRECISION_BITS
-    src = img.astype(np.int64)
-    out = np.empty(img.shape[:-1] + (out_size,), np.uint8)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size)
-        w = [max(0.0, 1.0 - abs((x - center + 0.5) * inv))
-             for x in range(xmin, xmax)]
-        total = 0.0
-        for v in w:  # summed in order, as the C loop does
-            total += v
-        if total != 0.0:
-            w = [v / total for v in w]
-        # C's (int) cast of the rounded fixed-point weight truncates
-        k = np.array([int(v * one - 0.5) if v < 0 else int(v * one + 0.5)
-                      for v in w], np.int64)
-        acc = (one >> 1) + src[..., xmin:xmax] @ k
-        out[..., xx] = np.clip(acc >> PIL_PRECISION_BITS, 0, 255)
-    return out
-
-
-def fixture_gray(name, rows, cols):
-    """data/<name>.png as bench.py reads it, with numpy alone (the card's
-    machine has no image library): PIL's ``convert("L")``, the ITU-R 601-2
-    luma (299 R + 587 G + 114 B) / 1000 in PIL's 16-bit fixed point and
-    rounded; PIL's ``resize((cols, rows), BILINEAR)``, a horizontal pass
-    then a vertical one with a uint8 image between them (a pass whose size
-    does not change is skipped); then / 255 in float32.  Bit-equal to PIL
-    on the four bench images (tests/test_torch_multilabel.py)."""
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                        f"{name}.png")
-    pix = read_png_rgb(path).astype(np.int64)
-    if pix.shape[-1] == 3:
-        gray = ((pix[..., 0] * 19595 + pix[..., 1] * 38470
-                 + pix[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
-    else:
-        gray = pix[..., 0].astype(np.uint8)
-    if gray.shape[1] != cols:
-        gray = pil_bilinear_pass(gray, cols)
-    if gray.shape[0] != rows:
-        gray = pil_bilinear_pass(gray.T, rows).T
-    return np.asarray(gray, np.float32) / np.float32(255.0)
 
 
 def cow_gray(ny, nx):
@@ -5200,6 +5104,548 @@ def phase_large(card):
           f"[{card}]")
 
 
+# ---------------------------------------------------------------------------
+# the wire format, checkpoints, examples, util and entry points
+# ---------------------------------------------------------------------------
+
+# The resumed runs against their straight runs, every field and the
+# energies (absolute): a split run calls the route's canonicalization and
+# epilogue once more, which leave what the chunks read as it was where the
+# split falls on a multichunk's start.
+RESUME_ATOL = 1e-6
+# Where the checkpointed runs are cut, and how far they run.  A PDHG
+# route's chunks start at iterations 1 + 10 k (iteration 0 is a generic
+# step), so 801 = 1 + 10 (8 ri) starts a multichunk; the ADMM route's
+# chunks start at 10 k, so 800 does.
+CKPT_SPLIT_PDHG, CKPT_SPLIT_ADMM, CKPT_ITERS = 801, 800, 2000
+# config 1's wire round trip against phase_solve's energy (relative)
+WIRE_RTOL = 1e-6
+
+
+def wire_problems(n=ROF_SIZE, n_ml=ML_SIZE, n_db=DB_SIZE, n_t=TIGHT_SIZE,
+                  n_v=VOL_SIZE):
+    """The finalized problems of the configurations this script solves,
+    with the backend class and the route each takes: {name: (problem,
+    backend class, route)}."""
+    from prost_tpu_torch.ops import FusedROFADMM, FusedROFPDHG
+
+    f = test_image(n, n).reshape(-1)
+    rof = rof_model(n, n, f, ROF_LMB).finalize()
+    L, Lt = ML_LABELS, TIGHT_LABELS
+    ml_f = ml_unaries(cow_gray(n_ml, n_ml), L)
+    return {
+        "config 1": (rof, FusedROFPDHG, "rof"),
+        "config 4": (rof, FusedROFADMM, "rof"),
+        "config 3": (ml_model(n_ml, n_ml, L, ml_f, ML_LMB).finalize(),
+                     FusedROFPDHG, "ml"),
+        "config 2": (deblur_model(n_db, n_db,
+                                  deblur_data(n_db, n_db)).finalize(),
+                     FusedROFPDHG, "deblur"),
+        "tight128x4": (tight_model(n_t, n_t, Lt,
+                                   tight_unaries(n_t, n_t, Lt)).finalize(),
+                       FusedROFPDHG, "tight"),
+        "vol256x8": (vol_model(n_v, n_v, VOL_LABELS,
+                               vol_data(VOL_LABELS, n_v, n_v)).finalize(),
+                     FusedROFPDHG, "vol"),
+        "dual ROF on block.sparse": (
+            rof_dual_model(n, n, f, ROF_LMB).finalize(), FusedROFPDHG,
+            "generic"),
+    }
+
+
+def backend_route(cls, problem, opts):
+    """``route_name`` of the backend that ``cls`` makes of ``problem``."""
+    import prost_tpu_torch as ptt
+    from prost_tpu_torch.examples._common import route_name
+
+    return route_name(cls(problem, opts, ptt.SolverOptions(verbose=False)))
+
+
+def phase_wire(card, e_pdhg, n=ROF_SIZE, sizes=None):
+    """Each configuration's problem through ``to_spec``, ``json.dumps``,
+    ``json.loads`` and ``from_spec``: the rebuilt problem lies on the
+    device with the same preconditioners bit for bit and takes the route
+    the original takes; seconds and JSON bytes of each.  Then config 1's
+    rebuilt problem and the original, each solved by the fused ROF route
+    as phase_solve solves it (2000 iterations): the rebuilt one within
+    WIRE_RTOL of phase_solve's energy ``e_pdhg``, and whether it is
+    bit-equal to the original's."""
+    import torch
+
+    from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
+    from prost_tpu_torch.modeling import wire
+
+    opts = {"FusedROFPDHG": PDHGOptions(stepsize="boyd", residual_iter=10),
+            "FusedROFADMM": ADMMOptions(residual_iter=10)}
+    problems = wire_problems(n, **(sizes or {}))
+    rebuilt = {}
+    for name, (prob, cls, route) in problems.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spec = wire.to_spec(prob)
+        t1 = time.perf_counter()
+        text = json.dumps(spec)
+        t2 = time.perf_counter()
+        back = wire.from_spec(json.loads(text))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        check(back.scaling_left.device == prob.scaling_left.device,
+              f"{name}: the rebuilt problem is not on the device")
+        check(torch.equal(back.scaling_left, prob.scaling_left)
+              and torch.equal(back.scaling_right, prob.scaling_right),
+              f"{name}: the rebuilt preconditioners differ")
+        o = opts[cls.__name__]
+        want = f"{cls.__name__}:{route}"
+        got = (backend_route(cls, prob, o), backend_route(cls, back, o))
+        print(f"wire {name} ({prob.ncols} x {prob.nrows}): to_spec "
+              f"{t1 - t0:.3f} s, json.dumps {t2 - t1:.3f} s, {len(text)} "
+              f"JSON bytes, json.loads + from_spec {t3 - t2:.3f} s; route "
+              f"{got[0]} -> {got[1]} [{card}]")
+        check(got == (want, want), f"{name}: the original takes {got[0]}, "
+              f"the rebuilt problem {got[1]}, expected {want}")
+        rebuilt[name] = back
+        del spec, text
+
+    f = test_image(n, n).reshape(-1)
+    runs = {}
+    for label, p in (("original", problems["config 1"][0]),
+                     ("rebuilt", rebuilt["config 1"])):
+        backend = recording("pdhg", PDHGOptions(stepsize="boyd",
+                                                residual_iter=10))
+        runs[label] = run_model(backend, p, n * n, 2000)
+        check(backend.made.rof is not None,
+              f"the {label} config 1 did not take the fused ROF route")
+    res, backend, dt = runs["rebuilt"]
+    orig = runs["original"][0]
+    e = rof_energy(res.x, f, ROF_LMB, n, n)
+    same = (np.array_equal(res.x, orig.x) and np.array_equal(res.y, orig.y)
+            and res.iterations == orig.iterations)
+    rel = abs(e - e_pdhg) / abs(e_pdhg)
+    print(f"wire config 1 rebuilt, fused ROF route: "
+          f"{rates(res, backend, dt)}; energy {e:.8f}, phase_solve's "
+          f"{e_pdhg:.8f}, rel diff {rel:.3e} (tol {WIRE_RTOL:g}); x, y and "
+          f"iterations {'bit-equal to' if same else 'DIFFER from'} the "
+          f"original problem's solve [{card}]")
+    check(rel <= WIRE_RTOL, "the rebuilt config 1 energy disagrees")
+
+
+def phase_checkpoint(card, n=ROF_SIZE, n_ml=ML_SIZE, ens_b=SMALL_ENS_B,
+                     iters=CKPT_ITERS, splits=(CKPT_SPLIT_PDHG,
+                                               CKPT_SPLIT_ADMM)):
+    """Three runs cut by ``save_state`` / ``load_state`` beside their
+    straight runs: config 1 on the fused ROF route and config 4 on the
+    fused Chebyshev ADMM route (phase_solve's options, tolerance 1e-5) and
+    ensemble ml8x256x8 (8 instances of config 3, each with its own noise;
+    ``BatchedPDHG``, bench.py's options).  The largest difference of
+    every field and of the energies, held to RESUME_ATOL; the ms of
+    ``save_state`` and ``load_state`` and the file's bytes."""
+    import os
+    import tempfile
+
+    import torch
+
+    import prost_tpu_torch as ptt
+    from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
+    from prost_tpu_torch.ops import FusedROFADMM, FusedROFPDHG
+    from prost_tpu_torch.parallel import BatchedPDHG
+    from prost_tpu_torch.util import load_state, save_state
+
+    tol = 1e-5
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=tol,
+                              tol_rel_dual=tol, tol_abs_primal=tol,
+                              tol_abs_dual=tol)
+    f = test_image(n, n).reshape(-1)
+    rof = rof_model(n, n, f, ROF_LMB).finalize()
+    L = ML_LABELS
+    rng = np.random.RandomState(42)
+    gray = cow_gray(n_ml, n_ml)
+    mls = [ml_unaries(gray + 0.05 * rng.randn(*gray.shape), L)
+           for _ in range(ens_b)]
+    e_opts, e_sopts = ens_opts()
+    split_pdhg, split_admm = splits
+
+    def rof_energies(b, s):
+        return [rof_energy(b.current_solution(s)[0].cpu().numpy(), f,
+                           ROF_LMB, n, n)]
+
+    def ml_energies(b, s):
+        x = s.x.cpu().numpy()
+        return [ml_energy(x[i], mls[i], ML_LMB, L, n_ml, n_ml)
+                for i in range(ens_b)]
+
+    cases = (
+        ("config 1, FusedROFPDHG", lambda: FusedROFPDHG(
+            rof, PDHGOptions(stepsize="boyd", residual_iter=10), sopts),
+         lambda b: b.rof is not None, split_pdhg, rof_energies),
+        ("config 4, FusedROFADMM", lambda: FusedROFADMM(
+            rof, ADMMOptions(residual_iter=10), sopts),
+         lambda b: b.mode == "cheby", split_admm, rof_energies),
+        (f"ml{ens_b}x{n_ml}x{L}, BatchedPDHG", lambda: BatchedPDHG(
+            [ml_model(n_ml, n_ml, L, u, ML_LMB).finalize() for u in mls],
+            e_opts, e_sopts), lambda b: b.ml is not None, split_pdhg,
+         ml_energies),
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        for name, make, matched, split, energies in cases:
+            b = make()
+            check(matched(b), f"{name}: the fused route was not taken")
+            straight = b.run(b.initial_state(), iters, 0)
+            state = b.run(b.initial_state(), split, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_state(path, state)
+            t1 = time.perf_counter()
+            loaded = load_state(path, b.initial_state())
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            it = loaded.iteration.reshape(-1)[0]
+            resumed = b.run(loaded, iters, int(it))
+            diffs = {k: float(torch.max(torch.abs(
+                getattr(resumed, k).double() - getattr(straight, k).double())))
+                for k in vars(straight)}
+            bit = all(torch.equal(getattr(resumed, k), getattr(straight, k))
+                      for k in vars(straight))
+            e_res, e_str = energies(b, resumed), energies(b, straight)
+            de = max(abs(a - c) for a, c in zip(e_res, e_str))
+            worst = max(diffs.values())
+            print(f"checkpoint {name}: {split} + {iters - split} iterations "
+                  f"against {iters} straight: fields max abs diff "
+                  f"{worst:.3e}, energies {e_str[0]:.8f} ... max abs diff "
+                  f"{de:.3e} (tol {RESUME_ATOL:g}), "
+                  f"{'bit-equal' if bit else 'NOT bit-equal'}; save_state "
+                  f"{(t1 - t0) * 1e3:.2f} ms, load_state "
+                  f"{(t2 - t1) * 1e3:.2f} ms, {os.path.getsize(path)} bytes "
+                  f"[{card}]")
+            print(f"  per field: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in diffs.items()))
+            check(worst <= RESUME_ATOL and de <= RESUME_ATOL,
+                  f"{name}: the resumed run differs from the straight run")
+            del b, straight, state, loaded, resumed
+            torch.cuda.empty_cache()
+
+
+def _grad_matrix(n):
+    from prost_tpu_torch.examples.example_rof_dual import spmat_gradient2d
+
+    return spmat_gradient2d(n, n, 1)
+
+
+def _tv(G, u, n):
+    g = G @ u
+    return float(np.sum(np.sqrt(g[:n] ** 2 + g[n:] ** 2)))
+
+
+def _inv_rof_primaldual(out, kw, seen):
+    return out["gap_per_px"] < kw.get("gap_tol", 1e-5), \
+        f"gap/px {out['gap_per_px']:.3e}"
+
+
+def _inv_rof_primal(out, kw, seen):
+    f, lmb, u = out["f"], out["lmb"], out["u"]
+    G = _grad_matrix(kw["size"])
+
+    def en(v):
+        return lmb / 2 * np.sum((v - f) ** 2) + _tv(G, v, f.size)
+
+    return en(u) < en(f), f"energy {en(u):.6f} < {en(f):.6f} at u = f"
+
+
+def _inv_rof_dual(out, kw, seen):
+    """The dual solve's u against the primal solve of the same ROF."""
+    import prost_tpu_torch as ptt
+
+    f, lmb, size = out["f"], out["lmb"], kw["size"]
+    n = size * size
+    u = ptt.Variable(n)
+    q = ptt.Variable(2 * n)
+    prob = ptt.MinMaxProblem([u], [q])
+    prob.add_function(u, ptt.function.sum_1d("square", 1, f, lmb))
+    prob.add_function(q, ptt.function.sum_norm2(2, False, "ind_leq0", 1, 1,
+                                                1))
+    prob.add_dual_pair(u, q, ptt.block.gradient2d(size, size, 1))
+    tol = 1e-7
+    ptt.solve(prob, ptt.backend_pdhg(), ptt.options(
+        max_iters=kw.get("max_iters", 20000), verbose=False,
+        tol_rel_primal=tol, tol_rel_dual=tol, tol_abs_primal=tol,
+        tol_abs_dual=tol))
+    d = float(np.max(np.abs(out["u"] - u.val)))
+    return d <= 2e-2, f"|u - primal solve's u| {d:.3e} (tol 2e-2)"
+
+
+def _inv_energy_below_input(energy_of):
+    """The solution's energy below the energy at u = f (the observation),
+    with the solution finite and moved off f."""
+    def inv(out, kw, seen):
+        u, f = out["u"], out["f"]
+        e_f = energy_of(out, f, kw)
+        ok = (np.all(np.isfinite(u)) and not np.allclose(u, f)
+              and out["energy"] < e_f)
+        return ok, f"energy {out['energy']:.6f} < {e_f:.6f} at u = f"
+    return inv
+
+
+def _tvl1_energy(out, v, kw):
+    n = kw["size"] ** 2
+    return out["lmb"] * np.sum(np.abs(v - out["f"])) + _tv(
+        _grad_matrix(kw["size"]), v, n)
+
+
+def _inpaint_energy(out, v, kw):
+    n = kw["size"] ** 2
+    return out["lmb"] / 2 * np.sum((out["mask"] * (v - out["f"])) ** 2) + \
+        _tv(_grad_matrix(kw["size"]), v, n)
+
+
+def _deblur_energy(out, v, kw):
+    from prost_tpu_torch.examples.example_deblurring import convmtx2
+
+    size = kw["size"]
+    B = convmtx2(out["kernel"], size, size)[0]
+    return out["lmb"] / 2 * np.sum((B @ v - out["f_blurred"]) ** 2) + _tv(
+        _grad_matrix(size), v, size * size)
+
+
+def _inv_labels(out, kw, seen):
+    sums = out["labels"].sum(axis=0)
+    err, lo = float(np.max(np.abs(sums - 1.0))), float(out["labels"].min())
+    return err <= 5e-2 and lo > -1e-2, \
+        f"label sums within {err:.3e} of 1 (tol 5e-2), min {lo:.3e}"
+
+
+def _inv_callback(out, kw, seen):
+    L = kw.get("L", 8)
+    sums = out["u"].reshape(L, -1).sum(axis=0)
+    err = float(np.max(np.abs(sums - 1.0)))
+    return err <= 5e-2 and len(out["panels"]) > 0, \
+        f"{len(out['panels'])} panels, label sums within {err:.3e} of 1"
+
+
+def _inv_tight(out, kw, seen):
+    err = float(np.max(np.abs(out["labels"].sum(axis=0) - 1.0)))
+    return err <= 5e-2, f"partition of unity within {err:.3e} (tol 5e-2)"
+
+
+def _inv_vol(out, kw, seen):
+    return out["noise_out"] < 0.75 * out["noise_in"], \
+        f"mean abs error {out['noise_in']:.4f} -> {out['noise_out']:.4f}"
+
+
+def _inv_admm(out, kw, seen):
+    pd = seen["example_rof_primaldual"]["energy"]
+    rel = abs(out["energy"] - pd) / pd
+    return rel < 2e-3, f"energy rel diff to example_rof_primaldual's " \
+        f"{rel:.3e} (tol 2e-3)"
+
+
+def _inv_nonconvex(out, kw, seen):
+    bound = 0.05 * out["f"].size
+    return out["energy"] < bound, f"energy {out['energy']:.4f} < {bound:g}"
+
+
+def _inv_ensemble(out, kw, seen):
+    shape = (kw["batch"], kw["size"] ** 2)
+    ok = (out["throughput"] > 0 and out["x"].shape == shape
+          and np.isfinite(out["x"]).all())
+    return ok, f"x {out['x'].shape}, {out['throughput']:.1f} " \
+        "instance-it/s"
+
+
+def _inv_sharded(out, kw, seen):
+    return out["diff"] < 1e-5, f"max |auto - halo| {out['diff']:.3e} " \
+        "(tol 1e-5)"
+
+
+def _inv_custom(out, kw, seen):
+    return (out["result"].value == "converged" and out["wire_diff"] == 0.0,
+            f"result {out['result'].value}, wire round trip K diff "
+            f"{out['wire_diff']:.1e}")
+
+
+# Each example at the JAX example's run() defaults: (module, run's
+# keyword arguments, the route it takes, the kernels of PERF.md's table it
+# launches (launch-count names, or None for a generic route), its
+# invariant).  The invariants are tests/test_examples.py's where they need
+# no oracle; where that test holds an energy to an f64 oracle (ROF-TV-L1,
+# inpainting, deblurring: run at 16x16 on the CPU in
+# tests/test_torch_examples*.py), the energy is held below the energy at
+# the observation.
+PDHG_ROF = ("FusedROFPDHG:rof", ("rof_chunk", "rof_multichunk"))
+EXAMPLES = (
+    ("example_rof_primaldual", {"size": 128}, *PDHG_ROF,
+     _inv_rof_primaldual),
+    ("example_tvl1", {"size": 128}, *PDHG_ROF,
+     _inv_energy_below_input(_tvl1_energy)),
+    ("example_tv_inpaint", {"size": 128}, *PDHG_ROF,
+     _inv_energy_below_input(_inpaint_energy)),
+    ("example_multilabel_fast", {"size": 64, "L": 8}, "FusedROFPDHG:ml",
+     ("ml_chunk", "ml_multichunk"), _inv_labels),
+    ("example_multilabel_callback", {"size": 64, "L": 8}, "FusedROFPDHG:ml",
+     ("ml_chunk", "ml_multichunk"), _inv_callback),
+    ("example_deblurring", {"size": 128}, "FusedROFPDHG:deblur",
+     ("deblur_chunk",), _inv_energy_below_input(_deblur_energy)),
+    ("example_multilabel_tight", {"size": 48, "L": 3}, "FusedROFPDHG:tight",
+     ("tight_chunk",), _inv_tight),
+    ("example_vol_tv", {"size": 64, "L": 8}, "FusedROFPDHG:vol",
+     ("vol_chunk", "vol_multichunk"), _inv_vol),
+    ("example_rof_admm", {"size": 128}, "FusedROFADMM:generic", None,
+     _inv_admm),
+    ("example_ensemble", {"size": 64, "batch": 16, "iters": 500},
+     "BatchedPDHG:rof", ("rof_chunk_batched",), _inv_ensemble),
+    ("example_sharded", {"size": 256}, ["ShardedPDHG:generic",
+                                        "ShardedFusedROF:halo"],
+     ("rof_chunk_halo",), _inv_sharded),
+    ("example_rof_primal", {"size": 128}, "FusedROFPDHG:generic", None,
+     _inv_rof_primal),
+    ("example_rof_dual", {"size": 128}, "FusedROFPDHG:generic", None,
+     _inv_rof_dual),
+    ("example_nonconvex_rof", {"size": 128}, "FusedROFPDHG:generic", None,
+     _inv_nonconvex),
+    ("example_custom_prox", {}, "FusedROFPDHG:generic", None, _inv_custom),
+)
+
+
+def _all_launch_counts():
+    from prost_tpu_torch.ops import (fused_admm, fused_deblur,
+                                     fused_multilabel, fused_rof,
+                                     fused_tight, fused_vol)
+
+    return (fused_admm, fused_deblur, fused_multilabel, fused_rof,
+            fused_tight, fused_vol)
+
+
+def _run_example(module, kw):
+    """``run(**kw)`` of one example module on this process's device, or
+    for example_sharded on one rank a card (an NCCL group it starts in
+    this process with one card, spawned ranks with more)."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module(f"prost_tpu_torch.examples.{module}")
+    world = torch.cuda.device_count()
+    if module == "example_sharded" and world > 1:
+        from prost_tpu_torch.parallel.launch import run_ranks
+
+        return run_ranks(world, mod.run, {**kw, "n_shards": world})[0]
+    return mod.run(**kw)
+
+
+def phase_examples(card, examples=EXAMPLES):
+    """Every example's ``run()`` on the card at its JAX default size, none
+    of them capped (the phase takes about 50 s): the route it takes, the
+    hand-written kernels it launches, its invariant, iterations, it/s and
+    wall seconds."""
+    import torch
+
+    seen = {}
+    for module, kw, route, kernels, invariant in examples:
+        kw = dict(kw, verbose=False)
+        mods = _all_launch_counts()
+        for m in mods:
+            m.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _run_example(module, kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: v for m in mods for k, v in m.launch_counts.items() if v}
+        seen[module] = out
+        ok, what = invariant(out, kw, seen)
+        its = out.get("iterations", kw.get("iters"))
+        if isinstance(its, list):  # example_sharded: each path's own time
+            rate = ", " + ", ".join(f"{i / t:.1f}" for i, t in
+                                    zip(its, out["seconds"])) + " it/s"
+        else:
+            rate = f", {its / dt:.1f} it/s over the wall"
+        print(f"example {module} {kw}: route {out['route']}, iterations "
+              f"{its}{rate}, wall {dt:.2f} s; launches {counts or 'none'}; "
+              f"{what} [{card}]")
+        check(out["route"] == route,
+              f"{module} took route {out['route']}, expected {route}")
+        check(ok, f"{module}: its invariant does not hold ({what})")
+        if kernels is None:
+            check(not counts, f"{module}: a generic route launched {counts}")
+        elif module != "example_sharded" or len(counts):
+            check(any(counts.get(k, 0) > 0 for k in kernels),
+                  f"{module}: none of {kernels} was launched")
+
+
+def phase_util_entry(card, n=ROF_SIZE):
+    """``entry()``'s step against one ``generic_step``; ``timed``,
+    ``memory_stats`` and ``compiled_memory_analysis`` on it;
+    ``dryrun_multichip`` on one NCCL rank a card; and ``trace`` around one
+    multichunk of config 1's fused ROF route, naming its grid-resident
+    kernel."""
+    import os
+    import tempfile
+
+    import torch
+
+    import prost_tpu_torch as ptt
+    from prost_tpu_torch.backend import PDHGOptions
+    from prost_tpu_torch.entry import _build_rof, dryrun_multichip, entry
+    from prost_tpu_torch.ops import FusedROFPDHG
+    from prost_tpu_torch.util import (compiled_memory_analysis,
+                                      memory_stats, trace)
+    from prost_tpu_torch.util import timed as util_timed
+
+    fn, (state,) = entry()
+    backend = _build_rof(128, 128)
+    out, ref = fn(state), backend.generic_step(backend.initial_state(), 0)
+    same = all(torch.equal(getattr(out, k), getattr(ref, k))
+               for k in vars(out))
+    _, ms = util_timed(fn, state, warmup=3, repeats=50)
+    mem = compiled_memory_analysis(fn, state)
+    stats = memory_stats()
+    print(f"entry(): one step on {state.x.device} "
+          f"{'equal to' if same else 'DIFFERS from'} one generic_step; "
+          f"timed {ms:.4f} ms a step (CUDA events, 50 steps); "
+          f"compiled_memory_analysis {mem}; memory_stats bytes_in_use "
+          f"{stats.get('bytes_in_use')}, peak {stats.get('peak_bytes_in_use')}"
+          f", limit {stats.get('bytes_limit')} [{card}]")
+    check(same, "entry()'s step differs from generic_step")
+    check(ms > 0 and stats.get("bytes_in_use", 0) > 0
+          and stats.get("bytes_limit", 0) > 0, "timed or memory_stats "
+          "gave no reading")
+    check(mem.get("argument_size_in_bytes", 0) > 0
+          and mem["output_size_in_bytes"] > 0
+          and mem["peak_size_in_bytes"] >= mem["argument_size_in_bytes"],
+          f"compiled_memory_analysis is not sane: {mem}")
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    steps = dryrun_multichip(world)
+    print(f"dryrun_multichip({world}): {time.perf_counter() - t0:.1f} s, "
+          f"rank 0 reached {steps[0]} [{card}]")
+    check(len(steps) == world and all(s == steps[0] for s in steps),
+          "dryrun_multichip's ranks disagree")
+
+    f = test_image(n, n).reshape(-1)
+    b = FusedROFPDHG(rof_model(n, n, f, ROF_LMB).finalize(),
+                     PDHGOptions(stepsize="boyd", residual_iter=10),
+                     ptt.SolverOptions(verbose=False))
+    s = b.run(b.initial_state(), 1, 0)
+    torch.cuda.synchronize()
+    for attempt in range(1, 6):  # the card's tracer has been seen to lose
+        # a call's events (``traced_call`` retries the same way); the run
+        # works on its own copies, so each attempt starts from ``s``
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp):
+                b.run(s, 81, 1)  # one multichunk
+                torch.cuda.synchronize()
+            with open(os.path.join(tmp, "trace.json")) as fh:
+                events = json.load(fh)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        mine = sorted({k for k in kernels if "rof_multichunk_resident" in k})
+        if mine:
+            break
+    print(f"trace of one config 1 multichunk (attempt {attempt}): "
+          f"{len(events)} events, {len(kernels)} kernels, of them {mine} "
+          f"[{card}]")
+    check(mine, "five traces did not name rof_multichunk_resident")
+
+
 def main() -> int:
     import torch
 
@@ -5262,6 +5708,10 @@ def main() -> int:
     launches.update(phase(phase_small_ensembles, card))
     launches.update(phase(phase_conv_ensembles, card))
     phase(phase_large, card)
+    phase(phase_wire, card, e_pdhg)
+    phase(phase_checkpoint, card)
+    phase(phase_examples, card)
+    phase(phase_util_entry, card)
     check("jax" not in sys.modules, "jax was imported")
     print(f"all phases: {time.perf_counter() - t0:.1f} s")
 

@@ -20,7 +20,12 @@ for Hopper (``csrc/*.cu``), built by nvcc on first use.
 one structure on one card (``BatchedPDHG``, ``stack_problems``) through
 batched chunk kernels, and shards one problem's pixel rows over the ranks
 of a ``torch.distributed`` group (``make_mesh``, ``ShardedPDHG``, and the
-halo-exchange routes on the halo chunk kernels).
+halo-exchange routes on the halo chunk kernels).  ``modeling.wire``
+serializes problems to the JAX package's JSON spec and back;
+``util`` checkpoints solver states and profiles; ``entry`` holds the
+compile and launch checks; ``examples`` the 14 example scripts
+(``python -m prost_tpu_torch.examples.<name>``); ``docs`` writes the API
+pages.
 """
 
 from .config import (ProstError, device, dtype, list_devices, set_device,

@@ -1,8 +1,8 @@
-"""Modeling layer: variables, problems, function/block factories, solve
-and the debug entry points (counterpart of ``prost_tpu/modeling``; the
-wire format is not ported yet)."""
+"""Modeling layer: variables, problems, function/block factories, solve,
+the debug entry points and the JSON wire format (``wire``), the
+counterpart of ``prost_tpu/modeling``."""
 
-from . import block, function
+from . import block, function, wire
 from .problems import MinMaxProblem, MinProblem
 from .solve import (
     Backend,
@@ -31,4 +31,5 @@ __all__ = [
     "eval_prox",
     "eval_linop",
     "get_all_variables",
+    "wire",
 ]

@@ -25,8 +25,14 @@ from .problems import _GraphProblem
 
 @dataclasses.dataclass
 class Backend:
+    """A backend factory; ``instance`` is the backend it made last (its
+    ``rof`` / ``ml`` / ``deblur`` / ``tight`` / ``vol`` say which fused
+    route the solve took)."""
+
     kind: str
     opts: object
+    instance: object = dataclasses.field(default=None, init=False,
+                                         repr=False, compare=False)
 
     def create(self, problem, solver_opts):
         # FusedROFPDHG / FusedROFADMM take the fused route (CUDA kernels on
@@ -36,8 +42,10 @@ class Backend:
         from ..ops import FusedROFADMM, FusedROFPDHG
 
         if self.kind == "pdhg":
-            return FusedROFPDHG(problem, self.opts, solver_opts)
-        return FusedROFADMM(problem, self.opts, solver_opts)
+            self.instance = FusedROFPDHG(problem, self.opts, solver_opts)
+        else:
+            self.instance = FusedROFADMM(problem, self.opts, solver_opts)
+        return self.instance
 
 
 def backend_pdhg(**kw) -> Backend:

@@ -15,7 +15,6 @@ from enum import Enum
 from typing import Callable, Optional
 
 import numpy as np
-import torch
 
 from .common import linspace, to_numpy
 
@@ -76,15 +75,16 @@ class Solver:
 
     @staticmethod
     def _print_memory_report(dev):
-        """Device memory report from the CUDA caching allocator (nothing
-        to report for a problem on the CPU)."""
-        if dev.type != "cuda":
-            return
-        stats = torch.cuda.memory_stats(dev)
-        in_use = stats.get("allocated_bytes.all.current", 0)
-        total = torch.cuda.get_device_properties(dev).total_memory
-        print(f"# device memory: {in_use / 2**20:.1f} MB in use / "
-              f"{total / 2**20:.1f} MB")
+        """Device memory report from the CUDA caching allocator
+        (``util.memory_stats``; nothing to report for a problem on the
+        CPU)."""
+        from .util.profiling import memory_stats
+
+        stats = memory_stats(dev)
+        in_use, limit = stats.get("bytes_in_use"), stats.get("bytes_limit")
+        if in_use is not None and limit:
+            print(f"# device memory: {in_use / 2**20:.1f} MB in use / "
+                  f"{limit / 2**20:.1f} MB")
 
     def solve(self) -> SolverResult:
         opts = self.opts

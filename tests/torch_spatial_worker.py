@@ -414,6 +414,42 @@ def geometry(world):
     return out
 
 
+def checkpoint_resume(world, path, iters=41, split=21):
+    """ShardedPDHG and ShardedFusedROF on ``problem("rof")``: run to
+    ``split`` (where a chunk starts), ``save_state`` to ``path`` (every
+    rank calls it), load into ``initial_state()``'s layout and run on to
+    ``iters``, beside a straight run; per route the gathered states of
+    both and whether the loaded vectors kept the mesh's placements."""
+    from torch.distributed.tensor import DTensor
+
+    from prost_tpu_torch import interop
+    from prost_tpu_torch.backend import PDHGOptions
+    from prost_tpu_torch.parallel import ShardedFusedROF, ShardedPDHG
+    from prost_tpu_torch.util import load_state, save_state
+
+    opts = PDHGOptions(stepsize="boyd", residual_iter=5,
+                       scale_steps_operator=False)
+    out = {}
+    for cls in (ShardedPDHG, ShardedFusedROF):
+        b = cls(problem("rof"), opts, solver_opts(), _mesh(world))
+        state = b.run(b.initial_state(), split, 0)
+        save_state(path, state)
+        like = b.initial_state()
+        loaded = load_state(path, like)
+        placed = all(
+            isinstance(v, DTensor) == isinstance(getattr(like, k), DTensor)
+            and (not isinstance(v, DTensor)
+                 or v.placements == getattr(like, k).placements)
+            for k, v in vars(loaded).items())
+        resumed = b.run(loaded, iters, int(loaded.iteration))
+        straight = b.run(b.initial_state(), iters, 0)
+        out[cls.__name__] = {
+            "resumed": interop.sharded_pdhg_state_to_numpy(resumed),
+            "straight": interop.sharded_pdhg_state_to_numpy(straight),
+            "placed": placed}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the rank process and its launcher
 # ---------------------------------------------------------------------------
