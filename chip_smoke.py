@@ -9,10 +9,18 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    (sm_90a), one nvcc process each, all started together;
 2. check each ROF kernel against its plain PyTorch version on the card, on
    the same inputs: ``rof_chunk`` at 512x512 (grid-resident) and 2048x1536
-   (streaming, as the shape rule chooses and the script checks) for the
+   (tiled, as the shape rule chooses and the script checks) for the
    square, wsquare and abs data terms (ri = 10), ``rof_multichunk`` with
    alg1 and boyd (k = 8, ri = 10) at 512x512 and with alg1 at 2048x2048
-   (streaming), and time both versions at 512x512;
+   (tiled), and time both versions at 512x512; then rows 6 and 5 tiled
+   (``phase_tiled_rof``): ``rof_chunk_`` at 2048x2048, 2048x1536 and
+   1000x777 and ``rof_chunk_halo_`` on the 2092x2048 band of a 2048-wide
+   plane, ``rof_multichunk_`` at those planes every chunk run and
+   converging partway after an odd and an even number of chunks, each
+   bit-equal to the streaming launch sequence and within the tolerances of
+   the plain versions; both paths' light calls in turns with their
+   launches and traced device ms; the chunk's time by tile and at counts
+   1 and 10;
 3. the same for the ADMM kernels: ``admm_chunk`` with the Chebyshev and
    the CGLS projection at 512x512 and 2048x2048 for the three data terms
    (ri = 10), ``admm_multichunk`` at 512x512 (k = 8, ri = 10) without a
@@ -113,7 +121,12 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    the fused multilabel route at 512x512x8, of the deblur route at
    2048x2048, of the tight route at 512x512x4 and of the volumetric route
    at 512x512x8, where the JAX package bands its kernels: every kernel
-   launches, the state stays on the card and finite;
+   launches, the state stays on the card and finite; the ROF route's
+   chunks and multichunks tiled (their tiled launches are the kernels
+   line's), its solve in turns with the streaming sequence (it/s, equal
+   energies); the first call of each route's light calls that still
+   stream there (rows 11, 14, 16, 19, 22, 27, 28; row 7 from phase 11's
+   1280x1280 instances) replayed under the profiler beside its bound;
 15. the halo chunks of spatial sharding at full width (ROF 512x512, ml and
    vol 256x256x8, ri = 10, halo 22 rows): bands of 1, 2 and 4 shards cut
    from the whole plane with zeros beyond its edges (what the halo
@@ -395,9 +408,11 @@ def vol_chunk_ops(nvox, ri, chunks=1):
 def single_launches(mod):
     """The launch counts of a route module's single-instance kernels (its
     batched and halo chunks, if it has them, run on the ensemble and the
-    sharded paths only)."""
+    sharded paths only; the ROF chunk's and multichunk's tiled launches,
+    counted also under their wrappers, on the planes no grid-resident band
+    holds only)."""
     return {k: v for k, v in mod.launch_counts.items()
-            if not k.endswith(("_batched", "_halo"))}
+            if not k.endswith(("_batched", "_halo", "_tiled"))}
 
 
 def check(cond, msg):
@@ -850,7 +865,7 @@ def phase_kernels(dev):
             check(resident == ((nx, ny) == (512, 512)),
                   f"rof_chunk {nx}x{ny}: the shape rule took the wrong path")
             print(f"rof_chunk {nx}x{ny} {dataterm} "
-                  f"({'resident' if resident else 'streaming'}): max abs "
+                  f"({'resident' if resident else 'tiled'}): max abs "
                   f"err planes {plane:.3e} (tol {PLANE_ATOL:g}), max rel err "
                   f"norms {rel:.3e} (tol {NORM_RTOL:g})")
             check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
@@ -919,7 +934,7 @@ def phase_kernels(dev):
     check(not fr.resident_ok(nx, ny, "square", *fr.card_limits(dev, True),
                              True),
           f"rof_multichunk {nx}x{ny}: the shape rule made it resident")
-    print(f"rof_multichunk {nx}x{ny} alg1 (streaming): max abs err planes "
+    print(f"rof_multichunk {nx}x{ny} alg1 (tiled): max abs err planes "
           f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms+scalars "
           f"{rel:.3e} (tol {NORM_RTOL:g})")
     check(plane <= PLANE_ATOL and rel <= NORM_RTOL,
@@ -1198,11 +1213,12 @@ def rof_model(nx, ny, f, lmb):
     return prob
 
 
-def recording(kind, opts, generic=None):
+def recording(kind, opts, generic=None, rof_path=None):
     """``Backend(kind, opts)`` as a user gets it from ``backend_pdhg`` /
     ``backend_admm`` (or, with ``generic``, that generic backend class),
     recording after every callback epoch the devices of the solver state's
-    tensors and the time spent iterating."""
+    tensors and the time spent iterating; with ``rof_path``, the fused ROF
+    route's light calls made beforehand on that path."""
     import torch
 
     from prost_tpu_torch.modeling import Backend
@@ -1213,6 +1229,16 @@ def recording(kind, opts, generic=None):
                 b = generic(problem, self.opts, solver_opts)
             else:
                 b = super().create(problem, solver_opts)
+            if rof_path is not None:
+                import prost_tpu_torch as ptt
+                from prost_tpu_torch.ops import fused_rof as fr
+                from prost_tpu_torch.ops.phases import K_CHUNKS
+
+                ri, dev = max(int(self.opts.residual_iter), 1), ptt.device()
+                b.rof["call"] = fr.ROFChunk(b.rof, ri, dev, path=rof_path)
+                b.rof["multi"] = fr.ROFMultichunk(
+                    b.rof, ri, K_CHUNKS, self.opts.stepsize, dev,
+                    path=rof_path)
             self.made, self.devices, self.loop_s = b, set(), 0.0
             run = b.run
 
@@ -2316,6 +2342,21 @@ def phase_batched_kernels(dev):
                             dataterm)
         r = rows["rof_chunk_batched"]
         r["err"] = max(r["err"], err)
+        if csize is None:  # row 7: the banded batched chunk's shape
+            n = nx * ny
+            t = max((traced_call(lambda: fr.rof_chunk_batched(
+                *planes, scal, ri, dataterm)) for _ in range(3)),
+                key=lambda t: len(t["csrc"]))
+            b = bound(10 * B * n * 4,
+                      B * n * (ri * ROF_ITER_OPS + ROF_NORM_OPS))
+            BANDED[7] = {"call": f"rof_chunk_batched B={B} {nx}x{ny}",
+                         "launches_per_call": len(t["csrc"]),
+                         "device_ms": t["csrc_ms"], "bound_ms": b[0],
+                         "bound_by": b[1]}
+            print(f"row 7 rof_chunk_batched B={B} {nx}x{ny} (streaming): "
+                  f"{len(t['csrc'])} hand-written launches a call, "
+                  f"{t['csrc_ms']:.4f} ms of device time traced, bound "
+                  f"{b[0]:.5f} ms ({b[1]})")
         if B == ENS_B:
             r.update(rof_batched_timings(planes, scal, ri, csize))
             r["plain_ms"] = time_ms(lambda: fr.rof_chunk_batched_plain(
@@ -3027,6 +3068,276 @@ def phase_halo_8b_kernels(dev):
     return rows_out
 
 
+def phase_tiled_rof(dev):
+    """Rows 6 and 5 tiled (``rof_tiled``: one launch a chunk over
+    overlapping 2-D windows of the planes) against the streaming launch
+    sequences they replace at the planes no grid-resident band holds, ri
+    10: ``rof_chunk_`` at 2048x2048 (square, wsquare, abs), 2048x1536 and
+    1000x777 (tiles that do not divide it), and ``rof_chunk_halo_`` on the
+    2092x2048 band of one shard of a 2048-wide plane (square, wsquare),
+    from planes with mass on the dead duals: planes, previous iterates and
+    squared norms bit-equal, and within PLANE_ATOL / NORM_RTOL of the
+    plain versions; ``rof_multichunk_`` at 2048x2048 (8 chunks under boyd,
+    3 under alg1), 2048x1536 (boyd, 8) and 1000x777 (alg1, 3), every chunk
+    run, and from a solve's start (x = f = the test image, q = 0) at
+    tolerances at which boyd converges partway, after an odd and after an
+    even number of chunks: planes, previous iterates, norms and sout
+    bit-equal, and the solve's start within PLANE_ATOL / MC_NORM_RTOL of
+    the plain version; each path's light call (``ROFChunk``,
+    ``ROFMultichunk``) in place on buffers made once, in turns (streaming,
+    tiled, tiled, streaming), with the hand-written kernels each launches
+    per call and their traced device ms, at 2048x2048, 2048x1536 and on
+    the band; the tiled chunk's time at 2048x2048 for other tiles than the
+    rule's; the functional wrappers' calls and the plain versions timed
+    for the kernels line."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.ops.pdhg_chunk import S_CONV, S_LEN, scalar_buffer
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    ri, nan = 10, float("nan")
+    rows = {"rof_chunk_tiled": {"err": 0.0},
+            "rof_multichunk_tiled": {"err": 0.0}}
+    scal = torch.tensor([0.9, 1.1, 1.0, ROF_LMB, 1.0], device=dev)
+    sms, tsmem = fr.card_sms(dev), fr.tiled_limit(dev)
+
+    def consts_of(nx, ny):
+        return (np.sqrt(2 * nx * ny), np.sqrt(nx * ny), 1.5, 0.95, 1.05,
+                0.8)
+
+    def mscal(tol, tau=0.9, sigma=1.1):
+        return torch.tensor([tau, sigma, 1.0, ROF_LMB, 1.0, 0.5, 0.0, 0.0,
+                             1.0, tol, tol, tol, tol], device=dev)
+
+    def both(label, fn, state, data, *args):
+        """``fn`` in place on copies of ``state`` by each path: the tiled
+        outputs, checked bit-equal to the streaming ones."""
+        got = {}
+        for path in ("streaming", "tiled"):
+            cur = [t.clone() for t in state]
+            prev = [torch.full_like(t, nan) for t in cur]
+            out = fn(*cur, *prev, *data, *args, path=path)
+            out = list(out) if isinstance(out, tuple) else [out]
+            got[path] = cur + prev + [t.clone() for t in out]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                      got["tiled"]))
+              and all(bool(torch.isfinite(t).all()) for t in got["tiled"]),
+              f"{label}: the tiled launch is not the launch sequence")
+        return got["tiled"]
+
+    def against_plain(label, out, ref, norm_tol):
+        plane, rel = max_errs(out, ref)
+        print(f"{label}: against the plain version max abs err planes "
+              f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms "
+              f"{rel:.3e} (tol {norm_tol:g})")
+        check(plane <= PLANE_ATOL and rel <= norm_tol,
+              f"{label} disagrees with its plain version")
+        return plane
+
+    seed = 700
+    for nx, ny, terms in ((2048, 2048, ("square", "wsquare", "abs")),
+                          (2048, 1536, ("square",)),
+                          (1000, 777, ("square", "abs"))):
+        for dataterm in terms:
+            x, q, f, w = kernel_inputs(nx, ny, seed, dev)
+            seed += 1
+            label = (f"rof_chunk_ {nx}x{ny} {dataterm}, tile "
+                     f"{fr.tiled_tile(nx, ny, ri, dataterm, sms, tsmem)}")
+            out = both(label, fr.rof_chunk_, [x, q], [f, w], scal, ri,
+                       dataterm)
+            print(f"{label}: tiled bit-equal to the launch sequence in the "
+                  "planes, the previous iterates and the squared norms")
+            err = against_plain(label, out, fr.rof_chunk_plain(
+                x, q, f, w, scal, ri, dataterm), NORM_RTOL)
+            rows["rof_chunk_tiled"]["err"] = max(
+                rows["rof_chunk_tiled"]["err"], err)
+    n, H = 2048, 2 * ri + 2
+    band = [window(a, -H, n + H) for a in kernel_inputs(n, n, seed, dev)]
+    bscal = torch.tensor([0.9, 1.1, 1.0, ROF_LMB, 1.0, -H, H, H + n],
+                         device=dev)
+    for dataterm in ("square", "wsquare"):
+        label = (f"rof_chunk_halo_ {n + 2 * H}x{n} band {dataterm}, tile "
+                 f"{fr.tiled_tile(n + 2 * H, n, ri, dataterm, sms, tsmem)}")
+        out = both(label, fr.rof_chunk_halo_, band[:2], band[2:], bscal, ri,
+                   n, dataterm)
+        print(f"{label}: tiled bit-equal to the launch sequence in the "
+              "planes, the previous iterates and the owned-row norms")
+        against_plain(label, out, fr.rof_chunk_halo_plain(
+            *band, bscal, ri, n, dataterm), NORM_RTOL)
+
+    for nx, ny, stepsize, k, dataterm in (
+            (2048, 2048, "boyd", 8, "square"),
+            (2048, 2048, "alg1", 3, "wsquare"),
+            (2048, 1536, "boyd", 8, "square"),
+            (1000, 777, "alg1", 3, "abs")):
+        x, q, f, w = kernel_inputs(nx, ny, seed, dev)
+        seed += 1
+        label = f"rof_multichunk_ {nx}x{ny} {dataterm} {stepsize}, {k} chunks"
+        out = both(label, fr.rof_multichunk_, [x, q], [f, w], mscal(0.0),
+                   ri, k, dataterm, stepsize, consts_of(nx, ny))
+        check(out[5][6].item() == k, f"{label}: not every chunk ran")
+        print(f"{label}: tiled bit-equal to the launch sequence in the "
+              "planes, the previous iterates, the norms and sout")
+    nx = ny = 2048
+    fimg = torch.from_numpy(test_image(nx, ny)).to(dev)
+    zero = torch.zeros((2, nx, ny), device=dev)
+    wone = torch.ones_like(fimg)
+    seen = {}
+    for tol in (2e-2, 1e-2, 5e-3, 2e-3, 1e-3, 5e-4, 2e-4):
+        sc = mscal(tol, 1.0, 1.0)
+        out = both(f"rof_multichunk_ {nx}x{ny} from a solve's start, tol "
+                   f"{tol:g}", fr.rof_multichunk_, [fimg, zero], [fimg, wone],
+                   sc, ri, 8, "square", "boyd", consts_of(nx, ny))
+        done = int(out[5][6].item())
+        if out[5][5].item() == 1.0 and done < 8:
+            seen.setdefault(done % 2, (tol, done))
+        if len(seen) == 2:
+            break
+    check(len(seen) == 2, f"rof_multichunk_ {nx}x{ny}: no tolerances "
+          f"converged after an odd and an even number of chunks ({seen})")
+    print(f"rof_multichunk_ {nx}x{ny} from a solve's start: tiled bit-equal "
+          f"to the launch sequence converging partway at (tolerance, "
+          f"chunks) {sorted(seen.values())}")
+    sc = mscal(0.0, 1.0, 1.0)
+    out = fr.rof_multichunk(fimg, zero, fimg, wone, sc, ri, 8, "square",
+                            "alg1", consts_of(nx, ny))
+    rows["rof_multichunk_tiled"]["err"] = against_plain(
+        f"rof_multichunk {nx}x{ny} alg1, 8 chunks, from a solve's start",
+        out, fr.rof_multichunk_plain(fimg, zero, fimg, wone, sc, ri, 8,
+                                     "square", "alg1", consts_of(nx, ny)),
+        MC_NORM_RTOL)
+
+    # the light calls in place, in turns
+    def light_turns(label, nx, ny, band=None, reps=20):
+        planes = kernel_inputs(nx, ny, 790, dev)
+        if band is not None:
+            planes = [window(a, -H, nx + H) for a in planes]
+        x, q, f, w = planes
+        m = {"nx": nx, "ny": ny, "f": f, "w": w, "dataterm": "square",
+             "lmb": ROF_LMB, "radius": 1.0,
+             "lmb_t": torch.tensor(ROF_LMB, device=dev),
+             "radius_t": torch.tensor(1.0, device=dev),
+             "tols_t": tuple(torch.tensor(0.0, device=dev)
+                             for _ in range(4)),
+             "adapt_consts": consts_of(nx, ny)}
+        steps = [torch.tensor(v, device=dev)
+                 for v in (0.9, 1.1, 1.0, 0.5, 0.0, 0.0)]
+        it0, flag = torch.tensor(1, device=dev), torch.tensor(False,
+                                                              device=dev)
+        bufs = {p: ([x.clone(), q.clone()], [x.clone(), q.clone()])
+                for p in ("streaming", "tiled")}
+        out = {}
+        for what in ("chunk",) if band else ("chunk", "multichunk"):
+            calls = {}
+            for p in ("streaming", "tiled"):
+                if what == "chunk":
+                    call = fr.ROFChunk(m, ri, dev, band, path=p)
+                    calls[p] = (lambda c=call, b=bufs[p]:
+                                c(*b, f, w, *steps[:3], flag))
+                else:
+                    call = fr.ROFMultichunk(m, ri, 8, "boyd", dev, path=p)
+                    calls[p] = (lambda c=call, b=bufs[p]:
+                                c(*b, *steps, it0, flag))
+            (o1, o2), (t1, t2) = in_turns(calls["streaming"], calls["tiled"],
+                                          reps)
+            # the fullest of three traces (the tracer may drop kernels)
+            ts, tt = (max((traced_call(calls[p]) for _ in range(3)),
+                          key=lambda t: len(t["csrc"]))
+                      for p in ("streaming", "tiled"))
+            check(tt["csrc"] and set(tt["csrc"]) <= {
+                "rof_tiled", "pdhg_finish", "rof_tiled_settle"},
+                f"{label} {what}: the tiled call launched {tt['csrc']}")
+            print(f"{label} {what} light call in place, in turns: streaming "
+                  f"{o1:.4f} ms, tiled {t1:.4f}, tiled {t2:.4f}, streaming "
+                  f"{o2:.4f} ms/call; traced device ms: streaming "
+                  f"{ts['csrc_ms']:.4f} ({len(ts['csrc'])} hand-written "
+                  f"launches), tiled {tt['csrc_ms']:.4f} "
+                  f"({len(tt['csrc'])}: {tt['csrc'].count('rof_tiled')} "
+                  f"rof_tiled), PyTorch {tt['torch_ms']:.4f} ms in "
+                  f"{tt['torch_kernels']} kernels")
+            out[what] = {"streaming_ms": (o1, o2), "tiled_ms": (t1, t2),
+                         "device_ms": (ts["csrc_ms"], tt["csrc_ms"]),
+                         "launches": (len(ts["csrc"]), len(tt["csrc"]))}
+        return out
+
+    turns = {"2048x2048": light_turns("2048x2048", 2048, 2048),
+             "2048x1536": light_turns("2048x1536", 2048, 1536),
+             "band": light_turns(f"{n + 2 * H}x{n} band", n, n,
+                                 (n, n + 2 * H, -H, H, H + n))}
+
+    # the tiled chunk at 2048x2048 with other tiles than the rule's
+    x, q, f, w = kernel_inputs(n, n, 791, dev)
+    rule = fr.tiled_tile(n, n, ri, "square", sms, tsmem)
+    sweep = {}
+    for tile in (rule, (64, 64), (32, 64), (64, 32), (128, 32), (32, 128),
+                 (48, 96), (16, 224), (144, 64)):
+        if fr.tiled_bytes(*tile, ri) > tsmem or tile in sweep:
+            continue
+        cur, prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
+        sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+        partial = torch.empty(4 * fr._lib().prost_rof_num_blocks(n, n),
+                              device=dev)
+        scratch = fr._scratch("tiled", n, n, dev)
+        sweep[tile] = time_ms(
+            lambda: fr._launch_chunk("rof_chunk", cur, prev, f, w, sc,
+                                     partial, scratch, ("tiled", tile), ri,
+                                     "square"), 20)
+    print(f"rof_chunk_ {n}x{n} tiled, ms a call (tiled launch, finish, copy "
+          f"back; CUDA events) by tile (rows, columns), the rule's "
+          f"{rule} first: " + ", ".join(f"{t}: {v:.4f}"
+                                        for t, v in sweep.items()))
+    # the rule's tile at count 1 (a window 3 pixels wider than the tile
+    # each way, not 21) against count 10: about the call's fixed cost
+    # (load, store, finish, copy back) and what an iteration adds
+    per_count = {}
+    for count in (1, ri):
+        cur, prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
+        sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+        partial = torch.empty(4 * fr._lib().prost_rof_num_blocks(n, n),
+                              device=dev)
+        scratch = fr._scratch("tiled", n, n, dev)
+        per_count[count] = time_ms(
+            lambda: fr._launch_chunk("rof_chunk", cur, prev, f, w, sc,
+                                     partial, scratch, ("tiled", rule),
+                                     count, "square"), 20)
+    print(f"rof_chunk_ {n}x{n} tiled, tile {rule}, ms a call (CUDA events): "
+          f"{per_count[1]:.4f} at count 1, {per_count[ri]:.4f} at count "
+          f"{ri}: {(per_count[ri] - per_count[1]) / (ri - 1):.5f} ms an "
+          f"iteration")
+
+    # the kernels line: the functional wrappers at 2048x2048, square
+    x, q, f, w = kernel_inputs(n, n, 792, dev)
+    r = rows["rof_chunk_tiled"]
+    timed(r, lambda: fr.rof_chunk(x, q, f, w, scal, ri), 20)
+    r["plain_ms"] = time_ms(lambda: fr.rof_chunk_plain(x, q, f, w, scal, ri),
+                            3)
+    r["bound"] = bound(10 * n * n * 4,
+                       n * n * (ri * ROF_ITER_OPS + ROF_NORM_OPS))
+    r = rows["rof_multichunk_tiled"]
+    sc = mscal(0.0, 1.0, 1.0)
+    timed(r, lambda: fr.rof_multichunk(fimg, zero, fimg, wone, sc, ri, 8,
+                                       "square", "alg1", consts_of(n, n)),
+          10)
+    r["plain_ms"] = time_ms(lambda: fr.rof_multichunk_plain(
+        fimg, zero, fimg, wone, sc, ri, 8, "square", "alg1",
+        consts_of(n, n)), 2)
+    r["bound"] = bound(10 * n * n * 4,
+                       8 * n * n * (ri * ROF_ITER_OPS + ROF_NORM_OPS))
+    for name, r in rows.items():
+        check(r["traced"]["csrc"].count("rof_tiled") >= 1,
+              f"{name}: the wrapper did not launch rof_tiled")
+        print(f"{name} {n}x{n}: wrapper {r['ms']:.4f} ms/call (traced device "
+              f"{r['traced']['csrc_ms']:.4f} ms in "
+              f"{len(r['traced']['csrc'])} hand-written launches, PyTorch "
+              f"{r['traced']['torch_ms']:.4f}), plain {r['plain_ms']:.4f} "
+              f"ms/call, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    rows["rof_chunk_tiled"]["turns"] = turns
+    rows["rof_chunk_tiled"]["sweep"] = {str(k): v for k, v in sweep.items()}
+    return rows
+
+
 def phase_resident_kernels(dev):
     """Rows 17, 12, 20, 23 and 24 as grid-resident launches (one cooperative
     launch a chunk) against their streaming launch sequences, whole plane
@@ -3718,7 +4029,7 @@ def phase_resident_rof(dev):
     and from a solve's start at the first tolerance at which the launch
     converges before its last chunk (planes, previous iterates, norms and
     sout): both paths from the same inputs bit-equal; the path the shape
-    rule takes (resident at 512x512; streaming at 2048x1536 and 2048x2048,
+    rule takes (resident at 512x512; tiled at 2048x1536 and 2048x2048,
     where ``path="resident"`` raises); each path in place on buffers made
     once, in turns (streaming, resident, resident, streaming), with the
     hand-written kernels each launches per call and their traced device ms;
@@ -3870,10 +4181,12 @@ def phase_resident_rof(dev):
           f"{fr.resident_bytes(n, n, sms, 'wsquare', True)} for the "
           f"multichunk with wsquare)")
     for nx, ny in ((2048, 1536), (2048, 2048)):
-        check(not fr.resident_ok(nx, ny, "square", sms, smem)
-              and not fr.resident_ok(nx, ny, "square", sms, msmem, True),
-              f"the shape rule made {nx}x{ny}'s chunk or multichunk "
-              "resident")
+        check(fr.route_of(nx, ny, "square", ri, sms, smem,
+                          fr.tiled_limit(dev)) == "tiled"
+              and fr.route_of(nx, ny, "square", ri, sms, msmem,
+                              fr.tiled_limit(dev), True) == "tiled",
+              f"the shape rule did not tile {nx}x{ny}'s chunk or "
+              "multichunk")
         bx, bq, bf, bw = kernel_inputs(nx, ny, 661, dev)
         for fn, args in ((fr.rof_chunk_, (scal, 2)),
                          (fr.rof_multichunk_, (mscal(0.0), 2, 2, "square",
@@ -3886,8 +4199,8 @@ def phase_resident_rof(dev):
             check(False, f"{fn.__name__} {nx}x{ny}: path='resident' did not "
                   "raise")
         print(f"rof_chunk_ and rof_multichunk_ {nx}x{ny}: the shape rule "
-              f"streams ({fr.resident_bytes(nx, ny, sms)} bytes a block); "
-              "path='resident' raises ProstError")
+              f"tiles ({fr.resident_bytes(nx, ny, sms)} bytes a resident "
+              "block); path='resident' raises ProstError")
     return out
 
 
@@ -3904,7 +4217,7 @@ def phase_resident_ml_halo(dev):
     its streaming sequence (planes, previous iterates, owned-row norms),
     its owned rows bit-equal to the whole-plane resident chunk's, and the
     bands' owned-row norms summed within HALO_NORM_RTOL of the whole
-    plane's; the path the shape rule takes (2092x2048 streams); each path
+    plane's; the path the shape rule takes (2092x2048 is tiled); each path
     in place on buffers made once, in turns (streaming, resident,
     resident, streaming), with the hand-written kernels each launches per
     call and their traced device ms; and the call, the copying one (the
@@ -4146,9 +4459,11 @@ def phase_resident_ml_halo(dev):
     print(f"resident limits: a ROF chunk block holds "
           f"{fr.resident_bytes(nr + 2 * H, nr, sms)} bytes on the "
           f"{nr + 2 * H}-row band ({smem} allowed); the {big}x2048 band "
-          f"streams ({fr.resident_bytes(big, 2048, sms)} bytes)")
-    check(not fr.resident_ok(big, 2048, "square", sms, smem),
-          f"the shape rule made the {big}x2048 band resident")
+          f"is tiled ({fr.resident_bytes(big, 2048, sms)} bytes a resident "
+          "block)")
+    check(fr.route_of(big, 2048, "square", ri, sms, smem,
+                      fr.tiled_limit(dev)) == "tiled",
+          f"the shape rule did not tile the {big}x2048 band")
     return out
 
 
@@ -4984,12 +5299,88 @@ def phase_sharded_solve(card, one_card):
     return launches
 
 
+def clone_args(args):
+    """``args`` with every tensor in it (also in lists and tuples)
+    cloned."""
+    import torch
+
+    if isinstance(args, torch.Tensor):
+        return args.clone()
+    if isinstance(args, (list, tuple)):
+        return type(args)(clone_args(a) for a in args)
+    if isinstance(args, dict):
+        return {k: clone_args(v) for k, v in args.items()}
+    return args
+
+
+class first_calls:
+    """A context in which each light-call class of ``classes`` keeps its
+    first call (the object and clones of the call's arguments, taken
+    before it runs) in ``seen`` by class name, and runs as before."""
+
+    def __init__(self, *classes):
+        self.classes, self.seen = classes, {}
+
+    def __enter__(self):
+        self.saved = {c: c.__dict__.get("__call__") for c in self.classes}
+        for cls in self.classes:
+            orig = cls.__call__
+
+            def call(obj, *args, _orig=orig, _name=cls.__name__, **kw):
+                if _name not in self.seen:
+                    self.seen[_name] = (obj, clone_args(args),
+                                        clone_args(kw))
+                return _orig(obj, *args, **kw)
+
+            cls.__call__ = call
+        return self.seen
+
+    def __exit__(self, *exc):
+        for cls, fn in self.saved.items():
+            if fn is None:
+                del cls.__call__
+            else:
+                cls.__call__ = fn
+
+
+# rows of PERF.md's kernel table that the JAX package bands at its large
+# shapes and the port still runs as streaming launch sequences: their
+# traced calls at those shapes (phase_batched_kernels, phase_large)
+BANDED = {}
+
+
+def banded_row(row, label, seen, name, nbytes, ops):
+    """BANDED's entry for table row ``row``: one call of the light call
+    ``seen[name]`` (its first call of a solve, on clones of its
+    arguments) traced, beside its bound."""
+    if name not in seen:
+        print(f"row {row} {label}: the solve made no {name} call (not "
+              "measured)")
+        return
+    obj, args, kw = seen[name]
+    # the card's tracer has been seen to drop some of a call's kernels:
+    # the fullest of three traces
+    t = max((traced_call(lambda: obj(*clone_args(args), **clone_args(kw)))
+             for _ in range(3)), key=lambda t: len(t["csrc"]))
+    check(len(t["csrc"]) > 0, f"{label}: no hand-written launch traced")
+    b = bound(nbytes, ops)
+    BANDED[row] = {"call": label, "launches_per_call": len(t["csrc"]),
+                   "device_ms": t["csrc_ms"], "bound_ms": b[0],
+                   "bound_by": b[1]}
+    print(f"row {row} {label}: {len(t['csrc'])} hand-written launches a "
+          f"call, {t['csrc_ms']:.4f} ms of device time traced, bound "
+          f"{b[0]:.5f} ms ({b[1]})")
+
+
 def phase_large(card):
     """Both fused ROF routes at 2048x2048, the fused multilabel route at
     512x512x8, the deblur route at 2048x2048, the tight route at 512x512x4
     and the volumetric route at 512x512x8 (the JAX package's banded sizes):
     300 iterations in two callback epochs, each reaching the multichunk
-    phase of the routes that have one."""
+    phase of the routes that have one; the PDHG ROF route's chunks and
+    multichunks on the tiled path (its launches returned for the kernels
+    line), and its solve in turns with the streaming sequence (tiled,
+    streaming, streaming, tiled: it/s, the energies equal)."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
     from prost_tpu_torch.ops import fused_admm as fa
     from prost_tpu_torch.ops import fused_deblur as fd
@@ -5001,41 +5392,87 @@ def phase_large(card):
     nx = ny = 2048
     lmb = 16.0
     f = test_image(nx, ny).reshape(-1)
+    ri, n = 10, nx * ny
     for kind, opts, mod in (
             ("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10), fr),
             ("admm", ADMMOptions(residual_iter=10), fa)):
         mod.reset_launch_counts()
-        res, backend, dt = timed_solve(recording(kind, opts), nx, ny, f,
-                                       lmb, 300, num_cback_calls=2)
+        with first_calls(fa.ADMMChunk, fa.ADMMMultichunk) as seen:
+            res, backend, dt = timed_solve(recording(kind, opts), nx, ny, f,
+                                           lmb, 300, num_cback_calls=2)
         launches = single_launches(mod)
         check(all(v > 0 for v in launches.values()),
               f"a {kind} kernel was not launched at 2048x2048: {launches}")
         path = ""
         if kind == "pdhg":
-            check(not backend.made.rof["multi"].resident
-                  and not backend.made.rof["call"].resident,
-                  "the shape rule made the 2048x2048 ROF multichunk or "
-                  "chunk resident")
-            path = " (multichunk and chunk on the streaming path)"
+            routes = (backend.made.rof["multi"].route,
+                      backend.made.rof["call"].route)
+            tiled = {k: fr.launch_counts[k]
+                     for k in ("rof_chunk_tiled", "rof_multichunk_tiled")}
+            check(all(r[0] == "tiled" for r in routes)
+                  and all(v > 0 for v in tiled.values()),
+                  f"the 2048x2048 ROF multichunk and chunk did not run "
+                  f"tiled: {routes}, {tiled}")
+            path = (f" (multichunk and chunk on the tiled path, tiles "
+                    f"{routes[0][1]} and {routes[1][1]}; tiled launches "
+                    f"{tiled})")
+            e_tiled = rof_energy(res.x, f, lmb, nx, ny)
         if kind == "admm":
             check(not backend.made.rof["call"].resident
                   and not backend.made.rof["chunk"].resident,
                   "the shape rule made the 2048x2048 multichunk or chunk "
                   "resident")
             path = " (multichunk and chunk on the streaming path)"
+            deg = (seen["ADMMChunk"][0].degree if "ADMMChunk" in seen
+                   else opts.cheby_degree)
+            banded_row("11 chunk", f"admm_chunk {nx}x{ny} (degree {deg})",
+                       seen, "ADMMChunk", 19 * n * 4,
+                       n * (ri * admm_iter_ops(deg) + ADMM_NORM_OPS))
+            banded_row("11 multichunk",
+                       f"admm_multichunk {nx}x{ny} (degree {deg}, 8 chunks)",
+                       seen, "ADMMMultichunk", 19 * n * 4,
+                       8 * n * (ri * admm_iter_ops(deg) + ADMM_NORM_OPS
+                                + ADMM_RESCALE_OPS))
         e = rof_energy(res.x, f, lmb, nx, ny)
         print(f"fused {kind} solve 2048x2048{path}: "
               f"{rates(res, backend, dt)}; energy {e:.6f}, launches "
               f"{launches} [{card}]")
+        if kind == "pdhg":
+            rof_tiled = tiled
+            turns = []
+            for p in ("tiled", "streaming", "streaming", "tiled"):
+                res, backend, dt = timed_solve(recording(kind, opts,
+                                                         rof_path=p),
+                                               nx, ny, f, lmb, 300,
+                                               num_cback_calls=2)
+                check(backend.made.rof["call"].route[0] == p,
+                      f"the 2048x2048 ROF solve did not take the {p} path")
+                check(rof_energy(res.x, f, lmb, nx, ny) == e_tiled,
+                      f"the {p} 2048x2048 ROF solve's energy is not the "
+                      "tiled one's")
+                turns.append(res.iterations / backend.loop_s)
+            print(f"fused pdhg solve 2048x2048 in turns, iterating it/s: "
+                  f"tiled {turns[0]:.1f}, streaming {turns[1]:.1f}, "
+                  f"streaming {turns[2]:.1f}, tiled {turns[3]:.1f}; the four "
+                  f"energies equal [{card}]")
 
     nx = ny = ML_LARGE
     L = ML_LABELS
     f = ml_unaries(cow_gray(ny, nx), L)
     fm.reset_launch_counts()
-    res, backend, dt = run_model(
-        recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
-        ml_model(nx, ny, L, f, ML_LMB), nx * ny * L, 300, num_cback_calls=2)
+    with first_calls(fm.MLChunk, fm.MLMultichunk) as seen:
+        res, backend, dt = run_model(
+            recording("pdhg", PDHGOptions(stepsize="boyd",
+                                          residual_iter=10)),
+            ml_model(nx, ny, L, f, ML_LMB), nx * ny * L, 300,
+            num_cback_calls=2)
     launches = single_launches(fm)
+    n = nx * ny
+    banded_row(16, f"ml_chunk {nx}x{ny}x{L}", seen, "MLChunk",
+               (10 * L + 3) * n * 4, ml_chunk_ops(n, L, ri))
+    banded_row(14, f"ml_multichunk {nx}x{ny}x{L} (8 chunks)", seen,
+               "MLMultichunk", (10 * L + 3) * n * 4,
+               ml_chunk_ops(n, L, ri, 8))
     check(backend.made.ml is not None and all(v > 0
                                                for v in launches.values()),
           f"a multilabel kernel was not launched at {nx}x{ny}x{L}: "
@@ -5051,10 +5488,18 @@ def phase_large(card):
     nx = ny = DB_LARGE
     fb = deblur_data(nx, ny)
     fd.reset_launch_counts()
-    res, backend, dt = run_model(
-        recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
-        deblur_model(nx, ny, fb), nx * ny, 300, num_cback_calls=2)
+    with first_calls(fd.DeblurChunk) as seen:
+        res, backend, dt = run_model(
+            recording("pdhg", PDHGOptions(stepsize="boyd",
+                                          residual_iter=10)),
+            deblur_model(nx, ny, fb), nx * ny, 300, num_cback_calls=2)
     launches = single_launches(fd)
+    if "DeblurChunk" in seen:
+        dm = seen["DeblurChunk"][0].m
+        n, m2, T = nx * ny, dm["nx2"] * dm["ny2"], len(dm["taps"])
+        banded_row(19, f"deblur_chunk {nx}x{ny} ({T} taps)", seen,
+                   "DeblurChunk", (9 * n + 5 * m2 + 3 * T) * 4,
+                   deblur_chunk_ops(n, m2, T, ri))
     check(backend.made.deblur is not None
           and all(v > 0 for v in launches.values()),
           f"the deblur kernel was not launched at {nx}x{ny}: {launches}")
@@ -5070,11 +5515,18 @@ def phase_large(card):
     k = L * (L - 1) // 2
     f = tight_unaries(nx, ny, L)
     ft.reset_launch_counts()
-    res, backend, dt = run_model(
-        recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
-        tight_model(nx, ny, L, f), nx * ny * (L + 2 * k), 300,
-        num_cback_calls=2)
+    with first_calls(ft.TightChunk) as seen:
+        res, backend, dt = run_model(
+            recording("pdhg", PDHGOptions(stepsize="boyd",
+                                          residual_iter=10)),
+            tight_model(nx, ny, L, f), nx * ny * (L + 2 * k), 300,
+            num_cback_calls=2)
     launches = single_launches(ft)
+    if "TightChunk" in seen:
+        n, T = nx * ny, len(seen["TightChunk"][0].taps)
+        banded_row(22, f"tight_chunk {nx}x{ny}x{L}", seen, "TightChunk",
+                   ((10 * L + 12 * k + 3) * n + 4 * T + 2 * L + 2 * k + 2)
+                   * 4, tight_chunk_ops(n, L, k, T, ri))
     check(backend.made.tight is not None
           and all(v > 0 for v in launches.values()),
           f"the tight kernel was not launched at {nx}x{ny}x{L}: {launches}")
@@ -5086,10 +5538,17 @@ def phase_large(card):
     L = VOL_LABELS
     f = vol_data(L, nx, ny)
     fv.reset_launch_counts()
-    res, backend, dt = run_model(
-        recording("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10)),
-        vol_model(nx, ny, L, f), nx * ny * L, 300, num_cback_calls=2)
+    with first_calls(fv.VolChunk, fv.VolMultichunk) as seen:
+        res, backend, dt = run_model(
+            recording("pdhg", PDHGOptions(stepsize="boyd",
+                                          residual_iter=10)),
+            vol_model(nx, ny, L, f), nx * ny * L, 300, num_cback_calls=2)
     launches = single_launches(fv)
+    nvox = nx * ny * L
+    banded_row(28, f"vol_chunk {nx}x{ny}x{L}", seen, "VolChunk",
+               13 * nvox * 4, vol_chunk_ops(nvox, ri))
+    banded_row(27, f"vol_multichunk {nx}x{ny}x{L} (8 chunks)", seen,
+               "VolMultichunk", 13 * nvox * 4, vol_chunk_ops(nvox, ri, 8))
     check(backend.made.vol is not None
           and all(v > 0 for v in launches.values()),
           f"a volumetric kernel was not launched at {nx}x{ny}x{L}: "
@@ -5102,6 +5561,8 @@ def phase_large(card):
     print(f"fused vol solve {nx}x{ny}x{L} (streaming path): "
           f"{rates(res, backend, dt)}; energy {e:.6f}, launches {launches} "
           f"[{card}]")
+    print("banded rows still streaming: " + json.dumps(BANDED))
+    return rof_tiled
 
 
 # ---------------------------------------------------------------------------
@@ -5676,7 +6137,7 @@ def main() -> int:
     rows = phase(phase_kernels, dev)
     for fn in (phase_admm_kernels, phase_ml_kernels, phase_deblur_kernels,
                phase_tight_kernels, phase_vol_kernels, phase_batched_kernels,
-               phase_halo_kernels, phase_halo_8b_kernels):
+               phase_halo_kernels, phase_halo_8b_kernels, phase_tiled_rof):
         rows.update(phase(fn, dev))
     resident = phase(phase_resident_kernels, dev)
     resident.update(phase(phase_resident_multi, dev))
@@ -5707,7 +6168,7 @@ def main() -> int:
     launches.update(ens_launches)
     launches.update(phase(phase_small_ensembles, card))
     launches.update(phase(phase_conv_ensembles, card))
-    phase(phase_large, card)
+    launches.update(phase(phase_large, card))
     phase(phase_wire, card, e_pdhg)
     phase(phase_checkpoint, card)
     phase(phase_examples, card)
@@ -5745,6 +6206,9 @@ def main() -> int:
         "tight_chunk_halo": ("fused_tight",
                              "prost_tpu/ops/fused_tight.py:172"),
         "admm_iter_halo": ("fused_admm", "prost_tpu/ops/fused_admm.py:518"),
+        "rof_chunk_tiled": ("fused_rof", "prost_tpu/ops/fused_rof.py:722"),
+        "rof_multichunk_tiled": ("fused_rof",
+                                 "prost_tpu/ops/fused_rof.py:988"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -7,6 +7,10 @@
 //                               -> _rof_chunk_kernel_batched
 //   prost_tpu/ops/fused_rof.py  rof_fused_chunk_halo
 //                               -> _rof_chunk_kernel_halo
+//   prost_tpu/ops/fused_rof.py  rof_fused_chunk_banded
+//                               -> _rof_banded_kernel, _rof_banded_db_kernel
+//   prost_tpu/ops/fused_rof.py  rof_fused_multichunk_banded
+//                               -> _rof_banded_mc_kernel
 // whose math is _chunk_core, _rof_update, _shift_ops, _project_dead_dual,
 // _hoist_dataterm and adapt_scalars in the same file.  The batched chunk
 // also serves rof_fused_chunk_banded_batched, which bands each instance only
@@ -32,19 +36,22 @@
 // launch latency: 2*ri + 3 launches a chunk, 1 + k (2*ri + 2) a multichunk.
 // Split over the card's SMs, though, the chunk's state is small: a block
 // of one SM holds 4 rows of each plane at 512x512 (58 KB, 68 KB with
-// wsquare's w).  So each chunk has two paths, bit-equal to each other:
+// wsquare's w).  So each chunk has three paths, bit-equal to each other:
 //   * the grid-resident launch (rof_resident, rof_multichunk_resident,
 //     further down): one cooperative launch a chunk (of the whole plane or
 //     of a halo band), or a multichunk of k chunks with the adaptation
 //     between them, one block per SM holding a band of rows of every plane
 //     in shared memory;
+//   * the tiled launch (rof_tiled, further down), for planes whose band
+//     does not fit in the shared memory a block may opt into (2048x1536
+//     and 2048x2048 need 600-800 KB a block, the 2092-row band of a
+//     2048-wide plane about 800 KB): one launch a chunk over overlapping
+//     2-D windows, each block holding its tile and the chunk's halo;
 //   * the streaming launch sequence (rof_seed, rof_primal, rof_dual,
-//     rof_norm_partial, pdhg_finish), for planes whose band does not fit in
-//     the shared memory a block may opt into (2048x1536 and 2048x2048 need
-//     600-800 KB a block, the 2092-row band of a 2048-wide plane about
-//     800 KB), and for the batched chunks.
-// The wrapper's shape rule (ops/fused_rof.py resident_ok, on the card's
-// SM count and opt-in limit) picks the path before the launch.  A batched
+//     rof_norm_partial, pdhg_finish), for chunks whose halo no window
+//     holds, for the comparisons, and for the batched chunks.
+// The wrapper's shape rule (ops/fused_rof.py route_of, on the card's SM
+// count and opt-in limit) picks the path before the launch.  A batched
 // chunk of 1024 instances of 128x128 streams 10 planes of 64 MiB once
 // (x, 2 q, f in; x, 2 q, x_prev, 2 q_prev out), a bound of about 0.2 ms;
 // its working set (about 1 GB) is far beyond L2, so it holds each
@@ -1080,6 +1087,429 @@ Planes planes_of(void* x, void* q, void* xp, void* qp, void* g, void* gp,
   return b;
 }
 
+
+// ---------------------------------------------------------------------------
+// The tiled chunk and multichunk (rof_fused_chunk_banded -> _rof_banded_kernel,
+// _rof_banded_db_kernel; rof_fused_multichunk_banded -> _rof_banded_mc_kernel),
+// for planes whose rows no grid-resident band holds: 2048x1536, 2048x2048
+// and the 2092-row halo band of a 2048-wide plane.  The TPU kernels run one
+// launch a chunk with the grid over row bands, each band DMAing its
+// halo-extended window into VMEM, running every iteration there and
+// writing back its owned rows only.
+//
+// What bounds it.  A chunk at 2048x2048 reads x, q and f (and w) once and
+// writes x, q, x_prev and q_prev once: 10 planes of 16.8 MB, 0.050 ms at the
+// card's memory rate; the streaming sequence moves about 14 planes an
+// iteration through device memory (23 launches a chunk), a working set
+// twice the 50 MB L2.  Rows cannot be the unit here: one 2048-wide row of
+// the state is 40-48 KB, and a block has at most 227 KB of shared memory.
+//
+// Design.  One launch a chunk over overlapping 2-D windows, a block each
+// (TL_THREADS threads, 32 to a row of the window): block (bi, bj) owns the
+// tile of rows [bi tx, bi tx + tx) and columns [bj ty, bj ty + ty) (tx a
+// multiple of 8, ty of 32, so every 32x8 norm tile lies in one block) and
+// loads its window, the tile with TL_LEAD = count + 1 rows and columns
+// above and left of it and count below and right of it (clamped at the
+// plane's edges), into dynamic shared memory.  The halo is the least that
+// keeps the owned pixels exact (tests/test_torch_tiled_rof.py holds the
+// plain twin exact with it and not with one less on either side): the
+// primal half-step reads q one row up and one column left, the dual
+// half-step the new x one row down and one column right, so a window side
+// that is not the plane's edge spoils one more pixel of x and q per
+// iteration on each side (q_k and x_k are exact from k below a top edge,
+// q_k to k and x_k to k - 1 above a bottom edge), and the norms' K^T q of
+// the new dual reads one row more above.  Each half-step computes only the
+// pixels still exact, so the work shrinks from the window toward the tile.
+// Every row and column mask is decided by the pixel's place in the plane
+// (the row context RowCtx of a halo band included), never by its place in
+// the window; where the window ends inside the plane the neighbour is
+// taken as 0, which only pixels outside the exact region read.
+// The window holds x twice, the iterate before and after the primal step
+// (so the dual step recomputes grad x_old, bit-equal to the carried g of
+// the streaming sequence, instead of holding two gradient planes), q_x,
+// q_y, f and wsquare's w: 5 planes (6 with w).  The aligned iteration
+// writes x_prev and q_prev of the owned pixels, keeps w_hat in f's place,
+// takes the dual step of the owned pixels 32x8 tile by tile (a warp a
+// tile, a lane a column) with the |pd|^2 and |z_hat|^2 terms in
+// registers, and after a barrier |dd|^2 and |w_hat|^2: each tile's four
+// sums in block_partials' tree (tile_sum) into the streaming grid's
+// partials, which pdhg_finish reduces as before, so the norms are the
+// streaming sequence's bit for bit, as are the planes.
+// Windows overlap, so a launch reads (x, q) and writes (x2, q2): a chunk
+// is the tiled launch, pdhg_finish and a copy of (x2, q2) back into (x, q)
+// unless the flag was set (rof_tiled_settle); a multichunk alternates the
+// two pairs from chunk to chunk, with pdhg_finish's adaptation and
+// stopping test between chunks on the device, and copies back only where
+// it ran an odd number of chunks.  A launch made after convergence
+// returns at once.
+// ---------------------------------------------------------------------------
+
+constexpr int TL_THREADS = 1024;  // a block: 32 rows of 32 threads
+constexpr int TL_ROWS = TL_THREADS / BX;
+
+struct Tiled {
+  const float *x, *q;  // the chunk's input: (nx, ny), (2, nx, ny)
+  float *x2, *q2;      // its output
+  float *xp, *qp;      // x_prev, q_prev of the owned pixels
+  const float *f, *w;
+  float* sc;
+  float* partial;  // 4 per 32x8 tile of the plane (grid_of)
+  int nx, ny;
+  int nxg;    // rows of the global plane of a halo band; 0: the whole plane
+  int count;  // iterations; the halo is count + 1 before, count after
+  int tx, ty;  // the owned tile's rows (a multiple of 8) and columns (32)
+};
+
+// Planes of a window in shared memory: x before and after a primal step,
+// q_x, q_y, f and wsquare's w.
+inline int tiled_planes(int dataterm) {
+  return dataterm == DT_WSQUARE ? 6 : 5;
+}
+
+// The dynamic shared memory of a block of the tiled launch (mirrored by
+// ops/fused_rof.py tiled_bytes).
+inline size_t tiled_smem(int tx, int ty, int count, int dataterm) {
+  const size_t h = 2 * (size_t)count + 1;
+  return (size_t)tiled_planes(dataterm) * (tx + h) * (ty + h) *
+         sizeof(float);
+}
+
+// A window: rows [r0, r0 + wh) and columns [c0, c0 + ww) of the plane,
+// whether each side is the plane's edge, and the owned tile in window
+// coordinates.
+struct TWin {
+  int r0, c0, wh, ww;
+  bool top, bot, left, right;
+  int oi0, oi1, oj0, oj1;
+};
+
+__device__ __forceinline__ TWin tiled_window(const Tiled& a) {
+  TWin v;
+  const int lead = a.count + 1, trail = a.count;
+  const int R0 = blockIdx.y * a.tx, C0 = blockIdx.x * a.ty;
+  const int R1 = min(R0 + a.tx, a.nx), C1 = min(C0 + a.ty, a.ny);
+  v.r0 = max(R0 - lead, 0);
+  v.c0 = max(C0 - lead, 0);
+  const int r1 = min(R1 + trail, a.nx), c1 = min(C1 + trail, a.ny);
+  v.wh = r1 - v.r0;
+  v.ww = c1 - v.c0;
+  v.top = v.r0 == 0;
+  v.left = v.c0 == 0;
+  v.bot = r1 == a.nx;
+  v.right = c1 == a.ny;
+  v.oi0 = R0 - v.r0;
+  v.oi1 = R1 - v.r0;
+  v.oj0 = C0 - v.c0;
+  v.oj1 = C1 - v.c0;
+  return v;
+}
+
+// The pixels of iteration k's x (q_k with `dual`) that are still exact:
+// rows [lo, hi) and columns [clo, chi) of the window.
+struct TRegion {
+  int lo, hi, clo, chi;
+};
+
+__device__ __forceinline__ TRegion exact_region(const TWin& v, int k,
+                                                bool dual) {
+  const int trail = dual ? k : k - 1;
+  return TRegion{v.top ? 0 : k, v.bot ? v.wh : v.wh - trail,
+                 v.left ? 0 : k, v.right ? v.ww : v.ww - trail};
+}
+
+// The shared-memory planes of a window, row stride ww.
+struct TPlanes {
+  float *x[2], *qx, *qy, *f, *w;
+};
+
+// K^T q at window pixel p (plane pixel (i, j)), as kty_at, the neighbour
+// above or left taken as 0 where the window ends inside the plane.
+__device__ __forceinline__ float kty_tile(const TPlanes& s, const TWin& v,
+                                          const RowCtx& r, int wi, int wj,
+                                          int i, int j, int p) {
+  float lx = wi > 0 && has_above(r, i) ? s.qx[p - v.ww] : 0.f;
+  float ly = wj > 0 && j > 0 ? s.qy[p - 1] : 0.f;
+  return (lx - s.qx[p]) + (ly - s.qy[p]);
+}
+
+// grad u at window pixel p, as rof_dual computes it, the neighbour below or
+// right taken as 0 where the window ends inside the plane.
+__device__ __forceinline__ void grad_tile(const float* u, const TWin& v,
+                                          const RowCtx& r, int nx, int ny,
+                                          int wi, int wj, int i, int j,
+                                          int p, float& gx, float& gy) {
+  const float uv = u[p];
+  gx = wi < v.wh - 1 && has_below(r, i, nx) ? u[p + v.ww] - uv : 0.f;
+  gy = wj < v.ww - 1 && j < ny - 1 ? u[p + 1] - uv : 0.f;
+}
+
+// One dual step at window pixel p from x_new (xn) and x_old (xo), q in
+// place; returns the old and new duals and gradients for the norms.
+__device__ __forceinline__ void dual_tile(const TPlanes& s, const float* xo,
+                                          const float* xn, const TWin& v,
+                                          const RowCtx& r, const RofStep& k,
+                                          int nx, int ny, int wi, int wj,
+                                          int i, int j, int p, float* o) {
+  float gxn, gyn, gx, gy, qxn, qyn;
+  grad_tile(xn, v, r, nx, ny, wi, wj, i, j, p, gxn, gyn);
+  grad_tile(xo, v, r, nx, ny, wi, wj, i, j, p, gx, gy);
+  const float qx = s.qx[p], qy = s.qy[p];
+  dual_at(qx, qy, gxn, gyn, gx, gy, k.sig_p, k.sig_t, k.radius, qxn, qyn);
+  s.qx[p] = qxn;
+  s.qy[p] = qyn;
+  if (o) {
+    o[0] = qx, o[1] = qy, o[2] = qxn, o[3] = qyn;
+    o[4] = gxn, o[5] = gyn, o[6] = gx, o[7] = gy;
+  }
+}
+
+// The 32x8 tiles of the owned region, a warp a tile: fn(wi, wj, rr, in)
+// for each of the tile's 8 rows rr of the lane's column, `in` whether the
+// pixel lies in the owned region (and so in the plane); then emit(t, gt)
+// with the tile's number in the plane's grid (grid_of), where gt >= 0.
+template <class Px, class Emit>
+__device__ __forceinline__ void owned_tiles(const Tiled& a, const TWin& v,
+                                            Px fn, Emit emit) {
+  const int lane = threadIdx.x % BX, warp = threadIdx.x / BX;
+  const int rows = v.oi1 - v.oi0, cols = v.oj1 - v.oj0;
+  const int nty = (rows + BY - 1) / BY, ntx = (cols + BX - 1) / BX;
+  const int gtx = (a.ny + BX - 1) / BX;
+  for (int t = warp; t < nty * ntx; t += TL_ROWS) {
+    const int sy = t / ntx, sx = t % ntx;
+    const int wj = v.oj0 + sx * BX + lane;
+#pragma unroll
+    for (int rr = 0; rr < BY; ++rr) {
+      const int wi = v.oi0 + sy * BY + rr;
+      fn(wi, wj, rr, wi < v.oi1 && wj < v.oj1);
+    }
+    const int gi = (v.r0 + v.oi0) / BY + sy, gj = (v.c0 + v.oj0) / BX + sx;
+    emit(gi * gtx + gj);
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(TL_THREADS, 1) rof_tiled(Tiled a) {
+  if (a.sc[S_CONV] != 0.f) return;
+  extern __shared__ float smem[];
+  const int nx = a.nx, ny = a.ny;
+  const size_t n = (size_t)nx * ny;
+  const RowCtx r = row_ctx(a.sc, nx, a.nxg);
+  const TWin v = tiled_window(a);
+  const int m = v.wh * v.ww;
+  TPlanes s;
+  s.x[0] = smem;
+  s.x[1] = smem + m;
+  s.qx = smem + 2 * m;
+  s.qy = smem + 3 * m;
+  s.f = smem + 4 * m;
+  s.w = DT == DT_WSQUARE ? smem + 5 * m : s.f;
+  const int lane = threadIdx.x % BX, row = threadIdx.x / BX;
+
+  // the window, the dead duals zeroed (rof_seed)
+  for (int wi = row; wi < v.wh; wi += TL_ROWS)
+    for (int wj = lane; wj < v.ww; wj += BX) {
+      const int i = v.r0 + wi, j = v.c0 + wj, p = wi * v.ww + wj;
+      const size_t g = (size_t)i * ny + j;
+      s.x[0][p] = a.x[g];
+      s.qx[p] = dead_row(r, i) ? 0.f : a.q[g];
+      s.qy[p] = j == ny - 1 ? 0.f : a.q[n + g];
+      s.f[p] = a.f[g];
+      if (DT == DT_WSQUARE) s.w[p] = a.w[g];
+    }
+  __syncthreads();
+  const RofStep k = rof_step(a.sc);
+  const int c = a.count;
+  for (int it = 1; it <= c; ++it) {
+    const float* xo = s.x[(it - 1) & 1];
+    float* xn = s.x[it & 1];
+    const bool last = it == c;
+    // rof_primal on the exact pixels; the aligned step also writes x_prev
+    // and keeps w_hat in f's place at the owned pixels
+    const TRegion e = exact_region(v, it, false);
+    for (int wi = e.lo + row; wi < e.hi; wi += TL_ROWS)
+      for (int wj = e.clo + lane; wj < e.chi; wj += BX) {
+        const int i = v.r0 + wi, j = v.c0 + wj, p = wi * v.ww + wj;
+        const float kty = kty_tile(s, v, r, wi, wj, i, j, p);
+        const float xv = xo[p];
+        const float xnv = primal_at(xv, kty, s.f[p],
+                                    DT == DT_WSQUARE ? s.w[p] : 0.f, k.tau,
+                                    k.lmb, DT);
+        if (last && wi >= v.oi0 && wi < v.oi1 && wj >= v.oj0 &&
+            wj < v.oj1) {
+          a.xp[(size_t)i * ny + j] = xv;
+          s.f[p] = w_hat(xv, xnv, kty, k.inv_t);
+        }
+        xn[p] = xnv;
+      }
+    __syncthreads();
+    if (!last) {  // rof_dual on the exact pixels
+      const TRegion d = exact_region(v, it, true);
+      for (int wi = d.lo + row; wi < d.hi; wi += TL_ROWS)
+        for (int wj = d.clo + lane; wj < d.chi; wj += BX)
+          dual_tile(s, xo, xn, v, r, k, nx, ny, wi, wj, v.r0 + wi,
+                    v.c0 + wj, wi * v.ww + wj, nullptr);
+      __syncthreads();
+      continue;
+    }
+    // the aligned dual step: the owned pixels tile by tile, q_prev out and
+    // the |pd|^2 and |z_hat|^2 sums; then the row above and the column
+    // left of the tile, which K^T q of the new dual reads
+    float t0[BY], t1[BY];
+    owned_tiles(
+        a, v,
+        [&](int wi, int wj, int rr, bool in) {
+          t0[rr] = t1[rr] = 0.f;
+          if (!in) return;
+          const int i = v.r0 + wi, j = v.c0 + wj;
+          float o[8];
+          dual_tile(s, xo, xn, v, r, k, nx, ny, wi, wj, i, j,
+                    wi * v.ww + wj, o);
+          const size_t g = (size_t)i * ny + j;
+          a.qp[g] = o[0];
+          a.qp[n + g] = o[1];
+          if (owned_row(r, i))
+            dual_terms(o[0], o[1], o[2], o[3], o[4], o[5], o[6], o[7],
+                       k.inv_s, k.theta, t0[rr], t1[rr]);
+        },
+        [&](int gt) {
+          const float s0 = tile_sum(t0), s1 = tile_sum(t1);
+          if (lane == 0) {
+            a.partial[4 * gt + 0] = s0;
+            a.partial[4 * gt + 1] = s1;
+          }
+        });
+    const int above = v.oi0 > 0 ? v.oj1 - v.oj0 : 0;
+    const int left = v.oj0 > 0 ? v.oi1 - v.oi0 : 0;
+    for (int t = threadIdx.x; t < above + left; t += TL_THREADS) {
+      const int wi = t < above ? v.oi0 - 1 : v.oi0 + (t - above);
+      const int wj = t < above ? v.oj0 + t : v.oj0 - 1;
+      dual_tile(s, xo, xn, v, r, k, nx, ny, wi, wj, v.r0 + wi, v.c0 + wj,
+                wi * v.ww + wj, nullptr);
+    }
+    __syncthreads();
+  }
+  // the |dd|^2 and |w_hat|^2 sums from K^T q of the new dual, and the owned
+  // pixels of x and q out
+  const float* xc = s.x[c & 1];
+  float t2[BY], t3[BY];
+  owned_tiles(
+      a, v,
+      [&](int wi, int wj, int rr, bool in) {
+        t2[rr] = t3[rr] = 0.f;
+        if (!in) return;
+        const int i = v.r0 + wi, j = v.c0 + wj, p = wi * v.ww + wj;
+        const size_t g = (size_t)i * ny + j;
+        if (owned_row(r, i)) {
+          const float wh = s.f[p];
+          const float dd = wh + SQRT_T * kty_tile(s, v, r, wi, wj, i, j, p);
+          t2[rr] = dd * dd;
+          t3[rr] = wh * wh;
+        }
+        a.x2[g] = xc[p];
+        a.q2[g] = s.qx[p];
+        a.q2[n + g] = s.qy[p];
+      },
+      [&](int gt) {
+        const float s2 = tile_sum(t2), s3 = tile_sum(t3);
+        if (lane == 0) {
+          a.partial[4 * gt + 2] = s2;
+          a.partial[4 * gt + 3] = s3;
+        }
+      });
+}
+
+// (x2, q2) into (x, q) where the chunk left its result there: a chunk
+// (multi 0) whose flag was not set at entry, a multichunk (multi 1) that
+// ran an odd number of chunks.
+__global__ void rof_tiled_settle(const float* __restrict__ x2,
+                                 const float* __restrict__ q2,
+                                 float* __restrict__ x, float* __restrict__ q,
+                                 const float* __restrict__ sc, size_t n,
+                                 int multi) {
+  const bool copy =
+      multi ? ((int)sc[S_DONE] & 1) != 0 : sc[S_CONV] == 0.f;
+  if (!copy) return;
+  for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < 3 * n;
+       k += (size_t)gridDim.x * blockDim.x) {
+    if (k < n)
+      x[k] = x2[k];
+    else
+      q[k - n] = q2[k - n];
+  }
+}
+
+using TiledKernel = void (*)(Tiled);
+
+TiledKernel tiled_kernel(int dataterm) {
+  return dataterm == DT_SQUARE    ? rof_tiled<DT_SQUARE>
+         : dataterm == DT_WSQUARE ? rof_tiled<DT_WSQUARE>
+                                  : rof_tiled<DT_ABS>;
+}
+
+// The dynamic shared memory a block of the tiled launch may hold on the
+// current device: the smallest of its three data terms' limits, or minus
+// the error.
+int rof_tiled_limit() {
+  int limit = -1;
+  for (int dt = 0; dt < 3; ++dt) {
+    int l = resident_smem_limit(tiled_kernel(dt));
+    if (l < 0) return l;
+    limit = limit < 0 || l < limit ? l : limit;
+  }
+  return limit;
+}
+
+// One tiled launch of `a`; refuses a tile that is not a multiple of the
+// 32x8 norm tiles or whose window does not fit in a block's shared memory.
+int tiled_launch(const Tiled& a, int dataterm, cudaStream_t s) {
+  if (a.tx < BY || a.tx % BY || a.ty < BX || a.ty % BX || a.count < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tiled_smem(a.tx, a.ty, a.count, dataterm);
+  const int limit = rof_tiled_limit();
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  TiledKernel kern = tiled_kernel(dataterm);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.ny + a.ty - 1) / a.ty, (a.nx + a.tx - 1) / a.tx);
+  kern<<<grid, TL_THREADS, smem, s>>>(a);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+int tiled_settle(const Tiled& a, float* x, float* q, int multi,
+                 cudaStream_t s) {
+  const size_t n = (size_t)a.nx * a.ny;
+  rof_tiled_settle<<<264, 512, 0, s>>>(a.x2, a.q2, x, q, a.sc, n, multi);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+Tiled tiled_of(void* x, void* q, void* xp, void* qp, const void* f,
+               const void* w, void* sc, void* partial, void* scratch, int nx,
+               int ny, int nx_global, int count, int tx, int ty) {
+  const size_t n = (size_t)nx * ny;
+  Tiled a;
+  a.x = (const float*)x;
+  a.q = (const float*)q;
+  a.x2 = (float*)scratch;
+  a.q2 = (float*)scratch + n;
+  a.xp = (float*)xp;
+  a.qp = (float*)qp;
+  a.f = (const float*)f;
+  a.w = (const float*)w;
+  a.sc = (float*)sc;
+  a.partial = (float*)partial;
+  a.nx = nx;
+  a.ny = ny;
+  a.nxg = nx_global;
+  a.count = count;
+  a.tx = tx;
+  a.ty = ty;
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1268,5 +1698,71 @@ int prost_rof_multichunk_resident(void* x, void* q, void* xp, void* qp,
 // rof_multichunk_resident) may hold on the current device, or minus the
 // error.
 int prost_rof_resident_smem(int multi) { return rof_resident_limit(multi); }
+
+// rof_fused_chunk_banded (the whole plane, or with nx_global a halo band
+// as prost_rof_chunk_halo takes it) as one tiled launch of tx x ty tiles
+// (rof_tiled), the finish and the copy back: (x, q) advance by `count`
+// iterations in place, x_prev / q_prev of the aligned iteration into (xp,
+// qp), the 4 squared norms into sc[S_NORM..]; `scratch` 3 (nx, ny) planes.
+// Bit-equal to prost_rof_chunk (prost_rof_chunk_halo).  Refuses a tile
+// that is not a multiple of 8 rows and 32 columns, or whose window does
+// not fit in a block's shared memory (cudaErrorInvalidValue).  No-op when
+// sc[S_CONV] is set.
+int prost_rof_chunk_tiled(void* x, void* q, void* xp, void* qp,
+                          const void* f, const void* w, void* sc,
+                          void* partial, void* scratch, int nx, int ny,
+                          int nx_global, int count, int dataterm, int tx,
+                          int ty, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  Tiled a = tiled_of(x, q, xp, qp, f, w, sc, partial, scratch, nx, ny,
+                     nx_global, count, tx, ty);
+  if (int rc = tiled_launch(a, dataterm, s)) return rc;
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  pdhg_finish<<<1, FIN, 0, s>>>(a.sc, a.partial,
+                                prost_rof_num_blocks(nx, ny), count, 0,
+                                STEP_NONE, none);
+  LAUNCH_CHECK();
+  return tiled_settle(a, (float*)x, (float*)q, 0, s);
+}
+
+// rof_fused_multichunk_banded as up to k_chunks tiled launches, each
+// followed by pdhg_finish's adaptation and stopping test, the chunks
+// reading and writing (x, q) and the scratch's (x2, q2) in turn, and the
+// copy back where an odd number ran; the arguments of
+// prost_rof_multichunk_resident, `scratch` 3 (nx, ny) planes, and the
+// tile.  Bit-equal to prost_rof_multichunk in the planes, the previous
+// iterates and sc.  Refuses a tile as prost_rof_chunk_tiled does.  No-op
+// when sc[S_CONV] is set.
+int prost_rof_multichunk_tiled(void* x, void* q, void* xp, void* qp,
+                               const void* f, const void* w, void* sc,
+                               void* partial, void* scratch, int nx, int ny,
+                               int count, int k_chunks, int dataterm,
+                               int stepsize, float sqrt_nrows,
+                               float sqrt_ncols, float arg_delta,
+                               float arg_nu, float arb_delta, float arb_tau,
+                               int tx, int ty, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const Tiled a = tiled_of(x, q, xp, qp, f, w, sc, partial, scratch, nx, ny,
+                           0, count, tx, ty);
+  Tiled b = a;  // the odd chunks: from the scratch back into (x, q)
+  b.x = a.x2;
+  b.q = a.q2;
+  b.x2 = (float*)x;
+  b.q2 = (float*)q;
+  AdaptConsts c = {sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta,
+                   arb_tau};
+  for (int k = 0; k < k_chunks; ++k) {
+    if (int rc = tiled_launch(k & 1 ? b : a, dataterm, s)) return rc;
+    pdhg_finish<<<1, FIN, 0, s>>>(a.sc, a.partial,
+                                  prost_rof_num_blocks(nx, ny), count, 1,
+                                  stepsize, c);
+    LAUNCH_CHECK();
+  }
+  return tiled_settle(a, (float*)x, (float*)q, 1, s);
+}
+
+// The dynamic shared memory a block of rof_tiled may hold on the current
+// device, or minus the error.
+int prost_rof_tiled_smem() { return rof_tiled_limit(); }
 
 }  // extern "C"

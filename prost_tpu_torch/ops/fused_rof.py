@@ -33,9 +33,18 @@ On a card the chunk, its halo mode and the multichunk each run as one
 grid-resident cooperative launch (one block per SM holding a band of rows
 of every plane in shared memory) where the shape rule (``resident_ok``, on
 the card's SMs and the shared memory a block may opt into) finds that the
-planes fit, and as the streaming launch sequence otherwise (2048x1536 and
-larger, and the halo bands of 2048-wide planes); both are bit-equal.
-``path=`` forces one.
+planes fit, and otherwise tiled (``tiled_ok``: 2048x1536 and larger, and
+the halo bands of 2048-wide planes): one launch a chunk over overlapping
+2-D windows of the planes, each block holding its tile and a halo of
+``count + 1`` rows and columns before it and ``count`` after it in shared
+memory, the multichunk as that launch and the on-device finish chunk after
+chunk (``route_of``).  The streaming launch sequence (seed, two launches
+an iteration, norms, finish) runs only where ``path="streaming"`` asks for
+it, or where no tile's window holds a chunk's halo (more than 39
+iterations a chunk with wsquare, 43 without).  All three are bit-equal;
+``path=`` forces one, and a path that cannot launch raises.
+``rof_chunk_tiled_plain`` and ``rof_multichunk_tiled_plain`` are the tiled
+launches' plain twins, window by window.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no other route and no fallback:
@@ -69,15 +78,15 @@ from .fused_tight import fused_tight_run, match_tight_structure
 from .fused_vol import fused_vol_run, match_vol_structure
 from .pdhg_chunk import (CF, CI, N_HALO_SCAL, PATHS, RES_RED_BYTES, S_CONV,
                          S_LEN, S_NORM, SOUT, STEPSIZES, VP, WHOLE_PLANE,
-                         ChunkWork, LightChunk, LightMultichunk, ball_scale,
-                         canonical_duals, card_sms, check_buffers,
-                         check_halo, check_inplace, chunk_state,
-                         dual_ball_radius, dx, dy, dyt, entry_converged,
-                         halo_copy, halo_into, halo_scal_rows, launch,
-                         match_dataterm, multichunk_plain, multichunk_state,
-                         own_vectors, pdhg_adapt_consts, pick_path,
-                         resident_rows, run_pdhg_route, scalar_buffer,
-                         typed_lib, vmap_plain)
+                         ChunkWork, LightChunk, LightMultichunk, RowOps,
+                         ball_scale, canonical_duals, card_sms,
+                         check_buffers, check_halo, check_inplace,
+                         chunk_state, dual_ball_radius, dx, dy,
+                         entry_converged, halo_copy, halo_into,
+                         halo_scal_rows, launch, match_dataterm,
+                         multichunk_plain, multichunk_state, own_vectors,
+                         pdhg_adapt_consts, resident_rows, run_pdhg_route,
+                         scalar_buffer, typed_lib, vmap_plain)
 from .phases import K_CHUNKS
 
 _SQRT_S = 0.7071067811865476  # sqrt(Sigma) = sqrt(1/2)
@@ -91,9 +100,12 @@ DATATERMS = {"square": 0, "wsquare": 1, "abs": 2}
 SMEM_BYTES = 232448
 CLUSTER_SIZES = (1, 2, 4, 8)
 
-# launches of each kernel wrapper on the card (CPU calls do not count)
+# launches of each kernel wrapper on the card (CPU calls do not count);
+# a tiled launch also counts under "rof_chunk_tiled" (a chunk's, whole plane
+# or halo band) or "rof_multichunk_tiled"
 launch_counts = {"rof_chunk": 0, "rof_multichunk": 0,
-                 "rof_chunk_batched": 0, "rof_chunk_halo": 0}
+                 "rof_chunk_batched": 0, "rof_chunk_halo": 0,
+                 "rof_chunk_tiled": 0, "rof_multichunk_tiled": 0}
 
 
 def reset_launch_counts() -> None:
@@ -123,7 +135,7 @@ def _rof_update(x, qx, qy, gx, gy, dt0, dt1, tau, sig_p, sig_t, radius,
     (gx, gy) is grad(x) carried from the previous iteration; ``rows`` the
     planes' ``RowOps``.  Returns the new state, the new gradient planes and
     K^T of the old dual."""
-    kty = rows.dxt(qx) + dyt(qy)
+    kty = rows.dxt(qx) + rows.dyt(qy)
     arg = x - tau * kty
     if dataterm in ("square", "wsquare"):
         x_new = (arg + dt0) * dt1
@@ -131,7 +143,7 @@ def _rof_update(x, qx, qy, gx, gy, dt0, dt1, tau, sig_p, sig_t, radius,
         d = arg - dt0
         x_new = arg - torch.minimum(torch.maximum(d, -dt1), dt1)
     gx_new = rows.dx(x_new)
-    gy_new = dy(x_new)
+    gy_new = rows.dy(x_new)
     ax = qx + sig_p * gx_new - sig_t * gx
     ay = qy + sig_p * gy_new - sig_t * gy
     scale = ball_scale(ax * ax + ay * ay, radius)
@@ -140,15 +152,16 @@ def _rof_update(x, qx, qy, gx, gy, dt0, dt1, tau, sig_p, sig_t, radius,
 
 def _chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, qx0, qy0, f, w,
                 count: int, dataterm: str, g0=None, return_g=False,
-                rows=WHOLE_PLANE):
+                rows=WHOLE_PLANE, terms=False):
     """One residual_iter-sized chunk: ``count - 1`` plain iterations, then
     the aligned iteration with its four preconditioned residual norms
     (squared).  ``g0`` seeds the carried gradient (a previous chunk's
     grad(x2)); ``return_g`` also returns grad(x2); ``rows`` is the planes'
-    ``RowOps`` (a halo-extended shard's: owned-row norms).
+    ``RowOps`` (a halo-extended shard's: owned-row norms; a window's).
 
     Returns (x2, qx2, qy2, x_prev, qx_prev, qy_prev, (n0, n1, n2, n3)
-    [, (gx2, gy2)])."""
+    [, (gx2, gy2)]); with ``terms``, in place of the norms the six planes
+    they sum: pd_x^2, pd_y^2, z_hat_x^2, z_hat_y^2, dd^2, w_hat^2."""
     tau = tau_raw * 0.25       # tau * Tau
     sigma_p = sigma_raw * 0.5  # sigma * Sigma
     sig_p = sigma_p * (1.0 + theta)
@@ -157,7 +170,7 @@ def _chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, qx0, qy0, f, w,
                                lmb, dataterm)
     qx, qy = rows.project(qx0, qy0)
     x = x0
-    gx, gy = (rows.dx(x0), dy(x0)) if g0 is None else g0
+    gx, gy = (rows.dx(x0), rows.dy(x0)) if g0 is None else g0
     for _ in range(count - 1):
         x, qx, qy, gx, gy, _ = _rof_update(x, qx, qy, gx, gy, dt0, dt1, tau,
                                            sig_p, sig_t, radius, dataterm,
@@ -167,7 +180,7 @@ def _chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, qx0, qy0, f, w,
     x2, qx2, qy2, gx2, gy2, ktyp = _rof_update(
         x, qx, qy, gxp, gyp, dt0, dt1, tau, sig_p, sig_t, radius, dataterm,
         rows)
-    kty2 = rows.dxt(qx2) + dyt(qy2)
+    kty2 = rows.dxt(qx2) + rows.dyt(qy2)
 
     inv_s = 1.0 / (sigma_raw * _SQRT_S)
     zh_x = (qx - qx2) * inv_s + _SQRT_S * ((1.0 + theta) * gx2 - theta * gxp)
@@ -177,16 +190,21 @@ def _chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, qx0, qy0, f, w,
     wh = (x - x2) * (1.0 / (tau_raw * _SQRT_T)) - _SQRT_T * ktyp
     dd = wh + _SQRT_T * kty2
 
-    nsum = rows.nsum
-    norms = (
-        nsum(pd_x * pd_x) + nsum(pd_y * pd_y),
-        nsum(zh_x * zh_x) + nsum(zh_y * zh_y),
-        nsum(dd * dd),
-        nsum(wh * wh),
-    )
+    squares = (pd_x * pd_x, pd_y * pd_y, zh_x * zh_x, zh_y * zh_y, dd * dd,
+               wh * wh)
+    if terms:
+        return x2, qx2, qy2, x, qx, qy, squares
+    norms = _norms_of(squares, rows.nsum)
     if return_g:
         return x2, qx2, qy2, x, qx, qy, norms, (gx2, gy2)
     return x2, qx2, qy2, x, qx, qy, norms
+
+
+def _norms_of(squares, nsum):
+    """The four squared norms from ``_chunk_core``'s six term planes."""
+    pdx, pdy, zhx, zhy, dd, wh = squares
+    return (nsum(pdx) + nsum(pdy), nsum(zhx) + nsum(zhy), nsum(dd),
+            nsum(wh))
 
 
 def rof_chunk_plain(x, q, f, w, scal, count: int, dataterm: str = "square",
@@ -242,6 +260,178 @@ def rof_multichunk_plain(x, q, f, w, scal, count: int, k_chunks: int,
 
 
 # ---------------------------------------------------------------------------
+# the tiled launches' plain twins, window by window
+# ---------------------------------------------------------------------------
+
+def tiled_halo(count: int) -> tuple:
+    """The least halo of a tiled chunk of ``count`` iterations, (rows and
+    columns before the tile, after it): the primal step reads q one row up
+    and one column left, the dual step the new x one row down and one
+    column right, so each iteration spoils one more pixel of x and q at a
+    window side inside the plane, and the norms' K^T q of the new dual
+    reads one row (and column) more before the tile."""
+    return int(count) + 1, int(count)
+
+
+def window_ops(r0: int, c0: int, wh: int, ww: int, nx: int, ny: int,
+               row_offset: int = 0, nx_global=None) -> RowOps:
+    """``RowOps`` of the window rows [r0, r0 + wh), columns [c0, c0 + ww)
+    of an (nx, ny) plane (a halo band of a plane of ``nx_global`` rows
+    whose row 0 is global row ``row_offset``): every mask decided by the
+    pixel's place in the plane, as ``csrc/fused_rof.cu`` rof_tiled decides
+    it, a neighbour outside the window taken as 0 (``dxt_masked`` is
+    ``dxt``: no ROF dual is live on the global last row)."""
+    nxg = nx if nx_global is None else int(nx_global)
+
+    def rows(a):
+        li = torch.arange(a.shape[-2], device=a.device)
+        return li, li + r0, li + r0 + row_offset
+
+    def cols(a):
+        lj = torch.arange(a.shape[-1], device=a.device)
+        return lj, lj + c0
+
+    def wdx(u):
+        li, i, gi = rows(u)
+        below = ((li < wh - 1) & (i < nx - 1) & (gi < nxg - 1))[:, None]
+        return torch.where(below, torch.roll(u, -1, -2) - u, 0.0)
+
+    def wdxt(p):
+        li, i, gi = rows(p)
+        above = ((li > 0) & (i > 0) & (gi > 0))[:, None]
+        return torch.where(above, torch.roll(p, 1, -2), 0.0) - p
+
+    def wdy(u):
+        lj, j = cols(u)
+        return torch.where((lj < ww - 1) & (j < ny - 1),
+                           torch.roll(u, -1, -1) - u, 0.0)
+
+    def wdyt(p):
+        lj, j = cols(p)
+        return torch.where((lj > 0) & (j > 0), torch.roll(p, 1, -1), 0.0) - p
+
+    def project(qx, qy):
+        _, _, gi = rows(qx)
+        _, j = cols(qy)
+        return (torch.where((gi == nxg - 1)[:, None], 0.0, qx),
+                torch.where(j == ny - 1, 0.0, qy))
+
+    return RowOps(wdx, wdxt, wdxt, project, torch.sum, wdy, wdyt)
+
+
+def tile_partials(terms):
+    """The per-32x8-tile sums of the four (nx, ny) term planes ``terms``
+    in ``csrc/pdhg_chunk.cuh`` block_partials' tree (zeros beyond the
+    plane), numbered as grid_of numbers its blocks: (tiles, 4)."""
+    nx, ny = terms[0].shape
+    rows, cols = -(-nx // 8) * 8, -(-ny // 32) * 32
+    v = torch.zeros((4, rows, cols), dtype=terms[0].dtype,
+                    device=terms[0].device)
+    for k, t in enumerate(terms):
+        v[k, :nx, :ny] = t
+    v = v.reshape(4, rows // 8, 8, cols // 32, 32).permute(0, 1, 3, 2, 4)
+    s = ((v[..., 0, :] + v[..., 4, :]) + (v[..., 2, :] + v[..., 6, :])) + (
+        (v[..., 1, :] + v[..., 5, :]) + (v[..., 3, :] + v[..., 7, :]))
+    for o in (16, 8, 4, 2, 1):
+        s = s[..., :o] + s[..., o:2 * o]
+    return s.reshape(4, -1).T
+
+
+def finish_sums(partial):
+    """The four squared norms from (tiles, 4) partials in pdhg_finish's
+    order: thread t of 512 sums tiles t, t + 512, ... in turn, then a tree
+    over the threads."""
+    n = partial.shape[0]
+    acc = torch.zeros((512, 4), dtype=partial.dtype, device=partial.device)
+    for base in range(0, n, 512):
+        part = partial[base:base + 512]
+        acc[:part.shape[0]] = acc[:part.shape[0]] + part
+    for s in (256, 128, 64, 32, 16, 8, 4, 2, 1):
+        acc = acc[:s] + acc[s:2 * s]
+    return acc[0]
+
+
+def rof_chunk_tiled_plain(x, q, f, w, scal, count: int,
+                          dataterm: str = "square", nx_global=None,
+                          tile=(64, 64), halo=None, partials=False):
+    """The tiled chunk (``rof_chunk_`` with ``path="tiled"``; with
+    ``nx_global``, ``rof_chunk_halo_``'s, its row context in ``scal``)
+    window by window: ``rof_chunk_plain``'s arithmetic on each tile's
+    window (``window_ops``, ``halo`` rows and columns (before, after) the
+    tile, ``tiled_halo`` by default), the owned pixels and their norm terms
+    stitched into the plane.  Returns ``rof_chunk_plain``'s outputs, the
+    norms summed as it sums them; with ``partials``, also the 32x8 tiles'
+    partials (``tile_partials``), which the kernel's finish reduces."""
+    nx, ny = x.shape
+    tx, ty = (int(t) for t in tile)
+    lead, trail = tiled_halo(count) if halo is None else halo
+    if nx_global is None:
+        n_scal, off, nsum = 5, 0, torch.sum
+    else:
+        n_scal, off = N_HALO_SCAL, int(scal[5])
+        nsum = halo_scal_rows(scal, nx_global).nsum
+    x2, xp = torch.empty_like(x), torch.empty_like(x)
+    q2, qp = torch.empty_like(q), torch.empty_like(q)
+    sq = torch.empty((6, nx, ny), dtype=x.dtype, device=x.device)
+    for R0 in range(0, nx, tx):
+        for C0 in range(0, ny, ty):
+            R1, C1 = min(R0 + tx, nx), min(C0 + ty, ny)
+            r0, c0 = max(R0 - lead, 0), max(C0 - lead, 0)
+            r1, c1 = min(R1 + trail, nx), min(C1 + trail, ny)
+            ops = window_ops(r0, c0, r1 - r0, c1 - c0, nx, ny, off,
+                             nx_global)
+            win = (slice(r0, r1), slice(c0, c1))
+            *planes, terms = _chunk_core(
+                scal[0], scal[1], scal[2], scal[3], scal[4], x[win],
+                q[0][win], q[1][win], f[win], w[win], int(count), dataterm,
+                rows=ops, terms=True)
+            own = (slice(R0 - r0, R1 - r0), slice(C0 - c0, C1 - c0))
+            at = (slice(R0, R1), slice(C0, C1))
+            for dst, src in zip((x2, q2[0], q2[1], xp, qp[0], qp[1]),
+                                planes):
+                dst[at] = src[own]
+            for k, t in enumerate(terms):
+                sq[k][at] = t[own]
+    conv = entry_converged(scal, n_scal)
+    norms2 = torch.stack(_norms_of(sq, nsum))
+    out = (torch.where(conv, x, x2), torch.where(conv, q, q2),
+           torch.where(conv, x, xp), torch.where(conv, q, qp),
+           torch.where(conv, torch.zeros_like(norms2), norms2))
+    if not partials:
+        return out
+    li = torch.arange(nx, device=x.device)[:, None]
+    if nx_global is not None:
+        own_rows = (li >= int(scal[6])) & (li < int(scal[7]))
+        sq = torch.where(own_rows, sq, 0.0)
+    return (*out, tile_partials((sq[0] + sq[1], sq[2] + sq[3], sq[4],
+                                 sq[5])))
+
+
+def rof_multichunk_tiled_plain(x, q, f, w, scal, count: int, k_chunks: int,
+                               dataterm: str, stepsize: str, consts,
+                               tile=(64, 64), halo=None):
+    """The tiled multichunk (``rof_multichunk_`` with ``path="tiled"``):
+    ``multichunk_plain``'s loop over ``rof_chunk_tiled_plain``, the
+    gradient recomputed from x at each chunk (bit-equal to the carried
+    one).  Returns ``rof_multichunk_plain``'s outputs."""
+    theta, lmb, radius = scal[2], scal[3], scal[4]
+
+    def chunk(tau, sigma, p):
+        s5 = torch.stack([tau, sigma, theta, lmb, radius])
+        x2, q2, xp, qp, n2 = rof_chunk_tiled_plain(
+            p[0], torch.stack(p[1:3]), f, w, s5, count, dataterm, tile=tile,
+            halo=halo)
+        return (x2, q2[0], q2[1], xp, qp[0], qp[1]), n2
+
+    planes, norms, sout = multichunk_plain(
+        chunk, (x, q[0], q[1], x, q[0], q[1]), scal, count, k_chunks,
+        stepsize, consts)
+    x2, qx2, qy2, xp, qxp, qyp = planes
+    return (x2, torch.stack([qx2, qy2]), xp, torch.stack([qxp, qyp]), norms,
+            sout)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -263,10 +453,14 @@ def _check(x, q, f, w, scal, n_scal: int, count: int, dataterm: str,
                   scal, n_scal, lead[0] if batched else None)
 
 
+# the ROF wrappers' paths: the grid-resident, streaming and tiled launches
+ROF_PATHS = PATHS + ("tiled",)
+
+
 def _check_path(path, what: str) -> None:
     """An in-place form's ``path`` is one it knows, on any device."""
-    if path not in PATHS:
-        raise ProstError(f"{what}: path must be one of {PATHS}, got "
+    if path not in ROF_PATHS:
+        raise ProstError(f"{what}: path must be one of {ROF_PATHS}, got "
                          f"{path!r}.")
 
 
@@ -312,7 +506,11 @@ def _lib():
         "prost_rof_chunk_halo_resident": [VP] * 9 + [CI] * 5 + [VP],
         "prost_rof_multichunk_resident": [VP] * 9 + [CI] * 6 + [CF] * 6
                                          + [VP],
-        "prost_rof_resident_smem": [CI]})
+        "prost_rof_resident_smem": [CI],
+        "prost_rof_chunk_tiled": [VP] * 9 + [CI] * 7 + [VP],
+        "prost_rof_multichunk_tiled": [VP] * 9 + [CI] * 6 + [CF] * 6
+                                      + [CI] * 2 + [VP],
+        "prost_rof_tiled_smem": []})
 
 
 def rof_chunk(x, q, f, w, scal, count: int, dataterm: str = "square"):
@@ -349,13 +547,114 @@ def resident_bytes(nx: int, ny: int, sms: int, dataterm: str = "square",
 
 def resident_ok(nx: int, ny: int, dataterm: str, sms: int, smem: int,
                 multi: bool = False) -> bool:
-    """The shape rule of ``rof_chunk_`` (with ``multi``, of
-    ``rof_multichunk_``): one grid-resident launch (csrc/fused_rof.cu
-    rof_resident, rof_multichunk_resident, one block per SM) where the
-    planes of the largest band fit in ``smem`` bytes of a block's dynamic
-    shared memory on a card of ``sms`` SMs, and the streaming launch
-    sequence otherwise."""
+    """Whether ``rof_chunk_`` (with ``multi``, ``rof_multichunk_``) may run
+    as one grid-resident launch (csrc/fused_rof.cu rof_resident,
+    rof_multichunk_resident, one block per SM): the planes of the largest
+    band fit in ``smem`` bytes of a block's dynamic shared memory on a card
+    of ``sms`` SMs (``route_of`` takes the tiled launch otherwise)."""
     return resident_bytes(nx, ny, sms, dataterm, multi) <= int(smem)
+
+
+# the tiled launch's owned tiles (csrc/fused_rof.cu rof_tiled): rows a
+# multiple of 8 and columns of 32, so every 32x8 norm tile lies in one block
+TILE_ROWS = tuple(range(8, 257, 8))
+TILE_COLS = tuple(range(32, 257, 32))
+
+
+def tiled_bytes(tx: int, ty: int, count: int, dataterm: str = "square") -> int:
+    """The dynamic shared memory of one block of the tiled launch
+    (csrc/fused_rof.cu tiled_smem): the window of a ``tx`` x ``ty`` tile
+    with the halo of a ``count``-iteration chunk (``tiled_halo``: 2 count +
+    1 rows and columns more), x before and after a primal step, q_x, q_y,
+    f, and wsquare's w (6 planes, 5 for the other data terms)."""
+    h = 2 * int(count) + 1
+    planes = 6 if dataterm == "wsquare" else 5
+    return 4 * planes * (int(tx) + h) * (int(ty) + h)
+
+
+def tiled_tile(nx: int, ny: int, count: int, dataterm: str, sms: int,
+               smem: int):
+    """The owned tile (rows, columns) of the tiled launch on (nx, ny)
+    planes and ``count``-iteration chunks on a card of ``sms`` SMs whose
+    blocks may hold ``smem`` bytes of dynamic shared memory: of the tiles
+    whose window fits (``tiled_bytes``), the one whose launch moves the
+    fewest window pixels through the SMs (the waves of one block per SM
+    times a whole tile's window), the larger tile on a tie; None where no
+    tile's window fits."""
+    h = 2 * int(count) + 1
+    best, cost = None, None
+    for ty in TILE_COLS:
+        if ty - 32 >= ny:
+            break
+        for tx in TILE_ROWS:
+            if tx - 8 >= nx or tiled_bytes(tx, ty, count, dataterm) > smem:
+                break
+            waves = -(-(-(-nx // tx) * -(-ny // ty)) // int(sms))
+            c = waves * (min(tx, nx) + h) * (min(ty, ny) + h)
+            if best is None or c < cost or (c == cost and
+                                            tx * ty > best[0] * best[1]):
+                best, cost = (tx, ty), c
+    return best
+
+
+def tiled_ok(nx: int, ny: int, count: int, dataterm: str, sms: int,
+             smem: int) -> bool:
+    """Whether the tiled launch takes (nx, ny) planes in chunks of
+    ``count`` iterations: some tile's window fits in ``smem`` bytes."""
+    return tiled_tile(nx, ny, count, dataterm, sms, smem) is not None
+
+
+def route_of(nx: int, ny: int, dataterm: str, count: int, sms: int,
+             smem: int, tiled_smem: int, multi: bool = False) -> str:
+    """The shape rule of ``rof_chunk_``, ``rof_chunk_halo_`` (on the band's
+    rows) and, with ``multi``, ``rof_multichunk_`` on a card of ``sms`` SMs
+    whose resident blocks may hold ``smem`` bytes and tiled blocks
+    ``tiled_smem``: "resident" where the planes fit in the grid-resident
+    launch (``resident_ok``), else "tiled" where a tile's window holds the
+    chunk's halo (``tiled_ok``), else "streaming"."""
+    if resident_ok(nx, ny, dataterm, sms, smem, multi):
+        return "resident"
+    if tiled_ok(nx, ny, count, dataterm, sms, tiled_smem):
+        return "tiled"
+    return "streaming"
+
+
+@functools.lru_cache(maxsize=None)
+def tiled_limit(device) -> int:
+    """The dynamic shared memory a block of the tiled launch may hold on
+    the card ``device``, read once."""
+    with torch.cuda.device(device):
+        smem = _lib().prost_rof_tiled_smem()
+    if smem < 0:
+        raise ProstError(f"rof_chunk: no shared-memory limit for the tiled "
+                         f"chunk on {device} (CUDA error {-smem}).")
+    return smem
+
+
+def pick_route(path, nx: int, ny: int, dataterm: str, count: int, device,
+               multi: bool, what: str) -> tuple:
+    """(path, tile) of a chunk on the card ``device``: by ``route_of``
+    where ``path`` is None, else the one asked for; "resident" where the
+    planes do not fit, or "tiled" where no tile's window holds the halo,
+    raises ``ProstError``.  ``tile`` is the tiled launch's (rows, columns),
+    else None."""
+    _check_path(path, what)
+    sms, smem = card_limits(device, multi)
+    tsmem = tiled_limit(device)
+    if path is None:
+        path = route_of(nx, ny, dataterm, count, sms, smem, tsmem, multi)
+    if path == "resident" and not resident_ok(nx, ny, dataterm, sms, smem,
+                                              multi):
+        raise ProstError(f"{what}: the chunk's planes do not fit in the "
+                         "shared memory of one block per SM.")
+    tile = None
+    if path == "tiled":
+        tile = tiled_tile(nx, ny, count, dataterm, sms, tsmem)
+        if tile is None:
+            raise ProstError(f"{what}: no tile's window holds the halo of a "
+                             f"{count}-iteration chunk in the shared memory "
+                             "of a block.")
+    return path, tile
 
 
 @functools.lru_cache(maxsize=None)
@@ -371,28 +670,39 @@ def card_limits(device, multi: bool = False) -> tuple:
     return card_sms(device), smem
 
 
-def _scratch(resident: bool, nx: int, ny: int, device):
+def _scratch(path: str, nx: int, ny: int, device):
     """A launch's scratch: the grid-resident launch's norm terms and its
-    exchange planes (8 planes), or the streaming sequence's carried
-    gradient planes (of this iterate and of the previous one)."""
-    if resident:
-        return [torch.empty((8, nx, ny), dtype=torch.float32, device=device)]
+    exchange planes (8 planes), the tiled launch's second (x, q) (3
+    planes), or the streaming sequence's carried gradient planes (of this
+    iterate and of the previous one)."""
+    if path != "streaming":
+        planes = 8 if path == "resident" else 3
+        return [torch.empty((planes, nx, ny), dtype=torch.float32,
+                            device=device)]
     return [torch.empty((2, nx, ny), dtype=torch.float32, device=device)
             for _ in range(2)]
 
 
 def _launch_chunk(what: str, state, prev, f, w, sc, partial, scratch,
-                  resident: bool, count: int, dataterm: str,
+                  route: tuple, count: int, dataterm: str,
                   nx_global=None) -> None:
     """One chunk on the card in place on ``state`` (x, q) and ``prev``: the
-    grid-resident launch or the streaming sequence, of the whole plane or
+    grid-resident launch, the tiled launch or the streaming sequence
+    (``route`` = (path, tile) of ``pick_route``), of the whole plane or
     (with ``nx_global``) of a halo band, counted under ``what``."""
     x = state[0]
     nx, ny = x.shape
+    path, tile = route
+    tail = (int(count), DATATERMS[dataterm])
+    if path == "tiled":
+        launch(_lib(), "prost_rof_chunk_tiled", what, launch_counts,
+               x.device, [*state, *prev, f, w, sc, partial, *scratch], nx,
+               ny, int(nx_global or 0), *tail, *tile)
+        launch_counts["rof_chunk_tiled"] += 1
+        return
     fn = "prost_rof_chunk" + ("" if nx_global is None else "_halo")
-    tail = (() if nx_global is None else (int(nx_global),)) + (
-        int(count), DATATERMS[dataterm])
-    if resident:
+    tail = (() if nx_global is None else (int(nx_global),)) + tail
+    if path == "resident":
         fn, bufs = fn + "_resident", [*state, *prev, f, w, sc, partial,
                                       *scratch]
     else:
@@ -406,13 +716,12 @@ def _inplace(what: str, state, prev, f, w, scal, n_scal: int, count: int,
     returns norms2."""
     nx, ny = state[0].shape
     dev = state[0].device
-    resident = pick_path(path, resident_ok(nx, ny, dataterm,
-                                           *card_limits(dev)), what)
+    route = pick_route(path, nx, ny, dataterm, count, dev, False, what)
     sc = scalar_buffer(scal, n_scal, S_CONV, S_LEN)
     partial = torch.empty(4 * _lib().prost_rof_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     _launch_chunk(what, state, prev, f.contiguous(), w.contiguous(), sc,
-                  partial, _scratch(resident, nx, ny, dev), resident, count,
+                  partial, _scratch(route[0], nx, ny, dev), route, count,
                   dataterm, nx_global)
     return sc[S_NORM:S_NORM + 4]
 
@@ -422,10 +731,11 @@ def rof_chunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
     """``rof_chunk`` in place: (x, q) advance by ``count`` iterations and
     (x_prev, q_prev) take the iterate before the aligned one; with the
     converged flag set nothing changes.  Returns norms2.  On a card
-    ``path`` None takes the shape rule's path (``resident_ok``): one
+    ``path`` None takes the shape rule's path (``route_of``): one
     grid-resident launch (csrc/fused_rof.cu rof_resident) where the planes
-    fit on chip, else the streaming launch sequence; "resident" or
-    "streaming" asks for one ("resident" raises where it does not fit)."""
+    fit on chip, else one tiled launch (rof_tiled) with the finish and a
+    copy back; "resident", "tiled" or "streaming" asks for one
+    ("resident" and "tiled" raise where they cannot launch)."""
     _check(x, q, f, w, scal, 5, count, dataterm)
     check_inplace((x, q), (x_prev, q_prev))
     _check_path(path, "rof_chunk")
@@ -440,13 +750,14 @@ class ROFChunk(LightChunk):
     """The ROF routes' light chunk call: ``rof_chunk_`` (with ``band`` =
     (nx_global, rows, row_offset, own_lo, own_hi), ``rof_chunk_halo_`` on a
     band of ``rows`` rows) on the planes (x, q) a route holds, with what
-    depends only on the shapes made once per route: the path
-    (``resident_ok``), the scratch, the norm partials and the scalar
-    buffer with ``m``'s lmb and radius (and the band's row context).  A
-    call writes the step sizes and the flag into the scalar buffer and
-    launches; on the CPU it runs the plain version."""
+    depends only on the shapes made once per route: the path (``route``:
+    ``pick_route``'s (path, tile), by the shape rule unless ``path`` asks
+    for one), the scratch, the norm partials and the scalar buffer with
+    ``m``'s lmb and radius (and the band's row context).  A call writes
+    the step sizes and the flag into the scalar buffer and launches; on the
+    CPU it runs the plain version."""
 
-    def __init__(self, m, count: int, device, band=None):
+    def __init__(self, m, count: int, device, band=None, path=None):
         consts = (m["lmb"], m["radius"]) + tuple(band[2:] if band else ())
         super().__init__(consts, device)
         self.count, self.dataterm, self.band = int(count), m["dataterm"], band
@@ -455,20 +766,26 @@ class ROFChunk(LightChunk):
             nx = int(band[1])
         self.what = "rof_chunk" if band is None else "rof_chunk_halo"
         self.nx_global = None if band is None else int(band[0])
-        self.resident = None  # the path on a card
+        self.route = None  # (path, tile) on a card
         if torch.device(device).type == "cuda":
-            self.resident = resident_ok(nx, ny, self.dataterm,
-                                        *card_limits(device))
+            self.route = pick_route(path, nx, ny, self.dataterm, self.count,
+                                    device, False, self.what)
             self.partial = torch.empty(
                 4 * _lib().prost_rof_num_blocks(nx, ny), dtype=torch.float32,
                 device=device)
-            self.scratch = _scratch(self.resident, nx, ny, device)
+            self.scratch = _scratch(self.route[0], nx, ny, device)
+
+    @property
+    def resident(self):
+        """Whether the call runs grid-resident on a card; None on the
+        CPU."""
+        return None if self.route is None else self.route[0] == "resident"
 
     def __call__(self, state, prev, f, w, tau, sigma, theta, converged):
         """``count`` iterations on ``state`` (x, q) in place, the previous
         iterate into ``prev``; returns norms2."""
         self.scalars_(tau, sigma, theta, converged)
-        if self.resident is None:
+        if self.route is None:
             scal = self.scal()
             if self.band is None:
                 out = rof_chunk_plain(*state, f, w, scal, self.count,
@@ -478,7 +795,7 @@ class ROFChunk(LightChunk):
                                            self.nx_global, self.dataterm)
             return halo_into(state, prev, out, scal, self.n_scal)
         _launch_chunk(self.what, state, prev, f, w, self.sc, self.partial,
-                      self.scratch, self.resident, self.count, self.dataterm,
+                      self.scratch, self.route, self.count, self.dataterm,
                       self.nx_global)
         return self.norms2()
 
@@ -508,7 +825,7 @@ def rof_chunk_halo_(x, q, x_prev, q_prev, f, w, scal, count: int,
     take the iterate before the aligned one; with the converged flag set
     nothing changes.  Returns norms2.  ``path`` as for ``rof_chunk_``, the
     shape rule on the band's rows (csrc/fused_rof.cu rof_resident on the
-    band where it fits)."""
+    band where it fits, else rof_tiled on the band)."""
     _check(x, q, f, w, scal, N_HALO_SCAL, count, dataterm)
     check_halo(nx_global, (x, q), (x_prev, q_prev))
     _check_path(path, "rof_chunk_halo")
@@ -605,22 +922,27 @@ def rof_multichunk(x, q, f, w, scal, count: int, k_chunks: int,
 
 
 def _launch_multichunk(state, prev, f, w, sc, partial, scratch,
-                       resident: bool, count: int, k_chunks: int,
+                       route: tuple, count: int, k_chunks: int,
                        dataterm: str, stepsize: str, consts) -> None:
     """One multichunk on the card in place on ``state`` (x, q) and
-    ``prev``: the grid-resident launch or the streaming sequence, counted
-    under ``rof_multichunk``."""
+    ``prev``: the grid-resident launch, the tiled launches or the streaming
+    sequence (``route`` = (path, tile) of ``pick_route``), counted under
+    ``rof_multichunk``."""
     x = state[0]
     nx, ny = x.shape
-    if resident:
-        fn, bufs = ("prost_rof_multichunk_resident",
-                    [*state, *prev, f, w, sc, partial, *scratch])
-    else:
+    path, tile = route
+    if path == "streaming":
         fn, bufs = "prost_rof_multichunk", [*state, *prev, *scratch, f, w,
                                             sc, partial]
+    else:
+        fn = "prost_rof_multichunk_" + path
+        bufs = [*state, *prev, f, w, sc, partial, *scratch]
     launch(_lib(), fn, "rof_multichunk", launch_counts, x.device, bufs, nx,
            ny, int(count), int(k_chunks), DATATERMS[dataterm],
-           STEPSIZES[stepsize], *[float(c) for c in consts])
+           STEPSIZES[stepsize], *[float(c) for c in consts],
+           *(tile or ()))
+    if path == "tiled":
+        launch_counts["rof_multichunk_tiled"] += 1
 
 
 def rof_multichunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
@@ -630,11 +952,12 @@ def rof_multichunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
     chunks and (x_prev, q_prev) take the iterate before the last executed
     chunk's aligned iteration; with the converged flag set at entry nothing
     changes.  Returns (norms, sout).  On a card ``path`` None takes the
-    shape rule's path (``resident_ok(..., multi=True)``): one grid-resident
+    shape rule's path (``route_of(..., multi=True)``): one grid-resident
     launch for all the chunks (csrc/fused_rof.cu rof_multichunk_resident)
-    where the planes fit on chip, else the streaming launch sequence;
-    "resident" or "streaming" asks for one ("resident" raises where it does
-    not fit)."""
+    where the planes fit on chip, else a tiled launch (rof_tiled) and the
+    finish a chunk, (x, q) and the scratch taking turns; "resident",
+    "tiled" or "streaming" asks for one ("resident" and "tiled" raise
+    where they cannot launch)."""
     _check(x, q, f, w, scal, 13, count, dataterm)
     if stepsize not in STEPSIZES:
         raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
@@ -647,14 +970,13 @@ def rof_multichunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
         return halo_into(state, prev, out[:5], scal, 13), out[5]
     nx, ny = x.shape
     dev = x.device
-    resident = pick_path(path, resident_ok(
-        nx, ny, dataterm, *card_limits(dev, True), multi=True),
-        "rof_multichunk")
+    route = pick_route(path, nx, ny, dataterm, count, dev, True,
+                       "rof_multichunk")
     sc = scalar_buffer(scal, 13, S_CONV, S_LEN)
     partial = torch.empty(4 * _lib().prost_rof_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     _launch_multichunk(state, prev, f.contiguous(), w.contiguous(), sc,
-                       partial, _scratch(resident, nx, ny, dev), resident,
+                       partial, _scratch(route[0], nx, ny, dev), route,
                        count, k_chunks, dataterm, stepsize, consts)
     return sc[S_NORM:S_NORM + 4], torch.stack([sc[i] for i in SOUT])
 
@@ -662,19 +984,32 @@ def rof_multichunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
 class ROFMultichunk(LightMultichunk):
     """The ROF route's light call of the multichunk: ``rof_multichunk_`` on
     the views (x, q) of the run's own x, y, x_prev and y_prev, its path
-    ``resident_ok(..., multi=True)``."""
+    ``route_of(..., multi=True)`` unless ``path`` asks for one (``route``:
+    (path, tile)); ``resident`` whether that path is the grid-resident
+    launch."""
 
     _inplace = staticmethod(rof_multichunk_)
-    _launch = staticmethod(_launch_multichunk)
+    route = None  # (path, tile) on a card
+
+    def __init__(self, m, count: int, k_chunks: int, stepsize: str, device,
+                 path=None):
+        self.path = path
+        super().__init__(m, count, k_chunks, stepsize, device)
 
     def _card(self, device):
         m = self.m
         nx, ny = m["nx"], m["ny"]
-        resident = resident_ok(nx, ny, m["dataterm"],
-                               *card_limits(device, True), multi=True)
+        self.route = pick_route(self.path, nx, ny, m["dataterm"], self.count,
+                                device, True, "rof_multichunk")
         partial = torch.empty(4 * _lib().prost_rof_num_blocks(nx, ny),
                               dtype=torch.float32, device=device)
-        return resident, partial, _scratch(resident, nx, ny, device)
+        return (self.route[0] == "resident", partial,
+                _scratch(self.route[0], nx, ny, device))
+
+    def _launch(self, state, prev, f, w, sc, partial, scratch, resident,
+                *args):
+        _launch_multichunk(state, prev, f, w, sc, partial, scratch,
+                           self.route, *args)
 
 
 # ---------------------------------------------------------------------------

@@ -115,13 +115,17 @@ class RowOps:
     ``dxt`` (maskless: exact given a zero dead row), the masked adjoint
     ``dxt_masked`` (for duals that stay live on the global last row), the
     dead-dual projection ``project`` (q_x's global last row, q_y's last
-    column) and the norms' sum ``nsum``."""
+    column) and the norms' sum ``nsum``; and the column difference ``dy``
+    and its adjoint ``dyt``, the whole width's unless the planes are a
+    window of the plane's columns (the ROF tiled chunk's plain twin)."""
 
     dx: Callable
     dxt: Callable
     dxt_masked: Callable
     project: Callable
     nsum: Callable
+    dy: Callable = dy
+    dyt: Callable = dyt
 
 
 def dxt_masked(p):

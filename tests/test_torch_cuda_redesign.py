@@ -2112,3 +2112,229 @@ def test_tight_batched_rules_on_the_card(dev):
                [*views, *prev, *carried[:4], f, kron, sc, partial,
                 carried[4]], L, k, nx, nx, len(taps),
                *ft._consts10(consts), X, X, Y, Y, Y, 2, B)
+
+
+# ---------------------------------------------------------------------------
+# rows 6 and 5: the ROF chunk and multichunk tiled, for the planes no
+# grid-resident band holds (-k tiled)
+# ---------------------------------------------------------------------------
+
+def _tiled_paths(fn, state, data, *args, **kw):
+    """``fn`` (an in-place ROF chunk) on copies of ``state`` by the
+    streaming sequence and by the tiled launch: {path: (state, prev,
+    norms2)}, one launch each."""
+    out = {}
+    for path in ("streaming", "tiled"):
+        cur = [t.clone() for t in state]
+        prev = [torch.full_like(t, float("nan")) for t in state]
+        out[path] = cur + prev + [fn(*cur, *prev, *data, *args, path=path,
+                                     **kw).clone()]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("count", [1, 10])
+@pytest.mark.parametrize("dataterm", ["square", "wsquare", "abs"])
+@pytest.mark.parametrize("nx,ny", [(2048, 2048), (2048, 1536), (1000, 777),
+                                   (70, 53), (9, 300)])
+def test_rof_tiled_is_the_launch_sequence(dev, nx, ny, dataterm, count):
+    """The tiled chunk's planes, previous iterates and squared norms
+    bit-equal to the launch sequence's, from planes with mass on the dead
+    dual coordinates (1000x777, 70x53, 9x300: tiles that do not divide
+    the plane)."""
+    planes = _rof_planes(400 + nx + count, nx, ny, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0], device=dev)
+    before = fr.launch_counts["rof_chunk"]
+    out = _tiled_paths(fr.rof_chunk_, planes[:2], planes[2:], scal, count,
+                       dataterm)
+    assert fr.launch_counts["rof_chunk"] == before + 2
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    assert bool((out["tiled"][-1] > 0).all())
+
+
+@pytest.mark.parametrize("dataterm", ["square", "wsquare"])
+@pytest.mark.parametrize("rank,shards", [(0, 1), (0, 2), (1, 2), (3, 4)])
+def test_rof_tiled_halo_is_the_launch_sequence(dev, rank, shards, dataterm):
+    """2048x2048 cut into bands (ri 10, halo 22; one shard's band is 2092
+    rows): every band's tiled launch is its streaming sequence, bit for bit
+    in the planes, the previous iterates and the owned-row norms."""
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    planes = _rof_planes(410 + rank, 2048, 2048, dev)
+    ri, rows, H = 10, 2048 // shards, 22
+    lo = rank * rows - H
+    ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+    scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0, lo, H, H + rows],
+                        device=dev)
+    out = _tiled_paths(fr.rof_chunk_halo_, ext[:2], ext[2:], scal, ri, 2048,
+                       dataterm)
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tile", [(8, 32), (64, 64), (160, 32), (16, 224)])
+def test_rof_tiled_any_tile_is_the_launch_sequence(dev, tile):
+    """The launch with tiles other than the rule's (thin, square, tall,
+    wide) gives the same bits: the halo, not the tile, keeps a window
+    exact."""
+    planes = _rof_planes(420, 700, 500, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0], device=dev)
+    lib = fr._lib()
+    out = {}
+    for path in ("streaming", "tiled"):
+        cur = [t.clone() for t in planes[:2]]
+        prev = [torch.full_like(t, float("nan")) for t in cur]
+        sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+        partial = cur[0].new_empty(4 * lib.prost_rof_num_blocks(700, 500))
+        route = (path, tile if path == "tiled" else None)
+        fr._launch_chunk("rof_chunk", cur, prev, *planes[2:], sc, partial,
+                         fr._scratch(path, 700, 500, dev), route, 10,
+                         "square")
+        out[path] = cur + prev + [sc[15:19].clone()]
+    torch.cuda.synchronize()
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+
+
+def _tiled_multichunks(x, q, f, w, scal, count, k_chunks, dataterm,
+                       stepsize):
+    nx, ny = x.shape
+    out = {}
+    for path in ("streaming", "tiled"):
+        cur = [x.clone(), q.clone()]
+        prev = [torch.full_like(t, float("nan")) for t in cur]
+        norms, sout = fr.rof_multichunk_(*cur, *prev, f, w, scal, count,
+                                         k_chunks, dataterm, stepsize,
+                                         _rof_mc_consts(nx, ny), path=path)
+        out[path] = cur + prev + [norms.clone(), sout.clone()]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("stepsize", ["alg1", "boyd", "goldstein"])
+@pytest.mark.parametrize("nx,ny,ri,k,dataterm", [
+    (2048, 2048, 10, 8, "square"), (2048, 1536, 10, 3, "wsquare"),
+    (1000, 777, 3, 5, "abs"), (70, 53, 2, 3, "square")])
+def test_rof_multichunk_tiled_is_the_launch_sequence(dev, nx, ny, ri, k,
+                                                     dataterm, stepsize):
+    """Every chunk runs (tolerance 0), an even and an odd number of them:
+    the tiled launches' planes, previous iterates, norms and sout bit-equal
+    to the launch sequence's."""
+    x, q, f, w = _rof_planes(430 + ri, nx, ny, dev)
+    out = _tiled_multichunks(x, q, f, w, _rof_mc_scal(0.0, dev), ri, k,
+                             dataterm, stepsize)
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    assert out["tiled"][5][5:].tolist() == [0.0, float(k)]
+
+
+@pytest.mark.parametrize("nx,ny", [(2048, 2048), (300, 257)])
+def test_rof_multichunk_tiled_converging_mid_launch(dev, nx, ny):
+    """From a solve's start (x = f, q = 0) boyd converges partway through
+    the launch, after an odd and after an even number of chunks at two
+    tolerances of a list: bit-equal to the sequence each time, the result
+    copied back where the scratch holds it."""
+    f = _rof_planes(440, nx, ny, dev)[2]
+    parity = set()
+    for tol in (2e-2, 1e-2, 5e-3, 2e-3, 1e-3, 5e-4, 2e-4):
+        out = _tiled_multichunks(f, torch.zeros((2, nx, ny), device=dev), f,
+                                 f, _rof_mc_scal(tol, dev, 1.0, 1.0), 10, 8,
+                                 "square", "boyd")
+        for a, b in zip(out["streaming"], out["tiled"]):
+            assert torch.equal(a, b)
+        sout = out["tiled"][5]
+        if float(sout[5]) == 1.0 and 1 <= float(sout[6]) < 8:
+            parity.add(int(sout[6]) % 2)
+    assert parity, "no tolerance converged mid-launch"
+
+
+def test_rof_tiled_with_the_flag_leaves_the_buffers(dev):
+    x, q, f, w = _rof_planes(441, 2048, 1536, dev)
+    cur = [x.clone(), q.clone()]
+    prev = [t + 1.0 for t in cur]
+    before = [t.clone() for t in cur + prev]
+    norms2 = fr.rof_chunk_(*cur, *prev, f, w,
+                           torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0, 1.0],
+                                        device=dev), 10, path="tiled")
+    norms, sout = fr.rof_multichunk_(*cur, *prev, f, w,
+                                     _rof_mc_scal(1e-3, dev, conv=1.0), 10,
+                                     8, "square", "boyd",
+                                     _rof_mc_consts(2048, 1536),
+                                     path="tiled")
+    torch.cuda.synchronize()
+    assert not norms2.any() and not norms.any()
+    assert sout[5:].tolist() == [1.0, 0.0]
+    for a, b in zip(cur + prev, before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dataterm", ["square", "wsquare"])
+def test_rof_tiled_light_calls_on_the_card(dev, dataterm):
+    """``ROFChunk`` and ``ROFMultichunk`` at 2048x2048 take the tiled path
+    and leave in the run's own planes what ``rof_chunk_`` and
+    ``rof_multichunk_`` leave, twice in a row from the state they left,
+    and with the flag set nothing."""
+    x, q, f, w = _rof_planes(442, 2048, 2048, dev)
+    m = _rof_route_match(dev, f, w, dataterm, 1e-4)
+    chunk = fr.ROFChunk(m, 10, dev)
+    multi = fr.ROFMultichunk(m, 10, 8, "boyd", dev)
+    assert chunk.route[0] == multi.route[0] == "tiled"
+    assert not chunk.resident and not multi.resident
+    cur, prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
+    want_cur, want_prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
+    for tau, conv in ((0.9, 0.0), (1.1, 0.0), (1.1, 1.0)):
+        got = chunk(cur, prev, f, w, torch.tensor(tau, device=dev),
+                    torch.tensor(1.1, device=dev),
+                    torch.tensor(1.0, device=dev),
+                    torch.tensor(conv > 0, device=dev))
+        scal = torch.tensor([tau, 1.1, 1.0, 16.0, 1.0, conv], device=dev)
+        want = fr.rof_chunk_(*want_cur, *want_prev, f, w, scal, 10, dataterm,
+                             path="streaming")
+        for a, b in zip(cur + prev + [got], want_cur + want_prev + [want]):
+            assert torch.equal(a, b)
+    steps = (0.9, 1.1, 1.0, 0.5, 0.0, 0.0)
+    for it in (1, 81):
+        got = multi(cur, prev, *(torch.tensor(v, device=dev) for v in steps),
+                    torch.tensor(it, device=dev),
+                    torch.tensor(False, device=dev))
+        scal = torch.tensor(list(steps[:3]) + [16.0, 1.0] + list(steps[3:])
+                            + [float(it)] + [1e-4] * 4 + [0.0], device=dev)
+        want = fr.rof_multichunk_(*want_cur, *want_prev, f, w, scal, 10, 8,
+                                  dataterm, "boyd", m["adapt_consts"],
+                                  path="streaming")
+        for a, b in zip(cur + prev + list(got),
+                        want_cur + want_prev + list(want)):
+            assert torch.equal(a, b)
+
+
+def test_rof_tiled_rules_on_the_card(dev):
+    """The card's limits send the 2048x2048 and 2048x1536 chunks and
+    multichunks and the 2092-row band to the tiled launch; a chunk of 40
+    iterations, whose halo no window holds, streams; asking for the tiled
+    launch there raises, and so does a tile the C side refuses."""
+    sms, tsmem = fr.card_sms(dev), fr.tiled_limit(dev)
+    assert tsmem >= 227 * 1024
+    for multi in (False, True):
+        limits = fr.card_limits(dev, multi)
+        for nx, ny in ((2048, 1536), (2048, 2048), (2092, 2048)):
+            assert fr.route_of(nx, ny, "wsquare", 10, *limits, tsmem,
+                               multi) == "tiled"
+    assert fr.route_of(2048, 2048, "wsquare", 40, *fr.card_limits(dev),
+                       tsmem) == "streaming"
+    x, q, f, w = _rof_planes(443, 2048, 2048, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0], device=dev)
+    with pytest.raises(ptt.ProstError, match="no tile"):
+        fr.rof_chunk_(x, q, x.clone(), q.clone(), f, w, scal, 40,
+                      dataterm="wsquare", path="tiled")
+    lib = fr._lib()
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = x.new_empty(4 * lib.prost_rof_num_blocks(2048, 2048))
+    for tile in ((12, 32), (8, 48), (256, 256)):  # not 8x32 tiles; too big
+        with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+            launch(lib, "prost_rof_chunk_tiled", "rof_chunk",
+                   fr.launch_counts, dev,
+                   [x, q, x.clone(), q.clone(), f, w, sc, partial,
+                    x.new_empty(3, 2048, 2048)], 2048, 2048, 0, 10, 0,
+                   *tile)
+    assert sms == torch.cuda.get_device_properties(dev).multi_processor_count
