@@ -22,10 +22,18 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    launches and traced device ms; the chunk's time by tile and at counts
    1 and 10;
 3. the same for the ADMM kernels: ``admm_chunk`` with the Chebyshev and
-   the CGLS projection at 512x512 and 2048x2048 for the three data terms
-   (ri = 10), ``admm_multichunk`` at 512x512 (k = 8, ri = 10) without a
-   stop and with tolerances under which rho adapts, and time both versions
-   at 512x512;
+   the CGLS projection at 512x512 and 2048x2048 (tiled with the Chebyshev
+   projection) for the three data terms (ri = 10), ``admm_multichunk`` at
+   512x512 (k = 8, ri = 10) without a stop and with tolerances under which
+   rho adapts, and time both versions at 512x512; and row 11 tiled
+   (``phase_tiled_admm``, run after phase 15's grid-resident launches):
+   ``admm_chunk_`` at 2048x2048 (ri 10 and an odd
+   count of 3) and 1000x777, ``admm_multichunk_`` at those planes every
+   chunk run and, from a solve's start, with rho adapting before a
+   partway convergence (a pending dual rescale other than 1), each
+   bit-equal to the streaming launch sequence and within the tolerances
+   of the plain versions; both paths' light calls in turns with their
+   launches and traced device ms;
 4. solve ROF denoising at 512x512 through the modeling API with the fused
    PDHG route (boyd, residual_iter = 10), count the kernels' launches in
    that run, and hold its energy against the generic PDHG path on the same
@@ -121,12 +129,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    the fused multilabel route at 512x512x8, of the deblur route at
    2048x2048, of the tight route at 512x512x4 and of the volumetric route
    at 512x512x8, where the JAX package bands its kernels: every kernel
-   launches, the state stays on the card and finite; the ROF route's
-   chunks and multichunks tiled (their tiled launches are the kernels
-   line's), its solve in turns with the streaming sequence (it/s, equal
-   energies); the first call of each route's light calls that still
-   stream there (rows 11, 14, 16, 19, 22, 27, 28; row 7 from phase 11's
-   1280x1280 instances) replayed under the profiler beside its bound;
+   launches, the state stays on the card and finite; the ROF and the
+   Chebyshev ADMM routes' chunks and multichunks tiled (their tiled
+   launches are the kernels line's), each solve in turns with the
+   streaming sequence (it/s, equal energies); the first call of each
+   route's light calls that still stream there (rows 14, 16, 19, 22, 27,
+   28; row 7 from phase 11's 1280x1280 instances) replayed under the
+   profiler beside its bound;
 15. the halo chunks of spatial sharding at full width (ROF 512x512, ml and
    vol 256x256x8, ri = 10, halo 22 rows): bands of 1, 2 and 4 shards cut
    from the whole plane with zeros beyond its edges (what the halo
@@ -408,9 +417,9 @@ def vol_chunk_ops(nvox, ri, chunks=1):
 def single_launches(mod):
     """The launch counts of a route module's single-instance kernels (its
     batched and halo chunks, if it has them, run on the ensemble and the
-    sharded paths only; the ROF chunk's and multichunk's tiled launches,
-    counted also under their wrappers, on the planes no grid-resident band
-    holds only)."""
+    sharded paths only; the ROF and ADMM chunks' and multichunks' tiled
+    launches, counted also under their wrappers, on the planes no
+    grid-resident band holds only)."""
     return {k: v for k, v in mod.launch_counts.items()
             if not k.endswith(("_batched", "_halo", "_tiled"))}
 
@@ -780,9 +789,12 @@ def traced_call(fn):
     fn()
     torch.cuda.synchronize()
     events = []
-    for _ in range(5):  # a trace that caught no hand-written kernel is
-        # taken again (the card's tracer has been seen to lose a call's
-        # events three times in a row)
+    for attempt in range(12):  # a trace that caught no hand-written
+        # kernel is taken again, after a pause from the second retry on
+        # (the card's tracer has been seen to lose a call's events five
+        # times in a row)
+        if attempt > 1:
+            time.sleep(0.2)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -791,6 +803,9 @@ def traced_call(fn):
                         key=lambda e: e.time_range.start)
         if any(kernel_name(e.name) in ours for e in events):
             break
+        print(f"traced_call: trace {attempt + 1} caught {len(events)} "
+              f"device events, none of a hand-written kernel "
+              f"{[kernel_name(e.name) for e in events[:4]]}")
     mine = [e for e in events if kernel_name(e.name) in ours]
     other = [e for e in events if kernel_name(e.name) not in ours]
     return {"csrc": [kernel_name(e.name) for e in mine],
@@ -1213,12 +1228,13 @@ def rof_model(nx, ny, f, lmb):
     return prob
 
 
-def recording(kind, opts, generic=None, rof_path=None):
+def recording(kind, opts, generic=None, rof_path=None, admm_path=None):
     """``Backend(kind, opts)`` as a user gets it from ``backend_pdhg`` /
     ``backend_admm`` (or, with ``generic``, that generic backend class),
     recording after every callback epoch the devices of the solver state's
-    tensors and the time spent iterating; with ``rof_path``, the fused ROF
-    route's light calls made beforehand on that path."""
+    tensors and the time spent iterating; with ``rof_path``
+    (``admm_path``), the fused ROF route's (fused Chebyshev ADMM route's)
+    light calls made beforehand on that path."""
     import torch
 
     from prost_tpu_torch.modeling import Backend
@@ -1239,6 +1255,19 @@ def recording(kind, opts, generic=None, rof_path=None):
                 b.rof["multi"] = fr.ROFMultichunk(
                     b.rof, ri, K_CHUNKS, self.opts.stepsize, dev,
                     path=rof_path)
+            if admm_path is not None:
+                import prost_tpu_torch as ptt
+                from prost_tpu_torch.ops import fused_admm as fa
+                from prost_tpu_torch.ops.phases import K_CHUNKS
+
+                o, dev = b.run_opts, ptt.device()
+                ri = max(int(o.residual_iter), 1)
+                b.rof["chunk"] = fa.ADMMChunk(b.rof, ri, o.alpha,
+                                              o.cheby_degree, dev,
+                                              path=admm_path)
+                b.rof["call"] = fa.ADMMMultichunk(
+                    b.rof, ri, K_CHUNKS, o.alpha, o.cheby_degree, dev,
+                    path=admm_path)
             self.made, self.devices, self.loop_s = b, set(), 0.0
             run = b.run
 
@@ -3338,6 +3367,226 @@ def phase_tiled_rof(dev):
     return rows
 
 
+def phase_tiled_admm(dev):
+    """Row 11 tiled (``admm_tiled``: a cooperative launch a chunk over
+    overlapping 2-D windows of the planes, a grid barrier an iteration)
+    against the streaming launch sequences it replaces at the planes no
+    grid-resident band holds, Chebyshev degree 10: ``admm_chunk_`` at
+    2048x2048 (square, wsquare, abs at ri 10, square at an odd count of 3)
+    and 1000x777 (tiles that do not divide it; square, abs), from planes
+    with mass on the dead duals: planes and squared norms bit-equal, and
+    within PLANE_ATOL / NORM_RTOL of the plain versions;
+    ``admm_multichunk_`` at 2048x2048 (8 chunks of ri 10, square; 3 chunks
+    of an odd count of 3, wsquare) and 1000x777 (3 chunks, abs), every
+    chunk run, and from a solve's start (x_half = f = the test image) at
+    tolerances at which rho adapts (a pending dual rescale other than 1
+    folded into a later chunk's loads) and the multichunk converges
+    partway, at counts 10 and 3: planes, norms and sout bit-equal, and the
+    solve's start within PLANE_ATOL / MC_NORM_RTOL of the plain version;
+    each path's light call (``ADMMChunk``, ``ADMMMultichunk``) in place on
+    buffers made once, in turns (streaming, tiled, tiled, streaming), with
+    the hand-written kernels each launches per call and their traced device
+    ms; the functional wrappers' calls and the plain versions timed for
+    the kernels line, beside the bound and the design's floor of one pass
+    over device memory an iteration."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_admm as fa
+
+    ri, alpha, degree = 10, 1.7, 10
+    rows = {"admm_chunk_tiled": {"err": 0.0},
+            "admm_multichunk_tiled": {"err": 0.0}}
+    sms, tsmem = fa.admm_card_limits(dev)[0], fa.admm_tiled_limit(dev)
+    scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+
+    def consts_of(nx, ny):
+        return (np.sqrt(2 * nx * ny), np.sqrt(nx * ny), 0.8, 1.01)
+
+    def mscal(tol, rho=1.0):
+        return torch.tensor([rho, ROF_LMB, 1.0, 1.05, 0.0, 0.0, 0.0, tol, tol,
+                             tol, tol], device=dev)
+
+    def both(label, fn, planes, data, *args):
+        """``fn`` in place on copies of ``planes`` by each path: the tiled
+        outputs, checked bit-equal to the streaming ones."""
+        got = {}
+        for path in ("streaming", "tiled"):
+            cur = [t.clone() for t in planes]
+            out = fn(*cur, *data, *args, path=path)
+            out = list(out) if isinstance(out, tuple) else [out]
+            got[path] = cur + [t.clone() for t in out]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                      got["tiled"]))
+              and all(bool(torch.isfinite(t).all()) for t in got["tiled"]),
+              f"{label}: the tiled launch is not the launch sequence")
+        return got["tiled"]
+
+    def against_plain(label, out, ref, norm_tol):
+        plane, rel = max_errs(out, ref, n_planes=7)
+        print(f"{label}: against the plain version max abs err planes "
+              f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms "
+              f"{rel:.3e} (tol {norm_tol:g})")
+        check(plane <= PLANE_ATOL and rel <= norm_tol,
+              f"{label} disagrees with its plain version")
+        return plane
+
+    seed = 900
+    for nx, ny, count, terms in ((2048, 2048, ri, ("square", "wsquare",
+                                                   "abs")),
+                                 (2048, 2048, 3, ("square",)),
+                                 (1000, 777, ri, ("square", "abs"))):
+        for dataterm in terms:
+            *planes, f, w = admm_kernel_inputs(nx, ny, seed, dev)
+            seed += 1
+            route = fa.admm_pick_route(None, nx, ny, dataterm, degree, dev,
+                                       "admm_chunk")
+            check(route[0] == "tiled", f"admm_chunk_ {nx}x{ny} {dataterm}: "
+                  f"the shape rule takes {route}")
+            label = (f"admm_chunk_ {nx}x{ny} {dataterm} count {count}, tile "
+                     f"{route[1]}")
+            out = both(label, fa.admm_chunk_, planes, [f, w], scal, None,
+                       count, 0, alpha, dataterm, degree)
+            print(f"{label}: tiled bit-equal to the launch sequence in the "
+                  "planes and the squared norms")
+            err = against_plain(label, out, fa.admm_chunk_plain(
+                *planes, f, w, scal, None, count, 0, alpha, dataterm,
+                degree), NORM_RTOL)
+            rows["admm_chunk_tiled"]["err"] = max(
+                rows["admm_chunk_tiled"]["err"], err)
+
+    for nx, ny, count, k, dataterm in ((2048, 2048, ri, 8, "square"),
+                                       (2048, 2048, 3, 3, "wsquare"),
+                                       (1000, 777, ri, 3, "abs")):
+        *planes, f, w = admm_kernel_inputs(nx, ny, seed, dev)
+        seed += 1
+        label = (f"admm_multichunk_ {nx}x{ny} {dataterm}, {k} chunks of "
+                 f"{count}")
+        out = both(label, fa.admm_multichunk_, planes, [f, w],
+                   mscal(0.0, 1.3), count, k, alpha, degree,
+                   consts_of(nx, ny), dataterm)
+        check(out[8][5].item() == k, f"{label}: not every chunk ran")
+        print(f"{label}: tiled bit-equal to the launch sequence in the "
+              "planes, the norms and sout")
+
+    # from a solve's start: rho adapts before the last executed chunk (its
+    # rescale folded into the next chunk's loads) and the launch converges
+    # partway
+    nx = ny = 2048
+    n = nx * ny
+    fimg = torch.from_numpy(test_image(nx, ny)).to(dev)
+    zero = torch.zeros_like(fimg)
+    z = torch.zeros((2, nx, ny), device=dev)
+    start = [fimg, zero, zero, z, z, z, zero]
+    for count in (ri, 3):
+        seen = []
+        for tol in (2e-2, 1e-2, 5e-3, 2e-3, 1e-3, 5e-4, 2e-4):
+            out = both(f"admm_multichunk_ {nx}x{ny} from a solve's start, "
+                       f"count {count}, tol {tol:g}", fa.admm_multichunk_,
+                       start, [fimg, fimg], mscal(tol), count, 8, alpha,
+                       degree, consts_of(nx, ny))
+            sout = out[8].tolist()
+            done = int(sout[5])
+            # at most one adaptation a chunk, each by delta >= 1.05 (delta
+            # grows): a rho beyond 1.05^1.5 adapted at least twice, so at
+            # least once before the last executed chunk
+            twice = abs(np.log(sout[0])) > 1.5 * np.log(1.05)
+            if sout[4] == 1.0 and done < 8 and twice:
+                seen.append((tol, done, sout[0]))
+            if len(seen) == 2:
+                break
+        check(seen, f"admm_multichunk_ {nx}x{ny} count {count}: no tolerance "
+              "adapted rho before a partway convergence")
+        print(f"admm_multichunk_ {nx}x{ny} from a solve's start, count "
+              f"{count}: tiled bit-equal to the launch sequence, rho adapted "
+              f"before the last executed chunk and converging partway at "
+              f"(tolerance, chunks, rho) {seen}")
+    sc = mscal(0.0)
+    out = fa.admm_multichunk(*start, fimg, fimg, sc, ri, 8, alpha, degree,
+                             consts_of(nx, ny))
+    rows["admm_multichunk_tiled"]["err"] = against_plain(
+        f"admm_multichunk {nx}x{ny}, 8 chunks, from a solve's start", out,
+        fa.admm_multichunk_plain(*start, fimg, fimg, sc, ri, 8, alpha,
+                                 degree, consts_of(nx, ny)), MC_NORM_RTOL)
+
+    # the light calls in place, in turns
+    *planes, f, w = admm_kernel_inputs(nx, ny, 990, dev)
+    r = {"nx": nx, "ny": ny, "f": f, "w": w, "dataterm": "square",
+         "lmb_t": scal[1], "radius_t": scal[2],
+         "tols_t": tuple(torch.tensor(0.0, device=dev) for _ in range(4)),
+         "consts": consts_of(nx, ny)}
+    s4 = [torch.tensor(v, device=dev) for v in (1.3, 1.05, 0.0, 0.0)]
+    it0, flag = torch.tensor(0, device=dev), torch.tensor(False, device=dev)
+    turns = {}
+    for what, k in (("chunk", 1), ("multichunk", 8)):
+        calls = {}
+        for p in ("streaming", "tiled"):
+            buf = [t.clone() for t in planes]
+            if what == "chunk":
+                call = fa.ADMMChunk(r, ri, alpha, degree, dev, path=p)
+                calls[p] = (lambda c=call, b=buf: c(b, s4[0], flag))
+            else:
+                call = fa.ADMMMultichunk(r, ri, 8, alpha, degree, dev,
+                                         path=p)
+                calls[p] = (lambda c=call, b=buf: c(b, *s4, it0, flag))
+            check(call.route[0] == p, f"admm {what}: the light call took "
+                  f"{call.route}, not {p}")
+        (o1, o2), (t1, t2) = in_turns(calls["streaming"], calls["tiled"],
+                                      10 if k > 1 else 20)
+        # the fullest of three traces (the tracer may drop kernels)
+        ts, tt = (max((traced_call(calls[p]) for _ in range(3)),
+                      key=lambda t: len(t["csrc"]))
+                  for p in ("streaming", "tiled"))
+        check(set(tt["csrc"]) <= {"admm_tiled", "admm_finish",
+                                  "admm_tiled_settle"}
+              and tt["csrc"].count("admm_tiled") == k,
+              f"admm {what}: the tiled call launched {tt['csrc']}")
+        print(f"admm {what} {nx}x{ny} light call in place, in turns: "
+              f"streaming {o1:.4f} ms, tiled {t1:.4f}, tiled {t2:.4f}, "
+              f"streaming {o2:.4f} ms/call; traced device ms: streaming "
+              f"{ts['csrc_ms']:.4f} ({len(ts['csrc'])} hand-written "
+              f"launches), tiled {tt['csrc_ms']:.4f} ({len(tt['csrc'])}: "
+              f"{k} admm_tiled), PyTorch {tt['torch_ms']:.4f} ms in "
+              f"{tt['torch_kernels']} kernels")
+        turns[what] = {"streaming_ms": (o1, o2), "tiled_ms": (t1, t2),
+                       "device_ms": (ts["csrc_ms"], tt["csrc_ms"]),
+                       "launches": (len(ts["csrc"]), len(tt["csrc"]))}
+
+    # the kernels line: the functional wrappers at 2048x2048, square
+    r = rows["admm_chunk_tiled"]
+    timed(r, lambda: fa.admm_chunk(*planes, f, w, scal, None, ri, 0, alpha,
+                                   "square", degree), 20)
+    r["plain_ms"] = time_ms(lambda: fa.admm_chunk_plain(
+        *planes, f, w, scal, None, ri, 0, alpha, "square", degree), 3)
+    # xh, xp, xd, zh, zd, warm, f in and the seven state arrays out: 19
+    # planes; the design's floor reads 9 planes (f included) and writes 8
+    # an iteration, and reads 10 once for the norms
+    r["bound"] = bound(19 * n * 4, n * (ri * admm_iter_ops(degree)
+                                        + ADMM_NORM_OPS))
+    r["floor_ms"] = (17 * ri + 10) * n * 4 / HBM_BYTES_PER_S * 1e3
+    r = rows["admm_multichunk_tiled"]
+    timed(r, lambda: fa.admm_multichunk(*start, fimg, fimg, sc, ri, 8,
+                                        alpha, degree, consts_of(nx, ny)),
+          10)
+    r["plain_ms"] = time_ms(lambda: fa.admm_multichunk_plain(
+        *start, fimg, fimg, sc, ri, 8, alpha, degree, consts_of(nx, ny)), 2)
+    r["bound"] = bound(19 * n * 4, 8 * n * (ri * admm_iter_ops(degree)
+                                            + ADMM_NORM_OPS
+                                            + ADMM_RESCALE_OPS))
+    r["floor_ms"] = 8 * rows["admm_chunk_tiled"]["floor_ms"]
+    for name, r in rows.items():
+        check(r["traced"]["csrc"].count("admm_tiled") >= 1,
+              f"{name}: the wrapper did not launch admm_tiled")
+        print(f"{name} {nx}x{ny}: wrapper {r['ms']:.4f} ms/call (traced "
+              f"device {r['traced']['csrc_ms']:.4f} ms in "
+              f"{len(r['traced']['csrc'])} hand-written launches, PyTorch "
+              f"{r['traced']['torch_ms']:.4f}), plain {r['plain_ms']:.4f} "
+              f"ms/call, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), "
+              f"one pass an iteration {r['floor_ms']:.5f} ms")
+    rows["admm_chunk_tiled"]["turns"] = turns
+    return rows
+
+
 def phase_resident_kernels(dev):
     """Rows 17, 12, 20, 23 and 24 as grid-resident launches (one cooperative
     launch a chunk) against their streaming launch sequences, whole plane
@@ -5377,10 +5626,11 @@ def phase_large(card):
     512x512x8, the deblur route at 2048x2048, the tight route at 512x512x4
     and the volumetric route at 512x512x8 (the JAX package's banded sizes):
     300 iterations in two callback epochs, each reaching the multichunk
-    phase of the routes that have one; the PDHG ROF route's chunks and
-    multichunks on the tiled path (its launches returned for the kernels
-    line), and its solve in turns with the streaming sequence (tiled,
-    streaming, streaming, tiled: it/s, the energies equal)."""
+    phase of the routes that have one; the PDHG ROF route's and the
+    Chebyshev ADMM route's chunks and multichunks on the tiled path (their
+    launches returned for the kernels line), and each solve in turns with
+    the streaming sequence (tiled, streaming, streaming, tiled: it/s, the
+    energies equal)."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
     from prost_tpu_torch.ops import fused_admm as fa
     from prost_tpu_torch.ops import fused_deblur as fd
@@ -5392,69 +5642,54 @@ def phase_large(card):
     nx = ny = 2048
     lmb = 16.0
     f = test_image(nx, ny).reshape(-1)
-    ri, n = 10, nx * ny
+    ri = 10
+    tiled = {}
     for kind, opts, mod in (
             ("pdhg", PDHGOptions(stepsize="boyd", residual_iter=10), fr),
             ("admm", ADMMOptions(residual_iter=10), fa)):
         mod.reset_launch_counts()
-        with first_calls(fa.ADMMChunk, fa.ADMMMultichunk) as seen:
-            res, backend, dt = timed_solve(recording(kind, opts), nx, ny, f,
-                                           lmb, 300, num_cback_calls=2)
+        res, backend, dt = timed_solve(recording(kind, opts), nx, ny, f, lmb,
+                                       300, num_cback_calls=2)
         launches = single_launches(mod)
         check(all(v > 0 for v in launches.values()),
               f"a {kind} kernel was not launched at 2048x2048: {launches}")
-        path = ""
         if kind == "pdhg":
             routes = (backend.made.rof["multi"].route,
                       backend.made.rof["call"].route)
-            tiled = {k: fr.launch_counts[k]
-                     for k in ("rof_chunk_tiled", "rof_multichunk_tiled")}
-            check(all(r[0] == "tiled" for r in routes)
-                  and all(v > 0 for v in tiled.values()),
-                  f"the 2048x2048 ROF multichunk and chunk did not run "
-                  f"tiled: {routes}, {tiled}")
-            path = (f" (multichunk and chunk on the tiled path, tiles "
-                    f"{routes[0][1]} and {routes[1][1]}; tiled launches "
-                    f"{tiled})")
-            e_tiled = rof_energy(res.x, f, lmb, nx, ny)
-        if kind == "admm":
-            check(not backend.made.rof["call"].resident
-                  and not backend.made.rof["chunk"].resident,
-                  "the shape rule made the 2048x2048 multichunk or chunk "
-                  "resident")
-            path = " (multichunk and chunk on the streaming path)"
-            deg = (seen["ADMMChunk"][0].degree if "ADMMChunk" in seen
-                   else opts.cheby_degree)
-            banded_row("11 chunk", f"admm_chunk {nx}x{ny} (degree {deg})",
-                       seen, "ADMMChunk", 19 * n * 4,
-                       n * (ri * admm_iter_ops(deg) + ADMM_NORM_OPS))
-            banded_row("11 multichunk",
-                       f"admm_multichunk {nx}x{ny} (degree {deg}, 8 chunks)",
-                       seen, "ADMMMultichunk", 19 * n * 4,
-                       8 * n * (ri * admm_iter_ops(deg) + ADMM_NORM_OPS
-                                + ADMM_RESCALE_OPS))
-        e = rof_energy(res.x, f, lmb, nx, ny)
-        print(f"fused {kind} solve 2048x2048{path}: "
-              f"{rates(res, backend, dt)}; energy {e:.6f}, launches "
-              f"{launches} [{card}]")
-        if kind == "pdhg":
-            rof_tiled = tiled
-            turns = []
-            for p in ("tiled", "streaming", "streaming", "tiled"):
-                res, backend, dt = timed_solve(recording(kind, opts,
-                                                         rof_path=p),
-                                               nx, ny, f, lmb, 300,
-                                               num_cback_calls=2)
-                check(backend.made.rof["call"].route[0] == p,
-                      f"the 2048x2048 ROF solve did not take the {p} path")
-                check(rof_energy(res.x, f, lmb, nx, ny) == e_tiled,
-                      f"the {p} 2048x2048 ROF solve's energy is not the "
-                      "tiled one's")
-                turns.append(res.iterations / backend.loop_s)
-            print(f"fused pdhg solve 2048x2048 in turns, iterating it/s: "
-                  f"tiled {turns[0]:.1f}, streaming {turns[1]:.1f}, "
-                  f"streaming {turns[2]:.1f}, tiled {turns[3]:.1f}; the four "
-                  f"energies equal [{card}]")
+            names = ("rof_chunk_tiled", "rof_multichunk_tiled")
+        else:
+            routes = (backend.made.rof["call"].route,
+                      backend.made.rof["chunk"].route)
+            names = ("admm_chunk_tiled", "admm_multichunk_tiled")
+        counted = {k: mod.launch_counts[k] for k in names}
+        check(all(r[0] == "tiled" for r in routes)
+              and all(v > 0 for v in counted.values()),
+              f"the 2048x2048 {kind} multichunk and chunk did not run "
+              f"tiled: {routes}, {counted}")
+        tiled.update(counted)
+        e_tiled = rof_energy(res.x, f, lmb, nx, ny)
+        print(f"fused {kind} solve 2048x2048 (multichunk and chunk on the "
+              f"tiled path, tiles {routes[0][1]} and {routes[1][1]}; tiled "
+              f"launches {counted}): {rates(res, backend, dt)}; energy "
+              f"{e_tiled:.6f}, launches {launches} [{card}]")
+        turns = []
+        for p in ("tiled", "streaming", "streaming", "tiled"):
+            paths = ({"rof_path": p} if kind == "pdhg"
+                     else {"admm_path": p})
+            res, backend, dt = timed_solve(recording(kind, opts, **paths),
+                                           nx, ny, f, lmb, 300,
+                                           num_cback_calls=2)
+            key = "call" if kind == "pdhg" else "chunk"
+            check(backend.made.rof[key].route[0] == p,
+                  f"the 2048x2048 {kind} solve did not take the {p} path")
+            check(rof_energy(res.x, f, lmb, nx, ny) == e_tiled,
+                  f"the {p} 2048x2048 {kind} solve's energy is not the "
+                  "tiled one's")
+            turns.append(res.iterations / backend.loop_s)
+        print(f"fused {kind} solve 2048x2048 in turns, iterating it/s: "
+              f"tiled {turns[0]:.1f}, streaming {turns[1]:.1f}, "
+              f"streaming {turns[2]:.1f}, tiled {turns[3]:.1f}; the four "
+              f"energies equal [{card}]")
 
     nx = ny = ML_LARGE
     L = ML_LABELS
@@ -5562,7 +5797,7 @@ def phase_large(card):
           f"{rates(res, backend, dt)}; energy {e:.6f}, launches {launches} "
           f"[{card}]")
     print("banded rows still streaming: " + json.dumps(BANDED))
-    return rof_tiled
+    return tiled
 
 
 # ---------------------------------------------------------------------------
@@ -6145,6 +6380,7 @@ def main() -> int:
     resident.update(phase(phase_resident_chunk_multi, dev))
     resident.update(phase(phase_resident_rof, dev))
     resident.update(phase(phase_resident_ml_halo, dev))
+    rows.update(phase(phase_tiled_admm, dev))
     launches, e_pdhg, d_pdhg = phase(phase_solve, card)
     admm_launches, e_admm = phase(phase_admm_solve, card, e_pdhg, d_pdhg)
     launches.update(admm_launches)
@@ -6209,6 +6445,9 @@ def main() -> int:
         "rof_chunk_tiled": ("fused_rof", "prost_tpu/ops/fused_rof.py:722"),
         "rof_multichunk_tiled": ("fused_rof",
                                  "prost_tpu/ops/fused_rof.py:988"),
+        "admm_chunk_tiled": ("fused_admm", "prost_tpu/ops/fused_admm.py:812"),
+        "admm_multichunk_tiled": ("fused_admm",
+                                  "prost_tpu/ops/fused_admm.py:812"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -5,12 +5,13 @@
 //   prost_tpu/ops/fused_admm.py  admm_fused_multichunk -> _admm_multichunk_kernel
 //   prost_tpu/ops/fused_admm.py  admm_banded_iter
 //                                -> _admm_banded_kernel, _admm_banded_db_kernel
+//   prost_tpu/ops/fused_admm.py  admm_banded_chunk     -> _admm_banded_chunk_kernel
 // whose math is _admm_iter, _cgls_masked, _cheby_project, _admm_norms and
-// admm_adapt_scalars in the same file.  The planes live in device memory at
-// any size, so the same kernels also take the place of the banded route for
-// planes beyond a TPU core's VMEM (admm_banded_chunk ->
-// _admm_banded_chunk_kernel).  The plain PyTorch versions live beside the
-// wrappers in prost_tpu_torch/ops/fused_admm.py.
+// admm_adapt_scalars in the same file.  The last, the banded route for
+// planes beyond a TPU core's VMEM, becomes the tiled chunk (admm_tiled,
+// further down) for planes whose bands no grid-resident launch holds.  The
+// plain PyTorch versions live beside the wrappers in
+// prost_tpu_torch/ops/fused_admm.py.
 //
 // Halo mode (spatial sharding, admm_banded_iter on a shard).  One outer
 // Chebyshev iteration on one halo-extended shard of a row-partitioned plane,
@@ -23,10 +24,11 @@
 // iteration.  The whole-plane launches are the case (0, nx, 0, nx) of the
 // same arithmetic.  The halo iteration runs as one cooperative launch
 // (admm_iter_coop), its steps separated by grid barriers; the chunk and
-// the multichunk run the launch sequence of iteration() unless their
-// planes fit in the shared memory of one block per SM, where each runs as
-// one grid-resident cooperative launch (admm_chunk_resident,
-// admm_multichunk_resident; the CGLS chunk always as the sequence).
+// the multichunk run as one grid-resident cooperative launch
+// (admm_chunk_resident, admm_multichunk_resident) where their planes fit
+// in the shared memory of one block per SM, else as tiled cooperative
+// launches (admm_tiled) where a tile's window does, else as the launch
+// sequence of iteration() (the CGLS chunk always as the sequence).
 //
 // Layout (the JAX package's): x-like planes (nx, ny) row-major f32; z-like
 // arrays are two such planes back to back, [zx; zy].
@@ -94,7 +96,7 @@ enum {
 
 enum { DT_SQUARE = 0, DT_WSQUARE = 1, DT_ABS = 2 };
 enum { OP_NORMS = 0, OP_ADAPT = 1, OP_CG_INIT = 2, OP_CG_ALPHA = 3,
-       OP_CG_BETA = 4 };
+       OP_CG_BETA = 4, OP_ADAPT_HOLD = 5 };
 
 constexpr int BX = 32;
 constexpr int BY = 8;
@@ -218,13 +220,18 @@ __device__ __forceinline__ float ckt_at(const float* v, const State& b,
   return C_K * ((vxm - v[p]) + (vym - v[n + p]));
 }
 
+// Whether row i's x-part duals are the dead ones (the global last row).
+__device__ __forceinline__ bool dead_row(const State& b, int i) {
+  return i + b.rows.off == b.rows.nxg - 1;
+}
+
 // Launch seed: the dead z coordinates (zx's last row, zy's last column)
 // zeroed, as _admm_chunk_kernel does at entry; every later step keeps them
 // zero, which makes the maskless adjoints exact.
 // Bound: memory, a row and a column of three arrays.
 __device__ __forceinline__ void seed_at(const State& b, int i, int j) {
   size_t n = b.zn, p = (size_t)i * b.ny + j;
-  if (i + b.rows.off == b.rows.nxg - 1) b.zh[p] = b.zp[p] = b.zd[p] = 0.f;
+  if (dead_row(b, i)) b.zh[p] = b.zp[p] = b.zd[p] = 0.f;
   if (j == b.ny - 1) b.zh[n + p] = b.zp[n + p] = b.zd[n + p] = 0.f;
 }
 
@@ -439,6 +446,42 @@ __device__ __forceinline__ UpdScal upd_scal(const float* sc) {
   return UpdScal{tl, 1.f / (1.f + tl), sc[S_RADIUS] * (2.f / rho)};
 }
 
+// The update's new values at a pixel from x_proj there, t1, z_proj (x_proj's
+// forward differences), t2, f and (wsquare) w: x_dual, z_dual, prox_g of
+// the data term and the 2-vector shrink of prox_f.
+struct Upd {
+  float xh, xd, zhx, zhy, zdx, zdy;
+};
+
+__device__ __forceinline__ Upd update_val(float xpn, float t1, float zpx,
+                                          float zpy, float t2x, float t2y,
+                                          float fv, float wv, int dataterm,
+                                          const UpdScal& k) {
+  float xdn = SQRT_T * t1 - xpn;
+  float zdx = t2x * INV_SQRT_S - zpx;
+  float zdy = t2y * INV_SQRT_S - zpy;
+
+  // prox_g with effective step Tau / rho = 1 / (4 rho)
+  const float tl = k.tl;
+  float arg = xpn - xdn;
+  float xhn;
+  if (dataterm == DT_SQUARE) {
+    xhn = (arg + tl * fv) * k.inv_tl;
+  } else if (dataterm == DT_WSQUARE) {
+    float tw = tl * wv;
+    xhn = (arg + tw * fv) / (1.f + tw);
+  } else {  // abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
+    float dv = arg - fv;
+    xhn = arg - fminf(fmaxf(dv, -tl), tl);
+  }
+
+  // prox_f: shrink the 2-vector by radius * 2 / rho (inverted step)
+  float zax = zpx - zdx, zay = zpy - zdy;
+  float nrm = sqrtf(zax * zax + zay * zay);
+  float scale = fmaxf(nrm - k.shrink, 0.f) / (nrm > 0.f ? nrm : 1.f);
+  return Upd{xhn, xdn, zax * scale, zay * scale, zdx, zdy};
+}
+
 __device__ __forceinline__ void update_at(const State& b,
                                           const float* __restrict__ v,
                                           int dataterm, int i, int j,
@@ -459,40 +502,20 @@ __device__ __forceinline__ void update_at(const State& b,
     float uo = v ? b.x[o] + v[o] : b.x[o];
     zpy = SQRT_T * (uo + b.t1[o]) - xpn;
   }
-  float xdn = SQRT_T * t1 - xpn;
   float t2x = SQRT_S * (b.zh[p] + b.zd[p]);
   float t2y = SQRT_S * (b.zh[n + p] + b.zd[n + p]);
-  float zdx = t2x * INV_SQRT_S - zpx;
-  float zdy = t2y * INV_SQRT_S - zpy;
-
-  // prox_g with effective step Tau / rho = 1 / (4 rho)
-  const float tl = k.tl;
-  float arg = xpn - xdn;
-  float xhn;
-  if (dataterm == DT_SQUARE) {
-    xhn = (arg + tl * b.f[p]) * k.inv_tl;
-  } else if (dataterm == DT_WSQUARE) {
-    float tw = tl * b.w[p];
-    xhn = (arg + tw * b.f[p]) / (1.f + tw);
-  } else {  // abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
-    float dv = arg - b.f[p];
-    xhn = arg - fminf(fmaxf(dv, -tl), tl);
-  }
-
-  // prox_f: shrink the 2-vector by radius * 2 / rho (inverted step)
-  float zax = zpx - zdx, zay = zpy - zdy;
-  float nrm = sqrtf(zax * zax + zay * zay);
-  float scale = fmaxf(nrm - k.shrink, 0.f) / (nrm > 0.f ? nrm : 1.f);
-
-  b.xh[p] = xhn;
+  const Upd o = update_val(xpn, t1, zpx, zpy, t2x, t2y, b.f[p],
+                           dataterm == DT_WSQUARE ? b.w[p] : 0.f, dataterm,
+                           k);
+  b.xh[p] = o.xh;
   b.xp[p] = xpn;
-  b.xd[p] = xdn;
-  b.zh[p] = zax * scale;
-  b.zh[n + p] = zay * scale;
+  b.xd[p] = o.xd;
+  b.zh[p] = o.zhx;
+  b.zh[n + p] = o.zhy;
   b.zp[p] = zpx;
   b.zp[n + p] = zpy;
-  b.zd[p] = zdx;
-  b.zd[n + p] = zdy;
+  b.zd[p] = o.zdx;
+  b.zd[n + p] = o.zdy;
   b.warm[p] = u;
 }
 
@@ -576,6 +599,9 @@ struct AdaptConsts {
 //   OP_ADAPT     admm_adapt_scalars, the same f32 operations in the same
 //                order, with it = it0 + `aux` (the chunk's post-increment
 //                counter offset); sqrt'd norms, S_FAC, S_DONE, S_CONV;
+//   OP_ADAPT_HOLD  OP_ADAPT for the tiled multichunk, except that where
+//                the flag is set at entry S_FAC keeps the factor the last
+//                executed chunk still owes (admm_tiled_settle applies it);
 //   OP_CG_INIT   gamma0, norms0 and the first step's done flag;
 //   OP_CG_ALPHA  alpha = gamma / delta;
 //   OP_CG_BETA   beta, gamma and the next step's done flag, with the
@@ -601,8 +627,9 @@ __device__ __forceinline__ void finish_at(float (*red)[FIN],
       return;
     }
   }
+  const bool adapt = op == OP_ADAPT || op == OP_ADAPT_HOLD;
   int slot0 = op == OP_CG_BETA ? 1 : 0;
-  int nsum = op == OP_CG_BETA ? 2 : (op <= OP_ADAPT ? 4 : 1);
+  int nsum = op == OP_CG_BETA ? 2 : (op == OP_NORMS || adapt ? 4 : 1);
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int blk = t; blk < nblocks; blk += FIN)
     for (int k = 0; k < nsum; ++k) acc[k] += partial[PS * blk + slot0 + k];
@@ -617,7 +644,7 @@ __device__ __forceinline__ void finish_at(float (*red)[FIN],
 
   if (op == OP_NORMS) {
     for (int k = 0; k < 4; ++k) sc[S_NORM + k] = red[k][0];
-  } else if (op == OP_ADAPT) {
+  } else if (adapt) {
     float pr = sqrtf(red[0][0]), pn = sqrtf(red[1][0]);
     float dr = sqrtf(red[2][0]), dn = sqrtf(red[3][0]);
     float it = sc[S_IT] + aux;
@@ -1247,6 +1274,370 @@ __global__ void __launch_bounds__(RES_THREADS, 1)
   band_store(g, d);  // the state back to device memory, once
 }
 
+// ---------------------------------------------------------------------------
+// The tiled Chebyshev chunk and multichunk (admm_banded_chunk ->
+// _admm_banded_chunk_kernel), for planes whose bands no grid-resident launch
+// holds (2048x2048).  The TPU kernel runs one launch a chunk, its grid
+// (count, n_bands), iterations outer: each step DMAs one band's
+// halo-extended window of the state into VMEM, runs one iteration there and
+// writes the owned rows into the other slot of a ping-pong pair in HBM.
+//
+// What bounds it.  An iteration's reach is degree + 1 pixels (the halo
+// below), so no window that fuses the ten iterations of a chunk fits in a
+// block's 227 KB: each iteration is one pass over device memory, about 9
+// planes of 16.8 MB read (with the windows' overlap) and 8 written at
+// 2048x2048, some 0.09 ms at the card's memory rate; the launch sequence
+// moves about 80 plane passes an iteration in 12 launches.  Inside the
+// window the Chebyshev steps are stencils over shared memory.
+//
+// Design.  One cooperative launch a chunk, one block of AT_THREADS on each
+// SM (32 rows of 32 threads), a grid barrier between iterations: iteration
+// t reads slot t mod 2 (slot A the caller's planes, slot B the launch
+// sequence's 8 scratch planes) and writes the other.  The blocks walk the
+// plane's tiles (tx rows, a multiple of 8, by ty columns, of 32); a tile's
+// window is the tile and h = degree + 1 pixels on every side, clamped at
+// the plane's edges (ops/fused_admm.py admm_tiled_halo: u = x + v is exact
+// degree pixels inside a window side that lies in the plane, z_proj one
+// pixel less below and right; tests/test_torch_tiled_admm.py holds the
+// plain twin exact with h and not with h - 1).  In shared memory five
+// planes of the window, no more, which take these values in turn:
+//   1. cp.async loads of xh, xp, xd, zh, zd (x parts), then of the y parts
+//      and warm, combined pixel by pixel into t1 (T), t2 (R, V0) and warm
+//      (X); the dead duals zeroed (admm_seed) and, in a multichunk's later
+//      chunk, x_dual and z_dual times the rescale they still owe (S_FAC,
+//      admm_rescale's product);
+//   2. d = t2 - c_K grad t1 in place (admm_rhs);
+//   3. r = c_K grad^T d - M(warm) into V1, x = warm, then v = r / theta into
+//      V0 (cheby_init);
+//   4. the degree - 1 steps, v between V0 and R (cheby_step);
+//   5. u = x + v into X, x_proj = sqrt(Tau) (u + t1) into the free
+//      direction plane;
+//   6. the update of the owned pixels (update_val, t2 read again from the
+//      slot) into the other slot, z_proj into the caller's planes on the
+//      chunk's last iteration only (no iteration reads it).
+// Every mask is decided by the pixel's place in the plane (the State's
+// Rows), never by its place in the window; a neighbour outside the window
+// inside the plane is taken as 0, which only pixels outside the exact
+// region read.  The per-pixel expressions are the launch sequence's (t1_at,
+// rhs_dx, ckt_at, m_at, cheby_step_val, update_at), so the planes are its
+// own bit for bit.  After the last iteration and a grid barrier the
+// blocks reduce admm_norm_partial's 32x8 tiles of the written slot
+// (norm_terms_at, block_partial's tree, four tiles at a time) for the
+// finish: the norms are the launch sequence's bit for bit too.  A chunk is
+// this launch, admm_finish's OP_NORMS and, after an odd count, the copy
+// back (admm_tiled_settle); a multichunk is k_chunks launches, each
+// followed by admm_finish's OP_ADAPT_HOLD, the next chunk's loads applying
+// the rescale the adaptation decided, and one settle that applies the last
+// executed chunk's rescale (and copies slot B back where it ended there).
+// A launch made after convergence returns at once.
+// ---------------------------------------------------------------------------
+
+constexpr int AT_THREADS = 1024;  // a block: 32 rows of 32 threads
+constexpr int AT_ROWS = AT_THREADS / BX;
+constexpr int AT_PLANES = 5;
+constexpr int AT_RED = (AT_THREADS / NT) * 4 * NT;  // the norm pass's trees
+
+// The dynamic shared memory of a block of the tiled launch (mirrored by
+// ops/fused_admm.py admm_tiled_bytes).
+inline size_t admm_tiled_smem(int tx, int ty, int degree) {
+  const size_t h = 2 * ((size_t)degree + 1);
+  const size_t planes = (size_t)AT_PLANES * (tx + h) * (ty + h);
+  return (planes > (size_t)AT_RED ? planes : (size_t)AT_RED) * sizeof(float);
+}
+
+// A 4-byte copy from device to shared memory that does not wait
+// (cp.async, sm_80 and later), and the wait for all of a thread's copies;
+// a plain copy where the source is compiled for the host.
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(s)),
+               "l"(g)
+               : "memory");
+#else
+  *s = *g;
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// A window: rows [r0, r0 + wh) and columns [c0, c0 + ww) of the plane, the
+// owned tile its rows [oi0, oi1) and columns [oj0, oj1).
+struct AWin {
+  int r0, c0, wh, ww;
+  int oi0, oi1, oj0, oj1;
+};
+
+// m_at on a window plane of row stride ww at window pixel (wi, wj), plane
+// pixel (i, j).
+__device__ __forceinline__ float m_win(const float* v, const State& b,
+                                       const AWin& a, int wi, int wj, int i,
+                                       int j, int p) {
+  const int ww = a.ww;
+  float c = v[p];
+  float gxm =
+      wi > 0 && above(b, i) && below(b, i - 1) ? c - v[p - ww] : 0.f;
+  float gx = wi < a.wh - 1 && below(b, i) ? v[p + ww] - c : 0.f;
+  float gym = wj > 0 && j > 0 ? c - v[p - 1] : 0.f;
+  float gy = wj < ww - 1 && j < b.ny - 1 ? v[p + 1] - c : 0.f;
+  return c + C2 * ((gxm - gx) + (gym - gy));
+}
+
+// The window's pixels, a row of 32 threads to a window row.
+#define FOR_WINDOW(a, wi, wj)                                            \
+  for (int wi = threadIdx.x / BX; wi < (a).wh; wi += AT_ROWS)            \
+    for (int wj = threadIdx.x % BX; wj < (a).ww; wj += BX)
+
+// One iteration on tile `tile` of the tiles of tx x ty: the window from
+// slot `src`, the owned pixels into slot `dst` (z_proj into dst.zp with
+// `last`); `scale` applies `fac` to x_dual and z_dual as they are loaded.
+__device__ __forceinline__ void tiled_iteration(
+    const State& src, const State& dst, float* smem, float alpha, float oma,
+    int dataterm, int degree, const float* __restrict__ coeffs, int tile,
+    int tx, int ty, bool scale, float fac, bool last, const UpdScal& us) {
+  const int nx = src.nx, ny = src.ny;
+  const size_t n = (size_t)nx * ny;
+  const int h = degree + 1;
+  const int ntc = (ny + ty - 1) / ty;
+  const int R0 = tile / ntc * tx, C0 = tile % ntc * ty;
+  const int R1 = min(R0 + tx, nx), C1 = min(C0 + ty, ny);
+  AWin a;
+  a.r0 = max(R0 - h, 0);
+  a.c0 = max(C0 - h, 0);
+  a.wh = min(R1 + h, nx) - a.r0;
+  a.ww = min(C1 + h, ny) - a.c0;
+  a.oi0 = R0 - a.r0;
+  a.oi1 = R1 - a.r0;
+  a.oj0 = C0 - a.c0;
+  a.oj1 = C1 - a.c0;
+  const int m = a.wh * a.ww, ww = a.ww;
+  float* T = smem;
+  float* X = smem + m;
+  float* R = smem + 2 * m;
+  float* V0 = smem + 3 * m;
+  float* V1 = smem + 4 * m;
+
+  // 1. t1, t2 and warm
+  FOR_WINDOW(a, wi, wj) {
+    const int p = wi * ww + wj;
+    const size_t g = (size_t)(a.r0 + wi) * ny + a.c0 + wj;
+    cp_async4(T + p, src.xh + g);
+    cp_async4(X + p, src.xp + g);
+    cp_async4(R + p, src.xd + g);
+    cp_async4(V0 + p, src.zh + g);
+    cp_async4(V1 + p, src.zd + g);
+  }
+  cp_async_wait();
+  FOR_WINDOW(a, wi, wj) {
+    const int p = wi * ww + wj;
+    const float xd = scale ? R[p] * fac : R[p];
+    T[p] = ((alpha * T[p] + oma * X[p]) + xd) * INV_SQRT_T;
+    const float zd = scale ? V1[p] * fac : V1[p];
+    R[p] = dead_row(src, a.r0 + wi) ? 0.f : SQRT_S * (V0[p] + zd);
+  }
+  __syncthreads();  // X, V0 and V1 read before the next copies land
+  FOR_WINDOW(a, wi, wj) {
+    const int p = wi * ww + wj;
+    const size_t g = (size_t)(a.r0 + wi) * ny + a.c0 + wj;
+    cp_async4(V0 + p, src.zh + n + g);
+    cp_async4(V1 + p, src.zd + n + g);
+    cp_async4(X + p, src.warm + g);
+  }
+  cp_async_wait();
+  FOR_WINDOW(a, wi, wj) {
+    const int p = wi * ww + wj;
+    const float zd = scale ? V1[p] * fac : V1[p];
+    V0[p] = a.c0 + wj == ny - 1 ? 0.f : SQRT_S * (V0[p] + zd);
+  }
+  __syncthreads();
+
+  // 2. d = t2 - c_K grad t1 in place of t2
+  FOR_WINDOW(a, wi, wj) {
+    const int p = wi * ww + wj, i = a.r0 + wi, j = a.c0 + wj;
+    const float t1 = T[p];
+    const float gx = wi < a.wh - 1 && below(src, i) ? T[p + ww] - t1 : 0.f;
+    const float gy = wj < ww - 1 && j < ny - 1 ? T[p + 1] - t1 : 0.f;
+    R[p] = R[p] - C_K * gx;
+    V0[p] = V0[p] - C_K * gy;
+  }
+  __syncthreads();
+
+  // 3. r = c_K grad^T d - M(warm); x = warm stays in X
+  FOR_WINDOW(a, wi, wj) {
+    const int p = wi * ww + wj, i = a.r0 + wi, j = a.c0 + wj;
+    const float vxm = wi > 0 && above(src, i) ? R[p - ww] : 0.f;
+    const float vym = wj > 0 && j > 0 ? V0[p - 1] : 0.f;
+    const float rhs = C_K * ((vxm - R[p]) + (vym - V0[p]));
+    V1[p] = rhs - m_win(X, src, a, wi, wj, i, j, p);
+  }
+  __syncthreads();
+  FOR_WINDOW(a, wi, wj) {
+    const int p = wi * ww + wj;
+    V0[p] = V1[p] * INV_THETA;
+  }
+  __syncthreads();
+
+  // 4. the degree - 1 Chebyshev steps
+  float* cur = V0;
+  float* nxt = R;
+  for (int s = 0; s < degree - 1; ++s) {
+    const float cp = coeffs[2 * s], cr = coeffs[2 * s + 1];
+    FOR_WINDOW(a, wi, wj) {
+      const int p = wi * ww + wj, i = a.r0 + wi, j = a.c0 + wj;
+      const float vv = cur[p];
+      const float x = X[p] + vv;
+      const float r = V1[p] - m_win(cur, src, a, wi, wj, i, j, p);
+      X[p] = x;
+      V1[p] = r;
+      nxt[p] = cp * vv + cr * r;
+    }
+    __syncthreads();
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+
+  // 5. u = x + v, x_proj = sqrt(Tau) (u + t1)
+  FOR_WINDOW(a, wi, wj) {
+    const int p = wi * ww + wj;
+    const float u = X[p] + cur[p];
+    X[p] = u;
+    nxt[p] = SQRT_T * (u + T[p]);
+  }
+  __syncthreads();
+
+  // 6. the owned pixels' update into the other slot
+  const float* xp = nxt;
+  for (int wi = a.oi0 + (int)threadIdx.x / BX; wi < a.oi1; wi += AT_ROWS)
+    for (int wj = a.oj0 + (int)threadIdx.x % BX; wj < a.oj1; wj += BX) {
+      const int p = wi * ww + wj, i = a.r0 + wi, j = a.c0 + wj;
+      const size_t g = (size_t)i * ny + j;
+      const float xpn = xp[p];
+      const float zpx = below(src, i) ? xp[p + ww] - xpn : 0.f;
+      const float zpy = j < ny - 1 ? xp[p + 1] - xpn : 0.f;
+      float t2x = 0.f, t2y = 0.f;
+      if (!dead_row(src, i)) {
+        const float zd = scale ? src.zd[g] * fac : src.zd[g];
+        t2x = SQRT_S * (src.zh[g] + zd);
+      }
+      if (j < ny - 1) {
+        const float zd = scale ? src.zd[n + g] * fac : src.zd[n + g];
+        t2y = SQRT_S * (src.zh[n + g] + zd);
+      }
+      const Upd o = update_val(
+          xpn, T[p], zpx, zpy, t2x, t2y, __ldg(src.f + g),
+          dataterm == DT_WSQUARE ? __ldg(src.w + g) : 0.f, dataterm, us);
+      dst.xh[g] = o.xh;
+      dst.xp[g] = xpn;
+      dst.xd[g] = o.xd;
+      dst.zh[g] = o.zhx;
+      dst.zh[n + g] = o.zhy;
+      dst.zd[g] = o.zdx;
+      dst.zd[n + g] = o.zdy;
+      dst.warm[g] = X[p];
+      if (last) {
+        dst.zp[g] = zpx;
+        dst.zp[n + g] = zpy;
+      }
+    }
+}
+
+// `count` iterations from slot `start` (0: A, the caller's planes; 1: B),
+// then admm_norm_partial's tiles of the slot written last.  `pending`: the
+// planes owe sc[S_FAC] on x_dual and z_dual (a multichunk's later chunk).
+// sb.zp is sa.zp.
+__global__ void __launch_bounds__(AT_THREADS, 1)
+    admm_tiled(State sa, State sb, float alpha, float oma, int dataterm,
+               int degree, const float* __restrict__ coeffs, int count,
+               int start, int pending, int tx, int ty) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (conv_set(sa.sc)) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  const int nx = sa.nx, ny = sa.ny;
+  const float fac = sa.sc[S_FAC];
+  const UpdScal us = upd_scal(sa.sc);
+  const int nwin = ((nx + tx - 1) / tx) * ((ny + ty - 1) / ty);
+  for (int it = 0; it < count; ++it) {
+    const bool b_in = ((start + it) & 1) != 0;
+    const State& src = b_in ? sb : sa;
+    const State& dst = b_in ? sa : sb;
+    for (int tile = blockIdx.x; tile < nwin; tile += gridDim.x) {
+      tiled_iteration(src, dst, smem, alpha, oma, dataterm, degree, coeffs,
+                      tile, tx, ty, pending && it == 0, fac,
+                      it == count - 1, us);
+      __syncthreads();  // the next window overwrites the planes
+    }
+    grid.sync();
+  }
+
+  // admm_norm_partial's tiles, four at a time (block_partial's tree)
+  const State& fin = ((start + count) & 1) ? sb : sa;
+  const int ntx = (ny + BX - 1) / BX;
+  const int ntiles = (nx + BY - 1) / BY * ntx;
+  const int group = threadIdx.x / NT, t = threadIdx.x % NT;
+  const int groups = AT_THREADS / NT;
+  float* red = smem + group * 4 * NT;  // red[k * NT + t]
+  for (int base = groups * blockIdx.x; base < ntiles;
+       base += groups * gridDim.x) {
+    const int tile = base + group;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (tile < ntiles) {
+      int i = tile / ntx * BY + t / BX, j = tile % ntx * BX + t % BX;
+      if (i < nx && j < ny && i >= fin.rows.own_lo && i < fin.rows.own_hi)
+        norm_terms_at(fin, i, j, v);
+    }
+    for (int k = 0; k < 4; ++k) red[k * NT + t] = v[k];
+    __syncthreads();
+    for (int s = NT / 2; s > 0; s >>= 1) {
+      if (t < s)
+        for (int k = 0; k < 4; ++k) red[k * NT + t] += red[k * NT + t + s];
+      __syncthreads();
+    }
+    if (t == 0 && tile < ntiles)
+      for (int k = 0; k < 4; ++k) fin.partial[PS * tile + k] = red[k * NT];
+    __syncthreads();  // the next pass overwrites red
+  }
+}
+
+// After a tiled chunk (multi 0) whose flag was not set at entry and whose
+// count was odd: slot B's state into the caller's planes.  After a tiled
+// multichunk (multi 1) that ran a chunk: the last executed chunk's dual
+// rescale, x_dual and z_dual times sc[S_FAC] (admm_rescale's product),
+// from slot B where its last iteration wrote there (an odd total count).
+__global__ void admm_tiled_settle(State sa, State sb, int count, int multi) {
+  const float* sc = sa.sc;
+  const int done = multi ? (int)sc[S_DONE] : (sc[S_CONV] != 0.f ? 0 : 1);
+  if (done == 0) return;
+  const bool from_b = (((long long)done * count) & 1) != 0;
+  if (!from_b && !multi) return;
+  const float fac = sc[S_FAC];
+  const State& s = from_b ? sb : sa;
+  const size_t n = (size_t)sa.nx * sa.ny;
+  for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < n;
+       k += (size_t)gridDim.x * blockDim.x) {
+    if (from_b) {
+      sa.xh[k] = s.xh[k];
+      sa.xp[k] = s.xp[k];
+      sa.zh[k] = s.zh[k];
+      sa.zh[n + k] = s.zh[n + k];
+      sa.warm[k] = s.warm[k];
+    }
+    float xd = s.xd[k], zdx = s.zd[k], zdy = s.zd[n + k];
+    if (multi) {
+      xd = xd * fac;
+      zdx = zdx * fac;
+      zdy = zdy * fac;
+    }
+    sa.xd[k] = xd;
+    sa.zd[k] = zdx;
+    sa.zd[n + k] = zdy;
+  }
+}
+
 #define LAUNCH_CHECK()                                  \
   do {                                                  \
     cudaError_t e_ = cudaGetLastError();                \
@@ -1516,6 +1907,79 @@ int resident_launch(K kernel, void** args, int& rmax, int nx, int ny,
   return 0;
 }
 
+// The dynamic shared memory a block of the tiled launch may opt into on
+// the current device (the opt-in limit less its static shared memory), or
+// minus the error.
+int admm_tiled_limit() {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, (const void*)admm_tiled);
+  if (e != cudaSuccess) return -(int)e;
+  return optin - (int)a.sharedSizeBytes;
+}
+
+// Slot B of the tiled launch: xh, xp, xd, zh (2), zd (2) and warm in the 8
+// scratch planes; z_proj, which only the last iteration writes, is the
+// caller's.
+State slot_b(const State& a, void* scratch) {
+  const size_t n = (size_t)a.nx * a.ny;
+  float* s = (float*)scratch;
+  State b = a;
+  b.xh = s;
+  b.xp = s + n;
+  b.xd = s + 2 * n;
+  b.zh = s + 3 * n;
+  b.zd = s + 5 * n;
+  b.warm = s + 7 * n;
+  return b;
+}
+
+// One tiled launch of `count` iterations from slot `start`: one block of
+// AT_THREADS on each SM; a tile that is not a multiple of the 32x8 norm
+// tiles or whose window does not fit in a block's shared memory is refused
+// with cudaErrorInvalidValue, a grid the card cannot hold at once by the
+// card (cudaErrorCooperativeLaunchTooLarge).
+int tiled_launch(State& a, State& b, float alpha, float oma, int dataterm,
+                 int degree, const float* cf, int count, int start,
+                 int pending, int tx, int ty, cudaStream_t st) {
+  if (tx < BY || tx % BY || ty < BX || ty % BX || degree < 1 || count < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = admm_tiled_smem(tx, ty, degree);
+  const int limit = admm_tiled_limit();
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)admm_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, admm_tiled,
+                                                      AT_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&a, &b, &alpha, &oma, &dataterm, &degree, &cf,
+                  &count, &start, &pending, &tx, &ty};
+  e = cudaLaunchCooperativeKernel((const void*)admm_tiled, dim3(sms),
+                                  dim3(AT_THREADS), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  LAUNCH_CHECK();
+  return 0;
+}
+
+int tiled_settle(const State& a, const State& b, int count, int multi,
+                 cudaStream_t st) {
+  admm_tiled_settle<<<264, 512, 0, st>>>(a, b, count, multi);
+  LAUNCH_CHECK();
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1576,6 +2040,77 @@ int prost_admm_chunk_resident(void* xh, void* xp, void* xd, void* zh,
   return resident_launch(admm_chunk_resident, args, rmax, nx, ny, dataterm,
                          (cudaStream_t)stream);
 }
+
+// admm_banded_chunk's counterpart for planes no grid-resident band holds:
+// the arguments of prost_admm_chunk_resident and the owned tile (tx rows,
+// a multiple of 8; ty columns, of 32), `scratch` of 8 planes (slot B).  One
+// tiled cooperative launch (admm_tiled), admm_finish's OP_NORMS and, after
+// an odd count, the copy back (admm_tiled_settle).  Bit-equal to
+// prost_admm_chunk in the 7 state arrays and the 4 squared norms.  No-op
+// when sc[S_CONV] is set.  A tile the launch cannot take is refused
+// (cudaErrorInvalidValue, or the card's refusal of the cooperative
+// launch).
+int prost_admm_chunk_tiled(void* xh, void* xp, void* xd, void* zh, void* zp,
+                           void* zd, void* warm, const void* f,
+                           const void* w, void* scratch, void* sc,
+                           void* partial, int nx, int ny, int count,
+                           int dataterm, int degree, const void* coeffs,
+                           float alpha, float oma, int tx, int ty,
+                           void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  State a = state_of(xh, xp, xd, zh, zp, zd, warm, f, w, scratch, sc,
+                     partial, nx, ny);
+  State b = slot_b(a, scratch);
+  if (int rc = tiled_launch(a, b, alpha, oma, dataterm, degree,
+                            (const float*)coeffs, count, 0, 0, tx, ty, st))
+    return rc;
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f};
+  admm_finish<<<1, FIN, 0, st>>>(a.sc, a.partial, num_blocks(nx, ny),
+                                 OP_NORMS, 0, 0.f, nullptr, 0, none);
+  LAUNCH_CHECK();
+  return count & 1 ? tiled_settle(a, b, count, 0, st) : 0;
+}
+
+// admm_fused_multichunk by tiled launches: the arguments of
+// prost_admm_multichunk_resident and the owned tile, `scratch` of 8 planes
+// (slot B).  Chunk c is a tiled launch from slot (c count) mod 2, its
+// loads applying the rescale chunk c - 1 decided, and admm_finish's
+// OP_ADAPT_HOLD; then admm_tiled_settle.  Bit-equal to
+// prost_admm_multichunk in the 7 state arrays, the norms and sout (S_FAC
+// ends as the last executed chunk's factor, not -1).  Refuses a tile as
+// prost_admm_chunk_tiled does.
+int prost_admm_multichunk_tiled(void* xh, void* xp, void* xd, void* zh,
+                                void* zp, void* zd, void* warm,
+                                const void* f, const void* w, void* scratch,
+                                void* sc, void* partial, int nx, int ny,
+                                int count, int k_chunks, int dataterm,
+                                int degree, const void* coeffs, float alpha,
+                                float oma, float sqrt_nrows,
+                                float sqrt_ncols, float arb_tau,
+                                float arb_gamma, int tx, int ty,
+                                void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  State a = state_of(xh, xp, xd, zh, zp, zd, warm, f, w, scratch, sc,
+                     partial, nx, ny);
+  State b = slot_b(a, scratch);
+  AdaptConsts c = {sqrt_nrows, sqrt_ncols, arb_tau, arb_gamma};
+  for (int ch = 0; ch < k_chunks; ++ch) {
+    if (int rc = tiled_launch(a, b, alpha, oma, dataterm, degree,
+                              (const float*)coeffs, count,
+                              (int)(((long long)ch * count) & 1), ch > 0,
+                              tx, ty, st))
+      return rc;
+    admm_finish<<<1, FIN, 0, st>>>(a.sc, a.partial, num_blocks(nx, ny),
+                                   OP_ADAPT_HOLD, 0,
+                                   (float)((ch + 1) * count), nullptr, 0, c);
+    LAUNCH_CHECK();
+  }
+  return tiled_settle(a, b, count, 1, st);
+}
+
+// The dynamic shared memory a block of the tiled launch may hold on the
+// current device, or minus the error.
+int prost_admm_tiled_smem() { return admm_tiled_limit(); }
 
 // The blocks of admm_iter_halo's cooperative launch on the current device,
 // or minus the error that refuses it.

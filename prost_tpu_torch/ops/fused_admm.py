@@ -16,17 +16,19 @@ Three kernels carry the routes, each a hand-written CUDA kernel set in
   inner projection by masked CGLS or by a degree-d Chebyshev iteration,
   and the four squared residual norms of the last one; with the Chebyshev
   projection on a card one grid-resident cooperative launch where
-  ``admm_resident_ok`` holds, the launch sequence otherwise (and always
-  with CGLS), bit-equal; its in-place form ``admm_chunk_`` serves the
-  route's light call ``ADMMChunk``, made once per route;
+  ``admm_resident_ok`` holds (512x512), else one tiled cooperative launch
+  where ``admm_tiled_ok`` holds (2048x2048: JAX ``admm_banded_chunk``),
+  else the launch sequence (and always with CGLS), bit-equal; its
+  in-place form ``admm_chunk_`` serves the route's light call
+  ``ADMMChunk``, made once per route;
 * ``admm_multichunk`` (JAX ``admm_fused_multichunk``): up to ``k_chunks``
   Chebyshev chunks with the Boyd rho adaptation, the dual rescale and the
   stopping test on the device between chunks; on a card one grid-resident
-  cooperative launch where the shape rule (``admm_resident_ok``) finds that
-  its planes fit in the shared memory of one block per SM (512x512), the
-  launch sequence otherwise, bit-equal; its in-place form
-  ``admm_multichunk_`` serves the route's light call ``ADMMMultichunk``,
-  made once per route;
+  cooperative launch where its planes fit in the shared memory of one
+  block per SM, else a tiled launch a chunk with the adaptation between
+  them on the device, else the launch sequence (the shape rule
+  ``admm_route_of``), bit-equal; its in-place form ``admm_multichunk_``
+  serves the route's light call ``ADMMMultichunk``, made once per route;
 * ``admm_iter_halo`` (JAX ``admm_banded_iter`` on a shard): one Chebyshev
   iteration in place on a halo-extended shard of a row-partitioned plane,
   with the owned rows' norms or without, the spatially sharded route's
@@ -34,10 +36,14 @@ Three kernels carry the routes, each a hand-written CUDA kernel set in
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no other route and no fallback,
-and the route is taken on any device.  Nor is there a size gate: the
-kernels keep their planes in device memory, so the JAX package's banded
-route for planes beyond a TPU core's VMEM (``admm_banded_chunk``) has no
-counterpart; the same kernels serve every size.
+and the route is taken on any device.  The tiled launch (``path="tiled"``)
+is the counterpart of the JAX package's banded chunk for planes beyond a
+TPU core's VMEM: each iteration is one pass over device memory, a block
+per SM walking overlapping 2-D windows of the planes (a tile and
+``admm_tiled_halo(degree)`` pixels on every side) with a grid barrier
+between iterations; its plain twins, ``admm_chunk_tiled_plain`` and
+``admm_multichunk_tiled_plain``, run the plain arithmetic window by
+window.
 
 The inner projection solves (I + c_K^2 grad^T grad) u = c_K grad^T d.  The
 Neumann-Laplacian spectrum [0, 8) puts that operator's spectrum in
@@ -64,12 +70,13 @@ from ..backend.admm import (ADMMState, BackendADMM, admm_residual_adapt,
                             cg_tolerance, dct_projection_plan)
 from ..backend.pdhg import hold_if
 from ..config import ProstError
-from .fused_rof import DATATERMS, _SQRT_S, _SQRT_T, match_rof_structure
+from .fused_rof import (DATATERMS, TILE_COLS, TILE_ROWS, _SQRT_S, _SQRT_T,
+                        _check_path, match_rof_structure, tile_partials,
+                        window_ops)
 from .pdhg_chunk import (CF, CI, PATHS, VP, WHOLE_PLANE, card_sms,
                          check_buffers, check_halo, dead_dual_flat, dx, dxt,
-                         dy, dyt, entry_converged, halo_row_ops, launch,
-                         pick_path, ptr, resident_rows, scalar_buffer,
-                         typed_lib)
+                         dy, dyt, entry_converged, halo_row_ops, launch, ptr,
+                         resident_rows, scalar_buffer, typed_lib)
 from .phases import K_CHUNKS, run_phases
 
 _C_K = _SQRT_S * _SQRT_T  # K~ = c_K * grad
@@ -85,9 +92,11 @@ _CHEB_SIGMA1 = _CHEB_THETA / _CHEB_DELTA
 _S_CONV, _S_DONE, _S_NORM, _S_LEN = 11, 12, 13, 24
 _SOUT = (0, 3, 4, 5, _S_CONV, _S_DONE)  # rho delta arb_l arb_u conv done
 
-# launches of each kernel wrapper on the card (CPU calls do not count)
+# launches of each kernel wrapper on the card (CPU calls do not count); a
+# tiled call also counts under "admm_chunk_tiled" / "admm_multichunk_tiled"
 launch_counts = {"admm_chunk": 0, "admm_multichunk": 0,
-                 "admm_iter_halo": 0}
+                 "admm_iter_halo": 0, "admm_chunk_tiled": 0,
+                 "admm_multichunk_tiled": 0}
 
 
 def reset_launch_counts() -> None:
@@ -174,9 +183,9 @@ def _cheby_project(d_x, d_y, u0, degree: int, rows=WHOLE_PLANE):
     c2 = _C_K * _C_K
 
     def M(u):
-        return u + c2 * (rows.dxt(rows.dx(u)) + dyt(dy(u)))
+        return u + c2 * (rows.dxt(rows.dx(u)) + rows.dyt(rows.dy(u)))
 
-    b = _C_K * (rows.dxt(d_x) + dyt(d_y))
+    b = _C_K * (rows.dxt(d_x) + rows.dyt(d_y))
     r = b - M(u0)
     x = u0
     d = r * (1.0 / _CHEB_THETA)
@@ -200,12 +209,12 @@ def _admm_iter(xh, xp, xd, zh, zp, zd, warm, f, w, project, rho, lmb,
 
     # graph projection: min ||K~ u - d||^2 + ||u||^2, warm-started
     d_x = t2_x - _C_K * rows.dx(t1)
-    d_y = t2_y - _C_K * dy(t1)
+    d_y = t2_y - _C_K * rows.dy(t1)
     u = project(d_x, d_y, warm)
 
     xp_n = _SQRT_T * (u + t1)
     zp_nx = rows.dx(xp_n)
-    zp_ny = dy(xp_n)
+    zp_ny = rows.dy(xp_n)
     xd_n = _SQRT_T * t1 - xp_n
     zd_nx = t2_x * _INV_SQRT_S - zp_nx
     zd_ny = t2_y * _INV_SQRT_S - zp_ny
@@ -235,24 +244,32 @@ def _admm_iter(xh, xp, xd, zh, zp, zd, warm, f, w, project, rho, lmb,
             (zd_nx, zd_ny), u)
 
 
-def _admm_norms(xh, xp, xd, zh, zp, zd, rho, rows=WHOLE_PLANE):
-    """The four SQUARED preconditioned residual norms of an ADMM iterate
-    with Sigma = 1/2, Tau = 1/4: |pr|^2, |pn|^2, |dr|^2, |dn|^2, summed by
-    ``rows.nsum`` (a halo-extended shard's: the owned rows)."""
+def _admm_norm_terms(xh, xp, xd, zh, zp, zd, rho, rows=WHOLE_PLANE):
+    """The per-pixel terms of the four squared residual norms of an ADMM
+    iterate with Sigma = 1/2, Tau = 1/4: |pr_x|^2, |pr_y|^2, |pn_x|^2,
+    |pn_y|^2, |dr|^2, |dn|^2 as planes."""
     pr_x = _SQRT_S * (rows.dx(xh) - zh[0])
-    pr_y = _SQRT_S * (dy(xh) - zh[1])
+    pr_y = _SQRT_S * (rows.dy(xh) - zh[1])
     pn_x = _SQRT_S * zh[0]
     pn_y = _SQRT_S * zh[1]
     wv = (-rho * 4.0) * (xh - xp + xd)             # -rho / Tau
     y_x = (-rho * 0.5) * (zh[0] - zp[0] + zd[0])   # -rho * Sigma
     y_y = (-rho * 0.5) * (zh[1] - zp[1] + zd[1])
-    kty = rows.dxt(y_x) + dyt(y_y)
+    kty = rows.dxt(y_x) + rows.dyt(y_y)
     dn = _SQRT_T * wv
     dr = _SQRT_T * (wv + kty)
+    return (pr_x * pr_x, pr_y * pr_y, pn_x * pn_x, pn_y * pn_y, dr * dr,
+            dn * dn)
+
+
+def _admm_norms(xh, xp, xd, zh, zp, zd, rho, rows=WHOLE_PLANE):
+    """The four SQUARED preconditioned residual norms of an ADMM iterate
+    with Sigma = 1/2, Tau = 1/4: |pr|^2, |pn|^2, |dr|^2, |dn|^2, summed by
+    ``rows.nsum`` (a halo-extended shard's: the owned rows)."""
+    t = _admm_norm_terms(xh, xp, xd, zh, zp, zd, rho, rows)
     nsum = rows.nsum
-    return (nsum(pr_x * pr_x) + nsum(pr_y * pr_y),
-            nsum(pn_x * pn_x) + nsum(pn_y * pn_y),
-            nsum(dr * dr), nsum(dn * dn))
+    return (nsum(t[0]) + nsum(t[1]), nsum(t[2]) + nsum(t[3]), nsum(t[4]),
+            nsum(t[5]))
 
 
 def admm_adapt_scalars(consts, tols4, it, rho, delta, arb_l, arb_u,
@@ -358,39 +375,43 @@ def admm_iter_halo_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal,
     return outs + (torch.where(conv, torch.zeros_like(norms2), norms2),)
 
 
-def admm_multichunk_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal,
-                          count: int, k_chunks: int, alpha: float,
-                          cheby_degree: int, consts,
-                          dataterm: str = "square"):
-    """Plain PyTorch version of ``admm_multichunk`` (any device): every
-    chunk is computed and kept only while not converged, where the JAX
-    kernel branches around it with ``lax.cond``."""
-    lmb, radius, it0 = scal[1], scal[2], scal[6]
+def _rescaled(planes, fac):
+    """The Boyd dual rescale of a chunk's planes: x_dual and z_dual times
+    ``fac`` (``csrc/fused_admm.cu`` admm_rescale)."""
+    xh, xp, xd, zh, zp, zd, warm = planes
+    return xh, xp, xd * fac, zh, zp, (zd[0] * fac, zd[1] * fac), warm
+
+
+def _multichunk_loop(ins, scal, count: int, k_chunks: int, consts, chunk,
+                     owed: bool = False):
+    """``admm_multichunk_plain``'s loop over ``chunk(planes, rho, fac)``,
+    which returns the planes after one chunk from ``planes`` owing the
+    dual rescale ``fac`` (None: nothing owed).  Without ``owed`` each
+    chunk's rescale is applied at once; with it, carried as the next
+    chunk's pending factor and applied after the last executed chunk, as
+    the tiled launches carry it (bit-equal: the same multiplications)."""
+    xh = ins[0]
+    it0 = scal[6]
     tols4 = (scal[7], scal[8], scal[9], scal[10])
     zero = torch.zeros((), dtype=xh.dtype, device=xh.device)
-
-    def project(k):
-        return lambda dx_, dy_, u0: _cheby_project(dx_, dy_, u0,
-                                                   int(cheby_degree))
-
-    ins = (xh, xp, xd, zh, zp, zd, warm)
     conv0 = entry_converged(scal, 11)
     planes = _entry_planes(*ins)
     sc = (scal[0], scal[3], scal[4], scal[5], conv0, zero)
     norms = (zero, zero, zero, zero)
+    pend = None
     for c in range(int(k_chunks)):
         rho, delta, arb_l, arb_u, conv, done = sc
-        p2 = _chunk_planes(planes, f, w, rho, lmb, radius, count, alpha,
-                           dataterm, project)
+        p2 = chunk(planes, rho, pend)
         nrm = _admm_norms(*p2[:6], rho)
         pr, pn = torch.sqrt(nrm[0]), torch.sqrt(nrm[1])
         dr, dn = torch.sqrt(nrm[2]), torch.sqrt(nrm[3])
         it = it0 + float((c + 1) * int(count))
         rho2, delta2, al2, au2, fac, cv = admm_adapt_scalars(
             consts, tols4, it, rho, delta, arb_l, arb_u, pr, pn, dr, dn)
-        xh2, xp2, xd2, zh2, zp2, zd2, warm2 = p2
-        p2 = (xh2, xp2, xd2 * fac, zh2, zp2, (zd2[0] * fac, zd2[1] * fac),
-              warm2)
+        if owed:
+            pend = fac if pend is None else torch.where(conv, pend, fac)
+        else:
+            p2 = _rescaled(p2, fac)
         planes = tuple(
             (torch.where(conv, a[0], b[0]), torch.where(conv, a[1], b[1]))
             if isinstance(a, tuple) else torch.where(conv, a, b)
@@ -399,12 +420,155 @@ def admm_multichunk_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal,
         sc = tuple(torch.where(conv, a, b) for a, b in zip(sc, new_sc))
         norms = tuple(torch.where(conv, a, b)
                       for a, b in zip(norms, (pr, pn, dr, dn)))
+    if pend is not None:  # the last executed chunk's rescale
+        planes = _rescaled(planes, pend)
     rho, delta, arb_l, arb_u, conv, done = sc
     sout = torch.stack([rho, delta, arb_l, arb_u, conv.to(xh.dtype), done])
     # converged at entry: nothing ran, the inputs come back as they were
     outs = tuple(torch.where(conv0, a, b)
                  for a, b in zip(ins, _stack_z(planes)))
     return outs + (torch.stack(norms), sout)
+
+
+def admm_multichunk_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal,
+                          count: int, k_chunks: int, alpha: float,
+                          cheby_degree: int, consts,
+                          dataterm: str = "square"):
+    """Plain PyTorch version of ``admm_multichunk`` (any device): every
+    chunk is computed and kept only while not converged, where the JAX
+    kernel branches around it with ``lax.cond``."""
+    lmb, radius = scal[1], scal[2]
+
+    def project(k):
+        return lambda dx_, dy_, u0: _cheby_project(dx_, dy_, u0,
+                                                   int(cheby_degree))
+
+    def chunk(planes, rho, fac):
+        return _chunk_planes(planes, f, w, rho, lmb, radius, count, alpha,
+                             dataterm, project)
+
+    return _multichunk_loop((xh, xp, xd, zh, zp, zd, warm), scal, count,
+                            k_chunks, consts, chunk)
+
+
+# ---------------------------------------------------------------------------
+# the tiled launches' plain twins, window by window
+# ---------------------------------------------------------------------------
+
+def admm_tiled_halo(degree: int) -> int:
+    """The least halo of the tiled Chebyshev iteration, in pixels on every
+    side of a tile: r = c_K grad^T d - M(warm) reads t1 (through d), d and
+    warm one pixel each way, and each of the ``degree - 1`` Chebyshev
+    steps reads the direction one pixel further, so u = x + v is exact
+    ``degree`` pixels inside a window side that lies in the plane; z_proj
+    = grad x_proj reads x_proj one pixel further down and right: degree +
+    1.  The norms read the stitched planes after the last iteration (a
+    pass of their own in ``csrc/fused_admm.cu`` admm_tiled), so they add
+    nothing; the JAX package's 2 degree + 4 rows, rounded to 8, is an
+    upper bound."""
+    return int(degree) + 1
+
+
+def _tiled_iteration(planes, f, w, rho, lmb, radius, alpha: float,
+                     dataterm: str, degree: int, tile, halo: int):
+    """One Chebyshev iteration window by window: ``_admm_iter`` on each
+    tile's window (the tile and ``halo`` pixels on every side, clamped at
+    the plane's edges; ``window_ops``: every mask decided by the pixel's
+    place in the plane), the owned pixels stitched into new planes."""
+    flat = [planes[0], planes[1], planes[2], *planes[3], *planes[4],
+            *planes[5], planes[6]]
+    nx, ny = flat[0].shape
+    tx, ty = (int(t) for t in tile)
+    out = [torch.empty_like(a) for a in flat]
+    for R0 in range(0, nx, tx):
+        for C0 in range(0, ny, ty):
+            R1, C1 = min(R0 + tx, nx), min(C0 + ty, ny)
+            r0, c0 = max(R0 - halo, 0), max(C0 - halo, 0)
+            r1, c1 = min(R1 + halo, nx), min(C1 + halo, ny)
+            ops = window_ops(r0, c0, r1 - r0, c1 - c0, nx, ny)
+            win = (slice(r0, r1), slice(c0, c1))
+            a = [t[win] for t in flat]
+
+            def project(d_x, d_y, u0, ops=ops):
+                return _cheby_project(d_x, d_y, u0, int(degree), ops)
+
+            res = _admm_iter(a[0], a[1], a[2], (a[3], a[4]), (a[5], a[6]),
+                             (a[7], a[8]), a[9], f[win], w[win], project,
+                             rho, lmb, radius, alpha, dataterm, ops)
+            res = [res[0], res[1], res[2], *res[3], *res[4], *res[5], res[6]]
+            own = (slice(R0 - r0, R1 - r0), slice(C0 - c0, C1 - c0))
+            at = (slice(R0, R1), slice(C0, C1))
+            for dst, src in zip(out, res):
+                dst[at] = src[own]
+    return (out[0], out[1], out[2], (out[3], out[4]), (out[5], out[6]),
+            (out[7], out[8]), out[9])
+
+
+def _tiled_chunk_planes(planes, f, w, rho, lmb, radius, count: int,
+                        alpha: float, dataterm: str, degree: int, tile,
+                        halo, fac=None):
+    """``count`` tiled iterations from ``planes`` owing the dual rescale
+    ``fac`` (None: nothing), which the first iteration's loads apply."""
+    h = admm_tiled_halo(degree) if halo is None else int(halo)
+    if fac is not None:
+        planes = _rescaled(planes, fac)
+    for _ in range(int(count)):
+        planes = _tiled_iteration(planes, f, w, rho, lmb, radius, alpha,
+                                  dataterm, degree, tile, h)
+    return planes
+
+
+def admm_chunk_tiled_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal,
+                           count: int, alpha: float, dataterm: str = "square",
+                           cheby_degree: int = 10, tile=(64, 64), halo=None,
+                           fac=None, partials: bool = False):
+    """The tiled Chebyshev chunk (``admm_chunk_`` with ``path="tiled"``)
+    window by window: each iteration ``_admm_iter``'s arithmetic on every
+    tile's window (``halo`` pixels on every side, ``admm_tiled_halo`` by
+    default) and the owned pixels stitched into the other slot; the norms
+    of the stitched planes after the last.  ``fac`` is a dual rescale the
+    state still owes (the JAX banded chunk's pending factor), applied to
+    x_dual and z_dual as the first iteration loads them.  Returns
+    ``admm_chunk_plain``'s outputs; with ``partials`` also the 32x8 tiles'
+    partials (``tile_partials``) that the kernel's finish reduces."""
+    rho, lmb, radius = scal[0], scal[1], scal[2]
+    ins = (xh, xp, xd, zh, zp, zd, warm)
+    planes = _tiled_chunk_planes(_entry_planes(*ins), f, w, rho, lmb, radius,
+                                 count, alpha, dataterm, int(cheby_degree),
+                                 tile, halo, fac)
+    terms = _admm_norm_terms(*planes[:6], rho)
+    norms2 = torch.stack((torch.sum(terms[0]) + torch.sum(terms[1]),
+                          torch.sum(terms[2]) + torch.sum(terms[3]),
+                          torch.sum(terms[4]), torch.sum(terms[5])))
+    conv = entry_converged(scal, 3)
+    outs = tuple(torch.where(conv, a, b) for a, b in zip(ins,
+                                                         _stack_z(planes)))
+    out = outs + (torch.where(conv, torch.zeros_like(norms2), norms2),)
+    if not partials:
+        return out
+    return out + (tile_partials((terms[0] + terms[1], terms[2] + terms[3],
+                                 terms[4], terms[5])),)
+
+
+def admm_multichunk_tiled_plain(xh, xp, xd, zh, zp, zd, warm, f, w, scal,
+                                count: int, k_chunks: int, alpha: float,
+                                cheby_degree: int, consts,
+                                dataterm: str = "square", tile=(64, 64),
+                                halo=None):
+    """The tiled multichunk (``admm_multichunk_`` with ``path="tiled"``):
+    ``admm_multichunk_plain``'s loop over the tiled chunk, each chunk's
+    dual rescale carried as the next chunk's pending factor and the last
+    executed chunk's applied at the end, as the launches carry it.
+    Returns ``admm_multichunk_plain``'s outputs."""
+    lmb, radius = scal[1], scal[2]
+
+    def chunk(planes, rho, fac):
+        return _tiled_chunk_planes(planes, f, w, rho, lmb, radius, count,
+                                   alpha, dataterm, int(cheby_degree), tile,
+                                   halo, fac)
+
+    return _multichunk_loop((xh, xp, xd, zh, zp, zd, warm), scal, count,
+                            k_chunks, consts, chunk, owed=True)
 
 
 # ---------------------------------------------------------------------------
@@ -474,7 +638,15 @@ def _lib():
         # array), alpha, 1 - alpha, stream
         "prost_admm_chunk_resident": [VP] * 12 + [CI] * 5 + [VP, CF, CF,
                                                              VP],
-        "prost_admm_resident_smem": []})
+        "prost_admm_resident_smem": [],
+        # 12 buffers, nx, ny, count, dataterm, degree, coeffs (a device
+        # array), alpha, 1 - alpha, the tile's rows and columns, stream
+        "prost_admm_chunk_tiled": [VP] * 12 + [CI] * 5 + [VP, CF, CF, CI, CI,
+                                                          VP],
+        # as prost_admm_multichunk_resident, then the tile
+        "prost_admm_multichunk_tiled": [VP] * 12 + [CI] * 6 + [VP]
+                                       + [CF] * 6 + [CI] * 2 + [VP],
+        "prost_admm_tiled_smem": []})
 
 
 def admm_bands(nx: int, blocks: int) -> list:
@@ -531,6 +703,117 @@ def admm_card_limits(device) -> tuple:
     return card_sms(device), smem
 
 
+# floats of the tiled launch's window planes (csrc/fused_admm.cu
+# admm_tiled: t1, x, the residual and the two directions, which also hold
+# t2, d and x_proj in turn) and bytes of its norm pass's reductions (four
+# 32x8 tiles at a time)
+_TILED_PLANES, _TILED_RED_BYTES = 5, 4 * 4 * 4 * 256
+
+
+def admm_tiled_bytes(tx: int, ty: int, degree: int) -> int:
+    """The dynamic shared memory of one block of the tiled launch
+    (csrc/fused_admm.cu admm_tiled_smem): five planes of the window of a
+    ``tx`` x ``ty`` tile with ``admm_tiled_halo(degree)`` pixels on every
+    side, at least the norm pass's reductions.  f and wsquare's w are read
+    pixel by pixel from device memory in the update, so no data term adds
+    a plane (the grid-resident bands hold w, ``admm_resident_bytes``)."""
+    h = 2 * admm_tiled_halo(degree)
+    return max(4 * _TILED_PLANES * (int(tx) + h) * (int(ty) + h),
+               _TILED_RED_BYTES)
+
+
+def admm_tiled_tile(nx: int, ny: int, degree: int, sms: int, smem: int):
+    """The owned tile (rows, columns) of the tiled launch on (nx, ny)
+    planes at Chebyshev degree ``degree`` on a card of ``sms`` SMs whose
+    blocks may hold ``smem`` bytes of dynamic shared memory: of the tiles
+    (rows a multiple of 8, columns of 32) whose window fits
+    (``admm_tiled_bytes``), the one whose iteration moves the fewest
+    window pixels through the SMs (the rounds of one block per SM times a
+    whole tile's window), the larger tile on a tie; None where no tile's
+    window fits."""
+    h = 2 * admm_tiled_halo(degree)
+    best, cost = None, None
+    for ty in TILE_COLS:
+        if ty - 32 >= ny:
+            break
+        for tx in TILE_ROWS:
+            if (tx - 8 >= nx
+                    or admm_tiled_bytes(tx, ty, degree) > smem):
+                break
+            rounds = -(-(-(-nx // tx) * -(-ny // ty)) // int(sms))
+            c = rounds * (min(tx, nx) + h) * (min(ty, ny) + h)
+            if best is None or c < cost or (c == cost and
+                                            tx * ty > best[0] * best[1]):
+                best, cost = (tx, ty), c
+    return best
+
+
+def admm_tiled_ok(nx: int, ny: int, degree: int, sms: int,
+                  smem: int) -> bool:
+    """Whether the tiled launch takes (nx, ny) planes at Chebyshev degree
+    ``degree``: some tile's window fits in ``smem`` bytes."""
+    return admm_tiled_tile(nx, ny, degree, sms, smem) is not None
+
+
+def admm_route_of(nx: int, ny: int, dataterm: str, degree: int, sms: int,
+                  smem: int, tiled_smem: int) -> str:
+    """The shape rule of ``admm_chunk_``'s Chebyshev chunk and of
+    ``admm_multichunk_`` on a card of ``sms`` SMs whose grid-resident
+    blocks may hold ``smem`` bytes and tiled blocks ``tiled_smem``:
+    "resident" where the bands' planes fit (``admm_resident_ok``: 512x512
+    on an H100), else "tiled" where a tile's window fits
+    (``admm_tiled_ok``: 2048x2048), else "streaming"."""
+    if admm_resident_ok(nx, ny, dataterm, sms, smem):
+        return "resident"
+    if admm_tiled_ok(nx, ny, degree, sms, tiled_smem):
+        return "tiled"
+    return "streaming"
+
+
+@functools.lru_cache(maxsize=None)
+def admm_tiled_limit(device) -> int:
+    """The dynamic shared memory a block of the tiled launch may hold on
+    the card ``device``, read once."""
+    with torch.cuda.device(device):
+        smem = _lib().prost_admm_tiled_smem()
+    if smem < 0:
+        raise ProstError(f"admm_chunk: no shared-memory limit for the tiled "
+                         f"launch on {device} (CUDA error {-smem}).")
+    return smem
+
+
+def admm_pick_route(path, nx: int, ny: int, dataterm: str, degree,
+                    device, what: str) -> tuple:
+    """(path, tile) of a chunk or multichunk on the card ``device``: by
+    ``admm_route_of`` where ``path`` is None, else the one asked for;
+    "resident" where the bands do not fit, or "tiled" where no tile's
+    window does, raises ``ProstError``.  ``degree`` None (the CGLS
+    projection) streams.  ``tile`` is the tiled launch's (rows, columns),
+    else None."""
+    _check_path(path, what)
+    if degree is None:
+        if path in ("resident", "tiled"):
+            raise ProstError(f"{what}: the CGLS projection runs as the "
+                             "launch sequence only.")
+        return "streaming", None
+    sms, smem = admm_card_limits(device)
+    tsmem = admm_tiled_limit(device)
+    if path is None:
+        path = admm_route_of(nx, ny, dataterm, degree, sms, smem, tsmem)
+    if path == "resident" and not admm_resident_ok(nx, ny, dataterm, sms,
+                                                   smem):
+        raise ProstError(f"{what}: the chunk's planes do not fit in the "
+                         "shared memory of one block per SM.")
+    tile = None
+    if path == "tiled":
+        tile = admm_tiled_tile(nx, ny, degree, sms, tsmem)
+        if tile is None:
+            raise ProstError(f"{what}: no tile's window holds the halo of a "
+                             f"degree-{degree} iteration in the shared "
+                             "memory of a block.")
+    return path, tile
+
+
 @functools.lru_cache(maxsize=None)
 def _coeff_array(degree):
     """The Chebyshev step coefficients as a host float array (c_prev, c_r
@@ -568,29 +851,37 @@ def admm_chunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
     return tuple(planes) + (norms2,)
 
 
-def _scratch(resident: bool, nx: int, ny: int, device):
+def _scratch(path: str, nx: int, ny: int, device):
     """The scratch of a chunk or multichunk launch: the launch sequence's 8
-    planes, and for the grid-resident launch 4 more, its norms' terms."""
-    return torch.empty((12 if resident else 8) * nx * ny,
+    planes, which the tiled launch uses as its second slot of the state
+    (xh, xp, xd, zh, zd, warm), and for the grid-resident launch 4 more,
+    its norms' terms."""
+    return torch.empty((12 if path == "resident" else 8) * nx * ny,
                        dtype=torch.float32, device=device)
 
 
-def _chunk_card(planes, f, w, sc, partial, scratch, resident: bool, tols,
+def _chunk_card(planes, f, w, sc, partial, scratch, route: tuple, tols,
                 count: int, maxit: int, alpha: float, degree,
                 dataterm: str) -> None:
     """One chunk on the card in place on ``planes`` with the scalar buffer
-    ``sc``: the grid-resident launch (Chebyshev only) or the launch
-    sequence (``degree`` None: CGLS with the tolerances ``tols``), counted
-    under ``admm_chunk``."""
+    ``sc``: the grid-resident launch, the tiled launches (Chebyshev only)
+    or the launch sequence (``degree`` None: CGLS with the tolerances
+    ``tols``), by ``route`` = (path, tile) of ``admm_pick_route``, counted
+    under ``admm_chunk`` (and a tiled call also under
+    ``admm_chunk_tiled``)."""
     xh = planes[0]
     nx, ny = xh.shape
+    path, tile = route
     bufs = [*planes, f, w, scratch, sc, partial]
-    if resident:
-        launch(_lib(), "prost_admm_chunk_resident", "admm_chunk",
+    if path != "streaming":
+        tail = (*tile,) if path == "tiled" else ()
+        launch(_lib(), f"prost_admm_chunk_{path}", "admm_chunk",
                launch_counts, xh.device, bufs, nx, ny, int(count),
                DATATERMS[dataterm], int(degree),
                ptr(_coeff_tensor(int(degree), xh.device)), float(alpha),
-               1.0 - float(alpha))
+               1.0 - float(alpha), *tail)
+        if path == "tiled":
+            launch_counts["admm_chunk_tiled"] += 1
         return
     launch(_lib(), "prost_admm_chunk", "admm_chunk", launch_counts,
            xh.device, bufs, nx, ny, None if tols is None else ptr(tols),
@@ -605,31 +896,31 @@ def admm_chunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
     """``admm_chunk`` in place: the 7 state arrays advance by ``count``
     iterations (with the converged flag set nothing changes).  Returns the
     4 SQUARED residual norms.  On a card ``path`` None takes the shape
-    rule's path (``admm_resident_ok``): with the Chebyshev projection one
+    rule's path (``admm_route_of``): with the Chebyshev projection one
     grid-resident cooperative launch (csrc/fused_admm.cu
-    admm_chunk_resident) where the bands fit on chip, else the launch
-    sequence; "resident" or "streaming" asks for one ("resident" raises
-    where it does not fit).  The CGLS projection (``cheby_degree`` None)
-    runs as the launch sequence only: its CG steps reduce across the grid
-    several times an iteration."""
+    admm_chunk_resident) where the bands fit on chip, else one tiled
+    cooperative launch (admm_tiled: overlapping 2-D windows, a grid
+    barrier an iteration), the finish and, after an odd count, the copy
+    back; "resident", "tiled" or "streaming" asks for one ("resident" and
+    "tiled" raise where they cannot launch).  The CGLS projection
+    (``cheby_degree`` None) runs as the launch sequence only: its CG steps
+    reduce across the grid several times an iteration."""
     planes = (xh, xp, xd, zh, zp, zd, warm)
     _check(planes, f, w, scal, 3, count, dataterm)
+    _check_path(path, "admm_chunk")
     if cheby_degree is None:
         if cg_tols is None or cg_tols.numel() < int(count):
             raise ProstError("The CGLS projection needs count CG "
                              "tolerances.")
         if cg_tols.device != xh.device:
             raise ProstError("All tensors must be on one device.")
-        if path == "resident":
+        if path in ("resident", "tiled"):
             raise ProstError("admm_chunk: the CGLS projection runs as the "
                              "launch sequence only.")
     elif int(cheby_degree) < 1:
         raise ProstError("The Chebyshev projection needs a degree >= 1.")
     if not all(t.is_contiguous() for t in planes):
         raise ProstError("admm_chunk_ takes contiguous planes only.")
-    if path not in PATHS:
-        raise ProstError(f"admm_chunk: path must be one of {PATHS}, got "
-                         f"{path!r}.")
     if xh.device.type == "cpu":
         out = admm_chunk_plain(*planes, f, w, scal, cg_tols, count, maxit,
                                alpha, dataterm, cheby_degree)
@@ -638,15 +929,15 @@ def admm_chunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
         return out[7]
     nx, ny = xh.shape
     dev = xh.device
-    resident = pick_path(path, cheby_degree is not None and admm_resident_ok(
-        nx, ny, dataterm, *admm_card_limits(dev)), "admm_chunk")
+    route = admm_pick_route(path, nx, ny, dataterm, cheby_degree, dev,
+                            "admm_chunk")
     sc = scalar_buffer(scal, 3, _S_CONV, _S_LEN)
     partial = torch.empty(4 * _lib().prost_admm_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     tols = (None if cheby_degree is not None
             else cg_tols.to(torch.float32).contiguous())
     _chunk_card(planes, f.contiguous(), w.contiguous(), sc, partial,
-                _scratch(resident, nx, ny, dev), resident, tols, count,
+                _scratch(route[0], nx, ny, dev), route, tols, count,
                 maxit, alpha, cheby_degree, dataterm)
     return sc[_S_NORM:_S_NORM + 4]
 
@@ -654,9 +945,10 @@ def admm_chunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
 class ADMMChunk:
     """``FusedROFADMM``'s light call of the Chebyshev chunk: ``admm_chunk_``
     on the run's own state arrays, with what depends only on the shapes
-    and the route made once per route: the path (``admm_resident_ok``),
-    the scratch, the norm partials and the scalar buffer with lmb and
-    radius.  A call writes rho and the flag into the scalar buffer in
+    and the route made once per route: the path (``route``: (path, tile)
+    of ``admm_pick_route``, by the shape rule unless ``path`` asks for
+    one), the scratch, the norm partials and the scalar buffer with lmb
+    and radius.  A call writes rho and the flag into the scalar buffer in
     place (and zeros into its norms, which a flagged call leaves), in one
     stack and one indexed copy, launches, and returns the squared norms, a
     view of the buffer that the next call overwrites; on the CPU it runs
@@ -665,7 +957,8 @@ class ADMMChunk:
     # the slots a call writes: rho, the converged flag, the 4 norms
     _IN = (0, _S_CONV) + tuple(range(_S_NORM, _S_NORM + 4))
 
-    def __init__(self, r, count: int, alpha: float, degree: int, device):
+    def __init__(self, r, count: int, alpha: float, degree: int, device,
+                 path=None):
         self.r, self.count = r, int(count)
         self.alpha, self.degree = float(alpha), int(degree)
         nx, ny = r["nx"], r["ny"]
@@ -675,14 +968,20 @@ class ADMMChunk:
         self.stage = torch.zeros(len(self._IN), dtype=torch.float32,
                                  device=device)
         self.slots_in = torch.tensor(self._IN, device=device)
-        self.resident = None  # the path on a card
+        self.route = None  # (path, tile) on a card
         if torch.device(device).type == "cuda":
-            self.resident = admm_resident_ok(nx, ny, r["dataterm"],
-                                             *admm_card_limits(device))
+            self.route = admm_pick_route(path, nx, ny, r["dataterm"],
+                                         self.degree, device, "admm_chunk")
             self.partial = torch.empty(
                 4 * _lib().prost_admm_num_blocks(nx, ny),
                 dtype=torch.float32, device=device)
-            self.scratch = _scratch(self.resident, nx, ny, device)
+            self.scratch = _scratch(self.route[0], nx, ny, device)
+
+    @property
+    def resident(self):
+        """Whether the call runs grid-resident on a card; None on the
+        CPU."""
+        return None if self.route is None else self.route[0] == "resident"
 
     def __call__(self, planes, rho, converged):
         """``count`` iterations on ``planes`` in place; returns the 4
@@ -691,12 +990,12 @@ class ADMMChunk:
                     out=self.stage[:2])
         self.sc.index_copy_(0, self.slots_in, self.stage)
         r = self.r
-        if self.resident is None:
+        if self.route is None:
             return admm_chunk_(*planes, r["f"], r["w"],
                                self.sc[[0, 1, 2, _S_CONV]], None, self.count,
                                0, self.alpha, r["dataterm"], self.degree)
         _chunk_card(planes, r["f"], r["w"], self.sc, self.partial,
-                    self.scratch, self.resident, None, self.count, 0,
+                    self.scratch, self.route, None, self.count, 0,
                     self.alpha, self.degree, r["dataterm"])
         return self.sc[_S_NORM:_S_NORM + 4]
 
@@ -781,22 +1080,28 @@ def admm_multichunk(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
     return tuple(planes) + (norms, sout)
 
 
-def _multichunk_card(planes, f, w, sc, partial, scratch, resident: bool,
+def _multichunk_card(planes, f, w, sc, partial, scratch, route: tuple,
                      count: int, k_chunks: int, alpha: float, degree: int,
                      consts, dataterm: str) -> None:
     """One multichunk on the card in place on ``planes`` with the scalar
-    buffer ``sc``: the grid-resident launch or the launch sequence,
-    counted under ``admm_multichunk``."""
+    buffer ``sc``: the grid-resident launch, the tiled launches or the
+    launch sequence, by ``route`` = (path, tile) of ``admm_pick_route``,
+    counted under ``admm_multichunk`` (and a tiled call also under
+    ``admm_multichunk_tiled``)."""
     xh = planes[0]
     nx, ny = xh.shape
-    coeffs = (ptr(_coeff_tensor(int(degree), xh.device)) if resident
-              else _coeff_array(degree))
-    launch(_lib(), "prost_admm_multichunk_resident" if resident
-           else "prost_admm_multichunk", "admm_multichunk", launch_counts,
-           xh.device, [*planes, f, w, scratch, sc, partial], nx, ny,
-           int(count), int(k_chunks), DATATERMS[dataterm], int(degree),
-           coeffs, float(alpha), 1.0 - float(alpha),
-           *[float(c) for c in consts])
+    path, tile = route
+    coeffs = (_coeff_array(degree) if path == "streaming"
+              else ptr(_coeff_tensor(int(degree), xh.device)))
+    fn = ("prost_admm_multichunk" if path == "streaming"
+          else f"prost_admm_multichunk_{path}")
+    launch(_lib(), fn, "admm_multichunk", launch_counts, xh.device,
+           [*planes, f, w, scratch, sc, partial], nx, ny, int(count),
+           int(k_chunks), DATATERMS[dataterm], int(degree), coeffs,
+           float(alpha), 1.0 - float(alpha), *[float(c) for c in consts],
+           *(tile or ()))
+    if path == "tiled":
+        launch_counts["admm_multichunk_tiled"] += 1
 
 
 def admm_multichunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
@@ -805,19 +1110,20 @@ def admm_multichunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
     """``admm_multichunk`` in place: the 7 state arrays advance (with the
     converged flag set at entry nothing changes).  Returns (norms, sout).
     On a card ``path`` None takes the shape rule's path
-    (``admm_resident_ok``): one grid-resident cooperative launch
+    (``admm_route_of``): one grid-resident cooperative launch
     (csrc/fused_admm.cu admm_multichunk_resident) where the bands fit on
-    chip, else the launch sequence; "resident" or "streaming" asks for one
-    ("resident" raises where it does not fit)."""
+    chip, else a tiled cooperative launch (admm_tiled) and the finish's
+    adaptation a chunk, each chunk's dual rescale folded into the next
+    chunk's loads and the last one's applied with the copy back (about 2
+    k_chunks + 1 launches); "resident", "tiled" or "streaming" asks for
+    one ("resident" and "tiled" raise where they cannot launch)."""
     planes = (xh, xp, xd, zh, zp, zd, warm)
     _check(planes, f, w, scal, 11, count, dataterm)
     if int(cheby_degree) < 1:
         raise ProstError("The multichunk needs a Chebyshev degree >= 1.")
     if not all(t.is_contiguous() for t in planes):
         raise ProstError("admm_multichunk_ takes contiguous planes only.")
-    if path not in PATHS:
-        raise ProstError(f"admm_multichunk: path must be one of {PATHS}, "
-                         f"got {path!r}.")
+    _check_path(path, "admm_multichunk")
     if xh.device.type == "cpu":
         out = admm_multichunk_plain(*planes, f, w, scal, count, k_chunks,
                                     alpha, cheby_degree, consts, dataterm)
@@ -826,13 +1132,13 @@ def admm_multichunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
         return out[7], out[8]
     nx, ny = xh.shape
     dev = xh.device
-    resident = pick_path(path, admm_resident_ok(
-        nx, ny, dataterm, *admm_card_limits(dev)), "admm_multichunk")
+    route = admm_pick_route(path, nx, ny, dataterm, int(cheby_degree), dev,
+                            "admm_multichunk")
     sc = scalar_buffer(scal, 11, _S_CONV, _S_LEN)
     partial = torch.empty(4 * _lib().prost_admm_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     _multichunk_card(planes, f.contiguous(), w.contiguous(), sc, partial,
-                     _scratch(resident, nx, ny, dev), resident,
+                     _scratch(route[0], nx, ny, dev), route,
                      count, k_chunks, alpha, cheby_degree, consts, dataterm)
     return sc[_S_NORM:_S_NORM + 4], torch.stack([sc[i] for i in _SOUT])
 
@@ -840,19 +1146,20 @@ def admm_multichunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
 class ADMMMultichunk:
     """``FusedROFADMM``'s light call of the multichunk: ``admm_multichunk_``
     on the run's own state arrays, with what depends only on the shapes
-    and the route made once per route: the path (``admm_resident_ok``),
-    the scratch, the norm partials and the scalar buffer with lmb, radius
-    and the tolerances.  A call writes rho, delta, arb_l, arb_u, the
-    iteration counter and the flag into the scalar buffer in place (one
-    stack and one indexed copy), launches, and reads the norms and sout out
-    of it in one gather; on the CPU it runs the plain version."""
+    and the route made once per route: the path (``route``: (path, tile)
+    of ``admm_pick_route``, by the shape rule unless ``path`` asks for
+    one), the scratch, the norm partials and the scalar buffer with lmb,
+    radius and the tolerances.  A call writes rho, delta, arb_l, arb_u,
+    the iteration counter and the flag into the scalar buffer in place
+    (one stack and one indexed copy), launches, and reads the norms and
+    sout out of it in one gather; on the CPU it runs the plain version."""
 
     # the slots a call writes: rho, delta, arb_l, arb_u, it, converged, and
     # the chunk count, which the launch advances from 0
     _IN = (0, 3, 4, 5, 6, _S_CONV, _S_DONE)
 
     def __init__(self, r, count: int, k_chunks: int, alpha: float,
-                 degree: int, device):
+                 degree: int, device, path=None):
         self.r, self.count, self.k_chunks = r, int(count), int(k_chunks)
         self.alpha, self.degree = float(alpha), int(degree)
         nx, ny = r["nx"], r["ny"]
@@ -866,14 +1173,21 @@ class ADMMMultichunk:
         self.slots_in = torch.tensor(self._IN, device=device)
         self.slots_out = torch.tensor(
             tuple(range(_S_NORM, _S_NORM + 4)) + _SOUT, device=device)
-        self.resident = None  # the path on a card
+        self.route = None  # (path, tile) on a card
         if torch.device(device).type == "cuda":
-            self.resident = admm_resident_ok(nx, ny, r["dataterm"],
-                                             *admm_card_limits(device))
+            self.route = admm_pick_route(path, nx, ny, r["dataterm"],
+                                         self.degree, device,
+                                         "admm_multichunk")
             self.partial = torch.empty(
                 4 * _lib().prost_admm_num_blocks(nx, ny),
                 dtype=torch.float32, device=device)
-            self.scratch = _scratch(self.resident, nx, ny, device)
+            self.scratch = _scratch(self.route[0], nx, ny, device)
+
+    @property
+    def resident(self):
+        """Whether the call runs grid-resident on a card; None on the
+        CPU."""
+        return None if self.route is None else self.route[0] == "resident"
 
     def __call__(self, planes, rho, delta, arb_l, arb_u, it, converged):
         """Up to k_chunks chunks on ``planes`` in place from the state's
@@ -883,7 +1197,7 @@ class ADMMMultichunk:
                      converged.to(dt), self.zero], out=self.stage)
         self.sc.index_copy_(0, self.slots_in, self.stage)
         r = self.r
-        if self.resident is None:
+        if self.route is None:
             scal = self.sc[:_S_CONV + 1]
             out = admm_multichunk_plain(*planes, r["f"], r["w"], scal,
                                         self.count, self.k_chunks,
@@ -893,7 +1207,7 @@ class ADMMMultichunk:
                 t.copy_(v)
             return out[7], out[8]
         _multichunk_card(planes, r["f"], r["w"], self.sc, self.partial,
-                         self.scratch, self.resident, self.count,
+                         self.scratch, self.route, self.count,
                          self.k_chunks, self.alpha, self.degree,
                          r["consts"], r["dataterm"])
         out = self.sc.index_select(0, self.slots_out)

@@ -17,8 +17,10 @@ ADMM chunk ``admm_chunk_`` and volumetric multichunk ``vol_multichunk_``
 ``rof_chunk_`` and multichunk ``rof_multichunk_`` (``-k "rof_resident or
 rof_multichunk or rof_light"``), and the grid-resident multilabel
 multichunk ``ml_multichunk_`` and ROF halo chunk ``rof_chunk_halo_`` (``-k
-"ml_multichunk or rof_halo or rof_chunk_band"``), bit for bit against the
-streaming launch sequences they replace.
+"ml_multichunk or rof_halo or rof_chunk_band"``), and the tiled ROF and
+Chebyshev ADMM chunks and multichunks (``-k tiled``; ``-k admm_tiled`` for
+the ADMM ones), bit for bit against the streaming launch sequences they
+replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
 redesigns run the per-pixel arithmetic and the norm trees of the launch
@@ -626,7 +628,8 @@ def test_admm_multichunk_light_call_on_the_card(dev):
 def test_ml_batched_and_admm_multichunk_rules_on_the_card(dev):
     """The card's limits send 8 instances of config 3 (and any batch of
     them) and config 4 at 512x512 to the resident launches, 512x512x8
-    instances and the 2048x2048 ADMM plane to the streaming sequences;
+    instances to the streaming sequences and the 2048x2048 ADMM plane away
+    from them (to the tiled launches, ``-k admm_tiled``);
     asking for a resident launch that does not fit raises, and so does the
     launch the C side refuses (9 labels)."""
     from prost_tpu_torch.ops import fused_admm as fa
@@ -2338,3 +2341,186 @@ def test_rof_tiled_rules_on_the_card(dev):
                     x.new_empty(3, 2048, 2048)], 2048, 2048, 0, 10, 0,
                    *tile)
     assert sms == torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
+# row 11: the Chebyshev ADMM chunk and multichunk tiled, for the planes no
+# grid-resident band holds (-k admm_tiled)
+# ---------------------------------------------------------------------------
+
+def _admm_tiled_paths(fn, planes, data, *args):
+    """``fn`` (an in-place ADMM chunk or multichunk) on copies of
+    ``planes`` by the streaming sequence and by the tiled launches:
+    {path: the arrays and the outputs}."""
+    out = {}
+    for path in ("streaming", "tiled"):
+        cur = [t.clone() for t in planes]
+        res = fn(*cur, *data, *args, path=path)
+        res = list(res) if isinstance(res, tuple) else [res]
+        out[path] = cur + [t.clone() for t in res]
+    torch.cuda.synchronize()
+    return out
+
+
+def _admm_mscal(tol, dev, rho=1.0, conv=None):
+    flag = [] if conv is None else [conv]
+    return torch.tensor([rho, 16.0, 1.0, 1.05, 0.0, 0.0, 0.0] + [tol] * 4
+                        + flag, device=dev)
+
+
+@pytest.mark.parametrize("count", [1, 3, 10])
+@pytest.mark.parametrize("dataterm", ["square", "wsquare", "abs"])
+@pytest.mark.parametrize("nx,ny", [(2048, 2048), (1000, 777), (70, 53),
+                                   (9, 300)])
+def test_admm_tiled_chunk_is_the_launch_sequence(dev, nx, ny, dataterm,
+                                                 count):
+    """The tiled chunk's arrays and squared norms bit-equal to the launch
+    sequence's, from arrays with mass on the dead z coordinates, odd counts
+    (the copy back) and tiles that do not divide the plane included."""
+    planes = _admm_planes(700 + count, nx, ny, dev)
+    scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+    before = fa.launch_counts["admm_chunk_tiled"]
+    out = _admm_tiled_paths(fa.admm_chunk_, planes[:7], planes[7:], scal,
+                            None, count, 0, 1.7, dataterm, 10)
+    assert fa.launch_counts["admm_chunk_tiled"] == before + 1
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(t).all()) for t in out["tiled"])
+
+
+@pytest.mark.parametrize("degree", [1, 3, 25])
+def test_admm_tiled_chunk_any_degree_is_the_launch_sequence(dev, degree):
+    """Degrees whose halo is 2, 4 and 26 pixels, at a shape the tiles do
+    not divide."""
+    planes = _admm_planes(710 + degree, 300, 190, dev)
+    scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+    out = _admm_tiled_paths(fa.admm_chunk_, planes[:7], planes[7:], scal,
+                            None, 3, 0, 1.7, "square", degree)
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nx,ny,count,k,dataterm", [
+    (2048, 2048, 10, 8, "square"), (2048, 2048, 3, 3, "wsquare"),
+    (300, 190, 3, 4, "abs"), (9, 300, 10, 2, "square")])
+def test_admm_tiled_multichunk_is_the_launch_sequence(dev, nx, ny, count, k,
+                                                      dataterm):
+    """Every chunk runs (tolerance 0): the tiled multichunk's arrays,
+    norms and sout bit-equal to the launch sequence's."""
+    planes = _admm_planes(720 + k, nx, ny, dev)
+    before = fa.launch_counts["admm_multichunk_tiled"]
+    out = _admm_tiled_paths(fa.admm_multichunk_, planes[:7], planes[7:],
+                            _admm_mscal(0.0, dev, rho=1.3), count, k, 1.7,
+                            10, _admm_consts(nx, ny), dataterm)
+    assert fa.launch_counts["admm_multichunk_tiled"] == before + 1
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    assert out["tiled"][8][5].item() == k
+
+
+@pytest.mark.parametrize("count", [3, 10])
+@pytest.mark.parametrize("nx,ny", [(2048, 2048), (300, 190)])
+def test_admm_tiled_multichunk_converging_mid_launch(dev, nx, ny, count):
+    """From a solve's start, at tolerances under which rho adapts chunk
+    after chunk (each rescale folded into the next chunk's loads) and the
+    launch converges partway: bit-equal to the launch sequence, and some
+    tolerance converges partway after rho adapted twice or more."""
+    planes, f = _solve_start(nx, ny, dev)
+    partway = []
+    for tol in (2e-2, 1e-2, 5e-3, 2e-3):
+        out = _admm_tiled_paths(fa.admm_multichunk_, planes, [f, f],
+                                _admm_mscal(tol, dev), count, 8, 1.7, 10,
+                                _admm_consts(nx, ny), "square")
+        for a, b in zip(out["streaming"], out["tiled"]):
+            assert torch.equal(a, b)
+        sout = out["tiled"][8].tolist()
+        if (sout[4] == 1.0 and sout[5] < 8
+                and abs(np.log(sout[0])) > 1.5 * np.log(1.05)):
+            partway.append(tol)
+    assert partway
+
+
+def test_admm_tiled_with_the_flag_leaves_the_buffers(dev):
+    """With the converged flag set at entry the tiled chunk (of an odd
+    count, whose copy back then stays off) and multichunk change nothing."""
+    planes = _admm_planes(730, 2048, 2048, dev)
+    want = [t.clone() for t in planes[:7]]
+    scal = torch.tensor([1.3, 8.0, 1.0, 1.0], device=dev)
+    fa.admm_chunk_(*planes, scal, None, 3, 0, 1.7, "square", 10,
+                   path="tiled")
+    norms, sout = fa.admm_multichunk_(*planes, _admm_mscal(0.0, dev,
+                                                            conv=1.0),
+                                      3, 4, 1.7, 10,
+                                      _admm_consts(2048, 2048), "square",
+                                      path="tiled")
+    torch.cuda.synchronize()
+    for a, b in zip(planes[:7], want):
+        assert torch.equal(a, b)
+    assert sout[5].item() == 0.0
+
+
+def test_admm_tiled_light_calls_on_the_card(dev):
+    """``ADMMChunk`` and ``ADMMMultichunk`` at 2048x2048 take the tiled
+    path and leave what ``admm_chunk_`` / ``admm_multichunk_`` leave, twice
+    in a row from the state they left (their buffers reused)."""
+    planes, f = _solve_start(2048, 2048, dev)
+    r = {"nx": 2048, "ny": 2048, "f": f, "w": f, "dataterm": "square",
+         "lmb_t": torch.tensor(16.0, device=dev),
+         "radius_t": torch.tensor(1.0, device=dev),
+         "tols_t": tuple(torch.tensor(1e-4, device=dev) for _ in range(4)),
+         "consts": _admm_consts(2048, 2048)}
+    chunk = fa.ADMMChunk(r, 3, 1.7, 10, dev)
+    multi = fa.ADMMMultichunk(r, 10, 8, 1.7, 10, dev)
+    assert chunk.route[0] == multi.route[0] == "tiled"
+    assert not chunk.resident and not multi.resident
+    cur = [t.clone() for t in planes]
+    want = [t.clone() for t in planes]
+    s = [torch.tensor(v, device=dev) for v in (1.0, 1.05, 0.0, 0.0)]
+    for it in (0, 80):
+        norms, sout = multi(cur, *s, torch.tensor(it, device=dev),
+                            torch.tensor(False, device=dev))
+        wn, ws = fa.admm_multichunk_(
+            *want, f, f, torch.tensor([1.0, 16.0, 1.0, 1.05, 0.0, 0.0,
+                                       float(it)] + [1e-4] * 4 + [0.0],
+                                      device=dev),
+            10, 8, 1.7, 10, r["consts"], "square", path="tiled")
+        for a, b in zip(cur + [norms, sout], want + [wn, ws]):
+            assert torch.equal(a, b)
+        norms2 = chunk(cur, s[0], torch.tensor(False, device=dev))
+        wn = fa.admm_chunk_(*want, f, f, torch.tensor([1.0, 16.0, 1.0, 0.0],
+                                                      device=dev),
+                            None, 3, 0, 1.7, "square", 10, path="tiled")
+        for a, b in zip(cur + [norms2], want + [wn]):
+            assert torch.equal(a, b)
+
+
+def test_admm_tiled_rules_on_the_card(dev):
+    """The card's limits send config 4's 512x512 to the grid-resident
+    launches and the 2048x2048 plane (square, wsquare) to the tiled ones;
+    degree 200, whose halo no window holds, streams and asking for the
+    tiled launch there raises; so does a tile the C side refuses."""
+    sms, smem = fa.admm_card_limits(dev)
+    tsmem = fa.admm_tiled_limit(dev)
+    assert tsmem >= 227 * 1024
+    assert fa.admm_route_of(512, 512, "square", 10, sms, smem,
+                            tsmem) == "resident"
+    for dataterm in ("square", "wsquare"):
+        assert fa.admm_route_of(2048, 2048, dataterm, 10, sms, smem,
+                                tsmem) == "tiled"
+    assert fa.admm_route_of(2048, 2048, "square", 200, sms, smem,
+                            tsmem) == "streaming"
+    planes = _admm_planes(740, 2048, 2048, dev)
+    scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+    with pytest.raises(ptt.ProstError, match="no tile"):
+        fa.admm_chunk_(*planes, scal, None, 10, 0, 1.7, "square", 200,
+                       path="tiled")
+    lib = fa._lib()
+    sc = scalar_buffer(scal, 3, fa._S_CONV, fa._S_LEN)
+    partial = planes[0].new_empty(4 * lib.prost_admm_num_blocks(2048, 2048))
+    scratch = planes[0].new_empty(8 * 2048 * 2048)
+    for tile in ((12, 32), (8, 48), (256, 256)):  # not 8x32 tiles; too big
+        with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+            launch(lib, "prost_admm_chunk_tiled", "admm_chunk",
+                   fa.launch_counts, dev, [*planes, scratch, sc, partial],
+                   2048, 2048, 10, 0, 10,
+                   fa.ptr(fa._coeff_tensor(10, dev)), 1.7, -0.7, *tile)
