@@ -81,6 +81,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 // scalar buffer slots, mirrored by prost_tpu_torch/ops/fused_admm.py
@@ -1343,26 +1345,6 @@ inline size_t admm_tiled_smem(int tx, int ty, int degree) {
   const size_t h = 2 * ((size_t)degree + 1);
   const size_t planes = (size_t)AT_PLANES * (tx + h) * (ty + h);
   return (planes > (size_t)AT_RED ? planes : (size_t)AT_RED) * sizeof(float);
-}
-
-// A 4-byte copy from device to shared memory that does not wait
-// (cp.async, sm_80 and later), and the wait for all of a thread's copies;
-// a plain copy where the source is compiled for the host.
-__device__ __forceinline__ void cp_async4(float* s, const float* g) {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(s)),
-               "l"(g)
-               : "memory");
-#else
-  *s = *g;
-#endif
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
 }
 
 // A window: rows [r0, r0 + wh) and columns [c0, c0 + ww) of the plane, the

@@ -7,12 +7,14 @@
 //                                  -> _deblur_chunk_kernel_batched
 //   prost_tpu/ops/fused_deblur.py  deblur_fused_chunk_halo
 //                                  -> _deblur_chunk_kernel (halo=True)
-// whose math is _chunk_core, _conv_ops and _grad_ops in the same file.  It
-// also serves the JAX package's banded variant
-// (deblur_fused_chunk_banded), which exists only because a TPU core's VMEM
-// cannot hold the planes of large images: here the planes stay in device
-// memory at every size.  The plain PyTorch versions live beside their
-// wrappers in prost_tpu_torch/ops/fused_deblur.py.
+//   prost_tpu/ops/fused_deblur.py  deblur_fused_chunk_banded
+//                                  -> _deblur_banded_kernel,
+//                                     _deblur_banded_db_kernel
+// whose math is _chunk_core, _conv_ops and _grad_ops in the same file.  The
+// last, the banded route for planes beyond a TPU core's VMEM, becomes the
+// tiled chunk (deblur_tiled, further down) for planes whose bands no
+// grid-resident launch holds.  The plain PyTorch versions live beside
+// their wrappers in prost_tpu_torch/ops/fused_deblur.py.
 //
 // Workload: min_u lmb/2 |B u - f|^2 + |grad u|_{2,1}, B a full 2D
 // convolution with T <= 96 nonzero taps; primal x (nx, ny), duals yv
@@ -56,7 +58,10 @@
 // its halo mode run instead as one grid-resident cooperative launch
 // (deblur_resident, further down), bit-equal to the sequence; on the card
 // that launch is bound by the instructions of its convolutions and by its
-// 23 grid barriers, not by bytes.
+// 23 grid barriers, not by bytes.  Where they do not fit but a tile's
+// window does (config 2 at 2048x2048), they run as one tiled cooperative
+// launch (deblur_tiled), one pass over device memory an iteration,
+// bit-equal to the sequence too.
 // A batched chunk of 8 frames of 512x512 streams 8 times that per launch
 // in 8 times the blocks: about 140 MB an iteration, beyond the 50 MB L2, so
 // that sequence is bound by device memory traffic; where one frame's
@@ -90,6 +95,7 @@
 // Interface: plain C, loaded with ctypes; pointers and the stream arrive
 // as void*, and every entry point returns the cudaError_t of its launches.
 
+#include "cp_async.cuh"
 #include "pdhg_chunk.cuh"
 
 namespace {
@@ -432,12 +438,76 @@ __global__ void deblur_dual(DB b, int save_prev) {
   b.g[n + p] = gy2;
 }
 
-// First pass of the four preconditioned residual norms (_chunk_core after
-// the aligned iteration): per pixel of the owned rows of the yv grid the
-// terms of |pd|^2, |z_hat|^2 (the yv plane, and inside the image the q
-// planes), and inside the image |dd|^2 and |w_hat|^2, then per-block tree
-// sums into partial[4 * block].  K^T of the current and previous duals is
-// recomputed.
+// The four terms of the preconditioned residual norms at pixel (i, j) of
+// an owned row of the yv grid (_chunk_core after the aligned iteration):
+// those of |pd|^2, |z_hat|^2 (the yv plane, and inside the image the q
+// planes), and inside the image |dd|^2 and |w_hat|^2, K^T of the current
+// and previous duals recomputed.  CARRIED: B x, B x_prev, grad x and
+// grad x_prev read from the carried planes; else recomputed from x and
+// x_prev by the same expressions, which gives the same bits.
+template <bool CARRIED, typename T>
+__device__ __forceinline__ void norm_terms(const DB& b, const RowCtx& r,
+                                           int i, int j, const T& t,
+                                           float v[4]) {
+  float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
+  float theta = b.sc[S_THETA];
+  float tp = 1.f + theta;
+  size_t p2 = (size_t)i * b.ny2 + j;
+  float sqrt_sv = sqrtf(b.sv[p2]);
+  float inv_v = 1.f / (sigma_raw * sqrt_sv);
+  float bx2, bxp;
+  if constexpr (CARRIED) {
+    bx2 = b.bx[p2];
+    bxp = b.bxp[p2];
+  } else {
+    bx2 = conv_fwd(xplane(b.x, b), b, r, i, j, t);
+    bxp = conv_fwd(xplane(b.xp, b), b, r, i, j, t);
+  }
+  float zv = (b.yvp[p2] - b.yv[p2]) * inv_v
+             + sqrt_sv * (tp * bx2 - theta * bxp);
+  float pdv = zv - sqrt_sv * bx2;
+  v[0] = pdv * pdv;
+  v[1] = zv * zv;
+  if (image_row(r, i, b.nx) && j < b.ny) {
+    size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+    float inv_q = 1.f / (sigma_raw * b.sqrt_q);
+    float inv_t = 1.f / (tau_raw * b.sqrt_t);
+    float gx2, gy2, gpx, gpy;
+    if constexpr (CARRIED) {
+      gx2 = b.g[p];
+      gy2 = b.g[n + p];
+      gpx = b.gp[p];
+      gpy = b.gp[n + p];
+    } else {
+      bool below = has_below(r, i, b.nx), right = j < b.ny - 1;
+      float xv = b.x[p], xpv = b.xp[p];
+      gx2 = below ? b.x[p + b.ny] - xv : 0.f;
+      gy2 = right ? b.x[p + 1] - xv : 0.f;
+      gpx = below ? b.xp[p + b.ny] - xpv : 0.f;
+      gpy = right ? b.xp[p + 1] - xpv : 0.f;
+    }
+    float zx = (b.qp[p] - b.q[p]) * inv_q
+               + b.sqrt_q * (tp * gx2 - theta * gpx);
+    float zy = (b.qp[n + p] - b.q[n + p]) * inv_q
+               + b.sqrt_q * (tp * gy2 - theta * gpy);
+    float pdx = zx - b.sqrt_q * gx2;
+    float pdy = zy - b.sqrt_q * gy2;
+    float kty2 = kty_at(yplane(b.yv, b), xplane(b.q, b),
+                        xplane(b.q + n, b), b, r, i, j, t);
+    float ktyp = kty_at(yplane(b.yvp, b), xplane(b.qp, b),
+                        xplane(b.qp + n, b), b, r, i, j, t);
+    float wh = (b.xp[p] - b.x[p]) * inv_t - b.sqrt_t * ktyp;
+    float dd = wh + b.sqrt_t * kty2;
+    v[0] += pdx * pdx + pdy * pdy;
+    v[1] += zx * zx + zy * zy;
+    v[2] = dd * dd;
+    v[3] = wh * wh;
+  }
+}
+
+// First pass of the four preconditioned residual norms: per pixel of the
+// owned rows of the yv grid the terms (norm_terms, from the carried
+// products), then per-block tree sums into partial[4 * block].
 // Bound: memory, once per chunk.
 __global__ void deblur_norm_partial(DB b) {
   b = instance_of(b);
@@ -447,42 +517,8 @@ __global__ void deblur_norm_partial(DB b) {
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
   RowCtx r = deblur_rows(b);
-  if (pixel(b.nx2, b.ny2, i, j) && owned_row(r, i)) {
-    float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
-    float theta = b.sc[S_THETA];
-    float tp = 1.f + theta;
-    size_t p2 = (size_t)i * b.ny2 + j;
-    float sqrt_sv = sqrtf(b.sv[p2]);
-    float inv_v = 1.f / (sigma_raw * sqrt_sv);
-    float bx2 = b.bx[p2];
-    float zv = (b.yvp[p2] - b.yv[p2]) * inv_v
-               + sqrt_sv * (tp * bx2 - theta * b.bxp[p2]);
-    float pdv = zv - sqrt_sv * bx2;
-    v[0] = pdv * pdv;
-    v[1] = zv * zv;
-    if (image_row(r, i, b.nx) && j < b.ny) {
-      size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
-      float inv_q = 1.f / (sigma_raw * b.sqrt_q);
-      float inv_t = 1.f / (tau_raw * b.sqrt_t);
-      float gx2 = b.g[p], gy2 = b.g[n + p];
-      float zx = (b.qp[p] - b.q[p]) * inv_q
-                 + b.sqrt_q * (tp * gx2 - theta * b.gp[p]);
-      float zy = (b.qp[n + p] - b.q[n + p]) * inv_q
-                 + b.sqrt_q * (tp * gy2 - theta * b.gp[n + p]);
-      float pdx = zx - b.sqrt_q * gx2;
-      float pdy = zy - b.sqrt_q * gy2;
-      float kty2 = kty_at(yplane(b.yv, b), xplane(b.q, b),
-                          xplane(b.q + n, b), b, r, i, j, t);
-      float ktyp = kty_at(yplane(b.yvp, b), xplane(b.qp, b),
-                          xplane(b.qp + n, b), b, r, i, j, t);
-      float wh = (b.xp[p] - b.x[p]) * inv_t - b.sqrt_t * ktyp;
-      float dd = wh + b.sqrt_t * kty2;
-      v[0] += pdx * pdx + pdy * pdy;
-      v[1] += zx * zx + zy * zy;
-      v[2] = dd * dd;
-      v[3] = wh * wh;
-    }
-  }
+  if (pixel(b.nx2, b.ny2, i, j) && owned_row(r, i))
+    norm_terms<true>(b, r, i, j, t, v);
   block_partials(v, b.partial);
 }
 
@@ -896,6 +932,343 @@ size_t resident_smem(K kernel, int nx2, int ny, int ny2, int reach,
   return smem;
 }
 
+// ---------------------------------------------------------------------------
+// The tiled chunk (deblur_fused_chunk_banded -> _deblur_banded_kernel,
+// _deblur_banded_db_kernel), for the planes whose bands no grid-resident
+// launch holds (config 2 at 2048x2048, and the sharded route's band at
+// 2048 rows and above).  The TPU kernel runs one launch a chunk over row
+// bands of the yv grid, each band's window with (2 count + 2) reach rows
+// of halo DMAed into VMEM and the whole chunk run there.
+//
+// What bounds it.  An iteration moves information by the blur's reach
+// twice (K^T y, then B x), so a window that holds a whole chunk is several
+// times its tile (176 rows of halo at ri 10); one iteration needs only
+// reach + 1 pixels around a tile.  So each iteration is one pass over
+// device memory: x, q_x, q_y (n floats each) and yv (m2) read through the
+// windows' overlap, f_b and Sigma_v read at the owned pixels, the four
+// state planes written, about 10 plane passes (16.8 MB each at
+// 2048x2048): some 0.05 ms at the card's memory rate, where the streaming
+// sequence moves about 17 passes in two launches.  Inside the window the
+// half-steps are stencils over shared memory: K^T y on the window less a
+// border, two convolutions (B x of the new and of the old x) at each owned
+// pixel.
+//
+// Design.  One cooperative launch a chunk, one block of DT_THREADS on each
+// SM (32 rows of 32 threads), a grid barrier between iterations: iteration
+// t reads slot t mod 2 (slot A the caller's x, yv and q, slot B 4 planes of
+// scratch) and writes the other.  The blocks walk the yv grid's tiles (tx
+// rows, a multiple of 8, by ty columns, of 32; the x grid's pixels are
+// owned with the yv grid's at the same place); a tile's window is the tile
+// and h = reach + 1 pixels on every side (reach = the taps' largest row or
+// column shift, at least 1; ops/fused_deblur.py deblur_tiled_halo: the
+// primal step reads q one pixel up and left and yv up to reach pixels down
+// and right, the dual step x_new up to reach pixels up and left and one
+// down and right).  In shared memory five planes of the window:
+//   1. cp.async loads of x, q_x, q_y and yv, zero outside the planes;
+//   2. the primal step (deblur_primal's) into a second x plane on the rows
+//      [R0 - reach, R1] and columns [C0 - reach, C1] of the tile
+//      [R0, R1) x [C0, C1);
+//   3. the dual step (deblur_dual's) at the owned pixels into the other
+//      slot: B x and grad x of the old x, which the streaming sequence
+//      carries in planes, recomputed from the window by the same functions
+//      (conv_fwd, the forward differences), which give the same bits; on
+//      the chunk's last iteration the old x, yv and q also into the
+//      caller's previous-iterate planes.
+// Every mask is decided by the pixel's place in the planes (the row
+// context of deblur_rows, as the streaming kernels decide it); a read
+// outside the planes is the zero the load put there.  After the last
+// iteration and a grid barrier the blocks reduce deblur_norm_partial's
+// 32x8 tiles from the written slot (norm_terms, the products recomputed;
+// four tiles at a time in block_partials' tree), copying slot B back into
+// the caller's planes after an odd count as they read it; pdhg_finish
+// follows.  Planes and norms are the streaming sequence's bit for bit.  A
+// launch whose flag is set at entry returns before its first barrier.
+// ---------------------------------------------------------------------------
+
+constexpr int DT_THREADS = 1024;  // a block: 32 rows of 32 threads
+constexpr int DT_ROWS = DT_THREADS / BX;
+constexpr int DT_PLANES = 5;      // x, x after the primal step, yv, q_x, q_y
+constexpr int DT_RED = (DT_THREADS / NT) * 4 * NT;  // the norm pass's trees
+
+// The dynamic shared memory of a block of the tiled launch (mirrored by
+// ops/fused_deblur.py deblur_tiled_bytes).
+inline size_t deblur_tiled_smem(int tx, int ty, int h) {
+  const size_t planes =
+      (size_t)DT_PLANES * (tx + 2 * (size_t)h) * (ty + 2 * (size_t)h);
+  return (planes > (size_t)DT_RED ? planes : (size_t)DT_RED) * sizeof(float);
+}
+
+// A window of a plane in shared memory: at(i, j) is element (i, j) of the
+// whole plane, the window's corner (r0, c0), its rows w floats apart.
+struct TWin {
+  float* a;
+  int r0, c0, w;
+  __device__ __forceinline__ float& at(int i, int j) const {
+    return a[(i - r0) * w + (j - c0)];
+  }
+};
+
+// The scalars of a launch as the streaming kernels form them.
+struct TiledScal {
+  float tau_s, sigma, theta, tp, inv_l, sig_p, sig_t, radius;
+};
+
+__device__ __forceinline__ TiledScal tiled_scal(const DB& b) {
+  TiledScal k;
+  k.tau_s = b.sc[S_TAU] * b.tau_t;  // tau * Tau
+  k.sigma = b.sc[S_SIGMA];
+  k.theta = b.sc[S_THETA];
+  k.tp = 1.f + k.theta;
+  k.inv_l = 1.f / b.sc[S_LMB];
+  const float sq = k.sigma * b.sig_q;  // sigma * Sigma_q
+  k.sig_p = sq * k.tp;
+  k.sig_t = sq * k.theta;
+  k.radius = b.sc[S_RADIUS];
+  return k;
+}
+
+// One iteration on tile `tile` of the tiles of tx x ty: the window from
+// slot `src`, the owned pixels into slot `dst`; with `last` the old values
+// also into the previous-iterate planes (a's xp, yvp, qp).  `a` holds the
+// read-only planes and the shapes.
+template <typename T>
+__device__ __forceinline__ void tiled_iteration(
+    const DB& src, const DB& dst, const DB& a, const RowCtx& r,
+    const TiledScal& k, int tile, int tx, int ty, int h, bool last,
+    const T& t, float* smem) {
+  const int nx = a.nx, ny = a.ny, nx2 = a.nx2, ny2 = a.ny2;
+  const size_t n = (size_t)nx * ny;
+  const int ntc = (ny2 + ty - 1) / ty;
+  const int R0 = tile / ntc * tx, C0 = tile % ntc * ty;
+  const int R1 = min(R0 + tx, nx2), C1 = min(C0 + ty, ny2);
+  const int r0 = R0 - h, c0 = C0 - h;
+  const int wh = R1 + h - r0, ww = C1 + h - c0, m = wh * ww;
+  const TWin X{smem, r0, c0, ww}, XN{smem + m, r0, c0, ww};
+  const TWin YV{smem + 2 * m, r0, c0, ww}, QX{smem + 3 * m, r0, c0, ww};
+  const TWin QY{smem + 4 * m, r0, c0, ww};
+  const int lane = threadIdx.x % BX, row = threadIdx.x / BX;
+
+  // 1. the window of the state, zero outside the planes
+  for (int wi = row; wi < wh; wi += DT_ROWS) {
+    const int i = r0 + wi;
+    for (int wj = lane; wj < ww; wj += BX) {
+      const int j = c0 + wj, p = wi * ww + wj;
+      if (i >= 0 && i < nx && j >= 0 && j < ny) {
+        const size_t g = (size_t)i * ny + j;
+        cp_async4(X.a + p, src.x + g);
+        cp_async4(QX.a + p, src.q + g);
+        cp_async4(QY.a + p, src.q + n + g);
+      } else {
+        X.a[p] = 0.f;
+        QX.a[p] = 0.f;
+        QY.a[p] = 0.f;
+      }
+      if (i >= 0 && i < nx2 && j >= 0 && j < ny2)
+        cp_async4(YV.a + p, src.yv + (size_t)i * ny2 + j);
+      else
+        YV.a[p] = 0.f;
+    }
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  // 2. deblur_primal on rows [R0 - reach, R1], columns [C0 - reach, C1]
+  for (int i = r0 + 1 + row; i <= R1; i += DT_ROWS)
+    for (int j = c0 + 1 + lane; j <= C1; j += BX) {
+      const float xv = X.at(i, j);
+      float xn = xv;  // beyond the image x stays (and is not read)
+      if (i >= 0 && image_row(r, i, nx) && j >= 0 && j < ny)
+        xn = xv - k.tau_s * kty_at(YV, QX, QY, a, r, i, j, t);
+      XN.at(i, j) = xn;
+    }
+  __syncthreads();
+
+  // 3. deblur_dual at the owned pixels, into slot dst
+  for (int i = R0 + row; i < R1; i += DT_ROWS)
+    for (int j = C0 + lane; j < C1; j += BX) {
+      const size_t p2 = (size_t)i * ny2 + j;
+      const float bx2 = conv_fwd(XN, a, r, i, j, t);
+      const float bxv = conv_fwd(X, a, r, i, j, t);  // the carried B x
+      const float tsv = k.sigma * a.sv[p2];  // sigma * Sigma_v
+      const float den = 1.f / (1.f + tsv * k.inv_l);
+      const float sh = tsv * a.fb[p2];
+      const float yvv = YV.at(i, j);
+      const float av = yvv + tsv * (k.tp * bx2 - k.theta * bxv);
+      dst.yv[p2] = (av - sh) * den;
+      if (last) a.yvp[p2] = yvv;
+      if (i >= nx || j >= ny) continue;
+      const size_t p = (size_t)i * ny + j;
+      const float xo = X.at(i, j), qx = QX.at(i, j), qy = QY.at(i, j);
+      if (last) {
+        a.xp[p] = xo;
+        a.qp[p] = qx;
+        a.qp[n + p] = qy;
+      }
+      if (!image_row(r, i, nx)) {  // a band's row beyond the image stays
+        dst.x[p] = xo;
+        dst.q[p] = qx;
+        dst.q[n + p] = qy;
+        continue;
+      }
+      const float xv = XN.at(i, j);
+      const bool below = has_below(r, i, nx), right = j < ny - 1;
+      const float gx2 = below ? XN.at(i + 1, j) - xv : 0.f;
+      const float gy2 = right ? XN.at(i, j + 1) - xv : 0.f;
+      const float gx = below ? X.at(i + 1, j) - xo : 0.f;  // the carried g
+      const float gy = right ? X.at(i, j + 1) - xo : 0.f;
+      const float ax = (qx + k.sig_p * gx2) - k.sig_t * gx;
+      const float ay = (qy + k.sig_p * gy2) - k.sig_t * gy;
+      const float nn = ax * ax + ay * ay;
+      const float scale = nn > 0.f ? fminf(1.f, k.radius * rsqrtf(nn)) : 1.f;
+      dst.x[p] = xv;
+      dst.q[p] = ax * scale;
+      dst.q[n + p] = ay * scale;
+    }
+}
+
+// The body of deblur_tiled with the taps `t`: `count` iterations from slot
+// A (a) through slot B (b), then deblur_norm_partial's tiles of the slot
+// written last, slot B copied back into a's planes after an odd count.
+template <typename T>
+__device__ __forceinline__ void deblur_tiled_body(const DB& a, const DB& b,
+                                                  int count, int h, int tx,
+                                                  int ty, const T& t,
+                                                  float* smem) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const RowCtx r = deblur_rows(a);
+  const TiledScal k = tiled_scal(a);
+  const int nx2 = a.nx2, ny2 = a.ny2;
+  const int ntiles = ((nx2 + tx - 1) / tx) * ((ny2 + ty - 1) / ty);
+  for (int it = 0; it < count; ++it) {
+    const DB& src = (it & 1) ? b : a;
+    const DB& dst = (it & 1) ? a : b;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      tiled_iteration(src, dst, a, r, k, tile, tx, ty, h, it == count - 1,
+                      t, smem);
+      __syncthreads();  // the next window overwrites the planes
+    }
+    grid.sync();
+  }
+
+  // deblur_norm_partial's tiles, four at a time (block_partials' tree)
+  const bool back = (count & 1) != 0;
+  const DB& fin = back ? b : a;
+  const size_t n = (size_t)a.nx * a.ny;
+  const int ntx = (ny2 + BX - 1) / BX;
+  const int nnorm = (nx2 + BY - 1) / BY * ntx;
+  const int group = threadIdx.x / NT, tt = threadIdx.x % NT;
+  const int groups = DT_THREADS / NT;
+  float* red = smem + group * 4 * NT;  // red[c * NT + tt]
+  for (int base = groups * blockIdx.x; base < nnorm;
+       base += groups * gridDim.x) {
+    const int tile = base + group;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (tile < nnorm) {
+      const int i = tile / ntx * BY + tt / BX, j = tile % ntx * BX + tt % BX;
+      if (i < nx2 && j < ny2) {
+        if (owned_row(r, i)) norm_terms<false>(fin, r, i, j, t, v);
+        if (back) {
+          const size_t p2 = (size_t)i * ny2 + j, p = (size_t)i * a.ny + j;
+          a.yv[p2] = b.yv[p2];
+          if (i < a.nx && j < a.ny) {
+            a.x[p] = b.x[p];
+            a.q[p] = b.q[p];
+            a.q[n + p] = b.q[n + p];
+          }
+        }
+      }
+    }
+    for (int c = 0; c < 4; ++c) red[c * NT + tt] = v[c];
+    __syncthreads();
+    for (int s = NT / 2; s > 0; s >>= 1) {
+      if (tt < s)
+        for (int c = 0; c < 4; ++c) red[c * NT + tt] += red[c * NT + tt + s];
+      __syncthreads();
+    }
+    if (tt == 0 && tile < nnorm)
+      for (int c = 0; c < 4; ++c) a.partial[4 * tile + c] = red[c * NT];
+    __syncthreads();  // the next pass overwrites red
+  }
+}
+
+// N > 0: a launch of N taps, held in registers; N = 0: any count, read
+// from shared memory.
+template <int N>
+__global__ void __launch_bounds__(DT_THREADS, 1)
+    deblur_tiled(DB a, DB b, int count, int h, int tx, int ty) {
+  if (a.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  __shared__ Taps ts;
+  stage_taps(a.taps, a.ntaps, ts);
+  if constexpr (N > 0) {
+    const TapsN<N> t = taps_in_registers<N>(ts);
+    deblur_tiled_body(a, b, count, h, tx, ty, t, smem);
+  } else {
+    deblur_tiled_body(a, b, count, h, tx, ty, ts, smem);
+  }
+}
+
+using DBTiledKernel = void (*)(DB, DB, int, int, int, int);
+
+// The tiled kernel for `ntaps` taps: the taps in registers up to
+// RES_REG_TAPS, else read from shared memory.
+DBTiledKernel deblur_tiled_kernel(int ntaps) {
+  switch (ntaps) {
+    case 1: return deblur_tiled<1>;
+    case 2: return deblur_tiled<2>;
+    case 3: return deblur_tiled<3>;
+    case 4: return deblur_tiled<4>;
+    case 5: return deblur_tiled<5>;
+    case 6: return deblur_tiled<6>;
+    case 7: return deblur_tiled<7>;
+    case RES_REG_TAPS: return deblur_tiled<RES_REG_TAPS>;
+    default: return deblur_tiled<0>;
+  }
+}
+
+// One tiled chunk: the cooperative launch (one block of DT_THREADS on each
+// SM) and pdhg_finish; slot B's x, yv and q in `scratch` (n, m2 and 2 n
+// floats).  A tile that is not a multiple of the 32x8 norm tiles or whose
+// window does not fit in a block's shared memory is refused with
+// cudaErrorInvalidValue, a grid the card cannot hold at once by the card
+// (cudaErrorCooperativeLaunchTooLarge).
+int tiled_chunk(DB& a, void* scratch, int count, int h, int tx, int ty,
+                cudaStream_t st) {
+  if (tx < BY || tx % BY || ty < BX || ty % BX || h < 2 || count < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)a.nx * a.ny, m2 = (size_t)a.nx2 * a.ny2;
+  DB b = a;
+  b.x = (float*)scratch;
+  b.yv = b.x + n;
+  b.q = b.yv + m2;
+  DBTiledKernel kernel = deblur_tiled_kernel(a.ntaps);
+  const size_t smem = deblur_tiled_smem(tx, ty, h);
+  const int limit = resident_smem_limit(kernel);
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int sms = 0, per_sm = 0;
+  if (int rc = device_sms(&sms)) return rc;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      DT_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&a, &b, &count, &h, &tx, &ty};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms),
+                                  dim3(DT_THREADS), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  LAUNCH_CHECK();
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const dim3 g = grid_of(a.nx2, a.ny2);
+  pdhg_finish<<<1, FIN, 0, st>>>(a.sc, a.partial, (int)(g.x * g.y), count,
+                                 0, STEP_NONE, none);
+  LAUNCH_CHECK();
+  return 0;
+}
+
 // One chunk of `batch` frames: the seed, `count` iterations, the norm
 // partials on the (nx2, ny2) grid and the squared norms of every frame into
 // its scalars (one finish block each).
@@ -1059,6 +1432,38 @@ int prost_deblur_chunk_resident(void* x, void* yv, void* q, void* xp,
   if (rc) return rc;
   void* args[] = {&b, &count, &reach, &rmax};
   return resident_launch(kernel, args, smem, (cudaStream_t)stream);
+}
+
+// deblur_fused_chunk and deblur_fused_chunk_halo for the planes no
+// grid-resident band holds (deblur_fused_chunk_banded's): one tiled
+// cooperative launch (deblur_tiled) and the finish.  The arguments of
+// prost_deblur_chunk_resident with `scratch` (3 nx ny + nx2 ny2 floats,
+// slot B) for `terms`, the window's halo h for `reach`
+// (ops/fused_deblur.py deblur_tiled_halo), and the owned tile (tx rows, a
+// multiple of 8; ty columns, of 32).  Bit-equal to prost_deblur_chunk
+// (prost_deblur_chunk_halo) in the planes and the 4 squared norms.  No-op
+// when sc[S_CONV] is set.  A tile the launch cannot take is refused
+// (cudaErrorInvalidValue, or the card's refusal of the cooperative
+// launch).
+int prost_deblur_chunk_tiled(void* x, void* yv, void* q, void* xp,
+                             void* yvp, void* qp, const void* fb,
+                             const void* sv, const void* taps, void* sc,
+                             void* partial, void* scratch, int nx, int ny,
+                             int nx2, int ny2, int ntaps, int halo,
+                             float sig_q, float tau_t, float sqrt_q,
+                             float sqrt_t, int nx_global, int count, int tx,
+                             int ty, void* stream) {
+  DB a = deblur_of(x, yv, q, xp, yvp, qp, nullptr, nullptr, nullptr,
+                   nullptr, fb, sv, taps, sc, partial, nx, ny, nx2, ny2,
+                   ntaps, sig_q, tau_t, sqrt_q, sqrt_t);
+  a.nxg = nx_global;
+  return tiled_chunk(a, scratch, count, halo, tx, ty, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory a block of the tiled launch may hold on the
+// current device (the same for every tap count), or minus the error.
+int prost_deblur_tiled_smem() {
+  return resident_smem_limit(deblur_tiled_kernel(0));
 }
 
 // deblur_fused_chunk_batched as one grid-resident cooperative launch

@@ -71,10 +71,9 @@ from ..backend.admm import (ADMMState, BackendADMM, admm_residual_adapt,
 from ..backend.pdhg import hold_if
 from ..config import ProstError
 from .fused_rof import (DATATERMS, TILE_COLS, TILE_ROWS, _SQRT_S, _SQRT_T,
-                        _check_path, match_rof_structure, tile_partials,
-                        window_ops)
-from .pdhg_chunk import (CF, CI, PATHS, VP, WHOLE_PLANE, card_sms,
-                         check_buffers, check_halo, dead_dual_flat, dx, dxt,
+                        match_rof_structure, tile_partials, window_ops)
+from .pdhg_chunk import (CF, CI, VP, WHOLE_PLANE, card_sms, check_buffers,
+                         check_halo, check_path, dead_dual_flat, dx, dxt,
                          dy, dyt, entry_converged, halo_row_ops, launch, ptr,
                          resident_rows, scalar_buffer, typed_lib)
 from .phases import K_CHUNKS, run_phases
@@ -790,7 +789,7 @@ def admm_pick_route(path, nx: int, ny: int, dataterm: str, degree,
     window does, raises ``ProstError``.  ``degree`` None (the CGLS
     projection) streams.  ``tile`` is the tiled launch's (rows, columns),
     else None."""
-    _check_path(path, what)
+    check_path(path, what)
     if degree is None:
         if path in ("resident", "tiled"):
             raise ProstError(f"{what}: the CGLS projection runs as the "
@@ -907,7 +906,7 @@ def admm_chunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
     reduce across the grid several times an iteration."""
     planes = (xh, xp, xd, zh, zp, zd, warm)
     _check(planes, f, w, scal, 3, count, dataterm)
-    _check_path(path, "admm_chunk")
+    check_path(path, "admm_chunk")
     if cheby_degree is None:
         if cg_tols is None or cg_tols.numel() < int(count):
             raise ProstError("The CGLS projection needs count CG "
@@ -1123,7 +1122,7 @@ def admm_multichunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, count: int,
         raise ProstError("The multichunk needs a Chebyshev degree >= 1.")
     if not all(t.is_contiguous() for t in planes):
         raise ProstError("admm_multichunk_ takes contiguous planes only.")
-    _check_path(path, "admm_multichunk")
+    check_path(path, "admm_multichunk")
     if xh.device.type == "cpu":
         out = admm_multichunk_plain(*planes, f, w, scal, count, k_chunks,
                                     alpha, cheby_degree, consts, dataterm)

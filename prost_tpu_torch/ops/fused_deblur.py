@@ -15,7 +15,7 @@ The alpha preconditioner is constant on the gradient rows (Sigma_q) and on
 the columns (Tau), and a plane on the convolution rows (Sigma_v, the row
 sums of |B|, which vary at the boundary).
 
-Two kernels carry the route, hand-written CUDA in ``csrc/fused_deblur.cu``
+Three kernels carry the route, hand-written CUDA in ``csrc/fused_deblur.cu``
 with a plain PyTorch version beside each wrapper here:
 
 * ``deblur_chunk`` (JAX ``deblur_fused_chunk``): ``count`` iterations
@@ -35,15 +35,18 @@ in-place forms, ``deblur_chunk_``, ``deblur_chunk_halo_`` and
 per route.  On a card each runs as one grid-resident cooperative launch
 where the shape rule (``resident_ok``, on one frame: a batched launch runs
 its frames one after another) finds that one frame's planes fit in the
-shared memory of one block per SM, and as the streaming launch sequence
-otherwise; both are bit-equal.
+shared memory of one block per SM.  Where they do not, the single-instance
+chunk and its halo mode run as one tiled cooperative launch (the JAX
+package's ``deblur_fused_chunk_banded``, row 19 of the kernel table:
+``deblur_route_of``, a tile's window of ``deblur_tiled_halo`` pixels a
+side in the shared memory of a block, a grid barrier an iteration), and
+the batched chunk, and any chunk whose window does not fit, as the
+streaming launch sequence; all are bit-equal.  ``path=`` asks for one.
 
 The JAX package has no multichunk kernel for this workload, and neither
 has the port.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel, or raises.  There is no fallback to the
-generic path and no VMEM gate: the kernel keeps its planes in device
-memory, so it also serves the sizes for which the JAX package bands its
-kernel (``deblur_fused_chunk_banded``).
+generic path and no VMEM gate.
 
 Layout.  The JAX kernel holds every plane embedded in the (nx2, ny2)
 full-convolution geometry, zero outside the (nx, ny) region, and the
@@ -80,7 +83,7 @@ from ..prox.elemop import ProxElem1D
 from ..prox.standalone import ProxZero
 from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
                          S_NORM, VP, LightChunk, ball_scale, card_sms,
-                         check_buffers, check_halo, check_inplace,
+                         check_buffers, check_halo, check_inplace, check_path,
                          chunk_state, coeff_vector, dual_ball_radius,
                          entry_converged, halo_copy, halo_into,
                          instance_strides, isscalar, launch, own_vectors,
@@ -92,7 +95,8 @@ MAX_TAPS = 96  # nonzero convolution taps the kernel takes
 
 # launches of the kernel wrapper on the card (CPU calls do not count)
 launch_counts = {"deblur_chunk": 0, "deblur_chunk_batched": 0,
-                 "deblur_chunk_halo": 0}
+                 "deblur_chunk_halo": 0, "deblur_chunk_tiled": 0,
+                 "deblur_chunk_halo_tiled": 0}
 
 
 def reset_launch_counts() -> None:
@@ -163,16 +167,23 @@ def _conv_ops(region, taps):
     return fwd, adj
 
 
-def _grad_ops(nx, ny, nrows, ny2, device, row_offset: int = 0):
+def _grad_ops(nx, ny, nrows, ny2, device, row_offset: int = 0,
+              window=None):
     """Forward differences and their adjoint restricted to the image of
     ``nrows`` rows of the yv grid whose local row 0 is global row
     ``row_offset`` (0 for the whole plane, nrows = nx2), the image being
-    global rows [0, nx) and columns [0, ny)."""
-    li = torch.arange(nrows, device=device)[:, None]
-    gi = li + row_offset
-    ci = torch.arange(ny2, device=device)[None, :]
-    in_r = (li < nrows - 1) & (gi >= 0) & (gi < nx - 1)
-    in_c = ci < ny - 1
+    global rows [0, nx) and columns [0, ny).  ``window`` = (r0, c0, wh,
+    ww): the ops of the window of rows [r0, r0 + wh) and columns [c0, c0 +
+    ww) of those rows, every mask decided by the pixel's place in them, a
+    neighbour outside the window taken as 0 (None: the whole rows)."""
+    r0, c0, wh, ww = (0, 0, nrows, ny2) if window is None else window
+    li = torch.arange(wh, device=device)[:, None]
+    bi = li + r0                       # the band's local row
+    gi = bi + row_offset               # the global row
+    lj = torch.arange(ww, device=device)[None, :]
+    ci = lj + c0
+    in_r = ((li < wh - 1) & (bi < nrows - 1) & (gi >= 0) & (gi < nx - 1))
+    in_c = (lj < ww - 1) & (ci < ny - 1)
     region = (gi >= 0) & (gi < nx) & (ci < ny)
 
     def dx(u):
@@ -192,32 +203,21 @@ def _grad_ops(nx, ny, nrows, ny2, device, row_offset: int = 0):
     return dx, dy, dxt, dyt, region
 
 
-def chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, yv0, qx0, qy0, fb,
-               sv, count: int, nx: int, ny: int, taps, sig_q: float,
-               tau_t: float, band=None):
-    """``count - 1`` plain iterations, then the aligned iteration with its
-    four preconditioned residual norms (squared), on planes embedded in
-    fb.shape, the yv grid: the JAX package's ``_chunk_core``.  ``band`` =
-    (row_offset, own_lo, own_hi) runs it on a halo-extended band of the yv
-    grid's rows, its masks on global rows and its norms over the owned
-    rows; None is the whole plane.
+def _chunk_ops(nx, ny, nrows, ny2, taps, device, row_offset: int = 0,
+               window=None):
+    """(dx, dy, dxt, dyt, conv_fwd, conv_adj) of ``_grad_ops`` and
+    ``_conv_ops`` on the same rows (or window)."""
+    dx, dy, dxt, dyt, region = _grad_ops(nx, ny, nrows, ny2, device,
+                                         row_offset, window)
+    return (dx, dy, dxt, dyt) + _conv_ops(region, taps)
 
-    Returns (x2, yv2, qx2, qy2, x_prev, yv_prev, qx_prev, qy_prev, norms),
-    all embedded."""
-    nrows, ny2 = fb.shape
-    row_offset, own_lo, own_hi = (0, 0, nrows) if band is None else band
-    dx, dy, dxt, dyt, region = _grad_ops(nx, ny, nrows, ny2, fb.device,
-                                         row_offset)
-    conv_fwd, conv_adj = _conv_ops(region, taps)
-    if band is None:
-        nsum = torch.sum
-    else:
-        li = torch.arange(nrows, device=fb.device)[:, None]
-        owned = (li >= own_lo) & (li < own_hi)
 
-        def nsum(v):
-            return torch.sum(torch.where(owned, v, 0.0))
-
+def _iteration(ops, tau_raw, sigma_raw, theta, lmb, radius, fb, sv,
+               sig_q: float, tau_t: float):
+    """``_chunk_core``'s iteration on planes of fb.shape (fb and sv cut
+    like the state): (x, yv, qx, qy, bx, gx, gy) -> (x2, yv2, qx2, qy2,
+    bx2, gx2, gy2, kty), (bx, gx, gy) = K x carried."""
+    dx, dy, dxt, dyt, conv_fwd, conv_adj = ops
     tau_s = tau_raw * tau_t            # tau * Tau
     tsv = sigma_raw * sv               # sigma * Sigma_v (plane)
     sq = sigma_raw * sig_q             # sigma * Sigma_q
@@ -239,17 +239,22 @@ def chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, yv0, qx0, qy0, fb,
         scale = ball_scale(ax * ax + ay * ay, radius)
         return x2, yv2, ax * scale, ay * scale, bx2, gx2, gy2, kty
 
-    x, yv, qx, qy = x0, yv0, qx0, qy0
-    bx, gx, gy = conv_fwd(x0), dx(x0), dy(x0)
-    for _ in range(count - 1):
-        x, yv, qx, qy, bx, gx, gy, _ = update(x, yv, qx, qy, bx, gx, gy)
-    # aligned iteration; (bx, gx, gy) = K x_prev carried for free
-    x2, yv2, qx2, qy2, bx2, gx2, gy2, ktyp = update(x, yv, qx, qy, bx, gx,
-                                                    gy)
-    kty2 = conv_adj(yv2) + dxt(qx2) + dyt(qy2)
+    return update
 
-    # preconditioned residuals, segment-wise sqrt(Sigma): plane for v,
-    # constant for q
+
+def _residuals(ops, tau_raw, sigma_raw, theta, sv, sig_q: float,
+               tau_t: float, old, new, kx_old, kx_new, ktyp):
+    """The preconditioned residual planes of an aligned iteration from the
+    iterate before it (``old``: x, yv, qx, qy) and after it (``new``), K x
+    of each (``kx_old``, ``kx_new``: bx, gx, gy) and K^T y of ``old``
+    (``ktyp``), segment-wise sqrt(Sigma): a plane for v, a constant for q.
+    Returns (pd_v, pd_x, pd_y, zh_v, zh_x, zh_y, dd, wh)."""
+    _, _, dxt, dyt, _, conv_adj = ops
+    x, yv, qx, qy = old
+    x2, yv2, qx2, qy2 = new
+    bx, gx, gy = kx_old
+    bx2, gx2, gy2 = kx_new
+    kty2 = conv_adj(yv2) + dxt(qx2) + dyt(qy2)
     sqrt_sv = torch.sqrt(sv)
     sqrt_sq = sig_q ** 0.5
     sqrt_t = tau_t ** 0.5
@@ -263,13 +268,69 @@ def chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, yv0, qx0, qy0, fb,
     pd_y = zh_y - sqrt_sq * gy2
     wh = (x - x2) * (1.0 / (tau_raw * sqrt_t)) - sqrt_t * ktyp
     dd = wh + sqrt_t * kty2
+    return pd_v, pd_x, pd_y, zh_v, zh_x, zh_y, dd, wh
 
-    norms = (
+
+def _owned_rows(nrows: int, band, device):
+    """The owned rows of ``band`` = (row_offset, own_lo, own_hi) of
+    ``nrows`` as an (nrows, 1) mask."""
+    li = torch.arange(nrows, device=device)[:, None]
+    return (li >= band[1]) & (li < band[2])
+
+
+def _owned_sum(nrows: int, band, device):
+    """The sum of a plane over the owned rows of ``band`` (None: every
+    row, ``torch.sum``)."""
+    if band is None:
+        return torch.sum
+    owned = _owned_rows(nrows, band, device)
+
+    def nsum(v):
+        return torch.sum(torch.where(owned, v, 0.0))
+
+    return nsum
+
+
+def _norm_sums(res, nsum):
+    """The four squared norms from ``_residuals``' planes."""
+    pd_v, pd_x, pd_y, zh_v, zh_x, zh_y, dd, wh = res
+    return (
         nsum(pd_v * pd_v) + nsum(pd_x * pd_x) + nsum(pd_y * pd_y),
         nsum(zh_v * zh_v) + nsum(zh_x * zh_x) + nsum(zh_y * zh_y),
         nsum(dd * dd),
         nsum(wh * wh),
     )
+
+
+def chunk_core(tau_raw, sigma_raw, theta, lmb, radius, x0, yv0, qx0, qy0, fb,
+               sv, count: int, nx: int, ny: int, taps, sig_q: float,
+               tau_t: float, band=None):
+    """``count - 1`` plain iterations, then the aligned iteration with its
+    four preconditioned residual norms (squared), on planes embedded in
+    fb.shape, the yv grid: the JAX package's ``_chunk_core``.  ``band`` =
+    (row_offset, own_lo, own_hi) runs it on a halo-extended band of the yv
+    grid's rows, its masks on global rows and its norms over the owned
+    rows; None is the whole plane.
+
+    Returns (x2, yv2, qx2, qy2, x_prev, yv_prev, qx_prev, qy_prev, norms),
+    all embedded."""
+    nrows, ny2 = fb.shape
+    row_offset = 0 if band is None else band[0]
+    ops = _chunk_ops(nx, ny, nrows, ny2, taps, fb.device, row_offset)
+    update = _iteration(ops, tau_raw, sigma_raw, theta, lmb, radius, fb, sv,
+                        sig_q, tau_t)
+    conv_fwd, dx, dy = ops[4], ops[0], ops[1]
+    x, yv, qx, qy = x0, yv0, qx0, qy0
+    bx, gx, gy = conv_fwd(x0), dx(x0), dy(x0)
+    for _ in range(count - 1):
+        x, yv, qx, qy, bx, gx, gy, _ = update(x, yv, qx, qy, bx, gx, gy)
+    # aligned iteration; (bx, gx, gy) = K x_prev carried for free
+    x2, yv2, qx2, qy2, bx2, gx2, gy2, ktyp = update(x, yv, qx, qy, bx, gx,
+                                                    gy)
+    res = _residuals(ops, tau_raw, sigma_raw, theta, sv, sig_q, tau_t,
+                     (x, yv, qx, qy), (x2, yv2, qx2, qy2), (bx, gx, gy),
+                     (bx2, gx2, gy2), ktyp)
+    norms = _norm_sums(res, _owned_sum(nrows, band, fb.device))
     return x2, yv2, qx2, qy2, x, yv, qx, qy, norms
 
 
@@ -311,6 +372,93 @@ def deblur_chunk_batched_plain(x, yv, q, fb, sv, scal, count: int, taps,
     ``deblur_chunk_plain`` vmapped over the frames."""
     return vmap_plain(deblur_chunk_plain, (x, yv, q, fb, sv), scal,
                       int(count), taps, sig_q, tau_t)
+
+
+def deblur_tiled_halo(taps) -> int:
+    """The least halo of the tiled chunk's window, in pixels on every side
+    of a tile: the primal step at a pixel reads q one pixel up and left
+    and yv up to the blur's reach down and right, the dual step reads the
+    new x up to the reach up and left and one pixel down and right, so the
+    owned pixels need the new x on the tile and reach pixels up and left,
+    one down and right, which needs the state reach + 1 pixels out; reach
+    = the taps' largest row or column shift, at least the gradient's 1."""
+    reach = max(max(max(dx, dy) for dx, dy, _ in taps), 1)
+    return reach + 1
+
+
+def deblur_chunk_tiled_plain(x, yv, q, fb, sv, scal, count: int, taps,
+                             sig_q: float, tau_t: float, nx_global=None,
+                             tile=(64, 64), halo=None,
+                             partials: bool = False):
+    """The tiled chunk (``deblur_chunk_`` and ``deblur_chunk_halo_`` with
+    ``path="tiled"``) window by window: each iteration ``chunk_core``'s
+    arithmetic on every tile of the yv grid's window (the tile of ``tile``
+    rows and columns and ``halo`` pixels on every side, clamped at the
+    planes' edges, ``deblur_tiled_halo`` by default; every mask decided by
+    the pixel's place in the planes), K x of the iterate recomputed in the
+    window, the owned pixels stitched into new planes; then the norms of
+    the stitched planes, K x and K^T y recomputed.  With ``nx_global``
+    the halo form (the row context read from ``scal``).  Returns
+    ``deblur_chunk_plain``'s outputs; with ``partials`` also the 32x8
+    tiles' partials of the yv grid (``fused_rof.tile_partials``) that the
+    kernel's finish reduces."""
+    nx, ny = x.shape
+    nx2, ny2 = yv.shape
+    band, n_scal, nx_img = None, 5, nx
+    if nx_global is not None:
+        band = tuple(int(v) for v in scal[5:N_HALO_SCAL].tolist())
+        n_scal, nx_img = N_HALO_SCAL, int(nx_global)
+    row_offset = 0 if band is None else band[0]
+    h = deblur_tiled_halo(taps) if halo is None else int(halo)
+    tx, ty = (int(t) for t in tile)
+    consts = (scal[0], scal[1], scal[2], scal[3], scal[4])
+    qe = embed(q, nx2, ny2)
+    planes = [embed(x, nx2, ny2), yv, qe[0], qe[1]]
+    for _ in range(int(count)):
+        prev, planes = planes, [torch.empty_like(a) for a in planes]
+        for R0 in range(0, nx2, tx):
+            for C0 in range(0, ny2, ty):
+                R1, C1 = min(R0 + tx, nx2), min(C0 + ty, ny2)
+                r0, c0 = max(R0 - h, 0), max(C0 - h, 0)
+                r1, c1 = min(R1 + h, nx2), min(C1 + h, ny2)
+                win = (slice(r0, r1), slice(c0, c1))
+                ops = _chunk_ops(nx_img, ny, nx2, ny2, taps, fb.device,
+                                 row_offset, (r0, c0, r1 - r0, c1 - c0))
+                update = _iteration(ops, *consts, fb[win], sv[win], sig_q,
+                                    tau_t)
+                xw = prev[0][win]
+                res = update(*(a[win] for a in prev), ops[4](xw), ops[0](xw),
+                             ops[1](xw))
+                own = (slice(R0 - r0, R1 - r0), slice(C0 - c0, C1 - c0))
+                for dst, src in zip(planes, res[:4]):
+                    dst[R0:R1, C0:C1] = src[own]
+    ops = _chunk_ops(nx_img, ny, nx2, ny2, taps, fb.device, row_offset)
+    dx, dy, dxt, dyt, conv_fwd, conv_adj = ops
+    xp, yvp, qxp, qyp = prev
+    x2 = planes[0]
+    res = _residuals(ops, consts[0], consts[1], consts[2], sv, sig_q, tau_t,
+                     prev, planes, (conv_fwd(xp), dx(xp), dy(xp)),
+                     (conv_fwd(x2), dx(x2), dy(x2)),
+                     conv_adj(yvp) + dxt(qxp) + dyt(qyp))
+    norms = torch.stack(_norm_sums(res, _owned_sum(nx2, band, fb.device)))
+    crop = (..., slice(0, nx), slice(0, ny))
+    conv = entry_converged(scal, n_scal)
+    out = (torch.where(conv, x, x2[crop]), torch.where(conv, yv, planes[1]),
+           torch.where(conv, q, torch.stack(planes[2:])[crop]),
+           torch.where(conv, x, xp[crop]), torch.where(conv, yv, yvp),
+           torch.where(conv, q, torch.stack([qxp, qyp])[crop]),
+           torch.where(conv, torch.zeros_like(norms), norms))
+    if not partials:
+        return out
+    from .fused_rof import tile_partials
+
+    pd_v, pd_x, pd_y, zh_v, zh_x, zh_y, dd, wh = res
+    terms = (pd_v * pd_v + (pd_x * pd_x + pd_y * pd_y),
+             zh_v * zh_v + (zh_x * zh_x + zh_y * zh_y), dd * dd, wh * wh)
+    if band is not None:
+        owned = _owned_rows(nx2, band, fb.device)
+        terms = tuple(torch.where(owned, t, 0.0) for t in terms)
+    return out + (tile_partials(terms),)
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +524,9 @@ def _lib():
         "prost_deblur_chunk_resident": resident + [CI, CI, VP],
         "prost_deblur_chunk_batched_resident": resident + strides
                                                + [CI, CI, CI, VP],
-        "prost_deblur_resident_smem": [CI]})
+        "prost_deblur_resident_smem": [CI],
+        "prost_deblur_chunk_tiled": resident + [CI] * 4 + [VP],
+        "prost_deblur_tiled_smem": []})
 
 
 def taps_reach(taps) -> int:
@@ -416,6 +566,116 @@ def pairs_ok(nx2: int, ny: int, ny2: int, taps, sms: int, smem: int) -> bool:
     return 2 * resident_bytes(nx2, ny, ny2, taps, sms) <= int(smem)
 
 
+# floats of the tiled launch's window planes (csrc/fused_deblur.cu
+# deblur_tiled: x before and after the primal step, yv, q_x, q_y) and bytes
+# of its norm pass's reductions (four 32x8 tiles at a time)
+_TILED_PLANES, _TILED_RED_BYTES = 5, 4 * 4 * 4 * 256
+
+
+def deblur_tiled_bytes(tx: int, ty: int, taps) -> int:
+    """The dynamic shared memory of one block of the tiled launch
+    (csrc/fused_deblur.cu deblur_tiled_smem): five planes of the window
+    of a ``tx`` x ``ty`` tile with ``deblur_tiled_halo(taps)`` pixels on
+    every side, at least the norm pass's reductions.  f_b and Sigma_v are
+    read pixel by pixel from device memory in the dual step."""
+    return _window_bytes(int(tx), int(ty), deblur_tiled_halo(taps))
+
+
+def _window_bytes(tx: int, ty: int, h: int) -> int:
+    return max(4 * _TILED_PLANES * (tx + 2 * h) * (ty + 2 * h),
+               _TILED_RED_BYTES)
+
+
+def deblur_tiled_tile(nx2: int, ny2: int, taps, sms: int, smem: int):
+    """The owned tile (rows, columns) of the tiled launch on a yv grid of
+    (nx2, ny2) on a card of ``sms`` SMs whose blocks may hold ``smem``
+    bytes of dynamic shared memory: of the tiles (rows a multiple of 8,
+    columns of 32, so every 32x8 norm tile lies in one) whose window fits
+    (``deblur_tiled_bytes``), the one whose iteration moves the fewest
+    window pixels through the SMs (the rounds of one block per SM times a
+    whole tile's window), the larger tile on a tie; None where no tile's
+    window fits."""
+    return _tiled_tile(int(nx2), int(ny2), deblur_tiled_halo(taps),
+                       int(sms), int(smem))
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_tile(nx2: int, ny2: int, h: int, sms: int, smem: int):
+    """``deblur_tiled_tile`` for the halo ``h``, searched once per shape."""
+    from .fused_rof import TILE_COLS, TILE_ROWS
+
+    best, cost = None, None
+    for ty in TILE_COLS:
+        if ty - 32 >= ny2:
+            break
+        for tx in TILE_ROWS:
+            if tx - 8 >= nx2 or _window_bytes(tx, ty, h) > smem:
+                break
+            rounds = -(-(-(-nx2 // tx) * -(-ny2 // ty)) // sms)
+            c = rounds * (min(tx, nx2) + 2 * h) * (min(ty, ny2) + 2 * h)
+            if best is None or c < cost or (c == cost and
+                                            tx * ty > best[0] * best[1]):
+                best, cost = (tx, ty), c
+    return best
+
+
+def deblur_tiled_ok(nx2: int, ny2: int, taps, sms: int, smem: int) -> bool:
+    """Whether the tiled launch takes a yv grid of (nx2, ny2): some tile's
+    window fits in ``smem`` bytes."""
+    return deblur_tiled_tile(nx2, ny2, taps, sms, smem) is not None
+
+
+def deblur_route_of(nx2: int, ny: int, ny2: int, taps, sms: int, smem: int,
+                    tiled_smem: int) -> str:
+    """The shape rule of ``deblur_chunk_`` and ``deblur_chunk_halo_`` (on
+    the band's rows) on a card of ``sms`` SMs whose grid-resident blocks
+    may hold ``smem`` bytes and tiled blocks ``tiled_smem``: "resident"
+    where the bands' planes fit (``resident_ok``: config 2 at 512x512 on an
+    H100), else "tiled" where a tile's window fits (``deblur_tiled_ok``:
+    2048x2048), else "streaming"."""
+    if resident_ok(nx2, ny, ny2, taps, sms, smem):
+        return "resident"
+    if deblur_tiled_ok(nx2, ny2, taps, sms, tiled_smem):
+        return "tiled"
+    return "streaming"
+
+
+@functools.lru_cache(maxsize=None)
+def deblur_tiled_limit(device) -> int:
+    """The dynamic shared memory a block of the tiled launch may hold on
+    the card ``device``, read once."""
+    with torch.cuda.device(device):
+        smem = _lib().prost_deblur_tiled_smem()
+    if smem < 0:
+        raise ProstError(f"deblur_chunk: no shared-memory limit for the "
+                         f"tiled chunk on {device} (CUDA error {-smem}).")
+    return smem
+
+
+def deblur_pick_route(path, nx2: int, ny: int, ny2: int, taps, device,
+                      what: str) -> tuple:
+    """(path, tile) of a single-instance chunk on the card ``device``: by
+    ``deblur_route_of`` where ``path`` is None, else the one asked for;
+    "resident" where the planes do not fit, or "tiled" where no tile's
+    window does, raises ``ProstError``.  ``tile`` is the tiled launch's
+    (rows, columns), else None."""
+    check_path(path, what)
+    sms, smem = card_limits(device)
+    tsmem = deblur_tiled_limit(device)
+    if path is None:
+        path = deblur_route_of(nx2, ny, ny2, taps, sms, smem, tsmem)
+    if path == "resident" and not resident_ok(nx2, ny, ny2, taps, sms, smem):
+        raise ProstError(f"{what}: the chunk's planes do not fit in the "
+                         "shared memory of one block per SM.")
+    tile = None
+    if path == "tiled":
+        tile = deblur_tiled_tile(nx2, ny2, taps, sms, tsmem)
+        if tile is None:
+            raise ProstError(f"{what}: no tile's window holds the blur's "
+                             "halo in the shared memory of a block.")
+    return path, tile
+
+
 # the kernels whose shared-memory limit card_limits reads
 SINGLE, BATCHED, PAIRS = 0, 1, 2
 
@@ -434,30 +694,35 @@ def card_limits(device, kind: int = SINGLE) -> tuple:
     return card_sms(device), smem
 
 
-def _scratch(resident: bool, nx, ny, nx2, ny2, device, batch: int = 0,
+def _scratch(path: str, nx, ny, nx2, ny2, device, batch: int = 0,
              pairs: bool = False):
-    """A chunk launch's scratch: the grid-resident chunk's norm terms (4
-    planes of the yv grid, which a batched launch's frames share; 8 where
-    it runs them two at a time), or the streaming sequence's carried planes
-    (B x and grad x, of this iterate and of the previous one; with
-    ``batch``, of every frame)."""
+    """A chunk launch's scratch on ``path``: the grid-resident chunk's norm
+    terms (4 planes of the yv grid, which a batched launch's frames share;
+    8 where it runs them two at a time), the tiled chunk's second slot of
+    the state (x, yv and q: 3 nx ny + nx2 ny2 floats), or the streaming
+    sequence's carried planes (B x and grad x, of this iterate and of the
+    previous one; with ``batch``, of every frame)."""
     lead = (batch,) if batch else ()
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
-    if resident:
+    if path == "resident":
         return [empty(8 if pairs else 4, nx2, ny2)]
+    if path == "tiled":
+        return [empty(3 * nx * ny + nx2 * ny2)]
     return [empty(*lead, nx2, ny2), empty(*lead, nx2, ny2),
             empty(*lead, 2, nx, ny), empty(*lead, 2, nx, ny)]
 
 
-def _launch_chunk(what: str, state, prev, fb, sv, taps_t, sc, partial, scratch,
-            resident: bool, count: int, taps, sig_q: float, tau_t: float,
-            nx_global=None):
+def _launch_chunk(what: str, state, prev, fb, sv, taps_t, sc, partial,
+                  scratch, route: tuple, count: int, taps, sig_q: float,
+                  tau_t: float, nx_global=None):
     """One chunk on the card in place on ``state`` (x, yv, q) and ``prev``:
-    the grid-resident launch or the streaming sequence, of the whole plane
-    or (with ``nx_global``) of a halo band, counted under ``what``."""
+    the grid-resident launch, the tiled launch or the streaming sequence,
+    by ``route`` = (path, tile) of ``deblur_pick_route``, of the whole
+    plane or (with ``nx_global``) of a halo band, counted under ``what``
+    (and a tiled call also under ``what`` + "_tiled")."""
     x, yv = state[0], state[1]
     nx, ny = x.shape
     nx2, ny2 = yv.shape
@@ -466,11 +731,16 @@ def _launch_chunk(what: str, state, prev, fb, sv, taps_t, sc, partial, scratch,
     # version rounds its Python constants
     roots = (sig_q, tau_t, sig_q ** 0.5, tau_t ** 0.5)
     lib = _lib()
-    if resident:
-        launch(lib, "prost_deblur_chunk_resident", what, launch_counts,
+    path, tile = route
+    if path != "streaming":
+        reach, tail = ((taps_reach(taps), ()) if path == "resident" else
+                       (deblur_tiled_halo(taps), tuple(tile)))
+        launch(lib, f"prost_deblur_chunk_{path}", what, launch_counts,
                x.device, [*state, *prev, fb, sv, taps_t, sc, partial,
-                          *scratch], *shape, taps_reach(taps), *roots,
-               int(nx_global or 0), int(count))
+                          *scratch], *shape, reach, *roots,
+               int(nx_global or 0), int(count), *tail)
+        if path == "tiled":
+            launch_counts[what + "_tiled"] += 1
     else:
         fn, tail = (("prost_deblur_chunk", ()) if nx_global is None else
                     ("prost_deblur_chunk_halo", (int(nx_global),)))
@@ -487,15 +757,14 @@ def _inplace(what: str, state, prev, fb, sv, scal, n_scal: int, count: int,
     nx, ny = x.shape
     nx2, ny2 = yv.shape
     dev = x.device
-    resident = pick_path(path, resident_ok(nx2, ny, ny2, taps,
-                                           *card_limits(dev)), what)
+    route = deblur_pick_route(path, nx2, ny, ny2, taps, dev, what)
     sc = scalar_buffer(scal, n_scal, S_CONV, S_LEN)
     partial = torch.empty(4 * _lib().prost_deblur_num_blocks(nx2, ny2),
                           dtype=torch.float32, device=dev)
     _launch_chunk(what, state, prev, fb.contiguous(), sv.contiguous(),
-            taps_array(tuple(taps), dev), sc, partial,
-            _scratch(resident, nx, ny, nx2, ny2, dev), resident, count, taps,
-            sig_q, tau_t, nx_global)
+                  taps_array(tuple(taps), dev), sc, partial,
+                  _scratch(route[0], nx, ny, nx2, ny2, dev), route, count,
+                  taps, sig_q, tau_t, nx_global)
     return sc[S_NORM:S_NORM + 4]
 
 
@@ -525,12 +794,17 @@ def deblur_chunk_(x, yv, q, x_prev, yv_prev, q_prev, fb, sv, scal,
     """``deblur_chunk`` in place: (x, yv, q) advance by ``count`` iterations
     and the previous buffers take the iterate before the aligned one; with
     the converged flag set nothing changes.  Returns norms2.  On a card
-    ``path`` None takes the shape rule's path (``resident_ok``): one
+    ``path`` None takes the shape rule's path (``deblur_route_of``): one
     grid-resident launch (csrc/fused_deblur.cu deblur_resident) where the
-    planes fit on chip, else the streaming launch sequence; "resident" or
-    "streaming" asks for one ("resident" raises where it does not fit)."""
+    planes fit on chip, else one tiled cooperative launch (deblur_tiled:
+    overlapping 2-D windows, a grid barrier an iteration) and the finish
+    where a tile's window does, else the streaming launch sequence;
+    "resident", "tiled" or "streaming" asks for one ("resident" and
+    "tiled" raise where they cannot launch).  On the CPU every path runs
+    the plain version."""
     state, prev = (x, yv, q), (x_prev, yv_prev, q_prev)
     _check(*state, fb, sv, scal, count, taps)
+    check_path(path, "deblur_chunk_")
     check_inplace(state, prev)
     if x.device.type == "cpu":
         return halo_into(state, prev, deblur_chunk_plain(
@@ -576,6 +850,7 @@ def deblur_chunk_halo_(x, yv, q, x_prev, yv_prev, q_prev, fb, sv, scal,
     ``deblur_chunk_``, the shape rule on the band's rows."""
     state, prev = (x, yv, q), (x_prev, yv_prev, q_prev)
     _check(*state, fb, sv, scal, count, taps, halo=True)
+    check_path(path, "deblur_chunk_halo_")
     check_halo(nx_global, state, prev)
     if x.device.type == "cpu":
         return halo_into(state, prev, deblur_chunk_plain(
@@ -591,13 +866,14 @@ class DeblurChunk(LightChunk):
     ``band`` = (nx_global, rows, row_offset, own_lo, own_hi),
     ``deblur_chunk_halo_`` on a band of ``rows`` rows) on the planes a route
     holds, with what depends only on the shapes made once per route: the
-    path (``resident_ok``), the taps' device array, the scratch, the norm
-    partials and the scalar buffer with ``m``'s lmb and radius (and the
-    band's row context).  A call writes the step sizes and the flag into
-    the scalar buffer and launches; on the CPU it runs the plain
-    version."""
+    path (``route``: ``deblur_pick_route``'s (path, tile), by the shape
+    rule unless ``path`` asks for one), the taps' device array, the
+    scratch, the norm partials and the scalar buffer with ``m``'s lmb and
+    radius (and the band's row context).  A call writes the step sizes and
+    the flag into the scalar buffer and launches; on the CPU it runs the
+    plain version."""
 
-    def __init__(self, m, count: int, device, band=None):
+    def __init__(self, m, count: int, device, band=None, path=None):
         consts = (m["lmb"], m["radius"]) + tuple(band[2:] if band else ())
         super().__init__(consts, device)
         self.m, self.count, self.band = m, int(count), band
@@ -606,29 +882,35 @@ class DeblurChunk(LightChunk):
             nx = nx2 = int(band[1])
         self.what = "deblur_chunk" if band is None else "deblur_chunk_halo"
         self.nx_global = None if band is None else int(band[0])
-        self.resident = None  # the path on a card
+        self.route = None  # (path, tile) on a card
         if torch.device(device).type == "cuda":
-            self.resident = resident_ok(nx2, ny, ny2, m["taps"],
-                                        *card_limits(device))
+            self.route = deblur_pick_route(path, nx2, ny, ny2, m["taps"],
+                                           device, self.what)
             self.taps_t = taps_array(m["taps"], device)
             self.partial = torch.empty(
                 4 * _lib().prost_deblur_num_blocks(nx2, ny2),
                 dtype=torch.float32, device=device)
-            self.scratch = _scratch(self.resident, nx, ny, nx2, ny2, device)
+            self.scratch = _scratch(self.route[0], nx, ny, nx2, ny2, device)
+
+    @property
+    def resident(self):
+        """Whether the call runs grid-resident on a card; None on the
+        CPU."""
+        return None if self.route is None else self.route[0] == "resident"
 
     def __call__(self, state, prev, fb, sv, tau, sigma, theta, converged):
         """``count`` iterations on ``state`` (x, yv, q) in place, the
         previous iterate into ``prev``; returns norms2."""
         self.scalars_(tau, sigma, theta, converged)
         m = self.m
-        if self.resident is None:
+        if self.route is None:
             scal = self.scal()
             return halo_into(state, prev, deblur_chunk_plain(
                 *state, fb, sv, scal, self.count, m["taps"], m["sig_q"],
                 m["tau_t"], self.nx_global), scal, self.n_scal)
         _launch_chunk(self.what, state, prev, fb, sv, self.taps_t, self.sc,
-                self.partial, self.scratch, self.resident, self.count,
-                m["taps"], m["sig_q"], m["tau_t"], self.nx_global)
+                      self.partial, self.scratch, self.route, self.count,
+                      m["taps"], m["sig_q"], m["tau_t"], self.nx_global)
         return self.norms2()
 
 
@@ -715,7 +997,8 @@ def deblur_chunk_batched_(x, yv, q, x_prev, yv_prev, q_prev, fb, sv, scal,
                           dtype=torch.float32, device=dev)
     _launch_batched(state, prev, fb.contiguous(), sv.contiguous(),
                     taps_array(tuple(taps), dev), sc, partial,
-                    _scratch(resident, nx, ny, nx2, ny2, dev, B, pairs),
+                    _scratch("resident" if resident else "streaming", nx,
+                             ny, nx2, ny2, dev, B, pairs),
                     resident, count, taps, sig_q, tau_t, strides, pairs)
     return sc[:, S_NORM:S_NORM + 4].T
 
@@ -756,8 +1039,9 @@ class DeblurBatchedChunk(LightChunk):
             self.partial = torch.empty(
                 4 * B * _lib().prost_deblur_num_blocks(nx2, ny2),
                 dtype=torch.float32, device=device)
-            self.scratch = _scratch(self.resident, nx, ny, nx2, ny2, device,
-                                    B, self.pairs)
+            self.scratch = _scratch(
+                "resident" if self.resident else "streaming", nx, ny, nx2,
+                ny2, device, B, self.pairs)
 
     def __call__(self, state, prev, fb, sv, tau, sigma, theta, converged):
         """``count`` iterations of every frame of ``state`` (x, yv, q) in

@@ -76,12 +76,12 @@ from .fused_deblur import fused_deblur_run, match_deblur_structure
 from .fused_multilabel import fused_ml_run, match_multilabel_structure
 from .fused_tight import fused_tight_run, match_tight_structure
 from .fused_vol import fused_vol_run, match_vol_structure
-from .pdhg_chunk import (CF, CI, N_HALO_SCAL, PATHS, RES_RED_BYTES, S_CONV,
-                         S_LEN, S_NORM, SOUT, STEPSIZES, VP, WHOLE_PLANE,
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
+                         S_NORM, SOUT, STEPSIZES, VP, WHOLE_PLANE,
                          ChunkWork, LightChunk, LightMultichunk, RowOps,
                          ball_scale, canonical_duals, card_sms,
                          check_buffers, check_halo, check_inplace,
-                         chunk_state, dual_ball_radius, dx, dy,
+                         check_path, chunk_state, dual_ball_radius, dx, dy,
                          entry_converged, halo_copy, halo_into,
                          halo_scal_rows, launch, match_dataterm,
                          multichunk_plain, multichunk_state, own_vectors,
@@ -453,17 +453,6 @@ def _check(x, q, f, w, scal, n_scal: int, count: int, dataterm: str,
                   scal, n_scal, lead[0] if batched else None)
 
 
-# the ROF wrappers' paths: the grid-resident, streaming and tiled launches
-ROF_PATHS = PATHS + ("tiled",)
-
-
-def _check_path(path, what: str) -> None:
-    """An in-place form's ``path`` is one it knows, on any device."""
-    if path not in ROF_PATHS:
-        raise ProstError(f"{what}: path must be one of {ROF_PATHS}, got "
-                         f"{path!r}.")
-
-
 def cluster_planes(dataterm: str) -> int:
     """Planes a cluster CTA holds in shared memory for its band: x, q_x,
     q_y, the carried gradient (2) and f, and w for wsquare."""
@@ -638,7 +627,7 @@ def pick_route(path, nx: int, ny: int, dataterm: str, count: int, device,
     planes do not fit, or "tiled" where no tile's window holds the halo,
     raises ``ProstError``.  ``tile`` is the tiled launch's (rows, columns),
     else None."""
-    _check_path(path, what)
+    check_path(path, what)
     sms, smem = card_limits(device, multi)
     tsmem = tiled_limit(device)
     if path is None:
@@ -738,7 +727,7 @@ def rof_chunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
     ("resident" and "tiled" raise where they cannot launch)."""
     _check(x, q, f, w, scal, 5, count, dataterm)
     check_inplace((x, q), (x_prev, q_prev))
-    _check_path(path, "rof_chunk")
+    check_path(path, "rof_chunk")
     if x.device.type == "cpu":
         return halo_into((x, q), (x_prev, q_prev), rof_chunk_plain(
             x, q, f, w, scal, count, dataterm), scal, 5)
@@ -828,7 +817,7 @@ def rof_chunk_halo_(x, q, x_prev, q_prev, f, w, scal, count: int,
     band where it fits, else rof_tiled on the band)."""
     _check(x, q, f, w, scal, N_HALO_SCAL, count, dataterm)
     check_halo(nx_global, (x, q), (x_prev, q_prev))
-    _check_path(path, "rof_chunk_halo")
+    check_path(path, "rof_chunk_halo")
     if x.device.type == "cpu":
         return halo_into((x, q), (x_prev, q_prev), rof_chunk_halo_plain(
             x, q, f, w, scal, count, nx_global, dataterm), scal)
@@ -963,7 +952,7 @@ def rof_multichunk_(x, q, x_prev, q_prev, f, w, scal, count: int,
         raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
     state, prev = (x, q), (x_prev, q_prev)
     check_inplace(state, prev)
-    _check_path(path, "rof_multichunk")
+    check_path(path, "rof_multichunk")
     if x.device.type == "cpu":
         out = rof_multichunk_plain(x, q, f, w, scal, count, k_chunks,
                                    dataterm, stepsize, consts)

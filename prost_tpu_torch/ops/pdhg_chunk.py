@@ -686,6 +686,17 @@ def resident_rows(nrows: int, sms: int) -> int:
 # a grid-resident block's reduction array (csrc/pdhg_chunk.cuh RES_RED_BYTES)
 RES_RED_BYTES = 4 * 512 * 4
 PATHS = (None, "resident", "streaming")
+# the paths of the wrappers that also have a tiled launch (ROF, Chebyshev
+# ADMM, deblur)
+TILED_PATHS = PATHS + ("tiled",)
+
+
+def check_path(path, what: str) -> None:
+    """An in-place form's ``path`` is one of ``TILED_PATHS``, on any
+    device."""
+    if path not in TILED_PATHS:
+        raise ProstError(f"{what}: path must be one of {TILED_PATHS}, got "
+                         f"{path!r}.")
 
 
 def pick_path(path, fits: bool, what: str) -> bool:

@@ -18,8 +18,9 @@ ADMM chunk ``admm_chunk_`` and volumetric multichunk ``vol_multichunk_``
 rof_multichunk or rof_light"``), and the grid-resident multilabel
 multichunk ``ml_multichunk_`` and ROF halo chunk ``rof_chunk_halo_`` (``-k
 "ml_multichunk or rof_halo or rof_chunk_band"``), and the tiled ROF and
-Chebyshev ADMM chunks and multichunks (``-k tiled``; ``-k admm_tiled`` for
-the ADMM ones), bit for bit against the streaming launch sequences they
+Chebyshev ADMM chunks and multichunks and the tiled deblur chunk (``-k
+tiled``; ``-k admm_tiled`` for the ADMM ones, ``-k deblur_tiled`` for the
+deblur ones), bit for bit against the streaming launch sequences they
 replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
@@ -973,7 +974,8 @@ def test_deblur_batched_pairs_is_one_frame_a_block(dev, B, nx, ny, blur, ri,
         partial = x.new_empty(4 * B * fd._lib().prost_deblur_num_blocks(
             nx2, ny2))
         fd._launch_batched(st, pv, fb, sv, taps_t, sc, partial,
-                           fd._scratch(True, nx, ny, nx2, ny2, dev, B, pairs),
+                           fd._scratch("resident", nx, ny, nx2, ny2, dev, B,
+                                       pairs),
                            True, ri, taps, 0.5, 0.2,
                            instance_strides(st, pv, "deblur_chunk_batched_"),
                            pairs)
@@ -2524,3 +2526,128 @@ def test_admm_tiled_rules_on_the_card(dev):
                    fa.launch_counts, dev, [*planes, scratch, sc, partial],
                    2048, 2048, 10, 0, 10,
                    fa.ptr(fa._coeff_tensor(10, dev)), 1.7, -0.7, *tile)
+
+
+# ---------------------------------------------------------------------------
+# row 19: the deblur chunk tiled, for the planes no grid-resident band
+# holds (-k deblur_tiled)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("count", [1, 3, 10])
+@pytest.mark.parametrize("nx,ny,blur", [(2048, 2048, "motion"),
+                                        (2048, 1536, "motion"),
+                                        (1000, 777, "asym"),
+                                        (70, 53, "asym"),
+                                        (9, 300, "motion")])
+def test_deblur_tiled_is_the_launch_sequence(dev, nx, ny, blur, count):
+    """The tiled chunk's planes, previous iterates and squared norms
+    bit-equal to the launch sequence's (1000x777, 70x53, 9x300: tiles that
+    do not divide the yv grid; an odd count: slot B copied back)."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    taps, k = _blur(blur)
+    planes = _deblur_planes(430 + nx + count, nx, ny, k, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0], device=dev)
+    before = fd.launch_counts["deblur_chunk_tiled"]
+    out = _tiled_paths(fd.deblur_chunk_, planes[:3], planes[3:], scal, count,
+                       taps, 0.5, 0.2)
+    assert fd.launch_counts["deblur_chunk_tiled"] == before + 1
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    assert bool((out["tiled"][-1][:3] > 0).all())
+
+
+@pytest.mark.parametrize("rank,shards", [(0, 1), (0, 4), (1, 4), (3, 4)])
+def test_deblur_tiled_halo_is_the_launch_sequence(dev, rank, shards):
+    """Config 2 at 2048x2048 cut into bands of its 2056-row yv grid (ri
+    10, halo 154): every band's tiled launch is its streaming sequence, bit
+    for bit in the planes, the previous iterates and the owned-row
+    norms."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    taps, k = _blur("motion")
+    planes = _deblur_planes(440 + rank, 2048, 2048, k, dev)
+    ri, rows = 10, 2056 // shards
+    H = fd.deblur_halo_rows(ri, taps)
+    lo = rank * rows - H
+    ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+    scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0, lo, H, H + rows],
+                        device=dev)
+    out = _tiled_paths(fd.deblur_chunk_halo_, ext[:3], ext[3:], scal, ri,
+                       2048, taps, 0.5, 0.2)
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tile", [(8, 32), (64, 64), (160, 32), (16, 224)])
+def test_deblur_tiled_any_tile_is_the_launch_sequence(dev, tile):
+    """The launch with tiles other than the rule's gives the same bits,
+    and with the flag set it leaves every buffer as it was."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    taps, k = _blur("motion")
+    planes = _deblur_planes(450, 700, 500, k, dev)
+    nx2, ny2 = planes[1].shape
+    taps_t = fd.taps_array(taps, dev)
+    out = {}
+    for flag in (0.0, 1.0):
+        scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0, flag], device=dev)
+        for path in ("streaming", "tiled"):
+            cur = [t.clone() for t in planes[:3]]
+            prev = [t + 1.0 for t in cur]
+            sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+            partial = cur[0].new_empty(
+                4 * fd._lib().prost_deblur_num_blocks(nx2, ny2))
+            route = (path, tile if path == "tiled" else None)
+            fd._launch_chunk("deblur_chunk", cur, prev, *planes[3:], taps_t,
+                             sc, partial,
+                             fd._scratch(path, 700, 500, nx2, ny2, dev),
+                             route, 10, taps, 0.5, 0.2)
+            out[path] = cur + prev + [sc[15:19].clone()]
+        torch.cuda.synchronize()
+        for a, b in zip(out["streaming"], out["tiled"]):
+            assert torch.equal(a, b)
+        if flag:
+            for a, b in zip(out["tiled"][:6], planes[:3]
+                            + [t + 1.0 for t in planes[:3]]):
+                assert torch.equal(a, b)
+
+
+def test_deblur_tiled_rules_on_the_card(dev):
+    """The card's limits send config 2's 512x512 to the grid-resident
+    launch and 2048x2048 to the tiled one; a blur whose halo no window
+    holds streams, and asking for the tiled launch there raises; so does a
+    tile the C side refuses."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    taps, k = _blur("motion")
+    sms, smem = fd.card_limits(dev)
+    tsmem = fd.deblur_tiled_limit(dev)
+    assert tsmem >= 225 * 1024
+    assert fd.deblur_route_of(520, 512, 520, taps, sms, smem,
+                              tsmem) == "resident"
+    assert fd.deblur_route_of(2056, 2048, 2056, taps, sms, smem,
+                              tsmem) == "tiled"
+    wide = ((0, 0, 0.5), (50, 50, 0.5))
+    assert fd.deblur_route_of(2098, 2048, 2098, wide, sms, smem,
+                              tsmem) == "streaming"
+    planes = _deblur_planes(460, 128, 96, 51, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0], device=dev)
+    with pytest.raises(ptt.ProstError, match="no tile"):
+        fd.deblur_chunk_(*planes[:3], *[t.clone() for t in planes[:3]],
+                         *planes[3:], scal, 2, wide, 0.5, 0.2, path="tiled")
+    planes = _deblur_planes(461, 256, 256, k, dev)
+    nx2, ny2 = planes[1].shape
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = planes[0].new_empty(
+        4 * fd._lib().prost_deblur_num_blocks(nx2, ny2))
+    scratch = fd._scratch("tiled", 256, 256, nx2, ny2, dev)
+    for tile in ((12, 32), (8, 48), (256, 256)):  # not 8x32 tiles; too big
+        with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+            launch(fd._lib(), "prost_deblur_chunk_tiled", "deblur_chunk",
+                   fd.launch_counts, dev,
+                   [*planes[:3], *[t.clone() for t in planes[:3]],
+                    *planes[3:], fd.taps_array(taps, dev), sc, partial,
+                    *scratch], 256, 256, nx2, ny2, len(taps), 8, 0.5, 0.2,
+                   0.5 ** 0.5, 0.2 ** 0.5, 0, 10, *tile)

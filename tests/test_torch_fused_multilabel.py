@@ -346,9 +346,10 @@ def test_dirty_dual_warm_start_is_canonicalized():
 def test_source_digest_follows_included_headers(tmp_path):
     """A library is named by the hash of its source and of the csrc
     headers it includes, so an edit of pdhg_chunk.cuh rebuilds both PDHG
-    libraries and leaves the ADMM one (which includes no header) alone."""
+    libraries and leaves the ADMM one (which includes cp_async.cuh only)
+    alone."""
     for fname in ("fused_rof.cu", "fused_multilabel.cu", "fused_admm.cu",
-                  "pdhg_chunk.cuh"):
+                  "pdhg_chunk.cuh", "cp_async.cuh"):
         shutil.copy(f"{cuda_build.CSRC}/{fname}", tmp_path / fname)
     names = ("fused_rof", "fused_multilabel", "fused_admm")
     before = {n: cuda_build.source_digest(n, str(tmp_path)) for n in names}

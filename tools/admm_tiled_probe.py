@@ -35,39 +35,50 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 N, RI, ALPHA = 2048, 10, 1.7
 
-# name: (substitutions on csrc/fused_admm.cu, its tile; None: the shape
-# rule's)
+# name: (substitutions (file of csrc, old, new) on csrc/fused_admm.cu
+# and the headers it includes, its tile; None: the shape rule's)
 VARIANTS = {
     # 16 rows of 32 threads: half the warps, 128 registers a thread
     "512 threads": ([
-        ("constexpr int AT_THREADS = 1024;", "constexpr int AT_THREADS = 512;"),
+        ("fused_admm.cu", "constexpr int AT_THREADS = 1024;",
+         "constexpr int AT_THREADS = 512;"),
     ], None),
     # the window's loads as plain loads and shared-memory stores, each
-    # thread's in a loop, in place of cp.async
+    # thread's in a loop, in place of cp.async (csrc/cp_async.cuh's
+    # cp_async4)
     "plain loads": ([
-        ("#ifdef __CUDA_ARCH__\n  asm volatile(\"cp.async.ca",
+        ("cp_async.cuh",
+         "#ifdef __CUDA_ARCH__\n  asm volatile(\"cp.async.ca",
          "#if 0\n  asm volatile(\"cp.async.ca"),
     ], None),
 }
 
 
 def build_variant(name, subs):
-    """``csrc/fused_admm.cu`` with ``subs`` applied, built into
-    ``_build/exp/``: the loaded library."""
+    """``csrc/fused_admm.cu`` with ``subs`` applied (a changed header
+    beside the copy, which its quoted include finds first), built into a
+    directory of its own under ``_build/exp/``: the loaded library."""
     from prost_tpu_torch.ops import cuda_build
 
-    with open(os.path.join(cuda_build.CSRC, "fused_admm.cu")) as fh:
-        text = fh.read()
-    for old, new in subs:
-        if text.count(old) != 1:
-            raise RuntimeError(f"variant {name!r}: {old!r} not found once")
-        text = text.replace(old, new)
-    out = os.path.join(cuda_build.BUILD_DIR, "exp")
-    os.makedirs(out, exist_ok=True)
-    stem = os.path.join(out, "fused_admm_" + "".join(
+    out = os.path.join(cuda_build.BUILD_DIR, "exp", "admm_" + "".join(
         c if c.isalnum() else "_" for c in name))
-    with open(stem + ".cu", "w") as fh:
-        fh.write(text)
+    os.makedirs(out, exist_ok=True)
+    texts = {}
+    for fname, old, new in subs:
+        if fname not in texts:
+            with open(os.path.join(cuda_build.CSRC, fname)) as fh:
+                texts[fname] = fh.read()
+        if texts[fname].count(old) != 1:
+            raise RuntimeError(f"variant {name!r}: {old!r} not found once "
+                               f"in {fname}")
+        texts[fname] = texts[fname].replace(old, new)
+    if "fused_admm.cu" not in texts:
+        with open(os.path.join(cuda_build.CSRC, "fused_admm.cu")) as fh:
+            texts["fused_admm.cu"] = fh.read()
+    for fname, text in texts.items():
+        with open(os.path.join(out, fname), "w") as fh:
+            fh.write(text)
+    stem = os.path.join(out, "fused_admm")
     proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
                            "-I", cuda_build.CSRC, "-o", stem + ".so",
                            stem + ".cu"], capture_output=True, text=True)
