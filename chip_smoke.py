@@ -1156,10 +1156,8 @@ def phase_ml_kernels(dev):
         ref = fm.ml_chunk_plain(u, q, s, f, scal, ri)
         torch.cuda.synchronize()
         plane, rel = max_errs(out, ref, n_planes=6)
-        path = ("resident" if fm.resident_ok(L, nx, ny,
-                                             *fm.card_limits(dev, L))
-                else "streaming")
-        check(path == ("streaming" if nx == ML_LARGE else "resident"),
+        path = fm.ml_pick_route(None, L, nx, ny, dev, False, "ml_chunk")[0]
+        check(path == ("tiled" if nx == ML_LARGE else "resident"),
               f"ml_chunk {shape}: the shape rule chose {path}")
         print(f"ml_chunk {shape} ({path} path): max abs err planes "
               f"{plane:.3e} (tol {PLANE_ATOL:g}), max rel err norms "
@@ -1274,14 +1272,14 @@ def rof_model(nx, ny, f, lmb):
 
 
 def recording(kind, opts, generic=None, rof_path=None, admm_path=None,
-              deblur_path=None):
+              deblur_path=None, ml_path=None):
     """``Backend(kind, opts)`` as a user gets it from ``backend_pdhg`` /
     ``backend_admm`` (or, with ``generic``, that generic backend class),
     recording after every callback epoch the devices of the solver state's
     tensors and the time spent iterating; with ``rof_path``
-    (``admm_path``, ``deblur_path``), the fused ROF route's (fused
-    Chebyshev ADMM route's, fused deblur route's) light calls made
-    beforehand on that path."""
+    (``admm_path``, ``deblur_path``, ``ml_path``), the fused ROF route's
+    (fused Chebyshev ADMM route's, fused deblur route's, fused multilabel
+    route's) light calls made beforehand on that path."""
     import torch
 
     from prost_tpu_torch.modeling import Backend
@@ -1322,6 +1320,16 @@ def recording(kind, opts, generic=None, rof_path=None, admm_path=None,
                 ri = max(int(self.opts.residual_iter), 1)
                 b.deblur["call"] = fd.DeblurChunk(b.deblur, ri, ptt.device(),
                                                   path=deblur_path)
+            if ml_path is not None:
+                import prost_tpu_torch as ptt
+                from prost_tpu_torch.ops import fused_multilabel as fm
+                from prost_tpu_torch.ops.phases import K_CHUNKS
+
+                ri, dev = max(int(self.opts.residual_iter), 1), ptt.device()
+                b.ml["call"] = fm.MLChunk(b.ml, ri, dev, path=ml_path)
+                b.ml["multi"] = fm.MLMultichunk(
+                    b.ml, ri, K_CHUNKS, self.opts.stepsize, dev,
+                    path=ml_path)
             self.made, self.devices, self.loop_s = b, set(), 0.0
             run = b.run
 
@@ -3872,6 +3880,273 @@ def phase_tiled_deblur(dev):
     return rows
 
 
+def phase_tiled_ml(dev):
+    """Rows 16 and 14 tiled (``ml_tiled<L>``: a cooperative launch a chunk
+    over overlapping 2-D windows of the planes, a grid barrier an
+    iteration) against the streaming launch sequence they replace at the
+    planes no grid-resident band holds: ``ml_chunk_`` at 512x512x8 (ri 10,
+    an odd count of 3, and with the flag set), 512x384x8 and 300x211x5
+    (tiles that do not divide it), ``ml_chunk_halo_`` on the one-shard band
+    of 512x512x8 (556 rows, 22 of halo each side), and ``ml_multichunk_``
+    at 512x512x8 (8 chunks of 10, every chunk run) and 300x211x5 (5 chunks
+    of 3: an odd count and an odd number of chunks): planes, previous
+    iterates and norms (and sout) bit-equal, and within PLANE_ATOL of
+    max(1, |plane|) / NORM_RTOL (a multichunk's MC_NORM_RTOL) of the plain
+    versions; each 512-wide call in place in turns (streaming, tiled,
+    tiled, streaming) with the hand-written kernels each path launches per
+    call and their traced device ms, and the route's light calls
+    (``MLChunk``, ``MLMultichunk``) at 512x512x8; the functional wrappers'
+    calls and the plain versions timed for the kernels line, beside the
+    bound and the design's floor of one pass over device memory an
+    iteration."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.ops.pdhg_chunk import S_CONV, S_LEN, scalar_buffer
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    ri, L, n = 10, ML_LABELS, ML_LARGE
+    rows = {"ml_chunk_tiled": {"err": 0.0}, "ml_multichunk_tiled":
+            {"err": 0.0}, "ml_chunk_halo_tiled": {"err": 0.0}}
+    head = [0.9, 1.1, 1.0, ML_LMB, 1.0]
+    scal = torch.tensor(head, device=dev)
+
+    def consts_of(L, nx, ny):
+        m = nx * ny
+        return (np.sqrt(2 * m * L + m), np.sqrt(m * L), 1.5, 0.95, 1.05,
+                0.8)
+
+    def mscal(tol):
+        return torch.tensor([1.0, 1.0, 1.0, ML_LMB, 1.0, 0.5, 0.0, 0.0, 1.0,
+                             tol, tol, tol, tol], device=dev)
+
+    def both(label, fn, state, data, *args):
+        """``fn`` in place on copies of ``state`` by each path: the tiled
+        outputs (state, previous iterate, and what ``fn`` returns),
+        checked bit-equal to the streaming ones."""
+        got = {}
+        for path in ("streaming", "tiled"):
+            cur = [t.clone() for t in state]
+            prev = [t.clone() for t in cur]
+            ret = fn(*cur, *prev, *data, *args, path=path)
+            ret = [ret] if isinstance(ret, torch.Tensor) else list(ret)
+            got[path] = cur + prev + [t.clone() for t in ret]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                      got["tiled"]))
+              and all(bool(torch.isfinite(t).all()) for t in got["tiled"]),
+              f"{label}: the tiled launch is not the launch sequence")
+        print(f"{label}: tiled bit-equal to the launch sequence in the "
+              "planes, the previous iterates and the norms")
+        return got["tiled"]
+
+    def against_plain(label, out, ref, norm_rtol=NORM_RTOL):
+        plane, rel = scaled_errs(out, ref, 6)
+        print(f"{label}: against the plain version max abs err planes / "
+              f"max(1, |plane|) {plane:.3e} (tol {PLANE_ATOL:g}), max rel "
+              f"err norms {rel:.3e} (tol {norm_rtol:g}, floor at the "
+              "largest)")
+        check(plane <= PLANE_ATOL and rel <= norm_rtol,
+              f"{label} disagrees with its plain version")
+        return plane
+
+    def turns(label, call_for, reps, streaming, tiled):
+        """The in-place call of each path in turns, and each traced; the
+        whole traces name ``streaming`` launches and the kernels of
+        ``tiled``."""
+        (s1, s2), (t1, t2) = in_turns(call_for("streaming"),
+                                      call_for("tiled"), reps)
+        ts = traced_until(call_for("streaming"),
+                          lambda c: len(c) == streaming)
+        tt = traced_until(call_for("tiled"), lambda c: c == tiled)
+        got = counted(fm, call_for("tiled"))
+        check(sum(v for k, v in got.items() if k.endswith("_tiled")) == 1
+              and set(tt["csrc"]) <= set(tiled),
+              f"{label}: the tiled call launched {tt['csrc']} (counted "
+              f"{got})")
+        print(f"{label} in place, in turns: streaming {s1:.4f} ms, tiled "
+              f"{t1:.4f}, tiled {t2:.4f}, streaming {s2:.4f} ms/call; "
+              f"traced device ms: streaming {fmt_ms(ts['csrc_ms'])} "
+              f"({len(ts['csrc'])} hand-written launches), tiled "
+              f"{fmt_ms(tt['csrc_ms'])} ({len(tt['csrc'])}: "
+              f"{sorted(set(tt['csrc']))})")
+        return {"streaming_ms": (s1, s2), "tiled_ms": (t1, t2),
+                "device_ms": (ts["csrc_ms"], tt["csrc_ms"]),
+                "launches": (len(ts["csrc"]), len(tt["csrc"]))}
+
+    one = ["ml_tiled", "pdhg_finish"]
+    seen = {}
+    for seed, (Lc, nx, ny, counts) in enumerate(((L, n, n, (ri, 3)),
+                                                 (L, n, 384, (ri,)),
+                                                 (5, 300, 211, (ri,)))):
+        state = ml_kernel_inputs(Lc, nx, ny, 960 + seed, dev)
+        # 300x211x5 fits the grid-resident launch: its tiled launch is
+        # asked for
+        route = fm.ml_pick_route(None if Lc == L else "tiled", Lc, nx, ny,
+                                 dev, False, "ml_chunk")
+        check(route[0] == "tiled", f"ml_chunk_ {nx}x{ny}x{Lc}: the shape "
+              f"rule takes {route}")
+        for count in counts:
+            label = (f"ml_chunk_ {nx}x{ny}x{Lc} count {count}, tile "
+                     f"{route[1]}")
+            out = both(label, fm.ml_chunk_, state[:3], state[3:], scal,
+                       count)
+            err = against_plain(label, out, fm.ml_chunk_plain(
+                *state, scal, count))
+            rows["ml_chunk_tiled"]["err"] = max(
+                rows["ml_chunk_tiled"]["err"], err)
+        if nx == ny == n:
+            flagged = torch.cat([scal, torch.ones(1, device=dev)])
+            out = both(f"ml_chunk_ {nx}x{ny}x{Lc} with the flag",
+                       fm.ml_chunk_, state[:3], state[3:], flagged, ri)
+            check(all(torch.equal(a, b) for a, b in zip(out[:6],
+                                                       state[:3] * 2))
+                  and not bool(out[6].any()),
+                  "the flagged tiled chunk changed its planes")
+            print(f"ml_chunk_ {nx}x{ny}x{Lc} with the flag set: both paths "
+                  "return their inputs and zero norms")
+            big = state
+        if Lc == L:
+            cur = [t.clone() for t in state[:3]]
+            prev = [t.clone() for t in cur]
+            seen[f"{nx}x{ny}"] = turns(
+                f"ml_chunk_ {nx}x{ny}x{Lc} count {ri}",
+                lambda p, a=cur, b=prev, d=state[3:]:
+                lambda: fm.ml_chunk_(*a, *b, *d, scal, ri, path=p), 10,
+                2 * ri + 3, one)
+
+    # the one-shard band of 512x512x8 (halo 22 at ri 10)
+    H = 2 * ri + 2
+    band = [window(a, -H, n + H) for a in big]
+    bscal = torch.tensor(head + [-H, H, H + n], device=dev)
+    route = fm.ml_pick_route(None, L, n + 2 * H, n, dev, False,
+                             "ml_chunk_halo")
+    check(route[0] == "tiled", f"ml_chunk_halo_ band: the shape rule takes "
+          f"{route}")
+    label = f"ml_chunk_halo_ {n + 2 * H}x{n}x{L} band (halo {H}), tile " \
+            f"{route[1]}"
+    out = both(label, fm.ml_chunk_halo_, band[:3], band[3:], bscal, ri, n)
+    rows["ml_chunk_halo_tiled"]["err"] = against_plain(
+        label, out, fm.ml_chunk_halo_plain(*band, bscal, ri, n))
+    cur = [t.clone() for t in band[:3]]
+    prev = [t.clone() for t in cur]
+    seen["band"] = turns(
+        f"ml_chunk_halo_ {n + 2 * H}x{n}x{L} band",
+        lambda p: lambda: fm.ml_chunk_halo_(*cur, *prev, *band[3:], bscal,
+                                            ri, n, path=p), 10,
+        2 * ri + 3, one)
+
+    # the multichunk: every chunk run (tolerance 0) at 512x512x8, 8 chunks
+    # of 10, and at 300x211x5, 5 chunks of 3 (slot B copied back)
+    for seed, (Lc, nx, ny, count, k) in enumerate(((L, n, n, ri, 8),
+                                                   (5, 300, 211, 3, 5))):
+        state = ml_kernel_inputs(Lc, nx, ny, 970 + seed, dev)
+        consts = consts_of(Lc, nx, ny)
+        label = f"ml_multichunk_ {nx}x{ny}x{Lc}, {k} chunks of {count}"
+        out = both(label, fm.ml_multichunk_, state[:3], state[3:], mscal(0.0),
+                   count, k, "boyd", consts)
+        check(out[7][5:].tolist() == [0.0, float(k)],
+              f"{label}: not every chunk ran ({out[7].tolist()})")
+        ref = fm.ml_multichunk_plain(*state, mscal(0.0), count, k, "boyd",
+                                     consts)
+        err = against_plain(label, out[:7], ref[:7], MC_NORM_RTOL)
+        check(out[7][5:].tolist() == ref[7][5:].tolist(),
+              f"{label}: sout's flag or chunk count disagrees with the "
+              "plain version's")
+        rows["ml_multichunk_tiled"]["err"] = max(
+            rows["ml_multichunk_tiled"]["err"], err)
+    mstate = ml_kernel_inputs(L, n, n, 970, dev)
+    mcur = [t.clone() for t in mstate[:3]]
+    mprev = [t.clone() for t in mcur]
+    seen["multichunk"] = turns(
+        f"ml_multichunk_ {n}x{n}x{L}, 8 chunks",
+        lambda p: lambda: fm.ml_multichunk_(
+            *mcur, *mprev, mstate[3], mscal(0.0), ri, 8, "boyd",
+            consts_of(L, n, n), path=p), 3, 1 + 8 * (2 * ri + 2), one * 8)
+
+    # the route's light calls at 512x512x8, in place on buffers made once
+    m = {"L": L, "nx": n, "ny": n, "f": big[3], "radius": ML_LMB, "d_s": 1.0,
+         "radius_t": torch.tensor(ML_LMB, device=dev),
+         "d_s_t": torch.tensor(1.0, device=dev),
+         "tols_t": tuple(torch.tensor(0.0, device=dev) for _ in range(4)),
+         "adapt_consts": consts_of(L, n, n)}
+    steps = [torch.tensor(v, device=dev) for v in (0.9, 1.1, 1.0, 0.5, 0.0,
+                                                   0.0)]
+    it0, flag = torch.tensor(1, device=dev), torch.tensor(False, device=dev)
+    calls = {}
+    for p in ("streaming", "tiled"):
+        call = fm.MLChunk(m, ri, dev, path=p)
+        multi = fm.MLMultichunk(m, ri, 8, "boyd", dev, path=p)
+        check(call.route[0] == multi.route[0] == p,
+              f"MLChunk / MLMultichunk took {call.route}, {multi.route}")
+        cur = [t.clone() for t in big[:3]]
+        prev = [t.clone() for t in cur]
+        calls[("chunk", p)] = (lambda c=call, a=cur, b=prev:
+                               c(a, b, big[3], *steps[:3], flag))
+        calls[("multi", p)] = (lambda c=multi, a=cur, b=prev:
+                               c(a, b, *steps, it0, flag))
+    seen["light"] = turns(f"MLChunk {n}x{n}x{L} light call",
+                          lambda p: calls[("chunk", p)], 20, 2 * ri + 3, one)
+    seen["light_multi"] = turns(
+        f"MLMultichunk {n}x{n}x{L} light call, 8 chunks",
+        lambda p: calls[("multi", p)], 3, 1 + 8 * (2 * ri + 2), one * 8)
+
+    # the rule's tile at counts 1 and 10: the call's fixed cost (the norm
+    # pass, the finish) and what an iteration adds
+    per_count = {}
+    rule = fm.ml_pick_route(None, L, n, n, dev, False, "ml_chunk")
+    for count in (1, ri):
+        cur = [t.clone() for t in big[:3]]
+        prev = [t.clone() for t in cur]
+        sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+        partial = torch.empty(4 * fm._lib().prost_ml_num_blocks(n, n),
+                              device=dev)
+        scratch = fm._scratch("tiled", L, n, n, dev)
+        per_count[count] = time_ms(
+            lambda: fm._launch_chunk("ml_chunk", cur, prev, big[3], sc,
+                                     partial, scratch, rule, count), 20)
+    per_it = (per_count[ri] - per_count[1]) / (ri - 1)
+    print(f"ml_chunk_ {n}x{n}x{L} tiled, tile {rule[1]}, ms a call (CUDA "
+          f"events): {per_count[1]:.4f} at count 1, {per_count[ri]:.4f} at "
+          f"count {ri}: {per_it:.5f} ms an iteration, "
+          f"{per_count[1] - per_it:.5f} ms of fixed cost")
+    seen["per_count"] = per_count
+
+    # the kernels line: the functional wrappers at 512x512x8 and on its
+    # band; u, q, s and f in, the new and the previous u, q and s out; the
+    # design's floor reads u, q, s and f and writes u, q and s an
+    # iteration, writes the previous iterate once and reads both iterates
+    # for the norms
+    mc = mscal(0.0)
+    consts = consts_of(L, n, n)
+    for name, fn, plain, args, nb, chunks, tiled in (
+            ("ml_chunk_tiled", fm.ml_chunk, fm.ml_chunk_plain,
+             (*big, scal, ri), n * n, 1, one),
+            ("ml_chunk_halo_tiled", fm.ml_chunk_halo, fm.ml_chunk_halo_plain,
+             (*band, bscal, ri, n), (n + 2 * H) * n, 1, one),
+            ("ml_multichunk_tiled", fm.ml_multichunk, fm.ml_multichunk_plain,
+             (*mstate, mc, ri, 8, "boyd", consts), n * n, 8, one * 8)):
+        r = rows[name]
+        timed(r, lambda: fn(*args), 10 if chunks > 1 else 20,
+              lambda c, t=tiled: c == t, fm)
+        r["plain_ms"] = time_ms(lambda: plain(*args), 1 if chunks > 1 else 2)
+        r["bound"] = bound((10 * L + 3) * nb * 4,
+                           ml_chunk_ops(nb, L, ri, chunks))
+        r["floor_ms"] = (chunks * (ri * (7 * L + 2) + 9 * L + 3) * nb * 4
+                         / HBM_BYTES_PER_S * 1e3)
+        check(r["counted"].get(name) == 1,
+              f"{name}: the wrapper did not launch ml_tiled (counted "
+              f"{r['counted']})")
+        print(f"{name}: wrapper {r['ms']:.4f} ms/call (traced device "
+              f"{fmt_ms(r['traced']['csrc_ms'])} ms in "
+              f"{len(r['traced']['csrc'])} hand-written launches, PyTorch "
+              f"{fmt_ms(r['traced']['torch_ms'])}), plain {r['plain_ms']:.4f} "
+              f"ms/call, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), "
+              f"one pass an iteration {r['floor_ms']:.5f} ms")
+    rows["ml_chunk_tiled"]["turns"] = seen
+    return rows
+
+
 def phase_resident_kernels(dev):
     """Rows 17, 12, 20, 23 and 24 as grid-resident launches (one cooperative
     launch a chunk) against their streaming launch sequences, whole plane
@@ -4878,9 +5153,10 @@ def phase_resident_ml_halo(dev):
           f"{fm.resident_bytes(L, n, n, sms, True)} at {n}x{n}x{L}; "
           f"{ML_LARGE}x{ML_LARGE}x{L} streams: "
           f"{fm.resident_bytes(L, ML_LARGE, ML_LARGE, sms, True)})")
-    check(not fm.resident_ok(L, ML_LARGE, ML_LARGE, sms, smem, multi=True),
-          f"the shape rule made {ML_LARGE}x{ML_LARGE}x{L}'s multichunk "
-          "resident")
+    check(fm.ml_pick_route(None, L, ML_LARGE, ML_LARGE, dev, True,
+                           "ml_multichunk")[0] == "tiled",
+          f"the shape rule did not tile {ML_LARGE}x{ML_LARGE}x{L}'s "
+          "multichunk")
     bu, bq, bs, bf = ml_kernel_inputs(L, ML_LARGE, ML_LARGE, 673, dev)
     bargs = (bf, mscal(0.0), 2, 2, "boyd", consts_of(L, ML_LARGE, ML_LARGE))
     try:
@@ -4893,10 +5169,11 @@ def phase_resident_ml_halo(dev):
     traced = csrc_launches(lambda: fm.ml_multichunk_(
         bu, bq, bs, bu.clone(), bq.clone(), bs.clone(), *bargs),
         lambda c: len(c) > 1)[0]
-    check("ml_multichunk_resident" not in traced and len(traced) > 1
+    check("ml_multichunk_resident" not in traced
+          and traced.count("ml_tiled") == 2
           and all(bool(torch.isfinite(t).all()) for t in (bu, bq, bs)),
-          f"ml_multichunk_ {ML_LARGE}x{ML_LARGE}x{L} did not stream")
-    print(f"ml_multichunk_ {ML_LARGE}x{ML_LARGE}x{L}: streams by the shape "
+          f"ml_multichunk_ {ML_LARGE}x{ML_LARGE}x{L} did not run tiled")
+    print(f"ml_multichunk_ {ML_LARGE}x{ML_LARGE}x{L}: tiled by the shape "
           f"rule ({len(traced)} hand-written launches at 2 chunks of 2); "
           "path='resident' raises ProstError")
 
@@ -5685,6 +5962,7 @@ def sharded_solves(rank, world, init_method, card):
                     lambda solve=solve: solve(2000), energy, card)
         out["admm65"] = cheby65(rank, world, mesh, card)
         out["deblur2048"] = deblur_large_sharded(rank, world, mesh, card)
+        out["ml512"] = ml_large_sharded(rank, world, mesh, card)
         out["dp"] = dp_ensemble(rank, world, card)
         return out
     finally:
@@ -5727,6 +6005,45 @@ def deblur_large_sharded(rank, world, mesh, card):
     check(rel <= ENERGY_RTOL, f"the sharded {n}x{n} deblur energy "
           "disagrees with the one-card fused route's")
     return {"launches": launches["deblur_chunk_halo_tiled"], "rel": rel}
+
+
+def ml_large_sharded(rank, world, mesh, card):
+    """ShardedFusedMultilabel on the cow's unaries at 512x512x8 (ML_LARGE,
+    300 iterations at ri 10): each rank's band with its 22 rows of halo
+    each side takes the tiled halo chunk; its energy against the one-card
+    fused route's (tiled too), which each rank solves too.  Returns the
+    tiled halo launches and the relative difference."""
+    from prost_tpu_torch.backend import PDHGOptions
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.parallel import ShardedFusedMultilabel
+
+    n, L = ML_LARGE, ML_LABELS
+    f = ml_unaries(cow_gray(n, n), L)
+    opts = PDHGOptions(stepsize="boyd", residual_iter=10)
+    one, _, _ = run_model(recording("pdhg", opts),
+                          ml_model(n, n, L, f, ML_LMB), n * n * L, 300,
+                          num_cback_calls=2)
+    fm.reset_launch_counts()
+    res, backend, _ = run_model(
+        recording("pdhg", opts,
+                  lambda p, o, so: ShardedFusedMultilabel(p, o, so, mesh)),
+        ml_model(n, n, L, f, ML_LMB), n * n * L, 300, num_cback_calls=2)
+    launches = {k: v for k, v in fm.launch_counts.items() if v}
+    check(set(launches) == {"ml_chunk_halo", "ml_chunk_halo_tiled"}
+          and launches["ml_chunk_halo_tiled"] == launches["ml_chunk_halo"]
+          > 0, f"the sharded {n}x{n}x{L} multilabel route launched "
+          f"{launches}")
+    e, e1 = (ml_energy(r.x, f, ML_LMB, L, n, n) for r in (res, one))
+    rel = abs(e - e1) / abs(e1)
+    print(f"rank {rank}: sharded multilabel solve {n}x{n}x{L} on {world} "
+          f"rank(s) (tiled halo chunk, route {backend.made.call.route}): "
+          f"{res.result.value} after {res.iterations} iterations, "
+          f"{res.iterations / backend.loop_s:.1f} it/s; energy {e:.6f}, one "
+          f"card {e1:.6f}, rel diff {rel:.3e} (tol {ENERGY_RTOL:g}); "
+          f"launches {launches} [{card}]")
+    check(rel <= ENERGY_RTOL, f"the sharded {n}x{n}x{L} multilabel energy "
+          "disagrees with the one-card fused route's")
+    return {"launches": launches["ml_chunk_halo_tiled"], "rel": rel}
 
 
 def cheby65(rank, world, mesh, card):
@@ -5815,9 +6132,10 @@ def _sharded_rank(rank, world, init_method, card, results):
 
 def phase_sharded_solve(card, one_card):
     """Phase 16: the halo-sharded routes on one NCCL rank per card, each
-    energy against ``one_card[kind]``, the one-card fused route's; and the
-    sharded deblur route at 2048x2048 on the tiled halo chunk
-    (``deblur_large_sharded``)."""
+    energy against ``one_card[kind]``, the one-card fused route's; the
+    sharded deblur route at 2048x2048 and the sharded multilabel route at
+    512x512x8 on their tiled halo chunks (``deblur_large_sharded``,
+    ``ml_large_sharded``)."""
     import multiprocessing as mp
     import os
     import tempfile
@@ -5864,6 +6182,8 @@ def phase_sharded_solve(card, one_card):
         launches[res["name"]] = sum(r[kind]["launches"] for r in per_rank)
     launches["deblur_chunk_halo_tiled"] = sum(
         r["deblur2048"]["launches"] for r in per_rank)
+    launches["ml_chunk_halo_tiled"] = sum(r["ml512"]["launches"]
+                                          for r in per_rank)
     c65 = per_rank[0]["admm65"]
     if c65 is not None:
         print(f"sharded ADMM at Chebyshev degree 65 on {world} rank(s): "
@@ -5959,8 +6279,10 @@ def phase_large(card):
     phase of the routes that have one; the PDHG ROF route's and the
     Chebyshev ADMM route's chunks and multichunks, and the deblur route's
     chunks, on the tiled path (their launches returned for the kernels
-    line), and each of these solves in turns with the streaming sequence
-    (tiled, streaming, streaming, tiled: it/s, the energies equal)."""
+    line), the multilabel route's chunks and multichunks on the tiled
+    path too, and each of these solves in turns with the streaming
+    sequence (tiled, streaming, streaming, tiled: it/s, the energies
+    equal)."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
     from prost_tpu_torch.ops import fused_admm as fa
     from prost_tpu_torch.ops import fused_deblur as fd
@@ -6024,30 +6346,54 @@ def phase_large(card):
     nx = ny = ML_LARGE
     L = ML_LABELS
     f = ml_unaries(cow_gray(ny, nx), L)
+    ml_opts = PDHGOptions(stepsize="boyd", residual_iter=10)
     fm.reset_launch_counts()
     with first_calls(fm.MLChunk, fm.MLMultichunk) as seen:
         res, backend, dt = run_model(
-            recording("pdhg", PDHGOptions(stepsize="boyd",
-                                          residual_iter=10)),
-            ml_model(nx, ny, L, f, ML_LMB), nx * ny * L, 300,
-            num_cback_calls=2)
+            recording("pdhg", ml_opts), ml_model(nx, ny, L, f, ML_LMB),
+            nx * ny * L, 300, num_cback_calls=2)
     launches = single_launches(fm)
+    counted = {k: fm.launch_counts[k] for k in ("ml_chunk_tiled",
+                                                "ml_multichunk_tiled")}
     n = nx * ny
-    banded_row(16, f"ml_chunk {nx}x{ny}x{L}", seen, "MLChunk",
+    banded_row(16, f"ml_chunk {nx}x{ny}x{L} (tiled path)", seen, "MLChunk",
                (10 * L + 3) * n * 4, ml_chunk_ops(n, L, ri))
-    banded_row(14, f"ml_multichunk {nx}x{ny}x{L} (8 chunks)", seen,
-               "MLMultichunk", (10 * L + 3) * n * 4,
+    banded_row(14, f"ml_multichunk {nx}x{ny}x{L} (8 chunks, tiled path)",
+               seen, "MLMultichunk", (10 * L + 3) * n * 4,
                ml_chunk_ops(n, L, ri, 8))
     check(backend.made.ml is not None and all(v > 0
                                                for v in launches.values()),
           f"a multilabel kernel was not launched at {nx}x{ny}x{L}: "
           f"{launches}")
-    e = ml_energy(res.x, f, ML_LMB, L, nx, ny)
-    check(not backend.made.ml["multi"].resident
-          and not backend.made.ml["call"].resident,
-          "the shape rule made ML_LARGE's multichunk or chunks resident")
-    print(f"fused multilabel solve {nx}x{ny}x{L} (streaming path): "
-          f"{rates(res, backend, dt)}; energy {e:.6f}, launches {launches} "
+    routes = (backend.made.ml["multi"].route, backend.made.ml["call"].route)
+    check(all(r[0] == "tiled" for r in routes)
+          and counted["ml_chunk_tiled"] == launches["ml_chunk"] > 0
+          and counted["ml_multichunk_tiled"] == launches["ml_multichunk"]
+          > 0, f"the {nx}x{ny}x{L} multichunks and chunks did not run "
+          f"tiled: {routes}, {counted} tiled of {launches}")
+    tiled.update(counted)
+    e_tiled = ml_energy(res.x, f, ML_LMB, L, nx, ny)
+    print(f"fused multilabel solve {nx}x{ny}x{L} (multichunk and chunk on "
+          f"the tiled path, tiles {routes[0][1]} and {routes[1][1]}; tiled "
+          f"launches {counted}): {rates(res, backend, dt)}; energy "
+          f"{e_tiled:.6f}, launches {launches} [{card}]")
+    its = []
+    for p in ("tiled", "streaming", "streaming", "tiled"):
+        res, backend, dt = run_model(
+            recording("pdhg", ml_opts, ml_path=p),
+            ml_model(nx, ny, L, f, ML_LMB), nx * ny * L, 300,
+            num_cback_calls=2)
+        check(backend.made.ml["call"].route[0] == p
+              and backend.made.ml["multi"].route[0] == p,
+              f"the {nx}x{ny}x{L} multilabel solve did not take the {p} "
+              "path")
+        check(ml_energy(res.x, f, ML_LMB, L, nx, ny) == e_tiled,
+              f"the {p} {nx}x{ny}x{L} multilabel solve's energy is not the "
+              "tiled one's")
+        its.append(res.iterations / backend.loop_s)
+    print(f"fused multilabel solve {nx}x{ny}x{L} in turns, iterating it/s: "
+          f"tiled {its[0]:.1f}, streaming {its[1]:.1f}, streaming "
+          f"{its[2]:.1f}, tiled {its[3]:.1f}; the four energies equal "
           f"[{card}]")
 
     nx = ny = DB_LARGE
@@ -6140,8 +6486,8 @@ def phase_large(card):
     print(f"fused vol solve {nx}x{ny}x{L} (streaming path): "
           f"{rates(res, backend, dt)}; energy {e:.6f}, launches {launches} "
           f"[{card}]")
-    print("banded rows at their banded shapes (row 19 tiled, the others "
-          "streaming): " + json.dumps(BANDED))
+    print("banded rows at their banded shapes (rows 19, 16 and 14 tiled, "
+          "the others streaming): " + json.dumps(BANDED))
     return tiled
 
 
@@ -6727,6 +7073,7 @@ def main() -> int:
     resident.update(phase(phase_resident_ml_halo, dev))
     rows.update(phase(phase_tiled_admm, dev))
     rows.update(phase(phase_tiled_deblur, dev))
+    rows.update(phase(phase_tiled_ml, dev))
     launches, e_pdhg, d_pdhg = phase(phase_solve, card)
     admm_launches, e_admm = phase(phase_admm_solve, card, e_pdhg, d_pdhg)
     launches.update(admm_launches)
@@ -6798,6 +7145,12 @@ def main() -> int:
                                "prost_tpu/ops/fused_deblur.py:521"),
         "deblur_chunk_halo_tiled": ("fused_deblur",
                                     "prost_tpu/ops/fused_deblur.py:521"),
+        "ml_chunk_tiled": ("fused_multilabel",
+                           "prost_tpu/ops/fused_multilabel.py:743"),
+        "ml_multichunk_tiled": ("fused_multilabel",
+                                "prost_tpu/ops/fused_multilabel.py:441"),
+        "ml_chunk_halo_tiled": ("fused_multilabel",
+                                "prost_tpu/ops/fused_multilabel.py:743"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -1150,45 +1150,24 @@ __device__ __forceinline__ void deblur_tiled_body(const DB& a, const DB& b,
     grid.sync();
   }
 
-  // deblur_norm_partial's tiles, four at a time (block_partials' tree)
+  // deblur_norm_partial's tiles, four at a time (block_partials' tree),
+  // slot B copied back as it is read after an odd count
   const bool back = (count & 1) != 0;
   const DB& fin = back ? b : a;
   const size_t n = (size_t)a.nx * a.ny;
-  const int ntx = (ny2 + BX - 1) / BX;
-  const int nnorm = (nx2 + BY - 1) / BY * ntx;
-  const int group = threadIdx.x / NT, tt = threadIdx.x % NT;
-  const int groups = DT_THREADS / NT;
-  float* red = smem + group * 4 * NT;  // red[c * NT + tt]
-  for (int base = groups * blockIdx.x; base < nnorm;
-       base += groups * gridDim.x) {
-    const int tile = base + group;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (tile < nnorm) {
-      const int i = tile / ntx * BY + tt / BX, j = tile % ntx * BX + tt % BX;
-      if (i < nx2 && j < ny2) {
-        if (owned_row(r, i)) norm_terms<false>(fin, r, i, j, t, v);
-        if (back) {
-          const size_t p2 = (size_t)i * ny2 + j, p = (size_t)i * a.ny + j;
-          a.yv[p2] = b.yv[p2];
-          if (i < a.nx && j < a.ny) {
-            a.x[p] = b.x[p];
-            a.q[p] = b.q[p];
-            a.q[n + p] = b.q[n + p];
-          }
-        }
+  tiled_tile_partials<DT_THREADS>(nx2, ny2, a.partial, smem,
+                                  [&](int i, int j, float v[4]) {
+    if (owned_row(r, i)) norm_terms<false>(fin, r, i, j, t, v);
+    if (back) {
+      const size_t p2 = (size_t)i * ny2 + j, p = (size_t)i * a.ny + j;
+      a.yv[p2] = b.yv[p2];
+      if (i < a.nx && j < a.ny) {
+        a.x[p] = b.x[p];
+        a.q[p] = b.q[p];
+        a.q[n + p] = b.q[n + p];
       }
     }
-    for (int c = 0; c < 4; ++c) red[c * NT + tt] = v[c];
-    __syncthreads();
-    for (int s = NT / 2; s > 0; s >>= 1) {
-      if (tt < s)
-        for (int c = 0; c < 4; ++c) red[c * NT + tt] += red[c * NT + tt + s];
-      __syncthreads();
-    }
-    if (tt == 0 && tile < nnorm)
-      for (int c = 0; c < 4; ++c) a.partial[4 * tile + c] = red[c * NT];
-    __syncthreads();  // the next pass overwrites red
-  }
+  });
 }
 
 // N > 0: a launch of N taps, held in registers; N = 0: any count, read

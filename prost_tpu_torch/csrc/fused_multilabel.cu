@@ -7,12 +7,16 @@
 //                                      -> _ml_chunk_kernel_batched
 //   prost_tpu/ops/fused_multilabel.py  ml_fused_chunk_halo
 //                                      -> _ml_chunk_kernel (halo=True)
+//   prost_tpu/ops/fused_multilabel.py  ml_fused_chunk_banded
+//                                      -> _ml_banded_kernel, _ml_banded_db_kernel
+//   prost_tpu/ops/fused_multilabel.py  ml_fused_multichunk_banded
+//                                      -> _ml_banded_mc_kernel
 // whose math is _ml_chunk_core, _ml_update, _shift_ops_3d (whole plane,
 // maskless adjoint) and _project_dead_dual_3d in the same file, and
-// adapt_scalars in fused_rof.py.  They also serve the JAX package's banded
-// variants (ml_fused_chunk_banded, ml_fused_multichunk_banded), which exist
-// only because a TPU core's VMEM cannot hold the planes at 512x512x8: here
-// the planes stay in device memory at every size.  The plain PyTorch
+// adapt_scalars in fused_rof.py.  The banded variants exist because a TPU
+// core's VMEM cannot hold the planes at 512x512x8; here they are the tiled
+// chunk (ml_tiled, further down), which the wrapper's shape rule takes
+// where no grid-resident band holds the planes.  The plain PyTorch
 // versions live beside their wrappers in prost_tpu_torch/ops/fused_multilabel.py.
 //
 // Layout (the JAX package's): u, f are (L, nx, ny) row-major f32 label
@@ -40,6 +44,9 @@
 // beyond the L2, where one instance's 13 MB of state stays on chip; and
 // the multichunk runs all its chunks and their adaptation in one such
 // launch (ml_multichunk_resident), where the launch sequence takes 177.
+// Where the bands do not fit (512x512x8 and its one-shard halo band), the
+// chunk, its halo mode and the multichunk run one tiled cooperative launch
+// a chunk (ml_tiled), one pass over device memory an iteration.
 //
 // Design.  One thread per pixel, 32x8 blocks with threadIdx.x along the
 // contiguous y axis (pdhg_chunk.cuh), and each thread loops over the L
@@ -67,6 +74,7 @@
 // Interface: plain C, loaded with ctypes; pointers and the stream arrive
 // as void*, and every entry point returns the cudaError_t of its launches.
 
+#include "cp_async.cuh"
 #include "pdhg_chunk.cuh"
 
 namespace {
@@ -274,10 +282,74 @@ __device__ __forceinline__ float kty_at(const float* q, float sv, size_t pl,
   return ((lx - qx) + (ly - qy)) + sv;
 }
 
-// First pass of the four preconditioned residual norms (_ml_chunk_core
-// after the aligned iteration): per pixel the terms of |pd|^2, |z_hat|^2,
-// |dd|^2 and |w_hat|^2 over the 2L + 1 dual planes and the L primal
-// planes, then per-block tree sums into partial[4 * block].
+// The four terms of the preconditioned residual norms at pixel (i, j) of
+// an owned row (_ml_chunk_core after the aligned iteration): those of
+// |pd|^2, |z_hat|^2, |dd|^2 and |w_hat|^2 over the 2L + 1 dual planes and
+// the L primal planes, K^T y of the current and previous duals
+// recomputed.  CARRIED: the gradients and label sums of u and u_prev read
+// from the carried planes; else recomputed from u and u_prev by the same
+// expressions (ml_seed's, ml_dual's), which gives the same bits.
+template <bool CARRIED>
+__device__ __forceinline__ void ml_norm_terms(const ML& b, const RowCtx& r,
+                                              int i, int j, float v[4]) {
+  int ny = b.ny;
+  size_t n = (size_t)b.nx * ny, p = (size_t)i * ny + j;
+  size_t nl = n * b.L;
+  bool above = has_above(r, i);
+  bool below = has_below(r, i, b.nx), right = j < ny - 1;
+  float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
+  float theta = b.sc[S_THETA];
+  float tp = 1.f + theta;
+  float inv_q = 1.f / (sigma_raw * SQRT_S_Q);
+  float inv_s = 1.f / (sigma_raw * b.sqrt_inv_l);
+  float inv_t = 1.f / (tau_raw * SQRT_T);
+  float s2 = b.s[p], spv = b.sp[p];
+  float su2 = 0.f, sup = 0.f;
+  for (int l = 0; l < b.L; ++l) {
+    size_t pl = l * n + p;
+    float gx2, gy2, gpx, gpy;
+    if constexpr (CARRIED) {
+      gx2 = b.g[pl];
+      gy2 = b.g[nl + pl];
+      gpx = b.gp[pl];
+      gpy = b.gp[nl + pl];
+    } else {
+      float uv = b.u[pl], upv = b.up[pl];
+      gx2 = below ? b.u[pl + ny] - uv : 0.f;
+      gy2 = right ? b.u[pl + 1] - uv : 0.f;
+      gpx = below ? b.up[pl + ny] - upv : 0.f;
+      gpy = right ? b.up[pl + 1] - upv : 0.f;
+      su2 = l == 0 ? uv : su2 + uv;
+      sup = l == 0 ? upv : sup + upv;
+    }
+    float zx = (b.qp[pl] - b.q[pl]) * inv_q
+               + SQRT_S_Q * (tp * gx2 - theta * gpx);
+    float zy = (b.qp[nl + pl] - b.q[nl + pl]) * inv_q
+               + SQRT_S_Q * (tp * gy2 - theta * gpy);
+    float pdx = zx - SQRT_S_Q * gx2;
+    float pdy = zy - SQRT_S_Q * gy2;
+    float kty2 = kty_at(b.q, s2, pl, nl, above, j, ny);
+    float ktyp = kty_at(b.qp, spv, pl, nl, above, j, ny);
+    float wh = (b.up[pl] - b.u[pl]) * inv_t - SQRT_T * ktyp;
+    float dd = wh + SQRT_T * kty2;
+    v[0] += pdx * pdx + pdy * pdy;
+    v[1] += zx * zx + zy * zy;
+    v[2] += dd * dd;
+    v[3] += wh * wh;
+  }
+  if constexpr (CARRIED) {
+    su2 = b.su[p];
+    sup = b.sup[p];
+  }
+  float zs = (spv - s2) * inv_s + b.sqrt_inv_l * (tp * su2 - theta * sup);
+  float pds = zs - b.sqrt_inv_l * su2;
+  v[0] += pds * pds;
+  v[1] += zs * zs;
+}
+
+// First pass of the four preconditioned residual norms: per pixel of the
+// owned rows the terms (ml_norm_terms, from the carried planes), then
+// per-block tree sums into partial[4 * block].
 // Bound: memory, 10L + 4 planes read once per chunk.
 __global__ void ml_norm_partial(ML b) {
   b = instance_of(b);
@@ -285,43 +357,8 @@ __global__ void ml_norm_partial(ML b) {
   int i, j;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
   RowCtx r = row_ctx(b.sc, b.nx, b.nxg);
-  if (pixel(b.nx, b.ny, i, j) && owned_row(r, i)) {
-    int ny = b.ny;
-    size_t n = (size_t)b.nx * ny, p = (size_t)i * ny + j;
-    size_t nl = n * b.L;
-    bool above = has_above(r, i);
-    float tau_raw = b.sc[S_TAU], sigma_raw = b.sc[S_SIGMA];
-    float theta = b.sc[S_THETA];
-    float tp = 1.f + theta;
-    float inv_q = 1.f / (sigma_raw * SQRT_S_Q);
-    float inv_s = 1.f / (sigma_raw * b.sqrt_inv_l);
-    float inv_t = 1.f / (tau_raw * SQRT_T);
-    float s2 = b.s[p], spv = b.sp[p];
-    for (int l = 0; l < b.L; ++l) {
-      size_t pl = l * n + p;
-      float gx2 = b.g[pl], gy2 = b.g[nl + pl];
-      float zx = (b.qp[pl] - b.q[pl]) * inv_q
-                 + SQRT_S_Q * (tp * gx2 - theta * b.gp[pl]);
-      float zy = (b.qp[nl + pl] - b.q[nl + pl]) * inv_q
-                 + SQRT_S_Q * (tp * gy2 - theta * b.gp[nl + pl]);
-      float pdx = zx - SQRT_S_Q * gx2;
-      float pdy = zy - SQRT_S_Q * gy2;
-      float kty2 = kty_at(b.q, s2, pl, nl, above, j, ny);
-      float ktyp = kty_at(b.qp, spv, pl, nl, above, j, ny);
-      float wh = (b.up[pl] - b.u[pl]) * inv_t - SQRT_T * ktyp;
-      float dd = wh + SQRT_T * kty2;
-      v[0] += pdx * pdx + pdy * pdy;
-      v[1] += zx * zx + zy * zy;
-      v[2] += dd * dd;
-      v[3] += wh * wh;
-    }
-    float su2 = b.su[p];
-    float zs = (spv - s2) * inv_s
-               + b.sqrt_inv_l * (tp * su2 - theta * b.sup[p]);
-    float pds = zs - b.sqrt_inv_l * su2;
-    v[0] += pds * pds;
-    v[1] += zs * zs;
-  }
+  if (pixel(b.nx, b.ny, i, j) && owned_row(r, i))
+    ml_norm_terms<true>(b, r, i, j, v);
   block_partials(v, b.partial);
 }
 
@@ -876,6 +913,347 @@ int chunk(const ML& b, int count, int batch, cudaStream_t st) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// The tiled chunk and multichunk (ml_fused_chunk_banded -> _ml_banded_kernel,
+// _ml_banded_db_kernel; ml_fused_multichunk_banded -> _ml_banded_mc_kernel),
+// for the planes whose bands no grid-resident launch holds: 512x512x8 and
+// its one-shard halo band.  The TPU kernels run one launch a chunk over row
+// bands, each band's window with 2 count + 2 rows of halo DMAed into VMEM
+// and the whole chunk run there.
+//
+// What bounds it.  A chunk's window would need a halo of 2 count + 1
+// pixels (21 at ri 10) and about 5L + 2 floats a pixel: at L = 8 even an
+// 8x32 tile's window does not fit in a block's shared memory.  One
+// iteration needs only one pixel around a tile: the dual step at a pixel
+// reads the new and the old u one row below and one column right, the new
+// u there K^T q, which reads q_x one row up and q_y one column left.  So
+// each iteration is one pass over device memory: u, q, s and f read (4L +
+// 1 planes, through the windows' overlap), u, q and s written (3L + 1):
+// 60.8 MB at 512x512x8, 18 us at the card's memory rate, where the
+// streaming sequence moves 14L + 5 planes in two launches; the state (25
+// MB at L = 8) fits in the 50 MB L2.
+//
+// Design.  One cooperative launch a chunk, one block of MT_THREADS on each
+// SM, a grid barrier between iterations: iteration t reads slot (start +
+// t) mod 2 (slot A the caller's u, q and s, slot B 3L + 1 planes of
+// scratch) and writes the other.  The blocks walk the plane's tiles (tx
+// rows, a multiple of 8, by ty columns, of 32); a tile's window is the
+// tile and ml_tiled_halo() = 1 pixel on every side, zero outside the plane
+// (ops/fused_multilabel.py ml_tiled_halo; tests/test_torch_tiled_ml.py
+// holds the plain twin exact with it and not without it).  In shared
+// memory 4L + 1 planes of the window:
+//   1. cp.async loads of u, q_x, q_y, f and s, the dead duals zeroed
+//      (ml_seed's projection: q_x on the global last row, q_y on the last
+//      column; the dual step keeps them zero, so every load may do it);
+//   2. ml_primal's step on the tile and one row below and one column right
+//      of it, the new u into f's plane (f is read only there);
+//   3. ml_dual<L>'s step at the owned pixels into the other slot: dx u, dy
+//      u and sum_l u of the old u, which the streaming sequence carries in
+//      2L + 1 planes, recomputed from the window by the same expressions,
+//      which give the same bits; on the chunk's last iteration the old u,
+//      q and s also into the caller's previous-iterate planes.
+// Every mask is decided by the pixel's place in the plane (the row context
+// RowCtx of a halo band included), never by its place in the window.
+// After the last iteration and a grid barrier the blocks reduce
+// ml_norm_partial's 32x8 tiles of the written slot (ml_norm_terms, the
+// gradients and label sums recomputed; MT_THREADS / NT tiles at a time in
+// block_partials' tree) for pdhg_finish.  Planes, previous iterates and
+// norms are the streaming sequence's bit for bit.  A chunk is the launch,
+// the finish and, after an odd count, the copy back of slot B
+// (ml_tiled_settle); a multichunk is up to k_chunks launches, chunk c from
+// slot (c count) mod 2, each followed by pdhg_finish's adaptation and
+// stopping test, and one settle where the count is odd.  A launch whose
+// flag is set at entry returns before its first barrier.
+// ---------------------------------------------------------------------------
+
+constexpr int MT_THREADS = 512;  // a block: 16 rows of 32 threads
+constexpr int MT_RED = (MT_THREADS / NT) * 4 * NT;  // the norm pass's trees
+
+// The dynamic shared memory of a block of the tiled launch on tx x ty
+// tiles of L labels (mirrored by ops/fused_multilabel.py ml_tiled_bytes):
+// 4L + 1 planes of the window, at least the norm pass's trees.
+inline size_t ml_tiled_smem(int L, int tx, int ty) {
+  const size_t planes = (size_t)(4 * L + 1) * (tx + 2) * (ty + 2);
+  return (planes > (size_t)MT_RED ? planes : (size_t)MT_RED) * sizeof(float);
+}
+
+// A window of planes in shared memory: at(k, i, j) is element (i, j) of
+// the plane of its k-th plane, the window's corner (r0, c0), its rows w
+// floats apart and its planes m floats apart.
+struct MWin {
+  float* a;
+  int r0, c0, w, m;
+  __device__ __forceinline__ float& at(int k, int i, int j) const {
+    return a[(size_t)k * m + (i - r0) * w + (j - c0)];
+  }
+};
+
+// One iteration on tile `tile` of the tiles of tx x ty: the window from
+// slot `src`, the owned pixels into slot `dst`; with `last` the old u, q
+// and s also into the previous-iterate planes (a's up, qp, sp).  `a` holds
+// f and the shapes.
+template <int L>
+__device__ __forceinline__ void ml_tiled_iteration(
+    const ML& src, const ML& dst, const ML& a, const RowCtx& r,
+    const MLStep& k, int tile, int tx, int ty, bool last, float* smem) {
+  const int nx = a.nx, ny = a.ny;
+  const size_t n = (size_t)nx * ny, nl = n * L;
+  const int ntc = (ny + ty - 1) / ty;
+  const int R0 = tile / ntc * tx, C0 = tile % ntc * ty;
+  const int R1 = min(R0 + tx, nx), C1 = min(C0 + ty, ny);
+  const int r0 = R0 - 1, c0 = C0 - 1;
+  const int ww = C1 + 1 - c0, m = (R1 + 1 - r0) * ww;
+  const MWin U{smem, r0, c0, ww, m}, QX{smem + L * m, r0, c0, ww, m};
+  const MWin QY{smem + 2 * L * m, r0, c0, ww, m};
+  const MWin F{smem + 3 * L * m, r0, c0, ww, m};  // f, then the new u
+  const MWin S{smem + 4 * L * m, r0, c0, ww, m};
+
+  // 1. the window of the state and f, zero outside the plane, the dead
+  //    duals zero
+  for (int p = threadIdx.x; p < m; p += MT_THREADS) {
+    const int i = r0 + p / ww, j = c0 + p % ww;
+    if (i >= 0 && i < nx && j >= 0 && j < ny) {
+      const size_t g = (size_t)i * ny + j;
+      const bool dead = dead_row(r, i), last_col = j == ny - 1;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const size_t gl = l * n + g;
+        cp_async4(U.a + l * m + p, src.u + gl);
+        cp_async4(F.a + l * m + p, a.f + gl);
+        if (dead)
+          QX.a[l * m + p] = 0.f;
+        else
+          cp_async4(QX.a + l * m + p, src.q + gl);
+        if (last_col)
+          QY.a[l * m + p] = 0.f;
+        else
+          cp_async4(QY.a + l * m + p, src.q + nl + gl);
+      }
+      cp_async4(S.a + p, src.s + g);
+    } else {
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        U.a[l * m + p] = 0.f;
+        F.a[l * m + p] = 0.f;
+        QX.a[l * m + p] = 0.f;
+        QY.a[l * m + p] = 0.f;
+      }
+      S.a[p] = 0.f;
+    }
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  // 2. ml_primal on rows [R0, R1] and columns [C0, C1] inside the plane
+  const int pw = min(C1, ny - 1) + 1 - C0;
+  const int np = (min(R1, nx - 1) + 1 - R0) * pw;
+  for (int p = threadIdx.x; p < np; p += MT_THREADS) {
+    const int i = R0 + p / pw, j = C0 + p % pw;
+    const float sv = S.at(0, i, j);
+    const bool above = has_above(r, i);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const float qx = QX.at(l, i, j), qy = QY.at(l, i, j);
+      const float lx = above ? QX.at(l, i - 1, j) : 0.f;
+      const float ly = j > 0 ? QY.at(l, i, j - 1) : 0.f;
+      const float kty = ((lx - qx) + (ly - qy)) + sv;
+      const float uv = U.at(l, i, j);
+      const float tf = k.tau * F.at(l, i, j);
+      F.at(l, i, j) = fmaxf((uv - k.tau * kty) - tf, 0.f);
+    }
+  }
+  __syncthreads();
+
+  // 3. ml_dual<L> at the owned pixels, into slot dst
+  const int ow = C1 - C0, no = (R1 - R0) * ow;
+  for (int p = threadIdx.x; p < no; p += MT_THREADS) {
+    const int i = R0 + p / ow, j = C0 + p % ow;
+    const size_t g = (size_t)i * ny + j;
+    const bool below = has_below(r, i, nx), right = j < ny - 1;
+    float ax[L], ay[L];
+    float su2 = 0.f, suv = 0.f, nrm2 = 0.f;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const size_t gl = l * n + g;
+      const float uv = F.at(l, i, j), uo = U.at(l, i, j);
+      const float gx2 = below ? F.at(l, i + 1, j) - uv : 0.f;
+      const float gy2 = right ? F.at(l, i, j + 1) - uv : 0.f;
+      const float gx = below ? U.at(l, i + 1, j) - uo : 0.f;  // carried g
+      const float gy = right ? U.at(l, i, j + 1) - uo : 0.f;
+      su2 = l == 0 ? uv : su2 + uv;
+      suv = l == 0 ? uo : suv + uo;  // the carried su
+      const float qx = QX.at(l, i, j), qy = QY.at(l, i, j);
+      const float axv = qx + k.sig_q * (k.tp * gx2 - k.theta * gx);
+      const float ayv = qy + k.sig_q * (k.tp * gy2 - k.theta * gy);
+      const float t = axv * axv + ayv * ayv;
+      nrm2 = l == 0 ? t : nrm2 + t;
+      ax[l] = axv;
+      ay[l] = ayv;
+      dst.u[gl] = uv;
+      if (last) {
+        a.up[gl] = uo;
+        a.qp[gl] = qx;
+        a.qp[nl + gl] = qy;
+      }
+    }
+    const float scale =
+        nrm2 > 0.f ? fminf(1.f, k.ball * rsqrtf(nrm2)) : 1.f;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      dst.q[l * n + g] = ax[l] * scale;
+      dst.q[nl + l * n + g] = ay[l] * scale;
+    }
+    const float sv = S.at(0, i, j);
+    dst.s[g] = (sv + k.sig_s * (k.tp * su2 - k.theta * suv)) - k.sig_s * k.ds;
+    if (last) a.sp[g] = sv;
+  }
+}
+
+// `count` iterations from slot `start` (0: a's planes, 1: b's), then
+// ml_norm_partial's tiles of the slot written last into a's partials.
+template <int L>
+__global__ void __launch_bounds__(MT_THREADS, 1)
+    ml_tiled(ML a, ML b, int count, int start, int tx, int ty) {
+  if (a.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const RowCtx r = row_ctx(a.sc, a.nx, a.nxg);
+  const MLStep k = ml_step(a);
+  const int nx = a.nx, ny = a.ny;
+  const int ntiles = ((nx + tx - 1) / tx) * ((ny + ty - 1) / ty);
+  for (int it = 0; it < count; ++it) {
+    const bool from_b = ((start + it) & 1) != 0;
+    const ML& src = from_b ? b : a;
+    const ML& dst = from_b ? a : b;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      ml_tiled_iteration<L>(src, dst, a, r, k, tile, tx, ty,
+                            it == count - 1, smem);
+      __syncthreads();  // the next window overwrites the planes
+    }
+    grid.sync();
+  }
+
+  // ml_norm_partial's tiles, MT_THREADS / NT at a time (block_partials'
+  // tree), of the written slot (b holds a's previous-iterate planes too)
+  const ML& fin = ((start + count) & 1) != 0 ? b : a;
+  tiled_tile_partials<MT_THREADS>(nx, ny, a.partial, smem,
+                                  [&](int i, int j, float v[4]) {
+    if (owned_row(r, i)) ml_norm_terms<false>(fin, r, i, j, v);
+  });
+}
+
+// After a tiled chunk (multi 0) whose flag was not set at entry, or a
+// tiled multichunk (multi 1) that ran an odd number of chunks, of an odd
+// count: slot B's u, q and s into a's planes.
+__global__ void ml_tiled_settle(ML a, ML b, int multi) {
+  const bool copy =
+      multi ? ((int)a.sc[S_DONE] & 1) != 0 : a.sc[S_CONV] == 0.f;
+  if (!copy) return;
+  const size_t n = (size_t)a.nx * a.ny, nl = n * a.L;
+  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       t < 3 * nl + n; t += (size_t)gridDim.x * blockDim.x) {
+    if (t < nl)
+      a.u[t] = b.u[t];
+    else if (t < 3 * nl)
+      a.q[t - nl] = b.q[t - nl];
+    else
+      a.s[t - 3 * nl] = b.s[t - 3 * nl];
+  }
+}
+
+using MLTiledKernel = void (*)(ML, ML, int, int, int, int);
+
+// The tiled kernel for L labels, or null beyond MAX_REG_L.
+MLTiledKernel ml_tiled_kernel(int L) {
+  switch (L) {
+    case 1: return ml_tiled<1>;
+    case 2: return ml_tiled<2>;
+    case 3: return ml_tiled<3>;
+    case 4: return ml_tiled<4>;
+    case 5: return ml_tiled<5>;
+    case 6: return ml_tiled<6>;
+    case 7: return ml_tiled<7>;
+    case MAX_REG_L: return ml_tiled<MAX_REG_L>;
+    default: return nullptr;
+  }
+}
+
+// The dynamic shared memory a block of the tiled launch may hold on the
+// current device: the smallest of its kernels' limits, or minus the error.
+int ml_tiled_limit() {
+  int limit = -1;
+  for (int L = 1; L <= MAX_REG_L; ++L) {
+    int l = resident_smem_limit(ml_tiled_kernel(L));
+    if (l < 0) return l;
+    limit = limit < 0 || l < limit ? l : limit;
+  }
+  return limit;
+}
+
+// Slot B of the tiled launch: u, q and s in the 3L + 1 scratch planes.
+ML slot_b(const ML& a, void* scratch) {
+  const size_t nl = (size_t)a.nx * a.ny * a.L;
+  ML b = a;
+  b.u = (float*)scratch;
+  b.q = b.u + nl;
+  b.s = b.q + 2 * nl;
+  return b;
+}
+
+// One tiled launch of `count` iterations from slot `start`: one block of
+// MT_THREADS on each SM.  Up to MAX_REG_L labels; a tile that is not a
+// multiple of the 32x8 norm tiles or whose window does not fit in a
+// block's shared memory is refused with cudaErrorInvalidValue, a grid the
+// card cannot hold at once by the card
+// (cudaErrorCooperativeLaunchTooLarge).
+int tiled_launch(ML& a, ML& b, int count, int start, int tx, int ty,
+                 cudaStream_t st) {
+  MLTiledKernel kernel = ml_tiled_kernel(a.L);
+  if (kernel == nullptr || tx < BY || tx % BY || ty < BX || ty % BX ||
+      count < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ml_tiled_smem(a.L, tx, ty);
+  const int limit = resident_smem_limit(kernel);
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int sms = 0, per_sm = 0;
+  if (int rc = device_sms(&sms)) return rc;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      MT_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&a, &b, &count, &start, &tx, &ty};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms),
+                                  dim3(MT_THREADS), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  LAUNCH_CHECK();
+  return 0;
+}
+
+int tiled_settle(const ML& a, const ML& b, int multi, cudaStream_t st) {
+  ml_tiled_settle<<<264, 512, 0, st>>>(a, b, multi);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// One tiled chunk: the launch, the finish, and after an odd count the
+// copy back.
+int tiled_chunk(ML& a, void* scratch, int count, int tx, int ty,
+                cudaStream_t st) {
+  ML b = slot_b(a, scratch);
+  if (int rc = tiled_launch(a, b, count, 0, tx, ty, st)) return rc;
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const dim3 g = grid_of(a.nx, a.ny);
+  pdhg_finish<<<1, FIN, 0, st>>>(a.sc, a.partial, (int)(g.x * g.y), count,
+                                 0, STEP_NONE, none);
+  LAUNCH_CHECK();
+  return count & 1 ? tiled_settle(a, b, 0, st) : 0;
+}
+
 ML ml_of(void* u, void* q, void* s, void* up, void* qp, void* sp, void* g,
          void* gp, void* su, void* sup, const void* f, void* sc,
          void* partial, int L, int nx, int ny, float inv_l,
@@ -1099,5 +1477,79 @@ int prost_ml_multichunk_resident(void* u, void* q, void* s, void* up,
   void* args[] = {&b, &count, &k_chunks, &stepsize, &c, &rmax};
   return resident_launch(kernel, args, smem, (cudaStream_t)stream);
 }
+
+// ml_fused_chunk_banded for the planes no grid-resident band holds: one
+// tiled cooperative launch (ml_tiled), the finish and, after an odd count,
+// the copy back.  The arguments of prost_ml_chunk_resident without
+// nx_global, `scratch` (3L + 1 (nx, ny) planes, slot B) for `terms`, and
+// the owned tile (tx rows, a multiple of 8; ty columns, of 32).
+// Bit-equal to prost_ml_chunk in the planes, the previous iterates and the
+// 4 squared norms.  No-op when sc[S_CONV] is set.  Up to MAX_REG_L labels;
+// a tile the launch cannot take is refused (cudaErrorInvalidValue, or the
+// card's refusal of the cooperative launch).
+int prost_ml_chunk_tiled(void* u, void* q, void* s, void* up, void* qp,
+                         void* sp, const void* f, void* sc, void* partial,
+                         void* scratch, int L, int nx, int ny, float inv_l,
+                         float sqrt_inv_l, int count, int tx, int ty,
+                         void* stream) {
+  ML a = ml_of(u, q, s, up, qp, sp, nullptr, nullptr, nullptr, nullptr, f,
+               sc, partial, L, nx, ny, inv_l, sqrt_inv_l);
+  return tiled_chunk(a, scratch, count, tx, ty, (cudaStream_t)stream);
+}
+
+// prost_ml_chunk_tiled on one halo-extended shard of a plane of nx_global
+// rows, as prost_ml_chunk_halo takes it (the row context in sc, the norms
+// over the owned rows).  Bit-equal to prost_ml_chunk_halo.
+int prost_ml_chunk_halo_tiled(void* u, void* q, void* s, void* up,
+                              void* qp, void* sp, const void* f, void* sc,
+                              void* partial, void* scratch, int L, int nx,
+                              int ny, float inv_l, float sqrt_inv_l,
+                              int nx_global, int count, int tx, int ty,
+                              void* stream) {
+  ML a = ml_of(u, q, s, up, qp, sp, nullptr, nullptr, nullptr, nullptr, f,
+               sc, partial, L, nx, ny, inv_l, sqrt_inv_l);
+  a.nxg = nx_global;
+  return tiled_chunk(a, scratch, count, tx, ty, (cudaStream_t)stream);
+}
+
+// ml_fused_multichunk_banded as up to k_chunks tiled launches, chunk c
+// from slot (c count) mod 2, each followed by pdhg_finish's adaptation and
+// stopping test, and after an odd count the copy back where an odd number
+// of chunks ran; the arguments of prost_ml_multichunk_resident, `scratch`
+// 3L + 1 (nx, ny) planes for `terms`, and the tile.  Bit-equal to
+// prost_ml_multichunk in the planes, the previous iterates and sc.
+// Refuses a tile as prost_ml_chunk_tiled does.  No-op when sc[S_CONV] is
+// set.
+int prost_ml_multichunk_tiled(void* u, void* q, void* s, void* up, void* qp,
+                              void* sp, const void* f, void* sc,
+                              void* partial, void* scratch, int L, int nx,
+                              int ny, float inv_l, float sqrt_inv_l,
+                              int count, int k_chunks, int stepsize,
+                              float sqrt_nrows, float sqrt_ncols,
+                              float arg_delta, float arg_nu, float arb_delta,
+                              float arb_tau, int tx, int ty, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  ML a = ml_of(u, q, s, up, qp, sp, nullptr, nullptr, nullptr, nullptr, f,
+               sc, partial, L, nx, ny, inv_l, sqrt_inv_l);
+  ML b = slot_b(a, scratch);
+  AdaptConsts c = {sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta,
+                   arb_tau};
+  const dim3 g = grid_of(nx, ny);
+  for (int ch = 0; ch < k_chunks; ++ch) {
+    if (int rc = tiled_launch(a, b, count,
+                              (int)(((long long)ch * count) & 1), tx, ty,
+                              st))
+      return rc;
+    pdhg_finish<<<1, FIN, 0, st>>>(a.sc, a.partial, (int)(g.x * g.y), count,
+                                   1, stepsize, c);
+    LAUNCH_CHECK();
+  }
+  return count & 1 ? tiled_settle(a, b, 1, st) : 0;
+}
+
+// The dynamic shared memory a block of the tiled launch may hold on the
+// current device (the least of its kernels' for 1 to MAX_REG_L labels),
+// or minus the error.
+int prost_ml_tiled_smem() { return ml_tiled_limit(); }
 
 }  // extern "C"

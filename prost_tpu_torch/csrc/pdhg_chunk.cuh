@@ -29,7 +29,8 @@
 //   planes' rows in shared memory (LWin, take), the walk over a band's
 //   pixels (next_pixel) and the row copies into a window (load_rows), the
 //   per-tile norm partials from per-pixel terms (coop_tile_partials, the
-//   tree of block_partials) and the launch itself (resident_launch);
+//   tree of block_partials; tiled_tile_partials, the tiled chunks' norm
+//   pass) and the launch itself (resident_launch);
 // * LAUNCH_CHECK, which returns a launch's error from the C entry point.
 //
 // Every source that includes this header is its own library with a plain C
@@ -295,6 +296,42 @@ __device__ __forceinline__ void coop_tile_partials(
     const float* __restrict__ terms, int nr, int nc,
     float* __restrict__ partial, float* red) {
   coop_tile_partials(terms, nr, nc, partial, red, blockIdx.x, gridDim.x);
+}
+
+// The norm pass of a tiled chunk (csrc/fused_deblur.cu deblur_tiled,
+// csrc/fused_multilabel.cu ml_tiled): block_partials' tree for every 32x8
+// tile of the (nr, nc) grid, THREADS / NT tiles at a time per block of the
+// launch, tile t of grid_of(nr, nc) into partial[4 t ..].  terms(i, j, v)
+// is called once for each pixel of the grid and adds the pixel's four
+// terms to v (zeros); `red` holds 4 THREADS floats.
+template <int THREADS, typename F>
+__device__ __forceinline__ void tiled_tile_partials(int nr, int nc,
+                                                    float* __restrict__ partial,
+                                                    float* red, F terms) {
+  const int ntx = (nc + BX - 1) / BX;
+  const int ntiles = (nr + BY - 1) / BY * ntx;
+  const int group = threadIdx.x / NT, t = threadIdx.x % NT;
+  const int groups = THREADS / NT;
+  float* r = red + group * 4 * NT;  // r[k * NT + t]
+  for (int base = groups * blockIdx.x; base < ntiles;
+       base += groups * gridDim.x) {
+    const int tile = base + group;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (tile < ntiles) {
+      const int i = tile / ntx * BY + t / BX, j = tile % ntx * BX + t % BX;
+      if (i < nr && j < nc) terms(i, j, v);
+    }
+    for (int k = 0; k < 4; ++k) r[k * NT + t] = v[k];
+    __syncthreads();
+    for (int s = NT / 2; s > 0; s >>= 1) {
+      if (t < s)
+        for (int k = 0; k < 4; ++k) r[k * NT + t] += r[k * NT + t + s];
+      __syncthreads();
+    }
+    if (t == 0 && tile < ntiles)
+      for (int k = 0; k < 4; ++k) partial[4 * tile + k] = r[k * NT];
+    __syncthreads();  // the next pass overwrites r
+  }
 }
 
 // A window of rows [r0, r0 + rows) of L label planes in shared memory.

@@ -41,15 +41,17 @@ cooperative launch (the multichunk: all its chunks and their adaptation in
 one) where the shape rule (``resident_ok``, on one instance: a batched
 launch runs its instances one after another; with ``multi`` the
 multichunk's) finds that one instance's planes fit in the shared memory of
-one block per SM, and as the streaming launch sequence otherwise; both are
-bit-equal.
+one block per SM.  Where they do not (512x512x8, the JAX package's banded
+size), the single-instance chunk, its halo mode and the multichunk run as
+one tiled cooperative launch a chunk (the JAX ``ml_fused_chunk_banded`` and
+``ml_fused_multichunk_banded``: ``ml_route_of``, a grid barrier an
+iteration, each iteration one pass over device memory through overlapping
+windows of a tile and ``ml_tiled_halo`` pixel a side), and beyond 8 labels
+as the streaming launch sequence; all are bit-equal.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  As on the ROF route there is no fallback
-to the generic path, and no VMEM gate: the kernels keep their planes in
-device memory, so the JAX package's banded variants for planes beyond a
-TPU core's VMEM (``ml_fused_chunk_banded``, ``ml_fused_multichunk_banded``)
-are served by the same two kernels at any size.
+to the generic path.
 
 Layout contract (the JAX package's, at every public function): u and f
 (L, nx, ny); q (2L, nx, ny) = [gx; gy] stacked label planes; s (nx, ny);
@@ -71,12 +73,12 @@ from ..linop.base import LinearOperator
 from ..linop.blocks import BlockKronId
 from ..linop.gradient import BlockGradient2D
 from ..prox.elemop import ProxElem1D, ProxElemNorm2
-from .pdhg_chunk import (CF, CI, N_HALO_SCAL, PATHS, RES_RED_BYTES, S_CONV,
+from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV,
                          S_LEN, S_NORM, SOUT, STEPSIZES, VP, WHOLE_PLANE,
                          LightChunk, LightMultichunk, ball_scale,
                          canonical_duals, card_sms,
                          check_buffers, check_halo, check_inplace,
-                         chunk_state, coeff_vector, dx, dy, dyt,
+                         check_path, chunk_state, coeff_vector, dx, dy,
                          entry_converged, halo_copy, halo_into,
                          halo_scal_rows, instance_strides, isscalar, launch,
                          leq0_ball_radius, multichunk_plain, multichunk_state,
@@ -89,8 +91,10 @@ _SQRT_T = 0.4472135954999579    # sqrt(Tau)     = sqrt(1/5)
 _SQRT_S_Q = 0.7071067811865476  # sqrt(Sigma_q) = sqrt(1/2)
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
+# (a tiled call also counts under its wrapper's name + "_tiled")
 launch_counts = {"ml_chunk": 0, "ml_multichunk": 0, "ml_chunk_batched": 0,
-                 "ml_chunk_halo": 0}
+                 "ml_chunk_halo": 0, "ml_chunk_tiled": 0,
+                 "ml_multichunk_tiled": 0, "ml_chunk_halo_tiled": 0}
 
 
 def reset_launch_counts() -> None:
@@ -102,6 +106,17 @@ def reset_launch_counts() -> None:
 # plain PyTorch versions of the chunk math
 # ---------------------------------------------------------------------------
 
+def _label_sum(a):
+    """sum_l a_l over the label axis (axis 0), left to right as the kernels
+    sum it: ``torch.sum``'s order depends on the tensor's layout, and the
+    tiled chunk's plain twin sums windows where the plain version sums
+    whole planes."""
+    acc = a[0]
+    for l in range(1, a.shape[0]):
+        acc = acc + a[l]
+    return acc
+
+
 def _ml_update(u, qx, qy, s, gx, gy, su, tf, tau, sig_q, sig_s, theta,
                radius, d_s, rows=WHOLE_PLANE):
     """One preconditioned PDHG update.  tau, sig_q and sig_s arrive
@@ -109,15 +124,15 @@ def _ml_update(u, qx, qy, s, gx, gy, su, tf, tau, sig_q, sig_s, theta,
     tau * f.  (gx, gy, su) = (dx(u), dy(u), sum_l u) carried from the
     previous iteration.  Returns the new state, the new carried planes and
     K^T of the old dual; ``rows`` is the planes' ``RowOps``."""
-    kty = rows.dxt(qx) + dyt(qy) + s
+    kty = rows.dxt(qx) + rows.dyt(qy) + s
     # prox of ind_geq0(u) + <f, u>
     u2 = torch.clamp_min(u - tau * kty - tf, 0.0)
-    gx2, gy2 = rows.dx(u2), dy(u2)
-    su2 = torch.sum(u2, dim=0)
+    gx2, gy2 = rows.dx(u2), rows.dy(u2)
+    su2 = _label_sum(u2)
     # per-pixel radius-lmb ball over all 2L gradient components
     axq = qx + sig_q * ((1.0 + theta) * gx2 - theta * gx)
     ayq = qy + sig_q * ((1.0 + theta) * gy2 - theta * gy)
-    scale = ball_scale(torch.sum(axq * axq + ayq * ayq, dim=0), radius)
+    scale = ball_scale(_label_sum(axq * axq + ayq * ayq), radius)
     # prox of <s, d_s> (linear: a shift)
     s2 = s + sig_s * ((1.0 + theta) * su2 - theta * su) - sig_s * d_s
     return u2, axq * scale, ayq * scale, s2, gx2, gy2, su2, kty
@@ -139,8 +154,8 @@ def _ml_chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, qx0, qy0, s0,
     tf = tau * f
     qx, qy = rows.project(qx0, qy0)
     u, s = u0, s0
-    gx, gy, su = ((rows.dx(u0), dy(u0), torch.sum(u0, dim=0)) if g0 is None
-                  else g0)
+    gx, gy, su = ((rows.dx(u0), rows.dy(u0), _label_sum(u0))
+                  if g0 is None else g0)
     args = (tf, tau, sig_q, sig_s, theta, radius, d_s, rows)
     for _ in range(count - 1):
         u, qx, qy, s, gx, gy, su, _ = _ml_update(u, qx, qy, s, gx, gy, su,
@@ -148,8 +163,23 @@ def _ml_chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, qx0, qy0, s0,
     # aligned iteration; (gx, gy, su) = K x_prev carried for free
     u2, qx2, qy2, s2, gx2, gy2, su2, ktyp = _ml_update(u, qx, qy, s, gx, gy,
                                                        su, *args)
-    kty2 = rows.dxt(qx2) + dyt(qy2) + s2
+    kty2 = rows.dxt(qx2) + rows.dyt(qy2) + s2
+    norms = _norm_sums(_residuals(tau_raw, sigma_raw, theta, (u, qx, qy, s),
+                                  (u2, qx2, qy2, s2), (gx, gy, su),
+                                  (gx2, gy2, su2), ktyp, kty2), rows.nsum)
+    return ((u2, qx2, qy2, s2), (u, qx, qy, s), norms, (gx2, gy2, su2))
 
+
+def _residuals(tau_raw, sigma_raw, theta, prev, new, g_prev, g_new, ktyp,
+               kty2):
+    """The preconditioned residuals of the aligned iteration from ``prev``
+    (u, q_x, q_y, s) to ``new``: pd (x, y, s), z_hat (x, y, s), dd and
+    w_hat, from K of both iterates (gx, gy, su) and K^T of both duals."""
+    u, qx, qy, s = prev
+    u2, qx2, qy2, s2 = new
+    gx, gy, su = g_prev
+    gx2, gy2, su2 = g_new
+    L = u.shape[0]
     # preconditioned residuals, segment-wise sqrt(Sigma)
     sqrt_s_s = (1.0 / L) ** 0.5
     inv_q = 1.0 / (sigma_raw * _SQRT_S_Q)
@@ -162,15 +192,19 @@ def _ml_chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, qx0, qy0, s0,
     pd_s = zh_s - sqrt_s_s * su2
     wh = (u - u2) * (1.0 / (tau_raw * _SQRT_T)) - _SQRT_T * ktyp
     dd = wh + _SQRT_T * kty2
+    return pd_x, pd_y, pd_s, zh_x, zh_y, zh_s, dd, wh
 
-    nsum = rows.nsum
-    norms = (
+
+def _norm_sums(res, nsum):
+    """The four squared norms of ``_residuals``' ``res``, each a sum of
+    ``nsum``s."""
+    pd_x, pd_y, pd_s, zh_x, zh_y, zh_s, dd, wh = res
+    return (
         nsum(pd_x * pd_x) + nsum(pd_y * pd_y) + nsum(pd_s * pd_s),
         nsum(zh_x * zh_x) + nsum(zh_y * zh_y) + nsum(zh_s * zh_s),
         nsum(dd * dd),
         nsum(wh * wh),
     )
-    return ((u2, qx2, qy2, s2), (u, qx, qy, s), norms, (gx2, gy2, su2))
 
 
 def ml_chunk_plain(u, q, s, f, scal, count: int, rows=WHOLE_PLANE,
@@ -220,9 +254,122 @@ def ml_multichunk_plain(u, q, s, f, scal, count: int, k_chunks: int,
 
     qx, qy = q[:L], q[L:]
     planes, norms, sout = multichunk_plain(
-        chunk, (u, qx, qy, s, u, qx, qy, s, dx(u), dy(u), torch.sum(u, dim=0)),
+        chunk, (u, qx, qy, s, u, qx, qy, s, dx(u), dy(u), _label_sum(u)),
         scal, count, k_chunks, stepsize, consts)
     u2, qx2, qy2, s2, up, qxp, qyp, sp = planes[:8]
+    return (u2, torch.cat([qx2, qy2]), s2, up, torch.cat([qxp, qyp]), sp,
+            norms, sout)
+
+
+def ml_tiled_halo() -> int:
+    """The halo of the tiled chunk's window, in pixels on every side of a
+    tile: an iteration's dual step at a pixel reads the new and the old u
+    one row below and one column right, the new u there K^T q, which reads
+    q_x one row up and q_y one column left, so one pixel of the old state
+    around the tile gives the owned pixels exactly; the next iteration
+    loads its window anew."""
+    return 1
+
+
+def ml_chunk_tiled_plain(u, q, s, f, scal, count: int, nx_global=None,
+                         tile=(32, 32), halo=None, partials: bool = False):
+    """The tiled chunk (``ml_chunk_`` and ``ml_chunk_halo_`` with
+    ``path="tiled"``) window by window: each iteration ``_ml_update`` on
+    every tile's window (the tile of ``tile`` rows and columns and
+    ``halo`` pixels on every side, clamped at the plane's edges,
+    ``ml_tiled_halo`` by default; every mask decided by the pixel's place
+    in the plane, ``fused_rof.window_ops``), the carried gradient and label
+    sum recomputed from the window's u, the owned pixels stitched into new
+    planes; then the norms of the stitched planes, K u and K^T y
+    recomputed.  With ``nx_global`` the halo form (the row context read
+    from ``scal``).  Returns ``ml_chunk_plain``'s outputs; with
+    ``partials`` also the 32x8 tiles' partials (``fused_rof.tile_partials``)
+    that the kernel's finish reduces."""
+    from .fused_rof import tile_partials, window_ops
+
+    L, nx, ny = u.shape
+    if nx_global is None:
+        n_scal, off, rows = 5, 0, WHOLE_PLANE
+    else:
+        n_scal, off = N_HALO_SCAL, int(scal[5])
+        rows = halo_scal_rows(scal, nx_global)
+    h = ml_tiled_halo() if halo is None else int(halo)
+    tx, ty = (int(t) for t in tile)
+    tau_raw, sigma_raw, theta, radius, d_s = (scal[k] for k in range(5))
+    tau = tau_raw * 0.2              # tau * Tau
+    sig_q = sigma_raw * 0.5          # sigma * Sigma_q
+    sig_s = sigma_raw * (1.0 / L)    # sigma * Sigma_s
+    tf = tau * f
+    planes = (u, *rows.project(q[:L], q[L:]), s)
+    for _ in range(int(count)):
+        prev, planes = planes, tuple(torch.empty_like(a) for a in planes)
+        for R0 in range(0, nx, tx):
+            for C0 in range(0, ny, ty):
+                R1, C1 = min(R0 + tx, nx), min(C0 + ty, ny)
+                r0, c0 = max(R0 - h, 0), max(C0 - h, 0)
+                r1, c1 = min(R1 + h, nx), min(C1 + h, ny)
+                ops = window_ops(r0, c0, r1 - r0, c1 - c0, nx, ny, off,
+                                 nx_global)
+                win = (..., slice(r0, r1), slice(c0, c1))
+                uw, qxw, qyw, sw = (a[win] for a in prev)
+                res = _ml_update(uw, qxw, qyw, sw, ops.dx(uw), ops.dy(uw),
+                                 _label_sum(uw), tf[win], tau, sig_q,
+                                 sig_s, theta, radius, d_s, ops)
+                own = (..., slice(R0 - r0, R1 - r0), slice(C0 - c0, C1 - c0))
+                for dst, src in zip(planes, res[:4]):
+                    dst[..., R0:R1, C0:C1] = src[own]
+
+    def k_of(a):
+        x, qx, qy, sv = a
+        return ((rows.dx(x), rows.dy(x), _label_sum(x)),
+                rows.dxt(qx) + rows.dyt(qy) + sv)
+
+    (g_prev, ktyp), (g_new, kty2) = k_of(prev), k_of(planes)
+    res = _residuals(tau_raw, sigma_raw, theta, prev, planes, g_prev, g_new,
+                     ktyp, kty2)
+    norms = torch.stack(_norm_sums(res, rows.nsum))
+    conv = entry_converged(scal, n_scal)
+    new_q = torch.cat([planes[1], planes[2]])
+    prev_q = torch.cat([prev[1], prev[2]])
+    out = (torch.where(conv, u, planes[0]), torch.where(conv, q, new_q),
+           torch.where(conv, s, planes[3]), torch.where(conv, u, prev[0]),
+           torch.where(conv, q, prev_q), torch.where(conv, s, prev[3]),
+           torch.where(conv, torch.zeros_like(norms), norms))
+    if not partials:
+        return out
+    pd_x, pd_y, pd_s, zh_x, zh_y, zh_s, dd, wh = res
+    terms = (_label_sum(pd_x * pd_x + pd_y * pd_y) + pd_s * pd_s,
+             _label_sum(zh_x * zh_x + zh_y * zh_y) + zh_s * zh_s,
+             _label_sum(dd * dd), _label_sum(wh * wh))
+    if nx_global is not None:
+        li = torch.arange(nx, device=u.device)[:, None]
+        owned = (li >= int(scal[6])) & (li < int(scal[7]))
+        terms = tuple(torch.where(owned, t, 0.0) for t in terms)
+    return out + (tile_partials(terms),)
+
+
+def ml_multichunk_tiled_plain(u, q, s, f, scal, count: int, k_chunks: int,
+                              stepsize: str, consts, tile=(32, 32),
+                              halo=None):
+    """The tiled multichunk (``ml_multichunk_`` with ``path="tiled"``):
+    ``multichunk_plain``'s loop over ``ml_chunk_tiled_plain``, the
+    gradient and the label sum recomputed from u at each chunk (bit-equal
+    to the carried ones).  Returns ``ml_multichunk_plain``'s outputs."""
+    L = u.shape[0]
+    theta, radius, d_s = scal[2], scal[3], scal[4]
+
+    def chunk(tau, sigma, p):
+        s5 = torch.stack([tau, sigma, theta, radius, d_s])
+        u2, q2, s2, up, qp, sp, n2 = ml_chunk_tiled_plain(
+            p[0], torch.cat([p[1], p[2]]), p[3], f, s5, count, tile=tile,
+            halo=halo)
+        return (u2, q2[:L], q2[L:], s2, up, qp[:L], qp[L:], sp), n2
+
+    qx, qy = q[:L], q[L:]
+    planes, norms, sout = multichunk_plain(
+        chunk, (u, qx, qy, s, u, qx, qy, s), scal, count, k_chunks, stepsize,
+        consts)
+    u2, qx2, qy2, s2, up, qxp, qyp, sp = planes
     return (u2, torch.cat([qx2, qy2]), s2, up, torch.cat([qxp, qyp]), sp,
             norms, sout)
 
@@ -264,7 +411,15 @@ def _lib():
         "prost_ml_resident_smem": [CI, CI],
         "prost_ml_multichunk": head + [CI] * 3 + [CF] * 6 + [VP],
         "prost_ml_multichunk_resident": [VP] * 10 + [CI] * 3 + [CF] * 2
-                                        + [CI] * 3 + [CF] * 6 + [VP]})
+                                        + [CI] * 3 + [CF] * 6 + [VP],
+        "prost_ml_chunk_tiled": [VP] * 10 + [CI] * 3 + [CF] * 2
+                                + [CI] * 3 + [VP],
+        "prost_ml_chunk_halo_tiled": [VP] * 10 + [CI] * 3 + [CF] * 2
+                                     + [CI] * 4 + [VP],
+        "prost_ml_multichunk_tiled": [VP] * 10 + [CI] * 3 + [CF] * 2
+                                     + [CI] * 3 + [CF] * 6 + [CI] * 2
+                                     + [VP],
+        "prost_ml_tiled_smem": []})
 
 
 # labels a grid-resident block holds a pixel's components of in registers
@@ -322,37 +477,157 @@ def card_limits(device, L: int, batched: bool = False,
     return card_sms(device), smem
 
 
-def _scratch(resident: bool, L, nx, ny, device, batch: int = 0):
-    """A chunk launch's scratch: the grid-resident chunk's norm terms (4
-    planes, which a batched launch's instances share), or the streaming
-    sequence's carried planes (the gradient and the label sum, of this
-    iterate and of the previous one; with ``batch``, of every instance)."""
+# bytes of the tiled launch's norm pass's reductions (two 32x8 tiles at a
+# time: csrc/fused_multilabel.cu MT_RED)
+_TILED_RED_BYTES = 4 * 2 * 4 * 256
+
+
+def ml_tiled_bytes(tx: int, ty: int, L: int) -> int:
+    """The dynamic shared memory of one block of the tiled launch
+    (csrc/fused_multilabel.cu ml_tiled_smem): 4L + 1 planes (u, q_x, q_y,
+    f, then the new u in f's place, and s) of the window of a ``tx`` x
+    ``ty`` tile with ``ml_tiled_halo`` pixel on every side, at least the
+    norm pass's reductions."""
+    h = ml_tiled_halo()
+    return max(4 * (4 * int(L) + 1) * (int(tx) + 2 * h) * (int(ty) + 2 * h),
+               _TILED_RED_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def ml_tiled_tile(nx: int, ny: int, L: int, sms: int, smem: int):
+    """The owned tile (rows, columns) of the tiled launch on (L, nx, ny)
+    planes on a card of ``sms`` SMs whose blocks may hold ``smem`` bytes of
+    dynamic shared memory: of the tiles (rows a multiple of 8, columns of
+    32, so every 32x8 norm tile lies in one) whose window fits
+    (``ml_tiled_bytes``), the one whose iteration moves the fewest window
+    pixels through the SMs (the rounds of one block per SM times a whole
+    tile's window), the larger tile on a tie (``fused_rof.tiled_tile``'s
+    rule); None where no tile's window fits."""
+    from .fused_rof import TILE_COLS, TILE_ROWS
+
+    h = ml_tiled_halo()
+    best, cost = None, None
+    for ty in TILE_COLS:
+        if ty - 32 >= ny:
+            break
+        for tx in TILE_ROWS:
+            if tx - 8 >= nx or ml_tiled_bytes(tx, ty, L) > smem:
+                break
+            rounds = -(-(-(-nx // tx) * -(-ny // ty)) // int(sms))
+            c = rounds * (min(tx, nx) + 2 * h) * (min(ty, ny) + 2 * h)
+            if best is None or c < cost or (c == cost and
+                                            tx * ty > best[0] * best[1]):
+                best, cost = (tx, ty), c
+    return best
+
+
+def ml_tiled_ok(L: int, nx: int, ny: int, sms: int, smem: int) -> bool:
+    """Whether the tiled launch takes (L, nx, ny) planes: 1 to
+    ``MAX_RESIDENT_L`` labels (a pixel's 2L dual components in registers)
+    and some tile's window fits in ``smem`` bytes."""
+    return (1 <= int(L) <= MAX_RESIDENT_L
+            and ml_tiled_tile(int(nx), int(ny), int(L), int(sms),
+                              int(smem)) is not None)
+
+
+def ml_route_of(L: int, nx: int, ny: int, sms: int, smem: int,
+                tiled_smem: int, multi: bool = False) -> str:
+    """The shape rule of ``ml_chunk_``, ``ml_chunk_halo_`` (on the band's
+    rows) and, with ``multi``, ``ml_multichunk_`` on a card of ``sms`` SMs
+    whose grid-resident blocks may hold ``smem`` bytes and tiled blocks
+    ``tiled_smem``: "resident" where the planes fit in the grid-resident
+    launch (``resident_ok``: 256x256x8 on an H100), else "tiled" where a
+    tile's window fits (``ml_tiled_ok``: 512x512x8), else "streaming"
+    (beyond 8 labels)."""
+    if resident_ok(L, nx, ny, sms, smem, multi):
+        return "resident"
+    if ml_tiled_ok(L, nx, ny, sms, tiled_smem):
+        return "tiled"
+    return "streaming"
+
+
+@functools.lru_cache(maxsize=None)
+def ml_tiled_limit(device) -> int:
+    """The dynamic shared memory a block of the tiled launch may hold on
+    the card ``device``, read once."""
+    with torch.cuda.device(device):
+        smem = _lib().prost_ml_tiled_smem()
+    if smem < 0:
+        raise ProstError(f"ml_chunk: no shared-memory limit for the tiled "
+                         f"chunk on {device} (CUDA error {-smem}).")
+    return smem
+
+
+def ml_pick_route(path, L: int, nx: int, ny: int, device, multi: bool,
+                  what: str) -> tuple:
+    """(path, tile) of a single-instance chunk (with ``multi``, of the
+    multichunk) on the card ``device``: by ``ml_route_of`` where ``path``
+    is None, else the one asked for; "resident" where the planes do not
+    fit, or "tiled" where no tile's window does, raises ``ProstError``.
+    ``tile`` is the tiled launch's (rows, columns), else None."""
+    check_path(path, what)
+    sms, smem = card_limits(device, L, multi=multi)
+    tsmem = ml_tiled_limit(device) if 1 <= int(L) <= MAX_RESIDENT_L else 0
+    if path is None:
+        path = ml_route_of(L, nx, ny, sms, smem, tsmem, multi)
+    if path == "resident" and not resident_ok(L, nx, ny, sms, smem, multi):
+        raise ProstError(f"{what}: the chunk's planes do not fit in the "
+                         "shared memory of one block per SM.")
+    tile = None
+    if path == "tiled":
+        if not ml_tiled_ok(L, nx, ny, sms, tsmem):
+            raise ProstError(f"{what}: the tiled launch takes 1 to "
+                             f"{MAX_RESIDENT_L} labels and a tile's window "
+                             "in the shared memory of a block.")
+        tile = ml_tiled_tile(int(nx), int(ny), int(L), int(sms), int(tsmem))
+    return path, tile
+
+
+def _scratch(path: str, L, nx, ny, device, batch: int = 0):
+    """A chunk launch's scratch on ``path``: the grid-resident chunk's norm
+    terms (4 planes, which a batched launch's instances share), the tiled
+    launch's second slot of the state (u, q and s: 3L + 1 planes), or the
+    streaming sequence's carried planes (the gradient and the label sum,
+    of this iterate and of the previous one; with ``batch``, of every
+    instance)."""
     lead = (batch,) if batch else ()
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
-    if resident:
+    if path == "resident":
         return [empty(4, nx, ny)]
+    if path == "tiled":
+        return [empty((3 * L + 1) * nx * ny)]
     return [empty(*lead, 2 * L, nx, ny), empty(*lead, 2 * L, nx, ny),
             empty(*lead, nx, ny), empty(*lead, nx, ny)]
 
 
 def _launch_chunk(what: str, state, prev, f, sc, partial, scratch,
-             resident: bool, count: int, nx_global=None):
+                  route: tuple, count: int, nx_global=None):
     """One chunk on the card in place on ``state`` (u, q, s) and ``prev``:
-    the grid-resident launch or the streaming sequence, of the whole plane
-    or (with ``nx_global``) of a halo band, counted under ``what``."""
+    the grid-resident launch, the tiled launch or the streaming sequence
+    (``route`` = (path, tile) of ``ml_pick_route``), of the whole plane or
+    (with ``nx_global``) of a halo band, counted under ``what`` (and a
+    tiled call also under ``what`` + "_tiled")."""
     u = state[0]
     L, nx, ny = u.shape
     # 1/L and sqrt(1/L) rounded once from double, as the plain version
     # rounds its Python constants
     shape = (L, nx, ny, 1.0 / L, (1.0 / L) ** 0.5)
     lib = _lib()
-    if resident:
+    path, tile = route
+    if path == "resident":
         launch(lib, "prost_ml_chunk_resident", what, launch_counts,
                u.device, [*state, *prev, f, sc, partial, *scratch], *shape,
                int(nx_global or 0), int(count))
+    elif path == "tiled":
+        fn, tail = (("prost_ml_chunk_tiled", ()) if nx_global is None else
+                    ("prost_ml_chunk_halo_tiled", (int(nx_global),)))
+        launch(lib, fn, what, launch_counts, u.device,
+               [*state, *prev, f, sc, partial, *scratch], *shape, *tail,
+               int(count), *tile)
+        launch_counts[what + "_tiled"] += 1
     else:
         fn, tail = (("prost_ml_chunk", ()) if nx_global is None else
                     ("prost_ml_chunk_halo", (int(nx_global),)))
@@ -368,13 +643,13 @@ def _inplace(what: str, state, prev, f, scal, n_scal: int, count: int,
     u = state[0]
     L, nx, ny = u.shape
     dev = u.device
-    resident = pick_path(path, resident_ok(L, nx, ny, *card_limits(dev, L)),
-                         what)
+    route = ml_pick_route(path, L, nx, ny, dev, False, what)
     sc = scalar_buffer(scal, n_scal, S_CONV, S_LEN)
     partial = torch.empty(4 * _lib().prost_ml_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     _launch_chunk(what, state, prev, f.contiguous(), sc, partial,
-             _scratch(resident, L, nx, ny, dev), resident, count, nx_global)
+                  _scratch(route[0], L, nx, ny, dev), route, count,
+                  nx_global)
     return sc[S_NORM:S_NORM + 4]
 
 
@@ -398,12 +673,17 @@ def ml_chunk_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
     """``ml_chunk`` in place: (u, q, s) advance by ``count`` iterations and
     the previous buffers take the iterate before the aligned one; with the
     converged flag set nothing changes.  Returns norms2.  On a card
-    ``path`` None takes the shape rule's path (``resident_ok``): one
+    ``path`` None takes the shape rule's path (``ml_route_of``): one
     grid-resident launch (csrc/fused_multilabel.cu ml_resident) where the
-    planes fit on chip, else the streaming launch sequence; "resident" or
-    "streaming" asks for one ("resident" raises where it does not fit)."""
+    planes fit on chip, else one tiled cooperative launch (ml_tiled:
+    overlapping 2-D windows, a grid barrier an iteration) and the finish
+    where a tile's window does, else the streaming launch sequence;
+    "resident", "tiled" or "streaming" asks for one ("resident" and
+    "tiled" raise where they cannot launch).  On the CPU every path runs
+    the plain version."""
     state, prev = (u, q, s), (u_prev, q_prev, s_prev)
     _check(u, q, s, f, scal, 5, count)
+    check_path(path, "ml_chunk_")
     check_inplace(state, prev)
     if u.device.type == "cpu":
         return halo_into(state, prev, ml_chunk_plain(u, q, s, f, scal, count),
@@ -433,6 +713,7 @@ def ml_chunk_halo_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
     flag set nothing changes.  Returns norms2.  ``path`` as for
     ``ml_chunk_``, the shape rule on the band's rows."""
     _check(u, q, s, f, scal, N_HALO_SCAL, count)
+    check_path(path, "ml_chunk_halo_")
     check_halo(nx_global, (u, q, s), (u_prev, q_prev, s_prev))
     if u.device.type == "cpu":
         return halo_into((u, q, s), (u_prev, q_prev, s_prev),
@@ -447,12 +728,13 @@ class MLChunk(LightChunk):
     ``band`` = (nx_global, rows, row_offset, own_lo, own_hi),
     ``ml_chunk_halo_`` on a band of ``rows`` rows) on the planes a route
     holds, with what depends only on the shapes made once per route: the
-    path (``resident_ok``), the scratch, the norm partials and the scalar
-    buffer with ``m``'s radius and d_s (and the band's row context).  A
-    call writes the step sizes and the flag into the scalar buffer and
+    path (``route``: ``ml_pick_route``'s (path, tile), by the shape rule
+    unless ``path`` asks for one), the scratch, the norm partials and the
+    scalar buffer with ``m``'s radius and d_s (and the band's row context).
+    A call writes the step sizes and the flag into the scalar buffer and
     launches; on the CPU it runs the plain version."""
 
-    def __init__(self, m, count: int, device, band=None):
+    def __init__(self, m, count: int, device, band=None, path=None):
         consts = (m["radius"], m["d_s"]) + tuple(band[2:] if band else ())
         super().__init__(consts, device)
         self.count, self.band = int(count), band
@@ -461,18 +743,25 @@ class MLChunk(LightChunk):
             nx = int(band[1])
         self.what = "ml_chunk" if band is None else "ml_chunk_halo"
         self.nx_global = None if band is None else int(band[0])
-        self.resident = None  # the path on a card
+        self.route = None  # (path, tile) on a card
         if torch.device(device).type == "cuda":
-            self.resident = resident_ok(L, nx, ny, *card_limits(device, L))
+            self.route = ml_pick_route(path, L, nx, ny, device, False,
+                                       self.what)
             self.partial = torch.empty(4 * _lib().prost_ml_num_blocks(nx, ny),
                                        dtype=torch.float32, device=device)
-            self.scratch = _scratch(self.resident, L, nx, ny, device)
+            self.scratch = _scratch(self.route[0], L, nx, ny, device)
+
+    @property
+    def resident(self):
+        """Whether the call runs grid-resident on a card; None on the
+        CPU."""
+        return None if self.route is None else self.route[0] == "resident"
 
     def __call__(self, state, prev, f, tau, sigma, theta, converged):
         """``count`` iterations on ``state`` (u, q, s) in place, the
         previous iterate into ``prev``; returns norms2."""
         self.scalars_(tau, sigma, theta, converged)
-        if self.resident is None:
+        if self.route is None:
             scal = self.scal()
             if self.band is None:
                 out = ml_chunk_plain(*state, f, scal, self.count)
@@ -481,7 +770,7 @@ class MLChunk(LightChunk):
                                           self.nx_global)
             return halo_into(state, prev, out, scal, self.n_scal)
         _launch_chunk(self.what, state, prev, f, self.sc, self.partial,
-                 self.scratch, self.resident, self.count, self.nx_global)
+                      self.scratch, self.route, self.count, self.nx_global)
         return self.norms2()
 
 
@@ -549,8 +838,8 @@ def ml_chunk_batched_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
     partial = torch.empty(4 * B * _lib().prost_ml_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     _launch_batched(state, prev, f.contiguous(), sc, partial,
-                    _scratch(resident, L, nx, ny, dev, B), resident,
-                    count, strides)
+                    _scratch("resident" if resident else "streaming", L, nx,
+                             ny, dev, B), resident, count, strides)
     return sc[:, S_NORM:S_NORM + 4].T
 
 
@@ -574,7 +863,9 @@ class MLBatchedChunk(LightChunk):
             self.partial = torch.empty(
                 4 * B * _lib().prost_ml_num_blocks(nx, ny),
                 dtype=torch.float32, device=device)
-            self.scratch = _scratch(self.resident, L, nx, ny, device, B)
+            self.scratch = _scratch(
+                "resident" if self.resident else "streaming", L, nx, ny,
+                device, B)
 
     def __call__(self, state, prev, f, tau, sigma, theta, converged):
         """``count`` iterations of every instance of ``state`` (u, q, s)
@@ -614,25 +905,31 @@ def ml_multichunk(u, q, s, f, scal, count: int, k_chunks: int,
     return (*planes, norms, sout)
 
 
-def _launch_multichunk(state, prev, f, sc, partial, scratch, resident: bool,
+def _launch_multichunk(state, prev, f, sc, partial, scratch, route: tuple,
                        count: int, k_chunks: int, stepsize: str,
                        consts) -> None:
     """One multichunk on the card in place on ``state`` (u, q, s) and
-    ``prev``: the grid-resident launch or the streaming sequence, counted
-    under ``ml_multichunk``."""
+    ``prev``: the grid-resident launch, the tiled launches or the streaming
+    sequence (``route`` = (path, tile) of ``ml_pick_route``), counted under
+    ``ml_multichunk`` (and a tiled call also under
+    ``ml_multichunk_tiled``)."""
     u = state[0]
     L, nx, ny = u.shape
-    if resident:
-        fn, bufs = ("prost_ml_multichunk_resident",
-                    [*state, *prev, f, sc, partial, *scratch])
-    else:
+    path, tile = route
+    if path == "streaming":
         fn, bufs = "prost_ml_multichunk", [*state, *prev, *scratch, f, sc,
                                            partial]
+    else:
+        fn = "prost_ml_multichunk_" + path
+        bufs = [*state, *prev, f, sc, partial, *scratch]
     # 1/L and sqrt(1/L) rounded once from double, as the plain version
     # rounds its Python constants
     launch(_lib(), fn, "ml_multichunk", launch_counts, u.device, bufs, L, nx,
            ny, 1.0 / L, (1.0 / L) ** 0.5, int(count), int(k_chunks),
-           STEPSIZES[stepsize], *[float(c) for c in consts])
+           STEPSIZES[stepsize], *[float(c) for c in consts],
+           *(tile or ()))
+    if path == "tiled":
+        launch_counts["ml_multichunk_tiled"] += 1
 
 
 def ml_multichunk_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
@@ -641,33 +938,31 @@ def ml_multichunk_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
     chunks and the previous buffers take the iterate before the last
     executed chunk's aligned iteration; with the converged flag set at
     entry nothing changes.  Returns (norms, sout).  On a card ``path``
-    None takes the shape rule's path (``resident_ok(..., multi=True)``):
+    None takes the shape rule's path (``ml_route_of(..., multi=True)``):
     one grid-resident launch for all the chunks (csrc/fused_multilabel.cu
-    ml_multichunk_resident) where the planes fit on chip, else the
-    streaming launch sequence; "resident" or "streaming" asks for one
-    ("resident" raises where it does not fit)."""
+    ml_multichunk_resident) where the planes fit on chip, else a tiled
+    launch (ml_tiled) and the finish's adaptation a chunk, (u, q, s) and
+    the scratch taking turns, where a tile's window fits, else the
+    streaming launch sequence; "resident", "tiled" or "streaming" asks for
+    one ("resident" and "tiled" raise where they cannot launch)."""
     _check(u, q, s, f, scal, 13, count)
     if stepsize not in STEPSIZES:
         raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
     state, prev = (u, q, s), (u_prev, q_prev, s_prev)
     check_inplace(state, prev)
-    if path not in PATHS:
-        raise ProstError(f"ml_multichunk: path must be one of {PATHS}, got "
-                         f"{path!r}.")
+    check_path(path, "ml_multichunk")
     if u.device.type == "cpu":
         out = ml_multichunk_plain(u, q, s, f, scal, count, k_chunks,
                                   stepsize, consts)
         return halo_into(state, prev, out[:7], scal, 13), out[7]
     L, nx, ny = u.shape
     dev = u.device
-    resident = pick_path(path, resident_ok(
-        L, nx, ny, *card_limits(dev, L, multi=True), multi=True),
-        "ml_multichunk")
+    route = ml_pick_route(path, L, nx, ny, dev, True, "ml_multichunk")
     sc = scalar_buffer(scal, 13, S_CONV, S_LEN)
     partial = torch.empty(4 * _lib().prost_ml_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     _launch_multichunk(state, prev, f.contiguous(), sc, partial,
-                       _scratch(resident, L, nx, ny, dev), resident, count,
+                       _scratch(route[0], L, nx, ny, dev), route, count,
                        k_chunks, stepsize, consts)
     return sc[S_NORM:S_NORM + 4], torch.stack([sc[i] for i in SOUT])
 
@@ -675,24 +970,35 @@ def ml_multichunk_(u, q, s, u_prev, q_prev, s_prev, f, scal, count: int,
 class MLMultichunk(LightMultichunk):
     """The multilabel route's light call of the multichunk:
     ``ml_multichunk_`` on the views (u, q, s) of the run's own x, y, x_prev
-    and y_prev, its path ``resident_ok(..., multi=True)``; the family's
-    scalars are radius and d_s, its one data plane f, and it has no data
-    term."""
+    and y_prev, its path ``ml_route_of(..., multi=True)`` unless ``path``
+    asks for one (``route``: (path, tile)); ``resident`` whether that path
+    is the grid-resident launch.  The family's scalars are radius and d_s,
+    its one data plane f, and it has no data term."""
 
     _consts = ("radius_t", "d_s_t")
     _data = ("f",)
     _dataterm = False
     _inplace = staticmethod(ml_multichunk_)
-    _launch = staticmethod(_launch_multichunk)
+    route = None  # (path, tile) on a card
+
+    def __init__(self, m, count: int, k_chunks: int, stepsize: str, device,
+                 path=None):
+        self.path = path
+        super().__init__(m, count, k_chunks, stepsize, device)
 
     def _card(self, device):
         m = self.m
         L, nx, ny = m["L"], m["nx"], m["ny"]
-        resident = resident_ok(L, nx, ny, *card_limits(device, L, multi=True),
-                               multi=True)
+        self.route = ml_pick_route(self.path, L, nx, ny, device, True,
+                                   "ml_multichunk")
         partial = torch.empty(4 * _lib().prost_ml_num_blocks(nx, ny),
                               dtype=torch.float32, device=device)
-        return resident, partial, _scratch(resident, L, nx, ny, device)
+        return (self.route[0] == "resident", partial,
+                _scratch(self.route[0], L, nx, ny, device))
+
+    def _launch(self, state, prev, f, sc, partial, scratch, resident, *args):
+        _launch_multichunk(state, prev, f, sc, partial, scratch, self.route,
+                           *args)
 
 
 # ---------------------------------------------------------------------------

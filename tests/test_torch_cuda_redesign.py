@@ -20,8 +20,9 @@ multichunk ``ml_multichunk_`` and ROF halo chunk ``rof_chunk_halo_`` (``-k
 "ml_multichunk or rof_halo or rof_chunk_band"``), and the tiled ROF and
 Chebyshev ADMM chunks and multichunks and the tiled deblur chunk (``-k
 tiled``; ``-k admm_tiled`` for the ADMM ones, ``-k deblur_tiled`` for the
-deblur ones), bit for bit against the streaming launch sequences they
-replace.
+deblur ones), and the tiled multilabel chunk, its halo form and the
+multichunk (``-k ml_tiled``), bit for bit against the streaming launch
+sequences they replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
 redesigns run the per-pixel arithmetic and the norm trees of the launch
@@ -2651,3 +2652,207 @@ def test_deblur_tiled_rules_on_the_card(dev):
                     *planes[3:], fd.taps_array(taps, dev), sc, partial,
                     *scratch], 256, 256, nx2, ny2, len(taps), 8, 0.5, 0.2,
                    0.5 ** 0.5, 0.2 ** 0.5, 0, 10, *tile)
+
+
+# ---------------------------------------------------------------------------
+# rows 16 and 14: the multilabel chunk, its halo form and the multichunk
+# tiled, for the planes no grid-resident band holds (-k ml_tiled)
+# ---------------------------------------------------------------------------
+
+ML_TILED_ARGS = [0.9, 1.1, 1.0, 0.5, 1.0]  # tau, sigma, theta, radius, d_s
+
+
+@pytest.mark.parametrize("count", [1, 3, 10])
+@pytest.mark.parametrize("L,nx,ny", [(8, 512, 512), (8, 512, 384),
+                                     (5, 300, 211), (3, 70, 53),
+                                     (8, 9, 300)])
+def test_ml_tiled_is_the_launch_sequence(dev, L, nx, ny, count):
+    """The tiled chunk's planes, previous iterates and squared norms
+    bit-equal to the launch sequence's (300x211, 70x53, 9x300: tiles that
+    do not divide the plane; an odd count: slot B copied back)."""
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    u, q, s, f = _ml_planes(470 + nx + count, L, nx, ny, dev)
+    scal = torch.tensor(ML_TILED_ARGS, device=dev)
+    before = fm.launch_counts["ml_chunk_tiled"]
+    out = _tiled_paths(fm.ml_chunk_, [u, q, s], [f], scal, count)
+    assert fm.launch_counts["ml_chunk_tiled"] == before + 1
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    assert bool((out["tiled"][-1] > 0).all())
+
+
+@pytest.mark.parametrize("rank,shards", [(0, 1), (0, 2), (1, 2), (2, 4)])
+def test_ml_tiled_halo_is_the_launch_sequence(dev, rank, shards):
+    """512x512x8 cut into bands (ri 10, halo 22 rows): every band's tiled
+    launch is its streaming sequence, bit for bit in the planes, the
+    previous iterates and the owned-row norms."""
+    from prost_tpu_torch.ops import fused_multilabel as fm
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    planes = _ml_planes(480 + rank, 8, 512, 512, dev)
+    ri, rows = 10, 512 // shards
+    H = 2 * ri + 2
+    lo = rank * rows - H
+    ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+    scal = torch.tensor(ML_TILED_ARGS + [lo, H, H + rows], device=dev)
+    before = fm.launch_counts["ml_chunk_halo_tiled"]
+    out = _tiled_paths(fm.ml_chunk_halo_, ext[:3], ext[3:], scal, ri, 512)
+    assert fm.launch_counts["ml_chunk_halo_tiled"] == before + 1
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tile", [(8, 32), (16, 64), (40, 32), (8, 128)])
+def test_ml_tiled_any_tile_is_the_launch_sequence(dev, tile):
+    """The launch with tiles other than the rule's gives the same bits,
+    and with the flag set it leaves every buffer as it was."""
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    planes = _ml_planes(490, 8, 300, 211, dev)
+    out = {}
+    for flag in (0.0, 1.0):
+        scal = torch.tensor(ML_TILED_ARGS + [flag], device=dev)
+        for path in ("streaming", "tiled"):
+            cur = [t.clone() for t in planes[:3]]
+            prev = [t + 1.0 for t in cur]
+            sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+            partial = cur[0].new_empty(
+                4 * fm._lib().prost_ml_num_blocks(300, 211))
+            route = (path, tile if path == "tiled" else None)
+            fm._launch_chunk("ml_chunk", cur, prev, planes[3], sc, partial,
+                             fm._scratch(path, 8, 300, 211, dev), route, 3)
+            out[path] = cur + prev + [sc[15:19].clone()]
+        torch.cuda.synchronize()
+        for a, b in zip(out["streaming"], out["tiled"]):
+            assert torch.equal(a, b)
+        if flag:
+            for a, b in zip(out["tiled"][:6], planes[:3]
+                            + [t + 1.0 for t in planes[:3]]):
+                assert torch.equal(a, b)
+
+
+def _ml_tiled_multichunks(planes, scal, count, k_chunks, stepsize):
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    L, nx, ny = planes[0].shape
+    out = {}
+    for path in ("streaming", "tiled"):
+        cur = [t.clone() for t in planes[:3]]
+        prev = [torch.full_like(t, float("nan")) for t in cur]
+        norms, sout = fm.ml_multichunk_(*cur, *prev, planes[3], scal, count,
+                                        k_chunks, stepsize,
+                                        _ml_mc_consts(L, nx, ny), path=path)
+        out[path] = cur + prev + [norms.clone(), sout.clone()]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("stepsize", ["alg1", "boyd", "goldstein"])
+@pytest.mark.parametrize("L,nx,ny,ri,k", [(8, 512, 512, 10, 8),
+                                          (5, 300, 211, 3, 5),
+                                          (3, 70, 53, 3, 4)])
+def test_ml_tiled_multichunk_is_the_launch_sequence(dev, L, nx, ny, ri, k,
+                                                    stepsize):
+    """Every chunk runs (tolerance 0), an even and an odd count: the tiled
+    launches' planes, previous iterates, norms and sout bit-equal to the
+    launch sequence's."""
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    planes = _ml_planes(500 + ri, L, nx, ny, dev)
+    before = fm.launch_counts["ml_multichunk_tiled"]
+    out = _ml_tiled_multichunks(planes, _ml_mc_scal(0.0, dev), ri, k,
+                                stepsize)
+    assert fm.launch_counts["ml_multichunk_tiled"] == before + 1
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    assert out["tiled"][7][5:].tolist() == [0.0, float(k)]
+
+
+@pytest.mark.parametrize("count", [3, 10])
+def test_ml_tiled_multichunk_converging_mid_launch(dev, count):
+    """From a solve's start (u = q = s = 0) boyd converges partway through
+    the launch at some tolerance of a list: bit-equal to the sequence each
+    time, the result copied back where the scratch holds it (an odd count,
+    an odd number of chunks)."""
+    planes = _ml_planes(510, 8, 512, 512, dev)
+    for t in planes[:3]:
+        t.zero_()
+    stopped = set()
+    for tol in (5e-2, 2e-2, 1e-2, 5e-3, 2e-3, 1e-3):
+        out = _ml_tiled_multichunks(planes, _ml_mc_scal(tol, dev, 1.0, 1.0),
+                                    count, 8, "boyd")
+        for a, b in zip(out["streaming"], out["tiled"]):
+            assert torch.equal(a, b)
+        sout = out["tiled"][7]
+        if float(sout[5]) == 1.0 and 1 <= float(sout[6]) < 8:
+            stopped.add(int(sout[6]) % 2)
+    assert stopped, "no tolerance converged mid-launch"
+
+
+def test_ml_tiled_light_calls_on_the_card(dev):
+    """``MLChunk`` and ``MLMultichunk`` at 512x512x8 take the tiled path by
+    the shape rule, and their calls are the streaming ones' bit for bit,
+    twice in a row on the same buffers."""
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    L, n = 8, 512
+    planes = _ml_planes(520, L, n, n, dev)
+    m = {"L": L, "nx": n, "ny": n, "f": planes[3], "radius": 0.5,
+         "d_s": 1.0, "radius_t": torch.tensor(0.5, device=dev),
+         "d_s_t": torch.tensor(1.0, device=dev),
+         "tols_t": tuple(torch.tensor(1e-3, device=dev) for _ in range(4)),
+         "adapt_consts": _ml_mc_consts(L, n, n)}
+    assert fm.MLChunk(m, 10, dev).route[0] == "tiled"
+    assert fm.MLMultichunk(m, 10, 8, "boyd", dev).route[0] == "tiled"
+    s3 = [torch.tensor(v, device=dev) for v in (0.9, 1.1, 1.0)]
+    flag = torch.tensor(False, device=dev)
+    out = {}
+    for path in ("streaming", "tiled"):
+        call = fm.MLChunk(m, 10, dev, path=path)
+        multi = fm.MLMultichunk(m, 10, 3, "boyd", dev, path=path)
+        assert call.route[0] == multi.route[0] == path
+        cur = [t.clone() for t in planes[:3]]
+        prev = [t.clone() for t in cur]
+        got = []
+        for _ in range(2):
+            got.append(call(cur, prev, planes[3], *s3, flag).clone())
+            got += [t.clone() for t in multi(
+                cur, prev, *s3, torch.tensor(0.5, device=dev),
+                torch.tensor(0.0, device=dev), torch.tensor(0.0, device=dev),
+                torch.tensor(1, device=dev), flag)]
+        out[path] = cur + prev + got
+    torch.cuda.synchronize()
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+
+
+def test_ml_tiled_rules_on_the_card(dev):
+    """The card's limits send 256x256x8 to the grid-resident launch,
+    512x512x8 to the tiled one and 9 labels to the streaming sequence,
+    where asking for the tiled launch raises; so does a tile the C side
+    refuses."""
+    from prost_tpu_torch.ops import fused_multilabel as fm
+
+    sms, smem = fm.card_limits(dev, 8)
+    tsmem = fm.ml_tiled_limit(dev)
+    assert tsmem >= 225 * 1024
+    assert fm.ml_route_of(8, 256, 256, sms, smem, tsmem) == "resident"
+    assert fm.ml_route_of(8, 512, 512, sms, smem, tsmem) == "tiled"
+    assert fm.ml_route_of(9, 512, 512, sms, 0, tsmem) == "streaming"
+    u, q, s, f = _ml_planes(530, 9, 64, 64, dev)
+    scal = torch.tensor(ML_TILED_ARGS, device=dev)
+    with pytest.raises(ptt.ProstError, match="tiled launch takes"):
+        fm.ml_chunk_(u, q, s, u.clone(), q.clone(), s.clone(), f, scal, 2,
+                     path="tiled")
+    u, q, s, f = _ml_planes(531, 8, 256, 256, dev)
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = u.new_empty(4 * fm._lib().prost_ml_num_blocks(256, 256))
+    scratch = fm._scratch("tiled", 8, 256, 256, dev)
+    for tile in ((12, 32), (8, 48), (64, 64)):  # not 8x32 tiles; too big
+        with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+            launch(fm._lib(), "prost_ml_chunk_tiled", "ml_chunk",
+                   fm.launch_counts, dev,
+                   [u, q, s, u.clone(), q.clone(), s.clone(), f, sc, partial,
+                    *scratch], 8, 256, 256, 1.0 / 8, (1.0 / 8) ** 0.5, 10,
+                   *tile)
