@@ -73,7 +73,14 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    5x5 blur (both grid-resident) and at 2048x2048 (streaming), timed
    against its plain version at 512x512;
    and for the tight kernel: ``tight_chunk`` (ri = 10) at 128x128x4, at a
-   ragged 250x190x3 and at 512x512x4, timed at 128x128x4;
+   ragged 250x190x3 and at 512x512x4 (tiled), timed at 128x128x4; and
+   row 22 tiled (``phase_tiled_tight``, run after the multilabel rows'
+   ``phase_tiled_ml``): ``tight_chunk_`` at 512x512x4 (counts 10, 3 and 1,
+   and flagged) and 250x190x3 and ``tight_chunk_halo_`` on the 556-row
+   band of 512x512x4, each bit-equal to the streaming launch sequence and
+   within the tolerances of the plain versions; both paths' calls and the
+   route's light call in turns with their launches and traced device ms;
+   the chunk at counts 2 and 10;
 9. solve BASELINE config 2, TV deblurring of data/flowers.png at 512x512
    blurred by the motion kernel (lmb 100, boyd, residual_iter 10, 2000
    iterations at tolerance 1e-5), by the fused deblur route and by the
@@ -129,13 +136,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    the fused multilabel route at 512x512x8, of the deblur route at
    2048x2048, of the tight route at 512x512x4 and of the volumetric route
    at 512x512x8, where the JAX package bands its kernels: every kernel
-   launches, the state stays on the card and finite; the ROF and the
-   Chebyshev ADMM routes' chunks and multichunks tiled (their tiled
-   launches are the kernels line's), each solve in turns with the
-   streaming sequence (it/s, equal energies); the first call of each
-   route's light calls that still stream there (rows 14, 16, 19, 22, 27,
-   28; row 7 from phase 11's 1280x1280 instances) replayed under the
-   profiler beside its bound;
+   launches, the state stays on the card and finite; the ROF, Chebyshev
+   ADMM, multilabel, deblur and tight routes' chunks (and multichunks)
+   tiled (their tiled launches are the kernels line's), each solve in
+   turns with the streaming sequence (it/s, equal energies); the first
+   call of each route's light calls there (rows 14, 16, 19 and 22 tiled,
+   27 and 28 streaming; row 7 from phase 11's 1280x1280 instances)
+   replayed under the profiler beside its bound;
 15. the halo chunks of spatial sharding at full width (ROF 512x512, ml and
    vol 256x256x8, ri = 10, halo 22 rows): bands of 1, 2 and 4 shards cut
    from the whole plane with zeros beyond its edges (what the halo
@@ -193,7 +200,10 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    one-card fused route's; the sharded ROF, multilabel, volumetric,
    deblur and tight routes again in turns with the copying chunk call;
    ``ShardedFusedADMM`` at Chebyshev
-   degree 65 (300 iterations) against the one-card fused ADMM route; then
+   degree 65 (300 iterations) against the one-card fused ADMM route; the
+   sharded deblur route at 2048x2048, multilabel route at 512x512x8 and
+   tight route at 512x512x4 (300 iterations) on their tiled halo chunks
+   against the one-card fused routes; then
    run ensemble1024x128 through ``BatchedPDHG`` over a dp mesh of those
    ranks (21 + 300 iterations) and hold every field of every instance
    against the one-card run, bit for bit;
@@ -1272,14 +1282,15 @@ def rof_model(nx, ny, f, lmb):
 
 
 def recording(kind, opts, generic=None, rof_path=None, admm_path=None,
-              deblur_path=None, ml_path=None):
+              deblur_path=None, ml_path=None, tight_path=None):
     """``Backend(kind, opts)`` as a user gets it from ``backend_pdhg`` /
     ``backend_admm`` (or, with ``generic``, that generic backend class),
     recording after every callback epoch the devices of the solver state's
     tensors and the time spent iterating; with ``rof_path``
-    (``admm_path``, ``deblur_path``, ``ml_path``), the fused ROF route's
-    (fused Chebyshev ADMM route's, fused deblur route's, fused multilabel
-    route's) light calls made beforehand on that path."""
+    (``admm_path``, ``deblur_path``, ``ml_path``, ``tight_path``), the fused
+    ROF route's (fused Chebyshev ADMM route's, fused deblur route's, fused
+    multilabel route's, fused tight route's) light calls made beforehand on
+    that path."""
     import torch
 
     from prost_tpu_torch.modeling import Backend
@@ -1330,6 +1341,13 @@ def recording(kind, opts, generic=None, rof_path=None, admm_path=None,
                 b.ml["multi"] = fm.MLMultichunk(
                     b.ml, ri, K_CHUNKS, self.opts.stepsize, dev,
                     path=ml_path)
+            if tight_path is not None:
+                import prost_tpu_torch as ptt
+                from prost_tpu_torch.ops import fused_tight as ft
+
+                ri = max(int(self.opts.residual_iter), 1)
+                b.tight["call"] = ft.TightChunk(b.tight, ri, ptt.device(),
+                                                path=tight_path)
             self.made, self.devices, self.loop_s = b, set(), 0.0
             run = b.run
 
@@ -1939,6 +1957,26 @@ def phase_deblur_kernels(dev):
     return {"deblur_chunk": row}
 
 
+def tight_kernel_inputs(L, nx, ny, seed, dev):
+    """u, v, q (with mass on its boundary coordinates), p, s and f of a
+    tight chunk on ``dev``, the example's taps for L labels and its
+    constant preconditioner: (planes, taps, consts)."""
+    import torch
+
+    k = L * (L - 1) // 2
+    pt_ = pair_matrix(L).T
+    taps = tuple((r, m, float(pt_[r, m])) for r in range(2 * L)
+                 for m in range(2 * k) if pt_[r, m] != 0.0)
+    consts = tuple(float(np.float32(c))
+                   for c in (1 / (L + 1), 1.0, 1 / L, 0.2, 1 / 3))
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(L, nx, ny), 0.1 * rng.randn(2 * k, nx, ny),
+            0.2 * rng.randn(2 * L, nx, ny), 0.1 * rng.randn(2 * k, nx, ny),
+            0.1 * rng.randn(nx, ny), rng.rand(L, nx, ny))
+    return ([torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs],
+            taps, consts)
+
+
 def phase_tight_kernels(dev):
     import torch
 
@@ -1951,17 +1989,7 @@ def phase_tight_kernels(dev):
                                         (TIGHT_LABELS, TIGHT_LARGE,
                                          TIGHT_LARGE))):
         k = L * (L - 1) // 2
-        pt_ = pair_matrix(L).T
-        taps = tuple((r, m, float(pt_[r, m])) for r in range(2 * L)
-                     for m in range(2 * k) if pt_[r, m] != 0.0)
-        consts = tuple(float(np.float32(c))
-                       for c in (1 / (L + 1), 1.0, 1 / L, 0.2, 1 / 3))
-        rng = np.random.RandomState(400 + seed)
-        arrs = (rng.rand(L, nx, ny), 0.1 * rng.randn(2 * k, nx, ny),
-                0.2 * rng.randn(2 * L, nx, ny), 0.1 * rng.randn(2 * k, nx, ny),
-                0.1 * rng.randn(nx, ny), rng.rand(L, nx, ny))
-        state = [torch.from_numpy(a.astype(np.float32)).to(dev)
-                 for a in arrs]
+        state, taps, consts = tight_kernel_inputs(L, nx, ny, 400 + seed, dev)
         scal = torch.tensor([0.9, 1.1, 1.0, TIGHT_LMB, 1.0], device=dev)
         args = (*state, scal, ri, taps, consts)
         out = ft.tight_chunk(*args)
@@ -3880,6 +3908,67 @@ def phase_tiled_deblur(dev):
     return rows
 
 
+def tiled_both(label, fn, state, data, *args):
+    """``fn`` (an in-place chunk wrapper) on copies of ``state`` by the
+    streaming and the tiled path: the tiled outputs (state, previous
+    iterate, and what ``fn`` returns), checked bit-equal to the streaming
+    ones and finite."""
+    import torch
+
+    got = {}
+    for path in ("streaming", "tiled"):
+        cur = [t.clone() for t in state]
+        prev = [t.clone() for t in cur]
+        ret = fn(*cur, *prev, *data, *args, path=path)
+        ret = [ret] if isinstance(ret, torch.Tensor) else list(ret)
+        got[path] = cur + prev + [t.clone() for t in ret]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
+                                                  got["tiled"]))
+          and all(bool(torch.isfinite(t).all()) for t in got["tiled"]),
+          f"{label}: the tiled launch is not the launch sequence")
+    print(f"{label}: tiled bit-equal to the launch sequence in the planes, "
+          "the previous iterates and the norms")
+    return got["tiled"]
+
+
+def tiled_against_plain(label, out, ref, n_planes, norm_rtol=NORM_RTOL):
+    """A tiled call's ``n_planes`` planes and norms against the plain
+    version's (``scaled_errs``, PLANE_ATOL and ``norm_rtol``); returns the
+    planes' error."""
+    plane, rel = scaled_errs(out, ref, n_planes)
+    print(f"{label}: against the plain version max abs err planes / "
+          f"max(1, |plane|) {plane:.3e} (tol {PLANE_ATOL:g}), max rel err "
+          f"norms {rel:.3e} (tol {norm_rtol:g}, floor at the largest)")
+    check(plane <= PLANE_ATOL and rel <= norm_rtol,
+          f"{label} disagrees with its plain version")
+    return plane
+
+
+def tiled_turns(mod, label, call_for, reps, streaming, tiled):
+    """The in-place call of each path (``call_for(path)``) in turns, and
+    each traced; the whole traces name ``streaming`` launches and the
+    kernels of ``tiled``, and one tiled call counts one launch under a
+    ``_tiled`` name of ``mod.launch_counts``."""
+    (s1, s2), (t1, t2) = in_turns(call_for("streaming"), call_for("tiled"),
+                                  reps)
+    ts = traced_until(call_for("streaming"), lambda c: len(c) == streaming)
+    tt = traced_until(call_for("tiled"), lambda c: c == tiled)
+    got = counted(mod, call_for("tiled"))
+    check(sum(v for k, v in got.items() if k.endswith("_tiled")) == 1
+          and set(tt["csrc"]) <= set(tiled),
+          f"{label}: the tiled call launched {tt['csrc']} (counted {got})")
+    print(f"{label} in place, in turns: streaming {s1:.4f} ms, tiled "
+          f"{t1:.4f}, tiled {t2:.4f}, streaming {s2:.4f} ms/call; traced "
+          f"device ms: streaming {fmt_ms(ts['csrc_ms'])} "
+          f"({len(ts['csrc'])} hand-written launches), tiled "
+          f"{fmt_ms(tt['csrc_ms'])} ({len(tt['csrc'])}: "
+          f"{sorted(set(tt['csrc']))})")
+    return {"streaming_ms": (s1, s2), "tiled_ms": (t1, t2),
+            "device_ms": (ts["csrc_ms"], tt["csrc_ms"]),
+            "launches": (len(ts["csrc"]), len(tt["csrc"]))}
+
+
 def phase_tiled_ml(dev):
     """Rows 16 and 14 tiled (``ml_tiled<L>``: a cooperative launch a chunk
     over overlapping 2-D windows of the planes, a grid barrier an
@@ -3920,59 +4009,11 @@ def phase_tiled_ml(dev):
         return torch.tensor([1.0, 1.0, 1.0, ML_LMB, 1.0, 0.5, 0.0, 0.0, 1.0,
                              tol, tol, tol, tol], device=dev)
 
-    def both(label, fn, state, data, *args):
-        """``fn`` in place on copies of ``state`` by each path: the tiled
-        outputs (state, previous iterate, and what ``fn`` returns),
-        checked bit-equal to the streaming ones."""
-        got = {}
-        for path in ("streaming", "tiled"):
-            cur = [t.clone() for t in state]
-            prev = [t.clone() for t in cur]
-            ret = fn(*cur, *prev, *data, *args, path=path)
-            ret = [ret] if isinstance(ret, torch.Tensor) else list(ret)
-            got[path] = cur + prev + [t.clone() for t in ret]
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(got["streaming"],
-                                                      got["tiled"]))
-              and all(bool(torch.isfinite(t).all()) for t in got["tiled"]),
-              f"{label}: the tiled launch is not the launch sequence")
-        print(f"{label}: tiled bit-equal to the launch sequence in the "
-              "planes, the previous iterates and the norms")
-        return got["tiled"]
-
     def against_plain(label, out, ref, norm_rtol=NORM_RTOL):
-        plane, rel = scaled_errs(out, ref, 6)
-        print(f"{label}: against the plain version max abs err planes / "
-              f"max(1, |plane|) {plane:.3e} (tol {PLANE_ATOL:g}), max rel "
-              f"err norms {rel:.3e} (tol {norm_rtol:g}, floor at the "
-              "largest)")
-        check(plane <= PLANE_ATOL and rel <= norm_rtol,
-              f"{label} disagrees with its plain version")
-        return plane
+        return tiled_against_plain(label, out, ref, 6, norm_rtol)
 
     def turns(label, call_for, reps, streaming, tiled):
-        """The in-place call of each path in turns, and each traced; the
-        whole traces name ``streaming`` launches and the kernels of
-        ``tiled``."""
-        (s1, s2), (t1, t2) = in_turns(call_for("streaming"),
-                                      call_for("tiled"), reps)
-        ts = traced_until(call_for("streaming"),
-                          lambda c: len(c) == streaming)
-        tt = traced_until(call_for("tiled"), lambda c: c == tiled)
-        got = counted(fm, call_for("tiled"))
-        check(sum(v for k, v in got.items() if k.endswith("_tiled")) == 1
-              and set(tt["csrc"]) <= set(tiled),
-              f"{label}: the tiled call launched {tt['csrc']} (counted "
-              f"{got})")
-        print(f"{label} in place, in turns: streaming {s1:.4f} ms, tiled "
-              f"{t1:.4f}, tiled {t2:.4f}, streaming {s2:.4f} ms/call; "
-              f"traced device ms: streaming {fmt_ms(ts['csrc_ms'])} "
-              f"({len(ts['csrc'])} hand-written launches), tiled "
-              f"{fmt_ms(tt['csrc_ms'])} ({len(tt['csrc'])}: "
-              f"{sorted(set(tt['csrc']))})")
-        return {"streaming_ms": (s1, s2), "tiled_ms": (t1, t2),
-                "device_ms": (ts["csrc_ms"], tt["csrc_ms"]),
-                "launches": (len(ts["csrc"]), len(tt["csrc"]))}
+        return tiled_turns(fm, label, call_for, reps, streaming, tiled)
 
     one = ["ml_tiled", "pdhg_finish"]
     seen = {}
@@ -3989,16 +4030,16 @@ def phase_tiled_ml(dev):
         for count in counts:
             label = (f"ml_chunk_ {nx}x{ny}x{Lc} count {count}, tile "
                      f"{route[1]}")
-            out = both(label, fm.ml_chunk_, state[:3], state[3:], scal,
-                       count)
+            out = tiled_both(label, fm.ml_chunk_, state[:3], state[3:], scal,
+                             count)
             err = against_plain(label, out, fm.ml_chunk_plain(
                 *state, scal, count))
             rows["ml_chunk_tiled"]["err"] = max(
                 rows["ml_chunk_tiled"]["err"], err)
         if nx == ny == n:
             flagged = torch.cat([scal, torch.ones(1, device=dev)])
-            out = both(f"ml_chunk_ {nx}x{ny}x{Lc} with the flag",
-                       fm.ml_chunk_, state[:3], state[3:], flagged, ri)
+            out = tiled_both(f"ml_chunk_ {nx}x{ny}x{Lc} with the flag",
+                             fm.ml_chunk_, state[:3], state[3:], flagged, ri)
             check(all(torch.equal(a, b) for a, b in zip(out[:6],
                                                        state[:3] * 2))
                   and not bool(out[6].any()),
@@ -4025,7 +4066,8 @@ def phase_tiled_ml(dev):
           f"{route}")
     label = f"ml_chunk_halo_ {n + 2 * H}x{n}x{L} band (halo {H}), tile " \
             f"{route[1]}"
-    out = both(label, fm.ml_chunk_halo_, band[:3], band[3:], bscal, ri, n)
+    out = tiled_both(label, fm.ml_chunk_halo_, band[:3], band[3:], bscal, ri,
+                     n)
     rows["ml_chunk_halo_tiled"]["err"] = against_plain(
         label, out, fm.ml_chunk_halo_plain(*band, bscal, ri, n))
     cur = [t.clone() for t in band[:3]]
@@ -4043,8 +4085,8 @@ def phase_tiled_ml(dev):
         state = ml_kernel_inputs(Lc, nx, ny, 970 + seed, dev)
         consts = consts_of(Lc, nx, ny)
         label = f"ml_multichunk_ {nx}x{ny}x{Lc}, {k} chunks of {count}"
-        out = both(label, fm.ml_multichunk_, state[:3], state[3:], mscal(0.0),
-                   count, k, "boyd", consts)
+        out = tiled_both(label, fm.ml_multichunk_, state[:3], state[3:],
+                         mscal(0.0), count, k, "boyd", consts)
         check(out[7][5:].tolist() == [0.0, float(k)],
               f"{label}: not every chunk ran ({out[7].tolist()})")
         ref = fm.ml_multichunk_plain(*state, mscal(0.0), count, k, "boyd",
@@ -4144,6 +4186,177 @@ def phase_tiled_ml(dev):
               f"ms/call, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), "
               f"one pass an iteration {r['floor_ms']:.5f} ms")
     rows["ml_chunk_tiled"]["turns"] = seen
+    return rows
+
+
+def phase_tiled_tight(dev):
+    """Row 22 tiled (``tight_tiled<L>``: a cooperative launch a chunk over
+    overlapping 2-D windows of the planes, a grid barrier an iteration)
+    against the streaming launch sequence it replaces at the planes no
+    grid-resident band holds: ``tight_chunk_`` at 512x512x4 (ri 10, odd
+    counts of 3 and 1, and with the flag set) and 250x190x3 (tiles that do
+    not divide it; the grid-resident launch holds it, so its tiled launch
+    is asked for), ``tight_chunk_halo_`` on the one-shard band of
+    512x512x4 (556 rows, 22 of halo each side): planes, previous iterates
+    and norms bit-equal, and within PLANE_ATOL of max(1, |plane|) /
+    NORM_RTOL of the plain versions; each 512-wide call in place in turns
+    (streaming, tiled, tiled, streaming) with the hand-written kernels each
+    path launches per call and their traced device ms, and the route's
+    light call (``TightChunk``) at 512x512x4; the chunk at counts 2 and 10
+    (its fixed cost and an iteration's); the functional wrappers' calls
+    and the plain versions timed for the kernels line, beside the bound
+    and the design's floor of one pass over device memory an
+    iteration."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.ops.pdhg_chunk import S_CONV, S_LEN, scalar_buffer
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    ri, L, n = 10, TIGHT_LABELS, TIGHT_LARGE
+    k = L * (L - 1) // 2
+    rows = {"tight_chunk_tiled": {"err": 0.0},
+            "tight_chunk_halo_tiled": {"err": 0.0}}
+    head = [0.9, 1.1, 1.0, TIGHT_LMB, 1.0]
+    scal = torch.tensor(head, device=dev)
+    one = ["tight_tiled", "pdhg_finish"]
+    seen = {}
+
+    def turns(label, call_for, reps):
+        return tiled_turns(ft, label, call_for, reps, 2 * ri + 3, one)
+
+    for seed, (Lc, nx, ny, counts) in enumerate(((L, n, n, (ri, 3, 1)),
+                                                 (3, 250, 190, (ri,)))):
+        state, taps, consts = tight_kernel_inputs(Lc, nx, ny, 980 + seed,
+                                                  dev)
+        route = ft.tight_pick_route(None if Lc == L else "tiled", Lc,
+                                    Lc * (Lc - 1) // 2, len(taps), nx, ny,
+                                    dev, "tight_chunk")
+        check(route[0] == "tiled", f"tight_chunk_ {nx}x{ny}x{Lc}: the shape "
+              f"rule takes {route}")
+        for count in counts:
+            label = (f"tight_chunk_ {nx}x{ny}x{Lc} count {count}, tile "
+                     f"{route[1]}")
+            out = tiled_both(label, ft.tight_chunk_, state[:5], state[5:],
+                             scal, count, taps, consts)
+            err = tiled_against_plain(label, out, ft.tight_chunk_plain(
+                *state, scal, count, taps, consts), 10)
+            rows["tight_chunk_tiled"]["err"] = max(
+                rows["tight_chunk_tiled"]["err"], err)
+        if nx == n:
+            flagged = torch.cat([scal, torch.ones(1, device=dev)])
+            out = tiled_both(f"tight_chunk_ {nx}x{ny}x{Lc} with the flag",
+                             ft.tight_chunk_, state[:5], state[5:], flagged,
+                             ri, taps, consts)
+            check(all(torch.equal(a, b) for a, b in zip(out[:10],
+                                                       state[:5] * 2))
+                  and not bool(out[10].any()),
+                  "the flagged tiled chunk changed its planes")
+            print(f"tight_chunk_ {nx}x{ny}x{Lc} with the flag set: both "
+                  "paths return their inputs and zero norms")
+            big, btaps, bconsts = state, taps, consts
+            cur = [t.clone() for t in state[:5]]
+            prev = [t.clone() for t in cur]
+            seen[f"{nx}x{ny}"] = turns(
+                f"tight_chunk_ {nx}x{ny}x{Lc} count {ri}",
+                lambda p: lambda: ft.tight_chunk_(
+                    *cur, *prev, big[5], scal, ri, btaps, bconsts, path=p),
+                10)
+    T = len(btaps)
+
+    # the one-shard band of 512x512x4 (halo 22 at ri 10)
+    H = 2 * ri + 2
+    band = [window(a, -H, n + H) for a in big]
+    bscal = torch.tensor(head + [-H, H, H + n], device=dev)
+    route = ft.tight_pick_route(None, L, k, T, n + 2 * H, n, dev,
+                                "tight_chunk_halo")
+    check(route[0] == "tiled", f"tight_chunk_halo_ band: the shape rule "
+          f"takes {route}")
+    label = (f"tight_chunk_halo_ {n + 2 * H}x{n}x{L} band (halo {H}), tile "
+             f"{route[1]}")
+    out = tiled_both(label, ft.tight_chunk_halo_, band[:5], band[5:], bscal,
+                     ri, n, btaps, bconsts)
+    rows["tight_chunk_halo_tiled"]["err"] = tiled_against_plain(
+        label, out, ft.tight_chunk_halo_plain(*band, bscal, ri, n, btaps,
+                                              bconsts), 10)
+    bcur = [t.clone() for t in band[:5]]
+    bprev = [t.clone() for t in bcur]
+    seen["band"] = turns(
+        f"tight_chunk_halo_ {n + 2 * H}x{n}x{L} band",
+        lambda p: lambda: ft.tight_chunk_halo_(
+            *bcur, *bprev, band[5], bscal, ri, n, btaps, bconsts, path=p),
+        10)
+
+    # the route's light call at 512x512x4, in place on buffers made once
+    m = {"L": L, "k": k, "nx": n, "ny": n, "taps": btaps,
+         "consts": bconsts, "radius": TIGHT_LMB, "d_s": 1.0}
+    steps = [torch.tensor(v, device=dev) for v in (0.9, 1.1, 1.0)]
+    flag = torch.tensor(False, device=dev)
+    calls = {}
+    for p in ("streaming", "tiled"):
+        call = ft.TightChunk(m, ri, dev, path=p)
+        check(call.route[0] == p, f"TightChunk took {call.route}")
+        lcur = [t.clone() for t in big[:5]]
+        lprev = [t.clone() for t in lcur]
+        calls[p] = (lambda c=call, a=lcur, b=lprev:
+                    c(a, b, big[5], *steps, flag))
+    seen["light"] = turns(f"TightChunk {n}x{n}x{L} light call",
+                          lambda p: calls[p], 20)
+
+    # the rule's tile at counts 2 and 10 (even: no copy back): the call's
+    # fixed cost (the launch, the last iteration's norm terms and previous
+    # iterate, the norm pass, the finish) and what an iteration adds
+    per_count = {}
+    rule = ft.tight_pick_route(None, L, k, T, n, n, dev, "tight_chunk")
+    kron = ft.kron_array(btaps, L, k, dev)
+    consts10 = ft._consts10(bconsts)
+    for count in (2, ri):
+        pcur = [t.clone() for t in big[:5]]
+        pprev = [t.clone() for t in pcur]
+        sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+        partial = torch.empty(4 * ft._lib().prost_tight_num_blocks(n, n),
+                              device=dev)
+        scratch = ft._route_scratch("tiled", L, n, n, dev)
+        per_count[count] = time_ms(
+            lambda: ft._launch_chunk("tight_chunk", pcur, pprev, big[5],
+                                     kron, sc, partial, scratch, rule, count,
+                                     T, consts10), 20)
+    per_it = (per_count[ri] - per_count[2]) / (ri - 2)
+    print(f"tight_chunk_ {n}x{n}x{L} tiled, tile {rule[1]}, ms a call (CUDA "
+          f"events): {per_count[2]:.4f} at count 2, {per_count[ri]:.4f} at "
+          f"count {ri}: {per_it:.5f} ms an iteration, "
+          f"{per_count[2] - 2 * per_it:.5f} ms of fixed cost")
+    seen["per_count"] = per_count
+
+    # the kernels line: the functional wrappers at 512x512x4 and on its
+    # band; u, v, q, p, s, f and the taps in, the new and the previous
+    # state out; the design's floor reads u, q, s, f, v and p and writes u,
+    # q, s, v and p an iteration (7L + 8k + 2 planes), writes the previous
+    # iterate once and reads both iterates for the norms
+    for name, fn, plain, args, nb in (
+            ("tight_chunk_tiled", ft.tight_chunk, ft.tight_chunk_plain,
+             (*big, scal, ri, btaps, bconsts), n * n),
+            ("tight_chunk_halo_tiled", ft.tight_chunk_halo,
+             ft.tight_chunk_halo_plain,
+             (*band, bscal, ri, n, btaps, bconsts), (n + 2 * H) * n)):
+        r = rows[name]
+        timed(r, lambda: fn(*args), 20, lambda c: c == one, ft)
+        r["plain_ms"] = time_ms(lambda: plain(*args), 2)
+        r["bound"] = bound(((10 * L + 12 * k + 3) * nb + 4 * T + 2 * L
+                            + 2 * k + 2) * 4,
+                           tight_chunk_ops(nb, L, k, T, ri))
+        r["floor_ms"] = ((ri * (7 * L + 8 * k + 2) + 9 * L + 12 * k + 3)
+                         * nb * 4 / HBM_BYTES_PER_S * 1e3)
+        check(r["counted"].get(name) == 1,
+              f"{name}: the wrapper did not launch tight_tiled (counted "
+              f"{r['counted']})")
+        print(f"{name}: wrapper {r['ms']:.4f} ms/call (traced device "
+              f"{fmt_ms(r['traced']['csrc_ms'])} ms in "
+              f"{len(r['traced']['csrc'])} hand-written launches, PyTorch "
+              f"{fmt_ms(r['traced']['torch_ms'])}), plain {r['plain_ms']:.4f} "
+              f"ms/call, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), "
+              f"one pass an iteration {r['floor_ms']:.5f} ms")
+    rows["tight_chunk_tiled"]["turns"] = seen
     return rows
 
 
@@ -5963,6 +6176,7 @@ def sharded_solves(rank, world, init_method, card):
         out["admm65"] = cheby65(rank, world, mesh, card)
         out["deblur2048"] = deblur_large_sharded(rank, world, mesh, card)
         out["ml512"] = ml_large_sharded(rank, world, mesh, card)
+        out["tight512"] = tight_large_sharded(rank, world, mesh, card)
         out["dp"] = dp_ensemble(rank, world, card)
         return out
     finally:
@@ -6044,6 +6258,46 @@ def ml_large_sharded(rank, world, mesh, card):
     check(rel <= ENERGY_RTOL, f"the sharded {n}x{n}x{L} multilabel energy "
           "disagrees with the one-card fused route's")
     return {"launches": launches["ml_chunk_halo_tiled"], "rel": rel}
+
+
+def tight_large_sharded(rank, world, mesh, card):
+    """ShardedFusedTight on junction_gray's unaries at 512x512x4
+    (TIGHT_LARGE, 300 iterations at ri 10): each rank's band with its 22
+    rows of halo each side takes the tiled halo chunk; its energy against
+    the one-card fused route's (tiled too), which each rank solves too.
+    Returns the tiled halo launches and the relative difference."""
+    from prost_tpu_torch.backend import PDHGOptions
+    from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.parallel import ShardedFusedTight
+
+    n, L = TIGHT_LARGE, TIGHT_LABELS
+    ncols = n * n * (L + L * (L - 1))
+    f = tight_unaries(n, n, L)
+    opts = PDHGOptions(stepsize="boyd", residual_iter=10)
+    one, _, _ = run_model(recording("pdhg", opts), tight_model(n, n, L, f),
+                          ncols, 300, num_cback_calls=2)
+    ft.reset_launch_counts()
+    res, backend, _ = run_model(
+        recording("pdhg", opts,
+                  lambda p, o, so: ShardedFusedTight(p, o, so, mesh)),
+        tight_model(n, n, L, f), ncols, 300, num_cback_calls=2)
+    launches = {key: v for key, v in ft.launch_counts.items() if v}
+    check(set(launches) == {"tight_chunk_halo", "tight_chunk_halo_tiled"}
+          and launches["tight_chunk_halo_tiled"]
+          == launches["tight_chunk_halo"] > 0,
+          f"the sharded {n}x{n}x{L} tight route launched {launches}")
+    e, e1 = (tight_measures(r.x, f, TIGHT_LMB, L, n, n)[0]
+             for r in (res, one))
+    rel = abs(e - e1) / abs(e1)
+    print(f"rank {rank}: sharded tight solve {n}x{n}x{L} on {world} rank(s) "
+          f"(tiled halo chunk, route {backend.made.call.route}): "
+          f"{res.result.value} after {res.iterations} iterations, "
+          f"{res.iterations / backend.loop_s:.1f} it/s; energy {e:.6f}, one "
+          f"card {e1:.6f}, rel diff {rel:.3e} (tol {ENERGY_RTOL:g}); "
+          f"launches {launches} [{card}]")
+    check(rel <= ENERGY_RTOL, f"the sharded {n}x{n}x{L} tight energy "
+          "disagrees with the one-card fused route's")
+    return {"launches": launches["tight_chunk_halo_tiled"], "rel": rel}
 
 
 def cheby65(rank, world, mesh, card):
@@ -6133,9 +6387,10 @@ def _sharded_rank(rank, world, init_method, card, results):
 def phase_sharded_solve(card, one_card):
     """Phase 16: the halo-sharded routes on one NCCL rank per card, each
     energy against ``one_card[kind]``, the one-card fused route's; the
-    sharded deblur route at 2048x2048 and the sharded multilabel route at
-    512x512x8 on their tiled halo chunks (``deblur_large_sharded``,
-    ``ml_large_sharded``)."""
+    sharded deblur route at 2048x2048, the sharded multilabel route at
+    512x512x8 and the sharded tight route at 512x512x4 on their tiled halo
+    chunks (``deblur_large_sharded``, ``ml_large_sharded``,
+    ``tight_large_sharded``)."""
     import multiprocessing as mp
     import os
     import tempfile
@@ -6184,6 +6439,8 @@ def phase_sharded_solve(card, one_card):
         r["deblur2048"]["launches"] for r in per_rank)
     launches["ml_chunk_halo_tiled"] = sum(r["ml512"]["launches"]
                                           for r in per_rank)
+    launches["tight_chunk_halo_tiled"] = sum(r["tight512"]["launches"]
+                                             for r in per_rank)
     c65 = per_rank[0]["admm65"]
     if c65 is not None:
         print(f"sharded ADMM at Chebyshev degree 65 on {world} rank(s): "
@@ -6439,25 +6696,48 @@ def phase_large(card):
     L = TIGHT_LABELS
     k = L * (L - 1) // 2
     f = tight_unaries(nx, ny, L)
+    t_opts = PDHGOptions(stepsize="boyd", residual_iter=10)
     ft.reset_launch_counts()
     with first_calls(ft.TightChunk) as seen:
         res, backend, dt = run_model(
-            recording("pdhg", PDHGOptions(stepsize="boyd",
-                                          residual_iter=10)),
-            tight_model(nx, ny, L, f), nx * ny * (L + 2 * k), 300,
-            num_cback_calls=2)
+            recording("pdhg", t_opts), tight_model(nx, ny, L, f),
+            nx * ny * (L + 2 * k), 300, num_cback_calls=2)
     launches = single_launches(ft)
+    counted = ft.launch_counts["tight_chunk_tiled"]
     if "TightChunk" in seen:
         n, T = nx * ny, len(seen["TightChunk"][0].taps)
-        banded_row(22, f"tight_chunk {nx}x{ny}x{L}", seen, "TightChunk",
+        banded_row(22, f"tight_chunk {nx}x{ny}x{L} (tiled path)", seen,
+                   "TightChunk",
                    ((10 * L + 12 * k + 3) * n + 4 * T + 2 * L + 2 * k + 2)
                    * 4, tight_chunk_ops(n, L, k, T, ri))
     check(backend.made.tight is not None
           and all(v > 0 for v in launches.values()),
           f"the tight kernel was not launched at {nx}x{ny}x{L}: {launches}")
-    e = tight_measures(res.x, f, TIGHT_LMB, L, nx, ny)[0]
-    print(f"fused tight solve {nx}x{ny}x{L}: {rates(res, backend, dt)}; "
-          f"energy {e:.6f}, launches {launches} [{card}]")
+    route = backend.made.tight["call"].route
+    check(route[0] == "tiled" and counted == launches["tight_chunk"] > 0,
+          f"the {nx}x{ny}x{L} tight chunks did not run tiled: {route}, "
+          f"{counted} tiled of {launches}")
+    tiled["tight_chunk_tiled"] = counted
+    e_tiled = tight_measures(res.x, f, TIGHT_LMB, L, nx, ny)
+    print(f"fused tight solve {nx}x{ny}x{L} (tiled path, tile {route[1]}; "
+          f"tiled launches {counted}): {rates(res, backend, dt)}; energy "
+          f"{e_tiled[0]:.6f}, launches {launches} [{card}]")
+    its = []
+    for p in ("tiled", "streaming", "streaming", "tiled"):
+        res, backend, dt = run_model(
+            recording("pdhg", t_opts, tight_path=p),
+            tight_model(nx, ny, L, f), nx * ny * (L + 2 * k), 300,
+            num_cback_calls=2)
+        check(backend.made.tight["call"].route[0] == p,
+              f"the {nx}x{ny}x{L} tight solve did not take the {p} path")
+        check(tight_measures(res.x, f, TIGHT_LMB, L, nx, ny) == e_tiled,
+              f"the {p} {nx}x{ny}x{L} tight solve's energy is not the "
+              "tiled one's")
+        its.append(res.iterations / backend.loop_s)
+    print(f"fused tight solve {nx}x{ny}x{L} in turns, iterating it/s: tiled "
+          f"{its[0]:.1f}, streaming {its[1]:.1f}, streaming {its[2]:.1f}, "
+          f"tiled {its[3]:.1f}; the four energies (and the constraint "
+          f"measures) equal [{card}]")
 
     nx = ny = VOL_LARGE
     L = VOL_LABELS
@@ -6486,8 +6766,8 @@ def phase_large(card):
     print(f"fused vol solve {nx}x{ny}x{L} (streaming path): "
           f"{rates(res, backend, dt)}; energy {e:.6f}, launches {launches} "
           f"[{card}]")
-    print("banded rows at their banded shapes (rows 19, 16 and 14 tiled, "
-          "the others streaming): " + json.dumps(BANDED))
+    print("banded rows at their banded shapes (rows 19, 16, 14 and 22 "
+          "tiled, the others streaming): " + json.dumps(BANDED))
     return tiled
 
 
@@ -7074,6 +7354,7 @@ def main() -> int:
     rows.update(phase(phase_tiled_admm, dev))
     rows.update(phase(phase_tiled_deblur, dev))
     rows.update(phase(phase_tiled_ml, dev))
+    rows.update(phase(phase_tiled_tight, dev))
     launches, e_pdhg, d_pdhg = phase(phase_solve, card)
     admm_launches, e_admm = phase(phase_admm_solve, card, e_pdhg, d_pdhg)
     launches.update(admm_launches)
@@ -7151,6 +7432,10 @@ def main() -> int:
                                 "prost_tpu/ops/fused_multilabel.py:441"),
         "ml_chunk_halo_tiled": ("fused_multilabel",
                                 "prost_tpu/ops/fused_multilabel.py:743"),
+        "tight_chunk_tiled": ("fused_tight",
+                              "prost_tpu/ops/fused_tight.py:318"),
+        "tight_chunk_halo_tiled": ("fused_tight",
+                                   "prost_tpu/ops/fused_tight.py:318"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

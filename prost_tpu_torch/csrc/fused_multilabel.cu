@@ -977,17 +977,6 @@ inline size_t ml_tiled_smem(int L, int tx, int ty) {
   return (planes > (size_t)MT_RED ? planes : (size_t)MT_RED) * sizeof(float);
 }
 
-// A window of planes in shared memory: at(k, i, j) is element (i, j) of
-// the plane of its k-th plane, the window's corner (r0, c0), its rows w
-// floats apart and its planes m floats apart.
-struct MWin {
-  float* a;
-  int r0, c0, w, m;
-  __device__ __forceinline__ float& at(int k, int i, int j) const {
-    return a[(size_t)k * m + (i - r0) * w + (j - c0)];
-  }
-};
-
 // One iteration on tile `tile` of the tiles of tx x ty: the window from
 // slot `src`, the owned pixels into slot `dst`; with `last` the old u, q
 // and s also into the previous-iterate planes (a's up, qp, sp).  `a` holds

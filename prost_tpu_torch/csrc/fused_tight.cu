@@ -8,12 +8,14 @@
 //                                 -> _tight_chunk_kernel_batched
 //   prost_tpu/ops/fused_tight.py  tight_fused_chunk_halo
 //                                 -> _tight_chunk_kernel (halo=True)
+//   prost_tpu/ops/fused_tight.py  tight_fused_chunk_banded
+//                                 -> _tight_banded_kernel,
+//                                    _tight_banded_db_kernel
+//   (the planes a TPU core's VMEM cannot hold: tight_tiled, further down)
 // whose math is _chunk_core and _kron_ops in the same
-// file and the masked _shift_ops_3d of fused_multilabel.py.  It also serves
-// the JAX package's banded variant (tight_fused_chunk_banded), which exists
-// only because a TPU core's VMEM cannot hold the planes of large images:
-// here the planes stay in device memory at every size.  The plain PyTorch
-// versions live beside their wrappers in prost_tpu_torch/ops/fused_tight.py.
+// file and the masked _shift_ops_3d of fused_multilabel.py.  The plain
+// PyTorch versions live beside their wrappers in
+// prost_tpu_torch/ops/fused_tight.py.
 //
 // Workload: the tight multilabel relaxation, primal [u (L label planes);
 // v (2k pair planes)], dual [q (2L gradient planes, free); p (2k planes,
@@ -57,7 +59,10 @@
 // grid-resident cooperative launch (tight_resident, further down), and the
 // batched chunk as one such launch with its instances side by side, each
 // on its own group of blocks (tight_resident_batched), where one band of
-// an instance's share of the SMs fits; each is bit-equal to the sequence.
+// an instance's share of the SMs fits; where they do not (512x512x4 and
+// its 556-row band), the chunk and its halo mode run as one tiled
+// cooperative launch, one pass over device memory an iteration
+// (tight_tiled); each is bit-equal to the sequence.
 //
 // Design.  One thread per pixel, 32x8 blocks (pdhg_chunk.cuh); each thread
 // loops over its pixel's labels, pairs and taps, since the kron coupling,
@@ -77,14 +82,15 @@
 // Rounding.  Built with -fmad=false; the five preconditioner constants and
 // their square roots are rounded once from double by the wrapper, as the
 // plain version rounds its Python constants; kron products fold left to
-// right in the plain version's order.  The differences to the plain version
-// are rsqrtf in the ball projection, the order of the label sums (left to
-// right here) and of the norm sums.  A zero pair vector keeps scale 1, where
-// the JAX form gives NaN for radius 0.
+// right in the plain version's order, label sums left to right as the plain
+// version sums them.  The differences to the plain version are rsqrtf in
+// the ball projection and the order of the norm sums.  A zero pair vector
+// keeps scale 1, where the JAX form gives NaN for radius 0.
 //
 // Interface: plain C, loaded with ctypes; pointers and the stream arrive
 // as void*, and every entry point returns the cudaError_t of its launches.
 
+#include "cp_async.cuh"
 #include "pdhg_chunk.cuh"
 
 namespace {
@@ -157,15 +163,74 @@ __device__ __forceinline__ TK instance_of(const TK& b) {
   return instance_at(b, blockIdx.z);
 }
 
-// Offsets of the runs of the taps array.
-struct Kron {
-  const float* row_ptr;  // 2L + 1
-  const float* col;      // T
-  const float* wr;       // T
-  const float* col_ptr;  // 2k + 1
-  const float* row;      // T
-  const float* wc;       // T
+// The pixel helpers below serve the streaming kernels, the grid-resident
+// chunks and the tiled chunk alike: each reads its planes through an
+// accessor, a(l, i, j) the element (i, j) of plane l, which is a stack of
+// device planes (Planes), a band of rows in shared memory (LWin) or a
+// tile's window (MWin), and the taps through a run table in device memory
+// (RunG) or in shared memory (RunS).  One expression in one order for all
+// of them keeps their planes and norms bit-equal.
+
+// (nx, ny) device planes n floats apart.
+struct Planes {
+  const float* a;
+  size_t n;
+  int ny;
+  __device__ __forceinline__ float operator()(int l, int i, int j) const {
+    return a[(size_t)l * n + (size_t)i * ny + j];
+  }
 };
+
+// The planes of accessor `a` at one pixel: x(m) is plane m's value there.
+template <class A>
+struct AtPixel {
+  const A& a;
+  int i, j;
+  __device__ __forceinline__ float operator()(int m) const {
+    return a(m, i, j);
+  }
+};
+
+template <class A>
+__device__ __forceinline__ AtPixel<A> at_px(const A& a, int i, int j) {
+  return AtPixel<A>{a, i, j};
+}
+
+// A run table of P^T's taps, by output row or by output column: run o is
+// the taps [lo(o), lo(o + 1)), each an input plane at(t) and a weight
+// wt(t).  In device memory its entries are floats read through __ldg
+// (RunG); the grid-resident and tiled chunks copy it into shared memory
+// with the runs and indices as ints (RunS).
+struct RunG {
+  const float* ptr;
+  const float* idx;
+  const float* w;
+  __device__ __forceinline__ int lo(int o) const {
+    return (int)__ldg(ptr + o);
+  }
+  __device__ __forceinline__ int at(int t) const {
+    return (int)__ldg(idx + t);
+  }
+  __device__ __forceinline__ float wt(int t) const { return __ldg(w + t); }
+};
+
+struct RunS {
+  const int* ptr;
+  const int* idx;
+  const float* w;
+  __device__ __forceinline__ int lo(int o) const { return ptr[o]; }
+  __device__ __forceinline__ int at(int t) const { return idx[t]; }
+  __device__ __forceinline__ float wt(int t) const { return w[t]; }
+};
+
+// The taps by output row (kron(P^T, I): row_ptr (2L + 1), col, w (T
+// each)) and by output column (its transpose: col_ptr (2k + 1), row, w).
+template <class R>
+struct KronT {
+  R rows, cols;
+};
+using Kron = KronT<RunG>;
+using KronS = KronT<RunS>;
 
 // The floats of the taps array for (L, k) and T taps.
 __host__ __device__ __forceinline__ int kron_floats(int L, int k, int T) {
@@ -174,58 +239,60 @@ __host__ __device__ __forceinline__ int kron_floats(int L, int k, int T) {
 
 __device__ __forceinline__ Kron kron_at(const float* kron, int L, int k,
                                         int T) {
-  Kron r;
-  r.row_ptr = kron;
-  r.col = r.row_ptr + 2 * L + 1;
-  r.wr = r.col + T;
-  r.col_ptr = r.wr + T;
-  r.row = r.col_ptr + 2 * k + 1;
-  r.wc = r.row + T;
-  return r;
+  const float* col = kron + 2 * L + 1;
+  const float* wr = col + T;
+  const float* col_ptr = wr + T;
+  const float* row = col_ptr + 2 * k + 1;
+  return Kron{RunG{kron, col, wr}, RunG{col_ptr, row, row + T}};
 }
 
 __device__ __forceinline__ Kron kron_of(const TK& b) {
   return kron_at(b.kron, b.L, b.k, b.ntaps);
 }
 
-// One entry of kron(P^T, I) x or its transpose at pixel p: the fold over
-// the run [ptr[o], ptr[o + 1]) of w * src[idx * n + p], 0 for an empty run.
-__device__ __forceinline__ float kron_fold(const float* ptr, const float* idx,
-                                           const float* w, int o,
-                                           const float* src, size_t n,
-                                           size_t p) {
-  int lo = (int)__ldg(ptr + o), hi = (int)__ldg(ptr + o + 1);
+// One entry of kron(P^T, I) x (the run table `rows`, o a row of q) or of
+// its transpose (`cols`, o a pair plane) at one pixel, x(m) the pixel's
+// value in input plane m: the fold over run o, left to right, of w x(m);
+// 0 for an empty run.
+template <class R, class X>
+__device__ __forceinline__ float kron_fold(const R& run, int o, const X& x) {
+  const int lo = run.lo(o), hi = run.lo(o + 1);
   if (lo == hi) return 0.f;
-  float acc = __ldg(w + lo) * src[(size_t)__ldg(idx + lo) * n + p];
-  for (int t = lo + 1; t < hi; ++t)
-    acc = acc + __ldg(w + t) * src[(size_t)__ldg(idx + t) * n + p];
+  float acc = run.wt(lo) * x(run.at(lo));
+  for (int t = lo + 1; t < hi; ++t) acc = acc + run.wt(t) * x(run.at(t));
   return acc;
 }
 
 // Gradient row r of u at (i, j): dx of label r for r < L, dy of label
 // r - L otherwise, Neumann at the global plane's edges.
-__device__ __forceinline__ float grad_row(const float* u, int r, int L,
-                                          size_t n, int i, int j, int nx,
-                                          int ny, const RowCtx& rc) {
-  size_t p = (size_t)i * ny + j;
-  if (r < L) {
-    size_t pl = r * n + p;
-    return has_below(rc, i, nx) ? u[pl + ny] - u[pl] : 0.f;
-  }
-  size_t pl = (r - L) * n + p;
-  return j < ny - 1 ? u[pl + 1] - u[pl] : 0.f;
+template <class U>
+__device__ __forceinline__ float grad_row(const U& u, int r, int L, int i,
+                                          int j, int nx, int ny,
+                                          const RowCtx& rc) {
+  if (r < L)
+    return has_below(rc, i, nx) ? u(r, i + 1, j) - u(r, i, j) : 0.f;
+  return j < ny - 1 ? u(r - L, i, j + 1) - u(r - L, i, j) : 0.f;
 }
 
 // The u rows of K^T y at label l of pixel (i, j): the masked gradient
 // adjoint of (q_x, q_y) plus s.  q_x is masked on the global last row.
-__device__ __forceinline__ float kty_u(const float* q, float sv, int l,
-                                       int L, size_t n, int i, int j, int ny,
+template <class Q>
+__device__ __forceinline__ float kty_u(const Q& q, float sv, int l, int L,
+                                       int i, int j, int ny,
                                        const RowCtx& rc) {
-  size_t pl = l * n + (size_t)i * ny + j, ql = pl + L * n;
-  float dxt = (has_above(rc, i) ? q[pl - ny] : 0.f)
-              - (i + rc.off < rc.nxg - 1 ? q[pl] : 0.f);
-  float dyt = (j > 0 ? q[ql - 1] : 0.f) - (j < ny - 1 ? q[ql] : 0.f);
+  float dxt = (has_above(rc, i) ? q(l, i - 1, j) : 0.f)
+              - (i + rc.off < rc.nxg - 1 ? q(l, i, j) : 0.f);
+  float dyt = (j > 0 ? q(L + l, i, j - 1) : 0.f)
+              - (j < ny - 1 ? q(L + l, i, j) : 0.f);
   return (dxt + dyt) + sv;
+}
+
+// sum_l u at (i, j), left to right.
+template <class U>
+__device__ __forceinline__ float label_sum(const U& u, int L, int i, int j) {
+  float acc = 0.f;
+  for (int l = 0; l < L; ++l) acc = l == 0 ? u(l, i, j) : acc + u(l, i, j);
+  return acc;
 }
 
 // Seed of a launch: kxq = grad u + kron(P^T, I) v and su = sum_l u.
@@ -238,13 +305,11 @@ __global__ void tight_seed(TK b) {
   Kron kr = kron_of(b);
   RowCtx rc = row_ctx(b.sc, b.nx, b.nxg);
   size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
+  const Planes U{b.u, n, b.ny}, V{b.v, n, b.ny};
   for (int r = 0; r < 2 * b.L; ++r)
-    b.kxq[r * n + p] = grad_row(b.u, r, b.L, n, i, j, b.nx, b.ny, rc)
-                       + kron_fold(kr.row_ptr, kr.col, kr.wr, r, b.v, n, p);
-  float acc = 0.f;
-  for (int l = 0; l < b.L; ++l)
-    acc = l == 0 ? b.u[l * n + p] : acc + b.u[l * n + p];
-  b.su[p] = acc;
+    b.kxq[r * n + p] = grad_row(U, r, b.L, i, j, b.nx, b.ny, rc)
+                       + kron_fold(kr.rows, r, at_px(V, i, j));
+  b.su[p] = label_sum(U, b.L, i, j);
 }
 
 // Primal step (_chunk_core's update, u part): for every label,
@@ -260,9 +325,10 @@ __global__ void tight_primal(TK b, int save_prev) {
   size_t n = (size_t)b.nx * b.ny, p = (size_t)i * b.ny + j;
   float tu = b.sc[S_TAU] * b.c.tau_u;
   float sv = b.s[p];
+  const Planes Q{b.q, n, b.ny};
   for (int l = 0; l < b.L; ++l) {
     size_t pl = l * n + p;
-    float kty = kty_u(b.q, sv, l, b.L, n, i, j, b.ny, rc);
+    float kty = kty_u(Q, sv, l, b.L, i, j, b.ny, rc);
     float uv = b.u[pl];
     float tf = tu * b.f[pl];
     if (save_prev) b.up[pl] = uv;
@@ -293,11 +359,12 @@ __global__ void tight_dual(TK b, int save_prev) {
   float tp = 1.f + theta;
   float tv = tau * b.c.tau_v, sq = sigma * b.c.sig_q;
   float spc = sigma * b.c.sig_p, ss = sigma * b.c.sig_s;
+  const Planes U{b.u, n, b.ny}, V{b.v, n, b.ny}, Q{b.q, n, b.ny};
   // v and the unscaled p (K^T y of the old q)
   for (int m = 0; m < 2 * k; ++m) {
     size_t pm = m * n + p;
     float pv = b.p[pm], vv = b.v[pm];
-    float ktyv = kron_fold(kr.col_ptr, kr.row, kr.wc, m, b.q, n, p) + pv;
+    float ktyv = kron_fold(kr.cols, m, at_px(Q, i, j)) + pv;
     float v2 = vv - tv * ktyv;
     if (save_prev) {
       b.vp[pm] = vv;
@@ -319,8 +386,8 @@ __global__ void tight_dual(TK b, int save_prev) {
   // q, the free dual, with kxq from the new u and v
   for (int r = 0; r < 2 * L; ++r) {
     size_t pr = r * n + p;
-    float kx2 = grad_row(b.u, r, L, n, i, j, b.nx, b.ny, rc)
-                + kron_fold(kr.row_ptr, kr.col, kr.wr, r, b.v, n, p);
+    float kx2 = grad_row(U, r, L, i, j, b.nx, b.ny, rc)
+                + kron_fold(kr.rows, r, at_px(V, i, j));
     float qv = b.q[pr], kxo = b.kxq[pr];
     if (save_prev) {
       b.qp[pr] = qv;
@@ -330,9 +397,7 @@ __global__ void tight_dual(TK b, int save_prev) {
     b.kxq[pr] = kx2;
   }
   // s with the new label sum
-  float su2 = 0.f;
-  for (int l = 0; l < L; ++l)
-    su2 = l == 0 ? b.u[l * n + p] : su2 + b.u[l * n + p];
+  float su2 = label_sum(U, L, i, j);
   float sv = b.s[p], suv = b.su[p];
   if (save_prev) {
     b.sp[p] = sv;
@@ -340,6 +405,29 @@ __global__ void tight_dual(TK b, int save_prev) {
   }
   b.s[p] = (sv + ss * (tp * su2 - theta * suv)) - ss * b.sc[S_DS];
   b.su[p] = su2;
+}
+
+// The u terms of |dd|^2 and |w_hat|^2 at pixel (i, j), added to acc[2] and
+// acc[3] label by label: K^T y's u rows of the new duals (q, s2) and of
+// the previous ones (qp, so) recomputed (they read q one row up and one
+// column left), u and up the new and the previous labels.  The last loop
+// of norm_terms, and of the tiled chunk's norm pass after the terms that
+// its last iteration made.
+template <class A>
+__device__ __forceinline__ void u_terms(const TK& b, const A& u, const A& up,
+                                        const A& q, const A& qp, float s2,
+                                        float so, const RowCtx& rc, int i,
+                                        int j, float acc[4]) {
+  const Consts& c = b.c;
+  float du = b.sc[S_TAU] * c.sqrt_u;
+  for (int l = 0; l < b.L; ++l) {
+    float kty2 = kty_u(q, s2, l, b.L, i, j, b.ny, rc);
+    float ktyp = kty_u(qp, so, l, b.L, i, j, b.ny, rc);
+    float wh = (up(l, i, j) - u(l, i, j)) / du - c.sqrt_u * ktyp;
+    float dd = wh + c.sqrt_u * kty2;
+    acc[2] += dd * dd;
+    acc[3] += wh * wh;
+  }
 }
 
 // The four norm terms of pixel (i, j) of an owned row, added to acc in
@@ -359,7 +447,8 @@ __device__ __forceinline__ void norm_terms(const TK& b, const RowCtx& rc,
   const Consts& c = b.c;
   float dq = sigma_raw * c.sqrt_q, dp = sigma_raw * c.sqrt_p;
   float ds = sigma_raw * c.sqrt_s;
-  float du = tau_raw * c.sqrt_u, dv = tau_raw * c.sqrt_v;
+  float dv = tau_raw * c.sqrt_v;
+  const Planes Q{b.q, n, b.ny}, QP{b.qp, n, b.ny};
   for (int r = 0; r < 2 * L; ++r) {
     size_t pr = r * n + p;
     float kx2 = b.kxq[pr];
@@ -375,10 +464,8 @@ __device__ __forceinline__ void norm_terms(const TK& b, const RowCtx& rc,
     float z = (b.pp[pm] - b.p[pm]) / dp
               + c.sqrt_p * (tp * v2 - theta * vo);
     float pd = z - c.sqrt_p * v2;
-    float kty2 = kron_fold(kr.col_ptr, kr.row, kr.wc, m, b.q, n, p)
-                 + b.p[pm];
-    float ktyp = kron_fold(kr.col_ptr, kr.row, kr.wc, m, b.qp, n, p)
-                 + b.pp[pm];
+    float kty2 = kron_fold(kr.cols, m, at_px(Q, i, j)) + b.p[pm];
+    float ktyp = kron_fold(kr.cols, m, at_px(QP, i, j)) + b.pp[pm];
     float wh = (vo - v2) / dv - c.sqrt_v * ktyp;
     float dd = wh + c.sqrt_v * kty2;
     acc[0] += pd * pd;
@@ -391,15 +478,8 @@ __device__ __forceinline__ void norm_terms(const TK& b, const RowCtx& rc,
   float pds = zs - c.sqrt_s * su2;
   acc[0] += pds * pds;
   acc[1] += zs * zs;
-  for (int l = 0; l < L; ++l) {
-    size_t pl = l * n + p;
-    float kty2 = kty_u(b.q, s2, l, L, n, i, j, b.ny, rc);
-    float ktyp = kty_u(b.qp, so, l, L, n, i, j, b.ny, rc);
-    float wh = (b.up[pl] - b.u[pl]) / du - c.sqrt_u * ktyp;
-    float dd = wh + c.sqrt_u * kty2;
-    acc[2] += dd * dd;
-    acc[3] += wh * wh;
-  }
+  u_terms(b, Planes{b.u, n, b.ny}, Planes{b.up, n, b.ny}, Q, QP, s2, so, rc,
+          i, j, acc);
 }
 
 // First pass of the four preconditioned residual norms: norm_terms of every
@@ -549,26 +629,18 @@ __device__ __forceinline__ LWin from_plane(const LWin& v, int l) {
   return LWin{v.a + (size_t)l * v.rows * v.w, v.r0, v.rows, v.w};
 }
 
-// The taps array in shared memory, its runs and indices as ints.
-struct KronS {
-  const int* row_ptr;
-  const int* col;
-  const float* wr;
-  const int* col_ptr;
-  const int* row;
-  const float* wc;
-};
-
+// The run tables of the taps array copied into shared memory at `a`
+// (load_kron).
 __device__ __forceinline__ KronS kron_in(const float* a, int L, int k,
                                          int T) {
-  const Kron r = kron_at(a, L, k, T);
-  return KronS{reinterpret_cast<const int*>(r.row_ptr),
-               reinterpret_cast<const int*>(r.col), r.wr,
-               reinterpret_cast<const int*>(r.col_ptr),
-               reinterpret_cast<const int*>(r.row), r.wc};
+  const Kron g = kron_at(a, L, k, T);
+  auto ints = [](const float* p) { return reinterpret_cast<const int*>(p); };
+  return KronS{RunS{ints(g.rows.ptr), ints(g.rows.idx), g.rows.w},
+               RunS{ints(g.cols.ptr), ints(g.cols.idx), g.cols.w}};
 }
 
-// The taps array `kron` into shared memory at `a` (kron_in's layout).
+// The taps array `kron` into shared memory at `a` (kron_in's layout), by
+// the RES_THREADS threads of a block.
 __device__ __forceinline__ void load_kron(float* a, const float* kron, int L,
                                           int k, int T) {
   const int r1 = 2 * L + 1 + T, c0 = r1 + T, c1 = c0 + 2 * k + 1 + T;
@@ -579,51 +651,6 @@ __device__ __forceinline__ void load_kron(float* a, const float* kron, int L,
     else
       a[t] = v;
   }
-}
-
-// kron_fold on the taps in shared memory and a window of planes.
-__device__ __forceinline__ float kron_fold_w(const int* ptr, const int* idx,
-                                             const float* w, int o,
-                                             const LWin& src, int i, int j) {
-  int lo = ptr[o], hi = ptr[o + 1];
-  if (lo == hi) return 0.f;
-  float acc = w[lo] * src.at(idx[lo], i, j);
-  for (int t = lo + 1; t < hi; ++t)
-    acc = acc + w[t] * src.at(idx[t], i, j);
-  return acc;
-}
-
-// kron_fold on the taps in shared memory and device planes.
-__device__ __forceinline__ float kron_fold_s(const int* ptr, const int* idx,
-                                             const float* w, int o,
-                                             const float* src, size_t n,
-                                             size_t p) {
-  int lo = ptr[o], hi = ptr[o + 1];
-  if (lo == hi) return 0.f;
-  float acc = w[lo] * src[(size_t)idx[lo] * n + p];
-  for (int t = lo + 1; t < hi; ++t)
-    acc = acc + w[t] * src[(size_t)idx[t] * n + p];
-  return acc;
-}
-
-// grad_row on the window of u.
-__device__ __forceinline__ float grad_row_w(const LWin& u, int r, int L,
-                                            int i, int j, int nx, int ny,
-                                            const RowCtx& rc) {
-  if (r < L) return has_below(rc, i, nx) ? u.at(r, i + 1, j) - u.at(r, i, j)
-                                         : 0.f;
-  return j < ny - 1 ? u.at(r - L, i, j + 1) - u.at(r - L, i, j) : 0.f;
-}
-
-// kty_u on the window of q.
-__device__ __forceinline__ float kty_u_w(const LWin& q, float sv, int l,
-                                         int L, int i, int j, int ny,
-                                         const RowCtx& rc) {
-  float dxt = (has_above(rc, i) ? q.at(l, i - 1, j) : 0.f)
-              - (i + rc.off < rc.nxg - 1 ? q.at(l, i, j) : 0.f);
-  float dyt = (j > 0 ? q.at(L + l, i, j - 1) : 0.f)
-              - (j < ny - 1 ? q.at(L + l, i, j) : 0.f);
-  return (dxt + dyt) + sv;
 }
 
 // Item (t, px) of a band's per-pixel loop over the planes t of its npx
@@ -685,14 +712,10 @@ __device__ __forceinline__ void tight_resident_chunk(
   // tight_seed at row t < 2L of kxq, the label sum at t = 2L
   auto seed = [&](int t, int i, int j) {
     if (t < 2 * L) {
-      w.kxq.at(t, i, j) = grad_row_w(w.u, t, L, i, j, nx, ny, rc)
-                          + kron_fold_w(kr.row_ptr, kr.col, kr.wr, t, w.v, i,
-                                        j);
+      w.kxq.at(t, i, j) = grad_row(w.u, t, L, i, j, nx, ny, rc)
+                          + kron_fold(kr.rows, t, at_px(w.v, i, j));
     } else {
-      float acc = 0.f;
-      for (int l = 0; l < L; ++l)
-        acc = l == 0 ? w.u.at(l, i, j) : acc + w.u.at(l, i, j);
-      w.su.at(0, i, j) = acc;
+      w.su.at(0, i, j) = label_sum(w.u, L, i, j);
     }
   };
   if (pixels) {
@@ -728,7 +751,7 @@ __device__ __forceinline__ void tight_resident_chunk(
   // not read again (K^T of the previous duals is this step's).
   auto primal = [&](int l, int i, int j, bool keep) {
     const size_t pl = l * n + (size_t)i * ny + j;
-    float kty = kty_u_w(w.q, w.s.at(0, i, j), l, L, i, j, ny, rc);
+    float kty = kty_u(w.q, w.s.at(0, i, j), l, L, i, j, ny, rc);
     float uv = w.u.at(l, i, j);
     float tf = tu * w.f.at(l, i, j);
     if (last) b.up[pl] = uv;
@@ -741,7 +764,7 @@ __device__ __forceinline__ void tight_resident_chunk(
   auto pair = [&](int m, int i, int j) {
     const size_t pm = m * n + (size_t)i * ny + j;
     float pv = w.p.at(m, i, j), vv = w.v.at(m, i, j);
-    float ktyv = kron_fold_w(kr.col_ptr, kr.row, kr.wc, m, w.q, i, j) + pv;
+    float ktyv = kron_fold(kr.cols, m, at_px(w.q, i, j)) + pv;
     float v2 = vv - tv * ktyv;
     if (last) {
       b.vp[pm] = vv;
@@ -769,8 +792,8 @@ __device__ __forceinline__ void tight_resident_chunk(
   // terms of |pd|^2 and |z_hat|^2 added
   auto qrow = [&](int r, int i, int j, float* a) {
     const size_t pr = r * n + (size_t)i * ny + j;
-    float kx2 = grad_row_w(w.u, r, L, i, j, nx, ny, rc)
-                + kron_fold_w(kr.row_ptr, kr.col, kr.wr, r, w.v, i, j);
+    float kx2 = grad_row(w.u, r, L, i, j, nx, ny, rc)
+                + kron_fold(kr.rows, r, at_px(w.v, i, j));
     float qv = w.q.at(r, i, j), kxo = w.kxq.at(r, i, j);
     float qn = qv + sq * (tp * kx2 - theta * kxo);
     if (last) {
@@ -791,9 +814,7 @@ __device__ __forceinline__ void tight_resident_chunk(
   // s and su with the new label sum; with `a`, the s terms added
   auto sval = [&](int i, int j, float* a) {
     const size_t p = (size_t)i * ny + j;
-    float su2 = 0.f;
-    for (int l = 0; l < L; ++l)
-      su2 = l == 0 ? w.u.at(l, i, j) : su2 + w.u.at(l, i, j);
+    float su2 = label_sum(w.u, L, i, j);
     float sv = w.s.at(0, i, j), suv = w.su.at(0, i, j);
     float sn = (sv + ss * (tp * su2 - theta * suv)) - ss * shift;
     w.s.at(0, i, j) = sn;
@@ -813,6 +834,7 @@ __device__ __forceinline__ void tight_resident_chunk(
   };
   // the pair planes' terms of the four norms after the balls, K^T of the
   // previous duals from the buffers this thread wrote
+  const Planes QP{b.qp, n, ny};
   auto pair_terms = [&](int i, int j, float* a) {
     const size_t p = (size_t)i * ny + j;
     for (int m = 0; m < 2 * k; ++m) {
@@ -821,8 +843,8 @@ __device__ __forceinline__ void tight_resident_chunk(
       float p2 = w.p.at(m, i, j), po = b.pp[pm];
       float z = (po - p2) / dp + c.sqrt_p * (tp * v2 - theta * vo);
       float pd = z - c.sqrt_p * v2;
-      float kty2 = kron_fold_w(kr.col_ptr, kr.row, kr.wc, m, w.q, i, j) + p2;
-      float ktyp = kron_fold_s(kr.col_ptr, kr.row, kr.wc, m, b.qp, n, p) + po;
+      float kty2 = kron_fold(kr.cols, m, at_px(w.q, i, j)) + p2;
+      float ktyp = kron_fold(kr.cols, m, at_px(QP, i, j)) + po;
       float wh = (vo - v2) / dv - c.sqrt_v * ktyp;
       float dd = wh + c.sqrt_v * kty2;
       a[0] += pd * pd;
@@ -897,7 +919,7 @@ __device__ __forceinline__ void tight_resident_chunk(
       float a2 = b.terms[2 * n + p], a3 = b.terms[3 * n + p];
       const float s2 = w.s.at(0, i, j);
       for (int l = 0; l < L; ++l) {
-        float kty2 = kty_u_w(w.q, s2, l, L, i, j, ny, rc);
+        float kty2 = kty_u(w.q, s2, l, L, i, j, ny, rc);
         float wh = w.f.at(l, i, j);
         float dd = wh + c.sqrt_u * kty2;
         a2 += dd * dd;
@@ -992,6 +1014,444 @@ int resident_chunk(TK b, int count, cudaStream_t st) {
   if (rc) return rc;
   void* args[] = {&b, &count, &rmax};
   return resident_launch(tight_resident, args, smem, st);
+}
+
+// ---------------------------------------------------------------------------
+// The tiled chunk (tight_fused_chunk_banded -> _tight_banded_kernel,
+// _tight_banded_db_kernel), for the planes whose bands no grid-resident
+// launch holds: 512x512x4 and its one-shard halo band of 556 rows.  The TPU
+// kernels run one launch a chunk over row bands, each band's window with
+// 2 count + 2 rows of halo DMAed into VMEM and the whole chunk run there.
+//
+// What bounds it.  A chunk's window would need a halo of 2 count + 1
+// pixels (21 at ri 10) and about 7L + 4k + 2 floats a pixel: the window of
+// an 8x32 tile does not fit in a block's shared memory.  One iteration
+// needs only one pixel of u and q around a tile, as the multilabel chunk's
+// (csrc/fused_multilabel.cu ml_tiled): the dual step at a pixel reads the
+// new and the old u one row below and one column right, the new u there
+// K^T q, which reads q_x one row up and q_y one column left; v, p, the kron
+// coupling, the pair ball and the label sum are pointwise.  So each
+// iteration is one pass over device memory: u, q, s and f read through the
+// windows' overlap and v and p at their pixels (4L + 4k + 1 planes), u, q,
+// s, v and p written (3L + 4k + 1): 78 planes at L = 4, 81.8 MB at
+// 512x512, 24 us at the card's memory rate, where the streaming sequence
+// moves about 131 planes an iteration in two launches.
+//
+// Design.  One cooperative launch a chunk, one block of TT_THREADS on each
+// SM, a grid barrier between iterations: iteration t reads u, q and s from
+// slot t mod 2 (slot A the caller's planes, slot B 3L + 1 planes of
+// scratch) and writes the other.  v and p are read and written only at
+// their own pixel, by the thread that owns it in every iteration, so they
+// stay in the caller's planes, updated in place as the streaming kernels
+// update them: no second slot.  The taps sit in shared memory (runs and
+// indices as ints, as in the grid-resident chunk).  The blocks walk the
+// plane's tiles (tx rows, a multiple of 8, by ty columns, of 32); a tile's
+// window is the tile and tight_tiled_halo() = 1 pixel on every side, zero
+// outside the plane (ops/fused_tight.py tight_tiled_halo;
+// tests/test_torch_tiled_tight.py holds the plain twin exact with it and
+// not without it).  In shared memory 4L + 1 planes of the window and 4k
+// floats a thread:
+//   1. cp.async loads of u, q_x, q_y, f and s; no dual coordinate zeroed (q
+//      stays live at the plane's edges through the kron coupling, and its
+//      gradient adjoint is the masked one);
+//   2. tight_primal's step on the tile and one row below and one column
+//      right of it, the new u into f's planes (f is read only there);
+//   3. tight_dual's step at the owned pixels, u, q and s into the other
+//      slot: v and the unscaled p of each pair plane from the window's q,
+//      the balls, q with kxq of the new u and v, s with the new label sum.
+//      kxq = grad u + kron(P^T, I) v and su = sum_l u of the old iterate,
+//      which the streaming sequence carries in 2L + 1 planes, are
+//      recomputed from the window and the old v by the same expressions,
+//      which give the same bits.  A pixel's v and p are loaded into
+//      registers before any store (their loads in flight together: 0.10
+//      ms a chunk at 512x512x4), the unscaled p kept there (the balls pair
+//      planes m and m + k, known at compile time: the kernel is a template
+//      on L, k = L(L - 1)/2); its old and new v also sit in the thread's
+//      4k floats (a kron fold reads them at indices known only at run
+//      time); on the chunk's last iteration the old u, v, q, p and s also
+//      go into the caller's previous-iterate planes.
+// Every mask is decided by the pixel's place in the plane (the row context
+// RowCtx of a halo band included), never by its place in the window.
+// The norms: the last iteration also makes norm_terms' terms of the q
+// rows, the pair planes and s, in its order, from the values it holds
+// (K^T of the new q by the kron fold from the window, where the new q
+// replaces the old at the pixel; of the old q from the previous-iterate
+// planes it has just written) into 4 term planes after slot B; after a
+// grid barrier the blocks add the u terms of |dd|^2 and |w_hat|^2 (u_terms,
+// which read the new and the previous q one row up and one column left)
+// and reduce tight_norm_partial's 32x8 tiles (TT_THREADS / NT at a time,
+// in block_partials' tree) for pdhg_finish.  Planes, previous iterates and
+// norms are the streaming sequence's bit for bit.  A chunk is the launch,
+// the finish and, after an odd count, the copy back of slot B
+// (tight_tiled_settle).  A launch whose flag is set at entry returns before
+// its first barrier.
+// ---------------------------------------------------------------------------
+
+constexpr int TT_THREADS = RES_THREADS;  // a block: 16 rows of 32 threads
+
+// Floats before a tiled block's window: the taps array, to 16 bytes.
+__host__ __device__ __forceinline__ int tiled_kron_floats(int L, int k,
+                                                          int T) {
+  return (kron_floats(L, k, T) + 3) / 4 * 4;
+}
+
+// The dynamic shared memory of a block of the tiled launch on tx x ty tiles
+// (mirrored by ops/fused_tight.py tight_tiled_bytes): the taps, then 4L + 1
+// planes of the window and 4k floats a thread (k >= 1: at least the norm
+// pass's trees, TT_THREADS / NT tiles of 4 NT floats, which reuse them).
+inline size_t tight_tiled_smem(int L, int k, int T, int tx, int ty) {
+  return (tiled_kron_floats(L, k, T)
+          + (size_t)(4 * L + 1) * (tx + 2) * (ty + 2)
+          + (size_t)4 * k * TT_THREADS) * sizeof(float);
+}
+
+// The launch's step constants, each the expression the streaming kernels
+// form, and norm_terms' constants of the residuals.
+struct TStep {
+  float tu, tv, sq, spc, ss, tp, theta, radius, shift;
+};
+
+struct TNorm {
+  float dq, dp, ds, dv, sqrt_q, sqrt_p, sqrt_s, sqrt_v;
+};
+
+__device__ __forceinline__ TStep tiled_step(const TK& b) {
+  const float tau = b.sc[S_TAU], sigma = b.sc[S_SIGMA];
+  const float theta = b.sc[S_THETA];
+  return TStep{tau * b.c.tau_u,   tau * b.c.tau_v, sigma * b.c.sig_q,
+               sigma * b.c.sig_p, sigma * b.c.sig_s, 1.f + theta,
+               theta,             b.sc[S_BALL],    b.sc[S_DS]};
+}
+
+__device__ __forceinline__ TNorm tiled_norm(const TK& b) {
+  const float tau = b.sc[S_TAU], sigma = b.sc[S_SIGMA];
+  const Consts& c = b.c;
+  return TNorm{sigma * c.sqrt_q, sigma * c.sqrt_p, sigma * c.sqrt_s,
+               tau * c.sqrt_v,   c.sqrt_q,         c.sqrt_p,
+               c.sqrt_s,         c.sqrt_v};
+}
+
+// One iteration on tile `tile` of the tiles of tx x ty: the window from
+// slot `src`, the owned pixels' u, q and s into slot `dst`, v and p in
+// place in a's planes; with `last` the old u, v, q, p and s also into the
+// previous-iterate planes (a's up, vp, qp, pp, sp).  `a` holds f, v, p
+// and the shapes; `win` the window, `scr` the threads' 4k floats.
+template <int L>
+__device__ __forceinline__ void tight_tiled_iteration(
+    const TK& src, const TK& dst, const TK& a, const RowCtx& r,
+    const TStep& st, const TNorm& nm, const KronS& kr, int tile, int tx,
+    int ty, bool last, float* win, float* scr) {
+  constexpr int K = L * (L - 1) / 2;
+  const int nx = a.nx, ny = a.ny;
+  const size_t n = (size_t)nx * ny;
+  const int ntc = (ny + ty - 1) / ty;
+  const int R0 = tile / ntc * tx, C0 = tile % ntc * ty;
+  const int R1 = min(R0 + tx, nx), C1 = min(C0 + ty, ny);
+  const int r0 = R0 - 1, c0 = C0 - 1;
+  const int ww = C1 + 1 - c0, m = (R1 + 1 - r0) * ww;
+  const MWin U{win, r0, c0, ww, m};
+  const MWin Q{win + L * m, r0, c0, ww, m};  // q_x, then q_y: 2L planes
+  const MWin F{win + 3 * L * m, r0, c0, ww, m};  // f, then the new u
+  const MWin S{win + 4 * L * m, r0, c0, ww, m};
+
+  // 1. the window of u, q, f and s, zero outside the plane
+  for (int p = threadIdx.x; p < m; p += TT_THREADS) {
+    const int i = r0 + p / ww, j = c0 + p % ww;
+    if (i >= 0 && i < nx && j >= 0 && j < ny) {
+      const size_t g = (size_t)i * ny + j;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        cp_async4(U.a + l * m + p, src.u + l * n + g);
+        cp_async4(F.a + l * m + p, a.f + l * n + g);
+      }
+#pragma unroll
+      for (int t = 0; t < 2 * L; ++t)
+        cp_async4(Q.a + t * m + p, src.q + t * n + g);
+      cp_async4(S.a + p, src.s + g);
+    } else {
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        U.a[l * m + p] = 0.f;
+        F.a[l * m + p] = 0.f;
+      }
+#pragma unroll
+      for (int t = 0; t < 2 * L; ++t) Q.a[t * m + p] = 0.f;
+      S.a[p] = 0.f;
+    }
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  // 2. tight_primal on rows [R0, R1] and columns [C0, C1] inside the plane
+  const int pw = min(C1, ny - 1) + 1 - C0;
+  const int np = (min(R1, nx - 1) + 1 - R0) * pw;
+  for (int p = threadIdx.x; p < np; p += TT_THREADS) {
+    const int i = R0 + p / pw, j = C0 + p % pw;
+    const float sv = S.at(0, i, j);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const float kty = kty_u(Q, sv, l, L, i, j, ny, r);
+      const float uv = U.at(l, i, j);
+      const float tf = st.tu * F.at(l, i, j);
+      F.at(l, i, j) = fmaxf((uv - st.tu * kty) - tf, 0.f);
+    }
+  }
+  __syncthreads();
+
+  // 3. tight_dual at the owned pixels: u, q and s into slot dst, v and p
+  //    in place; the old and the new v of pair plane m at vo[m TT_THREADS]
+  //    and vn[m TT_THREADS]
+  float* vo = scr + threadIdx.x;
+  float* vn = vo + 2 * K * TT_THREADS;
+  auto vold = [&](int mm) { return vo[mm * TT_THREADS]; };
+  auto vnew = [&](int mm) { return vn[mm * TT_THREADS]; };
+  const int ow = C1 - C0, no = (R1 - R0) * ow;
+  for (int p = threadIdx.x; p < no; p += TT_THREADS) {
+    const int i = R0 + p / ow, j = C0 + p % ow;
+    const size_t g = (size_t)i * ny + j;
+    // the pixel's v and p loaded before any store, so that their loads
+    // are in flight together (a store to v or p could alias them)
+    float pn[2 * K], vl[2 * K];
+#pragma unroll
+    for (int mm = 0; mm < 2 * K; ++mm) {
+      pn[mm] = a.p[mm * n + g];
+      vl[mm] = a.v[mm * n + g];
+    }
+#pragma unroll
+    for (int mm = 0; mm < 2 * K; ++mm) {
+      const size_t gm = mm * n + g;
+      const float pv = pn[mm], vv = vl[mm];
+      const float ktyv = kron_fold(kr.cols, mm, at_px(Q, i, j)) + pv;
+      const float v2 = vv - st.tv * ktyv;
+      if (last) {
+        a.vp[gm] = vv;
+        a.pp[gm] = pv;
+      }
+      a.v[gm] = v2;
+      vo[mm * TT_THREADS] = vv;
+      vn[mm * TT_THREADS] = v2;
+      pn[mm] = pv + st.spc * (st.tp * v2 - st.theta * vv);
+    }
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      const float a0 = pn[t], a1 = pn[t + K];
+      const float nn = a0 * a0 + a1 * a1;
+      const float scale =
+          nn > 0.f ? fminf(1.f, st.radius * rsqrtf(nn)) : 1.f;
+      a.p[t * n + g] = a0 * scale;
+      a.p[(t + K) * n + g] = a1 * scale;
+    }
+    // the norms' terms of the last iteration, in norm_terms' order: the q
+    // rows, the pair planes, s (the u terms after the barrier)
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int t = 0; t < 2 * L; ++t) {
+      const float kx2 =
+          grad_row(F, t, L, i, j, nx, ny, r) + kron_fold(kr.rows, t, vnew);
+      const float kxo =
+          grad_row(U, t, L, i, j, nx, ny, r) + kron_fold(kr.rows, t, vold);
+      const float qv = Q.at(t, i, j);
+      const float qn = qv + st.sq * (st.tp * kx2 - st.theta * kxo);
+      dst.q[t * n + g] = qn;
+      if (last) {
+        a.qp[t * n + g] = qv;
+        Q.at(t, i, j) = qn;  // read again only at this pixel, below
+        const float z = (qv - qn) / nm.dq
+                         + nm.sqrt_q * (st.tp * kx2 - st.theta * kxo);
+        const float pd = z - nm.sqrt_q * kx2;
+        acc[0] += pd * pd;
+        acc[1] += z * z;
+      }
+    }
+    if (last) {
+      const Planes QP{a.qp, n, ny};
+      for (int mm = 0; mm < 2 * K; ++mm) {
+        const size_t gm = mm * n + g;
+        const float v2 = vn[mm * TT_THREADS], vv = vo[mm * TT_THREADS];
+        const float p2 = a.p[gm], pv = a.pp[gm];
+        const float z = (pv - p2) / nm.dp
+                        + nm.sqrt_p * (st.tp * v2 - st.theta * vv);
+        const float pd = z - nm.sqrt_p * v2;
+        const float kty2 = kron_fold(kr.cols, mm, at_px(Q, i, j)) + p2;
+        const float ktyp = kron_fold(kr.cols, mm, at_px(QP, i, j)) + pv;
+        const float wh = (vv - v2) / nm.dv - nm.sqrt_v * ktyp;
+        const float dd = wh + nm.sqrt_v * kty2;
+        acc[0] += pd * pd;
+        acc[1] += z * z;
+        acc[2] += dd * dd;
+        acc[3] += wh * wh;
+      }
+    }
+    const float su2 = label_sum(F, L, i, j), suv = label_sum(U, L, i, j);
+    const float sv = S.at(0, i, j);
+    const float sn =
+        (sv + st.ss * (st.tp * su2 - st.theta * suv)) - st.ss * st.shift;
+    dst.s[g] = sn;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      dst.u[l * n + g] = F.at(l, i, j);
+      if (last) a.up[l * n + g] = U.at(l, i, j);
+    }
+    if (last) {
+      a.sp[g] = sv;
+      const float zs = (sv - sn) / nm.ds
+                       + nm.sqrt_s * (st.tp * su2 - st.theta * suv);
+      const float pds = zs - nm.sqrt_s * su2;
+      acc[0] += pds * pds;
+      acc[1] += zs * zs;
+      for (int c = 0; c < 4; ++c) a.terms[c * n + g] = acc[c];
+    }
+  }
+}
+
+// `count` iterations from slot A, then tight_norm_partial's tiles of the
+// slot written last into a's partials.
+template <int L>
+__global__ void __launch_bounds__(TT_THREADS, 1)
+    tight_tiled(TK a, TK b, int count, int tx, int ty) {
+  if (a.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int nx = a.nx, ny = a.ny;
+  const RowCtx r = row_ctx(a.sc, nx, a.nxg);
+  const TStep st = tiled_step(a);
+  const TNorm nm = tiled_norm(a);
+  load_kron(smem, a.kron, L, a.k, a.ntaps);
+  const KronS kr = kron_in(smem, L, a.k, a.ntaps);
+  float* win = smem + tiled_kron_floats(L, a.k, a.ntaps);
+  float* scr = win + (size_t)(4 * L + 1) * (tx + 2) * (ty + 2);
+  __syncthreads();
+  const int ntiles = ((nx + tx - 1) / tx) * ((ny + ty - 1) / ty);
+  for (int it = 0; it < count; ++it) {
+    const bool from_b = (it & 1) != 0;
+    const TK& src = from_b ? b : a;
+    const TK& dst = from_b ? a : b;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      tight_tiled_iteration<L>(src, dst, a, r, st, nm, kr, tile, tx, ty,
+                               it == count - 1, win, scr);
+      __syncthreads();  // the next window overwrites the planes
+    }
+    grid.sync();
+  }
+
+  // tight_norm_partial's tiles, TT_THREADS / NT at a time (block_partials'
+  // tree): the last iteration's terms and the u terms of the written slot
+  // (b holds a's previous-iterate planes too)
+  const TK& fin = (count & 1) != 0 ? b : a;
+  const size_t n = (size_t)nx * ny;
+  const Planes U{fin.u, n, ny}, UP{a.up, n, ny}, Q{fin.q, n, ny};
+  const Planes QP{a.qp, n, ny};
+  tiled_tile_partials<TT_THREADS>(nx, ny, a.partial, win,
+                                  [&](int i, int j, float v[4]) {
+    if (!owned_row(r, i)) return;
+    const size_t g = (size_t)i * ny + j;
+    for (int c = 0; c < 4; ++c) v[c] = a.terms[c * n + g];
+    u_terms(a, U, UP, Q, QP, fin.s[g], a.sp[g], r, i, j, v);
+  });
+}
+
+// After a tiled chunk of an odd count whose flag was not set at entry:
+// slot B's u, q and s into a's planes.
+__global__ void tight_tiled_settle(TK a, TK b) {
+  if (a.sc[S_CONV] != 0.f) return;
+  const size_t n = (size_t)a.nx * a.ny, nl = n * a.L;
+  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       t < 3 * nl + n; t += (size_t)gridDim.x * blockDim.x) {
+    if (t < nl)
+      a.u[t] = b.u[t];
+    else if (t < 3 * nl)
+      a.q[t - nl] = b.q[t - nl];
+    else
+      a.s[t - 3 * nl] = b.s[t - 3 * nl];
+  }
+}
+
+using TightTiledKernel = void (*)(TK, TK, int, int, int);
+
+// The tiled kernel for L labels and k = L(L - 1)/2 pairs, or null: a
+// pixel's 2k pair duals and multipliers are registers, so each L is an
+// instance; the largest is TT_MAX_L (ops/fused_tight.py
+// TIGHT_TILED_MAX_L), the largest that ptxas compiles without a spill at
+// 128 registers a thread (6 and 7 labels spill a few bytes).
+constexpr int TT_MAX_L = 5;
+
+TightTiledKernel tight_tiled_kernel(int L, int k) {
+  if (k != L * (L - 1) / 2) return nullptr;
+  switch (L) {
+    case 2: return tight_tiled<2>;
+    case 3: return tight_tiled<3>;
+    case 4: return tight_tiled<4>;
+    case TT_MAX_L: return tight_tiled<TT_MAX_L>;
+    default: return nullptr;
+  }
+}
+
+// The dynamic shared memory a block of the tiled launch may hold on the
+// current device: the smallest of its kernels' limits, or minus the error.
+int tight_tiled_limit() {
+  int limit = -1;
+  for (int L = 2; L <= TT_MAX_L; ++L) {
+    int l = resident_smem_limit(tight_tiled_kernel(L, L * (L - 1) / 2));
+    if (l < 0) return l;
+    limit = limit < 0 || l < limit ? l : limit;
+  }
+  return limit;
+}
+
+// Slot B of the tiled launch: u, q and s in the first 3L + 1 of the
+// scratch's 3L + 5 planes (the norm terms in the last 4).
+TK slot_b(const TK& a, void* scratch) {
+  const size_t nl = (size_t)a.nx * a.ny * a.L;
+  TK b = a;
+  b.u = (float*)scratch;
+  b.q = b.u + nl;
+  b.s = b.q + 2 * nl;
+  return b;
+}
+
+// One tiled chunk: the launch (one block of TT_THREADS on each SM), the
+// finish and, after an odd count, the copy back.  2 to TT_MAX_L labels
+// with k = L(L - 1)/2 and 1 to MAX_TAPS taps; a tile that is not a
+// multiple of the 32x8 norm tiles or whose window does not fit in a
+// block's shared memory is refused with cudaErrorInvalidValue, a grid the
+// card cannot hold at once by the card
+// (cudaErrorCooperativeLaunchTooLarge).
+int tiled_chunk(TK& a, void* scratch, int count, int tx, int ty,
+                cudaStream_t st) {
+  TightTiledKernel kernel = tight_tiled_kernel(a.L, a.k);
+  if (kernel == nullptr || a.ntaps < 1 || a.ntaps > 4 * a.L * a.k ||
+      tx < BY || tx % BY || ty < BX || ty % BX || count < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tight_tiled_smem(a.L, a.k, a.ntaps, tx, ty);
+  const int limit = resident_smem_limit(kernel);
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int sms = 0, per_sm = 0;
+  if (int rc = device_sms(&sms)) return rc;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      TT_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  TK b = slot_b(a, scratch);
+  a.terms = b.s + (size_t)a.nx * a.ny;
+  void* args[] = {&a, &b, &count, &tx, &ty};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms),
+                                  dim3(TT_THREADS), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  LAUNCH_CHECK();
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const dim3 g = grid_of(a.nx, a.ny);
+  pdhg_finish<<<1, FIN, 0, st>>>(a.sc, a.partial, (int)(g.x * g.y), count,
+                                 0, STEP_NONE, none);
+  LAUNCH_CHECK();
+  if (count & 1) {
+    tight_tiled_settle<<<264, 512, 0, st>>>(a, b);
+    LAUNCH_CHECK();
+  }
+  return 0;
 }
 
 TK tight_of(void* u, void* v, void* q, void* p, void* s, void* up, void* vp,
@@ -1204,5 +1664,57 @@ int prost_tight_resident_smem(int batched) {
   return batched ? resident_smem_limit(tight_resident_batched)
                  : resident_smem_limit(tight_resident);
 }
+
+// tight_fused_chunk_banded for the planes no grid-resident band holds: one
+// tiled cooperative launch (tight_tiled), the finish and, after an odd
+// count, the copy back.  The arguments of prost_tight_chunk_resident
+// without the carried planes, with `scratch` (3L + 5 (nx, ny) planes: slot
+// B and the norm terms) for `terms`, and the owned tile (tx rows, a multiple of 8; ty
+// columns, of 32).  Bit-equal to prost_tight_chunk in the planes, the
+// previous iterates and the 4 squared norms.  No-op when sc[S_CONV] is
+// set.  2 to TT_MAX_L labels with k = L(L - 1)/2; a tile the launch cannot
+// take is refused (cudaErrorInvalidValue, or the card's refusal of the
+// cooperative launch).
+int prost_tight_chunk_tiled(void* u, void* v, void* q, void* p, void* s,
+                            void* up, void* vp, void* qp, void* pp, void* sp,
+                            const void* f, const void* kron, void* sc,
+                            void* partial, void* scratch, int L, int k,
+                            int nx, int ny, int ntaps, float sig_q,
+                            float sig_p, float sig_s, float tau_u,
+                            float tau_v, float sqrt_q, float sqrt_p,
+                            float sqrt_s, float sqrt_u, float sqrt_v,
+                            int count, int tx, int ty, void* stream) {
+  Consts c = {sig_q, sig_p, sig_s, tau_u, tau_v,
+              sqrt_q, sqrt_p, sqrt_s, sqrt_u, sqrt_v};
+  TK a = tight_of(u, v, q, p, s, up, vp, qp, pp, sp, nullptr, nullptr,
+                  nullptr, nullptr, f, kron, sc, partial, L, k, nx, ny,
+                  ntaps, c);
+  return tiled_chunk(a, scratch, count, tx, ty, (cudaStream_t)stream);
+}
+
+// prost_tight_chunk_tiled on one halo-extended shard of a plane of
+// nx_global rows, as prost_tight_chunk_halo takes it (the row context in
+// sc, the norms over the owned rows).  Bit-equal to
+// prost_tight_chunk_halo.
+int prost_tight_chunk_halo_tiled(
+    void* u, void* v, void* q, void* p, void* s, void* up, void* vp,
+    void* qp, void* pp, void* sp, const void* f, const void* kron, void* sc,
+    void* partial, void* scratch, int L, int k, int nx, int ny, int ntaps,
+    float sig_q, float sig_p, float sig_s, float tau_u, float tau_v,
+    float sqrt_q, float sqrt_p, float sqrt_s, float sqrt_u, float sqrt_v,
+    int nx_global, int count, int tx, int ty, void* stream) {
+  Consts c = {sig_q, sig_p, sig_s, tau_u, tau_v,
+              sqrt_q, sqrt_p, sqrt_s, sqrt_u, sqrt_v};
+  TK a = tight_of(u, v, q, p, s, up, vp, qp, pp, sp, nullptr, nullptr,
+                  nullptr, nullptr, f, kron, sc, partial, L, k, nx, ny,
+                  ntaps, c);
+  a.nxg = nx_global;
+  return tiled_chunk(a, scratch, count, tx, ty, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory a block of the tiled launch may hold on the
+// current device (the least of its kernels' for 2 to TT_MAX_L labels), or
+// minus the error.
+int prost_tight_tiled_smem() { return tight_tiled_limit(); }
 
 }  // extern "C"

@@ -27,10 +27,11 @@
 //   of RES_THREADS on each SM, each block holding a band of rows of every
 //   plane in shared memory): the bands (band_of), the windows of label
 //   planes' rows in shared memory (LWin, take), the walk over a band's
-//   pixels (next_pixel) and the row copies into a window (load_rows), the
-//   per-tile norm partials from per-pixel terms (coop_tile_partials, the
-//   tree of block_partials; tiled_tile_partials, the tiled chunks' norm
-//   pass) and the launch itself (resident_launch);
+//   pixels (next_pixel) and the row copies into a window (load_rows), a
+//   tiled chunk's window (MWin), the per-tile norm partials from per-pixel
+//   terms (coop_tile_partials, the tree of block_partials;
+//   tiled_tile_partials, the tiled chunks' norm pass) and the launch
+//   itself (resident_launch);
 // * LAUNCH_CHECK, which returns a launch's error from the C entry point.
 //
 // Every source that includes this header is its own library with a plain C
@@ -299,11 +300,12 @@ __device__ __forceinline__ void coop_tile_partials(
 }
 
 // The norm pass of a tiled chunk (csrc/fused_deblur.cu deblur_tiled,
-// csrc/fused_multilabel.cu ml_tiled): block_partials' tree for every 32x8
-// tile of the (nr, nc) grid, THREADS / NT tiles at a time per block of the
-// launch, tile t of grid_of(nr, nc) into partial[4 t ..].  terms(i, j, v)
-// is called once for each pixel of the grid and adds the pixel's four
-// terms to v (zeros); `red` holds 4 THREADS floats.
+// csrc/fused_multilabel.cu ml_tiled, csrc/fused_tight.cu tight_tiled):
+// block_partials' tree for every 32x8 tile of the (nr, nc) grid, THREADS /
+// NT tiles at a time per block of the launch, tile t of grid_of(nr, nc)
+// into partial[4 t ..].  terms(i, j, v) is called once for each pixel of
+// the grid and adds the pixel's four terms to v (zeros); `red` holds 4
+// THREADS floats.
 template <int THREADS, typename F>
 __device__ __forceinline__ void tiled_tile_partials(int nr, int nc,
                                                     float* __restrict__ partial,
@@ -334,12 +336,32 @@ __device__ __forceinline__ void tiled_tile_partials(int nr, int nc,
   }
 }
 
-// A window of rows [r0, r0 + rows) of L label planes in shared memory.
+// A window of rows [r0, r0 + rows) of L label planes in shared memory;
+// w(l, i, j) reads what w.at(l, i, j) holds (an accessor, as
+// csrc/fused_tight.cu's pixel helpers take one).
 struct LWin {
   float* a;
   int r0, rows, w;
   __device__ __forceinline__ float& at(int l, int i, int j) const {
     return a[((size_t)l * rows + (i - r0)) * w + j];
+  }
+  __device__ __forceinline__ float operator()(int l, int i, int j) const {
+    return at(l, i, j);
+  }
+};
+
+// A tiled chunk's window of planes in shared memory (csrc/fused_multilabel.cu
+// ml_tiled, csrc/fused_tight.cu tight_tiled): at(k, i, j) is element (i, j)
+// of the plane of its k-th plane, the window's corner (r0, c0), its rows w
+// floats apart and its planes m floats apart; an accessor as LWin is.
+struct MWin {
+  float* a;
+  int r0, c0, w, m;
+  __device__ __forceinline__ float& at(int k, int i, int j) const {
+    return a[(size_t)k * m + (i - r0) * w + (j - c0)];
+  }
+  __device__ __forceinline__ float operator()(int k, int i, int j) const {
+    return at(k, i, j);
   }
 };
 

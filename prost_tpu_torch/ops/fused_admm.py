@@ -70,8 +70,8 @@ from ..backend.admm import (ADMMState, BackendADMM, admm_residual_adapt,
                             cg_tolerance, dct_projection_plan)
 from ..backend.pdhg import hold_if
 from ..config import ProstError
-from .fused_rof import (DATATERMS, TILE_COLS, TILE_ROWS, _SQRT_S, _SQRT_T,
-                        match_rof_structure, tile_partials, window_ops)
+from .fused_rof import (DATATERMS, _SQRT_S, _SQRT_T, match_rof_structure,
+                        tile_partials, window_ops, window_tile)
 from .pdhg_chunk import (CF, CI, VP, WHOLE_PLANE, card_sms, check_buffers,
                          check_halo, check_path, dead_dual_flat, dx, dxt,
                          dy, dyt, entry_converged, halo_row_ops, launch, ptr,
@@ -730,21 +730,9 @@ def admm_tiled_tile(nx: int, ny: int, degree: int, sms: int, smem: int):
     window pixels through the SMs (the rounds of one block per SM times a
     whole tile's window), the larger tile on a tie; None where no tile's
     window fits."""
-    h = 2 * admm_tiled_halo(degree)
-    best, cost = None, None
-    for ty in TILE_COLS:
-        if ty - 32 >= ny:
-            break
-        for tx in TILE_ROWS:
-            if (tx - 8 >= nx
-                    or admm_tiled_bytes(tx, ty, degree) > smem):
-                break
-            rounds = -(-(-(-nx // tx) * -(-ny // ty)) // int(sms))
-            c = rounds * (min(tx, nx) + h) * (min(ty, ny) + h)
-            if best is None or c < cost or (c == cost and
-                                            tx * ty > best[0] * best[1]):
-                best, cost = (tx, ty), c
-    return best
+    return window_tile(nx, ny, 2 * admm_tiled_halo(degree), sms,
+                       lambda tx, ty: admm_tiled_bytes(tx, ty, degree)
+                       <= smem)
 
 
 def admm_tiled_ok(nx: int, ny: int, degree: int, sms: int,

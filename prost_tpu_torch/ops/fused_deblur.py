@@ -602,21 +602,10 @@ def deblur_tiled_tile(nx2: int, ny2: int, taps, sms: int, smem: int):
 @functools.lru_cache(maxsize=None)
 def _tiled_tile(nx2: int, ny2: int, h: int, sms: int, smem: int):
     """``deblur_tiled_tile`` for the halo ``h``, searched once per shape."""
-    from .fused_rof import TILE_COLS, TILE_ROWS
+    from .fused_rof import window_tile
 
-    best, cost = None, None
-    for ty in TILE_COLS:
-        if ty - 32 >= ny2:
-            break
-        for tx in TILE_ROWS:
-            if tx - 8 >= nx2 or _window_bytes(tx, ty, h) > smem:
-                break
-            rounds = -(-(-(-nx2 // tx) * -(-ny2 // ty)) // sms)
-            c = rounds * (min(tx, nx2) + 2 * h) * (min(ty, ny2) + 2 * h)
-            if best is None or c < cost or (c == cost and
-                                            tx * ty > best[0] * best[1]):
-                best, cost = (tx, ty), c
-    return best
+    return window_tile(nx2, ny2, 2 * h, sms,
+                       lambda tx, ty: _window_bytes(tx, ty, h) <= smem)
 
 
 def deblur_tiled_ok(nx2: int, ny2: int, taps, sms: int, smem: int) -> bool:

@@ -80,7 +80,8 @@ from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV,
                          check_buffers, check_halo, check_inplace,
                          check_path, chunk_state, coeff_vector, dx, dy,
                          entry_converged, halo_copy, halo_into,
-                         halo_scal_rows, instance_strides, isscalar, launch,
+                         halo_scal_rows, instance_strides, isscalar,
+                         label_sum, launch,
                          leq0_ball_radius, multichunk_plain, multichunk_state,
                          own_vectors, pick_path, resident_rows,
                          run_pdhg_route, scalar_buffer, typed_lib,
@@ -106,17 +107,6 @@ def reset_launch_counts() -> None:
 # plain PyTorch versions of the chunk math
 # ---------------------------------------------------------------------------
 
-def _label_sum(a):
-    """sum_l a_l over the label axis (axis 0), left to right as the kernels
-    sum it: ``torch.sum``'s order depends on the tensor's layout, and the
-    tiled chunk's plain twin sums windows where the plain version sums
-    whole planes."""
-    acc = a[0]
-    for l in range(1, a.shape[0]):
-        acc = acc + a[l]
-    return acc
-
-
 def _ml_update(u, qx, qy, s, gx, gy, su, tf, tau, sig_q, sig_s, theta,
                radius, d_s, rows=WHOLE_PLANE):
     """One preconditioned PDHG update.  tau, sig_q and sig_s arrive
@@ -128,11 +118,11 @@ def _ml_update(u, qx, qy, s, gx, gy, su, tf, tau, sig_q, sig_s, theta,
     # prox of ind_geq0(u) + <f, u>
     u2 = torch.clamp_min(u - tau * kty - tf, 0.0)
     gx2, gy2 = rows.dx(u2), rows.dy(u2)
-    su2 = _label_sum(u2)
+    su2 = label_sum(u2)
     # per-pixel radius-lmb ball over all 2L gradient components
     axq = qx + sig_q * ((1.0 + theta) * gx2 - theta * gx)
     ayq = qy + sig_q * ((1.0 + theta) * gy2 - theta * gy)
-    scale = ball_scale(_label_sum(axq * axq + ayq * ayq), radius)
+    scale = ball_scale(label_sum(axq * axq + ayq * ayq), radius)
     # prox of <s, d_s> (linear: a shift)
     s2 = s + sig_s * ((1.0 + theta) * su2 - theta * su) - sig_s * d_s
     return u2, axq * scale, ayq * scale, s2, gx2, gy2, su2, kty
@@ -154,7 +144,7 @@ def _ml_chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, qx0, qy0, s0,
     tf = tau * f
     qx, qy = rows.project(qx0, qy0)
     u, s = u0, s0
-    gx, gy, su = ((rows.dx(u0), rows.dy(u0), _label_sum(u0))
+    gx, gy, su = ((rows.dx(u0), rows.dy(u0), label_sum(u0))
                   if g0 is None else g0)
     args = (tf, tau, sig_q, sig_s, theta, radius, d_s, rows)
     for _ in range(count - 1):
@@ -254,7 +244,7 @@ def ml_multichunk_plain(u, q, s, f, scal, count: int, k_chunks: int,
 
     qx, qy = q[:L], q[L:]
     planes, norms, sout = multichunk_plain(
-        chunk, (u, qx, qy, s, u, qx, qy, s, dx(u), dy(u), _label_sum(u)),
+        chunk, (u, qx, qy, s, u, qx, qy, s, dx(u), dy(u), label_sum(u)),
         scal, count, k_chunks, stepsize, consts)
     u2, qx2, qy2, s2, up, qxp, qyp, sp = planes[:8]
     return (u2, torch.cat([qx2, qy2]), s2, up, torch.cat([qxp, qyp]), sp,
@@ -313,7 +303,7 @@ def ml_chunk_tiled_plain(u, q, s, f, scal, count: int, nx_global=None,
                 win = (..., slice(r0, r1), slice(c0, c1))
                 uw, qxw, qyw, sw = (a[win] for a in prev)
                 res = _ml_update(uw, qxw, qyw, sw, ops.dx(uw), ops.dy(uw),
-                                 _label_sum(uw), tf[win], tau, sig_q,
+                                 label_sum(uw), tf[win], tau, sig_q,
                                  sig_s, theta, radius, d_s, ops)
                 own = (..., slice(R0 - r0, R1 - r0), slice(C0 - c0, C1 - c0))
                 for dst, src in zip(planes, res[:4]):
@@ -321,7 +311,7 @@ def ml_chunk_tiled_plain(u, q, s, f, scal, count: int, nx_global=None,
 
     def k_of(a):
         x, qx, qy, sv = a
-        return ((rows.dx(x), rows.dy(x), _label_sum(x)),
+        return ((rows.dx(x), rows.dy(x), label_sum(x)),
                 rows.dxt(qx) + rows.dyt(qy) + sv)
 
     (g_prev, ktyp), (g_new, kty2) = k_of(prev), k_of(planes)
@@ -338,9 +328,9 @@ def ml_chunk_tiled_plain(u, q, s, f, scal, count: int, nx_global=None,
     if not partials:
         return out
     pd_x, pd_y, pd_s, zh_x, zh_y, zh_s, dd, wh = res
-    terms = (_label_sum(pd_x * pd_x + pd_y * pd_y) + pd_s * pd_s,
-             _label_sum(zh_x * zh_x + zh_y * zh_y) + zh_s * zh_s,
-             _label_sum(dd * dd), _label_sum(wh * wh))
+    terms = (label_sum(pd_x * pd_x + pd_y * pd_y) + pd_s * pd_s,
+             label_sum(zh_x * zh_x + zh_y * zh_y) + zh_s * zh_s,
+             label_sum(dd * dd), label_sum(wh * wh))
     if nx_global is not None:
         li = torch.arange(nx, device=u.device)[:, None]
         owned = (li >= int(scal[6])) & (li < int(scal[7]))
@@ -503,22 +493,10 @@ def ml_tiled_tile(nx: int, ny: int, L: int, sms: int, smem: int):
     pixels through the SMs (the rounds of one block per SM times a whole
     tile's window), the larger tile on a tie (``fused_rof.tiled_tile``'s
     rule); None where no tile's window fits."""
-    from .fused_rof import TILE_COLS, TILE_ROWS
+    from .fused_rof import window_tile
 
-    h = ml_tiled_halo()
-    best, cost = None, None
-    for ty in TILE_COLS:
-        if ty - 32 >= ny:
-            break
-        for tx in TILE_ROWS:
-            if tx - 8 >= nx or ml_tiled_bytes(tx, ty, L) > smem:
-                break
-            rounds = -(-(-(-nx // tx) * -(-ny // ty)) // int(sms))
-            c = rounds * (min(tx, nx) + 2 * h) * (min(ty, ny) + 2 * h)
-            if best is None or c < cost or (c == cost and
-                                            tx * ty > best[0] * best[1]):
-                best, cost = (tx, ty), c
-    return best
+    return window_tile(nx, ny, 2 * ml_tiled_halo(), sms,
+                       lambda tx, ty: ml_tiled_bytes(tx, ty, L) <= smem)
 
 
 def ml_tiled_ok(L: int, nx: int, ny: int, sms: int, smem: int) -> bool:

@@ -279,8 +279,10 @@ def window_ops(r0: int, c0: int, wh: int, ww: int, nx: int, ny: int,
     of an (nx, ny) plane (a halo band of a plane of ``nx_global`` rows
     whose row 0 is global row ``row_offset``): every mask decided by the
     pixel's place in the plane, as ``csrc/fused_rof.cu`` rof_tiled decides
-    it, a neighbour outside the window taken as 0 (``dxt_masked`` is
-    ``dxt``: no ROF dual is live on the global last row)."""
+    it, a neighbour outside the window taken as 0; the masked adjoints
+    (``dxt_masked``, ``dyt_masked``, for the tight chunk's duals, which
+    stay live on the global last row and column) read no plane's last row
+    or column."""
     nxg = nx if nx_global is None else int(nx_global)
 
     def rows(a):
@@ -310,13 +312,25 @@ def window_ops(r0: int, c0: int, wh: int, ww: int, nx: int, ny: int,
         lj, j = cols(p)
         return torch.where((lj > 0) & (j > 0), torch.roll(p, 1, -1), 0.0) - p
 
+    def wdxt_masked(p):
+        li, i, gi = rows(p)
+        above = ((li > 0) & (i > 0) & (gi > 0))[:, None]
+        return (torch.where(above, torch.roll(p, 1, -2), 0.0)
+                - torch.where((gi < nxg - 1)[:, None], p, 0.0))
+
+    def wdyt_masked(p):
+        lj, j = cols(p)
+        return (torch.where((lj > 0) & (j > 0), torch.roll(p, 1, -1), 0.0)
+                - torch.where(j < ny - 1, p, 0.0))
+
     def project(qx, qy):
         _, _, gi = rows(qx)
         _, j = cols(qy)
         return (torch.where((gi == nxg - 1)[:, None], 0.0, qx),
                 torch.where(j == ny - 1, 0.0, qy))
 
-    return RowOps(wdx, wdxt, wdxt, project, torch.sum, wdy, wdyt)
+    return RowOps(wdx, wdxt, wdxt_masked, project, torch.sum, wdy, wdyt,
+                  wdyt_masked)
 
 
 def tile_partials(terms):
@@ -570,16 +584,29 @@ def tiled_tile(nx: int, ny: int, count: int, dataterm: str, sms: int,
     fewest window pixels through the SMs (the waves of one block per SM
     times a whole tile's window), the larger tile on a tie; None where no
     tile's window fits."""
-    h = 2 * int(count) + 1
+    return window_tile(nx, ny, 2 * int(count) + 1, sms,
+                       lambda tx, ty: tiled_bytes(tx, ty, count, dataterm)
+                       <= smem)
+
+
+def window_tile(nx: int, ny: int, h: int, sms: int, fits):
+    """The owned tile (rows, columns) of a tiled launch on (nx, ny) planes
+    on a card of ``sms`` SMs, the search of every tiled rule: of the tiles
+    of ``TILE_ROWS`` x ``TILE_COLS`` (every 32x8 norm tile in one) whose
+    window fits (``fits(tx, ty)``, false beyond some rows for each column
+    count), the one whose launch moves the fewest window pixels through
+    the SMs (the rounds of one block per SM times a whole tile's window,
+    ``h`` rows and columns more than the tile), the larger tile on a tie;
+    None where no tile's window fits."""
     best, cost = None, None
     for ty in TILE_COLS:
         if ty - 32 >= ny:
             break
         for tx in TILE_ROWS:
-            if tx - 8 >= nx or tiled_bytes(tx, ty, count, dataterm) > smem:
+            if tx - 8 >= nx or not fits(tx, ty):
                 break
-            waves = -(-(-(-nx // tx) * -(-ny // ty)) // int(sms))
-            c = waves * (min(tx, nx) + h) * (min(ty, ny) + h)
+            rounds = -(-(-(-nx // tx) * -(-ny // ty)) // int(sms))
+            c = rounds * (min(tx, nx) + h) * (min(ty, ny) + h)
             if best is None or c < cost or (c == cost and
                                             tx * ty > best[0] * best[1]):
                 best, cost = (tx, ty), c

@@ -40,12 +40,15 @@ tight route through ``TightBatchedChunk``, each made once per route.  On a
 card each runs as one grid-resident cooperative launch where the shape rule
 (``resident_ok``; with ``batch``, on each instance's share of the SMs)
 finds that the planes of a band fit in the shared memory of one block per
-SM, and as the streaming launch sequence otherwise; both are bit-equal.  A
+SM.  Where they do not (512x512x4 and its 556-row band, the sizes for which
+the JAX package bands its kernel, ``tight_fused_chunk_banded``), the chunk
+and its halo form run as one tiled cooperative launch a chunk
+(``tight_route_of``: a grid barrier an iteration, each iteration one pass
+over device memory through overlapping 2-D windows of a tile and
+``tight_tiled_halo`` pixel a side), and beyond 5 labels, and for the
+batched chunk, as the streaming launch sequence; all are bit-equal.  A
 wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel, or raises.  There is no fallback and
-no VMEM gate: the streaming kernels keep the planes in device memory, so
-they also serve the sizes for which the JAX package bands its kernel
-(``tight_fused_chunk_banded``).
+launches the kernel, or raises.  There is no fallback.
 
 Layout contract (the JAX package's, at every public function): u and f
 (L, nx, ny); v and p (2k, nx, ny), pair planes [x parts (k); y parts (k)]
@@ -67,24 +70,26 @@ from ..common import to_numpy
 from ..config import ProstError, dtype as config_dtype
 from ..linop.base import LinearOperator
 from ..linop.blocks import BlockDiags, BlockKronId
-from ..linop.gradient import BlockGradient2D, fwd_diff, fwd_diff_adjoint
+from ..linop.gradient import BlockGradient2D
 from ..prox.elemop import ProxElem1D
 from ..prox.standalone import ProxZero
 from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
                          S_NORM, VP, WHOLE_PLANE, LightChunk, ball_scale,
                          card_sms, check_buffers, check_halo, check_inplace,
-                         chunk_state, coeff_vector, entry_converged,
-                         halo_copy, halo_into, halo_scal_rows,
-                         instance_strides, isscalar, launch,
-                         leq0_ball_radius, own_vectors, pick_path,
-                         resident_rows, run_pdhg_route, scalar_buffer,
-                         segment_const, typed_lib, vmap_plain)
+                         check_path, chunk_state, coeff_vector,
+                         entry_converged, halo_copy, halo_into,
+                         halo_scal_rows, instance_strides, isscalar,
+                         label_sum, launch, leq0_ball_radius, own_vectors,
+                         pick_path, resident_rows, run_pdhg_route,
+                         scalar_buffer, segment_const, typed_lib, vmap_plain)
 
 MAX_TAPS = 512  # nonzeros of P^T the route takes (the JAX package's bound)
 
-# launches of the kernel wrapper on the card (CPU calls do not count)
+# launches of the kernel wrapper on the card (CPU calls do not count; a
+# tiled call also counts under its wrapper's name + "_tiled")
 launch_counts = {"tight_chunk": 0, "tight_chunk_batched": 0,
-                 "tight_chunk_halo": 0}
+                 "tight_chunk_halo": 0, "tight_chunk_tiled": 0,
+                 "tight_chunk_halo_tiled": 0}
 
 
 def reset_launch_counts() -> None:
@@ -119,64 +124,61 @@ def _kron_ops(taps, nrows_out: int, ncols_out: int):
     return fwd, adj
 
 
-def _dy(u):
-    return fwd_diff(u, -1)
-
-
 def _kty_u(q, s, L, rows):
     """The u rows of K^T y: the masked gradient adjoint plus s."""
-    return rows.dxt_masked(q[:L]) + fwd_diff_adjoint(q[L:], -1) + s[None]
+    return rows.dxt_masked(q[:L]) + rows.dyt_masked(q[L:]) + s[None]
 
 
-def chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, v0, q0, p0, s0, f,
-               count: int, taps, consts, rows=WHOLE_PLANE):
-    """``count - 1`` plain iterations, then the aligned iteration with its
-    four preconditioned residual norms (squared): the JAX package's
-    ``_chunk_core``.  ``consts`` = (sig_q, sig_p, sig_s, tau_u, tau_v), the
-    constant preconditioner segments; ``rows`` is the planes' ``RowOps``
-    (a halo-extended shard's: owned-row norms).
+def _kx(u, v, kp_fwd, rows):
+    """K x's q and s rows: kxq = grad u + kron(P^T, I) v and su = sum_l u
+    (left to right)."""
+    return torch.cat([rows.dx(u), rows.dy(u)]) + kp_fwd(v), label_sum(u)
 
-    Returns ((u2, v2, q2, p2, s2), (u, v, q, p, s) before the aligned
-    iteration, norms)."""
-    L, k = u0.shape[0], v0.shape[0] // 2
+
+def _steps(tau_raw, sigma_raw, consts):
+    """(tu, tv, sq, sp, ss): the step sizes times their preconditioner
+    segments."""
     sig_q_c, sig_p_c, sig_s_c, tau_u_c, tau_v_c = consts
-    kp_fwd, kp_adj = _kron_ops(taps, 2 * L, 2 * k)
+    return (tau_raw * tau_u_c, tau_raw * tau_v_c, sigma_raw * sig_q_c,
+            sigma_raw * sig_p_c, sigma_raw * sig_s_c)
 
-    tu = tau_raw * tau_u_c
-    tv = tau_raw * tau_v_c
-    sq = sigma_raw * sig_q_c
-    sp = sigma_raw * sig_p_c
-    ss = sigma_raw * sig_s_c
-    tf = tu * f
 
-    def update(u, v, q, p, s, kxq, su):
-        """One iteration; (kxq, su) = the q-row and s-row forward products
-        of the current primal, carried between iterations."""
-        ktyu = _kty_u(q, s, L, rows)
-        ktyv = kp_adj(q) + p
-        u2 = torch.clamp_min(u - tu * ktyu - tf, 0.0)
-        v2 = v - tv * ktyv
-        kxq2 = torch.cat([rows.dx(u2), _dy(u2)]) + kp_fwd(v2)
-        su2 = torch.sum(u2, dim=0)
-        q2 = q + sq * ((1.0 + theta) * kxq2 - theta * kxq)  # free dual
-        ap = p + sp * ((1.0 + theta) * v2 - theta * v)
-        scale = ball_scale(ap[:k] * ap[:k] + ap[k:] * ap[k:], radius)
-        p2 = torch.cat([ap[:k] * scale, ap[k:] * scale])
-        s2 = s + ss * ((1.0 + theta) * su2 - theta * su) - ss * d_s
-        return u2, v2, q2, p2, s2, kxq2, su2, ktyu, ktyv
+def _update(u, v, q, p, s, kxq, su, tf, steps, theta, radius, d_s, kron,
+            rows):
+    """One iteration on planes whose rows (and columns) ``rows`` describes;
+    (kxq, su) = K x of the current primal (carried, or recomputed by
+    ``_kx``), tf = tu f, ``kron`` = ``_kron_ops``' (fwd, adj).  Returns the
+    new state, the new (kxq, su) and K^T of the old dual (ktyu, ktyv)."""
+    tu, tv, sq, sp, ss = steps
+    kp_fwd, kp_adj = kron
+    k = v.shape[0] // 2
+    ktyu = _kty_u(q, s, u.shape[0], rows)
+    ktyv = kp_adj(q) + p
+    u2 = torch.clamp_min(u - tu * ktyu - tf, 0.0)
+    v2 = v - tv * ktyv
+    kxq2, su2 = _kx(u2, v2, kp_fwd, rows)
+    q2 = q + sq * ((1.0 + theta) * kxq2 - theta * kxq)  # free dual
+    ap = p + sp * ((1.0 + theta) * v2 - theta * v)
+    scale = ball_scale(ap[:k] * ap[:k] + ap[k:] * ap[k:], radius)
+    p2 = torch.cat([ap[:k] * scale, ap[k:] * scale])
+    s2 = s + ss * ((1.0 + theta) * su2 - theta * su) - ss * d_s
+    return u2, v2, q2, p2, s2, kxq2, su2, ktyu, ktyv
 
-    u, v, q, p, s = u0, v0, q0, p0, s0
-    kxq = torch.cat([rows.dx(u0), _dy(u0)]) + kp_fwd(v0)
-    su = torch.sum(u0, dim=0)
-    for _ in range(count - 1):
-        u, v, q, p, s, kxq, su, _, _ = update(u, v, q, p, s, kxq, su)
-    # aligned iteration; (kxq, su) = K x_prev products carried for free
-    u2, v2, q2, p2, s2, kxq2, su2, ktyu_p, ktyv_p = update(u, v, q, p, s,
-                                                           kxq, su)
-    ktyu2 = _kty_u(q2, s2, L, rows)
-    ktyv2 = kp_adj(q2) + p2
 
-    # preconditioned residuals, segment-wise constants
+def _residuals(tau_raw, sigma_raw, theta, consts, old, new, kx_old, kx_new,
+               kty_old, kty_new):
+    """The preconditioned residual planes of an aligned iteration from the
+    iterate before it (``old``: u, v, q, p, s) to the one after it
+    (``new``), K x of each (``kx_*``: kxq, su) and K^T y of each
+    (``kty_*``: ktyu, ktyv), segment-wise constants.  Returns (pd_q, pd_p,
+    pd_s, zh_q, zh_p, zh_s, dd_u, dd_v, wh_u, wh_v)."""
+    sig_q_c, sig_p_c, sig_s_c, tau_u_c, tau_v_c = consts
+    u, v, q, p, s = old
+    u2, v2, q2, p2, s2 = new
+    kxq, su = kx_old
+    kxq2, su2 = kx_new
+    ktyu_p, ktyv_p = kty_old
+    ktyu2, ktyv2 = kty_new
     sqrt_sq, sqrt_sp, sqrt_ss = sig_q_c ** 0.5, sig_p_c ** 0.5, sig_s_c ** 0.5
     sqrt_tu, sqrt_tv = tau_u_c ** 0.5, tau_v_c ** 0.5
     zh_q = (q - q2) / (sigma_raw * sqrt_sq) + sqrt_sq * (
@@ -192,15 +194,52 @@ def chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, v0, q0, p0, s0, f,
     wh_v = (v - v2) / (tau_raw * sqrt_tv) - sqrt_tv * ktyv_p
     dd_u = wh_u + sqrt_tu * ktyu2
     dd_v = wh_v + sqrt_tv * ktyv2
+    return pd_q, pd_p, pd_s, zh_q, zh_p, zh_s, dd_u, dd_v, wh_u, wh_v
+
+
+def _norm_sums(res, nsum):
+    """The four squared norms of ``_residuals``' ``res``, each a sum of
+    ``nsum``s."""
+    pd_q, pd_p, pd_s, zh_q, zh_p, zh_s, dd_u, dd_v, wh_u, wh_v = res
 
     def ssq(a):
-        return rows.nsum(a * a)
+        return nsum(a * a)
 
-    norms = (ssq(pd_q) + ssq(pd_p) + ssq(pd_s),
-             ssq(zh_q) + ssq(zh_p) + ssq(zh_s),
-             ssq(dd_u) + ssq(dd_v),
-             ssq(wh_u) + ssq(wh_v))
-    return (u2, v2, q2, p2, s2), (u, v, q, p, s), norms
+    return (ssq(pd_q) + ssq(pd_p) + ssq(pd_s),
+            ssq(zh_q) + ssq(zh_p) + ssq(zh_s),
+            ssq(dd_u) + ssq(dd_v),
+            ssq(wh_u) + ssq(wh_v))
+
+
+def chunk_core(tau_raw, sigma_raw, theta, radius, d_s, u0, v0, q0, p0, s0, f,
+               count: int, taps, consts, rows=WHOLE_PLANE):
+    """``count - 1`` plain iterations, then the aligned iteration with its
+    four preconditioned residual norms (squared): the JAX package's
+    ``_chunk_core``.  ``consts`` = (sig_q, sig_p, sig_s, tau_u, tau_v), the
+    constant preconditioner segments; ``rows`` is the planes' ``RowOps``
+    (a halo-extended shard's: owned-row norms).
+
+    Returns ((u2, v2, q2, p2, s2), (u, v, q, p, s) before the aligned
+    iteration, norms)."""
+    L, k = u0.shape[0], v0.shape[0] // 2
+    kron = _kron_ops(taps, 2 * L, 2 * k)
+    steps = _steps(tau_raw, sigma_raw, consts)
+    tf = steps[0] * f
+    args = (tf, steps, theta, radius, d_s, kron, rows)
+    state = (u0, v0, q0, p0, s0)
+    kx = _kx(u0, v0, kron[0], rows)  # K x of the current primal, carried
+    for _ in range(count - 1):
+        *state, kxq, su, _, _ = _update(*state, *kx, *args)
+        kx = (kxq, su)
+    # aligned iteration; kx = K x_prev carried for free
+    u2, v2, q2, p2, s2, kxq2, su2, ktyu_p, ktyv_p = _update(*state, *kx,
+                                                            *args)
+    new = (u2, v2, q2, p2, s2)
+    kty2 = (_kty_u(q2, s2, L, rows), kron[1](q2) + p2)
+    norms = _norm_sums(_residuals(tau_raw, sigma_raw, theta, consts,
+                                  tuple(state), new, kx, (kxq2, su2),
+                                  (ktyu_p, ktyv_p), kty2), rows.nsum)
+    return new, tuple(state), norms
 
 
 def tight_chunk_plain(u, v, q, p, s, f, scal, count: int, taps, consts,
@@ -232,6 +271,98 @@ def tight_chunk_batched_plain(u, v, q, p, s, f, scal, count: int, taps,
     ``tight_chunk_plain`` vmapped over the instances."""
     return vmap_plain(tight_chunk_plain, (u, v, q, p, s, f), scal, int(count),
                       taps, consts)
+
+
+def tight_tiled_halo() -> int:
+    """The halo of the tiled chunk's window, in pixels on every side of a
+    tile: an iteration's dual step at a pixel reads the new and the old u
+    one row below and one column right, the new u there K^T q, which reads
+    q_x one row up and q_y one column left (v, p, the kron coupling, the
+    pair ball and the label sum are pointwise), so one pixel of the old
+    state around the tile gives the owned pixels exactly; the next
+    iteration loads its window anew."""
+    return 1
+
+
+def tight_chunk_tiled_plain(u, v, q, p, s, f, scal, count: int, taps,
+                            consts, nx_global=None, tile=(32, 32), halo=None,
+                            partials: bool = False):
+    """The tiled chunk (``tight_chunk_`` and ``tight_chunk_halo_`` with
+    ``path="tiled"``) window by window: each iteration ``chunk_core``'s
+    arithmetic on every tile's window (the tile of ``tile`` rows and
+    columns and ``halo`` pixels on every side, clamped at the plane's
+    edges, ``tight_tiled_halo`` by default; every mask decided by the
+    pixel's place in the plane, ``fused_rof.window_ops``), K x of the
+    iterate (kxq and su) recomputed from the window, the owned pixels
+    stitched into new planes; then the norms of the stitched planes, K x
+    and K^T y recomputed.  With ``nx_global`` the halo form (the row
+    context read from ``scal``).  Returns ``tight_chunk_plain``'s outputs;
+    with ``partials`` also the 32x8 tiles' partials
+    (``fused_rof.tile_partials``) that the kernel's finish reduces."""
+    from .fused_rof import tile_partials, window_ops
+
+    L, nx, ny = u.shape
+    k = v.shape[0] // 2
+    if nx_global is None:
+        n_scal, off, rows = 5, 0, WHOLE_PLANE
+    else:
+        n_scal, off = N_HALO_SCAL, int(scal[5])
+        rows = halo_scal_rows(scal, nx_global)
+    h = tight_tiled_halo() if halo is None else int(halo)
+    tx, ty = (int(t) for t in tile)
+    tau_raw, sigma_raw, theta, radius, d_s = (scal[i] for i in range(5))
+    kron = _kron_ops(taps, 2 * L, 2 * k)
+    steps = _steps(tau_raw, sigma_raw, consts)
+    tf = steps[0] * f
+    planes = (u, v, q, p, s)
+    for _ in range(int(count)):
+        prev, planes = planes, tuple(torch.empty_like(a) for a in planes)
+        for R0 in range(0, nx, tx):
+            for C0 in range(0, ny, ty):
+                R1, C1 = min(R0 + tx, nx), min(C0 + ty, ny)
+                r0, c0 = max(R0 - h, 0), max(C0 - h, 0)
+                r1, c1 = min(R1 + h, nx), min(C1 + h, ny)
+                ops = window_ops(r0, c0, r1 - r0, c1 - c0, nx, ny, off,
+                                 nx_global)
+                win = (..., slice(r0, r1), slice(c0, c1))
+                w = [a[win] for a in prev]
+                res = _update(*w, *_kx(w[0], w[1], kron[0], ops), tf[win],
+                              steps, theta, radius, d_s, kron, ops)
+                own = (..., slice(R0 - r0, R1 - r0), slice(C0 - c0, C1 - c0))
+                for dst, src in zip(planes, res[:5]):
+                    dst[..., R0:R1, C0:C1] = src[own]
+
+    def k_of(a):
+        return (_kx(a[0], a[1], kron[0], rows),
+                (_kty_u(a[2], a[4], L, rows), kron[1](a[2]) + a[3]))
+
+    (kx_prev, kty_prev), (kx_new, kty_new) = k_of(prev), k_of(planes)
+    res = _residuals(tau_raw, sigma_raw, theta, consts, prev, planes,
+                     kx_prev, kx_new, kty_prev, kty_new)
+    norms = torch.stack(_norm_sums(res, rows.nsum))
+    conv = entry_converged(scal, n_scal)
+    state = (u, v, q, p, s)
+    out = (*(torch.where(conv, a, b) for a, b in zip(state, planes)),
+           *(torch.where(conv, a, b) for a, b in zip(state, prev)),
+           torch.where(conv, torch.zeros_like(norms), norms))
+    if not partials:
+        return out
+
+    def add(*planes):  # a pixel's terms, left to right as the kernel adds
+        acc = 0.0
+        for a in planes:
+            for t in a:
+                acc = acc + t * t
+        return acc
+
+    pd_q, pd_p, pd_s, zh_q, zh_p, zh_s, dd_u, dd_v, wh_u, wh_v = res
+    terms = (add(pd_q, pd_p, pd_s[None]), add(zh_q, zh_p, zh_s[None]),
+             add(dd_v, dd_u), add(wh_v, wh_u))
+    if nx_global is not None:
+        li = torch.arange(nx, device=u.device)[:, None]
+        owned = (li >= int(scal[6])) & (li < int(scal[7]))
+        terms = tuple(torch.where(owned, t, 0.0) for t in terms)
+    return out + (tile_partials(terms),)
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +431,7 @@ def _lib():
     first use."""
     head = [VP] * 18 + [CI] * 5 + [CF] * 10
     res = [VP] * 19 + [CI] * 5 + [CF] * 10
+    tiled = [VP] * 15 + [CI] * 5 + [CF] * 10
     strides = [ctypes.c_longlong] * 5
     return typed_lib("fused_tight", "prost_tight_num_blocks", {
         "prost_tight_chunk": head + [CI, VP],
@@ -308,7 +440,10 @@ def _lib():
         "prost_tight_chunk_halo": head + [CI, CI, VP],
         "prost_tight_chunk_resident": res + [CI, VP],
         "prost_tight_chunk_halo_resident": res + [CI, CI, VP],
-        "prost_tight_resident_smem": [CI]})
+        "prost_tight_resident_smem": [CI],
+        "prost_tight_chunk_tiled": tiled + [CI] * 3 + [VP],
+        "prost_tight_chunk_halo_tiled": tiled + [CI] * 4 + [VP],
+        "prost_tight_tiled_smem": []})
 
 
 def _consts10(consts):
@@ -369,6 +504,121 @@ def _resident(L, k, ntaps, nx, ny, device, batch=None) -> bool:
                        *card_limits(device, batch is not None), batch)
 
 
+# labels of the largest tiled instance (csrc/fused_tight.cu TT_MAX_L) and
+# the threads of its blocks
+TIGHT_TILED_MAX_L = 5
+_TILED_THREADS = 512
+
+
+def tight_tiled_bytes(tx: int, ty: int, L: int, k: int, ntaps: int) -> int:
+    """The dynamic shared memory of one block of the tiled launch
+    (csrc/fused_tight.cu tight_tiled_smem): the taps array (to 16 bytes),
+    then 4L + 1 planes (u, q_x, q_y, f, then the new u in f's place, and
+    s) of the window of a ``tx`` x ``ty`` tile with ``tight_tiled_halo``
+    pixel on every side and each thread's old and new v (4k floats, which
+    hold the norm pass's reductions: two 32x8 trees)."""
+    h = tight_tiled_halo()
+    kron = -(-(2 * L + 2 * k + 2 + 4 * int(ntaps)) // 4) * 4
+    return 4 * (kron + (4 * int(L) + 1) * (int(tx) + 2 * h)
+                * (int(ty) + 2 * h) + 4 * int(k) * _TILED_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def tight_tiled_tile(nx: int, ny: int, L: int, k: int, ntaps: int, sms: int,
+                     smem: int):
+    """The owned tile (rows, columns) of the tiled launch on (L, nx, ny)
+    planes with k pairs and ``ntaps`` taps on a card of ``sms`` SMs whose
+    blocks may hold ``smem`` bytes of dynamic shared memory: of the tiles
+    (rows a multiple of 8, columns of 32, so every 32x8 norm tile lies in
+    one) whose window fits (``tight_tiled_bytes``), the one whose
+    iteration moves the fewest window pixels through the SMs
+    (``fused_rof.window_tile``); None where no tile's window fits."""
+    from .fused_rof import window_tile
+
+    return window_tile(nx, ny, 2 * tight_tiled_halo(), sms,
+                       lambda tx, ty: tight_tiled_bytes(tx, ty, L, k, ntaps)
+                       <= smem)
+
+
+def tight_tiled_ok(L: int, k: int, ntaps: int, nx: int, ny: int, sms: int,
+                   smem: int) -> bool:
+    """Whether the tiled launch takes (L, nx, ny) planes: 2 to
+    ``TIGHT_TILED_MAX_L`` labels (5: a pixel's 2k pair duals and
+    multipliers in registers, the most that compile without a spill at
+    128 registers a thread), k = L(L - 1)/2 pairs, and some tile's window
+    fits in ``smem`` bytes."""
+    return (2 <= int(L) <= TIGHT_TILED_MAX_L and int(k) == L * (L - 1) // 2
+            and tight_tiled_tile(int(nx), int(ny), int(L), int(k),
+                                 int(ntaps), int(sms), int(smem))
+            is not None)
+
+
+def tight_route_of(L: int, k: int, ntaps: int, nx: int, ny: int, sms: int,
+                   smem: int, tiled_smem: int) -> str:
+    """The shape rule of ``tight_chunk_`` and ``tight_chunk_halo_`` (on the
+    band's rows) on a card of ``sms`` SMs whose grid-resident blocks may
+    hold ``smem`` bytes and tiled blocks ``tiled_smem``: "resident" where
+    the planes fit in the grid-resident launch (``resident_ok``: 128x128x4
+    and its bands on an H100), else "tiled" where a tile's window fits
+    (``tight_tiled_ok``: 512x512x4 and its 556-row band), else
+    "streaming" (beyond 5 labels, or pairs other than L(L - 1)/2)."""
+    if resident_ok(L, k, ntaps, nx, ny, sms, smem):
+        return "resident"
+    if tight_tiled_ok(L, k, ntaps, nx, ny, sms, tiled_smem):
+        return "tiled"
+    return "streaming"
+
+
+@functools.lru_cache(maxsize=None)
+def tight_tiled_limit(device) -> int:
+    """The dynamic shared memory a block of the tiled launch may hold on
+    the card ``device``, read once."""
+    with torch.cuda.device(device):
+        smem = _lib().prost_tight_tiled_smem()
+    if smem < 0:
+        raise ProstError(f"tight_chunk: no shared-memory limit for the tiled "
+                         f"chunk on {device} (CUDA error {-smem}).")
+    return smem
+
+
+def tight_pick_route(path, L: int, k: int, ntaps: int, nx: int, ny: int,
+                     device, what: str) -> tuple:
+    """(path, tile) of a chunk on the card ``device``: by
+    ``tight_route_of`` where ``path`` is None, else the one asked for;
+    "resident" where the planes do not fit, or "tiled" where no tile's
+    window does, raises ``ProstError``.  ``tile`` is the tiled launch's
+    (rows, columns), else None."""
+    check_path(path, what)
+    sms, smem = card_limits(device)
+    tsmem = tight_tiled_limit(device)
+    if path is None:
+        path = tight_route_of(L, k, ntaps, nx, ny, sms, smem, tsmem)
+    if path == "resident" and not resident_ok(L, k, ntaps, nx, ny, sms,
+                                              smem):
+        raise ProstError(f"{what}: the chunk's planes do not fit in the "
+                         "shared memory of one block per SM.")
+    tile = None
+    if path == "tiled":
+        if not tight_tiled_ok(L, k, ntaps, nx, ny, sms, tsmem):
+            raise ProstError(f"{what}: the tiled launch takes 2 to "
+                             f"{TIGHT_TILED_MAX_L} labels with L(L - 1)/2 "
+                             "pairs and a tile's window in the shared "
+                             "memory of a block.")
+        tile = tight_tiled_tile(int(nx), int(ny), int(L), int(k), int(ntaps),
+                                int(sms), int(tsmem))
+    return path, tile
+
+
+def _route_scratch(path: str, L, nx, ny, device):
+    """A single-instance chunk's scratch on ``path``: the tiled launch's
+    second slot of u, q and s and its norm terms (3L + 5 planes), else
+    ``_scratch``'s."""
+    if path == "tiled":
+        return [torch.empty((3 * L + 5) * nx * ny, dtype=torch.float32,
+                            device=device)]
+    return _scratch(path == "resident", L, nx, ny, device)
+
+
 def _scratch(resident: bool, L, nx, ny, device, B=None):
     """A chunk launch's scratch: the carried planes kxq and su of this
     iterate and of the previous one (the grid-resident launch writes them
@@ -385,22 +635,30 @@ def _scratch(resident: bool, L, nx, ny, device, B=None):
 
 
 def _launch_chunk(what: str, state, prev, f, kron, sc, partial, scratch,
-                  resident: bool, count: int, ntaps: int, consts,
+                  route: tuple, count: int, ntaps: int, consts,
                   nx_global=None):
     """One chunk on the card in place on ``state`` (u, v, q, p, s) and
-    ``prev``: the grid-resident launch or the streaming sequence, of the
+    ``prev``: the grid-resident launch, the tiled launch or the streaming
+    sequence (``route`` = (path, tile) of ``tight_pick_route``), of the
     whole plane or (with ``nx_global``) of a halo band, counted under
-    ``what``."""
+    ``what`` (and a tiled call also under ``what`` + "_tiled")."""
     u, v = state[0], state[1]
     L, nx, ny = u.shape
     k = v.shape[0] // 2
     fn = "prost_tight_chunk" + ("" if nx_global is None else "_halo")
     tail = () if nx_global is None else (int(nx_global),)
+    shape = (L, k, nx, ny, int(ntaps), *consts, *tail, int(count))
+    path, tile = route
+    if path == "tiled":
+        launch(_lib(), fn + "_tiled", what, launch_counts, u.device,
+               [*state, *prev, f, kron, sc, partial, *scratch], *shape,
+               *tile)
+        launch_counts[what + "_tiled"] += 1
+        return
     carried, terms = scratch[:4], scratch[4:]
-    launch(_lib(), fn + ("_resident" if resident else ""), what,
+    launch(_lib(), fn + ("_resident" if path == "resident" else ""), what,
            launch_counts, u.device,
-           [*state, *prev, *carried, f, kron, sc, partial, *terms], L, k, nx,
-           ny, int(ntaps), *consts, *tail, int(count))
+           [*state, *prev, *carried, f, kron, sc, partial, *terms], *shape)
 
 
 def _inplace(what: str, state, prev, f, scal, n_scal: int, count: int,
@@ -411,13 +669,13 @@ def _inplace(what: str, state, prev, f, scal, n_scal: int, count: int,
     L, nx, ny = u.shape
     k = v.shape[0] // 2
     dev = u.device
-    resident = pick_path(path, _resident(L, k, len(taps), nx, ny, dev), what)
+    route = tight_pick_route(path, L, k, len(taps), nx, ny, dev, what)
     sc = scalar_buffer(scal, n_scal, S_CONV, S_LEN)
     partial = torch.empty(4 * _lib().prost_tight_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     _launch_chunk(what, state, prev, f.contiguous(),
                   kron_array(tuple(taps), L, k, dev), sc, partial,
-                  _scratch(resident, L, nx, ny, dev), resident, count,
+                  _route_scratch(route[0], L, nx, ny, dev), route, count,
                   len(taps), _consts10(consts), nx_global)
     return sc[S_NORM:S_NORM + 4]
 
@@ -446,12 +704,17 @@ def tight_chunk_(u, v, q, p, s, u_prev, v_prev, q_prev, p_prev, s_prev, f,
     """``tight_chunk`` in place: (u, v, q, p, s) advance by ``count``
     iterations and the previous buffers take the iterate before the aligned
     one; with the converged flag set nothing changes.  Returns norms2.  On
-    a card ``path`` None takes the shape rule's path (``resident_ok``): one
-    grid-resident launch (csrc/fused_tight.cu tight_resident) where the
-    planes fit on chip, else the streaming launch sequence; "resident" or
-    "streaming" asks for one ("resident" raises where it does not fit)."""
+    a card ``path`` None takes the shape rule's path (``tight_route_of``):
+    one grid-resident launch (csrc/fused_tight.cu tight_resident) where the
+    planes fit on chip, else one tiled cooperative launch (tight_tiled:
+    overlapping 2-D windows, a grid barrier an iteration) and the finish
+    where a tile's window does, else the streaming launch sequence;
+    "resident", "tiled" or "streaming" asks for one ("resident" and
+    "tiled" raise where they cannot launch).  On the CPU every path runs
+    the plain version."""
     state, prev = (u, v, q, p, s), (u_prev, v_prev, q_prev, p_prev, s_prev)
     _check(*state, f, scal, count, taps, consts)
+    check_path(path, "tight_chunk_")
     check_inplace(state, prev)
     if u.device.type == "cpu":
         return halo_into(state, prev, tight_chunk_plain(
@@ -487,6 +750,7 @@ def tight_chunk_halo_(u, v, q, p, s, u_prev, v_prev, q_prev, p_prev, s_prev,
     ``tight_chunk_``, the shape rule on the band's rows."""
     state, prev = (u, v, q, p, s), (u_prev, v_prev, q_prev, p_prev, s_prev)
     _check(*state, f, scal, count, taps, consts, n_scal=N_HALO_SCAL)
+    check_path(path, "tight_chunk_halo_")
     check_halo(nx_global, state, prev)
     if u.device.type == "cpu":
         return halo_into(state, prev, tight_chunk_halo_plain(
@@ -499,13 +763,14 @@ class TightChunk(LightChunk):
     """The tight routes' light chunk call: ``tight_chunk_`` (with ``band``
     = (nx_global, rows, row_offset, own_lo, own_hi), ``tight_chunk_halo_``
     on a band of ``rows`` rows) on the planes a route holds, with what
-    depends only on the shapes made once per route: the path
-    (``resident_ok``), the scratch, the norm partials, the taps array, the
+    depends only on the shapes made once per route: the path (``route``:
+    ``tight_pick_route``'s (path, tile), by the shape rule unless ``path``
+    asks for one), the scratch, the norm partials, the taps array, the
     constants and the scalar buffer with ``m``'s radius and d_s (and the
     band's row context).  A call writes the step sizes and the flag into
     the scalar buffer and launches; on the CPU it runs the plain version."""
 
-    def __init__(self, m, count: int, device, band=None):
+    def __init__(self, m, count: int, device, band=None, path=None):
         consts = (m["radius"], m["d_s"]) + tuple(band[2:] if band else ())
         super().__init__(consts, device)
         self.count, self.band = int(count), band
@@ -515,21 +780,28 @@ class TightChunk(LightChunk):
             nx = int(band[1])
         self.what = "tight_chunk" if band is None else "tight_chunk_halo"
         self.nx_global = None if band is None else int(band[0])
-        self.resident = None  # the path on a card
+        self.route = None  # (path, tile) on a card
         if torch.device(device).type == "cuda":
-            self.resident = _resident(L, k, len(self.taps), nx, ny, device)
+            self.route = tight_pick_route(path, L, k, len(self.taps), nx, ny,
+                                          device, self.what)
             self.partial = torch.empty(
                 4 * _lib().prost_tight_num_blocks(nx, ny),
                 dtype=torch.float32, device=device)
-            self.scratch = _scratch(self.resident, L, nx, ny, device)
+            self.scratch = _route_scratch(self.route[0], L, nx, ny, device)
             self.kron = kron_array(tuple(self.taps), L, k, device)
             self.consts10 = _consts10(self.consts)
+
+    @property
+    def resident(self):
+        """Whether the call runs grid-resident on a card; None on the
+        CPU."""
+        return None if self.route is None else self.route[0] == "resident"
 
     def __call__(self, state, prev, f, tau, sigma, theta, converged):
         """``count`` iterations on ``state`` (u, v, q, p, s) in place, the
         previous iterate into ``prev``; returns norms2."""
         self.scalars_(tau, sigma, theta, converged)
-        if self.resident is None:
+        if self.route is None:
             scal = self.scal()
             if self.band is None:
                 out = tight_chunk_plain(*state, f, scal, self.count,
@@ -540,7 +812,7 @@ class TightChunk(LightChunk):
                                              self.consts)
             return halo_into(state, prev, out, scal, self.n_scal)
         _launch_chunk(self.what, state, prev, f, self.kron, self.sc,
-                      self.partial, self.scratch, self.resident, self.count,
+                      self.partial, self.scratch, self.route, self.count,
                       len(self.taps), self.consts10, self.nx_global)
         return self.norms2()
 

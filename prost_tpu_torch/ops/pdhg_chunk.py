@@ -108,6 +108,25 @@ def dead_dual_flat(yf, L: int, nx: int, ny: int):
     return torch.cat([qx.reshape(-1), qy.reshape(-1), yf[n2:]])
 
 
+def label_sum(a):
+    """sum_l a_l over the label axis (axis 0), left to right as the kernels
+    sum it: ``torch.sum``'s order depends on the tensor's layout, and the
+    tiled chunks' plain twins sum windows where the plain versions sum
+    whole planes."""
+    acc = a[0]
+    for l in range(1, a.shape[0]):
+        acc = acc + a[l]
+    return acc
+
+
+def dyt_masked(p):
+    """Adjoint of dy that reads no last column: p_{j-1}[j>0] -
+    p_j[j<n-1]."""
+    j = torch.arange(p.shape[-1], device=p.device)
+    return (torch.where(j > 0, torch.roll(p, 1, -1), 0.0)
+            - torch.where(j < p.shape[-1] - 1, p, 0.0))
+
+
 @dataclasses.dataclass(frozen=True)
 class RowOps:
     """The parts of a chunk's math that depend on where its rows lie in
@@ -115,9 +134,10 @@ class RowOps:
     ``dxt`` (maskless: exact given a zero dead row), the masked adjoint
     ``dxt_masked`` (for duals that stay live on the global last row), the
     dead-dual projection ``project`` (q_x's global last row, q_y's last
-    column) and the norms' sum ``nsum``; and the column difference ``dy``
-    and its adjoint ``dyt``, the whole width's unless the planes are a
-    window of the plane's columns (the ROF tiled chunk's plain twin)."""
+    column) and the norms' sum ``nsum``; and the column difference ``dy``,
+    its adjoint ``dyt`` and the masked one ``dyt_masked``, the whole
+    width's unless the planes are a window of the plane's columns (the
+    tiled chunks' plain twins)."""
 
     dx: Callable
     dxt: Callable
@@ -126,6 +146,7 @@ class RowOps:
     nsum: Callable
     dy: Callable = dy
     dyt: Callable = dyt
+    dyt_masked: Callable = dyt_masked
 
 
 def dxt_masked(p):

@@ -21,8 +21,9 @@ multichunk ``ml_multichunk_`` and ROF halo chunk ``rof_chunk_halo_`` (``-k
 Chebyshev ADMM chunks and multichunks and the tiled deblur chunk (``-k
 tiled``; ``-k admm_tiled`` for the ADMM ones, ``-k deblur_tiled`` for the
 deblur ones), and the tiled multilabel chunk, its halo form and the
-multichunk (``-k ml_tiled``), bit for bit against the streaming launch
-sequences they replace.
+multichunk (``-k ml_tiled``), and the tiled tight chunk and its halo form
+(``-k tight_tiled``), bit for bit against the streaming launch sequences
+they replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
 redesigns run the per-pixel arithmetic and the norm trees of the launch
@@ -2856,3 +2857,155 @@ def test_ml_tiled_rules_on_the_card(dev):
                    [u, q, s, u.clone(), q.clone(), s.clone(), f, sc, partial,
                     *scratch], 8, 256, 256, 1.0 / 8, (1.0 / 8) ** 0.5, 10,
                    *tile)
+
+
+# ---------------------------------------------------------------------------
+# row 22: the tight chunk and its halo form tiled, for the planes no
+# grid-resident band holds (-k tight_tiled)
+# ---------------------------------------------------------------------------
+
+TIGHT_TILED_ARGS = [0.9, 1.1, 1.0, 0.7, 1.0]  # tau, sigma, theta, radius, d_s
+
+
+@pytest.mark.parametrize("count", [1, 3, 10])
+@pytest.mark.parametrize("L,nx,ny", [(4, 512, 512), (4, 512, 384),
+                                     (3, 250, 190), (5, 300, 211),
+                                     (2, 9, 300)])
+def test_tight_tiled_is_the_launch_sequence(dev, L, nx, ny, count):
+    """The tiled chunk's planes, previous iterates and squared norms
+    bit-equal to the launch sequence's (250x190, 300x211, 9x300: tiles
+    that do not divide the plane; an odd count: slot B copied back)."""
+    from prost_tpu_torch.ops import fused_tight as ft
+
+    planes, taps, consts = _tight_case(560 + nx + count, L, nx, ny, dev)
+    scal = torch.tensor(TIGHT_TILED_ARGS, device=dev)
+    before = ft.launch_counts["tight_chunk_tiled"]
+    out = _tiled_paths(ft.tight_chunk_, planes[:5], planes[5:], scal, count,
+                       taps, consts)
+    assert ft.launch_counts["tight_chunk_tiled"] == before + 1
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    assert bool((out["tiled"][-1] > 0).all())
+
+
+@pytest.mark.parametrize("rank,shards", [(0, 1), (0, 2), (1, 2), (2, 4)])
+def test_tight_tiled_halo_is_the_launch_sequence(dev, rank, shards):
+    """512x512x4 cut into bands (ri 10, halo 22 rows): every band's tiled
+    launch is its streaming sequence, bit for bit in the planes, the
+    previous iterates and the owned-row norms."""
+    from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    planes, taps, consts = _tight_case(570 + rank, 4, 512, 512, dev)
+    ri, rows = 10, 512 // shards
+    H = 2 * ri + 2
+    lo = rank * rows - H
+    ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+    scal = torch.tensor(TIGHT_TILED_ARGS + [lo, H, H + rows], device=dev)
+    before = ft.launch_counts["tight_chunk_halo_tiled"]
+    out = _tiled_paths(ft.tight_chunk_halo_, ext[:5], ext[5:], scal, ri, 512,
+                       taps, consts)
+    assert ft.launch_counts["tight_chunk_halo_tiled"] == before + 1
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tile", [(8, 32), (16, 64), (40, 32), (8, 128)])
+def test_tight_tiled_any_tile_is_the_launch_sequence(dev, tile):
+    """The launch with tiles other than the rule's gives the same bits,
+    and with the flag set it leaves every buffer as it was."""
+    from prost_tpu_torch.ops import fused_tight as ft
+
+    L, nx, ny = 4, 300, 211
+    k = L * (L - 1) // 2
+    planes, taps, consts = _tight_case(580, L, nx, ny, dev)
+    kron = ft.kron_array(taps, L, k, dev)
+    out = {}
+    for flag in (0.0, 1.0):
+        scal = torch.tensor(TIGHT_TILED_ARGS + [flag], device=dev)
+        for path in ("streaming", "tiled"):
+            cur = [t.clone() for t in planes[:5]]
+            prev = [t + 1.0 for t in cur]
+            sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+            partial = cur[0].new_empty(
+                4 * ft._lib().prost_tight_num_blocks(nx, ny))
+            route = (path, tile if path == "tiled" else None)
+            ft._launch_chunk("tight_chunk", cur, prev, planes[5], kron, sc,
+                             partial, ft._route_scratch(path, L, nx, ny, dev),
+                             route, 3, len(taps), ft._consts10(consts))
+            out[path] = cur + prev + [sc[15:19].clone()]
+        torch.cuda.synchronize()
+        for a, b in zip(out["streaming"], out["tiled"]):
+            assert torch.equal(a, b)
+        if flag:
+            for a, b in zip(out["tiled"][:10], planes[:5]
+                            + [t + 1.0 for t in planes[:5]]):
+                assert torch.equal(a, b)
+
+
+def test_tight_tiled_light_calls_on_the_card(dev):
+    """``TightChunk`` at 512x512x4 and on its one-shard band of 556 rows
+    takes the tiled path by the shape rule, and its calls are the
+    streaming ones' bit for bit, twice in a row on the same buffers."""
+    from prost_tpu_torch.ops import fused_tight as ft
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    L, n, ri, H = 4, 512, 10, 22
+    planes, taps, consts = _tight_case(590, L, n, n, dev)
+    m = {"L": L, "k": 6, "nx": n, "ny": n, "taps": taps, "consts": consts,
+         "radius": 0.7, "d_s": 1.0}
+    band = (n, n + 2 * H, -H, H, H + n)
+    ext = [window(a, -H, n + H) for a in planes]
+    assert ft.TightChunk(m, ri, dev).route[0] == "tiled"
+    assert ft.TightChunk(m, ri, dev, band).route[0] == "tiled"
+    s3 = [torch.tensor(v, device=dev) for v in (0.9, 1.1, 1.0)]
+    flag = torch.tensor(False, device=dev)
+    for state, b in ((planes, None), (ext, band)):
+        out = {}
+        for path in ("streaming", "tiled"):
+            call = ft.TightChunk(m, ri, dev, b, path=path)
+            assert call.route[0] == path
+            cur = [t.clone() for t in state[:5]]
+            prev = [t.clone() for t in cur]
+            got = [call(cur, prev, state[5], *s3, flag).clone()
+                   for _ in range(2)]
+            out[path] = cur + prev + got
+        torch.cuda.synchronize()
+        for a, c in zip(out["streaming"], out["tiled"]):
+            assert torch.equal(a, c)
+
+
+def test_tight_tiled_rules_on_the_card(dev):
+    """The card's limits send tight128x4 to the grid-resident launch,
+    512x512x4 and its 556-row band to the tiled one and 6 labels to the
+    streaming sequence, where asking for the tiled launch raises; so does
+    a tile the C side refuses."""
+    from prost_tpu_torch.ops import fused_tight as ft
+
+    sms, smem = ft.card_limits(dev)
+    tsmem = ft.tight_tiled_limit(dev)
+    assert tsmem >= 225 * 1024
+    assert ft.tight_route_of(4, 6, 24, 128, 128, sms, smem,
+                             tsmem) == "resident"
+    assert ft.tight_route_of(4, 6, 24, 512, 512, sms, smem, tsmem) == "tiled"
+    assert ft.tight_route_of(4, 6, 24, 556, 512, sms, smem, tsmem) == "tiled"
+    assert ft.tight_route_of(6, 15, 60, 512, 512, sms, smem,
+                             tsmem) == "streaming"
+    planes, taps, consts = _tight_case(600, 6, 64, 64, dev)
+    scal = torch.tensor(TIGHT_TILED_ARGS, device=dev)
+    with pytest.raises(ptt.ProstError, match="tiled launch takes"):
+        ft.tight_chunk_(*planes[:5], *[t.clone() for t in planes[:5]],
+                        planes[5], scal, 2, taps, consts, path="tiled")
+    L, k, nx = 4, 6, 256
+    planes, taps, consts = _tight_case(601, L, nx, nx, dev)
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = planes[0].new_empty(4 * ft._lib().prost_tight_num_blocks(nx,
+                                                                       nx))
+    scratch = ft._route_scratch("tiled", L, nx, nx, dev)
+    for tile in ((12, 32), (8, 48), (128, 128)):  # not 8x32 tiles; too big
+        with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+            ft._launch_chunk("tight_chunk", planes[:5],
+                             [t.clone() for t in planes[:5]], planes[5],
+                             ft.kron_array(taps, L, k, dev), sc, partial,
+                             scratch, ("tiled", tile), 10, len(taps),
+                             ft._consts10(consts))
