@@ -80,6 +80,14 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    band of 512x512x4, each bit-equal to the streaming launch sequence and
    within the tolerances of the plain versions; both paths' calls and the
    route's light call in turns with their launches and traced device ms;
+   the chunk at counts 2 and 10; and rows 28 and 27 tiled
+   (``phase_tiled_vol``, run after it): ``vol_chunk_`` at 512x512x8
+   (counts 10 and 3, wsquare and abs, flagged) and 300x211x5,
+   ``vol_chunk_halo_`` on the 556-row band of 512x512x8 and
+   ``vol_multichunk_`` at 512x512x8 (8 chunks of 10) and 300x211x5 (5
+   chunks of 3), each bit-equal to the streaming launch sequence and
+   within the tolerances of the plain versions; both paths' calls and the
+   route's light calls in turns with their launches and traced device ms;
    the chunk at counts 2 and 10;
 9. solve BASELINE config 2, TV deblurring of data/flowers.png at 512x512
    blurred by the motion kernel (lmb 100, boyd, residual_iter 10, 2000
@@ -90,7 +98,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    on the energy, the constraint residual and the partition of unity;
 10. the same for the volumetric kernels: ``vol_chunk`` (ri = 10) at
    256x256x8, at a ragged 190x250x5 for the square, wsquare and abs data
-   terms, at 64x96x1 and at 512x512x8, and ``vol_multichunk`` (k = 8, ri =
+   terms, at 64x96x1 and at 512x512x8 (tiled), and ``vol_multichunk`` (k = 8, ri =
    10, boyd) from a solve's start on bench.py's vol256x8 data at the four
    shapes, timed against their plain versions at 256x256x8;
 11. the batched chunks of the ensembles against their plain versions and,
@@ -137,11 +145,11 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    2048x2048, of the tight route at 512x512x4 and of the volumetric route
    at 512x512x8, where the JAX package bands its kernels: every kernel
    launches, the state stays on the card and finite; the ROF, Chebyshev
-   ADMM, multilabel, deblur and tight routes' chunks (and multichunks)
-   tiled (their tiled launches are the kernels line's), each solve in
-   turns with the streaming sequence (it/s, equal energies); the first
-   call of each route's light calls there (rows 14, 16, 19 and 22 tiled,
-   27 and 28 streaming; row 7 from phase 11's 1280x1280 instances)
+   ADMM, multilabel, deblur, tight and volumetric routes' chunks (and
+   multichunks) tiled (their tiled launches are the kernels line's), each
+   solve in turns with the streaming sequence (it/s, equal energies); the
+   first call of each route's light calls there (rows 14, 16, 19, 22, 27
+   and 28 tiled; row 7 streaming, from phase 11's 1280x1280 instances)
    replayed under the profiler beside its bound;
 15. the halo chunks of spatial sharding at full width (ROF 512x512, ml and
    vol 256x256x8, ri = 10, halo 22 rows): bands of 1, 2 and 4 shards cut
@@ -201,9 +209,10 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    deblur and tight routes again in turns with the copying chunk call;
    ``ShardedFusedADMM`` at Chebyshev
    degree 65 (300 iterations) against the one-card fused ADMM route; the
-   sharded deblur route at 2048x2048, multilabel route at 512x512x8 and
-   tight route at 512x512x4 (300 iterations) on their tiled halo chunks
-   against the one-card fused routes; then
+   sharded deblur route at 2048x2048, multilabel route at 512x512x8,
+   tight route at 512x512x4 and volumetric route at 512x512x8 (300
+   iterations) on their tiled halo chunks against the one-card fused
+   routes; then
    run ensemble1024x128 through ``BatchedPDHG`` over a dp mesh of those
    ranks (21 + 300 iterations) and hold every field of every instance
    against the one-card run, bit for bit;
@@ -1282,15 +1291,16 @@ def rof_model(nx, ny, f, lmb):
 
 
 def recording(kind, opts, generic=None, rof_path=None, admm_path=None,
-              deblur_path=None, ml_path=None, tight_path=None):
+              deblur_path=None, ml_path=None, tight_path=None,
+              vol_path=None):
     """``Backend(kind, opts)`` as a user gets it from ``backend_pdhg`` /
     ``backend_admm`` (or, with ``generic``, that generic backend class),
     recording after every callback epoch the devices of the solver state's
     tensors and the time spent iterating; with ``rof_path``
-    (``admm_path``, ``deblur_path``, ``ml_path``, ``tight_path``), the fused
-    ROF route's (fused Chebyshev ADMM route's, fused deblur route's, fused
-    multilabel route's, fused tight route's) light calls made beforehand on
-    that path."""
+    (``admm_path``, ``deblur_path``, ``ml_path``, ``tight_path``,
+    ``vol_path``), the fused ROF route's (fused Chebyshev ADMM route's,
+    fused deblur route's, fused multilabel route's, fused tight route's,
+    fused volumetric route's) light calls made beforehand on that path."""
     import torch
 
     from prost_tpu_torch.modeling import Backend
@@ -1348,6 +1358,16 @@ def recording(kind, opts, generic=None, rof_path=None, admm_path=None,
                 ri = max(int(self.opts.residual_iter), 1)
                 b.tight["call"] = ft.TightChunk(b.tight, ri, ptt.device(),
                                                 path=tight_path)
+            if vol_path is not None:
+                import prost_tpu_torch as ptt
+                from prost_tpu_torch.ops import fused_vol as fv
+                from prost_tpu_torch.ops.phases import K_CHUNKS
+
+                ri, dev = max(int(self.opts.residual_iter), 1), ptt.device()
+                b.vol["call"] = fv.VolChunk(b.vol, ri, dev, path=vol_path)
+                b.vol["multi"] = fv.VolMultichunk(
+                    b.vol, ri, K_CHUNKS, self.opts.stepsize, dev,
+                    path=vol_path)
             self.made, self.devices, self.loop_s = b, set(), 0.0
             run = b.run
 
@@ -4360,6 +4380,241 @@ def phase_tiled_tight(dev):
     return rows
 
 
+def vol_kernel_inputs(L, nx, ny, seed, dev):
+    """u, q (with mass on its dead coordinates, which every path zeroes at
+    entry), f and wsquare's w of a volumetric chunk on ``dev``."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    arrs = (rng.rand(L, nx, ny), 0.3 * rng.randn(3, L, nx, ny),
+            rng.rand(L, nx, ny), 2.0 * (rng.rand(L, nx, ny) > 0.3))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+def phase_tiled_vol(dev):
+    """Rows 28 and 27 tiled (``vol_tiled<L>``: a cooperative launch a chunk
+    over overlapping 2-D windows of the volume, a grid barrier an
+    iteration) against the streaming launch sequence they replace at the
+    volumes no grid-resident band holds: ``vol_chunk_`` at 512x512x8 (ri
+    10, an odd count of 3, wsquare and abs, and with the flag set) and
+    300x211x5 (tiles that do not divide it; the grid-resident launch holds
+    it, so its tiled launch is asked for), ``vol_chunk_halo_`` on the
+    one-shard band of 512x512x8 (556 rows, 22 of halo each side), and
+    ``vol_multichunk_`` at 512x512x8 (8 chunks of 10, every chunk run) and
+    300x211x5 (5 chunks of 3: an odd count and an odd number of chunks):
+    volumes, previous iterates and norms (and sout) bit-equal, and within
+    PLANE_ATOL of max(1, |plane|) / NORM_RTOL (a multichunk's
+    MC_NORM_RTOL) of the plain versions; each 512-wide call in place in
+    turns (streaming, tiled, tiled, streaming) with the hand-written
+    kernels each path launches per call and their traced device ms, and
+    the route's light calls (``VolChunk``, ``VolMultichunk``) at 512x512x8;
+    the chunk at counts 2 and 10 (its fixed cost and an iteration's); the
+    functional wrappers' calls and the plain versions timed for the
+    kernels line, beside the bound and the design's floor of one pass over
+    device memory an iteration."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_vol as fv
+    from prost_tpu_torch.ops.pdhg_chunk import S_CONV, S_LEN, scalar_buffer
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    ri, L, n = 10, VOL_LABELS, VOL_LARGE
+    rows = {"vol_chunk_tiled": {"err": 0.0}, "vol_multichunk_tiled":
+            {"err": 0.0}, "vol_chunk_halo_tiled": {"err": 0.0}}
+    head = [0.9, 1.1, 1.0, VOL_LMB, 1.0]
+    scal = torch.tensor(head, device=dev)
+
+    def consts_of(L, nx, ny):
+        m = L * nx * ny
+        return (np.sqrt(3 * m), np.sqrt(m), 1.5, 0.95, 1.05, 0.8)
+
+    def mscal(tol):
+        return torch.tensor([1.0, 1.0, 1.0, VOL_LMB, 1.0, 0.5, 0.0, 0.0, 1.0,
+                             tol, tol, tol, tol], device=dev)
+
+    def turns(label, call_for, reps, streaming, tiled):
+        return tiled_turns(fv, label, call_for, reps, streaming, tiled)
+
+    one = ["vol_tiled", "pdhg_finish"]
+    seen = {}
+    for seed, (Lc, nx, ny, cases) in enumerate((
+            (L, n, n, ((ri, "square"), (3, "square"), (ri, "wsquare"),
+                       (ri, "abs"))),
+            (5, 300, 211, ((ri, "wsquare"), (3, "abs"))))):
+        state = vol_kernel_inputs(Lc, nx, ny, 990 + seed, dev)
+        # 300x211x5 fits the grid-resident launch: its tiled launch is
+        # asked for
+        route = fv.vol_pick_route(None if Lc == L else "tiled", Lc, nx, ny,
+                                  "square", dev, False, "vol_chunk")
+        check(route[0] == "tiled", f"vol_chunk_ {nx}x{ny}x{Lc}: the shape "
+              f"rule takes {route}")
+        for count, dt in cases:
+            label = (f"vol_chunk_ {nx}x{ny}x{Lc} {dt} count {count}, tile "
+                     f"{route[1]}")
+            out = tiled_both(label, fv.vol_chunk_, state[:2], state[2:], scal,
+                             count, dt)
+            err = tiled_against_plain(label, out, fv.vol_chunk_plain(
+                *state, scal, count, dt), 4)
+            rows["vol_chunk_tiled"]["err"] = max(
+                rows["vol_chunk_tiled"]["err"], err)
+        if nx == n:
+            flagged = torch.cat([scal, torch.ones(1, device=dev)])
+            out = tiled_both(f"vol_chunk_ {nx}x{ny}x{Lc} with the flag",
+                             fv.vol_chunk_, state[:2], state[2:], flagged, ri)
+            check(all(torch.equal(a, b) for a, b in zip(out[:4],
+                                                       state[:2] * 2))
+                  and not bool(out[4].any()),
+                  "the flagged tiled chunk changed its volumes")
+            print(f"vol_chunk_ {nx}x{ny}x{Lc} with the flag set: both paths "
+                  "return their inputs and zero norms")
+            big = state
+            cur = [t.clone() for t in state[:2]]
+            prev = [t.clone() for t in cur]
+            seen[f"{nx}x{ny}"] = turns(
+                f"vol_chunk_ {nx}x{ny}x{Lc} count {ri}",
+                lambda p: lambda: fv.vol_chunk_(*cur, *prev, *big[2:], scal,
+                                                ri, path=p), 10,
+                2 * ri + 3, one)
+
+    # the one-shard band of 512x512x8 (halo 22 at ri 10)
+    H = 2 * ri + 2
+    band = [window(a, -H, n + H) for a in big]
+    bscal = torch.tensor(head + [-H, H, H + n], device=dev)
+    route = fv.vol_pick_route(None, L, n + 2 * H, n, "square", dev, False,
+                              "vol_chunk_halo")
+    check(route[0] == "tiled", f"vol_chunk_halo_ band: the shape rule takes "
+          f"{route}")
+    label = f"vol_chunk_halo_ {n + 2 * H}x{n}x{L} band (halo {H}), tile " \
+            f"{route[1]}"
+    out = tiled_both(label, fv.vol_chunk_halo_, band[:2], band[2:], bscal,
+                     ri, n)
+    rows["vol_chunk_halo_tiled"]["err"] = tiled_against_plain(
+        label, out, fv.vol_chunk_halo_plain(*band, bscal, ri, n), 4)
+    bcur = [t.clone() for t in band[:2]]
+    bprev = [t.clone() for t in bcur]
+    seen["band"] = turns(
+        f"vol_chunk_halo_ {n + 2 * H}x{n}x{L} band",
+        lambda p: lambda: fv.vol_chunk_halo_(*bcur, *bprev, *band[2:], bscal,
+                                             ri, n, path=p), 10,
+        2 * ri + 3, one)
+
+    # the multichunk: every chunk run (tolerance 0) at 512x512x8, 8 chunks
+    # of 10, and at 300x211x5, 5 chunks of 3 (slot B copied back)
+    for seed, (Lc, nx, ny, count, k) in enumerate(((L, n, n, ri, 8),
+                                                   (5, 300, 211, 3, 5))):
+        state = vol_kernel_inputs(Lc, nx, ny, 995 + seed, dev)
+        consts = consts_of(Lc, nx, ny)
+        label = f"vol_multichunk_ {nx}x{ny}x{Lc}, {k} chunks of {count}"
+        out = tiled_both(label, fv.vol_multichunk_, state[:2], state[2:],
+                         mscal(0.0), count, k, "square", "boyd", consts)
+        check(out[5][5:].tolist() == [0.0, float(k)],
+              f"{label}: not every chunk ran ({out[5].tolist()})")
+        ref = fv.vol_multichunk_plain(*state, mscal(0.0), count, k, "square",
+                                      "boyd", consts)
+        err = tiled_against_plain(label, out[:5], ref[:5], 4, MC_NORM_RTOL)
+        check(out[5][5:].tolist() == ref[5][5:].tolist(),
+              f"{label}: sout's flag or chunk count disagrees with the "
+              "plain version's")
+        rows["vol_multichunk_tiled"]["err"] = max(
+            rows["vol_multichunk_tiled"]["err"], err)
+    mstate = vol_kernel_inputs(L, n, n, 995, dev)
+    mcur = [t.clone() for t in mstate[:2]]
+    mprev = [t.clone() for t in mcur]
+    seen["multichunk"] = turns(
+        f"vol_multichunk_ {n}x{n}x{L}, 8 chunks",
+        lambda p: lambda: fv.vol_multichunk_(
+            *mcur, *mprev, *mstate[2:], mscal(0.0), ri, 8, "square", "boyd",
+            consts_of(L, n, n), path=p), 3, 1 + 8 * (2 * ri + 2), one * 8)
+
+    # the route's light calls at 512x512x8, in place on buffers made once
+    m = {"L": L, "nx": n, "ny": n, "f": big[2], "w": big[3], "lmb": VOL_LMB,
+         "radius": 1.0, "dataterm": "square",
+         "lmb_t": torch.tensor(VOL_LMB, device=dev),
+         "radius_t": torch.tensor(1.0, device=dev),
+         "tols_t": tuple(torch.tensor(0.0, device=dev) for _ in range(4)),
+         "adapt_consts": consts_of(L, n, n)}
+    steps = [torch.tensor(v, device=dev) for v in (0.9, 1.1, 1.0, 0.5, 0.0,
+                                                   0.0)]
+    it0, flag = torch.tensor(1, device=dev), torch.tensor(False, device=dev)
+    calls = {}
+    for p in ("streaming", "tiled"):
+        call = fv.VolChunk(m, ri, dev, path=p)
+        multi = fv.VolMultichunk(m, ri, 8, "boyd", dev, path=p)
+        check(call.route[0] == multi.route[0] == p,
+              f"VolChunk / VolMultichunk took {call.route}, {multi.route}")
+        lcur = [t.clone() for t in big[:2]]
+        lprev = [t.clone() for t in lcur]
+        calls[("chunk", p)] = (lambda c=call, a=lcur, b=lprev:
+                               c(a, b, big[2], big[3], *steps[:3], flag))
+        calls[("multi", p)] = (lambda c=multi, a=lcur, b=lprev:
+                               c(a, b, *steps, it0, flag))
+    seen["light"] = turns(f"VolChunk {n}x{n}x{L} light call",
+                          lambda p: calls[("chunk", p)], 20, 2 * ri + 3, one)
+    seen["light_multi"] = turns(
+        f"VolMultichunk {n}x{n}x{L} light call, 8 chunks",
+        lambda p: calls[("multi", p)], 3, 1 + 8 * (2 * ri + 2), one * 8)
+
+    # the rule's tile at counts 2 and 10 (even: no copy back): the call's
+    # fixed cost (the last iteration's norm terms and previous iterate, the
+    # norm pass, the finish) and what an iteration adds
+    per_count = {}
+    rule = fv.vol_pick_route(None, L, n, n, "square", dev, False,
+                             "vol_chunk")
+    for count in (2, ri):
+        pcur = [t.clone() for t in big[:2]]
+        pprev = [t.clone() for t in pcur]
+        sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+        partial = torch.empty(4 * fv._lib().prost_vol_num_blocks(n, n),
+                              device=dev)
+        scratch = fv._scratch("tiled", 0, L, n, n, dev)
+        per_count[count] = time_ms(
+            lambda: fv._launch_chunk("vol_chunk", pcur, pprev, big[2],
+                                     big[3], sc, partial, scratch, rule,
+                                     count, "square"), 20)
+    per_it = (per_count[ri] - per_count[2]) / (ri - 2)
+    print(f"vol_chunk_ {n}x{n}x{L} tiled, tile {rule[1]}, ms a call (CUDA "
+          f"events): {per_count[2]:.4f} at count 2, {per_count[ri]:.4f} at "
+          f"count {ri}: {per_it:.5f} ms an iteration, "
+          f"{per_count[2] - 2 * per_it:.5f} ms of fixed cost")
+    seen["per_count"] = per_count
+
+    # the kernels line: the functional wrappers at 512x512x8 and on its
+    # band; u, q and f in, the new and the previous u and q out (13
+    # volumes, the bound of rows 23 and 26); the design's floor reads u, q
+    # and f and writes u and q an iteration (9 volumes) and writes the
+    # previous iterate once (4)
+    mc = mscal(0.0)
+    consts = consts_of(L, n, n)
+    for name, fn, plain, args, nb, chunks, tiled in (
+            ("vol_chunk_tiled", fv.vol_chunk, fv.vol_chunk_plain,
+             (*big, scal, ri), L * n * n, 1, one),
+            ("vol_chunk_halo_tiled", fv.vol_chunk_halo,
+             fv.vol_chunk_halo_plain, (*band, bscal, ri, n),
+             L * (n + 2 * H) * n, 1, one),
+            ("vol_multichunk_tiled", fv.vol_multichunk,
+             fv.vol_multichunk_plain,
+             (*mstate, mc, ri, 8, "square", "boyd", consts), L * n * n, 8,
+             one * 8)):
+        r = rows[name]
+        timed(r, lambda: fn(*args), 10 if chunks > 1 else 20,
+              lambda c, t=tiled: c == t, fv)
+        r["plain_ms"] = time_ms(lambda: plain(*args), 1 if chunks > 1 else 2)
+        r["bound"] = bound(13 * nb * 4, vol_chunk_ops(nb, ri, chunks))
+        r["floor_ms"] = (chunks * (9 * ri + 4) * nb * 4 / HBM_BYTES_PER_S
+                         * 1e3)
+        check(r["counted"].get(name) == 1,
+              f"{name}: the wrapper did not launch vol_tiled (counted "
+              f"{r['counted']})")
+        print(f"{name}: wrapper {r['ms']:.4f} ms/call (traced device "
+              f"{fmt_ms(r['traced']['csrc_ms'])} ms in "
+              f"{len(r['traced']['csrc'])} hand-written launches, PyTorch "
+              f"{fmt_ms(r['traced']['torch_ms'])}), plain {r['plain_ms']:.4f} "
+              f"ms/call, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), "
+              f"one pass an iteration {r['floor_ms']:.5f} ms")
+    rows["vol_chunk_tiled"]["turns"] = seen
+    return rows
+
+
 def phase_resident_kernels(dev):
     """Rows 17, 12, 20, 23 and 24 as grid-resident launches (one cooperative
     launch a chunk) against their streaming launch sequences, whole plane
@@ -4512,18 +4767,22 @@ def phase_resident_kernels(dev):
                              *fv.card_limits(dev, Lv)),
           "the 300-row vol band with wsquare's weights takes the resident "
           "launch")
-    before = fv.launch_counts["vol_chunk_halo"]
+    route = fv.vol_pick_route(None, Lv, nv + 2 * Hm, nv, "wsquare", dev,
+                              False, "vol_chunk_halo")
+    before = fv.launch_counts["vol_chunk_halo_tiled"]
     out_ws = fv.vol_chunk_halo(*ext_v, scal(*head, VOL_LMB, 1.0, -Hm, Hm,
                                            Hm + nv), ri, nv, "wsquare")
     traced = csrc_launches(lambda: fv.vol_chunk_halo(
         *ext_v, scal(*head, VOL_LMB, 1.0, -Hm, Hm, Hm + nv), ri, nv,
         "wsquare"))[0]
-    check(all(bool(torch.isfinite(t).all()) for t in out_ws)
-          and fv.launch_counts["vol_chunk_halo"] > before
+    check(route[0] == "tiled"
+          and all(bool(torch.isfinite(t).all()) for t in out_ws)
+          and fv.launch_counts["vol_chunk_halo_tiled"] > before
           and "vol_resident" not in traced,
-          "vol_chunk_halo with wsquare on the 300-row band did not stream")
-    print(f"vol_chunk_halo wsquare {nv + 2 * Hm} rows: streams by the shape "
-          f"rule ({len(traced)} hand-written launches)")
+          f"vol_chunk_halo with wsquare on the 300-row band did not run "
+          f"tiled ({route})")
+    print(f"vol_chunk_halo wsquare {nv + 2 * Hm} rows: tiled by the shape "
+          f"rule, tile {route[1]} ({len(traced)} hand-written launches)")
     return out
 
 
@@ -5031,7 +5290,7 @@ def phase_resident_chunk_multi(dev):
           f"memory a vol multichunk block (it holds "
           f"{fv.resident_bytes(L, n, n, sms, multi=True)} at {n}x{n}x{L}, "
           f"{fv.resident_bytes(L, n, n, sms, 'wsquare', True)} with "
-          f"wsquare; {VOL_LARGE}x{VOL_LARGE}x{L} streams: "
+          f"wsquare; {VOL_LARGE}x{VOL_LARGE}x{L} takes the tiled launch: "
           f"{fv.resident_bytes(L, VOL_LARGE, VOL_LARGE, sms, multi=True)}), "
           f"{fa.admm_card_limits(dev)[1]} an ADMM chunk block (it holds "
           f"{fa.admm_resident_bytes(nx, ny, sms, 'square')})")
@@ -6177,6 +6436,7 @@ def sharded_solves(rank, world, init_method, card):
         out["deblur2048"] = deblur_large_sharded(rank, world, mesh, card)
         out["ml512"] = ml_large_sharded(rank, world, mesh, card)
         out["tight512"] = tight_large_sharded(rank, world, mesh, card)
+        out["vol512"] = vol_large_sharded(rank, world, mesh, card)
         out["dp"] = dp_ensemble(rank, world, card)
         return out
     finally:
@@ -6300,6 +6560,44 @@ def tight_large_sharded(rank, world, mesh, card):
     return {"launches": launches["tight_chunk_halo_tiled"], "rel": rel}
 
 
+def vol_large_sharded(rank, world, mesh, card):
+    """ShardedFusedVol on 8 noisy slices of data/dog.png at 512x512x8
+    (VOL_LARGE, 300 iterations at ri 10): each rank's band with its 22
+    rows of halo each side takes the tiled halo chunk; its energy against
+    the one-card fused route's (tiled too), which each rank solves too.
+    Returns the tiled halo launches and the relative difference."""
+    from prost_tpu_torch.backend import PDHGOptions
+    from prost_tpu_torch.ops import fused_vol as fv
+    from prost_tpu_torch.parallel import ShardedFusedVol
+
+    n, L = VOL_LARGE, VOL_LABELS
+    f = vol_data(L, n, n)
+    opts = PDHGOptions(stepsize="boyd", residual_iter=10)
+    one, _, _ = run_model(recording("pdhg", opts), vol_model(n, n, L, f),
+                          n * n * L, 300, num_cback_calls=2)
+    fv.reset_launch_counts()
+    res, backend, _ = run_model(
+        recording("pdhg", opts,
+                  lambda p, o, so: ShardedFusedVol(p, o, so, mesh)),
+        vol_model(n, n, L, f), n * n * L, 300, num_cback_calls=2)
+    launches = {k: v for k, v in fv.launch_counts.items() if v}
+    check(set(launches) == {"vol_chunk_halo", "vol_chunk_halo_tiled"}
+          and launches["vol_chunk_halo_tiled"] == launches["vol_chunk_halo"]
+          > 0, f"the sharded {n}x{n}x{L} volumetric route launched "
+          f"{launches}")
+    e, e1 = (vol_energy(r.x, f, VOL_LMB, L, n, n) for r in (res, one))
+    rel = abs(e - e1) / abs(e1)
+    print(f"rank {rank}: sharded vol solve {n}x{n}x{L} on {world} rank(s) "
+          f"(tiled halo chunk, route {backend.made.call.route}): "
+          f"{res.result.value} after {res.iterations} iterations, "
+          f"{res.iterations / backend.loop_s:.1f} it/s; energy {e:.6f}, one "
+          f"card {e1:.6f}, rel diff {rel:.3e} (tol {ENERGY_RTOL:g}); "
+          f"launches {launches} [{card}]")
+    check(rel <= ENERGY_RTOL, f"the sharded {n}x{n}x{L} volumetric energy "
+          "disagrees with the one-card fused route's")
+    return {"launches": launches["vol_chunk_halo_tiled"], "rel": rel}
+
+
 def cheby65(rank, world, mesh, card):
     """ShardedFusedADMM at Chebyshev degree 65, above the 64 that a fixed
     launch argument of its halo iteration once held (ROADMAP C3), on
@@ -6388,9 +6686,10 @@ def phase_sharded_solve(card, one_card):
     """Phase 16: the halo-sharded routes on one NCCL rank per card, each
     energy against ``one_card[kind]``, the one-card fused route's; the
     sharded deblur route at 2048x2048, the sharded multilabel route at
-    512x512x8 and the sharded tight route at 512x512x4 on their tiled halo
-    chunks (``deblur_large_sharded``, ``ml_large_sharded``,
-    ``tight_large_sharded``)."""
+    512x512x8, the sharded tight route at 512x512x4 and the sharded
+    volumetric route at 512x512x8 on their tiled halo chunks
+    (``deblur_large_sharded``, ``ml_large_sharded``, ``tight_large_sharded``,
+    ``vol_large_sharded``)."""
     import multiprocessing as mp
     import os
     import tempfile
@@ -6441,6 +6740,8 @@ def phase_sharded_solve(card, one_card):
                                           for r in per_rank)
     launches["tight_chunk_halo_tiled"] = sum(r["tight512"]["launches"]
                                              for r in per_rank)
+    launches["vol_chunk_halo_tiled"] = sum(r["vol512"]["launches"]
+                                           for r in per_rank)
     c65 = per_rank[0]["admm65"]
     if c65 is not None:
         print(f"sharded ADMM at Chebyshev degree 65 on {world} rank(s): "
@@ -6528,6 +6829,72 @@ def banded_row(row, label, seen, name, nbytes, ops):
           f"{b[0]:.5f} ms ({b[1]})")
 
 
+def vol_large(card, ri=10):
+    """Phase 14's volumetric route at 512x512x8 (VOL_LARGE, 300
+    iterations): its multichunks and chunks on the tiled path by the shape
+    rule, their first calls traced as rows 27 and 28 (``banded_row``), the
+    solve in turns with the streaming sequence (tiled, streaming,
+    streaming, tiled: it/s, the energies equal).  Returns the tiled
+    launches."""
+    from prost_tpu_torch.backend import PDHGOptions
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    tiled = {}
+    nx = ny = VOL_LARGE
+    L = VOL_LABELS
+    f = vol_data(L, nx, ny)
+    v_opts = PDHGOptions(stepsize="boyd", residual_iter=10)
+    fv.reset_launch_counts()
+    with first_calls(fv.VolChunk, fv.VolMultichunk) as seen:
+        res, backend, dt = run_model(
+            recording("pdhg", v_opts), vol_model(nx, ny, L, f), nx * ny * L,
+            300, num_cback_calls=2)
+    launches = single_launches(fv)
+    counted = {k: fv.launch_counts[k] for k in ("vol_chunk_tiled",
+                                                "vol_multichunk_tiled")}
+    nvox = nx * ny * L
+    banded_row(28, f"vol_chunk {nx}x{ny}x{L} (tiled path)", seen,
+               "VolChunk", 13 * nvox * 4, vol_chunk_ops(nvox, ri))
+    banded_row(27, f"vol_multichunk {nx}x{ny}x{L} (8 chunks, tiled path)",
+               seen, "VolMultichunk", 13 * nvox * 4,
+               vol_chunk_ops(nvox, ri, 8))
+    check(backend.made.vol is not None
+          and all(v > 0 for v in launches.values()),
+          f"a volumetric kernel was not launched at {nx}x{ny}x{L}: "
+          f"{launches}")
+    routes = (backend.made.vol["multi"].route,
+              backend.made.vol["call"].route)
+    check(all(r[0] == "tiled" for r in routes)
+          and counted["vol_chunk_tiled"] == launches["vol_chunk"] > 0
+          and counted["vol_multichunk_tiled"] == launches["vol_multichunk"]
+          > 0, f"the {nx}x{ny}x{L} volumetric multichunks and chunks did "
+          f"not run tiled: {routes}, {counted} tiled of {launches}")
+    tiled.update(counted)
+    e_tiled = vol_energy(res.x, f, VOL_LMB, L, nx, ny)
+    check(np.isfinite(e_tiled), "the volumetric energy is not finite")
+    print(f"fused vol solve {nx}x{ny}x{L} (multichunk and chunk on the "
+          f"tiled path, tiles {routes[0][1]} and {routes[1][1]}; tiled "
+          f"launches {counted}): {rates(res, backend, dt)}; energy "
+          f"{e_tiled:.6f}, launches {launches} [{card}]")
+    its = []
+    for p in ("tiled", "streaming", "streaming", "tiled"):
+        res, backend, dt = run_model(
+            recording("pdhg", v_opts, vol_path=p), vol_model(nx, ny, L, f),
+            nx * ny * L, 300, num_cback_calls=2)
+        check(backend.made.vol["call"].route[0] == p
+              and backend.made.vol["multi"].route[0] == p,
+              f"the {nx}x{ny}x{L} volumetric solve did not take the {p} "
+              "path")
+        check(vol_energy(res.x, f, VOL_LMB, L, nx, ny) == e_tiled,
+              f"the {p} {nx}x{ny}x{L} volumetric solve's energy is not the "
+              "tiled one's")
+        its.append(res.iterations / backend.loop_s)
+    print(f"fused vol solve {nx}x{ny}x{L} in turns, iterating it/s: tiled "
+          f"{its[0]:.1f}, streaming {its[1]:.1f}, streaming {its[2]:.1f}, "
+          f"tiled {its[3]:.1f}; the four energies equal [{card}]")
+    return tiled
+
+
 def phase_large(card):
     """Both fused ROF routes at 2048x2048, the fused multilabel route at
     512x512x8, the deblur route at 2048x2048, the tight route at 512x512x4
@@ -6536,17 +6903,16 @@ def phase_large(card):
     phase of the routes that have one; the PDHG ROF route's and the
     Chebyshev ADMM route's chunks and multichunks, and the deblur route's
     chunks, on the tiled path (their launches returned for the kernels
-    line), the multilabel route's chunks and multichunks on the tiled
-    path too, and each of these solves in turns with the streaming
-    sequence (tiled, streaming, streaming, tiled: it/s, the energies
-    equal)."""
+    line), the multilabel and volumetric routes' chunks and multichunks
+    (``vol_large``) and the tight route's chunks on the tiled path too,
+    and each of these solves in turns with the streaming sequence (tiled,
+    streaming, streaming, tiled: it/s, the energies equal)."""
     from prost_tpu_torch.backend import ADMMOptions, PDHGOptions
     from prost_tpu_torch.ops import fused_admm as fa
     from prost_tpu_torch.ops import fused_deblur as fd
     from prost_tpu_torch.ops import fused_multilabel as fm
     from prost_tpu_torch.ops import fused_rof as fr
     from prost_tpu_torch.ops import fused_tight as ft
-    from prost_tpu_torch.ops import fused_vol as fv
 
     nx = ny = 2048
     lmb = 16.0
@@ -6739,35 +7105,9 @@ def phase_large(card):
           f"tiled {its[3]:.1f}; the four energies (and the constraint "
           f"measures) equal [{card}]")
 
-    nx = ny = VOL_LARGE
-    L = VOL_LABELS
-    f = vol_data(L, nx, ny)
-    fv.reset_launch_counts()
-    with first_calls(fv.VolChunk, fv.VolMultichunk) as seen:
-        res, backend, dt = run_model(
-            recording("pdhg", PDHGOptions(stepsize="boyd",
-                                          residual_iter=10)),
-            vol_model(nx, ny, L, f), nx * ny * L, 300, num_cback_calls=2)
-    launches = single_launches(fv)
-    nvox = nx * ny * L
-    banded_row(28, f"vol_chunk {nx}x{ny}x{L}", seen, "VolChunk",
-               13 * nvox * 4, vol_chunk_ops(nvox, ri))
-    banded_row(27, f"vol_multichunk {nx}x{ny}x{L} (8 chunks)", seen,
-               "VolMultichunk", 13 * nvox * 4, vol_chunk_ops(nvox, ri, 8))
-    check(backend.made.vol is not None
-          and all(v > 0 for v in launches.values()),
-          f"a volumetric kernel was not launched at {nx}x{ny}x{L}: "
-          f"{launches}")
-    e = vol_energy(res.x, f, VOL_LMB, L, nx, ny)
-    check(np.isfinite(e), "the volumetric energy is not finite")
-    check(not backend.made.vol["multi"].resident
-          and not backend.made.vol["call"].resident,
-          "the shape rule made VOL_LARGE's multichunk or chunk resident")
-    print(f"fused vol solve {nx}x{ny}x{L} (streaming path): "
-          f"{rates(res, backend, dt)}; energy {e:.6f}, launches {launches} "
-          f"[{card}]")
-    print("banded rows at their banded shapes (rows 19, 16, 14 and 22 "
-          "tiled, the others streaming): " + json.dumps(BANDED))
+    tiled.update(vol_large(card))
+    print("banded rows at their banded shapes (rows 19, 16, 14, 22, 28 and "
+          "27 tiled, the others streaming): " + json.dumps(BANDED))
     return tiled
 
 
@@ -7355,6 +7695,7 @@ def main() -> int:
     rows.update(phase(phase_tiled_deblur, dev))
     rows.update(phase(phase_tiled_ml, dev))
     rows.update(phase(phase_tiled_tight, dev))
+    rows.update(phase(phase_tiled_vol, dev))
     launches, e_pdhg, d_pdhg = phase(phase_solve, card)
     admm_launches, e_admm = phase(phase_admm_solve, card, e_pdhg, d_pdhg)
     launches.update(admm_launches)
@@ -7436,6 +7777,11 @@ def main() -> int:
                               "prost_tpu/ops/fused_tight.py:318"),
         "tight_chunk_halo_tiled": ("fused_tight",
                                    "prost_tpu/ops/fused_tight.py:318"),
+        "vol_chunk_tiled": ("fused_vol", "prost_tpu/ops/fused_vol.py:461"),
+        "vol_multichunk_tiled": ("fused_vol",
+                                 "prost_tpu/ops/fused_vol.py:525"),
+        "vol_chunk_halo_tiled": ("fused_vol",
+                                 "prost_tpu/ops/fused_vol.py:461"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

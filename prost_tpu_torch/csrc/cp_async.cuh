@@ -1,6 +1,7 @@
 // The asynchronous copies into shared memory of the tiled chunks' windows
 // (csrc/fused_admm.cu admm_tiled, csrc/fused_deblur.cu deblur_tiled,
-// csrc/fused_multilabel.cu ml_tiled, csrc/fused_tight.cu tight_tiled).
+// csrc/fused_multilabel.cu ml_tiled, csrc/fused_tight.cu tight_tiled,
+// csrc/fused_vol.cu vol_tiled).
 
 #pragma once
 

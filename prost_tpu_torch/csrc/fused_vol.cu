@@ -9,12 +9,14 @@
 //                               -> _vol_chunk_kernel (halo=True)
 // whose math is _vol_chunk_core, _vol_update, _vol_ops (whole volume,
 // maskless x/y adjoints) and _project_dead_dual_vol in the same file, and
-// adapt_scalars in fused_rof.py.  They also serve the JAX package's banded
-// variants (vol_fused_chunk_banded, vol_fused_multichunk_banded), which
-// exist only because a TPU core's VMEM holds volumes of up to about 1.1 M
-// voxels: here the volume stays in device memory at every size.  The plain
-// PyTorch versions live beside their wrappers in
-// prost_tpu_torch/ops/fused_vol.py.
+// adapt_scalars in fused_rof.py; and the JAX package's banded variants
+//   prost_tpu/ops/fused_vol.py  vol_fused_chunk_banded
+//                               -> _vol_banded_kernel, _vol_banded_db_kernel
+//   prost_tpu/ops/fused_vol.py  vol_fused_multichunk_banded
+//                               -> _vol_banded_mc_kernel
+// (a TPU core's VMEM holds volumes of up to about 1.1 M voxels) with the
+// tiled chunk (vol_tiled, further down).  The plain PyTorch versions live
+// beside their wrappers in prost_tpu_torch/ops/fused_vol.py.
 //
 // Layout (the JAX package's): u, f, w are (L, nx, ny) row-major f32
 // volumes; q and the carried gradient g are three such volumes back to
@@ -51,7 +53,10 @@
 // launch that takes the instances one after another
 // (vol_resident_batched), and the multichunk as one such launch for all
 // its chunks with the adaptation between them (vol_multichunk_resident),
-// each bit-equal to the sequence.
+// each bit-equal to the sequence.  Where they do not (512x512x8 and its
+// one-shard halo band), the chunk, its halo mode and the multichunk run
+// one tiled cooperative launch a chunk (vol_tiled), one pass over device
+// memory an iteration.
 //
 // Design.  One thread per (i, j) pixel of the 32x8 pixel grid of
 // pdhg_chunk.cuh, looping over the L labels, as in fused_multilabel.cu: the
@@ -77,6 +82,7 @@
 // Interface: plain C, loaded with ctypes; pointers and the stream arrive
 // as void*, and every entry point returns the cudaError_t of its launches.
 
+#include "cp_async.cuh"
 #include "pdhg_chunk.cuh"
 
 namespace {
@@ -855,6 +861,448 @@ int chunk(const Vol& b, int count, int dataterm, int batch, cudaStream_t s) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// The tiled chunk and multichunk (vol_fused_chunk_banded ->
+// _vol_banded_kernel, _vol_banded_db_kernel; vol_fused_multichunk_banded ->
+// _vol_banded_mc_kernel), for the volumes whose bands no grid-resident
+// launch holds: 512x512x8 and its one-shard halo band of 556 rows.  The TPU
+// kernels run one launch a chunk over row bands, each band's window with
+// 2 count + 2 rows of halo DMAed into VMEM and the whole chunk run there.
+//
+// What bounds it.  A chunk's window would need a halo of 2 count + 1
+// pixels (21 at ri 10) and about 9L floats a pixel: at L = 8 even an 8x32
+// tile's window does not fit in a block's shared memory.  One iteration
+// needs only one pixel around a tile, as the multilabel chunk's
+// (csrc/fused_multilabel.cu ml_tiled): the dual step at a pixel reads the
+// new and the old u one row below and one column right, the new u there
+// K^T q, which reads q_x one row up and q_y one column left; along the
+// label axis a pixel's thread walks its L labels, and the ball is voxel by
+// voxel.  So each iteration is one pass over device memory: u, q and f
+// read (5L planes, through the windows' overlap; wsquare's w at the
+// pixel), u and q written (4L): 9L planes, 75.5 MB at 512x512x8, 22.5 us
+// at the card's memory rate, where the streaming sequence moves about 20L
+// planes in two launches.  The two slots and f (75 MB) exceed the 50 MB
+// L2.
+//
+// Design.  One cooperative launch a chunk, one block of VT_THREADS on each
+// SM, a grid barrier between iterations: iteration t reads u and q from
+// slot (start + t) mod 2 (slot A the caller's u and q, slot B 4L planes of
+// scratch) and writes the other.  The blocks walk the volume's tiles (tx
+// rows, a multiple of 8, by ty columns, of 32); a tile's window is the
+// tile and vol_tiled_halo() = 1 pixel on every side (ops/fused_vol.py;
+// tests/test_torch_tiled_vol.py holds the plain twin exact with it and not
+// without it), and on the chunk's last iteration one more row above and
+// column left of it; zero outside the volume.  In shared memory 5L planes
+// of the window and L of the tile:
+//   1. cp.async loads of u, q_x, q_y, q_l and f, the dead duals zeroed
+//      (vol_seed's projection: q_x on the global last row, q_y on the last
+//      column; the dual step keeps them zero, so every load may do it);
+//   2. vol_primal's step on the tile and one row below and one column
+//      right of it (on the last iteration also one row above and one
+//      column left), the new u into f's planes (f is read only there;
+//      wsquare's w is read from device memory by the pixel's thread);
+//   3. vol_dual's step at the owned pixels into the other slot: the
+//      carried gradient of the old u, which the streaming sequence keeps
+//      in 3L planes, recomputed from the window by vol_seed's expressions,
+//      which give the same bits.  On the chunk's last iteration the old q
+//      also goes into the caller's previous-iterate planes, and the dual
+//      step also runs one row above and one column left of the tile, each
+//      new q into the window in place of the old (read there only by its
+//      own pixel's thread).
+// The norms, from the values the last iteration holds: its primal step
+// keeps each owned voxel's w_hat (K^T of the old q at hand) in L shared
+// planes of the tile after the window; its dual step makes the |pd|^2 and
+// |z_hat|^2 terms; after a block barrier, step 4 takes K^T of the new q
+// from the window (the neighbours' new q_x one row up and q_y one column
+// left made by the widened dual step) for the |dd|^2 and |w_hat|^2 terms,
+// and puts the old u into the previous-iterate plane (w_hat's trip
+// through that plane in device memory instead is slower:
+// tools/vol_tiled_probe.py times it).  The buffers' pointers are read once
+// into registers.  The four terms go into 4 planes after slot B; after a
+// grid barrier the blocks reduce
+// vol_norm_partial's 32x8 tiles (VT_THREADS / NT at a time, in
+// block_partials' tree) for pdhg_finish.  Every mask is decided by the
+// pixel's place in the volume (the row context RowCtx of a halo band
+// included), never by its place in the window.  Planes, previous iterates
+// and norms are the streaming sequence's bit for bit.  A chunk is the
+// launch, the finish and, after an odd count, the copy back of slot B
+// (vol_tiled_settle); a multichunk is up to k_chunks launches, chunk c
+// from slot (c count) mod 2, each followed by pdhg_finish's adaptation and
+// stopping test, and one settle where the count is odd.  A launch whose
+// flag is set at entry returns before its first barrier.
+// ---------------------------------------------------------------------------
+
+constexpr int VT_THREADS = RES_THREADS;  // a block: 16 rows of 32 threads
+
+// The dynamic shared memory of a block of the tiled launch on tx x ty
+// tiles of L labels (mirrored by ops/fused_vol.py vol_tiled_bytes): 5L
+// planes of the window (the tile, 2 pixels before it and 1 after it on each
+// axis) and L planes of the tile (w_hat), at least the norm pass's trees.
+inline size_t vol_tiled_smem(int L, int tx, int ty) {
+  const size_t planes =
+      (size_t)5 * L * (tx + 3) * (ty + 3) + (size_t)L * tx * ty;
+  return (planes > (size_t)RES_RED ? planes : (size_t)RES_RED) * sizeof(float);
+}
+
+// One iteration on tile `tile` of the tiles of tx x ty: the window from
+// slot `src`, the owned pixels into slot `dst`; with `last` the old u and
+// q also into the previous-iterate planes (a's up, qp) and the norms'
+// terms into a's terms.  `a` holds f, w and the shapes; `smem` the window
+// and, after the largest window, the tile's w_hat.
+template <int L>
+__device__ __forceinline__ void vol_tiled_iteration(
+    const Vol& src, const Vol& dst, const Vol& a, const RowCtx& r,
+    const VolStep& k, int dataterm, int tile, int tx, int ty, bool last,
+    float* smem) {
+  const int nx = a.nx, ny = a.ny;
+  const size_t n = (size_t)nx * ny, nl = n * L;
+  const int ntc = (ny + ty - 1) / ty;
+  const int R0 = tile / ntc * tx, C0 = tile % ntc * ty;
+  const int R1 = min(R0 + tx, nx), C1 = min(C0 + ty, ny);
+  const int r0 = R0 - 2, c0 = C0 - 2;
+  const int ww = C1 + 1 - c0, m = (R1 + 1 - r0) * ww;
+  const MWin U{smem, r0, c0, ww, m}, QX{smem + L * m, r0, c0, ww, m};
+  const MWin QY{smem + 2 * L * m, r0, c0, ww, m};
+  const MWin QL{smem + 3 * L * m, r0, c0, ww, m};
+  const MWin F{smem + 4 * L * m, r0, c0, ww, m};  // f, then the new u
+  const int tn = tx * ty;  // w_hat of owned voxel (l, i, j): WH[l tn + ...]
+  float* const WH = smem + (size_t)5 * L * (tx + 3) * (ty + 3);
+  const int e = last ? 1 : 0;  // the last iteration's row and column more
+  const float* const su = src.u;
+  const float* const sq = src.q;
+  const float* const fp = a.f;
+  const float* const wv = a.w;
+  float* const du = dst.u;
+  float* const dq = dst.q;
+  float* const up = a.up;
+  float* const qp = a.qp;
+  float* const terms = a.terms;
+
+  // 1. the window's rows [R0 - 1 - e, R1] and columns [C0 - 1 - e, C1] of
+  //    the state and f, zero outside the volume, the dead duals zero
+  const int lr = R0 - 1 - e, lc = C0 - 1 - e;
+  const int lw = C1 + 1 - lc, lm = (R1 + 1 - lr) * lw;
+  for (int p = threadIdx.x; p < lm; p += VT_THREADS) {
+    const int i = lr + p / lw, j = lc + p % lw;
+    const int wp = (i - r0) * ww + (j - c0);
+    if (i >= 0 && i < nx && j >= 0 && j < ny) {
+      const size_t g = (size_t)i * ny + j;
+      const bool dead = dead_row(r, i), last_col = j == ny - 1;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const size_t gl = l * n + g;
+        cp_async4(U.a + l * m + wp, su + gl);
+        cp_async4(F.a + l * m + wp, fp + gl);
+        if (dead)
+          QX.a[l * m + wp] = 0.f;
+        else
+          cp_async4(QX.a + l * m + wp, sq + gl);
+        if (last_col)
+          QY.a[l * m + wp] = 0.f;
+        else
+          cp_async4(QY.a + l * m + wp, sq + nl + gl);
+        cp_async4(QL.a + l * m + wp, sq + 2 * nl + gl);
+      }
+    } else {
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        U.a[l * m + wp] = 0.f;
+        F.a[l * m + wp] = 0.f;
+        QX.a[l * m + wp] = 0.f;
+        QY.a[l * m + wp] = 0.f;
+        QL.a[l * m + wp] = 0.f;
+      }
+    }
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  // 2. vol_primal on rows [R0 - e, R1] and columns [C0 - e, C1] inside the
+  //    volume; the last iteration's w_hat at the owned voxels into WH
+  const int pr = max(R0 - e, 0), pc = max(C0 - e, 0);
+  const int pw = min(C1, ny - 1) + 1 - pc;
+  const int np = (min(R1, nx - 1) + 1 - pr) * pw;
+  for (int p = threadIdx.x; p < np; p += VT_THREADS) {
+    const int i = pr + p / pw, j = pc + p % pw;
+    const size_t g = (size_t)i * ny + j;
+    const bool above = has_above(r, i);
+    const bool own = last && i >= R0 && i < R1 && j >= C0 && j < C1;
+    float ql_below = 0.f;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const float qx = QX.at(l, i, j), qy = QY.at(l, i, j);
+      const float ql = QL.at(l, i, j);
+      const float lx = above ? QX.at(l, i - 1, j) : 0.f;
+      const float ly = j > 0 ? QY.at(l, i, j - 1) : 0.f;
+      const float kty = ((lx - qx) + (ly - qy)) + (ql_below - ql);
+      ql_below = ql;
+      const float uv = U.at(l, i, j);
+      const float arg = uv - k.tau * kty;
+      const float fv = F.at(l, i, j);
+      float un;
+      if (dataterm == DT_SQUARE) {
+        const float dt0 = k.tl * fv;
+        const float dt1 = 1.f / (1.f + k.tl);
+        un = (arg + dt0) * dt1;
+      } else if (dataterm == DT_WSQUARE) {
+        const float tw = k.tl * wv[l * n + g];
+        const float dt0 = tw * fv;
+        const float dt1 = 1.f / (1.f + tw);
+        un = (arg + dt0) * dt1;
+      } else {  // abs
+        const float d = arg - fv;
+        un = arg - fminf(fmaxf(d, -k.tl), k.tl);
+      }
+      if (own)
+        WH[l * tn + (i - R0) * ty + (j - C0)] =
+            (uv - un) * k.inv_t - SQRT_T * kty;
+      F.at(l, i, j) = un;
+    }
+  }
+  __syncthreads();
+
+  // 3. vol_dual on rows [R0 - e, R1) and columns [C0 - e, C1) inside the
+  //    volume, the owned pixels into slot dst
+  const int dr = max(R0 - e, 0), dc = max(C0 - e, 0);
+  const int dw = C1 - dc, nd = (R1 - dr) * dw;
+  for (int p = threadIdx.x; p < nd; p += VT_THREADS) {
+    const int i = dr + p / dw, j = dc + p % dw;
+    const size_t g = (size_t)i * ny + j;
+    const bool own = i >= R0 && j >= C0;
+    const bool below = has_below(r, i, nx), right = j < ny - 1;
+    float v0 = 0.f, v1 = 0.f;
+    float un = F.at(0, i, j), uo = U.at(0, i, j);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const size_t gv = l * n + g;
+      const float uv = un, ov = uo;
+      un = l < L - 1 ? F.at(l + 1, i, j) : 0.f;
+      uo = l < L - 1 ? U.at(l + 1, i, j) : 0.f;
+      const float gxn = below ? F.at(l, i + 1, j) - uv : 0.f;
+      const float gyn = right ? F.at(l, i, j + 1) - uv : 0.f;
+      const float gln = un - uv;
+      const float gx = below ? U.at(l, i + 1, j) - ov : 0.f;  // carried g
+      const float gy = right ? U.at(l, i, j + 1) - ov : 0.f;
+      const float gl = uo - ov;
+      const float qx = QX.at(l, i, j), qy = QY.at(l, i, j);
+      const float ql = QL.at(l, i, j);
+      const float ax = (qx + k.sig_p * gxn) - k.sig_t * gx;
+      const float ay = (qy + k.sig_p * gyn) - k.sig_t * gy;
+      const float al = (ql + k.sig_p * gln) - k.sig_t * gl;
+      const float nn = (ax * ax + ay * ay) + al * al;
+      const float scale = nn > 0.f ? fminf(1.f, k.radius * rsqrtf(nn)) : 1.f;
+      const float qxn = ax * scale, qyn = ay * scale, qln = al * scale;
+      if (own) {
+        du[gv] = uv;
+        dq[gv] = qxn;
+        dq[nl + gv] = qyn;
+        dq[2 * nl + gv] = qln;
+      }
+      if (last) {
+        if (own) {  // vol_norm_partial's |pd|^2 and |z_hat|^2 terms
+          qp[gv] = qx;
+          qp[nl + gv] = qy;
+          qp[2 * nl + gv] = ql;
+          const float th = k.theta, tp = k.tp, inv_s = k.inv_s;
+          const float z0 = (qx - qxn) * inv_s + SQRT_S * (tp * gxn - th * gx);
+          const float z1 = (qy - qyn) * inv_s + SQRT_S * (tp * gyn - th * gy);
+          const float z2 = (ql - qln) * inv_s + SQRT_S * (tp * gln - th * gl);
+          const float pd0 = z0 - SQRT_S * gxn;
+          const float pd1 = z1 - SQRT_S * gyn;
+          const float pd2 = z2 - SQRT_S * gln;
+          v0 += (pd0 * pd0 + pd1 * pd1) + pd2 * pd2;
+          v1 += (z0 * z0 + z1 * z1) + z2 * z2;
+        }
+        QX.at(l, i, j) = qxn;  // read again in step 4 only
+        QY.at(l, i, j) = qyn;
+        QL.at(l, i, j) = qln;
+      }
+    }
+    if (last && own) {
+      terms[g] = v0;
+      terms[n + g] = v1;
+    }
+  }
+  if (!last) return;
+  __syncthreads();
+
+  // 4. at the owned pixels: K^T of the new q, |dd|^2 and |w_hat|^2; the old
+  //    u into up
+  const int ow = C1 - C0, no = (R1 - R0) * ow;
+  for (int p = threadIdx.x; p < no; p += VT_THREADS) {
+    const int i = R0 + p / ow, j = C0 + p % ow;
+    const size_t g = (size_t)i * ny + j;
+    const bool above = has_above(r, i);
+    float v2 = 0.f, v3 = 0.f, ql_below = 0.f;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const size_t gl = l * n + g;
+      const float qx = QX.at(l, i, j), qy = QY.at(l, i, j);
+      const float ql = QL.at(l, i, j);
+      const float lx = above ? QX.at(l, i - 1, j) : 0.f;
+      const float ly = j > 0 ? QY.at(l, i, j - 1) : 0.f;
+      const float kty2 = ((lx - qx) + (ly - qy)) + (ql_below - ql);
+      ql_below = ql;
+      const float wh = WH[l * tn + (i - R0) * ty + (j - C0)];
+      const float dd = wh + SQRT_T * kty2;
+      v2 += dd * dd;
+      v3 += wh * wh;
+      up[gl] = U.at(l, i, j);
+    }
+    terms[2 * n + g] = v2;
+    terms[3 * n + g] = v3;
+  }
+}
+
+// `count` iterations from slot `start` (0: a's planes, 1: b's), then
+// vol_norm_partial's tiles of the last iteration's terms into a's
+// partials.
+template <int L>
+__global__ void __launch_bounds__(VT_THREADS, 1)
+    vol_tiled(Vol a, Vol b, int count, int start, int dataterm, int tx,
+              int ty) {
+  if (a.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const RowCtx r = row_ctx(a.sc, a.nx, a.nxg);
+  const VolStep k = vol_step(a.sc);
+  const int nx = a.nx, ny = a.ny;
+  const int ntiles = ((nx + tx - 1) / tx) * ((ny + ty - 1) / ty);
+  for (int it = 0; it < count; ++it) {
+    const bool from_b = ((start + it) & 1) != 0;
+    const Vol& src = from_b ? b : a;
+    const Vol& dst = from_b ? a : b;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      vol_tiled_iteration<L>(src, dst, a, r, k, dataterm, tile, tx, ty,
+                             it == count - 1, smem);
+      __syncthreads();  // the next window overwrites the planes
+    }
+    grid.sync();
+  }
+
+  // vol_norm_partial's tiles, VT_THREADS / NT at a time (block_partials'
+  // tree), of the terms over the owned rows
+  const size_t n = (size_t)nx * ny;
+  tiled_tile_partials<VT_THREADS>(nx, ny, a.partial, smem,
+                                  [&](int i, int j, float v[4]) {
+    if (!owned_row(r, i)) return;
+    const size_t g = (size_t)i * ny + j;
+    for (int c = 0; c < 4; ++c) v[c] = a.terms[c * n + g];
+  });
+}
+
+// After a tiled chunk (multi 0) whose flag was not set at entry, or a
+// tiled multichunk (multi 1) that ran an odd number of chunks, of an odd
+// count: slot B's u and q into a's planes.
+__global__ void vol_tiled_settle(Vol a, Vol b, int multi) {
+  const bool copy =
+      multi ? ((int)a.sc[S_DONE] & 1) != 0 : a.sc[S_CONV] == 0.f;
+  if (!copy) return;
+  const size_t nl = (size_t)a.nx * a.ny * a.L;
+  for (size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x; t < 4 * nl;
+       t += (size_t)gridDim.x * blockDim.x) {
+    if (t < nl)
+      a.u[t] = b.u[t];
+    else
+      a.q[t - nl] = b.q[t - nl];
+  }
+}
+
+using VolTiledKernel = void (*)(Vol, Vol, int, int, int, int, int);
+
+// The tiled kernel for L labels, or null beyond MAX_RES_L.
+VolTiledKernel vol_tiled_kernel(int L) {
+  switch (L) {
+    case 1: return vol_tiled<1>;
+    case 2: return vol_tiled<2>;
+    case 3: return vol_tiled<3>;
+    case 4: return vol_tiled<4>;
+    case 5: return vol_tiled<5>;
+    case 6: return vol_tiled<6>;
+    case 7: return vol_tiled<7>;
+    case MAX_RES_L: return vol_tiled<MAX_RES_L>;
+    default: return nullptr;
+  }
+}
+
+// The dynamic shared memory a block of the tiled launch may hold on the
+// current device: the smallest of its kernels' limits, or minus the error.
+int vol_tiled_limit() {
+  int limit = -1;
+  for (int L = 1; L <= MAX_RES_L; ++L) {
+    int l = resident_smem_limit(vol_tiled_kernel(L));
+    if (l < 0) return l;
+    limit = limit < 0 || l < limit ? l : limit;
+  }
+  return limit;
+}
+
+// Slot B of the tiled launch: u and q in the first 4L of the scratch's
+// 4L + 4 planes; the norm terms in the last 4 (a's terms).
+Vol slot_b(Vol& a, void* scratch) {
+  const size_t nl = (size_t)a.nx * a.ny * a.L;
+  Vol b = a;
+  b.u = (float*)scratch;
+  b.q = b.u + nl;
+  a.terms = b.q + 3 * nl;
+  b.terms = a.terms;
+  return b;
+}
+
+// One tiled launch of `count` iterations from slot `start`: one block of
+// VT_THREADS on each SM.  Up to MAX_RES_L labels; a tile that is not a
+// multiple of the 32x8 norm tiles or whose window does not fit in a
+// block's shared memory is refused with cudaErrorInvalidValue, a grid the
+// card cannot hold at once by the card
+// (cudaErrorCooperativeLaunchTooLarge).
+int tiled_launch(Vol& a, Vol& b, int count, int start, int dataterm, int tx,
+                 int ty, cudaStream_t st) {
+  VolTiledKernel kernel = vol_tiled_kernel(a.L);
+  if (kernel == nullptr || tx < BY || tx % BY || ty < BX || ty % BX ||
+      count < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = vol_tiled_smem(a.L, tx, ty);
+  const int limit = resident_smem_limit(kernel);
+  if (limit < 0) return -limit;
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int sms = 0, per_sm = 0;
+  if (int rc = device_sms(&sms)) return rc;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      VT_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&a, &b, &count, &start, &dataterm, &tx, &ty};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms),
+                                  dim3(VT_THREADS), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  LAUNCH_CHECK();
+  return 0;
+}
+
+int tiled_settle(const Vol& a, const Vol& b, int multi, cudaStream_t st) {
+  vol_tiled_settle<<<264, 512, 0, st>>>(a, b, multi);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// One tiled chunk: the launch, the finish, and after an odd count the
+// copy back.
+int tiled_chunk(Vol& a, void* scratch, int count, int dataterm, int tx,
+                int ty, cudaStream_t st) {
+  Vol b = slot_b(a, scratch);
+  if (int rc = tiled_launch(a, b, count, 0, dataterm, tx, ty, st)) return rc;
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const dim3 g = grid_of(a.nx, a.ny);
+  pdhg_finish<<<1, FIN, 0, st>>>(a.sc, a.partial, (int)(g.x * g.y), count,
+                                 0, STEP_NONE, none);
+  LAUNCH_CHECK();
+  return count & 1 ? tiled_settle(a, b, 0, st) : 0;
+}
+
 Vol vol_of(void* u, void* q, void* up, void* qp, void* g, void* gp,
            const void* f, const void* w, void* sc, void* partial, int L,
            int nx, int ny) {
@@ -1067,5 +1515,81 @@ int prost_vol_multichunk_resident(void* u, void* q, void* up, void* qp,
   void* args[] = {&b, &count, &k_chunks, &dataterm, &stepsize, &c, &rmax};
   return resident_launch(kernel, args, smem, (cudaStream_t)stream);
 }
+
+// vol_fused_chunk_banded for the volumes no grid-resident band holds: one
+// tiled cooperative launch (vol_tiled), the finish and, after an odd
+// count, the copy back.  The arguments of prost_vol_chunk_resident,
+// `scratch` (4L + 4 (nx, ny) planes: slot B and the norm terms) for
+// `terms`, and the owned tile (tx rows, a multiple of 8; ty columns, of
+// 32).  Bit-equal to prost_vol_chunk in the volumes, the previous iterates
+// and the 4 squared norms.  No-op when sc[S_CONV] is set.  Up to MAX_RES_L
+// labels; a tile the launch cannot take is refused (cudaErrorInvalidValue,
+// or the card's refusal of the cooperative launch).
+int prost_vol_chunk_tiled(void* u, void* q, void* up, void* qp,
+                          const void* f, const void* w, void* sc,
+                          void* partial, void* scratch, int L, int nx,
+                          int ny, int count, int dataterm, int tx, int ty,
+                          void* stream) {
+  Vol a = vol_of(u, q, up, qp, nullptr, nullptr, f, w, sc, partial, L, nx,
+                 ny);
+  return tiled_chunk(a, scratch, count, dataterm, tx, ty,
+                     (cudaStream_t)stream);
+}
+
+// prost_vol_chunk_tiled on one halo-extended shard of the nx axis of a
+// volume of nx_global rows, as prost_vol_chunk_halo takes it (the row
+// context in sc, the norms over the owned rows).  Bit-equal to
+// prost_vol_chunk_halo.
+int prost_vol_chunk_halo_tiled(void* u, void* q, void* up, void* qp,
+                               const void* f, const void* w, void* sc,
+                               void* partial, void* scratch, int L, int nx,
+                               int ny, int nx_global, int count,
+                               int dataterm, int tx, int ty, void* stream) {
+  Vol a = vol_of(u, q, up, qp, nullptr, nullptr, f, w, sc, partial, L, nx,
+                 ny);
+  a.nxg = nx_global;
+  return tiled_chunk(a, scratch, count, dataterm, tx, ty,
+                     (cudaStream_t)stream);
+}
+
+// vol_fused_multichunk_banded as up to k_chunks tiled launches, chunk c
+// from slot (c count) mod 2, each followed by pdhg_finish's adaptation and
+// stopping test, and after an odd count the copy back where an odd number
+// of chunks ran; the arguments of prost_vol_multichunk_resident, `scratch`
+// 4L + 4 (nx, ny) planes for `terms`, and the tile.  Bit-equal to
+// prost_vol_multichunk in the volumes, the previous iterates and sc.
+// Refuses a tile as prost_vol_chunk_tiled does.  No-op when sc[S_CONV] is
+// set.
+int prost_vol_multichunk_tiled(void* u, void* q, void* up, void* qp,
+                               const void* f, const void* w, void* sc,
+                               void* partial, void* scratch, int L, int nx,
+                               int ny, int count, int k_chunks, int dataterm,
+                               int stepsize, float sqrt_nrows,
+                               float sqrt_ncols, float arg_delta,
+                               float arg_nu, float arb_delta, float arb_tau,
+                               int tx, int ty, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Vol a = vol_of(u, q, up, qp, nullptr, nullptr, f, w, sc, partial, L, nx,
+                 ny);
+  Vol b = slot_b(a, scratch);
+  AdaptConsts c = {sqrt_nrows, sqrt_ncols, arg_delta, arg_nu, arb_delta,
+                   arb_tau};
+  const dim3 g = grid_of(nx, ny);
+  for (int ch = 0; ch < k_chunks; ++ch) {
+    if (int rc = tiled_launch(a, b, count,
+                              (int)(((long long)ch * count) & 1), dataterm,
+                              tx, ty, st))
+      return rc;
+    pdhg_finish<<<1, FIN, 0, st>>>(a.sc, a.partial, (int)(g.x * g.y), count,
+                                   1, stepsize, c);
+    LAUNCH_CHECK();
+  }
+  return count & 1 ? tiled_settle(a, b, 1, st) : 0;
+}
+
+// The dynamic shared memory a block of the tiled launch may hold on the
+// current device (the least of its kernels' for 1 to MAX_RES_L labels),
+// or minus the error.
+int prost_vol_tiled_smem() { return vol_tiled_limit(); }
 
 }  // extern "C"

@@ -33,16 +33,21 @@ whole-volume and sharded routes call through ``VolChunk`` and
 a card each runs as one grid-resident cooperative launch (the batched
 chunk's volumes one after another) where the shape rule (``resident_ok``,
 on one volume or band) finds that the volume's planes fit in the shared
-memory of one block per SM, and as the streaming launch sequence
-otherwise; both are bit-equal.  The multichunk likewise runs all its
-chunks as one grid-resident launch where its own rule
-(``resident_ok(..., multi=True)``: w_hat takes a window of its own) holds.
+memory of one block per SM.  The multichunk likewise runs all its chunks
+as one grid-resident launch where its own rule (``resident_ok(...,
+multi=True)``: w_hat takes a window of its own) holds.  Where they do not
+(512x512x8, the JAX package's banded size, and its one-shard halo band),
+the chunk, its halo mode and the multichunk run as one tiled cooperative
+launch a chunk (the JAX ``vol_fused_chunk_banded`` and
+``vol_fused_multichunk_banded``: ``vol_route_of``, a grid barrier an
+iteration, each iteration one pass over device memory through
+overlapping windows of a tile and ``vol_tiled_halo`` pixel a side), and
+beyond 8 labels (and the batched chunk where one volume does not fit) as
+the streaming launch sequence; all are bit-equal.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel, or raises.  There is no fallback and no VMEM gate: the
-kernels keep the volume in device memory, so they also serve the sizes for
-which the JAX package bands its kernels (``vol_fused_chunk_banded``,
-``vol_fused_multichunk_banded``).
+launches the kernel, or raises.  There is no fallback to the generic
+path.
 
 Layout contract (the JAX package's, at every public function): u, f, w
 viewed (L, nx, ny) (label_first=False); y = [gx; gy; gl], each a whole
@@ -68,12 +73,12 @@ from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
                          S_NORM, SOUT, STEPSIZES, VP, WHOLE_PLANE,
                          LightChunk, LightMultichunk, ball_scale,
                          canonical_duals, card_sms, check_buffers,
-                         check_halo, chunk_state,
-                         dual_ball_radius, dx, dy, dyt, entry_converged,
+                         check_halo, check_path, chunk_state,
+                         dual_ball_radius, dx, dy, entry_converged,
                          halo_copy, halo_into, halo_scal_rows,
-                         check_inplace, instance_strides, launch,
+                         check_inplace, instance_strides, label_sum, launch,
                          match_dataterm, multichunk_plain, multichunk_state,
-                         own_vectors, PATHS, pick_path,
+                         own_vectors, pick_path,
                          resident_rows, run_pdhg_route, scalar_buffer,
                          typed_lib, vmap_plain)
 from .phases import K_CHUNKS
@@ -84,8 +89,11 @@ _SQRT_T = 0.4082482904638631  # sqrt(Tau)   = sqrt(1/6)
 DATATERMS = {"square": 0, "wsquare": 1, "abs": 2}
 
 # launches of each kernel wrapper on the card (CPU calls do not count)
+# (a tiled call also counts under its wrapper's name + "_tiled")
 launch_counts = {"vol_chunk": 0, "vol_multichunk": 0,
-                 "vol_chunk_batched": 0, "vol_chunk_halo": 0}
+                 "vol_chunk_batched": 0, "vol_chunk_halo": 0,
+                 "vol_chunk_tiled": 0, "vol_multichunk_tiled": 0,
+                 "vol_chunk_halo_tiled": 0}
 
 
 def reset_launch_counts() -> None:
@@ -113,22 +121,56 @@ def _vol_update(u, qx, qy, ql, gx, gy, gl, dt0, dt1, tau, sig_p, sig_t,
     """One preconditioned PDHG update (JAX ``_vol_update``).  tau arrives
     pre-multiplied by Tau = 1/6; sig_p = sigma*Sigma*(1+theta), sig_t =
     sigma*Sigma*theta; (gx, gy, gl) is grad3(u) carried from the previous
-    iteration; ``rows`` is the volume's ``RowOps`` along nx.  Returns the
-    new state, the new gradient volumes and K^T of the old dual."""
-    kty = rows.dxt(qx) + dyt(qy) + dlt(ql)
+    iteration; ``rows`` is the volume's ``RowOps`` (along nx, and along ny
+    in a window of the columns).  Returns the new state, the new gradient
+    volumes and K^T of the old dual."""
+    kty = rows.dxt(qx) + rows.dyt(qy) + dlt(ql)
     arg = u - tau * kty
     if dataterm in ("square", "wsquare"):
         u_new = (arg + dt0) * dt1
     else:  # abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
         d = arg - dt0
         u_new = arg - torch.minimum(torch.maximum(d, -dt1), dt1)
-    gx_n, gy_n, gl_n = rows.dx(u_new), dy(u_new), dl(u_new)
+    gx_n, gy_n, gl_n = rows.dx(u_new), rows.dy(u_new), dl(u_new)
     ax = qx + sig_p * gx_n - sig_t * gx
     ay = qy + sig_p * gy_n - sig_t * gy
     al = ql + sig_p * gl_n - sig_t * gl
     scale = ball_scale(ax * ax + ay * ay + al * al, radius)
     return (u_new, ax * scale, ay * scale, al * scale, gx_n, gy_n, gl_n,
             kty)
+
+
+def _data_terms(tau, lmb, f, w, dataterm: str):
+    """(dt0, dt1) of the data term's prox, hoisted as in
+    ``_vol_chunk_core``; tau is tau * Tau."""
+    if dataterm == "square":
+        return (tau * lmb) * f, 1.0 / (1.0 + tau * lmb)
+    if dataterm == "wsquare":
+        tw = (tau * lmb) * w
+        return tw * f, 1.0 / (1.0 + tw)
+    return f, tau * lmb
+
+
+def _steps(tau_raw, sigma_raw, theta):
+    """(tau * Tau, sig_p, sig_t) of an update."""
+    tau = tau_raw * (1.0 / 6.0)  # tau * Tau
+    sigma_p = sigma_raw * 0.5    # sigma * Sigma
+    return tau, sigma_p * (1.0 + theta), sigma_p * theta
+
+
+def _residuals(tau_raw, sigma_raw, theta, u, q, u2, q2, g_prev, g_new,
+               ktyp, kty2):
+    """The preconditioned residuals of the aligned iteration from (u, q)
+    to (u2, q2) (q and q2 the triples (q_x, q_y, q_l)), from grad3 of both
+    iterates and K^T of both duals: pd (x, y, l), z_hat (x, y, l), dd and
+    w_hat."""
+    inv_s = 1.0 / (sigma_raw * _SQRT_S)
+    zh = [(a - a2) * inv_s + _SQRT_S * ((1.0 + theta) * g2 - theta * gp)
+          for a, a2, gp, g2 in zip(q, q2, g_prev, g_new)]
+    pd = [z - _SQRT_S * g2 for z, g2 in zip(zh, g_new)]
+    wh = (u - u2) * (1.0 / (tau_raw * _SQRT_T)) - _SQRT_T * ktyp
+    dd = wh + _SQRT_T * kty2
+    return (*pd, *zh, dd, wh)
 
 
 def _vol_chunk_core(tau_raw, sigma_raw, theta, lmb, radius, u0, q0, f, w,
@@ -141,21 +183,12 @@ def _vol_chunk_core(tau_raw, sigma_raw, theta, lmb, radius, u0, q0, f, w,
     volume's ``RowOps`` along nx (a halo-extended shard's: owned-row norms).
 
     Returns (u2, q2, u_prev, q_prev, (n0, n1, n2, n3), (gx2, gy2, gl2))."""
-    tau = tau_raw * (1.0 / 6.0)  # tau * Tau
-    sigma_p = sigma_raw * 0.5    # sigma * Sigma
-    sig_p = sigma_p * (1.0 + theta)
-    sig_t = sigma_p * theta
-    if dataterm == "square":
-        dt0, dt1 = (tau * lmb) * f, 1.0 / (1.0 + tau * lmb)
-    elif dataterm == "wsquare":
-        tw = (tau * lmb) * w
-        dt0, dt1 = tw * f, 1.0 / (1.0 + tw)
-    else:
-        dt0, dt1 = f, tau * lmb
+    tau, sig_p, sig_t = _steps(tau_raw, sigma_raw, theta)
+    dt0, dt1 = _data_terms(tau, lmb, f, w, dataterm)
     qx, qy = rows.project(q0[0], q0[1])
     ql = q0[2]
     u = u0
-    gx, gy, gl = (rows.dx(u0), dy(u0), dl(u0)) if g0 is None else g0
+    gx, gy, gl = (rows.dx(u0), rows.dy(u0), dl(u0)) if g0 is None else g0
     args = (tau, sig_p, sig_t, radius, dataterm, rows)
     for _ in range(count - 1):
         u, qx, qy, ql, gx, gy, gl, _ = _vol_update(u, qx, qy, ql, gx, gy, gl,
@@ -164,26 +197,25 @@ def _vol_chunk_core(tau_raw, sigma_raw, theta, lmb, radius, u0, q0, f, w,
     # aligned iteration; (gxp, gyp, glp) is grad3(u_prev) carried for free
     u2, qx2, qy2, ql2, gx2, gy2, gl2, ktyp = _vol_update(
         u, qx, qy, ql, gxp, gyp, glp, dt0, dt1, *args)
-    kty2 = rows.dxt(qx2) + dyt(qy2) + dlt(ql2)
+    kty2 = rows.dxt(qx2) + rows.dyt(qy2) + dlt(ql2)
+    res = _residuals(tau_raw, sigma_raw, theta, u, (qx, qy, ql), u2,
+                     (qx2, qy2, ql2), (gxp, gyp, glp), (gx2, gy2, gl2), ktyp,
+                     kty2)
+    return (u2, torch.stack([qx2, qy2, ql2]), u, torch.stack([qx, qy, ql]),
+            _norm_sums(res, rows.nsum), (gx2, gy2, gl2))
 
-    inv_s = 1.0 / (sigma_raw * _SQRT_S)
-    zh_x = (qx - qx2) * inv_s + _SQRT_S * ((1.0 + theta) * gx2 - theta * gxp)
-    zh_y = (qy - qy2) * inv_s + _SQRT_S * ((1.0 + theta) * gy2 - theta * gyp)
-    zh_l = (ql - ql2) * inv_s + _SQRT_S * ((1.0 + theta) * gl2 - theta * glp)
-    pd_x = zh_x - _SQRT_S * gx2
-    pd_y = zh_y - _SQRT_S * gy2
-    pd_l = zh_l - _SQRT_S * gl2
-    wh = (u - u2) * (1.0 / (tau_raw * _SQRT_T)) - _SQRT_T * ktyp
-    dd = wh + _SQRT_T * kty2
+
+def _norm_sums(res, nsum):
+    """The four squared norms of ``_residuals``' ``res``, each a sum of
+    ``nsum``s: the x, y and label terms of |pd|^2 and |z_hat|^2 as three
+    whole-volume sums."""
+    pd_x, pd_y, pd_l, zh_x, zh_y, zh_l, dd, wh = res
 
     def ssq(a):
-        return rows.nsum(a * a)
+        return nsum(a * a)
 
-    norms = (ssq(pd_x) + ssq(pd_y) + ssq(pd_l),
-             ssq(zh_x) + ssq(zh_y) + ssq(zh_l),
-             ssq(dd), ssq(wh))
-    return (u2, torch.stack([qx2, qy2, ql2]), u, torch.stack([qx, qy, ql]),
-            norms, (gx2, gy2, gl2))
+    return (ssq(pd_x) + ssq(pd_y) + ssq(pd_l),
+            ssq(zh_x) + ssq(zh_y) + ssq(zh_l), ssq(dd), ssq(wh))
 
 
 def vol_chunk_plain(u, q, f, w, scal, count: int, dataterm: str = "square",
@@ -235,6 +267,113 @@ def vol_multichunk_plain(u, q, f, w, scal, count: int, k_chunks: int,
     return (*planes[:4], norms, sout)
 
 
+def vol_tiled_halo() -> int:
+    """The halo of the tiled chunk's window, in pixels on every side of a
+    tile: an iteration's dual step at a pixel reads the new and the old u
+    one row below and one column right, the new u there K^T q, which
+    reads q_x one row up and q_y one column left (the label axis lies
+    whole in the pixel's thread), so one pixel of the old state around the
+    tile gives the owned pixels exactly; the next iteration loads its
+    window anew."""
+    return 1
+
+
+def vol_chunk_tiled_plain(u, q, f, w, scal, count: int,
+                          dataterm: str = "square", nx_global=None,
+                          tile=(32, 32), halo=None, partials: bool = False):
+    """The tiled chunk (``vol_chunk_`` and ``vol_chunk_halo_`` with
+    ``path="tiled"``) window by window: each iteration ``_vol_update`` on
+    every tile's window (the tile of ``tile`` rows and columns and
+    ``halo`` pixels on every side, clamped at the volume's edges,
+    ``vol_tiled_halo`` by default; every mask decided by the pixel's place
+    in the volume, ``fused_rof.window_ops``), the carried gradient
+    recomputed from the window's u, the owned pixels stitched into new
+    volumes; then the norms of the stitched volumes, grad3 u and K^T q
+    recomputed.  With ``nx_global`` the halo form (the row context read
+    from ``scal``).  Returns ``vol_chunk_plain``'s outputs; with
+    ``partials`` also the 32x8 tiles' partials (``fused_rof.tile_partials``)
+    that the kernel's finish reduces."""
+    from .fused_rof import tile_partials, window_ops
+
+    L, nx, ny = u.shape
+    if nx_global is None:
+        n_scal, off, rows = 5, 0, WHOLE_PLANE
+    else:
+        n_scal, off = N_HALO_SCAL, int(scal[5])
+        rows = halo_scal_rows(scal, nx_global)
+    h = vol_tiled_halo() if halo is None else int(halo)
+    tx, ty = (int(t) for t in tile)
+    tau_raw, sigma_raw, theta, lmb, radius = (scal[k] for k in range(5))
+    tau, sig_p, sig_t = _steps(tau_raw, sigma_raw, theta)
+    dt0, dt1 = _data_terms(tau, lmb, f, w, dataterm)
+    planes = (u, *rows.project(q[0], q[1]), q[2])
+    for _ in range(int(count)):
+        prev, planes = planes, tuple(torch.empty_like(a) for a in planes)
+        for R0 in range(0, nx, tx):
+            for C0 in range(0, ny, ty):
+                R1, C1 = min(R0 + tx, nx), min(C0 + ty, ny)
+                r0, c0 = max(R0 - h, 0), max(C0 - h, 0)
+                r1, c1 = min(R1 + h, nx), min(C1 + h, ny)
+                ops = window_ops(r0, c0, r1 - r0, c1 - c0, nx, ny, off,
+                                 nx_global)
+                win = (..., slice(r0, r1), slice(c0, c1))
+                uw, qxw, qyw, qlw = (a[win] for a in prev)
+                res = _vol_update(
+                    uw, qxw, qyw, qlw, ops.dx(uw), ops.dy(uw), dl(uw),
+                    *(d[win] if torch.is_tensor(d) and d.dim() else d
+                      for d in (dt0, dt1)),
+                    tau, sig_p, sig_t, radius, dataterm, ops)
+                own = (..., slice(R0 - r0, R1 - r0), slice(C0 - c0, C1 - c0))
+                for dst, src in zip(planes, res[:4]):
+                    dst[..., R0:R1, C0:C1] = src[own]
+
+    def k_of(a):
+        x, qx, qy, ql = a
+        return ((rows.dx(x), rows.dy(x), dl(x)),
+                rows.dxt(qx) + rows.dyt(qy) + dlt(ql))
+
+    (g_prev, ktyp), (g_new, kty2) = k_of(prev), k_of(planes)
+    res = _residuals(tau_raw, sigma_raw, theta, prev[0], prev[1:], planes[0],
+                     planes[1:], g_prev, g_new, ktyp, kty2)
+    norms = torch.stack(_norm_sums(res, rows.nsum))
+    conv = entry_converged(scal, n_scal)
+    new_q, prev_q = torch.stack(planes[1:]), torch.stack(prev[1:])
+    out = (torch.where(conv, u, planes[0]), torch.where(conv, q, new_q),
+           torch.where(conv, u, prev[0]), torch.where(conv, q, prev_q),
+           torch.where(conv, torch.zeros_like(norms), norms))
+    if not partials:
+        return out
+    pd_x, pd_y, pd_l, zh_x, zh_y, zh_l, dd, wh = res
+    terms = (label_sum((pd_x * pd_x + pd_y * pd_y) + pd_l * pd_l),
+             label_sum((zh_x * zh_x + zh_y * zh_y) + zh_l * zh_l),
+             label_sum(dd * dd), label_sum(wh * wh))
+    if nx_global is not None:
+        li = torch.arange(nx, device=u.device)[:, None]
+        owned = (li >= int(scal[6])) & (li < int(scal[7]))
+        terms = tuple(torch.where(owned, t, 0.0) for t in terms)
+    return out + (tile_partials(terms),)
+
+
+def vol_multichunk_tiled_plain(u, q, f, w, scal, count: int, k_chunks: int,
+                               dataterm: str, stepsize: str, consts,
+                               tile=(32, 32), halo=None):
+    """The tiled multichunk (``vol_multichunk_`` with ``path="tiled"``):
+    ``multichunk_plain``'s loop over ``vol_chunk_tiled_plain``, the
+    gradient recomputed from u at each chunk (bit-equal to the carried
+    one).  Returns ``vol_multichunk_plain``'s outputs."""
+    theta, lmb, radius = scal[2], scal[3], scal[4]
+
+    def chunk(tau, sigma, p):
+        s5 = torch.stack([tau, sigma, theta, lmb, radius])
+        *out, n2 = vol_chunk_tiled_plain(p[0], p[1], f, w, s5, count,
+                                         dataterm, tile=tile, halo=halo)
+        return out, n2
+
+    planes, norms, sout = multichunk_plain(chunk, (u, q, u, q), scal, count,
+                                           k_chunks, stepsize, consts)
+    return (*planes, norms, sout)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -274,7 +413,12 @@ def _lib():
         "prost_vol_chunk_halo": [VP] * 10 + [CI] * 6 + [VP],
         "prost_vol_multichunk": [VP] * 10 + [CI] * 7 + [CF] * 6 + [VP],
         "prost_vol_multichunk_resident": [VP] * 9 + [CI] * 7 + [CF] * 6
-                                         + [VP]})
+                                         + [VP],
+        "prost_vol_chunk_tiled": [VP] * 9 + [CI] * 7 + [VP],
+        "prost_vol_chunk_halo_tiled": [VP] * 9 + [CI] * 8 + [VP],
+        "prost_vol_multichunk_tiled": [VP] * 9 + [CI] * 7 + [CF] * 6
+                                      + [CI] * 2 + [VP],
+        "prost_vol_tiled_smem": []})
 
 
 def vol_chunk(u, q, f, w, scal, count: int, dataterm: str = "square"):
@@ -293,24 +437,28 @@ def vol_chunk(u, q, f, w, scal, count: int, dataterm: str = "square"):
 
 
 def _launch_chunk(what: str, state, prev, f, w, sc, partial, scratch,
-                  resident: bool, count: int, dataterm: str,
+                  route: tuple, count: int, dataterm: str,
                   nx_global=None):
     """One chunk on the card in place on ``state`` (u, q) and ``prev``:
-    the grid-resident launch or the streaming sequence, of the whole
-    volume or (with ``nx_global``) of a halo band, counted under
-    ``what``."""
+    the grid-resident launch, the tiled launch or the streaming sequence
+    (``route`` = (path, tile) of ``vol_pick_route``), of the whole volume
+    or (with ``nx_global``) of a halo band, counted under ``what`` (and a
+    tiled call also under ``what`` + "_tiled")."""
     u = state[0]
     L, nx, ny = u.shape
+    path, tile = route
     fn = "prost_vol_chunk" + ("" if nx_global is None else "_halo")
     tail = (() if nx_global is None else (int(nx_global),)) + (
         int(count), DATATERMS[dataterm])
-    if resident:
-        bufs = [*state, *prev, f, w, sc, partial, *scratch]
-        fn += "_resident"
-    else:
+    if path == "streaming":
         bufs = [*state, *prev, *scratch, f, w, sc, partial]
+    else:
+        bufs = [*state, *prev, f, w, sc, partial, *scratch]
+        fn += "_" + path
     launch(_lib(), fn, what, launch_counts, u.device, bufs, L, nx, ny,
-           *tail)
+           *tail, *(tile or ()))
+    if path == "tiled":
+        launch_counts[what + "_tiled"] += 1
 
 
 def _inplace(what: str, state, prev, f, w, scal, n_scal: int, count: int,
@@ -320,13 +468,12 @@ def _inplace(what: str, state, prev, f, w, scal, n_scal: int, count: int,
     u = state[0]
     L, nx, ny = u.shape
     dev = u.device
-    resident = pick_path(path, resident_ok(L, nx, ny, dataterm,
-                                           *card_limits(dev, L)), what)
+    route = vol_pick_route(path, L, nx, ny, dataterm, dev, False, what)
     sc = scalar_buffer(scal, n_scal, S_CONV, S_LEN)
     partial = torch.empty(4 * _lib().prost_vol_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     _launch_chunk(what, state, prev, f.contiguous(), w.contiguous(), sc,
-                  partial, _scratch(resident, 0, L, nx, ny, dev), resident,
+                  partial, _scratch(route[0], 0, L, nx, ny, dev), route,
                   count, dataterm, nx_global)
     return sc[S_NORM:S_NORM + 4]
 
@@ -336,12 +483,16 @@ def vol_chunk_(u, q, u_prev, q_prev, f, w, scal, count: int,
     """``vol_chunk`` in place: (u, q) advance by ``count`` iterations and
     (u_prev, q_prev) take the iterate before the aligned one; with the
     converged flag set nothing changes.  Returns norms2.  On a card
-    ``path`` None takes the shape rule's path (``resident_ok``): one
+    ``path`` None takes the shape rule's path (``vol_route_of``): one
     grid-resident launch (csrc/fused_vol.cu vol_resident) where the
-    volume's planes fit on chip, else the streaming launch sequence;
-    "resident" or "streaming" asks for one ("resident" raises where it does
-    not fit)."""
+    volume's planes fit on chip, else one tiled cooperative launch
+    (vol_tiled: overlapping 2-D windows, a grid barrier an iteration) and
+    the finish where a tile's window does, else the streaming launch
+    sequence; "resident", "tiled" or "streaming" asks for one ("resident"
+    and "tiled" raise where they cannot launch).  On the CPU every path
+    runs the plain version."""
     _check(u, q, f, w, scal, 5, count, dataterm)
+    check_path(path, "vol_chunk_")
     check_inplace((u, q), (u_prev, q_prev))
     if u.device.type == "cpu":
         return halo_into((u, q), (u_prev, q_prev), vol_chunk_plain(
@@ -375,6 +526,7 @@ def vol_chunk_halo_(u, q, u_prev, q_prev, f, w, scal, count: int,
     nothing changes.  Returns norms2.  ``path`` as for ``vol_chunk_``, the
     shape rule on the band's rows."""
     _check(u, q, f, w, scal, N_HALO_SCAL, count, dataterm)
+    check_path(path, "vol_chunk_halo_")
     check_halo(nx_global, (u, q), (u_prev, q_prev))
     if u.device.type == "cpu":
         return halo_into((u, q), (u_prev, q_prev), vol_chunk_halo_plain(
@@ -388,12 +540,13 @@ class VolChunk(LightChunk):
     ``band`` = (nx_global, rows, row_offset, own_lo, own_hi),
     ``vol_chunk_halo_`` on a band of ``rows`` rows) on the volumes a route
     holds, with what depends only on the shapes made once per route: the
-    path (``resident_ok``), the scratch, the norm partials and the scalar
-    buffer with ``m``'s lmb and radius (and the band's row context).  A
-    call writes the step sizes and the flag into the scalar buffer and
-    launches; on the CPU it runs the plain version."""
+    path (``route``: ``vol_pick_route``'s (path, tile), by the shape rule
+    unless ``path`` asks for one), the scratch, the norm partials and the
+    scalar buffer with ``m``'s lmb and radius (and the band's row
+    context).  A call writes the step sizes and the flag into the scalar
+    buffer and launches; on the CPU it runs the plain version."""
 
-    def __init__(self, m, count: int, device, band=None):
+    def __init__(self, m, count: int, device, band=None, path=None):
         consts = (m["lmb"], m["radius"]) + tuple(band[2:] if band else ())
         super().__init__(consts, device)
         self.count, self.band = int(count), band
@@ -403,20 +556,26 @@ class VolChunk(LightChunk):
             nx = int(band[1])
         self.what = "vol_chunk" if band is None else "vol_chunk_halo"
         self.nx_global = None if band is None else int(band[0])
-        self.resident = None  # the path on a card
+        self.route = None  # (path, tile) on a card
         if torch.device(device).type == "cuda":
-            self.resident = resident_ok(L, nx, ny, self.dataterm,
-                                        *card_limits(device, L))
+            self.route = vol_pick_route(path, L, nx, ny, self.dataterm,
+                                        device, False, self.what)
             self.partial = torch.empty(
                 4 * _lib().prost_vol_num_blocks(nx, ny), dtype=torch.float32,
                 device=device)
-            self.scratch = _scratch(self.resident, 0, L, nx, ny, device)
+            self.scratch = _scratch(self.route[0], 0, L, nx, ny, device)
+
+    @property
+    def resident(self):
+        """Whether the call runs grid-resident on a card; None on the
+        CPU."""
+        return None if self.route is None else self.route[0] == "resident"
 
     def __call__(self, state, prev, f, w, tau, sigma, theta, converged):
         """``count`` iterations on ``state`` (u, q) in place, the previous
         iterate into ``prev``; returns norms2."""
         self.scalars_(tau, sigma, theta, converged)
-        if self.resident is None:
+        if self.route is None:
             scal = self.scal()
             if self.band is None:
                 out = vol_chunk_plain(*state, f, w, scal, self.count,
@@ -426,7 +585,7 @@ class VolChunk(LightChunk):
                                            self.nx_global, self.dataterm)
             return halo_into(state, prev, out, scal, self.n_scal)
         _launch_chunk(self.what, state, prev, f, w, self.sc, self.partial,
-                      self.scratch, self.resident, self.count, self.dataterm,
+                      self.scratch, self.route, self.count, self.dataterm,
                       self.nx_global)
         return self.norms2()
 
@@ -506,18 +665,113 @@ def card_limits(device, L: int, batched: bool = False,
     return card_sms(device), smem
 
 
-def _scratch(resident: bool, B, L, nx, ny, device):
-    """A launch's scratch: the grid-resident chunk's norm terms (4 planes,
-    which a batched launch's volumes share), or the streaming sequence's
-    carried gradient volumes (of this iterate and of the previous one; with
-    ``B``, of every instance)."""
+def vol_tiled_bytes(tx: int, ty: int, L: int) -> int:
+    """The dynamic shared memory of one block of the tiled launch
+    (csrc/fused_vol.cu vol_tiled_smem): 5L planes (u, q_x, q_y, q_l, f
+    then the new u) of the window of a ``tx`` x ``ty`` tile with
+    ``vol_tiled_halo`` pixel on every side and, for the last iteration's
+    norms, one more row above and column left of it, and L planes of the
+    tile (the last iteration's w_hat); at least the norm pass's reductions
+    (wsquare's w is read from device memory)."""
+    e = 2 * vol_tiled_halo() + 1
+    tx, ty, L = int(tx), int(ty), int(L)
+    return 4 * max(5 * L * (tx + e) * (ty + e) + L * tx * ty,
+                   RES_RED_BYTES // 4)
+
+
+@functools.lru_cache(maxsize=None)
+def vol_tiled_tile(nx: int, ny: int, L: int, sms: int, smem: int):
+    """The owned tile (rows, columns) of the tiled launch on (L, nx, ny)
+    volumes on a card of ``sms`` SMs whose blocks may hold ``smem`` bytes
+    of dynamic shared memory: of the tiles (rows a multiple of 8, columns
+    of 32, so every 32x8 norm tile lies in one) whose window fits
+    (``vol_tiled_bytes``), the one whose iteration moves the fewest window
+    pixels through the SMs (``fused_rof.window_tile``'s rule); None where
+    no tile's window fits."""
+    from .fused_rof import window_tile
+
+    return window_tile(nx, ny, 2 * vol_tiled_halo() + 1, sms,
+                       lambda tx, ty: vol_tiled_bytes(tx, ty, L) <= smem)
+
+
+def vol_tiled_ok(L: int, nx: int, ny: int, sms: int, smem: int) -> bool:
+    """Whether the tiled launch takes (L, nx, ny) volumes: 1 to
+    ``MAX_RESIDENT_L`` labels (a template instance each) and some tile's
+    window fits in ``smem`` bytes."""
+    return (1 <= int(L) <= MAX_RESIDENT_L
+            and vol_tiled_tile(int(nx), int(ny), int(L), int(sms),
+                               int(smem)) is not None)
+
+
+def vol_route_of(L: int, nx: int, ny: int, dataterm: str, sms: int,
+                 smem: int, tiled_smem: int, multi: bool = False) -> str:
+    """The shape rule of ``vol_chunk_``, ``vol_chunk_halo_`` (on the band's
+    rows) and, with ``multi``, ``vol_multichunk_`` on a card of ``sms``
+    SMs whose grid-resident blocks may hold ``smem`` bytes and tiled blocks
+    ``tiled_smem``: "resident" where the volume fits in the grid-resident
+    launch (``resident_ok``: 256x256x8 on an H100), else "tiled" where a
+    tile's window fits (``vol_tiled_ok``: 512x512x8 and its 556-row band),
+    else "streaming" (beyond 8 labels)."""
+    if resident_ok(L, nx, ny, dataterm, sms, smem, multi):
+        return "resident"
+    if vol_tiled_ok(L, nx, ny, sms, tiled_smem):
+        return "tiled"
+    return "streaming"
+
+
+@functools.lru_cache(maxsize=None)
+def vol_tiled_limit(device) -> int:
+    """The dynamic shared memory a block of the tiled launch may hold on
+    the card ``device``, read once."""
+    with torch.cuda.device(device):
+        smem = _lib().prost_vol_tiled_smem()
+    if smem < 0:
+        raise ProstError(f"vol_chunk: no shared-memory limit for the tiled "
+                         f"chunk on {device} (CUDA error {-smem}).")
+    return smem
+
+
+def vol_pick_route(path, L: int, nx: int, ny: int, dataterm: str, device,
+                   multi: bool, what: str) -> tuple:
+    """(path, tile) of a single-volume chunk (with ``multi``, of the
+    multichunk) on the card ``device``: by ``vol_route_of`` where ``path``
+    is None, else the one asked for; "resident" where the volume does not
+    fit, or "tiled" where no tile's window does, raises ``ProstError``.
+    ``tile`` is the tiled launch's (rows, columns), else None."""
+    check_path(path, what)
+    sms, smem = card_limits(device, L, multi=multi)
+    tsmem = vol_tiled_limit(device) if 1 <= int(L) <= MAX_RESIDENT_L else 0
+    if path is None:
+        path = vol_route_of(L, nx, ny, dataterm, sms, smem, tsmem, multi)
+    if path == "resident" and not resident_ok(L, nx, ny, dataterm, sms,
+                                              smem, multi):
+        raise ProstError(f"{what}: the chunk's planes do not fit in the "
+                         "shared memory of one block per SM.")
+    tile = None
+    if path == "tiled":
+        if not vol_tiled_ok(L, nx, ny, sms, tsmem):
+            raise ProstError(f"{what}: the tiled launch takes 1 to "
+                             f"{MAX_RESIDENT_L} labels and a tile's window "
+                             "in the shared memory of a block.")
+        tile = vol_tiled_tile(int(nx), int(ny), int(L), int(sms), int(tsmem))
+    return path, tile
+
+
+def _scratch(path: str, B, L, nx, ny, device):
+    """A launch's scratch on ``path``: the grid-resident chunk's norm terms
+    (4 planes, which a batched launch's volumes share), the tiled launch's
+    second slot of the state (u and q: 4L planes) and its norm terms (4
+    planes), or the streaming sequence's carried gradient volumes (of this
+    iterate and of the previous one; with ``B``, of every instance)."""
     lead = (B,) if B else ()
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
-    if resident:
+    if path == "resident":
         return [empty(4, nx, ny)]
+    if path == "tiled":
+        return [empty((4 * L + 4) * nx * ny)]
     return [empty(*lead, 3, L, nx, ny), empty(*lead, 3, L, nx, ny)]
 
 
@@ -570,8 +824,9 @@ def vol_chunk_batched_(u, q, u_prev, q_prev, f, w, scal, count: int,
     partial = torch.empty(4 * B * _lib().prost_vol_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     _launch_batched(state, prev, f.contiguous(), w.contiguous(), sc, partial,
-                    _scratch(resident, B, L, nx, ny, dev), resident, count,
-                    dataterm, strides)
+                    _scratch("resident" if resident else "streaming", B, L,
+                             nx, ny, dev), resident, count, dataterm,
+                    strides)
     return sc[:, S_NORM:S_NORM + 4].T
 
 
@@ -595,7 +850,9 @@ class VolBatchedChunk(LightChunk):
             self.partial = torch.empty(
                 4 * B * _lib().prost_vol_num_blocks(nx, ny),
                 dtype=torch.float32, device=device)
-            self.scratch = _scratch(self.resident, B, L, nx, ny, device)
+            self.scratch = _scratch(
+                "resident" if self.resident else "streaming", B, L, nx, ny,
+                device)
 
     def __call__(self, state, prev, f, w, tau, sigma, theta, converged):
         """``count`` iterations of every volume of ``state`` (u, q) in
@@ -639,22 +896,27 @@ def vol_multichunk(u, q, f, w, scal, count: int, k_chunks: int,
 
 
 def _launch_multichunk(state, prev, f, w, sc, partial, scratch,
-                       resident: bool, count: int, k_chunks: int,
+                       route: tuple, count: int, k_chunks: int,
                        dataterm: str, stepsize: str, consts) -> None:
     """One multichunk on the card in place on ``state`` (u, q) and
-    ``prev``: the grid-resident launch or the streaming sequence, counted
-    under ``vol_multichunk``."""
+    ``prev``: the grid-resident launch, the tiled launches or the
+    streaming sequence (``route`` = (path, tile) of ``vol_pick_route``),
+    counted under ``vol_multichunk`` (and a tiled call also under
+    ``vol_multichunk_tiled``)."""
     u = state[0]
     L, nx, ny = u.shape
-    if resident:
-        fn, bufs = ("prost_vol_multichunk_resident",
-                    [*state, *prev, f, w, sc, partial, *scratch])
-    else:
+    path, tile = route
+    if path == "streaming":
         fn, bufs = "prost_vol_multichunk", [*state, *prev, *scratch, f, w,
                                             sc, partial]
+    else:
+        fn = "prost_vol_multichunk_" + path
+        bufs = [*state, *prev, f, w, sc, partial, *scratch]
     launch(_lib(), fn, "vol_multichunk", launch_counts, u.device, bufs, L,
            nx, ny, int(count), int(k_chunks), DATATERMS[dataterm],
-           STEPSIZES[stepsize], *[float(c) for c in consts])
+           STEPSIZES[stepsize], *[float(c) for c in consts], *(tile or ()))
+    if path == "tiled":
+        launch_counts["vol_multichunk_tiled"] += 1
 
 
 def vol_multichunk_(u, q, u_prev, q_prev, f, w, scal, count: int,
@@ -664,54 +926,65 @@ def vol_multichunk_(u, q, u_prev, q_prev, f, w, scal, count: int,
     chunks and (u_prev, q_prev) take the iterate before the last executed
     chunk's aligned iteration; with the converged flag set at entry nothing
     changes.  Returns (norms, sout).  On a card ``path`` None takes the
-    shape rule's path (``resident_ok(..., multi=True)``): one grid-resident
-    launch for all the chunks (csrc/fused_vol.cu vol_multichunk_resident)
-    where the volume's planes fit on chip, else the streaming launch
-    sequence; "resident" or "streaming" asks for one ("resident" raises
-    where it does not fit)."""
+    shape rule's path (``vol_route_of(..., multi=True)``): one
+    grid-resident launch for all the chunks (csrc/fused_vol.cu
+    vol_multichunk_resident) where the volume's planes fit on chip, else a
+    tiled launch (vol_tiled) and the finish's adaptation a chunk, (u, q)
+    and the scratch taking turns, where a tile's window fits, else the
+    streaming launch sequence; "resident", "tiled" or "streaming" asks for
+    one ("resident" and "tiled" raise where they cannot launch)."""
     _check(u, q, f, w, scal, 13, count, dataterm)
     if stepsize not in STEPSIZES:
         raise ProstError(f"No fused adaptation for stepsize '{stepsize}'.")
     state, prev = (u, q), (u_prev, q_prev)
     check_inplace(state, prev)
-    if path not in PATHS:
-        raise ProstError(f"vol_multichunk: path must be one of {PATHS}, got "
-                         f"{path!r}.")
+    check_path(path, "vol_multichunk")
     if u.device.type == "cpu":
         out = vol_multichunk_plain(u, q, f, w, scal, count, k_chunks,
                                    dataterm, stepsize, consts)
         return halo_into(state, prev, out[:5], scal, 13), out[5]
     L, nx, ny = u.shape
     dev = u.device
-    resident = pick_path(path, resident_ok(
-        L, nx, ny, dataterm, *card_limits(dev, L, multi=True), multi=True),
-        "vol_multichunk")
+    route = vol_pick_route(path, L, nx, ny, dataterm, dev, True,
+                           "vol_multichunk")
     sc = scalar_buffer(scal, 13, S_CONV, S_LEN)
     partial = torch.empty(4 * _lib().prost_vol_num_blocks(nx, ny),
                           dtype=torch.float32, device=dev)
     _launch_multichunk(state, prev, f.contiguous(), w.contiguous(), sc,
-                       partial, _scratch(resident, 0, L, nx, ny, dev),
-                       resident, count, k_chunks, dataterm, stepsize, consts)
+                       partial, _scratch(route[0], 0, L, nx, ny, dev), route,
+                       count, k_chunks, dataterm, stepsize, consts)
     return sc[S_NORM:S_NORM + 4], torch.stack([sc[i] for i in SOUT])
 
 
 class VolMultichunk(LightMultichunk):
     """The volumetric route's light call of the multichunk:
     ``vol_multichunk_`` on the views (u, q) of the run's own x, y, x_prev
-    and y_prev, its path ``resident_ok(..., multi=True)``."""
+    and y_prev, its path ``vol_route_of(..., multi=True)`` unless ``path``
+    asks for one (``route``: (path, tile)); ``resident`` whether that path
+    is the grid-resident launch."""
 
     _inplace = staticmethod(vol_multichunk_)
-    _launch = staticmethod(_launch_multichunk)
+    route = None  # (path, tile) on a card
+
+    def __init__(self, m, count: int, k_chunks: int, stepsize: str, device,
+                 path=None):
+        self.path = path
+        super().__init__(m, count, k_chunks, stepsize, device)
 
     def _card(self, device):
         m = self.m
         L, nx, ny = m["L"], m["nx"], m["ny"]
-        resident = resident_ok(L, nx, ny, m["dataterm"],
-                               *card_limits(device, L, multi=True),
-                               multi=True)
+        self.route = vol_pick_route(self.path, L, nx, ny, m["dataterm"],
+                                    device, True, "vol_multichunk")
         partial = torch.empty(4 * _lib().prost_vol_num_blocks(nx, ny),
                               dtype=torch.float32, device=device)
-        return resident, partial, _scratch(resident, 0, L, nx, ny, device)
+        return (self.route[0] == "resident", partial,
+                _scratch(self.route[0], 0, L, nx, ny, device))
+
+    def _launch(self, state, prev, f, w, sc, partial, scratch, resident,
+                *args):
+        _launch_multichunk(state, prev, f, w, sc, partial, scratch,
+                           self.route, *args)
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,10 @@ multichunk ``ml_multichunk_`` and ROF halo chunk ``rof_chunk_halo_`` (``-k
 Chebyshev ADMM chunks and multichunks and the tiled deblur chunk (``-k
 tiled``; ``-k admm_tiled`` for the ADMM ones, ``-k deblur_tiled`` for the
 deblur ones), and the tiled multilabel chunk, its halo form and the
-multichunk (``-k ml_tiled``), and the tiled tight chunk and its halo form
-(``-k tight_tiled``), bit for bit against the streaming launch sequences
-they replace.
+multichunk (``-k ml_tiled``), the tiled tight chunk and its halo form
+(``-k tight_tiled``), and the tiled volumetric chunk, its halo form and
+the multichunk (``-k vol_tiled``), bit for bit against the streaming
+launch sequences they replace.
 
 Every test here is marked ``cuda`` and skips without a CUDA card.  Both
 redesigns run the per-pixel arithmetic and the norm trees of the launch
@@ -3009,3 +3010,221 @@ def test_tight_tiled_rules_on_the_card(dev):
                              ft.kron_array(taps, L, k, dev), sc, partial,
                              scratch, ("tiled", tile), 10, len(taps),
                              ft._consts10(consts))
+
+
+# ---------------------------------------------------------------------------
+# rows 28 and 27: the volumetric chunk, its halo form and the multichunk
+# tiled, for the volumes no grid-resident band holds (-k vol_tiled)
+# ---------------------------------------------------------------------------
+
+VOL_TILED_ARGS = [0.9, 1.1, 1.0, 6.0, 0.5]  # tau, sigma, theta, lmb, radius
+
+
+@pytest.mark.parametrize("count", [1, 3, 10])
+@pytest.mark.parametrize("L,nx,ny,dataterm", [
+    (8, 512, 512, "square"), (8, 512, 384, "wsquare"), (5, 300, 211, "abs"),
+    (3, 70, 53, "wsquare"), (8, 9, 300, "square")])
+def test_vol_tiled_is_the_launch_sequence(dev, L, nx, ny, dataterm, count):
+    """The tiled chunk's volumes, previous iterates and squared norms
+    bit-equal to the launch sequence's, with the three data terms
+    (300x211, 70x53, 9x300: tiles that do not divide the volume; an odd
+    count: slot B copied back)."""
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    u, q, f, w = _vol_planes(610 + nx + count, L, nx, ny, dev)
+    scal = torch.tensor(VOL_TILED_ARGS, device=dev)
+    before = fv.launch_counts["vol_chunk_tiled"]
+    out = _tiled_paths(fv.vol_chunk_, [u, q], [f, w], scal, count, dataterm)
+    assert fv.launch_counts["vol_chunk_tiled"] == before + 1
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    assert bool((out["tiled"][-1] > 0).all())
+
+
+@pytest.mark.parametrize("rank,shards,dataterm", [
+    (0, 1, "square"), (0, 2, "wsquare"), (1, 2, "square"), (2, 4, "abs")])
+def test_vol_tiled_halo_is_the_launch_sequence(dev, rank, shards, dataterm):
+    """512x512x8 cut into bands (ri 10, halo 22 rows): every band's tiled
+    launch is its streaming sequence, bit for bit in the volumes, the
+    previous iterates and the owned-row norms."""
+    from prost_tpu_torch.ops import fused_vol as fv
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    planes = _vol_planes(620 + rank, 8, 512, 512, dev)
+    ri, rows = 10, 512 // shards
+    H = 2 * ri + 2
+    lo = rank * rows - H
+    ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+    scal = torch.tensor(VOL_TILED_ARGS + [lo, H, H + rows], device=dev)
+    before = fv.launch_counts["vol_chunk_halo_tiled"]
+    out = _tiled_paths(fv.vol_chunk_halo_, ext[:2], ext[2:], scal, ri, 512,
+                       dataterm)
+    assert fv.launch_counts["vol_chunk_halo_tiled"] == before + 1
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tile", [(8, 32), (16, 64), (40, 32), (8, 128)])
+def test_vol_tiled_any_tile_is_the_launch_sequence(dev, tile):
+    """The launch with tiles other than the rule's gives the same bits,
+    and with the flag set it leaves every buffer as it was."""
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    L, nx, ny = 5, 300, 211
+    planes = _vol_planes(630, L, nx, ny, dev)
+    out = {}
+    for flag in (0.0, 1.0):
+        scal = torch.tensor(VOL_TILED_ARGS + [flag], device=dev)
+        for path in ("streaming", "tiled"):
+            cur = [t.clone() for t in planes[:2]]
+            prev = [t + 1.0 for t in cur]
+            sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+            partial = cur[0].new_empty(
+                4 * fv._lib().prost_vol_num_blocks(nx, ny))
+            route = (path, tile if path == "tiled" else None)
+            fv._launch_chunk("vol_chunk", cur, prev, planes[2], planes[3],
+                             sc, partial, fv._scratch(path, 0, L, nx, ny, dev),
+                             route, 3, "wsquare")
+            out[path] = cur + prev + [sc[15:19].clone()]
+        torch.cuda.synchronize()
+        for a, b in zip(out["streaming"], out["tiled"]):
+            assert torch.equal(a, b)
+        if flag:
+            for a, b in zip(out["tiled"][:4], planes[:2]
+                            + [t + 1.0 for t in planes[:2]]):
+                assert torch.equal(a, b)
+
+
+def _vol_tiled_multichunks(u, q, f, w, scal, count, k_chunks, dataterm,
+                           stepsize):
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    L, nx, ny = u.shape
+    out = {}
+    for path in ("streaming", "tiled"):
+        cur = [u.clone(), q.clone()]
+        prev = [torch.full_like(t, float("nan")) for t in cur]
+        norms, sout = fv.vol_multichunk_(*cur, *prev, f, w, scal, count,
+                                         k_chunks, dataterm, stepsize,
+                                         _vol_mc_consts(L, nx, ny), path=path)
+        out[path] = cur + prev + [norms.clone(), sout.clone()]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("stepsize", ["alg1", "boyd", "goldstein"])
+@pytest.mark.parametrize("L,nx,ny,ri,k,dataterm", [
+    (8, 512, 512, 10, 8, "square"), (5, 300, 211, 3, 5, "wsquare"),
+    (3, 70, 53, 3, 4, "abs")])
+def test_vol_tiled_multichunk_is_the_launch_sequence(dev, L, nx, ny, ri, k,
+                                                     dataterm, stepsize):
+    """Every chunk runs (tolerance 0), an even and an odd count: the tiled
+    launches' volumes, previous iterates, norms and sout bit-equal to the
+    launch sequence's."""
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    u, q, f, w = _vol_planes(640 + ri, L, nx, ny, dev)
+    before = fv.launch_counts["vol_multichunk_tiled"]
+    out = _vol_tiled_multichunks(u, q, f, w, _vol_mc_scal(0.0, dev), ri, k,
+                                 dataterm, stepsize)
+    assert fv.launch_counts["vol_multichunk_tiled"] == before + 1
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    assert out["tiled"][5][5:].tolist() == [0.0, float(k)]
+
+
+@pytest.mark.parametrize("count", [3, 10])
+def test_vol_tiled_multichunk_converging_mid_launch(dev, count):
+    """From a solve's start (u = f, q = 0) boyd converges partway through
+    the launch at some tolerance of a list: bit-equal to the sequence each
+    time, the result copied back where the scratch holds it (an odd count,
+    an odd number of chunks)."""
+    u, q, f, w = _vol_planes(650, 8, 512, 512, dev)
+    q.zero_()
+    stopped = set()
+    for tol in (5e-2, 2e-2, 1e-2, 5e-3, 2e-3, 1e-3):
+        out = _vol_tiled_multichunks(f, q, f, w,
+                                     _vol_mc_scal(tol, dev, 1.0, 1.0), count,
+                                     8, "square", "boyd")
+        for a, b in zip(out["streaming"], out["tiled"]):
+            assert torch.equal(a, b)
+        sout = out["tiled"][5]
+        if float(sout[5]) == 1.0 and 1 <= float(sout[6]) < 8:
+            stopped.add(int(sout[6]) % 2)
+    assert stopped, "no tolerance converged mid-launch"
+
+
+def test_vol_tiled_light_calls_on_the_card(dev):
+    """``VolChunk`` and ``VolMultichunk`` at 512x512x8 take the tiled path
+    by the shape rule (so does ``VolChunk`` on the 556-row one-shard band),
+    and their calls are the streaming ones' bit for bit, twice in a row on
+    the same buffers."""
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    L, n = 8, 512
+    u, q, f, w = _vol_planes(660, L, n, n, dev)
+    m = {"L": L, "nx": n, "ny": n, "f": f, "w": w, "lmb": 6.0,
+         "radius": 0.5, "dataterm": "square",
+         "lmb_t": torch.tensor(6.0, device=dev),
+         "radius_t": torch.tensor(0.5, device=dev),
+         "tols_t": tuple(torch.tensor(1e-3, device=dev) for _ in range(4)),
+         "adapt_consts": _vol_mc_consts(L, n, n)}
+    assert fv.VolChunk(m, 10, dev).route[0] == "tiled"
+    assert fv.VolChunk(m, 10, dev, (n, n + 44, -22, 22, 22 + n)).route == (
+        "tiled", (24, 32))
+    assert fv.VolMultichunk(m, 10, 8, "boyd", dev).route[0] == "tiled"
+    s3 = [torch.tensor(v, device=dev) for v in (0.9, 1.1, 1.0)]
+    flag = torch.tensor(False, device=dev)
+    out = {}
+    for path in ("streaming", "tiled"):
+        call = fv.VolChunk(m, 10, dev, path=path)
+        multi = fv.VolMultichunk(m, 10, 3, "boyd", dev, path=path)
+        assert call.route[0] == multi.route[0] == path
+        cur, prev = [u.clone(), q.clone()], [u.clone(), q.clone()]
+        got = []
+        for _ in range(2):
+            got.append(call(cur, prev, f, w, *s3, flag).clone())
+            got += [t.clone() for t in multi(
+                cur, prev, *s3, torch.tensor(0.5, device=dev),
+                torch.tensor(0.0, device=dev), torch.tensor(0.0, device=dev),
+                torch.tensor(1, device=dev), flag)]
+        out[path] = cur + prev + got
+    torch.cuda.synchronize()
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+
+
+def test_vol_tiled_rules_on_the_card(dev):
+    """The card's limits send 256x256x8 to the grid-resident launch,
+    512x512x8 (chunk and multichunk) to the tiled one and 9 labels to the
+    streaming sequence, where asking for the tiled launch raises; so does
+    a tile the C side refuses."""
+    from prost_tpu_torch.ops import fused_vol as fv
+
+    sms, smem = fv.card_limits(dev, 8)
+    tsmem = fv.vol_tiled_limit(dev)
+    assert tsmem >= 225 * 1024
+    assert fv.vol_route_of(8, 256, 256, "square", sms, smem,
+                           tsmem) == "resident"
+    assert fv.vol_route_of(8, 512, 512, "square", sms, smem,
+                           tsmem) == "tiled"
+    assert fv.vol_route_of(8, 512, 512, "wsquare",
+                           *fv.card_limits(dev, 8, multi=True), tsmem,
+                           True) == "tiled"
+    assert fv.vol_route_of(9, 512, 512, "square", sms, 0,
+                           tsmem) == "streaming"
+    u, q, f, w = _vol_planes(670, 9, 64, 64, dev)
+    scal = torch.tensor(VOL_TILED_ARGS, device=dev)
+    with pytest.raises(ptt.ProstError, match="tiled launch takes"):
+        fv.vol_chunk_(u, q, u.clone(), q.clone(), f, w, scal, 2,
+                      path="tiled")
+    L, nx = 8, 256
+    u, q, f, w = _vol_planes(671, L, nx, nx, dev)
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = u.new_empty(4 * fv._lib().prost_vol_num_blocks(nx, nx))
+    scratch = fv._scratch("tiled", 0, L, nx, nx, dev)
+    for tile in ((12, 32), (8, 48), (40, 32)):  # not 8x32 tiles; too big
+        with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+            fv._launch_chunk("vol_chunk", [u, q], [u.clone(), q.clone()], f,
+                             w, sc, partial, scratch, ("tiled", tile), 10,
+                             "square")
