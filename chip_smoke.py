@@ -104,18 +104,25 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 11. the batched chunks of the ensembles against their plain versions and,
    instance by instance, against the single-instance kernels (bit-equal
    expected): ``rof_chunk_batched`` (ri = 10) at B = 1024 of 128x128 on
-   BASELINE config 5's data with per-instance step sizes, at a ragged B =
-   5 of 250x190 for the three data terms and at B = 2 of 1280x1280 (where
-   the JAX package bands each instance); ``ml_chunk_batched`` at B = 8 of
+   BASELINE config 5's data with per-instance step sizes and at a ragged
+   B = 5 of 250x190 for the three data terms (each instance in a cluster),
+   and its tiled launch (row 7, the instances on the grid's z axis) at B =
+   2 of 1280x1280 (where the JAX package bands each instance), B = 8 of
+   512x512, ragged B = 3 of 70x53 and 41x97 (forced tiled, one instance
+   flagged) and B = 4 of 2048x2048, also bit-equal to the batched
+   streaming sequence, at 1280x1280, 512x512 and 2048x2048 in place in
+   turns with it (launches traced and counted); ``ml_chunk_batched`` at
+   B = 8 of
    256x256x8 and B = 3 of 250x190x5; ``vol_chunk_batched`` at B = 8 of
    256x256x8, B = 3 of 190x250x5 for the three data terms and B = 2 of
    64x96x1; ``deblur_chunk_batched`` at B = 8 of 512x512 with config 2's
    motion blur and B = 3 of 250x190 with the asymmetric 5x5 blur;
    ``tight_chunk_batched`` at B = 8 of 128x128x4 and B = 3 of 250x190x3;
-   timed at B = 1024 of 128x128, B = 8 of 256x256x8, 512x512 and
-   128x128x4; each ``rof_chunk_batched`` shape's path (a cluster of C CTAs
-   per instance, or the streaming launch sequence for 1280x1280) printed
-   and checked, and at B = 1024 of 128x128 the cluster launch in turns
+   timed at B = 1024 of 128x128 (the tiled launch at B = 4 of 2048x2048),
+   B = 8 of 256x256x8, 512x512 and 128x128x4; each ``rof_chunk_batched``
+   shape's path (a cluster of C CTAs per instance, or the tiled launch and
+   its tile) printed and checked, and at B = 1024 of 128x128 the cluster
+   launch in turns
    with the streaming sequence in place (old, new, new, old), the
    hand-written kernels each launches per call (profiler), and the
    cluster launch at the larger cluster sizes;
@@ -130,8 +137,11 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    generic batched path, 21 + 1000 iterations each, with instance-it/s;
    count the batched kernel's launches against the phase plan, hold every
    instance's energy fused against generic and instances 0, 511 and 1023
-   against single-instance fused solves; then ensembles of 8 instances of
-   config 3 and of vol256x8, each instance with its own noise, the same
+   against single-instance fused solves; then 4 such instances of
+   2048x2048 (``phase_large_ensemble``: 21 + 300 iterations, the chunks
+   through ``ROFBatchedChunk``'s tiled launch in place, instances 0 and 3
+   against single-instance fused solves); then ensembles of 8 instances
+   of config 3 and of vol256x8, each instance with its own noise, the same
    way; then ``deblur8x512``, 8 frames of config 2 (one blur, each frame
    its own noise), and ``tight8x128x4``, 8 instances of tight128x4 (each
    its own noise on the gray levels): fused batched against generic
@@ -149,8 +159,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    multichunks) tiled (their tiled launches are the kernels line's), each
    solve in turns with the streaming sequence (it/s, equal energies); the
    first call of each route's light calls there (rows 14, 16, 19, 22, 27
-   and 28 tiled; row 7 streaming, from phase 11's 1280x1280 instances)
-   replayed under the profiler beside its bound;
+   and 28 tiled; row 7 tiled, from phase 11's 1280x1280 instances, the
+   streaming sequence beside it) replayed under the profiler beside its
+   bound;
 15. the halo chunks of spatial sharding at full width (ROF 512x512, ml and
    vol 256x256x8, ri = 10, halo 22 rows): bands of 1, 2 and 4 shards cut
    from the whole plane with zeros beyond its edges (what the halo
@@ -386,6 +397,11 @@ ENS_SAMPLES = (0, 511, 1023)  # instances held against single solves
 # noise (0.01 on the blurred flowers, 0.05 on the junction's gray levels)
 # drawn in turn from one RandomState(42)
 SMALL_ENS_B, SMALL_ENS_ITERS = 8, 300
+# the ROF ensemble of 4-megapixel frames: B instances of 2048x2048 built as
+# ensemble1024x128's (the procedural image, each with its own 0.05 noise and
+# lmb), the size at which the JAX package bands each instance (row 7); no
+# cluster holds one, so its chunks take the batched tiled launch
+LARGE_ENS_B, LARGE_ENS_SIZE = 4, 2048
 # The halo chunks (slice 8a): the bands' owned-row norms summed against the
 # whole-plane kernel's norms, the same squares summed in another order
 # (the thread blocks of an extended band group other rows).
@@ -2424,11 +2440,134 @@ def rof_batched_timings(planes, scal, ri, csize):
             "launches_per_call": (len(lo), len(ln))}
 
 
+def rof_batched_tiled_kernels(dev, ri):
+    """Row 7: the batched ROF chunk's tiled launch (the instances on the
+    grid's z axis) at B = 2 of 1280x1280 (where the JAX package bands each
+    instance), B = 8 of 512x512, the ragged CPU-test shapes (forced tiled:
+    a cluster holds them; a flagged instance each) and the main path's
+    B = 4 of 2048x2048: against its plain version, each instance
+    bit-equal to the single-instance ``rof_chunk`` and every output to the
+    batched streaming sequence, a flagged instance's inputs back; at 1280,
+    512 and 2048 the two paths in place in turns (streaming, tiled, tiled,
+    streaming) with their traced launches and the wrappers' counts
+    (BANDED[7] at 1280x1280); the wrapper timed at the main path's shape
+    for the kernels line.  Returns its row."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_rof as fr
+
+    row = {"err": 0.0}
+    rng = np.random.RandomState(660)
+    for seed, (B, nx, ny, dataterm, path, flags) in enumerate((
+            (2, 1280, 1280, "square", None, None),
+            (8, 512, 512, "wsquare", None, None),
+            (3, 70, 53, "abs", "tiled", [0, 1, 0]),
+            (3, 41, 97, "wsquare", "tiled", [0, 0, 1]),
+            (LARGE_ENS_B, LARGE_ENS_SIZE, LARGE_ENS_SIZE, "square", None,
+             None))):
+        route = fr.batched_pick_route(path, B, nx, ny, dataterm, ri, dev,
+                                      "rof_chunk_batched")
+        tile = route[1]
+        tiles = B * -(-nx // tile[0]) * -(-ny // tile[1])
+        label = f"rof_chunk_batched B={B} {nx}x{ny} {dataterm}"
+        print(f"{label}: {route[0]} path (asked: {path}), tile {tile}, "
+              f"{tiles} blocks over the instances")
+        check(route[0] == "tiled", f"{label} took the {route[0]} path")
+        arrs = (rng.rand(B, nx, ny), 0.3 * rng.randn(B, 2, nx, ny),
+                rng.rand(B, nx, ny), 2.0 * (rng.rand(B, nx, ny) > 0.3))
+        planes = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                  for a in arrs]
+        scal = batched_scal(670 + seed, B, 4.0 + 12.0 * rng.rand(B),
+                            0.5 + rng.rand(B), dev)
+        if flags is not None:
+            scal = torch.cat([scal, torch.tensor([flags], dtype=scal.dtype,
+                                                 device=dev)])
+
+        def many(*a):
+            return fr.rof_chunk_batched(*a, path=path)
+
+        err = batched_check(f"{label} (tiled path)", many, fr.rof_chunk,
+                            fr.rof_chunk_batched_plain, planes, scal, 4, ri,
+                            dataterm)
+        row["err"] = max(row["err"], err)
+        x, q, f, w = planes
+        out = many(*planes, scal, ri, dataterm)
+        cur, prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
+        norms2 = fr.rof_chunk_batched_streaming_(*cur, *prev, f, w, scal, ri,
+                                                 dataterm)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, cur + prev +
+                                                     [norms2])),
+              f"{label}: the tiled launch is not the streaming sequence")
+        for b in [b for b, v in enumerate(flags or ()) if v]:
+            check(all(torch.equal(t[b], i[b]) for t, i in
+                      zip(out[:4], (x, q, x, q))) and not out[4][:, b].any(),
+                  f"{label}: flagged instance {b} did not keep its inputs")
+        print(f"{label}: tiled bit-equal to the streaming sequence in the "
+              f"planes, the previous iterates and the norms; flagged "
+              f"instances {[b for b, v in enumerate(flags or ()) if v]} "
+              "kept their inputs")
+        if path is not None:
+            continue
+        n = nx * ny
+        b = bound(10 * B * n * 4, B * n * (ri * ROF_ITER_OPS + ROF_NORM_OPS))
+        # the two paths in place, in turns
+        bufs = {p: ([x.clone(), q.clone()], [x.clone(), q.clone()])
+                for p in ("streaming", "tiled")}
+        calls = {p: (lambda p=p: fr.rof_chunk_batched_(
+            *bufs[p][0], *bufs[p][1], f, w, scal, ri, dataterm, p))
+            for p in bufs}
+        (o1, o2), (t1, t2) = in_turns(calls["streaming"], calls["tiled"], 20)
+        ts = traced_until(calls["streaming"], lambda c: len(c) == 23)
+        tt = traced_until(calls["tiled"], lambda c: c == [
+            "rof_tiled", "pdhg_finish", "rof_tiled_settle"])
+        got = counted(fr, calls["tiled"])
+        check(got == {"rof_chunk_batched": 1, "rof_chunk_batched_tiled": 1},
+              f"{label}: the tiled call counted {got}")
+        print(f"{label} in place, in turns: streaming {o1:.4f} ms, tiled "
+              f"{t1:.4f}, tiled {t2:.4f}, streaming {o2:.4f} ms/call; "
+              f"traced device ms: streaming {fmt_ms(ts['csrc_ms'])} "
+              f"({len(ts['csrc'])} hand-written launches), tiled "
+              f"{fmt_ms(tt['csrc_ms'])} ({', '.join(tt['csrc'])}), "
+              f"PyTorch {fmt_ms(tt['torch_ms'])} ms; counted {got}; "
+              f"bound {b[0]:.5f} ms ({b[1]})")
+        del bufs, calls
+        if nx == 1280:
+            BANDED[7] = {"call": f"{label} (tiled path)",
+                         "launches_per_call": len(tt["csrc"]),
+                         "device_ms": tt["csrc_ms"], "bound_ms": b[0],
+                         "bound_by": b[1], "ms": (t1, t2),
+                         "streaming_ms": (o1, o2),
+                         "streaming_launches": len(ts["csrc"]),
+                         "streaming_device_ms": ts["csrc_ms"]}
+        if nx != LARGE_ENS_SIZE:
+            continue
+        # the kernels line: the functional wrapper at the main path's shape
+        timed(row, lambda: fr.rof_chunk_batched(*planes, scal, ri), 10,
+              lambda c: c == ["rof_tiled", "pdhg_finish",
+                              "rof_tiled_settle"], fr)
+        check(row["counted"] == {"rof_chunk_batched": 1,
+                                 "rof_chunk_batched_tiled": 1},
+              f"{label}: the wrapper counted {row['counted']}")
+        row["plain_ms"] = time_ms(lambda: fr.rof_chunk_batched_plain(
+            *planes, scal, ri), 2)
+        row["bound"] = b
+        print(f"{label}: wrapper {row['ms']:.4f} ms/call (traced device "
+              f"{fmt_ms(row['traced']['csrc_ms'])} ms in "
+              f"{len(row['traced']['csrc'])} hand-written launches, PyTorch "
+              f"{fmt_ms(row['traced']['torch_ms'])}), plain "
+              f"{row['plain_ms']:.4f} ms/call, bound {b[0]:.5f} ms ({b[1]})")
+        del planes, x, q, f, w, out, cur, prev
+        torch.cuda.empty_cache()
+    return row
+
+
 def phase_batched_kernels(dev):
     """The five batched chunks against their plain versions and, instance
     by instance, against the single-instance kernels; timed at the main
-    path's shapes (rof at ensemble1024x128, ml and vol at B = 8 of
-    256x256x8, deblur at B = 8 of 512x512, tight at B = 8 of 128x128x4)."""
+    path's shapes (rof at ensemble1024x128, its tiled launch at B = 4 of
+    2048x2048, ml and vol at B = 8 of 256x256x8, deblur at B = 8 of
+    512x512, tight at B = 8 of 128x128x4)."""
     import torch
 
     from prost_tpu_torch.ops import fused_deblur as fd
@@ -2442,28 +2581,28 @@ def phase_batched_kernels(dev):
         "rof_chunk_batched", "ml_chunk_batched", "vol_chunk_batched",
         "deblur_chunk_batched", "tight_chunk_batched")}
 
-    # rof: the config-5 data (x = f, mass on q and on its dead coordinates),
-    # a ragged batch with the three data terms, and 1280x1280 instances,
-    # where the JAX package bands each instance (row 7)
+    # rof: the config-5 data (x = f, mass on q and on its dead coordinates)
+    # and a ragged batch with the three data terms, each instance held by a
+    # cluster; then the instances no cluster holds (row 7, ``rof_batched_
+    # tiled_kernels``)
     fs, lmbs = ensemble_data(ENS_B, ENS_SIZE, ENS_SIZE)
     rng = np.random.RandomState(600)
+    sms, tsmem = fr.card_sms(dev), fr.tiled_limit(dev)
     cases = [(ENS_B, ENS_SIZE, ENS_SIZE, "square"),
              (5, 250, 190, "square"), (5, 250, 190, "wsquare"),
-             (5, 250, 190, "abs"), (2, 1280, 1280, "square")]
+             (5, 250, 190, "abs")]
     for seed, (B, nx, ny, dataterm) in enumerate(cases):
+        route = fr.batched_route_of(B, nx, ny, dataterm, ri, sms, tsmem)
         csize = fr.cluster_size(nx, ny, dataterm)
-        if csize is None:
-            path = "streaming launch sequence"
-        else:
-            held = fr._lib().prost_rof_cluster_occupancy(
-                nx, ny, fr.DATATERMS[dataterm], csize)
-            path = (f"cluster of {csize} CTAs, bands of "
-                    f"{fr.cluster_band_rows(nx, csize)} rows, "
-                    f"{fr.cluster_planes(dataterm)} planes in shared memory, "
-                    f"{held} clusters at once")
-        print(f"rof_chunk_batched B={B} {nx}x{ny} {dataterm}: {path}")
-        check((csize is None) == (nx == 1280), f"rof_chunk_batched {nx}x{ny} "
-              f"took the {path}")
+        held = fr._lib().prost_rof_cluster_occupancy(
+            nx, ny, fr.DATATERMS[dataterm], csize)
+        print(f"rof_chunk_batched B={B} {nx}x{ny} {dataterm}: {route}, "
+              f"{csize} CTAs a cluster, bands of "
+              f"{fr.cluster_band_rows(nx, csize)} rows, "
+              f"{fr.cluster_planes(dataterm)} planes in shared memory, "
+              f"{held} clusters at once")
+        check(route == "cluster", f"rof_chunk_batched {nx}x{ny} took the "
+              f"{route} path")
         if B == ENS_B:
             x = torch.from_numpy(fs).to(dev).reshape(B, nx, ny)
             f, lmb = x, np.asarray(lmbs)
@@ -2482,21 +2621,6 @@ def phase_batched_kernels(dev):
                             dataterm)
         r = rows["rof_chunk_batched"]
         r["err"] = max(r["err"], err)
-        if csize is None:  # row 7: the banded batched chunk's shape
-            n = nx * ny
-            t = max((traced_call(lambda: fr.rof_chunk_batched(
-                *planes, scal, ri, dataterm)) for _ in range(8)),
-                key=lambda t: len(t["csrc"]))
-            b = bound(10 * B * n * 4,
-                      B * n * (ri * ROF_ITER_OPS + ROF_NORM_OPS))
-            BANDED[7] = {"call": f"rof_chunk_batched B={B} {nx}x{ny}",
-                         "launches_per_call": len(t["csrc"]),
-                         "device_ms": t["csrc_ms"], "bound_ms": b[0],
-                         "bound_by": b[1]}
-            print(f"row 7 rof_chunk_batched B={B} {nx}x{ny} (streaming): "
-                  f"{len(t['csrc'])} hand-written launches a call, "
-                  f"{t['csrc_ms']:.4f} ms of device time traced, bound "
-                  f"{b[0]:.5f} ms ({b[1]})")
         if B == ENS_B:
             r.update(rof_batched_timings(planes, scal, ri, csize))
             r["plain_ms"] = time_ms(lambda: fr.rof_chunk_batched_plain(
@@ -2505,6 +2629,7 @@ def phase_batched_kernels(dev):
             # x, q, f in (4 planes); new and previous x, q out (6)
             r["bound"] = bound(10 * B * n * 4,
                                B * n * (ri * ROF_ITER_OPS + ROF_NORM_OPS))
+    rows["rof_chunk_batched_tiled"] = rof_batched_tiled_kernels(dev, ri)
 
     # ml: config 3's shape and a ragged one
     for seed, (B, L, nx, ny) in enumerate(((SMALL_ENS_B, ML_LABELS, ML_SIZE,
@@ -2745,6 +2870,81 @@ def phase_ensemble(card):
     del b, problems, state, gstate
     torch.cuda.empty_cache()
     return {"rof_chunk_batched": launches}, rate, grate
+
+
+def phase_large_ensemble(card):
+    """LARGE_ENS_B ROF instances of 2048x2048 (4-megapixel frames denoised
+    together; ``ensemble_data``, config 5's options) through BatchedPDHG:
+    the fused batched route, whose chunks take ``ROFBatchedChunk``'s tiled
+    launch in place (no cluster holds an instance), counted against the
+    phase plan, then the generic batched path, each ENS_WARM +
+    SMALL_ENS_ITERS iterations; every instance's energy held fused against
+    generic, the first and last against single-instance fused solves."""
+    import torch
+
+    from prost_tpu_torch.ops import fused_rof as fr
+    from prost_tpu_torch.parallel import BatchedPDHG
+
+    B, nx, ny = LARGE_ENS_B, LARGE_ENS_SIZE, LARGE_ENS_SIZE
+    fs, lmbs = ensemble_data(B, nx, ny)
+    opts, sopts = ens_opts()
+    t0 = time.perf_counter()
+    problems = [ensemble_problem(nx, ny, f, lmb) for f, lmb in zip(fs, lmbs)]
+    b = BatchedPDHG(problems, opts, sopts)
+    check(b.rof is not None, "the fused batched ROF route was not taken")
+    print(f"ensemble {B}x{nx}x{ny}: set-up {time.perf_counter() - t0:.2f} s; "
+          f"lmb {[round(v, 4) for v in lmbs]}")
+
+    fr.reset_launch_counts()
+    state, dt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
+    launches = fr.launch_counts["rof_chunk_batched_tiled"]
+    call = b.rof["call"]
+    # the phase plan: one generic step (iteration 0), two chunks to the end
+    # of the warm-up, then SMALL_ENS_ITERS / 10 chunks
+    want = 2 + SMALL_ENS_ITERS // 10
+    check(call.inplace and call.route[0] == "tiled",
+          f"the {B}x{nx}x{ny} ensemble's chunks took {call.route}")
+    check(launches == fr.launch_counts["rof_chunk_batched"] == want,
+          f"rof_chunk_batched_tiled launches {launches} (rof_chunk_batched "
+          f"{fr.launch_counts['rof_chunk_batched']}), the phase plan has "
+          f"{want}")
+    check(state.iteration.tolist() == [ENS_WARM + SMALL_ENS_ITERS] * B
+          and not bool(state.converged.any()),
+          "the ensemble did not run every instance to its end")
+    x = state.x.cpu().numpy()
+    check(x.shape == (B, nx * ny) and np.all(np.isfinite(x)),
+          "non-finite or misshapen ensemble result")
+    e_fused = rof_energies(x, fs, lmbs, nx, ny)
+    rate = B * SMALL_ENS_ITERS / dt
+    print(f"fused batched ensemble {B}x{nx}x{ny} (tiled launch, tile "
+          f"{call.route[1]}): {SMALL_ENS_ITERS} iterations in {dt:.4f} s = "
+          f"{SMALL_ENS_ITERS / dt:.1f} it/s = {rate:.1f} instance-it/s, "
+          f"rof_chunk_batched_tiled launches {launches} (with the "
+          f"warm-up's) [{card}]")
+    b.rof = None  # the generic batched path, the JAX tests' idiom
+    gstate, gdt = ensemble_run(b, ENS_WARM, SMALL_ENS_ITERS)
+    e_gen = rof_energies(gstate.x.cpu().numpy(), fs, lmbs, nx, ny)
+    grate = B * SMALL_ENS_ITERS / gdt
+    rel = float(np.max(np.abs(e_fused - e_gen) / np.abs(e_gen)))
+    print(f"generic batched ensemble {B}x{nx}x{ny}: {SMALL_ENS_ITERS} "
+          f"iterations in {gdt:.4f} s = {grate:.1f} instance-it/s [{card}]; "
+          f"fused/generic {rate / grate:.2f}x; energy max rel diff "
+          f"{rel:.3e} (tol {ENERGY_RTOL:g}); energies {list(e_fused)}")
+    check(rel <= ENERGY_RTOL, "fused and generic ensemble energies disagree")
+    del gstate
+    for i in (0, B - 1):
+        s = single_run(problems[i], opts, sopts, ENS_WARM, SMALL_ENS_ITERS)
+        e1 = rof_energies(s.x.cpu().numpy()[None], fs[i], [lmbs[i]], nx,
+                          ny)[0]
+        rel1 = abs(e_fused[i] - e1) / abs(e1)
+        print(f"ensemble {B}x{nx}x{ny} instance {i} vs a single-instance "
+              f"fused solve: energy {e_fused[i]:.8f} vs {e1:.8f}, rel diff "
+              f"{rel1:.3e} (tol {ENERGY_RTOL:g})")
+        check(rel1 <= ENERGY_RTOL, f"ensemble instance {i} disagrees with "
+              "its single-instance solve")
+    del b, problems, state
+    torch.cuda.empty_cache()
+    return {"rof_chunk_batched_tiled": launches}, rate, grate
 
 
 def phase_small_ensembles(card):
@@ -6800,9 +7000,8 @@ class first_calls:
 
 
 # rows of PERF.md's kernel table that the JAX package bands at its large
-# shapes, the port's tiled row 19 and the rows it still runs as streaming
-# launch sequences there: their traced calls at those shapes
-# (phase_batched_kernels, phase_large)
+# shapes, each a tiled launch in the port: their traced calls at those
+# shapes (phase_batched_kernels, phase_large)
 BANDED = {}
 
 
@@ -7106,8 +7305,8 @@ def phase_large(card):
           f"measures) equal [{card}]")
 
     tiled.update(vol_large(card))
-    print("banded rows at their banded shapes (rows 19, 16, 14, 22, 28 and "
-          "27 tiled, the others streaming): " + json.dumps(BANDED))
+    print("banded rows at their banded shapes (rows 7, 19, 16, 14, 22, 28 "
+          "and 27, all tiled): " + json.dumps(BANDED))
     return tiled
 
 
@@ -7717,6 +7916,8 @@ def main() -> int:
          "tight": e_tight, "admm": e_admm}))
     ens_launches, _, _ = phase(phase_ensemble, card)
     launches.update(ens_launches)
+    large_launches, _, _ = phase(phase_large_ensemble, card)
+    launches.update(large_launches)
     launches.update(phase(phase_small_ensembles, card))
     launches.update(phase(phase_conv_ensembles, card))
     launches.update(phase(phase_large, card))
@@ -7741,6 +7942,8 @@ def main() -> int:
         "vol_chunk": ("fused_vol", "prost_tpu/ops/fused_vol.py:213"),
         "vol_multichunk": ("fused_vol", "prost_tpu/ops/fused_vol.py:362"),
         "rof_chunk_batched": ("fused_rof", "prost_tpu/ops/fused_rof.py:485"),
+        "rof_chunk_batched_tiled": ("fused_rof",
+                                    "prost_tpu/ops/fused_rof.py:722"),
         "ml_chunk_batched": ("fused_multilabel",
                              "prost_tpu/ops/fused_multilabel.py:675"),
         "vol_chunk_batched": ("fused_vol", "prost_tpu/ops/fused_vol.py:300"),

@@ -11,10 +11,10 @@
 //                               -> _rof_banded_kernel, _rof_banded_db_kernel
 //   prost_tpu/ops/fused_rof.py  rof_fused_multichunk_banded
 //                               -> _rof_banded_mc_kernel
+//   prost_tpu/ops/fused_rof.py  rof_fused_chunk_banded_batched
+//                               -> _rof_banded_kernel on a (B, n_bands) grid
 // whose math is _chunk_core, _rof_update, _shift_ops, _project_dead_dual,
-// _hoist_dataterm and adapt_scalars in the same file.  The batched chunk
-// also serves rof_fused_chunk_banded_batched, which bands each instance only
-// because a TPU core's VMEM cannot hold a large one.  The plain PyTorch
+// _hoist_dataterm and adapt_scalars in the same file.  The plain PyTorch
 // versions live beside their wrappers in prost_tpu_torch/ops/fused_rof.py.
 //
 // Layout (the JAX package's): x, f, w are (nx, ny) row-major f32 planes;
@@ -46,18 +46,20 @@
 //     does not fit in the shared memory a block may opt into (2048x1536
 //     and 2048x2048 need 600-800 KB a block, the 2092-row band of a
 //     2048-wide plane about 800 KB): one launch a chunk over overlapping
-//     2-D windows, each block holding its tile and the chunk's halo;
+//     2-D windows, each block holding its tile and the chunk's halo; with
+//     the instance on blockIdx.z it is also the batched chunk of the
+//     instances that no cluster holds (rof_fused_chunk_banded_batched);
 //   * the streaming launch sequence (rof_seed, rof_primal, rof_dual,
 //     rof_norm_partial, pdhg_finish), for chunks whose halo no window
-//     holds, for the comparisons, and for the batched chunks.
+//     holds and for the comparisons.
 // The wrapper's shape rule (ops/fused_rof.py route_of, on the card's SM
 // count and opt-in limit) picks the path before the launch.  A batched
 // chunk of 1024 instances of 128x128 streams 10 planes of 64 MiB once
 // (x, 2 q, f in; x, 2 q, x_prev, 2 q_prev out), a bound of about 0.2 ms;
 // its working set (about 1 GB) is far beyond L2, so it holds each
 // instance on chip in a thread-block cluster (rof_chunk_cluster below)
-// wherever one of at most 8 CTAs holds it, and keeps the streaming
-// sequence for larger instances.
+// wherever one of at most 8 CTAs holds it, and runs larger instances
+// tiled, each block one tile of one instance.
 //
 // Design of the streaming kernels.  One thread per pixel, 32x8 blocks
 // with threadIdx.x along the contiguous y axis, so warps read and write
@@ -345,8 +347,9 @@ __global__ void rof_norm_partial(Planes b) {
 // neighbour's next write of that plane.  A last barrier keeps every CTA
 // resident until its neighbours have read it.  C, the smallest of 1, 2, 4
 // and 8 whose band and slack rows fit, comes from ops/fused_rof.py
-// cluster_size; a shape that no cluster of 8 holds keeps the streaming
-// sequence, chosen by the wrapper before the launch.
+// cluster_size; a shape that no cluster of 8 holds takes the batched tiled
+// launch (prost_rof_chunk_batched_tiled), chosen by the wrapper before the
+// launch.
 //
 // The per-pixel arithmetic is that of rof_primal, rof_dual and
 // rof_norm_partial (the same device functions), and the norm partials are
@@ -1142,18 +1145,28 @@ Planes planes_of(void* x, void* q, void* xp, void* qp, void* g, void* gp,
 // stopping test between chunks on the device, and copies back only where
 // it ran an odd number of chunks.  A launch made after convergence
 // returns at once.
+// The batched chunk (rof_fused_chunk_banded_batched, and row 4's
+// rof_fused_chunk_batched for instances that no cluster of 8 holds) is the
+// same launch with the instance on blockIdx.z (tiled_instance): each block
+// reads its instance's scalars, planes and norm partials, so instance b is
+// the single-instance launch on instance b alone, bit for bit; one
+// pdhg_finish block an instance, and the copy back gated by each
+// instance's flag (rof_tiled_settle, z over the instances), so a flagged
+// instance keeps x, q, x_prev and q_prev.  One launch of B instances runs
+// B times the tiles in rounds of one block per SM, which the wrapper's tile
+// rule counts (ops/fused_rof.py tiled_tile with its batch).
 // ---------------------------------------------------------------------------
 
 constexpr int TL_THREADS = 1024;  // a block: 32 rows of 32 threads
 constexpr int TL_ROWS = TL_THREADS / BX;
 
 struct Tiled {
-  const float *x, *q;  // the chunk's input: (nx, ny), (2, nx, ny)
-  float *x2, *q2;      // its output
+  const float *x, *q;  // the chunk's input: (B, nx, ny), (B, 2, nx, ny)
+  float *x2, *q2;      // its output, laid out as the input
   float *xp, *qp;      // x_prev, q_prev of the owned pixels
   const float *f, *w;
-  float* sc;
-  float* partial;  // 4 per 32x8 tile of the plane (grid_of)
+  float* sc;       // S_LEN an instance
+  float* partial;  // 4 per 32x8 tile of the plane (grid_of) an instance
   int nx, ny;
   int nxg;    // rows of the global plane of a halo band; 0: the whole plane
   int count;  // iterations; the halo is count + 1 before, count after
@@ -1202,6 +1215,27 @@ __device__ __forceinline__ TWin tiled_window(const Tiled& a) {
   v.oj0 = C0 - v.c0;
   v.oj1 = C1 - v.c0;
   return v;
+}
+
+// The buffers of this block's instance (blockIdx.z; 0 for one instance):
+// every plane moved by its per-instance size with 64-bit offsets, the
+// scalars by S_LEN, the norm partials by the plane's 32x8 tiles
+// (prost_rof_num_blocks: the stride pdhg_finish reads, not the launch's
+// block count).
+__device__ __forceinline__ Tiled tiled_instance(Tiled a) {
+  const size_t z = blockIdx.z, n = (size_t)a.nx * a.ny;
+  const dim3 g = grid_of(a.nx, a.ny);
+  a.x += z * n;
+  a.x2 += z * n;
+  a.xp += z * n;
+  a.f += z * n;
+  a.w += z * n;
+  a.q += 2 * z * n;
+  a.q2 += 2 * z * n;
+  a.qp += 2 * z * n;
+  a.sc += z * S_LEN;
+  a.partial += z * 4 * (size_t)g.x * g.y;
+  return a;
 }
 
 // The pixels of iteration k's x (q_k with `dual`) that are still exact:
@@ -1288,7 +1322,8 @@ __device__ __forceinline__ void owned_tiles(const Tiled& a, const TWin& v,
 }
 
 template <int DT>
-__global__ void __launch_bounds__(TL_THREADS, 1) rof_tiled(Tiled a) {
+__global__ void __launch_bounds__(TL_THREADS, 1) rof_tiled(Tiled batch) {
+  const Tiled a = tiled_instance(batch);
   if (a.sc[S_CONV] != 0.f) return;
   extern __shared__ float smem[];
   const int nx = a.nx, ny = a.ny;
@@ -1420,12 +1455,19 @@ __global__ void __launch_bounds__(TL_THREADS, 1) rof_tiled(Tiled a) {
 
 // (x2, q2) into (x, q) where the chunk left its result there: a chunk
 // (multi 0) whose flag was not set at entry, a multichunk (multi 1) that
-// ran an odd number of chunks.
+// ran an odd number of chunks; instance blockIdx.z of a batched chunk by
+// its own flag.
 __global__ void rof_tiled_settle(const float* __restrict__ x2,
                                  const float* __restrict__ q2,
                                  float* __restrict__ x, float* __restrict__ q,
                                  const float* __restrict__ sc, size_t n,
                                  int multi) {
+  const size_t z = blockIdx.z;
+  x2 += z * n;
+  x += z * n;
+  q2 += 2 * z * n;
+  q += 2 * z * n;
+  sc += z * S_LEN;
   const bool copy =
       multi ? ((int)sc[S_DONE] & 1) != 0 : sc[S_CONV] == 0.f;
   if (!copy) return;
@@ -1459,9 +1501,12 @@ int rof_tiled_limit() {
   return limit;
 }
 
-// One tiled launch of `a`; refuses a tile that is not a multiple of the
-// 32x8 norm tiles or whose window does not fit in a block's shared memory.
-int tiled_launch(const Tiled& a, int dataterm, cudaStream_t s) {
+// One tiled launch of `a` over `batch` instances; refuses a tile that is
+// not a multiple of the 32x8 norm tiles or whose window does not fit in a
+// block's shared memory, and a batch beyond MAX_BATCH.
+int tiled_launch(const Tiled& a, int dataterm, cudaStream_t s,
+                 int batch = 1) {
+  if (int rc = batch_error(batch)) return rc;
   if (a.tx < BY || a.tx % BY || a.ty < BX || a.ty % BX || a.count < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = tiled_smem(a.tx, a.ty, a.count, dataterm);
@@ -1472,29 +1517,47 @@ int tiled_launch(const Tiled& a, int dataterm, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.ny + a.ty - 1) / a.ty, (a.nx + a.tx - 1) / a.tx);
+  dim3 grid((a.ny + a.ty - 1) / a.ty, (a.nx + a.tx - 1) / a.tx, batch);
   kern<<<grid, TL_THREADS, smem, s>>>(a);
   LAUNCH_CHECK();
   return 0;
 }
 
 int tiled_settle(const Tiled& a, float* x, float* q, int multi,
-                 cudaStream_t s) {
+                 cudaStream_t s, int batch = 1) {
   const size_t n = (size_t)a.nx * a.ny;
-  rof_tiled_settle<<<264, 512, 0, s>>>(a.x2, a.q2, x, q, a.sc, n, multi);
+  const size_t blocks = (3 * n + 511) / 512;
+  rof_tiled_settle<<<dim3(blocks < 264 ? (int)blocks : 264, 1, batch), 512,
+                     0, s>>>(a.x2, a.q2, x, q, a.sc, n, multi);
   LAUNCH_CHECK();
   return 0;
 }
 
+// A chunk of `batch` instances: the tiled launch, the finish (a block an
+// instance) and the copy back of each instance whose flag was clear.
+int tiled_chunk(const Tiled& a, float* x, float* q, int dataterm, int batch,
+                cudaStream_t s) {
+  if (int rc = tiled_launch(a, dataterm, s, batch)) return rc;
+  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const dim3 g = grid_of(a.nx, a.ny);
+  pdhg_finish<<<batch, FIN, 0, s>>>(a.sc, a.partial, (int)(g.x * g.y),
+                                    a.count, 0, STEP_NONE, none);
+  LAUNCH_CHECK();
+  return tiled_settle(a, x, q, 0, s, batch);
+}
+
+// The Tiled of `batch` instances; `scratch` holds their (x2, q2) as
+// (B, nx, ny) then (B, 2, nx, ny), 3 B planes.
 Tiled tiled_of(void* x, void* q, void* xp, void* qp, const void* f,
                const void* w, void* sc, void* partial, void* scratch, int nx,
-               int ny, int nx_global, int count, int tx, int ty) {
+               int ny, int nx_global, int count, int tx, int ty,
+               int batch = 1) {
   const size_t n = (size_t)nx * ny;
   Tiled a;
   a.x = (const float*)x;
   a.q = (const float*)q;
   a.x2 = (float*)scratch;
-  a.q2 = (float*)scratch + n;
+  a.q2 = (float*)scratch + (size_t)batch * n;
   a.xp = (float*)xp;
   a.qp = (float*)qp;
   a.f = (const float*)f;
@@ -1713,16 +1776,31 @@ int prost_rof_chunk_tiled(void* x, void* q, void* xp, void* qp,
                           void* partial, void* scratch, int nx, int ny,
                           int nx_global, int count, int dataterm, int tx,
                           int ty, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   Tiled a = tiled_of(x, q, xp, qp, f, w, sc, partial, scratch, nx, ny,
                      nx_global, count, tx, ty);
-  if (int rc = tiled_launch(a, dataterm, s)) return rc;
-  AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  pdhg_finish<<<1, FIN, 0, s>>>(a.sc, a.partial,
-                                prost_rof_num_blocks(nx, ny), count, 0,
-                                STEP_NONE, none);
-  LAUNCH_CHECK();
-  return tiled_settle(a, (float*)x, (float*)q, 0, s);
+  return tiled_chunk(a, (float*)x, (float*)q, dataterm, 1,
+                     (cudaStream_t)stream);
+}
+
+// rof_fused_chunk_banded_batched (and rof_fused_chunk_batched for
+// instances that no cluster holds) as one tiled launch of `batch`
+// instances on blockIdx.z, one finish block an instance and one copy back
+// gated by each instance's flag: x, q, xp, qp, f, w (B, nx, ny) and (B, 2,
+// nx, ny), sc S_LEN an instance, partial 4 prost_rof_num_blocks(nx, ny)
+// an instance, `scratch` 3 B (nx, ny) planes.  Instance b is
+// prost_rof_chunk_tiled on instance b alone, bit for bit; an instance
+// whose sc[S_CONV] is set keeps its four planes and its norms.  Refuses a
+// tile as prost_rof_chunk_tiled does, and a batch beyond MAX_BATCH
+// (cudaErrorInvalidValue).
+int prost_rof_chunk_batched_tiled(void* x, void* q, void* xp, void* qp,
+                                  const void* f, const void* w, void* sc,
+                                  void* partial, void* scratch, int nx,
+                                  int ny, int count, int dataterm, int batch,
+                                  int tx, int ty, void* stream) {
+  Tiled a = tiled_of(x, q, xp, qp, f, w, sc, partial, scratch, nx, ny, 0,
+                     count, tx, ty, batch);
+  return tiled_chunk(a, (float*)x, (float*)q, dataterm, batch,
+                     (cudaStream_t)stream);
 }
 
 // rof_fused_multichunk_banded as up to k_chunks tiled launches, each

@@ -19,11 +19,14 @@ Four kernels carry the ROF routes, each a hand-written CUDA kernel set in
   device between chunks; its in-place form ``rof_multichunk_`` serves the
   route's light call ``ROFMultichunk``;
 * ``rof_chunk_batched`` (JAX ``rof_fused_chunk_batched``, and its banded
-  variant for large instances): one chunk for each of B instances, the
-  batched ensembles' route (``parallel/ensemble.py``): one cluster launch
+  variant ``rof_fused_chunk_banded_batched`` for large instances): one
+  chunk for each of B instances, the batched ensembles' route
+  (``parallel/ensemble.py``), by ``batched_route_of``: one cluster launch
   that holds each instance on chip in a thread-block cluster of
   ``cluster_size`` CTAs, or, for instances that no cluster of 8 holds, the
-  streaming launch sequence (``rof_chunk_batched_streaming_``);
+  tiled launch with the instances on the grid's z axis (its in-place form
+  ``rof_chunk_batched_`` serves the ensembles' light call
+  ``ROFBatchedChunk``), else the streaming launch sequence;
 * ``rof_chunk_halo`` (JAX ``rof_fused_chunk_halo``): one chunk on a
   halo-extended shard of a row-partitioned plane, the spatially sharded
   route's (``parallel/spatial_fused.py``); its in-place form
@@ -43,8 +46,9 @@ an iteration, norms, finish) runs only where ``path="streaming"`` asks for
 it, or where no tile's window holds a chunk's halo (more than 39
 iterations a chunk with wsquare, 43 without).  All three are bit-equal;
 ``path=`` forces one, and a path that cannot launch raises.
-``rof_chunk_tiled_plain`` and ``rof_multichunk_tiled_plain`` are the tiled
-launches' plain twins, window by window.
+``rof_chunk_tiled_plain``, ``rof_multichunk_tiled_plain`` and
+``rof_chunk_batched_tiled_plain`` are the tiled launches' plain twins,
+window by window.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel, or raises.  There is no other route and no fallback:
@@ -78,7 +82,7 @@ from .fused_tight import fused_tight_run, match_tight_structure
 from .fused_vol import fused_vol_run, match_vol_structure
 from .pdhg_chunk import (CF, CI, N_HALO_SCAL, RES_RED_BYTES, S_CONV, S_LEN,
                          S_NORM, SOUT, STEPSIZES, VP, WHOLE_PLANE,
-                         ChunkWork, LightChunk, LightMultichunk, RowOps,
+                         LightChunk, LightMultichunk, RowOps,
                          ball_scale, canonical_duals, card_sms,
                          check_buffers, check_halo, check_inplace,
                          check_path, chunk_state, dual_ball_radius, dx, dy,
@@ -102,10 +106,11 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 
 # launches of each kernel wrapper on the card (CPU calls do not count);
 # a tiled launch also counts under "rof_chunk_tiled" (a chunk's, whole plane
-# or halo band) or "rof_multichunk_tiled"
+# or halo band), "rof_multichunk_tiled" or "rof_chunk_batched_tiled"
 launch_counts = {"rof_chunk": 0, "rof_multichunk": 0,
                  "rof_chunk_batched": 0, "rof_chunk_halo": 0,
-                 "rof_chunk_tiled": 0, "rof_multichunk_tiled": 0}
+                 "rof_chunk_tiled": 0, "rof_multichunk_tiled": 0,
+                 "rof_chunk_batched_tiled": 0}
 
 
 def reset_launch_counts() -> None:
@@ -421,6 +426,25 @@ def rof_chunk_tiled_plain(x, q, f, w, scal, count: int,
                                  sq[5])))
 
 
+def rof_chunk_batched_tiled_plain(x, q, f, w, scal, count: int,
+                                  dataterm: str = "square", tile=(64, 64),
+                                  halo=None, partials=False):
+    """The batched tiled chunk (``rof_chunk_batched_`` with
+    ``path="tiled"``) instance by instance: ``rof_chunk_tiled_plain`` on
+    instance b with ``scal``'s column b (its flag respected).  Returns
+    ``rof_chunk_batched_plain``'s outputs, norms2 (4, B); with
+    ``partials``, also each instance's 32x8 tiles' partials (B, tiles, 4),
+    those of a flagged instance too (the kernel leaves its own
+    untouched)."""
+    outs = [rof_chunk_tiled_plain(x[b], q[b], f[b], w[b], scal[:, b], count,
+                                  dataterm, tile=tile, halo=halo,
+                                  partials=partials)
+            for b in range(x.shape[0])]
+    planes = [torch.stack(t) for t in zip(*outs)]
+    planes[4] = planes[4].T
+    return tuple(planes)
+
+
 def rof_multichunk_tiled_plain(x, q, f, w, scal, count: int, k_chunks: int,
                                dataterm: str, stepsize: str, consts,
                                tile=(64, 64), halo=None):
@@ -486,8 +510,8 @@ def cluster_size(nx: int, ny: int, dataterm: str = "square"):
     ``rof_chunk_batched`` on chip: the smallest of ``CLUSTER_SIZES`` whose
     band's planes and two slack rows (the neighbours' q_x row above and x
     row below, copied in from their shared memory) fit in ``SMEM_BYTES``,
-    or None where no cluster of 8 holds it and the streaming launch
-    sequence runs instead."""
+    or None where no cluster of 8 holds it and the tiled launch (or the
+    streaming sequence) runs instead (``batched_route_of``)."""
     for csize in CLUSTER_SIZES:
         rows = cluster_planes(dataterm) * cluster_band_rows(nx, csize) + 2
         if rows * int(ny) * 4 <= SMEM_BYTES:
@@ -511,6 +535,7 @@ def _lib():
                                          + [VP],
         "prost_rof_resident_smem": [CI],
         "prost_rof_chunk_tiled": [VP] * 9 + [CI] * 7 + [VP],
+        "prost_rof_chunk_batched_tiled": [VP] * 9 + [CI] * 7 + [VP],
         "prost_rof_multichunk_tiled": [VP] * 9 + [CI] * 6 + [CF] * 6
                                       + [CI] * 2 + [VP],
         "prost_rof_tiled_smem": []})
@@ -576,26 +601,28 @@ def tiled_bytes(tx: int, ty: int, count: int, dataterm: str = "square") -> int:
 
 
 def tiled_tile(nx: int, ny: int, count: int, dataterm: str, sms: int,
-               smem: int):
-    """The owned tile (rows, columns) of the tiled launch on (nx, ny)
-    planes and ``count``-iteration chunks on a card of ``sms`` SMs whose
-    blocks may hold ``smem`` bytes of dynamic shared memory: of the tiles
-    whose window fits (``tiled_bytes``), the one whose launch moves the
-    fewest window pixels through the SMs (the waves of one block per SM
-    times a whole tile's window), the larger tile on a tie; None where no
-    tile's window fits."""
+               smem: int, batch: int = 1):
+    """The owned tile (rows, columns) of the tiled launch on ``batch``
+    instances of (nx, ny) planes and ``count``-iteration chunks on a card
+    of ``sms`` SMs whose blocks may hold ``smem`` bytes of dynamic shared
+    memory: of the tiles whose window fits (``tiled_bytes``), the one
+    whose launch moves the fewest window pixels through the SMs (the waves
+    of one block per SM over every instance's tiles times a whole tile's
+    window), the larger tile on a tie; None where no tile's window
+    fits."""
     return window_tile(nx, ny, 2 * int(count) + 1, sms,
                        lambda tx, ty: tiled_bytes(tx, ty, count, dataterm)
-                       <= smem)
+                       <= smem, batch)
 
 
-def window_tile(nx: int, ny: int, h: int, sms: int, fits):
-    """The owned tile (rows, columns) of a tiled launch on (nx, ny) planes
-    on a card of ``sms`` SMs, the search of every tiled rule: of the tiles
-    of ``TILE_ROWS`` x ``TILE_COLS`` (every 32x8 norm tile in one) whose
-    window fits (``fits(tx, ty)``, false beyond some rows for each column
-    count), the one whose launch moves the fewest window pixels through
-    the SMs (the rounds of one block per SM times a whole tile's window,
+def window_tile(nx: int, ny: int, h: int, sms: int, fits, batch: int = 1):
+    """The owned tile (rows, columns) of a tiled launch on ``batch``
+    instances of (nx, ny) planes on a card of ``sms`` SMs, the search of
+    every tiled rule: of the tiles of ``TILE_ROWS`` x ``TILE_COLS`` (every
+    32x8 norm tile in one) whose window fits (``fits(tx, ty)``, false
+    beyond some rows for each column count), the one whose launch moves
+    the fewest window pixels through the SMs (the rounds of one block per
+    SM over the ``batch`` instances' tiles times a whole tile's window,
     ``h`` rows and columns more than the tile), the larger tile on a tie;
     None where no tile's window fits."""
     best, cost = None, None
@@ -605,7 +632,8 @@ def window_tile(nx: int, ny: int, h: int, sms: int, fits):
         for tx in TILE_ROWS:
             if tx - 8 >= nx or not fits(tx, ty):
                 break
-            rounds = -(-(-(-nx // tx) * -(-ny // ty)) // int(sms))
+            tiles = int(batch) * -(-nx // tx) * -(-ny // ty)
+            rounds = -(-tiles // int(sms))
             c = rounds * (min(tx, nx) + h) * (min(ty, ny) + h)
             if best is None or c < cost or (c == cost and
                                             tx * ty > best[0] * best[1]):
@@ -614,10 +642,11 @@ def window_tile(nx: int, ny: int, h: int, sms: int, fits):
 
 
 def tiled_ok(nx: int, ny: int, count: int, dataterm: str, sms: int,
-             smem: int) -> bool:
-    """Whether the tiled launch takes (nx, ny) planes in chunks of
-    ``count`` iterations: some tile's window fits in ``smem`` bytes."""
-    return tiled_tile(nx, ny, count, dataterm, sms, smem) is not None
+             smem: int, batch: int = 1) -> bool:
+    """Whether the tiled launch takes (nx, ny) planes (``batch`` of
+    them) in chunks of ``count`` iterations: some tile's window fits in
+    ``smem`` bytes."""
+    return tiled_tile(nx, ny, count, dataterm, sms, smem, batch) is not None
 
 
 def route_of(nx: int, ny: int, dataterm: str, count: int, sms: int,
@@ -686,17 +715,18 @@ def card_limits(device, multi: bool = False) -> tuple:
     return card_sms(device), smem
 
 
-def _scratch(path: str, nx: int, ny: int, device):
+def _scratch(path: str, nx: int, ny: int, device, batch: int = 1):
     """A launch's scratch: the grid-resident launch's norm terms and its
     exchange planes (8 planes), the tiled launch's second (x, q) (3
-    planes), or the streaming sequence's carried gradient planes (of this
-    iterate and of the previous one)."""
+    planes an instance), or the streaming sequence's carried gradient
+    planes (of this iterate and of the previous one, 2 planes an instance
+    each)."""
     if path != "streaming":
-        planes = 8 if path == "resident" else 3
+        planes = 8 if path == "resident" else 3 * int(batch)
         return [torch.empty((planes, nx, ny), dtype=torch.float32,
                             device=device)]
-    return [torch.empty((2, nx, ny), dtype=torch.float32, device=device)
-            for _ in range(2)]
+    return [torch.empty((2 * int(batch), nx, ny), dtype=torch.float32,
+                        device=device) for _ in range(2)]
 
 
 def _launch_chunk(what: str, state, prev, f, w, sc, partial, scratch,
@@ -852,8 +882,56 @@ def rof_chunk_halo_(x, q, x_prev, q_prev, f, w, scal, count: int,
                     N_HALO_SCAL, count, dataterm, int(nx_global), path)
 
 
+BATCHED_PATHS = (None, "cluster", "tiled", "streaming")
+
+
+def batched_route_of(batch: int, nx: int, ny: int, dataterm: str,
+                     count: int, sms: int, tiled_smem: int) -> str:
+    """The shape rule of ``rof_chunk_batched`` on ``batch`` instances of
+    (nx, ny) on a card of ``sms`` SMs whose tiled blocks may hold
+    ``tiled_smem`` bytes: "cluster" where a cluster of at most 8 CTAs
+    holds an instance (``cluster_size``), else "tiled" where a tile's
+    window holds the chunk's halo (``tiled_ok`` with the batch), else
+    "streaming"."""
+    if cluster_size(nx, ny, dataterm) is not None:
+        return "cluster"
+    if tiled_ok(nx, ny, count, dataterm, sms, tiled_smem, batch):
+        return "tiled"
+    return "streaming"
+
+
+def _check_batched_path(path, what: str) -> None:
+    if path not in BATCHED_PATHS:
+        raise ProstError(f"{what}: path must be one of {BATCHED_PATHS}, got "
+                         f"{path!r}.")
+
+
+def batched_pick_route(path, batch: int, nx: int, ny: int, dataterm: str,
+                       count: int, device, what: str) -> tuple:
+    """(path, tile) of a batched chunk on the card ``device``: by
+    ``batched_route_of`` where ``path`` is None, else the one asked for;
+    "cluster" where no cluster of 8 holds an instance, or "tiled" where no
+    tile's window holds the halo, raises ``ProstError``.  ``tile`` is the
+    tiled launch's (rows, columns), else None."""
+    _check_batched_path(path, what)
+    sms, tsmem = card_sms(device), tiled_limit(device)
+    if path is None:
+        path = batched_route_of(batch, nx, ny, dataterm, count, sms, tsmem)
+    if path == "cluster" and cluster_size(nx, ny, dataterm) is None:
+        raise ProstError(f"{what}: no cluster of {CLUSTER_SIZES[-1]} CTAs "
+                         f"holds an instance of {nx}x{ny}.")
+    tile = None
+    if path == "tiled":
+        tile = tiled_tile(nx, ny, count, dataterm, sms, tsmem, batch)
+        if tile is None:
+            raise ProstError(f"{what}: no tile's window holds the halo of a "
+                             f"{count}-iteration chunk in the shared memory "
+                             "of a block.")
+    return path, tile
+
+
 def rof_chunk_batched(x, q, f, w, scal, count: int,
-                      dataterm: str = "square"):
+                      dataterm: str = "square", path=None):
     """``rof_chunk`` for each of B instances.
 
     x, f, w: (B, nx, ny); q: (B, 2, nx, ny); scal: (5, B), a row each of
@@ -863,17 +941,21 @@ def rof_chunk_batched(x, q, f, w, scal, count: int,
     SQUARED preconditioned residual norms of each instance; the caller's
     x and q are left as they were.  Instance b comes out as ``rof_chunk``
     on instance b alone.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel: where ``cluster_size`` gives a cluster, one cluster
-    launch (and the norms' finish) that reads the inputs and writes new
-    outputs; otherwise the streaming launch sequence on copies."""
+    launch the kernel on the path of ``batched_route_of`` unless ``path``
+    ("cluster", "tiled" or "streaming") asks for one: the cluster launch
+    (and the norms' finish) that reads the inputs and writes new outputs,
+    or ``rof_chunk_batched_``'s tiled launch or streaming sequence on
+    copies."""
     _check(x, q, f, w, scal, 5, count, dataterm, batched=True)
+    _check_batched_path(path, "rof_chunk_batched")
     if x.device.type == "cpu":
         return rof_chunk_batched_plain(x, q, f, w, scal, count, dataterm)
     batch, nx, ny = x.shape
-    csize = cluster_size(nx, ny, dataterm)
-    if csize is None:
-        return halo_copy(rof_chunk_batched_streaming_, (x, q), f, w, scal,
-                         count, dataterm)
+    route = batched_pick_route(path, batch, nx, ny, dataterm, count,
+                               x.device, "rof_chunk_batched")
+    if route[0] != "cluster":
+        return halo_copy(rof_chunk_batched_, (x, q), f, w, scal, count,
+                         dataterm, route[0])
     lib = _lib()
     ins = [t.contiguous() for t in (x, q, f, w)]
     outs = [torch.empty_like(t) for t in (ins[0], ins[1], ins[0], ins[1])]
@@ -882,35 +964,136 @@ def rof_chunk_batched(x, q, f, w, scal, count: int,
                           dtype=torch.float32, device=x.device)
     launch(lib, "prost_rof_chunk_cluster", "rof_chunk_batched",
            launch_counts, x.device, ins + outs + [sc, partial], nx, ny,
-           int(count), DATATERMS[dataterm], batch, csize)
+           int(count), DATATERMS[dataterm], batch,
+           cluster_size(nx, ny, dataterm))
     return (*outs, sc[:, S_NORM:S_NORM + 4].T)
 
 
-def rof_chunk_batched_streaming_(x, q, x_prev, q_prev, f, w, scal,
-                                 count: int, dataterm: str = "square"):
-    """The streaming launch sequence of ``rof_chunk_batched`` (seed, 2
-    ``count`` half-steps, norms, finish; every half-step streams all the
-    instances' planes through device memory) in place, on CUDA tensors:
-    (x, q) advance by ``count`` iterations and (x_prev, q_prev) take the
-    iterate before the aligned one; an instance whose flag is set keeps
-    all four.  The batched chunk runs it for instances that no cluster
-    holds.  Returns norms2 (4, B)."""
+def _launch_batched(state, prev, f, w, sc, partial, scratch, route: tuple,
+                    count: int, dataterm: str) -> None:
+    """One batched chunk on the card in place on ``state`` (x, q) and
+    ``prev``: the tiled launch or the streaming sequence (``route`` =
+    (path, tile) of ``batched_pick_route``), counted under
+    ``rof_chunk_batched`` (and a tiled one also under
+    ``rof_chunk_batched_tiled``)."""
+    x = state[0]
+    batch, nx, ny = x.shape
+    path, tile = route
+    tail = (int(count), DATATERMS[dataterm], batch)
+    if path == "tiled":
+        launch(_lib(), "prost_rof_chunk_batched_tiled", "rof_chunk_batched",
+               launch_counts, x.device, [*state, *prev, f, w, sc, partial,
+                                         *scratch], nx, ny, *tail, *tile)
+        launch_counts["rof_chunk_batched_tiled"] += 1
+        return
+    launch(_lib(), "prost_rof_chunk_batched", "rof_chunk_batched",
+           launch_counts, x.device, [*state, *prev, *scratch, f, w, sc,
+                                     partial], nx, ny, *tail)
+
+
+def rof_chunk_batched_(x, q, x_prev, q_prev, f, w, scal, count: int,
+                       dataterm: str = "square", path=None):
+    """``rof_chunk_batched`` in place: every instance of (x, q) advances
+    by ``count`` iterations and (x_prev, q_prev) take its iterate before
+    the aligned one; an instance whose flag is set keeps all four.  Returns
+    norms2 (4, B).  On a card ``path`` None takes the tiled launch
+    (csrc/fused_rof.cu rof_tiled with the instances on blockIdx.z, the
+    finish and the copy back) where a tile's window holds the chunk's halo,
+    else the streaming launch sequence (seed, 2 ``count`` half-steps,
+    norms, finish, every half-step streaming all the instances' planes
+    through device memory); "tiled" or "streaming" asks for one ("tiled"
+    raises where no window holds the halo; the cluster launch does not run
+    in place)."""
     _check(x, q, f, w, scal, 5, count, dataterm, batched=True)
     check_buffers("ROF", (("x_prev", x_prev, tuple(x.shape)),
                           ("q_prev", q_prev, tuple(q.shape))), scal, 5,
                   x.shape[0])
-    if not all(t.is_contiguous() for t in (x, q, x_prev, q_prev)):
-        raise ProstError("An in-place chunk takes contiguous buffers only.")
+    check_inplace((x, q), (x_prev, q_prev))
+    if path not in (None, "tiled", "streaming"):
+        raise ProstError(f"rof_chunk_batched_: path must be None, 'tiled' "
+                         f"or 'streaming', got {path!r}.")
+    if x.device.type == "cpu":
+        return halo_into((x, q), (x_prev, q_prev), rof_chunk_batched_plain(
+            x, q, f, w, scal, count, dataterm), scal, 5)
+    batch, nx, ny = x.shape
+    dev = x.device
+    if path is None:
+        path = ("tiled" if tiled_ok(nx, ny, count, dataterm, card_sms(dev),
+                                    tiled_limit(dev), batch)
+                else "streaming")
+    route = batched_pick_route(path, batch, nx, ny, dataterm, count, dev,
+                               "rof_chunk_batched_")
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = torch.empty(4 * batch * _lib().prost_rof_num_blocks(nx, ny),
+                          dtype=torch.float32, device=dev)
+    _launch_batched((x, q), (x_prev, q_prev), f.contiguous(), w.contiguous(),
+                    sc, partial, _scratch(path, nx, ny, dev, batch), route,
+                    count, dataterm)
+    return sc[:, S_NORM:S_NORM + 4].T
+
+
+def rof_chunk_batched_streaming_(x, q, x_prev, q_prev, f, w, scal,
+                                 count: int, dataterm: str = "square"):
+    """``rof_chunk_batched_`` with ``path="streaming"``, on CUDA tensors
+    only: the launch sequence the tiled and cluster launches are held
+    against.  Returns norms2 (4, B)."""
     if x.device.type != "cuda":
         raise ProstError("The streaming batched chunk runs on a card only.")
-    lib = _lib()
-    batch, nx, ny = x.shape
-    wk = ChunkWork((x, q), (q,), scal, 5, lib.prost_rof_num_blocks(nx, ny),
-                   prev=(x_prev, q_prev))
-    launch(lib, "prost_rof_chunk_batched", "rof_chunk_batched",
-           launch_counts, x.device, wk.buffers(f, w), nx, ny, int(count),
-           DATATERMS[dataterm], batch)
-    return wk.outputs()[-1]
+    return rof_chunk_batched_(x, q, x_prev, q_prev, f, w, scal, count,
+                              dataterm, "streaming")
+
+
+class ROFBatchedChunk(LightChunk):
+    """``BatchedPDHG``'s light call of the batched ROF chunk:
+    ``rof_chunk_batched_`` on the views (x, q) of the run's own flat x, y,
+    x_prev and y_prev, with what depends only on the shapes made once per
+    route: the path (``route``: ``batched_pick_route``'s (path, tile), by
+    ``batched_route_of`` unless ``path`` asks for one), the scratch, the
+    norm partials and the scalar buffer with every instance's lmb and
+    radius.  ``inplace`` says whether the route calls it: not where a
+    cluster holds an instance (on the CPU, by ``cluster_size`` unless
+    ``path`` asks for "tiled" or "streaming"), since the cluster launch
+    reads its inputs and writes new outputs and the route keeps
+    ``rof_chunk_batched`` there.  A call writes the step sizes and the
+    flags into the scalar buffer and launches; on the CPU it runs the
+    plain version."""
+
+    def __init__(self, m, batch: int, count: int, device, path=None):
+        super().__init__((m["lmb"], m["radius"]), device, batch)
+        _check_batched_path(path, "ROFBatchedChunk")
+        self.count, self.dataterm = int(count), m["dataterm"]
+        B, nx, ny = int(batch), m["nx"], m["ny"]
+        self.route = None  # (path, tile) on a card
+        if torch.device(device).type == "cuda":
+            self.route = batched_pick_route(path, B, nx, ny, self.dataterm,
+                                            self.count, device,
+                                            "ROFBatchedChunk")
+            self.inplace = self.route[0] != "cluster"
+            if self.inplace:
+                self.partial = torch.empty(
+                    4 * B * _lib().prost_rof_num_blocks(nx, ny),
+                    dtype=torch.float32, device=device)
+                self.scratch = _scratch(self.route[0], nx, ny, device, B)
+        else:
+            self.inplace = (path in ("tiled", "streaming") or path is None
+                            and cluster_size(nx, ny, self.dataterm) is None)
+
+    def __call__(self, state, prev, f, w, tau, sigma, theta, converged):
+        """``count`` iterations of every instance of ``state`` (x, q) in
+        place, the previous iterate into ``prev``; ``converged`` sets
+        every instance's flag; returns norms2 (4, B)."""
+        if not self.inplace:
+            raise ProstError("ROFBatchedChunk: the cluster launch does not "
+                             "run in place; call rof_chunk_batched.")
+        self.scalars_(tau, sigma, theta, converged)
+        if self.route is None:
+            scal = self.scal()
+            out = rof_chunk_batched_plain(*state, f, w, scal, self.count,
+                                          self.dataterm)
+            return halo_into(state, prev, out, scal, self.n_scal)
+        _launch_batched(state, prev, f, w, self.sc, self.partial,
+                        self.scratch, self.route, self.count, self.dataterm)
+        return self.norms2()
 
 
 def rof_multichunk(x, q, f, w, scal, count: int, k_chunks: int,

@@ -577,7 +577,8 @@ def halo_into(state, prev, out, scal, n_scal: int = N_HALO_SCAL):
 
 def halo_copy(inplace, state, *args):
     """The functional form of an in-place chunk ``inplace`` (a halo chunk,
-    or the streaming batched ROF chunk) on the ``state`` planes: it works
+    or the batched ROF chunk's tiled or streaming path) on the ``state``
+    planes: it works
     on copies and returns (state, previous iterate, norms2), the previous
     iterate the state where nothing ran."""
     new = [t.contiguous().clone() for t in state]
@@ -589,8 +590,9 @@ def halo_copy(inplace, state, *args):
 class LightChunk:
     """The scalar side of a route's light chunk call (the grid-resident
     routes' ``ROFChunk``, ``DeblurChunk`` and ``MLChunk``, and with a
-    ``batch`` of instances ``MLBatchedChunk``, ``VolBatchedChunk`` and
-    ``DeblurBatchedChunk``): one device scalar buffer per route (one
+    ``batch`` of instances ``ROFBatchedChunk``, ``MLBatchedChunk``,
+    ``VolBatchedChunk`` and ``DeblurBatchedChunk``): one device scalar
+    buffer per route (one
     block of S_LEN per instance), its family's two scalars (and a halo
     band's row context) written once; a call writes its step sizes and
     converged flag into it in place and zeros into its norms (a call the

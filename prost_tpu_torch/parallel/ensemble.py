@@ -16,11 +16,12 @@ sizes); their data (prox coefficients, block values) may differ.
   stacked leaves.  ROF, fast-multilabel, deblur, tight-multilabel and
   volumetric-TV ensembles take a fused route instead, one batched chunk
   kernel launch (sequence) per chunk for all instances
-  (``rof_chunk_batched``; ``ml_chunk_batched``, ``deblur_chunk_batched``,
+  (``rof_chunk_batched`` where a cluster holds an instance, else
+  ``ROFBatchedChunk``; ``ml_chunk_batched``, ``deblur_chunk_batched``,
   ``tight_chunk_batched`` and ``vol_chunk_batched`` through their light
   calls ``MLBatchedChunk``, ``DeblurBatchedChunk``, ``TightBatchedChunk``
-  and ``VolBatchedChunk`` in place on the run's own vectors) on the phase
-  plan of ``ops/phases.py``.  A route is matched when every instance matches it
+  and ``VolBatchedChunk``; the light calls in place on the run's own
+  vectors) on the phase plan of ``ops/phases.py``.  A route is matched when every instance matches it
   with the same launch constants (sizes, taps, preconditioner constants);
   its per-instance data is stacked.  Other ensembles (deblur frames with
   different blurs, tight instances with different label counts) take the
@@ -57,7 +58,8 @@ from ..backend.pdhg import (BackendPDHG, PDHGOptions, PDHGState, hold_if,
 from ..config import ProstError, dtype as config_dtype
 from ..ops.fused_deblur import DeblurBatchedChunk, match_deblur_structure
 from ..ops.fused_multilabel import MLBatchedChunk, match_multilabel_structure
-from ..ops.fused_rof import match_rof_structure, rof_chunk_batched
+from ..ops.fused_rof import (ROFBatchedChunk, match_rof_structure,
+                             rof_chunk_batched)
 from ..ops.fused_tight import TightBatchedChunk, match_tight_structure
 from ..ops.fused_vol import VolBatchedChunk, match_vol_structure
 from ..ops.pdhg_chunk import dead_dual_flat, own_vectors
@@ -355,9 +357,31 @@ class BatchedPDHG:
         new = dataclasses.replace(new, iteration=new.iteration + ri)
         return hold_if(done, s, new)
 
+    def _rof_call(self, device) -> ROFBatchedChunk:
+        """The ROF route's light call (``ROFBatchedChunk``), made once per
+        route; its ``inplace`` says whether the route calls it."""
+        if "call" not in self.rof:
+            self.rof["call"] = ROFBatchedChunk(self.rof, self.batch, self.ri,
+                                               device)
+        return self.rof["call"]
+
     def _rof_chunk(self, s: PDHGState, done) -> PDHGState:
+        """One batched chunk: in place on the views of the run's own x, y,
+        x_prev and y_prev through the light call where no cluster holds an
+        instance (its tiled launch or streaming sequence), else the
+        cluster launch of ``rof_chunk_batched``, which returns new
+        vectors."""
         r, B = self.rof, self.batch
         nx, ny = r["nx"], r["ny"]
+        call = self._rof_call(s.x.device)
+        if call.inplace:
+            def planes(x, y):
+                return x.view(B, nx, ny), y.view(B, 2, nx, ny)
+
+            norms2 = call(planes(s.x, s.y), planes(s.x_prev, s.y_prev),
+                          r["f"], r["w"], s.tau, s.sigma, s.theta, done)
+            return self._after_chunk(s, s.x, s.y, s.x_prev, s.y_prev, norms2,
+                                     done)
         x2, q2, xp, qp, norms2 = rof_chunk_batched(
             s.x.reshape(B, nx, ny), s.y.reshape(B, 2, nx, ny), r["f"],
             r["w"], self._scal(s, r["lmb"], r["radius"], done),
@@ -369,13 +393,21 @@ class BatchedPDHG:
     def _rof_canonical(self, s: PDHGState) -> PDHGState:
         """The dead dual coordinates of every instance's y and y_prev zeroed
         once per run, as the JAX batched ROF run does (the batched ml and
-        vol runs do not)."""
+        vol runs do not), into new vectors; where the light call works in
+        place, also the run's own copies of x and x_prev, so no state a
+        caller holds changes under it."""
         nx, ny = self.rof["nx"], self.rof["ny"]
 
         def canon(y):
-            return torch.func.vmap(lambda v: dead_dual_flat(v, 1, nx, ny))(y)
+            return torch.func.vmap(lambda v: dead_dual_flat(v, 1, nx, ny))(
+                y).contiguous()
 
-        return dataclasses.replace(s, y=canon(s.y), y_prev=canon(s.y_prev))
+        s = dataclasses.replace(s, y=canon(s.y), y_prev=canon(s.y_prev))
+        if not self._rof_call(s.x.device).inplace:
+            return s
+        return dataclasses.replace(
+            s, x=s.x.clone(memory_format=torch.contiguous_format),
+            x_prev=s.x_prev.clone(memory_format=torch.contiguous_format))
 
     def _ml_chunk(self, s: PDHGState, done) -> PDHGState:
         """One batched chunk in place on the views of the run's own x, y,

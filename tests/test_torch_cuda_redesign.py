@@ -122,9 +122,9 @@ def test_cluster_path_ragged_shapes(dev, B, nx, ny, dataterm, csize):
 
 @pytest.mark.parametrize("nx,csize", [(576, 8), (577, None)])
 def test_largest_cluster_shape_and_smallest_streaming_shape(dev, nx, csize):
-    """At 128 columns, 576 rows is the tallest square instance that a
-    cluster of 8 holds and 577 the shortest that streams; both paths give
-    each instance as ``rof_chunk`` does."""
+    """At 128 columns, 576 rows is the tallest instance that a cluster of
+    8 holds and 577 the shortest that none holds (it takes the batched
+    tiled launch); both paths give each instance as ``rof_chunk`` does."""
     assert fr.cluster_size(nx, 128, "square") == csize
     planes, scal = _rof_batch(64, 2, nx, 128, dev)
     _each_instance_is_rof_chunk(planes, scal, 3, "square")
@@ -3228,3 +3228,199 @@ def test_vol_tiled_rules_on_the_card(dev):
             fv._launch_chunk("vol_chunk", [u, q], [u.clone(), q.clone()], f,
                              w, sc, partial, scratch, ("tiled", tile), 10,
                              "square")
+
+
+# ---------------------------------------------------------------------------
+# row 7: the batched ROF chunk tiled, the instances on the grid's z axis,
+# for the instances that no cluster of 8 holds (-k rof_batched_tiled)
+# ---------------------------------------------------------------------------
+
+def _batched_paths(planes, scal, count, dataterm, path):
+    """``rof_chunk_batched_`` with ``path`` on copies of the state: the
+    state, the previous iterates (made x + 1 and q + 1, so that a flagged
+    instance's shows) and norms2."""
+    x, q, f, w = planes
+    cur, prev = [x.clone(), q.clone()], [x + 1.0, q + 1.0]
+    norms2 = fr.rof_chunk_batched_(*cur, *prev, f, w, scal, count, dataterm,
+                                   path)
+    torch.cuda.synchronize()
+    return cur + prev + [norms2.clone()]
+
+
+@pytest.mark.parametrize("B,nx,ny,dataterm,count,flags", [
+    (2, 1280, 1280, "square", 10, None), (8, 512, 512, "wsquare", 10, None),
+    (3, 70, 53, "abs", 3, [0, 1, 0]), (3, 300, 211, "square", 1, [1, 0, 0]),
+    (4, 9, 300, "wsquare", 10, [0, 0, 0, 1])])
+def test_rof_batched_tiled_is_each_instance_alone(dev, B, nx, ny, dataterm,
+                                                  count, flags):
+    """The batched tiled chunk: each instance bit-equal to ``rof_chunk_``'s
+    tiled launch on it alone and to the batched streaming sequence, in the
+    planes, the previous iterates and the norms; a flagged instance keeps
+    all four and zero norms; one launch counted."""
+    planes, scal = _rof_batch(690 + B, B, nx, ny, dev, conv=flags)
+    before = dict(fr.launch_counts)
+    tiled = _batched_paths(planes, scal, count, dataterm, "tiled")
+    assert fr.launch_counts["rof_chunk_batched_tiled"] == (
+        before["rof_chunk_batched_tiled"] + 1)
+    assert fr.launch_counts["rof_chunk_batched"] == (
+        before["rof_chunk_batched"] + 1)
+    streaming = _batched_paths(planes, scal, count, dataterm, "streaming")
+    for a, b in zip(tiled, streaming):
+        assert torch.equal(a, b)
+    x, q, f, w = planes
+    for b in range(B):
+        cur, prev = [x[b].clone(), q[b].clone()], [x[b] + 1.0, q[b] + 1.0]
+        one = fr.rof_chunk_(*cur, *prev, f[b], w[b], scal[:, b], count,
+                            dataterm, path="tiled")
+        for a, s in zip([t[b] for t in tiled[:4]] + [tiled[4][:, b]],
+                        cur + prev + [one]):
+            assert torch.equal(a, s)
+        if flags is not None and flags[b]:
+            for a, s in zip([t[b] for t in tiled[:4]],
+                            [x[b], q[b], x[b] + 1.0, q[b] + 1.0]):
+                assert torch.equal(a, s)
+            assert not tiled[4][:, b].any()
+        else:
+            assert bool((tiled[4][:, b] > 0).all())
+
+
+def test_rof_batched_tiled_matches_its_twin(dev):
+    """The kernel against its plain twin (``rof_chunk_batched_tiled_plain``
+    on the card, the rule's tile) at three ragged instances with mass on
+    the dead duals: planes within 2e-5, norms within 1e-4 relative."""
+    B, nx, ny = 3, 300, 211
+    planes, scal = _rof_batch(695, B, nx, ny, dev)
+    tile = fr.tiled_tile(nx, ny, 10, "wsquare", fr.card_sms(dev),
+                         fr.tiled_limit(dev), B)
+    out = _batched_paths(planes, scal, 10, "wsquare", "tiled")
+    ref = fr.rof_chunk_batched_tiled_plain(*planes, scal, 10, "wsquare",
+                                           tile=tile)
+    for a, b in zip(out[:2] + out[2:4], ref[:4]):
+        assert float(torch.max(torch.abs(a - b))) <= 2e-5
+    torch.testing.assert_close(out[4], ref[4], rtol=1e-4, atol=0.0)
+
+
+def test_rof_batched_tiled_wrapper_takes_the_rule(dev):
+    """``rof_chunk_batched`` takes the tiled launch at 2 of 1280x1280 and
+    272x272 (no cluster of 8 holds them) and the cluster launch at 256x256;
+    the tiled wrapper's outputs are the streaming sequence's, bit for bit,
+    and the inputs are left as they were."""
+    for n, want in ((1280, "tiled"), (272, "tiled"), (256, "cluster")):
+        assert fr.batched_route_of(2, n, n, "square", 10, fr.card_sms(dev),
+                                   fr.tiled_limit(dev)) == want
+    planes, scal = _rof_batch(696, 2, 1280, 1280, dev)
+    before = [t.clone() for t in planes]
+    tiled0 = fr.launch_counts["rof_chunk_batched_tiled"]
+    out = fr.rof_chunk_batched(*planes, scal, 10)
+    assert fr.launch_counts["rof_chunk_batched_tiled"] == tiled0 + 1
+    want = fr.rof_chunk_batched(*planes, scal, 10, path="streaming")
+    torch.cuda.synchronize()
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+    for a, b in zip(planes, before):
+        assert torch.equal(a, b)
+
+
+def test_rof_batched_tiled_refuses_what_it_does_not_take(dev):
+    """A tile that is not whole 32x8 norm tiles or whose window does not
+    fit, and a batch of 0 or beyond 65535, are refused by the C entry
+    point; the cluster path where no cluster holds an instance, the tiled
+    path where no window holds the halo, and the cluster path in place
+    raise before a launch."""
+    planes, scal = _rof_batch(697, 2, 96, 128, dev)
+    x, q, f, w = planes
+    lib = fr._lib()
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = x.new_empty(2 * 4 * lib.prost_rof_num_blocks(96, 128))
+    scratch = x.new_empty(6, 96, 128)
+    bufs = [x, q, x.clone(), q.clone(), f, w, sc, partial, scratch]
+    for batch, tile in ((2, (12, 32)), (2, (8, 48)), (2, (256, 256)),
+                        (0, (8, 32)), (65536, (8, 32))):
+        with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+            launch(lib, "prost_rof_chunk_batched_tiled", "rof_chunk_batched",
+                   fr.launch_counts, dev, bufs, 96, 128, 10, 0, batch, *tile)
+    with pytest.raises(ptt.ProstError, match="path must be"):
+        fr.rof_chunk_batched_(x, q, x.clone(), q.clone(), f, w, scal, 10,
+                              path="cluster")
+    big, bscal = _rof_batch(698, 1, 2048, 2048, dev)
+    with pytest.raises(ptt.ProstError, match="no cluster"):
+        fr.rof_chunk_batched(*big, bscal, 10, path="cluster")
+    with pytest.raises(ptt.ProstError, match="no tile"):
+        fr.rof_chunk_batched(*big, bscal, 40, "wsquare", path="tiled")
+
+
+def test_rof_batched_light_call_on_the_card(dev):
+    """``ROFBatchedChunk`` at 2 of 1280x1280 takes the tiled path and leaves
+    in the run's own planes what ``rof_chunk_batched_`` leaves on the
+    streaming path, twice in a row from the state it left, and with the
+    flags set nothing."""
+    planes, scal = _rof_batch(699, 2, 1280, 1280, dev)
+    x, q, f, w = planes
+    m = {"nx": 1280, "ny": 1280, "f": f, "w": w, "dataterm": "square",
+         "lmb": scal[3], "radius": scal[4]}
+    call = fr.ROFBatchedChunk(m, 2, 10, dev)
+    assert call.inplace and call.route[0] == "tiled"
+    assert fr.ROFBatchedChunk(dict(m, nx=128, ny=128), 2, 10,
+                              dev).route == ("cluster", None)
+    cur, prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
+    want_cur, want_prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
+    for tau, done in ((0.9, False), (1.1, False), (1.1, True)):
+        taus = torch.full((2,), tau, device=dev)
+        got = call(cur, prev, f, w, taus, scal[1], scal[2],
+                   torch.tensor(done, device=dev))
+        s6 = torch.stack([taus, scal[1], scal[2], scal[3], scal[4],
+                          torch.full((2,), float(done), device=dev)])
+        want = fr.rof_chunk_batched_(*want_cur, *want_prev, f, w, s6, 10,
+                                     "square", "streaming")
+        for a, b in zip(cur + prev + [got], want_cur + want_prev + [want]):
+            assert torch.equal(a, b)
+
+
+def test_rof_batched_tiled_ensemble_route(dev):
+    """``BatchedPDHG`` on 3 ROF instances of 280x280 (no cluster holds
+    them): the route's light call takes the tiled launch, one a chunk by
+    the phase plan, and the run equals the same route on the streaming
+    path bit for bit; the caller's state is left as it was."""
+    from prost_tpu_torch.backend import PDHGOptions
+    from prost_tpu_torch.parallel import BatchedPDHG
+
+    rng = np.random.RandomState(700)
+    probs = []
+    for lmb in (6.0, 12.0, 24.0):
+        n = 280 * 280
+        grad = ptt.linop.BlockGradient2D(row=0, col=0, nx=280, ny=280, L=1)
+        prox_g = [ptt.prox.ProxElem1D(
+            index=0, size=n, fun="square",
+            coeffs=(1.0, rng.rand(n), lmb, 0.0, 0.0, 0.0, 0.0))]
+        pn = ptt.prox.ProxElemNorm2(index=0, size=2 * n, count=n, dim=2,
+                                    interleaved=False, fun="abs",
+                                    coeffs=(1.0, 0.0, 1.0, 0.0, 0.0, 0.0,
+                                            0.0))
+        probs.append(ptt.Problem.create(
+            ptt.linop.LinearOperator.create([grad]), prox_g=prox_g,
+            prox_fstar=[ptt.prox.ProxMoreau(index=0, size=2 * n, child=pn)],
+            device=dev))
+    opts = PDHGOptions(stepsize="boyd", residual_iter=10,
+                       scale_steps_operator=False)
+    sopts = ptt.SolverOptions(verbose=False, tol_rel_primal=0.0,
+                              tol_rel_dual=0.0, tol_abs_primal=0.0,
+                              tol_abs_dual=0.0)
+    states = {}
+    for path in ("tiled", "streaming"):
+        b = BatchedPDHG(probs, opts, sopts)
+        if path == "streaming":
+            b.rof["call"] = fr.ROFBatchedChunk(b.rof, 3, 10, dev,
+                                               path="streaming")
+        s0 = b.initial_state()
+        before = {k: v.clone() for k, v in vars(s0).items()}
+        tiled0 = fr.launch_counts["rof_chunk_batched_tiled"]
+        s = b.run(s0, 37, 0)
+        states[path] = b.run(s, 81, 37)
+        assert b.rof["call"].route[0] == path
+        # chunks from iteration 1 to 31 and from 41 to 81
+        assert fr.launch_counts["rof_chunk_batched_tiled"] - tiled0 == (
+            7 if path == "tiled" else 0)
+        for k, v in before.items():
+            assert torch.equal(v, getattr(s0, k)), k
+    for k, v in vars(states["tiled"]).items():
+        assert torch.equal(v, getattr(states["streaming"], k)), k
