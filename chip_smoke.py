@@ -3693,7 +3693,9 @@ def phase_tiled_admm(dev):
     2048x2048 (square, wsquare, abs at ri 10, square at an odd count of 3)
     and 1000x777 (tiles that do not divide it; square, abs), from planes
     with mass on the dead duals: planes and squared norms bit-equal, and
-    within PLANE_ATOL / NORM_RTOL of the plain versions;
+    within PLANE_ATOL / NORM_RTOL of the plain versions; at 70x53 (every
+    window's map meets an edge) and at degrees 1 and 43 at 2048x2048
+    (count 3): bit-equal;
     ``admm_multichunk_`` at 2048x2048 (8 chunks of ri 10, square; 3 chunks
     of an odd count of 3, wsquare) and 1000x777 (3 chunks, abs), every
     chunk run, and from a solve's start (x_half = f = the test image) at
@@ -3772,6 +3774,21 @@ def phase_tiled_admm(dev):
                 degree), NORM_RTOL)
             rows["admm_chunk_tiled"]["err"] = max(
                 rows["admm_chunk_tiled"]["err"], err)
+
+    # every window's map meeting an edge (70x53), and the shallowest and
+    # deepest degrees the rule tiles at 2048x2048 (interior and edge
+    # windows)
+    for nx, ny, deg in ((70, 53, 10), (2048, 2048, 1), (2048, 2048, 43)):
+        *planes, f, w = admm_kernel_inputs(nx, ny, seed, dev)
+        seed += 1
+        tile = fa.admm_pick_route("tiled", nx, ny, "square", deg, dev,
+                                  "admm_chunk")[1]
+        label = (f"admm_chunk_ {nx}x{ny} square count 3 degree {deg}, tile "
+                 f"{tile}")
+        both(label, fa.admm_chunk_, planes, [f, w], scal, None, 3, 0, alpha,
+             "square", deg)
+        print(f"{label}: tiled bit-equal to the launch sequence in the "
+              "planes and the squared norms")
 
     for nx, ny, count, k, dataterm in ((2048, 2048, ri, 8, "square"),
                                        (2048, 2048, 3, 3, "wsquare"),

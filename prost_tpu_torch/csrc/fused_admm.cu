@@ -1290,249 +1290,534 @@ __global__ void __launch_bounds__(RES_THREADS, 1)
 // planes of 16.8 MB read (with the windows' overlap) and 8 written at
 // 2048x2048, some 0.09 ms at the card's memory rate; the launch sequence
 // moves about 80 plane passes an iteration in 12 launches.  Inside the
-// window the Chebyshev steps are stencils over shared memory.
+// window the degree - 1 Chebyshev steps are 5-point stencils, and their
+// instructions (the loads and stores of shared memory, the neighbour tests
+// and the index arithmetic a pixel, not the 14 flops) set a step's time;
+// the window's loads, a pass over device memory, set the rest.
 //
-// Design.  One cooperative launch a chunk, one block of AT_THREADS on each
-// SM (32 rows of 32 threads), a grid barrier between iterations: iteration
-// t reads slot t mod 2 (slot A the caller's planes, slot B the launch
-// sequence's 8 scratch planes) and writes the other.  The blocks walk the
-// plane's tiles (tx rows, a multiple of 8, by ty columns, of 32); a tile's
-// window is the tile and h = degree + 1 pixels on every side, clamped at
-// the plane's edges (ops/fused_admm.py admm_tiled_halo: u = x + v is exact
-// degree pixels inside a window side that lies in the plane, z_proj one
-// pixel less below and right; tests/test_torch_tiled_admm.py holds the
-// plain twin exact with h and not with h - 1).  In shared memory five
-// planes of the window, no more, which take these values in turn:
-//   1. cp.async loads of xh, xp, xd, zh, zd (x parts), then of the y parts
-//      and warm, combined pixel by pixel into t1 (T), t2 (R, V0) and warm
-//      (X); the dead duals zeroed (admm_seed) and, in a multichunk's later
-//      chunk, x_dual and z_dual times the rescale they still owe (S_FAC,
-//      admm_rescale's product);
-//   2. d = t2 - c_K grad t1 in place (admm_rhs);
-//   3. r = c_K grad^T d - M(warm) into V1, x = warm, then v = r / theta into
-//      V0 (cheby_init);
-//   4. the degree - 1 steps, v between V0 and R (cheby_step);
-//   5. u = x + v into X, x_proj = sqrt(Tau) (u + t1) into the free
+// Design.  One cooperative launch a chunk, AT_BLOCKS (one) block of
+// AT_THREADS on each SM, a grid barrier between iterations.  The first
+// iteration reads the
+// state from slot `start` (slot A the caller's planes, slot B the launch
+// sequence's 8 scratch planes) and the last writes it (to the other slot
+// for a count of 1, else back to slot A, which no iteration between reads);
+// an iteration between them hands the next its carry instead of the state:
+// t1, t2's two parts and warm, the values the next iteration's head forms
+// from the state, formed by the same expressions from the same values, in
+// four of slot B's planes (two carries in turn), so that an iteration
+// reads 4 planes and writes 4 where the state is 8 and 8.  The blocks walk
+// the plane's tiles (tx rows, a multiple of 8, by ty columns, of 32).  A
+// tile's window is the tile and h = degree + 1 pixels on every side
+// (ops/fused_admm.py admm_tiled_halo: u = x + v is exact degree pixels
+// inside a window side that lies in the plane, z_proj one pixel less below
+// and right; tests/test_torch_tiled_admm.py holds the plain twin exact with
+// h and wider, and not with h - 1), held by the launch's fixed map
+// (admm_tiled_map): cb blocks of 32 columns by rb blocks of AT_K rows from
+// h pixels above and left of the tile, one warp a block, each thread one
+// column of AT_K rows (its strip).  Pixels of the map outside the window
+// or the plane load as zeros; neither they nor the map's border, which
+// reads a ring of zeros around each shared plane, reach an owned pixel.  A
+// thread keeps its strip's iterate x and residual r in registers; four
+// shared planes of the map hold the rest in turn.  One window:
+//   1-3. from the state, cp.async loads of xh, xp, xd and warm (the
+//      rescale a multichunk's later chunk still owes applied to x_dual and
+//      z_dual as they are read: admm_rescale's product), then t1 in place
+//      of xd and x = warm; cp.async loads of zh and zd's x parts while
+//      M(warm) goes into r, then d's x part = t2 - c_K grad t1 (admm_rhs,
+//      the dead row's t2 zeroed as admm_seed zeroes its duals); the same
+//      for the y parts.  From a carry, one round of loads (t2's parts, t1,
+//      warm), then M(warm) and d in place of t2;
+//   4. r = c_K grad^T d - M(warm) and v = r / theta (cheby_init);
+//   5. the degree - 1 steps, one barrier each (cheby_step): x and r in
+//      the registers, v between two planes;
+//   6. u = x + v in place of v, x_proj = sqrt(Tau) (u + t1) into the other
 //      direction plane;
-//   6. the update of the owned pixels (update_val, t2 read again from the
-//      slot) into the other slot, z_proj into the caller's planes on the
-//      chunk's last iteration only (no iteration reads it).
-// Every mask is decided by the pixel's place in the plane (the State's
-// Rows), never by its place in the window; a neighbour outside the window
-// inside the plane is taken as 0, which only pixels outside the exact
-// region read.  The per-pixel expressions are the launch sequence's (t1_at,
-// rhs_dx, ckt_at, m_at, cheby_step_val, update_at), so the planes are its
-// own bit for bit.  After the last iteration and a grid barrier the
-// blocks reduce admm_norm_partial's 32x8 tiles of the written slot
-// (norm_terms_at, block_partial's tree, four tiles at a time) for the
-// finish: the norms are the launch sequence's bit for bit too.  A chunk is
-// this launch, admm_finish's OP_NORMS and, after an odd count, the copy
-// back (admm_tiled_settle); a multichunk is k_chunks launches, each
-// followed by admm_finish's OP_ADAPT_HOLD, the next chunk's loads applying
-// the rescale the adaptation decided, and one settle that applies the last
-// executed chunk's rescale (and copies slot B back where it ended there).
-// A launch made after convergence returns at once.
+//   7. the update of the owned pixels (update_val, t2 read again from the
+//      state or the carry), a row of 32 threads to a row of the tile: the
+//      state and z_proj (no iteration reads it) on the last iteration,
+//      else the carry.
+// Every stage tests a neighbour by the pixel's place in the plane, which is
+// all the tests of the launch sequence decide by, except M's stencils (the
+// steps and M(warm)) in a window that lies inside the plane, its rows
+// within [1, nx - 2] and its columns within [1, ny - 2] (540 of 640 at
+// 2048x2048, degree 10), which test nothing (strip_step<false>); a second
+// copy of the whole window body for such windows held more registers than
+// the tests cost (PERF.md).  The per-pixel expressions are
+// the launch sequence's (t1_at, rhs_dx, ckt_at, m_at, cheby_step_val,
+// update_at) in the same order, so the planes are its own bit for bit.
+// After the last iteration and a grid barrier the warps reduce
+// admm_norm_partial's 32x8 tiles of the written slot, a tile a warp
+// (norm_terms_at, block_partial's tree as a column's sums and shuffles, no
+// block barrier) for the finish: the norms are the launch sequence's bit
+// for bit too.  A chunk is this launch, admm_finish's OP_NORMS and, after a
+// count of 1, the copy back (admm_tiled_settle); a multichunk is k_chunks
+// launches, each followed by admm_finish's OP_ADAPT_HOLD, the next chunk's
+// loads applying the rescale the adaptation decided, and one settle that
+// applies the last executed chunk's rescale (and copies slot B back where
+// a count of 1 ended there).  A launch made after convergence returns at
+// once.
+// Measured on an H100 and not kept (PERF.md): PR 22's design (five shared
+// planes walked by rows of 32 threads, every step testing four neighbours
+// through the parameter structs, the state read and written every
+// iteration); three planes with plain loads (their latency exposed,
+// registers spilled); the next window's rows prefetched into L2 under the
+// steps (slower: a round's windows exceed L2); two blocks of 384 threads
+// on each SM (slower: smaller windows); 1024 threads of 12-row strips.
 // ---------------------------------------------------------------------------
 
-constexpr int AT_THREADS = 1024;  // a block: 32 rows of 32 threads
-constexpr int AT_ROWS = AT_THREADS / BX;
-constexpr int AT_PLANES = 5;
-constexpr int AT_RED = (AT_THREADS / NT) * 4 * NT;  // the norm pass's trees
+constexpr int AT_THREADS = 768;  // a block: 24 warps, one a map block
+constexpr int AT_BLOCKS = 1;     // blocks on each SM
+constexpr int AT_WARPS = AT_THREADS / BX;
+constexpr int AT_K = 16;  // rows of a thread's strip
+constexpr int AT_MAX_CB = 6;  // column blocks of a map: 2 (the least) to 6
+constexpr int AT_PLANES = 4;
 
-// The dynamic shared memory of a block of the tiled launch (mirrored by
-// ops/fused_admm.py admm_tiled_bytes).
-inline size_t admm_tiled_smem(int tx, int ty, int degree) {
-  const size_t h = 2 * ((size_t)degree + 1);
-  const size_t planes = (size_t)AT_PLANES * (tx + h) * (ty + h);
-  return (planes > (size_t)AT_RED ? planes : (size_t)AT_RED) * sizeof(float);
-}
-
-// A window: rows [r0, r0 + wh) and columns [c0, c0 + ww) of the plane, the
-// owned tile its rows [oi0, oi1) and columns [oj0, oj1).
-struct AWin {
-  int r0, c0, wh, ww;
-  int oi0, oi1, oj0, oj1;
+// The map of a launch's windows (mirrored by ops/fused_admm.py
+// admm_tiled_map): cb blocks of 32 columns by rb blocks of AT_K rows, at
+// least a tx x ty tile and degree + 1 pixels on every side.
+struct AMap {
+  int cb, rb;
 };
 
-// m_at on a window plane of row stride ww at window pixel (wi, wj), plane
-// pixel (i, j).
-__device__ __forceinline__ float m_win(const float* v, const State& b,
-                                       const AWin& a, int wi, int wj, int i,
-                                       int j, int p) {
-  const int ww = a.ww;
-  float c = v[p];
-  float gxm =
-      wi > 0 && above(b, i) && below(b, i - 1) ? c - v[p - ww] : 0.f;
-  float gx = wi < a.wh - 1 && below(b, i) ? v[p + ww] - c : 0.f;
-  float gym = wj > 0 && j > 0 ? c - v[p - 1] : 0.f;
-  float gy = wj < ww - 1 && j < b.ny - 1 ? v[p + 1] - c : 0.f;
-  return c + C2 * ((gxm - gx) + (gym - gy));
+inline __host__ __device__ AMap admm_tiled_map(int tx, int ty, int degree) {
+  const int h2 = 2 * (degree + 1);
+  return AMap{(ty + h2 + BX - 1) / BX, (tx + h2 + AT_K - 1) / AT_K};
 }
 
-// The window's pixels, a row of 32 threads to a window row.
-#define FOR_WINDOW(a, wi, wj)                                            \
-  for (int wi = threadIdx.x / BX; wi < (a).wh; wi += AT_ROWS)            \
-    for (int wj = threadIdx.x % BX; wj < (a).ww; wj += BX)
+// A slot's state planes.
+struct Slot {
+  float *xh, *xp, *xd, *zh, *zd, *warm;
+};
 
-// One iteration on tile `tile` of the tiles of tx x ty: the window from
-// slot `src`, the owned pixels into slot `dst` (z_proj into dst.zp with
-// `last`); `scale` applies `fac` to x_dual and z_dual as they are loaded.
-__device__ __forceinline__ void tiled_iteration(
-    const State& src, const State& dst, float* smem, float alpha, float oma,
-    int dataterm, int degree, const float* __restrict__ coeffs, int tile,
-    int tx, int ty, bool scale, float fac, bool last, const UpdScal& us) {
-  const int nx = src.nx, ny = src.ny;
-  const size_t n = (size_t)nx * ny;
-  const int h = degree + 1;
-  const int ntc = (ny + ty - 1) / ty;
-  const int R0 = tile / ntc * tx, C0 = tile % ntc * ty;
+__device__ __forceinline__ Slot slot_of(const State& a, const State& b,
+                                        bool use_b) {
+  return Slot{use_b ? b.xh : a.xh, use_b ? b.xp : a.xp,
+              use_b ? b.xd : a.xd, use_b ? b.zh : a.zh,
+              use_b ? b.zd : a.zd, use_b ? b.warm : a.warm};
+}
+
+// The planes a launch reads and writes and the window's owned tile, in
+// shared memory after the window's planes (set once a launch and once a
+// window), so that no register holds them across the Chebyshev steps: 17
+// pointers and four ints, 152 bytes.  A carry is what one iteration hands
+// the next in place of the state: t1, t2's two parts (zeroed on the dead
+// row and column) and warm, the values the next iteration's head would
+// form from the state, formed by the same expressions from the same
+// values; four planes at c[t mod 2] + k n, k = 0-3, which iteration t
+// writes.
+struct Planes {
+  Slot src, dst;  // the first iteration's state, the last one's
+  float* c[2];    // the carries
+  const float *f, *w;
+  float* zp;   // the caller's z_proj (last iteration)
+  int R0, C0;  // the owned tile's first row and column
+  int ntc, nwin;  // the tiles of a row of tiles, and of the plane
+};
+
+// The dynamic shared memory of a block of the tiled launch (mirrored by
+// ops/fused_admm.py admm_tiled_bytes): four planes of the map with a ring
+// of one pixel, then the launch's Planes.
+inline size_t admm_tiled_smem(int tx, int ty, int degree) {
+  const AMap m = admm_tiled_map(tx, ty, degree);
+  return (size_t)AT_PLANES * (m.rb * AT_K + 2) * (m.cb * BX + 2)
+         * sizeof(float) + sizeof(Planes);
+}
+
+// What a window's stages share: the plane, the map's row blocks and the
+// iteration's scalars.
+struct AWin {
+  int nx, ny, h, rb;
+  float alpha, oma;
+  int dataterm;
+  bool scale;
+  bool first, last;  // the state in (else a carry), the state out
+};
+
+// The thread's place in a map of CB column blocks: its warp's block of
+// rows from wr and columns from wc, and its strip's first pixel at offset
+// o of a shared plane (formed where it is used, from the thread's index).
+template <int CB>
+struct MapPos {
+  int wp, wr, wc, o;
+  __device__ __forceinline__ MapPos() {
+    wp = threadIdx.x / BX;
+    wc = wp % CB * BX;
+    wr = wp / CB * AT_K;
+    o = (wr + 1) * (CB * BX + 2) + wc + (int)(threadIdx.x % BX) + 1;
+  }
+};
+
+// A thread's strip in the window of the owned tile at pl's corner: plane
+// rows i0 .. i0 + AT_K - 1 of column j; the window's rows and columns end
+// at ilim and jlim; `on` where the warp's block meets the window in the
+// plane, `edge` where the window meets the plane's edges (M's neighbours
+// tested).  Formed again at each stage from the corner in shared memory,
+// so that no register holds it across the stages' barriers.
+struct Strip {
+  int i0, j, ilim, jlim;
+  bool on, edge;
+};
+
+template <int CB>
+__device__ __forceinline__ Strip strip_at(const Planes& pl, const AWin& a,
+                                          int tx, int ty) {
+  const MapPos<CB> m;
+  const int R0 = pl.R0, C0 = pl.C0, nx = a.nx, ny = a.ny, h = a.h;
   const int R1 = min(R0 + tx, nx), C1 = min(C0 + ty, ny);
-  AWin a;
-  a.r0 = max(R0 - h, 0);
-  a.c0 = max(C0 - h, 0);
-  a.wh = min(R1 + h, nx) - a.r0;
-  a.ww = min(C1 + h, ny) - a.c0;
-  a.oi0 = R0 - a.r0;
-  a.oi1 = R1 - a.r0;
-  a.oj0 = C0 - a.c0;
-  a.oj1 = C1 - a.c0;
-  const int m = a.wh * a.ww, ww = a.ww;
-  float* T = smem;
-  float* X = smem + m;
-  float* R = smem + 2 * m;
-  float* V0 = smem + 3 * m;
-  float* V1 = smem + 4 * m;
+  const int r0 = R0 - h, c0 = C0 - h;
+  Strip s;
+  s.i0 = r0 + m.wr;
+  s.j = c0 + m.wc + (int)(threadIdx.x % BX);
+  s.ilim = min(R1 + h, nx);
+  s.jlim = min(C1 + h, ny);
+  s.on = m.wp < CB * a.rb && s.i0 + AT_K > 0 && s.i0 < s.ilim
+         && c0 + m.wc + BX > 0 && c0 + m.wc < s.jlim;
+  s.edge = !(r0 >= 1 && c0 >= 1 && R1 + h <= nx - 1 && C1 + h <= ny - 1);
+  return s;
+}
 
-  // 1. t1, t2 and warm
-  FOR_WINDOW(a, wi, wj) {
-    const int p = wi * ww + wj;
-    const size_t g = (size_t)(a.r0 + wi) * ny + a.c0 + wj;
-    cp_async4(T + p, src.xh + g);
-    cp_async4(X + p, src.xp + g);
-    cp_async4(R + p, src.xd + g);
-    cp_async4(V0 + p, src.zh + g);
-    cp_async4(V1 + p, src.zd + g);
-  }
-  cp_async_wait();
-  FOR_WINDOW(a, wi, wj) {
-    const int p = wi * ww + wj;
-    const float xd = scale ? R[p] * fac : R[p];
-    T[p] = ((alpha * T[p] + oma * X[p]) + xd) * INV_SQRT_T;
-    const float zd = scale ? V1[p] * fac : V1[p];
-    R[p] = dead_row(src, a.r0 + wi) ? 0.f : SQRT_S * (V0[p] + zd);
-  }
-  __syncthreads();  // X, V0 and V1 read before the next copies land
-  FOR_WINDOW(a, wi, wj) {
-    const int p = wi * ww + wj;
-    const size_t g = (size_t)(a.r0 + wi) * ny + a.c0 + wj;
-    cp_async4(V0 + p, src.zh + n + g);
-    cp_async4(V1 + p, src.zd + n + g);
-    cp_async4(X + p, src.warm + g);
-  }
-  cp_async_wait();
-  FOR_WINDOW(a, wi, wj) {
-    const int p = wi * ww + wj;
-    const float zd = scale ? V1[p] * fac : V1[p];
-    V0[p] = a.c0 + wj == ny - 1 ? 0.f : SQRT_S * (V0[p] + zd);
-  }
-  __syncthreads();
-
-  // 2. d = t2 - c_K grad t1 in place of t2
-  FOR_WINDOW(a, wi, wj) {
-    const int p = wi * ww + wj, i = a.r0 + wi, j = a.c0 + wj;
-    const float t1 = T[p];
-    const float gx = wi < a.wh - 1 && below(src, i) ? T[p + ww] - t1 : 0.f;
-    const float gy = wj < ww - 1 && j < ny - 1 ? T[p + 1] - t1 : 0.f;
-    R[p] = R[p] - C_K * gx;
-    V0[p] = V0[p] - C_K * gy;
-  }
-  __syncthreads();
-
-  // 3. r = c_K grad^T d - M(warm); x = warm stays in X
-  FOR_WINDOW(a, wi, wj) {
-    const int p = wi * ww + wj, i = a.r0 + wi, j = a.c0 + wj;
-    const float vxm = wi > 0 && above(src, i) ? R[p - ww] : 0.f;
-    const float vym = wj > 0 && j > 0 ? V0[p - 1] : 0.f;
-    const float rhs = C_K * ((vxm - R[p]) + (vym - V0[p]));
-    V1[p] = rhs - m_win(X, src, a, wi, wj, i, j, p);
-  }
-  __syncthreads();
-  FOR_WINDOW(a, wi, wj) {
-    const int p = wi * ww + wj;
-    V0[p] = V1[p] * INV_THETA;
-  }
-  __syncthreads();
-
-  // 4. the degree - 1 Chebyshev steps
-  float* cur = V0;
-  float* nxt = R;
-  for (int s = 0; s < degree - 1; ++s) {
-    const float cp = coeffs[2 * s], cr = coeffs[2 * s + 1];
-    FOR_WINDOW(a, wi, wj) {
-      const int p = wi * ww + wj, i = a.r0 + wi, j = a.c0 + wj;
-      const float vv = cur[p];
-      const float x = X[p] + vv;
-      const float r = V1[p] - m_win(cur, src, a, wi, wj, i, j, p);
-      X[p] = x;
-      V1[p] = r;
-      nxt[p] = cp * vv + cr * r;
+// M(v) = v + c_K^2 grad^T grad v (m_at) at a strip's AT_K pixels from the
+// plane at v (the strip's first pixel), into m; with EDGE, a neighbour
+// beyond the plane's first (kt: the strip's row of plane row 0) or last
+// (kb) row or its first (jl) or last (jr) column is taken as m_at takes it.
+template <bool EDGE>
+__device__ __forceinline__ void strip_m(const float* v, int S, int kt,
+                                        int kb, bool jl, bool jr,
+                                        float (&m)[AT_K]) {
+  float up = v[-S], c = v[0];
+#pragma unroll
+  for (int k = 0; k < AT_K; ++k) {  // v walks the strip a row at a time
+    const float* below = v + S;
+    const float dn = *below;
+    float gxm = c - up, gx = dn - c;
+    float gym = c - v[-1], gy = v[1] - c;
+    if (EDGE) {
+      if (k <= kt) gxm = 0.f;
+      if (k >= kb) gx = 0.f;
+      if (jl) gym = 0.f;
+      if (jr) gy = 0.f;
     }
-    __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
+    m[k] = c + C2 * ((gxm - gx) + (gym - gy));
+    up = c;
+    c = dn;
+    v = below;
   }
+}
 
-  // 5. u = x + v, x_proj = sqrt(Tau) (u + t1)
-  FOR_WINDOW(a, wi, wj) {
-    const int p = wi * ww + wj;
-    const float u = X[p] + cur[p];
-    X[p] = u;
-    nxt[p] = SQRT_T * (u + T[p]);
+// One Chebyshev step on a strip (cheby_step_val): x += v, r -= M(v), and
+// v' = c_prev v + c_r r into nxt.
+template <bool EDGE>
+__device__ __forceinline__ void strip_step(const float* cur, float* nxt,
+                                           int S, int kt, int kb, bool jl,
+                                           bool jr, float cp, float cr,
+                                           float (&x)[AT_K],
+                                           float (&r)[AT_K]) {
+  float up = cur[-S], c = cur[0];
+#pragma unroll
+  for (int k = 0; k < AT_K; ++k) {  // cur and nxt walk the strip
+    const float* below = cur + S;
+    const float dn = *below;
+    float gxm = c - up, gx = dn - c;
+    float gym = c - cur[-1], gy = cur[1] - c;
+    if (EDGE) {
+      if (k <= kt) gxm = 0.f;
+      if (k >= kb) gx = 0.f;
+      if (jl) gym = 0.f;
+      if (jr) gy = 0.f;
+    }
+    const float m = c + C2 * ((gxm - gx) + (gym - gy));
+    x[k] = x[k] + c;
+    r[k] = r[k] - m;
+    *nxt = cp * c + cr * r[k];
+    up = c;
+    c = dn;
+    cur = below;
+    nxt += S;
   }
-  __syncthreads();
+}
 
-  // 6. the owned pixels' update into the other slot
-  const float* xp = nxt;
-  for (int wi = a.oi0 + (int)threadIdx.x / BX; wi < a.oi1; wi += AT_ROWS)
-    for (int wj = a.oj0 + (int)threadIdx.x % BX; wj < a.oj1; wj += BX) {
-      const int p = wi * ww + wj, i = a.r0 + wi, j = a.c0 + wj;
-      const size_t g = (size_t)i * ny + j;
-      const float xpn = xp[p];
-      const float zpx = below(src, i) ? xp[p + ww] - xpn : 0.f;
-      const float zpy = j < ny - 1 ? xp[p + 1] - xpn : 0.f;
+// Stage 7 of tiled_window: the owned pixels' update (update_val) from
+// x_proj (XP), t1 (T1) and u (U), planes of the map from its first pixel,
+// a row of 32 threads to a row of the tile; with LAST the state and z_proj
+// into slot `dst`, else the carry of iteration `it` (two forms, so that
+// each holds only its own planes' pointers).
+template <bool LAST, int CB>
+__device__ __forceinline__ void tiled_update(const Planes& pl,
+                                             const AWin& a, const float* U,
+                                             const float* XP,
+                                             const float* T1, const float* sc,
+                                             int it, int degree, int tx,
+                                             int ty) {
+  constexpr int S = CB * BX + 2;
+  const int nx = a.nx, ny = a.ny;
+  const size_t n = (size_t)nx * ny;
+  // the owned tile and the update's scalars, read again: no register held
+  // them across the steps
+  const UpdScal us = upd_scal(sc);
+  const int R0 = pl.R0, C0 = pl.C0, h = degree + 1;
+  const int R1 = min(R0 + tx, nx), C1 = min(C0 + ty, ny);
+#pragma unroll 1
+  for (int i = R0 + (int)threadIdx.x / BX; i < R1; i += AT_WARPS)
+#pragma unroll 1
+    for (int jj = C0 + (int)threadIdx.x % BX; jj < C1; jj += BX) {
+      const int q = (i - R0 + h + 1) * S + jj - C0 + h + 1;
+      const size_t g = (size_t)i * ny + jj;
+      const float xpn = XP[q];
+      const float zpx = i < nx - 1 ? XP[q + S] - xpn : 0.f;
+      const float zpy = jj < ny - 1 ? XP[q + 1] - xpn : 0.f;
       float t2x = 0.f, t2y = 0.f;
-      if (!dead_row(src, i)) {
-        const float zd = scale ? src.zd[g] * fac : src.zd[g];
-        t2x = SQRT_S * (src.zh[g] + zd);
-      }
-      if (j < ny - 1) {
-        const float zd = scale ? src.zd[n + g] * fac : src.zd[n + g];
-        t2y = SQRT_S * (src.zh[n + g] + zd);
+      if (!a.first) {
+        const float* ci = pl.c[(it & 1) ^ 1] + g;
+        t2x = ci[n];
+        t2y = ci[2 * n];
+      } else {
+        if (i != nx - 1) {
+          const float* zd_ = pl.src.zd;
+          const float zd = a.scale ? zd_[g] * sc[S_FAC] : zd_[g];
+          t2x = SQRT_S * (pl.src.zh[g] + zd);
+        }
+        if (jj < ny - 1) {
+          const float* zd_ = pl.src.zd + n;
+          const float zd = a.scale ? zd_[g] * sc[S_FAC] : zd_[g];
+          t2y = SQRT_S * (pl.src.zh[n + g] + zd);
+        }
       }
       const Upd o = update_val(
-          xpn, T[p], zpx, zpy, t2x, t2y, __ldg(src.f + g),
-          dataterm == DT_WSQUARE ? __ldg(src.w + g) : 0.f, dataterm, us);
-      dst.xh[g] = o.xh;
-      dst.xp[g] = xpn;
-      dst.xd[g] = o.xd;
-      dst.zh[g] = o.zhx;
-      dst.zh[n + g] = o.zhy;
-      dst.zd[g] = o.zdx;
-      dst.zd[n + g] = o.zdy;
-      dst.warm[g] = X[p];
-      if (last) {
-        dst.zp[g] = zpx;
-        dst.zp[n + g] = zpy;
+          xpn, T1[q], zpx, zpy, t2x, t2y, __ldg(pl.f + g),
+          a.dataterm == DT_WSQUARE ? __ldg(pl.w + g) : 0.f, a.dataterm, us);
+      if (LAST) {  // the pointers read a pixel at a time: none held
+        const volatile Planes& v = pl;
+        v.dst.xh[g] = o.xh;
+        v.dst.xp[g] = xpn;
+        v.dst.xd[g] = o.xd;
+        v.dst.zh[g] = o.zhx;
+        v.dst.zh[n + g] = o.zhy;
+        v.dst.zd[g] = o.zdx;
+        v.dst.zd[n + g] = o.zdy;
+        v.dst.warm[g] = U[q];
+        v.zp[g] = zpx;
+        v.zp[n + g] = zpy;
+      } else {  // what the next head forms from these values
+        float* co = pl.c[it & 1] + g;
+        co[0] = ((a.alpha * o.xh + a.oma * xpn) + o.xd) * INV_SQRT_T;
+        co[n] = i == nx - 1 ? 0.f : SQRT_S * (o.zhx + o.zdx);
+        co[2 * n] = jj == ny - 1 ? 0.f : SQRT_S * (o.zhy + o.zdy);
+        co[3 * n] = U[q];
       }
     }
+}
+
+// One iteration on the window of the tile at pl's corner: from slot
+// pl.src on the first iteration, else from the carry; the owned pixels
+// into slot pl.dst on the last, else into the carry.  CB is the map's
+// column blocks as a constant (a row stride that the offsets of the
+// unrolled loops take as immediates: read at run time, it held registers
+// of row offsets and spilled).  Only the loops over x and r, which live in
+// registers, are unrolled; the others stay loops, so that the compiler
+// holds no row's addresses or values beyond its own.
+template <int CB>
+__device__ __forceinline__ void tiled_window(
+    const Planes& pl, const AWin& a, float* smem, int plane, int degree,
+    const float* __restrict__ coeffs, const float* sc, int it, int tx,
+    int ty) {
+  constexpr int S = CB * BX + 2;
+  const int nx = a.nx, ny = a.ny;
+  const size_t n = (size_t)nx * ny;
+  float* P0 = smem + MapPos<CB>().o;
+  float* P1 = P0 + plane;
+  float* P2 = P1 + plane;
+  float* P3 = P2 + plane;
+  float x[AT_K], r[AT_K];
+
+  // Copies of planes p and q of the strip's rows in the window and the
+  // plane into the shared planes sp and sq (zeros elsewhere: the map's
+  // pixels beyond them), not waited for.
+  auto load2 = [&](const Strip& s, const float* p, const float* q,
+                   float* sp, float* sq) {
+    const int k0 = max(-s.i0, 0);
+    const int k1 = s.j >= 0 && s.j < s.jlim ? min(s.ilim - s.i0, AT_K) : 0;
+    const size_t g0 = (size_t)((long long)s.i0 * ny + s.j);
+#pragma unroll 1
+    for (int k = 0; k < AT_K; ++k)
+      if (k < k0 || k >= k1) sp[k * S] = sq[k * S] = 0.f;
+#pragma unroll 1
+    for (int k = k0; k < k1; ++k) {
+      const size_t g = g0 + (size_t)k * ny;
+      cp_async4(sp + k * S, p + g);
+      cp_async4(sq + k * S, q + g);
+    }
+  };
+  // M(warm) into r from P3, tested at the plane's edges in an edge window
+  // (kt, kb: the strip's rows of plane rows 0 and nx - 1)
+  auto m_warm = [&](const Strip& s) {
+    const int kt = -s.i0, kb = nx - 1 - s.i0;
+    if (s.edge)
+      strip_m<true>(P3, S, kt, kb, s.j <= 0, s.j >= ny - 1, r);
+    else
+      strip_m<false>(P3, S, kt, kb, s.j <= 0, s.j >= ny - 1, r);
+  };
+
+  if (a.first) {
+    // 1. xh, xp, xd and warm into P0-P3, then t1 in place of xd and x =
+    // warm
+    {
+      const Strip s = strip_at<CB>(pl, a, tx, ty);
+      if (s.on) {
+        load2(s, pl.src.xh, pl.src.xp, P0, P1);
+        load2(s, pl.src.xd, pl.src.warm, P2, P3);
+        cp_async_wait();
+#pragma unroll 1
+        for (int k = 0; k < AT_K; ++k) {
+          const float xd = a.scale ? P2[k * S] * sc[S_FAC] : P2[k * S];
+          P2[k * S] = ((a.alpha * P0[k * S] + a.oma * P1[k * S]) + xd)
+                      * INV_SQRT_T;
+        }
+#pragma unroll
+        for (int k = 0; k < AT_K; ++k) x[k] = P3[k * S];
+      }
+    }
+    __syncthreads();
+
+    // 2. zh and zd's x parts into P0 and P1 while M(warm) goes into r,
+    // then d's x part (t2 zeroed on the dead row) into P0
+    {
+      const Strip s = strip_at<CB>(pl, a, tx, ty);
+      if (s.on) {
+        load2(s, pl.src.zh, pl.src.zd, P0, P1);
+        m_warm(s);
+        cp_async_wait();
+        const int kb = nx - 1 - s.i0;
+#pragma unroll 1
+        for (int k = 0; k < AT_K; ++k) {
+          const float zd = a.scale ? P1[k * S] * sc[S_FAC] : P1[k * S];
+          const float t2x = k == kb ? 0.f : SQRT_S * (P0[k * S] + zd);
+          const float t1 = P2[k * S];
+          const float gx = k < kb ? P2[(k + 1) * S] - t1 : 0.f;
+          P0[k * S] = t2x - C_K * gx;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. zh and zd's y parts into P1 and P3, then d's y part (t2 zeroed
+    // on the last column) into P1
+    {
+      const Strip s = strip_at<CB>(pl, a, tx, ty);
+      if (s.on) {
+        load2(s, pl.src.zh + n, pl.src.zd + n, P1, P3);
+        cp_async_wait();
+        const bool jr = s.j >= ny - 1;
+#pragma unroll 1
+        for (int k = 0; k < AT_K; ++k) {
+          const float zd = a.scale ? P3[k * S] * sc[S_FAC] : P3[k * S];
+          const float t2y = jr ? 0.f : SQRT_S * (P1[k * S] + zd);
+          const float t1 = P2[k * S];
+          const float gy = !jr ? P2[k * S + 1] - t1 : 0.f;
+          P1[k * S] = t2y - C_K * gy;
+        }
+      }
+    }
+    __syncthreads();
+  } else {
+    // 1-3 from the carry: t2's parts, t1 and warm into P0-P3, x = warm;
+    // then M(warm) into r and d in place of t2
+    const float* ci = pl.c[(it & 1) ^ 1];
+    {
+      const Strip s = strip_at<CB>(pl, a, tx, ty);
+      if (s.on) {
+        load2(s, ci + n, ci + 2 * n, P0, P1);
+        load2(s, ci, ci + 3 * n, P2, P3);
+        cp_async_wait();
+#pragma unroll
+        for (int k = 0; k < AT_K; ++k) x[k] = P3[k * S];
+      }
+    }
+    __syncthreads();
+    {
+      const Strip s = strip_at<CB>(pl, a, tx, ty);
+      if (s.on) {
+        m_warm(s);
+        const int kb = nx - 1 - s.i0;
+        const bool jr = s.j >= ny - 1;
+#pragma unroll 1
+        for (int k = 0; k < AT_K; ++k) {
+          const float t1 = P2[k * S];
+          const float gx = k < kb ? P2[(k + 1) * S] - t1 : 0.f;
+          const float gy = !jr ? P2[k * S + 1] - t1 : 0.f;
+          P0[k * S] = P0[k * S] - C_K * gx;
+          P1[k * S] = P1[k * S] - C_K * gy;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // 4. r = c_K grad^T d - M(warm), and v = r / theta into P3
+  {
+    const Strip s = strip_at<CB>(pl, a, tx, ty);
+    if (s.on) {
+      const int kt = -s.i0;
+      const bool jl = s.j <= 0;
+#pragma unroll
+      for (int k = 0; k < AT_K; ++k) {
+        const float vxm = k > kt ? P0[(k - 1) * S] : 0.f;
+        const float vym = !jl ? P1[k * S - 1] : 0.f;
+        const float rhs = C_K * ((vxm - P0[k * S]) + (vym - P1[k * S]));
+        r[k] = rhs - r[k];
+        P3[k * S] = r[k] * INV_THETA;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 5. the degree - 1 Chebyshev steps, v between P3 and P0
+  const Strip s = strip_at<CB>(pl, a, tx, ty);
+  const int kt = -s.i0, kb = nx - 1 - s.i0;
+  const bool jl = s.j <= 0, jr = s.j >= ny - 1;
+  float* cur = P3;
+  float* nxt = P0;
+  for (int st = 0; st < degree - 1; ++st) {
+    const float cp = coeffs[2 * st], cr = coeffs[2 * st + 1];
+    if (s.on && s.edge)
+      strip_step<true>(cur, nxt, S, kt, kb, jl, jr, cp, cr, x, r);
+    else if (s.on)
+      strip_step<false>(cur, nxt, S, kt, kb, jl, jr, cp, cr, x, r);
+    __syncthreads();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+
+  // 6. u = x + v in place of v, x_proj = sqrt(Tau) (u + t1) into nxt
+  if (s.on) {
+#pragma unroll
+    for (int k = 0; k < AT_K; ++k) {
+      const float u = x[k] + cur[k * S];
+      cur[k * S] = u;
+      nxt[k * S] = SQRT_T * (u + P2[k * S]);
+    }
+  }
+  __syncthreads();
+
+  // 7. the owned pixels' update into the other slot or the carry
+  const int o = MapPos<CB>().o;  // the planes from the map's first pixel
+  const float* U = cur - o;
+  const float* XP = nxt - o;
+  const float* T1 = P2 - o;
+  if (a.last)
+    tiled_update<true, CB>(pl, a, U, XP, T1, sc, it, degree, tx, ty);
+  else
+    tiled_update<false, CB>(pl, a, U, XP, T1, sc, it, degree, tx, ty);
 }
 
 // `count` iterations from slot `start` (0: A, the caller's planes; 1: B),
-// then admm_norm_partial's tiles of the slot written last.  `pending`: the
-// planes owe sc[S_FAC] on x_dual and z_dual (a multichunk's later chunk).
-// sb.zp is sa.zp.
-__global__ void __launch_bounds__(AT_THREADS, 1)
+// on maps of CB column blocks (2 to AT_MAX_CB, each its own kernel),
+// then admm_norm_partial's tiles of the slot written last: the other slot
+// for a count of 1, else slot `start` (0 then: the iterations between hand
+// on carries in slot B's planes).  `pending`: the planes owe sc[S_FAC] on
+// x_dual and z_dual (a multichunk's later chunk).  sb.zp is sa.zp.
+template <int CB>
+__global__ void __launch_bounds__(AT_THREADS, AT_BLOCKS)
     admm_tiled(State sa, State sb, float alpha, float oma, int dataterm,
                int degree, const float* __restrict__ coeffs, int count,
                int start, int pending, int tx, int ty) {
@@ -1540,61 +1825,106 @@ __global__ void __launch_bounds__(AT_THREADS, 1)
   if (conv_set(sa.sc)) return;  // every block, before any barrier
   extern __shared__ float smem[];
   const int nx = sa.nx, ny = sa.ny;
-  const float fac = sa.sc[S_FAC];
-  const UpdScal us = upd_scal(sa.sc);
-  const int nwin = ((nx + tx - 1) / tx) * ((ny + ty - 1) / ty);
+  const AMap mp = admm_tiled_map(tx, ty, degree);
+  const int S = mp.cb * BX + 2, plane = (mp.rb * AT_K + 2) * S;
+  for (int k = threadIdx.x; k < AT_PLANES * plane; k += AT_THREADS)
+    smem[k] = 0.f;  // the rings stay zero: no stage writes them
+  __syncthreads();
+
+  AWin a;
+  a.nx = nx;
+  a.ny = ny;
+  a.h = degree + 1;
+  a.alpha = alpha;
+  a.oma = oma;
+  a.dataterm = dataterm;
+  a.rb = mp.rb;
+  const int wp = threadIdx.x / BX;
+  // the carries: slot B's 8 planes, consecutive from sb.xh (slot_b)
+  const size_t n = (size_t)nx * ny;
+  const bool fin_b = (count == 1) == (start == 0);
+  Planes& pl = *reinterpret_cast<Planes*>(smem + AT_PLANES * plane);
+  if (threadIdx.x == 0)
+    pl = Planes{slot_of(sa, sb, start != 0), slot_of(sa, sb, fin_b),
+                {sb.xh, sb.xh + 4 * n}, sa.f, sa.w, sa.zp, 0, 0,
+                (ny + ty - 1) / ty, (nx + tx - 1) / tx * ((ny + ty - 1) / ty)};
   for (int it = 0; it < count; ++it) {
-    const bool b_in = ((start + it) & 1) != 0;
-    const State& src = b_in ? sb : sa;
-    const State& dst = b_in ? sa : sb;
-    for (int tile = blockIdx.x; tile < nwin; tile += gridDim.x) {
-      tiled_iteration(src, dst, smem, alpha, oma, dataterm, degree, coeffs,
-                      tile, tx, ty, pending && it == 0, fac,
-                      it == count - 1, us);
+    a.scale = pending && it == 0;
+    a.first = it == 0;
+    a.last = it == count - 1;
+    __syncthreads();  // pl, the first time
+    for (int tile = blockIdx.x; tile < pl.nwin; tile += gridDim.x) {
+      if (threadIdx.x == 0) {
+        pl.R0 = tile / pl.ntc * tx;
+        pl.C0 = tile % pl.ntc * ty;
+      }
+      __syncthreads();  // the corner before any stage reads it
+      tiled_window<CB>(pl, a, smem, plane, degree, coeffs, sa.sc, it, tx,
+                       ty);
       __syncthreads();  // the next window overwrites the planes
     }
     grid.sync();
-  }
-
-  // admm_norm_partial's tiles, four at a time (block_partial's tree)
-  const State& fin = ((start + count) & 1) ? sb : sa;
+  }  // admm_norm_partial's 32x8 tiles of the slot written last, a warp to a
+  // tile: lane l sums its column's eight rows as block_partial's tree pairs
+  // them (rows r and r + 4, then r and r + 2, then 0 and 1; two rows at a
+  // time, so that few values are live), then the lanes by shuffles (16, 8,
+  // 4, 2, 1), the same additions in the same order as the tree's
+  const State& fin = fin_b ? sb : sa;
   const int ntx = (ny + BX - 1) / BX;
   const int ntiles = (nx + BY - 1) / BY * ntx;
-  const int group = threadIdx.x / NT, t = threadIdx.x % NT;
-  const int groups = AT_THREADS / NT;
-  float* red = smem + group * 4 * NT;  // red[k * NT + t]
-  for (int base = groups * blockIdx.x; base < ntiles;
-       base += groups * gridDim.x) {
-    const int tile = base + group;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (tile < ntiles) {
-      int i = tile / ntx * BY + t / BX, j = tile % ntx * BX + t % BX;
-      if (i < nx && j < ny && i >= fin.rows.own_lo && i < fin.rows.own_hi)
-        norm_terms_at(fin, i, j, v);
+  const int lane = threadIdx.x % BX;
+  for (int tile = blockIdx.x * AT_WARPS + wp; tile < ntiles;
+       tile += gridDim.x * AT_WARPS) {
+    const int i0 = tile / ntx * BY, j = tile % ntx * BX + lane;
+    float b0[4], s[4];
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float b[4];
+#pragma unroll 1
+      for (int q = 0; q < 2; ++q) {  // rows r and r + 4, r = half + 2 q
+        const int r = i0 + half + 2 * q;
+        float v[4] = {0.f, 0.f, 0.f, 0.f}, w[4] = {0.f, 0.f, 0.f, 0.f};
+        if (j < ny && r < nx && r >= fin.rows.own_lo && r < fin.rows.own_hi)
+          norm_terms_at(fin, r, j, v);
+        if (j < ny && r + 4 < nx && r + 4 >= fin.rows.own_lo
+            && r + 4 < fin.rows.own_hi)
+          norm_terms_at(fin, r + 4, j, w);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float a = v[k] + w[k];
+          b[k] = q == 0 ? a : b[k] + a;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (half == 0)
+          b0[k] = b[k];
+        else
+          s[k] = b0[k] + b[k];
+      }
     }
-    for (int k = 0; k < 4; ++k) red[k * NT + t] = v[k];
-    __syncthreads();
-    for (int s = NT / 2; s > 0; s >>= 1) {
-      if (t < s)
-        for (int k = 0; k < 4; ++k) red[k * NT + t] += red[k * NT + t + s];
-      __syncthreads();
-    }
-    if (t == 0 && tile < ntiles)
-      for (int k = 0; k < 4; ++k) fin.partial[PS * tile + k] = red[k * NT];
-    __syncthreads();  // the next pass overwrites red
+#pragma unroll
+    for (int o = BX / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        s[k] += __shfl_down_sync(0xffffffffu, s[k], o);
+    if (lane == 0)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) fin.partial[PS * tile + k] = s[k];
   }
 }
 
 // After a tiled chunk (multi 0) whose flag was not set at entry and whose
-// count was odd: slot B's state into the caller's planes.  After a tiled
+// count was 1: slot B's state into the caller's planes.  After a tiled
 // multichunk (multi 1) that ran a chunk: the last executed chunk's dual
 // rescale, x_dual and z_dual times sc[S_FAC] (admm_rescale's product),
-// from slot B where its last iteration wrote there (an odd total count).
+// from slot B where its last iteration wrote there (a count of 1 and an
+// odd number of chunks run).
 __global__ void admm_tiled_settle(State sa, State sb, int count, int multi) {
   const float* sc = sa.sc;
   const int done = multi ? (int)sc[S_DONE] : (sc[S_CONV] != 0.f ? 0 : 1);
   if (done == 0) return;
-  const bool from_b = (((long long)done * count) & 1) != 0;
+  const bool from_b = count == 1 && (done & 1) != 0;
   if (!from_b && !multi) return;
   const float fac = sc[S_FAC];
   const State& s = from_b ? sb : sa;
@@ -1899,14 +2229,15 @@ int admm_tiled_limit() {
     e = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes a;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, (const void*)admm_tiled);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&a, (const void*)admm_tiled<2>);
   if (e != cudaSuccess) return -(int)e;
   return optin - (int)a.sharedSizeBytes;
 }
 
 // Slot B of the tiled launch: xh, xp, xd, zh (2), zd (2) and warm in the 8
-// scratch planes; z_proj, which only the last iteration writes, is the
-// caller's.
+// scratch planes (which also hold the two carries); z_proj, which only the
+// last iteration writes, is the caller's.
 State slot_b(const State& a, void* scratch) {
   const size_t n = (size_t)a.nx * a.ny;
   float* s = (float*)scratch;
@@ -1920,35 +2251,47 @@ State slot_b(const State& a, void* scratch) {
   return b;
 }
 
-// One tiled launch of `count` iterations from slot `start`: one block of
-// AT_THREADS on each SM; a tile that is not a multiple of the 32x8 norm
-// tiles or whose window does not fit in a block's shared memory is refused
-// with cudaErrorInvalidValue, a grid the card cannot hold at once by the
-// card (cudaErrorCooperativeLaunchTooLarge).
+// One tiled launch of `count` iterations from slot `start`: AT_BLOCKS
+// blocks of AT_THREADS on each SM; a tile that is not a multiple of the
+// 32x8 norm tiles, whose map needs more than a block's warps or AT_MAX_CB
+// column blocks, or whose planes do not fit in a block's shared memory is
+// refused with cudaErrorInvalidValue, a grid the card cannot hold at once
+// by the card (cudaErrorCooperativeLaunchTooLarge).
 int tiled_launch(State& a, State& b, float alpha, float oma, int dataterm,
                  int degree, const float* cf, int count, int start,
                  int pending, int tx, int ty, cudaStream_t st) {
   if (tx < BY || tx % BY || ty < BX || ty % BX || degree < 1 || count < 1)
     return (int)cudaErrorInvalidValue;
+  const AMap m = admm_tiled_map(tx, ty, degree);
+  if (m.cb * m.rb > AT_WARPS || m.cb > AT_MAX_CB)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = admm_tiled_smem(tx, ty, degree);
   const int limit = admm_tiled_limit();
   if (limit < 0) return -limit;
   if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  void (*kernel)(State, State, float, float, int, int, const float*, int,
+                 int, int, int, int) =
+      m.cb == 2   ? admm_tiled<2>
+      : m.cb == 3 ? admm_tiled<3>
+      : m.cb == 4 ? admm_tiled<4>
+      : m.cb == 5 ? admm_tiled<5>
+                  : admm_tiled<6>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      (const void*)admm_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, admm_tiled,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       AT_THREADS, smem);
   if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (per_sm < AT_BLOCKS) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&a, &b, &alpha, &oma, &dataterm, &degree, &cf,
                   &count, &start, &pending, &tx, &ty};
-  e = cudaLaunchCooperativeKernel((const void*)admm_tiled, dim3(sms),
+  e = cudaLaunchCooperativeKernel((const void*)kernel,
+                                  dim3(sms * AT_BLOCKS),
                                   dim3(AT_THREADS), args, smem, st);
   if (e != cudaSuccess) return (int)e;
   LAUNCH_CHECK();
@@ -2027,7 +2370,7 @@ int prost_admm_chunk_resident(void* xh, void* xp, void* xd, void* zh,
 // the arguments of prost_admm_chunk_resident and the owned tile (tx rows,
 // a multiple of 8; ty columns, of 32), `scratch` of 8 planes (slot B).  One
 // tiled cooperative launch (admm_tiled), admm_finish's OP_NORMS and, after
-// an odd count, the copy back (admm_tiled_settle).  Bit-equal to
+// a count of 1, the copy back (admm_tiled_settle).  Bit-equal to
 // prost_admm_chunk in the 7 state arrays and the 4 squared norms.  No-op
 // when sc[S_CONV] is set.  A tile the launch cannot take is refused
 // (cudaErrorInvalidValue, or the card's refusal of the cooperative
@@ -2050,14 +2393,14 @@ int prost_admm_chunk_tiled(void* xh, void* xp, void* xd, void* zh, void* zp,
   admm_finish<<<1, FIN, 0, st>>>(a.sc, a.partial, num_blocks(nx, ny),
                                  OP_NORMS, 0, 0.f, nullptr, 0, none);
   LAUNCH_CHECK();
-  return count & 1 ? tiled_settle(a, b, count, 0, st) : 0;
+  return count == 1 ? tiled_settle(a, b, count, 0, st) : 0;
 }
 
 // admm_fused_multichunk by tiled launches: the arguments of
 // prost_admm_multichunk_resident and the owned tile, `scratch` of 8 planes
-// (slot B).  Chunk c is a tiled launch from slot (c count) mod 2, its
-// loads applying the rescale chunk c - 1 decided, and admm_finish's
-// OP_ADAPT_HOLD; then admm_tiled_settle.  Bit-equal to
+// (slot B).  Chunk c is a tiled launch from slot A (slot c mod 2 for a
+// count of 1), its loads applying the rescale chunk c - 1 decided, and
+// admm_finish's OP_ADAPT_HOLD; then admm_tiled_settle.  Bit-equal to
 // prost_admm_multichunk in the 7 state arrays, the norms and sout (S_FAC
 // ends as the last executed chunk's factor, not -1).  Refuses a tile as
 // prost_admm_chunk_tiled does.
@@ -2079,8 +2422,7 @@ int prost_admm_multichunk_tiled(void* xh, void* xp, void* xd, void* zh,
   for (int ch = 0; ch < k_chunks; ++ch) {
     if (int rc = tiled_launch(a, b, alpha, oma, dataterm, degree,
                               (const float*)coeffs, count,
-                              (int)(((long long)ch * count) & 1), ch > 0,
-                              tx, ty, st))
+                              count == 1 ? ch & 1 : 0, ch > 0, tx, ty, st))
       return rc;
     admm_finish<<<1, FIN, 0, st>>>(a.sc, a.partial, num_blocks(nx, ny),
                                    OP_ADAPT_HOLD, 0,
@@ -2093,6 +2435,17 @@ int prost_admm_multichunk_tiled(void* xh, void* xp, void* xd, void* zh,
 // The dynamic shared memory a block of the tiled launch may hold on the
 // current device, or minus the error.
 int prost_admm_tiled_smem() { return admm_tiled_limit(); }
+
+// The dynamic shared memory the tiled launch asks for with tx x ty tiles
+// at Chebyshev degree `degree`, or -1 where it refuses the tile whatever
+// the card (not a multiple of the 32x8 norm tiles, or a map beyond a
+// block's warps or AT_MAX_CB column blocks).
+int prost_admm_tiled_bytes(int tx, int ty, int degree) {
+  if (tx < BY || tx % BY || ty < BX || ty % BX || degree < 1) return -1;
+  const AMap m = admm_tiled_map(tx, ty, degree);
+  if (m.cb * m.rb > AT_WARPS || m.cb > AT_MAX_CB) return -1;
+  return (int)admm_tiled_smem(tx, ty, degree);
+}
 
 // The blocks of admm_iter_halo's cooperative launch on the current device,
 // or minus the error that refuses it.

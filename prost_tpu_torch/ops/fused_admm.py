@@ -645,7 +645,9 @@ def _lib():
         # as prost_admm_multichunk_resident, then the tile
         "prost_admm_multichunk_tiled": [VP] * 12 + [CI] * 6 + [VP]
                                        + [CF] * 6 + [CI] * 2 + [VP],
-        "prost_admm_tiled_smem": []})
+        "prost_admm_tiled_smem": [],
+        # tx, ty, degree
+        "prost_admm_tiled_bytes": [CI] * 3})
 
 
 def admm_bands(nx: int, blocks: int) -> list:
@@ -702,37 +704,58 @@ def admm_card_limits(device) -> tuple:
     return card_sms(device), smem
 
 
-# floats of the tiled launch's window planes (csrc/fused_admm.cu
-# admm_tiled: t1, x, the residual and the two directions, which also hold
-# t2, d and x_proj in turn) and bytes of its norm pass's reductions (four
-# 32x8 tiles at a time)
-_TILED_PLANES, _TILED_RED_BYTES = 5, 4 * 4 * 4 * 256
+# the tiled launch's map (csrc/fused_admm.cu admm_tiled): warps of a block,
+# rows of a thread's strip, the most column blocks (a kernel for each of 2
+# to 6), shared planes (four, which hold xh, xp, xd, warm, t1, t2, d, the
+# direction and x_proj in turn), and the bytes beside them of the
+# launch's 17 plane pointers, the tile's corner and the tile counts
+# (Planes)
+_TILED_WARPS, _TILED_K, _TILED_MAX_CB = 24, 16, 6
+_TILED_PLANES, _TILED_PTR_BYTES = 4, 152
+
+
+def admm_tiled_map(tx: int, ty: int, degree: int) -> tuple:
+    """(cb, rb): the tiled launch's window map for ``tx`` x ``ty`` tiles
+    at Chebyshev degree ``degree`` (csrc/fused_admm.cu admm_tiled_map): cb
+    blocks of 32 columns by rb blocks of 16 rows, a warp to a block, each
+    thread a column of 16 rows, at least the tile and
+    ``admm_tiled_halo(degree)`` pixels on every side."""
+    h2 = 2 * admm_tiled_halo(degree)
+    return -(-(int(ty) + h2) // 32), -(-(int(tx) + h2) // _TILED_K)
 
 
 def admm_tiled_bytes(tx: int, ty: int, degree: int) -> int:
     """The dynamic shared memory of one block of the tiled launch
-    (csrc/fused_admm.cu admm_tiled_smem): five planes of the window of a
-    ``tx`` x ``ty`` tile with ``admm_tiled_halo(degree)`` pixels on every
-    side, at least the norm pass's reductions.  f and wsquare's w are read
-    pixel by pixel from device memory in the update, so no data term adds
-    a plane (the grid-resident bands hold w, ``admm_resident_bytes``)."""
-    h = 2 * admm_tiled_halo(degree)
-    return max(4 * _TILED_PLANES * (int(tx) + h) * (int(ty) + h),
-               _TILED_RED_BYTES)
+    (csrc/fused_admm.cu admm_tiled_smem): four planes of the map
+    (``admm_tiled_map``) with a ring of one pixel, and the launch's plane
+    pointers, the tile's corner and the tile counts.  The Chebyshev
+    iterate and residual stay in registers, f and wsquare's w in device
+    memory (read pixel by pixel)."""
+    cb, rb = admm_tiled_map(tx, ty, degree)
+    return (4 * _TILED_PLANES * (rb * _TILED_K + 2) * (cb * 32 + 2)
+            + _TILED_PTR_BYTES)
+
+
+def admm_tiled_fits(tx: int, ty: int, degree: int, smem: int) -> bool:
+    """Whether the tiled launch takes ``tx`` x ``ty`` tiles at Chebyshev
+    degree ``degree``: the map needs at most a block's 24 warps and 6
+    column blocks, and its planes fit in ``smem`` bytes."""
+    cb, rb = admm_tiled_map(tx, ty, degree)
+    return (cb * rb <= _TILED_WARPS and cb <= _TILED_MAX_CB
+            and admm_tiled_bytes(tx, ty, degree) <= int(smem))
 
 
 def admm_tiled_tile(nx: int, ny: int, degree: int, sms: int, smem: int):
     """The owned tile (rows, columns) of the tiled launch on (nx, ny)
     planes at Chebyshev degree ``degree`` on a card of ``sms`` SMs whose
     blocks may hold ``smem`` bytes of dynamic shared memory: of the tiles
-    (rows a multiple of 8, columns of 32) whose window fits
-    (``admm_tiled_bytes``), the one whose iteration moves the fewest
-    window pixels through the SMs (the rounds of one block per SM times a
-    whole tile's window), the larger tile on a tie; None where no tile's
-    window fits."""
+    (rows a multiple of 8, columns of 32) that the launch takes
+    (``admm_tiled_fits``), the one whose iteration moves the fewest window
+    pixels through the SMs (the rounds of one block per SM times a whole
+    tile's window, the pixels the launch loads), the larger tile on a tie;
+    None where none fits (degree 44 and above)."""
     return window_tile(nx, ny, 2 * admm_tiled_halo(degree), sms,
-                       lambda tx, ty: admm_tiled_bytes(tx, ty, degree)
-                       <= smem)
+                       lambda tx, ty: admm_tiled_fits(tx, ty, degree, smem))
 
 
 def admm_tiled_ok(nx: int, ny: int, degree: int, sms: int,
@@ -887,7 +910,7 @@ def admm_chunk_(xh, xp, xd, zh, zp, zd, warm, f, w, scal, cg_tols,
     grid-resident cooperative launch (csrc/fused_admm.cu
     admm_chunk_resident) where the bands fit on chip, else one tiled
     cooperative launch (admm_tiled: overlapping 2-D windows, a grid
-    barrier an iteration), the finish and, after an odd count, the copy
+    barrier an iteration), the finish and, after a count of 1, the copy
     back; "resident", "tiled" or "streaming" asks for one ("resident" and
     "tiled" raise where they cannot launch).  The CGLS projection
     (``cheby_degree`` None) runs as the launch sequence only: its CG steps

@@ -2446,13 +2446,15 @@ def test_admm_tiled_multichunk_converging_mid_launch(dev, nx, ny, count):
 
 
 def test_admm_tiled_with_the_flag_leaves_the_buffers(dev):
-    """With the converged flag set at entry the tiled chunk (of an odd
-    count, whose copy back then stays off) and multichunk change nothing."""
+    """With the converged flag set at entry the tiled chunk (of a count of
+    1, whose copy back then stays off, and of 3) and multichunk change
+    nothing."""
     planes = _admm_planes(730, 2048, 2048, dev)
     want = [t.clone() for t in planes[:7]]
     scal = torch.tensor([1.3, 8.0, 1.0, 1.0], device=dev)
-    fa.admm_chunk_(*planes, scal, None, 3, 0, 1.7, "square", 10,
-                   path="tiled")
+    for count in (1, 3):
+        fa.admm_chunk_(*planes, scal, None, count, 0, 1.7, "square", 10,
+                       path="tiled")
     norms, sout = fa.admm_multichunk_(*planes, _admm_mscal(0.0, dev,
                                                             conv=1.0),
                                       3, 4, 1.7, 10,
@@ -2529,6 +2531,105 @@ def test_admm_tiled_rules_on_the_card(dev):
                    fa.launch_counts, dev, [*planes, scratch, sc, partial],
                    2048, 2048, 10, 0, 10,
                    fa.ptr(fa._coeff_tensor(10, dev)), 1.7, -0.7, *tile)
+
+
+def _admm_tiled_windows(nx, ny, degree, sms, smem):
+    """(tile, interior windows, edge windows) of the tiled launch on
+    (nx, ny) planes at ``degree`` by the rule: a window (the tile and
+    degree + 1 pixels each way) is interior where it lies in the plane's
+    rows [1, nx - 2] and columns [1, ny - 2] (csrc/fused_admm.cu
+    admm_tiled), the others test their neighbours."""
+    tx, ty = fa.admm_tiled_tile(nx, ny, degree, sms, smem)
+    h = fa.admm_tiled_halo(degree)
+    inner = edge = 0
+    for r in range(0, nx, tx):
+        for c in range(0, ny, ty):
+            if (r - h >= 1 and c - h >= 1 and min(r + tx, nx) + h <= nx - 1
+                    and min(c + ty, ny) + h <= ny - 1):
+                inner += 1
+            else:
+                edge += 1
+    return (tx, ty), inner, edge
+
+
+@pytest.mark.parametrize("degree", [1, 3, 10, 25, 43])
+@pytest.mark.parametrize("nx,ny,mix", [(2048, 2048, "both"),
+                                       (1000, 777, "both"),
+                                       (70, 53, "edge"), (9, 300, "edge"),
+                                       (130, 1100, "both")])
+def test_admm_tiled_windows_are_the_launch_sequence(dev, nx, ny, mix,
+                                                    degree):
+    """Interior windows (no neighbour test) and edge windows (tested by
+    the pixel's place in the plane), both or edge windows only, at
+    degrees whose halo is 2 to 44 pixels: the tiled chunk's arrays and
+    squared norms bit-equal to the launch sequence's at an odd count."""
+    sms, _ = fa.admm_card_limits(dev)
+    tile, inner, edge = _admm_tiled_windows(nx, ny, degree, sms,
+                                            fa.admm_tiled_limit(dev))
+    assert edge > 0 and (inner > 0) == (mix == "both")
+    planes = _admm_planes(750 + degree, nx, ny, dev)
+    scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+    out = _admm_tiled_paths(fa.admm_chunk_, planes[:7], planes[7:], scal,
+                            None, 3, 0, 1.7, "square", degree)
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(t).all()) for t in out["tiled"])
+
+
+@pytest.mark.parametrize("count", [1, 3])
+@pytest.mark.parametrize("degree", [1, 10, 43])
+@pytest.mark.parametrize("nx,ny,dataterm", [(2048, 2048, "square"),
+                                            (1000, 777, "wsquare"),
+                                            (70, 53, "abs")])
+def test_admm_tiled_multichunk_pending_factor(dev, nx, ny, dataterm,
+                                              degree, count):
+    """A dual tolerance every chunk meets and delta 1.25: rho grows by
+    delta after each chunk, so each later chunk's loads apply a pending
+    factor of about 0.8 (1 / 1.25, then 1 / (1.25 1.01), ...) and the
+    settle the last one (with a count of 1 the chunks alternate between
+    the slots, and the settle copies slot B back); arrays, norms and sout
+    bit-equal to the launch sequence's, and every chunk ran."""
+    planes = _admm_planes(760 + degree, nx, ny, dev)
+    mscal = torch.tensor([1.3, 16.0, 1.0, 1.25, 0.0, 0.0, 0.0, 0.0, 0.0,
+                          0.0, 1e9], device=dev)
+    out = _admm_tiled_paths(fa.admm_multichunk_, planes[:7], planes[7:],
+                            mscal, count, 3, 1.7, degree,
+                            _admm_consts(nx, ny), dataterm)
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+    sout = out["tiled"][8].tolist()
+    assert sout[5] == 3 and sout[4] == 0.0
+    assert abs(sout[0] - 1.3 * 1.25 * 1.25 * 1.01 * 1.25 * 1.01 ** 2) < 1e-4
+
+
+def test_admm_tiled_bytes_are_what_the_launch_takes(dev):
+    """The rule's mirror of the launch's shared memory (``admm_tiled_bytes``)
+    equals what the C side asks for, tile by tile and degree by degree;
+    the C side refuses the maps (beyond a block's warps or 6 column
+    blocks) that the rule's ``admm_tiled_fits`` refuses; and the rule's
+    tile at every degree it takes launches within the card's limit, up to
+    degree 43."""
+    lib = fa._lib()
+    sms, _ = fa.admm_card_limits(dev)
+    tsmem = fa.admm_tiled_limit(dev)
+    for degree in (1, 3, 10, 25, 43, 44):
+        for tx in range(8, 257, 24):
+            for ty in range(32, 257, 32):
+                got = lib.prost_admm_tiled_bytes(tx, ty, degree)
+                if not fa.admm_tiled_fits(tx, ty, degree, 10 ** 9):
+                    assert got == -1
+                else:
+                    assert got == fa.admm_tiled_bytes(tx, ty, degree)
+        tile = fa.admm_tiled_tile(2048, 2048, degree, sms, tsmem)
+        assert (tile is None) == (degree >= 44)
+        if tile is not None:
+            assert fa.admm_tiled_bytes(*tile, degree) <= tsmem
+    planes = _admm_planes(770, 300, 190, dev)
+    scal = torch.tensor([1.3, 8.0, 1.0], device=dev)
+    out = _admm_tiled_paths(fa.admm_chunk_, planes[:7], planes[7:], scal,
+                            None, 2, 0, 1.7, "square", 43)
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -14,14 +14,16 @@ holds), as far as the CPU can check them.
   counts, every chunk run and converging partway; their 32x8 tile
   partials, reduced in admm_finish's order, within rounding of the norms.
 * The least halo (``admm_tiled_halo``: degree + 1 pixels on every side)
-  keeps the owned pixels exact in f64, and one less does not.
+  keeps the owned pixels exact in f64, and one less does not; wider ones
+  (the kernel's map holds more) keep them exact too.
 * The twin against the JAX banded chunk in interpret mode
   (``admm_banded_chunk``, 128x32 in 2 and 4 bands, a pending dual rescale
   of 1 and of 0.8): 1e-6 on the planes, 1e-4 relative on the norms; the
   port's fused route forced onto the twins against the JAX banded run
   with adaptation.
 * The shape rule (``admm_route_of``, ``admm_tiled_tile``,
-  ``admm_tiled_bytes``) on an H100's SM count and shared-memory limit.
+  ``admm_tiled_map``, ``admm_tiled_fits``, ``admm_tiled_bytes``) on an
+  H100's SM count and shared-memory limit.
 
 The kernel itself is held bit for bit against the streaming launch
 sequence on the card by chip_smoke.py (``phase_tiled_admm``).
@@ -213,6 +215,23 @@ def test_least_halo_is_exact_and_one_less_is_not(degree):
     assert not all(torch.equal(a, b) for a, b in zip(short[:7], want[:7]))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("degree,extra", [(1, 7), (3, 1), (10, 5)])
+def test_wider_halo_is_exact(degree, extra, dtype):
+    """Windows wider than the least halo (the kernel's map holds more rows
+    below and columns to the right than the tile and degree + 1 pixels
+    need) keep the owned pixels exact: the plain version bit for bit."""
+    dt = DTYPES[dtype]
+    *planes, f, w = _inputs(37, 70, 96, dt)
+    scal = torch.tensor([1.3, 8.0, 1.0], dtype=dt)
+    want = tfa.admm_chunk_plain(*planes, f, w, scal, None, 2, 0, ALPHA,
+                                "square", degree)
+    got = tfa.admm_chunk_tiled_plain(
+        *planes, f, w, scal, 2, ALPHA, "square", degree, tile=(24, 32),
+        halo=tfa.admm_tiled_halo(degree) + extra)
+    _equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # against the JAX banded chunk and run (interpret mode)
 # ---------------------------------------------------------------------------
@@ -378,10 +397,13 @@ def test_admm_route_rule(nx, ny, dataterm, want):
 @pytest.mark.parametrize("nx,ny,degree", [(2048, 2048, 10), (2048, 2048, 3),
                                           (1000, 777, 10), (70, 53, 10)])
 def test_admm_tiled_tile_fits_and_covers_the_norm_tiles(nx, ny, degree):
-    """The rule's tile is a multiple of the 32x8 norm tiles, its window
-    fits, and no tile of the search with fewer window pixels moved fits."""
+    """The rule's tile is a multiple of the 32x8 norm tiles, the launch
+    takes it (its map within a block's warps, its planes in shared
+    memory), and no tile of the search the launch takes moves fewer window
+    pixels through the SMs."""
     tx, ty = tfa.admm_tiled_tile(nx, ny, degree, H100_SMS, H100_SMEM)
     assert tx % 8 == 0 and ty % 32 == 0
+    assert tfa.admm_tiled_fits(tx, ty, degree, H100_SMEM)
     assert tfa.admm_tiled_bytes(tx, ty, degree) <= H100_SMEM
     h = 2 * tfa.admm_tiled_halo(degree)
 
@@ -393,16 +415,60 @@ def test_admm_tiled_tile_fits_and_covers_the_norm_tiles(nx, ny, degree):
     for a in range(8, 257, 8):
         for b in range(32, 257, 32):
             if (a - 8 < nx and b - 32 < ny
-                    and tfa.admm_tiled_bytes(a, b, degree) <= H100_SMEM):
+                    and tfa.admm_tiled_fits(a, b, degree, H100_SMEM)):
                 assert cost(a, b) >= best
 
 
 def test_admm_tiled_bytes_count_the_window():
-    """Five planes of the tile and degree + 1 pixels each way (no data
-    term adds one: f and wsquare's w are read from device memory); at
-    least the norm pass's four 32x8 trees."""
-    assert tfa.admm_tiled_bytes(64, 96, 10) == 4 * 5 * 86 * 118
-    assert tfa.admm_tiled_bytes(8, 32, 1) == 4 * 4 * 4 * 256
+    """Four planes of the map (blocks of 16 rows by 32 columns holding the
+    tile and degree + 1 pixels each way) with a ring of one pixel (no data
+    term adds one: f and wsquare's w are read from device memory, x and r
+    live in registers; the norm pass reduces by warp shuffles), and the
+    launch's 17 plane pointers, the tile's corner and the tile counts
+    (four ints)."""
+    assert tfa.admm_tiled_bytes(64, 96, 10) == 4 * 4 * (6 * 16 + 2) * (
+        4 * 32 + 2) + 17 * 8 + 16
+    assert tfa.admm_tiled_bytes(8, 32, 1) == 4 * 4 * 18 * 66 + 17 * 8 + 16
+
+
+@pytest.mark.parametrize("tx,ty,degree,want", [
+    (88, 96, 10, (4, 7)), (104, 64, 10, (3, 8)), (8, 32, 1, (2, 1)),
+    (40, 32, 43, (4, 8)), (32, 32, 47, (4, 8)), (256, 256, 10, (9, 18))])
+def test_admm_tiled_map_holds_the_window(tx, ty, degree, want):
+    """The map (cb blocks of 32 columns, rb of 16 rows) is the least that
+    holds the tile and degree + 1 pixels on every side."""
+    cb, rb = tfa.admm_tiled_map(tx, ty, degree)
+    assert (cb, rb) == want
+    h = tfa.admm_tiled_halo(degree)
+    assert 32 * (cb - 1) < ty + 2 * h <= 32 * cb
+    assert 16 * (rb - 1) < tx + 2 * h <= 16 * rb
+
+
+def test_admm_tiled_fits_counts_a_blocks_warps():
+    """A map of more than a block's 24 warps or of more than 6 column
+    blocks (the kernel's instantiations) is refused whatever the shared
+    memory; one within them is taken where its planes fit."""
+    assert tfa.admm_tiled_fits(72, 96, 10, H100_SMEM)  # 4 x 6 warps
+    assert tfa.admm_tiled_fits(104, 64, 10, H100_SMEM)  # 3 x 8
+    assert tfa.admm_tiled_fits(40, 160, 10, H100_SMEM)  # 6 x 4
+    assert not tfa.admm_tiled_fits(88, 96, 10, 10 ** 9)  # 4 x 7
+    assert not tfa.admm_tiled_fits(24, 224, 10, 10 ** 9)  # 8 x 3
+    assert not tfa.admm_tiled_fits(256, 256, 10, 10 ** 9)
+    assert not tfa.admm_tiled_fits(72, 96, 10,
+                                   tfa.admm_tiled_bytes(72, 96, 10) - 4)
+
+
+def test_admm_tiled_rule_at_2048():
+    """At 2048x2048 the rule takes 104x64 tiles at degrees 1 and 10 (a
+    map of 128x96: 640 tiles, 5 rounds of 132 SMs), 88x96 at 3, 40x64 at
+    25 and 8x32 at 43."""
+    want = {1: (104, 64), 3: (88, 96), 10: (104, 64), 25: (40, 64),
+            43: (8, 32)}
+    for degree, tile in want.items():
+        assert tfa.admm_tiled_tile(2048, 2048, degree, H100_SMS,
+                                   H100_SMEM) == tile
+    assert tfa.admm_tiled_map(104, 64, 10) == (3, 8)
+    assert tfa.admm_tiled_bytes(104, 64, 10) == 4 * 4 * 130 * 98 + 152
 
 
 @pytest.mark.parametrize("degree,want", [(43, "tiled"), (44, "streaming"),
