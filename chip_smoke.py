@@ -3936,8 +3936,10 @@ def phase_tiled_deblur(dev):
     grid-resident band holds: ``deblur_chunk_`` with config 2's motion blur
     at 2048x2048 (ri 10, an odd count of 3, and with the flag set) and
     2048x1536, tests/test_fused_deblur.py's 5x5 blur at 1000x777 (tiles
-    that do not divide it), a dense 9x9 blur (81 taps, read from shared
-    memory) at 1024x1024, and ``deblur_chunk_halo_`` on the one-shard band
+    that do not divide it), a dense 9x9 blur (81 taps, their count known
+    only at run time) at 1024x1024, each on the path the shape rule picks
+    (tiled for any tap count, and no slower than the streaming sequence
+    in the turns below), and ``deblur_chunk_halo_`` on the one-shard band
     of config 2 at 2048x2048 (the yv grid's 2056 rows and 154 of halo each
     side): planes, previous iterates and squared norms bit-equal, and
     within PLANE_ATOL of max(1, |plane|) / NORM_RTOL of the plain versions
@@ -4053,6 +4055,16 @@ def phase_tiled_deblur(dev):
             lambda p, a=cur, b=prev, d=state[3:], c=counts[0], tp=taps:
             lambda: fd.deblur_chunk_(*a, *b, *d, scal, c, tp, sig_q, tau_t,
                                      path=p), 10, counts[0])
+        # the rule takes the tiled launch for any tap count: it must not
+        # lose to the streaming sequence (5% for the spread of one call)
+        got = seen[(nx, ny, name)]
+        slower = max(got["tiled_ms"]) > 1.05 * min(got["streaming_ms"])
+        print(f"deblur_chunk_ {nx}x{ny} {name} ({len(taps)} taps): the rule "
+              f"takes {route[0]}, {max(got['tiled_ms']):.4f} ms a call "
+              f"against streaming {min(got['streaming_ms']):.4f}: "
+              f"{'slower' if slower else 'no slower'}")
+        check(not slower, f"deblur_chunk_ {nx}x{ny} {name}: the rule's "
+              "tiled launch is slower than the streaming sequence")
         if nx == ny == DB_LARGE:
             flagged = torch.cat([scal, torch.ones(1, device=dev)])
             out = both(f"deblur_chunk_ {nx}x{ny} with the flag",

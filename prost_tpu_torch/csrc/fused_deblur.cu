@@ -95,6 +95,8 @@
 // Interface: plain C, loaded with ctypes; pointers and the stream arrive
 // as void*, and every entry point returns the cudaError_t of its launches.
 
+#include <climits>
+
 #include "cp_async.cuh"
 #include "pdhg_chunk.cuh"
 
@@ -951,71 +953,234 @@ size_t resident_smem(K kernel, int nx2, int ny, int ny2, int reach,
 // sequence moves about 17 passes in two launches.  Inside the window the
 // half-steps are stencils over shared memory: K^T y on the window less a
 // border, two convolutions (B x of the new and of the old x) at each owned
-// pixel.
+// pixel.  On an H100 an iteration at 2048x2048 takes about twice the time
+// of its pass at the memory rate (PERF.md, row 19): the window's loads run
+// under the stencils, the dual step's stores and convolutions do not.
 //
-// Design.  One cooperative launch a chunk, one block of DT_THREADS on each
-// SM (32 rows of 32 threads), a grid barrier between iterations: iteration
-// t reads slot t mod 2 (slot A the caller's x, yv and q, slot B 4 planes of
-// scratch) and writes the other.  The blocks walk the yv grid's tiles (tx
-// rows, a multiple of 8, by ty columns, of 32; the x grid's pixels are
-// owned with the yv grid's at the same place); a tile's window is the tile
-// and h = reach + 1 pixels on every side (reach = the taps' largest row or
-// column shift, at least 1; ops/fused_deblur.py deblur_tiled_halo: the
-// primal step reads q one pixel up and left and yv up to reach pixels down
-// and right, the dual step x_new up to reach pixels up and left and one
-// down and right).  In shared memory five planes of the window:
-//   1. cp.async loads of x, q_x, q_y and yv, zero outside the planes;
-//   2. the primal step (deblur_primal's) into a second x plane on the rows
-//      [R0 - reach, R1] and columns [C0 - reach, C1] of the tile
+// Design.  One cooperative launch a chunk, one block of tiled_threads on
+// each SM, a grid barrier between iterations: iteration t reads slot t
+// mod 2 (slot A the caller's x, yv and q, slot B 4 planes of scratch) and
+// writes the other, each slot's pointers picked by the iteration's parity
+// from the two parameter structs' fields (never a reference chosen at run
+// time).  The blocks walk the yv grid's tiles (tx rows, a multiple of 8,
+// by ty columns, of 32; the x grid's pixels are owned with the yv grid's
+// at the same place), each tile-row's columns rotated by its row so that
+// a block's tiles change column from round to round (where the columns
+// divide the grid, a block otherwise takes one column's tiles in every
+// round, and the blocks of the edge columns, every edge window, set the
+// barrier's pace); a tile's window is the tile and h = reach + 1 pixels on
+// every side (reach = the taps' largest row or column shift, at least 1;
+// ops/fused_deblur.py deblur_tiled_halo: the primal step reads q one pixel
+// up and left and yv up to reach pixels down and right, the dual step
+// x_new up to reach pixels up and left and one down and right).  Shared
+// memory holds x after the primal step and two sets of the window's x,
+// q_x, q_y and yv: the next window's cp.async loads (zero outside the
+// planes) run under the current window's stencils; where two sets do not
+// fit, one, loaded after the stencils.  Each stage is a flat walk of its
+// region's pixels by the block's threads:
+//   1. the primal step (deblur_primal's) into the x-after plane on the
+//      rows [R0 - reach, R1] and columns [C0 - reach, C1] of the tile
 //      [R0, R1) x [C0, C1);
-//   3. the dual step (deblur_dual's) at the owned pixels into the other
+//   2. the dual step (deblur_dual's) at the owned pixels into the other
 //      slot: B x and grad x of the old x, which the streaming sequence
-//      carries in planes, recomputed from the window by the same functions
-//      (conv_fwd, the forward differences), which give the same bits; on
-//      the chunk's last iteration the old x, yv and q also into the
-//      caller's previous-iterate planes.
-// Every mask is decided by the pixel's place in the planes (the row
-// context of deblur_rows, as the streaming kernels decide it); a read
-// outside the planes is the zero the load put there.  After the last
-// iteration and a grid barrier the blocks reduce deblur_norm_partial's
-// 32x8 tiles from the written slot (norm_terms, the products recomputed;
-// four tiles at a time in block_partials' tree), copying slot B back into
-// the caller's planes after an odd count as they read it; pdhg_finish
-// follows.  Planes and norms are the streaming sequence's bit for bit.  A
-// launch whose flag is set at entry returns before its first barrier.
+//      carries in planes, recomputed from the window by the same
+//      expressions, which give the same bits; f_b and Sigma_v of a
+//      thread's next pixel loaded under its current one; on the chunk's
+//      last iteration the old x, yv and q also into the caller's
+//      previous-iterate planes.
+// A window whose stencils can reach no edge of the image or of the planes
+// (its rows within the image's and the x plane's, its columns within the
+// image's) runs the stencils with no test, at window offsets dx W + dy of
+// its taps (conv_in, kty_in); the others test every read by the pixel's
+// place in the planes (the row context of deblur_rows, as the streaming
+// kernels decide it; conv_edge, kty_edge), a read outside the planes
+// being the zero the load put there.  The taps are a kernel parameter
+// (TapsP, with the interior offsets formed by the host), read from the
+// constant bank, so no register holds them; their products go through
+// TreeSum's pairwise tree (tap_tree), the count known when compiling up
+// to 7 taps.  The row context and the scalars sit in shared memory, so
+// that no register holds them from one window to the next.
+//   The norms.  The last iteration makes what deblur_norm_partial makes
+// from the carried planes: at the owned pixels the dual step has B x of
+// the new and the old x, their gradients and the old and new duals, so it
+// puts the terms of |pd|^2 and |z_hat|^2, in norm_terms' order of the
+// sums, in place of the pixel's yv and q_x in the window, and the block
+// reduces them over the owned 32x8 tiles; the primal step has K^T of the
+// old duals, so it writes w_hat (a plane of the x grid after slot B).
+// After the last grid barrier the blocks add K^T of the new duals for
+// |dd|^2 and w_hat's for |w_hat|^2 over deblur_norm_partial's 32x8 tiles,
+// a warp to a tile (block_partials' tree as a column's sums and shuffles),
+// and copy slot B back into the caller's planes after an odd count as
+// they read it; pdhg_finish follows.  Planes and norms are the streaming
+// sequence's bit for bit.  A launch whose flag is set at entry returns
+// before its first barrier.
 // ---------------------------------------------------------------------------
 
-constexpr int DT_THREADS = 1024;  // a block: 32 rows of 32 threads
-constexpr int DT_ROWS = DT_THREADS / BX;
-constexpr int DT_PLANES = 5;      // x, x after the primal step, yv, q_x, q_y
-constexpr int DT_RED = (DT_THREADS / NT) * 4 * NT;  // the norm pass's trees
-
-// The dynamic shared memory of a block of the tiled launch (mirrored by
-// ops/fused_deblur.py deblur_tiled_bytes).
-inline size_t deblur_tiled_smem(int tx, int ty, int h) {
-  const size_t planes =
-      (size_t)DT_PLANES * (tx + 2 * (size_t)h) * (ty + 2 * (size_t)h);
-  return (planes > (size_t)DT_RED ? planes : (size_t)DT_RED) * sizeof(float);
+// The threads of a block of deblur_tiled<N>: 24 warps of 80 registers
+// for a tap count known when compiling, 20 of 96 for one known only at
+// run time (whose loops over up to MAX_TAPS taps hold more).
+__host__ __device__ constexpr int tiled_threads(int n) {
+  return n > 0 ? 768 : 640;
 }
 
-// A window of a plane in shared memory: at(i, j) is element (i, j) of the
-// whole plane, the window's corner (r0, c0), its rows w floats apart.
+// The tap count deblur_tiled is instantiated for: `ntaps` up to
+// TILED_KNOWN_TAPS, else 0 (known at run time).
+constexpr int TILED_KNOWN_TAPS = 7;
+
+__host__ __device__ constexpr int tiled_n(int ntaps) {
+  return ntaps <= TILED_KNOWN_TAPS ? ntaps : 0;
+}
+
+template <int N>
+constexpr int DT_THREADS = tiled_threads(N);
+
+// the window's planes: x after the primal step, and two sets of x, yv,
+// q_x and q_y (the next window's loaded under this one's stencils), or
+// one set where two do not fit
+constexpr int DT_PLANES_TWO = 9, DT_PLANES_ONE = 5;
+
+// The dynamic shared memory of a block of the tiled launch with one or two
+// sets of the window's planes.
+inline size_t deblur_tiled_smem(int tx, int ty, int h, bool two) {
+  return (size_t)(two ? DT_PLANES_TWO : DT_PLANES_ONE)
+         * (tx + 2 * (size_t)h) * (ty + 2 * (size_t)h) * sizeof(float);
+}
+
+// The dynamic shared memory the tiled launch takes for a tile of tx x ty
+// and a halo of h on a device whose blocks may hold `limit` bytes: two
+// sets where they fit, else one (mirrored by ops/fused_deblur.py
+// deblur_tiled_bytes).
+inline size_t deblur_tiled_bytes(int tx, int ty, int h, int limit) {
+  const size_t two = deblur_tiled_smem(tx, ty, h, true);
+  return two <= (size_t)limit ? two : deblur_tiled_smem(tx, ty, h, false);
+}
+
+// The taps of a tiled launch, passed as a kernel parameter (1540 bytes):
+// the stencils' warp-uniform reads of them come from the constant bank
+// and no register holds them.  o[k] = dx[k] W + dy[k], the offset of tap k
+// in an interior window of row stride W = ty + 2 h.
+struct TapsP {
+  int n;
+  int dx[MAX_TAPS];
+  int dy[MAX_TAPS];
+  float w[MAX_TAPS];
+  int o[MAX_TAPS];
+};
+
+// The taps of deblur_tiled<N> as its stencils read them: N of 1 to
+// TILED_KNOWN_TAPS taps, a count known when compiling, or N = 0: the
+// launch's count, at most MAX_TAPS.
+template <int N>
+struct TapsK {
+  static constexpr int MAXN = N > 0 ? N : MAX_TAPS;
+  const TapsP& p;
+  __device__ __forceinline__ int n() const { return N > 0 ? N : p.n; }
+};
+
+// TreeSum of term(0), ..., term(t.n() - 1) with the levels in registers for
+// a count known when compiling (for one known only at run time the
+// loop's exit leaves the levels in a 32-byte frame): the k-th term
+// carries up by the bits of k, known when compiling in the unrolled loop,
+// and the total adds the levels of the count's bits from the smallest up
+// (TreeSum's mask after t.n() terms).
+template <typename T, typename F>
+__device__ __forceinline__ float tap_tree(const T& t, F term) {
+  float lev[TREE_LEVELS];
+#pragma unroll
+  for (int k = 0; k < T::MAXN; ++k) {
+    if (k >= t.n()) break;
+    float v = term(k);
+#pragma unroll
+    for (int l = 0; l < TREE_LEVELS; ++l) {
+      if (!(k & (1 << l))) {
+        lev[l] = v;
+        break;
+      }
+      v = lev[l] + v;
+    }
+  }
+  float acc = 0.f;
+  bool have = false;
+#pragma unroll
+  for (int l = 0; l < TREE_LEVELS; ++l) {
+    if (t.n() & (1 << l)) {
+      acc = have ? lev[l] + acc : lev[l];
+      have = true;
+    }
+  }
+  return acc;
+}
+
+// conv_fwd at window index p of an interior window: every read exists.
+template <typename T>
+__device__ __forceinline__ float conv_in(const float* u, int p, const T& t) {
+  return tap_tree(t, [&](int k) { return t.p.w[k] * u[p - t.p.o[k]]; });
+}
+
+// kty_at at window index p (row stride W) of an interior window.
+template <typename T>
+__device__ __forceinline__ float kty_in(const float* yv, const float* qx,
+                                        const float* qy, int p, int W,
+                                        const T& t) {
+  const float dxt = qx[p - W] - qx[p];
+  const float dyt = qy[p - 1] - qy[p];
+  return (tap_tree(t, [&](int k) { return t.p.w[k] * yv[p + t.p.o[k]]; })
+          + dxt) + dyt;
+}
+
+// A window of the plane in shared memory with corner (r0, c0) and row
+// stride W, read at pixel (i, j) of the whole plane.
 struct TWin {
-  float* a;
+  const float* a;
   int r0, c0, w;
-  __device__ __forceinline__ float& at(int i, int j) const {
+  __device__ __forceinline__ float at(int i, int j) const {
     return a[(i - r0) * w + (j - c0)];
   }
 };
 
+// conv_fwd at pixel (i, j) of the yv grid from a window of an x plane,
+// every read tested as conv_fwd tests it.
+template <typename T>
+__device__ __forceinline__ float conv_edge(const TWin& u, const RowCtx& r,
+                                           int nx, int ny, int i, int j,
+                                           const T& t) {
+  return tap_tree(t, [&](int k) {
+    const int a = i - t.p.dx[k], c = j - t.p.dy[k];
+    const float v = (a >= 0 && image_row(r, a, nx) && c >= 0 && c < ny)
+                        ? u.at(a, c)
+                        : 0.f;
+    return t.p.w[k] * v;
+  });
+}
+
+// kty_at at an image pixel (i, j) from windows of yv, q_x and q_y or from
+// the planes themselves (P: TWin or Glob), every read tested as kty_at
+// tests it.
+template <typename P, typename T>
+__device__ __forceinline__ float kty_edge(const P& yv, const P& qx,
+                                          const P& qy, const RowCtx& r,
+                                          int nx, int ny, int nx2, int i,
+                                          int j, const T& t) {
+  const float dxt = (has_above(r, i) ? qx.at(i - 1, j) : 0.f)
+                    - (has_below(r, i, nx) ? qx.at(i, j) : 0.f);
+  const float dyt = (j > 0 ? qy.at(i, j - 1) : 0.f)
+                    - (j < ny - 1 ? qy.at(i, j) : 0.f);
+  const float s = tap_tree(t, [&](int k) {
+    const int a = i + t.p.dx[k];
+    return t.p.w[k] * (a < nx2 ? yv.at(a, j + t.p.dy[k]) : 0.f);
+  });
+  return (s + dxt) + dyt;
+}
+
 // The scalars of a launch as the streaming kernels form them.
 struct TiledScal {
-  float tau_s, sigma, theta, tp, inv_l, sig_p, sig_t, radius;
+  float tau_s, sigma, theta, tp, inv_l, sig_p, sig_t, radius, inv_t, inv_q;
 };
 
 __device__ __forceinline__ TiledScal tiled_scal(const DB& b) {
   TiledScal k;
-  k.tau_s = b.sc[S_TAU] * b.tau_t;  // tau * Tau
+  const float tau_raw = b.sc[S_TAU];
+  k.tau_s = tau_raw * b.tau_t;  // tau * Tau
   k.sigma = b.sc[S_SIGMA];
   k.theta = b.sc[S_THETA];
   k.tp = 1.f + k.theta;
@@ -1024,175 +1189,441 @@ __device__ __forceinline__ TiledScal tiled_scal(const DB& b) {
   k.sig_p = sq * k.tp;
   k.sig_t = sq * k.theta;
   k.radius = b.sc[S_RADIUS];
+  k.inv_t = 1.f / (tau_raw * b.sqrt_t);  // norm_terms'
+  k.inv_q = 1.f / (k.sigma * b.sqrt_q);
   return k;
 }
 
-// One iteration on tile `tile` of the tiles of tx x ty: the window from
-// slot `src`, the owned pixels into slot `dst`; with `last` the old values
-// also into the previous-iterate planes (a's xp, yvp, qp).  `a` holds the
-// read-only planes and the shapes.
-template <typename T>
-__device__ __forceinline__ void tiled_iteration(
-    const DB& src, const DB& dst, const DB& a, const RowCtx& r,
-    const TiledScal& k, int tile, int tx, int ty, int h, bool last,
-    const T& t, float* smem) {
-  const int nx = a.nx, ny = a.ny, nx2 = a.nx2, ny2 = a.ny2;
-  const size_t n = (size_t)nx * ny;
-  const int ntc = (ny2 + ty - 1) / ty;
-  const int R0 = tile / ntc * tx, C0 = tile % ntc * ty;
-  const int R1 = min(R0 + tx, nx2), C1 = min(C0 + ty, ny2);
-  const int r0 = R0 - h, c0 = C0 - h;
-  const int wh = R1 + h - r0, ww = C1 + h - c0, m = wh * ww;
-  const TWin X{smem, r0, c0, ww}, XN{smem + m, r0, c0, ww};
-  const TWin YV{smem + 2 * m, r0, c0, ww}, QX{smem + 3 * m, r0, c0, ww};
-  const TWin QY{smem + 4 * m, r0, c0, ww};
-  const int lane = threadIdx.x % BX, row = threadIdx.x / BX;
-
-  // 1. the window of the state, zero outside the planes
-  for (int wi = row; wi < wh; wi += DT_ROWS) {
-    const int i = r0 + wi;
-    for (int wj = lane; wj < ww; wj += BX) {
-      const int j = c0 + wj, p = wi * ww + wj;
-      if (i >= 0 && i < nx && j >= 0 && j < ny) {
-        const size_t g = (size_t)i * ny + j;
-        cp_async4(X.a + p, src.x + g);
-        cp_async4(QX.a + p, src.q + g);
-        cp_async4(QY.a + p, src.q + n + g);
-      } else {
-        X.a[p] = 0.f;
-        QX.a[p] = 0.f;
-        QY.a[p] = 0.f;
-      }
-      if (i >= 0 && i < nx2 && j >= 0 && j < ny2)
-        cp_async4(YV.a + p, src.yv + (size_t)i * ny2 + j);
-      else
-        YV.a[p] = 0.f;
+// The pixels [0, rows) x [0, cols) of a region walked flat by the block's
+// threads, blockDim.x apart: (wi, wj) from threadIdx.x.
+struct Walk {
+  int wi, wj, di, dj, cols;
+  __device__ __forceinline__ Walk(int c) : cols(c) {
+    wi = (int)threadIdx.x / c;
+    wj = (int)threadIdx.x % c;
+    di = (int)blockDim.x / c;
+    dj = (int)blockDim.x % c;
+  }
+  __device__ __forceinline__ void next() {
+    wi += di;
+    wj += dj;
+    if (wj >= cols) {
+      wj -= cols;
+      ++wi;
     }
   }
-  cp_async_wait();
-  __syncthreads();
+};
 
-  // 2. deblur_primal on rows [R0 - reach, R1], columns [C0 - reach, C1]
-  for (int i = r0 + 1 + row; i <= R1; i += DT_ROWS)
-    for (int j = c0 + 1 + lane; j <= C1; j += BX) {
-      const float xv = X.at(i, j);
-      float xn = xv;  // beyond the image x stays (and is not read)
-      if (i >= 0 && image_row(r, i, nx) && j >= 0 && j < ny)
-        xn = xv - k.tau_s * kty_at(YV, QX, QY, a, r, i, j, t);
-      XN.at(i, j) = xn;
-    }
-  __syncthreads();
+// The window of the tile with index `tile` of the yv grid's tiles of tx x
+// ty (ntc a row): its owned rows [R0, R1) and columns [C0, C1), its corner
+// (r0, c0) h pixels above and left, its rows wh and row stride W; tile-row
+// tr's columns rotated by tr (the design note above).
+struct TGeom {
+  int R0, C0, R1, C1, r0, c0, wh, W;
+};
 
-  // 3. deblur_dual at the owned pixels, into slot dst
-  for (int i = R0 + row; i < R1; i += DT_ROWS)
-    for (int j = C0 + lane; j < C1; j += BX) {
-      const size_t p2 = (size_t)i * ny2 + j;
-      const float bx2 = conv_fwd(XN, a, r, i, j, t);
-      const float bxv = conv_fwd(X, a, r, i, j, t);  // the carried B x
-      const float tsv = k.sigma * a.sv[p2];  // sigma * Sigma_v
-      const float den = 1.f / (1.f + tsv * k.inv_l);
-      const float sh = tsv * a.fb[p2];
-      const float yvv = YV.at(i, j);
-      const float av = yvv + tsv * (k.tp * bx2 - k.theta * bxv);
-      dst.yv[p2] = (av - sh) * den;
-      if (last) a.yvp[p2] = yvv;
-      if (i >= nx || j >= ny) continue;
-      const size_t p = (size_t)i * ny + j;
-      const float xo = X.at(i, j), qx = QX.at(i, j), qy = QY.at(i, j);
-      if (last) {
-        a.xp[p] = xo;
-        a.qp[p] = qx;
-        a.qp[n + p] = qy;
-      }
-      if (!image_row(r, i, nx)) {  // a band's row beyond the image stays
-        dst.x[p] = xo;
-        dst.q[p] = qx;
-        dst.q[n + p] = qy;
-        continue;
-      }
-      const float xv = XN.at(i, j);
-      const bool below = has_below(r, i, nx), right = j < ny - 1;
-      const float gx2 = below ? XN.at(i + 1, j) - xv : 0.f;
-      const float gy2 = right ? XN.at(i, j + 1) - xv : 0.f;
-      const float gx = below ? X.at(i + 1, j) - xo : 0.f;  // the carried g
-      const float gy = right ? X.at(i, j + 1) - xo : 0.f;
-      const float ax = (qx + k.sig_p * gx2) - k.sig_t * gx;
-      const float ay = (qy + k.sig_p * gy2) - k.sig_t * gy;
-      const float nn = ax * ax + ay * ay;
-      const float scale = nn > 0.f ? fminf(1.f, k.radius * rsqrtf(nn)) : 1.f;
-      dst.x[p] = xv;
-      dst.q[p] = ax * scale;
-      dst.q[n + p] = ay * scale;
-    }
+__device__ __forceinline__ TGeom tile_geom(int tile, int ntc, int tx, int ty,
+                                           int h, int nx2, int ny2) {
+  TGeom g;
+  const int tr = tile / ntc;
+  g.R0 = tr * tx;
+  g.C0 = (tile % ntc + tr) % ntc * ty;
+  g.R1 = min(g.R0 + tx, nx2);
+  g.C1 = min(g.C0 + ty, ny2);
+  g.r0 = g.R0 - h;
+  g.c0 = g.C0 - h;
+  g.wh = g.R1 + h - g.r0;
+  g.W = g.C1 + h - g.c0;
+  return g;
 }
 
-// The body of deblur_tiled with the taps `t`: `count` iterations from slot
-// A (a) through slot B (b), then deblur_norm_partial's tiles of the slot
-// written last, slot B copied back into a's planes after an odd count.
-template <typename T>
+// The window lies within the image's and the x plane's rows and the
+// image's columns: no stencil of it reaches an edge.
+__device__ __forceinline__ bool tile_inner(const TGeom& g, const RowCtx& r,
+                                           int nx, int ny, int h) {
+  return g.r0 >= 0 && g.r0 + r.off >= 0 && g.R1 + h <= nx
+         && g.R1 + h + r.off <= r.nxg && g.c0 >= 0 && g.C1 + h <= ny;
+}
+
+// The window g of x, q_x, q_y and yv from slot (sx, syv, sq) into the
+// planes X, YV, QX, QY of `set` (M floats apart) by cp.async, zero outside
+// the planes (EDGE: a window that reaches beyond them).
+template <bool EDGE>
+__device__ __forceinline__ void tiled_load(const TGeom& g, int nx, int ny,
+                                           int nx2, int ny2,
+                                           const float* __restrict__ sx,
+                                           const float* __restrict__ syv,
+                                           const float* __restrict__ sq,
+                                           float* set, int M) {
+  const int n = nx * ny;
+  float* X = set;
+  float* YV = set + M;
+  float* QX = set + 2 * M;
+  float* QY = set + 3 * M;
+  for (Walk w(g.W); w.wi < g.wh; w.next()) {
+    const int i = g.r0 + w.wi, j = g.c0 + w.wj, p = w.wi * g.W + w.wj;
+    if (!EDGE || (i >= 0 && i < nx && j >= 0 && j < ny)) {
+      const int gi = i * ny + j;
+      cp_async4(X + p, sx + gi);
+      cp_async4(QX + p, sq + gi);
+      cp_async4(QY + p, sq + n + gi);
+    } else {
+      X[p] = 0.f;
+      QX[p] = 0.f;
+      QY[p] = 0.f;
+    }
+    if (!EDGE || (i >= 0 && i < nx2 && j >= 0 && j < ny2))
+      cp_async4(YV + p, syv + i * ny2 + j);
+    else
+      YV[p] = 0.f;
+  }
+}
+
+// block_partials' tree for one 32x8 tile of K of the norm terms, a warp to
+// the tile: lane l sums its column's eight rows as the tree pairs them
+// (rows r and r + 4, then r and r + 2, then 0 and 1; two rows at a time,
+// so that few values are live), then the lanes by shuffles (16, 8, 4, 2,
+// 1): the same additions in the same order as the tree's.  terms(r, v)
+// puts the K terms of the lane's column in the tile's row r into v
+// (zeros where it has none); lane 0 gets the sums in s.
+template <int K, typename F>
+__device__ __forceinline__ void warp_tile_sums(F terms, float (&s)[K]) {
+  float b0[K];
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+    float bq[K];
+#pragma unroll 1
+    for (int q = 0; q < 2; ++q) {  // rows r and r + 4, r = half + 2 q
+      float v[K], w[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) v[c] = w[c] = 0.f;
+      terms(half + 2 * q, v);
+      terms(half + 2 * q + 4, w);
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const float sum = v[c] + w[c];
+        bq[c] = q == 0 ? sum : bq[c] + sum;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      if (half == 0)
+        b0[c] = bq[c];
+      else
+        s[c] = b0[c] + bq[c];
+    }
+  }
+#pragma unroll
+  for (int o = BX / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int c = 0; c < K; ++c)
+      s[c] += __shfl_down_sync(0xffffffffu, s[c], o);
+}
+
+// One iteration on the window g, its state loaded into the planes of `set`
+// (X, YV, QX, QY, M floats apart), the primal step into XN: the owned
+// pixels into slot (ox, oyv, oq); with `last` the old values also into the
+// previous-iterate planes (a's xp, yvp, qp), w_hat into a.terms (at the x
+// grid's pixels), and the terms of |pd|^2 and |z_hat|^2 in place of the
+// owned pixels' yv and q_x in the window, whose 32x8 tiles then reduce
+// into their partials.  EDGE: a window whose stencils can reach an edge of
+// the image or of the planes, every read tested; else none.  `a` holds the
+// read-only planes and the shapes.
+template <bool EDGE, int N>
+__device__ __forceinline__ void tiled_window(
+    const DB& a, const RowCtx& r, const TiledScal& k, const TGeom& g,
+    float* __restrict__ ox, float* __restrict__ oyv, float* __restrict__ oq,
+    int h, bool last, const TapsK<N>& t, float* set, float* XN, int M) {
+  const int nx = a.nx, ny = a.ny, nx2 = a.nx2, ny2 = a.ny2;
+  const int n = nx * ny;  // below 2^30 (tiled_chunk)
+  const int R0 = g.R0, C0 = g.C0, R1 = g.R1, C1 = g.C1;
+  const int r0 = g.r0, c0 = g.c0, wh = g.wh, W = g.W;
+  const float* X = set;
+  float* YV = set + M;
+  float* QX = set + 2 * M;
+  const float* QY = set + 3 * M;
+  float* const WH = a.terms;  // w_hat (x grid)
+
+  // 2. deblur_primal on rows [R0 - reach, R1], columns [C0 - reach, C1]
+  {
+    const int pr = wh - h, pc = W - h;
+    for (Walk w(pc); w.wi < pr; w.next()) {
+      const int i = r0 + 1 + w.wi, j = c0 + 1 + w.wj;
+      const int p = (w.wi + 1) * W + w.wj + 1;
+      const float xv = X[p];
+      float xn = xv;  // beyond the image x stays (and is not read)
+      float kty = 0.f;
+      bool image = true;
+      if (EDGE) {
+        image = i >= 0 && image_row(r, i, nx) && j >= 0 && j < ny;
+        if (image)
+          kty = kty_edge(TWin{YV, r0, c0, W}, TWin{QX, r0, c0, W},
+                         TWin{QY, r0, c0, W}, r, nx, ny, nx2, i, j, t);
+      } else {
+        kty = kty_in(YV, QX, QY, p, W, t);
+      }
+      if (image) xn = xv - k.tau_s * kty;
+      XN[p] = xn;
+      if (last && image && i >= R0 && j >= C0 && i < R1 && j < C1)
+        WH[i * ny + j] = (xv - xn) * k.inv_t - a.sqrt_t * kty;
+    }
+  }
+  __syncthreads();
+
+  // 3. deblur_dual at the owned pixels, into slot (ox, oyv, oq); a
+  // thread's f_b and Sigma_v of its next pixel are loaded under the
+  // stencils of this one
+  const TWin XW{X, r0, c0, W}, XNW{XN, r0, c0, W};
+  const int orows = R1 - R0;
+  Walk w(C1 - C0);
+  float svn = 0.f, fbn = 0.f;
+  if (w.wi < orows) {
+    const int g = (R0 + w.wi) * ny2 + C0 + w.wj;
+    svn = __ldg(a.sv + g);
+    fbn = __ldg(a.fb + g);
+  }
+  while (w.wi < orows) {
+    const int i = R0 + w.wi, j = C0 + w.wj;
+    const int p = (w.wi + h) * W + w.wj + h;
+    const int p2 = i * ny2 + j;
+    const float svv = svn, fbv = fbn;
+    w.next();
+    if (w.wi < orows) {
+      const int g = (R0 + w.wi) * ny2 + C0 + w.wj;
+      svn = __ldg(a.sv + g);
+      fbn = __ldg(a.fb + g);
+    }
+    float bx2, bxv;  // B x of the new and (the carried B x) of the old x
+    if (EDGE) {
+      bx2 = conv_edge(XNW, r, nx, ny, i, j, t);
+      bxv = conv_edge(XW, r, nx, ny, i, j, t);
+    } else {
+      bx2 = conv_in(XN, p, t);
+      bxv = conv_in(X, p, t);
+    }
+    const float tsv = k.sigma * svv;  // sigma * Sigma_v
+    const float den = 1.f / (1.f + tsv * k.inv_l);
+    const float sh = tsv * fbv;
+    const float yvv = YV[p];
+    const float av = yvv + tsv * (k.tp * bx2 - k.theta * bxv);
+    const float yvn = (av - sh) * den;
+    oyv[p2] = yvn;
+    float v0 = 0.f, v1 = 0.f;  // norm_terms' of the yv plane
+    if (last) {
+      a.yvp[p2] = yvv;
+      const float sqrt_sv = sqrtf(svv);
+      const float inv_v = 1.f / (k.sigma * sqrt_sv);
+      const float zv = (yvv - yvn) * inv_v
+                       + sqrt_sv * (k.tp * bx2 - k.theta * bxv);
+      const float pdv = zv - sqrt_sv * bx2;
+      v0 = pdv * pdv;
+      v1 = zv * zv;
+    }
+    if (!EDGE || (i < nx && j < ny)) {
+      const int p1 = i * ny + j;
+      const float xo = X[p], qx = QX[p], qy = QY[p];
+      if (last) {
+        a.xp[p1] = xo;
+        a.qp[p1] = qx;
+        a.qp[n + p1] = qy;
+      }
+      if (EDGE && !image_row(r, i, nx)) {  // a band's row beyond the image
+        ox[p1] = xo;
+        oq[p1] = qx;
+        oq[n + p1] = qy;
+      } else {
+        const float xv = XN[p];
+        const bool below = !EDGE || has_below(r, i, nx);
+        const bool right = !EDGE || j < ny - 1;
+        const float gx2 = below ? XN[p + W] - xv : 0.f;
+        const float gy2 = right ? XN[p + 1] - xv : 0.f;
+        const float gx = below ? X[p + W] - xo : 0.f;  // the carried g
+        const float gy = right ? X[p + 1] - xo : 0.f;
+        const float ax = (qx + k.sig_p * gx2) - k.sig_t * gx;
+        const float ay = (qy + k.sig_p * gy2) - k.sig_t * gy;
+        const float nn = ax * ax + ay * ay;
+        const float scale =
+            nn > 0.f ? fminf(1.f, k.radius * rsqrtf(nn)) : 1.f;
+        const float qxn = ax * scale, qyn = ay * scale;
+        ox[p1] = xv;
+        oq[p1] = qxn;
+        oq[n + p1] = qyn;
+        if (last) {  // norm_terms' of the q planes
+          const float sqrt_q = a.sqrt_q;
+          const float zx = (qx - qxn) * k.inv_q
+                           + sqrt_q * (k.tp * gx2 - k.theta * gx);
+          const float zy = (qy - qyn) * k.inv_q
+                           + sqrt_q * (k.tp * gy2 - k.theta * gy);
+          const float pdx = zx - sqrt_q * gx2;
+          const float pdy = zy - sqrt_q * gy2;
+          v0 += pdx * pdx + pdy * pdy;
+          v1 += zx * zx + zy * zy;
+        }
+      }
+    }
+    if (last) {  // the pixel's yv and q_x are read
+      YV[p] = v0;
+      QX[p] = v1;
+    }
+  }
+  if (!last) return;
+
+  // deblur_norm_partial's terms of |pd|^2 and |z_hat|^2 reduced over the
+  // owned 32x8 tiles (the tile is made of whole ones), a warp to a tile
+  __syncthreads();  // every owned pixel's terms are in
+  const int ntx = (ny2 + BX - 1) / BX, cols = (C1 - C0 + BX - 1) / BX;
+  const int lane = (int)threadIdx.x % BX;
+  for (int nt = (int)threadIdx.x / BX; nt < (R1 - R0 + BY - 1) / BY * cols;
+       nt += (int)blockDim.x / BX) {
+    const int i0 = R0 + nt / cols * BY, j0 = C0 + nt % cols * BX;
+    const int j = j0 + lane;
+    float sum[2];
+    warp_tile_sums<2>([&](int row, float v[2]) {
+      const int i = i0 + row;
+      if (i < R1 && j < C1 && owned_row(r, i)) {
+        const int p = (i - r0) * W + j - c0;
+        v[0] = YV[p];
+        v[1] = QX[p];
+      }
+    }, sum);
+    if (lane == 0) {
+      const int tile = i0 / BY * ntx + j0 / BX;
+      a.partial[4 * tile] = sum[0];
+      a.partial[4 * tile + 1] = sum[1];
+    }
+  }
+}
+
+// The body of deblur_tiled<N>: `count` iterations from slot A (a) through
+// slot B (b), then deblur_norm_partial's tiles of the slot written last
+// from the last iteration's terms, slot B copied back into a's planes after
+// an odd count.
+template <int N>
 __device__ __forceinline__ void deblur_tiled_body(const DB& a, const DB& b,
                                                   int count, int h, int tx,
-                                                  int ty, const T& t,
+                                                  int ty, bool two,
+                                                  const TapsK<N>& t,
                                                   float* smem) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const RowCtx r = deblur_rows(a);
-  const TiledScal k = tiled_scal(a);
-  const int nx2 = a.nx2, ny2 = a.ny2;
-  const int ntiles = ((nx2 + tx - 1) / tx) * ((ny2 + ty - 1) / ty);
+  // the row context and the scalars in shared memory, read where a stage
+  // uses them: no register holds them from one window to the next
+  __shared__ RowCtx r;
+  __shared__ TiledScal k;
+  if (threadIdx.x == 0) {
+    r = deblur_rows(a);
+    k = tiled_scal(a);
+  }
+  __syncthreads();
+  const int nx = a.nx, ny = a.ny, nx2 = a.nx2, ny2 = a.ny2;
+  const int ntc = (ny2 + ty - 1) / ty;
+  const int ntiles = (nx2 + tx - 1) / tx * ntc;
+  const int M = (tx + 2 * h) * (ty + 2 * h);  // a plane: the largest window
   for (int it = 0; it < count; ++it) {
-    const DB& src = (it & 1) ? b : a;
-    const DB& dst = (it & 1) ? a : b;
+    const bool odd = (it & 1) != 0, last = it == count - 1;
+    const float* sx = odd ? b.x : a.x;
+    const float* syv = odd ? b.yv : a.yv;
+    const float* sq = odd ? b.q : a.q;
+    float* ox = odd ? a.x : b.x;
+    float* oyv = odd ? a.yv : b.yv;
+    float* oq = odd ? a.q : b.q;
+    // the block's first window of the iteration into set 0; then each
+    // window's compute with the next one's loads in flight into the other
+    // set (a window's state is read from slot src only, which no block
+    // writes this iteration), or with one set after it
+    auto load = [&](int tl, float* set) {
+      const TGeom g = tile_geom(tl, ntc, tx, ty, h, nx2, ny2);
+      if (tile_inner(g, r, nx, ny, h))
+        tiled_load<false>(g, nx, ny, nx2, ny2, sx, syv, sq, set, M);
+      else
+        tiled_load<true>(g, nx, ny, nx2, ny2, sx, syv, sq, set, M);
+    };
+    int set = 0;
+    if (blockIdx.x < ntiles) load(blockIdx.x, smem + M);
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      tiled_iteration(src, dst, a, r, k, tile, tx, ty, h, it == count - 1,
-                      t, smem);
-      __syncthreads();  // the next window overwrites the planes
+      cp_async_wait();
+      __syncthreads();  // this window's planes are in; the last one's done
+      const int next = tile + gridDim.x;
+      if (two && next < ntiles) load(next, smem + M + (set ^ 1) * 4 * M);
+      const TGeom g = tile_geom(tile, ntc, tx, ty, h, nx2, ny2);
+      float* cur = smem + M + set * 4 * M;
+      if (tile_inner(g, r, nx, ny, h))
+        tiled_window<false, N>(a, r, k, g, ox, oyv, oq, h, last, t, cur,
+                               smem, M);
+      else
+        tiled_window<true, N>(a, r, k, g, ox, oyv, oq, h, last, t, cur, smem,
+                              M);
+      if (two) {
+        set ^= 1;
+      } else if (next < ntiles) {
+        __syncthreads();  // every thread is done with the set
+        load(next, smem + M);
+      }
     }
     grid.sync();
   }
 
-  // deblur_norm_partial's tiles, four at a time (block_partials' tree),
-  // slot B copied back as it is read after an odd count
+  // the terms of |dd|^2 and |w_hat|^2 (K^T y of the new duals and the last
+  // iteration's w_hat) reduced over deblur_norm_partial's 32x8 tiles of
+  // the yv grid, a warp to a tile; slot B copied back as it is read after
+  // an odd count
   const bool back = (count & 1) != 0;
-  const DB& fin = back ? b : a;
-  const size_t n = (size_t)a.nx * a.ny;
-  tiled_tile_partials<DT_THREADS>(nx2, ny2, a.partial, smem,
-                                  [&](int i, int j, float v[4]) {
-    if (owned_row(r, i)) norm_terms<false>(fin, r, i, j, t, v);
-    if (back) {
-      const size_t p2 = (size_t)i * ny2 + j, p = (size_t)i * a.ny + j;
-      a.yv[p2] = b.yv[p2];
-      if (i < a.nx && j < a.ny) {
-        a.x[p] = b.x[p];
-        a.q[p] = b.q[p];
-        a.q[n + p] = b.q[n + p];
+  const float* fyv = back ? b.yv : a.yv;
+  const float* fq = back ? b.q : a.q;
+  const int n = nx * ny;
+  const int warps = (int)blockDim.x / BX;
+  const int ntx = (ny2 + BX - 1) / BX;
+  const int nnorm = (nx2 + BY - 1) / BY * ntx;
+  const int lane = (int)threadIdx.x % BX;
+  for (int tile = blockIdx.x * warps + (int)threadIdx.x / BX; tile < nnorm;
+       tile += gridDim.x * warps) {
+    const int i0 = tile / ntx * BY, j = tile % ntx * BX + lane;
+    float sum[2];
+    warp_tile_sums<2>([&](int row, float v[2]) {
+      const int i = i0 + row;
+      if (i >= nx2 || j >= ny2) return;
+      const int p2 = i * ny2 + j, p = i * ny + j;
+      if (owned_row(r, i) && image_row(r, i, nx) && j < ny) {
+        const float kty2 = kty_edge(Glob{fyv, ny2}, Glob{fq, ny},
+                                    Glob{fq + n, ny}, r, nx, ny, nx2, i, j,
+                                    t);
+        const float wh = a.terms[p];
+        const float dd = wh + a.sqrt_t * kty2;
+        v[0] = dd * dd;
+        v[1] = wh * wh;
       }
+      if (back) {
+        a.yv[p2] = b.yv[p2];
+        if (i < nx && j < ny) {
+          a.x[p] = b.x[p];
+          a.q[p] = b.q[p];
+          a.q[n + p] = b.q[n + p];
+        }
+      }
+    }, sum);
+    if (lane == 0) {
+      a.partial[4 * tile + 2] = sum[0];
+      a.partial[4 * tile + 3] = sum[1];
     }
-  });
-}
-
-// N > 0: a launch of N taps, held in registers; N = 0: any count, read
-// from shared memory.
-template <int N>
-__global__ void __launch_bounds__(DT_THREADS, 1)
-    deblur_tiled(DB a, DB b, int count, int h, int tx, int ty) {
-  if (a.sc[S_CONV] != 0.f) return;  // every block, before any barrier
-  extern __shared__ float smem[];
-  __shared__ Taps ts;
-  stage_taps(a.taps, a.ntaps, ts);
-  if constexpr (N > 0) {
-    const TapsN<N> t = taps_in_registers<N>(ts);
-    deblur_tiled_body(a, b, count, h, tx, ty, t, smem);
-  } else {
-    deblur_tiled_body(a, b, count, h, tx, ty, ts, smem);
   }
 }
 
-using DBTiledKernel = void (*)(DB, DB, int, int, int, int);
+// N of 1 to TILED_KNOWN_TAPS: a launch of N taps; N = 0: any count.
+template <int N>
+__global__ void __launch_bounds__(DT_THREADS<N>, 1)
+    deblur_tiled(DB a, DB b, TapsP tp, int count, int h, int tx, int ty,
+                 int two) {
+  if (a.sc[S_CONV] != 0.f) return;  // every block, before any barrier
+  extern __shared__ float smem[];
+  deblur_tiled_body<N>(a, b, count, h, tx, ty, two != 0, TapsK<N>{tp},
+                       smem);
+}
 
-// The tiled kernel for `ntaps` taps: the taps in registers up to
-// RES_REG_TAPS, else read from shared memory.
+using DBTiledKernel = void (*)(DB, DB, TapsP, int, int, int, int, int);
+
+// The kernel for `ntaps` taps (deblur_tiled<tiled_n(ntaps)>).
+
 DBTiledKernel deblur_tiled_kernel(int ntaps) {
-  switch (ntaps) {
+  switch (tiled_n(ntaps)) {
     case 1: return deblur_tiled<1>;
     case 2: return deblur_tiled<2>;
     case 3: return deblur_tiled<3>;
@@ -1200,31 +1631,46 @@ DBTiledKernel deblur_tiled_kernel(int ntaps) {
     case 5: return deblur_tiled<5>;
     case 6: return deblur_tiled<6>;
     case 7: return deblur_tiled<7>;
-    case RES_REG_TAPS: return deblur_tiled<RES_REG_TAPS>;
     default: return deblur_tiled<0>;
   }
 }
 
-// One tiled chunk: the cooperative launch (one block of DT_THREADS on each
-// SM) and pdhg_finish; slot B's x, yv and q in `scratch` (n, m2 and 2 n
-// floats).  A tile that is not a multiple of the 32x8 norm tiles or whose
-// window does not fit in a block's shared memory is refused with
+// One tiled chunk: the cooperative launch (one block of tiled_threads on
+// each SM) and pdhg_finish; slot B's x, yv and q in `scratch` (n, m2 and 2 n
+// floats), the last iteration's w_hat after them (n).  A
+// tile that is not a multiple of the 32x8 norm tiles or whose window does
+// not fit in a block's shared memory is refused with
 // cudaErrorInvalidValue, a grid the card cannot hold at once by the card
 // (cudaErrorCooperativeLaunchTooLarge).
-int tiled_chunk(DB& a, void* scratch, int count, int h, int tx, int ty,
-                cudaStream_t st) {
-  if (tx < BY || tx % BY || ty < BX || ty % BX || h < 2 || count < 1)
+int tiled_chunk(DB& a, void* scratch, const float* taps, int count, int h,
+                int tx, int ty, cudaStream_t st) {
+  if (tx < BY || tx % BY || ty < BX || ty % BX || h < 2 || count < 1
+      || a.ntaps < 1 || a.ntaps > MAX_TAPS)
     return (int)cudaErrorInvalidValue;
+  TapsP tp = {};
+  tp.n = a.ntaps;
+  for (int k = 0; k < tp.n; ++k) {
+    tp.dx[k] = (int)taps[k];
+    tp.dy[k] = (int)taps[tp.n + k];
+    tp.w[k] = taps[2 * tp.n + k];
+    tp.o[k] = tp.dx[k] * (ty + 2 * h) + tp.dy[k];
+  }
   const size_t n = (size_t)a.nx * a.ny, m2 = (size_t)a.nx2 * a.ny2;
+  if (2 * n > (size_t)INT_MAX || m2 > (size_t)INT_MAX)  // int offsets
+    return (int)cudaErrorInvalidValue;
   DB b = a;
   b.x = (float*)scratch;
   b.yv = b.x + n;
   b.q = b.yv + m2;
+  a.terms = b.q + 2 * n;
+  b.terms = a.terms;
   DBTiledKernel kernel = deblur_tiled_kernel(a.ntaps);
-  const size_t smem = deblur_tiled_smem(tx, ty, h);
+  const int threads = tiled_threads(tiled_n(a.ntaps));
   const int limit = resident_smem_limit(kernel);
   if (limit < 0) return -limit;
+  const size_t smem = deblur_tiled_bytes(tx, ty, h, limit);
   if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int two = smem == deblur_tiled_smem(tx, ty, h, true);
   int sms = 0, per_sm = 0;
   if (int rc = device_sms(&sms)) return rc;
   cudaError_t e = cudaFuncSetAttribute(
@@ -1232,12 +1678,12 @@ int tiled_chunk(DB& a, void* scratch, int count, int h, int tx, int ty,
       (int)smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      DT_THREADS, smem);
+                                                      threads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&a, &b, &count, &h, &tx, &ty};
+  void* args[] = {&a, &b, &tp, &count, &h, &tx, &ty, &two};
   e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms),
-                                  dim3(DT_THREADS), args, smem, st);
+                                  dim3(threads), args, smem, st);
   if (e != cudaSuccess) return (int)e;
   LAUNCH_CHECK();
   AdaptConsts none = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -1416,14 +1862,16 @@ int prost_deblur_chunk_resident(void* x, void* yv, void* q, void* xp,
 // deblur_fused_chunk and deblur_fused_chunk_halo for the planes no
 // grid-resident band holds (deblur_fused_chunk_banded's): one tiled
 // cooperative launch (deblur_tiled) and the finish.  The arguments of
-// prost_deblur_chunk_resident with `scratch` (3 nx ny + nx2 ny2 floats,
-// slot B) for `terms`, the window's halo h for `reach`
+// prost_deblur_chunk_resident with `scratch` (4 nx ny + nx2 ny2 floats:
+// slot B and the last iteration's w_hat) for `terms`, the window's halo h for `reach`
 // (ops/fused_deblur.py deblur_tiled_halo), and the owned tile (tx rows, a
 // multiple of 8; ty columns, of 32).  Bit-equal to prost_deblur_chunk
 // (prost_deblur_chunk_halo) in the planes and the 4 squared norms.  No-op
 // when sc[S_CONV] is set.  A tile the launch cannot take is refused
 // (cudaErrorInvalidValue, or the card's refusal of the cooperative
-// launch).
+// launch).  `host_taps` holds the taps on the host as `taps` holds them on
+// the device ((3, ntaps) floats [dx; dy; w]): the kernel takes them as a
+// parameter.
 int prost_deblur_chunk_tiled(void* x, void* yv, void* q, void* xp,
                              void* yvp, void* qp, const void* fb,
                              const void* sv, const void* taps, void* sc,
@@ -1431,18 +1879,27 @@ int prost_deblur_chunk_tiled(void* x, void* yv, void* q, void* xp,
                              int nx2, int ny2, int ntaps, int halo,
                              float sig_q, float tau_t, float sqrt_q,
                              float sqrt_t, int nx_global, int count, int tx,
-                             int ty, void* stream) {
+                             int ty, const void* host_taps, void* stream) {
   DB a = deblur_of(x, yv, q, xp, yvp, qp, nullptr, nullptr, nullptr,
                    nullptr, fb, sv, taps, sc, partial, nx, ny, nx2, ny2,
                    ntaps, sig_q, tau_t, sqrt_q, sqrt_t);
   a.nxg = nx_global;
-  return tiled_chunk(a, scratch, count, halo, tx, ty, (cudaStream_t)stream);
+  return tiled_chunk(a, scratch, (const float*)host_taps, count, halo, tx, ty,
+                     (cudaStream_t)stream);
 }
 
 // The dynamic shared memory a block of the tiled launch may hold on the
 // current device (the same for every tap count), or minus the error.
 int prost_deblur_tiled_smem() {
   return resident_smem_limit(deblur_tiled_kernel(0));
+}
+
+// The dynamic shared memory a block of the tiled launch takes for a tile
+// of tx x ty and a halo of h (ops/fused_deblur.py deblur_tiled_bytes
+// mirrors it).
+int prost_deblur_tiled_bytes(int tx, int ty, int h) {
+  const int limit = prost_deblur_tiled_smem();
+  return limit < 0 ? limit : (int)deblur_tiled_bytes(tx, ty, h, limit);
 }
 
 // deblur_fused_chunk_batched as one grid-resident cooperative launch

@@ -299,8 +299,8 @@ __device__ __forceinline__ void coop_tile_partials(
   coop_tile_partials(terms, nr, nc, partial, red, blockIdx.x, gridDim.x);
 }
 
-// The norm pass of a tiled chunk (csrc/fused_deblur.cu deblur_tiled,
-// csrc/fused_multilabel.cu ml_tiled, csrc/fused_tight.cu tight_tiled):
+// The norm pass of a tiled chunk (csrc/fused_multilabel.cu ml_tiled,
+// csrc/fused_tight.cu tight_tiled, csrc/fused_vol.cu vol_tiled):
 // block_partials' tree for every 32x8 tile of the (nr, nc) grid, THREADS /
 // NT tiles at a time per block of the launch, tile t of grid_of(nr, nc)
 // into partial[4 t ..].  terms(i, j, v) is called once for each pixel of

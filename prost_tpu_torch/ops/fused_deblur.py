@@ -465,6 +465,16 @@ def deblur_chunk_tiled_plain(x, yv, q, fb, sv, scal, count: int, taps,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def host_taps(taps):
+    """The taps as the tiled launch also takes them, on the host: a ctypes
+    array of the (3, T) float32 values [dx; dy; w] in ``ordered_taps``
+    order (made once per taps), which its kernel receives as a
+    parameter."""
+    vals = [float(v) for col in zip(*ordered_taps(taps)) for v in col]
+    return (ctypes.c_float * len(vals))(*vals)
+
+
 @functools.lru_cache(maxsize=16)
 def taps_array(taps, device) -> torch.Tensor:
     """The taps as the kernel takes them: a (3, T) float32 array [dx; dy;
@@ -525,8 +535,9 @@ def _lib():
         "prost_deblur_chunk_batched_resident": resident + strides
                                                + [CI, CI, CI, VP],
         "prost_deblur_resident_smem": [CI],
-        "prost_deblur_chunk_tiled": resident + [CI] * 4 + [VP],
-        "prost_deblur_tiled_smem": []})
+        "prost_deblur_chunk_tiled": resident + [CI] * 4 + [VP, VP],
+        "prost_deblur_tiled_smem": [],
+        "prost_deblur_tiled_bytes": [CI] * 3})
 
 
 def taps_reach(taps) -> int:
@@ -566,35 +577,50 @@ def pairs_ok(nx2: int, ny: int, ny2: int, taps, sms: int, smem: int) -> bool:
     return 2 * resident_bytes(nx2, ny, ny2, taps, sms) <= int(smem)
 
 
-# floats of the tiled launch's window planes (csrc/fused_deblur.cu
-# deblur_tiled: x before and after the primal step, yv, q_x, q_y) and bytes
-# of its norm pass's reductions (four 32x8 tiles at a time)
-_TILED_PLANES, _TILED_RED_BYTES = 5, 4 * 4 * 4 * 256
+# the tiled launch's window planes (csrc/fused_deblur.cu deblur_tiled: x
+# after the primal step, and two sets of x, yv, q_x and q_y, the next
+# window's loaded under the current one's stencils; one set where two do
+# not fit)
+_TILED_PLANES = (9, 5)
+# what a window costs beyond its pixels (its barriers and its walks'
+# set-up), in pixels: with it the tile rule picks the fastest of the tiles
+# tools/deblur_tiled_probe.py timed on an H100 at 2048x2048 (7 taps) and
+# 1024x1024 (7 to 81 taps), where counting pixels alone picks tiles up to
+# 1.3x slower
+_TILED_FIXED = 500
 
 
-def deblur_tiled_bytes(tx: int, ty: int, taps) -> int:
+def deblur_tiled_bytes(tx: int, ty: int, taps, smem=None) -> int:
     """The dynamic shared memory of one block of the tiled launch
-    (csrc/fused_deblur.cu deblur_tiled_smem): five planes of the window
+    (csrc/fused_deblur.cu deblur_tiled_bytes, prost_deblur_tiled_bytes) on
+    a card whose blocks may hold ``smem`` bytes: nine planes of the window
     of a ``tx`` x ``ty`` tile with ``deblur_tiled_halo(taps)`` pixels on
-    every side, at least the norm pass's reductions.  f_b and Sigma_v are
-    read pixel by pixel from device memory in the dual step."""
-    return _window_bytes(int(tx), int(ty), deblur_tiled_halo(taps))
+    every side where they fit (``smem`` None: always), else five.  f_b and
+    Sigma_v are read pixel by pixel from device memory in the dual step,
+    and the norm pass reduces its tiles in registers."""
+    h = deblur_tiled_halo(taps)
+    two = _window_bytes(int(tx), int(ty), h, _TILED_PLANES[0])
+    if smem is None or two <= int(smem):
+        return two
+    return _window_bytes(int(tx), int(ty), h, _TILED_PLANES[1])
 
 
-def _window_bytes(tx: int, ty: int, h: int) -> int:
-    return max(4 * _TILED_PLANES * (tx + 2 * h) * (ty + 2 * h),
-               _TILED_RED_BYTES)
+def _window_bytes(tx: int, ty: int, h: int, planes: int) -> int:
+    return 4 * planes * (tx + 2 * h) * (ty + 2 * h)
 
 
 def deblur_tiled_tile(nx2: int, ny2: int, taps, sms: int, smem: int):
     """The owned tile (rows, columns) of the tiled launch on a yv grid of
     (nx2, ny2) on a card of ``sms`` SMs whose blocks may hold ``smem``
     bytes of dynamic shared memory: of the tiles (rows a multiple of 8,
-    columns of 32, so every 32x8 norm tile lies in one) whose window fits
-    (``deblur_tiled_bytes``), the one whose iteration moves the fewest
-    window pixels through the SMs (the rounds of one block per SM times a
-    whole tile's window), the larger tile on a tie; None where no tile's
-    window fits."""
+    columns of 32, so every 32x8 norm tile lies in one) whose window's two
+    sets of planes fit (``deblur_tiled_bytes``), else of those whose one
+    set fits, the one whose iteration moves the fewest window pixels
+    through the SMs (the rounds of one block per SM times a whole tile's
+    window and ``_TILED_FIXED`` pixels more, a window's barriers and set-up;
+    with two sets one round more, a block's first window, whose loads no
+    stencil hides), the larger tile on a tie; None where no tile's window
+    fits."""
     return _tiled_tile(int(nx2), int(ny2), deblur_tiled_halo(taps),
                        int(sms), int(smem))
 
@@ -604,14 +630,41 @@ def _tiled_tile(nx2: int, ny2: int, h: int, sms: int, smem: int):
     """``deblur_tiled_tile`` for the halo ``h``, searched once per shape."""
     from .fused_rof import window_tile
 
-    return window_tile(nx2, ny2, 2 * h, sms,
-                       lambda tx, ty: _window_bytes(tx, ty, h) <= smem)
+    for planes, lead in zip(_TILED_PLANES, (1, 0)):
+        tile = window_tile(nx2, ny2, 2 * h, sms, lambda tx, ty: _window_bytes(
+            tx, ty, h, planes) <= smem, lead=lead, fixed=_TILED_FIXED)
+        if tile is not None:
+            return tile
+    return None
 
 
 def deblur_tiled_ok(nx2: int, ny2: int, taps, sms: int, smem: int) -> bool:
     """Whether the tiled launch takes a yv grid of (nx2, ny2): some tile's
-    window fits in ``smem`` bytes."""
-    return deblur_tiled_tile(nx2, ny2, taps, sms, smem) is not None
+    window fits in ``smem`` bytes, and twice its pixels stay within the
+    kernel's int offsets."""
+    return (2 * int(nx2) * int(ny2) < 2 ** 31
+            and deblur_tiled_tile(nx2, ny2, taps, sms, smem) is not None)
+
+
+def deblur_tiled_windows(nx: int, ny: int, nx2: int, ny2: int, tile,
+                         h: int, off: int = 0, nx_global=None) -> tuple:
+    """(interior, edge): the corners (R0, C0) of the tiled launch's tiles
+    of ``tile`` with halo ``h`` on x planes of (nx, ny) and a yv grid of
+    (nx2, ny2), split as csrc/fused_deblur.cu deblur_tiled_body splits
+    them: a window within the image's and the x plane's rows and the
+    image's columns runs its stencils untested, the others test every
+    read.  A halo band's local row 0 is global row ``off`` of
+    ``nx_global`` image rows."""
+    tx, ty = (int(t) for t in tile)
+    last = min(nx, int(nx if nx_global is None else nx_global) - off)
+    inner, edge = [], []
+    for R0 in range(0, nx2, tx):
+        for C0 in range(0, ny2, ty):
+            ok = (R0 - h >= 0 and R0 - h + off >= 0
+                  and min(R0 + tx, nx2) + h <= last
+                  and C0 - h >= 0 and min(C0 + ty, ny2) + h <= ny)
+            (inner if ok else edge).append((R0, C0))
+    return inner, edge
 
 
 def deblur_route_of(nx2: int, ny: int, ny2: int, taps, sms: int, smem: int,
@@ -688,7 +741,8 @@ def _scratch(path: str, nx, ny, nx2, ny2, device, batch: int = 0,
     """A chunk launch's scratch on ``path``: the grid-resident chunk's norm
     terms (4 planes of the yv grid, which a batched launch's frames share;
     8 where it runs them two at a time), the tiled chunk's second slot of
-    the state (x, yv and q: 3 nx ny + nx2 ny2 floats), or the streaming
+    the state (x, yv and q: 3 nx ny + nx2 ny2 floats) and its last
+    iteration's w_hat (a plane of the x grid), or the streaming
     sequence's carried planes (B x and grad x, of this iterate and of the
     previous one; with ``batch``, of every frame)."""
     lead = (batch,) if batch else ()
@@ -699,7 +753,7 @@ def _scratch(path: str, nx, ny, nx2, ny2, device, batch: int = 0,
     if path == "resident":
         return [empty(8 if pairs else 4, nx2, ny2)]
     if path == "tiled":
-        return [empty(3 * nx * ny + nx2 * ny2)]
+        return [empty(4 * nx * ny + nx2 * ny2)]
     return [empty(*lead, nx2, ny2), empty(*lead, nx2, ny2),
             empty(*lead, 2, nx, ny), empty(*lead, 2, nx, ny)]
 
@@ -723,7 +777,8 @@ def _launch_chunk(what: str, state, prev, fb, sv, taps_t, sc, partial,
     path, tile = route
     if path != "streaming":
         reach, tail = ((taps_reach(taps), ()) if path == "resident" else
-                       (deblur_tiled_halo(taps), tuple(tile)))
+                       (deblur_tiled_halo(taps),
+                        (*tile, host_taps(tuple(map(tuple, taps))))))
         launch(lib, f"prost_deblur_chunk_{path}", what, launch_counts,
                x.device, [*state, *prev, fb, sv, taps_t, sc, partial,
                           *scratch], *shape, reach, *roots,

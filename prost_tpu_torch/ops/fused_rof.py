@@ -615,16 +615,18 @@ def tiled_tile(nx: int, ny: int, count: int, dataterm: str, sms: int,
                        <= smem, batch)
 
 
-def window_tile(nx: int, ny: int, h: int, sms: int, fits, batch: int = 1):
+def window_tile(nx: int, ny: int, h: int, sms: int, fits, batch: int = 1,
+                lead: int = 0, fixed: int = 0):
     """The owned tile (rows, columns) of a tiled launch on ``batch``
     instances of (nx, ny) planes on a card of ``sms`` SMs, the search of
     every tiled rule: of the tiles of ``TILE_ROWS`` x ``TILE_COLS`` (every
     32x8 norm tile in one) whose window fits (``fits(tx, ty)``, false
     beyond some rows for each column count), the one whose launch moves
     the fewest window pixels through the SMs (the rounds of one block per
-    SM over the ``batch`` instances' tiles times a whole tile's window,
-    ``h`` rows and columns more than the tile), the larger tile on a tie;
-    None where no tile's window fits."""
+    SM over the ``batch`` instances' tiles, and ``lead`` more, times a
+    whole tile's window, ``h`` rows and columns more than the tile, and
+    ``fixed`` pixels a window more), the larger tile on a tie; None where
+    no tile's window fits."""
     best, cost = None, None
     for ty in TILE_COLS:
         if ty - 32 >= ny:
@@ -633,8 +635,8 @@ def window_tile(nx: int, ny: int, h: int, sms: int, fits, batch: int = 1):
             if tx - 8 >= nx or not fits(tx, ty):
                 break
             tiles = int(batch) * -(-nx // tx) * -(-ny // ty)
-            rounds = -(-tiles // int(sms))
-            c = rounds * (min(tx, nx) + h) * (min(ty, ny) + h)
+            rounds = -(-tiles // int(sms)) + int(lead)
+            c = rounds * ((min(tx, nx) + h) * (min(ty, ny) + h) + int(fixed))
             if best is None or c < cost or (c == cost and
                                             tx * ty > best[0] * best[1]):
                 best, cost = (tx, ty), c

@@ -2754,7 +2754,130 @@ def test_deblur_tiled_rules_on_the_card(dev):
                    [*planes[:3], *[t.clone() for t in planes[:3]],
                     *planes[3:], fd.taps_array(taps, dev), sc, partial,
                     *scratch], 256, 256, nx2, ny2, len(taps), 8, 0.5, 0.2,
-                   0.5 ** 0.5, 0.2 ** 0.5, 0, 10, *tile)
+                   0.5 ** 0.5, 0.2 ** 0.5, 0, 10, *tile, fd.host_taps(taps))
+
+
+@pytest.mark.parametrize("count", [1, 2, 10])
+@pytest.mark.parametrize("nx,ny,blur,inner", [(2048, 2048, "motion", True),
+                                              (1000, 777, "asym", True),
+                                              (9, 300, "motion", False)])
+def test_deblur_tiled_windows_are_the_launch_sequence(dev, nx, ny, blur,
+                                                      inner, count):
+    """Interior windows (untested stencils) beside edge windows (2048x2048,
+    1000x777), and edge windows only (the 9x300 strip), at counts 1, 2 and
+    10: planes, previous iterates and squared norms bit-equal to the
+    launch sequence's."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    taps, k = _blur(blur)
+    planes = _deblur_planes(490 + nx + count, nx, ny, k, dev)
+    nx2, ny2 = planes[1].shape
+    tile = fd.deblur_tiled_tile(nx2, ny2, taps, fd.card_limits(dev)[0],
+                                fd.deblur_tiled_limit(dev))
+    wins = fd.deblur_tiled_windows(nx, ny, nx2, ny2, tile,
+                                   fd.deblur_tiled_halo(taps))
+    assert bool(wins[0]) == inner and wins[1]
+    scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0], device=dev)
+    out = _tiled_paths(fd.deblur_chunk_, planes[:3], planes[3:], scal, count,
+                       taps, 0.5, 0.2)
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("count", [1, 2])
+@pytest.mark.parametrize("rank", [0, 1, 3])
+def test_deblur_tiled_band_counts_are_the_launch_sequence(dev, rank, count):
+    """Bands of config 2 at 2048x2048 cut in 4 (halo 154), the edge
+    shards' with rows beyond the image, at counts 1 and 2: the tiled launch
+    is the streaming sequence bit for bit."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+    from prost_tpu_torch.parallel.spatial_fused import window
+
+    taps, k = _blur("motion")
+    planes = _deblur_planes(500 + rank, 2048, 2048, k, dev)
+    rows, H = 2056 // 4, fd.deblur_halo_rows(10, taps)
+    lo = rank * rows - H
+    ext = [window(a, lo, lo + rows + 2 * H) for a in planes]
+    scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0, lo, H, H + rows],
+                        device=dev)
+    out = _tiled_paths(fd.deblur_chunk_halo_, ext[:3], ext[3:], scal, count,
+                       2048, taps, 0.5, 0.2)
+    for a, b in zip(out["streaming"], out["tiled"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [5, 9])
+def test_deblur_tiled_dense_blurs_take_the_rules_path(dev, k):
+    """A full k x k blur (25 and 81 taps) at 1024x1024: the chunk takes the
+    path ``deblur_route_of`` picks (counted as such) and leaves the
+    streaming sequence's planes, previous iterates and norms bit for bit;
+    the tiled launch, forced, does too."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    ker = np.arange(1.0, k * k + 1.0).reshape(k, k)
+    taps = fd.kernel_taps(torch.as_tensor(ker / ker.sum(),
+                                          dtype=torch.float32))
+    assert len(taps) == k * k
+    planes = _deblur_planes(510 + k, 1024, 1024, k, dev)
+    nx2, ny2 = planes[1].shape
+    sms, smem = fd.card_limits(dev)
+    path = fd.deblur_route_of(nx2, 1024, ny2, taps, sms, smem,
+                              fd.deblur_tiled_limit(dev))
+    scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0], device=dev)
+    out = {}
+    for p in ("streaming", None, "tiled"):
+        cur = [t.clone() for t in planes[:3]]
+        prev = [torch.full_like(t, float("nan")) for t in cur]
+        before = fd.launch_counts["deblur_chunk_tiled"]
+        norms2 = fd.deblur_chunk_(*cur, *prev, *planes[3:], scal, 3, taps,
+                                  0.5, 0.2, path=p)
+        tiled = fd.launch_counts["deblur_chunk_tiled"] - before
+        assert tiled == (p == "tiled" or (p is None and path == "tiled"))
+        out[p] = cur + prev + [norms2.clone()]
+    torch.cuda.synchronize()
+    for p in (None, "tiled"):
+        for a, b in zip(out["streaming"], out[p]):
+            assert torch.equal(a, b)
+
+
+def test_deblur_tiled_bytes_mirror_the_launch(dev):
+    """``deblur_tiled_bytes`` is the dynamic shared memory the C side asks
+    for each tile and halo on the card (``prost_deblur_tiled_bytes``: two
+    sets of the window's planes where they fit, else one), and the launch
+    takes the largest tile whose one set fits and refuses the next row of
+    tiles."""
+    from prost_tpu_torch.ops import fused_deblur as fd
+
+    lib = fd._lib()
+    limit = fd.deblur_tiled_limit(dev)
+    for taps in (_blur("motion")[0], _blur("asym")[0], ((0, 0, 0.5),
+                                                       (20, 3, 0.5))):
+        h = fd.deblur_tiled_halo(taps)
+        for tile in ((8, 32), (48, 64), (104, 64), (48, 128), (136, 32),
+                     (40, 160)):
+            assert lib.prost_deblur_tiled_bytes(*tile, h) == \
+                fd.deblur_tiled_bytes(*tile, taps, limit)
+    taps, k = _blur("motion")
+    tx = max(t for t in range(8, 400, 8)
+             if fd.deblur_tiled_bytes(t, 64, taps, limit) <= limit)
+    planes = _deblur_planes(520, 700, 500, k, dev)
+    nx2, ny2 = planes[1].shape
+    scal = torch.tensor([0.9, 1.1, 1.0, 100.0, 1.0], device=dev)
+    sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+    partial = planes[0].new_empty(
+        4 * fd._lib().prost_deblur_num_blocks(nx2, ny2))
+    scratch = fd._scratch("tiled", 700, 500, nx2, ny2, dev)
+    cur = [t.clone() for t in planes[:3]]
+    prev = [t.clone() for t in cur]
+    args = ([*cur, *prev, *planes[3:], fd.taps_array(taps, dev), sc, partial,
+             *scratch], 700, 500, nx2, ny2, len(taps), 8, 0.5, 0.2,
+            0.5 ** 0.5, 0.2 ** 0.5, 0, 2)
+    launch(lib, "prost_deblur_chunk_tiled", "deblur_chunk", fd.launch_counts,
+           dev, *args, tx, 64, fd.host_taps(taps))
+    torch.cuda.synchronize()
+    with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
+        launch(lib, "prost_deblur_chunk_tiled", "deblur_chunk",
+               fd.launch_counts, dev, *args, tx + 8, 64, fd.host_taps(taps))
 
 
 # ---------------------------------------------------------------------------

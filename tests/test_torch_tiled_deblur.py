@@ -20,7 +20,9 @@ can check it.
   fused route forced onto the twin against the JAX fused route with boyd
   adaptation.
 * The shape rule (``deblur_route_of``, ``deblur_tiled_tile``,
-  ``deblur_tiled_bytes``) on an H100's SM count and shared-memory limit.
+  ``deblur_tiled_bytes``) on an H100's SM count and shared-memory limit,
+  for any tap count; the windows the kernel runs untested
+  (``deblur_tiled_windows``) read only pixels that exist.
 
 The kernel itself is held bit for bit against the streaming launch
 sequence on the card by chip_smoke.py (``phase_tiled_deblur``).
@@ -326,9 +328,11 @@ def test_wide_blurs_stream():
 
 @pytest.mark.parametrize("n", [2048, 1000, 300])
 def test_deblur_tiled_tile_fits_and_covers_the_norm_tiles(n):
-    """The rule's tile is a multiple of the 32x8 norm tiles, its window
-    fits, and no tile of the search with fewer window pixels moved
-    fits."""
+    """The rule's tile is a multiple of the 32x8 norm tiles, its window's
+    two sets of planes fit, and no tile of the search whose two sets fit
+    costs less: its rounds and one more (a block's first window, whose
+    loads nothing hides) times its window's pixels and 500 (a window's
+    barriers and set-up)."""
     nx2, _, ny2, taps = _config2(n)
     tx, ty = td.deblur_tiled_tile(nx2, ny2, taps, H100_SMS, H100_SMEM)
     assert tx % 8 == 0 and ty % 32 == 0
@@ -336,8 +340,8 @@ def test_deblur_tiled_tile_fits_and_covers_the_norm_tiles(n):
     h = 2 * td.deblur_tiled_halo(taps)
 
     def cost(a, b):
-        rounds = -(-(-(-nx2 // a) * -(-ny2 // b)) // H100_SMS)
-        return rounds * (min(a, nx2) + h) * (min(b, ny2) + h)
+        rounds = -(-(-(-nx2 // a) * -(-ny2 // b)) // H100_SMS) + 1
+        return rounds * ((min(a, nx2) + h) * (min(b, ny2) + h) + 500)
 
     best = cost(tx, ty)
     for a in range(8, 257, 8):
@@ -348,12 +352,99 @@ def test_deblur_tiled_tile_fits_and_covers_the_norm_tiles(n):
 
 
 def test_deblur_tiled_bytes_count_the_window():
-    """Five planes of the tile and reach + 1 pixels each way (config 2's
-    motion blur: reach 7); at least the norm pass's four 32x8 trees."""
+    """Nine planes of the tile and reach + 1 pixels each way (config 2's
+    motion blur: reach 7; a single tap: the gradient's 1) where they fit:
+    x after the primal step and two sets of the loaded x, yv, q_x and
+    q_y; else five (one set); nothing else: the norm pass reduces in
+    registers."""
     taps = _taps(motion_kernel())
     assert td.deblur_tiled_halo(taps) == 8
-    assert td.deblur_tiled_bytes(104, 64, taps) == 4 * 5 * 120 * 80
-    assert td.deblur_tiled_bytes(8, 32, ((0, 0, 1.0),)) == 4 * 4 * 4 * 256
+    assert td.deblur_tiled_bytes(48, 64, taps, H100_SMEM) == 4 * 9 * 64 * 80
+    assert td.deblur_tiled_bytes(104, 64, taps) == 4 * 9 * 120 * 80
+    assert td.deblur_tiled_bytes(104, 64, taps, H100_SMEM) == \
+        4 * 5 * 120 * 80
+    assert td.deblur_tiled_bytes(8, 32, ((0, 0, 1.0),)) == 4 * 9 * 12 * 36
+
+
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_deblur_rule_takes_the_tiled_launch_for_any_tap_count(n):
+    """The rule is a function of the window's size, not of the tap count:
+    full k x k blurs of 1 to 81 taps and 96 taps (the most the kernels
+    take) go to the tiled launch at 1024x1024 and 2048x2048 (on the card
+    the tiled chunk beat the streaming sequence at 7, 9, 25, 49 and 81
+    taps, tools/deblur_tiled_probe.py); each window's two sets of planes
+    fit to a reach of 29, one set beyond."""
+    for k in range(1, 10):
+        taps = _taps(dense_kernel(k))
+        assert len(taps) == k * k
+        nx2 = n + k - 1
+        assert td.deblur_route_of(nx2, n, nx2, taps, H100_SMS, H100_SMEM,
+                                  H100_SMEM) == "tiled"
+    many = tuple((i // 10, i % 10, 0.01) for i in range(96))
+    assert td.deblur_route_of(n + 9, n, n + 9, many, H100_SMS, H100_SMEM,
+                              H100_SMEM) == "tiled"
+    for shift, two in ((29, True), (30, False)):
+        taps = ((0, 0, 0.5), (shift, shift, 0.5))
+        tile = td.deblur_tiled_tile(n + shift, n + shift, taps, H100_SMS,
+                                    H100_SMEM)
+        nbytes = td.deblur_tiled_bytes(*tile, taps, H100_SMEM)
+        assert nbytes <= H100_SMEM
+        assert (nbytes == td.deblur_tiled_bytes(*tile, taps)) == two
+
+
+def _inner_sound(nx, ny, nx2, ny2, tile, taps, off, nxg):
+    """Every stencil read of an interior window of the tiled launch exists,
+    so that its untested stencils read what the masked ones read: the
+    window's loads inside the planes and the image; at its primal pixels
+    (rows and columns [R0 - reach, R1], [C0 - reach, C1]) an image pixel
+    with all four neighbours and yv's reach below; at its owned pixels an
+    image pixel with a neighbour below and right whose conv reads (reach
+    up and left) are image pixels.  Returns the interior windows."""
+    h = td.deblur_tiled_halo(taps)
+    reach = h - 1
+    inner, edge = td.deblur_tiled_windows(nx, ny, nx2, ny2, tile, h, off,
+                                          nxg)
+    assert len(inner) + len(edge) == -(-nx2 // tile[0]) * -(-ny2 // tile[1])
+
+    def image(i):
+        return i < nx and 0 <= i + off < nxg
+
+    for R0, C0 in inner:
+        R1, C1 = min(R0 + tile[0], nx2), min(C0 + tile[1], ny2)
+        assert all(0 <= i < nx and image(i) for i in range(R0 - h, R1 + h))
+        assert all(0 <= j < ny for j in range(C0 - h, C1 + h))
+        for i in range(R0 - reach, R1 + 1):  # primal rows
+            assert image(i) and i > 0 and i + off > 0
+            assert i < nx - 1 and i + off < nxg - 1 and i + reach < nx2
+        assert all(0 < j < ny - 1 for j in range(C0 - reach, C1 + 1))
+        for i in range(R0, R1):  # owned rows and their conv reads
+            assert image(i) and i < nx - 1 and i + off < nxg - 1
+            assert all(a >= 0 and image(a) for a in range(i - reach, i + 1))
+        assert all(0 <= j - reach and j < ny - 1 for j in range(C0, C1))
+    return inner
+
+
+@pytest.mark.parametrize("kernel,nx,ny,tile,off,nxg,n_inner", [
+    ("motion", 2048, 2048, (104, 64), 0, None, 540),  # config 2
+    ("asym5", 70, 53, (16, 32), 0, None, 0),
+    ("asym3", 150, 200, (16, 32), 0, None, 40),
+    ("motion", 9, 300, (8, 32), 0, None, 0),          # a strip: edges only
+    ("asym5", 60, 200, (16, 32), -10, 100, 10),       # a band above row 0
+    ("asym5", 60, 200, (8, 32), 70, 100, 10),         # a band past the last
+    ("asym5", 60, 200, (8, 32), 20, 100, 25)])        # a band inside
+def test_deblur_tiled_interior_windows_are_sound(kernel, nx, ny, tile, off,
+                                                 nxg, n_inner):
+    """The windows the tiled launch runs untested
+    (``deblur_tiled_windows``): every read of their stencils exists, on
+    the whole plane and on halo bands (local rows beyond the image's first
+    or last row); config 2 at 2048x2048 runs 540 of its 660 untested."""
+    kern = KERNELS[kernel]()
+    taps = _taps(kern)
+    nx2 = nx + (kern.shape[1] - 1 if nxg is None else 0)
+    ny2 = ny + kern.shape[0] - 1
+    nxg = nx if nxg is None else nxg
+    assert len(_inner_sound(nx, ny, nx2, ny2, tile, taps, off, nxg)) == \
+        n_inner
 
 
 def test_cpu_wrappers_take_the_tiled_path_name():
