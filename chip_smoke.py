@@ -3618,7 +3618,7 @@ def phase_tiled_rof(dev):
     sweep = {}
     for tile in (rule, (64, 64), (32, 64), (64, 32), (128, 32), (32, 128),
                  (48, 96), (16, 224), (144, 64)):
-        if fr.tiled_bytes(*tile, ri) > tsmem or tile in sweep:
+        if not fr.tiled_fits(*tile, ri, "square", tsmem) or tile in sweep:
             continue
         cur, prev = [x.clone(), q.clone()], [x.clone(), q.clone()]
         sc = scalar_buffer(scal, 5, S_CONV, S_LEN)

@@ -94,6 +94,7 @@
 
 #include <cooperative_groups.h>
 
+#include "cp_async.cuh"
 #include "pdhg_chunk.cuh"
 
 namespace {
@@ -175,26 +176,33 @@ __global__ void rof_seed(Planes b) {
 
 // The primal prox at one pixel (_rof_update, first half, with the data
 // term hoisted as in _hoist_dataterm): x_new from x, K^T q and the pixel's
-// f and w (w is used for wsquare only).
+// f and w (w is used for wsquare only), given tl = tau * lmb and, for the
+// square data term, dt1 = 1 / (1 + tl) (the same for every pixel: a loop
+// forms them once).
 __device__ __forceinline__ float primal_at(float xv, float kty, float fv,
-                                           float wv, float tau, float lmb,
-                                           int dataterm) {
+                                           float wv, float tau, float tl,
+                                           float dt1, int dataterm) {
   float arg = xv - tau * kty;
   if (dataterm == DT_SQUARE) {
-    float dt0 = (tau * lmb) * fv;
-    float dt1 = 1.f / (1.f + tau * lmb);
+    float dt0 = tl * fv;
     return (arg + dt0) * dt1;
   }
   if (dataterm == DT_WSQUARE) {
-    float tw = (tau * lmb) * wv;
+    float tw = tl * wv;
     float dt0 = tw * fv;
-    float dt1 = 1.f / (1.f + tw);
-    return (arg + dt0) * dt1;
+    float dt1w = 1.f / (1.f + tw);
+    return (arg + dt0) * dt1w;
   }
   // abs: soft shrink toward f as arg - clamp(arg - f, -t, t)
-  float t = tau * lmb;
   float d = arg - fv;
-  return arg - fminf(fmaxf(d, -t), t);
+  return arg - fminf(fmaxf(d, -tl), tl);
+}
+
+__device__ __forceinline__ float primal_at(float xv, float kty, float fv,
+                                           float wv, float tau, float lmb,
+                                           int dataterm) {
+  const float tl = tau * lmb;
+  return primal_at(xv, kty, fv, wv, tau, tl, 1.f / (1.f + tl), dataterm);
 }
 
 // The dual step at one pixel (_rof_update, second half): q <- proj_{|.|<=r}
@@ -1106,38 +1114,74 @@ Planes planes_of(void* x, void* q, void* xp, void* qp, void* g, void* gp,
 // iteration through device memory (23 launches a chunk), a working set
 // twice the 50 MB L2.  Rows cannot be the unit here: one 2048-wide row of
 // the state is 40-48 KB, and a block has at most 227 KB of shared memory.
+// Within a block the iterations are bound by instruction issue and shared
+// memory, not by device memory (PERF.md: an iteration of a round of
+// windows costs several times the window's loads).
 //
 // Design.  One launch a chunk over overlapping 2-D windows, a block each
-// (TL_THREADS threads, 32 to a row of the window): block (bi, bj) owns the
-// tile of rows [bi tx, bi tx + tx) and columns [bj ty, bj ty + ty) (tx a
-// multiple of 8, ty of 32, so every 32x8 norm tile lies in one block) and
-// loads its window, the tile with TL_LEAD = count + 1 rows and columns
-// above and left of it and count below and right of it (clamped at the
-// plane's edges), into dynamic shared memory.  The halo is the least that
-// keeps the owned pixels exact (tests/test_torch_tiled_rof.py holds the
-// plain twin exact with it and not with one less on either side): the
-// primal half-step reads q one row up and one column left, the dual
-// half-step the new x one row down and one column right, so a window side
-// that is not the plane's edge spoils one more pixel of x and q per
-// iteration on each side (q_k and x_k are exact from k below a top edge,
-// q_k to k and x_k to k - 1 above a bottom edge), and the norms' K^T q of
-// the new dual reads one row more above.  Each half-step computes only the
-// pixels still exact, so the work shrinks from the window toward the tile.
-// Every row and column mask is decided by the pixel's place in the plane
-// (the row context RowCtx of a halo band included), never by its place in
-// the window; where the window ends inside the plane the neighbour is
-// taken as 0, which only pixels outside the exact region read.
-// The window holds x twice, the iterate before and after the primal step
-// (so the dual step recomputes grad x_old, bit-equal to the carried g of
-// the streaming sequence, instead of holding two gradient planes), q_x,
-// q_y, f and wsquare's w: 5 planes (6 with w).  The aligned iteration
-// writes x_prev and q_prev of the owned pixels, keeps w_hat in f's place,
-// takes the dual step of the owned pixels 32x8 tile by tile (a warp a
-// tile, a lane a column) with the |pd|^2 and |z_hat|^2 terms in
-// registers, and after a barrier |dd|^2 and |w_hat|^2: each tile's four
-// sums in block_partials' tree (tile_sum) into the streaming grid's
-// partials, which pdhg_finish reduces as before, so the norms are the
-// streaming sequence's bit for bit, as are the planes.
+// (TL_THREADS threads): block (bi, bj) owns the tile of rows [bi tx, bi tx
+// + tx) and columns [bj ty, bj ty + ty) (tx a multiple of 8, ty of 32, so
+// every 32x8 norm tile lies in one block) and loads its window, the tile
+// with TL_LEAD = count + 1 rows and columns above and left of it and count
+// below and right of it (clamped at the plane's edges), into dynamic
+// shared memory by cp.async.  The halo is the least that keeps the owned
+// pixels exact (tests/test_torch_tiled_rof.py holds the plain twin exact
+// with it and not with one less on either side): the primal half-step
+// reads q one row up and one column left, the dual half-step the new x
+// one row down and one column right, so a window side that is not the
+// plane's edge spoils one more pixel of x and q per iteration on each side
+// (q_k and x_k are exact from k below a top edge, q_k to k and x_k to k - 1
+// above a bottom edge), and the norms' K^T q of the new dual reads one row
+// more above.  Each half-step computes only the pixels still exact, so the
+// work shrinks from the window toward the tile.
+// The thread map is fixed for the launch: the window is cut into blocks of
+// 32 columns by TL_K rows, a warp each, and a thread holds one column of
+// its warp's block (its strip) in every half-step, masked by the exact
+// region, not walked over it.  So a thread meets its own pixels again in
+// the next iteration, which lets it carry grad x in registers: the dual
+// step of iteration k makes grad x_k at its pixels, and iteration k + 1's
+// dual step reads it there as grad x_old, as the streaming sequence
+// carries it in g (seeded from the loaded window, as rof_seed seeds g).
+// The window then holds one x, updated in place by the primal step (which
+// reads only its own pixel's x), q_x, q_y, f and wsquare's w: 4 planes (5
+// with w).  Walking a strip downward, the primal step keeps the q_x of the
+// row above and the dual step the x of the row below in registers from
+// the row before.  A plane's rows lie the map's width apart, 32 CB floats
+// (CB, the map's column blocks, a template parameter of rof_tiled), so
+// that the offsets of a strip's rows are immediates: a row stride read at
+// run time held 13 row offsets in registers across the iterations and
+// spilled.  For the same reason the window's place, the row context, the
+// scalars and the instance's output planes live in the head of the
+// block's shared memory (TShared), and only the loops over a strip, whose
+// carry lives in registers, are unrolled.  With the carry's 26 of a
+// thread's 64 registers, little else may stay live across a strip: ptxas
+// shows no spill for any rof_tiled<DT, CB>.  The aligned step rereads its
+// scalars from the head at each pixel, and the planes lie a whole tile's
+// window apart, a stride formed from the launch's parameters rather than
+// from the window's own rows: neither is needed to keep ptxas from
+// spilling, but together they measured 3-8% faster on an H100 at
+// 2048x2048, on the halo band, in the multichunk and at B = 4 (PERF.md).
+// A window none of whose stencils meets an edge (its sides inside the
+// plane, and for a halo band inside the global plane's rows with the dead
+// q_x row beyond it: 540 of 640 windows at 2048x2048) runs the stencils
+// with no test; in the others each stencil tests one bit of its strip's
+// edge mask (TStrip::edges), formed once a launch from the pixel's place
+// in the plane (the row context RowCtx of a halo band included) and in
+// the window (where the window ends inside the plane the neighbour is
+// taken as 0, which only pixels outside the exact region read).  Every
+// read of a stencil lies in the block's shared memory, so a neighbour
+// beyond the window is read and then dropped by the test.
+// The aligned iteration's primal step writes x_prev and q_prev of the
+// owned pixels and parks their w_hat in x2, the chunk's output x, which
+// the write-out reads back before it writes x there; its dual step puts
+// |pd|^2 in f's place and |z_hat|^2 in the carry; then x and q go out,
+// |dd|^2 and |w_hat|^2 are formed from K^T q of the new dual, and the
+// four terms take the places of f, x, q_x and q_y in shared memory
+// (owned rows and pixels tested by the strip's bit masks,
+// TStrip::owned), whence each 32x8 tile of the owned pixels is summed in
+// block_partials' tree (tile_sum) into the streaming grid's partials,
+// which pdhg_finish reduces as before: the norms are the streaming
+// sequence's bit for bit, as are the planes.
 // Windows overlap, so a launch reads (x, q) and writes (x2, q2): a chunk
 // is the tiled launch, pdhg_finish and a copy of (x2, q2) back into (x, q)
 // unless the flag was set (rof_tiled_settle); a multichunk alternates the
@@ -1147,9 +1191,9 @@ Planes planes_of(void* x, void* q, void* xp, void* qp, void* g, void* gp,
 // returns at once.
 // The batched chunk (rof_fused_chunk_banded_batched, and row 4's
 // rof_fused_chunk_batched for instances that no cluster of 8 holds) is the
-// same launch with the instance on blockIdx.z (tiled_instance): each block
-// reads its instance's scalars, planes and norm partials, so instance b is
-// the single-instance launch on instance b alone, bit for bit; one
+// same launch with the instance on blockIdx.z: each block reads
+// its instance's scalars, planes and norm partials, so instance b is the
+// single-instance launch on instance b alone, bit for bit; one
 // pdhg_finish block an instance, and the copy back gated by each
 // instance's flag (rof_tiled_settle, z over the instances), so a flagged
 // instance keeps x, q, x_prev and q_prev.  One launch of B instances runs
@@ -1157,8 +1201,11 @@ Planes planes_of(void* x, void* q, void* xp, void* qp, void* g, void* gp,
 // rule counts (ops/fused_rof.py tiled_tile with its batch).
 // ---------------------------------------------------------------------------
 
-constexpr int TL_THREADS = 1024;  // a block: 32 rows of 32 threads
-constexpr int TL_ROWS = TL_THREADS / BX;
+constexpr int TL_THREADS = 1024;  // a block: 32 warps
+constexpr int TL_WARPS = TL_THREADS / BX;
+constexpr int TL_K = 13;       // rows of a thread's strip
+constexpr int TL_MAX_CB = 6;   // blocks of 32 columns of a window's map
+constexpr int TL_HEAD = 40;    // floats of the block's TShared
 
 struct Tiled {
   const float *x, *q;  // the chunk's input: (B, nx, ny), (B, 2, nx, ny)
@@ -1173,30 +1220,47 @@ struct Tiled {
   int tx, ty;  // the owned tile's rows (a multiple of 8) and columns (32)
 };
 
-// Planes of a window in shared memory: x before and after a primal step,
-// q_x, q_y, f and wsquare's w.
+// Planes of a window in shared memory: x, q_x, q_y, f and wsquare's w.
 inline int tiled_planes(int dataterm) {
-  return dataterm == DT_WSQUARE ? 6 : 5;
+  return dataterm == DT_WSQUARE ? 5 : 4;
+}
+
+// The blocks of 32 columns of the map of a window `cols` wide.
+__host__ __device__ constexpr int tiled_cb(int cols) {
+  return (cols + BX - 1) / BX;
 }
 
 // The dynamic shared memory of a block of the tiled launch (mirrored by
-// ops/fused_rof.py tiled_bytes).
+// ops/fused_rof.py tiled_bytes): the block's TShared, then the window's
+// planes, each of the tile's rows and 2 count + 1 more, 32 tiled_cb floats
+// apart.
 inline size_t tiled_smem(int tx, int ty, int count, int dataterm) {
-  const size_t h = 2 * (size_t)count + 1;
-  return (size_t)tiled_planes(dataterm) * (tx + h) * (ty + h) *
-         sizeof(float);
+  const int h = 2 * count + 1;
+  return ((size_t)tiled_planes(dataterm) * (tx + h) * (BX * tiled_cb(ty + h))
+          + TL_HEAD) * sizeof(float);
+}
+
+// Whether the thread map of a tx x ty tile's window (the halo of a
+// `count`-iteration chunk) fits the block: at most TL_MAX_CB blocks of 32
+// columns, and one warp for each block of 32 columns by TL_K rows
+// (mirrored by ops/fused_rof.py tiled_map).
+inline bool tiled_map_ok(int tx, int ty, int count) {
+  const int h = 2 * count + 1, cb = tiled_cb(ty + h);
+  return cb <= TL_MAX_CB && cb * ((tx + h + TL_K - 1) / TL_K) <= TL_WARPS;
 }
 
 // A window: rows [r0, r0 + wh) and columns [c0, c0 + ww) of the plane,
-// whether each side is the plane's edge, and the owned tile in window
-// coordinates.
+// whether each side is the plane's edge, the owned tile in window
+// coordinates, and whether no stencil of its exact regions meets an edge
+// of the plane or of the window (`inner`).
 struct TWin {
   int r0, c0, wh, ww;
-  bool top, bot, left, right;
+  bool top, bot, left, right, inner;
   int oi0, oi1, oj0, oj1;
 };
 
-__device__ __forceinline__ TWin tiled_window(const Tiled& a) {
+__device__ __forceinline__ TWin tiled_window(const Tiled& a,
+                                             const RowCtx& r) {
   TWin v;
   const int lead = a.count + 1, trail = a.count;
   const int R0 = blockIdx.y * a.tx, C0 = blockIdx.x * a.ty;
@@ -1210,6 +1274,11 @@ __device__ __forceinline__ TWin tiled_window(const Tiled& a) {
   v.left = v.c0 == 0;
   v.bot = r1 == a.nx;
   v.right = c1 == a.ny;
+  // rows r0 + 1 .. r1 - 1, which the exact regions keep to, all have a
+  // row above in the plane and rows up to r1 - 2 one below, none is the
+  // global last (dead q_x) row; columns likewise
+  v.inner = !v.top && !v.bot && !v.left && !v.right && v.r0 + r.off >= 1 &&
+            r1 + r.off <= r.nxg - 1;
   v.oi0 = R0 - v.r0;
   v.oi1 = R1 - v.r0;
   v.oj0 = C0 - v.c0;
@@ -1217,26 +1286,19 @@ __device__ __forceinline__ TWin tiled_window(const Tiled& a) {
   return v;
 }
 
-// The buffers of this block's instance (blockIdx.z; 0 for one instance):
-// every plane moved by its per-instance size with 64-bit offsets, the
-// scalars by S_LEN, the norm partials by the plane's 32x8 tiles
-// (prost_rof_num_blocks: the stride pdhg_finish reads, not the launch's
-// block count).
-__device__ __forceinline__ Tiled tiled_instance(Tiled a) {
-  const size_t z = blockIdx.z, n = (size_t)a.nx * a.ny;
-  const dim3 g = grid_of(a.nx, a.ny);
-  a.x += z * n;
-  a.x2 += z * n;
-  a.xp += z * n;
-  a.f += z * n;
-  a.w += z * n;
-  a.q += 2 * z * n;
-  a.q2 += 2 * z * n;
-  a.qp += 2 * z * n;
-  a.sc += z * S_LEN;
-  a.partial += z * 4 * (size_t)g.x * g.y;
-  return a;
-}
+// What a block's threads share, in the head of its dynamic shared memory
+// (so that no register holds it across the iterations): the window, the
+// row context, the launch's scalars and the planes of its instance that
+// the aligned iteration writes (x_prev, q_prev, and the chunk's x and q in
+// the scratch).
+struct TShared {
+  TWin v;
+  RowCtx r;
+  RofStep k;
+  float *xp, *qpx, *qpy, *x2, *q2x, *q2y;
+};
+static_assert(sizeof(TShared) <= TL_HEAD * sizeof(float),
+              "TShared outgrows the head of the tiled launch's shared memory");
 
 // The pixels of iteration k's x (q_k with `dual`) that are still exact:
 // rows [lo, hi) and columns [clo, chi) of the window.
@@ -1251,56 +1313,296 @@ __device__ __forceinline__ TRegion exact_region(const TWin& v, int k,
                  v.left ? 0 : k, v.right ? v.ww : v.ww - trail};
 }
 
-// The shared-memory planes of a window, row stride ww.
-struct TPlanes {
-  float *x[2], *qx, *qy, *f, *w;
+// A thread's strip of the map of CB column blocks: rows [wr, wr + TL_K)
+// of window column wc.  The window's planes x, q_x, q_y, f and w lie m
+// floats apart in the block's shared memory from TL_HEAD (so that a
+// neighbour one row or column beyond a plane's pixels lies in the shared
+// memory before or after it), their rows S = 32 CB floats apart; row k
+// of the strip in plane P, column dc right of its own, is at(P, k, dc): a
+// 32-bit offset from the strip's first pixel of x, o, and an immediate.
+// Rows [k0, k1) of the strip lie in a region (none where its column does
+// not).
+enum { TP_X = 0, TP_QX = 1, TP_QY = 2, TP_F = 3, TP_W = 4 };
+
+template <int CB>
+struct TStrip {
+  static constexpr int S = BX * CB;
+  int o, m;
+
+  __device__ __forceinline__ explicit TStrip(int m_) : m(m_) {
+    o = TL_HEAD + wr() * S + wc();
+  }
+  __device__ __forceinline__ int wr() const {
+    return (int)threadIdx.x / BX / CB * TL_K;
+  }
+  __device__ __forceinline__ int wc() const {
+    return (int)threadIdx.x / BX % CB * BX + (int)threadIdx.x % BX;
+  }
+  __device__ __forceinline__ float& at(int plane, int k, int dc = 0) const {
+    extern __shared__ float smem[];
+    return smem[o + plane * m + k * S + dc];
+  }
+  __device__ __forceinline__ void rows(const TRegion& e, int& k0,
+                                       int& k1) const {
+    const int r = wr(), c = wc();
+    k0 = max(e.lo - r, 0);
+    k1 = min(e.hi - r, TL_K);
+    if (c < e.clo || c >= e.chi) k1 = 0;
+  }
+  // The strip's rows in the owned tile, bit k for row k (none where its
+  // column is not); with `terms` only those whose norm terms count (a halo
+  // band's own rows, owned_row).  The aligned iteration tests these bits,
+  // so that no bound of the tile or of the row context holds a register.
+  __device__ __forceinline__ unsigned owned(const TShared& sh,
+                                            bool terms) const {
+    const TWin& v = sh.v;
+    const int c = wc();
+    if (c < v.oj0 || c >= v.oj1) return 0u;
+    int lo = v.oi0, hi = v.oi1;
+    if (terms) {
+      lo = max(lo, sh.r.own_lo - v.r0);
+      hi = min(hi, sh.r.own_hi - v.r0);
+    }
+    lo = max(lo - wr(), 0);
+    hi = min(hi - wr(), TL_K);
+    return hi > lo ? ((1u << hi) - 1u) & ~((1u << lo) - 1u) : 0u;
+  }
+  // The offset of the strip's first pixel in its instance's planes.
+  __device__ __forceinline__ size_t first(const TShared& sh, int ny) const {
+    return (size_t)(sh.v.r0 + wr()) * ny + sh.v.c0 + wc();
+  }
+  // For a window whose stencils test their neighbours: which neighbours of
+  // the strip's pixels lie in the plane and in the window, by the pixel's
+  // place in the plane (a halo band's row context included): bit k, row k
+  // has a row above (K^T q reads it); bit TL_K + k, a row below (grad x);
+  // bit 2 TL_K, the strip's column has one to its left; bit 2 TL_K + 1,
+  // one to its right.  The map is fixed for the launch, so these are
+  // formed once, and a stencil tests one bit: no row or column index
+  // holds a register across the iterations.
+  __device__ __forceinline__ unsigned edges(const TShared& sh, int nx,
+                                            int ny) const {
+    const TWin& v = sh.v;
+    const RowCtx r = sh.r;
+    const int c = wc(), j = v.c0 + c;
+    unsigned e = 0u;
+#pragma unroll
+    for (int k = 0; k < TL_K; ++k) {
+      const int wi = wr() + k, i = v.r0 + wi;
+      if (wi > 0 && has_above(r, i)) e |= 1u << k;
+      if (wi < v.wh - 1 && has_below(r, i, nx)) e |= 1u << (TL_K + k);
+    }
+    if (c > 0 && j > 0) e |= 1u << (2 * TL_K);
+    if (c < v.ww - 1 && j < ny - 1) e |= 1u << (2 * TL_K + 1);
+    return e;
+  }
 };
+static_assert(2 * TL_K + 2 <= 32, "a strip's edge bits outgrow a word");
 
-// K^T q at window pixel p (plane pixel (i, j)), as kty_at, the neighbour
-// above or left taken as 0 where the window ends inside the plane.
-__device__ __forceinline__ float kty_tile(const TPlanes& s, const TWin& v,
-                                          const RowCtx& r, int wi, int wj,
-                                          int i, int j, int p) {
-  float lx = wi > 0 && has_above(r, i) ? s.qx[p - v.ww] : 0.f;
-  float ly = wj > 0 && j > 0 ? s.qy[p - 1] : 0.f;
-  return (lx - s.qx[p]) + (ly - s.qy[p]);
+// K^T q at row k of a strip from the q_x above it (`up`), as kty_at; with
+// EDGE the neighbours above and left taken as 0 where the strip's edge
+// bits `e` (TStrip::edges) say that the plane, or the window, has none.
+template <bool EDGE, int CB>
+__device__ __forceinline__ float kty_tile(const TStrip<CB>& t, unsigned e,
+                                          float up, int k) {
+  const float lx = !EDGE || (e >> k & 1u) ? up : 0.f;
+  const float ly =
+      !EDGE || (e >> (2 * TL_K) & 1u) ? t.at(TP_QY, k, -1) : 0.f;
+  return (lx - t.at(TP_QX, k)) + (ly - t.at(TP_QY, k));
 }
 
-// grad u at window pixel p, as rof_dual computes it, the neighbour below or
-// right taken as 0 where the window ends inside the plane.
-__device__ __forceinline__ void grad_tile(const float* u, const TWin& v,
-                                          const RowCtx& r, int nx, int ny,
-                                          int wi, int wj, int i, int j,
-                                          int p, float& gx, float& gy) {
-  const float uv = u[p];
-  gx = wi < v.wh - 1 && has_below(r, i, nx) ? u[p + v.ww] - uv : 0.f;
-  gy = wj < v.ww - 1 && j < ny - 1 ? u[p + 1] - uv : 0.f;
+// grad x at row k of a strip from x there (`xc`) and below it (`xb`), as
+// rof_dual computes it; with EDGE the neighbours below and right taken as
+// 0 where the plane, or the window, has none.
+template <bool EDGE, int CB>
+__device__ __forceinline__ void grad_tile(const TStrip<CB>& t, unsigned e,
+                                          float xc, float xb, int k,
+                                          float& gx, float& gy) {
+  gx = !EDGE || (e >> (TL_K + k) & 1u) ? xb - xc : 0.f;
+  gy = !EDGE || (e >> (2 * TL_K + 1) & 1u) ? t.at(TP_X, k, 1) - xc : 0.f;
 }
 
-// One dual step at window pixel p from x_new (xn) and x_old (xo), q in
-// place; returns the old and new duals and gradients for the norms.
-__device__ __forceinline__ void dual_tile(const TPlanes& s, const float* xo,
-                                          const float* xn, const TWin& v,
-                                          const RowCtx& r, const RofStep& k,
-                                          int nx, int ny, int wi, int wj,
-                                          int i, int j, int p, float* o) {
-  float gxn, gyn, gx, gy, qxn, qyn;
-  grad_tile(xn, v, r, nx, ny, wi, wj, i, j, p, gxn, gyn);
-  grad_tile(xo, v, r, nx, ny, wi, wj, i, j, p, gx, gy);
-  const float qx = s.qx[p], qy = s.qy[p];
-  dual_at(qx, qy, gxn, gyn, gx, gy, k.sig_p, k.sig_t, k.radius, qxn, qyn);
-  s.qx[p] = qxn;
-  s.qy[p] = qyn;
-  if (o) {
-    o[0] = qx, o[1] = qy, o[2] = qxn, o[3] = qyn;
-    o[4] = gxn, o[5] = gyn, o[6] = gx, o[7] = gy;
+// grad x of the loaded window at the strip's pixels of iteration 1's dual
+// region (rof_seed's g), into the carry.
+template <bool EDGE, int CB>
+__device__ __forceinline__ void seed_strip(const TShared& sh,
+                                           const TStrip<CB>& t, unsigned e,
+                                           float (&gx)[TL_K],
+                                           float (&gy)[TL_K]) {
+  int k0, k1;
+  t.rows(exact_region(sh.v, 1, true), k0, k1);
+  if (k0 >= k1) return;
+#pragma unroll
+  for (int k = 0; k < TL_K; ++k) {
+    if (k < k0 || k >= k1) continue;
+    grad_tile<EDGE>(t, e, t.at(TP_X, k), t.at(TP_X, k + 1), k, gx[k],
+                    gy[k]);
+  }
+}
+
+// rof_primal at the strip's pixels of iteration `it`'s region, x in place;
+// with LAST (the aligned step) x_prev and q_prev (the dual before the
+// aligned step, which this one reads) out at the owned pixels, and their
+// w_hat kept in the chunk's output x (x2), which out_strip reads back
+// before it writes x there: so f's place is free for the dual step's
+// |pd|^2, which then holds no register across the barrier.
+template <int DT, bool EDGE, bool LAST, int CB>
+__device__ __forceinline__ void primal_strip(const TShared& sh,
+                                             const Tiled& a,
+                                             const TStrip<CB>& t, unsigned e,
+                                             int it) {
+  int k0, k1;
+  t.rows(exact_region(sh.v, it, false), k0, k1);
+  if (k0 >= k1) return;
+  const float tau0 = LAST ? 0.f : sh.k.tau, tl0 = tau0 * sh.k.lmb;
+  const float dt10 = DT == DT_SQUARE && !LAST ? 1.f / (1.f + tl0) : 0.f;
+  const unsigned own = LAST ? t.owned(sh, false) : 0u;
+  const size_t g0 = LAST ? t.first(sh, a.ny) : 0;
+  float up = t.at(TP_QX, k0 - 1);  // read, and dropped at window row 0
+#pragma unroll
+  for (int k = 0; k < TL_K; ++k) {
+    if (k < k0 || k >= k1) continue;
+    const float tau = LAST ? sh.k.tau : tau0;
+    const float tl = LAST ? tau * sh.k.lmb : tl0;
+    const float dt1 = LAST && DT == DT_SQUARE ? 1.f / (1.f + tl) : dt10;
+    const float kty = kty_tile<EDGE>(t, e, up, k);
+    up = t.at(TP_QX, k);
+    const float xv = t.at(TP_X, k);
+    const float xn = primal_at(xv, kty, t.at(TP_F, k),
+                               DT == DT_WSQUARE ? t.at(TP_W, k) : 0.f, tau,
+                               tl, dt1, DT);
+    if (LAST && (own >> k & 1u)) {
+      const size_t g = g0 + (size_t)k * a.ny;
+      sh.xp[g] = xv;
+      sh.qpx[g] = up;
+      sh.qpy[g] = t.at(TP_QY, k);
+      sh.x2[g] = w_hat(xv, xn, kty, sh.k.inv_t);
+    }
+    t.at(TP_X, k) = xn;
+  }
+}
+
+// rof_dual at the strip's pixels of iteration `it`'s region, q in place,
+// grad x_old from the carry and grad x_new into it; with LAST (the aligned
+// step) the |pd|^2 and |z_hat|^2 terms of the owned pixels (0 off the
+// owned rows) into f's place and into the carry, in place of the
+// gradient.
+template <bool EDGE, bool LAST, int CB>
+__device__ __forceinline__ void dual_strip(const TShared& sh,
+                                           const TStrip<CB>& t, unsigned e,
+                                           int it, float (&gx)[TL_K],
+                                           float (&gy)[TL_K]) {
+  int k0, k1;
+  t.rows(exact_region(sh.v, it, true), k0, k1);
+  if (k0 >= k1) return;
+  const float sig_p0 = LAST ? 0.f : sh.k.sig_p;
+  const float sig_t0 = LAST ? 0.f : sh.k.sig_t;
+  const float radius0 = LAST ? 0.f : sh.k.radius;
+  const unsigned term = LAST ? t.owned(sh, true) : 0u;
+  float xc = t.at(TP_X, k0);
+#pragma unroll
+  for (int k = 0; k < TL_K; ++k) {
+    if (k < k0 || k >= k1) continue;
+    const float xb = t.at(TP_X, k + 1);
+    float gxn, gyn, qxn, qyn;
+    grad_tile<EDGE>(t, e, xc, xb, k, gxn, gyn);
+    xc = xb;
+    const float qx = t.at(TP_QX, k), qy = t.at(TP_QY, k);
+    dual_at(qx, qy, gxn, gyn, gx[k], gy[k], LAST ? sh.k.sig_p : sig_p0,
+            LAST ? sh.k.sig_t : sig_t0, LAST ? sh.k.radius : radius0, qxn,
+            qyn);
+    t.at(TP_QX, k) = qxn;
+    t.at(TP_QY, k) = qyn;
+    if (!LAST) {
+      gx[k] = gxn;
+      gy[k] = gyn;
+      continue;
+    }
+    float pd2 = 0.f, zh2 = 0.f;
+    if (term >> k & 1u)
+      dual_terms(qx, qy, qxn, qyn, gxn, gyn, gx[k], gy[k], sh.k.inv_s,
+                 sh.k.theta, pd2, zh2);
+    t.at(TP_F, k) = pd2;
+    gy[k] = zh2;
+  }
+}
+
+// After the aligned step: the owned pixels of x and q out, and their
+// |dd|^2 and |w_hat|^2 terms from w_hat (read back from x2 first) and K^T
+// q of the new dual (0 off the owned rows); |z_hat|^2 from the carry into
+// x's place, the new terms into the carry.
+template <bool EDGE, int CB>
+__device__ __forceinline__ void out_strip(const TShared& sh, const Tiled& a,
+                                          const TStrip<CB>& t, unsigned e,
+                                          float (&gx)[TL_K],
+                                          float (&gy)[TL_K]) {
+  const unsigned own = t.owned(sh, false);
+  if (!own) return;
+  const unsigned term = t.owned(sh, true);
+  const size_t g0 = t.first(sh, a.ny);
+#pragma unroll
+  for (int k = 0; k < TL_K; ++k) {
+    if (!(own >> k & 1u)) continue;
+    const size_t g = g0 + (size_t)k * a.ny;
+    const float wh = sh.x2[g];
+    sh.x2[g] = t.at(TP_X, k);
+    sh.q2x[g] = t.at(TP_QX, k);
+    sh.q2y[g] = t.at(TP_QY, k);
+    float dd2 = 0.f, wh2 = 0.f;
+    if (term >> k & 1u) {
+      const float dd =
+          wh + SQRT_T * kty_tile<EDGE>(t, e, t.at(TP_QX, k - 1), k);
+      dd2 = dd * dd;
+      wh2 = wh * wh;
+    }
+    t.at(TP_X, k) = gy[k];
+    gx[k] = dd2;
+    gy[k] = wh2;
+  }
+}
+
+// The iterations of a window after its loads: the seed, count - 1
+// iterations, the aligned one, then the four norm terms of each owned
+// pixel in place of its f (|pd|^2), x (|z_hat|^2), q_x (|dd|^2) and q_y
+// (|w_hat|^2) (EDGE: a window whose stencils test their neighbours, by
+// the strip's edge bits).  Only the loops over a strip, whose carry lives
+// in registers, are unrolled.
+template <int DT, bool EDGE, int CB>
+__device__ __forceinline__ void tiled_steps(const TShared& sh,
+                                            const Tiled& a,
+                                            const TStrip<CB>& t) {
+  const int c = a.count;
+  const unsigned e = EDGE ? t.edges(sh, a.nx, a.ny) : 0u;
+  float gx[TL_K], gy[TL_K];
+#pragma unroll
+  for (int k = 0; k < TL_K; ++k) gx[k] = gy[k] = 0.f;
+  seed_strip<EDGE>(sh, t, e, gx, gy);
+  __syncthreads();  // the primal step writes x in place
+#pragma unroll 1
+  for (int it = 1; it < c; ++it) {
+    primal_strip<DT, EDGE, false>(sh, a, t, e, it);
+    __syncthreads();
+    dual_strip<EDGE, false>(sh, t, e, it, gx, gy);
+    __syncthreads();
+  }
+  primal_strip<DT, EDGE, true>(sh, a, t, e, c);
+  __syncthreads();
+  dual_strip<EDGE, true>(sh, t, e, c, gx, gy);
+  __syncthreads();
+  out_strip<EDGE>(sh, a, t, e, gx, gy);
+  __syncthreads();  // every K^T q of the new dual is read
+  const unsigned own = t.owned(sh, false);
+#pragma unroll
+  for (int k = 0; k < TL_K; ++k) {
+    if (!(own >> k & 1u)) continue;
+    t.at(TP_QX, k) = gx[k];
+    t.at(TP_QY, k) = gy[k];
   }
 }
 
 // The 32x8 tiles of the owned region, a warp a tile: fn(wi, wj, rr, in)
 // for each of the tile's 8 rows rr of the lane's column, `in` whether the
-// pixel lies in the owned region (and so in the plane); then emit(t, gt)
-// with the tile's number in the plane's grid (grid_of), where gt >= 0.
+// pixel lies in the owned region (and so in the plane); then emit(gt) with
+// the tile's number in the plane's grid (grid_of).
 template <class Px, class Emit>
 __device__ __forceinline__ void owned_tiles(const Tiled& a, const TWin& v,
                                             Px fn, Emit emit) {
@@ -1308,7 +1610,7 @@ __device__ __forceinline__ void owned_tiles(const Tiled& a, const TWin& v,
   const int rows = v.oi1 - v.oi0, cols = v.oj1 - v.oj0;
   const int nty = (rows + BY - 1) / BY, ntx = (cols + BX - 1) / BX;
   const int gtx = (a.ny + BX - 1) / BX;
-  for (int t = warp; t < nty * ntx; t += TL_ROWS) {
+  for (int t = warp; t < nty * ntx; t += TL_WARPS) {
     const int sy = t / ntx, sx = t % ntx;
     const int wj = v.oj0 + sx * BX + lane;
 #pragma unroll
@@ -1321,134 +1623,90 @@ __device__ __forceinline__ void owned_tiles(const Tiled& a, const TWin& v,
   }
 }
 
-template <int DT>
-__global__ void __launch_bounds__(TL_THREADS, 1) rof_tiled(Tiled batch) {
-  const Tiled a = tiled_instance(batch);
-  if (a.sc[S_CONV] != 0.f) return;
+// The launch on windows of at most 32 CB columns (tiled_launch picks CB).
+template <int DT, int CB>
+__global__ void __launch_bounds__(TL_THREADS, 1) rof_tiled(Tiled a) {
+  constexpr int S = BX * CB;
+  const float* sc = a.sc + blockIdx.z * (size_t)S_LEN;
+  if (sc[S_CONV] != 0.f) return;
   extern __shared__ float smem[];
+  TShared& sh = *reinterpret_cast<TShared*>(smem);
   const int nx = a.nx, ny = a.ny;
-  const size_t n = (size_t)nx * ny;
-  const RowCtx r = row_ctx(a.sc, nx, a.nxg);
-  const TWin v = tiled_window(a);
-  const int m = v.wh * v.ww;
-  TPlanes s;
-  s.x[0] = smem;
-  s.x[1] = smem + m;
-  s.qx = smem + 2 * m;
-  s.qy = smem + 3 * m;
-  s.f = smem + 4 * m;
-  s.w = DT == DT_WSQUARE ? smem + 5 * m : s.f;
-  const int lane = threadIdx.x % BX, row = threadIdx.x / BX;
-
-  // the window, the dead duals zeroed (rof_seed)
-  for (int wi = row; wi < v.wh; wi += TL_ROWS)
-    for (int wj = lane; wj < v.ww; wj += BX) {
-      const int i = v.r0 + wi, j = v.c0 + wj, p = wi * v.ww + wj;
-      const size_t g = (size_t)i * ny + j;
-      s.x[0][p] = a.x[g];
-      s.qx[p] = dead_row(r, i) ? 0.f : a.q[g];
-      s.qy[p] = j == ny - 1 ? 0.f : a.q[n + g];
-      s.f[p] = a.f[g];
-      if (DT == DT_WSQUARE) s.w[p] = a.w[g];
+  {
+    const RowCtx r = row_ctx(sc, nx, a.nxg);
+    const TWin v = tiled_window(a, r);
+    if (threadIdx.x == 0) {
+      const size_t n = (size_t)nx * ny, z = blockIdx.z;
+      sh.v = v;
+      sh.r = r;
+      sh.k = rof_step(sc);
+      sh.xp = a.xp + z * n;
+      sh.qpx = a.qp + 2 * z * n;
+      sh.qpy = sh.qpx + n;
+      sh.x2 = a.x2 + z * n;
+      sh.q2x = a.q2 + 2 * z * n;
+      sh.q2y = sh.q2x + n;
     }
-  __syncthreads();
-  const RofStep k = rof_step(a.sc);
-  const int c = a.count;
-  for (int it = 1; it <= c; ++it) {
-    const float* xo = s.x[(it - 1) & 1];
-    float* xn = s.x[it & 1];
-    const bool last = it == c;
-    // rof_primal on the exact pixels; the aligned step also writes x_prev
-    // and keeps w_hat in f's place at the owned pixels
-    const TRegion e = exact_region(v, it, false);
-    for (int wi = e.lo + row; wi < e.hi; wi += TL_ROWS)
-      for (int wj = e.clo + lane; wj < e.chi; wj += BX) {
-        const int i = v.r0 + wi, j = v.c0 + wj, p = wi * v.ww + wj;
-        const float kty = kty_tile(s, v, r, wi, wj, i, j, p);
-        const float xv = xo[p];
-        const float xnv = primal_at(xv, kty, s.f[p],
-                                    DT == DT_WSQUARE ? s.w[p] : 0.f, k.tau,
-                                    k.lmb, DT);
-        if (last && wi >= v.oi0 && wi < v.oi1 && wj >= v.oj0 &&
-            wj < v.oj1) {
-          a.xp[(size_t)i * ny + j] = xv;
-          s.f[p] = w_hat(xv, xnv, kty, k.inv_t);
-        }
-        xn[p] = xnv;
+    // the window by the map's strips, the dead duals zeroed (rof_seed)
+    const TStrip<CB> t((a.tx + 2 * a.count + 1) * S);
+    const int wr = t.wr(), wc = t.wc();
+    if (wc < v.ww) {
+      const size_t n = (size_t)nx * ny, z1 = blockIdx.z * n, z2 = 2 * z1;
+      const int j = v.c0 + wc;
+#pragma unroll 1
+      for (int k = 0; k < TL_K && wr + k < v.wh; ++k) {
+        const size_t g = (size_t)(v.r0 + wr + k) * ny + j;
+        cp_async4(&t.at(TP_X, k), a.x + z1 + g);
+        cp_async4(&t.at(TP_QX, k), a.q + z2 + g);
+        cp_async4(&t.at(TP_QY, k), a.q + z2 + n + g);
+        cp_async4(&t.at(TP_F, k), a.f + z1 + g);
+        if (DT == DT_WSQUARE) cp_async4(&t.at(TP_W, k), a.w + z1 + g);
       }
-    __syncthreads();
-    if (!last) {  // rof_dual on the exact pixels
-      const TRegion d = exact_region(v, it, true);
-      for (int wi = d.lo + row; wi < d.hi; wi += TL_ROWS)
-        for (int wj = d.clo + lane; wj < d.chi; wj += BX)
-          dual_tile(s, xo, xn, v, r, k, nx, ny, wi, wj, v.r0 + wi,
-                    v.c0 + wj, wi * v.ww + wj, nullptr);
-      __syncthreads();
-      continue;
+      cp_async_wait();
+#pragma unroll 1
+      for (int k = 0; k < TL_K && wr + k < v.wh; ++k) {
+        if (dead_row(r, v.r0 + wr + k)) t.at(TP_QX, k) = 0.f;
+        if (j == ny - 1) t.at(TP_QY, k) = 0.f;
+      }
     }
-    // the aligned dual step: the owned pixels tile by tile, q_prev out and
-    // the |pd|^2 and |z_hat|^2 sums; then the row above and the column
-    // left of the tile, which K^T q of the new dual reads
-    float t0[BY], t1[BY];
-    owned_tiles(
-        a, v,
-        [&](int wi, int wj, int rr, bool in) {
-          t0[rr] = t1[rr] = 0.f;
-          if (!in) return;
-          const int i = v.r0 + wi, j = v.c0 + wj;
-          float o[8];
-          dual_tile(s, xo, xn, v, r, k, nx, ny, wi, wj, i, j,
-                    wi * v.ww + wj, o);
-          const size_t g = (size_t)i * ny + j;
-          a.qp[g] = o[0];
-          a.qp[n + g] = o[1];
-          if (owned_row(r, i))
-            dual_terms(o[0], o[1], o[2], o[3], o[4], o[5], o[6], o[7],
-                       k.inv_s, k.theta, t0[rr], t1[rr]);
-        },
-        [&](int gt) {
-          const float s0 = tile_sum(t0), s1 = tile_sum(t1);
-          if (lane == 0) {
-            a.partial[4 * gt + 0] = s0;
-            a.partial[4 * gt + 1] = s1;
-          }
-        });
-    const int above = v.oi0 > 0 ? v.oj1 - v.oj0 : 0;
-    const int left = v.oj0 > 0 ? v.oi1 - v.oi0 : 0;
-    for (int t = threadIdx.x; t < above + left; t += TL_THREADS) {
-      const int wi = t < above ? v.oi0 - 1 : v.oi0 + (t - above);
-      const int wj = t < above ? v.oj0 + t : v.oj0 - 1;
-      dual_tile(s, xo, xn, v, r, k, nx, ny, wi, wj, v.r0 + wi, v.c0 + wj,
-                wi * v.ww + wj, nullptr);
-    }
-    __syncthreads();
   }
-  // the |dd|^2 and |w_hat|^2 sums from K^T q of the new dual, and the owned
-  // pixels of x and q out
-  const float* xc = s.x[c & 1];
-  float t2[BY], t3[BY];
+  __syncthreads();
+  {
+    const TStrip<CB> t((a.tx + 2 * a.count + 1) * S);
+    if (sh.v.inner)
+      tiled_steps<DT, false>(sh, a, t);
+    else
+      tiled_steps<DT, true>(sh, a, t);
+  }
+  __syncthreads();
+
+  // the four terms of each owned 32x8 tile in block_partials' tree
+  const TWin& v = sh.v;
+  const int m = (a.tx + 2 * a.count + 1) * S;
+  const float* planes = smem + TL_HEAD;
+  const dim3 gt = grid_of(nx, ny);
+  float* partial = a.partial + blockIdx.z * 4 * (size_t)gt.x * gt.y;
+  const int lane = threadIdx.x % BX;
+  float t0[BY], t1[BY], t2[BY], t3[BY];
   owned_tiles(
       a, v,
-      [&](int wi, int wj, int rr, bool in) {
-        t2[rr] = t3[rr] = 0.f;
-        if (!in) return;
-        const int i = v.r0 + wi, j = v.c0 + wj, p = wi * v.ww + wj;
-        const size_t g = (size_t)i * ny + j;
-        if (owned_row(r, i)) {
-          const float wh = s.f[p];
-          const float dd = wh + SQRT_T * kty_tile(s, v, r, wi, wj, i, j, p);
-          t2[rr] = dd * dd;
-          t3[rr] = wh * wh;
-        }
-        a.x2[g] = xc[p];
-        a.q2[g] = s.qx[p];
-        a.q2[n + g] = s.qy[p];
+      [&](int wi, int wj, int rr, bool own) {
+        t0[rr] = t1[rr] = t2[rr] = t3[rr] = 0.f;
+        if (!own) return;
+        const int p = wi * S + wj;
+        t0[rr] = planes[p + 3 * m];
+        t1[rr] = planes[p];
+        t2[rr] = planes[p + m];
+        t3[rr] = planes[p + 2 * m];
       },
-      [&](int gt) {
+      [&](int g) {
+        const float s0 = tile_sum(t0), s1 = tile_sum(t1);
         const float s2 = tile_sum(t2), s3 = tile_sum(t3);
         if (lane == 0) {
-          a.partial[4 * gt + 2] = s2;
-          a.partial[4 * gt + 3] = s3;
+          partial[4 * g + 0] = s0;
+          partial[4 * g + 1] = s1;
+          partial[4 * g + 2] = s2;
+          partial[4 * g + 3] = s3;
         }
       });
 }
@@ -1456,10 +1714,13 @@ __global__ void __launch_bounds__(TL_THREADS, 1) rof_tiled(Tiled batch) {
 // (x2, q2) into (x, q) where the chunk left its result there: a chunk
 // (multi 0) whose flag was not set at entry, a multichunk (multi 1) that
 // ran an odd number of chunks; instance blockIdx.z of a batched chunk by
-// its own flag.
-__global__ void rof_tiled_settle(const float* __restrict__ x2,
-                                 const float* __restrict__ q2,
-                                 float* __restrict__ x, float* __restrict__ q,
+// its own flag.  T is float4 where every plane is 16-byte aligned (n, the
+// pixels of a plane, counted in T).  Bound: memory, 3 planes read and 3
+// written.
+template <typename T>
+__global__ void rof_tiled_settle(const T* __restrict__ x2,
+                                 const T* __restrict__ q2,
+                                 T* __restrict__ x, T* __restrict__ q,
                                  const float* __restrict__ sc, size_t n,
                                  int multi) {
   const size_t z = blockIdx.z;
@@ -1482,38 +1743,55 @@ __global__ void rof_tiled_settle(const float* __restrict__ x2,
 
 using TiledKernel = void (*)(Tiled);
 
-TiledKernel tiled_kernel(int dataterm) {
-  return dataterm == DT_SQUARE    ? rof_tiled<DT_SQUARE>
-         : dataterm == DT_WSQUARE ? rof_tiled<DT_WSQUARE>
-                                  : rof_tiled<DT_ABS>;
+template <int DT>
+TiledKernel tiled_kernel_of(int cb) {
+  switch (cb) {
+    case 1: return rof_tiled<DT, 1>;
+    case 2: return rof_tiled<DT, 2>;
+    case 3: return rof_tiled<DT, 3>;
+    case 4: return rof_tiled<DT, 4>;
+    case 5: return rof_tiled<DT, 5>;
+    default: return rof_tiled<DT, 6>;
+  }
+}
+
+// The kernel of a data term for windows of at most 32 cb columns.
+TiledKernel tiled_kernel(int dataterm, int cb) {
+  return dataterm == DT_SQUARE    ? tiled_kernel_of<DT_SQUARE>(cb)
+         : dataterm == DT_WSQUARE ? tiled_kernel_of<DT_WSQUARE>(cb)
+                                  : tiled_kernel_of<DT_ABS>(cb);
 }
 
 // The dynamic shared memory a block of the tiled launch may hold on the
-// current device: the smallest of its three data terms' limits, or minus
-// the error.
+// current device: the smallest of its three data terms' limits (the
+// kernels hold no static shared memory), or minus the error.
 int rof_tiled_limit() {
   int limit = -1;
   for (int dt = 0; dt < 3; ++dt) {
-    int l = resident_smem_limit(tiled_kernel(dt));
+    int l = resident_smem_limit(tiled_kernel(dt, TL_MAX_CB));
     if (l < 0) return l;
     limit = limit < 0 || l < limit ? l : limit;
   }
   return limit;
 }
 
-// One tiled launch of `a` over `batch` instances; refuses a tile that is
-// not a multiple of the 32x8 norm tiles or whose window does not fit in a
-// block's shared memory, and a batch beyond MAX_BATCH.
+// One tiled launch of `a` over `batch` instances, by the kernel whose map
+// holds the widest window; refuses a tile that is not a multiple of the
+// 32x8 norm tiles, whose map does not fit a block (tiled_map_ok) or whose
+// window does not fit in a block's shared memory, and a batch beyond
+// MAX_BATCH.
 int tiled_launch(const Tiled& a, int dataterm, cudaStream_t s,
                  int batch = 1) {
   if (int rc = batch_error(batch)) return rc;
-  if (a.tx < BY || a.tx % BY || a.ty < BX || a.ty % BX || a.count < 1)
+  if (a.tx < BY || a.tx % BY || a.ty < BX || a.ty % BX || a.count < 1 ||
+      !tiled_map_ok(a.tx, a.ty, a.count))
     return (int)cudaErrorInvalidValue;
   const size_t smem = tiled_smem(a.tx, a.ty, a.count, dataterm);
-  const int limit = rof_tiled_limit();
+  TiledKernel kern =
+      tiled_kernel(dataterm, tiled_cb(min(a.ty + 2 * a.count + 1, a.ny)));
+  const int limit = resident_smem_limit(kern);
   if (limit < 0) return -limit;
   if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
-  TiledKernel kern = tiled_kernel(dataterm);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -1526,9 +1804,18 @@ int tiled_launch(const Tiled& a, int dataterm, cudaStream_t s,
 int tiled_settle(const Tiled& a, float* x, float* q, int multi,
                  cudaStream_t s, int batch = 1) {
   const size_t n = (size_t)a.nx * a.ny;
-  const size_t blocks = (3 * n + 511) / 512;
-  rof_tiled_settle<<<dim3(blocks < 264 ? (int)blocks : 264, 1, batch), 512,
-                     0, s>>>(a.x2, a.q2, x, q, a.sc, n, multi);
+  const bool wide = n % 4 == 0 &&
+                    ((size_t)a.x2 | (size_t)a.q2 | (size_t)x | (size_t)q) %
+                            sizeof(float4) == 0;
+  const size_t m = wide ? n / 4 : n;
+  const size_t blocks = (3 * m + 511) / 512;
+  const dim3 grid(blocks < 528 ? (int)blocks : 528, 1, batch);
+  if (wide)
+    rof_tiled_settle<<<grid, 512, 0, s>>>(
+        (const float4*)a.x2, (const float4*)a.q2, (float4*)x, (float4*)q,
+        a.sc, m, multi);
+  else
+    rof_tiled_settle<<<grid, 512, 0, s>>>(a.x2, a.q2, x, q, a.sc, m, multi);
   LAUNCH_CHECK();
   return 0;
 }

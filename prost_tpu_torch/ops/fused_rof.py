@@ -43,8 +43,8 @@ the halo bands of 2048-wide planes): one launch a chunk over overlapping
 memory, the multichunk as that launch and the on-device finish chunk after
 chunk (``route_of``).  The streaming launch sequence (seed, two launches
 an iteration, norms, finish) runs only where ``path="streaming"`` asks for
-it, or where no tile's window holds a chunk's halo (more than 39
-iterations a chunk with wsquare, 43 without).  All three are bit-equal;
+it, or where no tile's window holds a chunk's halo (more than 40
+iterations a chunk with wsquare, 47 without).  All three are bit-equal;
 ``path=`` forces one, and a path that cannot launch raises.
 ``rof_chunk_tiled_plain``, ``rof_multichunk_tiled_plain`` and
 ``rof_chunk_batched_tiled_plain`` are the tiled launches' plain twins,
@@ -587,17 +587,42 @@ def resident_ok(nx: int, ny: int, dataterm: str, sms: int, smem: int,
 # multiple of 8 and columns of 32, so every 32x8 norm tile lies in one block
 TILE_ROWS = tuple(range(8, 257, 8))
 TILE_COLS = tuple(range(32, 257, 32))
+# its thread map (csrc/fused_rof.cu TL_WARPS, TL_K, TL_MAX_CB): blocks of
+# 32 columns (at most TILE_MAX_CB) by TILE_STRIP rows of a window, a warp
+# each; TILE_HEAD floats of shared memory before the window's planes
+TILE_WARPS, TILE_STRIP, TILE_MAX_CB, TILE_HEAD = 32, 13, 6, 40
 
 
 def tiled_bytes(tx: int, ty: int, count: int, dataterm: str = "square") -> int:
     """The dynamic shared memory of one block of the tiled launch
     (csrc/fused_rof.cu tiled_smem): the window of a ``tx`` x ``ty`` tile
     with the halo of a ``count``-iteration chunk (``tiled_halo``: 2 count +
-    1 rows and columns more), x before and after a primal step, q_x, q_y,
-    f, and wsquare's w (6 planes, 5 for the other data terms)."""
+    1 rows and columns more) in x, q_x, q_y, f, and wsquare's w (5 planes,
+    4 for the other data terms), their rows as wide as the map
+    (``tiled_map``: 32 floats a block of columns), after the block's
+    ``TILE_HEAD`` floats."""
     h = 2 * int(count) + 1
-    planes = 6 if dataterm == "wsquare" else 5
-    return 4 * planes * (int(tx) + h) * (int(ty) + h)
+    planes = 5 if dataterm == "wsquare" else 4
+    cb = tiled_map(tx, ty, count)[0]
+    return 4 * (planes * (int(tx) + h) * 32 * cb + TILE_HEAD)
+
+
+def tiled_map(tx: int, ty: int, count: int) -> tuple:
+    """The thread map of the window of a ``tx`` x ``ty`` tile of a
+    ``count``-iteration chunk (csrc/fused_rof.cu tiled_map_ok): (blocks
+    of 32 columns, blocks of ``TILE_STRIP`` rows), a warp each."""
+    h = 2 * int(count) + 1
+    return -(-(int(ty) + h) // 32), -(-(int(tx) + h) // TILE_STRIP)
+
+
+def tiled_fits(tx: int, ty: int, count: int, dataterm: str,
+               smem: int) -> bool:
+    """Whether the tiled launch takes a ``tx`` x ``ty`` tile: its window
+    fits in ``smem`` bytes (``tiled_bytes``) and its map in the block's
+    warps (``tiled_map``, at most ``TILE_MAX_CB`` blocks of columns)."""
+    cb, rb = tiled_map(tx, ty, count)
+    return (tiled_bytes(tx, ty, count, dataterm) <= int(smem)
+            and cb <= TILE_MAX_CB and cb * rb <= TILE_WARPS)
 
 
 def tiled_tile(nx: int, ny: int, count: int, dataterm: str, sms: int,
@@ -605,18 +630,23 @@ def tiled_tile(nx: int, ny: int, count: int, dataterm: str, sms: int,
     """The owned tile (rows, columns) of the tiled launch on ``batch``
     instances of (nx, ny) planes and ``count``-iteration chunks on a card
     of ``sms`` SMs whose blocks may hold ``smem`` bytes of dynamic shared
-    memory: of the tiles whose window fits (``tiled_bytes``), the one
-    whose launch moves the fewest window pixels through the SMs (the waves
-    of one block per SM over every instance's tiles times a whole tile's
-    window), the larger tile on a tie; None where no tile's window
-    fits."""
-    return window_tile(nx, ny, 2 * int(count) + 1, sms,
-                       lambda tx, ty: tiled_bytes(tx, ty, count, dataterm)
-                       <= smem, batch)
+    memory: of the tiles of ``TILE_ROWS`` x ``TILE_COLS`` that the launch
+    takes (``tiled_fits``), the one whose launch walks the fewest lane
+    rows through the SMs (the rounds of one block per SM over every
+    instance's tiles times a whole tile's window rows times its map's
+    width, 32 lanes a block of columns (``tiled_map``) whether the window
+    fills them or not), the larger tile on a tie; None where no tile
+    fits.  (``window_tile``'s measure, the window's pixels, takes 104x64
+    at 2048x2048, 1-6% slower than 72x96 on an H100: PERF.md.)"""
+    h = 2 * int(count) + 1
+    return window_tile(
+        nx, ny, h, sms,
+        lambda tx, ty: tiled_fits(tx, ty, count, dataterm, smem), batch,
+        cost=lambda tx, ty: min(tx + h, nx) * 32 * -(-min(ty + h, ny) // 32))
 
 
 def window_tile(nx: int, ny: int, h: int, sms: int, fits, batch: int = 1,
-                lead: int = 0, fixed: int = 0):
+                lead: int = 0, fixed: int = 0, cost=None):
     """The owned tile (rows, columns) of a tiled launch on ``batch``
     instances of (nx, ny) planes on a card of ``sms`` SMs, the search of
     every tiled rule: of the tiles of ``TILE_ROWS`` x ``TILE_COLS`` (every
@@ -625,9 +655,13 @@ def window_tile(nx: int, ny: int, h: int, sms: int, fits, batch: int = 1,
     the fewest window pixels through the SMs (the rounds of one block per
     SM over the ``batch`` instances' tiles, and ``lead`` more, times a
     whole tile's window, ``h`` rows and columns more than the tile, and
-    ``fixed`` pixels a window more), the larger tile on a tie; None where
+    ``fixed`` pixels a window more; ``cost(tx, ty)``, where given, in
+    place of that window's measure), the larger tile on a tie; None where
     no tile's window fits."""
-    best, cost = None, None
+    if cost is None:
+        def cost(tx, ty):
+            return (min(tx, nx) + h) * (min(ty, ny) + h) + int(fixed)
+    best, least = None, None
     for ty in TILE_COLS:
         if ty - 32 >= ny:
             break
@@ -636,10 +670,10 @@ def window_tile(nx: int, ny: int, h: int, sms: int, fits, batch: int = 1,
                 break
             tiles = int(batch) * -(-nx // tx) * -(-ny // ty)
             rounds = -(-tiles // int(sms)) + int(lead)
-            c = rounds * ((min(tx, nx) + h) * (min(ty, ny) + h) + int(fixed))
-            if best is None or c < cost or (c == cost and
-                                            tx * ty > best[0] * best[1]):
-                best, cost = (tx, ty), c
+            c = rounds * cost(tx, ty)
+            if best is None or c < least or (c == least and
+                                             tx * ty > best[0] * best[1]):
+                best, least = (tx, ty), c
     return best
 
 

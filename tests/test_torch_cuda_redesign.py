@@ -2181,7 +2181,7 @@ def test_rof_tiled_halo_is_the_launch_sequence(dev, rank, shards, dataterm):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("tile", [(8, 32), (64, 64), (160, 32), (16, 224)])
+@pytest.mark.parametrize("tile", [(8, 32), (64, 64), (160, 32), (16, 160)])
 def test_rof_tiled_any_tile_is_the_launch_sequence(dev, tile):
     """The launch with tiles other than the rule's (thin, square, tall,
     wide) gives the same bits: the halo, not the tile, keeps a window
@@ -2203,6 +2203,42 @@ def test_rof_tiled_any_tile_is_the_launch_sequence(dev, tile):
     torch.cuda.synchronize()
     for a, b in zip(out["streaming"], out["tiled"]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dataterm", ["square", "wsquare", "abs"])
+@pytest.mark.parametrize("which", ["rule", "other"])
+def test_rof_tiled_edge_and_inner_windows_are_the_launch_sequence(
+        dev, which, dataterm):
+    """At 1000x777 (counts 1, 3 and 10) windows touch the plane's first and
+    last rows and columns, and most touch none (their stencils test
+    nothing): the rule's tile and a wide one (48x128) give the streaming
+    sequence's bits; so does the deepest chunk that tiles (47 iterations,
+    40 with wsquare: an 8x32 tile's window of 103x127 or 89x113 pixels)."""
+    planes = _rof_planes(445, 1000, 777, dev)
+    scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0], device=dev)
+    lib = fr._lib()
+    sms, tsmem = fr.card_sms(dev), fr.tiled_limit(dev)
+    deep = 40 if dataterm == "wsquare" else 47
+    for count in (1, 3, 10, deep):
+        tile = fr.tiled_tile(1000, 777, count, dataterm, sms, tsmem)
+        if which == "other" and count != deep:
+            tile = (48, 128)
+        assert tile is not None
+        out = {}
+        for path in ("streaming", "tiled"):
+            cur = [t.clone() for t in planes[:2]]
+            prev = [torch.full_like(t, float("nan")) for t in cur]
+            sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
+            partial = cur[0].new_empty(
+                4 * lib.prost_rof_num_blocks(1000, 777))
+            fr._launch_chunk("rof_chunk", cur, prev, *planes[2:], sc,
+                             partial, fr._scratch(path, 1000, 777, dev),
+                             (path, tile if path == "tiled" else None),
+                             count, dataterm)
+            out[path] = cur + prev + [sc[15:19].clone()]
+        torch.cuda.synchronize()
+        for a, b in zip(out["streaming"], out["tiled"]):
+            assert torch.equal(a, b)
 
 
 def _tiled_multichunks(x, q, f, w, scal, count, k_chunks, dataterm,
@@ -2318,9 +2354,11 @@ def test_rof_tiled_light_calls_on_the_card(dev, dataterm):
 
 def test_rof_tiled_rules_on_the_card(dev):
     """The card's limits send the 2048x2048 and 2048x1536 chunks and
-    multichunks and the 2092-row band to the tiled launch; a chunk of 40
-    iterations, whose halo no window holds, streams; asking for the tiled
-    launch there raises, and so does a tile the C side refuses."""
+    multichunks and the 2092-row band to the tiled launch; a chunk of 41
+    iterations with wsquare, whose halo no window holds, streams; asking
+    for the tiled launch there raises, and so does a tile the C side
+    refuses (not whole 32x8 norm tiles; a window beyond the shared memory;
+    a window whose thread map needs more warps than a block has)."""
     sms, tsmem = fr.card_sms(dev), fr.tiled_limit(dev)
     assert tsmem >= 227 * 1024
     for multi in (False, True):
@@ -2328,17 +2366,19 @@ def test_rof_tiled_rules_on_the_card(dev):
         for nx, ny in ((2048, 1536), (2048, 2048), (2092, 2048)):
             assert fr.route_of(nx, ny, "wsquare", 10, *limits, tsmem,
                                multi) == "tiled"
-    assert fr.route_of(2048, 2048, "wsquare", 40, *fr.card_limits(dev),
+    assert fr.route_of(2048, 2048, "wsquare", 41, *fr.card_limits(dev),
                        tsmem) == "streaming"
     x, q, f, w = _rof_planes(443, 2048, 2048, dev)
     scal = torch.tensor([0.9, 1.1, 1.0, 8.0, 1.0], device=dev)
     with pytest.raises(ptt.ProstError, match="no tile"):
-        fr.rof_chunk_(x, q, x.clone(), q.clone(), f, w, scal, 40,
+        fr.rof_chunk_(x, q, x.clone(), q.clone(), f, w, scal, 41,
                       dataterm="wsquare", path="tiled")
     lib = fr._lib()
     sc = scalar_buffer(scal, 5, S_CONV, S_LEN)
     partial = x.new_empty(4 * lib.prost_rof_num_blocks(2048, 2048))
-    for tile in ((12, 32), (8, 48), (256, 256)):  # not 8x32 tiles; too big
+    # not 8x32 tiles; too big; a map of 3 x 11 warps; a window wider than
+    # the map's 6 blocks of 32 columns
+    for tile in ((12, 32), (8, 48), (256, 256), (112, 64), (16, 224)):
         with pytest.raises(ptt.ProstError, match="CUDA launch failed"):
             launch(lib, "prost_rof_chunk_tiled", "rof_chunk",
                    fr.launch_counts, dev,
@@ -3570,7 +3610,7 @@ def test_rof_batched_tiled_refuses_what_it_does_not_take(dev):
     with pytest.raises(ptt.ProstError, match="no cluster"):
         fr.rof_chunk_batched(*big, bscal, 10, path="cluster")
     with pytest.raises(ptt.ProstError, match="no tile"):
-        fr.rof_chunk_batched(*big, bscal, 40, "wsquare", path="tiled")
+        fr.rof_chunk_batched(*big, bscal, 41, "wsquare", path="tiled")
 
 
 def test_rof_batched_light_call_on_the_card(dev):

@@ -18,8 +18,8 @@ planes no grid-resident band holds), as far as the CPU can check them.
   (``rof_fused_chunk_banded``, whole plane and halo band;
   ``rof_fused_multichunk_banded`` under boyd and alg1 with an odd chunk
   count): 3e-7 on the planes, 1e-5 relative on the norms.
-* The shape rule (``route_of``, ``tiled_tile``, ``tiled_bytes``) on an
-  H100's SM count and shared-memory limit.
+* The shape rule (``route_of``, ``tiled_tile``, ``tiled_bytes``,
+  ``tiled_map``) on an H100's SM count and shared-memory limit.
 
 The kernel itself is held bit for bit against the streaming launch
 sequence on the card by tests/test_torch_cuda_redesign.py (``-k tiled``)
@@ -327,24 +327,40 @@ def test_tiled_tile_fits_and_covers_the_norm_tiles(nx, ny, count, dataterm):
     tx, ty = tfr.tiled_tile(nx, ny, count, dataterm, H100_SMS, H100_SMEM)
     assert tx % 8 == 0 and ty % 32 == 0
     assert tfr.tiled_bytes(tx, ty, count, dataterm) <= H100_SMEM
+    cb, rb = tfr.tiled_map(tx, ty, count)
+    assert cb * rb <= tfr.TILE_WARPS
 
 
 def test_tiled_bytes_count_the_window():
-    """csrc's tiled_smem by hand: a 104x64 tile of a chunk of 10 has a
-    125x85 window; x twice, q_x, q_y and f (212500 bytes), wsquare's w one
-    plane more (255000: beyond a block, so wsquare takes another tile)."""
-    assert tfr.tiled_bytes(104, 64, 10) == 4 * 5 * 125 * 85 == 212500
-    assert tfr.tiled_bytes(104, 64, 10, "wsquare") == 255000
-    assert tfr.tiled_bytes(104, 64, 10, "abs") == 212500
+    """csrc's tiled_smem and tiled_map_ok by hand: a 104x64 tile of a chunk
+    of 10 has a 125x85 window, its rows as wide as its map's 3 blocks of 32
+    columns (96 floats); x, q_x, q_y and f after the block's 40-float head
+    (192160 bytes; grad x is carried in registers), wsquare's w one plane
+    more (240160: beyond a block, so wsquare takes another tile); the map
+    is 3 blocks of columns by 10 of 13 rows, 30 of the block's 32 warps.
+    A 112x64 tile's window needs 11 row blocks, 33 warps: refused."""
+    assert tfr.tiled_bytes(104, 64, 10) == 4 * (4 * 125 * 96 + 40) == 192160
+    assert tfr.tiled_bytes(104, 64, 10, "wsquare") == 240160
+    assert tfr.tiled_bytes(104, 64, 10, "abs") == 192160
+    assert tfr.tiled_map(104, 64, 10) == (3, 10)
+    assert tfr.tiled_fits(104, 64, 10, "square", H100_SMEM)
+    assert not tfr.tiled_fits(104, 64, 10, "wsquare", H100_SMEM)
+    assert tfr.tiled_map(112, 64, 10) == (3, 11)
+    assert not tfr.tiled_fits(112, 64, 10, "square", H100_SMEM)
 
 
 def test_deep_chunks_stream():
-    """A chunk of 40 iterations has a halo no window of a 32x8 tile holds
-    in 227 KB: the rule streams, and ``tiled_tile`` says None."""
-    assert tfr.tiled_tile(2048, 2048, 40, "wsquare", H100_SMS,
-                          H100_SMEM) is None
-    assert tfr.route_of(2048, 2048, "wsquare", 40, H100_SMS, H100_SMEM,
-                        H100_SMEM) == "streaming"
+    """A chunk of 41 iterations with wsquare (48 without) has a halo no
+    window of an 8x32 tile holds in 227 KB (wsquare's 5 planes) or in the
+    block's 32 warps (the map of 13-row strips): the rule streams, and
+    ``tiled_tile`` says None; one iteration less still tiles."""
+    for dataterm, deep in (("wsquare", 41), ("square", 48)):
+        assert tfr.tiled_tile(2048, 2048, deep, dataterm, H100_SMS,
+                              H100_SMEM) is None
+        assert tfr.route_of(2048, 2048, dataterm, deep, H100_SMS, H100_SMEM,
+                            H100_SMEM) == "streaming"
+        assert tfr.tiled_tile(2048, 2048, deep - 1, dataterm, H100_SMS,
+                              H100_SMEM) == (8, 32)
 
 
 def test_cpu_wrappers_take_the_tiled_path_name():

@@ -162,12 +162,13 @@ def test_batched_twin_is_batched_plain_f64(B, nx, ny, count, tile, dataterm,
 # ---------------------------------------------------------------------------
 
 def _cost(nx, ny, count, B, tile):
-    """window_tile's measure of a tile: rounds of one block per SM over
-    the B instances' tiles times a whole tile's window."""
+    """tiled_tile's measure of a tile: rounds of one block per SM over the
+    B instances' tiles times a whole tile's window rows times its thread
+    map's width (32 lanes a block of 32 columns)."""
     tx, ty = tile
     h = 2 * count + 1
     rounds = -(-(B * -(-nx // tx) * -(-ny // ty)) // H100_SMS)
-    return rounds * (min(tx, nx) + h) * (min(ty, ny) + h)
+    return rounds * min(tx + h, nx) * 32 * -(-min(ty + h, ny) // 32)
 
 
 @pytest.mark.parametrize("nx,ny,B,dataterm", [
@@ -175,38 +176,40 @@ def _cost(nx, ny, count, B, tile):
     (512, 512, 8, "wsquare"), (300, 272, 3, "abs"), (272, 272, 64, "square")])
 def test_batched_tile_fits_covers_norm_tiles_and_counts_the_batch(
         nx, ny, B, dataterm):
-    """The rule's tile fits a block, holds whole 32x8 norm tiles, and moves
-    the fewest window pixels through the SMs over the B instances' tiles
-    of every tile that fits."""
+    """The rule's tile fits a block, holds whole 32x8 norm tiles, and walks
+    the fewest lane rows through the SMs over the B instances' tiles of
+    every tile that fits."""
     count = 10
     tile = tfr.tiled_tile(nx, ny, count, dataterm, H100_SMS, H100_SMEM, B)
     tx, ty = tile
     assert tx % 8 == 0 and ty % 32 == 0
     assert tfr.tiled_bytes(tx, ty, count, dataterm) <= H100_SMEM
     fits = [(a, b) for a in tfr.TILE_ROWS for b in tfr.TILE_COLS
-            if tfr.tiled_bytes(a, b, count, dataterm) <= H100_SMEM
+            if tfr.tiled_fits(a, b, count, dataterm, H100_SMEM)
             and a - 8 < nx and b - 32 < ny]
     assert _cost(nx, ny, count, B, tile) == min(
         _cost(nx, ny, count, B, t) for t in fits)
 
 
 def test_batched_tile_rule_counts_the_instances():
-    """One instance of 2048x2048 takes 104x64 tiles (640 tiles, 5 rounds of
-    132 SMs); four take 56x128 (2368 tiles, 18 rounds), which move fewer
-    window pixels than four times the single instance's tiles."""
+    """One instance of 2048x2048 takes 72x96 tiles (638 tiles, 5 rounds of
+    132 SMs); four take 56x128 (2368 tiles, 18 rounds), which walk fewer
+    lane rows than four times the single instance's tiles."""
     one = tfr.tiled_tile(2048, 2048, 10, "square", H100_SMS, H100_SMEM)
     four = tfr.tiled_tile(2048, 2048, 10, "square", H100_SMS, H100_SMEM, 4)
-    assert one == (104, 64) and four == (56, 128)
+    assert one == (72, 96) and four == (56, 128)
     assert _cost(2048, 2048, 10, 4, four) < _cost(2048, 2048, 10, 4, one)
     assert tfr.tiled_ok(2048, 2048, 10, "square", H100_SMS, H100_SMEM, 4)
 
 
 # (instance side, data term, count, route): a cluster of 8 holds 256x256
 # and not 272x272; 1280x1280 (the JAX package's banded ensemble) and
-# 2048x2048 tile; a chunk of 40 has a halo no window holds
+# 2048x2048 tile; a chunk of 40 with wsquare still tiles, one of 41 has a
+# halo no window holds
 ROUTES = [(128, "square", 10, "cluster"), (256, "wsquare", 10, "cluster"),
           (272, "square", 10, "tiled"), (1280, "square", 10, "tiled"),
-          (2048, "wsquare", 10, "tiled"), (2048, "wsquare", 40, "streaming")]
+          (2048, "wsquare", 10, "tiled"), (2048, "wsquare", 40, "tiled"),
+          (2048, "wsquare", 41, "streaming")]
 
 
 @pytest.mark.parametrize("n,dataterm,count,want", ROUTES)

@@ -8,11 +8,14 @@ writes ``OUT_DIR/fused_vol.so``: the source (and the ``csrc`` headers it
 includes) compiled as C++20 by g++ against the stand-in runtime in
 ``include/``, one pthread per CUDA thread (``__syncthreads`` and
 ``grid.sync()`` are barriers over a block's and a launch's threads, a
-streaming launch runs its blocks one after another, a cooperative one
-all at once, dynamic shared memory is filled with NaN).  Load it with
+streaming launch runs its blocks one after another on one set of
+threads, a cooperative one all at once, dynamic shared memory is filled
+with NaN).  Load it with
 ctypes and call its C entry points with host (numpy) buffers; the extra
 ``shim_set_sms(n)`` sets the SM count a resident launch sees (so bands of
-1 to n rows, and empty bands, can be tried).  It finds indexing and race
+1 to n rows, and empty bands, can be tried), and ``shim_set_reverse(1)``
+runs a streaming launch's blocks last to first (a block that writes what
+a block before it in the grid still reads shows then).  It finds indexing and race
 faults and holds one form of a kernel against another bit for bit (both
 run the host's arithmetic); against the plain PyTorch versions expect a
 few ulp (the host rounds rsqrtf and the sums otherwise).  Keep the SM
@@ -54,7 +57,8 @@ def build(name: str, out_dir: str) -> str:
                 fh.write(text)
     with open(os.path.join(CSRC, f"{name}.cu")) as fh:
         text = convert(fh.read())
-    text += '\nextern "C" void shim_set_sms(int n) { SHIM_SMS = n; }\n'
+    text += ('\nextern "C" void shim_set_sms(int n) { SHIM_SMS = n; }\n'
+             'extern "C" void shim_set_reverse(int r) { SHIM_REVERSE = r; }\n')
     src = os.path.join(out_dir, f"{name}.cpp")
     with open(src, "w") as fh:
         fh.write(text)
